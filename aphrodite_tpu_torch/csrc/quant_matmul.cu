@@ -1,0 +1,493 @@
+// GPTQ dequant matmuls and per-row int8 activation quantization, CUDA C++
+// for sm_90a.
+//
+// Replaces four Pallas TPU kernels of aphrodite_tpu/ops/pallas/quant_matmul.py:
+//   _kernel            (quant_matmul.py:554)  -> gptq_mma_kernel, 128-row tiles (K6)
+//   _stream_kernel     (quant_matmul.py:308)  -> gptq_mma_kernel, 16-64-row tiles
+//                                                with split K, GPTQ layout (K7)
+//   _gptq_a8_kernel / _gptq_a8_deferred_kernel
+//                      (quant_matmul.py:1274, :1311)
+//                                             -> gptq_mma_kernel<A8>, 128-row (K8)
+//   _quant8_kernel     (quant_matmul.py:781)  -> quant8_kernel (K9)
+//
+// Layout (AutoGPTQ v1): qweight [K / pack, N] int32 packs pack = 32 / bits
+// codes along K, row k in word k / pack at shift bits * (k % pack);
+// qzeros [G, N / pack] int32 packs the stored zero points along N; scales
+// [G, N] bf16; G = K / group_size and group g spans rows [g*gs, (g+1)*gs).
+// Dequant: w[k, n] = (q[k, n] - (z[g, n] + 1)) * s[g, n] (the AutoGPTQ +1).
+//
+// What bounds them on an H100:
+// - K7 (m <= 64, every decode step): bytes. Each int4 weight is used by at
+//   most 64 rows; the least time is the packed weight read once over
+//   3.35 TB/s (8.4 us for down_proj at Mistral-7B width).
+// - K6 / K8 (m > 64: prompt rounds, large decode batches): operations at
+//   large m (989 TFLOP/s bf16, 1979 TOP/s int8), bytes below a few hundred
+//   rows.
+// - K9: bytes (x read once, the int8 copy and the row scales written once).
+//
+// What the design does about it. One templated kernel serves K6, K7 and
+// K8: a block owns BM rows x 128 columns of the output and walks its
+// quantization groups in order; each group is cut into 64-deep k chunks.
+// For every chunk the block stages x in shared memory and dequantizes the
+// chunk of W there (in the natural row order: the TPU's plane-order unpack
+// and x column permutation were sublane tricks and are gone; the packed
+// words of the next chunk are already on their way into registers), then
+// its eight warps run mma.sync on the tile: bf16 m16n8k16 with f32 sums (A16),
+// or s8 m16n8k32 with exact int32 sums per group and the f32 rescale by the
+// group's scale when the group ends (A8: codes minus zero lie in [-16, 14]
+// and fit int8 exactly). The TPU kernels carried the f32 sum across a
+// sequential grid axis in VMEM scratch; here the k loop is inside the
+// block. For skinny m (K7) a block covers 16, 32 or 64 rows, so the weight
+// is streamed once, and the groups are split over several blocks to fill
+// the 132 SMs: each split writes f32 partial sums and a second kernel adds
+// them in split order (deterministic, no atomics), applies the A8 row
+// scale and rounds to bf16. x of up to 64 x 14336 does not fit in shared
+// memory, so it is staged chunk by chunk like W. The two TPU W4A8 bodies
+// (classic and deferred rescale) differ only in the f32 summation order;
+// this one kernel computes both. Simple first: no cp.async / TMA pipeline
+// and no wgmma yet.
+//
+// Each C entry point launches on the caller's stream, allocates nothing
+// and returns cudaGetLastError(). Build without --use_fast_math: K9's
+// division must be IEEE and its rounding rintf (half to even), so that it
+// equals its plain version exactly.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;   // eight warps
+constexpr int kBN = 128;        // output columns per block
+constexpr int kChunk = 64;      // k values staged per step
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <bool A8> struct Elem;
+template <> struct Elem<false> {
+  using T = __nv_bfloat16;
+  static constexpr int kPad = 8;     // 16 bytes: conflict-free fragments
+  static __device__ __forceinline__ T zero() { return __float2bfloat16(0.f); }
+};
+template <> struct Elem<true> {
+  using T = int8_t;
+  static constexpr int kPad = 16;
+  static __device__ __forceinline__ T zero() { return 0; }
+};
+
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *static_cast<const uint32_t*>(p);
+}
+
+// Store WORDS 32-bit words to 8- or 16-byte aligned shared memory.
+template <int WORDS>
+__device__ __forceinline__ void st_words(void* p, const uint32_t* w) {
+  if constexpr (WORDS == 4) {
+    *static_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    static_assert(WORDS == 2, "2 or 4 words");
+    *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  }
+}
+
+// One block: rows [m0, m0 + BM) x columns [n0, n0 + 128) over the groups
+// [g_begin, g_end) of split blockIdx.z. WARPS_M x (8 / WARPS_M) warps.
+// splits == 1 writes `out` (bf16; A8 times the row scale xs); otherwise
+// `partial[split, row, col]` in f32 for split_reduce_kernel.
+//
+// Each group is cut into chunks of 64 k. The two threads that own a column
+// hold that column's packed words of the next chunk in registers, loaded
+// before the current chunk's products, so the weight stream's latency
+// overlaps the tensor-core work and the barriers.
+template <int BM, int WARPS_M, int BITS, bool A8>
+__global__ void __launch_bounds__(kThreads)
+gptq_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
+                const float* __restrict__ xs,
+                const uint32_t* __restrict__ qweight,
+                const uint32_t* __restrict__ qzeros,
+                const __nv_bfloat16* __restrict__ scales,
+                __nv_bfloat16* __restrict__ out,
+                float* __restrict__ partial, int m, int K, int N, int gs,
+                int groups_per_split) {
+  using T = typename Elem<A8>::T;
+  constexpr int WARPS_N = 8 / WARPS_M;
+  constexpr int WM = BM / WARPS_M;
+  constexpr int WN = kBN / WARPS_N;
+  constexpr int MI = WM / 16;
+  constexpr int NI = WN / 8;
+  constexpr int LD = kChunk + Elem<A8>::kPad;
+  constexpr int PACK = 32 / BITS;
+  constexpr uint32_t MASK = (1u << BITS) - 1u;
+  constexpr int WPT = kChunk / PACK / 2;    // words per thread per chunk
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));   // x per uint4
+  static_assert(MI >= 1 && NI >= 1 && WM % 16 == 0 && WN % 8 == 0, "tile");
+
+  __shared__ __align__(16) T x_tile[BM][LD];
+  __shared__ __align__(16) T w_tile[kBN][LD];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * BM;
+  const int G = K / gs;
+  const int g_begin = blockIdx.z * groups_per_split;
+  const int g_end = min(G, g_begin + groups_per_split);
+  const int chunks = (gs + kChunk - 1) / kChunk;    // per group
+  // 16-byte x loads when every chunk start and row start is aligned.
+  const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     K % VEC == 0 && gs % VEC == 0;
+
+  // The column this thread dequantizes and its half of the chunk's words
+  // (fixed: 256 threads, 128 columns).
+  const int my_n = tid % kBN;
+  const int my_col = n0 + my_n;
+  const int my_half = tid / kBN;
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // Words wi = my_half + 2 * i of chunk c of group g (zero past the group).
+  uint32_t words[WPT];
+  auto load_words = [&](int g, int c) {
+    const int k0 = g * gs + c * kChunk;
+    const int kn = min(kChunk, (g + 1) * gs - k0);
+#pragma unroll
+    for (int i = 0; i < WPT; ++i) {
+      const int kk = (my_half + 2 * i) * PACK;
+      words[i] = kk < kn
+          ? qweight[static_cast<size_t>((k0 + kk) / PACK) * N + my_col] : 0u;
+    }
+  };
+  if (g_begin < g_end) load_words(g_begin, 0);
+
+  for (int g = g_begin; g < g_end; ++g) {
+    const uint32_t zw = qzeros[static_cast<size_t>(g) * (N / PACK) +
+                               my_col / PACK];
+    const int z = static_cast<int>((zw >> (BITS * (my_col % PACK))) & MASK) + 1;
+    const float s = __bfloat162float(scales[static_cast<size_t>(g) * N + my_col]);
+    int iacc[MI][NI][4];
+    if constexpr (A8) {
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) iacc[mi][ni][e] = 0;
+    }
+    for (int c = 0; c < chunks; ++c) {
+      const int k0 = g * gs + c * kChunk;
+      const int kn = min(kChunk, (g + 1) * gs - k0);   // a multiple of PACK
+      // Stage x rows [m0, m0 + BM) x k [k0, k0 + kn), zeros elsewhere.
+      if (x_vec && kn == kChunk) {
+        constexpr int VPR = kChunk / VEC;
+        for (int i = tid; i < BM * VPR; i += kThreads) {
+          const int r = i / VPR, v = i % VPR;
+          uint4 val = make_uint4(0u, 0u, 0u, 0u);
+          if (m0 + r < m)
+            val = *reinterpret_cast<const uint4*>(
+                x + static_cast<size_t>(m0 + r) * K + k0 + v * VEC);
+          *reinterpret_cast<uint4*>(&x_tile[r][v * VEC]) = val;
+        }
+      } else {
+        for (int i = tid; i < BM * kChunk; i += kThreads) {
+          const int r = i / kChunk, col = i % kChunk;
+          T v = Elem<A8>::zero();
+          if (m0 + r < m && col < kn)
+            v = x[static_cast<size_t>(m0 + r) * K + k0 + col];
+          x_tile[r][col] = v;
+        }
+      }
+      // Dequantize this thread's words into W rows of its column; past kn
+      // the words are zero and so are the stored values.
+#pragma unroll
+      for (int i = 0; i < WPT; ++i) {
+        const int kk = (my_half + 2 * i) * PACK;
+        const uint32_t word = words[i];
+        const bool valid = kk < kn;
+        if constexpr (A8) {
+          uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+          for (int j = 0; j < PACK; ++j) {
+            const int q = static_cast<int>((word >> (BITS * j)) & MASK);
+            const uint32_t b = valid ? static_cast<uint32_t>(q - z) & 0xffu : 0u;
+            packed[j / 4] |= b << (8 * (j % 4));
+          }
+          st_words<2>(&w_tile[my_n][kk], packed);
+        } else {
+          uint32_t packed[PACK / 2];
+#pragma unroll
+          for (int j = 0; j < PACK; j += 2) {
+            const int q0 = static_cast<int>((word >> (BITS * j)) & MASK);
+            const int q1 = static_cast<int>((word >> (BITS * (j + 1))) & MASK);
+            const __nv_bfloat162 w2 = __floats2bfloat162_rn(
+                valid ? static_cast<float>(q0 - z) * s : 0.f,
+                valid ? static_cast<float>(q1 - z) * s : 0.f);
+            packed[j / 2] = *reinterpret_cast<const uint32_t*>(&w2);
+          }
+          st_words<PACK / 2>(&w_tile[my_n][kk], packed);
+        }
+      }
+      // Next chunk's words (next group's first at the group's end).
+      if (c + 1 < chunks) {
+        load_words(g, c + 1);
+      } else if (g + 1 < g_end) {
+        load_words(g + 1, 0);
+      }
+      __syncthreads();
+      if constexpr (A8) {
+#pragma unroll
+        for (int ks = 0; ks < kChunk; ks += 32) {
+          uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            const int r = wm * WM + mi * 16 + gid;
+            a[mi][0] = ld32(&x_tile[r][ks + tig * 4]);
+            a[mi][1] = ld32(&x_tile[r + 8][ks + tig * 4]);
+            a[mi][2] = ld32(&x_tile[r][ks + 16 + tig * 4]);
+            a[mi][3] = ld32(&x_tile[r + 8][ks + 16 + tig * 4]);
+          }
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            const int n = wn * WN + ni * 8 + gid;
+            b[ni][0] = ld32(&w_tile[n][ks + tig * 4]);
+            b[ni][1] = ld32(&w_tile[n][ks + 16 + tig * 4]);
+          }
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < NI; ++ni) mma_s8(iacc[mi][ni], a[mi], b[ni]);
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < kChunk; ks += 16) {
+          uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            const int r = wm * WM + mi * 16 + gid;
+            a[mi][0] = ld32(&x_tile[r][ks + tig * 2]);
+            a[mi][1] = ld32(&x_tile[r + 8][ks + tig * 2]);
+            a[mi][2] = ld32(&x_tile[r][ks + tig * 2 + 8]);
+            a[mi][3] = ld32(&x_tile[r + 8][ks + tig * 2 + 8]);
+          }
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            const int n = wn * WN + ni * 8 + gid;
+            b[ni][0] = ld32(&w_tile[n][ks + tig * 2]);
+            b[ni][1] = ld32(&w_tile[n][ks + tig * 2 + 8]);
+          }
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < NI; ++ni)
+              mma_bf16(acc[mi][ni], a[mi], b[ni]);
+        }
+      }
+      __syncthreads();
+    }
+    if constexpr (A8) {
+      // The group's exact integer dots times its scale row, into f32.
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int col = n0 + wn * WN + ni * 8 + tig * 2;
+        const float s0 = __bfloat162float(scales[static_cast<size_t>(g) * N + col]);
+        const float s1 = __bfloat162float(scales[static_cast<size_t>(g) * N + col + 1]);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          acc[mi][ni][0] = __fadd_rn(acc[mi][ni][0],
+                                     __fmul_rn(static_cast<float>(iacc[mi][ni][0]), s0));
+          acc[mi][ni][1] = __fadd_rn(acc[mi][ni][1],
+                                     __fmul_rn(static_cast<float>(iacc[mi][ni][1]), s1));
+          acc[mi][ni][2] = __fadd_rn(acc[mi][ni][2],
+                                     __fmul_rn(static_cast<float>(iacc[mi][ni][2]), s0));
+          acc[mi][ni][3] = __fadd_rn(acc[mi][ni][3],
+                                     __fmul_rn(static_cast<float>(iacc[mi][ni][3]), s1));
+        }
+      }
+    }
+  }
+
+  // Epilogue: accumulator rows gid and gid + 8, columns tig*2 and +1.
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + wm * WM + mi * 16 + gid + half * 8;
+      if (r >= m) continue;
+      const float rs = (A8 && partial == nullptr) ? xs[r] : 1.f;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int col = n0 + wn * WN + ni * 8 + tig * 2;
+        const float v0 = acc[mi][ni][half * 2];
+        const float v1 = acc[mi][ni][half * 2 + 1];
+        if (partial != nullptr) {
+          *reinterpret_cast<float2*>(
+              partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
+              make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<size_t>(r) * N + col) =
+              __floats2bfloat162_rn(v0 * rs, v1 * rs);
+        }
+      }
+    }
+  }
+}
+
+// Second pass of a split-K launch: out = bf16(sum over splits, in order,
+// times the A8 row scale when xs is given).
+__global__ void split_reduce_kernel(const float* __restrict__ partial,
+                                    const float* __restrict__ xs,
+                                    __nv_bfloat16* __restrict__ out,
+                                    int splits, int m, int N) {
+  const size_t total = static_cast<size_t>(m) * N;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += partial[s * total + i];
+  if (xs != nullptr) v *= xs[i / N];
+  out[i] = __float2bfloat16(v);
+}
+
+template <int BM, int WARPS_M, int BITS, bool A8>
+void launch_tile(const void* x, const float* xs, const void* qweight,
+                 const void* qzeros, const void* scales, void* out,
+                 float* partial, int m, int K, int N, int gs, int splits,
+                 cudaStream_t stream) {
+  const int G = K / gs;
+  const int gps = (G + splits - 1) / splits;
+  dim3 grid(N / kBN, (m + BM - 1) / BM, splits);
+  gptq_mma_kernel<BM, WARPS_M, BITS, A8><<<grid, kThreads, 0, stream>>>(
+      static_cast<const typename Elem<A8>::T*>(x), xs,
+      static_cast<const uint32_t*>(qweight),
+      static_cast<const uint32_t*>(qzeros),
+      static_cast<const __nv_bfloat16*>(scales),
+      static_cast<__nv_bfloat16*>(out), splits > 1 ? partial : nullptr, m,
+      K, N, gs, gps);
+}
+
+template <int BITS, bool A8>
+int launch(const void* x, const float* xs, const void* qweight,
+           const void* qzeros, const void* scales, void* out,
+           float* partial, int m, int K, int N, int gs, int splits,
+           int block_m, cudaStream_t stream) {
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  switch (block_m) {
+    case 16: launch_tile<16, 1, BITS, A8>(x, xs, qweight, qzeros, scales,
+                                          out, partial, m, K, N, gs, splits,
+                                          stream); break;
+    case 32: launch_tile<32, 1, BITS, A8>(x, xs, qweight, qzeros, scales,
+                                          out, partial, m, K, N, gs, splits,
+                                          stream); break;
+    case 64: launch_tile<64, 1, BITS, A8>(x, xs, qweight, qzeros, scales,
+                                          out, partial, m, K, N, gs, splits,
+                                          stream); break;
+    case 128: launch_tile<128, 2, BITS, A8>(x, xs, qweight, qzeros, scales,
+                                            out, partial, m, K, N, gs,
+                                            splits, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (splits > 1) {
+    const size_t total = static_cast<size_t>(m) * N;
+    const int threads = 256;
+    const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+    split_reduce_kernel<<<blocks, threads, 0, stream>>>(
+        partial, A8 ? xs : nullptr, static_cast<__nv_bfloat16*>(out), splits,
+        m, N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9: one block per row. Pass 1 reduces |x| to the row's absmax, pass 2
+// writes clip(rint(x / xs), -127, 127) with xs = max(absmax, 1e-8) / 127.
+constexpr int kQuantThreads = 256;
+
+__global__ void __launch_bounds__(kQuantThreads)
+quant8_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
+              float* __restrict__ xs, int K) {
+  __shared__ float warp_max[kQuantThreads / 32];
+  const size_t row = blockIdx.x;
+  const __nv_bfloat16* xr = x + row * K;
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < K; i += kQuantThreads)
+    amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  amax = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+  const float scale = fmaxf(amax, 1e-8f) / 127.0f;
+  int8_t* out = x8 + row * K;
+  for (int i = threadIdx.x; i < K; i += kQuantThreads) {
+    float q = rintf(__bfloat162float(xr[i]) / scale);
+    q = fminf(fmaxf(q, -127.0f), 127.0f);
+    out[i] = static_cast<int8_t>(q);
+  }
+  if (threadIdx.x == 0) xs[row] = scale;
+}
+
+}  // namespace
+
+// y[m, N] = x[m, K] @ dequant(W), x and scales bf16. block_m 128 is K6;
+// 16, 32 and 64 are K7 (with splits > 1, `partial` holds splits*m*N f32).
+extern "C" int gptq_mm_a16(const void* x, const void* qweight,
+                           const void* qzeros, const void* scales, void* out,
+                           float* partial, int m, int K, int N, int gs,
+                           int bits, int splits, int block_m, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits == 4)
+    return launch<4, false>(x, nullptr, qweight, qzeros, scales, out,
+                            partial, m, K, N, gs, splits, block_m, st);
+  if (bits == 8)
+    return launch<8, false>(x, nullptr, qweight, qzeros, scales, out,
+                            partial, m, K, N, gs, splits, block_m, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// y[m, N] = bf16(xs[m] * sum_g s[g] * (x8[m, g] . (q - z)[g])), x8 int8
+// from quant8, 4-bit codes. block_m 128 is K8; 16, 32 and 64 the a8 arm
+// of K7.
+extern "C" int gptq_mm_a8(const void* x8, const float* xs,
+                          const void* qweight, const void* qzeros,
+                          const void* scales, void* out, float* partial,
+                          int m, int K, int N, int gs, int splits,
+                          int block_m, void* stream) {
+  return launch<4, true>(x8, xs, qweight, qzeros, scales, out, partial, m,
+                         K, N, gs, splits, block_m,
+                         static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int quant8(const void* x, void* x8, float* xs, int m, int K,
+                      void* stream) {
+  if (m > 0) {
+    quant8_kernel<<<m, kQuantThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(x8), xs, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -4,9 +4,9 @@ Reference: `aphrodite/engine/args_tools.py` (EngineArgs `:11`,
 add_cli_args `:52`, create_engine_configs `:278`, AsyncEngineArgs `:314`).
 Flag names are kept CLI-compatible with the reference so existing deploy
 scripts port over. In the PyTorch port, configurations outside its
-first slice (LoRA, speculative decoding, multi-GPU, quantization, KV
-quantization, sliding window) are refused here or by the config
-classes, naming the later slice that brings them.
+ported slices (LoRA, speculative decoding, multi-GPU, quantization
+other than GPTQ, KV quantization, sliding window) are refused here or
+by the config classes, naming the later slice that brings them.
 """
 from __future__ import annotations
 
@@ -211,6 +211,7 @@ class EngineArgs:
             lora_config.verify_with_model_config(model_config)
             lora_config.verify_with_scheduler_config(scheduler_config)
         model_config.verify_with_parallel_config(parallel_config)
+        model_config.verify_with_device_config(device_config)
         cache_config.verify_with_parallel_config(parallel_config)
         return (model_config, cache_config, parallel_config,
                 scheduler_config, device_config, lora_config)

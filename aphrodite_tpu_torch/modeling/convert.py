@@ -4,7 +4,10 @@ The JAX Llama keeps a flat tree `{bucket: {name: array}}` with linear
 weights laid out [in, out] (x @ W); the port keeps the same buckets
 with torch's [out, in] layout (F.linear). Embedding tables, the LM head
 ([vocab, hidden] on both sides) and norm weights carry over as they
-are. Used to give both sides the same weights in parity tests.
+are, and so do quantized layers' tensors (GPTQ qweight, qzeros, scales
+and g_idx keep the checkpoint layout on both sides): only a dense 2-D
+`weight` transposes. Used to give both sides the same weights in parity
+tests.
 """
 from __future__ import annotations
 
@@ -29,6 +32,10 @@ def params_from_jax(np_params: Dict[str, Dict[str, np.ndarray]]
             if name == "weight" and arr.ndim == 2 and \
                     key.endswith(_LINEAR_SUFFIXES):
                 arr = arr.T
+            if arr.dtype.name == "bfloat16":      # ml_dtypes, no numpy twin
+                out[name] = torch.from_numpy(
+                    arr.astype(np.float32)).to(torch.bfloat16)
+                continue
             out[name] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return state
 

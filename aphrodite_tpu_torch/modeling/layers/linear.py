@@ -1,4 +1,4 @@
-"""Linear layers of the PyTorch port (single GPU, unquantized).
+"""Linear layers of the PyTorch port (single GPU).
 
 Port of `aphrodite_tpu/modeling/layers/linear.py` at tp=1: the same
 classes and the same fused projections (`qkv_proj`, `gate_up_proj`),
@@ -7,6 +7,11 @@ load as they are; the JAX package transposed to [in, out]). A layer
 owns no tensors: its parameters live in the model's parameter dict and
 are passed in, as in the JAX package. The parallel classes keep their
 names for parity; with one GPU they shard nothing.
+
+Quantization plugs in through `LinearMethod` objects
+(`modeling/layers/quantization/`), which also say how a checkpoint
+tensor is converted (`load_weight`) and placed into a merged layer
+(`out_scale`).
 """
 from __future__ import annotations
 
@@ -34,6 +39,19 @@ class LinearMethod:
     def apply(self, params: ParamDict, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, params["weight"], params.get("bias"))
 
+    def load_weight(self, params: ParamDict, name: str,
+                    hf_tensor: torch.Tensor) -> torch.Tensor:
+        """One checkpoint tensor in this method's layout. Every method
+        ported so far keeps the checkpoint's: dense weights torch's
+        [out, in], GPTQ's packed tensors [.., out]."""
+        return hf_tensor
+
+    def out_scale(self, name: str) -> int:
+        """Divisor on output-dim offsets and sizes when placing `name`
+        into a merged layer (packed formats hold several output channels
+        per int32)."""
+        return 1
+
 
 class LinearBase:
     """Shape bookkeeping shared by the linear layers."""
@@ -57,7 +75,8 @@ class LinearBase:
 
     def weight_loader(self, params: ParamDict, name: str,
                       hf_tensor: torch.Tensor, shard_id=None) -> None:
-        params[name] = hf_tensor
+        params[name] = self.linear_method.load_weight(params, name,
+                                                      hf_tensor)
 
 
 class ColumnParallelLinear(LinearBase):
@@ -69,17 +88,41 @@ class RowParallelLinear(LinearBase):
 
 
 class _ShardedLoadMixin(LinearBase):
-    """Places one HF tensor into its slice of a merged parameter (output
-    rows [offset, offset + size))."""
+    """Places one checkpoint tensor into its slice [offset, offset + size)
+    of a merged layer's output dim. The dense `weight` ([out, in]) has it
+    first; every other parameter (bias, and the quantized qweight,
+    qzeros and scales, which keep the checkpoint's [.., out] layout) has
+    it last, with offsets divided by the method's `out_scale`. g_idx
+    spans the input dim and is the same for every shard."""
 
     def _write_shard(self, params: ParamDict, name: str,
                      tensor: torch.Tensor, offset: int, size: int) -> None:
+        if name == "g_idx":
+            params[name] = tensor
+            return
+        if name == "weight":
+            if name not in params:
+                params[name] = torch.zeros(
+                    (self.out_features,) + tuple(tensor.shape[1:]),
+                    dtype=tensor.dtype, device=tensor.device)
+            params[name][offset:offset + size] = tensor
+            return
+        div = self.linear_method.out_scale(name)
+        offset //= div
+        size //= div
         if name not in params:
-            params[name] = torch.zeros((self.out_features,) +
-                                       tuple(tensor.shape[1:]),
-                                       dtype=tensor.dtype,
-                                       device=tensor.device)
-        params[name][offset:offset + size] = tensor
+            params[name] = torch.zeros(
+                tuple(tensor.shape[:-1]) + (self.out_features // div,),
+                dtype=tensor.dtype, device=tensor.device)
+        params[name][..., offset:offset + size] = tensor
+
+    def _load_shard(self, params: ParamDict, name: str,
+                    hf_tensor: torch.Tensor, offset: int,
+                    size: int) -> None:
+        self._write_shard(params, name,
+                          self.linear_method.load_weight(params, name,
+                                                         hf_tensor),
+                          offset, size)
 
 
 class MergedColumnParallelLinear(_ShardedLoadMixin, ColumnParallelLinear):
@@ -92,11 +135,11 @@ class MergedColumnParallelLinear(_ShardedLoadMixin, ColumnParallelLinear):
     def weight_loader(self, params: ParamDict, name: str,
                       hf_tensor: torch.Tensor, shard_id=None) -> None:
         if shard_id is None:
-            params[name] = hf_tensor
+            super().weight_loader(params, name, hf_tensor)
             return
         offset = sum(self.output_sizes[:shard_id])
-        self._write_shard(params, name, hf_tensor, offset,
-                          self.output_sizes[shard_id])
+        self._load_shard(params, name, hf_tensor, offset,
+                         self.output_sizes[shard_id])
 
 
 class QKVParallelLinear(_ShardedLoadMixin, ColumnParallelLinear):
@@ -126,7 +169,7 @@ class QKVParallelLinear(_ShardedLoadMixin, ColumnParallelLinear):
     def weight_loader(self, params: ParamDict, name: str,
                       hf_tensor: torch.Tensor, shard_id=None) -> None:
         if shard_id is None:
-            params[name] = hf_tensor
+            super().weight_loader(params, name, hf_tensor)
             return
         offset, size = self.shard_offsets()[shard_id]
-        self._write_shard(params, name, hf_tensor, offset, size)
+        self._load_shard(params, name, hf_tensor, offset, size)

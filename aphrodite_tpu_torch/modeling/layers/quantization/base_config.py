@@ -1,0 +1,40 @@
+"""Abstract quantization config (port of
+`aphrodite_tpu/modeling/layers/quantization/base_config.py`)."""
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import Any, Dict, List
+
+from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
+
+
+class QuantizationConfig(ABC):
+
+    @classmethod
+    @abstractmethod
+    def get_name(cls) -> str:
+        ...
+
+    @classmethod
+    @abstractmethod
+    def from_config(cls, config: Dict[str, Any]) -> "QuantizationConfig":
+        ...
+
+    @classmethod
+    def default(cls) -> "QuantizationConfig":
+        return cls.from_config({})
+
+    @abstractmethod
+    def get_linear_method(self) -> LinearMethod:
+        ...
+
+    @staticmethod
+    def get_from_keys(config: Dict[str, Any], keys: List[str],
+                      default=None):
+        for key in keys:
+            if key in config:
+                return config[key]
+        if default is not None:
+            return default
+        raise ValueError(f"Cannot find any of {keys} in the model's "
+                         "quantization config.")

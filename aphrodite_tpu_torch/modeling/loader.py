@@ -2,11 +2,15 @@
 `aphrodite_tpu/modeling/loader.py` and the parts of `hf_loader.py` the
 slice needs).
 
-`load_format="dummy"` draws every floating parameter uniformly from
-[-1e-3, 1e-3], as the JAX package's `initialize_dummy_params` does,
-directly on the device from a `torch.Generator` seeded with the model
-seed. Checkpoint formats read local files; `safetensors` is imported
-only when a safetensors checkpoint is asked for.
+`load_format="dummy"` follows the JAX package's
+`initialize_dummy_params`, drawing on the device from a
+`torch.Generator` seeded with the model seed: every floating parameter
+uniformly from [-1e-3, 1e-3]; packed quantized payloads (GPTQ qweight
+and qzeros) uniformly over the whole int32 range, so the codes are
+random bit patterns; index-like integers (g_idx) zero. Checkpoint
+formats read local files; `safetensors` is imported only when a
+safetensors checkpoint is asked for. Integer tensors are never cast to
+the model dtype.
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ DTYPES = {
 }
 
 DUMMY_SCALE = 1e-3
+# Integer parameters that carry data (random bits); other integer
+# parameters are indices and stay zero.
+_RANDOM_INT_PARAMS = ("qweight", "qzeros")
 
 
 def _get_model_architecture(config) -> type:
@@ -43,12 +50,20 @@ def _get_model_architecture(config) -> type:
 
 def initialize_dummy_params(model, device: torch.device, seed: int = 0,
                             scale: float = DUMMY_SCALE) -> Dict:
-    """Every floating parameter ~ U(-scale, scale), drawn on `device`."""
+    """Every floating parameter ~ U(-scale, scale), packed quantized
+    payloads uniform over their integer type, other integers zero; all
+    drawn on `device`."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params = model.init_params(device)
     for bucket in params.values():
-        for tensor in bucket.values():
-            tensor.uniform_(-scale, scale, generator=gen)
+        for name, tensor in bucket.items():
+            if tensor.is_floating_point():
+                tensor.uniform_(-scale, scale, generator=gen)
+            elif name in _RANDOM_INT_PARAMS:
+                info = torch.iinfo(tensor.dtype)
+                tensor.random_(info.min, info.max + 1, generator=gen)
+            else:
+                tensor.zero_()
     return params
 
 
@@ -80,7 +95,14 @@ def get_model(model_config: ModelConfig,
     """Build the model and its parameters on `device`."""
     model_cls = _get_model_architecture(model_config.hf_config)
     dtype = DTYPES[model_config.dtype]
-    model = model_cls(model_config.hf_config, dtype=dtype)
+    linear_method = None
+    if model_config.quantization is not None:
+        from aphrodite_tpu_torch.modeling.layers.quantization import (
+            get_quantization_config)
+        linear_method = get_quantization_config(
+            model_config).get_linear_method()
+    model = model_cls(model_config.hf_config, dtype=dtype,
+                      linear_method=linear_method)
     if model_config.load_format == "dummy":
         return model, initialize_dummy_params(model, device,
                                               seed=model_config.seed)

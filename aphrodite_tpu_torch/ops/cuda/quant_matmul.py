@@ -1,0 +1,320 @@
+"""GPTQ dequant matmuls and int8 activation quantization: the CUDA
+kernels of `csrc/quant_matmul.cu` and their plain PyTorch versions.
+
+Port of the GPTQ half of `aphrodite_tpu/ops/pallas/quant_matmul.py`:
+
+- `gptq_matmul` (W4A16, 4 or 8 bits): y = x @ dequant(W). At m <= 64
+  (decode steps) the weight-streaming kernel (K7, Pallas
+  `_stream_kernel`), else the tiled kernel (K6, Pallas `_kernel`).
+- `gptq_matmul_a8` (W4A8, 4 bits): x quantized per row to int8 (K9),
+  then integer dots per quantization group rescaled in f32: the skinny
+  kernel's a8 arm (K7) at m <= 64, else K8 (Pallas `_gptq_a8_kernel`
+  and `_gptq_a8_deferred_kernel`; the two bodies differ only in f32
+  summation order and one kernel computes both, so `deferred` is
+  accepted and has no effect).
+- `quantize_activations_int8` (K9, Pallas `_quant8_kernel`): per-row
+  xs = max(absmax, 1e-8) / 127 and x8 = clip(round(x / xs), -127, 127),
+  rounding half to even.
+
+Layout (AutoGPTQ v1, as the checkpoint stores it): qweight [K/pack, N]
+int32 with pack = 32 // bits codes along K (row k in word k // pack at
+shift bits * (k % pack)), qzeros [G, N/pack] int32 packed along N, scales
+[G, N], G = K // group_size. w[k, n] = (q - (z + 1)) * s with the group
+of row k = k // group_size: the kernels' contiguous groups. Like the
+Pallas kernels, these functions do not read g_idx (see
+`modeling/layers/quantization/gptq.py`).
+
+Each public function launches its kernel for CUDA tensors and runs the
+plain version for CPU tensors, and for nothing else: a CUDA tensor the
+kernel does not take (dtype, shape, bits) raises. The selection follows
+`_resolve_stream`: `stream=None` means m <= 64 and APHRODITE_QMM_STREAM
+(default on). The TPU tiling knobs (APHRODITE_QMM_BLOCK_M/N/K,
+APHRODITE_QMM_STREAM_PF, APHRODITE_QMM_DEFERRED and
+APHRODITE_QMM_DEFERRED_VMEM_MB) size VMEM tiles or pick between the two
+W4A8 bodies; the port does not read them.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from aphrodite_tpu_torch.common import flags
+from aphrodite_tpu_torch.ops.cuda import build
+
+GPTQ_MATMUL_LAUNCHES = build.launch_counter("gptq_matmul")
+GPTQ_MATMUL_STREAM_LAUNCHES = build.launch_counter("gptq_matmul_stream")
+GPTQ_MATMUL_STREAM_A8_LAUNCHES = build.launch_counter(
+    "gptq_matmul_stream_a8")
+GPTQ_MATMUL_A8_LAUNCHES = build.launch_counter("gptq_matmul_a8")
+QUANTIZE_ACTIVATIONS_INT8_LAUNCHES = build.launch_counter(
+    "quantize_activations_int8")
+
+STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
+BLOCK_N = 128              # output columns per block
+_SM_COUNT = 132            # H100 SXM
+_BLOCKS_PER_SM = 4         # split-K target: this many blocks per SM
+
+
+def gptq_supported(in_features: int, out_features: int, bits: int,
+                   group_size: int, desc_act: bool) -> bool:
+    """Shapes the GPTQ kernels handle (the JAX package's gate, copied)."""
+    if desc_act or bits not in (4, 8):
+        return False
+    gs = group_size if group_size != -1 else in_features
+    pack = 32 // bits
+    return (in_features % gs == 0 and gs % pack == 0 and gs >= 128 and
+            gs <= 1024 and out_features % 128 == 0)
+
+
+# ------------------------------------------------------ plain versions --
+
+def unpack_rows(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """int32 [r, c] with 32 // bits codes along ROWS -> [r * pack, c]
+    int32 codes in natural row order."""
+    pack = 32 // bits
+    shifts = torch.arange(pack, device=packed.device,
+                          dtype=torch.int32) * bits
+    vals = (packed[:, None, :] >> shifts[None, :, None]) & ((1 << bits) - 1)
+    return vals.reshape(-1, packed.shape[1])
+
+
+def unpack_cols(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """int32 [r, c] with 32 // bits codes along COLUMNS -> [r, c * pack]."""
+    pack = 32 // bits
+    shifts = torch.arange(pack, device=packed.device,
+                          dtype=torch.int32) * bits
+    vals = (packed[:, :, None] >> shifts[None, None, :]) & ((1 << bits) - 1)
+    return vals.reshape(packed.shape[0], -1)
+
+
+def _codes(qweight: torch.Tensor, qzeros: torch.Tensor, bits: int,
+           gs: int) -> torch.Tensor:
+    """q - (z + 1) as int32 [K, N] over contiguous groups."""
+    q = unpack_rows(qweight, bits)
+    z = unpack_cols(qzeros, bits) + 1
+    return q - z.repeat_interleave(gs, dim=0)
+
+
+def dequantize_plain(qweight: torch.Tensor, qzeros: torch.Tensor,
+                     scales: torch.Tensor, *, bits: int, group_size: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """W [K, N] in `dtype`: ((q - z) in f32 times s in f32), rounded."""
+    K = qweight.shape[0] * (32 // bits)
+    gs = group_size if group_size != -1 else K
+    s = scales.float().repeat_interleave(gs, dim=0)
+    return (_codes(qweight, qzeros, bits, gs).float() * s).to(dtype)
+
+
+def gptq_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
+                      qzeros: torch.Tensor, scales: torch.Tensor, *,
+                      bits: int, group_size: int) -> torch.Tensor:
+    """Plain version of K6/K7 (a16): the weight dequantized in x's dtype,
+    the products summed in f32, the result in x's dtype."""
+    w = dequantize_plain(qweight, qzeros, scales, bits=bits,
+                         group_size=group_size, dtype=x.dtype)
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def quantize_activations_int8_plain(x: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K9: (x8 [m, K] int8, xs [m, 1] f32)."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=1, keepdim=True)
+    # A tensor divisor: torch on CUDA divides by a Python scalar as a
+    # multiply by its reciprocal, which is not IEEE division.
+    xs = torch.clamp(absmax, min=1e-8) / torch.full_like(absmax, 127.0)
+    x8 = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    return x8, xs
+
+
+def gptq_matmul_a8_plain(x: torch.Tensor, qweight: torch.Tensor,
+                         qzeros: torch.Tensor, scales: torch.Tensor, *,
+                         bits: int, group_size: int) -> torch.Tensor:
+    """Plain version of K8 and K7's a8 arm: per group g, the exact
+    integer dot x8[:, g] . (q - z)[g] (taken in f32: every partial sum
+    is an integer below 2^24), times the group's scale row, added in
+    group order; then times xs and rounded to x's dtype."""
+    if bits != 4:
+        raise ValueError(f"W4A8 takes 4-bit codes, got {bits}")
+    x8, xs = quantize_activations_int8_plain(x)
+    K = x.shape[1]
+    gs = group_size if group_size != -1 else K
+    codes = _codes(qweight, qzeros, bits, gs).float()
+    s = scales.float()
+    xq = x8.float()
+    acc = torch.zeros(x.shape[0], codes.shape[1], dtype=torch.float32,
+                      device=x.device)
+    for g in range(K // gs):
+        d = xq[:, g * gs:(g + 1) * gs] @ codes[g * gs:(g + 1) * gs]
+        acc += d * s[g]
+    return (acc * xs).to(x.dtype)
+
+
+# ------------------------------------------------------------ kernels --
+
+def _check_gptq(x, qweight, qzeros, scales, bits, gs, what: str
+                ) -> Tuple[int, int, int, int]:
+    """Validate the kernels' inputs; returns (m, K, N, group_size)."""
+    if bits not in (4, 8):
+        raise ValueError(f"{what}: bits must be 4 or 8, got {bits}")
+    if x.dim() != 2 or x.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: x must be 2-D bfloat16, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    if scales.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: scales must be bfloat16, got "
+                        f"{scales.dtype}")
+    if qweight.dtype != torch.int32 or qzeros.dtype != torch.int32:
+        raise TypeError(f"{what}: qweight and qzeros must be int32")
+    pack = 32 // bits
+    m, K = x.shape
+    N = qweight.shape[1]
+    gs = gs if gs != -1 else K
+    if K % gs or gs % pack:
+        raise ValueError(f"{what}: K {K} must be a multiple of the group "
+                         f"size {gs}, itself a multiple of {pack}")
+    if N % BLOCK_N:
+        raise ValueError(f"{what}: N {N} must be a multiple of {BLOCK_N}")
+    G = K // gs
+    if tuple(qweight.shape) != (K // pack, N) or \
+            tuple(qzeros.shape) != (G, N // pack) or \
+            tuple(scales.shape) != (G, N):
+        raise ValueError(
+            f"{what}: shapes qweight {tuple(qweight.shape)}, qzeros "
+            f"{tuple(qzeros.shape)}, scales {tuple(scales.shape)} do not "
+            f"fit x {tuple(x.shape)} at {bits} bits, group {gs}")
+    for t in (x, qweight, qzeros, scales):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
+    return m, K, N, gs
+
+
+def _tiling(m: int, K: int, N: int, gs: int, stream: bool
+            ) -> Tuple[int, int]:
+    """(block_m, splits). The tiled kernels (K6/K8) take 128 rows and no
+    split. The skinny kernel (K7) takes the least of 16/32/64 rows that
+    covers m, and splits the quantization groups over enough blocks to
+    fill the SMs, but no further than keeps the f32 partial sums (written
+    and read once) below the weight's own bytes."""
+    if not stream:
+        return 128, 1
+    if m > STREAM_M_MAX:
+        raise ValueError(f"the streamed kernel takes m <= {STREAM_M_MAX}, "
+                         f"got {m} (use stream=False)")
+    block_m = next(b for b in (16, 32, 64) if m <= b)
+    groups = K // gs
+    n_tiles = N // BLOCK_N
+    want = -(-_SM_COUNT * _BLOCKS_PER_SM // n_tiles)
+    splits = max(1, min(groups, want, K // (16 * m)))
+    per = -(-groups // splits)
+    return block_m, -(-groups // per)
+
+
+def _launch(a8: bool, x, xs, qweight, qzeros, scales, *, bits: int,
+            gs: int, stream: bool, counter: build.LaunchCounter,
+            what: str) -> torch.Tensor:
+    m, K = x.shape
+    N = qweight.shape[1]
+    block_m, splits = _tiling(m, K, N, gs, stream)
+    out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((splits, m, N), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None
+    lib = build.library("quant_matmul")
+    if a8:
+        fn = lib.gptq_mm_a8
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(x.data_ptr(), xs.data_ptr(), qweight.data_ptr(),
+                 qzeros.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                 build.ptr(partial), m, K, N, gs, splits, block_m,
+                 build.stream_of(x))
+    else:
+        fn = lib.gptq_mm_a16
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(x.data_ptr(), qweight.data_ptr(), qzeros.data_ptr(),
+                 scales.data_ptr(), out.data_ptr(), build.ptr(partial), m,
+                 K, N, gs, bits, splits, block_m, build.stream_of(x))
+    counter.add()
+    build.check(err, f"{what} (streamed)" if stream else what)
+    return out
+
+
+def _resolve_stream(stream, m: int) -> bool:
+    """The JAX package's selector: an explicit `stream` wins, else the
+    skinny kernel at m <= 64 unless APHRODITE_QMM_STREAM=0."""
+    if stream is not None:
+        return bool(stream)
+    if m > STREAM_M_MAX:
+        return False
+    return flags.get_bool("APHRODITE_QMM_STREAM")
+
+
+def quantize_activations_int8(x: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 quantization of x [m, K]: (x8 int8, xs [m, 1] f32)."""
+    if not build.on_cuda(x):
+        return quantize_activations_int8_plain(x)
+    if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise TypeError("quantize_activations_int8: x must be contiguous "
+                        f"2-D bfloat16, got {tuple(x.shape)} {x.dtype}")
+    m, K = x.shape
+    x8 = torch.empty((m, K), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    fn = build.library("quant_matmul").quant8
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), x8.data_ptr(), xs.data_ptr(), m, K,
+             build.stream_of(x))
+    QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.add()
+    build.check(err, "quantize_activations_int8")
+    return x8, xs
+
+
+def gptq_matmul(x: torch.Tensor, qweight: torch.Tensor,
+                qzeros: torch.Tensor, scales: torch.Tensor, *, bits: int,
+                group_size: int, stream: Optional[bool] = None
+                ) -> torch.Tensor:
+    """y [m, N] = x [m, K] @ dequant(qweight, qzeros, scales) (W4A16 or
+    W8A16). `stream` pins the skinny kernel (K7) or the tiled one (K6);
+    None picks by m as the JAX package does."""
+    if not build.on_cuda(x, qweight, qzeros, scales):
+        return gptq_matmul_plain(x, qweight, qzeros, scales, bits=bits,
+                                 group_size=group_size)
+    m, K, N, gs = _check_gptq(x, qweight, qzeros, scales, bits,
+                              group_size, "gptq_matmul")
+    use_stream = _resolve_stream(stream, m)
+    return _launch(False, x, None, qweight, qzeros, scales, bits=bits,
+                   gs=gs, stream=use_stream,
+                   counter=GPTQ_MATMUL_STREAM_LAUNCHES if use_stream
+                   else GPTQ_MATMUL_LAUNCHES, what="gptq_matmul")
+
+
+def gptq_matmul_a8(x: torch.Tensor, qweight: torch.Tensor,
+                   qzeros: torch.Tensor, scales: torch.Tensor, *,
+                   bits: int, group_size: int, deferred=None,
+                   stream: Optional[bool] = None) -> torch.Tensor:
+    """W4A8: x quantized per row to int8 (K9), then integer dots per
+    group with the f32 rescale (K7's a8 arm at m <= 64, else K8).
+    `deferred` is the JAX signature's pin between two summation orders
+    of the same sums; the one CUDA kernel ignores it."""
+    del deferred
+    if not build.on_cuda(x, qweight, qzeros, scales):
+        return gptq_matmul_a8_plain(x, qweight, qzeros, scales, bits=bits,
+                                    group_size=group_size)
+    if bits != 4:
+        raise ValueError(f"gptq_matmul_a8: W4A8 takes 4-bit codes (8-bit "
+                         f"codes minus their zero overflow int8), got {bits}")
+    m, K, N, gs = _check_gptq(x, qweight, qzeros, scales, bits,
+                              group_size, "gptq_matmul_a8")
+    use_stream = _resolve_stream(stream, m)
+    _tiling(m, K, N, gs, use_stream)          # raise before quantizing
+    x8, xs = quantize_activations_int8(x)
+    return _launch(True, x8, xs, qweight, qzeros, scales, bits=4, gs=gs,
+                   stream=use_stream,
+                   counter=GPTQ_MATMUL_STREAM_A8_LAUNCHES if use_stream
+                   else GPTQ_MATMUL_A8_LAUNCHES, what="gptq_matmul_a8")

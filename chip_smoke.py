@@ -41,11 +41,44 @@ Phases, in order; any failure exits non-zero:
    in the vocabulary and a finite cumulative logprob. Then 4 decode
    steps of 8 sequences run under torch.profiler: wall and device
    kernel time per step, and the kernels that take the most.
-5. Prints the kernel JSON line, the card line, and last
+5. GPTQ kernels vs plain versions at the four projection shapes of
+   Mistral-7B, (K, N) = (4096, 6144) qkv, (4096, 4096) o, (4096, 28672)
+   gate_up and (14336, 4096) down, group 128, bf16 activations:
+   - K7, the skinny weight-streaming kernel, at m 1, 8 and 64: W4A16,
+     W8A16 and the W4A8 arm;
+   - K6 (W4A16 and W8A16) and K8 (W4A8) at m 512 and 4096;
+   - K9 (per-row int8 quantization) at m 1, 8, 64, 512 and 4096: exact.
+   Each check calls the wrapper the engine calls (`gptq_matmul`,
+   `gptq_matmul_a8`, which runs K9 then the matmul) against its plain
+   version. Tolerance for the matmuls: |kernel - plain| <= 2e-2 + 2e-2
+   |plain| (bf16 outputs of f32 sums taken in another order). Each case
+   is timed like phase 3 (the W4A8 matmuls alone on K9's rows, with a
+   check that this launch equals the wrapper's output; the wrapper's
+   time is logged beside); its bound is the larger of the bytes it must
+   move over 3.35 TB/s and its operations over 989 TFLOP/s (bf16) or
+   1979 TOP/s (int8). The library yardstick for K6/K7-a16 is
+   torch.matmul over the weight dequantized to bf16 beforehand (it
+   moves 4x the int4 weight's bytes); K8 and K9 have none (PyTorch has
+   no int4-by-int8 grouped product and no fused row quantizer).
+6. End to end with GPTQ: the bf16 engine is freed and the same model
+   is served with quantization="gptq" (4 bits, group 128, dummy
+   weights from seed 0), once with APHRODITE_W4A8=1 (the JAX bench's
+   default) and once with W4A16: phase 4's request mix at multi_step 1
+   and 8, then one round of 96 requests with 32-token prompts (a decode
+   batch above 64). Counters are reset before and read after each run:
+   the W4A8 runs must launch K9 with K8 and K7's a8 arm, the W4A16 runs
+   K6 and K7, both K1, K2 and K4; the 96-request round's decode steps
+   must take K8 / K6. The launches of every kernel are logged per path
+   (bf16, GPTQ W4A8, GPTQ W4A16); the kernel JSON gives their sum.
+   Then a batch-8 GPTQ decode step under
+   torch.profiler in each arm: wall and device time, and the quantized
+   matmuls' device time beside their weight-streaming bound.
+7. Prints the kernel JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -57,6 +90,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HQ, HKV, HEAD_DIM = 32, 8, 128
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16
+INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8
 ATOL = RTOL = 2e-2
 
 MISTRAL_7B = {
@@ -108,9 +142,9 @@ class Timer:
         return times[len(times) // 2]
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, ops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -430,9 +464,193 @@ def check_model_against_plain(torch):
         f"{got_tokens[64:]} vs {want_tokens[64:]}")
 
 
+# ------------------------------------------------------ GPTQ kernels --
+
+GPTQ_PROJ = (("qkv", 4096, 6144), ("o", 4096, 4096),
+             ("gate_up", 4096, 28672), ("down", 14336, 4096))
+GPTQ_GS = 128
+
+
+def gptq_weights(torch, K, N, bits, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pack = 32 // bits
+
+    def bits32(*shape):
+        return torch.empty(*shape, dtype=torch.int32, device="cuda").random_(
+            -2 ** 31, 2 ** 31, generator=gen)
+    scales = (torch.rand(K // GPTQ_GS, N, generator=gen, device="cuda") *
+              0.02 + 0.002).to(torch.bfloat16)
+    return bits32(K // pack, N), bits32(K // GPTQ_GS, N // pack), scales
+
+
+def weight_bytes(K, N, bits):
+    """Packed codes, zeros and bf16 scales of one GPTQ layer."""
+    G = K // GPTQ_GS
+    return K * N * bits // 8 + G * N * bits // 8 + G * N * 2
+
+
+def check_close(torch, got, want, what):
+    err = (got.float() - want.float()).abs()
+    if not torch.isfinite(got.float()).all() or \
+            bool((err > ATOL + RTOL * want.float().abs()).any()):
+        fail(f"{what}: max err {err.max().item()} (tolerance {ATOL} + "
+             f"{RTOL}|plain|)")
+    return err.max().item()
+
+
+def check_and_time_gptq(torch, qmm, timer):
+    """K6-K9 against their plain versions at the Mistral-7B projection
+    shapes, each timed. Returns {kernel: {...}} with ms, plain_ms,
+    library_ms and bound_ms summed over the four projections of one
+    layer at the main path's shapes (m 8 for K7, the e2e decode batch;
+    m 4096 for K6/K8/K9, a prompt round), and max_abs_err over every
+    case."""
+    out = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   bound_bytes_ms=0.0, bound_ops_ms=0.0, max_abs_err=0.0)
+           for k in ("k6", "k7", "k7a8", "k8", "k9")}
+    out["k7a8"]["library_ms"] = out["k8"]["library_ms"] = \
+        out["k9"]["library_ms"] = None
+    main_m = {"k7": 8, "k7a8": 8, "k6": 4096, "k8": 4096, "k9": 4096}
+    for seed, (proj, K, N) in enumerate(GPTQ_PROJ):
+        gen = torch.Generator(device="cuda").manual_seed(100 + seed)
+        x_all = torch.randn(4096, K, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for bits in (4, 8):
+            qw, qz, sc = gptq_weights(torch, K, N, bits, seed * 10 + bits)
+            w16 = qmm.dequantize_plain(qw, qz, sc, bits=bits,
+                                       group_size=GPTQ_GS,
+                                       dtype=torch.bfloat16)
+            wbytes = weight_bytes(K, N, bits)
+            cases = [("k7", m) for m in (1, 8, 64)] + \
+                [("k6", m) for m in (512, 4096)]
+            if bits == 4:
+                cases += [("k7a8", m) for m in (1, 8, 64)] + \
+                    [("k8", m) for m in (512, 4096)]
+            for kern, m in cases:
+                x = x_all[:m]
+                stream = kern in ("k7", "k7a8")
+                if kern in ("k7", "k6"):
+                    def run():
+                        return qmm.gptq_matmul(x, qw, qz, sc, bits=bits,
+                                               group_size=GPTQ_GS,
+                                               stream=stream)
+
+                    def plain():
+                        return qmm.gptq_matmul_plain(
+                            x, qw, qz, sc, bits=bits, group_size=GPTQ_GS)
+                    nbytes = m * K * 2 + wbytes + m * N * 2
+                    ops, rate = 2 * m * K * N, BF16_FLOPS_PER_S
+                    got = run()
+                    what = ""
+                else:
+                    def wrapper():
+                        return qmm.gptq_matmul_a8(
+                            x, qw, qz, sc, bits=4, group_size=GPTQ_GS,
+                            stream=stream)
+                    got = wrapper()
+                    x8, xs = qmm.quantize_activations_int8(x)
+
+                    # Timed: the matmul kernel alone on K9's rows (K9 is
+                    # timed below on its own). Checked: the wrapper the
+                    # engine calls, and the timed launch equals it.
+                    def run():
+                        return qmm._launch(
+                            True, x8, xs, qw, qz, sc, bits=4, gs=GPTQ_GS,
+                            stream=stream,
+                            counter=qmm.GPTQ_MATMUL_STREAM_A8_LAUNCHES
+                            if stream else qmm.GPTQ_MATMUL_A8_LAUNCHES,
+                            what="gptq_matmul_a8")
+                    if not torch.equal(run(), got):
+                        fail(f"{kern} {proj} m={m}: the matmul launched on "
+                             "K9's rows differs from gptq_matmul_a8")
+
+                    def plain():
+                        return qmm.gptq_matmul_a8_plain(
+                            x, qw, qz, sc, bits=4, group_size=GPTQ_GS)
+                    nbytes = m * K + m * 4 + wbytes + m * N * 2
+                    ops, rate = 2 * m * K * N, INT8_OPS_PER_S
+                    what = (f"; checked: gptq_matmul_a8 (K9 + matmul, "
+                            f"{timer(wrapper):.4f} ms) vs plain; timed as "
+                            "kernel: the matmul alone on K9's rows")
+                err = check_close(torch, got, plain(),
+                                  f"{kern} {proj} m={m} bits={bits}")
+                torch.cuda.synchronize()
+                ms, plain_ms = timer(run), timer(plain)
+                lib = timer(lambda: torch.matmul(x, w16)) \
+                    if kern in ("k6", "k7") else None
+                b_ms, b_by = bound(nbytes, ops, rate)
+                log(f"{kern} {proj} (K {K}, N {N}) m={m} bits={bits}: "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                    + (f"{lib:.4f} ms (bf16 matmul, {16 // bits}x the "
+                       "weight bytes)" if lib is not None else "none")
+                    + f", bound {b_ms:.4f} ms ({b_by}), max err {err}"
+                    + what)
+                rec = out[kern]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if bits == 4 and m == main_m[kern]:
+                    rec["ms"] += ms
+                    rec["plain_ms"] += plain_ms
+                    rec["bound_bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+                    rec["bound_ops_ms"] += ops / rate * 1e3
+                    if lib is not None:
+                        rec["library_ms"] += lib
+            del w16
+        for m in (1, 8, 64, 512, 4096):
+            x = x_all[:m]
+            got8, gots = qmm.quantize_activations_int8(x)
+            want8, wants = qmm.quantize_activations_int8_plain(x)
+            torch.cuda.synchronize()
+            if not (torch.equal(got8, want8) and torch.equal(gots, wants)):
+                fail(f"K9 quantize_activations_int8 {proj} m={m} differs "
+                     "from its plain version")
+            if m < 512:
+                continue                # decode sizes: checked, not timed
+            ms = timer(lambda: qmm.quantize_activations_int8(x))
+            plain_ms = timer(
+                lambda: qmm.quantize_activations_int8_plain(x))
+            nbytes = m * K * 2 + m * K + m * 4
+            log(f"k9 input of {proj} m={m} K={K}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes), exact")
+            if m == main_m["k9"]:
+                rec = out["k9"]
+                rec["ms"] += ms
+                rec["plain_ms"] += plain_ms
+                rec["bound_bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        del x_all, qw, qz, sc
+        torch.cuda.empty_cache()
+    for rec in out.values():
+        t_b, t_o = rec.pop("bound_bytes_ms"), rec.pop("bound_ops_ms")
+        rec["bound_ms"], rec["bound_by"] = (t_b, "bytes") if t_b >= t_o \
+            else (t_o, "operations")
+    log("GPTQ kernels vs plain: all cases within tolerance, K9 exact; per "
+        "layer (4 projections) at the main path's m: " + json.dumps(out))
+    return out
+
+
 # ---------------------------------------------------------- end to end --
 
-def run_engine(torch, engine, multi_step: int, counters, card: str):
+BF16_KERNELS = ("paged_decode_attention", "write_kv_pages_prefill",
+                "write_kv_pages")
+W4A8_KERNELS = BF16_KERNELS + ("quantize_activations_int8",
+                               "gptq_matmul_a8", "gptq_matmul_stream_a8")
+W4A16_KERNELS = BF16_KERNELS + ("gptq_matmul", "gptq_matmul_stream")
+
+
+def check_outputs(outputs, n: int, what: str) -> None:
+    if len(outputs) != n:
+        fail(f"{what}: {len(outputs)} of {n} finished")
+    for rid, out in outputs.items():
+        toks = out.outputs[0].token_ids
+        if len(toks) != 32 or not all(0 <= t < 32000 for t in toks):
+            fail(f"{rid}: bad tokens {toks}")
+        lp = out.outputs[0].cumulative_logprob
+        if not (lp == lp) or abs(lp) == float("inf"):
+            fail(f"{rid}: non-finite cumulative logprob")
+
+
+def run_engine(torch, engine, multi_step: int, counters, card: str,
+               required=BF16_KERNELS, tag: str = ""):
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
     engine.scheduler_config.multi_step = multi_step
     sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
@@ -445,7 +663,7 @@ def run_engine(torch, engine, multi_step: int, counters, card: str):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, n in enumerate(first):
-        engine.add_request(f"m{multi_step}-{i}", None, sp,
+        engine.add_request(f"{tag}m{multi_step}-{i}", None, sp,
                            prompt_token_ids=prompt(n, i))
     outputs, steps = {}, 0
     late_added = False
@@ -459,47 +677,85 @@ def run_engine(torch, engine, multi_step: int, counters, card: str):
             # chunk round, padded to 16 rows under 32-token pages, they
             # take the slot writer (K4).
             for j in range(2):
-                engine.add_request(f"m{multi_step}-late{j}", None, sp,
+                engine.add_request(f"{tag}m{multi_step}-late{j}", None, sp,
                                    prompt_token_ids=prompt(12, 10 + j))
             late_added = True
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: c.count for name, c in counters.items()}
-    if len(outputs) != 8:
-        fail(f"multi_step={multi_step}: {len(outputs)} of 8 finished")
-    for rid, out in outputs.items():
-        toks = out.outputs[0].token_ids
-        if len(toks) != 32 or not all(0 <= t < 32000 for t in toks):
-            fail(f"{rid}: bad tokens {toks}")
-        if not (out.outputs[0].cumulative_logprob ==
-                out.outputs[0].cumulative_logprob) or \
-                abs(out.outputs[0].cumulative_logprob) == float("inf"):
-            fail(f"{rid}: non-finite cumulative logprob")
-    for name in ("paged_decode_attention", "write_kv_pages_prefill",
-                 "write_kv_pages"):
+    check_outputs(outputs, 8, f"{tag}multi_step={multi_step}")
+    for name in required:
         if launches.get(name, 0) <= 0:
-            fail(f"multi_step={multi_step}: kernel {name} never launched "
-                 f"on the main path ({launches})")
+            fail(f"{tag}multi_step={multi_step}: kernel {name} never "
+                 f"launched on the main path ({launches})")
     new_tokens = 8 * 32
-    log(f"e2e multi_step={multi_step}: 8 requests x 32 tokens, {steps} "
-        f"engine steps, {dt:.3f} s, {new_tokens / dt:.1f} generated tok/s "
-        f"on {card}, launches {launches}")
+    log(f"e2e {tag}multi_step={multi_step}: 8 requests x 32 tokens, "
+        f"{steps} engine steps, {dt:.3f} s, {new_tokens / dt:.1f} generated "
+        f"tok/s on {card}, launches {launches}")
     return launches
 
 
-def profile_decode(torch, engine) -> None:
+def run_wide_round(torch, engine, counters, card: str, required, decode,
+                   layers: int, tag: str):
+    """96 requests with 32-token prompts at multi_step 1: a decode batch
+    above 64, so the decode steps take the tiled kernel (`decode`) and
+    not the skinny one. Every engine step runs 4 quantized matmuls per
+    layer; the 31 decode steps alone launch `decode` 31 * 4 * layers
+    times."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    engine.scheduler_config.multi_step = 1
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(96):
+        engine.add_request(f"{tag}wide-{i}", None, sp, prompt_token_ids=[
+            (j * 53 + i * 101) % 31000 + 100 for j in range(32)])
+    outputs, steps = {}, 0
+    while engine.has_unfinished_requests():
+        for out in engine.step():
+            if out.finished:
+                outputs[out.request_id] = out
+        steps += 1
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    check_outputs(outputs, 96, f"{tag}96-request round")
+    for name in required:
+        if launches.get(name, 0) <= 0:
+            fail(f"{tag}96-request round: kernel {name} never launched "
+                 f"({launches})")
+    if launches.get(decode, 0) < 31 * 4 * layers:
+        fail(f"{tag}96-request round: {decode} launched "
+             f"{launches.get(decode, 0)} times, fewer than the "
+             f"{31 * 4 * layers} of 31 decode steps at batch 96")
+    log(f"e2e {tag}96 requests x 32 tokens (32-token prompts): {steps} "
+        f"engine steps, {dt:.3f} s, {96 * 32 / dt:.1f} generated tok/s on "
+        f"{card}, launches {launches}")
+    return launches
+
+
+QUANT_KERNEL_NAMES = ("gptq_mma_kernel", "split_reduce_kernel",
+                      "quant8_kernel")
+
+
+def profile_decode(torch, engine, tag: str = "",
+                   quant_bound_ms: float = 0.0) -> None:
     """Where a decode step's time goes at the e2e geometry: 8 running
     sequences (prompts of 64 tokens). 4 single decode steps are timed on
     the host clock (synchronised), then 4 more run under torch.profiler,
     which gives the device's kernel time per step, its share of the wall
-    time, and the kernels that take the most."""
+    time, and the kernels that take the most. With `quant_bound_ms` it
+    also reports the GPTQ kernels' device time per step beside that
+    weight-streaming bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
     engine.scheduler_config.multi_step = 1
     sp = SamplingParams(temperature=0.0, max_tokens=14, ignore_eos=True)
     for i in range(8):
-        engine.add_request(f"prof-{i}", None, sp, prompt_token_ids=[
+        engine.add_request(f"{tag}prof-{i}", None, sp, prompt_token_ids=[
             (j * 71 + i * 13) % 31000 + 100 for j in range(64)])
     for _ in range(3):                      # prefill + warm decode steps
         engine.step()
@@ -523,9 +779,18 @@ def profile_decode(torch, engine) -> None:
     dev_ms = sum(r[0] for r in rows) / 1e3 / steps
     top = "; ".join(f"{k[:48]} x{c // steps}/step {us / 1e3 / steps:.3f} ms"
                     for us, k, c in rows[:8])
-    log(f"decode step, batch 8 at Mistral-7B width: wall {wall_ms:.2f} "
-        f"ms/step (unprofiled), device kernels {dev_ms:.2f} ms/step "
-        f"(busy share {dev_ms / wall_ms:.3f}); top kernels: {top}")
+    log(f"{tag}decode step, batch 8 at Mistral-7B width: wall "
+        f"{wall_ms:.2f} ms/step (unprofiled), device kernels {dev_ms:.2f} "
+        f"ms/step (busy share {dev_ms / wall_ms:.3f}); top kernels: {top}")
+    if quant_bound_ms:
+        quant_ms = sum(us for us, k, _ in rows
+                       if any(n in k for n in QUANT_KERNEL_NAMES)) / 1e3 \
+            / steps
+        log(f"{tag}GPTQ kernels (matmuls, split reduce, int8 rows) "
+            f"{quant_ms:.3f} ms/step of {dev_ms:.2f} ms device time "
+            f"(share {quant_ms / dev_ms:.3f}); weight-streaming bound "
+            f"{quant_bound_ms:.3f} ms/step ({quant_ms / quant_bound_ms:.2f}"
+            f"x)")
 
 
 def main() -> int:
@@ -598,15 +863,76 @@ def main() -> int:
         f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens")
     counters = build.COUNTERS
     torch.cuda.reset_peak_memory_stats()
-    launches = {}
+    by_path = {"bf16": {}, "GPTQ W4A8": {}, "GPTQ W4A16": {}}
     for ms in (1, 8):
         for name, n in run_engine(torch, engine, ms, counters,
                                   smi).items():
-            launches[name] = launches.get(name, 0) + n
+            by_path["bf16"][name] = by_path["bf16"].get(name, 0) + n
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"e2e peak memory {peak:.2f} GiB on {smi}")
     profile_decode(torch, engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"bf16 engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB still allocated")
 
+    # 5. GPTQ kernels vs plain versions, and times.
+    from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
+    gptq = check_and_time_gptq(torch, qmm, timer)
+
+    # 6. End to end with GPTQ, W4A8 then W4A16.
+    gptq_dir = os.path.join(HERE, "build", "chip_smoke_gptq_model")
+    os.makedirs(gptq_dir, exist_ok=True)
+    with open(os.path.join(gptq_dir, "config.json"), "w") as f:
+        json.dump(dict(MISTRAL_7B, quantization_config={
+            "quant_method": "gptq", "bits": 4, "group_size": GPTQ_GS,
+            "desc_act": False, "sym": False}), f)
+    t0 = time.perf_counter()
+    engine = AphroditeEngine.from_engine_args(EngineArgs(
+        model=gptq_dir, load_format="dummy", dtype="bfloat16", seed=0,
+        block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+        disable_log_stats=True))
+    if engine.model_config.quantization != "gptq":
+        fail("the GPTQ model was not served with quantization='gptq'")
+    log(f"GPTQ engine up in {time.perf_counter() - t0:.1f} s: "
+        f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    layers = MISTRAL_7B["num_hidden_layers"]
+    step_bound_ms = layers * sum(weight_bytes(K, N, 4) for _, K, N in
+                                 GPTQ_PROJ) / HBM_BYTES_PER_S * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    # The wide round has page-aligned prompts only (no slot writer) and
+    # no batch at or below 64 (no skinny kernel).
+    for arm, flag, required, wide, decode in (
+            ("W4A8", "1", W4A8_KERNELS, ("quantize_activations_int8",),
+             "gptq_matmul_a8"),
+            ("W4A16", "0", W4A16_KERNELS, (), "gptq_matmul")):
+        os.environ["APHRODITE_W4A8"] = flag
+        tag = f"GPTQ {arm} "
+        runs = [run_engine(torch, engine, ms, counters, smi,
+                           required=required, tag=tag) for ms in (1, 8)]
+        runs.append(run_wide_round(
+            torch, engine, counters, smi,
+            ("paged_decode_attention", "write_kv_pages_prefill", decode)
+            + wide, decode, layers, tag))
+        for run in runs:
+            for name, n in run.items():
+                by_path[tag.strip()][name] = \
+                    by_path[tag.strip()].get(name, 0) + n
+        profile_decode(torch, engine, tag, quant_bound_ms=step_bound_ms)
+    os.environ.pop("APHRODITE_W4A8")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"GPTQ e2e peak memory {peak:.2f} GiB on {smi}")
+    launches = {}
+    for path in by_path.values():
+        for name, n in path.items():
+            launches[name] = launches.get(name, 0) + n
+    log("launches by path (counters reset before each run, summed over a "
+        "path's runs): " + json.dumps(by_path))
+
+    quant_src = "aphrodite_tpu_torch/csrc/quant_matmul.cu"
+    pallas_qmm = "aphrodite_tpu/ops/pallas/quant_matmul.py"
     entries = [
         dict(name="paged_decode_attention", route="cuda",
              source="aphrodite_tpu_torch/csrc/paged_attention.cu",
@@ -622,6 +948,21 @@ def main() -> int:
              source="aphrodite_tpu_torch/csrc/kv_write.cu",
              replaces="aphrodite_tpu/ops/pallas/kv_write.py:38",
              launches=launches["write_kv_pages"], max_abs_err=0.0, **k4),
+        dict(name="gptq_matmul", route="cuda", source=quant_src,
+             replaces=f"{pallas_qmm}:554", launches=launches["gptq_matmul"],
+             **gptq["k6"]),
+        dict(name="gptq_matmul_stream", route="cuda", source=quant_src,
+             replaces=f"{pallas_qmm}:308",
+             launches=launches["gptq_matmul_stream"], **gptq["k7"]),
+        dict(name="gptq_matmul_stream_a8", route="cuda", source=quant_src,
+             replaces=f"{pallas_qmm}:308",
+             launches=launches["gptq_matmul_stream_a8"], **gptq["k7a8"]),
+        dict(name="gptq_matmul_a8", route="cuda", source=quant_src,
+             replaces=f"{pallas_qmm}:1274",
+             launches=launches["gptq_matmul_a8"], **gptq["k8"]),
+        dict(name="quantize_activations_int8", route="cuda",
+             source=quant_src, replaces=f"{pallas_qmm}:781",
+             launches=launches["quantize_activations_int8"], **gptq["k9"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

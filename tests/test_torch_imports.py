@@ -102,7 +102,7 @@ def _model_dir(tmp_path, tiny_model_dir, **changes):
 @pytest.mark.parametrize("change,match", [
     (dict(tensor_parallel_size=2), "multi-GPU"),
     (dict(disagg_split="1,1", tensor_parallel_size=2), "multi-GPU"),
-    (dict(quantization="gptq"), "quantized matmul"),
+    (dict(quantization="awq"), "quantized matmul"),
     (dict(enable_lora=True), "LoRA"),
     (dict(kv_cache_dtype="int8"), "int8/fp8 KV"),
     (dict(kv_cache_dtype="fp8"), "int8/fp8 KV"),

@@ -8,7 +8,9 @@ tests/test_torch_kernels_gpu.py` (tests/conftest.py imports JAX).
 Tolerances: the writers copy values, so exactly equal. Attention in
 bf16: |kernel - plain| <= 2e-2 + 2e-2 |plain| (the kernel keeps the
 softmax weights in f32 where the plain version rounds them to bf16; both
-round the output to bf16, one ulp of which is 1.6e-2 at 2-4).
+round the output to bf16, one ulp of which is 1.6e-2 at 2-4). The GPTQ
+matmuls (bf16 outputs, f32 sums taken in another order): the same
+2e-2 + 2e-2 |plain|. int8 activation quantization: exactly equal.
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 
 from aphrodite_tpu_torch.ops.cuda import kv_write as tkw
 from aphrodite_tpu_torch.ops.cuda import paged_attention as tpa
+from aphrodite_tpu_torch.ops.cuda import quant_matmul as tqm
 
 pytestmark = pytest.mark.gpu
 
@@ -99,3 +102,93 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(dev):
     with pytest.raises(TypeError):
         tkw.write_kv_pages(kn.view(2, -1), vn.view(2, -1), kp, vp,
                            ctx.long())
+
+
+def _gptq_problem(dev, m, K, N, bits=4, gs=128, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pack = 32 // bits
+
+    def bits32(*shape):
+        return torch.empty(*shape, dtype=torch.int32, device=dev).random_(
+            -2 ** 31, 2 ** 31, generator=g)
+    scales = (torch.rand(K // gs, N, generator=g, device=dev) * 0.02 +
+              0.002).to(torch.bfloat16)
+    x = torch.randn(m, K, generator=g, device=dev).to(torch.bfloat16)
+    return x, bits32(K // pack, N), bits32(K // gs, N // pack), scales
+
+
+def _close(got, want):
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got.float()).all()
+    assert bool((err <= 2e-2 + 2e-2 * want.float().abs()).all()), \
+        err.max().item()
+
+
+def test_quantize_activations_int8_kernel_is_exact(dev):
+    for m, K in ((1, 4096), (64, 14336), (513, 4096)):
+        x = torch.randn(m, K, device=dev).to(torch.bfloat16) * 3
+        x[0, :7] = 0.5 * torch.arange(7, device=dev)   # halves round to even
+        if m > 1:
+            x[1] = 0                                    # the 1e-8 floor
+        x8, xs = tqm.quantize_activations_int8(x)
+        p8, ps = tqm.quantize_activations_int8_plain(x)
+        torch.cuda.synchronize()
+        assert torch.equal(x8, p8) and torch.equal(xs, ps)
+
+
+@pytest.mark.parametrize("m,K,N,bits,gs,stream", [
+    (1, 4096, 6144, 4, 128, True),
+    (8, 14336, 4096, 4, 128, True),
+    (64, 4096, 4096, 8, 128, True),
+    (33, 2048, 1024, 4, 256, True),
+    (65, 4096, 4096, 4, 128, False),
+    (300, 2048, 2048, 8, 256, False),
+    (8, 1024, 512, 4, 128, False),
+])
+def test_gptq_matmul_kernels_match_plain(dev, m, K, N, bits, gs, stream):
+    x, qw, qz, sc = _gptq_problem(dev, m, K, N, bits, gs)
+    counter = tqm.GPTQ_MATMUL_STREAM_LAUNCHES if stream \
+        else tqm.GPTQ_MATMUL_LAUNCHES
+    before = counter.count
+    got = tqm.gptq_matmul(x, qw, qz, sc, bits=bits, group_size=gs,
+                          stream=stream)
+    want = tqm.gptq_matmul_plain(x, qw, qz, sc, bits=bits, group_size=gs)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    _close(got, want)
+
+
+@pytest.mark.parametrize("m,K,N,stream", [
+    (1, 4096, 6144, True), (8, 14336, 4096, True), (64, 4096, 4096, True),
+    (65, 4096, 4096, False), (300, 2048, 2048, False),
+])
+def test_gptq_matmul_a8_kernels_match_plain(dev, m, K, N, stream):
+    x, qw, qz, sc = _gptq_problem(dev, m, K, N)
+    counter = tqm.GPTQ_MATMUL_STREAM_A8_LAUNCHES if stream \
+        else tqm.GPTQ_MATMUL_A8_LAUNCHES
+    before = (counter.count, tqm.QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.count)
+    got = tqm.gptq_matmul_a8(x, qw, qz, sc, bits=4, group_size=128,
+                             stream=stream)
+    want = tqm.gptq_matmul_a8_plain(x, qw, qz, sc, bits=4, group_size=128)
+    torch.cuda.synchronize()
+    assert (counter.count, tqm.QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.count) \
+        == (before[0] + 1, before[1] + 1)
+    _close(got, want)
+
+
+def test_gptq_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, qw, qz, sc = _gptq_problem(dev, 8, 1024, 256)
+    with pytest.raises(TypeError):                   # f32 activations
+        tqm.gptq_matmul(x.float(), qw, qz, sc, bits=4, group_size=128)
+    with pytest.raises(ValueError):                  # N % 128
+        tqm.gptq_matmul(x, qw[:, :200].contiguous(), qz[:, :25].contiguous(),
+                        sc[:, :200].contiguous(), bits=4, group_size=128)
+    with pytest.raises(ValueError):                  # 8-bit W4A8
+        x8, qw8, qz8, sc8 = _gptq_problem(dev, 8, 1024, 256, bits=8)
+        tqm.gptq_matmul_a8(x8, qw8, qz8, sc8, bits=8, group_size=128)
+    with pytest.raises(ValueError):                  # streamed m > 64
+        big = torch.zeros(65, 1024, dtype=torch.bfloat16, device=dev)
+        tqm.gptq_matmul(big, qw, qz, sc, bits=4, group_size=128,
+                        stream=True)
+    with pytest.raises(ValueError, match="mixed devices"):
+        tqm.gptq_matmul(x, qw.cpu(), qz, sc, bits=4, group_size=128)

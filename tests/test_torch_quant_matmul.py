@@ -1,0 +1,200 @@
+"""Plain versions of the port's GPTQ kernels (`ops/cuda/quant_matmul.py`)
+against the JAX package's Pallas kernels run with interpret=True on the
+CPU, as tests/kernels/test_quant_matmul.py and test_stream_matmul.py run
+them. Inputs are made with numpy from a seed and given to both sides.
+
+- K9 (`quantize_activations_int8`), f32 and bf16 inputs: codes and row
+  scales exactly equal to the JAX package's jnp reference chain (IEEE
+  division); against the Pallas kernel, which divides by reciprocal
+  multiplies in interpret mode, scales within 1 ulp and codes equal
+  away from rounding ties.
+- K6 (`gptq_matmul`, stream=False), bits 4 and 8, group 128 and 256,
+  m 65 and 130; K7 (stream=True) a16 and a8 at m 1, 8 and 64, a8 with
+  deferred rescale off and on; K8 (`gptq_matmul_a8`, stream=False)
+  deferred off and on. The port's one plain version per function
+  stands for every Pallas body (they differ in f32 summation order).
+
+Tolerances: in f32, |port - pallas| <= 1e-5 * max |pallas| (the same
+products summed in another order); in bf16, one output ulp (both round
+the same f32 sum to bf16, which may land on neighbouring values).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from aphrodite_tpu.ops.pallas import quant_matmul as jqm
+from aphrodite_tpu_torch.ops.cuda import quant_matmul as tqm
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(seed, bits, gs, K, N, m):
+    rs = np.random.RandomState(seed)
+    pack = 32 // bits
+    return dict(
+        x=rs.randn(m, K).astype(np.float32),
+        qweight=rs.randint(-2 ** 31, 2 ** 31, (K // pack, N),
+                           dtype=np.int64).astype(np.int32),
+        qzeros=rs.randint(-2 ** 31, 2 ** 31, (K // gs, N // pack),
+                          dtype=np.int64).astype(np.int32),
+        scales=(rs.rand(K // gs, N) * 0.1 + 0.01).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    """The same arrays as jnp (for Pallas) and torch (for the port), the
+    floating ones in `dtype`."""
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    j = {k: jnp.asarray(v, dtype=jdt) if v.dtype == np.float32
+         else jnp.asarray(v) for k, v in arrays.items()}
+    t = {k: torch.from_numpy(v).to(tdt) if v.dtype == np.float32
+         else torch.from_numpy(v) for k, v in arrays.items()}
+    return j, t
+
+
+def _assert_close(got: torch.Tensor, want, dtype: str) -> None:
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    if dtype == "f32":
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+        return
+    # One bf16 ulp of the larger magnitude: 2^(floor(log2|v|) - 7).
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    assert (np.abs(got - want) <= ulp).all(), np.abs(got - want).max()
+
+
+def _activations(dtype):
+    rs = np.random.RandomState(0)
+    x = (rs.randn(37, 384) * 3).astype(np.float32)
+    x[0, :7] = 0.5 * np.arange(7)         # ties round half to even
+    x[1] = 0.0                            # the 1e-8 floor
+    return _both({"x": x}, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_activations_int8_plain_equals_the_reference_chain(dtype):
+    """Exact against the JAX package's jnp chain
+    (`_quantize_activations_int8`, its parity oracle): IEEE division,
+    rounding half to even."""
+    j, t = _activations(dtype)
+    want8, wants = jqm._quantize_activations_int8(j["x"])
+    got8, gots = tqm.quantize_activations_int8(t["x"])
+    assert got8.dtype == torch.int8 and gots.shape == (37, 1)
+    np.testing.assert_array_equal(got8.numpy(), np.asarray(want8))
+    np.testing.assert_array_equal(gots.numpy(), np.asarray(wants))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_activations_int8_plain_matches_pallas(dtype):
+    """Against the Pallas kernel in interpret mode, which lowers both
+    divisions as reciprocal multiplies: row scales within 1 ulp (the
+    bound the JAX package's own test holds its kernel to), codes equal
+    except where the IEEE quotient lies within 4 f32 ulps of a rounding
+    tie, and there they differ by one."""
+    j, t = _activations(dtype)
+    want8, wants = jqm.quantize_activations_int8(j["x"], interpret=True)
+    got8, gots = tqm.quantize_activations_int8(t["x"])
+    np.testing.assert_allclose(gots.numpy(), np.asarray(wants), rtol=2e-7,
+                               atol=0)
+    quotient = t["x"].float().numpy() / gots.numpy()
+    near_tie = np.abs(np.abs(quotient - np.trunc(quotient)) - 0.5) <= \
+        4 * np.spacing(np.abs(quotient).astype(np.float32))
+    diff = np.abs(got8.numpy().astype(int) - np.asarray(want8).astype(int))
+    assert diff.max() <= 1
+    assert (near_tie | (diff == 0)).all()
+
+
+@pytest.mark.parametrize("bits,gs,m", [
+    (4, 128, 65), (4, 256, 130), (8, 128, 130), (8, 256, 65)])
+def test_k6_plain_matches_pallas(bits, gs, m):
+    j, t = _both(_inputs(1, bits, gs, 2 * gs, 128, m), "f32")
+    want = jqm.gptq_matmul(j["x"], j["qweight"], j["qzeros"], j["scales"],
+                           bits=bits, group_size=gs, interpret=True,
+                           stream=False)
+    got = tqm.gptq_matmul(t["x"], t["qweight"], t["qzeros"], t["scales"],
+                          bits=bits, group_size=gs, stream=False)
+    _assert_close(got, want, "f32")
+
+
+def test_k6_plain_matches_pallas_bf16():
+    j, t = _both(_inputs(2, 4, 128, 256, 256, 65), "bf16")
+    want = jqm.gptq_matmul(j["x"], j["qweight"], j["qzeros"], j["scales"],
+                           bits=4, group_size=128, interpret=True,
+                           stream=False)
+    got = tqm.gptq_matmul(t["x"], t["qweight"], t["qzeros"], t["scales"],
+                          bits=4, group_size=128)
+    _assert_close(got, want, "bf16")
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("arm", ["a16", "a8", "a8-deferred"])
+def test_k7_plain_matches_streamed_pallas(m, arm):
+    j, t = _both(_inputs(3 + m, 4, 128, 384, 128, m), "f32")
+    args_j = (j["x"], j["qweight"], j["qzeros"], j["scales"])
+    args_t = (t["x"], t["qweight"], t["qzeros"], t["scales"])
+    if arm == "a16":
+        want = jqm.gptq_matmul(*args_j, bits=4, group_size=128,
+                               interpret=True, stream=True)
+        got = tqm.gptq_matmul(*args_t, bits=4, group_size=128, stream=True)
+    else:
+        deferred = arm == "a8-deferred"
+        want = jqm.gptq_matmul_a8(*args_j, bits=4, group_size=128,
+                                  interpret=True, stream=True,
+                                  deferred=deferred)
+        got = tqm.gptq_matmul_a8(*args_t, bits=4, group_size=128,
+                                 stream=True, deferred=deferred)
+    _assert_close(got, want, "f32")
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k8_plain_matches_pallas(deferred, dtype, monkeypatch):
+    """Both sides take the same int8 codes: the Pallas wrapper is given
+    the reference chain's codes, computed eagerly, in place of its
+    quantize kernel (whose divide, like XLA's fused divide inside a jit,
+    is a reciprocal multiply that flips codes at rounding ties, see the
+    test above); they equal the port's. So this compares the two matmul
+    bodies alone."""
+    j, t = _both(_inputs(4, 4, 128, 512, 128, 80), dtype)
+    x8, xs = jqm._quantize_activations_int8(j["x"])
+    p8, ps = tqm.quantize_activations_int8(t["x"])
+    np.testing.assert_array_equal(np.asarray(x8), p8.numpy())
+    np.testing.assert_array_equal(np.asarray(xs), ps.numpy())
+    monkeypatch.setattr(jqm, "quantize_activations_int8",
+                        lambda x, interpret=False: (x8, xs))
+    jqm.gptq_matmul_a8.clear_cache()
+    want = jqm.gptq_matmul_a8(j["x"], j["qweight"], j["qzeros"],
+                              j["scales"], bits=4, group_size=128,
+                              interpret=True, stream=False,
+                              deferred=deferred)
+    got = tqm.gptq_matmul_a8(t["x"], t["qweight"], t["qzeros"], t["scales"],
+                             bits=4, group_size=128, stream=False,
+                             deferred=deferred)
+    jqm.gptq_matmul_a8.clear_cache()
+    _assert_close(got, want, dtype)
+
+
+def test_plain_w4a8_refuses_8_bit_codes():
+    t = {k: torch.from_numpy(v) for k, v in
+         _inputs(5, 8, 128, 128, 128, 2).items()}
+    with pytest.raises(ValueError, match="4-bit"):
+        tqm.gptq_matmul_a8(t["x"], t["qweight"], t["qzeros"], t["scales"],
+                           bits=8, group_size=128)
+
+
+def test_gptq_supported_gate_matches_jax():
+    for args in [(4096, 14336, 4, 128, False), (4096, 4096, 8, 128, False),
+                 (4096, 14336, 4, 128, True), (4096, 14336, 2, 128, False),
+                 (4000, 14336, 4, 128, False), (4096, 14300, 4, 128, False),
+                 (256, 256, 4, -1, False), (64, 256, 4, 128, False)]:
+        assert tqm.gptq_supported(*args) == jqm.gptq_supported(*args), args
