@@ -1,17 +1,19 @@
 """Engine configuration objects for the PyTorch port.
 
 Copied from the JAX package's `common/config.py` with the same classes
-and semantics, narrowed to what the port serves so far: a dense or
-GPTQ-quantized (4 or 8 bits, no act-order) Llama-family model on one
-CUDA card (or the CPU, when the caller asks for it): dense models in
-bfloat16 or float32, GPTQ in bfloat16 on the card (the kernels take
-bfloat16 activations and scales) and in either on the CPU. Every
-configuration outside that is refused HERE, with a message naming the
-later slice that brings it (`refuse`), so nothing is silently ignored:
+and semantics, narrowed to what the port serves so far: a dense,
+GPTQ-quantized (4 or 8 bits, no act-order) or AWQ-quantized (4 bits)
+Llama-family model on one CUDA card (or the CPU, when the caller asks
+for it): dense models in bfloat16 or float32, GPTQ and AWQ in bfloat16
+on the card (the kernels take bfloat16 activations and scales) and in
+either on the CPU. Every configuration outside that is refused HERE,
+with a message naming the later slice that brings it (`refuse`), so
+nothing is silently ignored:
 
 - tensor/data/sequence parallelism and the disaggregated split;
-- quantization methods other than GPTQ; GPTQ act-order, 2-bit, or in
-  float32 on the card; quantized KV caches;
+- quantization methods other than GPTQ and AWQ; GPTQ act-order, 2-bit,
+  GPTQ or AWQ in float32 on the card or at layer shapes the kernels do
+  not take; quantized KV caches;
 - sliding-window models, and architectures other than Llama's.
 
 `DeviceConfig` resolves to "cuda" or "cpu" only, and never falls back
@@ -38,11 +40,14 @@ def refuse(what: str, later: str) -> None:
         f"with a later slice: {later} (see ROADMAP.md).")
 
 
-_LATER_QUANT = ("the quantized matmul kernels K10-K17 (AWQ next, then "
-                "GGUF, SqueezeLLM/QuIP# and int8)")
+_LATER_QUANT = ("the quantized matmul kernels K12-K17 (GGUF next, then "
+                "SqueezeLLM/QuIP# and int8)")
 _LATER_GPTQ = ("GPTQ act-order, 2-bit, float32 on the card and other "
                "group shapes, on the reference's dequantize-then-matmul "
-               "path after the quantized matmul kernels K10-K17")
+               "path after the quantized matmul kernels K12-K17")
+_LATER_AWQ = ("AWQ in float32 on the card and at other layer shapes, on "
+              "the reference's dequantize-then-matmul path after the "
+              "quantized matmul kernels K12-K17")
 
 # String names avoid importing jax at config time.
 _STR_DTYPE_TO_JAX = {
@@ -107,6 +112,8 @@ class ModelConfig:
         """Refuse configurations outside the ported slices."""
         if self.quantization == "gptq":
             self._verify_gptq()
+        elif self.quantization == "awq":
+            self._verify_awq()
         elif self.quantization is not None:
             refuse(f"quantization {self.quantization!r}", _LATER_QUANT)
         if self.load_format == "gguf" or self.model.endswith(".gguf"):
@@ -134,31 +141,48 @@ class ModelConfig:
                    _LATER_GPTQ)
         if cfg.weight_bits not in (4, 8):
             refuse(f"{cfg.weight_bits}-bit GPTQ", _LATER_GPTQ)
-        c = self.hf_config
-        heads = c.num_attention_heads
-        kv_heads = getattr(c, "num_key_value_heads", None) or heads
-        head_dim = self.get_head_size()
-        shapes = [(c.hidden_size, (heads + 2 * kv_heads) * head_dim),
-                  (heads * head_dim, c.hidden_size),
-                  (c.hidden_size, 2 * c.intermediate_size),
-                  (c.intermediate_size, c.hidden_size)]
-        bad = [s for s in shapes if not cfg.supports(*s)]
+        bad = [s for s in self._linear_shapes() if not cfg.supports(*s)]
         if bad:
             refuse(f"GPTQ group size {cfg.group_size} for the linear "
                    f"shapes (in, out) {bad} (the kernels need in % group "
                    "== 0, 128 <= group <= 1024 and out % 128 == 0)",
                    _LATER_GPTQ)
 
+    def _verify_awq(self) -> None:
+        """AWQ (4 bits) is served for the layer shapes the kernels take
+        (`AWQConfig.supports`, the JAX package's `awq_supported`)."""
+        from aphrodite_tpu_torch.modeling.layers.quantization import (
+            get_quantization_config)
+        cfg = get_quantization_config(self)
+        bad = [s for s in self._linear_shapes() if not cfg.supports(*s)]
+        if bad:
+            refuse(f"AWQ group size {cfg.group_size} for the linear shapes "
+                   f"(in, out) {bad} (the kernels need in % group == 0, "
+                   "128 <= group <= 1024 and out % 1024 == 0)", _LATER_AWQ)
+
+    def _linear_shapes(self):
+        """(in, out) of the four quantized projections of a layer."""
+        c = self.hf_config
+        heads = c.num_attention_heads
+        kv_heads = getattr(c, "num_key_value_heads", None) or heads
+        head_dim = self.get_head_size()
+        return [(c.hidden_size, (heads + 2 * kv_heads) * head_dim),
+                (heads * head_dim, c.hidden_size),
+                (c.hidden_size, 2 * c.intermediate_size),
+                (c.intermediate_size, c.hidden_size)]
+
     def verify_with_device_config(self,
                                   device_config: "DeviceConfig") -> None:
-        """The GPTQ kernels take bfloat16 activations and scales: on the
-        card GPTQ runs in bfloat16 only. (float32 stays for
+        """The GPTQ and AWQ kernels take bfloat16 activations and scales:
+        on the card they run in bfloat16 only. (float32 stays for
         device="cpu", where the plain versions run.)"""
-        if self.quantization == "gptq" and \
+        if self.quantization in ("gptq", "awq") and \
                 device_config.device_type != "cpu" and \
                 self.dtype != "bfloat16":
-            refuse(f"GPTQ in {self.dtype} on the CUDA card (use "
-                   "dtype='bfloat16', or device='cpu')", _LATER_GPTQ)
+            name = self.quantization.upper()
+            refuse(f"{name} in {self.dtype} on the CUDA card (use "
+                   "dtype='bfloat16', or device='cpu')",
+                   _LATER_GPTQ if name == "GPTQ" else _LATER_AWQ)
 
     def _verify_load_format(self) -> None:
         load_format = self.load_format.lower()

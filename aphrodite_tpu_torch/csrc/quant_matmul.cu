@@ -1,33 +1,42 @@
-// GPTQ dequant matmuls and per-row int8 activation quantization, CUDA C++
-// for sm_90a.
+// GPTQ and AWQ dequant matmuls and per-row int8 activation quantization,
+// CUDA C++ for sm_90a.
 //
-// Replaces four Pallas TPU kernels of aphrodite_tpu/ops/pallas/quant_matmul.py:
-//   _kernel            (quant_matmul.py:554)  -> gptq_mma_kernel, 128-row tiles (K6)
-//   _stream_kernel     (quant_matmul.py:308)  -> gptq_mma_kernel, 16-64-row tiles
-//                                                with split K, GPTQ layout (K7)
-//   _gptq_a8_kernel / _gptq_a8_deferred_kernel
-//                      (quant_matmul.py:1274, :1311)
-//                                             -> gptq_mma_kernel<A8>, 128-row (K8)
-//   _quant8_kernel     (quant_matmul.py:781)  -> quant8_kernel (K9)
+// Replaces six Pallas TPU kernels of aphrodite_tpu/ops/pallas/quant_matmul.py
+// (K6-K11), all but K9 with one templated kernel, quant_mma_kernel:
+//   _kernel (:554)          -> 128-row tiles, GPTQ layout (K6)
+//   _stream_kernel (:308)   -> 16-64-row tiles with split K, GPTQ and AWQ
+//                              layouts, a16 and a8 arms (K7)
+//   _gptq_a8_kernel, _gptq_a8_deferred_kernel (:1274, :1311)
+//                           -> <A8>, 128-row tiles, GPTQ layout (K8)
+//   _quant8_kernel (:781)   -> quant8_kernel (K9)
+//   _awq_kernel (:718)      -> 128-row tiles, AWQ layout (K10)
+//   _awq_a8_kernel, _awq_a8_deferred_kernel (:937, :971)
+//                           -> <A8>, 128-row tiles, AWQ layout (K11)
 //
-// Layout (AutoGPTQ v1): qweight [K / pack, N] int32 packs pack = 32 / bits
-// codes along K, row k in word k / pack at shift bits * (k % pack);
-// qzeros [G, N / pack] int32 packs the stored zero points along N; scales
-// [G, N] bf16; G = K / group_size and group g spans rows [g*gs, (g+1)*gs).
-// Dequant: w[k, n] = (q[k, n] - (z[g, n] + 1)) * s[g, n] (the AutoGPTQ +1).
+// Layouts; scales [G, N] bf16, G = K / group_size, group g spans rows
+// [g*gs, (g+1)*gs):
+// - GPTQ (AutoGPTQ v1): qweight [K / pack, N] int32 packs pack = 32 / bits
+//   codes along K, row k in word k / pack at shift bits * (k % pack);
+//   qzeros [G, N / pack] int32 packs the stored zero points along N.
+//   Dequant: w[k, n] = (q[k, n] - (z[g, n] + 1)) * s[g, n] (the AutoGPTQ +1).
+// - AWQ (llm-awq, 4 bits): qweight [K, N / 8] int32 packs 8 codes along N,
+//   interleaved: column 8j + e of row k in word (k, j) at shift
+//   4 * {0, 4, 1, 5, 2, 6, 3, 7}[e]; qzeros [G, N / 8] packed the same way.
+//   Dequant: w[k, n] = (q[k, n] - z[g, n]) * s[g, n] (the zero as stored).
 //
 // What bounds them on an H100:
 // - K7 (m <= 64, every decode step): bytes. Each int4 weight is used by at
 //   most 64 rows; the least time is the packed weight read once over
 //   3.35 TB/s (8.4 us for down_proj at Mistral-7B width).
-// - K6 / K8 (m > 64: prompt rounds, large decode batches): operations at
-//   large m (989 TFLOP/s bf16, 1979 TOP/s int8), bytes below a few hundred
-//   rows.
+// - K6 / K8 / K10 / K11 (m > 64: prompt rounds, large decode batches):
+//   operations at large m (989 TFLOP/s bf16, 1979 TOP/s int8), bytes below
+//   a few hundred rows.
 // - K9: bytes (x read once, the int8 copy and the row scales written once).
 //
-// What the design does about it. One templated kernel serves K6, K7 and
-// K8: a block owns BM rows x 128 columns of the output and walks its
-// quantization groups in order; each group is cut into 64-deep k chunks.
+// What the design does about it. One templated kernel serves K6, K7, K8,
+// K10 and K11, for both layouts: a block owns BM rows x 128 columns of the
+// output and walks its quantization groups in order; each group is cut
+// into 64-deep k chunks.
 // For every chunk the block stages x in shared memory and dequantizes the
 // chunk of W there (in the natural row order: the TPU's plane-order unpack
 // and x column permutation were sublane tricks and are gone; the packed
@@ -35,10 +44,17 @@
 // its eight warps run mma.sync on the tile: bf16 m16n8k16 with f32 sums (A16),
 // or s8 m16n8k32 with exact int32 sums per group and the f32 rescale by the
 // group's scale when the group ends (A8: codes minus zero lie in [-16, 14]
-// and fit int8 exactly). The TPU kernels carried the f32 sum across a
-// sequential grid axis in VMEM scratch; here the k loop is inside the
-// block. For skinny m (K7) a block covers 16, 32 or 64 rows, so the weight
-// is streamed once, and the groups are split over several blocks to fill
+// for GPTQ and [-15, 15] for AWQ and fit int8 exactly). The layouts differ
+// only in how the W chunk is staged: a GPTQ word holds 8 k rows of one
+// column, so a thread dequantizes one column's rows; an AWQ word holds 8
+// columns of one k row, so a thread holds 4 consecutive rows of one word
+// column and writes, for each of its 8 columns, those 4 rows at once
+// (unpacked in natural column order: the TPU's plane-major columns and
+// output un-permutation were lane tricks and are gone). The TPU kernels
+// carried the f32 sum across a sequential grid axis in VMEM scratch; here
+// the k loop is inside the block. For skinny m (K7) a block covers 16, 32
+// or 64 rows, so the weight is streamed once, and the groups are split
+// over several blocks to fill
 // the 132 SMs: each split writes f32 partial sums and a second kernel adds
 // them in split order (deterministic, no atomics), applies the A8 row
 // scale and rounds to bf16. x of up to 64 x 14336 does not fit in shared
@@ -107,25 +123,34 @@ __device__ __forceinline__ void st_words(void* p, const uint32_t* w) {
   }
 }
 
+// AWQ: the shift of column 8j + e in its word, 4 * {0,4,1,5,2,6,3,7}[e].
+__device__ __forceinline__ constexpr int awq_shift(int e) {
+  return 4 * ((e & 1) ? 4 + (e >> 1) : (e >> 1));
+}
+
 // One block: rows [m0, m0 + BM) x columns [n0, n0 + 128) over the groups
 // [g_begin, g_end) of split blockIdx.z. WARPS_M x (8 / WARPS_M) warps.
 // splits == 1 writes `out` (bf16; A8 times the row scale xs); otherwise
 // `partial[split, row, col]` in f32 for split_reduce_kernel.
 //
-// Each group is cut into chunks of 64 k. The two threads that own a column
-// hold that column's packed words of the next chunk in registers, loaded
-// before the current chunk's products, so the weight stream's latency
-// overlaps the tensor-core work and the barriers.
-template <int BM, int WARPS_M, int BITS, bool A8>
+// Each group is cut into chunks of 64 k. Every thread holds its packed
+// words of the next chunk in registers, loaded before the current chunk's
+// products, so the weight stream's latency overlaps the tensor-core work
+// and the barriers. GPTQ: the two threads that own a column share its
+// words. AWQ: a warp covers 4 neighbouring word columns (16 bytes of a
+// row) x 8 four-row groups, so its loads take whole halves of 32-byte
+// sectors and its shared-memory stores, 8 bytes of one column each, span
+// 16 banks per word column.
+template <int BM, int WARPS_M, int BITS, bool A8, bool AWQ>
 __global__ void __launch_bounds__(kThreads)
-gptq_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
-                const float* __restrict__ xs,
-                const uint32_t* __restrict__ qweight,
-                const uint32_t* __restrict__ qzeros,
-                const __nv_bfloat16* __restrict__ scales,
-                __nv_bfloat16* __restrict__ out,
-                float* __restrict__ partial, int m, int K, int N, int gs,
-                int groups_per_split) {
+quant_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
+                 const float* __restrict__ xs,
+                 const uint32_t* __restrict__ qweight,
+                 const uint32_t* __restrict__ qzeros,
+                 const __nv_bfloat16* __restrict__ scales,
+                 __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ partial, int m, int K, int N, int gs,
+                 int groups_per_split) {
   using T = typename Elem<A8>::T;
   constexpr int WARPS_N = 8 / WARPS_M;
   constexpr int WM = BM / WARPS_M;
@@ -135,9 +160,12 @@ gptq_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
   constexpr int LD = kChunk + Elem<A8>::kPad;
   constexpr int PACK = 32 / BITS;
   constexpr uint32_t MASK = (1u << BITS) - 1u;
-  constexpr int WPT = kChunk / PACK / 2;    // words per thread per chunk
+  // Words per thread per chunk: GPTQ 2 threads per column, kChunk / PACK
+  // words each; AWQ 64 rows x 16 words over 256 threads.
+  constexpr int WPT = AWQ ? kChunk * (kBN / 8) / kThreads : kChunk / PACK / 2;
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));   // x per uint4
   static_assert(MI >= 1 && NI >= 1 && WM % 16 == 0 && WN % 8 == 0, "tile");
+  static_assert(!AWQ || (BITS == 4 && WPT == 4), "AWQ packs 8 4-bit codes");
 
   __shared__ __align__(16) T x_tile[BM][LD];
   __shared__ __align__(16) T w_tile[kBN][LD];
@@ -156,11 +184,16 @@ gptq_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
   const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                      K % VEC == 0 && gs % VEC == 0;
 
-  // The column this thread dequantizes and its half of the chunk's words
-  // (fixed: 256 threads, 128 columns).
+  // GPTQ: the column this thread dequantizes and its half of the chunk's
+  // words (fixed: 256 threads, 128 columns).
   const int my_n = tid % kBN;
   const int my_col = n0 + my_n;
   const int my_half = tid / kBN;
+  // AWQ: this thread's word column (8 output columns from aw_col * 8) and
+  // its rows aw_rg * 4 .. + 3 of every chunk.
+  const int aw_col = ((warp & 3) << 2) | (lane & 3);
+  const int aw_rg = ((warp >> 2) << 3) | (lane >> 2);
+  const size_t awq_ld = static_cast<size_t>(N / 8);
 
   float acc[MI][NI][4];
 #pragma unroll
@@ -170,25 +203,51 @@ gptq_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-  // Words wi = my_half + 2 * i of chunk c of group g (zero past the group).
+  // GPTQ: words wi = my_half + 2 * i of chunk c of group g; AWQ: rows
+  // aw_rg * 4 + i of word column aw_col. Zero past the group.
   uint32_t words[WPT];
   auto load_words = [&](int g, int c) {
     const int k0 = g * gs + c * kChunk;
     const int kn = min(kChunk, (g + 1) * gs - k0);
 #pragma unroll
     for (int i = 0; i < WPT; ++i) {
-      const int kk = (my_half + 2 * i) * PACK;
-      words[i] = kk < kn
-          ? qweight[static_cast<size_t>((k0 + kk) / PACK) * N + my_col] : 0u;
+      if constexpr (AWQ) {
+        const int r = aw_rg * WPT + i;
+        words[i] = r < kn
+            ? qweight[static_cast<size_t>(k0 + r) * awq_ld + n0 / 8 + aw_col]
+            : 0u;
+      } else {
+        const int kk = (my_half + 2 * i) * PACK;
+        words[i] = kk < kn
+            ? qweight[static_cast<size_t>((k0 + kk) / PACK) * N + my_col] : 0u;
+      }
     }
   };
   if (g_begin < g_end) load_words(g_begin, 0);
 
   for (int g = g_begin; g < g_end; ++g) {
-    const uint32_t zw = qzeros[static_cast<size_t>(g) * (N / PACK) +
-                               my_col / PACK];
-    const int z = static_cast<int>((zw >> (BITS * (my_col % PACK))) & MASK) + 1;
-    const float s = __bfloat162float(scales[static_cast<size_t>(g) * N + my_col]);
+    // The group's zero and scale: GPTQ of this thread's column, AWQ of the
+    // 8 columns of its word column.
+    int z = 0;
+    float s = 0.f;
+    int zs[8];
+    float ss[8];
+    if constexpr (AWQ) {
+      const uint32_t zw = qzeros[static_cast<size_t>(g) * awq_ld + n0 / 8 +
+                                 aw_col];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        zs[e] = static_cast<int>((zw >> awq_shift(e)) & 0xfu);
+        if constexpr (!A8)
+          ss[e] = __bfloat162float(
+              scales[static_cast<size_t>(g) * N + n0 + aw_col * 8 + e]);
+      }
+    } else {
+      const uint32_t zw = qzeros[static_cast<size_t>(g) * (N / PACK) +
+                                 my_col / PACK];
+      z = static_cast<int>((zw >> (BITS * (my_col % PACK))) & MASK) + 1;
+      s = __bfloat162float(scales[static_cast<size_t>(g) * N + my_col]);
+    }
     int iacc[MI][NI][4];
     if constexpr (A8) {
 #pragma unroll
@@ -200,7 +259,7 @@ gptq_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
     }
     for (int c = 0; c < chunks; ++c) {
       const int k0 = g * gs + c * kChunk;
-      const int kn = min(kChunk, (g + 1) * gs - k0);   // a multiple of PACK
+      const int kn = min(kChunk, (g + 1) * gs - k0);   // rows in the chunk
       // Stage x rows [m0, m0 + BM) x k [k0, k0 + kn), zeros elsewhere.
       if (x_vec && kn == kChunk) {
         constexpr int VPR = kChunk / VEC;
@@ -221,34 +280,68 @@ gptq_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
           x_tile[r][col] = v;
         }
       }
-      // Dequantize this thread's words into W rows of its column; past kn
-      // the words are zero and so are the stored values.
+      // Dequantize this thread's words into the W tile; past kn the
+      // stored values are zero.
+      if constexpr (AWQ) {
+        // 4 rows of each of the word's 8 columns, in natural column order.
 #pragma unroll
-      for (int i = 0; i < WPT; ++i) {
-        const int kk = (my_half + 2 * i) * PACK;
-        const uint32_t word = words[i];
-        const bool valid = kk < kn;
-        if constexpr (A8) {
-          uint32_t packed[2] = {0u, 0u};
+        for (int e = 0; e < 8; ++e) {
+          const int n = aw_col * 8 + e;
+          const int sh = awq_shift(e);
+          if constexpr (A8) {
+            uint32_t packed = 0u;
 #pragma unroll
-          for (int j = 0; j < PACK; ++j) {
-            const int q = static_cast<int>((word >> (BITS * j)) & MASK);
-            const uint32_t b = valid ? static_cast<uint32_t>(q - z) & 0xffu : 0u;
-            packed[j / 4] |= b << (8 * (j % 4));
+            for (int i = 0; i < WPT; ++i) {
+              const int q = static_cast<int>((words[i] >> sh) & 0xfu);
+              const uint32_t b = aw_rg * WPT + i < kn
+                  ? static_cast<uint32_t>(q - zs[e]) & 0xffu : 0u;
+              packed |= b << (8 * i);
+            }
+            *reinterpret_cast<uint32_t*>(&w_tile[n][aw_rg * WPT]) = packed;
+          } else {
+            uint32_t packed[WPT / 2];
+#pragma unroll
+            for (int i = 0; i < WPT; i += 2) {
+              const int q0 = static_cast<int>((words[i] >> sh) & 0xfu);
+              const int q1 = static_cast<int>((words[i + 1] >> sh) & 0xfu);
+              const __nv_bfloat162 w2 = __floats2bfloat162_rn(
+                  aw_rg * WPT + i < kn
+                      ? static_cast<float>(q0 - zs[e]) * ss[e] : 0.f,
+                  aw_rg * WPT + i + 1 < kn
+                      ? static_cast<float>(q1 - zs[e]) * ss[e] : 0.f);
+              packed[i / 2] = *reinterpret_cast<const uint32_t*>(&w2);
+            }
+            st_words<WPT / 2>(&w_tile[n][aw_rg * WPT], packed);
           }
-          st_words<2>(&w_tile[my_n][kk], packed);
-        } else {
-          uint32_t packed[PACK / 2];
+        }
+      } else {
 #pragma unroll
-          for (int j = 0; j < PACK; j += 2) {
-            const int q0 = static_cast<int>((word >> (BITS * j)) & MASK);
-            const int q1 = static_cast<int>((word >> (BITS * (j + 1))) & MASK);
-            const __nv_bfloat162 w2 = __floats2bfloat162_rn(
-                valid ? static_cast<float>(q0 - z) * s : 0.f,
-                valid ? static_cast<float>(q1 - z) * s : 0.f);
-            packed[j / 2] = *reinterpret_cast<const uint32_t*>(&w2);
+        for (int i = 0; i < WPT; ++i) {
+          const int kk = (my_half + 2 * i) * PACK;
+          const uint32_t word = words[i];
+          const bool valid = kk < kn;
+          if constexpr (A8) {
+            uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+            for (int j = 0; j < PACK; ++j) {
+              const int q = static_cast<int>((word >> (BITS * j)) & MASK);
+              const uint32_t b = valid ? static_cast<uint32_t>(q - z) & 0xffu : 0u;
+              packed[j / 4] |= b << (8 * (j % 4));
+            }
+            st_words<2>(&w_tile[my_n][kk], packed);
+          } else {
+            uint32_t packed[PACK / 2];
+#pragma unroll
+            for (int j = 0; j < PACK; j += 2) {
+              const int q0 = static_cast<int>((word >> (BITS * j)) & MASK);
+              const int q1 = static_cast<int>((word >> (BITS * (j + 1))) & MASK);
+              const __nv_bfloat162 w2 = __floats2bfloat162_rn(
+                  valid ? static_cast<float>(q0 - z) * s : 0.f,
+                  valid ? static_cast<float>(q1 - z) * s : 0.f);
+              packed[j / 2] = *reinterpret_cast<const uint32_t*>(&w2);
+            }
+            st_words<PACK / 2>(&w_tile[my_n][kk], packed);
           }
-          st_words<PACK / 2>(&w_tile[my_n][kk], packed);
         }
       }
       // Next chunk's words (next group's first at the group's end).
@@ -372,7 +465,7 @@ __global__ void split_reduce_kernel(const float* __restrict__ partial,
   out[i] = __float2bfloat16(v);
 }
 
-template <int BM, int WARPS_M, int BITS, bool A8>
+template <int BM, int WARPS_M, int BITS, bool A8, bool AWQ>
 void launch_tile(const void* x, const float* xs, const void* qweight,
                  const void* qzeros, const void* scales, void* out,
                  float* partial, int m, int K, int N, int gs, int splits,
@@ -380,7 +473,7 @@ void launch_tile(const void* x, const float* xs, const void* qweight,
   const int G = K / gs;
   const int gps = (G + splits - 1) / splits;
   dim3 grid(N / kBN, (m + BM - 1) / BM, splits);
-  gptq_mma_kernel<BM, WARPS_M, BITS, A8><<<grid, kThreads, 0, stream>>>(
+  quant_mma_kernel<BM, WARPS_M, BITS, A8, AWQ><<<grid, kThreads, 0, stream>>>(
       static_cast<const typename Elem<A8>::T*>(x), xs,
       static_cast<const uint32_t*>(qweight),
       static_cast<const uint32_t*>(qzeros),
@@ -389,25 +482,25 @@ void launch_tile(const void* x, const float* xs, const void* qweight,
       K, N, gs, gps);
 }
 
-template <int BITS, bool A8>
+template <int BITS, bool A8, bool AWQ>
 int launch(const void* x, const float* xs, const void* qweight,
            const void* qzeros, const void* scales, void* out,
            float* partial, int m, int K, int N, int gs, int splits,
            int block_m, cudaStream_t stream) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
   switch (block_m) {
-    case 16: launch_tile<16, 1, BITS, A8>(x, xs, qweight, qzeros, scales,
-                                          out, partial, m, K, N, gs, splits,
-                                          stream); break;
-    case 32: launch_tile<32, 1, BITS, A8>(x, xs, qweight, qzeros, scales,
-                                          out, partial, m, K, N, gs, splits,
-                                          stream); break;
-    case 64: launch_tile<64, 1, BITS, A8>(x, xs, qweight, qzeros, scales,
-                                          out, partial, m, K, N, gs, splits,
-                                          stream); break;
-    case 128: launch_tile<128, 2, BITS, A8>(x, xs, qweight, qzeros, scales,
-                                            out, partial, m, K, N, gs,
-                                            splits, stream); break;
+    case 16: launch_tile<16, 1, BITS, A8, AWQ>(
+        x, xs, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
+        stream); break;
+    case 32: launch_tile<32, 1, BITS, A8, AWQ>(
+        x, xs, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
+        stream); break;
+    case 64: launch_tile<64, 1, BITS, A8, AWQ>(
+        x, xs, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
+        stream); break;
+    case 128: launch_tile<128, 2, BITS, A8, AWQ>(
+        x, xs, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
+        stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (splits > 1) {
@@ -462,11 +555,11 @@ extern "C" int gptq_mm_a16(const void* x, const void* qweight,
                            int bits, int splits, int block_m, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bits == 4)
-    return launch<4, false>(x, nullptr, qweight, qzeros, scales, out,
-                            partial, m, K, N, gs, splits, block_m, st);
+    return launch<4, false, false>(x, nullptr, qweight, qzeros, scales, out,
+                                   partial, m, K, N, gs, splits, block_m, st);
   if (bits == 8)
-    return launch<8, false>(x, nullptr, qweight, qzeros, scales, out,
-                            partial, m, K, N, gs, splits, block_m, st);
+    return launch<8, false, false>(x, nullptr, qweight, qzeros, scales, out,
+                                   partial, m, K, N, gs, splits, block_m, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -478,9 +571,33 @@ extern "C" int gptq_mm_a8(const void* x8, const float* xs,
                           const void* scales, void* out, float* partial,
                           int m, int K, int N, int gs, int splits,
                           int block_m, void* stream) {
-  return launch<4, true>(x8, xs, qweight, qzeros, scales, out, partial, m,
-                         K, N, gs, splits, block_m,
-                         static_cast<cudaStream_t>(stream));
+  return launch<4, true, false>(x8, xs, qweight, qzeros, scales, out,
+                                partial, m, K, N, gs, splits, block_m,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// AWQ layout, y[m, N] = x[m, K] @ dequant(W), x and scales bf16. block_m 128
+// is K10; 16, 32 and 64 are K7's AWQ layout (split K as for GPTQ).
+extern "C" int awq_mm_a16(const void* x, const void* qweight,
+                          const void* qzeros, const void* scales, void* out,
+                          float* partial, int m, int K, int N, int gs,
+                          int splits, int block_m, void* stream) {
+  return launch<4, false, true>(x, nullptr, qweight, qzeros, scales, out,
+                                partial, m, K, N, gs, splits, block_m,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// AWQ layout, y[m, N] = bf16(xs[m] * sum_g s[g] * (x8[m, g] . (q - z)[g])),
+// x8 int8 from quant8. block_m 128 is K11; 16, 32 and 64 the a8 arm of K7's
+// AWQ layout.
+extern "C" int awq_mm_a8(const void* x8, const float* xs,
+                         const void* qweight, const void* qzeros,
+                         const void* scales, void* out, float* partial,
+                         int m, int K, int N, int gs, int splits,
+                         int block_m, void* stream) {
+  return launch<4, true, true>(x8, xs, qweight, qzeros, scales, out,
+                               partial, m, K, N, gs, splits, block_m,
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int quant8(const void* x, void* x8, float* xs, int m, int K,

@@ -1,19 +1,21 @@
 """Quantization plug-in registry of the PyTorch port (port of
 `aphrodite_tpu/modeling/layers/quantization/__init__.py`).
 
-Only GPTQ is ported so far; the other methods of the JAX package (awq,
-gguf, squeezellm, int8, quip) are refused by `ModelConfig` before a
+GPTQ and AWQ are ported so far; the other methods of the JAX package
+(gguf, squeezellm, int8, quip) are refused by `ModelConfig` before a
 model is built.
 """
 from __future__ import annotations
 
 from typing import Type
 
+from aphrodite_tpu_torch.modeling.layers.quantization.awq import AWQConfig
 from aphrodite_tpu_torch.modeling.layers.quantization.base_config import (
     QuantizationConfig)
 from aphrodite_tpu_torch.modeling.layers.quantization.gptq import GPTQConfig
 
 _QUANTIZATION_CONFIG_REGISTRY = {
+    "awq": AWQConfig,
     "gptq": GPTQConfig,
 }
 

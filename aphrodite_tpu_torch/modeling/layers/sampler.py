@@ -10,16 +10,18 @@ tensors; stages nobody in the batch uses are skipped through the
 JAX layout, so the host needs one transfer per step and `finalize` /
 `_assemble` are the JAX package's.
 
-Random draws: each row that samples gets its own `torch.Generator`,
-seeded from the row's (base, salt1, salt2) — the request seed and its
-output position for seeded requests — and draws Gumbel noise for
-argmax(logits + noise), the categorical draw JAX makes. Seeded requests
-are therefore reproducible within the port, regardless of batch
-composition; they do not reproduce JAX's threefry bits.
+Random draws reproduce the JAX package's bits: every row's key is
+fold_in(fold_in(PRNGKey(base), salt1), salt2), built on the device from
+the (bases, salt1, salt2) tensors, and tokens are drawn with JAX's
+categorical (Gumbel-max over threefry uniforms), both from `prng`. A
+seeded request (base = its seed, salts = its output position and
+sibling index) therefore samples the same tokens as in the JAX package,
+alone or in any batch; seeded and unseeded rows take the same code and
+differ only in their key parts (`Sampler._key_parts`).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,11 +30,11 @@ from aphrodite_tpu_torch.common.sampling_params import SamplingType
 from aphrodite_tpu_torch.common.sequence import (SamplerOutput,
                                                  SequenceGroupOutput,
                                                  SequenceOutput)
+from aphrodite_tpu_torch.modeling.layers import prng
 from aphrodite_tpu_torch.modeling.sampling_metadata import (
     SamplingMetadata, SamplingTensors, build_sampling_tensors)
 
 _NEG_INF = float("-inf")
-_MASK64 = (1 << 64) - 1
 
 
 # ---------------------------------------------------------------- stages --
@@ -182,8 +184,7 @@ def _apply_quadratic(logits, t: SamplingTensors) -> torch.Tensor:
                        logits)
 
 
-def _apply_mirostat_v2(logits, t: SamplingTensors,
-                       seeds: Sequence[Optional[int]]
+def _apply_mirostat_v2(logits, t: SamplingTensors, keys: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mirostat v2: mask tokens above the surprise target mu, sample,
     one-hot the logits; returns updated mus."""
@@ -193,7 +194,7 @@ def _apply_mirostat_v2(logits, t: SamplingTensors,
     rows = torch.arange(logits.shape[0], device=logits.device)
     mask[rows, min_idx] = False
     masked = logits.masked_fill(mask, _NEG_INF)
-    sampled = _categorical(masked, seeds, 1)[:, 0]
+    sampled = prng.categorical(keys, masked)
     picked = surprise[rows, sampled]
     new_mus = t.miro_mus - t.miro_etas * (picked - t.miro_taus)
     onehot = torch.full_like(logits, _NEG_INF)
@@ -201,51 +202,10 @@ def _apply_mirostat_v2(logits, t: SamplingTensors,
     return onehot, new_mus
 
 
-# -------------------------------------------------------- random draws --
-
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
-def row_seed(base: int, salt1: int, salt2: int) -> int:
-    """Generator seed of one row from its (base, salt1, salt2), the
-    counterpart of fold_in(fold_in(PRNGKey(base), salt1), salt2)."""
-    h = _splitmix64(int(base) & _MASK64)
-    h = _splitmix64(h ^ (int(salt1) & _MASK64))
-    h = _splitmix64(h ^ (int(salt2) & _MASK64))
-    return h & ((1 << 63) - 1)
-
-
-def row_seeds(bases, salt1, salt2, rows: Optional[np.ndarray] = None
-              ) -> List[Optional[int]]:
-    """Per-row seeds; None for rows that draw nothing (rows[r] False)."""
-    return [row_seed(b, s1, s2) if rows is None or rows[r] else None
-            for r, (b, s1, s2) in enumerate(zip(bases, salt1, salt2))]
-
-
-def _categorical(logits: torch.Tensor, seeds: Sequence[Optional[int]],
-                 num: int) -> torch.Tensor:
-    """[rows, num] draws from softmax(logits) by the Gumbel-max trick,
-    one generator per row; rows whose seed is None take the argmax."""
-    out = logits.argmax(dim=-1, keepdim=True).repeat(1, num)
-    for r, seed in enumerate(seeds):
-        if seed is None:
-            continue
-        gen = torch.Generator(device=logits.device).manual_seed(seed)
-        u = torch.rand((num, logits.shape[-1]), generator=gen,
-                       device=logits.device)
-        gumbel = -torch.log(-torch.log(u))
-        out[r] = (logits[r][None] + gumbel).argmax(dim=-1)
-    return out
-
-
 # ------------------------------------------------------------ pipeline --
 
 def _process_logits(logits: torch.Tensor, t: SamplingTensors,
-                    miro_seeds: Sequence[Optional[int]]
+                    keys: Optional[torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The pipeline in reference order; do_* flags skip unused stages."""
     logits = logits.float()
@@ -269,22 +229,30 @@ def _process_logits(logits: torch.Tensor, t: SamplingTensors,
         logits = _apply_token_bans(logits, t)
     new_mus = t.miro_mus
     if t.do_mirostat:
-        miro_logits, new_mus_all = _apply_mirostat_v2(logits, t,
-                                                      miro_seeds)
+        miro_logits, new_mus_all = _apply_mirostat_v2(logits, t, keys)
         is_miro = t.miro_taus > 0
         logits = torch.where(is_miro[:, None], miro_logits, logits)
         new_mus = torch.where(is_miro, new_mus_all, t.miro_mus)
     return logits, new_mus
 
 
-def _sample_tokens(logits: torch.Tensor, seeds: Sequence[Optional[int]],
-                   max_best_of: int, num_topk: int):
+def _sample_tokens(logits: torch.Tensor, keys: Optional[torch.Tensor],
+                   max_best_of: int, num_topk: int,
+                   draw_rows: Optional[torch.Tensor] = None):
     """Token selection and the small result tensors: (greedy [rows],
     random [rows, max_best_of], lp_greedy [rows], lp_random
     [rows, max_best_of], topk_vals / topk_idx [rows, num_topk],
-    logprobs [rows, vocab])."""
+    logprobs [rows, vocab]). Only the rows in `draw_rows` (all rows when
+    None) draw; the others' draw columns hold the argmax. A row's draws
+    depend on its key and logits alone, so they equal the JAX package's
+    whichever rows draw beside it."""
     greedy = logits.argmax(dim=-1)
-    random = _categorical(logits, seeds, max_best_of)
+    random = greedy[:, None].repeat(1, max_best_of)
+    if draw_rows is None:
+        random = prng.categorical(keys, logits, max_best_of)
+    elif draw_rows.numel():
+        random[draw_rows] = prng.categorical(
+            keys[draw_rows], logits[draw_rows], max_best_of)
     logprobs = torch.log_softmax(logits, dim=-1)
     lp_greedy = logprobs.gather(1, greedy[:, None])[:, 0]
     lp_random = logprobs.gather(1, random)
@@ -299,9 +267,11 @@ def _sample_tokens(logits: torch.Tensor, seeds: Sequence[Optional[int]],
         logprobs
 
 
-def fused_sample(logits: torch.Tensor, t: SamplingTensors, bases, salt1,
-                 salt2, *, max_best_of: int, num_topk: int,
-                 need_logprobs: bool, draw_rows: Optional[np.ndarray] = None):
+def fused_sample(logits: torch.Tensor, t: SamplingTensors,
+                 bases: torch.Tensor, salt1: torch.Tensor,
+                 salt2: torch.Tensor, *, max_best_of: int, num_topk: int,
+                 need_logprobs: bool,
+                 draw_rows: Optional[torch.Tensor] = None):
     """The whole device-side sampling step, packed into ONE int32 tensor
     with the JAX layout (W = 1 + B + K):
 
@@ -313,14 +283,18 @@ def fused_sample(logits: torch.Tensor, t: SamplingTensors, bases, salt1,
       [W+1+B : W+1+B+K]  top-k logprob values }
       [-1]               updated mirostat mu  }
 
-    bases / salt1 / salt2 are host arrays (one entry per row); rows with
-    `draw_rows` False draw nothing (their draw columns hold the argmax).
+    bases / salt1 / salt2 are integer tensors on the logits' device (one
+    entry per row) from which the rows' keys are folded; `draw_rows`
+    holds the indices of the rows that sample at random (None: all).
     Full [rows, vocab] logprobs come back only with `need_logprobs`."""
-    seeds = row_seeds(bases, salt1, salt2, draw_rows)
-    miro_seeds = row_seeds(bases, salt1, salt2) if t.do_mirostat else ()
-    processed, new_mus = _process_logits(logits, t, miro_seeds)
+    # A step in which no row draws (all greedy, no mirostat) folds no
+    # keys: threefry is some 200 elementwise launches.
+    draws = draw_rows is None or draw_rows.numel() > 0
+    keys = prng.row_keys(bases, salt1, salt2) \
+        if draws or t.do_mirostat else None
+    processed, new_mus = _process_logits(logits, t, keys)
     greedy, random, lp_greedy, lp_random, topk_vals, topk_idx, logprobs = \
-        _sample_tokens(processed, seeds, max_best_of, num_topk)
+        _sample_tokens(processed, keys, max_best_of, num_topk, draw_rows)
     ints = torch.cat([greedy[:, None], random, topk_idx],
                      dim=1).to(torch.int32)
     floats = torch.cat([lp_greedy[:, None], lp_random, topk_vals,
@@ -352,7 +326,8 @@ class SamplePlan:
         self.num_rows = num_rows
         self.row_to_seq = row_to_seq
         self.group_of = group_of
-        # Rows that sample at random (the others skip their draws).
+        # Indices of the rows that sample at random, on the device (the
+        # others skip their draws).
         self.draw_rows = draw_rows
 
 
@@ -394,15 +369,13 @@ class Sampler:
         num_rows = len(row_to_seq)
         rows = tensors.temperatures.shape[0]
         group_of = self._seq_to_group(metadata)
-        draw_rows = np.zeros((rows,), dtype=bool)
-        for row, seq_id in row_to_seq.items():
-            entry = group_of.get(seq_id)
-            if entry is not None and \
-                    entry[1].sampling_type == SamplingType.RANDOM:
-                draw_rows[row] = True
+        draw_rows = [row for row, seq_id in sorted(row_to_seq.items())
+                     if seq_id in group_of and
+                     group_of[seq_id][1].sampling_type == SamplingType.RANDOM]
         self._step += 1
-        bases, salt1, salt2 = self._key_parts(metadata, rows, row_to_seq,
-                                              group_of)
+        bases, salt1, salt2 = (
+            torch.from_numpy(a).to(self.device) for a in self._key_parts(
+                metadata, rows, row_to_seq, group_of))
         max_best_of = max([1] + [
             p.best_of for (_, p) in metadata.seq_groups
             if p.sampling_type == SamplingType.RANDOM
@@ -421,7 +394,9 @@ class Sampler:
             for (_, p) in metadata.seq_groups)
         return SamplePlan(tensors, bases, salt1, salt2, max_best_of,
                           max_logprobs, need_logprobs, num_rows,
-                          row_to_seq, group_of, draw_rows)
+                          row_to_seq, group_of,
+                          torch.tensor(draw_rows, dtype=torch.int64,
+                                       device=self.device))
 
     def finalize(self, metadata: SamplingMetadata, plan: SamplePlan,
                  packed: np.ndarray,

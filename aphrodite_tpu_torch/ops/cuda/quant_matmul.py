@@ -1,7 +1,7 @@
-"""GPTQ dequant matmuls and int8 activation quantization: the CUDA
-kernels of `csrc/quant_matmul.cu` and their plain PyTorch versions.
+"""GPTQ and AWQ dequant matmuls and int8 activation quantization: the
+CUDA kernels of `csrc/quant_matmul.cu` and their plain PyTorch versions.
 
-Port of the GPTQ half of `aphrodite_tpu/ops/pallas/quant_matmul.py`:
+Port of the GPTQ and AWQ parts of `aphrodite_tpu/ops/pallas/quant_matmul.py`:
 
 - `gptq_matmul` (W4A16, 4 or 8 bits): y = x @ dequant(W). At m <= 64
   (decode steps) the weight-streaming kernel (K7, Pallas
@@ -12,17 +12,26 @@ Port of the GPTQ half of `aphrodite_tpu/ops/pallas/quant_matmul.py`:
   and `_gptq_a8_deferred_kernel`; the two bodies differ only in f32
   summation order and one kernel computes both, so `deferred` is
   accepted and has no effect).
+- `awq_matmul` (W4A16, AWQ layout): K7's AWQ layout at m <= 64, else
+  K10 (Pallas `_awq_kernel`).
+- `awq_matmul_a8` (W4A8, AWQ layout): K9, then K7's AWQ a8 arm at
+  m <= 64, else K11 (Pallas `_awq_a8_kernel` and
+  `_awq_a8_deferred_kernel`, again one kernel for both bodies).
 - `quantize_activations_int8` (K9, Pallas `_quant8_kernel`): per-row
   xs = max(absmax, 1e-8) / 127 and x8 = clip(round(x / xs), -127, 127),
   rounding half to even.
 
-Layout (AutoGPTQ v1, as the checkpoint stores it): qweight [K/pack, N]
-int32 with pack = 32 // bits codes along K (row k in word k // pack at
-shift bits * (k % pack)), qzeros [G, N/pack] int32 packed along N, scales
-[G, N], G = K // group_size. w[k, n] = (q - (z + 1)) * s with the group
-of row k = k // group_size: the kernels' contiguous groups. Like the
-Pallas kernels, these functions do not read g_idx (see
-`modeling/layers/quantization/gptq.py`).
+Layouts, as the checkpoints store them; scales [G, N], G = K //
+group_size, row k in group k // group_size (the kernels' contiguous
+groups):
+- GPTQ (AutoGPTQ v1): qweight [K/pack, N] int32 with pack = 32 // bits
+  codes along K (row k in word k // pack at shift bits * (k % pack)),
+  qzeros [G, N/pack] int32 packed along N. w[k, n] = (q - (z + 1)) * s.
+  Like the Pallas kernels, these functions do not read g_idx (see
+  `modeling/layers/quantization/gptq.py`).
+- AWQ (llm-awq, 4 bits): qweight [K, N/8] int32 with 8 codes along N,
+  interleaved (column 8j + e at shift 4 * AWQ_ORDER[e]), qzeros [G, N/8]
+  packed the same way. w[k, n] = (q - z) * s, the zero as stored.
 
 Each public function launches its kernel for CUDA tensors and runs the
 plain version for CPU tensors, and for nothing else: a CUDA tensor the
@@ -48,6 +57,11 @@ GPTQ_MATMUL_STREAM_LAUNCHES = build.launch_counter("gptq_matmul_stream")
 GPTQ_MATMUL_STREAM_A8_LAUNCHES = build.launch_counter(
     "gptq_matmul_stream_a8")
 GPTQ_MATMUL_A8_LAUNCHES = build.launch_counter("gptq_matmul_a8")
+AWQ_MATMUL_LAUNCHES = build.launch_counter("awq_matmul")
+AWQ_MATMUL_STREAM_LAUNCHES = build.launch_counter("awq_matmul_stream")
+AWQ_MATMUL_A8_LAUNCHES = build.launch_counter("awq_matmul_a8")
+AWQ_MATMUL_STREAM_A8_LAUNCHES = build.launch_counter(
+    "awq_matmul_stream_a8")
 QUANTIZE_ACTIVATIONS_INT8_LAUNCHES = build.launch_counter(
     "quantize_activations_int8")
 
@@ -55,6 +69,8 @@ STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
 BLOCK_N = 128              # output columns per block
 _SM_COUNT = 132            # H100 SXM
 _BLOCKS_PER_SM = 4         # split-K target: this many blocks per SM
+# AWQ: column 8j + e of a packed word sits at shift 4 * AWQ_ORDER[e].
+AWQ_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)
 
 
 def gptq_supported(in_features: int, out_features: int, bits: int,
@@ -66,6 +82,15 @@ def gptq_supported(in_features: int, out_features: int, bits: int,
     pack = 32 // bits
     return (in_features % gs == 0 and gs % pack == 0 and gs >= 128 and
             gs <= 1024 and out_features % 128 == 0)
+
+
+def awq_supported(in_features: int, out_features: int,
+                  group_size: int) -> bool:
+    """Shapes the AWQ kernels are used for (the JAX package's gate,
+    copied)."""
+    return (in_features % group_size == 0 and
+            128 <= group_size <= 1024 and
+            out_features % 1024 == 0)
 
 
 # ------------------------------------------------------ plain versions --
@@ -89,22 +114,78 @@ def unpack_cols(packed: torch.Tensor, bits: int) -> torch.Tensor:
     return vals.reshape(packed.shape[0], -1)
 
 
+def unpack_awq(packed: torch.Tensor) -> torch.Tensor:
+    """int32 [r, c] in the AWQ layout -> [r, c * 8] int32 codes in
+    natural column order."""
+    shifts = torch.tensor([4 * p for p in AWQ_ORDER], device=packed.device,
+                          dtype=torch.int32)
+    vals = (packed[:, :, None] >> shifts[None, None, :]) & 0xF
+    return vals.reshape(packed.shape[0], -1)
+
+
 def _codes(qweight: torch.Tensor, qzeros: torch.Tensor, bits: int,
            gs: int) -> torch.Tensor:
-    """q - (z + 1) as int32 [K, N] over contiguous groups."""
+    """GPTQ: q - (z + 1) as int32 [K, N] over contiguous groups."""
     q = unpack_rows(qweight, bits)
     z = unpack_cols(qzeros, bits) + 1
     return q - z.repeat_interleave(gs, dim=0)
 
 
+def _awq_codes(qweight: torch.Tensor, qzeros: torch.Tensor,
+               gs: int) -> torch.Tensor:
+    """AWQ: q - z as int32 [K, N] over contiguous groups."""
+    return unpack_awq(qweight) - \
+        unpack_awq(qzeros).repeat_interleave(gs, dim=0)
+
+
+def _dequant(codes: torch.Tensor, scales: torch.Tensor, gs: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """W [K, N] in `dtype`: (codes in f32 times s in f32), rounded."""
+    s = scales.float().repeat_interleave(gs, dim=0)
+    return (codes.float() * s).to(dtype)
+
+
+def _a16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with w in x's dtype, the products summed in f32, the result
+    in x's dtype."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def _a8(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+        gs: int) -> torch.Tensor:
+    """W4A8: per group g, the exact integer dot x8[:, g] . codes[g] (taken
+    in f32: every partial sum is an integer below 2^24), times the
+    group's scale row, added in group order; then times xs and rounded to
+    x's dtype."""
+    x8, xs = quantize_activations_int8_plain(x)
+    codes = codes.float()
+    s = scales.float()
+    xq = x8.float()
+    acc = torch.zeros(x.shape[0], codes.shape[1], dtype=torch.float32,
+                      device=x.device)
+    for g in range(x.shape[1] // gs):
+        d = xq[:, g * gs:(g + 1) * gs] @ codes[g * gs:(g + 1) * gs]
+        acc += d * s[g]
+    return (acc * xs).to(x.dtype)
+
+
 def dequantize_plain(qweight: torch.Tensor, qzeros: torch.Tensor,
                      scales: torch.Tensor, *, bits: int, group_size: int,
                      dtype: torch.dtype) -> torch.Tensor:
-    """W [K, N] in `dtype`: ((q - z) in f32 times s in f32), rounded."""
+    """GPTQ W [K, N] in `dtype`: ((q - z) in f32 times s in f32),
+    rounded."""
     K = qweight.shape[0] * (32 // bits)
     gs = group_size if group_size != -1 else K
-    s = scales.float().repeat_interleave(gs, dim=0)
-    return (_codes(qweight, qzeros, bits, gs).float() * s).to(dtype)
+    return _dequant(_codes(qweight, qzeros, bits, gs), scales, gs, dtype)
+
+
+def dequantize_awq_plain(qweight: torch.Tensor, qzeros: torch.Tensor,
+                         scales: torch.Tensor, *, group_size: int,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """AWQ W [K, N] in `dtype`: ((q - z) in f32 times s in f32),
+    rounded."""
+    return _dequant(_awq_codes(qweight, qzeros, group_size), scales,
+                    group_size, dtype)
 
 
 def gptq_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
@@ -112,9 +193,18 @@ def gptq_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
                       bits: int, group_size: int) -> torch.Tensor:
     """Plain version of K6/K7 (a16): the weight dequantized in x's dtype,
     the products summed in f32, the result in x's dtype."""
-    w = dequantize_plain(qweight, qzeros, scales, bits=bits,
-                         group_size=group_size, dtype=x.dtype)
-    return (x.float() @ w.float()).to(x.dtype)
+    return _a16(x, dequantize_plain(qweight, qzeros, scales, bits=bits,
+                                    group_size=group_size, dtype=x.dtype))
+
+
+def awq_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
+                     qzeros: torch.Tensor, scales: torch.Tensor, *,
+                     group_size: int) -> torch.Tensor:
+    """Plain version of K10 and K7's AWQ layout (a16), as
+    `gptq_matmul_plain`."""
+    return _a16(x, dequantize_awq_plain(qweight, qzeros, scales,
+                                        group_size=group_size,
+                                        dtype=x.dtype))
 
 
 def quantize_activations_int8_plain(x: torch.Tensor
@@ -132,31 +222,29 @@ def quantize_activations_int8_plain(x: torch.Tensor
 def gptq_matmul_a8_plain(x: torch.Tensor, qweight: torch.Tensor,
                          qzeros: torch.Tensor, scales: torch.Tensor, *,
                          bits: int, group_size: int) -> torch.Tensor:
-    """Plain version of K8 and K7's a8 arm: per group g, the exact
-    integer dot x8[:, g] . (q - z)[g] (taken in f32: every partial sum
-    is an integer below 2^24), times the group's scale row, added in
-    group order; then times xs and rounded to x's dtype."""
+    """Plain version of K8 and K7's a8 arm (GPTQ layout): K9's rows,
+    then `_a8`'s integer dots per group."""
     if bits != 4:
         raise ValueError(f"W4A8 takes 4-bit codes, got {bits}")
-    x8, xs = quantize_activations_int8_plain(x)
-    K = x.shape[1]
-    gs = group_size if group_size != -1 else K
-    codes = _codes(qweight, qzeros, bits, gs).float()
-    s = scales.float()
-    xq = x8.float()
-    acc = torch.zeros(x.shape[0], codes.shape[1], dtype=torch.float32,
-                      device=x.device)
-    for g in range(K // gs):
-        d = xq[:, g * gs:(g + 1) * gs] @ codes[g * gs:(g + 1) * gs]
-        acc += d * s[g]
-    return (acc * xs).to(x.dtype)
+    gs = group_size if group_size != -1 else x.shape[1]
+    return _a8(x, _codes(qweight, qzeros, bits, gs), scales, gs)
+
+
+def awq_matmul_a8_plain(x: torch.Tensor, qweight: torch.Tensor,
+                        qzeros: torch.Tensor, scales: torch.Tensor, *,
+                        group_size: int) -> torch.Tensor:
+    """Plain version of K11 and K7's AWQ a8 arm: K9's rows, then `_a8`'s
+    integer dots per group (AWQ codes minus zeros lie in [-15, 15])."""
+    return _a8(x, _awq_codes(qweight, qzeros, group_size), scales,
+               group_size)
 
 
 # ------------------------------------------------------------ kernels --
 
-def _check_gptq(x, qweight, qzeros, scales, bits, gs, what: str
-                ) -> Tuple[int, int, int, int]:
-    """Validate the kernels' inputs; returns (m, K, N, group_size)."""
+def _check(x, qweight, qzeros, scales, bits, gs, what: str,
+           awq: bool = False) -> Tuple[int, int, int, int]:
+    """Validate the kernels' inputs in the GPTQ (or, with `awq`, the AWQ)
+    layout; returns (m, K, N, group_size)."""
     if bits not in (4, 8):
         raise ValueError(f"{what}: bits must be 4 or 8, got {bits}")
     if x.dim() != 2 or x.dtype != torch.bfloat16:
@@ -169,21 +257,23 @@ def _check_gptq(x, qweight, qzeros, scales, bits, gs, what: str
         raise TypeError(f"{what}: qweight and qzeros must be int32")
     pack = 32 // bits
     m, K = x.shape
-    N = qweight.shape[1]
+    N = scales.shape[-1]
     gs = gs if gs != -1 else K
-    if K % gs or gs % pack:
+    if gs <= 0 or K % gs or (not awq and gs % pack):
         raise ValueError(f"{what}: K {K} must be a multiple of the group "
-                         f"size {gs}, itself a multiple of {pack}")
+                         f"size {gs}" + ("" if awq else
+                                         f", itself a multiple of {pack}"))
     if N % BLOCK_N:
         raise ValueError(f"{what}: N {N} must be a multiple of {BLOCK_N}")
     G = K // gs
-    if tuple(qweight.shape) != (K // pack, N) or \
-            tuple(qzeros.shape) != (G, N // pack) or \
+    if tuple(qweight.shape) != ((K, N // pack) if awq else (K // pack, N)) \
+            or tuple(qzeros.shape) != (G, N // pack) or \
             tuple(scales.shape) != (G, N):
         raise ValueError(
             f"{what}: shapes qweight {tuple(qweight.shape)}, qzeros "
             f"{tuple(qzeros.shape)}, scales {tuple(scales.shape)} do not "
-            f"fit x {tuple(x.shape)} at {bits} bits, group {gs}")
+            f"fit x {tuple(x.shape)} at {bits} bits, group {gs}, "
+            f"{'AWQ' if awq else 'GPTQ'} layout")
     for t in (x, qweight, qzeros, scales):
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
@@ -213,31 +303,28 @@ def _tiling(m: int, K: int, N: int, gs: int, stream: bool
 
 def _launch(a8: bool, x, xs, qweight, qzeros, scales, *, bits: int,
             gs: int, stream: bool, counter: build.LaunchCounter,
-            what: str) -> torch.Tensor:
+            what: str, awq: bool = False) -> torch.Tensor:
+    """One launch of the GPTQ (or, with `awq`, the AWQ) layout's a16 or
+    a8 entry point; x is int8 rows with their scales xs for a8."""
     m, K = x.shape
-    N = qweight.shape[1]
+    N = scales.shape[1]
     block_m, splits = _tiling(m, K, N, gs, stream)
     out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((splits, m, N), dtype=torch.float32,
                           device=x.device) if splits > 1 else None
     lib = build.library("quant_matmul")
-    if a8:
-        fn = lib.gptq_mm_a8
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = fn(x.data_ptr(), xs.data_ptr(), qweight.data_ptr(),
-                 qzeros.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                 build.ptr(partial), m, K, N, gs, splits, block_m,
-                 build.stream_of(x))
-    else:
-        fn = lib.gptq_mm_a16
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = fn(x.data_ptr(), qweight.data_ptr(), qzeros.data_ptr(),
-                 scales.data_ptr(), out.data_ptr(), build.ptr(partial), m,
-                 K, N, gs, bits, splits, block_m, build.stream_of(x))
+    # Of the four entry points only gptq_mm_a16 takes the bit width (the
+    # others are 4-bit); only the a8 ones take the row scales xs.
+    tail = (m, K, N, gs) + (() if a8 or awq else (bits,)) + \
+        (splits, block_m)
+    ptrs = (x.data_ptr(),) + ((xs.data_ptr(),) if a8 else ()) + (
+        qweight.data_ptr(), qzeros.data_ptr(), scales.data_ptr(),
+        out.data_ptr(), build.ptr(partial))
+    fn = getattr(lib, f"{'awq' if awq else 'gptq'}_mm_{'a8' if a8 else 'a16'}")
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
+        [ctypes.c_int] * len(tail) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*ptrs, *tail, build.stream_of(x))
     counter.add()
     build.check(err, f"{what} (streamed)" if stream else what)
     return out
@@ -285,8 +372,8 @@ def gptq_matmul(x: torch.Tensor, qweight: torch.Tensor,
     if not build.on_cuda(x, qweight, qzeros, scales):
         return gptq_matmul_plain(x, qweight, qzeros, scales, bits=bits,
                                  group_size=group_size)
-    m, K, N, gs = _check_gptq(x, qweight, qzeros, scales, bits,
-                              group_size, "gptq_matmul")
+    m, K, N, gs = _check(x, qweight, qzeros, scales, bits, group_size,
+                         "gptq_matmul")
     use_stream = _resolve_stream(stream, m)
     return _launch(False, x, None, qweight, qzeros, scales, bits=bits,
                    gs=gs, stream=use_stream,
@@ -309,8 +396,8 @@ def gptq_matmul_a8(x: torch.Tensor, qweight: torch.Tensor,
     if bits != 4:
         raise ValueError(f"gptq_matmul_a8: W4A8 takes 4-bit codes (8-bit "
                          f"codes minus their zero overflow int8), got {bits}")
-    m, K, N, gs = _check_gptq(x, qweight, qzeros, scales, bits,
-                              group_size, "gptq_matmul_a8")
+    m, K, N, gs = _check(x, qweight, qzeros, scales, bits, group_size,
+                         "gptq_matmul_a8")
     use_stream = _resolve_stream(stream, m)
     _tiling(m, K, N, gs, use_stream)          # raise before quantizing
     x8, xs = quantize_activations_int8(x)
@@ -318,3 +405,45 @@ def gptq_matmul_a8(x: torch.Tensor, qweight: torch.Tensor,
                    stream=use_stream,
                    counter=GPTQ_MATMUL_STREAM_A8_LAUNCHES if use_stream
                    else GPTQ_MATMUL_A8_LAUNCHES, what="gptq_matmul_a8")
+
+
+def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, qzeros: torch.Tensor,
+               scales: torch.Tensor, *, group_size: int,
+               stream: Optional[bool] = None) -> torch.Tensor:
+    """y [m, N] = x [m, K] @ dequant(qweight, qzeros, scales) in the AWQ
+    int4 layout. `stream` pins K7's AWQ layout (True) or K10 (False);
+    None picks by m as the JAX package does."""
+    if not build.on_cuda(x, qweight, qzeros, scales):
+        return awq_matmul_plain(x, qweight, qzeros, scales,
+                                group_size=group_size)
+    m, K, N, gs = _check(x, qweight, qzeros, scales, 4, group_size,
+                         "awq_matmul", awq=True)
+    use_stream = _resolve_stream(stream, m)
+    return _launch(False, x, None, qweight, qzeros, scales, bits=4,
+                   gs=gs, stream=use_stream,
+                   counter=AWQ_MATMUL_STREAM_LAUNCHES if use_stream
+                   else AWQ_MATMUL_LAUNCHES, what="awq_matmul", awq=True)
+
+
+def awq_matmul_a8(x: torch.Tensor, qweight: torch.Tensor,
+                  qzeros: torch.Tensor, scales: torch.Tensor, *,
+                  group_size: int, deferred=None,
+                  stream: Optional[bool] = None) -> torch.Tensor:
+    """W4A8 in the AWQ layout: x quantized per row to int8 (K9), then
+    integer dots per group with the f32 rescale (K7's AWQ a8 arm at
+    m <= 64, else K11). `deferred` pins one of the JAX package's two
+    summation orders of the same sums; the one CUDA kernel ignores it."""
+    del deferred
+    if not build.on_cuda(x, qweight, qzeros, scales):
+        return awq_matmul_a8_plain(x, qweight, qzeros, scales,
+                                   group_size=group_size)
+    m, K, N, gs = _check(x, qweight, qzeros, scales, 4, group_size,
+                         "awq_matmul_a8", awq=True)
+    use_stream = _resolve_stream(stream, m)
+    _tiling(m, K, N, gs, use_stream)          # raise before quantizing
+    x8, xs = quantize_activations_int8(x)
+    return _launch(True, x8, xs, qweight, qzeros, scales, bits=4,
+                   gs=gs, stream=use_stream,
+                   counter=AWQ_MATMUL_STREAM_A8_LAUNCHES if use_stream
+                   else AWQ_MATMUL_A8_LAUNCHES, what="awq_matmul_a8",
+                   awq=True)

@@ -69,12 +69,33 @@ Phases, in order; any failure exits non-zero:
    the W4A8 runs must launch K9 with K8 and K7's a8 arm, the W4A16 runs
    K6 and K7, both K1, K2 and K4; the 96-request round's decode steps
    must take K8 / K6. The launches of every kernel are logged per path
-   (bf16, GPTQ W4A8, GPTQ W4A16); the kernel JSON gives their sum.
+   (bf16, GPTQ and AWQ arms); the kernel JSON gives their sum.
    Then a batch-8 GPTQ decode step under
    torch.profiler in each arm: wall and device time, and the quantized
-   matmuls' device time beside their weight-streaming bound.
-7. Prints the kernel JSON line, the card line, and last
-   {"ok": true, "device": {...}}.
+   matmuls' device time beside their weight-streaming bound. The GPTQ
+   engine is freed.
+7. AWQ kernels vs plain versions at the same four projections, group
+   128, bf16 (the AWQ layout: qweight [K, N/8], 8 interleaved columns per
+   word): K7's AWQ layout, a16 and a8 arms, at m 1, 8 and 64; K10 (a16)
+   and K11 (a8) at m 512 and 4096. Each check calls the wrapper the
+   engine calls (`awq_matmul`, `awq_matmul_a8`) against its plain
+   version, with phase 5's tolerance, and is timed as phase 5 times the
+   GPTQ cases (library yardstick for K10/K7-a16: torch.matmul over the
+   weight dequantized to bf16 beforehand; K11 and K7-a8 have none).
+8. End to end with AWQ: the same model served with the
+   quantization_config of TheBloke/Mistral-7B-v0.1-AWQ (4 bits, group
+   128, zero point, GEMM version; dummy weights from seed 0), W4A8
+   (APHRODITE_W4A8=1) then W4A16: phase 4's request mix at multi_step 1,
+   then the 96-request round. The W4A8 arm must launch K9 with K11 and
+   K7's AWQ a8 arm, the W4A16 arm K10 and K7's AWQ layout, both K1, K2
+   and K4. A batch-8 decode step is profiled in each arm as in phase 6.
+9. Seeded draws on the card: JAX's threefry keys, bits and uniforms
+   (`modeling/layers/prng.py`) for 64 rows x vocab 32000 bit-equal to
+   the same calls on the CPU, and the tokens drawn equal; one seeded
+   request (temperature 0.8) served alone and in a batch of 8 gives the
+   same tokens.
+10. Prints the kernel JSON line (launches summed over the bf16, GPTQ and
+   AWQ paths), the card line, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -464,14 +485,16 @@ def check_model_against_plain(torch):
         f"{got_tokens[64:]} vs {want_tokens[64:]}")
 
 
-# ------------------------------------------------------ GPTQ kernels --
+# ------------------------------------------------ GPTQ and AWQ kernels --
 
 GPTQ_PROJ = (("qkv", 4096, 6144), ("o", 4096, 4096),
              ("gate_up", 4096, 28672), ("down", 14336, 4096))
 GPTQ_GS = 128
 
 
-def gptq_weights(torch, K, N, bits, seed):
+def quant_weights(torch, K, N, bits, seed, awq: bool):
+    """Random packed codes and zeros, scales in [0.002, 0.022): GPTQ
+    qweight [K / pack, N], AWQ qweight [K, N / 8]."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     pack = 32 // bits
 
@@ -480,11 +503,12 @@ def gptq_weights(torch, K, N, bits, seed):
             -2 ** 31, 2 ** 31, generator=gen)
     scales = (torch.rand(K // GPTQ_GS, N, generator=gen, device="cuda") *
               0.02 + 0.002).to(torch.bfloat16)
-    return bits32(K // pack, N), bits32(K // GPTQ_GS, N // pack), scales
+    qweight = bits32(K, N // 8) if awq else bits32(K // pack, N)
+    return qweight, bits32(K // GPTQ_GS, N // pack), scales
 
 
 def weight_bytes(K, N, bits):
-    """Packed codes, zeros and bf16 scales of one GPTQ layer."""
+    """Packed codes, zeros and bf16 scales of one GPTQ or AWQ layer."""
     G = K // GPTQ_GS
     return K * N * bits // 8 + G * N * bits // 8 + G * N * 2
 
@@ -498,57 +522,70 @@ def check_close(torch, got, want, what):
     return err.max().item()
 
 
-def check_and_time_gptq(torch, qmm, timer):
-    """K6-K9 against their plain versions at the Mistral-7B projection
-    shapes, each timed. Returns {kernel: {...}} with ms, plain_ms,
-    library_ms and bound_ms summed over the four projections of one
-    layer at the main path's shapes (m 8 for K7, the e2e decode batch;
-    m 4096 for K6/K8/K9, a prompt round), and max_abs_err over every
-    case."""
-    out = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   bound_bytes_ms=0.0, bound_ops_ms=0.0, max_abs_err=0.0)
-           for k in ("k6", "k7", "k7a8", "k8", "k9")}
-    out["k7a8"]["library_ms"] = out["k8"]["library_ms"] = \
-        out["k9"]["library_ms"] = None
-    main_m = {"k7": 8, "k7a8": 8, "k6": 4096, "k8": 4096, "k9": 4096}
+def check_and_time_quant(torch, qmm, timer, awq: bool):
+    """The quantized matmul kernels of one layout against their plain
+    versions at the Mistral-7B projection shapes, each timed: GPTQ K6-K9
+    (4- and 8-bit codes for the a16 kernels), or with `awq` K10, K11 and
+    K7's AWQ layout. Returns {kernel: {...}} with ms, plain_ms,
+    library_ms and bound_ms summed over the four projections of one layer
+    at the main path's shapes (m 8 for K7, the e2e decode batch; m 4096
+    for the tiled kernels and K9, a prompt round), 4-bit codes, and
+    max_abs_err over every case."""
+    big, big_a8 = ("k10", "k11") if awq else ("k6", "k8")
+    names = ("k7", "k7a8", big, big_a8) + (() if awq else ("k9",))
+    out = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_bytes_ms=0.0,
+                   bound_ops_ms=0.0, max_abs_err=0.0) for k in names}
+    for k in ("k7a8", big_a8) + (() if awq else ("k9",)):
+        out[k]["library_ms"] = None
+    main_m = dict.fromkeys(("k7", "k7a8"), 8)
+    main_m.update(dict.fromkeys((big, big_a8, "k9"), 4096))
+    fmt = "AWQ" if awq else "GPTQ"
+    if awq:
+        a16, a16_plain = qmm.awq_matmul, qmm.awq_matmul_plain
+        a8, a8_plain = qmm.awq_matmul_a8, qmm.awq_matmul_a8_plain
+    else:
+        a16, a16_plain = qmm.gptq_matmul, qmm.gptq_matmul_plain
+        a8, a8_plain = qmm.gptq_matmul_a8, qmm.gptq_matmul_a8_plain
     for seed, (proj, K, N) in enumerate(GPTQ_PROJ):
-        gen = torch.Generator(device="cuda").manual_seed(100 + seed)
+        gen = torch.Generator(device="cuda").manual_seed(
+            (200 if awq else 100) + seed)
         x_all = torch.randn(4096, K, generator=gen, device="cuda").to(
             torch.bfloat16)
-        for bits in (4, 8):
-            qw, qz, sc = gptq_weights(torch, K, N, bits, seed * 10 + bits)
-            w16 = qmm.dequantize_plain(qw, qz, sc, bits=bits,
-                                       group_size=GPTQ_GS,
-                                       dtype=torch.bfloat16)
+        for bits in (4,) if awq else (4, 8):
+            qw, qz, sc = quant_weights(torch, K, N, bits, seed * 10 + bits,
+                                       awq)
+            kw = dict(group_size=GPTQ_GS) if awq else \
+                dict(bits=bits, group_size=GPTQ_GS)
+            w16 = (qmm.dequantize_awq_plain if awq else
+                   qmm.dequantize_plain)(qw, qz, sc, dtype=torch.bfloat16,
+                                         **kw)
             wbytes = weight_bytes(K, N, bits)
             cases = [("k7", m) for m in (1, 8, 64)] + \
-                [("k6", m) for m in (512, 4096)]
+                [(big, m) for m in (512, 4096)]
             if bits == 4:
                 cases += [("k7a8", m) for m in (1, 8, 64)] + \
-                    [("k8", m) for m in (512, 4096)]
+                    [(big_a8, m) for m in (512, 4096)]
             for kern, m in cases:
                 x = x_all[:m]
                 stream = kern in ("k7", "k7a8")
-                if kern in ("k7", "k6"):
+                what = ""
+                if kern in ("k7", big):
                     def run():
-                        return qmm.gptq_matmul(x, qw, qz, sc, bits=bits,
-                                               group_size=GPTQ_GS,
-                                               stream=stream)
+                        return a16(x, qw, qz, sc, stream=stream, **kw)
 
                     def plain():
-                        return qmm.gptq_matmul_plain(
-                            x, qw, qz, sc, bits=bits, group_size=GPTQ_GS)
+                        return a16_plain(x, qw, qz, sc, **kw)
+                    got = run()
                     nbytes = m * K * 2 + wbytes + m * N * 2
                     ops, rate = 2 * m * K * N, BF16_FLOPS_PER_S
-                    got = run()
-                    what = ""
                 else:
                     def wrapper():
-                        return qmm.gptq_matmul_a8(
-                            x, qw, qz, sc, bits=4, group_size=GPTQ_GS,
-                            stream=stream)
+                        return a8(x, qw, qz, sc, stream=stream, **kw)
                     got = wrapper()
                     x8, xs = qmm.quantize_activations_int8(x)
+                    counter = getattr(qmm, f"{fmt}_MATMUL"
+                                      f"{'_STREAM' if stream else ''}"
+                                      "_A8_LAUNCHES")
 
                     # Timed: the matmul kernel alone on K9's rows (K9 is
                     # timed below on its own). Checked: the wrapper the
@@ -556,30 +593,28 @@ def check_and_time_gptq(torch, qmm, timer):
                     def run():
                         return qmm._launch(
                             True, x8, xs, qw, qz, sc, bits=4, gs=GPTQ_GS,
-                            stream=stream,
-                            counter=qmm.GPTQ_MATMUL_STREAM_A8_LAUNCHES
-                            if stream else qmm.GPTQ_MATMUL_A8_LAUNCHES,
-                            what="gptq_matmul_a8")
+                            stream=stream, counter=counter,
+                            what=f"{fmt} matmul a8", awq=awq)
                     if not torch.equal(run(), got):
-                        fail(f"{kern} {proj} m={m}: the matmul launched on "
-                             "K9's rows differs from gptq_matmul_a8")
+                        fail(f"{fmt} {kern} {proj} m={m}: the matmul "
+                             "launched on K9's rows differs from the a8 "
+                             "wrapper's output")
 
                     def plain():
-                        return qmm.gptq_matmul_a8_plain(
-                            x, qw, qz, sc, bits=4, group_size=GPTQ_GS)
+                        return a8_plain(x, qw, qz, sc, **kw)
                     nbytes = m * K + m * 4 + wbytes + m * N * 2
                     ops, rate = 2 * m * K * N, INT8_OPS_PER_S
-                    what = (f"; checked: gptq_matmul_a8 (K9 + matmul, "
+                    what = (f"; checked: {a8.__name__} (K9 + matmul, "
                             f"{timer(wrapper):.4f} ms) vs plain; timed as "
                             "kernel: the matmul alone on K9's rows")
                 err = check_close(torch, got, plain(),
-                                  f"{kern} {proj} m={m} bits={bits}")
+                                  f"{fmt} {kern} {proj} m={m} bits={bits}")
                 torch.cuda.synchronize()
                 ms, plain_ms = timer(run), timer(plain)
                 lib = timer(lambda: torch.matmul(x, w16)) \
-                    if kern in ("k6", "k7") else None
+                    if kern in ("k7", big) else None
                 b_ms, b_by = bound(nbytes, ops, rate)
-                log(f"{kern} {proj} (K {K}, N {N}) m={m} bits={bits}: "
+                log(f"{fmt} {kern} {proj} (K {K}, N {N}) m={m} bits={bits}: "
                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                     + (f"{lib:.4f} ms (bf16 matmul, {16 // bits}x the "
                        "weight bytes)" if lib is not None else "none")
@@ -595,7 +630,7 @@ def check_and_time_gptq(torch, qmm, timer):
                     if lib is not None:
                         rec["library_ms"] += lib
             del w16
-        for m in (1, 8, 64, 512, 4096):
+        for m in () if awq else (1, 8, 64, 512, 4096):
             x = x_all[:m]
             got8, gots = qmm.quantize_activations_int8(x)
             want8, wants = qmm.quantize_activations_int8_plain(x)
@@ -623,9 +658,74 @@ def check_and_time_gptq(torch, qmm, timer):
         t_b, t_o = rec.pop("bound_bytes_ms"), rec.pop("bound_ops_ms")
         rec["bound_ms"], rec["bound_by"] = (t_b, "bytes") if t_b >= t_o \
             else (t_o, "operations")
-    log("GPTQ kernels vs plain: all cases within tolerance, K9 exact; per "
-        "layer (4 projections) at the main path's m: " + json.dumps(out))
+    log(f"{fmt} kernels vs plain: all cases within tolerance"
+        + ("" if awq else ", K9 exact")
+        + "; per layer (4 projections) at the main path's m: "
+        + json.dumps(out))
     return out
+
+
+# ------------------------------------------------------- seeded draws --
+
+def check_seeded_draws(torch, engine, timer):
+    """JAX's threefry draws (`modeling/layers/prng.py`) on the card: keys,
+    bits and uniforms bit-equal to the same calls on the CPU for 64 rows
+    x vocab 32000 of seeded logits, and the tokens drawn equal; the time
+    of one draw per row (plain torch ops, as the sampler runs them); then
+    one seeded request served alone and inside a batch of 8 gives the
+    same tokens."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.modeling.layers import prng
+    gen = torch.Generator().manual_seed(5)
+    bases = torch.randint(-2 ** 40, 2 ** 40, (64,), generator=gen)
+    salt1 = torch.randint(0, 2 ** 31 - 1, (64,), generator=gen)
+    salt2 = torch.randint(0, 4, (64,), generator=gen)
+    logits = torch.randn(64, 32000, generator=gen) * 3
+    keys = prng.row_keys(bases, salt1, salt2)
+    keys_d = prng.row_keys(bases.cuda(), salt1.cuda(), salt2.cuda())
+    checks = {
+        "keys": (keys_d, keys),
+        "bits": (prng.random_bits(keys_d, (2, 32000)),
+                 prng.random_bits(keys, (2, 32000))),
+        "uniforms": (prng.uniform(keys_d, (2, 32000)),
+                     prng.uniform(keys, (2, 32000))),
+        "tokens": (prng.categorical(keys_d, logits.cuda(), 3),
+                   prng.categorical(keys, logits, 3)),
+    }
+    for name, (dev, cpu) in checks.items():
+        if not torch.equal(dev.cpu(), cpu):
+            fail(f"threefry {name} on the card differ from the CPU's")
+    logits_d = logits.cuda()
+    draw_ms = timer(lambda: prng.categorical(prng.row_keys(
+        bases.cuda(), salt1.cuda(), salt2.cuda()), logits_d, 1))
+    log("threefry draws, 64 rows x vocab 32000: keys, bits, uniforms and "
+        "3 tokens per row bit-equal on the card and the CPU; one draw per "
+        f"row (keys from host tensors, then categorical) {draw_ms:.4f} ms")
+
+    engine.scheduler_config.multi_step = 1
+    seeded = SamplingParams(temperature=0.8, seed=1234, max_tokens=16,
+                            ignore_eos=True)
+    prompt = [(j * 89 + 7) % 31000 + 100 for j in range(40)]
+
+    def serve(batch: int, tag: str):
+        engine.add_request(f"{tag}-seeded", None, seeded,
+                           prompt_token_ids=prompt)
+        for i in range(batch - 1):
+            engine.add_request(f"{tag}-{i}", None, SamplingParams(
+                temperature=1.0, max_tokens=16, ignore_eos=True),
+                prompt_token_ids=[(j * 31 + i * 7) % 31000 + 100
+                                  for j in range(20 + 9 * i)])
+        tokens = None
+        while engine.has_unfinished_requests():
+            for out in engine.step():
+                if out.finished and out.request_id == f"{tag}-seeded":
+                    tokens = list(out.outputs[0].token_ids)
+        return tokens
+    alone, batched = serve(1, "alone"), serve(8, "batch")
+    if alone is None or alone != batched or len(alone) != 16:
+        fail(f"seeded request: alone {alone} vs in a batch of 8 {batched}")
+    log(f"seeded request (seed 1234, temperature 0.8): the same 16 tokens "
+        f"alone and in a batch of 8: {alone}")
 
 
 # ---------------------------------------------------------- end to end --
@@ -635,6 +735,9 @@ BF16_KERNELS = ("paged_decode_attention", "write_kv_pages_prefill",
 W4A8_KERNELS = BF16_KERNELS + ("quantize_activations_int8",
                                "gptq_matmul_a8", "gptq_matmul_stream_a8")
 W4A16_KERNELS = BF16_KERNELS + ("gptq_matmul", "gptq_matmul_stream")
+AWQ_A8_KERNELS = BF16_KERNELS + ("quantize_activations_int8",
+                                 "awq_matmul_a8", "awq_matmul_stream_a8")
+AWQ_A16_KERNELS = BF16_KERNELS + ("awq_matmul", "awq_matmul_stream")
 
 
 def check_outputs(outputs, n: int, what: str) -> None:
@@ -736,7 +839,7 @@ def run_wide_round(torch, engine, counters, card: str, required, decode,
     return launches
 
 
-QUANT_KERNEL_NAMES = ("gptq_mma_kernel", "split_reduce_kernel",
+QUANT_KERNEL_NAMES = ("quant_mma_kernel", "split_reduce_kernel",
                       "quant8_kernel")
 
 
@@ -747,7 +850,7 @@ def profile_decode(torch, engine, tag: str = "",
     the host clock (synchronised), then 4 more run under torch.profiler,
     which gives the device's kernel time per step, its share of the wall
     time, and the kernels that take the most. With `quant_bound_ms` it
-    also reports the GPTQ kernels' device time per step beside that
+    also reports the quantized matmuls' device time per step beside that
     weight-streaming bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -786,7 +889,7 @@ def profile_decode(torch, engine, tag: str = "",
         quant_ms = sum(us for us, k, _ in rows
                        if any(n in k for n in QUANT_KERNEL_NAMES)) / 1e3 \
             / steps
-        log(f"{tag}GPTQ kernels (matmuls, split reduce, int8 rows) "
+        log(f"{tag}quantized kernels (matmuls, split reduce, int8 rows) "
             f"{quant_ms:.3f} ms/step of {dev_ms:.2f} ms device time "
             f"(share {quant_ms / dev_ms:.3f}); weight-streaming bound "
             f"{quant_bound_ms:.3f} ms/step ({quant_ms / quant_bound_ms:.2f}"
@@ -879,7 +982,7 @@ def main() -> int:
 
     # 5. GPTQ kernels vs plain versions, and times.
     from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
-    gptq = check_and_time_gptq(torch, qmm, timer)
+    gptq = check_and_time_quant(torch, qmm, timer, awq=False)
 
     # 6. End to end with GPTQ, W4A8 then W4A16.
     gptq_dir = os.path.join(HERE, "build", "chip_smoke_gptq_model")
@@ -924,6 +1027,58 @@ def main() -> int:
     os.environ.pop("APHRODITE_W4A8")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"GPTQ e2e peak memory {peak:.2f} GiB on {smi}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"GPTQ engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB still allocated")
+
+    # 7. AWQ kernels vs plain versions, and times.
+    awq = check_and_time_quant(torch, qmm, timer, awq=True)
+
+    # 8. End to end with AWQ (TheBloke/Mistral-7B-v0.1-AWQ's
+    # quant_config), W4A8 then W4A16.
+    awq_dir = os.path.join(HERE, "build", "chip_smoke_awq_model")
+    os.makedirs(awq_dir, exist_ok=True)
+    with open(os.path.join(awq_dir, "config.json"), "w") as f:
+        json.dump(dict(MISTRAL_7B, quantization_config={
+            "quant_method": "awq", "bits": 4, "group_size": GPTQ_GS,
+            "zero_point": True, "version": "gemm"}), f)
+    t0 = time.perf_counter()
+    engine = AphroditeEngine.from_engine_args(EngineArgs(
+        model=awq_dir, load_format="dummy", dtype="bfloat16", seed=0,
+        block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+        disable_log_stats=True))
+    if engine.model_config.quantization != "awq":
+        fail("the AWQ model was not served with quantization='awq'")
+    log(f"AWQ engine up in {time.perf_counter() - t0:.1f} s: "
+        f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    for arm, flag, required, wide, decode in (
+            ("W4A8", "1", AWQ_A8_KERNELS, ("quantize_activations_int8",),
+             "awq_matmul_a8"),
+            ("W4A16", "0", AWQ_A16_KERNELS, (), "awq_matmul")):
+        os.environ["APHRODITE_W4A8"] = flag
+        tag = f"AWQ {arm} "
+        by_path[tag.strip()] = {}
+        runs = [run_engine(torch, engine, 1, counters, smi,
+                           required=required, tag=tag),
+                run_wide_round(
+                    torch, engine, counters, smi,
+                    ("paged_decode_attention", "write_kv_pages_prefill",
+                     decode) + wide, decode, layers, tag)]
+        for run in runs:
+            for name, n in run.items():
+                by_path[tag.strip()][name] = \
+                    by_path[tag.strip()].get(name, 0) + n
+        profile_decode(torch, engine, tag, quant_bound_ms=step_bound_ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"AWQ e2e peak memory {peak:.2f} GiB on {smi}")
+
+    # 9. Seeded draws on the card (the AWQ engine, W4A16).
+    check_seeded_draws(torch, engine, timer)
+    os.environ.pop("APHRODITE_W4A8")
     launches = {}
     for path in by_path.values():
         for name, n in path.items():
@@ -963,6 +1118,18 @@ def main() -> int:
         dict(name="quantize_activations_int8", route="cuda",
              source=quant_src, replaces=f"{pallas_qmm}:781",
              launches=launches["quantize_activations_int8"], **gptq["k9"]),
+        dict(name="awq_matmul", route="cuda", source=quant_src,
+             replaces=f"{pallas_qmm}:718", launches=launches["awq_matmul"],
+             **awq["k10"]),
+        dict(name="awq_matmul_stream", route="cuda", source=quant_src,
+             replaces=f"{pallas_qmm}:308",
+             launches=launches["awq_matmul_stream"], **awq["k7"]),
+        dict(name="awq_matmul_stream_a8", route="cuda", source=quant_src,
+             replaces=f"{pallas_qmm}:308",
+             launches=launches["awq_matmul_stream_a8"], **awq["k7a8"]),
+        dict(name="awq_matmul_a8", route="cuda", source=quant_src,
+             replaces=f"{pallas_qmm}:937",
+             launches=launches["awq_matmul_a8"], **awq["k11"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

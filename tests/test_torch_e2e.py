@@ -16,6 +16,8 @@ and run with speculative decoding off.
   pages and takes the slot scatter) and decode bursts. A token is
   compared only while the port's top-2 logprob gap exceeds 1e-4 (a near
   tie may flip).
+- Seeded random sampling gives the JAX engine's tokens (the port draws
+  JAX's threefry bits, `modeling/layers/prng.py`).
 """
 import jax
 import numpy as np
@@ -102,9 +104,10 @@ def engines(tiny_model_dir):
     mp.undo()
 
 
-def _run(engine, multi_step, prompts, **sp_kw):
-    """Greedy `LLM.generate` over `engine` (the JAX or the port's LLM
-    class, matching the engine's package); every page is freed after."""
+def _generate(engine, multi_step, prompts, **sp_kw):
+    """`LLM.generate` over `engine` (the JAX or the port's LLM class,
+    matching the engine's package), greedy unless `sp_kw` says otherwise;
+    every page is freed after."""
     if isinstance(engine, AphroditeEngine):
         llm_cls, sp_cls = LLM, SamplingParams
     else:
@@ -113,12 +116,17 @@ def _run(engine, multi_step, prompts, **sp_kw):
     llm.engine, llm.request_counter = engine, Counter()
     engine.scheduler_config.multi_step = multi_step
     outs = llm.generate(prompt_token_ids=[list(p) for p in prompts],
-                        sampling_params=sp_cls(temperature=0.0,
-                                               max_tokens=8,
-                                               ignore_eos=True, **sp_kw))
+                        sampling_params=sp_cls(**dict(
+                            dict(temperature=0.0, max_tokens=8,
+                                 ignore_eos=True), **sp_kw)))
     assert engine.scheduler.block_manager.get_num_free_gpu_blocks() == \
         NUM_BLOCKS
-    return [o.outputs[0] for o in outs]
+    return outs
+
+
+def _run(engine, multi_step, prompts, **sp_kw):
+    return [o.outputs[0] for o in _generate(engine, multi_step, prompts,
+                                            **sp_kw)]
 
 
 def _spy(monkeypatch, module, name, calls):
@@ -160,6 +168,26 @@ def test_greedy_generation_matches_jax(engines, multi_step, monkeypatch):
             assert wt == gt, (pos, w, g)
             compared += 1
     assert compared >= 24
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_seeded_generation_matches_jax(engines, n):
+    """Seeded random sampling (temperature 0.8, top_p 0.9) draws the JAX
+    package's threefry bits: token for token the JAX engine's, for two
+    seeds (one of them 2**31 and above), through prompt rounds and
+    decode bursts of 4 (the burst adds the step to each key's salt)."""
+    jax_engine, port = engines
+    runs = []
+    for seed in (3, 2 ** 31 + 11):
+        kw = dict(temperature=0.8, top_p=0.9, n=n, seed=seed)
+        want = _generate(jax_engine, 4, PROMPTS[:3], **kw)
+        got = [[list(c.token_ids) for c in o.outputs]
+               for o in _generate(port, 4, PROMPTS[:3], **kw)]
+        assert all(len(g) == n for g in got)
+        assert got == [[list(c.token_ids) for c in o.outputs]
+                       for o in want], seed
+        runs.append(got)
+    assert runs[0] != runs[1]                  # the seeds drew differently
 
 
 def _metadata(seq_cls, md_cls, sp_cls, tokens, table, is_prompt):

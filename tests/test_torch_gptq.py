@@ -12,7 +12,7 @@ g_idx and the port's kernels (like the Pallas ones) use contiguous
 groups; with this g_idx the two are the same weight.
 
 - Config: 4- and 8-bit GPTQ accepted; desc_act, 2-bit, shapes the
-  kernels do not take, and AWQ refused naming the later slice.
+  kernels do not take, and SqueezeLLM refused naming the later slice.
 - Dummy init: packed payloads span the int32 range, g_idx is zero.
 - Config: float32 GPTQ refused on the card (the kernels take bfloat16)
   and accepted on the CPU.
@@ -211,14 +211,14 @@ def test_gptq_4_and_8_bit_are_accepted(tmp_path, bits):
     (dict(QUANT, bits=2), {}, "2-bit GPTQ"),
     (dict(QUANT, group_size=64), {}, "group size 64"),
     (QUANT, {"hidden_size": 96}, "group size 128"),
-    ({"quant_method": "awq", "bits": 4, "group_size": 128}, {},
-     "quantization 'awq'"),
+    ({"quant_method": "squeezellm", "wbits": 4}, {},
+     "quantization 'squeezellm'"),
 ])
 def test_out_of_slice_gptq_is_refused(tmp_path, quant, changes, match):
     with pytest.raises(NotImplementedError, match=match) as info:
         _configs(tmp_path, quant, **changes)
     assert "later slice" in str(info.value)
-    assert "K10-K17" in str(info.value)
+    assert "K12-K17" in str(info.value)
 
 
 @pytest.mark.parametrize("device", ["cuda", "auto"])

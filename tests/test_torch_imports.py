@@ -102,7 +102,7 @@ def _model_dir(tmp_path, tiny_model_dir, **changes):
 @pytest.mark.parametrize("change,match", [
     (dict(tensor_parallel_size=2), "multi-GPU"),
     (dict(disagg_split="1,1", tensor_parallel_size=2), "multi-GPU"),
-    (dict(quantization="awq"), "quantized matmul"),
+    (dict(quantization="squeezellm"), "quantized matmul"),
     (dict(enable_lora=True), "LoRA"),
     (dict(kv_cache_dtype="int8"), "int8/fp8 KV"),
     (dict(kv_cache_dtype="fp8"), "int8/fp8 KV"),
@@ -128,7 +128,7 @@ def test_speculative_decoding_is_refused(tiny_model_dir, monkeypatch):
     (dict(architectures=["MistralForCausalLM"], model_type="mistral"),
      "sliding"),
     (dict(architectures=["GPTNeoXForCausalLM"]), "architectures"),
-    (dict(quantization_config={"quant_method": "awq"}), "quantized"),
+    (dict(quantization_config={"quant_method": "gguf"}), "quantized"),
 ])
 def test_out_of_slice_models_are_refused(tmp_path, tiny_model_dir, change,
                                          match):

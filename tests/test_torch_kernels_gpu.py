@@ -9,13 +9,16 @@ Tolerances: the writers copy values, so exactly equal. Attention in
 bf16: |kernel - plain| <= 2e-2 + 2e-2 |plain| (the kernel keeps the
 softmax weights in f32 where the plain version rounds them to bf16; both
 round the output to bf16, one ulp of which is 1.6e-2 at 2-4). The GPTQ
-matmuls (bf16 outputs, f32 sums taken in another order): the same
-2e-2 + 2e-2 |plain|. int8 activation quantization: exactly equal.
+and AWQ matmuls (bf16 outputs, f32 sums taken in another order): the
+same 2e-2 + 2e-2 |plain|. int8 activation quantization: exactly equal.
+The threefry draws (`modeling/layers/prng.py`): keys, bits and uniforms
+bit-equal to the same calls on the CPU, and the tokens drawn equal.
 """
 import numpy as np
 import pytest
 import torch
 
+from aphrodite_tpu_torch.modeling.layers import prng
 from aphrodite_tpu_torch.ops.cuda import kv_write as tkw
 from aphrodite_tpu_torch.ops.cuda import paged_attention as tpa
 from aphrodite_tpu_torch.ops.cuda import quant_matmul as tqm
@@ -192,3 +195,76 @@ def test_gptq_wrappers_refuse_what_the_kernels_do_not_take(dev):
                         stream=True)
     with pytest.raises(ValueError, match="mixed devices"):
         tqm.gptq_matmul(x, qw.cpu(), qz, sc, bits=4, group_size=128)
+
+
+def _awq_problem(dev, m, K, N, gs=128, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def bits32(*shape):
+        return torch.empty(*shape, dtype=torch.int32, device=dev).random_(
+            -2 ** 31, 2 ** 31, generator=g)
+    scales = (torch.rand(K // gs, N, generator=g, device=dev) * 0.02 +
+              0.002).to(torch.bfloat16)
+    x = torch.randn(m, K, generator=g, device=dev).to(torch.bfloat16)
+    return x, bits32(K, N // 8), bits32(K // gs, N // 8), scales
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("m,K,N,gs,stream", [
+    (1, 4096, 6144, 128, True),
+    (8, 14336, 4096, 128, True),
+    (64, 4096, 28672, 128, True),
+    (33, 2048, 1024, 256, True),
+    (65, 4096, 4096, 128, False),
+    (300, 2048, 2048, 256, False),
+    (8, 1024, 1024, 128, False),
+])
+def test_awq_matmul_kernels_match_plain(dev, m, K, N, gs, stream, a8):
+    x, qw, qz, sc = _awq_problem(dev, m, K, N, gs)
+    if a8:
+        counter = tqm.AWQ_MATMUL_STREAM_A8_LAUNCHES if stream \
+            else tqm.AWQ_MATMUL_A8_LAUNCHES
+        fn, plain = tqm.awq_matmul_a8, tqm.awq_matmul_a8_plain
+    else:
+        counter = tqm.AWQ_MATMUL_STREAM_LAUNCHES if stream \
+            else tqm.AWQ_MATMUL_LAUNCHES
+        fn, plain = tqm.awq_matmul, tqm.awq_matmul_plain
+    before = counter.count
+    got = fn(x, qw, qz, sc, group_size=gs, stream=stream)
+    want = plain(x, qw, qz, sc, group_size=gs)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    _close(got, want)
+
+
+def test_awq_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, qw, qz, sc = _awq_problem(dev, 8, 1024, 1024)
+    with pytest.raises(TypeError):                   # f32 activations
+        tqm.awq_matmul(x.float(), qw, qz, sc, group_size=128)
+    with pytest.raises(ValueError):                  # K % group
+        tqm.awq_matmul(x, qw, qz, sc, group_size=384)
+    with pytest.raises(ValueError):                  # N % 128
+        tqm.awq_matmul(x, qw[:, :20].contiguous(), qz[:, :20].contiguous(),
+                       sc[:, :160].contiguous(), group_size=128)
+    with pytest.raises(ValueError):                  # streamed m > 64
+        big = torch.zeros(65, 1024, dtype=torch.bfloat16, device=dev)
+        tqm.awq_matmul_a8(big, qw, qz, sc, group_size=128, stream=True)
+    with pytest.raises(ValueError, match="mixed devices"):
+        tqm.awq_matmul(x, qw.cpu(), qz, sc, group_size=128)
+
+
+def test_threefry_draws_on_the_card_equal_the_cpu(dev):
+    g = torch.Generator().manual_seed(3)
+    bases = torch.randint(-2 ** 40, 2 ** 40, (64,), generator=g)
+    salt1 = torch.randint(0, 2 ** 31 - 1, (64,), generator=g)
+    salt2 = torch.randint(0, 4, (64,), generator=g)
+    logits = torch.randn(64, 32000, generator=g) * 3
+    keys = prng.row_keys(bases, salt1, salt2)
+    keys_d = prng.row_keys(bases.to(dev), salt1.to(dev), salt2.to(dev))
+    assert torch.equal(keys_d.cpu(), keys)
+    assert torch.equal(prng.random_bits(keys_d, (2, 32000)).cpu(),
+                       prng.random_bits(keys, (2, 32000)))
+    assert torch.equal(prng.uniform(keys_d, (2, 32000)).cpu(),
+                       prng.uniform(keys, (2, 32000)))
+    assert torch.equal(prng.categorical(keys_d, logits.to(dev), 2).cpu(),
+                       prng.categorical(keys, logits, 2))

@@ -1,7 +1,8 @@
-"""Plain versions of the port's GPTQ kernels (`ops/cuda/quant_matmul.py`)
-against the JAX package's Pallas kernels run with interpret=True on the
-CPU, as tests/kernels/test_quant_matmul.py and test_stream_matmul.py run
-them. Inputs are made with numpy from a seed and given to both sides.
+"""Plain versions of the port's GPTQ and AWQ kernels
+(`ops/cuda/quant_matmul.py`) against the JAX package's Pallas kernels run
+with interpret=True on the CPU, as tests/kernels/test_quant_matmul.py and
+test_stream_matmul.py run them. Inputs are made with numpy from a seed
+and given to both sides.
 
 - K9 (`quantize_activations_int8`), f32 and bf16 inputs: codes and row
   scales exactly equal to the JAX package's jnp reference chain (IEEE
@@ -13,6 +14,12 @@ them. Inputs are made with numpy from a seed and given to both sides.
   deferred rescale off and on; K8 (`gptq_matmul_a8`, stream=False)
   deferred off and on. The port's one plain version per function
   stands for every Pallas body (they differ in f32 summation order).
+- AWQ: K10 (`awq_matmul`, stream=False; the Pallas wrapper moves z, s
+  and the output columns through its plane-major order, the port
+  does not), group 128 and 256, f32 and bf16; K7's AWQ layout
+  (stream=True) a16 and a8 at m 1, 8 and 64, a8 deferred off and on;
+  K11 (`awq_matmul_a8`, stream=False) deferred off and on, f32 and
+  bf16, on the reference chain's int8 rows as for K8.
 
 Tolerances: in f32, |port - pallas| <= 1e-5 * max |pallas| (the same
 products summed in another order); in bf16, one output ulp (both round
@@ -198,3 +205,99 @@ def test_gptq_supported_gate_matches_jax():
                  (4000, 14336, 4, 128, False), (4096, 14300, 4, 128, False),
                  (256, 256, 4, -1, False), (64, 256, 4, 128, False)]:
         assert tqm.gptq_supported(*args) == jqm.gptq_supported(*args), args
+
+
+# --------------------------------------------------------------- AWQ --
+
+def _awq_inputs(seed, gs, K, N, m):
+    """As tests/kernels/test_quant_matmul.py's `make_awq_inputs`."""
+    rs = np.random.RandomState(seed)
+    return dict(
+        x=rs.randn(m, K).astype(np.float32),
+        qweight=rs.randint(-2 ** 31, 2 ** 31, (K, N // 8),
+                           dtype=np.int64).astype(np.int32),
+        qzeros=rs.randint(-2 ** 31, 2 ** 31, (K // gs, N // 8),
+                          dtype=np.int64).astype(np.int32),
+        scales=(rs.rand(K // gs, N) * 0.1 + 0.01).astype(np.float32))
+
+
+def _awq_args(d):
+    return d["x"], d["qweight"], d["qzeros"], d["scales"]
+
+
+@pytest.mark.parametrize("gs,K,N,m", [
+    (128, 256, 1024, 65), (256, 512, 1024, 130), (128, 128, 2048, 80)])
+def test_k10_plain_matches_pallas(gs, K, N, m):
+    j, t = _both(_awq_inputs(10 + m, gs, K, N, m), "f32")
+    want = jqm.awq_matmul(*_awq_args(j), group_size=gs, interpret=True,
+                          stream=False)
+    got = tqm.awq_matmul(*_awq_args(t), group_size=gs, stream=False)
+    _assert_close(got, want, "f32")
+
+
+def test_k10_plain_matches_pallas_bf16():
+    j, t = _both(_awq_inputs(11, 128, 256, 1024, 70), "bf16")
+    want = jqm.awq_matmul(*_awq_args(j), group_size=128, interpret=True,
+                          stream=False)
+    got = tqm.awq_matmul(*_awq_args(t), group_size=128)
+    _assert_close(got, want, "bf16")
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("arm", ["a16", "a8", "a8-deferred"])
+def test_k7_awq_plain_matches_streamed_pallas(m, arm):
+    j, t = _both(_awq_inputs(20 + m, 128, 384, 1024, m), "f32")
+    if arm == "a16":
+        want = jqm.awq_matmul(*_awq_args(j), group_size=128,
+                              interpret=True, stream=True)
+        got = tqm.awq_matmul(*_awq_args(t), group_size=128, stream=True)
+    else:
+        deferred = arm == "a8-deferred"
+        want = jqm.awq_matmul_a8(*_awq_args(j), group_size=128,
+                                 interpret=True, stream=True,
+                                 deferred=deferred)
+        got = tqm.awq_matmul_a8(*_awq_args(t), group_size=128, stream=True,
+                                deferred=deferred)
+    _assert_close(got, want, "f32")
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k11_plain_matches_pallas(deferred, dtype, monkeypatch):
+    """Both sides on the same int8 rows, as test_k8_plain_matches_pallas
+    does: the Pallas wrapper is given the reference chain's codes."""
+    j, t = _both(_awq_inputs(30, 128, 512, 1024, 80), dtype)
+    x8, xs = jqm._quantize_activations_int8(j["x"])
+    p8, ps = tqm.quantize_activations_int8(t["x"])
+    np.testing.assert_array_equal(np.asarray(x8), p8.numpy())
+    np.testing.assert_array_equal(np.asarray(xs), ps.numpy())
+    monkeypatch.setattr(jqm, "quantize_activations_int8",
+                        lambda x, interpret=False: (x8, xs))
+    jqm.awq_matmul_a8.clear_cache()
+    want = jqm.awq_matmul_a8(*_awq_args(j), group_size=128, interpret=True,
+                             stream=False, deferred=deferred)
+    got = tqm.awq_matmul_a8(*_awq_args(t), group_size=128, stream=False,
+                            deferred=deferred)
+    jqm.awq_matmul_a8.clear_cache()
+    _assert_close(got, want, dtype)
+
+
+def test_awq_dequantize_plain_matches_jax_unpack():
+    """The natural-order unpack and w = (q - z) * s (no +1) equal the JAX
+    package's AWQ `dequantize`, bit for bit in f32."""
+    from aphrodite_tpu.modeling.layers.quantization.awq import (
+        AWQConfig, AWQLinearMethod)
+    d = _awq_inputs(40, 128, 256, 1024, 1)
+    want = AWQLinearMethod(AWQConfig(4, 128)).dequantize(
+        {k: jnp.asarray(v) for k, v in d.items() if k != "x"}, jnp.float32)
+    got = tqm.dequantize_awq_plain(
+        torch.from_numpy(d["qweight"]), torch.from_numpy(d["qzeros"]),
+        torch.from_numpy(d["scales"]), group_size=128, dtype=torch.float32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_awq_supported_gate_matches_jax():
+    for args in [(4096, 28672, 128), (14336, 4096, 128), (4096, 6144, 128),
+                 (4000, 4096, 128), (4096, 4608, 128), (4096, 4096, 64),
+                 (4096, 4096, 2048), (2048, 1024, 1024)]:
+        assert tqm.awq_supported(*args) == jqm.awq_supported(*args), args
