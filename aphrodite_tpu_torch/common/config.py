@@ -3,18 +3,19 @@
 Copied from the JAX package's `common/config.py` with the same classes
 and semantics, narrowed to what the port serves so far: a dense,
 GPTQ-quantized (4 or 8 bits, no act-order) or AWQ-quantized (4 bits)
-Llama-family model on one CUDA card (or the CPU, when the caller asks
-for it): dense models in bfloat16 or float32, GPTQ and AWQ in bfloat16
-on the card (the kernels take bfloat16 activations and scales) and in
-either on the CPU. Every configuration outside that is refused HERE,
-with a message naming the later slice that brings it (`refuse`), so
-nothing is silently ignored:
+Llama-family model, Mistral's sliding window included, on one CUDA card
+(or the CPU, when the caller asks for it): dense models in bfloat16 or
+float32, GPTQ and AWQ in bfloat16 on the card (the kernels take
+bfloat16 activations and scales) and in either on the CPU; KV pages in
+the model dtype, int8 or fp8 (e5m2). Every configuration outside that
+is refused HERE, with a message naming the later slice that brings it
+(`refuse`), so nothing is silently ignored:
 
 - tensor/data/sequence parallelism and the disaggregated split;
 - quantization methods other than GPTQ and AWQ; GPTQ act-order, 2-bit,
   GPTQ or AWQ in float32 on the card or at layer shapes the kernels do
-  not take; quantized KV caches;
-- sliding-window models, and architectures other than Llama's.
+  not take;
+- architectures other than Llama's.
 
 `DeviceConfig` resolves to "cuda" or "cpu" only, and never falls back
 to the CPU on its own.
@@ -118,9 +119,6 @@ class ModelConfig:
             refuse(f"quantization {self.quantization!r}", _LATER_QUANT)
         if self.load_format == "gguf" or self.model.endswith(".gguf"):
             refuse("GGUF checkpoints", "the quantized matmul kernels")
-        if self.get_sliding_window() is not None:
-            refuse("sliding-window attention",
-                   "sliding window, prefix caching and spec verify")
         from aphrodite_tpu_torch.modeling.models import ModelRegistry
         archs = getattr(self.hf_config, "architectures", None) or []
         if not any(ModelRegistry.load_model_cls(a) is not None
@@ -345,9 +343,6 @@ class CacheConfig:
                 "'auto', 'fp8', 'fp8_e5m2', 'int8'.")
         if self.cache_dtype == "fp8_e5m2":
             self.cache_dtype = "fp8"
-        if self.cache_dtype != "auto":
-            refuse(f"kv_cache_dtype {self.cache_dtype!r}",
-                   "int8/fp8 KV (ops/kv_quant.py)")
 
     def verify_with_parallel_config(
             self, parallel_config: "ParallelConfig") -> None:

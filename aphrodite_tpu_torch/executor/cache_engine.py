@@ -3,10 +3,13 @@
 
 Per layer the cache is a (k_pages, v_pages) pair of device tensors
 [num_pages, page_size, num_kv_heads * head_dim], token-major with heads
-in the last dim and head_dim unpadded. The host swap pool is one CPU
-tensor per layer [2, host_pages, page_size, heads * head_dim] in the
-cache dtype, pinned when the pool serves a CUDA card. Swaps and page
-copies update the device pages in place.
+in the last dim and head_dim unpadded, in the model dtype or, with
+`kv_cache_dtype` "int8" / "fp8", in int8 / float8_e5m2 (one byte per
+value: about twice the pages in the same memory; `ops/kv_quant.py`).
+The host swap pool is one CPU tensor per layer [2, host_pages,
+page_size, heads * head_dim] in the cache dtype, pinned when the pool
+serves a CUDA card. Swaps and page copies update the device pages in
+place, moving 8-bit pages as bytes.
 """
 from __future__ import annotations
 
@@ -14,8 +17,10 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from aphrodite_tpu_torch.common import flags
 from aphrodite_tpu_torch.common.config import CacheConfig, ModelConfig
 from aphrodite_tpu_torch.common.logger import init_logger
+from aphrodite_tpu_torch.ops.kv_quant import DEFAULT_KV_SCALE, byte_view
 
 logger = init_logger(__name__)
 
@@ -25,6 +30,19 @@ _MODEL_DTYPES = {
     "bfloat16": torch.bfloat16,
     "float32": torch.float32,
 }
+
+_CACHE_DTYPES = {
+    "auto": None,                 # the model dtype
+    "fp8": torch.float8_e5m2,
+    "int8": torch.int8,
+}
+
+
+def cache_dtype_of(cache_config: CacheConfig,
+                   model_config: ModelConfig) -> torch.dtype:
+    """The page dtype: the cache dtype's, else the model's."""
+    quant = _CACHE_DTYPES[cache_config.cache_dtype]
+    return quant if quant is not None else _MODEL_DTYPES[model_config.dtype]
 
 
 class CacheEngine:
@@ -42,9 +60,14 @@ class CacheEngine:
         self.num_layers = model_config.hf_config.num_hidden_layers
         self.kv_heads_per_layer = model_config.get_kv_heads_per_layer()
         self.head_size = model_config.get_head_size()
-        self.dtype = _MODEL_DTYPES[model_config.dtype]
-        # Quantized KV caches are refused by CacheConfig.
+        self.dtype = cache_dtype_of(cache_config, model_config)
+        # The int8 dequant scale, threaded to the kernels through
+        # InputMetadata.kv_scale (a strict read: a malformed value raises
+        # naming the flag).
         self.kv_scale = 1.0
+        if cache_config.cache_dtype == "int8":
+            self.kv_scale = flags.get_float("APHRODITE_KV_SCALE",
+                                            default=DEFAULT_KV_SCALE)
         self.kv_caches: List[KVCache] = [
             (self._alloc(heads), self._alloc(heads))
             for heads in self.kv_heads_per_layer]
@@ -78,9 +101,10 @@ class CacheEngine:
         src = torch.tensor(list(mapping.keys()), dtype=torch.int64,
                            device=self.device)
         dst = torch.tensor(list(mapping.values()), dtype=torch.int64)
-        for layer, (k_pages, v_pages) in enumerate(self.kv_caches):
-            self._host_pool[layer][0][dst] = k_pages[src].cpu()
-            self._host_pool[layer][1][dst] = v_pages[src].cpu()
+        for layer, pages in enumerate(self.kv_caches):
+            host = byte_view(self._host_pool[layer])
+            for side in (0, 1):
+                host[side][dst] = byte_view(pages[side])[src].cpu()
 
     def swap_in(self, mapping: Dict[int, int]) -> None:
         """Host pool -> device pages (in place)."""
@@ -90,15 +114,18 @@ class CacheEngine:
         src = torch.tensor(list(mapping.keys()), dtype=torch.int64)
         dst = torch.tensor(list(mapping.values()), dtype=torch.int64,
                            device=self.device)
-        for layer, (k_pages, v_pages) in enumerate(self.kv_caches):
-            k_pages[dst] = self._host_pool[layer][0][src].to(self.device)
-            v_pages[dst] = self._host_pool[layer][1][src].to(self.device)
+        for layer, pages in enumerate(self.kv_caches):
+            host = byte_view(self._host_pool[layer])
+            for side in (0, 1):
+                byte_view(pages[side])[dst] = host[side][src].to(
+                    self.device)
 
     @staticmethod
     def get_cache_block_size(cache_config: CacheConfig,
                              model_config: ModelConfig) -> int:
-        """Bytes per page across all layers (K and V)."""
+        """Bytes per page across all layers (K and V), at the page
+        dtype's width."""
         total_heads = sum(model_config.get_kv_heads_per_layer())
-        elt = 4 if model_config.dtype == "float32" else 2
+        elt = cache_dtype_of(cache_config, model_config).itemsize
         per_token = total_heads * model_config.get_head_size() * elt
         return 2 * cache_config.block_size * per_token

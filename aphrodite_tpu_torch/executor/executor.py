@@ -21,7 +21,8 @@ from aphrodite_tpu_torch.common.config import (CacheConfig, DeviceConfig,
 from aphrodite_tpu_torch.common.logger import init_logger
 from aphrodite_tpu_torch.common.sequence import (SamplerOutput,
                                                  SequenceGroupMetadata)
-from aphrodite_tpu_torch.executor.cache_engine import CacheEngine
+from aphrodite_tpu_torch.executor.cache_engine import (CacheEngine,
+                                                       cache_dtype_of)
 from aphrodite_tpu_torch.executor.model_runner import ModelRunner
 from aphrodite_tpu_torch.modeling.loader import get_model
 
@@ -57,7 +58,8 @@ class GPUExecutor:
         self.model_runner = ModelRunner(
             self.model, self.params, model_config, scheduler_config,
             page_size=cache_config.block_size,
-            num_slots=0, device=self.device)
+            num_slots=0, device=self.device,
+            kv_cache_dtype=cache_dtype_of(cache_config, model_config))
         self._profile_and_size_cache()
         self.cache_engine = CacheEngine(cache_config, model_config,
                                         self.device)

@@ -69,6 +69,16 @@ def _pow2_bucket(value: int, lo: int = 16) -> int:
     return b
 
 
+def _overwritten(slots: np.ndarray, num_slots: int) -> np.ndarray:
+    """Mask of the live entries of `slots` whose slot a later entry
+    writes again."""
+    n = len(slots)
+    _, last_rev = np.unique(slots[::-1], return_index=True)
+    keep = np.zeros((n,), dtype=bool)
+    keep[n - 1 - last_rev] = True
+    return ~keep & (slots < num_slots)
+
+
 class StepHandle:
     """Work enqueued on the device and not yet synchronised: `packed`
     is the device result; `ModelRunner.finalize_step/finalize_burst`
@@ -105,10 +115,9 @@ class ModelRunner:
         self.page_size = page_size
         self.num_slots = num_slots          # OOB pad value for slots
         self.device = device
-        self.kv_scale = 1.0
-        # Whole-page prompt writes (K2) need float pages; quantized pages
-        # are refused by the config, so this holds for every cache the
-        # port allocates.
+        self.kv_scale = 1.0                 # int8 KV dequant scale
+        # Whole-page prompt writes (K2) take float pages only; int8 and
+        # fp8 prompts take the quantizing slot scatter, as in JAX.
         self._prefill_writer_ok = kv_cache_dtype in (torch.bfloat16,
                                                      torch.float32)
         self.sampler = Sampler(model_config.get_vocab_size(), device)
@@ -240,12 +249,24 @@ class ModelRunner:
             else:
                 selected.append(i * padded_len + n - 1)
 
+        # A prompt longer than a sliding window writes the window's
+        # pages more than once (the block table wraps). The last write
+        # must win, as in the TPU's sequential writers; the CUDA writers
+        # run rows in parallel, so earlier writes to a slot are dropped
+        # here and such a round builds no whole-page cells.
+        wrapped = False
+        if self.model_config.get_sliding_window() is not None:
+            dropped = _overwritten(slots, self.num_slots)
+            slots[dropped] = self.num_slots
+            wrapped = bool(dropped.any())
+
         # Whole-page writer cells (K2) when every chunk starts on a page
         # boundary and the padded length is page-aligned: one cell per
         # (sequence, page); cell c reads source rows [c*S, (c+1)*S).
         prefill_cells = None
         ps = self.page_size
-        if self._prefill_writer_ok and padded_len % ps == 0 and \
+        if self._prefill_writer_ok and not wrapped and \
+                padded_len % ps == 0 and \
                 all(int(c) % ps == 0 for c in ctx_lens[:batch]):
             ppp = padded_len // ps               # pages per prompt
             n_cells = padded_batch * ppp

@@ -38,7 +38,8 @@ class InputMetadata:
     tp: int = 1
     # Prefill against a cached prefix (prefix caching / chunked prefill).
     use_prefix: bool = False
-    # KV dequant scale; 1.0 (the port refuses quantized KV caches).
+    # int8 KV quantization scale S (the CacheEngine's); unused by other
+    # page dtypes.
     kv_scale: float = 1.0
     # pages_per_chunk the decode work list was built with (0 = none).
     decode_ppc: int = 0

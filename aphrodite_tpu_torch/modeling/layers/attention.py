@@ -4,14 +4,20 @@ Port of `aphrodite_tpu/modeling/layers/attention.py` (routing at
 `:63-146`), without the 128-lane head pad, ring prefill and tp paths:
 
 - prompt: whole-page writer K2 (`write_kv_pages_prefill`) when the
-  runner built page-aligned `prefill_cells`, else the slot scatter K4
-  (`write_kv_pages`); then dense causal attention in plain PyTorch,
-  over [cached prefix ; chunk] gathered from the pages when the chunk
-  continues a prefix;
-- decode: the paged decode kernel K1 with the current token's K/V write
-  fused in, under the same precondition as the JAX layer
-  (`_fused_decode_ok`: no sliding window, no speculative verify);
-  otherwise the slot writer and a read-only K1.
+  runner built page-aligned `prefill_cells` (never for 8-bit pages),
+  else the slot scatter K4 (`write_kv_pages`); then dense causal
+  attention in plain PyTorch, over [cached prefix ; chunk] gathered
+  from the pages (and dequantized) when the chunk continues a prefix;
+- decode: paged decode attention (K1 with the runner's work list, K5
+  without one or under APHRODITE_ATTN_RAGGED=0) with the current
+  token's K/V write fused in, under the same precondition as the JAX
+  layer (`_fused_decode_ok`: no sliding window, no speculative verify);
+  otherwise the slot writer (K3) and a read-only attention call.
+
+int8 and fp8 pages take the same kernels: writes quantize, the int8
+scale folds into the attention (`ops/kv_quant.py`). The JAX layer's
+page_size % 32 condition for 8-bit pages is a TPU tiling rule; the
+CUDA kernels take any page size.
 
 The ops run their CUDA kernels on CUDA tensors and their plain versions
 on CPU tensors. Page tensors are updated in place and returned.
@@ -30,8 +36,7 @@ from aphrodite_tpu_torch.ops.cuda.kv_write import (write_kv_pages,
 from aphrodite_tpu_torch.ops.cuda.paged_attention import (
     choose_pages_per_chunk, paged_decode_attention)
 from aphrodite_tpu_torch.ops.kv_cache import gather_pages
-
-_PAGE_DTYPES = (torch.bfloat16, torch.float32)
+from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
 
 
 class PagedAttention:
@@ -94,7 +99,8 @@ class PagedAttention:
                     flat_k, flat_v, k_pages, v_pages,
                     metadata.slot_mapping,
                     distinct_pages=(not metadata.is_prompt and
-                                    not metadata.spec_verify))
+                                    not metadata.spec_verify),
+                    kv_scale=metadata.kv_scale)
 
         if metadata.is_prompt:
             out = self._prefill(q, k, v, k_pages, v_pages, metadata)
@@ -120,7 +126,6 @@ class PagedAttention:
                 not metadata.is_prompt and
                 not metadata.spec_verify and
                 self.sliding_window is None and
-                k_pages.dtype in _PAGE_DTYPES and
                 metadata.tp == 1)
 
     def _prefill(self, q, k, v, k_pages, v_pages,
@@ -133,10 +138,14 @@ class PagedAttention:
         if metadata.use_prefix:
             # Attend over [cached prefix ; this chunk] read back from the
             # pages (this chunk's KV was written above).
+            kv_s = dequant_scale(k_pages.dtype, metadata.kv_scale)
             kv_k = gather_pages(k_pages, metadata.block_tables,
                                 self.num_kv_heads).transpose(1, 2)
             kv_v = gather_pages(v_pages, metadata.block_tables,
                                 self.num_kv_heads).transpose(1, 2)
+            if kv_s != 1.0:
+                kv_k = kv_k.float() * kv_s
+                kv_v = kv_v.float() * kv_s
             context_lens = metadata.context_lens
             kv_valid = context_lens + prompt_lens
         else:
@@ -166,6 +175,7 @@ class PagedAttention:
         result = paged_decode_attention(
             q3, k_pages, v_pages, tables, metadata.context_lens,
             self._slopes_on(q.device), knew, vnew, scale=self.scale,
+            kv_scale=dequant_scale(k_pages.dtype, metadata.kv_scale),
             pages_per_chunk=ppc, work_items=work)
         if knew is not None:
             out, k_pages, v_pages = result

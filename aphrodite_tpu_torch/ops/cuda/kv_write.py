@@ -9,8 +9,12 @@ Port of `aphrodite_tpu/ops/pallas/kv_write.py`:
 - `write_kv_pages` (K3 with `distinct_pages=True`, Pallas
   `_decode_write_kernel`; K4 by default, Pallas `_write_kernel`): one
   row per token into its slot; slots >= num_slots skip. One CUDA scatter
-  serves both entry points: tokens that share a page write different
-  rows.
+  serves both entry points (tokens that share a page write different
+  rows); each counts its launches under its own name. On int8 and fp8
+  pages it follows the JAX package's route for them (the XLA scatter
+  after `quantize_kv`): the rows are quantized, then the same scatter
+  copies their bytes. Two tokens must not share a slot: the scatter
+  runs them in parallel.
 
 Each public function launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors, and for nothing else: a CUDA tensor the
@@ -28,21 +32,26 @@ import torch
 
 from aphrodite_tpu_torch.ops.cuda import build
 from aphrodite_tpu_torch.ops.kv_cache import write_to_kv_cache
+from aphrodite_tpu_torch.ops.kv_quant import (KV_8BIT_DTYPES, byte_view,
+                                              quantize_kv)
 
 Pages = Tuple[torch.Tensor, torch.Tensor]
 
 WRITE_KV_PAGES_LAUNCHES = build.launch_counter("write_kv_pages")
+WRITE_KV_PAGES_DECODE_LAUNCHES = build.launch_counter(
+    "write_kv_pages_decode")
 WRITE_KV_PAGES_PREFILL_LAUNCHES = build.launch_counter(
     "write_kv_pages_prefill")
 
-_DTYPES = (torch.bfloat16, torch.float32)
+# uint8: the byte view of int8 / fp8 pages and of their quantized rows.
+_DTYPES = (torch.bfloat16, torch.float32, torch.uint8)
 
 
 def _check_rows(knew, vnew, k_pages, v_pages, index, what: str) -> int:
     """Validate the kernel's inputs; returns the row width in bytes."""
     if k_pages.dtype not in _DTYPES or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"{what}: pages must be bf16 or f32 and alike, "
-                        f"got {k_pages.dtype}/{v_pages.dtype}")
+        raise TypeError(f"{what}: pages must be bf16, f32 or bytes and "
+                        f"alike, got {k_pages.dtype}/{v_pages.dtype}")
     if knew.dtype != k_pages.dtype or vnew.dtype != k_pages.dtype:
         raise TypeError(f"{what}: knew/vnew must match the page dtype "
                         f"{k_pages.dtype}, got {knew.dtype}/{vnew.dtype}")
@@ -68,17 +77,21 @@ def _check_rows(knew, vnew, k_pages, v_pages, index, what: str) -> int:
 
 def write_kv_pages_plain(knew: torch.Tensor, vnew: torch.Tensor,
                          k_pages: torch.Tensor, v_pages: torch.Tensor,
-                         slots: torch.Tensor) -> Pages:
+                         slots: torch.Tensor,
+                         kv_scale: float = 1.0) -> Pages:
     """Plain version of the slot scatter: knew/vnew [T, Hkv*d] rows into
-    their slots, out-of-range slots skipped (in place)."""
-    return write_to_kv_cache(knew, vnew, k_pages, v_pages, slots)
+    their slots, quantized to the page dtype, out-of-range slots skipped
+    (in place)."""
+    return write_to_kv_cache(knew, vnew, k_pages, v_pages, slots,
+                             kv_scale=kv_scale)
 
 
-def _write_kv_pages_kernel(knew, vnew, k_pages, v_pages, slots) -> Pages:
+def _write_kv_pages_kernel(knew, vnew, k_pages, v_pages, slots,
+                           counter) -> Pages:
     row_bytes = _check_rows(knew, vnew, k_pages, v_pages, slots,
-                            "write_kv_pages")
+                            counter.name)
     if slots.shape[0] != knew.shape[0]:
-        raise ValueError("write_kv_pages: one slot per token")
+        raise ValueError(f"{counter.name}: one slot per token")
     num_pages, page_size, _ = k_pages.shape
     lib = build.library("kv_write")
     fn = lib.kv_write_slots
@@ -88,26 +101,37 @@ def _write_kv_pages_kernel(knew, vnew, k_pages, v_pages, slots) -> Pages:
     err = fn(k_pages.data_ptr(), v_pages.data_ptr(), knew.data_ptr(),
              vnew.data_ptr(), slots.data_ptr(), knew.shape[0],
              num_pages * page_size, row_bytes, build.stream_of(k_pages))
-    WRITE_KV_PAGES_LAUNCHES.add()
-    build.check(err, "write_kv_pages")
+    counter.add()
+    build.check(err, counter.name)
     return k_pages, v_pages
 
 
 def write_kv_pages(knew: torch.Tensor, vnew: torch.Tensor,
                    k_pages: torch.Tensor, v_pages: torch.Tensor,
                    slots: torch.Tensor, *,
-                   distinct_pages: bool = False) -> Pages:
-    """Write token rows knew/vnew [T, Hkv*d] into their slots (in place);
-    slots >= num_slots skip.
+                   distinct_pages: bool = False,
+                   kv_scale: float = 1.0) -> Pages:
+    """Write token rows knew/vnew [T, Hkv*d] into their slots (in place,
+    quantized to the page dtype with `kv_scale` for int8); slots >=
+    num_slots skip.
 
-    `distinct_pages` keeps the JAX entry point's signature: there it
-    selected the pipelined whole-page writer (K3) for decode batches.
-    Here both cases run the same row scatter, which is right whether or
-    not tokens share pages."""
-    del distinct_pages
-    if build.on_cuda(knew, vnew, k_pages, v_pages, slots):
-        return _write_kv_pages_kernel(knew, vnew, k_pages, v_pages, slots)
-    return write_kv_pages_plain(knew, vnew, k_pages, v_pages, slots)
+    `distinct_pages` is the JAX entry point's: there it selected the
+    pipelined whole-page writer (K3) for decode batches. Here both cases
+    run the same row scatter, which is right whether or not tokens share
+    pages; the flag picks the launch counter (K3's or K4's)."""
+    if not build.on_cuda(knew, vnew, k_pages, v_pages, slots):
+        return write_kv_pages_plain(knew, vnew, k_pages, v_pages, slots,
+                                    kv_scale)
+    counter = WRITE_KV_PAGES_DECODE_LAUNCHES if distinct_pages else \
+        WRITE_KV_PAGES_LAUNCHES
+    if k_pages.dtype in KV_8BIT_DTYPES:
+        rows = [byte_view(quantize_kv(x, k_pages.dtype, kv_scale))
+                for x in (knew, vnew)]
+        _write_kv_pages_kernel(*rows, byte_view(k_pages),
+                               byte_view(v_pages), slots, counter)
+        return k_pages, v_pages
+    return _write_kv_pages_kernel(knew, vnew, k_pages, v_pages, slots,
+                                  counter)
 
 
 # --------------------------------------------- K2: prefill page writer --

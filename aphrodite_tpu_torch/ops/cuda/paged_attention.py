@@ -1,26 +1,37 @@
-"""Paged decode attention: the CUDA kernel of `csrc/paged_attention.cu`,
-its plain PyTorch version, and the host helpers the model runner shares
-with it.
+"""Paged decode attention: the CUDA kernels of `csrc/paged_attention.cu`,
+their plain PyTorch version, and the host helpers the model runner
+shares with them.
 
-Port of `aphrodite_tpu/ops/pallas/paged_attention.py` (K1, the Pallas
-`_decode_kernel_ragged`): one query token per sequence attends over its
-pages, with GQA, optional ALiBi, and optionally the fused write of the
-current token's K/V at position ctx-1 into its page (in place; the
-pages are returned beside the output, as the JAX function returned its
-aliased page arrays).
+Port of `aphrodite_tpu/ops/pallas/paged_attention.py`: one query token
+per sequence attends over its pages, with GQA, optional ALiBi, and
+optionally the fused write of the current token's K/V at position ctx-1
+into its page (in place; the pages are returned beside the output, as
+the JAX function returned its aliased page arrays). Two kernels, as the
+JAX package has two grids:
 
-`paged_decode_attention` launches the kernel for CUDA tensors and runs
+- K1 (`_decode_kernel_ragged`, the ragged work-list grid): taken when
+  the caller passes a work list and `APHRODITE_ATTN_RAGGED` is on (the
+  default);
+- K5 (`_decode_kernel_tm`, the padded (batch, head-block) grid): taken
+  without a work list or with `APHRODITE_ATTN_RAGGED=0`.
+
+`paged_decode_attention` launches one of them for CUDA tensors and runs
 `paged_decode_attention_plain` for CPU tensors, and for nothing else: a
-CUDA input the kernel does not take raises.
+CUDA input the kernel does not take raises. Both flags are read at call
+time, as the JAX function reads them.
 
-The plain version repeats the TPU kernel's arithmetic (the
-`amla=False` arm): chunks of `pages_per_chunk` pages, an online softmax
-in the base-2 domain whose running max is rounded up to an integer,
-and dot operands rounded to the page dtype (bf16 pages round the scaled
-query and the softmax weights to bf16, as the TPU kernel's bf16 matrix
-products did; float32 pages keep everything in float32). The work list
-is a TPU grid device: it is validated for signature parity and changes
-nothing in the result.
+The plain version repeats the Pallas bodies' arithmetic, which is the
+same for both grids at the same chunking: chunks of `pages_per_chunk`
+pages, an online softmax in the base-2 domain whose running max is
+rounded up to an integer, the rescale as an exponent-bias add (`amla`,
+`APHRODITE_ATTN_AMLA`, the default) or a multiply, and dot operands
+rounded to bf16 on bf16, int8 and fp8 pages (the scaled query and the
+softmax weights, as the TPU's bf16 matrix products did; int8 and e5m2
+values are exact in bf16). Float32 pages keep everything in float32,
+as the JAX package's CPU route (the jnp reference) does. int8 pages
+fold their scale `kv_scale` into the query and the epilogue
+(`ops/kv_quant.py`). The work list is a TPU grid device: it is
+validated for signature parity and changes nothing in the result.
 """
 from __future__ import annotations
 
@@ -30,10 +41,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from aphrodite_tpu_torch.common import flags
 from aphrodite_tpu_torch.ops.cuda import build
+from aphrodite_tpu_torch.ops.kv_quant import byte_view, quantize_kv
 
 PAGED_DECODE_ATTENTION_LAUNCHES = build.launch_counter(
     "paged_decode_attention")
+PAGED_DECODE_ATTENTION_TM_LAUNCHES = build.launch_counter(
+    "paged_decode_attention_tm")
 
 _LOG2E = 1.4426950408889634
 _NEG_INF = -2.0 ** 30       # large-but-finite, as in the TPU kernel
@@ -51,18 +66,34 @@ def _exp2(x: torch.Tensor) -> torch.Tensor:
 _WORK_BUCKETS = [8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512,
                  768, 1024, 1536, 2048, 3072, 4096]
 
-# Kernel limits (csrc/paged_attention.cu): 4 warps x 4 rows, 8 lanes of
-# head_dim per warp lane.
+# Kernel limits (csrc/paged_attention.cu): K1 4 warps x 4 rows, K5 at
+# most 16 warps (a warp per 4 rows of a kv head); 8 lanes of head_dim
+# per warp lane.
 _MAX_GROUP = 16
+_MAX_TM_WARPS = 16
 _MAX_HEAD_DIM = 256
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ACT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_PAGE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.float8_e5m2: 3}
+
+
+def ragged_enabled() -> bool:
+    """APHRODITE_ATTN_RAGGED=0 pins the padded-grid kernel (K5); on (the
+    default), a call with a work list takes the ragged one (K1)."""
+    return flags.get_bool("APHRODITE_ATTN_RAGGED")
+
+
+def amla_enabled() -> bool:
+    """APHRODITE_ATTN_AMLA=0 pins the rescale multiply; on (the
+    default), the rescale is an exponent-bias add (`_mul_pow2`)."""
+    return flags.get_bool("APHRODITE_ATTN_AMLA")
 
 
 # ------------------------------------------------------- host helpers --
 
 def head_block(num_kv_heads: int) -> int:
-    """Largest divisor of H that is <= 8 (the TPU kernel's per-cell head
-    count; kept for parity of the runner's arithmetic)."""
+    """Largest divisor of H that is <= 8: the kv heads one K5 block
+    serves, as one cell of the Pallas padded grid did."""
     for hb in (8, 7, 6, 5, 4, 3, 2):
         if num_kv_heads % hb == 0:
             return hb
@@ -147,6 +178,17 @@ def _geometry(q, k_pages):
 
 # -------------------------------------------------------- plain version --
 
+def _mul_pow2(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """x * 2**delta as an exponent-bias add (the Pallas `_mul_pow2`):
+    delta is integer-valued and <= 0; entries whose exponent would
+    underflow, zeros and denormals included, become 0."""
+    bits = x.contiguous().view(torch.int32)
+    d = torch.clamp(delta, min=-254.0).to(torch.int32)
+    shifted = (bits + d * (1 << 23)).view(torch.float32)
+    exp_field = (bits >> 23) & 0xFF
+    return torch.where(exp_field + d > 0, shifted, torch.zeros_like(x))
+
+
 def paged_decode_attention_plain(
     q: torch.Tensor,               # [batch, Hq, d]
     k_pages: torch.Tensor,         # [num_pages, page_size, Hkv * d]
@@ -158,12 +200,15 @@ def paged_decode_attention_plain(
     vnew: Optional[torch.Tensor] = None,
     *,
     scale: float,
+    kv_scale: float = 1.0,
     pages_per_chunk: int = 8,
     work_items=None,
+    amla: bool = True,
 ):
-    """The TPU kernel's arithmetic in plain PyTorch (see module doc).
-    Returns out [batch, Hq, d], or (out, k_pages, v_pages) with the
-    fused write."""
+    """The Pallas bodies' arithmetic in plain PyTorch (see module doc),
+    for both grids. Returns out [batch, Hq, d], or (out, k_pages,
+    v_pages) with the fused write. A chunk without a live token leaves
+    a row's state as it was, as K5's loop over the row's chunks does."""
     batch, num_q_heads, d, num_kv_heads = _geometry(q, k_pages)
     _check_work_items(work_items)
     group = num_q_heads // num_kv_heads
@@ -179,13 +224,13 @@ def paged_decode_attention_plain(
         pos = (ctx - 1).clamp(min=0)
         page = tables.gather(1, (pos // page_size).view(-1, 1))[:, 0]
         slot = (page * page_size + pos % page_size)[live]
-        k_pages.view(-1, num_kv_heads, d)[slot] = \
-            knew[live].to(k_pages.dtype)
-        v_pages.view(-1, num_kv_heads, d)[slot] = \
-            vnew[live].to(v_pages.dtype)
+        for pages, new in ((k_pages, knew), (v_pages, vnew)):
+            byte_view(pages).view(-1, num_kv_heads, d)[slot] = byte_view(
+                quantize_kv(new[live], pages.dtype, kv_scale))
 
-    op = k_pages.dtype              # dot operand precision
-    qs = (q.float() * (scale * _LOG2E)).to(op).float()
+    op = torch.float32 if k_pages.dtype == torch.float32 else \
+        torch.bfloat16               # dot operand precision
+    qs = (q.float() * (scale * kv_scale * _LOG2E)).to(op).float()
     qs = qs.view(batch, num_kv_heads, group, d)
     slopes = None if alibi_slopes is None else \
         (alibi_slopes.float().view(num_kv_heads, group, 1) * _LOG2E)
@@ -204,76 +249,91 @@ def paged_decode_attention_plain(
         live = pos.view(1, 1, 1, -1) < ctx.view(-1, 1, 1, 1)
         s = torch.where(live, s, torch.full_like(s, _NEG_INF))
         m_new = torch.maximum(m, torch.ceil(s.amax(dim=-1)))
-        corr = _exp2(m - m_new)
+        delta = m - m_new
         p = torch.where(live, _exp2(s - m_new[..., None]),
                         torch.zeros_like(s))
-        l = l * corr + p.sum(dim=-1)
         pv = torch.einsum("bkgt,btkd->bkgd", p.to(op).float(), vc.float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        if amla:
+            l_new = _mul_pow2(l, delta) + p.sum(dim=-1)
+            acc_new = _mul_pow2(acc, delta[..., None]) + pv
+        else:
+            corr = _exp2(delta)
+            l_new = l * corr + p.sum(dim=-1)
+            acc_new = acc * corr[..., None] + pv
+        row_live = (c * chunk_tokens < ctx).view(-1, 1, 1)
+        m = torch.where(row_live, m_new, m)
+        l = torch.where(row_live, l_new, l)
+        acc = torch.where(row_live[..., None], acc_new, acc)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = (acc * (1.0 / l_safe)[..., None]).reshape(batch, num_q_heads, d)
+    out = (acc * (kv_scale / l_safe)[..., None]).reshape(
+        batch, num_q_heads, d)
     out = out.to(q.dtype)
     if knew is not None:
         return out, k_pages, v_pages
     return out
 
 
-# --------------------------------------------------------------- kernel --
+# --------------------------------------------------------------- kernels --
 
-def _paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
-                                   context_lens, alibi_slopes, knew, vnew,
-                                   scale: float):
+def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
+            knew, vnew, *, scale: float, kv_scale: float, ppc: int,
+            amla: bool, tm: bool) -> torch.Tensor:
+    """K1 (tm False) or K5 (tm True) on CUDA tensors; raises on inputs
+    the kernels do not take."""
+    what = "paged_decode_attention" + ("_tm" if tm else "")
     batch, num_q_heads, d, num_kv_heads = _geometry(q, k_pages)
     group = num_q_heads // num_kv_heads
     num_pages, page_size, _ = k_pages.shape
-    dtype = k_pages.dtype
-    if dtype not in _DTYPE_CODE or v_pages.dtype != dtype or \
-            q.dtype != dtype:
-        raise TypeError(f"paged_decode_attention: q and pages must share "
-                        f"bf16 or f32, got {q.dtype}/{dtype}/"
-                        f"{v_pages.dtype}")
-    if group > _MAX_GROUP or d > _MAX_HEAD_DIM or \
-            (d * k_pages.element_size()) % 16:
-        raise ValueError(f"paged_decode_attention: unsupported geometry "
-                         f"group={group} head_dim={d}")
+    page = k_pages.dtype
+    act = q.dtype
+    if act not in _ACT_CODE or page not in _PAGE_CODE or \
+            v_pages.dtype != page or \
+            (page in _ACT_CODE and page != act):
+        raise TypeError(f"{what}: q must be bf16 or f32 and the pages "
+                        f"that dtype, int8 or float8_e5m2, got {act}/"
+                        f"{page}/{v_pages.dtype}")
+    hb = head_block(num_kv_heads) if tm else 1
+    unit = hb * d * k_pages.element_size()       # bytes staged per row
+    if group > _MAX_GROUP or d > _MAX_HEAD_DIM or unit % 16 or \
+            (tm and hb * -(-group // 4) > _MAX_TM_WARPS):
+        raise ValueError(f"{what}: unsupported geometry group={group} "
+                         f"head_dim={d} head_block={hb} page dtype {page}")
     if block_tables.dtype != torch.int32 or \
             context_lens.dtype != torch.int32 or \
             block_tables.shape[0] != batch or \
             context_lens.shape != (batch,):
-        raise TypeError("paged_decode_attention: block_tables [batch, "
-                        "pages] and context_lens [batch] must be int32")
+        raise TypeError(f"{what}: block_tables [batch, pages] and "
+                        "context_lens [batch] must be int32")
     if alibi_slopes is not None and (alibi_slopes.dtype != torch.float32
                                      or alibi_slopes.shape !=
                                      (num_q_heads,)):
-        raise TypeError("paged_decode_attention: alibi_slopes must be "
-                        "f32 [Hq]")
+        raise TypeError(f"{what}: alibi_slopes must be f32 [Hq]")
     if knew is not None and (
-            knew.shape != (batch, num_kv_heads, d) or knew.dtype != dtype
+            knew.shape != (batch, num_kv_heads, d) or knew.dtype != act
             or vnew is None or vnew.shape != knew.shape
-            or vnew.dtype != dtype):
-        raise ValueError("paged_decode_attention: knew/vnew must be "
-                         f"[{batch}, {num_kv_heads}, {d}] {dtype}")
+            or vnew.dtype != act):
+        raise ValueError(f"{what}: knew/vnew must be "
+                         f"[{batch}, {num_kv_heads}, {d}] {act}")
     for t in (q, k_pages, v_pages, block_tables, context_lens,
               alibi_slopes, knew, vnew):
         if t is not None and not t.is_contiguous():
-            raise ValueError("paged_decode_attention: inputs must be "
-                             "contiguous")
+            raise ValueError(f"{what}: inputs must be contiguous")
     out = torch.empty_like(q)
-    lib = build.library("paged_attention")
-    fn = lib.paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn = build.library("paged_attention").paged_decode_attention
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + \
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(out.data_ptr(), q.data_ptr(), k_pages.data_ptr(),
              v_pages.data_ptr(), block_tables.data_ptr(),
              context_lens.data_ptr(), build.ptr(alibi_slopes),
              build.ptr(knew), build.ptr(vnew), batch, num_kv_heads, group,
-             d, num_pages, page_size, block_tables.shape[1],
-             float(scale) * _LOG2E, _DTYPE_CODE[dtype],
+             d, num_pages, page_size, block_tables.shape[1], ppc, hb,
+             float(scale) * float(kv_scale) * _LOG2E, float(kv_scale),
+             _ACT_CODE[act], _PAGE_CODE[page], int(tm), int(amla),
              build.stream_of(q))
-    PAGED_DECODE_ATTENTION_LAUNCHES.add()
-    build.check(err, "paged_decode_attention")
+    (PAGED_DECODE_ATTENTION_TM_LAUNCHES if tm else
+     PAGED_DECODE_ATTENTION_LAUNCHES).add()
+    build.check(err, what)
     return out
 
 
@@ -288,26 +348,34 @@ def paged_decode_attention(
     vnew: Optional[torch.Tensor] = None,
     *,
     scale: float,
+    kv_scale: float = 1.0,
     pages_per_chunk: int = 8,
     work_items=None,
+    amla=None,
 ):
     """Decode attention over the paged cache. Without knew/vnew returns
     out [batch, Hq, d]; with them also writes each sequence's current
-    token into its page at position ctx-1 (in place) and returns
-    (out, k_pages, v_pages).
+    token into its page at position ctx-1 (in place, quantized to the
+    page dtype) and returns (out, k_pages, v_pages).
 
-    Padded block-table entries must point at a valid page or be
-    clamped (the kernel clamps them); positions >= ctx are masked.
-    `pages_per_chunk` and `work_items` follow the JAX signature: the
-    kernel walks whole pages and needs neither."""
+    `kv_scale` is the pages' dequant scale (`kv_quant.dequant_scale`:
+    S for int8, 1.0 otherwise). A work list selects K1 unless
+    APHRODITE_ATTN_RAGGED=0; without one K5 runs. `amla` pins the
+    rescale variant; None reads APHRODITE_ATTN_AMLA. Padded block-table
+    entries must point at a valid page or be clamped (the kernels clamp
+    them); positions >= ctx are masked. `pages_per_chunk` is clamped
+    down to a divisor of the table width, as in the JAX function."""
+    ppc = clamp_pages_per_chunk(block_tables.shape[1], pages_per_chunk)
+    use_amla = amla_enabled() if amla is None else bool(amla)
     if build.on_cuda(q, k_pages, v_pages, block_tables, context_lens,
                      alibi_slopes, knew, vnew):
         _check_work_items(work_items)
-        out = _paged_decode_attention_kernel(
-            q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
-            knew, vnew, scale)
+        out = _launch(q, k_pages, v_pages, block_tables, context_lens,
+                      alibi_slopes, knew, vnew, scale=scale,
+                      kv_scale=kv_scale, ppc=ppc, amla=use_amla,
+                      tm=work_items is None or not ragged_enabled())
         return (out, k_pages, v_pages) if knew is not None else out
     return paged_decode_attention_plain(
         q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
-        knew, vnew, scale=scale, pages_per_chunk=pages_per_chunk,
-        work_items=work_items)
+        knew, vnew, scale=scale, kv_scale=kv_scale, pages_per_chunk=ppc,
+        work_items=work_items, amla=use_amla)

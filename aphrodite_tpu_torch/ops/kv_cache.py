@@ -17,12 +17,17 @@ entries of slot / page-index vectors hold the out-of-range value
 Updates are IN PLACE on the page tensors (the JAX package returned new,
 aliased arrays); the functions still return the page tensors so callers
 and tests read like the JAX originals.
+
+Pages may be int8 or float8_e5m2 (`ops/kv_quant.py`): writes quantize,
+and copies and gathers move the 8-bit pages as bytes.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from aphrodite_tpu_torch.ops.kv_quant import byte_view, quantize_kv
 
 
 def write_to_kv_cache(
@@ -31,8 +36,10 @@ def write_to_kv_cache(
     k_pages: torch.Tensor,     # [num_pages, page_size, Hkv * head_dim]
     v_pages: torch.Tensor,
     slot_mapping: torch.Tensor,  # [num_tokens] int32; pad with num_slots
+    kv_scale: float = 1.0,       # int8 quantization scale
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scatter each token's K/V into its cache slot (in place).
+    """Scatter each token's K/V into its cache slot (in place), quantized
+    to the page dtype.
 
     The plain version of `reshape_and_cache`: slots >= num_slots are
     the padding no-op."""
@@ -42,10 +49,9 @@ def write_to_kv_cache(
     slots = slot_mapping.to(torch.int64)
     live = (slots >= 0) & (slots < num_slots)
     idx = slots[live]
-    k_pages.view(num_slots, hd)[idx] = \
-        key.reshape(n, hd)[live].to(k_pages.dtype)
-    v_pages.view(num_slots, hd)[idx] = \
-        value.reshape(n, hd)[live].to(v_pages.dtype)
+    for pages, rows in ((k_pages, key), (v_pages, value)):
+        q = quantize_kv(rows.reshape(n, hd)[live], pages.dtype, kv_scale)
+        byte_view(pages).view(num_slots, -1)[idx] = byte_view(q)
     return k_pages, v_pages
 
 
@@ -66,9 +72,11 @@ def copy_blocks(
     src_ok = (src >= 0) & (src < num_pages)
     dst_ok = (dst >= 0) & (dst < num_pages)
     for pages in (k_pages, v_pages):
-        gathered = pages[src.clamp(0, num_pages - 1)]
-        gathered[~src_ok] = 0
-        pages[dst[dst_ok]] = gathered[dst_ok]
+        raw = byte_view(pages)
+        gathered = raw[src.clamp(0, num_pages - 1)]
+        gathered = torch.where(src_ok.view(-1, 1, 1), gathered,
+                               torch.zeros_like(gathered))
+        raw[dst[dst_ok]] = gathered[dst_ok]
     return k_pages, v_pages
 
 
@@ -85,8 +93,10 @@ def gather_pages(
     num_seqs, pages_per_seq = page_indices.shape
     idx = page_indices.reshape(-1).to(torch.int64)
     ok = (idx >= 0) & (idx < num_pages)
-    gathered = pages[idx.clamp(0, num_pages - 1)]
-    gathered = gathered * ok.view(-1, 1, 1).to(gathered.dtype)
+    raw = byte_view(pages)
+    gathered = raw[idx.clamp(0, num_pages - 1)]
+    gathered = torch.where(ok.view(-1, 1, 1), gathered,
+                           torch.zeros_like(gathered)).view(pages.dtype)
     gathered = gathered.reshape(num_seqs, pages_per_seq * page_size,
                                 num_kv_heads, head_dim)
     return gathered.permute(0, 2, 1, 3)

@@ -12,21 +12,27 @@ Phases, in order; any failure exits non-zero:
    each source's `-Xptxas -v` report on one line.
 3. Kernels vs plain versions at the main path's shapes (Hq 32, Hkv 8,
    head_dim 128, bf16, 16- and 32-token pages):
-   - paged decode attention (K1): batch 1, 8 and 64, ragged contexts up
-     to 2047 tokens, with and without the fused KV write and ALiBi.
-     Tolerance: |kernel - plain| <= 2e-2 + 2e-2 |plain| (bf16 outputs;
-     the kernel keeps softmax weights in f32 where the plain version
-     rounds them to bf16). Pages written by the fused write: exact.
+   - paged decode attention, K1 (the ragged grid, called with the
+     runner's work list) and K5 (the padded (batch, head-block) grid,
+     called without): batch 1, 8 and 64, ragged contexts up to 2047
+     tokens, with and without the fused KV write and ALiBi, AMLA on and
+     off, on bf16 pages; then both on int8 (scale 0.05) and fp8 e5m2
+     pages. Tolerance: |kernel - plain| <= 2e-2 + 2e-2 |plain| (bf16
+     outputs of f32 sums in another order; exp2 differs by an ulp).
+     Pages written by the fused write, quantized codes included: exact.
    - prefill page writer (K2): full pages, tail pages, skipped cells.
      Exact.
-   - slot writer (K3/K4): shared pages, out-of-range slots. Exact.
+   - slot writer (K3/K4): shared pages, out-of-range slots, on bf16,
+     int8 and fp8 pages. Exact.
    Times each kernel (CUDA events, L2 flushed before every launch,
    median), its plain version, one PyTorch library call computing the
-   same function (scaled_dot_product_attention over the gathered KV for
-   K1, index_copy_ for the writers; a yardstick only, the port never
-   calls it) and the bound: the larger of the bytes the function must
-   move over 3.35 TB/s and its operations over 989 TFLOP/s (bf16), from
-   this run's inputs.
+   same function (scaled_dot_product_attention over the gathered KV,
+   dequantized to bf16, for K1 and K5; index_copy_ for the writers; a
+   yardstick only, the port never calls it) and the bound: the larger
+   of the bytes the function must move over 3.35 TB/s (8-bit pages move
+   half the KV bytes) and its operations over 989 TFLOP/s (bf16), from
+   this run's inputs. K1 and K5 are timed on every page type at phase
+   4's decode batch and at batch 64 x 2047.
    A full-width 2-layer model (weights large enough that attention
    matters) is checked end to end against itself run through the plain
    versions: prompt + 3 decode steps, logits within 2e-2 relative.
@@ -37,11 +43,26 @@ Phases, in order; any failure exits non-zero:
    two of 12 tokens arriving one round later), 32 new tokens each, once
    with multi_step=1 and once with multi_step=8. The launch counters are
    reset just before and read just after; K1, K2 and K4 must each have
-   launched in both runs, and every request must finish with 32 tokens
-   in the vocabulary and a finite cumulative logprob. Then 4 decode
-   steps of 8 sequences run under torch.profiler: wall and device
-   kernel time per step, and the kernels that take the most.
-5. GPTQ kernels vs plain versions at the four projection shapes of
+   launched in both runs (K5 not), and every request must finish with
+   32 tokens in the vocabulary and a finite cumulative logprob. Then 4
+   decode steps of 8 sequences run under torch.profiler: wall and
+   device kernel time per step, and the kernels that take the most.
+5. The same engine and mix with APHRODITE_ATTN_RAGGED=0, at multi_step 1
+   and 8: K5 must launch and K1 must not. Each request's tokens are
+   logged beside the ragged run's (no equality required: the kernels
+   sum in other orders).
+6. The same model and mix with kv_cache_dtype "int8", then "fp8", at
+   multi_step 1 and 8: K1 launches on 8-bit pages and the prompts take
+   the quantizing slot writer (K4, not K2). The KV pool's page count is
+   logged beside bf16's, and a batch-8 decode step profiled as in 4.
+7. Sliding window: the published config of mistralai/Mistral-7B-v0.1
+   (MistralForCausalLM, sliding_window 4096, max_position_embeddings
+   32768; the script writes the dict), bf16, dummy weights from seed 0,
+   32-token pages, max_model_len 8192: a 4000-token prompt with 160
+   greedy tokens (decode wraps past the window) beside a 64-token
+   prompt. K2, K3 (the slot writer with distinct pages) and read-only
+   K1 must launch; every request finishes with in-vocabulary tokens.
+8. GPTQ kernels vs plain versions at the four projection shapes of
    Mistral-7B, (K, N) = (4096, 6144) qkv, (4096, 4096) o, (4096, 28672)
    gate_up and (14336, 4096) down, group 128, bf16 activations:
    - K7, the skinny weight-streaming kernel, at m 1, 8 and 64: W4A16,
@@ -60,7 +81,7 @@ Phases, in order; any failure exits non-zero:
    torch.matmul over the weight dequantized to bf16 beforehand (it
    moves 4x the int4 weight's bytes); K8 and K9 have none (PyTorch has
    no int4-by-int8 grouped product and no fused row quantizer).
-6. End to end with GPTQ: the bf16 engine is freed and the same model
+9. End to end with GPTQ: the same model
    is served with quantization="gptq" (4 bits, group 128, dummy
    weights from seed 0), once with APHRODITE_W4A8=1 (the JAX bench's
    default) and once with W4A16: phase 4's request mix at multi_step 1
@@ -74,28 +95,28 @@ Phases, in order; any failure exits non-zero:
    torch.profiler in each arm: wall and device time, and the quantized
    matmuls' device time beside their weight-streaming bound. The GPTQ
    engine is freed.
-7. AWQ kernels vs plain versions at the same four projections, group
+10. AWQ kernels vs plain versions at the same four projections, group
    128, bf16 (the AWQ layout: qweight [K, N/8], 8 interleaved columns per
    word): K7's AWQ layout, a16 and a8 arms, at m 1, 8 and 64; K10 (a16)
    and K11 (a8) at m 512 and 4096. Each check calls the wrapper the
    engine calls (`awq_matmul`, `awq_matmul_a8`) against its plain
-   version, with phase 5's tolerance, and is timed as phase 5 times the
+   version, with phase 8's tolerance, and is timed as phase 8 times the
    GPTQ cases (library yardstick for K10/K7-a16: torch.matmul over the
    weight dequantized to bf16 beforehand; K11 and K7-a8 have none).
-8. End to end with AWQ: the same model served with the
+11. End to end with AWQ: the same model served with the
    quantization_config of TheBloke/Mistral-7B-v0.1-AWQ (4 bits, group
    128, zero point, GEMM version; dummy weights from seed 0), W4A8
    (APHRODITE_W4A8=1) then W4A16: phase 4's request mix at multi_step 1,
    then the 96-request round. The W4A8 arm must launch K9 with K11 and
    K7's AWQ a8 arm, the W4A16 arm K10 and K7's AWQ layout, both K1, K2
-   and K4. A batch-8 decode step is profiled in each arm as in phase 6.
-9. Seeded draws on the card: JAX's threefry keys, bits and uniforms
+   and K4. A batch-8 decode step is profiled in each arm as in phase 9.
+12. Seeded draws on the card: JAX's threefry keys, bits and uniforms
    (`modeling/layers/prng.py`) for 64 rows x vocab 32000 bit-equal to
    the same calls on the CPU, and the tokens drawn equal; one seeded
    request (temperature 0.8) served alone and in a batch of 8 gives the
    same tokens.
-10. Prints the kernel JSON line (launches summed over the bf16, GPTQ and
-   AWQ paths), the card line, and last {"ok": true, "device": {...}}.
+13. Prints the kernel JSON line (launches summed over every path
+   above), the card line, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -113,6 +134,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8
 ATOL = RTOL = 2e-2
+KV_SCALE = 0.05                    # int8 KV scale (the default)
 
 MISTRAL_7B = {
     "architectures": ["LlamaForCausalLM"], "model_type": "llama",
@@ -122,6 +144,21 @@ MISTRAL_7B = {
     "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
     "tie_word_embeddings": False, "torch_dtype": "bfloat16",
     "bos_token_id": 1, "eos_token_id": 2,
+}
+
+
+# The published config.json of mistralai/Mistral-7B-v0.1 (Hugging Face
+# hub): MISTRAL_7B's widths, with the 4096-token sliding window.
+MISTRAL_7B_V01 = {
+    "architectures": ["MistralForCausalLM"], "bos_token_id": 1,
+    "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 32768, "model_type": "mistral",
+    "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "rms_norm_eps": 1e-05, "rope_theta": 10000.0,
+    "sliding_window": 4096, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "transformers_version": "4.34.0.dev0",
+    "use_cache": True, "vocab_size": 32000,
 }
 
 
@@ -172,7 +209,10 @@ def bound(nbytes: float, flops: float, ops_per_s: float = BF16_FLOPS_PER_S):
 # -------------------------------------------------- K1 problem builder --
 
 def decode_problem(torch, ctxs, page_size, pages_per_seq, seed,
-                   alibi=False, fused=False):
+                   alibi=False, fused=False, page_dtype=None):
+    """Random decode inputs; pages in bf16, or quantized to int8 (scale
+    KV_SCALE) or fp8 e5m2 from the same bf16 values."""
+    from aphrodite_tpu_torch.ops.kv_quant import quantize_kv
     gen = torch.Generator(device="cuda").manual_seed(seed)
     batch = len(ctxs)
     num_pages = batch * pages_per_seq + 1
@@ -182,8 +222,10 @@ def decode_problem(torch, ctxs, page_size, pages_per_seq, seed,
         return torch.randn(*shape, generator=gen, device="cuda").to(
             torch.bfloat16)
     q = randn(batch, HQ, HEAD_DIM)
-    kp = randn(num_pages, page_size, hd)
-    vp = randn(num_pages, page_size, hd)
+    kp = quantize_kv(randn(num_pages, page_size, hd),
+                     page_dtype or torch.bfloat16, KV_SCALE)
+    vp = quantize_kv(randn(num_pages, page_size, hd),
+                     page_dtype or torch.bfloat16, KV_SCALE)
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     tables = perm[:batch * pages_per_seq].view(batch, pages_per_seq).to(
         torch.int32).contiguous()
@@ -196,10 +238,23 @@ def decode_problem(torch, ctxs, page_size, pages_per_seq, seed,
     return q, kp, vp, tables, ctx, slopes, knew, vnew
 
 
-def check_decode_attention(torch, pa):
-    """K1 vs plain across the main path's shapes."""
+def _pages_equal(torch, a, b):
+    view = (lambda t: t.view(torch.uint8)) if a.element_size() == 1 \
+        else (lambda t: t)
+    return torch.equal(view(a), view(b))
+
+
+def check_decode_attention(torch, pa, ragged: bool, page_dtype,
+                           amlas=(True, False), alibis=(False, True)):
+    """K1 (`ragged`: with a work list) or K5 (without) vs the plain
+    version across the main path's shapes, on bf16, int8 or fp8 pages.
+    Returns the largest error."""
     import random
+    from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
     rng = random.Random(0)
+    name = "K1" if ragged else "K5"
+    kind = str(page_dtype).replace("torch.", "")
+    kv_scale = dequant_scale(page_dtype, KV_SCALE)
     worst = 0.0
     cases = 0
     for page_size in (16, 32):
@@ -210,58 +265,77 @@ def check_decode_attention(torch, pa):
                     else rng.randint(1, 2047) for i in range(batch)]
             if batch == 1:
                 ctxs = [2047]
+            ppc = pa.choose_pages_per_chunk(pps, page_size, batch)
+            work = pa.build_decode_work_list(
+                [-(-c // page_size) for c in ctxs], ppc) if ragged else None
             for fused in (False, True):
-                for alibi in (False, True):
-                    q, kp, vp, tb, ctx, sl, kn, vn = decode_problem(
-                        torch, ctxs, page_size, pps, seed=cases,
-                        alibi=alibi, fused=fused)
-                    kp2, vp2 = kp.clone(), vp.clone()
-                    got = pa.paged_decode_attention(
-                        q, kp, vp, tb, ctx, sl, kn, vn,
-                        scale=HEAD_DIM ** -0.5)
-                    want = pa.paged_decode_attention_plain(
-                        q, kp2, vp2, tb, ctx, sl, kn, vn,
-                        scale=HEAD_DIM ** -0.5,
-                        pages_per_chunk=pa.choose_pages_per_chunk(
-                            pps, page_size, batch))
-                    torch.cuda.synchronize()
-                    if fused:
-                        got, want = got[0], want[0]
-                        if not (torch.equal(kp, kp2) and
-                                torch.equal(vp, vp2)):
-                            fail(f"K1 fused write differs (page "
-                                 f"{page_size}, batch {batch})")
-                    err = (got.float() - want.float()).abs()
-                    lim = ATOL + RTOL * want.float().abs()
-                    if not torch.isfinite(got.float()).all() or \
-                            bool((err > lim).any()):
-                        fail(f"K1 page {page_size} batch {batch} fused "
-                             f"{fused} alibi {alibi}: max err "
-                             f"{err.max().item()}")
-                    worst = max(worst, err.max().item())
-                    cases += 1
-    log(f"K1 paged_decode_attention vs plain: {cases} cases, max abs err "
-        f"{worst} (tolerance {ATOL} + {RTOL}|plain|); fused-write pages "
-        "exact")
+                for alibi in alibis:
+                    for amla in amlas:
+                        q, kp, vp, tb, ctx, sl, kn, vn = decode_problem(
+                            torch, ctxs, page_size, pps, seed=cases,
+                            alibi=alibi, fused=fused,
+                            page_dtype=page_dtype)
+                        kp2, vp2 = kp.clone(), vp.clone()
+                        kw = dict(scale=HEAD_DIM ** -0.5, kv_scale=kv_scale,
+                                  pages_per_chunk=ppc, amla=amla)
+                        got = pa.paged_decode_attention(
+                            q, kp, vp, tb, ctx, sl, kn, vn,
+                            work_items=work, **kw)
+                        want = pa.paged_decode_attention_plain(
+                            q, kp2, vp2, tb, ctx, sl, kn, vn, **kw)
+                        torch.cuda.synchronize()
+                        what = (f"{name} {kind} page {page_size} batch "
+                                f"{batch} fused {fused} alibi {alibi} "
+                                f"amla {amla}")
+                        if fused:
+                            got, want = got[0], want[0]
+                            if not (_pages_equal(torch, kp, kp2) and
+                                    _pages_equal(torch, vp, vp2)):
+                                fail(f"{what}: fused write differs")
+                        err = (got.float() - want.float()).abs()
+                        lim = ATOL + RTOL * want.float().abs()
+                        if not torch.isfinite(got.float()).all() or \
+                                bool((err > lim).any()):
+                            fail(f"{what}: max err {err.max().item()}")
+                        worst = max(worst, err.max().item())
+                        cases += 1
+    log(f"{name} paged_decode_attention{'' if ragged else '_tm'} on "
+        f"{kind} pages vs plain: {cases} cases, max abs err {worst} "
+        f"(tolerance {ATOL} + {RTOL}|plain|); fused-write pages exact")
     return worst
 
 
-def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused):
+def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
+                          ragged=True, page_dtype=None):
+    """Kernel, plain and library times and the bound of K1 (`ragged`) or
+    K5 at one decode shape, chunked as the engine chunks it."""
     import torch.nn.functional as F
+    from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
+    page_dtype = page_dtype or torch.bfloat16
     q, kp, vp, tb, ctx, sl, kn, vn = decode_problem(
-        torch, ctxs, page_size, pps, seed=99, fused=fused)
-    scale = HEAD_DIM ** -0.5
+        torch, ctxs, page_size, pps, seed=99, fused=fused,
+        page_dtype=page_dtype)
+    batch = len(ctxs)
+    ppc = pa.choose_pages_per_chunk(pps, page_size, batch)
+    work = pa.build_decode_work_list(
+        [-(-c // page_size) for c in ctxs], ppc) if ragged else None
+    kw = dict(scale=HEAD_DIM ** -0.5,
+              kv_scale=dequant_scale(page_dtype, KV_SCALE),
+              pages_per_chunk=ppc)
     ms = timer(lambda: pa.paged_decode_attention(
-        q, kp, vp, tb, ctx, sl, kn, vn, scale=scale))
-    ppc = pa.choose_pages_per_chunk(pps, page_size, len(ctxs))
+        q, kp, vp, tb, ctx, sl, kn, vn, work_items=work, **kw))
     plain_ms = timer(lambda: pa.paged_decode_attention_plain(
-        q, kp, vp, tb, ctx, sl, kn, vn, scale=scale, pages_per_chunk=ppc))
+        q, kp, vp, tb, ctx, sl, kn, vn, **kw))
     # Library yardstick: SDPA over each sequence's KV gathered to the
-    # batch-max context (gather and head expansion outside the timing).
-    batch, lmax = len(ctxs), max(ctxs)
+    # batch-max context and dequantized to bf16 (gather, dequant and
+    # head expansion outside the timing).
+    lmax = max(ctxs)
     idx = tb.long()
-    kg = kp[idx].view(batch, pps * page_size, HKV, HEAD_DIM)[:, :lmax]
-    vg = vp[idx].view(batch, pps * page_size, HKV, HEAD_DIM)[:, :lmax]
+    deq = kw["kv_scale"]
+    kg = (kp[idx].to(torch.bfloat16) * deq).view(
+        batch, pps * page_size, HKV, HEAD_DIM)[:, :lmax]
+    vg = (vp[idx].to(torch.bfloat16) * deq).view(
+        batch, pps * page_size, HKV, HEAD_DIM)[:, :lmax]
     group = HQ // HKV
     kx = kg.permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous()
     vx = vg.permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous()
@@ -269,13 +343,15 @@ def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused):
             ctx.long()[:, None]).view(batch, 1, 1, lmax)
     q4 = q.view(batch, HQ, 1, HEAD_DIM)
     library_ms = timer(lambda: F.scaled_dot_product_attention(
-        q4, kx, vx, attn_mask=mask, scale=scale))
+        q4, kx, vx, attn_mask=mask, scale=HEAD_DIM ** -0.5))
+    del kg, vg, kx, vx
+    elt = kp.element_size()
     total_ctx = sum(ctxs)
-    nbytes = (total_ctx * HKV * HEAD_DIM * 2 * 2       # K and V read
+    nbytes = (total_ctx * HKV * HEAD_DIM * 2 * elt     # K and V read
               + 2 * batch * HQ * HEAD_DIM * 2          # q in, out
               + batch * pps * 4 + batch * 4)           # tables, ctx
     if fused:
-        nbytes += 2 * batch * HKV * HEAD_DIM * 2 * 2   # knew/vnew in+out
+        nbytes += 2 * batch * HKV * HEAD_DIM * (2 + elt)  # knew/vnew in+out
     flops = 4 * HQ * HEAD_DIM * total_ctx
     b_ms, b_by = bound(nbytes, flops)
     return ms, plain_ms, library_ms, b_ms, b_by
@@ -355,16 +431,23 @@ def check_and_time_writers(torch, kw, timer):
                             device="cuda")[:toks].to(torch.int32)
     slots4[::5] = 64 * page_size          # padding lanes
     kn, vn = randn(toks, hd), randn(toks, hd)
-    for distinct in (False, True):
-        a = kw.write_kv_pages(kn, vn, kp2.clone(), vp2.clone(), slots4,
-                              distinct_pages=distinct)
-        b = kw.write_kv_pages_plain(kn, vn, kp2.clone(), vp2.clone(),
-                                    slots4)
-        torch.cuda.synchronize()
-        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
-            fail("K3/K4 write_kv_pages differs from its plain version")
+    from aphrodite_tpu_torch.ops.kv_quant import quantize_kv
+    for page_dtype in (torch.bfloat16, torch.int8, torch.float8_e5m2):
+        kq = quantize_kv(kp2, page_dtype, KV_SCALE)
+        vq = quantize_kv(vp2, page_dtype, KV_SCALE)
+        for distinct in (False, True):
+            a = kw.write_kv_pages(kn, vn, kq.clone(), vq.clone(), slots4,
+                                  distinct_pages=distinct,
+                                  kv_scale=KV_SCALE)
+            b = kw.write_kv_pages_plain(kn, vn, kq.clone(), vq.clone(),
+                                        slots4, KV_SCALE)
+            torch.cuda.synchronize()
+            if not (_pages_equal(torch, a[0], b[0]) and
+                    _pages_equal(torch, a[1], b[1])):
+                fail(f"K3/K4 write_kv_pages on {page_dtype} pages differs "
+                     "from its plain version")
     log("K3/K4 write_kv_pages vs plain: exact (shared pages, "
-        "out-of-range slots)")
+        "out-of-range slots; bf16, int8 and fp8 pages)")
     # Timed at phase 4's unaligned round: two 12-token prompts padded to
     # 16 rows each (24 live slots of 32).
     t_slots = torch.full((32,), num_pages * page_size, dtype=torch.int32,
@@ -382,7 +465,21 @@ def check_and_time_writers(torch, kw, timer):
         library_ms=timer(lambda: (k_flat.index_copy_(0, idx4, sk),
                                   v_flat.index_copy_(0, idx4, sv))))
     k4["bound_ms"], k4["bound_by"] = bound(2 * 2 * 24 * hd * 2 + 32 * 4, 0)
-    return k2, k4
+    # K3 (distinct pages) timed at the sliding-window run's decode step:
+    # 2 sequences, one row each into its own page.
+    d_slots = torch.tensor([7 * page_size + 3, 11 * page_size + 30],
+                           dtype=torch.int32, device="cuda")
+    dk, dv = randn(2, hd), randn(2, hd)
+    idx3 = d_slots.long()
+    k3 = dict(
+        ms=timer(lambda: kw.write_kv_pages(dk, dv, kp, vp, d_slots,
+                                           distinct_pages=True)),
+        plain_ms=timer(lambda: kw.write_kv_pages_plain(dk, dv, kp, vp,
+                                                       d_slots)),
+        library_ms=timer(lambda: (k_flat.index_copy_(0, idx3, dk),
+                                  v_flat.index_copy_(0, idx3, dv))))
+    k3["bound_ms"], k3["bound_by"] = bound(2 * 2 * 2 * hd * 2 + 2 * 4, 0)
+    return k2, k3, k4
 
 
 # ------------------------------------------ full-width model check --
@@ -753,7 +850,11 @@ def check_outputs(outputs, n: int, what: str) -> None:
 
 
 def run_engine(torch, engine, multi_step: int, counters, card: str,
-               required=BF16_KERNELS, tag: str = ""):
+               required=BF16_KERNELS, tag: str = "", absent=(),
+               tokens=None):
+    """Phase 4's request mix; fails if a kernel of `required` did not
+    launch or one of `absent` did. Fills `tokens` (request id without
+    the tag -> token ids) when given."""
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
     engine.scheduler_config.multi_step = multi_step
     sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
@@ -791,6 +892,13 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
         if launches.get(name, 0) <= 0:
             fail(f"{tag}multi_step={multi_step}: kernel {name} never "
                  f"launched on the main path ({launches})")
+    for name in absent:
+        if launches.get(name, 0):
+            fail(f"{tag}multi_step={multi_step}: kernel {name} launched "
+                 f"{launches[name]} times where it must not ({launches})")
+    if tokens is not None:
+        for rid, out in outputs.items():
+            tokens[rid[len(tag):]] = list(out.outputs[0].token_ids)
     new_tokens = 8 * 32
     log(f"e2e {tag}multi_step={multi_step}: 8 requests x 32 tokens, "
         f"{steps} engine steps, {dt:.3f} s, {new_tokens / dt:.1f} generated "
@@ -836,6 +944,86 @@ def run_wide_round(torch, engine, counters, card: str, required, decode,
     log(f"e2e {tag}96 requests x 32 tokens (32-token prompts): {steps} "
         f"engine steps, {dt:.3f} s, {96 * 32 / dt:.1f} generated tok/s on "
         f"{card}, launches {launches}")
+    return launches
+
+
+def log_clocks(label: str) -> None:
+    """The card's SM clock, power draw and temperature now (a throttled
+    card runs every kernel slower)."""
+    state = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60, check=True).stdout.strip()
+    log(f"card state {label}: {state} (SM clock, max SM clock, power "
+        "draw, temperature)")
+
+
+def free_engine(torch, label: str) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{label} engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB still allocated")
+
+
+def run_sliding_window(torch, counters, card: str):
+    """The published Mistral-7B-v0.1 config (4096-token window), bf16,
+    dummy weights from seed 0, 32-token pages, max_model_len 8192: a
+    4000-token prompt decoded 160 greedy tokens (past the window, so the
+    block table wraps and decode writes reuse the window's pages) beside
+    a 64-token prompt. Decode takes the slot writer with distinct pages
+    (K3) and a read-only K1; the window has no decode bursts."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    model_dir = os.path.join(HERE, "build", "chip_smoke_mistral_v01")
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(MISTRAL_7B_V01, f)
+    t0 = time.perf_counter()
+    engine = AphroditeEngine.from_engine_args(EngineArgs(
+        model=model_dir, load_format="dummy", dtype="bfloat16", seed=0,
+        block_size=32, max_model_len=8192, skip_tokenizer_init=True,
+        disable_log_stats=True))
+    window = engine.model_config.get_sliding_window()
+    if window != 4096:
+        fail(f"Mistral-7B-v0.1 served with sliding window {window}")
+    log(f"sliding-window engine up in {time.perf_counter() - t0:.1f} s: "
+        f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens, "
+        f"window {window}")
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lens = {"long": (4000, 160), "short": (64, 160)}
+    for rid, (n, new) in lens.items():
+        engine.add_request(rid, None, SamplingParams(
+            temperature=0.0, max_tokens=new, ignore_eos=True),
+            prompt_token_ids=[(i * 131 + n) % 31000 + 100 for i in range(n)])
+    outputs, steps = {}, 0
+    while engine.has_unfinished_requests():
+        for out in engine.step():
+            if out.finished:
+                outputs[out.request_id] = out
+        steps += 1
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    for rid, (n, new) in lens.items():
+        toks = outputs[rid].outputs[0].token_ids if rid in outputs else []
+        if len(toks) != new or not all(0 <= t < 32000 for t in toks):
+            fail(f"sliding window {rid}: bad tokens {toks}")
+    for name in ("write_kv_pages_decode", "paged_decode_attention",
+                 "write_kv_pages_prefill"):
+        if launches.get(name, 0) <= 0:
+            fail(f"sliding window: kernel {name} never launched "
+                 f"({launches})")
+    log(f"e2e sliding window (prompts 4000 and 64, 160 tokens each, the "
+        f"long one to position 4160 past the 4096 window): {steps} engine "
+        f"steps, {dt:.3f} s, {320 / dt:.1f} generated tok/s on {card}, "
+        f"launches {launches}; last tokens of the long request "
+        f"{list(outputs['long'].outputs[0].token_ids[-8:])}")
+    del engine
+    free_engine(torch, "sliding-window")
     return launches
 
 
@@ -909,12 +1097,12 @@ def main() -> int:
         return 1
 
     # 1. Card.
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(f"device: {kind} (count {torch.cuda.device_count()}); "
+    log(f"device: {device_kind} (count {torch.cuda.device_count()}); "
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -932,22 +1120,44 @@ def main() -> int:
         log(f"ptxas {name}: " + " | ".join(lines))
 
     # 3. Kernels vs plain versions, and times.
+    log_clocks("before the kernel checks")
     from aphrodite_tpu_torch.ops.cuda import kv_write as kw
     from aphrodite_tpu_torch.ops.cuda import paged_attention as pa
     timer = Timer(torch)
-    k1_err = check_decode_attention(torch, pa)
-    k2, k4 = check_and_time_writers(torch, kw, timer)
-    # K1 timed at phase 4's decode batch: 8 sequences about 16 tokens
-    # into their 32 new tokens, 32-token pages, fused write.
+    i8, f8 = torch.int8, torch.float8_e5m2
+    k1_err = check_decode_attention(torch, pa, True, torch.bfloat16)
+    k5_err = check_decode_attention(torch, pa, False, torch.bfloat16)
+    for ragged in (True, False):
+        for page_dtype in (i8, f8):
+            err = check_decode_attention(torch, pa, ragged, page_dtype,
+                                         amlas=(True,), alibis=(False,))
+            if ragged:
+                k1_err = max(k1_err, err)
+            else:
+                k5_err = max(k5_err, err)
+    k2, k3, k4 = check_and_time_writers(torch, kw, timer)
+    # K1 and K5 timed at phase 4's decode batch: 8 sequences about 16
+    # tokens into their 32 new tokens, 32-token pages, fused write; and
+    # at batch 64 x 2047.
     e2e_ctx = [1016, 316, 80, 1016, 316, 80, 28, 28]
-    k1 = dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
-                  time_decode_attention(torch, pa, timer, e2e_ctx, 32, 36,
-                                        fused=True)))
-    big = time_decode_attention(torch, pa, timer, [2047] * 64, 32, 64,
-                                fused=True)
-    log(f"K1 at batch 64 x ctx 2047 (page 32, fused): kernel {big[0]} ms, "
-        f"plain {big[1]} ms, sdpa {big[2]} ms, bound {big[3]} ms "
-        f"({big[4]})")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    attn = {}
+    for name, ragged in (("K1", True), ("K5", False)):
+        for page_dtype in (torch.bfloat16, i8, f8):
+            page_kind = str(page_dtype).replace("torch.", "")
+            for shape, ctxs, pps in (("B 8", e2e_ctx, 36),
+                                     ("B 64 x 2047", [2047] * 64, 64)):
+                t = dict(zip(keys, time_decode_attention(
+                    torch, pa, timer, ctxs, 32, pps, fused=True,
+                    ragged=ragged, page_dtype=page_dtype)))
+                attn[(name, page_kind, shape)] = t
+                log(f"{name} {page_kind} pages at {shape} (page 32, fused): "
+                    f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                    f"ms, sdpa over the dequantized KV "
+                    f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} "
+                    f"ms ({t['bound_by']})")
+    k1 = attn[("K1", "bfloat16", "B 8")]
+    k5 = attn[("K5", "bfloat16", "B 8")]
     check_model_against_plain(torch)
 
     # 4. End to end at Mistral-7B width and depth.
@@ -964,27 +1174,79 @@ def main() -> int:
         disable_log_stats=True))
     log(f"engine up in {time.perf_counter() - t0:.1f} s: "
         f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens")
+    bf16_pages = engine.cache_config.num_gpu_blocks
     counters = build.COUNTERS
     torch.cuda.reset_peak_memory_stats()
-    by_path = {"bf16": {}, "GPTQ W4A8": {}, "GPTQ W4A16": {}}
+    by_path = {"bf16": {}, "bf16 padded grid": {}, "int8 KV": {},
+               "fp8 KV": {}, "sliding window": {}, "GPTQ W4A8": {},
+               "GPTQ W4A16": {}}
+
+    def add(path, launches):
+        for name, n in launches.items():
+            by_path[path][name] = by_path[path].get(name, 0) + n
+    ragged_tokens = {}
     for ms in (1, 8):
-        for name, n in run_engine(torch, engine, ms, counters,
-                                  smi).items():
-            by_path["bf16"][name] = by_path["bf16"].get(name, 0) + n
+        add("bf16", run_engine(torch, engine, ms, counters, smi,
+                               absent=("paged_decode_attention_tm",),
+                               tokens=ragged_tokens))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"e2e peak memory {peak:.2f} GiB on {smi}")
     profile_decode(torch, engine)
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"bf16 engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
-        "GiB still allocated")
 
-    # 5. GPTQ kernels vs plain versions, and times.
+    # 5. The same engine on the padded-grid kernel (K5).
+    os.environ["APHRODITE_ATTN_RAGGED"] = "0"
+    padded_tokens = {}
+    for ms in (1, 8):
+        add("bf16 padded grid", run_engine(
+            torch, engine, ms, counters, smi, tag="padded ",
+            required=("paged_decode_attention_tm", "write_kv_pages_prefill",
+                      "write_kv_pages"),
+            absent=("paged_decode_attention",), tokens=padded_tokens))
+    os.environ.pop("APHRODITE_ATTN_RAGGED")
+    same = sum(padded_tokens[k] == v for k, v in ragged_tokens.items())
+    log(f"APHRODITE_ATTN_RAGGED=0 (K5) vs the ragged grid (K1): {same} of "
+        f"{len(ragged_tokens)} requests' 32 tokens equal (no equality "
+        "required: the two kernels sum in other orders)")
+    for rid in sorted(ragged_tokens):
+        if padded_tokens[rid] != ragged_tokens[rid]:
+            log(f"  {rid}: K1 {ragged_tokens[rid]} / K5 {padded_tokens[rid]}")
+    del engine
+    free_engine(torch, "bf16")
+
+    # 6. int8 and fp8 KV pages.
+    for kv_dtype, page_dtype in (("int8", torch.int8),
+                                 ("fp8", torch.float8_e5m2)):
+        path = f"{kv_dtype} KV"
+        t0 = time.perf_counter()
+        engine = AphroditeEngine.from_engine_args(EngineArgs(
+            model=model_dir, load_format="dummy", dtype="bfloat16", seed=0,
+            block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+            disable_log_stats=True, kv_cache_dtype=kv_dtype))
+        if engine.executor.cache_engine.dtype != page_dtype:
+            fail(f"{path}: pages are {engine.executor.cache_engine.dtype}")
+        log(f"{path} engine up in {time.perf_counter() - t0:.1f} s: "
+            f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens "
+            f"({page_dtype}; bf16 had {bf16_pages}), kv_scale "
+            f"{engine.executor.cache_engine.kv_scale}")
+        for ms in (1, 8):
+            # 8-bit prompts take the quantizing slot scatter (K4), not K2.
+            add(path, run_engine(
+                torch, engine, ms, counters, smi, tag=f"{path} ",
+                required=("paged_decode_attention", "write_kv_pages"),
+                absent=("write_kv_pages_prefill",)))
+        profile_decode(torch, engine, f"{path} ")
+        del engine
+        free_engine(torch, path)
+
+    # 7. Sliding window: the published Mistral-7B-v0.1 config.
+    add("sliding window", run_sliding_window(torch, counters, smi))
+
+    # 8. GPTQ kernels vs plain versions, and times.
+    log_clocks("before the GPTQ kernel phase")
     from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
     gptq = check_and_time_quant(torch, qmm, timer, awq=False)
 
-    # 6. End to end with GPTQ, W4A8 then W4A16.
+    # 9. End to end with GPTQ, W4A8 then W4A16.
     gptq_dir = os.path.join(HERE, "build", "chip_smoke_gptq_model")
     os.makedirs(gptq_dir, exist_ok=True)
     with open(os.path.join(gptq_dir, "config.json"), "w") as f:
@@ -1028,15 +1290,12 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"GPTQ e2e peak memory {peak:.2f} GiB on {smi}")
     del engine
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"GPTQ engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
-        "GiB still allocated")
+    free_engine(torch, "GPTQ")
 
-    # 7. AWQ kernels vs plain versions, and times.
+    # 10. AWQ kernels vs plain versions, and times.
     awq = check_and_time_quant(torch, qmm, timer, awq=True)
 
-    # 8. End to end with AWQ (TheBloke/Mistral-7B-v0.1-AWQ's
+    # 11. End to end with AWQ (TheBloke/Mistral-7B-v0.1-AWQ's
     # quant_config), W4A8 then W4A16.
     awq_dir = os.path.join(HERE, "build", "chip_smoke_awq_model")
     os.makedirs(awq_dir, exist_ok=True)
@@ -1076,7 +1335,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"AWQ e2e peak memory {peak:.2f} GiB on {smi}")
 
-    # 9. Seeded draws on the card (the AWQ engine, W4A16).
+    # 12. Seeded draws on the card (the AWQ engine, W4A16).
     check_seeded_draws(torch, engine, timer)
     os.environ.pop("APHRODITE_W4A8")
     launches = {}
@@ -1094,6 +1353,11 @@ def main() -> int:
              replaces="aphrodite_tpu/ops/pallas/paged_attention.py:565",
              launches=launches["paged_decode_attention"],
              max_abs_err=k1_err, **k1),
+        dict(name="paged_decode_attention_tm", route="cuda",
+             source="aphrodite_tpu_torch/csrc/paged_attention.cu",
+             replaces="aphrodite_tpu/ops/pallas/paged_attention.py:252",
+             launches=launches["paged_decode_attention_tm"],
+             max_abs_err=k5_err, **k5),
         dict(name="write_kv_pages_prefill", route="cuda",
              source="aphrodite_tpu_torch/csrc/kv_write.cu",
              replaces="aphrodite_tpu/ops/pallas/kv_write.py:179",
@@ -1103,6 +1367,11 @@ def main() -> int:
              source="aphrodite_tpu_torch/csrc/kv_write.cu",
              replaces="aphrodite_tpu/ops/pallas/kv_write.py:38",
              launches=launches["write_kv_pages"], max_abs_err=0.0, **k4),
+        dict(name="write_kv_pages_decode", route="cuda",
+             source="aphrodite_tpu_torch/csrc/kv_write.cu",
+             replaces="aphrodite_tpu/ops/pallas/kv_write.py:90",
+             launches=launches["write_kv_pages_decode"], max_abs_err=0.0,
+             **k3),
         dict(name="gptq_matmul", route="cuda", source=quant_src,
              replaces=f"{pallas_qmm}:554", launches=launches["gptq_matmul"],
              **gptq["k6"]),
@@ -1138,7 +1407,7 @@ def main() -> int:
                                   for e in entries]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

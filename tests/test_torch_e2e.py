@@ -18,6 +18,14 @@ and run with speculative decoding off.
   tie may flip).
 - Seeded random sampling gives the JAX engine's tokens (the port draws
   JAX's threefry bits, `modeling/layers/prng.py`).
+- int8 and fp8 KV pages: greedy tokens under the same gap rule, against
+  the JAX engine with the same `kv_cache_dtype` (see
+  `test_greedy_generation_on_8bit_kv_matches_jax` for the tolerance);
+  APHRODITE_ATTN_RAGGED=0 (the padded-grid kernel): the same tokens.
+- A sliding-window Mistral (window 24, 8-token pages; the checkpoint of
+  tests/engine/test_sliding_window_e2e.py) generates 40 tokens past the
+  window beside a prompt longer than the window: token for token the
+  JAX engine's.
 """
 import jax
 import numpy as np
@@ -78,12 +86,11 @@ ENGINE_KW = dict(load_format="dummy", dtype="float32", block_size=32,
                  multi_step=4)
 
 
-@pytest.fixture(scope="module")
-def engines(tiny_model_dir):
-    mp = pytest.MonkeyPatch()
-    mp.setenv("APHRODITE_SPEC", "0")
-    jcfg = JaxEngineArgs(model=tiny_model_dir,
-                         **ENGINE_KW).create_engine_configs()
+def _engine_pair(model_dir, **kw):
+    """The JAX engine and the port's on the tiny model, the port given
+    the JAX engine's scaled dummy weights."""
+    jcfg = JaxEngineArgs(model=model_dir,
+                         **ENGINE_KW, **kw).create_engine_configs()
     jcfg[1].num_gpu_blocks = NUM_BLOCKS
     jax_engine = JaxEngine(*jcfg)
     scaled = jax.tree_util.tree_map(lambda a: a * WEIGHT_SCALE,
@@ -91,8 +98,8 @@ def engines(tiny_model_dir):
     jax_engine.executor.params = scaled
     jax_engine.executor.model_runner.params = scaled
 
-    tcfg = EngineArgs(model=tiny_model_dir, device="cpu",
-                      **ENGINE_KW).create_engine_configs()
+    tcfg = EngineArgs(model=model_dir, device="cpu",
+                      **ENGINE_KW, **kw).create_engine_configs()
     tcfg[1].num_gpu_blocks = NUM_BLOCKS
     port = AphroditeEngine(*tcfg)
     host = jax.tree_util.tree_map(np.asarray, scaled)
@@ -100,7 +107,22 @@ def engines(tiny_model_dir):
                        torch.float32)
     port.executor.params = params
     port.executor.model_runner.params = params
-    yield jax_engine, port
+    return jax_engine, port
+
+
+@pytest.fixture(scope="module")
+def engines(tiny_model_dir):
+    mp = pytest.MonkeyPatch()
+    mp.setenv("APHRODITE_SPEC", "0")
+    yield _engine_pair(tiny_model_dir)
+    mp.undo()
+
+
+@pytest.fixture(scope="module", params=["int8", "fp8"])
+def quant_engines(request, tiny_model_dir):
+    mp = pytest.MonkeyPatch()
+    mp.setenv("APHRODITE_SPEC", "0")
+    yield _engine_pair(tiny_model_dir, kv_cache_dtype=request.param)
     mp.undo()
 
 
@@ -158,16 +180,129 @@ def test_greedy_generation_matches_jax(engines, multi_step, monkeypatch):
     # The port's own top-2 gaps (logprobs=2 routes prompts through the
     # raw-logits path; the tokens must not change).
     scored = _run(port, multi_step, PROMPTS, logprobs=2)
+    assert _gap_compare(want, got, scored) >= 24
+
+
+def _gap_compare(want, got, scored, gap_tol=GAP_TOL):
+    """Tokens equal while the port's top-2 logprob gap exceeds gap_tol;
+    returns how many were compared."""
     compared = 0
     for w, g, s in zip(want, got, scored):
         assert list(s.token_ids) == list(g)
         for pos, (wt, gt) in enumerate(zip(w, g)):
             top = sorted(s.logprobs[pos].values(), reverse=True)
-            if top[0] - top[1] <= GAP_TOL:
+            if top[0] - top[1] <= gap_tol:
                 break                      # near tie: may flip from here
             assert wt == gt, (pos, w, g)
             compared += 1
-    assert compared >= 24
+    return compared
+
+
+# 8-bit pages: the JAX engine's CPU route attends in f32 (the jnp
+# reference) where the port's plain kernel, like both Pallas bodies,
+# rounds the scaled query and the softmax weights to bf16. A decode
+# step's logits then differ by up to 4.1e-6 (int8) and 3.1e-6 (fp8) on
+# this model, held to 2e-5. Over a generation the difference can also
+# move a later K or V value across an int8 rounding boundary (one code,
+# 0.05), which flipped a token at a top-2 gap of 1.04e-4: tokens are
+# compared while the gap exceeds 5e-4.
+GAP_TOL_8BIT = 5e-4
+LOGIT_TOL_8BIT = 2e-5
+
+
+def test_greedy_generation_on_8bit_kv_matches_jax(quant_engines,
+                                                  monkeypatch):
+    """int8 (scale 0.05) and fp8 e5m2 pages through prompt rounds,
+    chunked prefill over a cached prefix (the gather dequantizes) and
+    decode bursts, against the JAX engine with the same cache dtype."""
+    from aphrodite_tpu_torch.modeling.layers import attention
+    jax_engine, port = quant_engines
+    dtype = port.executor.cache_engine.kv_caches[0][0].dtype
+    assert dtype in (torch.int8, torch.float8_e5m2)
+    want = [o.token_ids for o in _run(jax_engine, 4, PROMPTS)]
+    calls = {}
+    for name in ("write_kv_pages_prefill", "write_kv_pages",
+                 "paged_decode_attention"):
+        _spy(monkeypatch, attention, name, calls)
+    scored = _run(port, 4, PROMPTS, logprobs=2)
+    # 8-bit prompts take the quantizing slot scatter, never K2.
+    assert calls.get("write_kv_pages", 0) > 0 and \
+        calls.get("paged_decode_attention", 0) > 0
+    assert "write_kv_pages_prefill" not in calls
+    got = [s.token_ids for s in scored]
+    assert _gap_compare(want, got, scored, GAP_TOL_8BIT) >= 12
+
+
+def test_8bit_kv_logits_match_jax(quant_engines):
+    """Prefill and two decode steps on 8-bit pages: logits within
+    LOGIT_TOL_8BIT of the JAX engine's (see above)."""
+    _logits_match(quant_engines, LOGIT_TOL_8BIT)
+
+
+def test_padded_grid_flag_gives_the_same_tokens(engines, monkeypatch):
+    """APHRODITE_ATTN_RAGGED=0 routes decode to the padded-grid kernel
+    (K5): the same greedy tokens as the JAX engine."""
+    jax_engine, port = engines
+    monkeypatch.setenv("APHRODITE_ATTN_RAGGED", "0")
+    want = [o.token_ids for o in _run(jax_engine, 1, PROMPTS)]
+    got = [o.token_ids for o in _run(port, 1, PROMPTS)]
+    scored = _run(port, 1, PROMPTS, logprobs=2)
+    assert _gap_compare(want, got, scored) >= 24
+
+
+WINDOW, WINDOW_BLOCK = 24, 8
+
+
+@pytest.fixture(scope="module")
+def mistral_dir(tmp_path_factory):
+    """The tiny Mistral of tests/engine/test_sliding_window_e2e.py."""
+    from transformers import MistralConfig, MistralForCausalLM
+    torch.manual_seed(7)
+    cfg = MistralConfig(vocab_size=128, hidden_size=64,
+                        intermediate_size=128, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2,
+                        max_position_embeddings=256,
+                        sliding_window=WINDOW, tie_word_embeddings=False,
+                        attn_implementation="eager")
+    model = MistralForCausalLM(cfg).eval().to(torch.float32)
+    path = tmp_path_factory.mktemp("mistral-sw-port")
+    model.save_pretrained(path, safe_serialization=True)
+    return str(path)
+
+
+def test_sliding_window_generation_matches_jax(mistral_dir, monkeypatch):
+    """A 10-token prompt decoded 40 steps (the window's pages wrap) beside
+    a 30-token prompt longer than the window (its prefill writes the
+    window's pages twice; the last write wins). Decode takes the slot
+    writer (K3) and a read-only attention call."""
+    from aphrodite_tpu_torch.modeling.layers import attention
+    from aphrodite_tpu_torch.ops.cuda import kv_write
+    prompts = [[5, 9, 11, 3, 7, 2, 8, 4, 6, 10],
+               [(i * 37 + 5) % 120 + 3 for i in range(30)]]
+    kw = dict(load_format="safetensors", dtype="float32", max_model_len=128,
+              max_num_seqs=4, block_size=WINDOW_BLOCK, swap_space=0.01,
+              skip_tokenizer_init=True, disable_log_stats=True)
+    jllm = JaxLLM(model=mistral_dir, **kw)
+    assert jllm.engine.model_config.get_sliding_window() == WINDOW
+    want = [list(o.outputs[0].token_ids) for o in jllm.generate(
+        prompt_token_ids=prompts, sampling_params=JaxSamplingParams(
+            temperature=0.0, max_tokens=40, ignore_eos=True))]
+    llm = LLM(model=mistral_dir, device="cpu", **kw)
+    assert llm.engine.model_config.get_sliding_window() == WINDOW
+    calls, distinct = {}, []
+    _spy(monkeypatch, attention, "paged_decode_attention", calls)
+    real = kv_write.write_kv_pages
+
+    def writer(*a, distinct_pages=False, **k):
+        distinct.append(distinct_pages)
+        return real(*a, distinct_pages=distinct_pages, **k)
+    monkeypatch.setattr(attention, "write_kv_pages", writer)
+    got = [list(o.outputs[0].token_ids) for o in llm.generate(
+        prompt_token_ids=prompts, sampling_params=SamplingParams(
+            temperature=0.0, max_tokens=40, ignore_eos=True))]
+    assert got == want
+    assert calls.get("paged_decode_attention", 0) > 0
+    assert True in distinct and False in distinct    # K3 and K4
 
 
 @pytest.mark.parametrize("n", [1, 2])
@@ -202,6 +337,10 @@ def _metadata(seq_cls, md_cls, sp_cls, tokens, table, is_prompt):
 def test_prefill_and_decode_logits_match_jax(engines):
     """One 40-token prompt (padded to 64 tokens: two whole pages for the
     page writer) and two decode steps on its pages."""
+    _logits_match(engines, 1e-5)
+
+
+def _logits_match(engines, tol):
     jax_engine, port = engines
     jr, tr = jax_engine.executor.model_runner, port.executor.model_runner
     jkv = jax_engine.executor.cache_engine.kv_caches
@@ -231,7 +370,7 @@ def test_prefill_and_decode_logits_match_jax(engines):
         want = np.asarray(want)[:tin["num_rows"]]
         got = got.numpy()[:tin["num_rows"]]
         assert np.abs(want).max() > 1e-2          # not a degenerate model
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
         tokens.append(int(want[-1].argmax()))
     jax_engine.executor.cache_engine.kv_caches = jkv
 
@@ -271,6 +410,19 @@ def test_swap_and_copy_on_write_under_tight_memory(tiny_model_dir,
     pool too small for the batch (preemption: swap or recompute) gives
     the same outputs as an unconstrained pool, as the JAX package's
     test_swap_preemption_under_tight_memory checks for itself."""
+    _swap_and_cow(tiny_model_dir, monkeypatch, "auto")
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["int8", "fp8"])
+def test_swap_and_copy_on_write_on_8bit_pages(tiny_model_dir, monkeypatch,
+                                              kv_cache_dtype):
+    """The same on int8 and fp8 pages: swaps and CoW copies move the
+    8-bit pages as bytes (CPU torch lacks index_copy_ and masked_fill
+    for float8_e5m2)."""
+    _swap_and_cow(tiny_model_dir, monkeypatch, kv_cache_dtype)
+
+
+def _swap_and_cow(tiny_model_dir, monkeypatch, kv_cache_dtype):
     prompts = [[(i * 13 + j * 7) % 250 + 5 for j in range(30 + 3 * i)]
                for i in range(4)]
     sp = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True,
@@ -281,7 +433,8 @@ def test_swap_and_copy_on_write_under_tight_memory(tiny_model_dir,
                          dtype="float32", block_size=16, max_model_len=256,
                          max_num_seqs=8, swap_space=0.05,
                          disable_log_stats=True, skip_tokenizer_init=True,
-                         device="cpu").create_engine_configs()
+                         device="cpu", kv_cache_dtype=kv_cache_dtype
+                         ).create_engine_configs()
         cfg[1].num_gpu_blocks = num_blocks
         engine = AphroditeEngine(*cfg)
         for i, p in enumerate(prompts):

@@ -5,8 +5,9 @@
 - The entry points (LLM, AphroditeEngine.from_engine_args, the
   executor's DeviceConfig) raise without a CUDA card unless the caller
   passes device="cpu"; they never fall back to the CPU on their own.
-- Configurations outside the port's first slice are refused at config
-  time with a message naming the later slice.
+- Configurations outside the port's slices are refused at config time
+  with a message naming the later slice; int8 / fp8 KV caches and
+  sliding-window (Mistral) models are served.
 """
 import ast
 import json
@@ -104,8 +105,6 @@ def _model_dir(tmp_path, tiny_model_dir, **changes):
     (dict(disagg_split="1,1", tensor_parallel_size=2), "multi-GPU"),
     (dict(quantization="squeezellm"), "quantized matmul"),
     (dict(enable_lora=True), "LoRA"),
-    (dict(kv_cache_dtype="int8"), "int8/fp8 KV"),
-    (dict(kv_cache_dtype="fp8"), "int8/fp8 KV"),
 ])
 def test_out_of_slice_engine_args_are_refused(tiny_model_dir, change,
                                               match):
@@ -124,9 +123,6 @@ def test_speculative_decoding_is_refused(tiny_model_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(sliding_window=64), "sliding"),
-    (dict(architectures=["MistralForCausalLM"], model_type="mistral"),
-     "sliding"),
     (dict(architectures=["GPTNeoXForCausalLM"]), "architectures"),
     (dict(quantization_config={"quant_method": "gguf"}), "quantized"),
 ])
@@ -137,6 +133,40 @@ def test_out_of_slice_models_are_refused(tmp_path, tiny_model_dir, change,
     with pytest.raises(NotImplementedError, match=match):
         EngineArgs(model=path, load_format="dummy",
                    device="cpu").create_engine_configs()
+
+
+@pytest.mark.parametrize("args,model,cache_dtype,window", [
+    (dict(kv_cache_dtype="int8"), {}, "int8", None),
+    (dict(kv_cache_dtype="fp8_e5m2"), {}, "fp8", None),
+    (dict(block_size=16), dict(sliding_window=64), "auto", 64),
+    # HF's MistralConfig turns a 4096-token window on by default.
+    (dict(kv_cache_dtype="fp8"), dict(
+        architectures=["MistralForCausalLM"], model_type="mistral"),
+     "fp8", 4096),
+])
+def test_served_configurations_are_accepted(tmp_path, tiny_model_dir, args,
+                                            model, cache_dtype, window):
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    path = _model_dir(tmp_path, tiny_model_dir, **model)
+    model_cfg, cache_cfg, *_ = EngineArgs(
+        model=path, load_format="dummy", device="cpu",
+        **args).create_engine_configs()
+    assert cache_cfg.cache_dtype == cache_dtype
+    assert model_cfg.get_sliding_window() == window
+    assert cache_cfg.sliding_window == window
+
+
+def test_window_not_a_multiple_of_the_block_is_refused(tmp_path,
+                                                       tiny_model_dir):
+    """The block manager's rule: the window must divide into pages."""
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    path = _model_dir(tmp_path, tiny_model_dir, sliding_window=20)
+    with pytest.raises(ValueError, match="multiple of block size"):
+        AphroditeEngine.from_engine_args(EngineArgs(
+            model=path, load_format="dummy", device="cpu", block_size=16,
+            max_model_len=128, swap_space=0.01, skip_tokenizer_init=True,
+            disable_log_stats=True))
 
 
 def test_json_config_defaults(tmp_path, tiny_model_dir):

@@ -5,10 +5,13 @@ This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed: `python -m pytest --noconftest -m gpu
 tests/test_torch_kernels_gpu.py` (tests/conftest.py imports JAX).
 
-Tolerances: the writers copy values, so exactly equal. Attention in
-bf16: |kernel - plain| <= 2e-2 + 2e-2 |plain| (the kernel keeps the
-softmax weights in f32 where the plain version rounds them to bf16; both
-round the output to bf16, one ulp of which is 1.6e-2 at 2-4). The GPTQ
+Tolerances: the writers copy values, so exactly equal (on int8 and fp8
+pages too: the quantized rows equal the plain `quantize_kv`'s). Decode
+attention (K1 and K5, bf16, int8 and fp8 pages): |kernel - plain| <=
+2e-2 + 2e-2 |plain| (both round the dot operands to bf16 and sum in f32
+in another order; exp2 differs by an ulp, which can move a weight to
+the neighbouring bf16 value; both round the output to bf16, one ulp of
+which is 1.6e-2 at 2-4). The GPTQ
 and AWQ matmuls (bf16 outputs, f32 sums taken in another order): the
 same 2e-2 + 2e-2 |plain|. int8 activation quantization: exactly equal.
 The threefry draws (`modeling/layers/prng.py`): keys, bits and uniforms
@@ -22,6 +25,7 @@ from aphrodite_tpu_torch.modeling.layers import prng
 from aphrodite_tpu_torch.ops.cuda import kv_write as tkw
 from aphrodite_tpu_torch.ops.cuda import paged_attention as tpa
 from aphrodite_tpu_torch.ops.cuda import quant_matmul as tqm
+from aphrodite_tpu_torch.ops import kv_quant as tkq
 
 pytestmark = pytest.mark.gpu
 
@@ -33,7 +37,11 @@ def dev():
     return torch.device("cuda")
 
 
-def _decode_problem(dev, ctxs, page_size=32, pps=64, seed=0):
+KV_SCALE = 0.05
+
+
+def _decode_problem(dev, ctxs, page_size=32, pps=64, seed=0,
+                    page_dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
     b, hq, hkv, d = len(ctxs), 32, 8, 128
     pages = b * pps + 1
@@ -41,10 +49,13 @@ def _decode_problem(dev, ctxs, page_size=32, pps=64, seed=0):
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(
             torch.bfloat16)
+
+    def page_values():
+        x = randn(pages, page_size, hkv * d)
+        return tkq.quantize_kv(x, page_dtype, KV_SCALE)
     tables = (torch.randperm(pages - 1, generator=g, device=dev)[:b * pps]
               + 1).view(b, pps).to(torch.int32).contiguous()
-    return (randn(b, hq, d), randn(pages, page_size, hkv * d),
-            randn(pages, page_size, hkv * d), tables,
+    return (randn(b, hq, d), page_values(), page_values(), tables,
             torch.tensor(ctxs, dtype=torch.int32, device=dev),
             randn(b, hkv, d), randn(b, hkv, d))
 
@@ -72,6 +83,72 @@ def test_paged_decode_attention_kernel_matches_plain(dev, fused, alibi):
         err.max().item()
 
 
+def _bytes(t):
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+@pytest.mark.parametrize("page_dtype", [torch.bfloat16, torch.int8,
+                                        torch.float8_e5m2])
+@pytest.mark.parametrize("ragged", [False, True], ids=["K5", "K1"])
+@pytest.mark.parametrize("fused,alibi,amla", [
+    (False, False, True), (True, True, False), (True, False, True)])
+def test_decode_attention_kernels_on_every_page_type(dev, ragged,
+                                                     page_dtype, fused,
+                                                     alibi, amla):
+    """K1 (with a work list) and K5 (without) against the plain version;
+    fused-write codes exact."""
+    ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512]
+    q, kp, vp, tb, ctx, kn, vn = _decode_problem(
+        dev, ctxs, page_dtype=page_dtype, seed=3)
+    slopes = torch.tensor([2.0 ** -(i / 4 + 1) for i in range(32)],
+                          device=dev) if alibi else None
+    kn, vn = (kn, vn) if fused else (None, None)
+    ppc = tpa.choose_pages_per_chunk(tb.shape[1], 32, len(ctxs))
+    work = tpa.build_decode_work_list(
+        [-(-c // 32) for c in ctxs], ppc) if ragged else None
+    kv_scale = tkq.dequant_scale(page_dtype, KV_SCALE)
+    counter = tpa.PAGED_DECODE_ATTENTION_LAUNCHES if ragged else \
+        tpa.PAGED_DECODE_ATTENTION_TM_LAUNCHES
+    before = counter.count
+    kp2, vp2 = kp.clone(), vp.clone()
+    kw = dict(scale=128 ** -0.5, kv_scale=kv_scale, pages_per_chunk=ppc,
+              amla=amla)
+    got = tpa.paged_decode_attention(q, kp, vp, tb, ctx, slopes, kn, vn,
+                                     work_items=work, **kw)
+    want = tpa.paged_decode_attention_plain(q, kp2, vp2, tb, ctx, slopes,
+                                            kn, vn, **kw)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    if fused:
+        got, want = got[0], want[0]
+        assert torch.equal(_bytes(kp), _bytes(kp2))
+        assert torch.equal(_bytes(vp), _bytes(vp2))
+    assert (got[1] == 0).all()                     # ctx 0 row
+    _close(got, want)
+
+
+@pytest.mark.parametrize("page_dtype", [torch.int8, torch.float8_e5m2])
+def test_slot_writers_on_8bit_pages_are_exact(dev, page_dtype):
+    """K3 / K4 on 8-bit pages: quantize, then the byte scatter."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    kp = tkq.quantize_kv(torch.randn(16, 16, 1024, generator=g, device=dev),
+                         page_dtype, KV_SCALE)
+    knew = torch.randn(64, 1024, generator=g, device=dev).to(
+        torch.bfloat16) * 3
+    slots = torch.randperm(256, generator=g, device=dev)[:64].to(
+        torch.int32)
+    slots[::7] = 256
+    for distinct in (False, True):
+        a = tkw.write_kv_pages(knew, knew * 2, kp.clone(), kp.clone(),
+                               slots, distinct_pages=distinct,
+                               kv_scale=KV_SCALE)
+        b = tkw.write_kv_pages_plain(knew, knew * 2, kp.clone(),
+                                     kp.clone(), slots, KV_SCALE)
+        torch.cuda.synchronize()
+        assert torch.equal(_bytes(a[0]), _bytes(b[0]))
+        assert torch.equal(_bytes(a[1]), _bytes(b[1]))
+
+
 def test_writers_match_plain(dev):
     g = torch.Generator(device=dev).manual_seed(1)
     kp = torch.randn(16, 16, 1024, generator=g, device=dev).to(
@@ -96,8 +173,13 @@ def test_writers_match_plain(dev):
 def test_wrappers_count_launches_and_refuse_bad_inputs(dev):
     q, kp, vp, tb, ctx, kn, vn = _decode_problem(dev, [5, 9])
     before = tpa.PAGED_DECODE_ATTENTION_LAUNCHES.count
-    tpa.paged_decode_attention(q, kp, vp, tb, ctx, scale=0.1)
+    before_tm = tpa.PAGED_DECODE_ATTENTION_TM_LAUNCHES.count
+    tpa.paged_decode_attention(q, kp, vp, tb, ctx, scale=0.1,
+                               work_items=tpa.build_decode_work_list(
+                                   [1, 1], 8))
     assert tpa.PAGED_DECODE_ATTENTION_LAUNCHES.count == before + 1
+    tpa.paged_decode_attention(q, kp, vp, tb, ctx, scale=0.1)
+    assert tpa.PAGED_DECODE_ATTENTION_TM_LAUNCHES.count == before_tm + 1
     with pytest.raises(TypeError):
         tpa.paged_decode_attention(q.float(), kp, vp, tb, ctx, scale=0.1)
     with pytest.raises(ValueError, match="mixed devices"):
