@@ -2,19 +2,21 @@
 
 Copied from the JAX package's `common/config.py` with the same classes
 and semantics, narrowed to what the port serves so far: a dense,
-GPTQ-quantized (4 or 8 bits, no act-order) or AWQ-quantized (4 bits)
-Llama-family model, Mistral's sliding window included, on one CUDA card
-(or the CPU, when the caller asks for it): dense models in bfloat16 or
-float32, GPTQ and AWQ in bfloat16 on the card (the kernels take
-bfloat16 activations and scales) and in either on the CPU; KV pages in
-the model dtype, int8 or fp8 (e5m2). Every configuration outside that
-is refused HERE, with a message naming the later slice that brings it
-(`refuse`), so nothing is silently ignored:
+GPTQ-quantized (4 or 8 bits, no act-order), AWQ-quantized (4 bits) or
+GGUF (a `.gguf` file, dense or at rest) Llama-family model, Mistral's
+sliding window included, on one CUDA card (or the CPU, when the caller
+asks for it): dense models in bfloat16 or float32, GPTQ, AWQ and GGUF in
+bfloat16 on the card (the kernels take bfloat16 activations and scales)
+and in either on the CPU; KV pages in the model dtype, int8 or fp8
+(e5m2). Every configuration outside that is refused HERE, with a message
+naming the later slice that brings it (`refuse`), so nothing is
+silently ignored:
 
 - tensor/data/sequence parallelism and the disaggregated split;
-- quantization methods other than GPTQ and AWQ; GPTQ act-order, 2-bit,
-  GPTQ or AWQ in float32 on the card or at layer shapes the kernels do
-  not take;
+- quantization methods other than GPTQ, AWQ and GGUF; GPTQ act-order,
+  2-bit, GPTQ, AWQ or (on the card) GGUF at layer shapes the kernels do
+  not take; GPTQ, AWQ or GGUF in float32 on the card; GGUF's exact Q4_K
+  form (K12);
 - architectures other than Llama's.
 
 `DeviceConfig` resolves to "cuda" or "cpu" only, and never falls back
@@ -41,14 +43,14 @@ def refuse(what: str, later: str) -> None:
         f"with a later slice: {later} (see ROADMAP.md).")
 
 
-_LATER_QUANT = ("the quantized matmul kernels K12-K17 (GGUF next, then "
-                "SqueezeLLM/QuIP# and int8)")
+_LATER_QUANT = ("the quantized matmul kernels K12, K16 and K17 (exact "
+                "Q4_K GGUF, then SqueezeLLM/QuIP# and int8)")
 _LATER_GPTQ = ("GPTQ act-order, 2-bit, float32 on the card and other "
                "group shapes, on the reference's dequantize-then-matmul "
-               "path after the quantized matmul kernels K12-K17")
+               "path after the quantized matmul kernels K12, K16 and K17")
 _LATER_AWQ = ("AWQ in float32 on the card and at other layer shapes, on "
               "the reference's dequantize-then-matmul path after the "
-              "quantized matmul kernels K12-K17")
+              "quantized matmul kernels K12, K16 and K17")
 
 # String names avoid importing jax at config time.
 _STR_DTYPE_TO_JAX = {
@@ -115,10 +117,10 @@ class ModelConfig:
             self._verify_gptq()
         elif self.quantization == "awq":
             self._verify_awq()
+        elif self.quantization == "gguf":
+            self._verify_gguf()
         elif self.quantization is not None:
             refuse(f"quantization {self.quantization!r}", _LATER_QUANT)
-        if self.load_format == "gguf" or self.model.endswith(".gguf"):
-            refuse("GGUF checkpoints", "the quantized matmul kernels")
         from aphrodite_tpu_torch.modeling.models import ModelRegistry
         archs = getattr(self.hf_config, "architectures", None) or []
         if not any(ModelRegistry.load_model_cls(a) is not None
@@ -158,6 +160,39 @@ class ModelConfig:
                    f"(in, out) {bad} (the kernels need in % group == 0, "
                    "128 <= group <= 1024 and out % 1024 == 0)", _LATER_AWQ)
 
+    def _verify_gguf(self) -> None:
+        """GGUF is served in its exact Q8_0 (K13), grouped-int8 (K14) and
+        turbo W8A8 (K15) forms; a `.gguf` file, or a dummy load, whose
+        projections would take the exact Q4_K form (qweight/dl/ml) waits
+        for K12 (`GGUFLinearMethod`'s routing, from the header alone)."""
+        from aphrodite_tpu_torch.modeling.layers.quantization.gguf import (
+            LATER_Q4K)
+        q4k = sorted({(name, shape) for name, form, shape
+                      in self._gguf_forms() if form == "q4k"})
+        if not q4k:
+            return
+        if self.load_format == "dummy":
+            refuse(f"dummy GGUF weights in the exact Q4_K form for the "
+                   f"linear shapes (in, out) {[s for _, s in q4k]}",
+                   LATER_Q4K)
+        refuse(f"GGUF Q4_K projections in the exact form "
+               f"({len(q4k)} tensors, e.g. {q4k[0][0]})", LATER_Q4K)
+
+    def _gguf_forms(self):
+        """[(name, at-rest form, (in, out) of its merged bucket)] of the
+        GGUF projections: each layer shape of a dummy load
+        (`dummy_form`), each projection tensor of a `.gguf` file (its
+        form from the header alone, `checkpoint_forms`)."""
+        from aphrodite_tpu_torch.modeling.layers.quantization.gguf import (
+            bucket_index, checkpoint_forms, dummy_form)
+        shapes = self._linear_shapes()
+        if self.load_format == "dummy":
+            return [("dummy", dummy_form(s[0]), s) for s in shapes]
+        if self.model.endswith(".gguf"):
+            return [(name, form, shapes[bucket_index(name)]) for name, form
+                    in checkpoint_forms(self.model).items()]
+        return []
+
     def _linear_shapes(self):
         """(in, out) of the four quantized projections of a layer."""
         c = self.hf_config
@@ -171,16 +206,31 @@ class ModelConfig:
 
     def verify_with_device_config(self,
                                   device_config: "DeviceConfig") -> None:
-        """The GPTQ and AWQ kernels take bfloat16 activations and scales:
-        on the card they run in bfloat16 only. (float32 stays for
-        device="cpu", where the plain versions run.)"""
-        if self.quantization in ("gptq", "awq") and \
-                device_config.device_type != "cpu" and \
+        """The GPTQ, AWQ and GGUF kernels take bfloat16 activations and
+        scales: on the card they run in bfloat16 only. (float32 stays for
+        device="cpu", where the plain versions run.) On the card a GGUF
+        bucket must also pass its kernel's gate: the dequantize-then-
+        matmul route of the shapes a gate refuses runs on the CPU only."""
+        if device_config.device_type == "cpu":
+            return
+        if self.quantization in ("gptq", "awq", "gguf") and \
                 self.dtype != "bfloat16":
             name = self.quantization.upper()
+            later = {"GPTQ": _LATER_GPTQ, "AWQ": _LATER_AWQ}.get(
+                name, _LATER_QUANT)
             refuse(f"{name} in {self.dtype} on the CUDA card (use "
-                   "dtype='bfloat16', or device='cpu')",
-                   _LATER_GPTQ if name == "GPTQ" else _LATER_AWQ)
+                   "dtype='bfloat16', or device='cpu')", later)
+        if self.quantization == "gguf":
+            from aphrodite_tpu_torch.modeling.layers.quantization.gguf import (
+                LATER_FALLBACK, kernel_takes)
+            bad = sorted({(form, shape) for _, form, shape
+                          in self._gguf_forms()
+                          if not kernel_takes(form, *shape)})
+            if bad:
+                refuse(f"GGUF (at-rest form, bucket (in, out)) {bad} on the "
+                       "CUDA card, whose kernels' gates refuse them (K13 and "
+                       "K14 need in % 256 == 0, K15 in % 128 == 0, all out "
+                       "% 128 == 0; use device='cpu')", LATER_FALLBACK)
 
     def _verify_load_format(self) -> None:
         load_format = self.load_format.lower()

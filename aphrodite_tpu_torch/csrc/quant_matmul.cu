@@ -1,8 +1,16 @@
-// GPTQ and AWQ dequant matmuls and per-row int8 activation quantization,
-// CUDA C++ for sm_90a.
+// GPTQ, AWQ and GGUF quantized matmuls and per-row int8 activation
+// quantization, CUDA C++ for sm_90a.
 //
-// Replaces six Pallas TPU kernels of aphrodite_tpu/ops/pallas/quant_matmul.py
-// (K6-K11), all but K9 with one templated kernel, quant_mma_kernel:
+// Replaces nine Pallas TPU kernels of aphrodite_tpu/ops/pallas/quant_matmul.py
+// (K6-K11, K13-K15). K6-K8, K10 and K11 are one templated kernel,
+// quant_mma_kernel; K13-K15 another, int8_mma_kernel (see its comment).
+// The two share the block tile, the x staging, the mma.sync fragments, the
+// A8 group fold, the epilogue and the launcher (Tile, stage_x, mma_chunk,
+// fold_group, store_tile, launch_tiles) and differ only in how they load
+// the W words and write the W tile:
+//   _gguf_q8_kernel (:1210)    -> int8_mma_kernel<G 32> (K13, Q8_0)
+//   _gguf_i8g_kernel (:1476)   -> int8_mma_kernel<G 16> (K14, grouped int8)
+//   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128, A8> (K15, W8A8)
 //   _kernel (:554)          -> 128-row tiles, GPTQ layout (K6)
 //   _stream_kernel (:308)   -> 16-64-row tiles with split K, GPTQ and AWQ
 //                              layouts, a16 and a8 arms (K7)
@@ -32,6 +40,10 @@
 //   operations at large m (989 TFLOP/s bf16, 1979 TOP/s int8), bytes below
 //   a few hundred rows.
 // - K9: bytes (x read once, the int8 copy and the row scales written once).
+// - K13-K15: bytes at decode (the int8 weight and its bf16 scale rows read
+//   once: 0.066-0.073 ms per layer at Mistral-7B width, about twice K7's
+//   int4 bound), operations at prompt rounds (bf16 for K13/K14, int8 for
+//   K15).
 //
 // What the design does about it. One templated kernel serves K6, K7, K8,
 // K10 and K11, for both layouts: a block owns BM rows x 128 columns of the
@@ -128,10 +140,173 @@ __device__ __forceinline__ constexpr int awq_shift(int e) {
   return 4 * ((e & 1) ? 4 + (e >> 1) : (e >> 1));
 }
 
-// One block: rows [m0, m0 + BM) x columns [n0, n0 + 128) over the groups
-// [g_begin, g_end) of split blockIdx.z. WARPS_M x (8 / WARPS_M) warps.
-// splits == 1 writes `out` (bf16; A8 times the row scale xs); otherwise
-// `partial[split, row, col]` in f32 for split_reduce_kernel.
+// The block tile shared by quant_mma_kernel and int8_mma_kernel: BM rows x
+// 128 columns of the output over WARPS_M x (8 / WARPS_M) warps, each warp
+// MI x NI mma fragments; x and W are staged 64 k at a time in shared tiles
+// [rows][LD] (W transposed, [column][k]: the mma B operand's layout).
+template <int BM_, int WARPS_M_, bool A8_>
+struct Tile {
+  static constexpr int BM = BM_;
+  static constexpr int WARPS_M = WARPS_M_;
+  static constexpr bool A8 = A8_;
+  using T = typename Elem<A8>::T;
+  static constexpr int WARPS_N = 8 / WARPS_M;
+  static constexpr int WM = BM / WARPS_M;
+  static constexpr int WN = kBN / WARPS_N;
+  static constexpr int MI = WM / 16;
+  static constexpr int NI = WN / 8;
+  static constexpr int LD = kChunk + Elem<A8>::kPad;
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));   // x per uint4
+  static_assert(MI >= 1 && NI >= 1 && WM % 16 == 0 && WN % 8 == 0, "tile");
+};
+
+// This thread's place in the tile: warp row wm and column wn, and its
+// fragment row group gid and thread in group tig.
+struct Lane {
+  int wm, wn, gid, tig;
+};
+
+template <class TL>
+__device__ __forceinline__ Lane lane_of() {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return Lane{warp / TL::WARPS_N, warp % TL::WARPS_N, lane >> 2, lane & 3};
+}
+
+// Zero a warp's accumulators: f32 sums, or A8's exact int32 dots.
+template <class TL, typename Acc>
+__device__ __forceinline__ void zero_acc(Acc (&acc)[TL::MI][TL::NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < TL::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < TL::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = Acc(0);
+}
+
+// Stage x rows [m0, m0 + BM) x k [k0, k0 + kn) into x_tile, zeros past m
+// and kn; 16-byte loads when `vec` (aligned rows) and the chunk is full.
+template <class TL>
+__device__ __forceinline__ void stage_x(typename TL::T (*x_tile)[TL::LD],
+                                        const typename TL::T* __restrict__ x,
+                                        int m, int K, int m0, int k0, int kn,
+                                        bool vec) {
+  using T = typename TL::T;
+  if (vec && kn == kChunk) {
+    constexpr int VPR = kChunk / TL::VEC;
+    for (int i = threadIdx.x; i < TL::BM * VPR; i += kThreads) {
+      const int r = i / VPR, v = i % VPR;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < m)
+        val = *reinterpret_cast<const uint4*>(
+            x + static_cast<size_t>(m0 + r) * K + k0 + v * TL::VEC);
+      *reinterpret_cast<uint4*>(&x_tile[r][v * TL::VEC]) = val;
+    }
+  } else {
+    for (int i = threadIdx.x; i < TL::BM * kChunk; i += kThreads) {
+      const int r = i / kChunk, col = i % kChunk;
+      T v = Elem<TL::A8>::zero();
+      if (m0 + r < m && col < kn)
+        v = x[static_cast<size_t>(m0 + r) * K + k0 + col];
+      x_tile[r][col] = v;
+    }
+  }
+}
+
+// The warp's products over a staged 64-deep chunk: bf16 m16n8k16 into the
+// f32 sums, or (A8) s8 m16n8k32 into the exact int32 dots.
+template <class TL, typename Acc>
+__device__ __forceinline__ void mma_chunk(
+    typename TL::T (*x_tile)[TL::LD], typename TL::T (*w_tile)[TL::LD],
+    Acc (&acc)[TL::MI][TL::NI][4], Lane l) {
+  constexpr int KS = TL::A8 ? 32 : 16;   // k per mma
+  constexpr int EB = KS / 8;             // elements per 32-bit register
+#pragma unroll
+  for (int ks = 0; ks < kChunk; ks += KS) {
+    uint32_t a[TL::MI][4], b[TL::NI][2];
+#pragma unroll
+    for (int mi = 0; mi < TL::MI; ++mi) {
+      const int r = l.wm * TL::WM + mi * 16 + l.gid;
+      a[mi][0] = ld32(&x_tile[r][ks + l.tig * EB]);
+      a[mi][1] = ld32(&x_tile[r + 8][ks + l.tig * EB]);
+      a[mi][2] = ld32(&x_tile[r][ks + KS / 2 + l.tig * EB]);
+      a[mi][3] = ld32(&x_tile[r + 8][ks + KS / 2 + l.tig * EB]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < TL::NI; ++ni) {
+      const int n = l.wn * TL::WN + ni * 8 + l.gid;
+      b[ni][0] = ld32(&w_tile[n][ks + l.tig * EB]);
+      b[ni][1] = ld32(&w_tile[n][ks + KS / 2 + l.tig * EB]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < TL::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < TL::NI; ++ni) {
+        if constexpr (TL::A8) {
+          mma_s8(acc[mi][ni], a[mi], b[ni]);
+        } else {
+          mma_bf16(acc[mi][ni], a[mi], b[ni]);
+        }
+      }
+  }
+}
+
+// A8, at a group's end: its exact integer dots times its scale row `srow`
+// (the group's row of scales [G, N]), added to the f32 sums in group order.
+template <class TL>
+__device__ __forceinline__ void fold_group(
+    float (&acc)[TL::MI][TL::NI][4], const int (&iacc)[TL::MI][TL::NI][4],
+    const __nv_bfloat16* __restrict__ srow, int n0, Lane l) {
+#pragma unroll
+  for (int ni = 0; ni < TL::NI; ++ni) {
+    const int col = n0 + l.wn * TL::WN + ni * 8 + l.tig * 2;
+    const float s0 = __bfloat162float(srow[col]);
+    const float s1 = __bfloat162float(srow[col + 1]);
+#pragma unroll
+    for (int mi = 0; mi < TL::MI; ++mi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[mi][ni][e] = __fadd_rn(
+            acc[mi][ni][e],
+            __fmul_rn(static_cast<float>(iacc[mi][ni][e]), (e & 1) ? s1 : s0));
+  }
+}
+
+// Epilogue: accumulator rows gid and gid + 8, columns tig*2 and +1. Without
+// a split, bf16 to `out` (A8: times the row scale xs); with one, the f32
+// sums to `partial[split, row, col]` for split_reduce_kernel.
+template <class TL>
+__device__ __forceinline__ void store_tile(
+    const float (&acc)[TL::MI][TL::NI][4], const float* __restrict__ xs,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int m,
+    int N, int m0, int n0, Lane l) {
+#pragma unroll
+  for (int mi = 0; mi < TL::MI; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + l.wm * TL::WM + mi * 16 + l.gid + half * 8;
+      if (r >= m) continue;
+      const float rs = (TL::A8 && partial == nullptr) ? xs[r] : 1.f;
+#pragma unroll
+      for (int ni = 0; ni < TL::NI; ++ni) {
+        const int col = n0 + l.wn * TL::WN + ni * 8 + l.tig * 2;
+        const float v0 = acc[mi][ni][half * 2];
+        const float v1 = acc[mi][ni][half * 2 + 1];
+        if (partial != nullptr) {
+          *reinterpret_cast<float2*>(
+              partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
+              make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<size_t>(r) * N + col) =
+              __floats2bfloat162_rn(v0 * rs, v1 * rs);
+        }
+      }
+    }
+  }
+}
+
+// GPTQ and AWQ (K6-K8, K10, K11): one block over the groups
+// [g_begin, g_end) of split blockIdx.z.
 //
 // Each group is cut into chunks of 64 k. Every thread holds its packed
 // words of the next chunk in registers, loaded before the current chunk's
@@ -141,9 +316,9 @@ __device__ __forceinline__ constexpr int awq_shift(int e) {
 // row) x 8 four-row groups, so its loads take whole halves of 32-byte
 // sectors and its shared-memory stores, 8 bytes of one column each, span
 // 16 banks per word column.
-template <int BM, int WARPS_M, int BITS, bool A8, bool AWQ>
+template <class TL, int BITS, bool AWQ>
 __global__ void __launch_bounds__(kThreads)
-quant_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
+quant_mma_kernel(const typename TL::T* __restrict__ x,
                  const float* __restrict__ xs,
                  const uint32_t* __restrict__ qweight,
                  const uint32_t* __restrict__ qzeros,
@@ -151,38 +326,30 @@ quant_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
                  __nv_bfloat16* __restrict__ out,
                  float* __restrict__ partial, int m, int K, int N, int gs,
                  int groups_per_split) {
-  using T = typename Elem<A8>::T;
-  constexpr int WARPS_N = 8 / WARPS_M;
-  constexpr int WM = BM / WARPS_M;
-  constexpr int WN = kBN / WARPS_N;
-  constexpr int MI = WM / 16;
-  constexpr int NI = WN / 8;
-  constexpr int LD = kChunk + Elem<A8>::kPad;
+  using T = typename TL::T;
+  constexpr bool A8 = TL::A8;
   constexpr int PACK = 32 / BITS;
   constexpr uint32_t MASK = (1u << BITS) - 1u;
   // Words per thread per chunk: GPTQ 2 threads per column, kChunk / PACK
   // words each; AWQ 64 rows x 16 words over 256 threads.
   constexpr int WPT = AWQ ? kChunk * (kBN / 8) / kThreads : kChunk / PACK / 2;
-  constexpr int VEC = 16 / static_cast<int>(sizeof(T));   // x per uint4
-  static_assert(MI >= 1 && NI >= 1 && WM % 16 == 0 && WN % 8 == 0, "tile");
   static_assert(!AWQ || (BITS == 4 && WPT == 4), "AWQ packs 8 4-bit codes");
 
-  __shared__ __align__(16) T x_tile[BM][LD];
-  __shared__ __align__(16) T w_tile[kBN][LD];
+  __shared__ __align__(16) T x_tile[TL::BM][TL::LD];
+  __shared__ __align__(16) T w_tile[kBN][TL::LD];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const Lane l = lane_of<TL>();
   const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = blockIdx.y * TL::BM;
   const int G = K / gs;
   const int g_begin = blockIdx.z * groups_per_split;
   const int g_end = min(G, g_begin + groups_per_split);
   const int chunks = (gs + kChunk - 1) / kChunk;    // per group
   // 16-byte x loads when every chunk start and row start is aligned.
   const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     K % VEC == 0 && gs % VEC == 0;
+                     K % TL::VEC == 0 && gs % TL::VEC == 0;
 
   // GPTQ: the column this thread dequantizes and its half of the chunk's
   // words (fixed: 256 threads, 128 columns).
@@ -195,13 +362,8 @@ quant_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
   const int aw_rg = ((warp >> 2) << 3) | (lane >> 2);
   const size_t awq_ld = static_cast<size_t>(N / 8);
 
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  float acc[TL::MI][TL::NI][4];
+  zero_acc<TL>(acc);
 
   // GPTQ: words wi = my_half + 2 * i of chunk c of group g; AWQ: rows
   // aw_rg * 4 + i of word column aw_col. Zero past the group.
@@ -248,38 +410,12 @@ quant_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
       z = static_cast<int>((zw >> (BITS * (my_col % PACK))) & MASK) + 1;
       s = __bfloat162float(scales[static_cast<size_t>(g) * N + my_col]);
     }
-    int iacc[MI][NI][4];
-    if constexpr (A8) {
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) iacc[mi][ni][e] = 0;
-    }
+    int iacc[TL::MI][TL::NI][4];
+    if constexpr (A8) zero_acc<TL>(iacc);
     for (int c = 0; c < chunks; ++c) {
       const int k0 = g * gs + c * kChunk;
       const int kn = min(kChunk, (g + 1) * gs - k0);   // rows in the chunk
-      // Stage x rows [m0, m0 + BM) x k [k0, k0 + kn), zeros elsewhere.
-      if (x_vec && kn == kChunk) {
-        constexpr int VPR = kChunk / VEC;
-        for (int i = tid; i < BM * VPR; i += kThreads) {
-          const int r = i / VPR, v = i % VPR;
-          uint4 val = make_uint4(0u, 0u, 0u, 0u);
-          if (m0 + r < m)
-            val = *reinterpret_cast<const uint4*>(
-                x + static_cast<size_t>(m0 + r) * K + k0 + v * VEC);
-          *reinterpret_cast<uint4*>(&x_tile[r][v * VEC]) = val;
-        }
-      } else {
-        for (int i = tid; i < BM * kChunk; i += kThreads) {
-          const int r = i / kChunk, col = i % kChunk;
-          T v = Elem<A8>::zero();
-          if (m0 + r < m && col < kn)
-            v = x[static_cast<size_t>(m0 + r) * K + k0 + col];
-          x_tile[r][col] = v;
-        }
-      }
+      stage_x<TL>(x_tile, x, m, K, m0, k0, kn, x_vec);
       // Dequantize this thread's words into the W tile; past kn the
       // stored values are zero.
       if constexpr (AWQ) {
@@ -352,102 +488,153 @@ quant_mma_kernel(const typename Elem<A8>::T* __restrict__ x,
       }
       __syncthreads();
       if constexpr (A8) {
-#pragma unroll
-        for (int ks = 0; ks < kChunk; ks += 32) {
-          uint32_t a[MI][4], b[NI][2];
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi) {
-            const int r = wm * WM + mi * 16 + gid;
-            a[mi][0] = ld32(&x_tile[r][ks + tig * 4]);
-            a[mi][1] = ld32(&x_tile[r + 8][ks + tig * 4]);
-            a[mi][2] = ld32(&x_tile[r][ks + 16 + tig * 4]);
-            a[mi][3] = ld32(&x_tile[r + 8][ks + 16 + tig * 4]);
-          }
-#pragma unroll
-          for (int ni = 0; ni < NI; ++ni) {
-            const int n = wn * WN + ni * 8 + gid;
-            b[ni][0] = ld32(&w_tile[n][ks + tig * 4]);
-            b[ni][1] = ld32(&w_tile[n][ks + 16 + tig * 4]);
-          }
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < NI; ++ni) mma_s8(iacc[mi][ni], a[mi], b[ni]);
-        }
+        mma_chunk<TL>(x_tile, w_tile, iacc, l);
       } else {
-#pragma unroll
-        for (int ks = 0; ks < kChunk; ks += 16) {
-          uint32_t a[MI][4], b[NI][2];
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi) {
-            const int r = wm * WM + mi * 16 + gid;
-            a[mi][0] = ld32(&x_tile[r][ks + tig * 2]);
-            a[mi][1] = ld32(&x_tile[r + 8][ks + tig * 2]);
-            a[mi][2] = ld32(&x_tile[r][ks + tig * 2 + 8]);
-            a[mi][3] = ld32(&x_tile[r + 8][ks + tig * 2 + 8]);
-          }
-#pragma unroll
-          for (int ni = 0; ni < NI; ++ni) {
-            const int n = wn * WN + ni * 8 + gid;
-            b[ni][0] = ld32(&w_tile[n][ks + tig * 2]);
-            b[ni][1] = ld32(&w_tile[n][ks + tig * 2 + 8]);
-          }
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < NI; ++ni)
-              mma_bf16(acc[mi][ni], a[mi], b[ni]);
-        }
+        mma_chunk<TL>(x_tile, w_tile, acc, l);
       }
       __syncthreads();
     }
-    if constexpr (A8) {
-      // The group's exact integer dots times its scale row, into f32.
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = n0 + wn * WN + ni * 8 + tig * 2;
-        const float s0 = __bfloat162float(scales[static_cast<size_t>(g) * N + col]);
-        const float s1 = __bfloat162float(scales[static_cast<size_t>(g) * N + col + 1]);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          acc[mi][ni][0] = __fadd_rn(acc[mi][ni][0],
-                                     __fmul_rn(static_cast<float>(iacc[mi][ni][0]), s0));
-          acc[mi][ni][1] = __fadd_rn(acc[mi][ni][1],
-                                     __fmul_rn(static_cast<float>(iacc[mi][ni][1]), s1));
-          acc[mi][ni][2] = __fadd_rn(acc[mi][ni][2],
-                                     __fmul_rn(static_cast<float>(iacc[mi][ni][2]), s0));
-          acc[mi][ni][3] = __fadd_rn(acc[mi][ni][3],
-                                     __fmul_rn(static_cast<float>(iacc[mi][ni][3]), s1));
-        }
-      }
-    }
+    if constexpr (A8) fold_group<TL>(acc, iacc, scales + static_cast<size_t>(g) * N, n0, l);
   }
+  store_tile<TL>(acc, xs, out, partial, m, N, m0, n0, l);
+}
 
-  // Epilogue: accumulator rows gid and gid + 8, columns tig*2 and +1.
+// K13 / K14 / K15: int8 weights qs [K, N] with one scale row per G input
+// rows (scales [K / G, N] bf16), no zero point and no unpacking.
+//   A8 false (K13, G 32; K14, G 16): x bf16; the chunk of W is
+//     dequantized in the tile, bf16(float(q) * float(d[k / G][n])), and
+//     the products are bf16 m16n8k16 with f32 sums.
+//   A8 true (K15, G 128): x int8 rows from quant8; per 128-row group the
+//     exact int32 dot (s8 m16n8k32), times the group's scale row, is added
+//     to the f32 sum in group order; times xs[row] at the end.
+// A block walks the chunks [c_begin, c_end) of 64 k rows (split
+// blockIdx.z; for A8 a split starts on a group). Only the W tile differs
+// from quant_mma_kernel: each thread stages 4 neighbouring columns x 8 k
+// rows of a chunk, 8 32-bit words, one per k row, so a warp reads 128
+// contiguous bytes of each row; it writes them to the transposed tile, 8 k
+// values of a column in one 16-byte (bf16) or 8-byte (int8) store. The
+// words of the next chunk are loaded before the current chunk's products.
+// Eight rows of a chunk never straddle a scale group (G >= 16), so a
+// thread needs one scale per column.
+template <class TL, int G>
+__device__ __forceinline__ void int8_mma_tile(
+    const typename TL::T* __restrict__ x, const float* __restrict__ xs,
+    const uint32_t* __restrict__ qs, const __nv_bfloat16* __restrict__ scales,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int m,
+    int K, int N, int chunks_per_split) {
+  using T = typename TL::T;
+  constexpr bool A8 = TL::A8;
+  constexpr int CPG = A8 ? G / kChunk : 1;   // chunks per A8 scale group
+  static_assert(A8 ? G % kChunk == 0 : (kChunk % G == 0 && G % 8 == 0),
+                "scale groups");
+
+  __shared__ __align__(16) T x_tile[TL::BM][TL::LD];
+  __shared__ __align__(16) T w_tile[kBN][TL::LD];
+
+  const int tid = threadIdx.x;
+  const Lane l = lane_of<TL>();
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * TL::BM;
+  const int c_begin = blockIdx.z * chunks_per_split;
+  const int c_end = min(K / kChunk, c_begin + chunks_per_split);
+  // Staging: columns n0 + 4 * cq .. + 3, rows r0 .. r0 + 7 of a chunk.
+  const int cq = tid & 31;
+  const int r0 = (tid >> 5) * 8;
+  const size_t ldw = static_cast<size_t>(N / 4);
+  const uint32_t* qcol = qs + n0 / 4 + cq;
+  // 16-byte x loads when the rows start aligned (K is a multiple of 64).
+  const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+
+  float acc[TL::MI][TL::NI][4];
+  zero_acc<TL>(acc);
+  int iacc[TL::MI][TL::NI][4];
+
+  uint32_t words[8];
+  auto load_words = [&](int c) {
+    const size_t k = static_cast<size_t>(c) * kChunk + r0;
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
+    for (int i = 0; i < 8; ++i) words[i] = qcol[(k + i) * ldw];
+  };
+  if (c_begin < c_end) load_words(c_begin);
+
+  for (int c = c_begin; c < c_end; ++c) {
+    const int k0 = c * kChunk;
+    if constexpr (A8) {
+      if ((c - c_begin) % CPG == 0) zero_acc<TL>(iacc);
+    }
+    stage_x<TL>(x_tile, x, m, K, m0, k0, kChunk, x_vec);
+    // This thread's 4 columns x 8 rows into the transposed W tile.
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + wm * WM + mi * 16 + gid + half * 8;
-      if (r >= m) continue;
-      const float rs = (A8 && partial == nullptr) ? xs[r] : 1.f;
+    for (int j = 0; j < 4; ++j) {
+      const int n = cq * 4 + j;
+      if constexpr (A8) {
+        uint32_t packed[2] = {0u, 0u};
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = n0 + wn * WN + ni * 8 + tig * 2;
-        const float v0 = acc[mi][ni][half * 2];
-        const float v1 = acc[mi][ni][half * 2 + 1];
-        if (partial != nullptr) {
-          *reinterpret_cast<float2*>(
-              partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
-              make_float2(v0, v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + static_cast<size_t>(r) * N + col) =
-              __floats2bfloat162_rn(v0 * rs, v1 * rs);
+        for (int i = 0; i < 8; ++i)
+          packed[i / 4] |= ((words[i] >> (8 * j)) & 0xffu) << (8 * (i % 4));
+        st_words<2>(&w_tile[n][r0], packed);
+      } else {
+        const float d = __bfloat162float(
+            scales[static_cast<size_t>((k0 + r0) / G) * N + n0 + n]);
+        uint32_t packed[4];
+#pragma unroll
+        for (int i = 0; i < 8; i += 2) {
+          const float q0 = static_cast<float>(
+              static_cast<int8_t>((words[i] >> (8 * j)) & 0xffu));
+          const float q1 = static_cast<float>(
+              static_cast<int8_t>((words[i + 1] >> (8 * j)) & 0xffu));
+          const __nv_bfloat162 w2 =
+              __floats2bfloat162_rn(__fmul_rn(q0, d), __fmul_rn(q1, d));
+          packed[i / 2] = *reinterpret_cast<const uint32_t*>(&w2);
         }
+        st_words<4>(&w_tile[n][r0], packed);
       }
     }
+    if (c + 1 < c_end) load_words(c + 1);
+    __syncthreads();
+    if constexpr (A8) {
+      mma_chunk<TL>(x_tile, w_tile, iacc, l);
+    } else {
+      mma_chunk<TL>(x_tile, w_tile, acc, l);
+    }
+    __syncthreads();
+    if constexpr (A8) {
+      if ((c - c_begin) % CPG == CPG - 1)
+        fold_group<TL>(acc, iacc, scales + static_cast<size_t>(c / CPG) * N,
+                       n0, l);
+    }
   }
+  store_tile<TL>(acc, xs, out, partial, m, N, m0, n0, l);
+}
+
+template <class TL, int G>
+__global__ void __launch_bounds__(kThreads)
+int8_mma_kernel(const typename TL::T* __restrict__ x,
+                const float* __restrict__ xs,
+                const uint32_t* __restrict__ qs,
+                const __nv_bfloat16* __restrict__ scales,
+                __nv_bfloat16* __restrict__ out,
+                float* __restrict__ partial, int m, int K, int N,
+                int chunks_per_split) {
+  int8_mma_tile<TL, G>(x, xs, qs, scales, out, partial, m, K, N,
+                       chunks_per_split);
+}
+
+// The bf16 128-row tile (K13 and K14 above 64 rows) with two blocks per SM,
+// at most 128 registers: left free it takes 138 and runs one block per SM,
+// about 1.6x slower at m 4096. Naming a minimum for the other tiles raises
+// their registers and slows decode, so they keep int8_mma_kernel's bound.
+template <class TL, int G>
+__global__ void __launch_bounds__(kThreads, 2)
+int8_mma_kernel_2blk(const typename TL::T* __restrict__ x,
+                     const float* __restrict__ xs,
+                     const uint32_t* __restrict__ qs,
+                     const __nv_bfloat16* __restrict__ scales,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ partial, int m, int K, int N,
+                     int chunks_per_split) {
+  int8_mma_tile<TL, G>(x, xs, qs, scales, out, partial, m, K, N,
+                       chunks_per_split);
 }
 
 // Second pass of a split-K launch: out = bf16(sum over splits, in order,
@@ -465,42 +652,23 @@ __global__ void split_reduce_kernel(const float* __restrict__ partial,
   out[i] = __float2bfloat16(v);
 }
 
-template <int BM, int WARPS_M, int BITS, bool A8, bool AWQ>
-void launch_tile(const void* x, const float* xs, const void* qweight,
-                 const void* qzeros, const void* scales, void* out,
-                 float* partial, int m, int K, int N, int gs, int splits,
+// The launcher both kernels share: `tile(TL{}, grid, partial)` launches the
+// kernel for block_m 16, 32 or 64 (one warp row: K7's skinny tiles, split
+// K) or 128 (two warp rows), over the output's 128-column blocks, its row
+// blocks and `splits`; `partial` is null without a split. With a split,
+// split_reduce_kernel then adds the f32 partials (times xs for A8).
+template <bool A8, typename LaunchTile>
+int launch_tiles(LaunchTile&& tile, int block_m, const float* xs, void* out,
+                 float* partial, int m, int N, int splits,
                  cudaStream_t stream) {
-  const int G = K / gs;
-  const int gps = (G + splits - 1) / splits;
-  dim3 grid(N / kBN, (m + BM - 1) / BM, splits);
-  quant_mma_kernel<BM, WARPS_M, BITS, A8, AWQ><<<grid, kThreads, 0, stream>>>(
-      static_cast<const typename Elem<A8>::T*>(x), xs,
-      static_cast<const uint32_t*>(qweight),
-      static_cast<const uint32_t*>(qzeros),
-      static_cast<const __nv_bfloat16*>(scales),
-      static_cast<__nv_bfloat16*>(out), splits > 1 ? partial : nullptr, m,
-      K, N, gs, gps);
-}
-
-template <int BITS, bool A8, bool AWQ>
-int launch(const void* x, const float* xs, const void* qweight,
-           const void* qzeros, const void* scales, void* out,
-           float* partial, int m, int K, int N, int gs, int splits,
-           int block_m, cudaStream_t stream) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
+  float* part = splits > 1 ? partial : nullptr;
+  auto grid = [&](int bm) { return dim3(N / kBN, (m + bm - 1) / bm, splits); };
   switch (block_m) {
-    case 16: launch_tile<16, 1, BITS, A8, AWQ>(
-        x, xs, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
-        stream); break;
-    case 32: launch_tile<32, 1, BITS, A8, AWQ>(
-        x, xs, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
-        stream); break;
-    case 64: launch_tile<64, 1, BITS, A8, AWQ>(
-        x, xs, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
-        stream); break;
-    case 128: launch_tile<128, 2, BITS, A8, AWQ>(
-        x, xs, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
-        stream); break;
+    case 16: tile(Tile<16, 1, A8>{}, grid(16), part); break;
+    case 32: tile(Tile<32, 1, A8>{}, grid(32), part); break;
+    case 64: tile(Tile<64, 1, A8>{}, grid(64), part); break;
+    case 128: tile(Tile<128, 2, A8>{}, grid(128), part); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (splits > 1) {
@@ -512,6 +680,58 @@ int launch(const void* x, const float* xs, const void* qweight,
         m, N);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// GPTQ / AWQ: a split covers ceil(G / splits) groups.
+template <int BITS, bool A8, bool AWQ>
+int launch(const void* x, const float* xs, const void* qweight,
+           const void* qzeros, const void* scales, void* out,
+           float* partial, int m, int K, int N, int gs, int splits,
+           int block_m, cudaStream_t stream) {
+  const int G = K / gs;
+  const int gps = (G + splits - 1) / splits;
+  return launch_tiles<A8>(
+      [&](auto tl, dim3 grid, float* part) {
+        using TL = decltype(tl);
+        quant_mma_kernel<TL, BITS, AWQ><<<grid, kThreads, 0, stream>>>(
+            static_cast<const typename TL::T*>(x), xs,
+            static_cast<const uint32_t*>(qweight),
+            static_cast<const uint32_t*>(qzeros),
+            static_cast<const __nv_bfloat16*>(scales),
+            static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, gps);
+      },
+      block_m, xs, out, partial, m, N, splits, stream);
+}
+
+// GGUF: the split unit is 64 rows (A16) or one scale group (A8), as the
+// wrapper's `_tiling` counted them.
+template <int G, bool A8>
+int launch_int8(const void* x, const float* xs, const void* qs,
+                const void* scales, void* out, float* partial, int m, int K,
+                int N, int splits, int block_m, cudaStream_t stream) {
+  if (m > 0 && (K % (A8 ? G : kChunk) != 0 || N % kBN != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kUnitChunks = A8 ? G / kChunk : 1;
+  const int units = K / (kChunk * kUnitChunks);
+  const int per = (units + splits - 1) / splits;
+  return launch_tiles<A8>(
+      [&](auto tl, dim3 grid, float* part) {
+        using TL = decltype(tl);
+        auto go = [&](auto* kernel) {
+          kernel<<<grid, kThreads, 0, stream>>>(
+              static_cast<const typename TL::T*>(x), xs,
+              static_cast<const uint32_t*>(qs),
+              static_cast<const __nv_bfloat16*>(scales),
+              static_cast<__nv_bfloat16*>(out), part, m, K, N,
+              per * kUnitChunks);
+        };
+        if constexpr (!A8 && TL::BM == 128) {
+          go(int8_mma_kernel_2blk<TL, G>);
+        } else {
+          go(int8_mma_kernel<TL, G>);
+        }
+      },
+      block_m, xs, out, partial, m, N, splits, stream);
 }
 
 // K9: one block per row. Pass 1 reduces |x| to the row's absmax, pass 2
@@ -607,4 +827,34 @@ extern "C" int quant8(const void* x, void* x8, float* xs, int m, int K,
         static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(x8), xs, K);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K13: y[m, N] = x[m, K] @ bf16(qs[K, N] * d[K / 32, N]), Q8_0 at rest.
+// block_m 16, 32 or 64 with splits >= 1 (m <= 64), else 128.
+extern "C" int gguf_q8_mm(const void* x, const void* qs, const void* d,
+                          void* out, float* partial, int m, int K, int N,
+                          int splits, int block_m, void* stream) {
+  return launch_int8<32, false>(x, nullptr, qs, d, out, partial, m, K, N,
+                                splits, block_m,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// K14: y[m, N] = x[m, K] @ bf16(qs[K, N] * d16[K / 16, N]), grouped int8.
+extern "C" int gguf_i8g_mm(const void* x, const void* qs, const void* d16,
+                           void* out, float* partial, int m, int K, int N,
+                           int splits, int block_m, void* stream) {
+  return launch_int8<16, false>(x, nullptr, qs, d16, out, partial, m, K, N,
+                                splits, block_m,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// K15: y[m, N] = bf16(xs[m] * sum_g s128[g] * (x8[m, g] . qs8[g])), x8
+// int8 rows from quant8, 128-row groups.
+extern "C" int gguf_w8a8_mm(const void* x8, const float* xs, const void* qs8,
+                            const void* s128, void* out, float* partial,
+                            int m, int K, int N, int splits, int block_m,
+                            void* stream) {
+  return launch_int8<128, true>(x8, xs, qs8, s128, out, partial, m, K, N,
+                                splits, block_m,
+                                static_cast<cudaStream_t>(stream));
 }

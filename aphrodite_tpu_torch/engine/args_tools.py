@@ -4,9 +4,9 @@ Reference: `aphrodite/engine/args_tools.py` (EngineArgs `:11`,
 add_cli_args `:52`, create_engine_configs `:278`, AsyncEngineArgs `:314`).
 Flag names are kept CLI-compatible with the reference so existing deploy
 scripts port over. In the PyTorch port, configurations outside its
-ported slices (LoRA, speculative decoding, multi-GPU, quantization
-other than GPTQ, KV quantization, sliding window) are refused here or
-by the config classes, naming the later slice that brings them.
+ported slices (LoRA, speculative decoding, multi-GPU, quantization other
+than GPTQ, AWQ and GGUF, GGUF's exact Q4_K form) are refused here or by
+the config classes, naming the later slice that brings them.
 """
 from __future__ import annotations
 

@@ -4,10 +4,12 @@ The JAX Llama keeps a flat tree `{bucket: {name: array}}` with linear
 weights laid out [in, out] (x @ W); the port keeps the same buckets
 with torch's [out, in] layout (F.linear). Embedding tables, the LM head
 ([vocab, hidden] on both sides) and norm weights carry over as they
-are, and so do quantized layers' tensors (GPTQ qweight, qzeros, scales
-and g_idx keep the checkpoint layout on both sides): only a dense 2-D
-`weight` transposes. Used to give both sides the same weights in parity
-tests.
+are, and so do quantized layers' tensors (GPTQ/AWQ qweight, qzeros,
+scales and g_idx keep the checkpoint layout on both sides; GGUF's
+at-rest qs, d, d16, qs8, s128, qweight, dl and ml are [in, out] on both
+sides): only a dense 2-D `weight` transposes, GGUF's dense `weight`
+included (the JAX GGUF method stores it [in, out], the port [out, in]).
+Used to give both sides the same weights in parity tests.
 """
 from __future__ import annotations
 

@@ -11,7 +11,12 @@ names for parity; with one GPU they shard nothing.
 Quantization plugs in through `LinearMethod` objects
 (`modeling/layers/quantization/`), which also say how a checkpoint
 tensor is converted (`load_weight`) and placed into a merged layer
-(`out_scale`).
+(`out_scale`). A method may store a checkpoint tensor under another
+name and add tensors beside it (GGUF's packed blocks repack into `qs`
+with their scales `d`): after `load_weight` it leaves the name in
+`pending_rename` and the extra tensors in `pending_sidecar`, and the
+layer's weight loader consumes both, placing the sidecar in the same
+output slice, as the JAX package's loaders do.
 """
 from __future__ import annotations
 
@@ -73,10 +78,31 @@ class LinearBase:
     def __call__(self, params: ParamDict, x: torch.Tensor) -> torch.Tensor:
         return self.linear_method.apply(params, x)
 
+    def _convert(self, params: ParamDict, name: str, hf_tensor
+                 ) -> Tuple[str, torch.Tensor]:
+        """(param name, tensor) of one checkpoint tensor: the method's
+        conversion, under its `pending_rename` when it sets one."""
+        converted = self.linear_method.load_weight(params, name, hf_tensor)
+        rename = getattr(self.linear_method, "pending_rename", None)
+        if rename:
+            name = rename
+            self.linear_method.pending_rename = None
+        return name, converted
+
+    def _take_sidecar(self) -> ParamDict:
+        """The method's pending sidecar tensors, cleared: one left pending
+        would leak into the next layer's shard placement."""
+        sidecar = getattr(self.linear_method, "pending_sidecar", None)
+        if not sidecar:
+            return {}
+        self.linear_method.pending_sidecar = None
+        return sidecar
+
     def weight_loader(self, params: ParamDict, name: str,
-                      hf_tensor: torch.Tensor, shard_id=None) -> None:
-        params[name] = self.linear_method.load_weight(params, name,
-                                                      hf_tensor)
+                      hf_tensor, shard_id=None) -> None:
+        name, converted = self._convert(params, name, hf_tensor)
+        params[name] = converted
+        params.update(self._take_sidecar())
 
 
 class ColumnParallelLinear(LinearBase):
@@ -90,10 +116,11 @@ class RowParallelLinear(LinearBase):
 class _ShardedLoadMixin(LinearBase):
     """Places one checkpoint tensor into its slice [offset, offset + size)
     of a merged layer's output dim. The dense `weight` ([out, in]) has it
-    first; every other parameter (bias, and the quantized qweight,
-    qzeros and scales, which keep the checkpoint's [.., out] layout) has
-    it last, with offsets divided by the method's `out_scale`. g_idx
-    spans the input dim and is the same for every shard."""
+    first; every other parameter (bias, the quantized qweight, qzeros and
+    scales, which keep the checkpoint's [.., out] layout, and GGUF's
+    at-rest [in, out] forms) has it last, with offsets divided by the
+    method's `out_scale`. g_idx spans the input dim and is the same for
+    every shard."""
 
     def _write_shard(self, params: ParamDict, name: str,
                      tensor: torch.Tensor, offset: int, size: int) -> None:
@@ -116,13 +143,14 @@ class _ShardedLoadMixin(LinearBase):
                 dtype=tensor.dtype, device=tensor.device)
         params[name][..., offset:offset + size] = tensor
 
-    def _load_shard(self, params: ParamDict, name: str,
-                    hf_tensor: torch.Tensor, offset: int,
-                    size: int) -> None:
-        self._write_shard(params, name,
-                          self.linear_method.load_weight(params, name,
-                                                         hf_tensor),
-                          offset, size)
+    def _load_shard(self, params: ParamDict, name: str, hf_tensor,
+                    offset: int, size: int) -> None:
+        """Convert one checkpoint tensor and write it, and the sidecar
+        tensors the conversion left pending, into the output slice."""
+        name, converted = self._convert(params, name, hf_tensor)
+        self._write_shard(params, name, converted, offset, size)
+        for pname, tensor in self._take_sidecar().items():
+            self._write_shard(params, pname, tensor, offset, size)
 
 
 class MergedColumnParallelLinear(_ShardedLoadMixin, ColumnParallelLinear):

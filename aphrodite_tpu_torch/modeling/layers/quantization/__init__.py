@@ -1,8 +1,8 @@
 """Quantization plug-in registry of the PyTorch port (port of
 `aphrodite_tpu/modeling/layers/quantization/__init__.py`).
 
-GPTQ and AWQ are ported so far; the other methods of the JAX package
-(gguf, squeezellm, int8, quip) are refused by `ModelConfig` before a
+GPTQ, AWQ and GGUF are ported so far; the other methods of the JAX
+package (squeezellm, int8, quip) are refused by `ModelConfig` before a
 model is built.
 """
 from __future__ import annotations
@@ -12,10 +12,12 @@ from typing import Type
 from aphrodite_tpu_torch.modeling.layers.quantization.awq import AWQConfig
 from aphrodite_tpu_torch.modeling.layers.quantization.base_config import (
     QuantizationConfig)
+from aphrodite_tpu_torch.modeling.layers.quantization.gguf import GGUFConfig
 from aphrodite_tpu_torch.modeling.layers.quantization.gptq import GPTQConfig
 
 _QUANTIZATION_CONFIG_REGISTRY = {
     "awq": AWQConfig,
+    "gguf": GGUFConfig,
     "gptq": GPTQConfig,
 }
 

@@ -8,7 +8,9 @@ Checkpoint layout, kept as it is on the device:
   g_idx   [in] int32 group index per input row
 
 Every matmul goes through the CUDA kernels of
-`ops/cuda/quant_matmul.py` (their plain versions for CPU tensors). Like
+`ops/cuda/quant_matmul.py` (their plain versions for CPU tensors),
+unless APHRODITE_DISABLE_PALLAS_QUANT=1 sends it, as in the JAX package,
+to the plain dequantize-then-matmul route (read per call). Like
 the JAX package's Pallas kernels they take row k's group to be
 k // group_size and do not read g_idx: real desc_act=False checkpoints
 store exactly that g_idx, and desc_act=True is refused by the config.
@@ -104,6 +106,13 @@ class GPTQLinearMethod(LinearMethod):
     def apply(self, params: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
+        if flags.get_bool("APHRODITE_DISABLE_PALLAS_QUANT"):
+            # The JAX package's dequantize-then-matmul route (read per
+            # call): scales gathered by g_idx, no int8 activations.
+            y = x @ self.dequantize(params, x.dtype)
+            if "bias" in params:
+                y = y + params["bias"]
+            return y
         in_features = params["g_idx"].shape[0]
         out_features = params["scales"].shape[1]
         lead = x.shape[:-1]

@@ -5,12 +5,15 @@ slice needs).
 `load_format="dummy"` follows the JAX package's
 `initialize_dummy_params`, drawing on the device from a
 `torch.Generator` seeded with the model seed: every floating parameter
-uniformly from [-1e-3, 1e-3]; packed quantized payloads (GPTQ qweight
-and qzeros) uniformly over the whole int32 range, so the codes are
-random bit patterns; index-like integers (g_idx) zero. Checkpoint
+uniformly from [-1e-3, 1e-3]; packed quantized payloads (GPTQ/AWQ
+qweight and qzeros, GGUF's int8 qs and qs8) uniformly over their whole
+integer range, so the codes are random bit patterns; index-like integers (g_idx) zero. Checkpoint
 formats read local files; `safetensors` is imported only when a
-safetensors checkpoint is asked for. Integer tensors are never cast to
-the model dtype.
+safetensors checkpoint is asked for. A single-file `.gguf` checkpoint
+is read by `modeling/gguf.py`: with quantization="gguf" its
+block-quantized projections stay packed (`RawGGUF`, repacked by the
+GGUF linear method), otherwise everything dequantizes at load and the
+model runs dense. Integer tensors are never cast to the model dtype.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import glob
 import os
 from typing import Dict, Iterator, Tuple
 
+import numpy as np
 import torch
 
 from aphrodite_tpu_torch.common.config import ModelConfig
@@ -34,7 +38,7 @@ DTYPES = {
 DUMMY_SCALE = 1e-3
 # Integer parameters that carry data (random bits); other integer
 # parameters are indices and stay zero.
-_RANDOM_INT_PARAMS = ("qweight", "qzeros")
+_RANDOM_INT_PARAMS = ("qweight", "qzeros", "qs", "qs8")
 
 
 def _get_model_architecture(config) -> type:
@@ -67,8 +71,22 @@ def initialize_dummy_params(model, device: torch.device, seed: int = 0,
     return params
 
 
-def _weights_iterator(model_path: str, load_format: str
-                      ) -> Iterator[Tuple[str, torch.Tensor]]:
+def _gguf_weights(path: str, at_rest: bool) -> Iterator[Tuple[str, object]]:
+    """(name, tensor) of a `.gguf` file: CPU tensors, or RawGGUF packed
+    blocks for the at-rest path."""
+    from aphrodite_tpu_torch.modeling.gguf import (RawGGUF,
+                                                   gguf_weights_iterator)
+    for name, arr in gguf_weights_iterator(path, at_rest=at_rest):
+        yield name, arr if isinstance(arr, RawGGUF) else \
+            torch.from_numpy(np.array(arr))
+
+
+def _weights_iterator(model_path: str, load_format: str,
+                      gguf_at_rest: bool = False
+                      ) -> Iterator[Tuple[str, object]]:
+    if model_path.endswith(".gguf") and os.path.isfile(model_path):
+        yield from _gguf_weights(model_path, gguf_at_rest)
+        return
     files = sorted(glob.glob(os.path.join(model_path, "*.safetensors")))
     if load_format == "safetensors" or (load_format == "auto" and files):
         if not files:
@@ -106,8 +124,9 @@ def get_model(model_config: ModelConfig,
     if model_config.load_format == "dummy":
         return model, initialize_dummy_params(model, device,
                                               seed=model_config.seed)
-    params = model.load_weights(_weights_iterator(model_config.model,
-                                                  model_config.load_format))
+    params = model.load_weights(_weights_iterator(
+        model_config.model, model_config.load_format,
+        gguf_at_rest=model_config.quantization == "gguf"))
     params = {key: {name: t.to(device=device, dtype=dtype)
                     if t.is_floating_point() else t.to(device)
                     for name, t in bucket.items()}

@@ -1,7 +1,9 @@
-"""GPTQ and AWQ dequant matmuls and int8 activation quantization: the
-CUDA kernels of `csrc/quant_matmul.cu` and their plain PyTorch versions.
+"""GPTQ, AWQ and GGUF quantized matmuls and int8 activation
+quantization: the CUDA kernels of `csrc/quant_matmul.cu` and their plain
+PyTorch versions.
 
-Port of the GPTQ and AWQ parts of `aphrodite_tpu/ops/pallas/quant_matmul.py`:
+Port of the GPTQ, AWQ and GGUF parts of
+`aphrodite_tpu/ops/pallas/quant_matmul.py`:
 
 - `gptq_matmul` (W4A16, 4 or 8 bits): y = x @ dequant(W). At m <= 64
   (decode steps) the weight-streaming kernel (K7, Pallas
@@ -20,6 +22,17 @@ Port of the GPTQ and AWQ parts of `aphrodite_tpu/ops/pallas/quant_matmul.py`:
 - `quantize_activations_int8` (K9, Pallas `_quant8_kernel`): per-row
   xs = max(absmax, 1e-8) / 127 and x8 = clip(round(x / xs), -127, 127),
   rounding half to even.
+- GGUF at-rest forms, int8 weights qs [K, N] with a scale row per group
+  of G input rows (scales [K/G, N]), no zero point:
+  `gguf_q8_matmul` (K13, Pallas `_gguf_q8_kernel`; Q8_0, G 32) and
+  `gguf_i8g_matmul` (K14, Pallas `_gguf_i8g_kernel`; grouped int8, G
+  16) dequantize in the tile, (q * d) rounded to x's dtype, then bf16
+  products with f32 sums; `gguf_w8a8_matmul` (K15, Pallas
+  `_gguf_w8a8_kernel`; the turbo form, G 128) runs K9 on x, then per
+  128-row group an exact int32 dot times the group's scale row added in
+  f32 in group order, times xs at the end. One kernel takes every m
+  (the Pallas wrappers have no skinny variant): at m <= 64 it covers
+  16-64 rows per block and splits K like K7, else 128 rows.
 
 Layouts, as the checkpoints store them; scales [G, N], G = K //
 group_size, row k in group k // group_size (the kernels' contiguous
@@ -64,6 +77,9 @@ AWQ_MATMUL_STREAM_A8_LAUNCHES = build.launch_counter(
     "awq_matmul_stream_a8")
 QUANTIZE_ACTIVATIONS_INT8_LAUNCHES = build.launch_counter(
     "quantize_activations_int8")
+GGUF_Q8_MATMUL_LAUNCHES = build.launch_counter("gguf_q8_matmul")
+GGUF_I8G_MATMUL_LAUNCHES = build.launch_counter("gguf_i8g_matmul")
+GGUF_W8A8_MATMUL_LAUNCHES = build.launch_counter("gguf_w8a8_matmul")
 
 STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
 BLOCK_N = 128              # output columns per block
@@ -91,6 +107,21 @@ def awq_supported(in_features: int, out_features: int,
     return (in_features % group_size == 0 and
             128 <= group_size <= 1024 and
             out_features % 1024 == 0)
+
+
+def gguf_q8_supported(in_features: int, out_features: int) -> bool:
+    """Shapes K13 takes (the JAX package's gate, copied)."""
+    return in_features % 256 == 0 and out_features % 128 == 0
+
+
+def gguf_i8g_supported(in_features: int, out_features: int) -> bool:
+    """Shapes K14 takes (the JAX package's gate, copied)."""
+    return in_features % 256 == 0 and out_features % 128 == 0
+
+
+def gguf_w8a8_supported(in_features: int, out_features: int) -> bool:
+    """Shapes K15 takes (the JAX package's gate, copied)."""
+    return in_features % 128 == 0 and out_features % 128 == 0
 
 
 # ------------------------------------------------------ plain versions --
@@ -158,15 +189,22 @@ def _a8(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     group's scale row, added in group order; then times xs and rounded to
     x's dtype."""
     x8, xs = quantize_activations_int8_plain(x)
+    return _a8_rows(x8, xs, codes, scales, gs, x.dtype)
+
+
+def _a8_rows(x8: torch.Tensor, xs: torch.Tensor, codes: torch.Tensor,
+             scales: torch.Tensor, gs: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """`_a8` on given int8 rows x8 [m, K] and their scales xs [m, 1]."""
     codes = codes.float()
     s = scales.float()
     xq = x8.float()
-    acc = torch.zeros(x.shape[0], codes.shape[1], dtype=torch.float32,
-                      device=x.device)
-    for g in range(x.shape[1] // gs):
+    acc = torch.zeros(x8.shape[0], codes.shape[1], dtype=torch.float32,
+                      device=x8.device)
+    for g in range(x8.shape[1] // gs):
         d = xq[:, g * gs:(g + 1) * gs] @ codes[g * gs:(g + 1) * gs]
         acc += d * s[g]
-    return (acc * xs).to(x.dtype)
+    return (acc * xs).to(dtype)
 
 
 def dequantize_plain(qweight: torch.Tensor, qzeros: torch.Tensor,
@@ -237,6 +275,36 @@ def awq_matmul_a8_plain(x: torch.Tensor, qweight: torch.Tensor,
     integer dots per group (AWQ codes minus zeros lie in [-15, 15])."""
     return _a8(x, _awq_codes(qweight, qzeros, group_size), scales,
                group_size)
+
+
+def gguf_q8_matmul_plain(x: torch.Tensor, qs: torch.Tensor,
+                         d: torch.Tensor) -> torch.Tensor:
+    """Plain version of K13: W = (qs * d[k // 32]) in f32, rounded to x's
+    dtype; the products summed in f32; the result in x's dtype."""
+    return _a16(x, _dequant(qs, d, 32, x.dtype))
+
+
+def gguf_i8g_matmul_plain(x: torch.Tensor, qs: torch.Tensor,
+                          d16: torch.Tensor) -> torch.Tensor:
+    """Plain version of K14: as K13's with a scale row per 16 rows."""
+    return _a16(x, _dequant(qs, d16, 16, x.dtype))
+
+
+def gguf_w8a8_matmul_plain(x: torch.Tensor, qs8: torch.Tensor,
+                           s128: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9 then K15: `_a8`'s exact integer dots per
+    128-row group, each times its scale row, added in group order, then
+    times xs."""
+    return _a8(x, qs8, s128, 128)
+
+
+def gguf_w8a8_launch_plain(x8: torch.Tensor, xs: torch.Tensor,
+                           qs8: torch.Tensor, s128: torch.Tensor,
+                           dtype: torch.dtype = torch.bfloat16
+                           ) -> torch.Tensor:
+    """Plain version of K15 alone (`gguf_w8a8_launch`) on K9's rows x8
+    and their scales xs; the result in `dtype`."""
+    return _a8_rows(x8, xs, qs8, s128, 128, dtype)
 
 
 # ------------------------------------------------------------ kernels --
@@ -447,3 +515,109 @@ def awq_matmul_a8(x: torch.Tensor, qweight: torch.Tensor,
                    counter=AWQ_MATMUL_STREAM_A8_LAUNCHES if use_stream
                    else AWQ_MATMUL_A8_LAUNCHES, what="awq_matmul_a8",
                    awq=True)
+
+
+# --------------------------------------------------------------- GGUF --
+
+def _check_gguf(x, qs, scales, G: int, what: str,
+                want_x: torch.dtype = torch.bfloat16) -> Tuple[int, int, int]:
+    """Validate a GGUF kernel's inputs; returns (m, K, N)."""
+    if x.dim() != 2 or x.dtype != want_x:
+        raise TypeError(f"{what}: x must be 2-D {want_x}, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    if qs.dtype != torch.int8 or scales.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: weights must be int8 with bfloat16 "
+                        f"scales, got {qs.dtype} and {scales.dtype}")
+    m, K = x.shape
+    N = qs.shape[-1]
+    if K % 128 or N % BLOCK_N:
+        raise ValueError(f"{what}: K {K} and N {N} must be multiples of "
+                         f"128")
+    if tuple(qs.shape) != (K, N) or tuple(scales.shape) != (K // G, N):
+        raise ValueError(f"{what}: shapes qs {tuple(qs.shape)}, scales "
+                         f"{tuple(scales.shape)} do not fit x "
+                         f"{tuple(x.shape)} with a scale per {G} rows")
+    for t in (x, qs, scales):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
+    return m, K, N
+
+
+def _gguf_launch(entry: str, x, xs, qs, scales, *,
+                 counter: build.LaunchCounter, what: str) -> torch.Tensor:
+    """One launch of a GGUF entry point on (bf16 x) or, with xs, (int8
+    rows x and their scales xs). At m <= 64 the block covers 16-64 rows
+    and the K range is split over blocks in units of 64 rows (K13, K14)
+    or of a 128-row scale group (K15), as `_tiling` splits K7's."""
+    m, K = x.shape
+    N = qs.shape[1]
+    unit = 128 if xs is not None else 64
+    block_m, splits = _tiling(m, K, N, unit, m <= STREAM_M_MAX)
+    out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((splits, m, N), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None
+    ptrs = (x.data_ptr(),) + ((xs.data_ptr(),) if xs is not None else ()) \
+        + (qs.data_ptr(), scales.data_ptr(), out.data_ptr(),
+           build.ptr(partial))
+    tail = (m, K, N, splits, block_m)
+    fn = getattr(build.library("quant_matmul"), entry)
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
+        [ctypes.c_int] * len(tail) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*ptrs, *tail, build.stream_of(x))
+    counter.add()
+    build.check(err, what)
+    return out
+
+
+def gguf_q8_matmul(x: torch.Tensor, qs: torch.Tensor,
+                   d: torch.Tensor) -> torch.Tensor:
+    """y [m, N] = x [m, K] @ (int8 qs [K, N] * d [K/32, N]), Q8_0 at rest
+    (K13)."""
+    if not build.on_cuda(x, qs, d):
+        return gguf_q8_matmul_plain(x, qs, d)
+    _check_gguf(x, qs, d, 32, "gguf_q8_matmul")
+    return _gguf_launch("gguf_q8_mm", x, None, qs, d,
+                        counter=GGUF_Q8_MATMUL_LAUNCHES,
+                        what="gguf_q8_matmul")
+
+
+def gguf_i8g_matmul(x: torch.Tensor, qs: torch.Tensor,
+                    d16: torch.Tensor) -> torch.Tensor:
+    """y [m, N] = x [m, K] @ (int8 qs [K, N] * d16 [K/16, N]), the
+    grouped-int8 at-rest form (K14)."""
+    if not build.on_cuda(x, qs, d16):
+        return gguf_i8g_matmul_plain(x, qs, d16)
+    _check_gguf(x, qs, d16, 16, "gguf_i8g_matmul")
+    return _gguf_launch("gguf_i8g_mm", x, None, qs, d16,
+                        counter=GGUF_I8G_MATMUL_LAUNCHES,
+                        what="gguf_i8g_matmul")
+
+
+def gguf_w8a8_launch(x8: torch.Tensor, xs: torch.Tensor, qs8: torch.Tensor,
+                     s128: torch.Tensor) -> torch.Tensor:
+    """K15 alone on K9's int8 rows x8 [m, K] and their scales xs [m, 1];
+    bf16 out."""
+    if not build.on_cuda(x8, xs, qs8, s128):
+        return gguf_w8a8_launch_plain(x8, xs, qs8, s128)
+    m, K, N = _check_gguf(x8, qs8, s128, 128, "gguf_w8a8_matmul",
+                          want_x=torch.int8)
+    if xs.dtype != torch.float32 or tuple(xs.shape) != (m, 1) or \
+            not xs.is_contiguous():
+        raise ValueError("gguf_w8a8_matmul: xs must be contiguous float32 "
+                         f"[{m}, 1], got {tuple(xs.shape)} {xs.dtype}")
+    return _gguf_launch("gguf_w8a8_mm", x8, xs, qs8, s128,
+                        counter=GGUF_W8A8_MATMUL_LAUNCHES,
+                        what="gguf_w8a8_matmul")
+
+
+def gguf_w8a8_matmul(x: torch.Tensor, qs8: torch.Tensor,
+                     s128: torch.Tensor) -> torch.Tensor:
+    """W8A8, the GGUF turbo form: x quantized per row to int8 (K9), then
+    y [m, N] = xs * sum_g s128[g] * (x8[:, g] . qs8[g]) over 128-row
+    groups (K15)."""
+    if not build.on_cuda(x, qs8, s128):
+        return gguf_w8a8_matmul_plain(x, qs8, s128)
+    _check_gguf(x, qs8, s128, 128, "gguf_w8a8_matmul")  # before K9
+    x8, xs = quantize_activations_int8(x)
+    return gguf_w8a8_launch(x8, xs, qs8, s128)

@@ -1,5 +1,5 @@
 """Model config loading for the PyTorch port: `config.json` read with
-`json` alone.
+`json` alone, or a `.gguf` file's metadata.
 
 The JAX package loads configs through `transformers.AutoConfig`
 (`aphrodite_tpu/transformers_utils/config.py:6`). The port runs where
@@ -59,10 +59,15 @@ def get_config(model: str,
                trust_remote_code: bool = False,
                revision: Optional[str] = None) -> ModelJsonConfig:
     """Read `<model>/config.json` (a local directory; the port has no
-    hub access). `trust_remote_code` and `revision` are accepted for
-    signature parity with the JAX package and do not apply to a local
-    JSON file."""
+    hub access), or a single-file `.gguf` checkpoint's metadata.
+    `trust_remote_code` and `revision` are accepted for signature parity
+    with the JAX package and do not apply to a local file."""
     del trust_remote_code, revision
+    if model.endswith(".gguf"):
+        # Single-file GGUF checkpoint: the config comes from its metadata
+        # (reference `transformers_utils/config.py:77-78`).
+        from aphrodite_tpu_torch.modeling.gguf import extract_gguf_config
+        return extract_gguf_config(model)
     path = os.path.join(model, "config.json")
     if not os.path.isfile(path):
         raise ValueError(

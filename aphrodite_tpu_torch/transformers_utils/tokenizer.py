@@ -26,10 +26,94 @@ _INITIAL_INCREMENTAL_DETOKENIZATION_OFFSET = 5
 
 
 def convert_gguf_to_tokenizer(checkpoint: str):
-    """GGUF checkpoints (and their embedded tokenizers) are refused by
-    the port's ModelConfig; they arrive with the quantized kernels."""
-    from aphrodite_tpu_torch.common.config import refuse
-    refuse(f"GGUF tokenizer {checkpoint!r}", "the quantized matmul kernels")
+    """Build a fast tokenizer from GGUF `tokenizer.ggml.*` metadata
+    (reference `transformers_utils/tokenizer.py:17-70`).
+
+    The reference serializes a sentencepiece ModelProto and loads it via
+    the slow LlamaTokenizer (needs the sentencepiece package). Here the
+    proto goes straight through transformers' LlamaConverter — which
+    parses it with protobuf only — yielding the fast tokenizer directly.
+    """
+    import tempfile
+
+    from transformers import PreTrainedTokenizerFast
+    from transformers.convert_slow_tokenizer import (LlamaConverter,
+                                                     import_protobuf)
+
+    from aphrodite_tpu_torch.modeling.gguf import GGUFReader
+
+    reader = GGUFReader(checkpoint)
+    fields = reader.fields
+    tokens = fields["tokenizer.ggml.tokens"]
+    scores = fields.get("tokenizer.ggml.scores",
+                        [0.0] * len(tokens))
+    types = fields.get("tokenizer.ggml.token_type", [1] * len(tokens))
+
+    unk_id = int(fields.get("tokenizer.ggml.unknown_token_id", 0))
+    model_pb2 = import_protobuf()
+    proto = model_pb2.ModelProto()
+    proto.trainer_spec.model_type = 2          # BPE
+    proto.trainer_spec.vocab_size = len(tokens)
+    proto.trainer_spec.byte_fallback = True
+    proto.trainer_spec.unk_piece = tokens[unk_id]
+    proto.normalizer_spec.remove_extra_whitespaces = False
+    for piece, score, ttype in zip(tokens, scores, types):
+        sp = proto.SentencePiece()
+        sp.piece = piece
+        sp.score = float(score)
+        sp.type = int(ttype)
+        proto.pieces.append(sp)
+
+    with tempfile.NamedTemporaryFile(mode="wb", suffix=".model",
+                                     delete=False) as f:
+        f.write(proto.SerializeToString())
+        vocab_file = f.name
+
+    def tok_of(field, default):
+        idx = fields.get(field)
+        return tokens[int(idx)] if idx is not None and \
+            int(idx) < len(tokens) else default
+
+    class _SlowShim:
+        """The minimal surface LlamaConverter reads from a slow
+        tokenizer: the proto path, legacy flags, and id->token for the
+        first three (special) pieces."""
+        def __init__(self):
+            self.vocab_file = vocab_file
+            self.legacy = True
+            self.add_prefix_space = True
+
+        def convert_ids_to_tokens(self, idx):
+            return tokens[idx]
+
+    class _MergesExtractor:
+        """Drop-in for SentencePieceExtractor: transformers only uses it
+        to derive BPE merges, and its generate_merges helper needs just
+        (vocab, scores) — no sentencepiece dependency."""
+        def __init__(self, _path):
+            pass
+
+        def extract(self, vocab_scores):
+            from transformers.convert_slow_tokenizer import \
+                generate_merges
+            vocab = {piece: i for i, (piece, _) in
+                     enumerate(vocab_scores)}
+            return vocab, generate_merges(vocab, vocab_scores)
+
+    class _Converter(LlamaConverter):
+        SpmExtractor = _MergesExtractor
+
+    try:
+        fast = _Converter(_SlowShim()).converted()
+    finally:
+        os.unlink(vocab_file)
+    return PreTrainedTokenizerFast(
+        tokenizer_object=fast,
+        bos_token=tok_of("tokenizer.ggml.bos_token_id", "<s>"),
+        eos_token=tok_of("tokenizer.ggml.eos_token_id", "</s>"),
+        unk_token=tokens[unk_id],
+        pad_token=tok_of("tokenizer.ggml.padding_token_id", None),
+    )
 
 
 def get_tokenizer(

@@ -115,7 +115,44 @@ Phases, in order; any failure exits non-zero:
    the same calls on the CPU, and the tokens drawn equal; one seeded
    request (temperature 0.8) served alone and in a batch of 8 gives the
    same tokens.
-13. Prints the kernel JSON line (launches summed over every path
+13. GGUF kernels vs plain versions at the same four projections, m 1,
+   8, 64, 512 and 4096, through the wrappers the engine calls:
+   `gguf_q8_matmul` (K13, a bf16 scale row per 32 input rows),
+   `gguf_i8g_matmul` (K14, per 16 rows) and `gguf_w8a8_matmul` (K9,
+   then K15, per 128 rows). Weights are quantized on the card from an
+   N(0, 0.02) weight as the at-rest forms hold real ones (codes in
+   [-127, 127], K14's Q6_K-shaped in [-32, 31]). Phase 8's tolerance;
+   each case timed as phase 8 times them (K15 alone on K9's rows, with a
+   check that it equals the wrapper's output), the plain version and the
+   library yardstick (torch.matmul over the weight dequantized to bf16
+   beforehand, twice the int8 bytes) at m 8 and 4096.
+14. End to end with dummy GGUF weights (quantization="gguf", seed 0) in
+   the JAX bench's three at-rest forms: the default turbo form (K9 +
+   K15), BENCH_GGUF_FMT=q8_0 (K13) and BENCH_GGUF_FMT=q6_k (K14).
+   Phase 4's mix at multi_step 1 in each, and the 96-request round in
+   the turbo form. Each form must launch its kernel and neither of the
+   other two, and K1, K2 and K4. The KV pool's page count is logged
+   beside bf16's, and a batch-8 decode step profiled as in phase 9 (the
+   GGUF matmuls' device time beside their weight-streaming bound).
+15. A `.gguf` file through the loader: the script writes (under the
+   gitignored `build/`, deleted after) a 2-layer Llama at Mistral-7B
+   width with a 32000-token `tokenizer.ggml.*` vocabulary: F32 norms,
+   F16 embeddings and output, attn_q/attn_k Q4_0 beside attn_v Q8_0 (a
+   mixed group, K14), attn_output and ffn_down Q8_0 (K13), ffn_gate and
+   ffn_up Q4_0 (turbo, K15). Loaded with quantization="gguf", bf16,
+   skip_tokenizer_init; each bucket's at-rest form is asserted; 8 greedy
+   requests (phase 4's mix) must launch all three kernels; a prompt and 3
+   decode steps are held against the same model run through the plain
+   versions: each GGUF matmul against its plain version on the same
+   activations (phase 8's tolerance), the logits within 2e-2 of max
+   |logit| with the plain K15 on the int8 rows K9 gave the kernel run
+   (a code flipped by an upstream bf16 sum-order difference moves a
+   product by a whole step; the plain path on its own rows, and the
+   share of codes that flipped, are logged beside it). Three controls,
+   the held plain path with K15's scale rows shifted by one group, K14's
+   d16 read per 32 rows, or K13's d shifted by one group, must each miss
+   2e-2.
+16. Prints the kernel JSON line (launches summed over every path
    above), the card line, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -489,14 +526,7 @@ def check_model_against_plain(torch):
     attention shapes the output: prompt (page-aligned -> K2) and 3
     decode steps (K1 fused) through the kernels vs through the plain
     versions; logits within 2e-2 of max |logit|."""
-    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
-    from aphrodite_tpu_torch.common.sequence import (SequenceData,
-                                                     SequenceGroupMetadata)
-    from aphrodite_tpu_torch.executor.model_runner import ModelRunner
-    from aphrodite_tpu_torch.modeling.layers import attention
     from aphrodite_tpu_torch.modeling.models.llama import LlamaForCausalLM
-    from aphrodite_tpu_torch.ops.cuda import kv_write as kw
-    from aphrodite_tpu_torch.ops.cuda import paged_attention as pa
     from aphrodite_tpu_torch.transformers_utils.config import (
         config_from_dict)
 
@@ -511,6 +541,37 @@ def check_model_against_plain(torch):
     for key, bucket in params.items():
         if key.endswith("layernorm") or key == "model.norm":
             bucket["weight"].fill_(1.0)
+    compare_with_plain(torch, model, params, "full-width 2-layer model")
+
+
+def compare_with_plain(torch, model, params, label: str,
+                       rel_tol: float = 2e-2, w8a8_rows: bool = False
+                       ) -> float:
+    """`model` over `params` (2 layers), a prompt (page-aligned -> K2)
+    and 3 decode steps (K1 fused) through the kernels vs through their
+    plain versions (attention, writers and the GGUF matmuls); logits
+    within `rel_tol` of max |logit|. In the kernel run every GGUF matmul
+    is also held to its plain version on the same activations (phase 8's
+    tolerance). With `w8a8_rows` the plain K15 takes the int8 rows K9
+    gave the kernel run (call by call), so that a code flipped by an
+    upstream bf16 sum-order difference does not count against the
+    kernels; the plain path on its own rows is logged beside it, with the
+    share of codes that flipped. Then three controls, each the held
+    plain path with one GGUF matmul made wrong (K15's scale rows shifted
+    by one group, K14's d16 read per 32 rows, K13's d shifted by one
+    group), must each miss `rel_tol`, or the comparison could not see
+    such a fault. Returns the largest held relative error."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.common.sequence import (SequenceData,
+                                                     SequenceGroupMetadata)
+    from aphrodite_tpu_torch.executor.model_runner import ModelRunner
+    from aphrodite_tpu_torch.modeling.layers import attention
+    from aphrodite_tpu_torch.ops.cuda import kv_write as kw
+    from aphrodite_tpu_torch.ops.cuda import paged_attention as pa
+    from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
+
+    cfg = model.config
+    dev = torch.device("cuda")
 
     class _Cfg:
         def get_vocab_size(self):
@@ -519,8 +580,57 @@ def check_model_against_plain(torch):
         def get_sliding_window(self):
             return None
     page_size, num_pages = 32, 16
+    plain_versions = {
+        (attention, "write_kv_pages"):
+            lambda k, v, kp, vp, s, **_: kw.write_kv_pages_plain(
+                k, v, kp, vp, s),
+        (attention, "write_kv_pages_prefill"):
+            lambda k, v, kp, vp, pid, sb, vld:
+            kw.write_kv_pages_prefill_plain(k, v, kp, vp, pid, vld),
+        (attention, "paged_decode_attention"):
+            pa.paged_decode_attention_plain,
+        (qmm, "gguf_q8_matmul"): qmm.gguf_q8_matmul_plain,
+        (qmm, "gguf_i8g_matmul"): qmm.gguf_i8g_matmul_plain,
+        (qmm, "gguf_w8a8_matmul"): qmm.gguf_w8a8_matmul_plain,
+    }
 
-    def run(plain: bool):
+    per_call = {}
+    k9_rows = []            # (x8, xs) of every K15 call of the kernel run
+
+    def checked(name):
+        kernel, plain_fn = getattr(qmm, name), getattr(qmm, name + "_plain")
+
+        def fn(*args):
+            got = kernel(*args)
+            err = check_close(torch, got, plain_fn(*args),
+                              f"{label}: {name} on the model's activations")
+            per_call[name] = max(per_call.get(name, 0.0), err)
+            if name == "gguf_w8a8_matmul":
+                k9_rows.append(qmm.quantize_activations_int8(args[0]))
+            return got
+        return fn
+    kernel_checks = {(qmm, name): checked(name) for name in GGUF_MATMULS}
+
+    flips = []              # (codes that differ, codes, largest difference)
+
+    def on_k9_rows(scales=lambda s128: s128):
+        """The plain versions, with K15 on the kernel run's int8 rows,
+        call by call (a fresh pass over them for every run)."""
+        rows = iter(k9_rows)
+
+        def fn(x, qs8, s128):
+            x8, xs = next(rows)
+            if x8.shape != x.shape:
+                fail(f"{label}: K15 call order differs between the runs")
+            own8, _ = qmm.quantize_activations_int8_plain(x)
+            diff = (own8.int() - x8.int()).abs()
+            flips.append((int((diff > 0).sum()), diff.numel(),
+                          int(diff.max())))
+            return qmm.gguf_w8a8_launch_plain(x8, xs, qs8, scales(s128),
+                                              x.dtype)
+        return {**plain_versions, (qmm, "gguf_w8a8_matmul"): fn}
+
+    def run(versions):
         runner = ModelRunner(model, params, _Cfg(), None, page_size,
                              num_pages * page_size, dev)
         kv = [(torch.zeros(num_pages, page_size, HKV * HEAD_DIM,
@@ -529,18 +639,9 @@ def check_model_against_plain(torch):
                            dtype=torch.bfloat16, device=dev))
               for _ in range(2)]
         saved = {}
-        if plain:
-            saved = {n: getattr(attention, n) for n in (
-                "write_kv_pages", "write_kv_pages_prefill",
-                "paged_decode_attention")}
-            attention.write_kv_pages = \
-                lambda k, v, kp, vp, s, **_: kw.write_kv_pages_plain(
-                    k, v, kp, vp, s)
-            attention.write_kv_pages_prefill = \
-                lambda k, v, kp, vp, pid, sb, vld: \
-                kw.write_kv_pages_prefill_plain(k, v, kp, vp, pid, vld)
-            attention.paged_decode_attention = \
-                pa.paged_decode_attention_plain
+        for (mod, name), fn in versions.items():
+            saved[(mod, name)] = getattr(mod, name)
+            setattr(mod, name, fn)
         try:
             tokens = [(i * 37 + 11) % 32000 for i in range(64)]
             table = [3, 9, 4, 12]
@@ -562,24 +663,62 @@ def check_model_against_plain(torch):
                 row = logits[0].float()
                 logits_all.append(row)
                 tokens.append(int(row.argmax()))
+            torch.cuda.synchronize()
             return logits_all, tokens
         finally:
-            for n, f in saved.items():
-                setattr(attention, n, f)
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
 
-    got, got_tokens = run(plain=False)
-    want, want_tokens = run(plain=True)
-    torch.cuda.synchronize()
-    worst = 0.0
-    for g, w in zip(got, want):
-        rel = ((g - w).abs().max() / w.abs().max()).item()
-        if not torch.isfinite(g).all() or rel > 2e-2:
-            fail(f"full-width model: kernel path vs plain path logits "
-                 f"differ by {rel} of max |logit|")
-        worst = max(worst, rel)
-    log(f"full-width 2-layer model, prompt + 3 decode steps: kernel path "
-        f"vs plain path logits max rel err {worst}; tokens "
-        f"{got_tokens[64:]} vs {want_tokens[64:]}")
+    def rel_errs(got, want):
+        return [((g - w).abs().max() / w.abs().max()).item()
+                for g, w in zip(got, want)]
+
+    got, got_tokens = run(kernel_checks)
+    want, want_tokens = run(plain_versions)
+    rels = rel_errs(got, want)
+    held = "plain path"
+    if w8a8_rows:
+        own_rels = rels
+        log(f"{label}: plain path on its own int8 rows (a reading, not "
+            f"held): logits rel err per step {own_rels}")
+        want, want_tokens = run(on_k9_rows())
+        rels = rel_errs(got, want)
+        n_diff, n_all, top = (sum(f[0] for f in flips),
+                              sum(f[1] for f in flips),
+                              max(f[2] for f in flips))
+        log(f"{label}: K9 on the plain path's activations vs on the kernel "
+            f"path's: {n_diff} of {n_all} int8 codes differ "
+            f"({n_diff / n_all:.2e}; at most by {top}) over "
+            f"{len(flips)} K15 calls")
+        held = "plain path on the kernel run's int8 rows"
+    log(f"{label}, prompt + 3 decode steps: kernel path vs {held}: "
+        f"logits rel err per step {rels} (tolerance {rel_tol}; max |logit| "
+        f"{max(w.abs().max().item() for w in want):.3f}); tokens "
+        f"{got_tokens[64:]} vs {want_tokens[64:]}"
+        + (f"; each GGUF matmul vs its plain version on the same "
+           f"activations, max err {per_call}" if per_call else ""))
+    if not all(torch.isfinite(g).all() for g in got) or max(rels) > rel_tol:
+        fail(f"{label}: kernel path vs {held}: logits differ by "
+             f"{max(rels)} of max |logit|")
+    if w8a8_rows:
+        controls = {
+            "K15 with its scale rows shifted by one group":
+                on_k9_rows(lambda s128: torch.roll(s128, 1, 0)),
+            "K14 reading d16 per 32 rows": {
+                **on_k9_rows(), (qmm, "gguf_i8g_matmul"): lambda x, qs, d16:
+                qmm.gguf_q8_matmul_plain(x, qs, d16[:qs.shape[0] // 32])},
+            "K13 with its d rows shifted by one group": {
+                **on_k9_rows(), (qmm, "gguf_q8_matmul"): lambda x, qs, d:
+                qmm.gguf_q8_matmul_plain(x, qs, torch.roll(d, 1, 0))},
+        }
+        for what, versions in controls.items():
+            c_rels = rel_errs(got, run(versions)[0])
+            log(f"{label}: control, {what}: logits rel err per step "
+                f"{c_rels} (must exceed {rel_tol})")
+            if max(c_rels) <= rel_tol:
+                fail(f"{label}: the comparison cannot see {what}: "
+                     f"{max(c_rels)} <= {rel_tol}")
+    return max(rels)
 
 
 # ------------------------------------------------ GPTQ and AWQ kernels --
@@ -762,6 +901,212 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
     return out
 
 
+# ------------------------------------------------------- GGUF kernels --
+
+# (name in the kernel JSON, JSON key, group rows G, Pallas body line)
+GGUF_KERNELS = {"k13": ("gguf_q8_matmul", 32, 1210),
+                "k14": ("gguf_i8g_matmul", 16, 1476),
+                "k15": ("gguf_w8a8_matmul", 128, 1551)}
+GGUF_MS = (1, 8, 64, 512, 4096)
+
+
+def gguf_weights(torch, key, K, N, seed):
+    """int8 codes and bf16 scale rows quantized from an N(0, 0.02) weight
+    as the at-rest forms hold real ones: symmetric absmax per G-row group,
+    codes in [-127, 127] (K14 Q6_K-shaped: amax / 31, codes in [-32,
+    31])."""
+    G = GGUF_KERNELS[key][1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(K // G, G, N, generator=gen, device="cuda") * 0.02
+    top = 31 if key == "k14" else 127
+    s = w.abs().amax(dim=1) / top
+    q = torch.clamp(torch.round(w / s[:, None]), -top - (key == "k14"),
+                    top).to(torch.int8)
+    return q.view(K, N), s.to(torch.bfloat16)
+
+
+def gguf_layer_bytes(key, K, N):
+    """int8 codes and bf16 scale rows of one GGUF projection."""
+    return K * N + K // GGUF_KERNELS[key][1] * N * 2
+
+
+def check_and_time_gguf(torch, qmm, timer):
+    """K13, K14 and K15 against their plain versions at the Mistral-7B
+    projection shapes and m 1-4096, through the wrappers the engine
+    calls; K15 timed alone on K9's rows (checked equal to the wrapper's
+    output). Plain and library times at m 8 (decode) and 4096 (a prompt
+    round). Returns {key: {...}} summed over one layer's four projections
+    at m 8, and the same at m 4096 under "<key>@4096"."""
+    out = {}
+    for key in GGUF_KERNELS:
+        for m in (8, 4096):
+            out[key if m == 8 else f"{key}@4096"] = dict(
+                ms=0.0, plain_ms=0.0, library_ms=0.0, bound_bytes_ms=0.0,
+                bound_ops_ms=0.0, max_abs_err=0.0)
+    for seed, (proj, K, N) in enumerate(GPTQ_PROJ):
+        gen = torch.Generator(device="cuda").manual_seed(300 + seed)
+        x_all = torch.randn(4096, K, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for key, (name, G, _) in GGUF_KERNELS.items():
+            qs, sc = gguf_weights(torch, key, K, N, seed * 10 + G)
+            wrapper = getattr(qmm, name)
+            plain_fn = getattr(qmm, name + "_plain")
+            w16 = (qs.float() * sc.float().repeat_interleave(G, dim=0)).to(
+                torch.bfloat16)
+            for m in GGUF_MS:
+                x = x_all[:m]
+                got = wrapper(x, qs, sc)
+                plain = plain_fn(x, qs, sc)
+                err = check_close(torch, got, plain,
+                                  f"{name} {proj} m={m}")
+                if key == "k15":
+                    x8, xs = qmm.quantize_activations_int8(x)
+
+                    def run():
+                        return qmm.gguf_w8a8_launch(x8, xs, qs, sc)
+                    if not torch.equal(run(), got):
+                        fail(f"{name} {proj} m={m}: K15 on K9's rows "
+                             "differs from the wrapper's output")
+                    nbytes = m * K + m * 4 + gguf_layer_bytes(key, K, N) \
+                        + m * N * 2
+                    rate = INT8_OPS_PER_S
+                else:
+                    def run():
+                        return wrapper(x, qs, sc)
+                    nbytes = m * K * 2 + gguf_layer_bytes(key, K, N) + \
+                        m * N * 2
+                    rate = BF16_FLOPS_PER_S
+                ops = 2 * m * K * N
+                torch.cuda.synchronize()
+                ms = timer(run)
+                b_ms, b_by = bound(nbytes, ops, rate)
+                line = (f"{name} {proj} (K {K}, N {N}) m={m}: kernel "
+                        f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max err "
+                        f"{err}")
+                if m in (8, 4096):
+                    plain_ms = timer(lambda: plain_fn(x, qs, sc))
+                    lib = timer(lambda: torch.matmul(x, w16))
+                    line += (f", plain {plain_ms:.4f} ms, library "
+                             f"{lib:.4f} ms (bf16 matmul over the weight "
+                             "dequantized beforehand)")
+                    rec = out[key if m == 8 else f"{key}@4096"]
+                    rec["ms"] += ms
+                    rec["plain_ms"] += plain_ms
+                    rec["library_ms"] += lib
+                    rec["bound_bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+                    rec["bound_ops_ms"] += ops / rate * 1e3
+                if key == "k15":
+                    line += (f"; wrapper (K9 + K15) "
+                             f"{timer(lambda: wrapper(x, qs, sc)):.4f} ms")
+                log(line)
+                for k in (key, f"{key}@4096"):
+                    out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
+            del qs, sc, w16
+        del x_all
+        torch.cuda.empty_cache()
+    for rec in out.values():
+        t_b, t_o = rec.pop("bound_bytes_ms"), rec.pop("bound_ops_ms")
+        rec["bound_ms"], rec["bound_by"] = (t_b, "bytes") if t_b >= t_o \
+            else (t_o, "operations")
+    log("GGUF kernels vs plain: all cases within tolerance; per layer (4 "
+        "projections) at m 8 and 4096: " + json.dumps(out))
+    return out
+
+
+def log_unported_bounds() -> None:
+    """The bounds of the quantized kernels still to port, computed from
+    their shapes at the four Mistral-7B projections (not measured): K12
+    (Q4_K: 4-bit codes, bf16 dl and ml rows per 32 input rows), K16
+    (SqueezeLLM: 4-bit codes, a 16-entry bf16 table per output column),
+    K17 (int8 weights, a bf16 scale per output column); x and y bf16."""
+    for m in (8, 4096):
+        per = {"K12": 0.0, "K16": 0.0, "K17": 0.0}
+        for _, K, N in GPTQ_PROJ:
+            io = m * K * 2 + m * N * 2
+            for name, weight in (("K12", K * N // 2 + 2 * (K // 32) * N * 2),
+                                 ("K16", K * N // 2 + N * 16 * 2),
+                                 ("K17", K * N + N * 2)):
+                per[name] += bound(io + weight, 2 * m * K * N)[0]
+        log(f"still to port, bound per layer (4 projections) at m {m}, "
+            f"computed from the shapes: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in per.items()))
+
+
+def gguf_engine(torch, model: str, label: str, **kw):
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    t0 = time.perf_counter()
+    engine = AphroditeEngine.from_engine_args(EngineArgs(
+        model=model, quantization="gguf", dtype="bfloat16", seed=0,
+        block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+        disable_log_stats=True, **kw))
+    if engine.model_config.quantization != "gguf":
+        fail(f"{label}: not served with quantization='gguf'")
+    log(f"{label} engine up in {time.perf_counter() - t0:.1f} s: "
+        f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return engine
+
+
+def bucket_forms(engine):
+    """{projection: sorted param names} of layer 0."""
+    return {key.rsplit(".", 1)[-1]: sorted(bucket) for key, bucket in
+            engine.executor.params.items()
+            if key.startswith("model.layers.0.") and key.endswith("_proj")}
+
+
+def write_gguf_model(path: str, layers: int = 2) -> float:
+    """A Llama `.gguf` at Mistral-7B width with `layers` layers, weights
+    N(0, 0.02) from seed 0: F32 norms, F16 embeddings and output, a
+    32000-token `tokenizer.ggml.*` vocabulary (as the JAX package's tests
+    write one); attn_q/attn_k Q4_0 beside attn_v Q8_0 (a mixed group ->
+    K14), attn_output and ffn_down Q8_0 (K13), ffn_gate and ffn_up Q4_0
+    (turbo -> K15). Returns the seconds it took."""
+    import numpy as np
+    from aphrodite_tpu_torch.modeling.gguf import write_gguf
+    t0 = time.perf_counter()
+    c = MISTRAL_7B
+    h, inter, vocab = c["hidden_size"], c["intermediate_size"], \
+        c["vocab_size"]
+    kv = c["num_key_value_heads"] * HEAD_DIM
+    rng = np.random.default_rng(0)
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+    meta = {
+        "general.architecture": "llama", "general.alignment": 32,
+        "llama.context_length": c["max_position_embeddings"],
+        "llama.embedding_length": h, "llama.feed_forward_length": inter,
+        "llama.block_count": layers,
+        "llama.attention.head_count": c["num_attention_heads"],
+        "llama.attention.head_count_kv": c["num_key_value_heads"],
+        "llama.attention.layer_norm_rms_epsilon": c["rms_norm_eps"],
+        "llama.rope.freq_base": c["rope_theta"],
+        "tokenizer.ggml.tokens": [f"<t{i}>" for i in range(vocab)],
+        "tokenizer.ggml.scores": [-float(i) for i in range(vocab)],
+        "tokenizer.ggml.token_type": [1] * vocab,
+        "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+    }
+    tensors = {"token_embd.weight": (w(vocab, h) * 50, "F16"),
+               "output.weight": (w(vocab, h), "F16"),
+               "output_norm.weight": (np.ones(h, np.float32), "F32")}
+    for i in range(layers):
+        p = f"blk.{i}"
+        tensors.update({
+            f"{p}.attn_norm.weight": (np.ones(h, np.float32), "F32"),
+            f"{p}.ffn_norm.weight": (np.ones(h, np.float32), "F32"),
+            f"{p}.attn_q.weight": (w(h, h), "Q4_0"),
+            f"{p}.attn_k.weight": (w(kv, h), "Q4_0"),
+            f"{p}.attn_v.weight": (w(kv, h), "Q8_0"),
+            f"{p}.attn_output.weight": (w(h, h), "Q8_0"),
+            f"{p}.ffn_gate.weight": (w(inter, h), "Q4_0"),
+            f"{p}.ffn_up.weight": (w(inter, h), "Q4_0"),
+            f"{p}.ffn_down.weight": (w(h, inter), "Q8_0"),
+        })
+    write_gguf(path, meta, tensors)
+    return time.perf_counter() - t0
+
+
 # ------------------------------------------------------- seeded draws --
 
 def check_seeded_draws(torch, engine, timer):
@@ -835,6 +1180,7 @@ W4A16_KERNELS = BF16_KERNELS + ("gptq_matmul", "gptq_matmul_stream")
 AWQ_A8_KERNELS = BF16_KERNELS + ("quantize_activations_int8",
                                  "awq_matmul_a8", "awq_matmul_stream_a8")
 AWQ_A16_KERNELS = BF16_KERNELS + ("awq_matmul", "awq_matmul_stream")
+GGUF_MATMULS = ("gguf_q8_matmul", "gguf_i8g_matmul", "gguf_w8a8_matmul")
 
 
 def check_outputs(outputs, n: int, what: str) -> None:
@@ -1027,8 +1373,8 @@ def run_sliding_window(torch, counters, card: str):
     return launches
 
 
-QUANT_KERNEL_NAMES = ("quant_mma_kernel", "split_reduce_kernel",
-                      "quant8_kernel")
+QUANT_KERNEL_NAMES = ("quant_mma_kernel", "int8_mma_kernel",
+                      "split_reduce_kernel", "quant8_kernel")
 
 
 def profile_decode(torch, engine, tag: str = "",
@@ -1338,6 +1684,76 @@ def main() -> int:
     # 12. Seeded draws on the card (the AWQ engine, W4A16).
     check_seeded_draws(torch, engine, timer)
     os.environ.pop("APHRODITE_W4A8")
+    del engine
+    free_engine(torch, "AWQ")
+
+    # 13. GGUF kernels vs plain versions, and times.
+    log_clocks("before the GGUF kernel phase")
+    gguf = check_and_time_gguf(torch, qmm, timer)
+    log_unported_bounds()
+
+    # 14. End to end with dummy GGUF weights in the JAX bench's three
+    # at-rest forms (BENCH_GGUF_FMT).
+    q8, i8g, w8a8 = GGUF_MATMULS
+    for fmt, kernel, wide in (("", w8a8, True), ("q8_0", q8, False),
+                              ("q6_k", i8g, False)):
+        form = fmt or "turbo"
+        os.environ["BENCH_GGUF_FMT"] = fmt
+        engine = gguf_engine(torch, model_dir, f"GGUF {form}",
+                             load_format="dummy")
+        os.environ.pop("BENCH_GGUF_FMT")
+        key = {w8a8: "k15", q8: "k13", i8g: "k14"}[kernel]
+        log(f"GGUF {form}: layer 0 buckets {bucket_forms(engine)}; "
+            f"{engine.cache_config.num_gpu_blocks} KV pages (bf16 had "
+            f"{bf16_pages})")
+        tag = f"GGUF {form} "
+        required = BF16_KERNELS + (kernel,) + \
+            (("quantize_activations_int8",) if kernel == w8a8 else ())
+        absent = tuple(k for k in GGUF_MATMULS if k != kernel)
+        by_path[tag.strip()] = {}
+        runs = [run_engine(torch, engine, 1, counters, smi,
+                           required=required, absent=absent, tag=tag)]
+        if wide:
+            runs.append(run_wide_round(
+                torch, engine, counters, smi,
+                ("paged_decode_attention", "write_kv_pages_prefill",
+                 kernel), kernel, layers, tag))
+        for run in runs:
+            for name, n in run.items():
+                by_path[tag.strip()][name] = \
+                    by_path[tag.strip()].get(name, 0) + n
+        step_bound = layers * sum(gguf_layer_bytes(key, K, N) for _, K, N
+                                  in GPTQ_PROJ) / HBM_BYTES_PER_S * 1e3
+        profile_decode(torch, engine, tag, quant_bound_ms=step_bound)
+        del engine
+        free_engine(torch, f"GGUF {form}")
+
+    # 15. A .gguf file at full width through the loader.
+    import tempfile
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(HERE, "build")) as tmp:
+        path = os.path.join(tmp, "mistral-width-2l.gguf")
+        secs = write_gguf_model(path)
+        log(f"GGUF file: 2 layers at Mistral-7B width written in "
+            f"{secs:.1f} s ({os.path.getsize(path) / 2**20:.0f} MiB)")
+        engine = gguf_engine(torch, path, "GGUF file")
+    forms = bucket_forms(engine)
+    want_forms = {"qkv_proj": ["d16", "qs"], "o_proj": ["d", "qs"],
+                  "gate_up_proj": ["qs8", "s128"],
+                  "down_proj": ["d", "qs"]}
+    if forms != want_forms:
+        fail(f"GGUF file: at-rest forms {forms}, expected {want_forms}")
+    log(f"GGUF file: layer 0 at-rest forms {forms}")
+    by_path["GGUF file"] = run_engine(
+        torch, engine, 1, counters, smi, tag="GGUF file ",
+        required=BF16_KERNELS + GGUF_MATMULS +
+        ("quantize_activations_int8",))
+    runner = engine.executor.model_runner
+    compare_with_plain(torch, runner.model, runner.params,
+                       "GGUF file (K13, K14, K15)", w8a8_rows=True)
+    del engine, runner
+    free_engine(torch, "GGUF file")
     launches = {}
     for path in by_path.values():
         for name, n in path.items():
@@ -1399,7 +1815,9 @@ def main() -> int:
         dict(name="awq_matmul_a8", route="cuda", source=quant_src,
              replaces=f"{pallas_qmm}:937",
              launches=launches["awq_matmul_a8"], **awq["k11"]),
-    ]
+    ] + [dict(name=name, route="cuda", source=quant_src,
+              replaces=f"{pallas_qmm}:{line}", launches=launches[name],
+              **gguf[key]) for key, (name, _, line) in GGUF_KERNELS.items()]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

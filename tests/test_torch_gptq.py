@@ -26,6 +26,12 @@ groups; with this g_idx the two are the same weight.
 - W4A8 (APHRODITE_W4A8=1) through the port's model runner: its logits
   stay within the bounds tests/quantization/test_w4a8_drift.py holds the
   JAX path to, relative to the port's W4A16 logits.
+- APHRODITE_DISABLE_PALLAS_QUANT=1: on dummy weights (g_idx zero; the
+  JAX engine's weights, floats scaled x100, given to the port) the port
+  takes the JAX package's dequantize-then-matmul route, launches no
+  K6-K9 wrapper, and is greedy token-equal to the JAX CPU engine with
+  APHRODITE_W4A8 0 and 1; unsetting the flag between two generate calls
+  on one engine sends the next call back through the kernels.
 """
 import json
 
@@ -218,7 +224,7 @@ def test_out_of_slice_gptq_is_refused(tmp_path, quant, changes, match):
     with pytest.raises(NotImplementedError, match=match) as info:
         _configs(tmp_path, quant, **changes)
     assert "later slice" in str(info.value)
-    assert "K12-K17" in str(info.value)
+    assert "K12, K16 and K17" in str(info.value)
 
 
 @pytest.mark.parametrize("device", ["cuda", "auto"])
@@ -441,3 +447,64 @@ def test_w4a8_logits_stay_near_w4a16(llms, monkeypatch):
     assert rels[0] < 2.5e-2, rels
     assert rels[-1] < 3 * max(rels[0], 1e-3), rels
     assert max(rels) < 5e-2, rels
+
+
+# --------------------------------------- APHRODITE_DISABLE_PALLAS_QUANT --
+
+@pytest.fixture(scope="module")
+def dummy_llms(tmp_path_factory):
+    """Dummy GPTQ weights (g_idx zero) on both packages, the port given
+    the JAX engine's weights with every float scaled x100."""
+    from aphrodite_tpu_torch.modeling.convert import to_device
+    mp = pytest.MonkeyPatch()
+    mp.setenv("APHRODITE_SPEC", "0")
+    path = _write_model_dir(tmp_path_factory.mktemp("gptq-dummy") / "m",
+                            dict(CONFIG, quantization_config=QUANT))
+    jax_llm = JaxLLM(model=path, load_format="dummy", **ENGINE_KW)
+    port = LLM(model=path, load_format="dummy", device="cpu", **ENGINE_KW)
+    scaled = jax.tree_util.tree_map(
+        lambda a: a * 100 if a.dtype.kind == "f" else a,
+        jax_llm.engine.executor.params)
+    jax_llm.engine.executor.params = scaled
+    jax_llm.engine.executor.model_runner.params = scaled
+    params = to_device(params_from_jax(jax.tree_util.tree_map(
+        np.asarray, scaled)), torch.device("cpu"), torch.float32)
+    port.engine.executor.params = params
+    port.engine.executor.model_runner.params = params
+    yield jax_llm, port
+    mp.undo()
+
+
+@pytest.mark.parametrize("w4a8", ["0", "1"])
+def test_disable_pallas_quant_takes_the_dequantize_route(dummy_llms, w4a8,
+                                                         monkeypatch):
+    from aphrodite_tpu_torch.modeling.layers.quantization import gptq
+    jax_llm, port = dummy_llms
+    qkv = port.engine.executor.params["model.layers.0.self_attn.qkv_proj"]
+    assert not qkv["g_idx"].any()
+    calls = {"kernels": 0}
+    for name in ("gptq_matmul", "gptq_matmul_a8"):
+        real = getattr(gptq.qmm, name)
+
+        def spy(*a, _real=real, **kw):
+            calls["kernels"] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(gptq.qmm, name, spy)
+    monkeypatch.setenv("APHRODITE_W4A8", w4a8)
+    monkeypatch.setenv("APHRODITE_DISABLE_PALLAS_QUANT", "1")
+    want = [o.token_ids for o in _generate(jax_llm, JaxSamplingParams)]
+    got = _generate(port, SamplingParams, logprobs=2)
+    assert calls["kernels"] == 0
+    compared = 0
+    for w, g in zip(want, got):
+        for pos, (wt, gt) in enumerate(zip(w, g.token_ids)):
+            top = sorted(g.logprobs[pos].values(), reverse=True)
+            if top[0] - top[1] <= GAP_TOL:
+                break
+            assert wt == gt, (pos, w, g.token_ids)
+            compared += 1
+    assert compared >= 12
+    # Read per call: the same engine goes back through the kernels.
+    monkeypatch.setenv("APHRODITE_DISABLE_PALLAS_QUANT", "0")
+    _generate(port, SamplingParams)
+    assert calls["kernels"] > 0

@@ -124,7 +124,8 @@ def test_speculative_decoding_is_refused(tiny_model_dir, monkeypatch):
 
 @pytest.mark.parametrize("change,match", [
     (dict(architectures=["GPTNeoXForCausalLM"]), "architectures"),
-    (dict(quantization_config={"quant_method": "gguf"}), "quantized"),
+    (dict(quantization_config={"quant_method": "squeezellm",
+                               "wbits": 4}), "quantized"),
 ])
 def test_out_of_slice_models_are_refused(tmp_path, tiny_model_dir, change,
                                          match):

@@ -13,7 +13,9 @@ in another order; exp2 differs by an ulp, which can move a weight to
 the neighbouring bf16 value; both round the output to bf16, one ulp of
 which is 1.6e-2 at 2-4). The GPTQ
 and AWQ matmuls (bf16 outputs, f32 sums taken in another order): the
-same 2e-2 + 2e-2 |plain|. int8 activation quantization: exactly equal.
+same 2e-2 + 2e-2 |plain|, and so the GGUF matmuls (K13, K14 and K15,
+which sums exact int32 group dots in f32). int8 activation
+quantization: exactly equal.
 The threefry draws (`modeling/layers/prng.py`): keys, bits and uniforms
 bit-equal to the same calls on the CPU, and the tokens drawn equal.
 """
@@ -333,6 +335,71 @@ def test_awq_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tqm.awq_matmul_a8(big, qw, qz, sc, group_size=128, stream=True)
     with pytest.raises(ValueError, match="mixed devices"):
         tqm.awq_matmul(x, qw.cpu(), qz, sc, group_size=128)
+
+
+def _gguf_problem(dev, kind, m, K, N, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = {"q8": 32, "i8g": 16, "w8a8": 128}[kind]
+    x = torch.randn(m, K, generator=g, device=dev).to(torch.bfloat16)
+    qs = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    scales = (torch.rand(K // G, N, generator=g, device=dev) * 0.002 +
+              1e-4).to(torch.bfloat16)
+    return x, qs, scales
+
+
+@pytest.mark.parametrize("kind", ["q8", "i8g", "w8a8"])
+@pytest.mark.parametrize("m,K,N", [
+    (1, 4096, 6144), (8, 14336, 4096), (33, 512, 384), (64, 4096, 4096),
+    (65, 256, 128), (300, 4096, 1024)])
+def test_gguf_matmul_kernels_match_plain(dev, kind, m, K, N):
+    """Every tiling: 16-64-row blocks with split K (m <= 64), 128-row
+    blocks above; the wrappers count one launch each."""
+    if kind == "q8" or kind == "i8g":
+        K = max(256, K // 256 * 256)
+    x, qs, scales = _gguf_problem(dev, kind, m, K, N, seed=m + K)
+    name = f"gguf_{kind}_matmul"
+    counter = getattr(tqm, f"GGUF_{kind.upper()}_MATMUL_LAUNCHES")
+    before = counter.count
+    got = getattr(tqm, name)(x, qs, scales)
+    want = getattr(tqm, name + "_plain")(x, qs, scales)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, N)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("kind", ["q8", "i8g"])
+def test_gguf_kernels_take_unaligned_rows(dev, kind):
+    """x starting 2 bytes past a 16-byte boundary stages element by
+    element and gives the aligned copy's result."""
+    x, qs, scales = _gguf_problem(dev, kind, 24, 512, 256)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = buf[1:].view_as(x)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    name = f"gguf_{kind}_matmul"
+    assert torch.equal(getattr(tqm, name)(shifted, qs, scales),
+                       getattr(tqm, name)(x, qs, scales))
+
+
+def test_gguf_w8a8_kernel_on_k9_rows_equals_the_wrapper(dev):
+    x, qs, scales = _gguf_problem(dev, "w8a8", 8, 4096, 6144)
+    x8, xs = tqm.quantize_activations_int8(x)
+    assert torch.equal(tqm.gguf_w8a8_launch(x8, xs, qs, scales),
+                       tqm.gguf_w8a8_matmul(x, qs, scales))
+
+
+def test_gguf_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, qs, scales = _gguf_problem(dev, "q8", 4, 512, 256)
+    with pytest.raises(TypeError):
+        tqm.gguf_q8_matmul(x.float(), qs, scales)
+    with pytest.raises(ValueError):
+        tqm.gguf_q8_matmul(x, qs[:, :200].contiguous(), scales[:, :200])
+    with pytest.raises(ValueError):
+        tqm.gguf_i8g_matmul(x, qs, scales)        # scales per 32 rows
+    with pytest.raises(TypeError):
+        tqm.gguf_w8a8_matmul(x, qs, scales.float()[:4])
 
 
 def test_threefry_draws_on_the_card_equal_the_cpu(dev):

@@ -21,9 +21,19 @@ and given to both sides.
   K11 (`awq_matmul_a8`, stream=False) deferred off and on, f32 and
   bf16, on the reference chain's int8 rows as for K8.
 
+- GGUF: K13 (`gguf_q8_matmul`, a scale per 32 rows), K14
+  (`gguf_i8g_matmul`, per 16 rows) and K15 (`gguf_w8a8_matmul`, K9 then
+  int8 dots per 128-row group) at m 1, 8 and 130, (K, N) (256, 128) and
+  (512, 384), f32 and bf16 x; K15 on the reference chain's int8 rows as
+  for K8. The plain K15 alone on given int8 rows
+  (`gguf_w8a8_launch_plain`) is the plain K9 + K15 bit for bit. The JAX
+  gates `gguf_*_supported` are copied.
+
 Tolerances: in f32, |port - pallas| <= 1e-5 * max |pallas| (the same
 products summed in another order); in bf16, one output ulp (both round
-the same f32 sum to bf16, which may land on neighbouring values).
+the same f32 sum to bf16, which may land on neighbouring values). The
+GGUF cases hold every element to 1e-5 max |pallas| + 1e-5 |pallas|
+(f32) and 1e-2 + 1e-2 |pallas| (bf16).
 """
 import numpy as np
 import pytest
@@ -301,3 +311,77 @@ def test_awq_supported_gate_matches_jax():
                  (4000, 4096, 128), (4096, 4608, 128), (4096, 4096, 64),
                  (4096, 4096, 2048), (2048, 1024, 1024)]:
         assert tqm.awq_supported(*args) == jqm.awq_supported(*args), args
+
+
+# -------------------------------------------------------------- GGUF --
+
+GGUF_KERNELS = {"q8": ("gguf_q8_matmul", 32), "i8g": ("gguf_i8g_matmul", 16),
+                "w8a8": ("gguf_w8a8_matmul", 128)}
+
+
+def _gguf_inputs(seed, kind, K, N, m):
+    """int8 codes and scale rows as the JAX at-rest tests draw them (K15's
+    codes symmetric, in [-127, 127])."""
+    rs = np.random.RandomState(seed)
+    G = GGUF_KERNELS[kind][1]
+    lo = -127 if kind == "w8a8" else -128
+    return dict(x=rs.randn(m, K).astype(np.float32),
+                qs=rs.randint(lo, 128, (K, N)).astype(np.int8),
+                scales=(rs.rand(K // G, N) * 0.01 + 1e-3).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("K,N", [(256, 128), (512, 384)])
+@pytest.mark.parametrize("m", [1, 8, 130])
+@pytest.mark.parametrize("kind", ["q8", "i8g", "w8a8"])
+def test_gguf_plain_matches_pallas(kind, m, K, N, dtype, monkeypatch):
+    name, _ = GGUF_KERNELS[kind]
+    j, t = _both(_gguf_inputs(K + N + m, kind, K, N, m), dtype)
+    if kind == "w8a8":
+        # Both sides on the reference chain's int8 rows, as for K8.
+        x8, xs = jqm._quantize_activations_int8(j["x"])
+        p8, ps = tqm.quantize_activations_int8(t["x"])
+        np.testing.assert_array_equal(np.asarray(x8), p8.numpy())
+        np.testing.assert_array_equal(np.asarray(xs), ps.numpy())
+        monkeypatch.setattr(jqm, "quantize_activations_int8",
+                            lambda x, interpret=False: (x8, xs))
+    getattr(jqm, name).clear_cache()
+    want = getattr(jqm, name)(j["x"], j["qs"], j["scales"], interpret=True)
+    getattr(jqm, name).clear_cache()
+    got = getattr(tqm, name)(t["x"], t["qs"], t["scales"])
+    plain = getattr(tqm, name + "_plain")(t["x"], t["qs"], t["scales"])
+    assert torch.equal(got, plain)         # CPU tensors: the plain version
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    got = got.float().numpy()
+    assert got.shape == want.shape == (m, N)
+    # f32: sums of up to 512 products of magnitude ~1 in another order
+    # differ by a few 1e-5 where outputs cancel; bf16: an output ulp.
+    atol = 1e-5 * np.abs(want).max() if dtype == "f32" else 1e-2
+    rtol = 1e-5 if dtype == "f32" else 1e-2
+    assert (np.abs(got - want) <= atol + rtol * np.abs(want)).all(), \
+        np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k15_alone_on_k9_rows_equals_the_wrapper(dtype):
+    """The plain K15 alone (`gguf_w8a8_launch_plain`) on the plain K9's
+    rows is the plain K9 + K15 bit for bit; `gguf_w8a8_launch` on CPU
+    tensors is that plain version (bf16 out)."""
+    _, t = _both(_gguf_inputs(7, "w8a8", 512, 384, 9), dtype)
+    x8, xs = tqm.quantize_activations_int8(t["x"])
+    want = tqm.gguf_w8a8_matmul_plain(t["x"], t["qs"], t["scales"])
+    got = tqm.gguf_w8a8_launch_plain(x8, xs, t["qs"], t["scales"],
+                                     t["x"].dtype)
+    assert got.dtype == t["x"].dtype and torch.equal(got, want)
+    assert torch.equal(
+        tqm.gguf_w8a8_launch(x8, xs, t["qs"], t["scales"]),
+        tqm.gguf_w8a8_launch_plain(x8, xs, t["qs"], t["scales"]))
+
+
+def test_gguf_supported_gates_match_jax():
+    for kind in ("q8", "i8g", "w8a8"):
+        gate = f"gguf_{kind}_supported"
+        for args in [(4096, 6144), (14336, 4096), (4096, 28672), (384, 128),
+                     (256, 192), (128, 256), (640, 128)]:
+            assert getattr(tqm, gate)(*args) == getattr(jqm, gate)(*args), \
+                (gate, args)
