@@ -2,21 +2,22 @@
 
 Copied from the JAX package's `common/config.py` with the same classes
 and semantics, narrowed to what the port serves so far: a dense,
-GPTQ-quantized (4 or 8 bits, no act-order), AWQ-quantized (4 bits) or
-GGUF (a `.gguf` file, dense or at rest) Llama-family model, Mistral's
-sliding window included, on one CUDA card (or the CPU, when the caller
-asks for it): dense models in bfloat16 or float32, GPTQ, AWQ and GGUF in
-bfloat16 on the card (the kernels take bfloat16 activations and scales)
-and in either on the CPU; KV pages in the model dtype, int8 or fp8
-(e5m2). Every configuration outside that is refused HERE, with a message
-naming the later slice that brings it (`refuse`), so nothing is
-silently ignored:
+GPTQ-quantized (4 or 8 bits, no act-order), AWQ-quantized (4 bits), GGUF
+(a `.gguf` file, dense or at rest), SqueezeLLM, load-time int8 or QuIP#
+Llama-family model, Mistral's sliding window included, on one CUDA card
+(or the CPU, when the caller asks for it): dense models in bfloat16 or
+float32, the quantized ones in bfloat16 on the card (the kernels take
+bfloat16 activations and scales; QuIP# runs f32 activations through
+K16 whatever the model dtype) and in either on the CPU; KV pages in the
+model dtype, int8 or fp8 (e5m2). Every configuration outside that is
+refused HERE, with a message naming the later slice that brings it
+(`refuse`), so nothing is silently ignored:
 
 - tensor/data/sequence parallelism and the disaggregated split;
-- quantization methods other than GPTQ, AWQ and GGUF; GPTQ act-order,
-  2-bit, GPTQ, AWQ or (on the card) GGUF at layer shapes the kernels do
-  not take; GPTQ, AWQ or GGUF in float32 on the card; GGUF's exact Q4_K
-  form (K12);
+- GPTQ act-order, 2-bit, GPTQ and AWQ at layer shapes the kernels do
+  not take; on the card, GGUF, SqueezeLLM, int8 and QuIP# at layer
+  shapes the kernels' gates refuse (QuIP#'s int8 form among them) and
+  quantized models in float32 (the quantized matmul fallback route);
 - architectures other than Llama's.
 
 `DeviceConfig` resolves to "cuda" or "cpu" only, and never falls back
@@ -43,14 +44,25 @@ def refuse(what: str, later: str) -> None:
         f"with a later slice: {later} (see ROADMAP.md).")
 
 
-_LATER_QUANT = ("the quantized matmul kernels K12, K16 and K17 (exact "
-                "Q4_K GGUF, then SqueezeLLM/QuIP# and int8)")
-_LATER_GPTQ = ("GPTQ act-order, 2-bit, float32 on the card and other "
-               "group shapes, on the reference's dequantize-then-matmul "
-               "path after the quantized matmul kernels K12, K16 and K17")
-_LATER_AWQ = ("AWQ in float32 on the card and at other layer shapes, on "
-              "the reference's dequantize-then-matmul path after the "
-              "quantized matmul kernels K12, K16 and K17")
+#: The later slice (ROADMAP Queue 1, item 2) that serves what the
+#: quantized matmul kernels do not take, on the reference's dequantize-
+#: then-matmul path: layer shapes their gates refuse, float32 on the
+#: card, GPTQ act-order and 2-bit.
+LATER_FALLBACK = ("the quantized matmul fallback route (dequantize-then-"
+                  "matmul for layer shapes the kernels' gates refuse, "
+                  "float32 on the card, GPTQ act-order and 2-bit)")
+
+#: Quantization methods whose matmuls take bfloat16 on the card.
+_BF16_ON_CARD = ("gptq", "awq", "gguf", "squeezellm", "int8")
+
+
+def refuse_gated_shape(method: str, shape, device) -> None:
+    """Raise for a layer shape a kernel's gate refuses, off the CPU (its
+    dequantize route runs on the CPU only; `ModelConfig` refuses such a
+    model on the card before it is built)."""
+    refuse(f"{method} at the layer shape (in, out) {tuple(shape)} that its "
+           f"kernel's gate refuses, on {device.type}", LATER_FALLBACK)
+
 
 # String names avoid importing jax at config time.
 _STR_DTYPE_TO_JAX = {
@@ -117,10 +129,6 @@ class ModelConfig:
             self._verify_gptq()
         elif self.quantization == "awq":
             self._verify_awq()
-        elif self.quantization == "gguf":
-            self._verify_gguf()
-        elif self.quantization is not None:
-            refuse(f"quantization {self.quantization!r}", _LATER_QUANT)
         from aphrodite_tpu_torch.modeling.models import ModelRegistry
         archs = getattr(self.hf_config, "architectures", None) or []
         if not any(ModelRegistry.load_model_cls(a) is not None
@@ -138,15 +146,15 @@ class ModelConfig:
         cfg = get_quantization_config(self)
         if cfg.desc_act:
             refuse("GPTQ with desc_act=True (act-order g_idx)",
-                   _LATER_GPTQ)
+                   LATER_FALLBACK)
         if cfg.weight_bits not in (4, 8):
-            refuse(f"{cfg.weight_bits}-bit GPTQ", _LATER_GPTQ)
+            refuse(f"{cfg.weight_bits}-bit GPTQ", LATER_FALLBACK)
         bad = [s for s in self._linear_shapes() if not cfg.supports(*s)]
         if bad:
             refuse(f"GPTQ group size {cfg.group_size} for the linear "
                    f"shapes (in, out) {bad} (the kernels need in % group "
                    "== 0, 128 <= group <= 1024 and out % 128 == 0)",
-                   _LATER_GPTQ)
+                   LATER_FALLBACK)
 
     def _verify_awq(self) -> None:
         """AWQ (4 bits) is served for the layer shapes the kernels take
@@ -158,25 +166,8 @@ class ModelConfig:
         if bad:
             refuse(f"AWQ group size {cfg.group_size} for the linear shapes "
                    f"(in, out) {bad} (the kernels need in % group == 0, "
-                   "128 <= group <= 1024 and out % 1024 == 0)", _LATER_AWQ)
-
-    def _verify_gguf(self) -> None:
-        """GGUF is served in its exact Q8_0 (K13), grouped-int8 (K14) and
-        turbo W8A8 (K15) forms; a `.gguf` file, or a dummy load, whose
-        projections would take the exact Q4_K form (qweight/dl/ml) waits
-        for K12 (`GGUFLinearMethod`'s routing, from the header alone)."""
-        from aphrodite_tpu_torch.modeling.layers.quantization.gguf import (
-            LATER_Q4K)
-        q4k = sorted({(name, shape) for name, form, shape
-                      in self._gguf_forms() if form == "q4k"})
-        if not q4k:
-            return
-        if self.load_format == "dummy":
-            refuse(f"dummy GGUF weights in the exact Q4_K form for the "
-                   f"linear shapes (in, out) {[s for _, s in q4k]}",
-                   LATER_Q4K)
-        refuse(f"GGUF Q4_K projections in the exact form "
-               f"({len(q4k)} tensors, e.g. {q4k[0][0]})", LATER_Q4K)
+                   "128 <= group <= 1024 and out % 1024 == 0)",
+                   LATER_FALLBACK)
 
     def _gguf_forms(self):
         """[(name, at-rest form, (in, out) of its merged bucket)] of the
@@ -206,31 +197,50 @@ class ModelConfig:
 
     def verify_with_device_config(self,
                                   device_config: "DeviceConfig") -> None:
-        """The GPTQ, AWQ and GGUF kernels take bfloat16 activations and
-        scales: on the card they run in bfloat16 only. (float32 stays for
-        device="cpu", where the plain versions run.) On the card a GGUF
-        bucket must also pass its kernel's gate: the dequantize-then-
-        matmul route of the shapes a gate refuses runs on the CPU only."""
+        """The GPTQ, AWQ, GGUF, SqueezeLLM and int8 kernels take bfloat16
+        activations and scales: on the card they run in bfloat16 only.
+        (float32 stays for device="cpu", where the plain versions run.)
+        On the card every GGUF bucket, SqueezeLLM and int8 layer shape,
+        and QuIP# transform shape must also pass its kernel's gate: the
+        dequantize-then-matmul route of the shapes a gate refuses, and
+        QuIP#'s int8 form (which the reference runs through XLA, never
+        K17), run on the CPU only."""
         if device_config.device_type == "cpu":
             return
-        if self.quantization in ("gptq", "awq", "gguf") and \
-                self.dtype != "bfloat16":
-            name = self.quantization.upper()
-            later = {"GPTQ": _LATER_GPTQ, "AWQ": _LATER_AWQ}.get(
-                name, _LATER_QUANT)
-            refuse(f"{name} in {self.dtype} on the CUDA card (use "
-                   "dtype='bfloat16', or device='cpu')", later)
+        if self.quantization in _BF16_ON_CARD and self.dtype != "bfloat16":
+            refuse(f"{self.quantization.upper()} in {self.dtype} on the "
+                   "CUDA card (use dtype='bfloat16', or device='cpu')",
+                   LATER_FALLBACK)
         if self.quantization == "gguf":
             from aphrodite_tpu_torch.modeling.layers.quantization.gguf import (
-                LATER_FALLBACK, kernel_takes)
+                kernel_takes)
             bad = sorted({(form, shape) for _, form, shape
                           in self._gguf_forms()
                           if not kernel_takes(form, *shape)})
             if bad:
                 refuse(f"GGUF (at-rest form, bucket (in, out)) {bad} on the "
-                       "CUDA card, whose kernels' gates refuse them (K13 and "
-                       "K14 need in % 256 == 0, K15 in % 128 == 0, all out "
-                       "% 128 == 0; use device='cpu')", LATER_FALLBACK)
+                       "CUDA card, whose kernels' gates refuse them (K12, "
+                       "K13 and K14 need in % 256 == 0, K15 in % 128 == 0, "
+                       "all out % 128 == 0; use device='cpu')",
+                       LATER_FALLBACK)
+        if self.quantization in ("squeezellm", "int8", "quip"):
+            from aphrodite_tpu_torch.modeling.layers.quantization import (
+                get_quantization_config)
+            cfg = get_quantization_config(self)
+            bad = [s for s in self._linear_shapes() if not cfg.supports(*s)]
+            if bad and self.quantization == "quip":
+                refuse(f"quantization 'quip' in its int8 form, for the "
+                       f"linear shapes (in, out) {bad} whose Hadamard "
+                       "transform shapes K16's gate refuses (in % 256 == 0, "
+                       "out % 128 == 0), on the CUDA card: the reference "
+                       "runs that form through XLA, never K17 (use "
+                       "device='cpu')", LATER_FALLBACK)
+            if bad:
+                refuse(f"quantization {self.quantization!r} for the linear "
+                       f"shapes (in, out) {bad} on the CUDA card, whose "
+                       "kernel's gate refuses them (K16 and K17 need in % "
+                       "256 == 0 and out % 128 == 0; use device='cpu')",
+                       LATER_FALLBACK)
 
     def _verify_load_format(self) -> None:
         load_format = self.load_format.lower()

@@ -1,13 +1,19 @@
 // GPTQ, AWQ and GGUF quantized matmuls and per-row int8 activation
 // quantization, CUDA C++ for sm_90a.
 //
-// Replaces nine Pallas TPU kernels of aphrodite_tpu/ops/pallas/quant_matmul.py
-// (K6-K11, K13-K15). K6-K8, K10 and K11 are one templated kernel,
-// quant_mma_kernel; K13-K15 another, int8_mma_kernel (see its comment).
-// The two share the block tile, the x staging, the mma.sync fragments, the
-// A8 group fold, the epilogue and the launcher (Tile, stage_x, mma_chunk,
-// fold_group, store_tile, launch_tiles) and differ only in how they load
-// the W words and write the W tile:
+// Replaces the twelve Pallas TPU kernels of
+// aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6-K8, K10 and K11 are
+// one templated kernel, quant_mma_kernel; K13-K15 and K17 another,
+// int8_mma_kernel; K12 and K16 a third, nib_mma_kernel (see their
+// comments). The three share the block tile, the x staging, the mma.sync
+// fragments, the A8 group fold, the epilogue and the launcher (Tile,
+// stage_x, mma_chunk, fold_group, store_tile, launch_tiles) and differ
+// only in how they load the W words and write the W tile:
+//   _gguf_q4k_kernel (:1117)   -> nib_mma_kernel<Q4K> (K12, Q4_K exact)
+//   _sqllm_kernel (:1630)      -> nib_mma_kernel<LUT> (K16, bf16 x) and
+//                                 nib_mma_kernel<LUT, X32> (K16, f32 x)
+//   _int8_kernel (:1706)       -> int8_mma_kernel<G 0> (K17, int8 per
+//                                 column)
 //   _gguf_q8_kernel (:1210)    -> int8_mma_kernel<G 32> (K13, Q8_0)
 //   _gguf_i8g_kernel (:1476)   -> int8_mma_kernel<G 16> (K14, grouped int8)
 //   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128, A8> (K15, W8A8)
@@ -44,6 +50,11 @@
 //   once: 0.066-0.073 ms per layer at Mistral-7B width, about twice K7's
 //   int4 bound), operations at prompt rounds (bf16 for K13/K14, int8 for
 //   K15).
+// - K12, K16 and K17: bytes at decode (4-bit codes with K12's bf16 dl/ml
+//   rows per 32 input rows or K16's 16-entry codebook per column; K17's
+//   int8 codes and f32 column scales), bf16 operations at prompt rounds;
+//   K16 on f32 x does three bf16 products per term, so three times the
+//   bf16 operations.
 //
 // What the design does about it. One templated kernel serves K6, K7, K8,
 // K10 and K11, for both layouts: a block owns BM rows x 128 columns of the
@@ -83,6 +94,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -272,13 +284,14 @@ __device__ __forceinline__ void fold_group(
 }
 
 // Epilogue: accumulator rows gid and gid + 8, columns tig*2 and +1. Without
-// a split, bf16 to `out` (A8: times the row scale xs); with one, the f32
-// sums to `partial[split, row, col]` for split_reduce_kernel.
-template <class TL>
+// a split, to `out` in OutT (A8: times the row scale xs; with column scales
+// cs: times cs[col], K17); with one, the f32 sums to
+// `partial[split, row, col]` for split_reduce_kernel.
+template <class TL, typename OutT = __nv_bfloat16>
 __device__ __forceinline__ void store_tile(
     const float (&acc)[TL::MI][TL::NI][4], const float* __restrict__ xs,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int m,
-    int N, int m0, int n0, Lane l) {
+    OutT* __restrict__ out, float* __restrict__ partial, int m,
+    int N, int m0, int n0, Lane l, const float* __restrict__ cs = nullptr) {
 #pragma unroll
   for (int mi = 0; mi < TL::MI; ++mi) {
 #pragma unroll
@@ -295,6 +308,13 @@ __device__ __forceinline__ void store_tile(
           *reinterpret_cast<float2*>(
               partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
               make_float2(v0, v1);
+        } else if constexpr (std::is_same<OutT, float>::value) {
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * N + col) =
+              make_float2(v0, v1);
+        } else if (cs != nullptr) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<size_t>(r) * N + col) =
+              __floats2bfloat162_rn(v0 * cs[col], v1 * cs[col + 1]);
         } else {
           *reinterpret_cast<__nv_bfloat162*>(
               out + static_cast<size_t>(r) * N + col) =
@@ -507,6 +527,9 @@ quant_mma_kernel(const typename TL::T* __restrict__ x,
 //   A8 true (K15, G 128): x int8 rows from quant8; per 128-row group the
 //     exact int32 dot (s8 m16n8k32), times the group's scale row, is added
 //     to the f32 sum in group order; times xs[row] at the end.
+//   G 0 (K17): x bf16; the codes go to the tile as they are (exact in
+//     bf16), and the f32 sums are times the column's f32 scale cs[n] in
+//     the epilogue (in split_reduce_kernel after a split).
 // A block walks the chunks [c_begin, c_end) of 64 k rows (split
 // blockIdx.z; for A8 a split starts on a group). Only the W tile differs
 // from quant_mma_kernel: each thread stages 4 neighbouring columns x 8 k
@@ -521,11 +544,13 @@ __device__ __forceinline__ void int8_mma_tile(
     const typename TL::T* __restrict__ x, const float* __restrict__ xs,
     const uint32_t* __restrict__ qs, const __nv_bfloat16* __restrict__ scales,
     __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int m,
-    int K, int N, int chunks_per_split) {
+    int K, int N, int chunks_per_split, const float* __restrict__ cs) {
   using T = typename TL::T;
   constexpr bool A8 = TL::A8;
   constexpr int CPG = A8 ? G / kChunk : 1;   // chunks per A8 scale group
-  static_assert(A8 ? G % kChunk == 0 : (kChunk % G == 0 && G % 8 == 0),
+  static_assert(G == 0 ? !A8
+                       : (A8 ? G % kChunk == 0
+                             : (kChunk % G == 0 && G % 8 == 0)),
                 "scale groups");
 
   __shared__ __align__(16) T x_tile[TL::BM][TL::LD];
@@ -574,8 +599,10 @@ __device__ __forceinline__ void int8_mma_tile(
           packed[i / 4] |= ((words[i] >> (8 * j)) & 0xffu) << (8 * (i % 4));
         st_words<2>(&w_tile[n][r0], packed);
       } else {
-        const float d = __bfloat162float(
-            scales[static_cast<size_t>((k0 + r0) / G) * N + n0 + n]);
+        float d = 1.f;
+        if constexpr (G > 0)
+          d = __bfloat162float(
+              scales[static_cast<size_t>((k0 + r0) / G) * N + n0 + n]);
         uint32_t packed[4];
 #pragma unroll
         for (int i = 0; i < 8; i += 2) {
@@ -604,7 +631,8 @@ __device__ __forceinline__ void int8_mma_tile(
                        n0, l);
     }
   }
-  store_tile<TL>(acc, xs, out, partial, m, N, m0, n0, l);
+  store_tile<TL>(acc, xs, out, partial, m, N, m0, n0, l,
+                 G == 0 ? cs : nullptr);
 }
 
 template <class TL, int G>
@@ -615,9 +643,9 @@ int8_mma_kernel(const typename TL::T* __restrict__ x,
                 const __nv_bfloat16* __restrict__ scales,
                 __nv_bfloat16* __restrict__ out,
                 float* __restrict__ partial, int m, int K, int N,
-                int chunks_per_split) {
+                int chunks_per_split, const float* __restrict__ cs) {
   int8_mma_tile<TL, G>(x, xs, qs, scales, out, partial, m, K, N,
-                       chunks_per_split);
+                       chunks_per_split, cs);
 }
 
 // The bf16 128-row tile (K13 and K14 above 64 rows) with two blocks per SM,
@@ -632,16 +660,191 @@ int8_mma_kernel_2blk(const typename TL::T* __restrict__ x,
                      const __nv_bfloat16* __restrict__ scales,
                      __nv_bfloat16* __restrict__ out,
                      float* __restrict__ partial, int m, int K, int N,
-                     int chunks_per_split) {
+                     int chunks_per_split, const float* __restrict__ cs) {
   int8_mma_tile<TL, G>(x, xs, qs, scales, out, partial, m, K, N,
-                       chunks_per_split);
+                       chunks_per_split, cs);
 }
 
-// Second pass of a split-K launch: out = bf16(sum over splits, in order,
-// times the A8 row scale when xs is given).
+// K16 on f32 x: stage x rows [m0, m0 + BM) x k [k0, k0 + 64) as two bf16
+// tiles, hi = bf16(x) and lo = bf16(x - hi), zeros past m; 16-byte f32
+// loads when `vec` (aligned rows).
+template <class TL>
+__device__ __forceinline__ void stage_x_split(
+    __nv_bfloat16 (*hi)[TL::LD], __nv_bfloat16 (*lo)[TL::LD],
+    const float* __restrict__ x, int m, int K, int m0, int k0, bool vec) {
+  auto split = [](float a, float b, uint32_t& h, uint32_t& w) {
+    const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
+    const float2 f = __bfloat1622float2(h2);
+    const __nv_bfloat162 l2 = __floats2bfloat162_rn(a - f.x, b - f.y);
+    h = *reinterpret_cast<const uint32_t*>(&h2);
+    w = *reinterpret_cast<const uint32_t*>(&l2);
+  };
+  constexpr int VPR = kChunk / 4;   // float4 per row
+  for (int i = threadIdx.x; i < TL::BM * VPR; i += kThreads) {
+    const int r = i / VPR, v = i % VPR;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m0 + r < m) {
+      const float* src = x + static_cast<size_t>(m0 + r) * K + k0 + v * 4;
+      val = vec ? *reinterpret_cast<const float4*>(src)
+                : make_float4(src[0], src[1], src[2], src[3]);
+    }
+    uint32_t h[2], w[2];
+    split(val.x, val.y, h[0], w[0]);
+    split(val.z, val.w, h[1], w[1]);
+    st_words<2>(&hi[r][v * 4], h);
+    st_words<2>(&lo[r][v * 4], w);
+  }
+}
+
+// K12 and K16: 4-bit codes packed 8 per int32 along K, qweight [K / 8, N]
+// (row k in word k / 8 at shift 4 * (k % 8): the natural order; the TPU's
+// plane-order unpack and x column permutation were sublane tricks and are
+// gone). The W tile is dequantized in shared memory per 64-deep chunk:
+//   Q4K (K12): w = bf16(q * dl - ml) in f32 (no fused multiply-add, as the
+//     Pallas body and the plain version round), dl and ml [K / 32, N] bf16
+//     rows per 32 input rows; a thread's 8-row word never straddles a
+//     group, so it reads one (dl, ml) pair per word.
+//   LUT (K16): w = lut[n, q], the block's [16, 128] slice of the codebook
+//     staged once in shared memory as f32 [16][128], where a warp's 32
+//     neighbouring columns fall in 32 distinct banks whatever the codes.
+//     bf16 x (SqueezeLLM): the entries are bf16 and go to the tile exactly.
+//     f32 x (X32, QuIP#): x and w are each split into bf16 hi + lo tiles,
+//     and the f32 sums take x_lo w_hi + x_hi w_lo + x_hi w_hi (bf16x3,
+//     about 2^-16 relative per product; single-pass TF32 would keep 10
+//     mantissa bits); the output is f32.
+// A thread owns one column of the tile and half the chunk's 8 words (as
+// quant_mma_kernel's GPTQ layout), so a warp's word loads cover 128
+// contiguous bytes. The words of the next chunk are loaded before the
+// current chunk's products. Shared memory is dynamic: the f32 variant's
+// four tiles and codebook take 82 KB at 128 rows.
+enum class Nib { kQ4K, kLut };
+
+template <class TL, Nib MODE, bool X32>
+constexpr int nib_smem_bytes() {
+  return (TL::BM + kBN) * TL::LD * static_cast<int>(sizeof(__nv_bfloat16)) *
+             (X32 ? 2 : 1) +
+         (MODE == Nib::kLut ? 16 * kBN * static_cast<int>(sizeof(float)) : 0);
+}
+
+template <class TL, Nib MODE, bool X32>
+__global__ void __launch_bounds__(kThreads)
+nib_mma_kernel(const void* __restrict__ xv,
+               const uint32_t* __restrict__ qweight,
+               const void* __restrict__ s0, const void* __restrict__ s1,
+               void* __restrict__ out, float* __restrict__ partial, int m,
+               int K, int N, int chunks_per_split) {
+  static_assert(!TL::A8 && (MODE == Nib::kLut || !X32), "nib variants");
+  using OutT = typename std::conditional<X32, float, __nv_bfloat16>::type;
+  constexpr int LD = TL::LD;
+  constexpr int WPT = kChunk / 8 / 2;   // words per thread per chunk
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto x_hi = reinterpret_cast<__nv_bfloat16 (*)[LD]>(smem);
+  auto w_hi = x_hi + TL::BM;
+  auto x_lo = w_hi + kBN;               // X32 only
+  auto w_lo = x_lo + TL::BM;            // X32 only
+  auto lut_s = reinterpret_cast<float (*)[kBN]>(X32 ? w_lo + kBN : x_lo);
+
+  const int tid = threadIdx.x;
+  const Lane l = lane_of<TL>();
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * TL::BM;
+  const int c_begin = blockIdx.z * chunks_per_split;
+  const int c_end = min(K / kChunk, c_begin + chunks_per_split);
+  const int my_n = tid % kBN;
+  const int my_col = n0 + my_n;
+  const int my_half = tid / kBN;
+  const bool x_vec = reinterpret_cast<uintptr_t>(xv) % 16 == 0;
+
+  if constexpr (MODE == Nib::kLut) {
+    for (int i = tid; i < 16 * kBN; i += kThreads) {
+      const int v = i / kBN, n = i % kBN;
+      const size_t idx = static_cast<size_t>(n0 + n) * 16 + v;
+      if constexpr (X32) {
+        lut_s[v][n] = static_cast<const float*>(s0)[idx];
+      } else {
+        lut_s[v][n] = __bfloat162float(
+            static_cast<const __nv_bfloat16*>(s0)[idx]);
+      }
+    }
+    __syncthreads();
+  }
+
+  float acc[TL::MI][TL::NI][4];
+  zero_acc<TL>(acc);
+
+  uint32_t words[WPT];
+  auto load_words = [&](int c) {
+    const size_t r = static_cast<size_t>(c) * (kChunk / 8) + my_half;
+#pragma unroll
+    for (int i = 0; i < WPT; ++i)
+      words[i] = qweight[(r + 2 * i) * N + my_col];
+  };
+  if (c_begin < c_end) load_words(c_begin);
+
+  for (int c = c_begin; c < c_end; ++c) {
+    const int k0 = c * kChunk;
+    if constexpr (X32) {
+      stage_x_split<TL>(x_hi, x_lo, static_cast<const float*>(xv), m, K, m0,
+                        k0, x_vec);
+    } else {
+      stage_x<TL>(x_hi, static_cast<const __nv_bfloat16*>(xv), m, K, m0,
+                  k0, kChunk, x_vec);
+    }
+#pragma unroll
+    for (int i = 0; i < WPT; ++i) {
+      const int kk = (my_half + 2 * i) * 8;
+      const uint32_t word = words[i];
+      float d = 0.f, mn = 0.f;
+      if constexpr (MODE == Nib::kQ4K) {
+        const size_t g = static_cast<size_t>((k0 + kk) / 32) * N + my_col;
+        d = __bfloat162float(static_cast<const __nv_bfloat16*>(s0)[g]);
+        mn = __bfloat162float(static_cast<const __nv_bfloat16*>(s1)[g]);
+      }
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        const int q0 = static_cast<int>((word >> (4 * j)) & 0xfu);
+        const int q1 = static_cast<int>((word >> (4 * (j + 1))) & 0xfu);
+        float w0, w1;
+        if constexpr (MODE == Nib::kQ4K) {
+          w0 = __fsub_rn(__fmul_rn(static_cast<float>(q0), d), mn);
+          w1 = __fsub_rn(__fmul_rn(static_cast<float>(q1), d), mn);
+        } else {
+          w0 = lut_s[q0][my_n];
+          w1 = lut_s[q1][my_n];
+        }
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(w0, w1);
+        hi[j / 2] = *reinterpret_cast<const uint32_t*>(&h2);
+        if constexpr (X32) {
+          const float2 f = __bfloat1622float2(h2);
+          const __nv_bfloat162 l2 = __floats2bfloat162_rn(w0 - f.x, w1 - f.y);
+          lo[j / 2] = *reinterpret_cast<const uint32_t*>(&l2);
+        }
+      }
+      st_words<4>(&w_hi[my_n][kk], hi);
+      if constexpr (X32) st_words<4>(&w_lo[my_n][kk], lo);
+    }
+    if (c + 1 < c_end) load_words(c + 1);
+    __syncthreads();
+    if constexpr (X32) {
+      mma_chunk<TL>(x_lo, w_hi, acc, l);
+      mma_chunk<TL>(x_hi, w_lo, acc, l);
+    }
+    mma_chunk<TL>(x_hi, w_hi, acc, l);
+    __syncthreads();
+  }
+  store_tile<TL, OutT>(acc, nullptr, static_cast<OutT*>(out), partial, m, N,
+                       m0, n0, l);
+}
+
+// Second pass of a split-K launch: out = OutT(sum over splits, in order,
+// times the A8 row scale when xs is given, times the column scale when cs
+// is given).
+template <typename OutT>
 __global__ void split_reduce_kernel(const float* __restrict__ partial,
                                     const float* __restrict__ xs,
-                                    __nv_bfloat16* __restrict__ out,
+                                    const float* __restrict__ cs,
+                                    OutT* __restrict__ out,
                                     int splits, int m, int N) {
   const size_t total = static_cast<size_t>(m) * N;
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -649,18 +852,24 @@ __global__ void split_reduce_kernel(const float* __restrict__ partial,
   float v = 0.f;
   for (int s = 0; s < splits; ++s) v += partial[s * total + i];
   if (xs != nullptr) v *= xs[i / N];
-  out[i] = __float2bfloat16(v);
+  if (cs != nullptr) v *= cs[i % N];
+  if constexpr (std::is_same<OutT, float>::value) {
+    out[i] = v;
+  } else {
+    out[i] = __float2bfloat16(v);
+  }
 }
 
-// The launcher both kernels share: `tile(TL{}, grid, partial)` launches the
+// The launcher the kernels share: `tile(TL{}, grid, partial)` launches the
 // kernel for block_m 16, 32 or 64 (one warp row: K7's skinny tiles, split
 // K) or 128 (two warp rows), over the output's 128-column blocks, its row
 // blocks and `splits`; `partial` is null without a split. With a split,
-// split_reduce_kernel then adds the f32 partials (times xs for A8).
-template <bool A8, typename LaunchTile>
+// split_reduce_kernel then adds the f32 partials (times xs for A8, times
+// the column scales cs for K17) into `out` of OutT.
+template <bool A8, typename OutT = __nv_bfloat16, typename LaunchTile>
 int launch_tiles(LaunchTile&& tile, int block_m, const float* xs, void* out,
                  float* partial, int m, int N, int splits,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, const float* cs = nullptr) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
   float* part = splits > 1 ? partial : nullptr;
   auto grid = [&](int bm) { return dim3(N / kBN, (m + bm - 1) / bm, splits); };
@@ -675,9 +884,9 @@ int launch_tiles(LaunchTile&& tile, int block_m, const float* xs, void* out,
     const size_t total = static_cast<size_t>(m) * N;
     const int threads = 256;
     const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-    split_reduce_kernel<<<blocks, threads, 0, stream>>>(
-        partial, A8 ? xs : nullptr, static_cast<__nv_bfloat16*>(out), splits,
-        m, N);
+    split_reduce_kernel<OutT><<<blocks, threads, 0, stream>>>(
+        partial, A8 ? xs : nullptr, cs, static_cast<OutT*>(out), splits, m,
+        N);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -703,12 +912,13 @@ int launch(const void* x, const float* xs, const void* qweight,
       block_m, xs, out, partial, m, N, splits, stream);
 }
 
-// GGUF: the split unit is 64 rows (A16) or one scale group (A8), as the
-// wrapper's `_tiling` counted them.
+// GGUF and K17: the split unit is 64 rows (A16) or one scale group (A8),
+// as the wrapper's `_tiling` counted them; cs, K17's column scales (G 0).
 template <int G, bool A8>
 int launch_int8(const void* x, const float* xs, const void* qs,
                 const void* scales, void* out, float* partial, int m, int K,
-                int N, int splits, int block_m, cudaStream_t stream) {
+                int N, int splits, int block_m, cudaStream_t stream,
+                const float* cs = nullptr) {
   if (m > 0 && (K % (A8 ? G : kChunk) != 0 || N % kBN != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kUnitChunks = A8 ? G / kChunk : 1;
@@ -723,7 +933,7 @@ int launch_int8(const void* x, const float* xs, const void* qs,
               static_cast<const uint32_t*>(qs),
               static_cast<const __nv_bfloat16*>(scales),
               static_cast<__nv_bfloat16*>(out), part, m, K, N,
-              per * kUnitChunks);
+              per * kUnitChunks, cs);
         };
         if constexpr (!A8 && TL::BM == 128) {
           go(int8_mma_kernel_2blk<TL, G>);
@@ -731,7 +941,39 @@ int launch_int8(const void* x, const float* xs, const void* qs,
           go(int8_mma_kernel<TL, G>);
         }
       },
-      block_m, xs, out, partial, m, N, splits, stream);
+      block_m, xs, out, partial, m, N, splits, stream, cs);
+}
+
+// K12 and K16: the split unit is 64 rows. The dynamic shared memory above
+// 48 KB (the f32 variant) is allowed once per kernel instance.
+template <Nib MODE, bool X32>
+int launch_nib(const void* x, const void* qweight, const void* s0,
+               const void* s1, void* out, float* partial, int m, int K,
+               int N, int splits, int block_m, cudaStream_t stream) {
+  if (m > 0 && (K % kChunk != 0 || N % kBN != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using OutT = typename std::conditional<X32, float, __nv_bfloat16>::type;
+  const int units = K / kChunk;
+  const int per = (units + splits - 1) / splits;
+  return launch_tiles<false, OutT>(
+      [&](auto tl, dim3 grid, float* part) {
+        using TL = decltype(tl);
+        auto kernel = nib_mma_kernel<TL, MODE, X32>;
+        constexpr int smem = nib_smem_bytes<TL, MODE, X32>();
+        if constexpr (smem > 48 * 1024) {
+          static bool allowed = false;
+          if (!allowed) {
+            cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+            allowed = true;
+          }
+        }
+        kernel<<<grid, kThreads, smem, stream>>>(
+            x, static_cast<const uint32_t*>(qweight), s0, s1, out, part, m,
+            K, N, per);
+      },
+      block_m, nullptr, out, partial, m, N, splits, stream);
 }
 
 // K9: one block per row. Pass 1 reduces |x| to the row's absmax, pass 2
@@ -857,4 +1099,44 @@ extern "C" int gguf_w8a8_mm(const void* x8, const float* xs, const void* qs8,
   return launch_int8<128, true>(x8, xs, qs8, s128, out, partial, m, K, N,
                                 splits, block_m,
                                 static_cast<cudaStream_t>(stream));
+}
+
+// K12: y[m, N] = x[m, K] @ bf16(q * dl - ml), GGUF's exact Q4_K form: 4-bit
+// codes qweight [K / 8, N], bf16 dl and ml [K / 32, N].
+extern "C" int gguf_q4k_mm(const void* x, const void* qweight, const void* dl,
+                           const void* ml, void* out, float* partial, int m,
+                           int K, int N, int splits, int block_m,
+                           void* stream) {
+  return launch_nib<Nib::kQ4K, false>(x, qweight, dl, ml, out, partial, m, K,
+                                      N, splits, block_m,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// K16, bf16: y[m, N] = x[m, K] @ w, w[k, n] = lut[n, q[k, n]], lut [N, 16]
+// bf16 (SqueezeLLM).
+extern "C" int sqllm_mm(const void* x, const void* qweight, const void* lut,
+                        void* out, float* partial, int m, int K, int N,
+                        int splits, int block_m, void* stream) {
+  return launch_nib<Nib::kLut, false>(x, qweight, lut, nullptr, out, partial,
+                                      m, K, N, splits, block_m,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// K16, f32: the same with f32 x, lut and y (QuIP#'s 4-bit at-rest form).
+extern "C" int sqllm_mm_f32(const void* x, const void* qweight,
+                            const void* lut, void* out, float* partial,
+                            int m, int K, int N, int splits, int block_m,
+                            void* stream) {
+  return launch_nib<Nib::kLut, true>(x, qweight, lut, nullptr, out, partial,
+                                     m, K, N, splits, block_m,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// K17: y[m, N] = bf16((x[m, K] @ int8 w[K, N]) * scales[N]), scales f32.
+extern "C" int int8_mm(const void* x, const void* w, const float* scales,
+                       void* out, float* partial, int m, int K, int N,
+                       int splits, int block_m, void* stream) {
+  return launch_int8<0, false>(x, nullptr, w, nullptr, out, partial, m, K, N,
+                               splits, block_m,
+                               static_cast<cudaStream_t>(stream), scales);
 }

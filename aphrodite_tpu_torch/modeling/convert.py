@@ -7,9 +7,13 @@ with torch's [out, in] layout (F.linear). Embedding tables, the LM head
 are, and so do quantized layers' tensors (GPTQ/AWQ qweight, qzeros,
 scales and g_idx keep the checkpoint layout on both sides; GGUF's
 at-rest qs, d, d16, qs8, s128, qweight, dl and ml are [in, out] on both
-sides): only a dense 2-D `weight` transposes, GGUF's dense `weight`
-included (the JAX GGUF method stores it [in, out], the port [out, in]).
-Used to give both sides the same weights in parity tests.
+sides; SqueezeLLM's and QuIP#'s qweight and lookup_table, QuIP#'s SU,
+SV, Wscale and Hadamard factors as they are): only a FLOATING 2-D
+`weight` transposes, GGUF's dense `weight` included (the JAX GGUF
+method stores it [in, out], the port [out, in]). An int8 `weight` (the
+int8 method's, QuIP#'s int8 form) keeps [in, out] on both sides: K17
+reads W as [K, N]. Used to give both sides the same weights in parity
+tests.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ def params_from_jax(np_params: Dict[str, Dict[str, np.ndarray]]
         out = state.setdefault(key, {})
         for name, arr in bucket.items():
             arr = np.asarray(arr)
-            if name == "weight" and arr.ndim == 2 and \
+            floating = arr.dtype.kind == "f" or arr.dtype.name == "bfloat16"
+            if name == "weight" and arr.ndim == 2 and floating and \
                     key.endswith(_LINEAR_SUFFIXES):
                 arr = arr.T
             if arr.dtype.name == "bfloat16":      # ml_dtypes, no numpy twin

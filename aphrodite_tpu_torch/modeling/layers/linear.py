@@ -115,19 +115,21 @@ class RowParallelLinear(LinearBase):
 
 class _ShardedLoadMixin(LinearBase):
     """Places one checkpoint tensor into its slice [offset, offset + size)
-    of a merged layer's output dim. The dense `weight` ([out, in]) has it
-    first; every other parameter (bias, the quantized qweight, qzeros and
-    scales, which keep the checkpoint's [.., out] layout, and GGUF's
-    at-rest [in, out] forms) has it last, with offsets divided by the
-    method's `out_scale`. g_idx spans the input dim and is the same for
-    every shard."""
+    of a merged layer's output dim. The dense floating `weight`
+    ([out, in]) and SqueezeLLM's `lookup_table` ([out, 16]) have it first;
+    every other parameter (bias, the quantized qweight, qzeros and scales,
+    which keep the checkpoint's [.., out] layout, GGUF's at-rest [in, out]
+    forms and the int8 method's [in, out] int8 `weight`) has it last, with
+    offsets divided by the method's `out_scale`. g_idx spans the input
+    dim and is the same for every shard."""
 
     def _write_shard(self, params: ParamDict, name: str,
                      tensor: torch.Tensor, offset: int, size: int) -> None:
         if name == "g_idx":
             params[name] = tensor
             return
-        if name == "weight":
+        if (name == "weight" and tensor.is_floating_point()) or \
+                name == "lookup_table":
             if name not in params:
                 params[name] = torch.zeros(
                     (self.out_features,) + tuple(tensor.shape[1:]),

@@ -1,9 +1,8 @@
 """Quantization plug-in registry of the PyTorch port (port of
 `aphrodite_tpu/modeling/layers/quantization/__init__.py`).
 
-GPTQ, AWQ and GGUF are ported so far; the other methods of the JAX
-package (squeezellm, int8, quip) are refused by `ModelConfig` before a
-model is built.
+The six methods of the JAX package: GPTQ, AWQ, GGUF, SqueezeLLM, int8
+and QuIP#.
 """
 from __future__ import annotations
 
@@ -14,11 +13,18 @@ from aphrodite_tpu_torch.modeling.layers.quantization.base_config import (
     QuantizationConfig)
 from aphrodite_tpu_torch.modeling.layers.quantization.gguf import GGUFConfig
 from aphrodite_tpu_torch.modeling.layers.quantization.gptq import GPTQConfig
+from aphrodite_tpu_torch.modeling.layers.quantization.int8 import Int8Config
+from aphrodite_tpu_torch.modeling.layers.quantization.quip import QuipConfig
+from aphrodite_tpu_torch.modeling.layers.quantization.squeezellm import (
+    SqueezeLLMConfig)
 
 _QUANTIZATION_CONFIG_REGISTRY = {
     "awq": AWQConfig,
     "gguf": GGUFConfig,
     "gptq": GPTQConfig,
+    "squeezellm": SqueezeLLMConfig,
+    "int8": Int8Config,
+    "quip": QuipConfig,
 }
 
 

@@ -14,9 +14,7 @@ one of four at-rest forms, per merged bucket, as the JAX package does
   that is not a multiple of 128): K14 (`gguf_i8g_matmul`);
 - `qs`/`d` (uniform Q8_0, exact): K13 (`gguf_q8_matmul`);
 - `qweight`/`dl`/`ml` (exact Q4_K: APHRODITE_GGUF_EXACT=1, or an input
-  width that is not a multiple of 128): K12, which a later slice
-  brings. `ModelConfig` refuses a checkpoint or dummy load that would
-  take this form, and `apply` refuses it too.
+  width that is not a multiple of 128): K12 (`gguf_q4k_matmul`).
 
 Every other tensor (embeddings, norms, the LM head, groups with float
 members) dequantizes at load and runs as a dense `weight`, kept in the
@@ -26,7 +24,7 @@ Where a kernel's `*_supported` gate refuses a bucket's shape, `apply`
 dequantizes and multiplies in plain torch, as the JAX package falls back
 to XLA, on the CPU only: on the card `ModelConfig` refuses such a model
 (`kernel_takes`), and `apply` refuses such a bucket, naming the later
-slice.
+slice (`common/config.LATER_FALLBACK`).
 """
 from __future__ import annotations
 
@@ -38,19 +36,11 @@ import torch
 import torch.nn.functional as F
 
 from aphrodite_tpu_torch.common import flags
+from aphrodite_tpu_torch.common.config import refuse_gated_shape
 from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
 from aphrodite_tpu_torch.modeling.layers.quantization.base_config import (
     QuantizationConfig)
 from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
-
-#: The later slice that serves the exact Q4_K form (K12).
-LATER_Q4K = ("the exact Q4_K GGUF kernel K12 (APHRODITE_GGUF_EXACT=1 or "
-             "Q4_K projections whose input width is not a multiple of 128)")
-#: The later slice that serves, on the card, the bucket shapes the GGUF
-#: kernels' gates refuse.
-LATER_FALLBACK = ("GGUF at layer shapes the kernels' gates refuse, on the "
-                  "reference's dequantize-then-matmul path after the "
-                  "quantized matmul kernels K12, K16 and K17")
 
 
 class GGUFConfig(QuantizationConfig):
@@ -244,7 +234,7 @@ def dummy_form(in_features: int) -> str:
 
 
 _GATES = {"q8_0": qmm.gguf_q8_supported, "i8g": qmm.gguf_i8g_supported,
-          "w8": qmm.gguf_w8a8_supported}
+          "w8": qmm.gguf_w8a8_supported, "q4k": qmm.gguf_q4k_supported}
 
 #: The projection of each checkpoint tensor -> its merged bucket's index
 #: in `ModelConfig._linear_shapes` (qkv, o, gate_up, down).
@@ -259,8 +249,8 @@ def bucket_index(hf_name: str) -> int:
 
 def kernel_takes(form: str, in_features: int, out_features: int) -> bool:
     """Whether the kernel of an at-rest form takes a merged bucket of this
-    shape (its `*_supported` gate). The dense and exact Q4_K forms have no
-    gate here: the first runs as a dense linear, the second is refused."""
+    shape (its `*_supported` gate). The dense form has no gate: it runs
+    as a dense linear."""
     gate = _GATES.get(form)
     return gate is None or gate(in_features, out_features)
 
@@ -338,8 +328,11 @@ class GGUFLinearMethod(LinearMethod):
                 y = qmm.gguf_w8a8_matmul(x.reshape(-1, K).contiguous(),
                                          params["qs8"], params["s128"])
         elif "qweight" in params:
-            from aphrodite_tpu_torch.common.config import refuse
-            refuse("the exact Q4_K GGUF form (qweight/dl/ml)", LATER_Q4K)
+            K, N = params["qweight"].shape[0] * 8, params["qweight"].shape[1]
+            if qmm.gguf_q4k_supported(K, N):
+                y = qmm.gguf_q4k_matmul(x.reshape(-1, K).contiguous(),
+                                        params["qweight"], params["dl"],
+                                        params["ml"])
         elif "qs" in params and "d16" in params:
             K, N = params["qs"].shape
             if qmm.gguf_i8g_supported(K, N):
@@ -356,11 +349,11 @@ class GGUFLinearMethod(LinearMethod):
             # A gate refused the shape: dequantize, then multiply, on the
             # CPU only (`ModelConfig` refuses such a model on the card).
             if x.device.type != "cpu":
-                from aphrodite_tpu_torch.common.config import refuse
-                w = params["qs8"] if "qs8" in params else params["qs"]
-                refuse(f"a GGUF bucket of shape (in, out) {tuple(w.shape)} "
-                       f"that its kernel's gate refuses, on "
-                       f"{x.device.type}", LATER_FALLBACK)
+                w = params.get("qs8", params.get("qs"))
+                shape = tuple(w.shape) if w is not None else (
+                    params["qweight"].shape[0] * 8,
+                    params["qweight"].shape[1])
+                refuse_gated_shape("a GGUF bucket", shape, x.device)
             y = x.reshape(-1, x.shape[-1]) @ self.dequantize(params, x.dtype)
         y = y.reshape(*lead, y.shape[-1])
         if "bias" in params:

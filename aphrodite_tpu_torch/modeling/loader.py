@@ -6,8 +6,11 @@ slice needs).
 `initialize_dummy_params`, drawing on the device from a
 `torch.Generator` seeded with the model seed: every floating parameter
 uniformly from [-1e-3, 1e-3]; packed quantized payloads (GPTQ/AWQ
-qweight and qzeros, GGUF's int8 qs and qs8) uniformly over their whole
-integer range, so the codes are random bit patterns; index-like integers (g_idx) zero. Checkpoint
+qweight and qzeros, GGUF's int8 qs and qs8 and its Q4_K qweight,
+SqueezeLLM's and QuIP#'s 4-bit qweight) uniformly over their whole
+integer range, so the codes are random bit patterns; other integers
+zero: index-like ones (g_idx) and the int8 method's `weight`, as in the
+JAX package. Checkpoint
 formats read local files; `safetensors` is imported only when a
 safetensors checkpoint is asked for. A single-file `.gguf` checkpoint
 is read by `modeling/gguf.py`: with quantization="gguf" its

@@ -33,6 +33,20 @@ Port of the GPTQ, AWQ and GGUF parts of
   f32 in group order, times xs at the end. One kernel takes every m
   (the Pallas wrappers have no skinny variant): at m <= 64 it covers
   16-64 rows per block and splits K like K7, else 128 rows.
+- `gguf_q4k_matmul` (K12, Pallas `_gguf_q4k_kernel`; GGUF's exact Q4_K
+  form): 4-bit codes qweight [K/8, N] (8 along K), w = q * dl - ml with
+  affine rows dl, ml [K/32, N] per 32 input rows, taken in f32 and
+  rounded to x's dtype; bf16 products with f32 sums.
+- `squeezellm_matmul` (K16, Pallas `_sqllm_kernel`): the same 4-bit
+  packing, w[k, n] = lut[n, q[k, n]] with a 16-entry codebook per output
+  column. Two kernels: bf16 x and codebook (SqueezeLLM), and f32 x and
+  codebook (QuIP#'s 4-bit at-rest form), whose products reach f32
+  accuracy by three bf16 products per term (x_hi w_hi + x_hi w_lo +
+  x_lo w_hi) with f32 sums; the output is in x's dtype.
+- `int8_matmul` (K17, Pallas `_int8_kernel`): y = (x @ int8 W [K, N]) *
+  scales[N], the codes exact in bf16, the f32 sum times the column's
+  f32 scale, then rounded.
+  K12, K16 and K17 tile m like the GGUF kernels above.
 
 Layouts, as the checkpoints store them; scales [G, N], G = K //
 group_size, row k in group k // group_size (the kernels' contiguous
@@ -80,6 +94,11 @@ QUANTIZE_ACTIVATIONS_INT8_LAUNCHES = build.launch_counter(
 GGUF_Q8_MATMUL_LAUNCHES = build.launch_counter("gguf_q8_matmul")
 GGUF_I8G_MATMUL_LAUNCHES = build.launch_counter("gguf_i8g_matmul")
 GGUF_W8A8_MATMUL_LAUNCHES = build.launch_counter("gguf_w8a8_matmul")
+GGUF_Q4K_MATMUL_LAUNCHES = build.launch_counter("gguf_q4k_matmul")
+SQUEEZELLM_MATMUL_LAUNCHES = build.launch_counter("squeezellm_matmul")
+SQUEEZELLM_MATMUL_F32_LAUNCHES = build.launch_counter(
+    "squeezellm_matmul_f32")
+INT8_MATMUL_LAUNCHES = build.launch_counter("int8_matmul")
 
 STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
 BLOCK_N = 128              # output columns per block
@@ -122,6 +141,21 @@ def gguf_i8g_supported(in_features: int, out_features: int) -> bool:
 def gguf_w8a8_supported(in_features: int, out_features: int) -> bool:
     """Shapes K15 takes (the JAX package's gate, copied)."""
     return in_features % 128 == 0 and out_features % 128 == 0
+
+
+def gguf_q4k_supported(in_features: int, out_features: int) -> bool:
+    """Shapes K12 takes (the JAX package's gate, copied)."""
+    return in_features % 256 == 0 and out_features % 128 == 0
+
+
+def squeezellm_supported(in_features: int, out_features: int) -> bool:
+    """Shapes K16 takes (the JAX package's gate, copied)."""
+    return in_features % 256 == 0 and out_features % 128 == 0
+
+
+def int8_supported(in_features: int, out_features: int) -> bool:
+    """Shapes K17 takes (the JAX package's gate, copied)."""
+    return in_features % 256 == 0 and out_features % 128 == 0
 
 
 # ------------------------------------------------------ plain versions --
@@ -305,6 +339,45 @@ def gguf_w8a8_launch_plain(x8: torch.Tensor, xs: torch.Tensor,
     """Plain version of K15 alone (`gguf_w8a8_launch`) on K9's rows x8
     and their scales xs; the result in `dtype`."""
     return _a8_rows(x8, xs, qs8, s128, 128, dtype)
+
+
+def gguf_q4k_dequantize_plain(qweight: torch.Tensor, dl: torch.Tensor,
+                              ml: torch.Tensor,
+                              dtype: torch.dtype) -> torch.Tensor:
+    """Q4_K W [K, N] in `dtype`: (q * dl - ml) in f32 over 32-row groups,
+    rounded."""
+    codes = unpack_rows(qweight, 4).float()
+    return (codes * dl.float().repeat_interleave(32, dim=0) -
+            ml.float().repeat_interleave(32, dim=0)).to(dtype)
+
+
+def gguf_q4k_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
+                          dl: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12: W rounded to x's dtype, the products summed
+    in f32, the result in x's dtype."""
+    return _a16(x, gguf_q4k_dequantize_plain(qweight, dl, ml, x.dtype))
+
+
+def squeezellm_dequantize_plain(qweight: torch.Tensor, lut: torch.Tensor,
+                                dtype: torch.dtype) -> torch.Tensor:
+    """W [K, N] in `dtype` with w[k, n] = lut[n, q[k, n]]."""
+    codes = unpack_rows(qweight, 4).long()
+    return torch.gather(lut.float().t(), 0, codes).to(dtype)
+
+
+def squeezellm_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
+                            lut: torch.Tensor) -> torch.Tensor:
+    """Plain version of K16 (both kernels): the codebook entries in x's
+    dtype, the products summed in f32, the result in x's dtype."""
+    return _a16(x, squeezellm_dequantize_plain(qweight, lut, x.dtype))
+
+
+def int8_matmul_plain(x: torch.Tensor, weight: torch.Tensor,
+                      scales: torch.Tensor) -> torch.Tensor:
+    """Plain version of K17: (x @ W) with the int8 codes exact in x's
+    dtype and the products summed in f32, times the f32 column scales,
+    rounded to x's dtype."""
+    return ((x.float() @ weight.float()) * scales.float()).to(x.dtype)
 
 
 # ------------------------------------------------------------ kernels --
@@ -543,22 +616,19 @@ def _check_gguf(x, qs, scales, G: int, what: str,
     return m, K, N
 
 
-def _gguf_launch(entry: str, x, xs, qs, scales, *,
-                 counter: build.LaunchCounter, what: str) -> torch.Tensor:
-    """One launch of a GGUF entry point on (bf16 x) or, with xs, (int8
-    rows x and their scales xs). At m <= 64 the block covers 16-64 rows
-    and the K range is split over blocks in units of 64 rows (K13, K14)
-    or of a 128-row scale group (K15), as `_tiling` splits K7's."""
+def _tiled_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
+                  N: int, unit: int, out_dtype: torch.dtype, *,
+                  counter: build.LaunchCounter, what: str) -> torch.Tensor:
+    """One launch of a GGUF, K12, K16 or K17 entry point: `ptrs` are its
+    input pointers, x [m, K] first. At m <= 64 the block covers 16-64
+    rows and the K range is split over blocks in units of `unit` rows,
+    as `_tiling` splits K7's; above, 128-row blocks and no split."""
     m, K = x.shape
-    N = qs.shape[1]
-    unit = 128 if xs is not None else 64
     block_m, splits = _tiling(m, K, N, unit, m <= STREAM_M_MAX)
-    out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     partial = torch.empty((splits, m, N), dtype=torch.float32,
                           device=x.device) if splits > 1 else None
-    ptrs = (x.data_ptr(),) + ((xs.data_ptr(),) if xs is not None else ()) \
-        + (qs.data_ptr(), scales.data_ptr(), out.data_ptr(),
-           build.ptr(partial))
+    ptrs = ptrs + (out.data_ptr(), build.ptr(partial))
     tail = (m, K, N, splits, block_m)
     fn = getattr(build.library("quant_matmul"), entry)
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
@@ -568,6 +638,18 @@ def _gguf_launch(entry: str, x, xs, qs, scales, *,
     counter.add()
     build.check(err, what)
     return out
+
+
+def _gguf_launch(entry: str, x, xs, qs, scales, *,
+                 counter: build.LaunchCounter, what: str) -> torch.Tensor:
+    """One launch of a GGUF entry point on (bf16 x) or, with xs, (int8
+    rows x and their scales xs), split in units of 64 rows (K13, K14) or
+    of a 128-row scale group (K15)."""
+    ptrs = (x.data_ptr(),) + ((xs.data_ptr(),) if xs is not None else ()) \
+        + (qs.data_ptr(), scales.data_ptr())
+    return _tiled_launch(entry, x, ptrs, qs.shape[1],
+                         128 if xs is not None else 64, torch.bfloat16,
+                         counter=counter, what=what)
 
 
 def gguf_q8_matmul(x: torch.Tensor, qs: torch.Tensor,
@@ -621,3 +703,107 @@ def gguf_w8a8_matmul(x: torch.Tensor, qs8: torch.Tensor,
     _check_gguf(x, qs8, s128, 128, "gguf_w8a8_matmul")  # before K9
     x8, xs = quantize_activations_int8(x)
     return gguf_w8a8_launch(x8, xs, qs8, s128)
+
+
+# ------------------------------------------------- K12, K16 and K17 --
+
+def _check_x(x: torch.Tensor, dtypes, what: str) -> Tuple[int, int]:
+    if x.dim() != 2 or x.dtype not in dtypes:
+        raise TypeError(f"{what}: x must be 2-D "
+                        f"{' or '.join(map(str, dtypes))}, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    m, K = x.shape
+    return m, K
+
+
+def _check_tiles(K: int, N: int, what: str) -> None:
+    """The kernels stage 64 k rows and 128 columns at a time."""
+    if K % 64 or N % BLOCK_N:
+        raise ValueError(f"{what}: K {K} must be a multiple of 64 and N "
+                         f"{N} of {BLOCK_N}")
+
+
+def _check_contiguous(what: str, *tensors) -> None:
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def _check_packed4(x, qweight, dtypes, what: str) -> Tuple[int, int, int]:
+    """x [m, K] and 4-bit codes qweight [K/8, N] int32; returns (m, K,
+    N)."""
+    m, K = _check_x(x, dtypes, what)
+    if qweight.dtype != torch.int32 or qweight.dim() != 2 or \
+            qweight.shape[0] * 8 != K:
+        raise ValueError(f"{what}: qweight must be int32 [K/8, N] for K "
+                         f"{K}, got {tuple(qweight.shape)} {qweight.dtype}")
+    N = qweight.shape[1]
+    _check_tiles(K, N, what)
+    return m, K, N
+
+
+def gguf_q4k_matmul(x: torch.Tensor, qweight: torch.Tensor, dl: torch.Tensor,
+                    ml: torch.Tensor) -> torch.Tensor:
+    """y [m, N] = x [m, K] @ (q * dl - ml), GGUF's exact Q4_K form: 4-bit
+    codes qweight [K/8, N], affine rows dl, ml [K/32, N] (K12)."""
+    if not build.on_cuda(x, qweight, dl, ml):
+        return gguf_q4k_matmul_plain(x, qweight, dl, ml)
+    what = "gguf_q4k_matmul"
+    m, K, N = _check_packed4(x, qweight, (torch.bfloat16,), what)
+    for t in (dl, ml):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != (K // 32, N):
+            raise ValueError(f"{what}: dl and ml must be bfloat16 "
+                             f"[{K // 32}, {N}], got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    _check_contiguous(what, x, qweight, dl, ml)
+    return _tiled_launch(
+        "gguf_q4k_mm", x, (x.data_ptr(), qweight.data_ptr(), dl.data_ptr(),
+                           ml.data_ptr()), N, 64, torch.bfloat16,
+        counter=GGUF_Q4K_MATMUL_LAUNCHES, what=what)
+
+
+def squeezellm_matmul(x: torch.Tensor, qweight: torch.Tensor,
+                      lut: torch.Tensor) -> torch.Tensor:
+    """y [m, N] = x [m, K] @ w, w[k, n] = lut[n, q[k, n]]: 4-bit codes
+    qweight [K/8, N], a 16-entry codebook lut [N, 16] per output column
+    (K16). bf16 x and lut take the bf16 kernel (SqueezeLLM), f32 x and
+    lut the f32 one (QuIP#); y is in x's dtype."""
+    if not build.on_cuda(x, qweight, lut):
+        return squeezellm_matmul_plain(x, qweight, lut)
+    what = "squeezellm_matmul"
+    m, K, N = _check_packed4(x, qweight, (torch.bfloat16, torch.float32),
+                             what)
+    if lut.dtype != x.dtype or tuple(lut.shape) != (N, 16):
+        raise ValueError(f"{what}: lut must be [{N}, 16] in x's dtype "
+                         f"{x.dtype}, got {tuple(lut.shape)} {lut.dtype}")
+    _check_contiguous(what, x, qweight, lut)
+    f32 = x.dtype == torch.float32
+    return _tiled_launch(
+        "sqllm_mm_f32" if f32 else "sqllm_mm", x,
+        (x.data_ptr(), qweight.data_ptr(), lut.data_ptr()), N, 64, x.dtype,
+        counter=SQUEEZELLM_MATMUL_F32_LAUNCHES if f32
+        else SQUEEZELLM_MATMUL_LAUNCHES,
+        what=what + ("_f32" if f32 else ""))
+
+
+def int8_matmul(x: torch.Tensor, weight: torch.Tensor,
+                scales: torch.Tensor) -> torch.Tensor:
+    """y [m, N] = (x [m, K] @ int8 weight [K, N]) * scales [N] (K17); x
+    bf16, scales f32."""
+    if not build.on_cuda(x, weight, scales):
+        return int8_matmul_plain(x, weight, scales)
+    what = "int8_matmul"
+    m, K = _check_x(x, (torch.bfloat16,), what)
+    if weight.dtype != torch.int8 or weight.dim() != 2 or \
+            weight.shape[0] != K:
+        raise ValueError(f"{what}: weight must be int8 [K, N] for K {K}, "
+                         f"got {tuple(weight.shape)} {weight.dtype}")
+    N = weight.shape[1]
+    _check_tiles(K, N, what)
+    if scales.dtype != torch.float32 or tuple(scales.shape) != (N,):
+        raise ValueError(f"{what}: scales must be float32 [{N}], got "
+                         f"{tuple(scales.shape)} {scales.dtype}")
+    _check_contiguous(what, x, weight, scales)
+    return _tiled_launch(
+        "int8_mm", x, (x.data_ptr(), weight.data_ptr(), scales.data_ptr()),
+        N, 64, torch.bfloat16, counter=INT8_MATMUL_LAUNCHES, what=what)

@@ -152,8 +152,43 @@ Phases, in order; any failure exits non-zero:
    the held plain path with K15's scale rows shifted by one group, K14's
    d16 read per 32 rows, or K13's d shifted by one group, must each miss
    2e-2.
-16. Prints the kernel JSON line (launches summed over every path
+16. K12, K16 and K17 vs plain versions at the same four projections, m
+   1, 8, 64, 512 and 4096, through the wrappers the engine calls:
+   `gguf_q4k_matmul` (K12, random Q4_K codes with affine dl/ml rows per
+   32 input rows), `squeezellm_matmul` on bf16 x (K16, an N(0, 0.02)
+   bf16 codebook per column) and on f32 x (K16's f32 kernel, QuIP#'s
+   E8P table times Wscale 0.05, codes over its 12 values) and
+   `int8_matmul` (K17, int8 codes times f32 column scales). Tolerance:
+   phase 8's for bf16; K16 on f32 x within 1e-4 of max |plain|. Timed as
+   phase 13, with the plain version and the library yardstick
+   (torch.matmul over the weight dequantized beforehand: bf16, f32 for
+   K16-f32, K17's scales folded in) at m 8 and 4096; the bound takes
+   three bf16 products per term for K16-f32.
+17. End to end with dummy weights at Mistral-7B width and depth, as
+   SqueezeLLM (K16), int8 (K17; its int8 weights stay zero, as in the
+   JAX package), QuIP# (K16 on f32 activations, no K17) and GGUF's exact
+   Q4_K form (APHRODITE_GGUF_EXACT=1: K12, and none of K9, K13-K15):
+   phase 4's mix at multi_step 1, in which every engine step must launch
+   the arm's kernel a positive multiple of 128 times (4 projections x 32
+   layers) and none of the other quantized matmuls; the 96-request round;
+   a batch-8 decode step profiled as in phase 9 (with the kernel
+   launches per step: QuIP#'s Hadamard transforms are eager torch ops).
+18. 2-layer models at Mistral-7B width through K12, K16, K16-f32 and K17
+   vs their plain versions (`compare_with_plain`: logits within 2e-2 of
+   max |logit|, each quantized matmul on the model's activations within
+   its phase-16 tolerance): exact Q4_K (codes random, dl in [1e-3,
+   4e-3), ml = 8 dl), SqueezeLLM (a random codebook), int8 (codes in
+   [-127, 127], scales in [1e-4, 5e-4)) and QuIP# (random Qidxs for 1024
+   output columns through `quip_codes4_from_qidxs`, tiled and shuffled
+   across the width, SU and SV +-1, Wscale 0.05, the get_hadK factors).
+   Each has a control that must miss 2e-2: K12's dl shifted by one
+   group, K16's codebook columns rolled by one, K17's scales rolled by
+   one, QuIP#'s table entries rolled by one code.
+19. Prints the kernel JSON line (launches summed over every path
    above), the card line, and last {"ok": true, "device": {...}}.
+
+No earlier phase is cut in depth for time: the whole command ran in
+well under 600 s on an NVIDIA H100 80GB HBM3 (PERF.md).
 """
 from __future__ import annotations
 
@@ -545,14 +580,17 @@ def check_model_against_plain(torch):
 
 
 def compare_with_plain(torch, model, params, label: str,
-                       rel_tol: float = 2e-2, w8a8_rows: bool = False
-                       ) -> float:
+                       rel_tol: float = 2e-2, w8a8_rows: bool = False,
+                       controls=None) -> float:
     """`model` over `params` (2 layers), a prompt (page-aligned -> K2)
     and 3 decode steps (K1 fused) through the kernels vs through their
-    plain versions (attention, writers and the GGUF matmuls); logits
-    within `rel_tol` of max |logit|. In the kernel run every GGUF matmul
-    is also held to its plain version on the same activations (phase 8's
-    tolerance). With `w8a8_rows` the plain K15 takes the int8 rows K9
+    plain versions (attention, writers, the GGUF matmuls and K12, K16,
+    K17); logits within `rel_tol` of max |logit|. In the kernel run every
+    quantized matmul is also held to its plain version on the same
+    activations (phase 8's tolerance; K16 on f32 x within 1e-4 of max
+    |plain|). `controls` ({what: {matmul name: wrong plain fn}}): each
+    held plain path with that matmul made wrong must miss `rel_tol`.
+    With `w8a8_rows` the plain K15 takes the int8 rows K9
     gave the kernel run (call by call), so that a code flipped by an
     upstream bf16 sum-order difference does not count against the
     kernels; the plain path on its own rows is logged beside it, with the
@@ -592,6 +630,8 @@ def compare_with_plain(torch, model, params, label: str,
         (qmm, "gguf_q8_matmul"): qmm.gguf_q8_matmul_plain,
         (qmm, "gguf_i8g_matmul"): qmm.gguf_i8g_matmul_plain,
         (qmm, "gguf_w8a8_matmul"): qmm.gguf_w8a8_matmul_plain,
+        **{(qmm, name): getattr(qmm, name + "_plain")
+           for name in LATE_MATMULS},
     }
 
     per_call = {}
@@ -602,14 +642,17 @@ def compare_with_plain(torch, model, params, label: str,
 
         def fn(*args):
             got = kernel(*args)
-            err = check_close(torch, got, plain_fn(*args),
-                              f"{label}: {name} on the model's activations")
+            what = f"{label}: {name} on the model's activations"
+            check = check_close_f32 if got.dtype == torch.float32 \
+                else check_close
+            err = check(torch, got, plain_fn(*args), what)
             per_call[name] = max(per_call.get(name, 0.0), err)
             if name == "gguf_w8a8_matmul":
                 k9_rows.append(qmm.quantize_activations_int8(args[0]))
             return got
         return fn
-    kernel_checks = {(qmm, name): checked(name) for name in GGUF_MATMULS}
+    kernel_checks = {(qmm, name): checked(name)
+                     for name in GGUF_MATMULS + LATE_MATMULS}
 
     flips = []              # (codes that differ, codes, largest difference)
 
@@ -695,13 +738,16 @@ def compare_with_plain(torch, model, params, label: str,
         f"logits rel err per step {rels} (tolerance {rel_tol}; max |logit| "
         f"{max(w.abs().max().item() for w in want):.3f}); tokens "
         f"{got_tokens[64:]} vs {want_tokens[64:]}"
-        + (f"; each GGUF matmul vs its plain version on the same "
+        + (f"; each quantized matmul vs its plain version on the same "
            f"activations, max err {per_call}" if per_call else ""))
     if not all(torch.isfinite(g).all() for g in got) or max(rels) > rel_tol:
         fail(f"{label}: kernel path vs {held}: logits differ by "
              f"{max(rels)} of max |logit|")
+    held_versions = {what: {**plain_versions,
+                            **{(qmm, n): f for n, f in wrong.items()}}
+                     for what, wrong in (controls or {}).items()}
     if w8a8_rows:
-        controls = {
+        held_versions.update({
             "K15 with its scale rows shifted by one group":
                 on_k9_rows(lambda s128: torch.roll(s128, 1, 0)),
             "K14 reading d16 per 32 rows": {
@@ -710,14 +756,14 @@ def compare_with_plain(torch, model, params, label: str,
             "K13 with its d rows shifted by one group": {
                 **on_k9_rows(), (qmm, "gguf_q8_matmul"): lambda x, qs, d:
                 qmm.gguf_q8_matmul_plain(x, qs, torch.roll(d, 1, 0))},
-        }
-        for what, versions in controls.items():
-            c_rels = rel_errs(got, run(versions)[0])
-            log(f"{label}: control, {what}: logits rel err per step "
-                f"{c_rels} (must exceed {rel_tol})")
-            if max(c_rels) <= rel_tol:
-                fail(f"{label}: the comparison cannot see {what}: "
-                     f"{max(c_rels)} <= {rel_tol}")
+        })
+    for what, versions in held_versions.items():
+        c_rels = rel_errs(got, run(versions)[0])
+        log(f"{label}: control, {what}: logits rel err per step "
+            f"{c_rels} (must exceed {rel_tol})")
+        if max(c_rels) <= rel_tol:
+            fail(f"{label}: the comparison cannot see {what}: "
+                 f"{max(c_rels)} <= {rel_tol}")
     return max(rels)
 
 
@@ -1013,35 +1059,287 @@ def check_and_time_gguf(torch, qmm, timer):
     return out
 
 
-def log_unported_bounds() -> None:
-    """The bounds of the quantized kernels still to port, computed from
-    their shapes at the four Mistral-7B projections (not measured): K12
-    (Q4_K: 4-bit codes, bf16 dl and ml rows per 32 input rows), K16
-    (SqueezeLLM: 4-bit codes, a 16-entry bf16 table per output column),
-    K17 (int8 weights, a bf16 scale per output column); x and y bf16."""
-    for m in (8, 4096):
-        per = {"K12": 0.0, "K16": 0.0, "K17": 0.0}
-        for _, K, N in GPTQ_PROJ:
-            io = m * K * 2 + m * N * 2
-            for name, weight in (("K12", K * N // 2 + 2 * (K // 32) * N * 2),
-                                 ("K16", K * N // 2 + N * 16 * 2),
-                                 ("K17", K * N + N * 2)):
-                per[name] += bound(io + weight, 2 * m * K * N)[0]
-        log(f"still to port, bound per layer (4 projections) at m {m}, "
-            f"computed from the shapes: " + ", ".join(
-                f"{k} {v:.4f} ms" for k, v in per.items()))
+# ------------------------------------------- K12, K16 and K17 kernels --
+
+# JSON key -> (kernel JSON name, Pallas body line)
+LATE_KERNELS = {"k12": ("gguf_q4k_matmul", 1117),
+                "k16": ("squeezellm_matmul", 1630),
+                "k16f32": ("squeezellm_matmul_f32", 1630),
+                "k17": ("int8_matmul", 1706)}
+LATE_MATMULS = ("gguf_q4k_matmul", "squeezellm_matmul", "int8_matmul")
+F32_RTOL = 1e-4                   # K16 on f32 x: of max |plain|
 
 
-def gguf_engine(torch, model: str, label: str, **kw):
+def pack_rows4(torch, codes):
+    """int codes [K, N] in [0, 16) -> int32 [K / 8, N], 8 along K (row k
+    in word k / 8 at shift 4 * (k % 8))."""
+    K, N = codes.shape
+    c8 = codes.to(torch.int64).view(K // 8, 8, N)
+    word = torch.zeros(K // 8, N, dtype=torch.int64, device=codes.device)
+    for p in range(8):
+        word |= c8[:, p, :] << (4 * p)
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+
+
+def quip_lut(torch, N, wscale=0.05, dtype=None):
+    """QuIP#'s 4-bit table: the 12 E8P values (odd quarters in
+    [-11/4, 11/4]) times Wscale, the same for every output column."""
+    from aphrodite_tpu_torch.modeling.layers.quantization.quip import (
+        E8P_VALUES4)
+    lut16 = torch.zeros(16, dtype=torch.float32, device="cuda")
+    lut16[:12] = torch.tensor(E8P_VALUES4, dtype=torch.float32,
+                              device="cuda") / 4.0
+    return (lut16 * wscale)[None, :].expand(N, 16).contiguous().to(
+        dtype or torch.float32)
+
+
+def late_weights(torch, qmm, key, K, N, seed):
+    """(wrapper args after x, the weight dequantized beforehand for the
+    library call): K12 random Q4_K codes with dl in [1e-3, 4e-3) and ml
+    = 8 dl; K16 random codes and an N(0, 0.02) bf16 codebook; K16-f32
+    QuIP#'s codes (uniform over the 12 E8P values) and f32 table times
+    Wscale 0.05; K17 codes in [-127, 127] and f32 scales in [1e-4, 5e-4)
+    (the library weight folds them in)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf16 = torch.bfloat16
+    if key == "k17":
+        q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand(N, generator=gen, device="cuda") * 4e-4 + 1e-4
+        return (q, s), (q.float() * s).to(bf16)
+    if key == "k16f32":
+        codes = torch.randint(0, 12, (K, N), generator=gen, device="cuda")
+        qw, lut = pack_rows4(torch, codes), quip_lut(torch, N)
+        return (qw, lut), qmm.squeezellm_dequantize_plain(qw, lut,
+                                                          torch.float32)
+    qw = torch.randint(-2 ** 31, 2 ** 31, (K // 8, N), generator=gen,
+                       device="cuda", dtype=torch.int64).to(torch.int32)
+    if key == "k12":
+        dl = torch.rand(K // 32, N, generator=gen, device="cuda") * 3e-3 \
+            + 1e-3
+        dl, ml = dl.to(bf16), (dl * 8).to(bf16)
+        return (qw, dl, ml), qmm.gguf_q4k_dequantize_plain(qw, dl, ml, bf16)
+    lut = (torch.randn(N, 16, generator=gen, device="cuda") * 0.02).to(bf16)
+    return (qw, lut), qmm.squeezellm_dequantize_plain(qw, lut, bf16)
+
+
+def late_layer_bytes(key, K, N):
+    """Codes and scales of one projection: K12 4-bit codes with bf16 dl
+    and ml rows per 32 input rows, K16 4-bit codes with a 16-entry table
+    per column (bf16, or f32 for QuIP#), K17 int8 codes with f32 column
+    scales."""
+    return {"k12": K * N // 2 + 2 * (K // 32) * N * 2,
+            "k16": K * N // 2 + N * 16 * 2,
+            "k16f32": K * N // 2 + N * 16 * 4,
+            "k17": K * N + N * 4}[key]
+
+
+def check_close_f32(torch, got, want, what):
+    """K16 on f32 x: within F32_RTOL of max |plain|."""
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or \
+            err > F32_RTOL * want.abs().max().item():
+        fail(f"{what}: max err {err} (tolerance {F32_RTOL} max|plain| = "
+             f"{F32_RTOL * want.abs().max().item()})")
+    return err
+
+
+def check_and_time_late(torch, qmm, timer):
+    """K12, K16 (bf16 x, and f32 x on QuIP#'s table) and K17 against
+    their plain versions at the Mistral-7B projection shapes and m
+    1-4096, through the wrappers the engine calls; each timed like phase
+    8, its plain version and the library call (torch.matmul over the
+    weight dequantized beforehand: bf16, f32 for K16-f32, K17's scales
+    folded in) at m 8 and 4096. Bound: the bytes over 3.35 TB/s, or the
+    operations over 989 TFLOP/s (bf16; K16-f32 does three bf16 products
+    per term). Returns {key: {...}} summed over one layer's four
+    projections at m 8, and at m 4096 under "<key>@4096"."""
+    out = {}
+    for key in LATE_KERNELS:
+        for m in (8, 4096):
+            out[key if m == 8 else f"{key}@4096"] = dict(
+                ms=0.0, plain_ms=0.0, library_ms=0.0, bound_bytes_ms=0.0,
+                bound_ops_ms=0.0, max_abs_err=0.0)
+    for seed, (proj, K, N) in enumerate(GPTQ_PROJ):
+        gen = torch.Generator(device="cuda").manual_seed(500 + seed)
+        x_all = torch.randn(4096, K, generator=gen, device="cuda")
+        for key, (name, _) in LATE_KERNELS.items():
+            f32 = key == "k16f32"
+            wrapper = getattr(qmm, name.replace("_f32", ""))
+            plain_fn = getattr(qmm, name.replace("_f32", "") + "_plain")
+            args, w_lib = late_weights(torch, qmm, key, K, N, seed * 10 +
+                                       len(key))
+            xb = x_all if f32 else x_all.to(torch.bfloat16)
+            for m in GGUF_MS:
+                x = xb[:m]
+                got = wrapper(x, *args)
+                plain = plain_fn(x, *args)
+                what = f"{name} {proj} m={m}"
+                err = check_close_f32(torch, got, plain, what) if f32 \
+                    else check_close(torch, got, plain, what)
+                size = 4 if f32 else 2
+                nbytes = m * K * size + late_layer_bytes(key, K, N) + \
+                    m * N * size
+                ops = 2 * m * K * N * (3 if f32 else 1)
+                torch.cuda.synchronize()
+                ms = timer(lambda: wrapper(x, *args))
+                b_ms, b_by = bound(nbytes, ops)
+                line = (f"{name} {proj} (K {K}, N {N}) m={m}: kernel "
+                        f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max err "
+                        f"{err}")
+                if m in (8, 4096):
+                    plain_ms = timer(lambda: plain_fn(x, *args))
+                    lib = timer(lambda: torch.matmul(x, w_lib))
+                    line += (f", plain {plain_ms:.4f} ms, library "
+                             f"{lib:.4f} ms (torch.matmul over the weight "
+                             f"dequantized beforehand)")
+                    rec = out[key if m == 8 else f"{key}@4096"]
+                    rec["ms"] += ms
+                    rec["plain_ms"] += plain_ms
+                    rec["library_ms"] += lib
+                    rec["bound_bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+                    rec["bound_ops_ms"] += ops / BF16_FLOPS_PER_S * 1e3
+                log(line)
+                for k in (key, f"{key}@4096"):
+                    out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
+            del args, w_lib, xb
+        del x_all
+        torch.cuda.empty_cache()
+    for rec in out.values():
+        t_b, t_o = rec.pop("bound_bytes_ms"), rec.pop("bound_ops_ms")
+        rec["bound_ms"], rec["bound_by"] = (t_b, "bytes") if t_b >= t_o \
+            else (t_o, "operations")
+    log("K12/K16/K17 vs plain: all cases within tolerance; per layer (4 "
+        "projections) at m 8 and 4096: " + json.dumps(out))
+    return out
+
+
+def fill_quant_params(torch, params, quantization, seed):
+    """Weights that make a 2-layer model's kernels do real work: dense
+    tensors U(-0.05, 0.05), norms 1; K12 random Q4_K codes with dl in
+    [1e-3, 4e-3) and ml = 8 dl; K16 random codes with an N(0, 0.02)
+    codebook; K17 codes in [-127, 127] with scales in [1e-4, 5e-4);
+    QuIP# random Qidxs for 1024 output columns re-encoded by
+    `quip_codes4_from_qidxs`, tiled across the width and the columns
+    shuffled, SU and SV +-1, Wscale 0.05, the get_hadK factors as
+    created."""
+    import numpy as np
+    from aphrodite_tpu_torch.modeling.layers.quantization.quip import (
+        quip_codes4_from_qidxs)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rs = np.random.RandomState(seed)
+    for key, bucket in params.items():
+        if key.endswith("layernorm") or key == "model.norm":
+            bucket["weight"].fill_(1.0)
+            continue
+        if set(bucket) == {"weight"} and bucket["weight"].is_floating_point():
+            bucket["weight"].uniform_(-0.05, 0.05, generator=gen)
+            continue
+        if quantization == "quip":
+            q_in, q_out = bucket["qweight"].shape[0] * 8, \
+                bucket["qweight"].shape[1]
+            qidxs = rs.randint(-2 ** 15, 2 ** 15, (1024, q_in // 8)).astype(
+                np.int16)
+            qw, lut = quip_codes4_from_qidxs(qidxs)
+            # Tiled, then the columns shuffled: a period of 1024 columns
+            # would meet the output transform's Hadamard blocks and leave
+            # most outputs exactly zero.
+            reps = q_out // 1024
+            perm = torch.from_numpy(rs.permutation(q_out))
+            bucket["qweight"].copy_(torch.from_numpy(qw).repeat(1, reps)[
+                :, perm])
+            bucket["lookup_table"].copy_(torch.from_numpy(lut).repeat(
+                reps, 1)[perm])
+            bucket["Wscale"].fill_(0.05)
+            for name in ("SU", "SV"):
+                bucket[name].copy_(torch.randint(
+                    0, 2, bucket[name].shape, generator=gen,
+                    device=dev) * 2 - 1)
+            continue
+        for name, t in bucket.items():
+            if name in ("qweight",):
+                t.random_(-2 ** 31, 2 ** 31, generator=gen)
+            elif name == "dl":
+                t.copy_(torch.rand(t.shape, generator=gen, device=dev) *
+                        3e-3 + 1e-3)
+            elif name == "lookup_table":
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev) *
+                        0.02)
+            elif name == "weight":
+                t.random_(-127, 128, generator=gen)
+            elif name == "scales":
+                t.copy_(torch.rand(t.shape, generator=gen, device=dev) *
+                        4e-4 + 1e-4)
+        if "ml" in bucket:
+            bucket["ml"].copy_(bucket["dl"].float() * 8)
+
+
+def check_quant_models(torch):
+    """Phase 18: 2-layer Llamas at Mistral-7B width in the exact Q4_K
+    form (K12), SqueezeLLM (K16), int8 (K17) and QuIP# (K16-f32), weights
+    from `fill_quant_params`, through the kernels vs through their plain
+    versions (`compare_with_plain`, 2e-2 of max |logit|), each with a
+    control that must miss."""
+    from aphrodite_tpu_torch.modeling.layers.quantization import (
+        get_quantization_config_cls)
+    from aphrodite_tpu_torch.modeling.models.llama import LlamaForCausalLM
+    from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
+    from aphrodite_tpu_torch.transformers_utils.config import (
+        config_from_dict)
+    cfg = config_from_dict(dict(MISTRAL_7B, num_hidden_layers=2))
+    controls = {
+        "gguf": ("K12 with its dl rows shifted by one group",
+                 "gguf_q4k_matmul", lambda x, qw, dl, ml:
+                 qmm.gguf_q4k_matmul_plain(x, qw, torch.roll(dl, 1, 0),
+                                           ml)),
+        "squeezellm": ("K16 with its codebook columns rolled by one",
+                       "squeezellm_matmul", lambda x, qw, lut:
+                       qmm.squeezellm_matmul_plain(x, qw,
+                                                   torch.roll(lut, 1, 0))),
+        "int8": ("K17 with its column scales rolled by one", "int8_matmul",
+                 lambda x, w, s: qmm.int8_matmul_plain(x, w,
+                                                       torch.roll(s, 1, 0))),
+        "quip": ("K16-f32 with its table entries rolled by one code",
+                 "squeezellm_matmul", lambda x, qw, lut:
+                 qmm.squeezellm_matmul_plain(x, qw, torch.roll(lut, 1, 1))),
+    }
+    models = (("gguf", "exact Q4_K (K12)"), ("squeezellm", "SqueezeLLM (K16)"),
+              ("int8", "int8 (K17)"), ("quip", "QuIP# (K16-f32)"))
+    os.environ["APHRODITE_GGUF_EXACT"] = "1"      # dummy_form -> Q4_K
+    try:
+        for seed, (quantization, label) in enumerate(models):
+            method = get_quantization_config_cls(
+                quantization).default().get_linear_method()
+            model = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+                                     linear_method=method)
+            params = model.init_params(torch.device("cuda"))
+            t0 = time.perf_counter()
+            fill_quant_params(torch, params, quantization, 40 + seed)
+            log(f"2-layer {label} model: weights made in "
+                f"{time.perf_counter() - t0:.1f} s")
+            what, name, wrong = controls[quantization]
+            compare_with_plain(torch, model, params,
+                               f"2-layer {label} model",
+                               controls={what: {name: wrong}})
+            del model, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("APHRODITE_GGUF_EXACT")
+
+
+def quant_engine(torch, model: str, label: str, quantization: str = "gguf",
+                **kw):
     from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
     from aphrodite_tpu_torch.engine.args_tools import EngineArgs
     t0 = time.perf_counter()
     engine = AphroditeEngine.from_engine_args(EngineArgs(
-        model=model, quantization="gguf", dtype="bfloat16", seed=0,
+        model=model, quantization=quantization, dtype="bfloat16", seed=0,
         block_size=32, max_model_len=2048, skip_tokenizer_init=True,
         disable_log_stats=True, **kw))
-    if engine.model_config.quantization != "gguf":
-        fail(f"{label}: not served with quantization='gguf'")
+    if engine.model_config.quantization != quantization:
+        fail(f"{label}: not served with quantization={quantization!r}")
     log(f"{label} engine up in {time.perf_counter() - t0:.1f} s: "
         f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
@@ -1197,10 +1495,12 @@ def check_outputs(outputs, n: int, what: str) -> None:
 
 def run_engine(torch, engine, multi_step: int, counters, card: str,
                required=BF16_KERNELS, tag: str = "", absent=(),
-               tokens=None):
+               tokens=None, per_step=None):
     """Phase 4's request mix; fails if a kernel of `required` did not
     launch or one of `absent` did. Fills `tokens` (request id without
-    the tag -> token ids) when given."""
+    the tag -> token ids) when given. With `per_step` (a counter name, a
+    launch count n) every engine step must launch that kernel a positive
+    multiple of n times (n = its matmuls per forward pass)."""
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
     engine.scheduler_config.multi_step = multi_step
     sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
@@ -1217,10 +1517,14 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
                            prompt_token_ids=prompt(n, i))
     outputs, steps = {}, 0
     late_added = False
+    deltas = []
     while engine.has_unfinished_requests():
+        before = counters[per_step[0]].count if per_step else 0
         for out in engine.step():
             if out.finished:
                 outputs[out.request_id] = out
+        if per_step:
+            deltas.append(counters[per_step[0]].count - before)
         steps += 1
         if not late_added:
             # Two 12-token prompts one round later: alone in their prompt
@@ -1242,13 +1546,18 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
         if launches.get(name, 0):
             fail(f"{tag}multi_step={multi_step}: kernel {name} launched "
                  f"{launches[name]} times where it must not ({launches})")
+    if per_step and any(d <= 0 or d % per_step[1] for d in deltas):
+        fail(f"{tag}multi_step={multi_step}: {per_step[0]} launches per "
+             f"engine step {deltas}, not a positive multiple of "
+             f"{per_step[1]} in every step")
     if tokens is not None:
         for rid, out in outputs.items():
             tokens[rid[len(tag):]] = list(out.outputs[0].token_ids)
     new_tokens = 8 * 32
     log(f"e2e {tag}multi_step={multi_step}: 8 requests x 32 tokens, "
         f"{steps} engine steps, {dt:.3f} s, {new_tokens / dt:.1f} generated "
-        f"tok/s on {card}, launches {launches}")
+        f"tok/s on {card}, launches {launches}"
+        + (f"; {per_step[0]} per step {deltas}" if per_step else ""))
     return launches
 
 
@@ -1374,7 +1683,8 @@ def run_sliding_window(torch, counters, card: str):
 
 
 QUANT_KERNEL_NAMES = ("quant_mma_kernel", "int8_mma_kernel",
-                      "split_reduce_kernel", "quant8_kernel")
+                      "nib_mma_kernel", "split_reduce_kernel",
+                      "quant8_kernel")
 
 
 def profile_decode(torch, engine, tag: str = "",
@@ -1414,11 +1724,13 @@ def profile_decode(torch, engine, tag: str = "",
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA), reverse=True)
     dev_ms = sum(r[0] for r in rows) / 1e3 / steps
+    n_launch = sum(r[2] for r in rows) // steps
     top = "; ".join(f"{k[:48]} x{c // steps}/step {us / 1e3 / steps:.3f} ms"
                     for us, k, c in rows[:8])
     log(f"{tag}decode step, batch 8 at Mistral-7B width: wall "
         f"{wall_ms:.2f} ms/step (unprofiled), device kernels {dev_ms:.2f} "
-        f"ms/step (busy share {dev_ms / wall_ms:.3f}); top kernels: {top}")
+        f"ms/step (busy share {dev_ms / wall_ms:.3f}), {n_launch} kernel "
+        f"launches/step; top kernels: {top}")
     if quant_bound_ms:
         quant_ms = sum(us for us, k, _ in rows
                        if any(n in k for n in QUANT_KERNEL_NAMES)) / 1e3 \
@@ -1428,6 +1740,53 @@ def profile_decode(torch, engine, tag: str = "",
             f"(share {quant_ms / dev_ms:.3f}); weight-streaming bound "
             f"{quant_bound_ms:.3f} ms/step ({quant_ms / quant_bound_ms:.2f}"
             f"x)")
+
+
+def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
+                  bf16_pages: int):
+    """Phase 17: the Mistral-7B-shaped model with dummy weights served as
+    SqueezeLLM (K16), int8 (K17), QuIP# (K16 on f32 activations) and
+    GGUF's exact Q4_K form (APHRODITE_GGUF_EXACT=1, K12): phase 4's mix
+    at multi_step 1, where every engine step must launch the arm's
+    kernel 4 * layers times (or a multiple) and none of the others, then
+    the 96-request round and a profiled batch-8 decode step. Returns the
+    launches by path."""
+    by_path = {}
+    late_names = tuple(name for name, _ in LATE_KERNELS.values())
+    for quantization, key, label, env in (
+            ("squeezellm", "k16", "SqueezeLLM", {}),
+            ("int8", "k17", "int8", {}),
+            ("quip", "k16f32", "QuIP#", {}),
+            ("gguf", "k12", "GGUF exact Q4_K", {"APHRODITE_GGUF_EXACT": "1"})):
+        kernel = LATE_KERNELS[key][0]
+        os.environ.update(env)
+        engine = quant_engine(torch, model_dir, label,
+                             quantization=quantization, load_format="dummy")
+        log(f"{label}: layer 0 buckets {bucket_forms(engine)}; "
+            f"{engine.cache_config.num_gpu_blocks} KV pages (bf16 had "
+            f"{bf16_pages})")
+        tag = f"{label} "
+        absent = tuple(k for k in late_names + GGUF_MATMULS +
+                       ("quantize_activations_int8",) if k != kernel)
+        runs = [run_engine(torch, engine, 1, counters, card,
+                           required=BF16_KERNELS + (kernel,), absent=absent,
+                           tag=tag, per_step=(kernel, 4 * layers)),
+                run_wide_round(torch, engine, counters, card,
+                               ("paged_decode_attention",
+                                "write_kv_pages_prefill", kernel), kernel,
+                               layers, tag)]
+        by_path[label] = {}
+        for run in runs:
+            for name, n in run.items():
+                by_path[label][name] = by_path[label].get(name, 0) + n
+        step_bound = layers * sum(late_layer_bytes(key, K, N) for _, K, N
+                                  in GPTQ_PROJ) / HBM_BYTES_PER_S * 1e3
+        profile_decode(torch, engine, tag, quant_bound_ms=step_bound)
+        for name in env:
+            os.environ.pop(name)
+        del engine
+        free_engine(torch, label)
+    return by_path
 
 
 def main() -> int:
@@ -1690,7 +2049,6 @@ def main() -> int:
     # 13. GGUF kernels vs plain versions, and times.
     log_clocks("before the GGUF kernel phase")
     gguf = check_and_time_gguf(torch, qmm, timer)
-    log_unported_bounds()
 
     # 14. End to end with dummy GGUF weights in the JAX bench's three
     # at-rest forms (BENCH_GGUF_FMT).
@@ -1699,7 +2057,7 @@ def main() -> int:
                               ("q6_k", i8g, False)):
         form = fmt or "turbo"
         os.environ["BENCH_GGUF_FMT"] = fmt
-        engine = gguf_engine(torch, model_dir, f"GGUF {form}",
+        engine = quant_engine(torch, model_dir, f"GGUF {form}",
                              load_format="dummy")
         os.environ.pop("BENCH_GGUF_FMT")
         key = {w8a8: "k15", q8: "k13", i8g: "k14"}[kernel]
@@ -1737,7 +2095,7 @@ def main() -> int:
         secs = write_gguf_model(path)
         log(f"GGUF file: 2 layers at Mistral-7B width written in "
             f"{secs:.1f} s ({os.path.getsize(path) / 2**20:.0f} MiB)")
-        engine = gguf_engine(torch, path, "GGUF file")
+        engine = quant_engine(torch, path, "GGUF file")
     forms = bucket_forms(engine)
     want_forms = {"qkv_proj": ["d16", "qs"], "o_proj": ["d", "qs"],
                   "gate_up_proj": ["qs8", "s128"],
@@ -1754,6 +2112,19 @@ def main() -> int:
                        "GGUF file (K13, K14, K15)", w8a8_rows=True)
     del engine, runner
     free_engine(torch, "GGUF file")
+
+    # 16. K12, K16 and K17 kernels vs plain versions, and times.
+    log_clocks("before the K12/K16/K17 kernel phase")
+    late = check_and_time_late(torch, qmm, timer)
+
+    # 17. End to end with dummy weights: SqueezeLLM (K16), int8 (K17),
+    # QuIP# (K16 on f32 activations) and GGUF's exact Q4_K form (K12).
+    by_path.update(run_late_arms(torch, model_dir, counters, smi, layers,
+                                 bf16_pages))
+
+    # 18. 2-layer full-width models through K12, K16, K16-f32 and K17 vs
+    # their plain versions, each with a control.
+    check_quant_models(torch)
     launches = {}
     for path in by_path.values():
         for name, n in path.items():
@@ -1817,7 +2188,10 @@ def main() -> int:
              launches=launches["awq_matmul_a8"], **awq["k11"]),
     ] + [dict(name=name, route="cuda", source=quant_src,
               replaces=f"{pallas_qmm}:{line}", launches=launches[name],
-              **gguf[key]) for key, (name, _, line) in GGUF_KERNELS.items()]
+              **gguf[key]) for key, (name, _, line) in GGUF_KERNELS.items()
+         ] + [dict(name=name, route="cuda", source=quant_src,
+                   replaces=f"{pallas_qmm}:{line}", launches=launches[name],
+                   **late[key]) for key, (name, line) in LATE_KERNELS.items()]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -32,10 +32,12 @@ draw them and written as raw blocks). Flags are set with monkeypatch.
   1e-5 of max |y|.
 - Tokenizer and config from metadata: the same encodings and decodings,
   the same config values as the JAX package's LlamaConfig.
-- Refusals: APHRODITE_GGUF_EXACT=1 on a Q4_K file, and a dummy load in
-  the exact Q4_K form, name K12's slice; float32 GGUF on the card; on
-  the card, a file or dummy load whose buckets a kernel's gate refuses
-  (at config time), and such a bucket off the CPU in `apply`.
+- Exact Q4_K (K12): APHRODITE_GGUF_EXACT=1 on a Q4_K file, and a dummy
+  load in that form, are served (bf16 on the card); the file's greedy
+  tokens equal the JAX engine's.
+- Refusals: float32 GGUF on the card; on the card, a file or dummy load
+  whose buckets a kernel's gate refuses (at config time), and such a
+  bucket off the CPU in `apply`.
 """
 import jax
 import jax.numpy as jnp
@@ -435,30 +437,36 @@ def test_turbo_apply_matches_jax_pallas(lead, monkeypatch):
 
 
 def test_apply_falls_back_only_where_a_gate_refuses(monkeypatch):
-    """Shapes the kernels take go through their wrappers; a shape a gate
-    refuses (K % 256 != 0 for Q8_0) dequantizes and multiplies, as the
-    JAX package's `apply` does; the exact Q4_K form is refused."""
+    """Shapes the kernels take go through their wrappers (Q8_0's K13 and
+    the exact Q4_K form's K12); a shape a gate refuses (K % 256 != 0)
+    dequantizes and multiplies, as the JAX package's `apply` does."""
     rs = np.random.RandomState(10)
-    calls = []
-    real = tqm.gguf_q8_matmul
-    monkeypatch.setattr(TQ.qmm, "gguf_q8_matmul",
-                        lambda *a: calls.append(1) or real(*a))
+    calls = {"gguf_q8_matmul": 0, "gguf_q4k_matmul": 0}
+    for name in calls:
+        def spy(*a, _real=getattr(tqm, name), _name=name):
+            calls[_name] += 1
+            return _real(*a)
+        monkeypatch.setattr(TQ.qmm, name, spy)
     method = TQ.GGUFLinearMethod(TQ.GGUFConfig())
     jm = JQ.GGUFLinearMethod(JQ.GGUFConfig())
     for K in (256, 128):
-        params = {"qs": rs.randint(-128, 128, (K, 128)).astype(np.int8),
-                  "d": rs.rand(K // 32, 128).astype(np.float32)}
-        x = rs.randn(5, K).astype(np.float32)
-        got = method.apply({k: torch.from_numpy(v) for k, v in
-                            params.items()}, torch.from_numpy(x)).numpy()
-        want = np.asarray(jm.apply({k: jnp.asarray(v) for k, v in
-                                    params.items()}, jnp.asarray(x)))
-        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
-    assert len(calls) == 1
-    with pytest.raises(NotImplementedError, match="K12"):
-        method.apply({"qweight": torch.zeros((32, 128), dtype=torch.int32),
-                      "dl": torch.zeros(8, 128), "ml": torch.zeros(8, 128)},
-                     torch.zeros(2, 256))
+        q4k = dict(zip(("qweight", "dl", "ml"), JQ.q4k_to_kernel(
+            random_q4k_blocks(rs, 128, 256), 128, 256)))
+        if K == 128:                 # an unaligned at-rest Q4_K bucket
+            q4k = {"qweight": q4k["qweight"][:16], "dl": q4k["dl"][:4],
+                   "ml": q4k["ml"][:4]}
+        for params in ({"qs": rs.randint(-128, 128, (K, 128)).astype(
+                            np.int8),
+                        "d": rs.rand(K // 32, 128).astype(np.float32)},
+                       q4k):
+            x = rs.randn(5, K).astype(np.float32)
+            got = method.apply({k: torch.from_numpy(v) for k, v in
+                                params.items()},
+                               torch.from_numpy(x)).numpy()
+            want = np.asarray(jm.apply({k: jnp.asarray(v) for k, v in
+                                        params.items()}, jnp.asarray(x)))
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert calls == {"gguf_q8_matmul": 1, "gguf_q4k_matmul": 1}
 
 
 def test_apply_refuses_a_gated_shape_off_the_cpu():
@@ -554,13 +562,19 @@ def _engine_configs(model, device="cpu", dtype="float32", **kw):
 
 
 def test_exact_q4k_is_refused_naming_k12(tmp_path, monkeypatch):
+    """K12 serves the exact Q4_K form: APHRODITE_GGUF_EXACT=1 on a Q4_K
+    file is accepted on the CPU and, in bfloat16, on the card (every
+    bucket passes K12's gate at hidden 256); the header routes each
+    projection to the qweight/dl/ml form."""
     path = write_model(tmp_path / "q4k.gguf", dict.fromkeys(PROJ, "Q4_K"),
                        layers=1)
     assert _engine_configs(path)[0].quantization == "gguf"   # turbo
+    assert set(TQ.checkpoint_forms(path).values()) == {"w8"}
     monkeypatch.setenv("APHRODITE_GGUF_EXACT", "1")
-    with pytest.raises(NotImplementedError, match="Q4_K") as info:
-        _engine_configs(path)
-    assert "later slice" in str(info.value) and "K12" in str(info.value)
+    assert _engine_configs(path)[0].quantization == "gguf"
+    assert _engine_configs(path, device="cuda", dtype="bfloat16"
+                           )[0].quantization == "gguf"
+    assert set(TQ.checkpoint_forms(path).values()) == {"q4k"}
     # Exact Q8_0 and Q6_K files stay served with the flag set.
     q6 = write_model(tmp_path / "q6k.gguf", dict.fromkeys(PROJ, "Q6_K"),
                      layers=1)
@@ -578,9 +592,17 @@ def test_dummy_load_in_the_exact_q4k_form_is_refused(tmp_path, monkeypatch):
     assert _engine_configs(model, load_format="dummy")[0].quantization == \
         "gguf"
     monkeypatch.setenv("APHRODITE_GGUF_EXACT", "1")
-    with pytest.raises(NotImplementedError, match="dummy GGUF") as info:
-        _engine_configs(model, load_format="dummy")
-    assert "K12" in str(info.value)
+    # Served now (K12): dummy weights in the exact Q4_K form, random codes.
+    from aphrodite_tpu_torch.modeling.loader import get_model
+    model_config = _engine_configs(model, load_format="dummy")[0]
+    assert _engine_configs(model, load_format="dummy", device="cuda",
+                           dtype="bfloat16")[0].quantization == "gguf"
+    _, params = get_model(model_config, torch.device("cpu"))
+    qkv = params["model.layers.0.self_attn.qkv_proj"]
+    assert {k: tuple(v.shape) for k, v in qkv.items()} == {
+        "qweight": (HIDDEN // 8, 512), "dl": (HIDDEN // 32, 512),
+        "ml": (HIDDEN // 32, 512)}
+    assert len(torch.unique(qkv["qweight"])) > 1000
     for fmt in ("q8_0", "q6_k"):
         monkeypatch.setenv("BENCH_GGUF_FMT", fmt)
         _engine_configs(model, load_format="dummy")
@@ -639,7 +661,8 @@ def test_gated_shapes_are_refused_on_the_card(tmp_path, monkeypatch, load):
                            match="kernels' gates refuse") as info:
             _engine_configs(path, device=device, dtype="bfloat16", **kw)
         msg = str(info.value)
-        assert "later slice" in msg and "K12, K16 and K17" in msg
+        assert "later slice" in msg and \
+            "quantized matmul fallback route" in msg
         assert "('q8_0', (384, 640))" in msg
         assert "(512, 384)" not in msg
     assert _engine_configs(path, **kw)[0].quantization == "gguf"
@@ -725,6 +748,32 @@ def test_greedy_generation_matches_jax(tmp_path, monkeypatch, types,
     for name, per_layer in kernels.items():
         assert calls[name] == 8 * 2 * per_layer, calls
     assert sum(calls.values()) == 8 * 2 * sum(kernels.values())
+
+
+def test_exact_q4k_generation_matches_jax(tmp_path, monkeypatch):
+    """A Q4_K file under APHRODITE_GGUF_EXACT=1: the port runs K12 on the
+    qweight/dl/ml form, the JAX CPU engine dequantizes the same form;
+    greedy tokens equal, as for the other exact forms."""
+    monkeypatch.setenv("APHRODITE_GGUF_EXACT", "1")
+    calls = _spy(monkeypatch, ("gguf_q4k_matmul", "gguf_q8_matmul",
+                               "gguf_i8g_matmul", "gguf_w8a8_matmul"))
+    path = write_model(tmp_path / "q4k.gguf", dict.fromkeys(PROJ, "Q4_K"))
+    jax_llm, port = _engines(path, "gguf")
+    qkv = port.engine.executor.params["model.layers.0.self_attn.qkv_proj"]
+    assert sorted(qkv) == ["dl", "ml", "qweight"]
+    want = [o.token_ids for o in _generate(jax_llm, JaxSamplingParams)]
+    got = _generate(port, SamplingParams, logprobs=2)
+    compared = 0
+    for w, g in zip(want, got):
+        for pos, (wt, gt) in enumerate(zip(w, g.token_ids)):
+            top = sorted(g.logprobs[pos].values(), reverse=True)
+            if top[0] - top[1] <= GAP_TOL:
+                break
+            assert wt == gt, (pos, w, g.token_ids)
+            compared += 1
+    assert compared >= 16
+    assert calls == {"gguf_q4k_matmul": 8 * 2 * 4, "gguf_q8_matmul": 0,
+                     "gguf_i8g_matmul": 0, "gguf_w8a8_matmul": 0}
 
 
 def test_turbo_generation_stays_near_jax(tmp_path, monkeypatch):

@@ -217,14 +217,16 @@ def test_gptq_4_and_8_bit_are_accepted(tmp_path, bits):
     (dict(QUANT, bits=2), {}, "2-bit GPTQ"),
     (dict(QUANT, group_size=64), {}, "group size 64"),
     (QUANT, {"hidden_size": 96}, "group size 128"),
-    ({"quant_method": "squeezellm", "wbits": 4}, {},
-     "quantization 'squeezellm'"),
+    # SqueezeLLM is served (K16); on the card the hidden-128 layers fail
+    # its gate (in % 256), which stands refused.
+    ({"quant_method": "squeezellm", "wbits": 4},
+     {"device": "cuda", "dtype": "bfloat16"}, "quantization 'squeezellm'"),
 ])
 def test_out_of_slice_gptq_is_refused(tmp_path, quant, changes, match):
     with pytest.raises(NotImplementedError, match=match) as info:
         _configs(tmp_path, quant, **changes)
     assert "later slice" in str(info.value)
-    assert "K12, K16 and K17" in str(info.value)
+    assert "quantized matmul fallback route" in str(info.value)
 
 
 @pytest.mark.parametrize("device", ["cuda", "auto"])

@@ -103,15 +103,21 @@ def _model_dir(tmp_path, tiny_model_dir, **changes):
 @pytest.mark.parametrize("change,match", [
     (dict(tensor_parallel_size=2), "multi-GPU"),
     (dict(disagg_split="1,1", tensor_parallel_size=2), "multi-GPU"),
-    (dict(quantization="squeezellm"), "quantized matmul"),
+    # SqueezeLLM is served on the CPU; on the card the tiny model's
+    # layers fail K16's gate and wait for the fallback route.
+    (dict(quantization="squeezellm", device="cuda"), "quantized matmul"),
     (dict(enable_lora=True), "LoRA"),
 ])
 def test_out_of_slice_engine_args_are_refused(tiny_model_dir, change,
                                               match):
     from aphrodite_tpu_torch.engine.args_tools import EngineArgs
     with pytest.raises(NotImplementedError, match=match):
+        EngineArgs(**{"model": tiny_model_dir, "load_format": "dummy",
+                      "device": "cpu", **change}).create_engine_configs()
+    if "quantization" in change:
         EngineArgs(model=tiny_model_dir, load_format="dummy", device="cpu",
-                   **change).create_engine_configs()
+                   quantization=change["quantization"]
+                   ).create_engine_configs()
 
 
 def test_speculative_decoding_is_refused(tiny_model_dir, monkeypatch):
@@ -129,11 +135,20 @@ def test_speculative_decoding_is_refused(tiny_model_dir, monkeypatch):
 ])
 def test_out_of_slice_models_are_refused(tmp_path, tiny_model_dir, change,
                                          match):
+    """Another architecture is refused anywhere; a SqueezeLLM checkpoint
+    is served on the CPU and refused on the card, where the tiny model's
+    layers fail K16's gate."""
     from aphrodite_tpu_torch.engine.args_tools import EngineArgs
     path = _model_dir(tmp_path, tiny_model_dir, **change)
+    quantized = "quantization_config" in change
     with pytest.raises(NotImplementedError, match=match):
         EngineArgs(model=path, load_format="dummy",
-                   device="cpu").create_engine_configs()
+                   device="cuda" if quantized else "cpu"
+                   ).create_engine_configs()
+    if quantized:
+        assert EngineArgs(model=path, load_format="dummy", device="cpu"
+                          ).create_engine_configs()[0].quantization == \
+            "squeezellm"
 
 
 @pytest.mark.parametrize("args,model,cache_dtype,window", [

@@ -15,7 +15,10 @@ which is 1.6e-2 at 2-4). The GPTQ
 and AWQ matmuls (bf16 outputs, f32 sums taken in another order): the
 same 2e-2 + 2e-2 |plain|, and so the GGUF matmuls (K13, K14 and K15,
 which sums exact int32 group dots in f32). int8 activation
-quantization: exactly equal.
+quantization: exactly equal. K12, K16 on bf16 and K17 (bf16 outputs of
+f32 sums): 2e-2 + 2e-2 |plain|. K16 on f32 x: within 1e-4 of max
+|plain| (three bf16 products per term keep about 16 mantissa bits of
+each operand; the plain version sums exact f32 products).
 The threefry draws (`modeling/layers/prng.py`): keys, bits and uniforms
 bit-equal to the same calls on the CPU, and the tokens drawn equal.
 """
@@ -400,6 +403,103 @@ def test_gguf_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tqm.gguf_i8g_matmul(x, qs, scales)        # scales per 32 rows
     with pytest.raises(TypeError):
         tqm.gguf_w8a8_matmul(x, qs, scales.float()[:4])
+
+
+def _packed4_problem(dev, kind, m, K, N, seed=0, f32=False):
+    """x and 4-bit codes with K12's dl/ml rows, K16's codebook, or K17's
+    int8 weight and f32 column scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xdt = torch.float32 if f32 else torch.bfloat16
+    x = torch.randn(m, K, generator=g, device=dev).to(xdt)
+    if kind == "int8":
+        w = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                          dtype=torch.int8)
+        s = torch.rand(N, generator=g, device=dev) * 0.002 + 1e-4
+        return x, w, s
+    qw = torch.randint(-2 ** 31, 2 ** 31, (K // 8, N), generator=g,
+                       device=dev, dtype=torch.int64).to(torch.int32)
+    if kind == "q4k":
+        dl = (torch.rand(K // 32, N, generator=g, device=dev) * 0.01 +
+              1e-3).to(torch.bfloat16)
+        ml = (torch.rand(K // 32, N, generator=g, device=dev) * 0.05).to(
+            torch.bfloat16)
+        return x, qw, dl, ml
+    lut = (torch.randn(N, 16, generator=g, device=dev) * 0.02).to(xdt)
+    return x, qw, lut
+
+
+_PACKED4 = {"q4k": ("gguf_q4k_matmul", "GGUF_Q4K_MATMUL_LAUNCHES"),
+            "lut": ("squeezellm_matmul", "SQUEEZELLM_MATMUL_LAUNCHES"),
+            "lut32": ("squeezellm_matmul", "SQUEEZELLM_MATMUL_F32_LAUNCHES"),
+            "int8": ("int8_matmul", "INT8_MATMUL_LAUNCHES")}
+
+
+@pytest.mark.parametrize("kind", list(_PACKED4))
+@pytest.mark.parametrize("m,K,N", [
+    (1, 4096, 6144), (8, 14336, 4096), (33, 512, 384), (64, 4096, 4096),
+    (65, 256, 128), (300, 4096, 1024)])
+def test_k12_k16_k17_kernels_match_plain(dev, kind, m, K, N):
+    """Every tiling: 16-64-row blocks with split K (m <= 64), 128-row
+    blocks above; the wrappers count one launch each, on their own
+    counter (K16's f32 kernel has its own)."""
+    K = max(256, K // 256 * 256)
+    args = _packed4_problem(dev, "lut" if kind == "lut32" else kind, m, K,
+                            N, seed=m + K, f32=kind == "lut32")
+    name, counter_name = _PACKED4[kind]
+    counter = getattr(tqm, counter_name)
+    others = [getattr(tqm, c) for _, c in _PACKED4.values()
+              if c != counter_name]
+    before = counter.count, [c.count for c in others]
+    got = getattr(tqm, name)(*args)
+    want = getattr(tqm, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert counter.count == before[0] + 1
+    assert [c.count for c in others] == before[1]
+    assert got.dtype == args[0].dtype and got.shape == (m, N)
+    if kind == "lut32":
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+    else:
+        _close(got, want)
+
+
+@pytest.mark.parametrize("kind", ["q4k", "lut", "lut32", "int8"])
+def test_k12_k16_k17_kernels_take_unaligned_rows(dev, kind):
+    """x starting past a 16-byte boundary stages element by element and
+    gives the aligned copy's result."""
+    args = _packed4_problem(dev, "lut" if kind == "lut32" else kind, 24,
+                            512, 256, f32=kind == "lut32")
+    x = args[0]
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = buf[1:].view_as(x)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    fn = getattr(tqm, _PACKED4[kind][0])
+    assert torch.equal(fn(shifted, *args[1:]), fn(x, *args[1:]))
+
+
+def test_k12_k16_k17_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, qw, dl, ml = _packed4_problem(dev, "q4k", 4, 512, 256)
+    with pytest.raises(TypeError):
+        tqm.gguf_q4k_matmul(x.float(), qw, dl, ml)
+    with pytest.raises(ValueError):                   # dl per 16 rows
+        tqm.gguf_q4k_matmul(x, qw, torch.cat([dl, dl]), ml)
+    with pytest.raises(ValueError):                   # N % 128
+        tqm.gguf_q4k_matmul(x, qw[:, :200].contiguous(),
+                            dl[:, :200].contiguous(),
+                            ml[:, :200].contiguous())
+    _, qw, lut = _packed4_problem(dev, "lut", 4, 512, 256)
+    with pytest.raises(ValueError):                   # lut not in x's dtype
+        tqm.squeezellm_matmul(x, qw, lut.float())
+    with pytest.raises(ValueError):                   # K % 64
+        tqm.squeezellm_matmul(x[:, :480].contiguous(), qw[:60].contiguous(),
+                              lut)
+    _, w, s = _packed4_problem(dev, "int8", 4, 512, 256)
+    with pytest.raises(ValueError):                   # bf16 scales
+        tqm.int8_matmul(x, w, s.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="mixed devices"):
+        tqm.int8_matmul(x, w.cpu(), s)
 
 
 def test_threefry_draws_on_the_card_equal_the_cpu(dev):

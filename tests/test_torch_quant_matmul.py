@@ -29,6 +29,14 @@ and given to both sides.
   (`gguf_w8a8_launch_plain`) is the plain K9 + K15 bit for bit. The JAX
   gates `gguf_*_supported` are copied.
 
+- K12 (`gguf_q4k_matmul`, Q4_K codes with affine dl/ml rows per 32
+  rows), K16 (`squeezellm_matmul`, a 16-entry codebook per column; bf16
+  and f32 x) and K17 (`int8_matmul`, int8 W times f32 column scales) at
+  (K, N, m) (256, 128, 1), (512, 256, 8) and (1024, 256, 33), f32 and
+  bf16 x. The plain versions compute on the natural row order; the
+  Pallas wrappers permute x's columns for their plane-wise unpack. The
+  JAX gates are copied.
+
 Tolerances: in f32, |port - pallas| <= 1e-5 * max |pallas| (the same
 products summed in another order); in bf16, one output ulp (both round
 the same f32 sum to bf16, which may land on neighbouring values). The
@@ -383,5 +391,68 @@ def test_gguf_supported_gates_match_jax():
         gate = f"gguf_{kind}_supported"
         for args in [(4096, 6144), (14336, 4096), (4096, 28672), (384, 128),
                      (256, 192), (128, 256), (640, 128)]:
+            assert getattr(tqm, gate)(*args) == getattr(jqm, gate)(*args), \
+                (gate, args)
+
+
+# ------------------------------------------------- K12, K16 and K17 --
+
+PACKED4 = {"q4k": ("gguf_q4k_matmul", ("qweight", "dl", "ml")),
+           "sqllm": ("squeezellm_matmul", ("qweight", "lut")),
+           "int8": ("int8_matmul", ("weight", "scales"))}
+
+
+def _packed4_inputs(seed, kind, K, N, m):
+    rs = np.random.RandomState(seed)
+    arrays = {"x": rs.randn(m, K).astype(np.float32)}
+    if kind == "int8":
+        arrays["weight"] = rs.randint(-128, 128, (K, N)).astype(np.int8)
+        arrays["scales"] = (rs.rand(N) * 0.01 + 1e-3).astype(np.float32)
+        return arrays
+    arrays["qweight"] = rs.randint(-2 ** 31, 2 ** 31, (K // 8, N),
+                                   dtype=np.int64).astype(np.int32)
+    if kind == "q4k":
+        arrays["dl"] = (rs.rand(K // 32, N) * 0.01 + 1e-3).astype(np.float32)
+        arrays["ml"] = (rs.rand(K // 32, N) * 0.05).astype(np.float32)
+    else:
+        arrays["lut"] = (rs.randn(N, 16) * 0.05).astype(np.float32)
+    return arrays
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("K,N,m", [(256, 128, 1), (512, 256, 8),
+                                   (1024, 256, 33)])
+@pytest.mark.parametrize("kind", list(PACKED4))
+def test_k12_k16_k17_plain_match_pallas(kind, K, N, m, dtype):
+    name, args = PACKED4[kind]
+    arrays = _packed4_inputs(K + N + m, kind, K, N, m)
+    j, t = _both(arrays, dtype)
+    if kind == "int8":                   # K17's scales stay f32
+        j["scales"] = jnp.asarray(arrays["scales"])
+        t["scales"] = torch.from_numpy(arrays["scales"])
+    fn = getattr(jqm, name)
+    fn.clear_cache()
+    want = fn(j["x"], *(j[a] for a in args), interpret=True)
+    fn.clear_cache()
+    got = getattr(tqm, name)(t["x"], *(t[a] for a in args))
+    plain = getattr(tqm, name + "_plain")(t["x"], *(t[a] for a in args))
+    assert torch.equal(got, plain)         # CPU tensors: the plain version
+    assert got.dtype == t["x"].dtype
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    got = got.float().numpy()
+    assert got.shape == want.shape == (m, N)
+    # f32: the same products summed in another order; bf16: both round
+    # the f32 sum to bf16, which may land on neighbouring values.
+    atol = 1e-5 * np.abs(want).max() if dtype == "f32" else 2e-2
+    rtol = 1e-5 if dtype == "f32" else 2e-2
+    assert (np.abs(got - want) <= atol + rtol * np.abs(want)).all(), \
+        np.abs(got - want).max()
+
+
+def test_k12_k16_k17_gates_match_jax():
+    for gate in ("gguf_q4k_supported", "squeezellm_supported",
+                 "int8_supported"):
+        for args in [(4096, 6144), (14336, 4096), (4096, 28672), (384, 128),
+                     (256, 192), (128, 256), (768, 1536)]:
             assert getattr(tqm, gate)(*args) == getattr(jqm, gate)(*args), \
                 (gate, args)
