@@ -149,17 +149,19 @@ def on_cuda(*tensors) -> bool:
     False when all are on the CPU; a mix raises. The wrappers launch
     their kernel for the first and run the plain version for the
     second."""
-    devs = {t.device for t in tensors if t is not None}
-    if all(d.type == "cpu" for d in devs):
+    # get_device() is -1 on the CPU; cheaper than building devices.
+    devs = {t.get_device() for t in tensors if t is not None}
+    if devs <= {-1}:
         return False
     if len(devs) == 1:
         return True
-    raise ValueError(f"tensors on mixed devices: {sorted(map(str, devs))}")
+    raise ValueError("tensors on mixed devices: " + str(sorted(
+        {str(t.device) for t in tensors if t is not None})))
 
 
 def stream_of(tensor) -> Optional[int]:
     import torch
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    return torch.cuda.current_stream(tensor.get_device()).cuda_stream
 
 
 def ptr(tensor) -> Optional[int]:

@@ -20,6 +20,14 @@ JAX package has two grids:
 CUDA input the kernel does not take raises. Both flags are read at call
 time, as the JAX function reads them.
 
+K1 splits each sequence's chunks over `choose_decode_splits` blocks
+(flash-decoding, from the shapes and the card's SM count): each split
+keeps its own online-softmax state over a contiguous run of whole
+chunks, and a merge kernel (its own launch
+counter) combines the splits with the same power-of-two rescale. The
+plain version takes the same `num_splits` and repeats that arithmetic;
+at 1 split it is the sequential walk of the Pallas body.
+
 The plain version repeats the Pallas bodies' arithmetic, which is the
 same for both grids at the same chunking: chunks of `pages_per_chunk`
 pages, an online softmax in the base-2 domain whose running max is
@@ -36,6 +44,7 @@ validated for signature parity and changes nothing in the result.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -49,6 +58,7 @@ PAGED_DECODE_ATTENTION_LAUNCHES = build.launch_counter(
     "paged_decode_attention")
 PAGED_DECODE_ATTENTION_TM_LAUNCHES = build.launch_counter(
     "paged_decode_attention_tm")
+PAGED_DECODE_MERGE_LAUNCHES = build.launch_counter("paged_decode_merge")
 
 _LOG2E = 1.4426950408889634
 _NEG_INF = -2.0 ** 30       # large-but-finite, as in the TPU kernel
@@ -72,6 +82,9 @@ _WORK_BUCKETS = [8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512,
 _MAX_GROUP = 16
 _MAX_TM_WARPS = 16
 _MAX_HEAD_DIM = 256
+#: Block-table entries a K1 split stages in shared memory (8 KB): longer
+#: tables take more splits.
+_MAX_SPLIT_PAGES = 2048
 _ACT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
               torch.float8_e5m2: 3}
@@ -122,6 +135,46 @@ def choose_pages_per_chunk(pages_per_seq: int, page_size: int,
                 ppc * page_size < 512:
             ppc *= 2
     return ppc
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (fixed per device, so
+    a launch planned from it stays the same call after call)."""
+    return _sm_count(torch.device(device).index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def choose_decode_splits(batch: int, num_kv_heads: int,
+                         pages_per_seq: int, pages_per_chunk: int,
+                         sms: int) -> int:
+    """Splits of K1's grid (batch, Hkv, n_split) on a card with `sms`
+    SMs, from shapes alone (no host sync, no data-dependent launch): 1
+    where batch * Hkv blocks already cover the SMs or the table holds
+    one chunk; else about two blocks per SM, each split a contiguous run
+    of whole chunks, and as few splits as give that run length. Tables
+    wider than `_MAX_SPLIT_PAGES` take at least as many splits as keep
+    each split's entries near that (K1 stages them in shared memory).
+    `pages_per_chunk` divides the table width (`clamp_pages_per_chunk`)."""
+    n_chunks = pages_per_seq // pages_per_chunk
+    blocks = batch * num_kv_heads
+    least = -(-pages_per_seq // _MAX_SPLIT_PAGES)
+    if blocks == 0 or blocks >= sms or n_chunks <= 1:
+        return least
+    want = max(-(-2 * sms // blocks), least)
+    per_split = -(-n_chunks // want)
+    return -(-n_chunks // per_split)
+
+
+def wide_slots(batch: int, num_kv_heads: int, n_split: int,
+               sms: int) -> bool:
+    """Whether K1 stages twice the pages per ring slot: where its grid
+    holds at most two blocks per SM, shared memory is plentiful and each
+    block's chain of steps, not the card's bandwidth, sets the time."""
+    return batch * num_kv_heads * n_split <= 2 * sms
 
 
 def _bucket_work(n: int) -> int:
@@ -204,17 +257,29 @@ def paged_decode_attention_plain(
     pages_per_chunk: int = 8,
     work_items=None,
     amla: bool = True,
+    num_splits: int = 1,
 ):
     """The Pallas bodies' arithmetic in plain PyTorch (see module doc),
     for both grids. Returns out [batch, Hq, d], or (out, k_pages,
     v_pages) with the fused write. A chunk without a live token leaves
-    a row's state as it was, as K5's loop over the row's chunks does."""
+    a row's state as it was, as K5's loop over the row's chunks does.
+
+    `num_splits` > 1 repeats K1's split arithmetic: split s walks chunks
+    [s * per, (s + 1) * per), per = ceil(chunks / num_splits), from a
+    fresh state, and the splits merge as M = max_s m_s, l = sum_s
+    l_s * 2^(m_s - M), acc likewise (the same exponent-bias add or
+    multiply as the chunk rescale; the multiply takes exact powers of
+    two, as the kernel's exp2f)."""
     batch, num_q_heads, d, num_kv_heads = _geometry(q, k_pages)
     _check_work_items(work_items)
     group = num_q_heads // num_kv_heads
     num_pages, page_size, hd = k_pages.shape
     pps = block_tables.shape[1]
     ppc = clamp_pages_per_chunk(pps, pages_per_chunk)
+    n_chunks = pps // ppc
+    if not 1 <= num_splits <= max(n_chunks, 1):
+        raise ValueError(f"num_splits={num_splits} outside [1, {n_chunks}] "
+                         f"(the table's chunks)")
     tables = block_tables.to(torch.int64).clamp(0, num_pages - 1)
     ctx = context_lens.to(torch.int64)
     dev = q.device
@@ -235,35 +300,59 @@ def paged_decode_attention_plain(
     slopes = None if alibi_slopes is None else \
         (alibi_slopes.float().view(num_kv_heads, group, 1) * _LOG2E)
     chunk_tokens = ppc * page_size
-    m = torch.full((batch, num_kv_heads, group), _NEG_INF, device=dev)
-    l = torch.zeros((batch, num_kv_heads, group), device=dev)
-    acc = torch.zeros((batch, num_kv_heads, group, d), device=dev)
-    for c in range(pps // ppc):
-        pages = tables[:, c * ppc:(c + 1) * ppc].reshape(-1)
-        kc = k_pages[pages].view(batch, chunk_tokens, num_kv_heads, d)
-        vc = v_pages[pages].view(batch, chunk_tokens, num_kv_heads, d)
-        s = torch.einsum("bkgd,btkd->bkgt", qs, kc.float())
-        pos = c * chunk_tokens + torch.arange(chunk_tokens, device=dev)
-        if slopes is not None:
-            s = s + slopes * pos.float()
-        live = pos.view(1, 1, 1, -1) < ctx.view(-1, 1, 1, 1)
-        s = torch.where(live, s, torch.full_like(s, _NEG_INF))
-        m_new = torch.maximum(m, torch.ceil(s.amax(dim=-1)))
-        delta = m - m_new
-        p = torch.where(live, _exp2(s - m_new[..., None]),
-                        torch.zeros_like(s))
-        pv = torch.einsum("bkgt,btkd->bkgd", p.to(op).float(), vc.float())
-        if amla:
-            l_new = _mul_pow2(l, delta) + p.sum(dim=-1)
-            acc_new = _mul_pow2(acc, delta[..., None]) + pv
-        else:
-            corr = _exp2(delta)
-            l_new = l * corr + p.sum(dim=-1)
-            acc_new = acc * corr[..., None] + pv
-        row_live = (c * chunk_tokens < ctx).view(-1, 1, 1)
-        m = torch.where(row_live, m_new, m)
-        l = torch.where(row_live, l_new, l)
-        acc = torch.where(row_live[..., None], acc_new, acc)
+
+    def attend(chunks):
+        """The online softmax over `chunks` from a fresh state."""
+        m = torch.full((batch, num_kv_heads, group), _NEG_INF, device=dev)
+        l = torch.zeros((batch, num_kv_heads, group), device=dev)
+        acc = torch.zeros((batch, num_kv_heads, group, d), device=dev)
+        for c in chunks:
+            pages = tables[:, c * ppc:(c + 1) * ppc].reshape(-1)
+            kc = k_pages[pages].view(batch, chunk_tokens, num_kv_heads, d)
+            vc = v_pages[pages].view(batch, chunk_tokens, num_kv_heads, d)
+            s = torch.einsum("bkgd,btkd->bkgt", qs, kc.float())
+            pos = c * chunk_tokens + torch.arange(chunk_tokens, device=dev)
+            if slopes is not None:
+                s = s + slopes * pos.float()
+            live = pos.view(1, 1, 1, -1) < ctx.view(-1, 1, 1, 1)
+            s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+            m_new = torch.maximum(m, torch.ceil(s.amax(dim=-1)))
+            delta = m - m_new
+            p = torch.where(live, _exp2(s - m_new[..., None]),
+                            torch.zeros_like(s))
+            pv = torch.einsum("bkgt,btkd->bkgd", p.to(op).float(),
+                              vc.float())
+            if amla:
+                l_new = _mul_pow2(l, delta) + p.sum(dim=-1)
+                acc_new = _mul_pow2(acc, delta[..., None]) + pv
+            else:
+                corr = _exp2(delta)
+                l_new = l * corr + p.sum(dim=-1)
+                acc_new = acc * corr[..., None] + pv
+            row_live = (c * chunk_tokens < ctx).view(-1, 1, 1)
+            m = torch.where(row_live, m_new, m)
+            l = torch.where(row_live, l_new, l)
+            acc = torch.where(row_live[..., None], acc_new, acc)
+        return m, l, acc
+
+    if num_splits == 1:
+        _, l, acc = attend(range(n_chunks))
+    else:
+        per = -(-n_chunks // num_splits)
+        parts = [attend(range(s * per, min((s + 1) * per, n_chunks)))
+                 for s in range(num_splits)]
+        top = torch.stack([m_s for m_s, _, _ in parts]).amax(dim=0)
+        l = torch.zeros_like(top)
+        acc = torch.zeros((batch, num_kv_heads, group, d), device=dev)
+        for m_s, l_s, acc_s in parts:
+            delta = m_s - top
+            if amla:
+                l = l + _mul_pow2(l_s, delta)
+                acc = acc + _mul_pow2(acc_s, delta[..., None])
+            else:
+                corr = torch.exp2(delta)
+                l = l + l_s * corr
+                acc = acc + acc_s * corr[..., None]
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     out = (acc * (kv_scale / l_safe)[..., None]).reshape(
         batch, num_q_heads, d)
@@ -275,15 +364,27 @@ def paged_decode_attention_plain(
 
 # --------------------------------------------------------------- kernels --
 
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point, its argument types set once (ctypes rebuilds
+    its converters on every assignment)."""
+    fn = build.library("paged_attention").paged_decode_attention
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + \
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
             knew, vnew, *, scale: float, kv_scale: float, ppc: int,
-            amla: bool, tm: bool) -> torch.Tensor:
-    """K1 (tm False) or K5 (tm True) on CUDA tensors; raises on inputs
-    the kernels do not take."""
+            amla: bool, tm: bool, num_splits: Optional[int]) -> torch.Tensor:
+    """K1 (tm False; with its merge when it splits) or K5 (tm True) on
+    CUDA tensors; raises on inputs the kernels do not take."""
     what = "paged_decode_attention" + ("_tm" if tm else "")
     batch, num_q_heads, d, num_kv_heads = _geometry(q, k_pages)
     group = num_q_heads // num_kv_heads
     num_pages, page_size, _ = k_pages.shape
+    pps = block_tables.shape[1]
     page = k_pages.dtype
     act = q.dtype
     if act not in _ACT_CODE or page not in _PAGE_CODE or \
@@ -297,7 +398,8 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
     if group > _MAX_GROUP or d > _MAX_HEAD_DIM or unit % 16 or \
             (tm and hb * -(-group // 4) > _MAX_TM_WARPS):
         raise ValueError(f"{what}: unsupported geometry group={group} "
-                         f"head_dim={d} head_block={hb} page dtype {page}")
+                         f"head_dim={d} page_size={page_size} "
+                         f"head_block={hb} page dtype {page}")
     if block_tables.dtype != torch.int32 or \
             context_lens.dtype != torch.int32 or \
             block_tables.shape[0] != batch or \
@@ -318,23 +420,52 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
               alibi_slopes, knew, vnew):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
+    wide = False
+    if tm:
+        if num_splits not in (None, 1):
+            raise ValueError(f"{what}: the padded grid does not split")
+        n_split = 1
+    else:
+        sms = sm_count(q.device)
+        n_split = choose_decode_splits(batch, num_kv_heads, pps, ppc, sms) \
+            if num_splits is None else int(num_splits)
+        if not 1 <= n_split <= max(pps // ppc, 1):
+            raise ValueError(f"{what}: num_splits={n_split} outside [1, "
+                             f"{pps // ppc}] (the table's chunks)")
+        wide = wide_slots(batch, num_kv_heads, n_split, sms)
     out = torch.empty_like(q)
-    fn = build.library("paged_attention").paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(out.data_ptr(), q.data_ptr(), k_pages.data_ptr(),
+    # Each split's f32 state: acc [batch, Hkv, n_split, group, d], then
+    # m and l [batch, Hkv, n_split, group].
+    part = torch.empty((batch * num_q_heads * n_split * (d + 2),),
+                       dtype=torch.float32, device=q.device) \
+        if n_split > 1 else None
+    err = _entry()(out.data_ptr(), q.data_ptr(), k_pages.data_ptr(),
              v_pages.data_ptr(), block_tables.data_ptr(),
              context_lens.data_ptr(), build.ptr(alibi_slopes),
              build.ptr(knew), build.ptr(vnew), batch, num_kv_heads, group,
-             d, num_pages, page_size, block_tables.shape[1], ppc, hb,
+             d, num_pages, page_size, pps, ppc, hb,
              float(scale) * float(kv_scale) * _LOG2E, float(kv_scale),
-             _ACT_CODE[act], _PAGE_CODE[page], int(tm), int(amla),
-             build.stream_of(q))
+             _ACT_CODE[act], _PAGE_CODE[page], int(tm), int(amla), n_split,
+             int(wide), build.ptr(part), build.stream_of(q))
     (PAGED_DECODE_ATTENTION_TM_LAUNCHES if tm else
      PAGED_DECODE_ATTENTION_LAUNCHES).add()
+    if n_split > 1:
+        PAGED_DECODE_MERGE_LAUNCHES.add()
     build.check(err, what)
     return out
+
+
+def k1_smem_bytes(page_dtype: torch.dtype, wide: bool, group: int,
+                  head_dim: int, page_size: int, pages_per_chunk: int,
+                  pages_per_seq: int, n_split: int) -> int:
+    """K1's dynamic shared memory per block as its launcher plans it on
+    the current device, with narrow or wide slots (`wide_slots`), or -1
+    where no ring fits. Builds the kernels; card-side diagnostics."""
+    fn = build.library("paged_attention").paged_decode_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_longlong
+    return int(fn(_PAGE_CODE[page_dtype], int(wide), group, head_dim,
+                  page_size, pages_per_chunk, pages_per_seq, n_split))
 
 
 def paged_decode_attention(
@@ -352,6 +483,7 @@ def paged_decode_attention(
     pages_per_chunk: int = 8,
     work_items=None,
     amla=None,
+    num_splits: Optional[int] = None,
 ):
     """Decode attention over the paged cache. Without knew/vnew returns
     out [batch, Hq, d]; with them also writes each sequence's current
@@ -364,7 +496,10 @@ def paged_decode_attention(
     rescale variant; None reads APHRODITE_ATTN_AMLA. Padded block-table
     entries must point at a valid page or be clamped (the kernels clamp
     them); positions >= ctx are masked. `pages_per_chunk` is clamped
-    down to a divisor of the table width, as in the JAX function."""
+    down to a divisor of the table width, as in the JAX function.
+    `num_splits` is a test hook that forces K1's split count (None:
+    `choose_decode_splits` on the card, the sequential walk on the
+    CPU); the engine never passes it."""
     ppc = clamp_pages_per_chunk(block_tables.shape[1], pages_per_chunk)
     use_amla = amla_enabled() if amla is None else bool(amla)
     if build.on_cuda(q, k_pages, v_pages, block_tables, context_lens,
@@ -373,9 +508,10 @@ def paged_decode_attention(
         out = _launch(q, k_pages, v_pages, block_tables, context_lens,
                       alibi_slopes, knew, vnew, scale=scale,
                       kv_scale=kv_scale, ppc=ppc, amla=use_amla,
-                      tm=work_items is None or not ragged_enabled())
+                      tm=work_items is None or not ragged_enabled(),
+                      num_splits=num_splits)
         return (out, k_pages, v_pages) if knew is not None else out
     return paged_decode_attention_plain(
         q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
         knew, vnew, scale=scale, kv_scale=kv_scale, pages_per_chunk=ppc,
-        work_items=work_items, amla=use_amla)
+        work_items=work_items, amla=use_amla, num_splits=num_splits or 1)

@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero:
    and `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
 2. Build: compiles every kernel source under `aphrodite_tpu_torch/csrc/`
    with nvcc for sm_90a (one process per source, in parallel) and prints
-   each source's `-Xptxas -v` report on one line.
+   each source's `-Xptxas -v` report on one line, then K1's dynamic
+   shared memory per block by page type and slot width.
 3. Kernels vs plain versions at the main path's shapes (Hq 32, Hkv 8,
    head_dim 128, bf16, 16- and 32-token pages):
    - paged decode attention, K1 (the ragged grid, called with the
@@ -17,22 +18,27 @@ Phases, in order; any failure exits non-zero:
      called without): batch 1, 8 and 64, ragged contexts up to 2047
      tokens, with and without the fused KV write and ALiBi, AMLA on and
      off, on bf16 pages; then both on int8 (scale 0.05) and fp8 e5m2
-     pages. Tolerance: |kernel - plain| <= 2e-2 + 2e-2 |plain| (bf16
+     pages. K1 runs at split counts 1, 2, the policy's and one per
+     chunk (its `num_splits` hook), each against the plain version at
+     the same count. Tolerance: |kernel - plain| <= 2e-2 + 2e-2 |plain| (bf16
      outputs of f32 sums in another order; exp2 differs by an ulp).
      Pages written by the fused write, quantized codes included: exact.
    - prefill page writer (K2): full pages, tail pages, skipped cells.
      Exact.
    - slot writer (K3/K4): shared pages, out-of-range slots, on bf16,
      int8 and fp8 pages. Exact.
-   Times each kernel (CUDA events, L2 flushed before every launch,
-   median), its plain version, one PyTorch library call computing the
-   same function (scaled_dot_product_attention over the gathered KV,
-   dequantized to bf16, for K1 and K5; index_copy_ for the writers; a
-   yardstick only, the port never calls it) and the bound: the larger
-   of the bytes the function must move over 3.35 TB/s (8-bit pages move
-   half the KV bytes) and its operations over 989 TFLOP/s (bf16), from
-   this run's inputs. K1 and K5 are timed on every page type at phase
-   4's decode batch and at batch 64 x 2047.
+   Times each kernel (CUDA events, L2 flushed before every launch, the
+   stream held by a device spin until the call is enqueued so host time
+   stays out, median), its plain version, one PyTorch library call
+   computing the same function (scaled_dot_product_attention over the
+   gathered KV, dequantized to bf16, for K1 and K5; index_copy_ for the
+   writers; a yardstick only, the port never calls it) and the bound:
+   the larger of the bytes the function must move over 3.35 TB/s (8-bit
+   pages move half the KV bytes) and its operations over 989 TFLOP/s
+   (bf16), from this run's inputs. K1 and K5 are timed on every page
+   type at phase 4's decode batch and at batch 64 x 2047, K1 also at
+   batch 8 x 1016 (the long-context profile's shape), with K1's split
+   count, merge launches and its wrapper's host time per call.
    A full-width 2-layer model (weights large enough that attention
    matters) is checked end to end against itself run through the plain
    versions: prompt + 3 decode steps, logits within 2e-2 relative.
@@ -44,9 +50,11 @@ Phases, in order; any failure exits non-zero:
    with multi_step=1 and once with multi_step=8. The launch counters are
    reset just before and read just after; K1, K2 and K4 must each have
    launched in both runs (K5 not), and every request must finish with
-   32 tokens in the vocabulary and a finite cumulative logprob. Then 4
-   decode steps of 8 sequences run under torch.profiler: wall and
-   device kernel time per step, and the kernels that take the most.
+   32 tokens in the vocabulary and a finite cumulative logprob (K1's
+   merge must launch too: the mix's decode grids split). Then 4 decode
+   steps of 8 sequences run under torch.profiler: wall and device kernel
+   time per step, K1's share (with its merge) and the kernels that take
+   the most; once at 64-token prompts and once at 1000-token ones.
 5. The same engine and mix with APHRODITE_ATTN_RAGGED=0, at multi_step 1
    and 8: K5 must launch and K1 must not. Each request's tokens are
    logged beside the ragged run's (no equality required: the kernels
@@ -246,7 +254,14 @@ def fail(msg: str) -> None:
 
 class Timer:
     """Median kernel time over `iters` launches, each with the L2 cache
-    flushed first (decode reads every layer's KV cold)."""
+    flushed first (decode reads every layer's KV cold) and the stream
+    then held by a device-side spin (`torch.cuda._sleep`, about 1 ms)
+    while the host runs the wrapper: the start event executes only after
+    the call is enqueued, so the wrapper's host time stays out of the
+    window (without the spin a call under ~0.1 ms measured its wrapper's
+    40-60 us of host time too)."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self, torch, iters: int = 20) -> None:
         self.torch = torch
@@ -261,6 +276,7 @@ class Timer:
         times = []
         for _ in range(self.iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -316,11 +332,21 @@ def _pages_equal(torch, a, b):
     return torch.equal(view(a), view(b))
 
 
+def k1_split_counts(pa, batch, pps, ppc):
+    """K1's forced split counts: 1, 2, the policy's choice and one per
+    chunk (each once)."""
+    n_chunks = pps // ppc
+    policy = pa.choose_decode_splits(batch, HKV, pps, ppc,
+                                     pa.sm_count("cuda"))
+    return sorted({n for n in (1, 2, policy, n_chunks) if n <= n_chunks})
+
+
 def check_decode_attention(torch, pa, ragged: bool, page_dtype,
                            amlas=(True, False), alibis=(False, True)):
     """K1 (`ragged`: with a work list) or K5 (without) vs the plain
-    version across the main path's shapes, on bf16, int8 or fp8 pages.
-    Returns the largest error."""
+    version across the main path's shapes, on bf16, int8 or fp8 pages;
+    K1 at every forced split count of `k1_split_counts`, against the
+    plain version at the same count. Returns the largest error."""
     import random
     from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
     rng = random.Random(0)
@@ -340,40 +366,44 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
             ppc = pa.choose_pages_per_chunk(pps, page_size, batch)
             work = pa.build_decode_work_list(
                 [-(-c // page_size) for c in ctxs], ppc) if ragged else None
-            for fused in (False, True):
-                for alibi in alibis:
-                    for amla in amlas:
-                        q, kp, vp, tb, ctx, sl, kn, vn = decode_problem(
-                            torch, ctxs, page_size, pps, seed=cases,
-                            alibi=alibi, fused=fused,
-                            page_dtype=page_dtype)
-                        kp2, vp2 = kp.clone(), vp.clone()
-                        kw = dict(scale=HEAD_DIM ** -0.5, kv_scale=kv_scale,
-                                  pages_per_chunk=ppc, amla=amla)
-                        got = pa.paged_decode_attention(
-                            q, kp, vp, tb, ctx, sl, kn, vn,
-                            work_items=work, **kw)
-                        want = pa.paged_decode_attention_plain(
-                            q, kp2, vp2, tb, ctx, sl, kn, vn, **kw)
-                        torch.cuda.synchronize()
-                        what = (f"{name} {kind} page {page_size} batch "
-                                f"{batch} fused {fused} alibi {alibi} "
-                                f"amla {amla}")
-                        if fused:
-                            got, want = got[0], want[0]
-                            if not (_pages_equal(torch, kp, kp2) and
-                                    _pages_equal(torch, vp, vp2)):
-                                fail(f"{what}: fused write differs")
-                        err = (got.float() - want.float()).abs()
-                        lim = ATOL + RTOL * want.float().abs()
-                        if not torch.isfinite(got.float()).all() or \
-                                bool((err > lim).any()):
-                            fail(f"{what}: max err {err.max().item()}")
-                        worst = max(worst, err.max().item())
-                        cases += 1
+            split_counts = k1_split_counts(pa, batch, pps, ppc) \
+                if ragged else [None]
+            for fused, alibi, amla, splits in (
+                    (f, a, m, n) for f in (False, True) for a in alibis
+                    for m in amlas for n in split_counts):
+                q, kp, vp, tb, ctx, sl, kn, vn = decode_problem(
+                    torch, ctxs, page_size, pps, seed=cases, alibi=alibi,
+                    fused=fused, page_dtype=page_dtype)
+                kp2, vp2 = kp.clone(), vp.clone()
+                kw = dict(scale=HEAD_DIM ** -0.5, kv_scale=kv_scale,
+                          pages_per_chunk=ppc, amla=amla)
+                got = pa.paged_decode_attention(
+                    q, kp, vp, tb, ctx, sl, kn, vn, work_items=work,
+                    num_splits=splits, **kw)
+                want = pa.paged_decode_attention_plain(
+                    q, kp2, vp2, tb, ctx, sl, kn, vn,
+                    num_splits=splits or 1, **kw)
+                torch.cuda.synchronize()
+                what = (f"{name} {kind} page {page_size} batch {batch} "
+                        f"fused {fused} alibi {alibi} amla {amla}"
+                        + (f" splits {splits}" if ragged else ""))
+                if fused:
+                    got, want = got[0], want[0]
+                    if not (_pages_equal(torch, kp, kp2) and
+                            _pages_equal(torch, vp, vp2)):
+                        fail(f"{what}: fused write differs")
+                err = (got.float() - want.float()).abs()
+                lim = ATOL + RTOL * want.float().abs()
+                if not torch.isfinite(got.float()).all() or \
+                        bool((err > lim).any()):
+                    fail(f"{what}: max err {err.max().item()}")
+                worst = max(worst, err.max().item())
+                cases += 1
     log(f"{name} paged_decode_attention{'' if ragged else '_tm'} on "
         f"{kind} pages vs plain: {cases} cases, max abs err {worst} "
-        f"(tolerance {ATOL} + {RTOL}|plain|); fused-write pages exact")
+        f"(tolerance {ATOL} + {RTOL}|plain|); fused-write pages exact"
+        + ("; split counts 1, 2, the policy's and one per chunk"
+           if ragged else ""))
     return worst
 
 
@@ -394,8 +424,22 @@ def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
     kw = dict(scale=HEAD_DIM ** -0.5,
               kv_scale=dequant_scale(page_dtype, KV_SCALE),
               pages_per_chunk=ppc)
-    ms = timer(lambda: pa.paged_decode_attention(
-        q, kp, vp, tb, ctx, sl, kn, vn, work_items=work, **kw))
+    def call():
+        return pa.paged_decode_attention(q, kp, vp, tb, ctx, sl, kn, vn,
+                                         work_items=work, **kw)
+    merges = pa.PAGED_DECODE_MERGE_LAUNCHES.count
+    call()
+    merges = pa.PAGED_DECODE_MERGE_LAUNCHES.count - merges
+    n_split = pa.choose_decode_splits(
+        batch, HKV, pps, ppc, pa.sm_count("cuda")) if ragged else 1
+    # The wrapper's host time per call: 50 calls enqueued back to back.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        call()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    ms = timer(call)
     plain_ms = timer(lambda: pa.paged_decode_attention_plain(
         q, kp, vp, tb, ctx, sl, kn, vn, **kw))
     # Library yardstick: SDPA over each sequence's KV gathered to the
@@ -426,7 +470,7 @@ def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
         nbytes += 2 * batch * HKV * HEAD_DIM * (2 + elt)  # knew/vnew in+out
     flops = 4 * HQ * HEAD_DIM * total_ctx
     b_ms, b_by = bound(nbytes, flops)
-    return ms, plain_ms, library_ms, b_ms, b_by
+    return ms, plain_ms, library_ms, b_ms, b_by, n_split, merges, host_us
 
 
 # ------------------------------------------------------- K2 / K3 / K4 --
@@ -1470,8 +1514,8 @@ def check_seeded_draws(torch, engine, timer):
 
 # ---------------------------------------------------------- end to end --
 
-BF16_KERNELS = ("paged_decode_attention", "write_kv_pages_prefill",
-                "write_kv_pages")
+BF16_KERNELS = ("paged_decode_attention", "paged_decode_merge",
+                "write_kv_pages_prefill", "write_kv_pages")
 W4A8_KERNELS = BF16_KERNELS + ("quantize_activations_int8",
                                "gptq_matmul_a8", "gptq_matmul_stream_a8")
 W4A16_KERNELS = BF16_KERNELS + ("gptq_matmul", "gptq_matmul_stream")
@@ -1688,14 +1732,14 @@ QUANT_KERNEL_NAMES = ("quant_mma_kernel", "int8_mma_kernel",
 
 
 def profile_decode(torch, engine, tag: str = "",
-                   quant_bound_ms: float = 0.0) -> None:
+                   quant_bound_ms: float = 0.0, prompt_len: int = 64) -> None:
     """Where a decode step's time goes at the e2e geometry: 8 running
-    sequences (prompts of 64 tokens). 4 single decode steps are timed on
-    the host clock (synchronised), then 4 more run under torch.profiler,
-    which gives the device's kernel time per step, its share of the wall
-    time, and the kernels that take the most. With `quant_bound_ms` it
-    also reports the quantized matmuls' device time per step beside that
-    weight-streaming bound."""
+    sequences (prompts of `prompt_len` tokens). 4 single decode steps
+    are timed on the host clock (synchronised), then 4 more run under
+    torch.profiler, which gives the device's kernel time per step, its
+    share of the wall time, K1's (with its merge) and the kernels that
+    take the most. With `quant_bound_ms` it also reports the quantized
+    matmuls' device time per step beside that weight-streaming bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
@@ -1703,9 +1747,12 @@ def profile_decode(torch, engine, tag: str = "",
     sp = SamplingParams(temperature=0.0, max_tokens=14, ignore_eos=True)
     for i in range(8):
         engine.add_request(f"{tag}prof-{i}", None, sp, prompt_token_ids=[
-            (j * 71 + i * 13) % 31000 + 100 for j in range(64)])
-    for _ in range(3):                      # prefill + warm decode steps
-        engine.step()
+            (j * 71 + i * 13) % 31000 + 100 for j in range(prompt_len)])
+    # The prompt rounds, then a decode step to warm up.
+    produced = {}
+    while len(produced) < 8 or min(produced.values()) < 2:
+        for out in engine.step():
+            produced[out.request_id] = len(out.outputs[0].token_ids)
     steps = 4
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1727,10 +1774,13 @@ def profile_decode(torch, engine, tag: str = "",
     n_launch = sum(r[2] for r in rows) // steps
     top = "; ".join(f"{k[:48]} x{c // steps}/step {us / 1e3 / steps:.3f} ms"
                     for us, k, c in rows[:8])
-    log(f"{tag}decode step, batch 8 at Mistral-7B width: wall "
-        f"{wall_ms:.2f} ms/step (unprofiled), device kernels {dev_ms:.2f} "
-        f"ms/step (busy share {dev_ms / wall_ms:.3f}), {n_launch} kernel "
-        f"launches/step; top kernels: {top}")
+    k1_ms = sum(us for us, k, _ in rows if "paged_decode_kernel" in k or
+                "paged_decode_merge" in k) / 1e3 / steps
+    log(f"{tag}decode step, batch 8 at Mistral-7B width, {prompt_len}-token "
+        f"prompts: wall {wall_ms:.2f} ms/step (unprofiled), device kernels "
+        f"{dev_ms:.2f} ms/step (busy share {dev_ms / wall_ms:.3f}), "
+        f"{n_launch} kernel launches/step; K1 with its merge {k1_ms:.3f} "
+        f"ms/step (share {k1_ms / dev_ms:.3f}); top kernels: {top}")
     if quant_bound_ms:
         quant_ms = sum(us for us, k, _ in rows
                        if any(n in k for n in QUANT_KERNEL_NAMES)) / 1e3 \
@@ -1823,11 +1873,29 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln or
                  "Compiling entry" in ln]
         log(f"ptxas {name}: " + " | ".join(lines))
+    # K1's dynamic shared memory per block as its launcher plans it at
+    # the main path's geometry (page 32, chunks of 4 to 16 pages, one
+    # split), by page type, and at the largest geometry it serves.
+    from aphrodite_tpu_torch.ops.cuda import paged_attention as pa
+    log("K1 dynamic shared memory per block (Hq 32, Hkv 8, d 128, page "
+        "32, 64-page tables; chunk 4 / 8 / 16 pages; narrow slots, then "
+        "wide where the grid holds at most two blocks per SM): " +
+        "; ".join(
+            f"{str(dt).replace('torch.', '')} {kind} " + " / ".join(
+                str(pa.k1_smem_bytes(dt, wide, HQ // HKV, HEAD_DIM, 32, ppc,
+                                     64, 1)) for ppc in (4, 8, 16)) + " B"
+            for dt in (torch.bfloat16, torch.int8, torch.float8_e5m2,
+                       torch.float32)
+            for kind, wide in (("narrow", False), ("wide", True))
+            if not (wide and dt == torch.float32)) +
+        "; group 16, d 256, page 256, 8-page chunks: " + " / ".join(
+            str(pa.k1_smem_bytes(dt, False, 16, 256, 256, 8, 8, 1))
+            for dt in (torch.bfloat16, torch.int8, torch.float32)) +
+        " B (bf16 / 8-bit / f32)")
 
     # 3. Kernels vs plain versions, and times.
     log_clocks("before the kernel checks")
     from aphrodite_tpu_torch.ops.cuda import kv_write as kw
-    from aphrodite_tpu_torch.ops.cuda import paged_attention as pa
     timer = Timer(torch)
     i8, f8 = torch.int8, torch.float8_e5m2
     k1_err = check_decode_attention(torch, pa, True, torch.bfloat16)
@@ -1843,15 +1911,19 @@ def main() -> int:
     k2, k3, k4 = check_and_time_writers(torch, kw, timer)
     # K1 and K5 timed at phase 4's decode batch: 8 sequences about 16
     # tokens into their 32 new tokens, 32-token pages, fused write; and
-    # at batch 64 x 2047.
+    # at batch 64 x 2047; K1 also at batch 8 x 1016.
     e2e_ctx = [1016, 316, 80, 1016, 316, 80, 28, 28]
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "n_split", "merges", "host_us")
     attn = {}
     for name, ragged in (("K1", True), ("K5", False)):
         for page_dtype in (torch.bfloat16, i8, f8):
             page_kind = str(page_dtype).replace("torch.", "")
+            # K1 also at the long-context profile's decode shape: 8
+            # rows of 1016 tokens, 32-page tables, 512-token chunks.
             for shape, ctxs, pps in (("B 8", e2e_ctx, 36),
-                                     ("B 64 x 2047", [2047] * 64, 64)):
+                                     ("B 64 x 2047", [2047] * 64, 64)) + (
+                    (("B 8 x 1016", [1016] * 8, 32),) if ragged else ()):
                 t = dict(zip(keys, time_decode_attention(
                     torch, pa, timer, ctxs, 32, pps, fused=True,
                     ragged=ragged, page_dtype=page_dtype)))
@@ -1860,9 +1932,14 @@ def main() -> int:
                     f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
                     f"ms, sdpa over the dequantized KV "
                     f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} "
-                    f"ms ({t['bound_by']})")
-    k1 = attn[("K1", "bfloat16", "B 8")]
-    k5 = attn[("K5", "bfloat16", "B 8")]
+                    f"ms ({t['bound_by']}); {t['n_split']} split(s), "
+                    f"{t['merges']} merge launch(es) per call; wrapper "
+                    f"{t['host_us']:.1f} us of host time per call")
+                if name == "K1" and t["ms"] >= t["library_ms"]:
+                    log(f"K1 {page_kind} pages at {shape}: slower than "
+                        "the SDPA yardstick")
+    k1, k5 = ({k: attn[(name, "bfloat16", "B 8")][k] for k in keys[:5]}
+              for name in ("K1", "K5"))
     check_model_against_plain(torch)
 
     # 4. End to end at Mistral-7B width and depth.
@@ -1897,6 +1974,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"e2e peak memory {peak:.2f} GiB on {smi}")
     profile_decode(torch, engine)
+    profile_decode(torch, engine, "long-context ", prompt_len=1000)
 
     # 5. The same engine on the padded-grid kernel (K5).
     os.environ["APHRODITE_ATTN_RAGGED"] = "0"
@@ -1906,7 +1984,8 @@ def main() -> int:
             torch, engine, ms, counters, smi, tag="padded ",
             required=("paged_decode_attention_tm", "write_kv_pages_prefill",
                       "write_kv_pages"),
-            absent=("paged_decode_attention",), tokens=padded_tokens))
+            absent=("paged_decode_attention", "paged_decode_merge"),
+            tokens=padded_tokens))
     os.environ.pop("APHRODITE_ATTN_RAGGED")
     same = sum(padded_tokens[k] == v for k, v in ragged_tokens.items())
     log(f"APHRODITE_ATTN_RAGGED=0 (K5) vs the ragged grid (K1): {same} of "

@@ -46,14 +46,14 @@ KV_SCALE = 0.05
 
 
 def _decode_problem(dev, ctxs, page_size=32, pps=64, seed=0,
-                    page_dtype=torch.bfloat16):
+                    page_dtype=torch.bfloat16, d=128, hq=32, hkv=8):
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, hq, hkv, d = len(ctxs), 32, 8, 128
+    b = len(ctxs)
     pages = b * pps + 1
+    act = torch.float32 if page_dtype == torch.float32 else torch.bfloat16
 
     def randn(*shape):
-        return torch.randn(*shape, generator=g, device=dev).to(
-            torch.bfloat16)
+        return torch.randn(*shape, generator=g, device=dev).to(act)
 
     def page_values():
         x = randn(pages, page_size, hkv * d)
@@ -94,14 +94,18 @@ def _bytes(t):
 
 @pytest.mark.parametrize("page_dtype", [torch.bfloat16, torch.int8,
                                         torch.float8_e5m2])
-@pytest.mark.parametrize("ragged", [False, True], ids=["K5", "K1"])
+@pytest.mark.parametrize("ragged,splits", [
+    (False, None), (True, None), (True, 1), (True, 2), (True, "chunks")],
+    ids=["K5", "K1", "K1-1split", "K1-2splits", "K1-split-per-chunk"])
 @pytest.mark.parametrize("fused,alibi,amla", [
     (False, False, True), (True, True, False), (True, False, True)])
-def test_decode_attention_kernels_on_every_page_type(dev, ragged,
+def test_decode_attention_kernels_on_every_page_type(dev, ragged, splits,
                                                      page_dtype, fused,
                                                      alibi, amla):
-    """K1 (with a work list) and K5 (without) against the plain version;
-    fused-write codes exact."""
+    """K1 (with a work list; its split count forced or the policy's) and
+    K5 (without) against the plain version at the same split count;
+    fused-write codes exact; the merge launches exactly when K1
+    splits."""
     ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512]
     q, kp, vp, tb, ctx, kn, vn = _decode_problem(
         dev, ctxs, page_dtype=page_dtype, seed=3)
@@ -111,24 +115,110 @@ def test_decode_attention_kernels_on_every_page_type(dev, ragged,
     ppc = tpa.choose_pages_per_chunk(tb.shape[1], 32, len(ctxs))
     work = tpa.build_decode_work_list(
         [-(-c // 32) for c in ctxs], ppc) if ragged else None
+    if splits == "chunks":
+        splits = tb.shape[1] // ppc
+    n_split = (tpa.choose_decode_splits(len(ctxs), 8, tb.shape[1], ppc,
+                                        tpa.sm_count(dev))
+               if splits is None else splits) if ragged else 1
     kv_scale = tkq.dequant_scale(page_dtype, KV_SCALE)
     counter = tpa.PAGED_DECODE_ATTENTION_LAUNCHES if ragged else \
         tpa.PAGED_DECODE_ATTENTION_TM_LAUNCHES
     before = counter.count
+    merges = tpa.PAGED_DECODE_MERGE_LAUNCHES.count
     kp2, vp2 = kp.clone(), vp.clone()
     kw = dict(scale=128 ** -0.5, kv_scale=kv_scale, pages_per_chunk=ppc,
               amla=amla)
     got = tpa.paged_decode_attention(q, kp, vp, tb, ctx, slopes, kn, vn,
-                                     work_items=work, **kw)
+                                     work_items=work, num_splits=splits,
+                                     **kw)
     want = tpa.paged_decode_attention_plain(q, kp2, vp2, tb, ctx, slopes,
-                                            kn, vn, **kw)
+                                            kn, vn, num_splits=n_split,
+                                            **kw)
     torch.cuda.synchronize()
     assert counter.count == before + 1
+    assert tpa.PAGED_DECODE_MERGE_LAUNCHES.count == \
+        merges + (n_split > 1)
     if fused:
         got, want = got[0], want[0]
         assert torch.equal(_bytes(kp), _bytes(kp2))
         assert torch.equal(_bytes(vp), _bytes(vp2))
     assert (got[1] == 0).all()                     # ctx 0 row
+    _close(got, want)
+
+
+# K1 off the main path's geometry: its launcher plans the ring per page
+# size and head_dim (slots that cross pages, fewer stages or rows where
+# a chunk's scores take the room), so every page size and head_dim up
+# to 256 serves. (page_size, head_dim, Hq, Hkv); a head_dim of 72 is 8
+# mod 16 (bf16 and f32 pages only: 8-bit rows must be 16-byte runs).
+K1_GEOMETRIES = [
+    (1, 128, 32, 8), (5, 128, 32, 8), (8, 128, 32, 8), (24, 128, 32, 8),
+    (64, 128, 32, 8), (128, 128, 32, 8), (256, 128, 32, 8),
+    (64, 256, 16, 4), (128, 256, 16, 4), (256, 256, 16, 4),
+    (256, 256, 32, 2), (32, 72, 32, 8),
+]
+
+
+@pytest.mark.parametrize("batch", [8, 64])
+@pytest.mark.parametrize("page_dtype,page_size,d,hq,hkv", [
+    (dt, *geo) for dt in (torch.bfloat16, torch.int8, torch.float8_e5m2,
+                          torch.float32)
+    for geo in K1_GEOMETRIES if geo[1] % 16 == 0 or dt.itemsize > 1])
+def test_k1_serves_every_page_size_and_head_dim(dev, batch, page_dtype,
+                                                page_size, d, hq, hkv):
+    """K1 at page sizes 1-256 and head_dim 72-256, groups 4-16, batch 8
+    (split, wide slots) and 64 (one split), fused write and ALiBi,
+    against the plain version at the same split count."""
+    rng = np.random.default_rng(batch)
+    ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512]
+    ctxs += [int(c) for c in rng.integers(0, 2048, batch - len(ctxs))]
+    pps = -(-2048 // page_size)
+    q, kp, vp, tb, ctx, kn, vn = _decode_problem(
+        dev, ctxs, page_size=page_size, pps=pps, seed=5,
+        page_dtype=page_dtype, d=d, hq=hq, hkv=hkv)
+    slopes = torch.tensor([2.0 ** -(i / 4 + 1) for i in range(hq)],
+                          device=dev)
+    ppc = tpa.choose_pages_per_chunk(pps, page_size, batch)
+    work = tpa.build_decode_work_list(
+        [-(-c // page_size) for c in ctxs], ppc)
+    n_split = tpa.choose_decode_splits(batch, hkv, pps, ppc,
+                                       tpa.sm_count(dev))
+    kw = dict(scale=d ** -0.5, kv_scale=tkq.dequant_scale(page_dtype,
+                                                          KV_SCALE),
+              pages_per_chunk=ppc)
+    kp2, vp2 = kp.clone(), vp.clone()
+    got, _, _ = tpa.paged_decode_attention(q, kp, vp, tb, ctx, slopes, kn,
+                                           vn, work_items=work, **kw)
+    want, _, _ = tpa.paged_decode_attention_plain(
+        q, kp2, vp2, tb, ctx, slopes, kn, vn, num_splits=n_split, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bytes(kp), _bytes(kp2))
+    assert torch.equal(_bytes(vp), _bytes(vp2))
+    assert (got[1] == 0).all()                     # ctx 0 row
+    _close(got, want)
+
+
+def test_k1_splits_a_table_wider_than_a_split_stages(dev):
+    """Tables of more than 2048 pages take at least two splits, so each
+    split's entries fit K1's shared memory, even where batch x Hkv
+    covers the card."""
+    rng = np.random.default_rng(11)
+    ctxs = [4096, 1, 0, 2049] + [int(c) for c in rng.integers(0, 4097, 60)]
+    q, kp, vp, tb, ctx, kn, vn = _decode_problem(dev, ctxs, page_size=1,
+                                                 pps=4096, seed=6)
+    ppc = tpa.choose_pages_per_chunk(4096, 1, len(ctxs))
+    n_split = tpa.choose_decode_splits(len(ctxs), 8, 4096, ppc,
+                                       tpa.sm_count(dev))
+    assert n_split == 2
+    work = tpa.build_decode_work_list(ctxs, ppc)
+    kw = dict(scale=128 ** -0.5, pages_per_chunk=ppc)
+    kp2, vp2 = kp.clone(), vp.clone()
+    got, _, _ = tpa.paged_decode_attention(q, kp, vp, tb, ctx, None, kn, vn,
+                                           work_items=work, **kw)
+    want, _, _ = tpa.paged_decode_attention_plain(
+        q, kp2, vp2, tb, ctx, None, kn, vn, num_splits=n_split, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
     _close(got, want)
 
 
