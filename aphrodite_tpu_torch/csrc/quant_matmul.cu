@@ -2,13 +2,14 @@
 // quantization, CUDA C++ for sm_90a.
 //
 // Replaces the twelve Pallas TPU kernels of
-// aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6-K8, K10 and K11 are
-// one templated kernel, quant_mma_kernel; K13-K15 and K17 another,
-// int8_mma_kernel; K12 and K16 a third, nib_mma_kernel (see their
-// comments). The three share the block tile, the x staging, the mma.sync
-// fragments, the A8 group fold, the epilogue and the launcher (Tile,
-// stage_x, mma_chunk, fold_group, store_tile, launch_tiles) and differ
-// only in how they load the W words and write the W tile:
+// aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6 and K10 are one
+// templated kernel, quant_gemm_kernel (warp-specialized wgmma, below);
+// K7, K8 and K11 another, quant_mma_kernel; K13-K15 and K17 a third,
+// int8_mma_kernel; K12 and K16 a fourth, nib_mma_kernel. The last three
+// share the block tile, the x staging, the mma.sync fragments, the A8
+// group fold, the epilogue and the launcher (Tile, stage_x, mma_chunk,
+// fold_group, store_tile, launch_tiles) and differ only in how they load
+// the W words and write the W tile:
 //   _gguf_q4k_kernel (:1117)   -> nib_mma_kernel<Q4K> (K12, Q4_K exact)
 //   _sqllm_kernel (:1630)      -> nib_mma_kernel<LUT> (K16, bf16 x) and
 //                                 nib_mma_kernel<LUT, X32> (K16, f32 x)
@@ -17,15 +18,18 @@
 //   _gguf_q8_kernel (:1210)    -> int8_mma_kernel<G 32> (K13, Q8_0)
 //   _gguf_i8g_kernel (:1476)   -> int8_mma_kernel<G 16> (K14, grouped int8)
 //   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128, A8> (K15, W8A8)
-//   _kernel (:554)          -> 128-row tiles, GPTQ layout (K6)
-//   _stream_kernel (:308)   -> 16-64-row tiles with split K, GPTQ and AWQ
-//                              layouts, a16 and a8 arms (K7)
+//   _kernel (:554)          -> quant_gemm_kernel<BITS, false> (K6)
+//   _stream_kernel (:308)   -> quant_mma_kernel, 16-64-row tiles with
+//                              split K, GPTQ and AWQ layouts, a16 and a8
+//                              arms (K7)
 //   _gptq_a8_kernel, _gptq_a8_deferred_kernel (:1274, :1311)
-//                           -> <A8>, 128-row tiles, GPTQ layout (K8)
+//                           -> quant_mma_kernel<A8>, 128-row tiles, GPTQ
+//                              layout (K8)
 //   _quant8_kernel (:781)   -> quant8_kernel (K9)
-//   _awq_kernel (:718)      -> 128-row tiles, AWQ layout (K10)
+//   _awq_kernel (:718)      -> quant_gemm_kernel<4, true> (K10)
 //   _awq_a8_kernel, _awq_a8_deferred_kernel (:937, :971)
-//                           -> <A8>, 128-row tiles, AWQ layout (K11)
+//                           -> quant_mma_kernel<A8>, 128-row tiles, AWQ
+//                              layout (K11)
 //
 // Layouts; scales [G, N] bf16, G = K / group_size, group g spans rows
 // [g*gs, (g+1)*gs):
@@ -42,9 +46,15 @@
 // - K7 (m <= 64, every decode step): bytes. Each int4 weight is used by at
 //   most 64 rows; the least time is the packed weight read once over
 //   3.35 TB/s (8.4 us for down_proj at Mistral-7B width).
-// - K6 / K8 / K10 / K11 (m > 64: prompt rounds, large decode batches):
-//   operations at large m (989 TFLOP/s bf16, 1979 TOP/s int8), bytes below
-//   a few hundred rows.
+// - K6 / K10 (m > 64: prompt rounds, decode batches above 64): bf16
+//   operations at large m (989 TFLOP/s: 1.81 ms per Mistral-7B layer at
+//   m 4096), bytes below a few hundred rows. Inside the SM the limit is
+//   shared memory: every chunk's x tile and packed words land there, the
+//   dequantized bf16 W tile is written there and wgmma reads x once and
+//   W twice (once per consumer warpgroup), about 36 bytes of shared
+//   traffic per thousand operations.
+// - K8 / K11: int8 operations at large m (1979 TOP/s), bytes below a few
+//   hundred rows.
 // - K9: bytes (x read once, the int8 copy and the row scales written once).
 // - K13-K15: bytes at decode (the int8 weight and its bf16 scale rows read
 //   once: 0.066-0.073 ms per layer at Mistral-7B width, about twice K7's
@@ -56,10 +66,30 @@
 //   K16 on f32 x does three bf16 products per term, so three times the
 //   bf16 operations.
 //
-// What the design does about it. One templated kernel serves K6, K7, K8,
-// K10 and K11, for both layouts: a block owns BM rows x 128 columns of the
-// output and walks its quantization groups in order; each group is cut
-// into 64-deep k chunks.
+// What the design does about it.
+// K6 / K10 (quant_gemm_kernel): a block owns 128 rows x 256 columns of
+// the output, so each dequantized W element serves 128 rows and each x
+// element 256 columns. One loader thread keeps a 5-stage ring (3 at 8
+// bits) of 64-deep chunks in flight with TMA: the x tile in the 128-byte
+// swizzle wgmma reads, the packed words, the group's scale and zero
+// rows, each stage on one mbarrier. Two consumer warpgroups run wgmma
+// m64n256k16 (bf16 into f32) on the x stage and a bf16 W tile, and
+// while the tensor cores run chunk t's products they dequantize chunk
+// t + 1's words into the next of three W tiles (GPTQ: one column's
+// word into one 16-byte piece of the K-major tile; AWQ: one row's word,
+// 8 columns, into one piece of the MN-major tile; the AWQ interleave
+// puts columns 2e and 2e + 1 at nibbles e and e + 4, so one mask gives
+// a bf16 pair). Each W value is bf16(float(q - z) * s), as the plain
+// version rounds it: 128 + q and 128 + z are exact in bf16, so is their
+// difference, and one bf16 multiply rounds the product once. Blocks walk
+// groups of 8 row tiles column by column, so the blocks in flight share
+// x and W tiles in L2. Where the 128 x 256 tiles fall short of the SMs
+// (decode batches of 65-256 rows) the groups are split over blocks
+// (gemm_plan in the wrapper) and split_reduce_kernel adds the f32
+// partials in split order.
+// The other kernels: a block owns BM rows x 128 columns of the output
+// and walks its quantization groups in order; each group is cut into
+// 64-deep k chunks.
 // For every chunk the block stages x in shared memory and dequantizes the
 // chunk of W there (in the natural row order: the TPU's plane-order unpack
 // and x column permutation were sublane tricks and are gone; the packed
@@ -83,14 +113,15 @@
 // scale and rounds to bf16. x of up to 64 x 14336 does not fit in shared
 // memory, so it is staged chunk by chunk like W. The two TPU W4A8 bodies
 // (classic and deferred rescale) differ only in the f32 summation order;
-// this one kernel computes both. Simple first: no cp.async / TMA pipeline
-// and no wgmma yet.
+// this one kernel computes both. No cp.async / TMA pipeline and no wgmma
+// in these yet.
 //
 // Each C entry point launches on the caller's stream, allocates nothing
 // and returns cudaGetLastError(). Build without --use_fast_math: K9's
 // division must be IEEE and its rounding rintf (half to even), so that it
 // equals its plain version exactly.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -860,6 +891,613 @@ __global__ void split_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
+// ------------------------------------------------------------ K6 / K10 --
+//
+// quant_gemm_kernel<BITS, AWQ>: the W4A16 / W8A16 product at m > 64 (see
+// the header). One block owns 128 rows x 256 columns of the output and
+// walks its quantization groups in 64-deep chunks:
+//   - warp 8, the loader: one thread keeps a ring of kStages chunks in
+//     flight with TMA (the x tile in the 128-byte swizzle, the packed
+//     words, the group's scale row and zero row, all on one mbarrier);
+//   - warpgroups 0 and 1, the consumers: 64 rows each, wgmma m64n256k16
+//     bf16 into 128 f32 accumulators per thread, A (x) and B (W) both
+//     read from shared memory in the 128-byte swizzle; while the tensor
+//     cores run a chunk, all 256 threads dequantize the next chunk's
+//     words into the next of three bf16 W tiles.
+// Full and empty mbarriers hand the stages between loader and
+// consumers; one consumer barrier per chunk publishes the W tile.
+namespace gemm {
+
+constexpr int kBM = 128;                    // rows per block
+constexpr int kBN = 256;                    // columns per block
+constexpr int kBK = 64;                     // k per chunk
+constexpr int kThreads = 288;               // consumers 0-255, loader
+constexpr int kWtTiles = 3;                 // bf16 W tiles in the ring
+constexpr int kXBytes = kBM * kBK * 2;      // one x stage, 16 KB
+constexpr int kWtBytes = kBN * kBK * 2;     // one bf16 W tile, 32 KB
+
+template <int BITS>
+struct Cfg {
+  static constexpr int kPack = 32 / BITS;
+  static constexpr int kStages = BITS == 8 ? 3 : 5;
+  static constexpr int kWordBytes = kBK * kBN * BITS / 8;   // packed W
+  static constexpr int kSBytes = kBN * 2;                   // scale row
+  static constexpr int kZBytes = kBN * BITS / 8;            // zero row
+  static constexpr int kBarBytes = 8 * 2 * kStages;
+  // Bytes one stage's TMA loads bring (x counted only when TMA loads it).
+  static constexpr int kWsBytes = kWordBytes + kSBytes + kZBytes;
+  static constexpr int kSmemBytes =
+      1024 + kStages * (kXBytes + kWordBytes + kSBytes + kZBytes) +
+      kWtTiles * kWtBytes + kBarBytes;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A 2-D TMA load of the box at (c0 inner, c1 outer) of `map` into shared
+// memory at `dst`, completing `bytes` on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+// Generic-proxy writes to shared memory (st.shared) become visible to
+// wgmma, which reads through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// Arrive, and expect `bytes` more of TMA completions in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ bool mbar_try(uint32_t addr, int parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(ok) : "r"(addr), "r"(parity) : "memory");
+  return ok != 0;
+}
+// Wait until the phase of parity `parity` has completed. A wait that
+// outlasts 2^24 polls (seconds) means a lost arrival: trap, so the
+// launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t i = 0; !mbar_try(addr, parity); ++i)
+    if (i == (1u << 24)) __trap();
+}
+
+// A wgmma shared-memory descriptor in the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+// d[64 x 256] = A[64 x 16] B[16 x 256] (+ d unless scale_d is 0), bf16
+// into f32; B K-major (TNSPB 0: W^T rows of 64 k) or MN-major (TNSPB 1:
+// W rows of 64 n). The first product of a tile takes scale_d 0, so no
+// other instruction defines the accumulators (which made ptxas serialize
+// the products).
+template <int TNSPB>
+__device__ __forceinline__ void wgmma_256(float* d, uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&acc)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
+}
+
+// Exact bf16x2 arithmetic (sm_90): one rounding each.
+__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) {
+  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&v));
+}
+__device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (v & 0x000f000f) | 0x43004300: two 4-bit codes q as bf16 128 + q.
+__device__ __forceinline__ uint32_t nib2(uint32_t v) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n"
+      : "=r"(d) : "r"(v), "r"(0x000f000fu), "r"(0x43004300u));
+  return d;
+}
+
+// Byte offset of 16-byte piece `c` of 128-byte row `r` in the swizzle.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// This consumer thread's share of chunk t's W tile, dequantized from the
+// stage's packed words `ws`, scale row `ss` and zero row `zs` into the
+// bf16 tile `wt` (kn of the chunk's 64 rows are real; the rest read as
+// zero; FULL: all 64, no masks). Every value is bf16(float(q - z) * s):
+// 128 + q and 128 + z are exact in bf16, so is their difference, and the
+// product is rounded once.
+template <int BITS, bool AWQ, bool FULL>
+__device__ __forceinline__ void dequant_chunk(const uint32_t* ws,
+                                              const uint32_t* zs,
+                                              const __nv_bfloat16* ss,
+                                              unsigned char* wt, int kn,
+                                              int tid) {
+  constexpr int PACK = 32 / BITS;
+  if constexpr (AWQ) {
+    // Word column j (columns 8j .. 8j + 7) at rows tid / 32 + 8i: each
+    // word is one 16-byte piece of the MN-major tile (64-column blocks of
+    // 64 k rows x 128 bytes); (w >> 4e) & 0x000f000f holds columns 2e and
+    // 2e + 1 (the AWQ interleave).
+    const int j = tid & 31;
+    const uint32_t zw = zs[j];
+    const uint4 s4 = reinterpret_cast<const uint4*>(ss)[j];
+    const uint32_t sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    uint32_t zz[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) zz[e] = nib2(zw >> (4 * e));
+    unsigned char* blk = wt + (j >> 3) * (kBK * 128);
+    uint32_t w[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] = ws[((tid >> 5) + 8 * i) * 32 + j];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = (tid >> 5) + 8 * i;
+      const uint32_t keep = FULL || k < kn ? 0xffffffffu : 0u;
+      uint32_t o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[e] = bf2_mul(bf2_sub(nib2(w[i] >> (4 * e)), zz[e]),
+                       FULL ? sv[e] : sv[e] & keep);
+      *reinterpret_cast<uint4*>(blk + swz(k, j & 7)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else {
+    // Column n = tid of the K-major tile (W^T, rows of 64 k): a GPTQ word
+    // holds PACK k rows of one column.
+    const int n = tid;
+    const uint32_t zw = zs[n / PACK];
+    const int z = static_cast<int>((zw >> (BITS * (n % PACK))) &
+                                   ((1u << BITS) - 1u)) + 1;
+    const uint32_t sb = bf16_bits(ss[n]);
+    constexpr int WR = kBK / PACK;                // word rows a chunk
+    uint32_t w[WR];
+#pragma unroll
+    for (int r = 0; r < WR; ++r) w[r] = ws[r * kBN + n];
+    if constexpr (BITS == 4) {
+      const uint32_t zz = (0x4300u | static_cast<uint32_t>(z)) * 0x10001u;
+      const uint32_t s2 = sb * 0x10001u;
+#pragma unroll
+      for (int kc = 0; kc < 8; ++kc) {
+        const uint32_t sk = FULL || kc * 8 < kn ? s2 : 0u;
+        const uint32_t w4 = w[kc] >> 4;
+        uint32_t o[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          // rows 2i (byte i, low nibble) and 2i + 1 (its high one)
+          o[i] = bf2_mul(
+              bf2_sub(nib2(__byte_perm(w[kc], w4, i | ((4 + i) << 8))), zz),
+              sk);
+        *reinterpret_cast<uint4*>(wt + swz(n, kc)) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    } else {
+      // 8 bits: q - z in [-256, 255], in f32 as (2^23 + q) - (2^23 + z),
+      // exact; times s exact in f32; rounded once to bf16.
+      const float zf = 8388608.f + static_cast<float>(z);
+      const float sf = __uint_as_float(sb << 16);
+#pragma unroll
+      for (int kc = 0; kc < 8; ++kc) {
+        uint32_t o[4];
+#pragma unroll
+        for (int hw = 0; hw < 2; ++hw) {
+          const int wr = 2 * kc + hw;
+          const float sk = FULL || wr * 4 < kn ? sf : 0.f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float lo = __uint_as_float(
+                __byte_perm(w[wr], 0x4b000000u, (2 * i) | 0x7440)) - zf;
+            const float hi = __uint_as_float(
+                __byte_perm(w[wr], 0x4b000000u, (2 * i + 1) | 0x7440)) - zf;
+            o[2 * hw + i] = pack_bf2(lo * sk, hi * sk);
+          }
+        }
+        *reinterpret_cast<uint4*>(wt + swz(n, kc)) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+  }
+}
+
+template <int BITS, bool AWQ>
+__global__ void __launch_bounds__(kThreads, 1)
+quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map,
+                  const __grid_constant__ CUtensorMap s_map,
+                  const __grid_constant__ CUtensorMap z_map,
+                  const __nv_bfloat16* __restrict__ x,
+                  __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ partial, int m, int K, int N, int gs,
+                  int groups_per_split, int x_tma) {
+  using C = Cfg<BITS>;
+  constexpr int S = C::kStages;
+  constexpr int PACK = C::kPack;
+  static_assert(!AWQ || BITS == 4, "AWQ packs 8 4-bit codes");
+
+  // The ring, 1024-byte aligned for the 128-byte swizzle; offset from
+  // smem_raw (not through an integer) so that accesses stay ld/st.shared.
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* x_s = smem;                              // [S][128 x 64]
+  unsigned char* wt_s = x_s + S * kXBytes;                // [3][W tile]
+  unsigned char* words_s = wt_s + kWtTiles * kWtBytes;    // [S][packed]
+  unsigned char* sc_s = words_s + S * C::kWordBytes;      // [S][256] bf16
+  unsigned char* z_s = sc_s + S * C::kSBytes;             // [S][zero row]
+  uint64_t* full = reinterpret_cast<uint64_t*>(z_s + S * C::kZBytes);
+  uint64_t* empty = full + S;
+
+  // Tile order: blocks launch x fastest; groups of 8 row tiles are walked
+  // column by column, so the blocks resident at once share a few x row
+  // tiles and W column tiles in L2.
+  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
+  const int per_group = 8 * gridDim.x;
+  const int first_m = lin / per_group * 8;
+  const int group_m = min(static_cast<int>(gridDim.y) - first_m, 8);
+  const int m0 = (first_m + lin % per_group % group_m) * kBM;
+  const int n0 = lin % per_group / group_m * kBN;
+  const int G = K / gs;
+  const int g_begin = blockIdx.z * groups_per_split;
+  const int g_end = min(G, g_begin + groups_per_split);
+  const int cpg = (gs + kBK - 1) / kBK;                   // chunks a group
+  const int T = max(0, g_end - g_begin) * cpg;            // chunks here
+  // Chunk t: group g, first row k0, kn rows (the group's last chunk may
+  // be short; its other rows read as zero).
+  auto chunk = [&](int t, int& g, int& k0, int& kn) {
+    g = g_begin + t / cpg;
+    const int c = t % cpg;
+    k0 = g * gs + c * kBK;
+    kn = min(kBK, gs - c * kBK);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);       // the loader's arrival, plus TMA bytes
+      mbar_init(&empty[s], 256);    // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // -------------------------------------------------------- loader --
+    // One thread keeps the ring full: chunk t into stage t % S once the
+    // consumers are done with chunk t - S.
+    if (threadIdx.x != 256) return;
+    for (int t = 0; t < T; ++t) {
+      const int slot = t % S;
+      if (t >= S) mbar_wait(&empty[slot], (t / S - 1) & 1);
+      int g, k0, kn;
+      chunk(t, g, k0, kn);
+      uint64_t* bar = &full[slot];
+      mbar_expect_tx(bar, C::kWsBytes + (x_tma ? kXBytes : 0));
+      if (x_tma) tma_load(x_s + slot * kXBytes, &x_map, bar, k0, m0);
+      if constexpr (AWQ) {
+        tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0 / 8, k0);
+      } else {
+        tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0, k0 / PACK);
+      }
+      tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0, g);
+      tma_load(z_s + slot * C::kZBytes, &z_map, bar, n0 / PACK, g);
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers --
+  // While the tensor cores run chunk t - 1's and t's products, the
+  // consumers dequantize chunk t + 1 into the next of three W tiles (the
+  // tile of chunk t - 2, whose products both warpgroups have finished).
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  // Chunk t's x and W tiles in place: wait for its loads, store x where
+  // TMA could not (an unaligned view, or rows not whole 16-byte runs),
+  // dequantize this thread's share of W, and make the stores visible to
+  // the async proxy; a consumer barrier follows.
+  auto prepare = [&](int t) {
+    const int slot = t % S;
+    int g, k0, kn;
+    chunk(t, g, k0, kn);
+    mbar_wait(&full[slot], (t / S) & 1);
+    if (!x_tma) {
+      unsigned char* xd = x_s + slot * kXBytes;
+      for (int i = 0; i < 32; ++i) {
+        const int e = tid + 256 * i, r = e >> 6, k = e & 63;
+        __nv_bfloat16 v = __float2bfloat16(0.f);
+        if (m0 + r < m && k < kn)
+          v = x[static_cast<size_t>(m0 + r) * K + k0 + k];
+        *reinterpret_cast<__nv_bfloat16*>(xd + swz(r, k >> 3) + (k & 7) * 2) =
+            v;
+      }
+    }
+    const uint32_t* ws =
+        reinterpret_cast<const uint32_t*>(words_s + slot * C::kWordBytes);
+    const uint32_t* zs =
+        reinterpret_cast<const uint32_t*>(z_s + slot * C::kZBytes);
+    const __nv_bfloat16* ss =
+        reinterpret_cast<const __nv_bfloat16*>(sc_s + slot * C::kSBytes);
+    unsigned char* wt = wt_s + (t % kWtTiles) * kWtBytes;
+    // A whole chunk (every chunk where the group size is a multiple of 64)
+    // takes the unmasked instance.
+    if (kn == kBK) {
+      dequant_chunk<BITS, AWQ, true>(ws, zs, ss, wt, kn, tid);
+    } else {
+      dequant_chunk<BITS, AWQ, false>(ws, zs, ss, wt, kn, tid);
+    }
+    fence_proxy_async();
+  };
+  auto consumers_sync = [] {
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  };
+
+  float acc[128];
+  const uint32_t x_base = smem_u32(x_s) + wg * 64 * 128;
+  const uint32_t wt_base = smem_u32(wt_s);
+  if (T > 0) prepare(0);
+  consumers_sync();
+  for (int t = 0; t < T; ++t) {
+    const int slot = t % S;
+    const uint32_t wt_t = wt_base + (t % kWtTiles) * kWtBytes;
+    // Both warpgroups run every chunk, real rows or not: a branch around
+    // the products would make ptxas serialize them.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da =
+          make_desc(x_base + slot * kXBytes + kk * 32, 16, 1024);
+      if constexpr (AWQ) {
+        wgmma_256<1>(acc, da, make_desc(wt_t + kk * 16 * 128, 8192, 1024),
+                     t > 0 || kk > 0);
+      } else {
+        wgmma_256<0>(acc, da, make_desc(wt_t + kk * 32, 16, 1024),
+                     t > 0 || kk > 0);
+      }
+    }
+    wgmma_commit();
+    // Chunk t + 1's W tile goes where chunk t - 2's was: both warpgroups
+    // finished those products before the last consumer barrier.
+    if (t + 1 < T) prepare(t + 1);
+    wgmma_wait<1>();                      // chunk t - 1's products done
+    if (t > 0) mbar_arrive(&empty[(t - 1) % S]);
+    consumers_sync();
+  }
+  wgmma_wait<0>();
+  if (T == 0) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  }
+  fence_acc(acc);
+  // Accumulator i of thread (warp w, lane l): row w * 16 + l / 4 (+ 8
+  // for i % 4 >= 2), column 8 (i / 4) + 2 (l % 4) (+ 1 for odd i).
+  const int lt = tid & 127;
+  const int row = m0 + wg * 64 + (lt >> 5) * 16 + ((lt & 31) >> 2);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = n0 + j * 8 + (lt & 3) * 2;
+    if (col >= N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + h * 8;
+      if (r >= m) continue;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (partial != nullptr) {
+        *reinterpret_cast<float2*>(
+            partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
+            make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + static_cast<size_t>(r) * N + col) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time with
+// cudaGetDriverEntryPoint (the library links only cudart).
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A row-major [rows, cols] tensor of `elem`-byte values, read in boxes of
+// box_rows x box_cols; out-of-range elements read as zero.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                const void* base, uint64_t cols, uint64_t rows,
+                uint32_t box_cols, uint32_t box_rows,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K6 / K10: grid (N / 256 column tiles, m / 128 row tiles, splits); a
+// split covers groups_per_split whole groups and writes f32 partials,
+// which split_reduce_kernel adds in split order. Four tensor maps per
+// call (a host encoding each, no device work). The dynamic shared memory
+// above 48 KB is allowed once per instance.
+template <int BITS, bool AWQ>
+int launch_gemm(const void* x, const void* qweight, const void* qzeros,
+                const void* scales, void* out, float* partial, int m, int K,
+                int N, int gs, int splits, cudaStream_t stream) {
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  constexpr int PACK = Cfg<BITS>::kPack;
+  if (splits < 1 || gs <= 0 || K % gs != 0 || N % 128 != 0 ||
+      (!AWQ && gs % PACK != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = quant_gemm_kernel<BITS, AWQ>;
+  constexpr int smem = Cfg<BITS>::kSmemBytes;
+  static bool allowed = false;
+  if (!allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = true;
+  }
+  const int G = K / gs;
+  const int gps = (G + splits - 1) / splits;
+  constexpr auto kU32 = CU_TENSOR_MAP_DATA_TYPE_UINT32;
+  constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr auto kFlat = CU_TENSOR_MAP_SWIZZLE_NONE;
+  // TMA for x needs a 16-byte aligned base and row stride.
+  const int x_tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 8 == 0;
+  CUtensorMap x_map{}, w_map{}, s_map{}, z_map{};
+  bool ok = !x_tma || tensor_map(&x_map, kBf16, 2, x, K, m, kBK, kBM,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+  ok = ok && (AWQ ? tensor_map(&w_map, kU32, 4, qweight, N / 8, K, kBN / 8,
+                               kBK, kFlat)
+                  : tensor_map(&w_map, kU32, 4, qweight, N, K / PACK, kBN,
+                               kBK / PACK, kFlat));
+  ok = ok && tensor_map(&s_map, kBf16, 2, scales, N, G, kBN, 1, kFlat);
+  ok = ok && tensor_map(&z_map, kU32, 4, qzeros, N / PACK, G, kBN / PACK, 1,
+                        kFlat);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  float* part = splits > 1 ? partial : nullptr;
+  const dim3 grid((N + kBN - 1) / kBN, (m + kBM - 1) / kBM, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      x_map, w_map, s_map, z_map, static_cast<const __nv_bfloat16*>(x),
+      static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, gps, x_tma);
+  if (splits > 1) {
+    const size_t total = static_cast<size_t>(m) * N;
+    const int threads = 256;
+    split_reduce_kernel<__nv_bfloat16>
+        <<<static_cast<unsigned>((total + threads - 1) / threads), threads,
+           0, stream>>>(partial, nullptr, nullptr,
+                        static_cast<__nv_bfloat16*>(out), splits, m, N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace gemm
+
 // The launcher the kernels share: `tile(TL{}, grid, partial)` launches the
 // kernel for block_m 16, 32 or 64 (one warp row: K7's skinny tiles, split
 // K) or 128 (two warp rows), over the output's 128-column blocks, its row
@@ -891,23 +1529,32 @@ int launch_tiles(LaunchTile&& tile, int block_m, const float* xs, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// GPTQ / AWQ: a split covers ceil(G / splits) groups.
+// GPTQ / AWQ: a split covers ceil(G / splits) groups. The a16 128-row
+// tile is quant_gemm_kernel (K6, K10); quant_mma_kernel takes the rest.
 template <int BITS, bool A8, bool AWQ>
 int launch(const void* x, const float* xs, const void* qweight,
            const void* qzeros, const void* scales, void* out,
            float* partial, int m, int K, int N, int gs, int splits,
            int block_m, cudaStream_t stream) {
+  if constexpr (!A8) {
+    if (block_m == 128)
+      return gemm::launch_gemm<BITS, AWQ>(x, qweight, qzeros, scales, out,
+                                          partial, m, K, N, gs, splits,
+                                          stream);
+  }
   const int G = K / gs;
   const int gps = (G + splits - 1) / splits;
   return launch_tiles<A8>(
       [&](auto tl, dim3 grid, float* part) {
         using TL = decltype(tl);
-        quant_mma_kernel<TL, BITS, AWQ><<<grid, kThreads, 0, stream>>>(
-            static_cast<const typename TL::T*>(x), xs,
-            static_cast<const uint32_t*>(qweight),
-            static_cast<const uint32_t*>(qzeros),
-            static_cast<const __nv_bfloat16*>(scales),
-            static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, gps);
+        if constexpr (A8 || TL::BM != 128) {
+          quant_mma_kernel<TL, BITS, AWQ><<<grid, kThreads, 0, stream>>>(
+              static_cast<const typename TL::T*>(x), xs,
+              static_cast<const uint32_t*>(qweight),
+              static_cast<const uint32_t*>(qzeros),
+              static_cast<const __nv_bfloat16*>(scales),
+              static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, gps);
+        }
       },
       block_m, xs, out, partial, m, N, splits, stream);
 }
@@ -1009,7 +1656,14 @@ quant8_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
 
 }  // namespace
 
-// y[m, N] = x[m, K] @ dequant(W), x and scales bf16. block_m 128 is K6;
+// Dynamic shared memory per block of quant_gemm_kernel (K6 / K10) at
+// `bits` (4 or 8).
+extern "C" int quant_gemm_smem_bytes(int bits) {
+  return bits == 8 ? gemm::Cfg<8>::kSmemBytes : gemm::Cfg<4>::kSmemBytes;
+}
+
+// y[m, N] = x[m, K] @ dequant(W), x and scales bf16. block_m 128 is K6
+// (quant_gemm_kernel; `splits` groups runs, then split_reduce_kernel);
 // 16, 32 and 64 are K7 (with splits > 1, `partial` holds splits*m*N f32).
 extern "C" int gptq_mm_a16(const void* x, const void* qweight,
                            const void* qzeros, const void* scales, void* out,
@@ -1039,7 +1693,8 @@ extern "C" int gptq_mm_a8(const void* x8, const float* xs,
 }
 
 // AWQ layout, y[m, N] = x[m, K] @ dequant(W), x and scales bf16. block_m 128
-// is K10; 16, 32 and 64 are K7's AWQ layout (split K as for GPTQ).
+// is K10 (quant_gemm_kernel, as K6); 16, 32 and 64 are K7's AWQ layout
+// (split K as for GPTQ).
 extern "C" int awq_mm_a16(const void* x, const void* qweight,
                           const void* qzeros, const void* scales, void* out,
                           float* partial, int m, int K, int N, int gs,

@@ -26,6 +26,7 @@ kernels its main path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -162,6 +163,20 @@ def on_cuda(*tensors) -> bool:
 def stream_of(tensor) -> Optional[int]:
     import torch
     return torch.cuda.current_stream(tensor.get_device()).cuda_stream
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (fixed per device, so
+    a launch planned from it and the shapes stays the same call after
+    call, as a captured CUDA graph needs)."""
+    import torch
+    return _sm_count(torch.device(device).index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ptr(tensor) -> Optional[int]:

@@ -137,15 +137,7 @@ def choose_pages_per_chunk(pages_per_seq: int, page_size: int,
     return ppc
 
 
-def sm_count(device) -> int:
-    """Streaming multiprocessors of a CUDA device (fixed per device, so
-    a launch planned from it stays the same call after call)."""
-    return _sm_count(torch.device(device).index or 0)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+sm_count = build.sm_count
 
 
 def choose_decode_splits(batch: int, num_kv_heads: int,

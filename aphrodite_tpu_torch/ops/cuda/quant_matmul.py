@@ -7,7 +7,9 @@ Port of the GPTQ, AWQ and GGUF parts of
 
 - `gptq_matmul` (W4A16, 4 or 8 bits): y = x @ dequant(W). At m <= 64
   (decode steps) the weight-streaming kernel (K7, Pallas
-  `_stream_kernel`), else the tiled kernel (K6, Pallas `_kernel`).
+  `_stream_kernel`), else the tiled kernel (K6, Pallas `_kernel`):
+  128 x 256 output tiles with warpgroup MMA, the groups split over
+  blocks where the tiles fall short of the SMs (`gemm_plan`).
 - `gptq_matmul_a8` (W4A8, 4 bits): x quantized per row to int8 (K9),
   then integer dots per quantization group rescaled in f32: the skinny
   kernel's a8 arm (K7) at m <= 64, else K8 (Pallas `_gptq_a8_kernel`
@@ -15,7 +17,7 @@ Port of the GPTQ, AWQ and GGUF parts of
   summation order and one kernel computes both, so `deferred` is
   accepted and has no effect).
 - `awq_matmul` (W4A16, AWQ layout): K7's AWQ layout at m <= 64, else
-  K10 (Pallas `_awq_kernel`).
+  K10 (Pallas `_awq_kernel`; K6's kernel and plan in the AWQ layout).
 - `awq_matmul_a8` (W4A8, AWQ layout): K9, then K7's AWQ a8 arm at
   m <= 64, else K11 (Pallas `_awq_a8_kernel` and
   `_awq_a8_deferred_kernel`, again one kernel for both bodies).
@@ -72,6 +74,7 @@ W4A8 bodies; the port does not read them.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -99,9 +102,12 @@ SQUEEZELLM_MATMUL_LAUNCHES = build.launch_counter("squeezellm_matmul")
 SQUEEZELLM_MATMUL_F32_LAUNCHES = build.launch_counter(
     "squeezellm_matmul_f32")
 INT8_MATMUL_LAUNCHES = build.launch_counter("int8_matmul")
+#: The reduce after a split K6 or K10 launch (`gemm_plan`).
+QUANT_GEMM_REDUCE_LAUNCHES = build.launch_counter("quant_gemm_split_reduce")
 
 STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
 BLOCK_N = 128              # output columns per block
+GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10's output tile
 _SM_COUNT = 132            # H100 SXM
 _BLOCKS_PER_SM = 4         # split-K target: this many blocks per SM
 # AWQ: column 8j + e of a packed word sits at shift 4 * AWQ_ORDER[e].
@@ -421,13 +427,30 @@ def _check(x, qweight, qzeros, scales, bits, gs, what: str,
     return m, K, N, gs
 
 
+def gemm_plan(m: int, K: int, N: int, gs: int, sms: int
+              ) -> Tuple[int, int]:
+    """(splits, groups per split) of K6 / K10's grid (N / 256, m / 128,
+    splits), from shapes and the card's SM count alone (no host sync, so
+    a CUDA graph can capture the launch). Where the 128 x 256 output
+    tiles fall short of the SMs, the quantization groups are split into
+    contiguous runs so that tiles x splits comes near one block per SM;
+    each split starts on a group, none is empty, and a second kernel
+    adds the splits' f32 partial sums in split order."""
+    groups = K // gs
+    tiles = -(-m // GEMM_BLOCK_M) * -(-N // GEMM_BLOCK_N)
+    splits = max(1, min(groups, sms // tiles))
+    per = -(-groups // splits)
+    return -(-groups // per), per
+
+
 def _tiling(m: int, K: int, N: int, gs: int, stream: bool
             ) -> Tuple[int, int]:
-    """(block_m, splits). The tiled kernels (K6/K8) take 128 rows and no
-    split. The skinny kernel (K7) takes the least of 16/32/64 rows that
-    covers m, and splits the quantization groups over enough blocks to
-    fill the SMs, but no further than keeps the f32 partial sums (written
-    and read once) below the weight's own bytes."""
+    """(block_m, splits) of the launchers that tile 128 columns. The
+    tiled a8 kernels (K8/K11) take 128 rows and no split (K6 and K10
+    follow `gemm_plan`). The skinny kernel (K7) takes the least of
+    16/32/64 rows that covers m, and splits the quantization groups over
+    enough blocks to fill the SMs, but no further than keeps the f32
+    partial sums (written and read once) below the weight's own bytes."""
     if not stream:
         return 128, 1
     if m > STREAM_M_MAX:
@@ -449,11 +472,15 @@ def _launch(a8: bool, x, xs, qweight, qzeros, scales, *, bits: int,
     a8 entry point; x is int8 rows with their scales xs for a8."""
     m, K = x.shape
     N = scales.shape[1]
-    block_m, splits = _tiling(m, K, N, gs, stream)
+    gemm = not (a8 or stream)          # K6 / K10
+    if gemm:
+        block_m = GEMM_BLOCK_M
+        splits, _ = gemm_plan(m, K, N, gs, build.sm_count(x.device))
+    else:
+        block_m, splits = _tiling(m, K, N, gs, stream)
     out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((splits, m, N), dtype=torch.float32,
                           device=x.device) if splits > 1 else None
-    lib = build.library("quant_matmul")
     # Of the four entry points only gptq_mm_a16 takes the bit width (the
     # others are 4-bit); only the a8 ones take the row scales xs.
     tail = (m, K, N, gs) + (() if a8 or awq else (bits,)) + \
@@ -461,14 +488,34 @@ def _launch(a8: bool, x, xs, qweight, qzeros, scales, *, bits: int,
     ptrs = (x.data_ptr(),) + ((xs.data_ptr(),) if a8 else ()) + (
         qweight.data_ptr(), qzeros.data_ptr(), scales.data_ptr(),
         out.data_ptr(), build.ptr(partial))
-    fn = getattr(lib, f"{'awq' if awq else 'gptq'}_mm_{'a8' if a8 else 'a16'}")
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
-        [ctypes.c_int] * len(tail) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry(f"{'awq' if awq else 'gptq'}_mm_{'a8' if a8 else 'a16'}",
+                len(ptrs), len(tail))
     err = fn(*ptrs, *tail, build.stream_of(x))
     counter.add()
+    if gemm and splits > 1:
+        QUANT_GEMM_REDUCE_LAUNCHES.add()
     build.check(err, f"{what} (streamed)" if stream else what)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, n_ptrs: int, n_ints: int):
+    """The C entry point `name` of the library, its argument types set
+    once: n_ptrs pointers, n_ints ints, then the stream."""
+    fn = getattr(build.library("quant_matmul"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + \
+        [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gemm_smem_bytes(bits: int) -> int:
+    """K6 / K10's dynamic shared memory per block at `bits` (4 or 8), as
+    the kernel's launcher asks for it."""
+    fn = build.library("quant_matmul").quant_gemm_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return int(fn(bits))
 
 
 def _resolve_stream(stream, m: int) -> bool:

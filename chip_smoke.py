@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
 2. Build: compiles every kernel source under `aphrodite_tpu_torch/csrc/`
    with nvcc for sm_90a (one process per source, in parallel) and prints
    each source's `-Xptxas -v` report on one line, then K1's dynamic
-   shared memory per block by page type and slot width.
+   shared memory per block by page type and slot width, and K6 / K10's
+   (`quant_gemm_kernel`) at 4 and 8 bits.
 3. Kernels vs plain versions at the main path's shapes (Hq 32, Hkv 8,
    head_dim 128, bf16, 16- and 32-token pages):
    - paged decode attention, K1 (the ragged grid, called with the
@@ -75,7 +76,10 @@ Phases, in order; any failure exits non-zero:
    gate_up and (14336, 4096) down, group 128, bf16 activations:
    - K7, the skinny weight-streaming kernel, at m 1, 8 and 64: W4A16,
      W8A16 and the W4A8 arm;
-   - K6 (W4A16 and W8A16) and K8 (W4A8) at m 512 and 4096;
+   - K6 (W4A16 and W8A16) at m 72, 128, 512 and 4096 (72 and 128: decode
+     batches above 64, where the plan splits the groups), with the plan
+     (tile, splits) and the wrapper's host time per call logged, and K8
+     (W4A8) at m 512 and 4096;
    - K9 (per-row int8 quantization) at m 1, 8, 64, 512 and 4096: exact.
    Each check calls the wrapper the engine calls (`gptq_matmul`,
    `gptq_matmul_a8`, which runs K9 then the matmul) against its plain
@@ -97,7 +101,9 @@ Phases, in order; any failure exits non-zero:
    batch above 64). Counters are reset before and read after each run:
    the W4A8 runs must launch K9 with K8 and K7's a8 arm, the W4A16 runs
    K6 and K7, both K1, K2 and K4; the 96-request round's decode steps
-   must take K8 / K6. The launches of every kernel are logged per path
+   must take K8 / K6, and in W4A16 K6's split reduce
+   (`quant_gemm_split_reduce`: batch 96 is one row tile). The launches
+   of every kernel are logged per path
    (bf16, GPTQ and AWQ arms); the kernel JSON gives their sum.
    Then a batch-8 GPTQ decode step under
    torch.profiler in each arm: wall and device time, and the quantized
@@ -106,7 +112,8 @@ Phases, in order; any failure exits non-zero:
 10. AWQ kernels vs plain versions at the same four projections, group
    128, bf16 (the AWQ layout: qweight [K, N/8], 8 interleaved columns per
    word): K7's AWQ layout, a16 and a8 arms, at m 1, 8 and 64; K10 (a16)
-   and K11 (a8) at m 512 and 4096. Each check calls the wrapper the
+   at m 72, 128, 512 and 4096 (plan and host time logged as for K6) and
+   K11 (a8) at m 512 and 4096. Each check calls the wrapper the
    engine calls (`awq_matmul`, `awq_matmul_a8`) against its plain
    version, with phase 8's tolerance, and is timed as phase 8 times the
    GPTQ cases (library yardstick for K10/K7-a16: torch.matmul over the
@@ -116,8 +123,9 @@ Phases, in order; any failure exits non-zero:
    128, zero point, GEMM version; dummy weights from seed 0), W4A8
    (APHRODITE_W4A8=1) then W4A16: phase 4's request mix at multi_step 1,
    then the 96-request round. The W4A8 arm must launch K9 with K11 and
-   K7's AWQ a8 arm, the W4A16 arm K10 and K7's AWQ layout, both K1, K2
-   and K4. A batch-8 decode step is profiled in each arm as in phase 9.
+   K7's AWQ a8 arm, the W4A16 arm K10 (its split reduce in the wide
+   round) and K7's AWQ layout, both K1, K2 and K4. A batch-8 decode
+   step is profiled in each arm as in phase 9.
 12. Seeded draws on the card: JAX's threefry keys, bits and uniforms
    (`modeling/layers/prng.py`) for 64 rows x vocab 32000 bit-equal to
    the same calls on the CPU, and the tokens drawn equal; one seeded
@@ -887,7 +895,7 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
                                          **kw)
             wbytes = weight_bytes(K, N, bits)
             cases = [("k7", m) for m in (1, 8, 64)] + \
-                [(big, m) for m in (512, 4096)]
+                [(big, m) for m in (72, 128, 512, 4096)]
             if bits == 4:
                 cases += [("k7a8", m) for m in (1, 8, 64)] + \
                     [(big_a8, m) for m in (512, 4096)]
@@ -935,6 +943,19 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
                             "kernel: the matmul alone on K9's rows")
                 err = check_close(torch, got, plain(),
                                   f"{fmt} {kern} {proj} m={m} bits={bits}")
+                if kern == big:
+                    # K6 / K10's plan, and the wrapper's host time per
+                    # call: 50 calls enqueued back to back.
+                    splits, per = qmm.gemm_plan(m, K, N, GPTQ_GS,
+                                                qmm.build.sm_count("cuda"))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(50):
+                        run()
+                    host_us = (time.perf_counter() - t0) / 50 * 1e6
+                    what = (f"; plan: 128 x 256 tiles, {splits} split(s) of "
+                            f"{per} groups; wrapper {host_us:.1f} us of "
+                            "host time per call")
                 torch.cuda.synchronize()
                 ms, plain_ms = timer(run), timer(plain)
                 lib = timer(lambda: torch.matmul(x, w16)) \
@@ -1892,6 +1913,13 @@ def main() -> int:
             str(pa.k1_smem_bytes(dt, False, 16, 256, 256, 8, 8, 1))
             for dt in (torch.bfloat16, torch.int8, torch.float32)) +
         " B (bf16 / 8-bit / f32)")
+    from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
+    optin = getattr(torch.cuda.get_device_properties(0),
+                    "shared_memory_per_block_optin", "an unreported number of")
+    log("K6 / K10 (quant_gemm_kernel: 128 x 256 tiles, 288 threads) dynamic "
+        "shared memory per block: " + " / ".join(
+            f"{qmm.gemm_smem_bytes(bits)} B at {bits} bits" for bits in (4, 8))
+        + f" (the card allows {optin} B)")
 
     # 3. Kernels vs plain versions, and times.
     log_clocks("before the kernel checks")
@@ -2056,7 +2084,8 @@ def main() -> int:
     for arm, flag, required, wide, decode in (
             ("W4A8", "1", W4A8_KERNELS, ("quantize_activations_int8",),
              "gptq_matmul_a8"),
-            ("W4A16", "0", W4A16_KERNELS, (), "gptq_matmul")):
+            ("W4A16", "0", W4A16_KERNELS, ("quant_gemm_split_reduce",),
+             "gptq_matmul")):
         os.environ["APHRODITE_W4A8"] = flag
         tag = f"GPTQ {arm} "
         runs = [run_engine(torch, engine, ms, counters, smi,
@@ -2101,7 +2130,8 @@ def main() -> int:
     for arm, flag, required, wide, decode in (
             ("W4A8", "1", AWQ_A8_KERNELS, ("quantize_activations_int8",),
              "awq_matmul_a8"),
-            ("W4A16", "0", AWQ_A16_KERNELS, (), "awq_matmul")):
+            ("W4A16", "0", AWQ_A16_KERNELS, ("quant_gemm_split_reduce",),
+             "awq_matmul")):
         os.environ["APHRODITE_W4A8"] = flag
         tag = f"AWQ {arm} "
         by_path[tag.strip()] = {}

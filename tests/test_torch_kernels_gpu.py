@@ -316,6 +316,20 @@ def test_quantize_activations_int8_kernel_is_exact(dev):
         assert torch.equal(x8, p8) and torch.equal(xs, ps)
 
 
+# Mistral-7B's four projections (K, N): qkv, o, gate_up, down.
+_PROJ = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
+# K6 / K10 (m > 64): the m where decode runs above batch 64 and prompt
+# rounds run, at every projection.
+_GEMM_M = (65, 96, 128, 129, 257, 1000, 4096)
+
+
+def _reduces(m, K, N, gs, stream, dev):
+    """The split reduces one K6 / K10 launch adds (none when streamed)."""
+    if stream:
+        return 0
+    return int(tqm.gemm_plan(m, K, N, gs, tqm.build.sm_count(dev))[0] > 1)
+
+
 @pytest.mark.parametrize("m,K,N,bits,gs,stream", [
     (1, 4096, 6144, 4, 128, True),
     (8, 14336, 4096, 4, 128, True),
@@ -324,18 +338,92 @@ def test_quantize_activations_int8_kernel_is_exact(dev):
     (65, 4096, 4096, 4, 128, False),
     (300, 2048, 2048, 8, 256, False),
     (8, 1024, 512, 4, 128, False),
+] + [(m, K, N, 4, 128, False) for m in _GEMM_M for K, N in _PROJ] + [
+    (m, K, N, 8, 128, False) for m in (72, 1000) for K, N in _PROJ] + [
+    (200, 4096, 6144, 4, 256, False),
+    (1000, 4096, 4096, 4, 1024, False),
+    (96, 14336, 4096, 8, 1024, False),
+    (130, 3200, 4096, 4, 200, False),     # groups of 200: 64+64+64+8 rows
+    (513, 4080, 1152, 8, 136, False),     # groups of 136, N % 256 = 128
+    (77, 2048, 384, 4, 128, False),       # a 128-column tail tile
 ])
 def test_gptq_matmul_kernels_match_plain(dev, m, K, N, bits, gs, stream):
     x, qw, qz, sc = _gptq_problem(dev, m, K, N, bits, gs)
     counter = tqm.GPTQ_MATMUL_STREAM_LAUNCHES if stream \
         else tqm.GPTQ_MATMUL_LAUNCHES
-    before = counter.count
+    before = (counter.count, tqm.QUANT_GEMM_REDUCE_LAUNCHES.count)
     got = tqm.gptq_matmul(x, qw, qz, sc, bits=bits, group_size=gs,
                           stream=stream)
     want = tqm.gptq_matmul_plain(x, qw, qz, sc, bits=bits, group_size=gs)
     torch.cuda.synchronize()
-    assert counter.count == before + 1
+    assert (counter.count, tqm.QUANT_GEMM_REDUCE_LAUNCHES.count) == \
+        (before[0] + 1, before[1] + _reduces(m, K, N, gs, stream, dev))
     _close(got, want)
+
+
+def _misses(got, want):
+    """True where `_close` would fail: some element off by more than
+    2e-2 + 2e-2 |plain|."""
+    err = (got.float() - want.float()).abs()
+    return bool((err > 2e-2 + 2e-2 * want.float().abs()).any())
+
+
+def _views(x_all, m):
+    """x [m, K] as views into a larger buffer: at a row offset (16-byte
+    aligned rows, the cp.async path) and at a one-element offset (rows
+    unaligned, the element-load path)."""
+    K = x_all.shape[1]
+    flat = x_all.reshape(-1)
+    return {"row offset": x_all[3:3 + m],
+            "element offset": flat[1:1 + m * K].view(m, K)}
+
+
+@pytest.mark.parametrize("awq", [False, True])
+@pytest.mark.parametrize("m,K,N", [(72, 4096, 4096), (300, 14336, 4096)])
+def test_gemm_kernels_take_views_of_x(dev, awq, m, K, N):
+    """K6 / K10 on x given as a view at a row offset and at an unaligned
+    element offset, against the plain version on a copy."""
+    if awq:
+        x_all, qw, qz, sc = _awq_problem(dev, m + 8, K, N)
+        fn = lambda x: tqm.awq_matmul(x, qw, qz, sc, group_size=128)
+        plain = lambda x: tqm.awq_matmul_plain(x, qw, qz, sc,
+                                               group_size=128)
+    else:
+        x_all, qw, qz, sc = _gptq_problem(dev, m + 8, K, N)
+        fn = lambda x: tqm.gptq_matmul(x, qw, qz, sc, bits=4,
+                                       group_size=128)
+        plain = lambda x: tqm.gptq_matmul_plain(x, qw, qz, sc, bits=4,
+                                                group_size=128)
+    for what, x in _views(x_all, m).items():
+        assert x.is_contiguous() and x.data_ptr() != x_all.data_ptr(), what
+        got = fn(x)
+        want = plain(x.clone())
+        torch.cuda.synchronize()
+        _close(got, want)
+
+
+@pytest.mark.parametrize("awq", [False, True])
+@pytest.mark.parametrize("m", [96, 1000])
+def test_gemm_control_misses_the_tolerance(dev, awq, m):
+    """A wrong plain version (the scale rows shifted by one group) must
+    miss `_close`'s tolerance against K6 / K10, so a swizzle or layout
+    fault that gives plausible numbers cannot pass the checks above."""
+    K, N = 4096, 4096
+    if awq:
+        x, qw, qz, sc = _awq_problem(dev, m, K, N)
+        got = tqm.awq_matmul(x, qw, qz, sc, group_size=128)
+        good = tqm.awq_matmul_plain(x, qw, qz, sc, group_size=128)
+        bad = tqm.awq_matmul_plain(x, qw, qz, sc.roll(1, 0),
+                                   group_size=128)
+    else:
+        x, qw, qz, sc = _gptq_problem(dev, m, K, N)
+        got = tqm.gptq_matmul(x, qw, qz, sc, bits=4, group_size=128)
+        good = tqm.gptq_matmul_plain(x, qw, qz, sc, bits=4, group_size=128)
+        bad = tqm.gptq_matmul_plain(x, qw, qz, sc.roll(1, 0), bits=4,
+                                    group_size=128)
+    torch.cuda.synchronize()
+    _close(got, good)
+    assert _misses(got, bad)
 
 
 @pytest.mark.parametrize("m,K,N,stream", [
@@ -395,6 +483,11 @@ def _awq_problem(dev, m, K, N, gs=128, seed=0):
     (65, 4096, 4096, 128, False),
     (300, 2048, 2048, 256, False),
     (8, 1024, 1024, 128, False),
+] + [(m, K, N, 128, False) for m in _GEMM_M for K, N in _PROJ] + [
+    (200, 4096, 6144, 256, False),
+    (1000, 4096, 4096, 1024, False),
+    (130, 3200, 4096, 200, False),        # groups of 200: 64+64+64+8 rows
+    (77, 2048, 1152, 128, False),         # a 128-column tail tile
 ])
 def test_awq_matmul_kernels_match_plain(dev, m, K, N, gs, stream, a8):
     x, qw, qz, sc = _awq_problem(dev, m, K, N, gs)
@@ -406,11 +499,13 @@ def test_awq_matmul_kernels_match_plain(dev, m, K, N, gs, stream, a8):
         counter = tqm.AWQ_MATMUL_STREAM_LAUNCHES if stream \
             else tqm.AWQ_MATMUL_LAUNCHES
         fn, plain = tqm.awq_matmul, tqm.awq_matmul_plain
-    before = counter.count
+    before = (counter.count, tqm.QUANT_GEMM_REDUCE_LAUNCHES.count)
     got = fn(x, qw, qz, sc, group_size=gs, stream=stream)
     want = plain(x, qw, qz, sc, group_size=gs)
     torch.cuda.synchronize()
-    assert counter.count == before + 1
+    assert (counter.count, tqm.QUANT_GEMM_REDUCE_LAUNCHES.count) == \
+        (before[0] + 1,
+         before[1] + (0 if a8 else _reduces(m, K, N, gs, stream, dev)))
     _close(got, want)
 
 

@@ -456,3 +456,45 @@ def test_k12_k16_k17_gates_match_jax():
                      (256, 192), (128, 256), (768, 1536)]:
             assert getattr(tqm, gate)(*args) == getattr(jqm, gate)(*args), \
                 (gate, args)
+
+
+# K6 / K10's plan (`gemm_plan`): 128 x 256 output tiles; where they fall
+# short of the SMs, the quantization groups split into contiguous runs.
+# Rows at Mistral-7B's widths, group 128 (K 4096: 32 groups; K 14336:
+# 112), on 132 SMs (H100 SXM) and 114 (H100 PCIe).
+@pytest.mark.parametrize("m,K,N,sms,want", [
+    (65, 4096, 4096, 132, (8, 4)),      # 16 tiles: 132 // 16 = 8 splits
+    (96, 4096, 6144, 132, (5, 7)),      # 24 tiles: 5 wanted, runs of 7
+    (128, 4096, 28672, 132, (1, 32)),   # 112 tiles cover the SMs
+    (96, 14336, 4096, 132, (8, 14)),
+    (512, 4096, 4096, 132, (2, 16)),    # 4 row tiles x 16
+    (512, 4096, 6144, 132, (1, 32)),
+    (4096, 4096, 28672, 132, (1, 32)),
+    (4096, 14336, 4096, 132, (1, 112)),
+    (65, 4096, 4096, 114, (7, 5)),      # 7 wanted: runs of 5, 7 splits
+    (96, 4096, 6144, 114, (4, 8)),
+    (128, 14336, 4096, 114, (7, 16)),
+    (512, 4096, 4096, 114, (1, 32)),    # 64 tiles: 114 // 64 = 1
+    (4096, 4096, 6144, 114, (1, 32)),
+])
+def test_gemm_plan_table(m, K, N, sms, want):
+    assert tqm.gemm_plan(m, K, N, 128, sms) == want
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_gemm_plan_splits_start_on_groups_and_none_is_empty(sms):
+    for m in (65, 72, 96, 128, 129, 257, 512, 1000, 4096):
+        for K, N in ((4096, 6144), (4096, 4096), (4096, 28672),
+                     (14336, 4096), (3200, 4096), (2048, 384)):
+            for gs in (128, 200, 1024):
+                if K % gs:
+                    continue
+                groups = K // gs
+                splits, per = tqm.gemm_plan(m, K, N, gs, sms)
+                # Split s covers groups [s * per, min(groups, (s+1) * per)).
+                starts = [s * per for s in range(splits)]
+                assert starts[-1] < groups and splits * per >= groups
+                tiles = -(-m // 128) * -(-N // 256)
+                assert splits <= max(1, sms // tiles)
+                # Shapes and the SM count alone decide it.
+                assert tqm.gemm_plan(m, K, N, gs, sms) == (splits, per)
