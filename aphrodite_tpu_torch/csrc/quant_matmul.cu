@@ -2,23 +2,29 @@
 // quantization, CUDA C++ for sm_90a.
 //
 // Replaces the twelve Pallas TPU kernels of
-// aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6 and K10 are one
-// templated kernel, quant_gemm_kernel (warp-specialized wgmma, below);
-// K7, K8 and K11 another, quant_mma_kernel; K13-K15 and K17 a third,
-// int8_mma_kernel; K12 and K16 a fourth, nib_mma_kernel. The last three
-// share the block tile, the x staging, the mma.sync fragments, the A8
-// group fold, the epilogue and the launcher (Tile, stage_x, mma_chunk,
-// fold_group, store_tile, launch_tiles) and differ only in how they load
-// the W words and write the W tile:
+// aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6, K10 and, at
+// m > 64, K14 are one templated kernel, quant_gemm_kernel
+// (warp-specialized wgmma, below), with a word decoder each; K15 at
+// m > 64 is w8a8_gemm_kernel (s8 wgmma and a per-group fold, below);
+// K7, K8 and K11 another, quant_mma_kernel; K13, K17 and K14 / K15 at
+// m <= 64 a third, int8_mma_kernel; K12 and K16 a fourth,
+// nib_mma_kernel. The last three share the block tile, the x staging,
+// the mma.sync fragments, the A8 group fold, the epilogue and the
+// launcher (Tile, stage_x, mma_chunk, fold_group, store_tile,
+// launch_tiles) and differ only in how they load the W words and write
+// the W tile:
 //   _gguf_q4k_kernel (:1117)   -> nib_mma_kernel<Q4K> (K12, Q4_K exact)
 //   _sqllm_kernel (:1630)      -> nib_mma_kernel<LUT> (K16, bf16 x) and
 //                                 nib_mma_kernel<LUT, X32> (K16, f32 x)
 //   _int8_kernel (:1706)       -> int8_mma_kernel<G 0> (K17, int8 per
 //                                 column)
 //   _gguf_q8_kernel (:1210)    -> int8_mma_kernel<G 32> (K13, Q8_0)
-//   _gguf_i8g_kernel (:1476)   -> int8_mma_kernel<G 16> (K14, grouped int8)
-//   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128, A8> (K15, W8A8)
-//   _kernel (:554)          -> quant_gemm_kernel<BITS, false> (K6)
+//   _gguf_i8g_kernel (:1476)   -> int8_mma_kernel<G 16> at m <= 64,
+//                                 quant_gemm_kernel<8, kI8g> above (K14,
+//                                 grouped int8)
+//   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128, A8> at m <= 64,
+//                                 w8a8_gemm_kernel above (K15, W8A8)
+//   _kernel (:554)          -> quant_gemm_kernel<BITS, kGptq> (K6)
 //   _stream_kernel (:308)   -> quant_mma_kernel, 16-64-row tiles with
 //                              split K, GPTQ and AWQ layouts, a16 and a8
 //                              arms (K7)
@@ -26,7 +32,7 @@
 //                           -> quant_mma_kernel<A8>, 128-row tiles, GPTQ
 //                              layout (K8)
 //   _quant8_kernel (:781)   -> quant8_kernel (K9)
-//   _awq_kernel (:718)      -> quant_gemm_kernel<4, true> (K10)
+//   _awq_kernel (:718)      -> quant_gemm_kernel<4, kAwq> (K10)
 //   _awq_a8_kernel, _awq_a8_deferred_kernel (:937, :971)
 //                           -> quant_mma_kernel<A8>, 128-row tiles, AWQ
 //                              layout (K11)
@@ -893,9 +899,11 @@ __global__ void split_reduce_kernel(const float* __restrict__ partial,
 
 // ------------------------------------------------------------ K6 / K10 --
 //
-// quant_gemm_kernel<BITS, AWQ>: the W4A16 / W8A16 product at m > 64 (see
-// the header). One block owns 128 rows x 256 columns of the output and
-// walks its quantization groups in 64-deep chunks:
+// quant_gemm_kernel<BITS, D>: the W4A16 / W8A16 product at m > 64 (see
+// the header), and K14's at m > 64 (D kI8g: the codes are bytes, the
+// scale rows come four to a chunk, there is no zero row, and the split
+// unit is one 64-row chunk). One block owns 128 rows x 256 columns of
+// the output and walks its quantization groups in 64-deep chunks:
 //   - warp 8, the loader: one thread keeps a ring of kStages chunks in
 //     flight with TMA (the x tile in the 128-byte swizzle, the packed
 //     words, the group's scale row and zero row, all on one mbarrier);
@@ -916,19 +924,28 @@ constexpr int kWtTiles = 3;                 // bf16 W tiles in the ring
 constexpr int kXBytes = kBM * kBK * 2;      // one x stage, 16 KB
 constexpr int kWtBytes = kBN * kBK * 2;     // one bf16 W tile, 32 KB
 
-template <int BITS>
+// The word decoders: GPTQ and AWQ packed codes (K6, K10), and GGUF's
+// grouped int8 form (K14: int8 codes [K, N], a bf16 scale row per 16
+// input rows, no zero point).
+enum class Dec { kGptq, kAwq, kI8g };
+
+template <int BITS, Dec D>
 struct Cfg {
   static constexpr int kPack = 32 / BITS;
-  static constexpr int kStages = BITS == 8 ? 3 : 5;
+  // K14 keeps two W tiles, not three, for a fourth stage: with its 34 KB
+  // stages the loads are latency-bound, so bytes in flight set the rate.
+  static constexpr int kWt = D == Dec::kI8g ? 2 : kWtTiles;
+  static constexpr int kStages = D == Dec::kI8g ? 4 : BITS == 8 ? 3 : 5;
   static constexpr int kWordBytes = kBK * kBN * BITS / 8;   // packed W
-  static constexpr int kSBytes = kBN * 2;                   // scale row
-  static constexpr int kZBytes = kBN * BITS / 8;            // zero row
+  // Scale rows: one per chunk, K14's four (a row per 16 of its 64 k).
+  static constexpr int kSBytes = kBN * 2 * (D == Dec::kI8g ? 4 : 1);
+  static constexpr int kZBytes = D == Dec::kI8g ? 0 : kBN * BITS / 8;
   static constexpr int kBarBytes = 8 * 2 * kStages;
   // Bytes one stage's TMA loads bring (x counted only when TMA loads it).
   static constexpr int kWsBytes = kWordBytes + kSBytes + kZBytes;
   static constexpr int kSmemBytes =
       1024 + kStages * (kXBytes + kWordBytes + kSBytes + kZBytes) +
-      kWtTiles * kWtBytes + kBarBytes;
+      kWt * kWtBytes + kBarBytes;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1115,15 +1132,61 @@ __device__ __forceinline__ int swz(int r, int c) {
 // bf16 tile `wt` (kn of the chunk's 64 rows are real; the rest read as
 // zero; FULL: all 64, no masks). Every value is bf16(float(q - z) * s):
 // 128 + q and 128 + z are exact in bf16, so is their difference, and the
-// product is rounded once.
-template <int BITS, bool AWQ, bool FULL>
+// product is rounded once. K14 (kI8g): bf16(float(q) * d), d the scale
+// row of the code's 16-row group, as the plain version rounds it.
+template <int BITS, Dec D, bool FULL>
 __device__ __forceinline__ void dequant_chunk(const uint32_t* ws,
                                               const uint32_t* zs,
                                               const __nv_bfloat16* ss,
                                               unsigned char* wt, int kn,
                                               int tid) {
   constexpr int PACK = 32 / BITS;
-  if constexpr (AWQ) {
+  if constexpr (D == Dec::kI8g) {
+    // Columns 8j .. 8j + 7 (j = tid & 31) at 8 rows of the chunk's
+    // 16-row group r = tid / 64 (the first or second 8 by warp parity), so
+    // a thread reads one scale row: each row's 8 codes (8 bytes of the
+    // stage) become one 16-byte piece of the MN-major tile, as AWQ's word
+    // columns. q ^ 0x80 = q + 128 in [0, 255], so 2^23 + q + 128 is a
+    // float by one byte permute, and fma(2^23 + q + 128, d,
+    // -(2^23 + 128) d) = q d exactly (the addend is exact: d has 8
+    // significant bits), rounded once to bf16 by the pack. Every chunk is
+    // whole (64 rows of whole 16-row groups).
+    const int j = tid & 31, r = tid >> 6;
+    const int k0 = 16 * r + 8 * ((tid >> 5) & 1);
+    const unsigned char* wb = reinterpret_cast<const unsigned char*>(ws);
+    unsigned char* blk = wt + (j >> 3) * (kBK * 128);
+    const uint4 s4 = reinterpret_cast<const uint4*>(ss + r * kBN)[j];
+    const uint32_t sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    float d[8], c[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      d[2 * e] = __uint_as_float(sv[e] << 16);
+      d[2 * e + 1] = __uint_as_float(sv[e] & 0xffff0000u);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) c[e] = __fmul_rn(-8388736.f, d[e]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = k0 + i;
+      const uint2 q = *reinterpret_cast<const uint2*>(wb + k * kBN + 8 * j);
+      const uint32_t qw[2] = {q.x ^ 0x80808080u, q.y ^ 0x80808080u};
+      uint32_t o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t w = qw[e >> 1];
+        const int b = (2 * e) & 3;
+        const float lo = __fmaf_rn(
+            __uint_as_float(__byte_perm(w, 0x4b000000u, b | 0x7440)),
+            d[2 * e], c[2 * e]);
+        const float hi = __fmaf_rn(
+            __uint_as_float(__byte_perm(w, 0x4b000000u, (b + 1) | 0x7440)),
+            d[2 * e + 1], c[2 * e + 1]);
+        o[e] = pack_bf2(lo, hi);
+      }
+      *reinterpret_cast<uint4*>(blk + swz(k, j & 7)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else if constexpr (D == Dec::kAwq) {
     // Word column j (columns 8j .. 8j + 7) at rows tid / 32 + 8i: each
     // word is one 16-byte piece of the MN-major tile (64-column blocks of
     // 64 k rows x 128 bytes); (w >> 4e) & 0x000f000f holds columns 2e and
@@ -1208,7 +1271,7 @@ __device__ __forceinline__ void dequant_chunk(const uint32_t* ws,
   }
 }
 
-template <int BITS, bool AWQ>
+template <int BITS, Dec D>
 __global__ void __launch_bounds__(kThreads, 1)
 quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap w_map,
@@ -1218,19 +1281,21 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
                   __nv_bfloat16* __restrict__ out,
                   float* __restrict__ partial, int m, int K, int N, int gs,
                   int groups_per_split, int x_tma) {
-  using C = Cfg<BITS>;
+  using C = Cfg<BITS, D>;
   constexpr int S = C::kStages;
   constexpr int PACK = C::kPack;
+  constexpr bool AWQ = D == Dec::kAwq;
   static_assert(!AWQ || BITS == 4, "AWQ packs 8 4-bit codes");
+  static_assert(D != Dec::kI8g || BITS == 8, "K14's codes are bytes");
 
   // The ring, 1024-byte aligned for the 128-byte swizzle; offset from
   // smem_raw (not through an integer) so that accesses stay ld/st.shared.
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* x_s = smem;                              // [S][128 x 64]
-  unsigned char* wt_s = x_s + S * kXBytes;                // [3][W tile]
-  unsigned char* words_s = wt_s + kWtTiles * kWtBytes;    // [S][packed]
-  unsigned char* sc_s = words_s + S * C::kWordBytes;      // [S][256] bf16
+  unsigned char* wt_s = x_s + S * kXBytes;                // [kWt][W tile]
+  unsigned char* words_s = wt_s + C::kWt * kWtBytes;      // [S][packed]
+  unsigned char* sc_s = words_s + S * C::kWordBytes;      // [S][rows][256]
   unsigned char* z_s = sc_s + S * C::kSBytes;             // [S][zero row]
   uint64_t* full = reinterpret_cast<uint64_t*>(z_s + S * C::kZBytes);
   uint64_t* empty = full + S;
@@ -1280,13 +1345,20 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
       uint64_t* bar = &full[slot];
       mbar_expect_tx(bar, C::kWsBytes + (x_tma ? kXBytes : 0));
       if (x_tma) tma_load(x_s + slot * kXBytes, &x_map, bar, k0, m0);
-      if constexpr (AWQ) {
-        tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0 / 8, k0);
+      if constexpr (D == Dec::kI8g) {
+        // The [64, 256] code chunk and its four d16 rows (gs is 64).
+        tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0, k0);
+        tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0, k0 / 16);
       } else {
-        tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0, k0 / PACK);
+        if constexpr (AWQ) {
+          tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0 / 8, k0);
+        } else {
+          tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0,
+                   k0 / PACK);
+        }
+        tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0, g);
+        tma_load(z_s + slot * C::kZBytes, &z_map, bar, n0 / PACK, g);
       }
-      tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0, g);
-      tma_load(z_s + slot * C::kZBytes, &z_map, bar, n0 / PACK, g);
     }
     return;
   }
@@ -1323,13 +1395,15 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
         reinterpret_cast<const uint32_t*>(z_s + slot * C::kZBytes);
     const __nv_bfloat16* ss =
         reinterpret_cast<const __nv_bfloat16*>(sc_s + slot * C::kSBytes);
-    unsigned char* wt = wt_s + (t % kWtTiles) * kWtBytes;
-    // A whole chunk (every chunk where the group size is a multiple of 64)
-    // takes the unmasked instance.
-    if (kn == kBK) {
-      dequant_chunk<BITS, AWQ, true>(ws, zs, ss, wt, kn, tid);
+    unsigned char* wt = wt_s + (t % C::kWt) * kWtBytes;
+    // A whole chunk (every chunk where the group size is a multiple of 64,
+    // and every K14 chunk) takes the unmasked instance.
+    if constexpr (D == Dec::kI8g) {
+      dequant_chunk<BITS, D, true>(ws, zs, ss, wt, kn, tid);
+    } else if (kn == kBK) {
+      dequant_chunk<BITS, D, true>(ws, zs, ss, wt, kn, tid);
     } else {
-      dequant_chunk<BITS, AWQ, false>(ws, zs, ss, wt, kn, tid);
+      dequant_chunk<BITS, D, false>(ws, zs, ss, wt, kn, tid);
     }
     fence_proxy_async();
   };
@@ -1344,7 +1418,7 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   consumers_sync();
   for (int t = 0; t < T; ++t) {
     const int slot = t % S;
-    const uint32_t wt_t = wt_base + (t % kWtTiles) * kWtBytes;
+    const uint32_t wt_t = wt_base + (t % C::kWt) * kWtBytes;
     // Both warpgroups run every chunk, real rows or not: a branch around
     // the products would make ptxas serialize them.
     wgmma_fence();
@@ -1352,7 +1426,7 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t da =
           make_desc(x_base + slot * kXBytes + kk * 32, 16, 1024);
-      if constexpr (AWQ) {
+      if constexpr (D != Dec::kGptq) {
         wgmma_256<1>(acc, da, make_desc(wt_t + kk * 16 * 128, 8192, 1024),
                      t > 0 || kk > 0);
       } else {
@@ -1361,11 +1435,23 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
       }
     }
     wgmma_commit();
-    // Chunk t + 1's W tile goes where chunk t - 2's was: both warpgroups
-    // finished those products before the last consumer barrier.
-    if (t + 1 < T) prepare(t + 1);
-    wgmma_wait<1>();                      // chunk t - 1's products done
-    if (t > 0) mbar_arrive(&empty[(t - 1) % S]);
+    if constexpr (C::kWt == 3) {
+      // Chunk t + 1's W tile goes where chunk t - 2's was: both
+      // warpgroups finished those products before the last consumer
+      // barrier.
+      if (t + 1 < T) prepare(t + 1);
+      wgmma_wait<1>();                    // chunk t - 1's products done
+      if (t > 0) mbar_arrive(&empty[(t - 1) % S]);
+    } else {
+      // Two W tiles: chunk t + 1's goes where chunk t - 1's was, once
+      // both warpgroups have finished those products. Chunk t - 1's
+      // stage is free as soon as they have: its words went into its W
+      // tile a step ago.
+      wgmma_wait<1>();
+      if (t > 0) mbar_arrive(&empty[(t - 1) % S]);
+      consumers_sync();
+      if (t + 1 < T) prepare(t + 1);
+    }
     consumers_sync();
   }
   wgmma_wait<0>();
@@ -1444,17 +1530,20 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
 // which split_reduce_kernel adds in split order. Four tensor maps per
 // call (a host encoding each, no device work). The dynamic shared memory
 // above 48 KB is allowed once per instance.
-template <int BITS, bool AWQ>
+// K14 (kI8g): qweight is the int8 codes [K, N], scales the d16 rows
+// [K / 16, N], no qzeros, and gs the split unit, 64 rows.
+template <int BITS, Dec D>
 int launch_gemm(const void* x, const void* qweight, const void* qzeros,
                 const void* scales, void* out, float* partial, int m, int K,
                 int N, int gs, int splits, cudaStream_t stream) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
-  constexpr int PACK = Cfg<BITS>::kPack;
+  constexpr bool AWQ = D == Dec::kAwq;
+  constexpr int PACK = Cfg<BITS, D>::kPack;
   if (splits < 1 || gs <= 0 || K % gs != 0 || N % 128 != 0 ||
-      (!AWQ && gs % PACK != 0))
+      (!AWQ && gs % PACK != 0) || (D == Dec::kI8g && gs != kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = quant_gemm_kernel<BITS, AWQ>;
-  constexpr int smem = Cfg<BITS>::kSmemBytes;
+  auto kernel = quant_gemm_kernel<BITS, D>;
+  constexpr int smem = Cfg<BITS, D>::kSmemBytes;
   static bool allowed = false;
   if (!allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1472,13 +1561,19 @@ int launch_gemm(const void* x, const void* qweight, const void* qzeros,
   CUtensorMap x_map{}, w_map{}, s_map{}, z_map{};
   bool ok = !x_tma || tensor_map(&x_map, kBf16, 2, x, K, m, kBK, kBM,
                                   CU_TENSOR_MAP_SWIZZLE_128B);
-  ok = ok && (AWQ ? tensor_map(&w_map, kU32, 4, qweight, N / 8, K, kBN / 8,
-                               kBK, kFlat)
-                  : tensor_map(&w_map, kU32, 4, qweight, N, K / PACK, kBN,
-                               kBK / PACK, kFlat));
-  ok = ok && tensor_map(&s_map, kBf16, 2, scales, N, G, kBN, 1, kFlat);
-  ok = ok && tensor_map(&z_map, kU32, 4, qzeros, N / PACK, G, kBN / PACK, 1,
-                        kFlat);
+  if constexpr (D == Dec::kI8g) {
+    ok = ok && tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qweight,
+                          N, K, kBN, kBK, kFlat);
+    ok = ok && tensor_map(&s_map, kBf16, 2, scales, N, K / 16, kBN, 4, kFlat);
+  } else {
+    ok = ok && (AWQ ? tensor_map(&w_map, kU32, 4, qweight, N / 8, K,
+                                 kBN / 8, kBK, kFlat)
+                    : tensor_map(&w_map, kU32, 4, qweight, N, K / PACK, kBN,
+                                 kBK / PACK, kFlat));
+    ok = ok && tensor_map(&s_map, kBf16, 2, scales, N, G, kBN, 1, kFlat);
+    ok = ok && tensor_map(&z_map, kU32, 4, qzeros, N / PACK, G, kBN / PACK,
+                          1, kFlat);
+  }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   float* part = splits > 1 ? partial : nullptr;
   const dim3 grid((N + kBN - 1) / kBN, (m + kBM - 1) / kBM, splits);
@@ -1491,6 +1586,354 @@ int launch_gemm(const void* x, const void* qweight, const void* qzeros,
     split_reduce_kernel<__nv_bfloat16>
         <<<static_cast<unsigned>((total + threads - 1) / threads), threads,
            0, stream>>>(partial, nullptr, nullptr,
+                        static_cast<__nv_bfloat16*>(out), splits, m, N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ K15 --
+//
+// w8a8_gemm_kernel: K15, y = bf16(xs[m] * sum_g s128[g] * (x8[m, g] .
+// qs8[g])) at m > 64, over 128-row groups g. One block owns 128 rows x
+// 128 columns of the output and walks its groups in 128-deep chunks (one
+// chunk, one group). Both wgmma operands of an 8-bit product are read
+// K-major from shared memory: x8 [m, K] is K-major already and goes in by
+// TMA in the 128-byte swizzle (a chunk row is exactly one swizzle row);
+// qs8 [K, N] is N-major and stays so at rest, so the consumers transpose
+// each chunk into a K-major swizzled tile (byte permutes) while the
+// tensor cores run the chunk before, as quant_gemm_kernel dequantizes.
+// Two consumer warpgroups run wgmma m64n128k32 s8 x s8 into s32, 64
+// rows each: a group's four products start with scale-d 0 and give its
+// exact int32 dots (|dot| <= 128 * 127 * 128 < 2^22). Once they are
+// done, the group is folded into the f32 sums in group order, acc =
+// fma(float(dot), s128[g][n], acc): the plain version's order, with one
+// rounding where it takes two. Its scale row came in the chunk's stage,
+// and the chunk's transpose writes it out as f32. Two
+// s32 sets alternate, so that group t - 1 folds while group t's
+// products run: with the f32 sums, 3 x 64 accumulator registers a
+// thread. No loader warp: a block of 288 threads caps a thread at 224
+// registers, so consumer thread 0 issues each stage's TMA loads (x8
+// chunk, qs8 chunk, scale row) as soon as both warpgroups are past the
+// chunk that held it. The flush multiplies by xs[row] (split_reduce_kernel
+// does, after a split) and rounds to bf16.
+constexpr int kW8Tile = 128;                // rows, columns and k of a chunk
+constexpr int kW8Stages = 5;
+constexpr int kW8Threads = 256;             // two consumer warpgroups
+constexpr int kW8Bytes = kW8Tile * kW8Tile; // x8 stage, qs8 stage, K-major tile
+constexpr int kW8SBytes = kW8Tile * 2;      // scale row
+// A stage: the x8 and qs8 chunks, the bf16 scale row and its f32 copy.
+constexpr int kW8SmemBytes =
+    1024 + kW8Stages * (2 * kW8Bytes + 3 * kW8SBytes) + kWtTiles * kW8Bytes +
+    8 * kW8Stages;
+
+// d[64 x 128] (+)= A[64 x 32] B[32 x 128], s8 x s8 into s32, A and B
+// K-major in the 128-byte swizzle; scale_d 0 on a group's first product.
+__device__ __forceinline__ void wgmma_s8_128(int* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// float(v), exact for |v| < 2^24. An asm volatile, so that the
+// accumulator read stays after the wgmma wait before it.
+__device__ __forceinline__ float s32_to_f32(int v) {
+  float r;
+  asm volatile("cvt.rn.f32.s32 %0, %1;\n" : "=f"(r) : "r"(v));
+  return r;
+}
+
+// Fold a group's dots `dot` into the f32 sums with its scale row (`srow`:
+// this thread's first pair of f32 scales; pairs 4 apart): acc =
+// fma(float(dot), s, acc), one rounding (the plain version rounds the
+// product, then the sum: the two differ by at most half an ulp of the sum
+// per group). Accumulator i of thread (warp w, lane l): row w * 16 + l / 4
+// (+ 8 for i % 4 >= 2), column 8 (i / 4) + 2 (l % 4) (+ 1 for odd i).
+__device__ __forceinline__ void w8a8_fold(float (&acc)[64],
+                                          const int (&dot)[64],
+                                          const float2* srow) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 sc = srow[4 * j];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[4 * j + e] = __fmaf_rn(s32_to_f32(dot[4 * j + e]),
+                                 (e & 1) ? sc.y : sc.x, acc[4 * j + e]);
+  }
+}
+
+// One step of the consumers' loop: chunk t's products into `cur` (its x8
+// stage, its K-major tile), chunk t + 1's transpose, the consumer
+// barrier once both warpgroups have finished chunk t - 1's products,
+// thread 0's refill of the stage chunk t - 1 held (its scale row was
+// copied out as f32 by its transpose), then chunk t - 1's fold from
+// `prev` while the tensor cores run chunk t. The caller alternates the
+// two sets.
+template <class Prepare, class Load>
+__device__ __forceinline__ void w8a8_step(
+    int t, int T, int (&cur)[64], const int (&prev)[64], float (&acc)[64],
+    uint32_t x_stage, uint32_t w_tile, const float2* srow,
+    Prepare& prepare, Load& load) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_s8_128(cur, make_desc(x_stage + kk * 32, 16, 1024),
+                 make_desc(w_tile + kk * 32, 16, 1024), kk > 0);
+  wgmma_commit();
+  if (t + 1 < T) prepare(t + 1);
+  wgmma_wait<1>();                        // chunk t - 1's products done
+  // The transpose's stores become visible to the next step's wgmma. After
+  // the wait, not inside the pipeline stage: there ptxas serialized the
+  // products (warning C7514).
+  fence_proxy_async();
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  // Stage (t - 1) % S is free: both warpgroups are past chunk t - 1.
+  if (threadIdx.x == 0 && t > 0 && t - 1 + kW8Stages < T)
+    load(t - 1 + kW8Stages);
+  if (t > 0) w8a8_fold(acc, prev, srow);
+}
+
+__global__ void __launch_bounds__(kW8Threads, 1)
+w8a8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
+                 const __grid_constant__ CUtensorMap w_map,
+                 const __grid_constant__ CUtensorMap s_map,
+                 const int8_t* __restrict__ x8, const float* __restrict__ xs,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
+                 int m, int K, int N, int groups_per_split, int x_tma) {
+  constexpr int S = kW8Stages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* x_s = smem;                              // [S][128 x 128 B]
+  unsigned char* wt_s = x_s + S * kW8Bytes;               // [3][128 n x 128 k]
+  unsigned char* w_s = wt_s + kWtTiles * kW8Bytes;        // [S][128 k x 128 n]
+  unsigned char* sc_s = w_s + S * kW8Bytes;               // [S][128] bf16
+  float* sf_s = reinterpret_cast<float*>(sc_s + S * kW8SBytes);  // f32 rows
+  uint64_t* full = reinterpret_cast<uint64_t*>(sf_s + S * kW8Tile);
+
+  // Tile order as quant_gemm_kernel's: groups of 8 row tiles, column by
+  // column.
+  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
+  const int per_group = 8 * gridDim.x;
+  const int first_m = lin / per_group * 8;
+  const int group_m = min(static_cast<int>(gridDim.y) - first_m, 8);
+  const int m0 = (first_m + lin % per_group % group_m) * kW8Tile;
+  const int n0 = lin % per_group / group_m * kW8Tile;
+  const int g_begin = blockIdx.z * groups_per_split;
+  const int T = max(0, min(K / kW8Tile, g_begin + groups_per_split) - g_begin);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+
+  // Chunk t (group g_begin + t) into stage t % S.
+  auto load = [&](int t) {
+    const int slot = t % S;
+    const int g = g_begin + t;
+    uint64_t* bar = &full[slot];
+    mbar_expect_tx(bar, kW8Bytes + kW8SBytes + (x_tma ? kW8Bytes : 0));
+    if (x_tma) tma_load(x_s + slot * kW8Bytes, &x_map, bar, g * kW8Tile, m0);
+    tma_load(w_s + slot * kW8Bytes, &w_map, bar, n0, g * kW8Tile);
+    tma_load(sc_s + slot * kW8SBytes, &s_map, bar, n0, g);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < min(S, T); ++t) load(t);
+  }
+  __syncthreads();
+
+  // The transpose: warp c takes rows 16c .. 16c + 15 of the chunk, lane q
+  // columns 4q .. 4q + 3 (one 32-bit word of each row: a warp reads whole
+  // 128-byte rows). Four 4 x 4 byte transposes give the 16 k bytes of
+  // each of its 4 columns, one 16-byte piece of the K-major tile each.
+  // Lane q starts at column 4q + rot, rot = (q / 2) % 4, so that the 8
+  // lanes of a quarter warp store to 8 distinct 16-byte bank groups.
+  const int c16 = tid >> 5, q = tid & 31, rot = (q >> 1) & 3;
+  auto pick = [](int j0, int j1) {   // bytes j0 and j1 of two words
+    return static_cast<uint32_t>(j0 | (4 + j0) << 4 | j1 << 8 |
+                                 (4 + j1) << 12);
+  };
+  const uint32_t sel01 = pick(rot, (rot + 1) & 3);
+  const uint32_t sel23 = pick((rot + 2) & 3, (rot + 3) & 3);
+  int st_off[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int n = 4 * q + ((s + rot) & 3);
+    st_off[s] = n * 128 + ((c16 ^ (n & 7)) << 4);
+  }
+  // Chunk t's stage in place and its qs8 transposed into K-major tile
+  // t % 3; x8 stored by the consumers where TMA could not load it (an
+  // unaligned view). The caller fences the stores for the async proxy.
+  auto prepare = [&](int t) {
+    const int slot = t % S;
+    mbar_wait(&full[slot], (t / S) & 1);
+    if (!x_tma) {
+      unsigned char* xd = x_s + slot * kW8Bytes;
+      const int r = tid >> 1, k0 = (g_begin + t) * kW8Tile;
+#pragma unroll
+      for (int c4 = 0; c4 < 4; ++c4) {
+        const int cc = 4 * (tid & 1) + c4;    // 16-byte piece of the row
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (m0 + r < m) {
+          const unsigned char* src = reinterpret_cast<const unsigned char*>(
+              x8 + static_cast<size_t>(m0 + r) * K + k0 + cc * 16);
+#pragma unroll
+          for (int b = 0; b < 16; ++b)
+            w[b >> 2] |= static_cast<uint32_t>(src[b]) << (8 * (b & 3));
+        }
+        *reinterpret_cast<uint4*>(xd + swz(r, cc)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    // The scale row as f32, for the fold.
+    if (tid < kW8Tile)
+      sf_s[slot * kW8Tile + tid] = __bfloat162float(
+          reinterpret_cast<const __nv_bfloat16*>(sc_s +
+                                                 slot * kW8SBytes)[tid]);
+    const unsigned char* ws = w_s + slot * kW8Bytes + c16 * 16 * 128 + 4 * q;
+    unsigned char* wt = wt_s + (t % kWtTiles) * kW8Bytes;
+    uint32_t o[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t a = ld32(ws + (4 * i) * 128);
+      const uint32_t b = ld32(ws + (4 * i + 1) * 128);
+      const uint32_t c = ld32(ws + (4 * i + 2) * 128);
+      const uint32_t d = ld32(ws + (4 * i + 3) * 128);
+      const uint32_t t0 = __byte_perm(a, b, sel01);
+      const uint32_t t1 = __byte_perm(a, b, sel23);
+      const uint32_t t2 = __byte_perm(c, d, sel01);
+      const uint32_t t3 = __byte_perm(c, d, sel23);
+      o[0][i] = __byte_perm(t0, t2, 0x5410);
+      o[1][i] = __byte_perm(t0, t2, 0x7632);
+      o[2][i] = __byte_perm(t1, t3, 0x5410);
+      o[3][i] = __byte_perm(t1, t3, 0x7632);
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      *reinterpret_cast<uint4*>(wt + st_off[s]) =
+          make_uint4(o[s][0], o[s][1], o[s][2], o[s][3]);
+  };
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int sa[64], sb[64];
+  const uint32_t x_base = smem_u32(x_s) + wg * 64 * 128;
+  const uint32_t wt_base = smem_u32(wt_s);
+  // This thread's first scale pair in chunk t's stage.
+  auto srow = [&](int t) {
+    return reinterpret_cast<const float2*>(sf_s + (t + S) % S * kW8Tile) +
+           (tid & 3);
+  };
+  auto x_stage = [&](int t) { return x_base + (t % S) * kW8Bytes; };
+  auto w_tile = [&](int t) { return wt_base + (t % kWtTiles) * kW8Bytes; };
+  // The two s32 sets alternate by step, so the loop runs an even number
+  // of steps: an odd T adds a last step whose products (on a consumed
+  // stage) are never folded.
+  if (T > 0) prepare(0);
+  fence_proxy_async();
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  for (int t = 0; t < T; t += 2) {
+    w8a8_step(t, T, sa, sb, acc, x_stage(t), w_tile(t), srow(t - 1),
+              prepare, load);
+    w8a8_step(t + 1, T, sb, sa, acc, x_stage(t + 1), w_tile(t + 1), srow(t),
+              prepare, load);
+  }
+  wgmma_wait<0>();
+  if (T > 0 && T % 2 == 0) w8a8_fold(acc, sb, srow(T - 1));
+
+  const int lt = tid & 127;
+  const int row = m0 + wg * 64 + (lt >> 5) * 16 + ((lt & 31) >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + h * 8;
+    if (r >= m) continue;
+    const float rs = partial == nullptr ? xs[r] : 1.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + j * 8 + (lt & 3) * 2;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (partial != nullptr) {
+        *reinterpret_cast<float2*>(
+            partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
+            make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + static_cast<size_t>(r) * N + col) =
+            __floats2bfloat162_rn(v0 * rs, v1 * rs);
+      }
+    }
+  }
+}
+
+// K15 at m > 64: grid (N / 128, m / 128, splits); a split covers
+// groups_per_split whole 128-row groups and writes f32 partials, which
+// split_reduce_kernel adds in split order and multiplies by xs.
+int launch_w8a8(const void* x8, const float* xs, const void* qs8,
+                const void* s128, void* out, float* partial, int m, int K,
+                int N, int splits, cudaStream_t stream) {
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  if (splits < 1 || K % kW8Tile != 0 || N % kW8Tile != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool allowed = false;
+  if (!allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        w8a8_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kW8SmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = true;
+  }
+  const int G = K / kW8Tile;
+  const int gps = (G + splits - 1) / splits;
+  constexpr auto kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const int x_tma = reinterpret_cast<uintptr_t>(x8) % 16 == 0;
+  CUtensorMap x_map{}, w_map{}, s_map{};
+  bool ok = !x_tma || tensor_map(&x_map, kU8, 1, x8, K, m, kW8Tile, kW8Tile,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+  ok = ok && tensor_map(&w_map, kU8, 1, qs8, N, K, kW8Tile, kW8Tile,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  ok = ok && tensor_map(&s_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, s128, N,
+                        G, kW8Tile, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  float* part = splits > 1 ? partial : nullptr;
+  const dim3 grid(N / kW8Tile, (m + kW8Tile - 1) / kW8Tile, splits);
+  w8a8_gemm_kernel<<<grid, kW8Threads, kW8SmemBytes, stream>>>(
+      x_map, w_map, s_map, static_cast<const int8_t*>(x8), xs,
+      static_cast<__nv_bfloat16*>(out), part, m, K, N, gps, x_tma);
+  if (splits > 1) {
+    const size_t total = static_cast<size_t>(m) * N;
+    const int threads = 256;
+    split_reduce_kernel<__nv_bfloat16>
+        <<<static_cast<unsigned>((total + threads - 1) / threads), threads,
+           0, stream>>>(partial, xs, nullptr,
                         static_cast<__nv_bfloat16*>(out), splits, m, N);
   }
   return static_cast<int>(cudaGetLastError());
@@ -1538,9 +1981,10 @@ int launch(const void* x, const float* xs, const void* qweight,
            int block_m, cudaStream_t stream) {
   if constexpr (!A8) {
     if (block_m == 128)
-      return gemm::launch_gemm<BITS, AWQ>(x, qweight, qzeros, scales, out,
-                                          partial, m, K, N, gs, splits,
-                                          stream);
+      return gemm::launch_gemm<BITS, AWQ ? gemm::Dec::kAwq
+                                         : gemm::Dec::kGptq>(
+          x, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
+          stream);
   }
   const int G = K / gs;
   const int gps = (G + splits - 1) / splits;
@@ -1561,12 +2005,16 @@ int launch(const void* x, const float* xs, const void* qweight,
 
 // GGUF and K17: the split unit is 64 rows (A16) or one scale group (A8),
 // as the wrapper's `_tiling` counted them; cs, K17's column scales (G 0).
+// K14 and K15 take only the 16-64-row tiles here: at m > 64 they run
+// quant_gemm_kernel<8, kI8g> and w8a8_gemm_kernel.
 template <int G, bool A8>
 int launch_int8(const void* x, const float* xs, const void* qs,
                 const void* scales, void* out, float* partial, int m, int K,
                 int N, int splits, int block_m, cudaStream_t stream,
                 const float* cs = nullptr) {
-  if (m > 0 && (K % (A8 ? G : kChunk) != 0 || N % kBN != 0))
+  constexpr bool kSkinnyOnly = A8 || G == 16;
+  if (m > 0 && (K % (A8 ? G : kChunk) != 0 || N % kBN != 0 ||
+                (kSkinnyOnly && block_m == 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kUnitChunks = A8 ? G / kChunk : 1;
   const int units = K / (kChunk * kUnitChunks);
@@ -1582,8 +2030,8 @@ int launch_int8(const void* x, const float* xs, const void* qs,
               static_cast<__nv_bfloat16*>(out), part, m, K, N,
               per * kUnitChunks, cs);
         };
-        if constexpr (!A8 && TL::BM == 128) {
-          go(int8_mma_kernel_2blk<TL, G>);
+        if constexpr (TL::BM == 128) {
+          if constexpr (!kSkinnyOnly) go(int8_mma_kernel_2blk<TL, G>);
         } else {
           go(int8_mma_kernel<TL, G>);
         }
@@ -1659,7 +2107,15 @@ quant8_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
 // Dynamic shared memory per block of quant_gemm_kernel (K6 / K10) at
 // `bits` (4 or 8).
 extern "C" int quant_gemm_smem_bytes(int bits) {
-  return bits == 8 ? gemm::Cfg<8>::kSmemBytes : gemm::Cfg<4>::kSmemBytes;
+  return bits == 8 ? gemm::Cfg<8, gemm::Dec::kGptq>::kSmemBytes
+                   : gemm::Cfg<4, gemm::Dec::kGptq>::kSmemBytes;
+}
+
+// Dynamic shared memory per block of K14's (quant_gemm_kernel<8, kI8g>)
+// and K15's (w8a8_gemm_kernel) m > 64 kernels.
+extern "C" int gguf_gemm_smem_bytes(int w8a8) {
+  return w8a8 ? gemm::kW8SmemBytes
+              : gemm::Cfg<8, gemm::Dec::kI8g>::kSmemBytes;
 }
 
 // y[m, N] = x[m, K] @ dequant(W), x and scales bf16. block_m 128 is K6
@@ -1737,23 +2193,33 @@ extern "C" int gguf_q8_mm(const void* x, const void* qs, const void* d,
 }
 
 // K14: y[m, N] = x[m, K] @ bf16(qs[K, N] * d16[K / 16, N]), grouped int8.
+// block_m 128 is quant_gemm_kernel<8, kI8g> (`splits` runs of 64-row
+// chunks, then split_reduce_kernel); 16, 32 and 64 the skinny tiles.
 extern "C" int gguf_i8g_mm(const void* x, const void* qs, const void* d16,
                            void* out, float* partial, int m, int K, int N,
                            int splits, int block_m, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_m == 128)
+    return gemm::launch_gemm<8, gemm::Dec::kI8g>(
+        x, qs, nullptr, d16, out, partial, m, K, N, gemm::kBK, splits, st);
   return launch_int8<16, false>(x, nullptr, qs, d16, out, partial, m, K, N,
-                                splits, block_m,
-                                static_cast<cudaStream_t>(stream));
+                                splits, block_m, st);
 }
 
 // K15: y[m, N] = bf16(xs[m] * sum_g s128[g] * (x8[m, g] . qs8[g])), x8
-// int8 rows from quant8, 128-row groups.
+// int8 rows from quant8, 128-row groups. block_m 128 is w8a8_gemm_kernel
+// (`splits` runs of groups, then split_reduce_kernel); 16, 32 and 64 the
+// skinny tiles.
 extern "C" int gguf_w8a8_mm(const void* x8, const float* xs, const void* qs8,
                             const void* s128, void* out, float* partial,
                             int m, int K, int N, int splits, int block_m,
                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_m == 128)
+    return gemm::launch_w8a8(x8, xs, qs8, s128, out, partial, m, K, N,
+                             splits, st);
   return launch_int8<128, true>(x8, xs, qs8, s128, out, partial, m, K, N,
-                                splits, block_m,
-                                static_cast<cudaStream_t>(stream));
+                                splits, block_m, st);
 }
 
 // K12: y[m, N] = x[m, K] @ bf16(q * dl - ml), GGUF's exact Q4_K form: 4-bit

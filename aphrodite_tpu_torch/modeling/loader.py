@@ -12,7 +12,11 @@ integer range, so the codes are random bit patterns; other integers
 zero: index-like ones (g_idx) and the int8 method's `weight`, as in the
 JAX package. Checkpoint
 formats read local files; `safetensors` is imported only when a
-safetensors checkpoint is asked for. A single-file `.gguf` checkpoint
+safetensors checkpoint is asked for. `load_format="npcache"` converts
+the `*.bin` files once, under a file lock, into a numpy cache beside
+them (`np/`, one `.npy` per tensor and a `weight_names.json` manifest;
+bf16 tensors stored as float32, as the JAX package's cache holds them)
+and serves this and every later load from it memory-mapped. A single-file `.gguf` checkpoint
 is read by `modeling/gguf.py`: with quantization="gguf" its
 block-quantized projections stay packed (`RawGGUF`, repacked by the
 GGUF linear method), otherwise everything dequantizes at load and the
@@ -21,6 +25,7 @@ model runs dense. Integer tensors are never cast to the model dtype.
 from __future__ import annotations
 
 import glob
+import json
 import os
 from typing import Dict, Iterator, Tuple
 
@@ -84,6 +89,65 @@ def _gguf_weights(path: str, at_rest: bool) -> Iterator[Tuple[str, object]]:
             torch.from_numpy(np.array(arr))
 
 
+def _torch_bin_weights(model_path: str
+                       ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, CPU tensor) of every `*.bin` file, one file at a time."""
+    for path in sorted(glob.glob(os.path.join(model_path, "*.bin"))):
+        yield from torch.load(path, map_location="cpu",
+                              weights_only=True).items()
+
+
+class _file_lock:
+    """An advisory flock on `path`, held inside the `with` block (the
+    JAX package's lock, copied)."""
+
+    def __init__(self, path: str) -> None:
+        self._path = path
+        self._fd = None
+
+    def __enter__(self):
+        import fcntl
+        self._fd = open(self._path, "w")
+        fcntl.flock(self._fd, fcntl.LOCK_EX)
+        return self
+
+    def __exit__(self, *exc):
+        import fcntl
+        fcntl.flock(self._fd, fcntl.LOCK_UN)
+        self._fd.close()
+
+
+def _np_cache_iterator(model_path: str
+                       ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Stream from (building on first use) the numpy cache of a `*.bin`
+    checkpoint, `<model_path>/np` (the JAX package's
+    `hf_loader._np_cache_iterator`). The cache is written once, under
+    the lock, by whichever process gets there first; bf16 tensors go in
+    as float32 (numpy has no bf16). Every load reads the `.npy` files
+    memory-mapped (copy-on-write, so the tensors are writable and the
+    files stay as written)."""
+    cache_dir = os.path.join(model_path, "np")
+    manifest = os.path.join(cache_dir, "weight_names.json")
+    os.makedirs(cache_dir, exist_ok=True)
+    with _file_lock(os.path.join(cache_dir, "convert.lock")):
+        if not os.path.exists(manifest):
+            names = []
+            for name, tensor in _torch_bin_weights(model_path):
+                if tensor.dtype == torch.bfloat16:
+                    tensor = tensor.float()
+                np.save(os.path.join(cache_dir, name.replace("/", "--")),
+                        tensor.numpy())
+                names.append(name)
+            with open(manifest, "w") as f:
+                json.dump(names, f)
+    with open(manifest) as f:
+        names = json.load(f)
+    for name in names:
+        yield name, torch.from_numpy(np.load(
+            os.path.join(cache_dir, name.replace("/", "--") + ".npy"),
+            mmap_mode="c"))
+
+
 def _weights_iterator(model_path: str, load_format: str,
                       gguf_at_rest: bool = False
                       ) -> Iterator[Tuple[str, object]]:
@@ -98,14 +162,19 @@ def _weights_iterator(model_path: str, load_format: str,
         for path in files:
             yield from load_file(path).items()
         return
+    has_bins = bool(glob.glob(os.path.join(model_path, "*.bin")))
+    if load_format == "npcache":
+        if not (has_bins or os.path.exists(
+                os.path.join(model_path, "np", "weight_names.json"))):
+            raise ValueError(f"npcache needs *.bin files (or an existing "
+                             f"np/ cache) in {model_path}.")
+        yield from _np_cache_iterator(model_path)
+        return
     if load_format in ("auto", "pt"):
-        bins = sorted(glob.glob(os.path.join(model_path, "*.bin")))
-        if not bins:
+        if not has_bins:
             raise ValueError(f"No weight files (*.safetensors / *.bin) "
                              f"found in {model_path}.")
-        for path in bins:
-            yield from torch.load(path, map_location="cpu",
-                                  weights_only=True).items()
+        yield from _torch_bin_weights(model_path)
         return
     raise ValueError(f"Unsupported load format {load_format!r} for "
                      f"{model_path}")

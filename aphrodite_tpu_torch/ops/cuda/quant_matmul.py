@@ -32,9 +32,14 @@ Port of the GPTQ, AWQ and GGUF parts of
   products with f32 sums; `gguf_w8a8_matmul` (K15, Pallas
   `_gguf_w8a8_kernel`; the turbo form, G 128) runs K9 on x, then per
   128-row group an exact int32 dot times the group's scale row added in
-  f32 in group order, times xs at the end. One kernel takes every m
-  (the Pallas wrappers have no skinny variant): at m <= 64 it covers
-  16-64 rows per block and splits K like K7, else 128 rows.
+  f32 in group order, times xs at the end. At m <= 64 (the Pallas
+  wrappers have no skinny variant) the block covers 16-64 rows and
+  splits K like K7 (K13 above too, with 128 rows). K14 and K15 at
+  m > 64 take the warpgroup-MMA kernels: K14 K6's `quant_gemm_kernel`
+  with a byte decoder (128 x 256 tiles), K15 `w8a8_gemm_kernel` (s8
+  wgmma, a per-group fold, 128 x 128 tiles), each split over runs of
+  whole 64-row chunks (K14) or 128-row groups (K15) by `gemm_plan`
+  where the tiles fall short of the SMs.
 - `gguf_q4k_matmul` (K12, Pallas `_gguf_q4k_kernel`; GGUF's exact Q4_K
   form): 4-bit codes qweight [K/8, N] (8 along K), w = q * dl - ml with
   affine rows dl, ml [K/32, N] per 32 input rows, taken in f32 and
@@ -97,18 +102,21 @@ QUANTIZE_ACTIVATIONS_INT8_LAUNCHES = build.launch_counter(
 GGUF_Q8_MATMUL_LAUNCHES = build.launch_counter("gguf_q8_matmul")
 GGUF_I8G_MATMUL_LAUNCHES = build.launch_counter("gguf_i8g_matmul")
 GGUF_W8A8_MATMUL_LAUNCHES = build.launch_counter("gguf_w8a8_matmul")
+#: K14's and K15's m > 64 kernels (the counters above count m <= 64).
+GGUF_I8G_GEMM_LAUNCHES = build.launch_counter("gguf_i8g_gemm")
+GGUF_W8A8_GEMM_LAUNCHES = build.launch_counter("gguf_w8a8_gemm")
 GGUF_Q4K_MATMUL_LAUNCHES = build.launch_counter("gguf_q4k_matmul")
 SQUEEZELLM_MATMUL_LAUNCHES = build.launch_counter("squeezellm_matmul")
 SQUEEZELLM_MATMUL_F32_LAUNCHES = build.launch_counter(
     "squeezellm_matmul_f32")
 INT8_MATMUL_LAUNCHES = build.launch_counter("int8_matmul")
-#: The reduce after a split K6 or K10 launch (`gemm_plan`).
+#: The reduce after a split K6, K10, K14 or K15 launch (`gemm_plan`).
 QUANT_GEMM_REDUCE_LAUNCHES = build.launch_counter("quant_gemm_split_reduce")
 
 STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
 BLOCK_N = 128              # output columns per block
-GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10's output tile
-_SM_COUNT = 132            # H100 SXM
+GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K14's output tile
+W8A8_BLOCK_N = 128         # K15's at m > 64: 128 x 128
 _BLOCKS_PER_SM = 4         # split-K target: this many blocks per SM
 # AWQ: column 8j + e of a packed word sits at shift 4 * AWQ_ORDER[e].
 AWQ_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)
@@ -427,30 +435,33 @@ def _check(x, qweight, qzeros, scales, bits, gs, what: str,
     return m, K, N, gs
 
 
-def gemm_plan(m: int, K: int, N: int, gs: int, sms: int
-              ) -> Tuple[int, int]:
-    """(splits, groups per split) of K6 / K10's grid (N / 256, m / 128,
-    splits), from shapes and the card's SM count alone (no host sync, so
-    a CUDA graph can capture the launch). Where the 128 x 256 output
-    tiles fall short of the SMs, the quantization groups are split into
-    contiguous runs so that tiles x splits comes near one block per SM;
-    each split starts on a group, none is empty, and a second kernel
-    adds the splits' f32 partial sums in split order."""
+def gemm_plan(m: int, K: int, N: int, gs: int, sms: int,
+              block_n: int = GEMM_BLOCK_N) -> Tuple[int, int]:
+    """(splits, groups per split) of a warpgroup-MMA kernel's grid
+    (N / block_n, m / 128, splits): K6 / K10 (groups of gs rows), K14
+    (64-row chunks) and K15 (128-row groups, block_n 128), from shapes
+    and the card's SM count alone (no host sync, so a CUDA graph can
+    capture the launch). Where the 128 x block_n output tiles fall short
+    of the SMs, the groups are split into contiguous runs so that tiles
+    x splits comes near one block per SM; each split starts on a group,
+    none is empty, and a second kernel adds the splits' f32 partial sums
+    in split order."""
     groups = K // gs
-    tiles = -(-m // GEMM_BLOCK_M) * -(-N // GEMM_BLOCK_N)
+    tiles = -(-m // GEMM_BLOCK_M) * -(-N // block_n)
     splits = max(1, min(groups, sms // tiles))
     per = -(-groups // splits)
     return -(-groups // per), per
 
 
-def _tiling(m: int, K: int, N: int, gs: int, stream: bool
+def _tiling(m: int, K: int, N: int, gs: int, stream: bool, sms: int
             ) -> Tuple[int, int]:
-    """(block_m, splits) of the launchers that tile 128 columns. The
-    tiled a8 kernels (K8/K11) take 128 rows and no split (K6 and K10
-    follow `gemm_plan`). The skinny kernel (K7) takes the least of
-    16/32/64 rows that covers m, and splits the quantization groups over
-    enough blocks to fill the SMs, but no further than keeps the f32
-    partial sums (written and read once) below the weight's own bytes."""
+    """(block_m, splits) of the launchers that tile 128 columns, on a
+    card of `sms` SMs. The tiled a8 kernels (K8/K11) take 128 rows and
+    no split (K6 and K10 follow `gemm_plan`). The skinny kernel (K7)
+    takes the least of 16/32/64 rows that covers m, and splits the
+    quantization groups over enough blocks to give each SM four, but no
+    further than keeps the f32 partial sums (written and read once)
+    below the weight's own bytes."""
     if not stream:
         return 128, 1
     if m > STREAM_M_MAX:
@@ -459,7 +470,7 @@ def _tiling(m: int, K: int, N: int, gs: int, stream: bool
     block_m = next(b for b in (16, 32, 64) if m <= b)
     groups = K // gs
     n_tiles = N // BLOCK_N
-    want = -(-_SM_COUNT * _BLOCKS_PER_SM // n_tiles)
+    want = -(-sms * _BLOCKS_PER_SM // n_tiles)
     splits = max(1, min(groups, want, K // (16 * m)))
     per = -(-groups // splits)
     return block_m, -(-groups // per)
@@ -477,7 +488,8 @@ def _launch(a8: bool, x, xs, qweight, qzeros, scales, *, bits: int,
         block_m = GEMM_BLOCK_M
         splits, _ = gemm_plan(m, K, N, gs, build.sm_count(x.device))
     else:
-        block_m, splits = _tiling(m, K, N, gs, stream)
+        block_m, splits = _tiling(m, K, N, gs, stream,
+                                  build.sm_count(x.device))
     out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((splits, m, N), dtype=torch.float32,
                           device=x.device) if splits > 1 else None
@@ -516,6 +528,15 @@ def gemm_smem_bytes(bits: int) -> int:
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
     return int(fn(bits))
+
+
+def gguf_gemm_smem_bytes(w8a8: bool) -> int:
+    """The dynamic shared memory per block of K14's (False) or K15's
+    (True) m > 64 kernel, as its launcher asks for it."""
+    fn = build.library("quant_matmul").gguf_gemm_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return int(fn(int(w8a8)))
 
 
 def _resolve_stream(stream, m: int) -> bool:
@@ -587,7 +608,8 @@ def gptq_matmul_a8(x: torch.Tensor, qweight: torch.Tensor,
     m, K, N, gs = _check(x, qweight, qzeros, scales, bits, group_size,
                          "gptq_matmul_a8")
     use_stream = _resolve_stream(stream, m)
-    _tiling(m, K, N, gs, use_stream)          # raise before quantizing
+    _tiling(m, K, N, gs, use_stream,          # raise before quantizing
+            build.sm_count(x.device))
     x8, xs = quantize_activations_int8(x)
     return _launch(True, x8, xs, qweight, qzeros, scales, bits=4, gs=gs,
                    stream=use_stream,
@@ -628,7 +650,8 @@ def awq_matmul_a8(x: torch.Tensor, qweight: torch.Tensor,
     m, K, N, gs = _check(x, qweight, qzeros, scales, 4, group_size,
                          "awq_matmul_a8", awq=True)
     use_stream = _resolve_stream(stream, m)
-    _tiling(m, K, N, gs, use_stream)          # raise before quantizing
+    _tiling(m, K, N, gs, use_stream,          # raise before quantizing
+            build.sm_count(x.device))
     x8, xs = quantize_activations_int8(x)
     return _launch(True, x8, xs, qweight, qzeros, scales, bits=4,
                    gs=gs, stream=use_stream,
@@ -671,7 +694,8 @@ def _tiled_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
     rows and the K range is split over blocks in units of `unit` rows,
     as `_tiling` splits K7's; above, 128-row blocks and no split."""
     m, K = x.shape
-    block_m, splits = _tiling(m, K, N, unit, m <= STREAM_M_MAX)
+    block_m, splits = _tiling(m, K, N, unit, m <= STREAM_M_MAX,
+                              build.sm_count(x.device))
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     partial = torch.empty((splits, m, N), dtype=torch.float32,
                           device=x.device) if splits > 1 else None
@@ -688,15 +712,36 @@ def _tiled_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
 
 
 def _gguf_launch(entry: str, x, xs, qs, scales, *,
-                 counter: build.LaunchCounter, what: str) -> torch.Tensor:
+                 counter: build.LaunchCounter, what: str,
+                 gemm_counter: Optional[build.LaunchCounter] = None
+                 ) -> torch.Tensor:
     """One launch of a GGUF entry point on (bf16 x) or, with xs, (int8
     rows x and their scales xs), split in units of 64 rows (K13, K14) or
-    of a 128-row scale group (K15)."""
+    of a 128-row scale group (K15). With `gemm_counter` (K14, K15) an
+    m above 64 takes the warpgroup-MMA kernel, planned by `gemm_plan`
+    (a split reduce after it where it splits), and counts there."""
     ptrs = (x.data_ptr(),) + ((xs.data_ptr(),) if xs is not None else ()) \
         + (qs.data_ptr(), scales.data_ptr())
-    return _tiled_launch(entry, x, ptrs, qs.shape[1],
-                         128 if xs is not None else 64, torch.bfloat16,
-                         counter=counter, what=what)
+    unit = 128 if xs is not None else 64
+    m, K = x.shape
+    N = qs.shape[1]
+    if gemm_counter is None or m <= STREAM_M_MAX:
+        return _tiled_launch(entry, x, ptrs, N, unit, torch.bfloat16,
+                             counter=counter, what=what)
+    splits, _ = gemm_plan(m, K, N, unit, build.sm_count(x.device),
+                          block_n=W8A8_BLOCK_N if xs is not None
+                          else GEMM_BLOCK_N)
+    out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((splits, m, N), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None
+    ptrs = ptrs + (out.data_ptr(), build.ptr(partial))
+    err = _entry(entry, len(ptrs), 5)(*ptrs, m, K, N, splits, GEMM_BLOCK_M,
+                                      build.stream_of(x))
+    gemm_counter.add()
+    if splits > 1:
+        QUANT_GEMM_REDUCE_LAUNCHES.add()
+    build.check(err, what)
+    return out
 
 
 def gguf_q8_matmul(x: torch.Tensor, qs: torch.Tensor,
@@ -720,7 +765,8 @@ def gguf_i8g_matmul(x: torch.Tensor, qs: torch.Tensor,
     _check_gguf(x, qs, d16, 16, "gguf_i8g_matmul")
     return _gguf_launch("gguf_i8g_mm", x, None, qs, d16,
                         counter=GGUF_I8G_MATMUL_LAUNCHES,
-                        what="gguf_i8g_matmul")
+                        what="gguf_i8g_matmul",
+                        gemm_counter=GGUF_I8G_GEMM_LAUNCHES)
 
 
 def gguf_w8a8_launch(x8: torch.Tensor, xs: torch.Tensor, qs8: torch.Tensor,
@@ -737,7 +783,8 @@ def gguf_w8a8_launch(x8: torch.Tensor, xs: torch.Tensor, qs8: torch.Tensor,
                          f"[{m}, 1], got {tuple(xs.shape)} {xs.dtype}")
     return _gguf_launch("gguf_w8a8_mm", x8, xs, qs8, s128,
                         counter=GGUF_W8A8_MATMUL_LAUNCHES,
-                        what="gguf_w8a8_matmul")
+                        what="gguf_w8a8_matmul",
+                        gemm_counter=GGUF_W8A8_GEMM_LAUNCHES)
 
 
 def gguf_w8a8_matmul(x: torch.Tensor, qs8: torch.Tensor,

@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
-"""K6 and K10's kernel time in checkouts of the repository, on one CUDA
-card, all taken with this checkout's `chip_smoke.Timer` (L2 flushed, the
-stream held by a device spin until the call is enqueued, so the
-wrapper's host time stays out; median of 20).
+"""The prompt-round quantized matmuls' kernel time in checkouts of the
+repository, on one CUDA card, all taken with this checkout's
+`chip_smoke.Timer` (L2 flushed, the stream held by a device spin until
+the call is enqueued, so the wrapper's host time stays out; median of
+20).
 
-    python3 aphrodite_tpu_torch/tools/time_quant_matmul.py [TREE ...]
+    python3 aphrodite_tpu_torch/tools/time_quant_matmul.py \\
+        [--kernels K6,K10,K14,K15] [TREE ...]
 
 Each TREE (default: this checkout) is a checkout of the repository, for
 example an earlier commit unpacked with `git archive` into a directory
 that .gitignore lists. Each is timed in a process of its own, with its
 own package and kernels (built into TREE/build/kernels), on the same
-inputs (this checkout's `chip_smoke.quant_weights`, 4-bit codes in
-groups of 128, bf16 x from a seed): `gptq_matmul` (K6) and `awq_matmul`
-(K10) with `stream=False`, at Mistral-7B's four projections and m 72,
-128, 512 and 4096. To compare two trees within one call give them as
-A B B A. Prints the card's name and power limit, then one JSON object
-per tree, kernel, m and projection, {"tree", "kernel", "m", "proj",
-"ms"}, and one per tree, kernel and m with the sum over the four
-projections (one layer), {"tree", "kernel", "m", "layer_ms"}.
+inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096:
+- K6 and K10: `gptq_matmul` and `awq_matmul` with `stream=False` on
+  this checkout's `chip_smoke.quant_weights` (4-bit codes in groups of
+  128) and bf16 x from a seed;
+- K14: `gguf_i8g_matmul` on `chip_smoke.gguf_weights` (Q6_K-shaped
+  codes, a scale row per 16 rows);
+- K15: `gguf_w8a8_launch` on K9's rows of the same x and
+  `chip_smoke.gguf_weights` (a scale row per 128 rows); beside it
+  `torch._int_mm` on the same int8 shapes (the weight in column-major
+  order, copied before the timing), a floor for int8 tensor-core
+  throughput on this card (no group scales: no yardstick of the same
+  function).
+`--kernels` picks some of them (default: all four). To compare two
+trees within one call give them as A B B A. Prints the card's name and
+power limit, then one JSON object per tree, kernel, m and projection,
+{"tree", "kernel", "m", "proj", "ms"}, and one per tree, kernel and m
+with the sum over the four projections (one layer), {"tree", "kernel",
+"m", "layer_ms"}.
 """
 from __future__ import annotations
 
@@ -31,9 +43,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 MS = (72, 128, 512, 4096)
+KERNELS = ("K6", "K10", "K14", "K15")
 
 
-def time_tree(tree: str) -> None:
+def time_tree(tree: str, kernels) -> None:
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_timer", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -42,36 +55,69 @@ def time_tree(tree: str) -> None:
     import torch
     from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
     timer = smoke.Timer(torch)
-    gs = smoke.GPTQ_GS
-    for kernel, awq in (("K6", False), ("K10", True)):
-        fn = qmm.awq_matmul if awq else qmm.gptq_matmul
-        kw = dict(group_size=gs) if awq else dict(bits=4, group_size=gs)
+
+    def emit(kernel, layer):
+        for m in MS:
+            print(json.dumps({"tree": tree, "kernel": kernel, "m": m,
+                              "layer_ms": layer[m]}), flush=True)
+
+    for kernel in kernels:
         layer = dict.fromkeys(MS, 0.0)
+        int_mm = dict.fromkeys(MS, 0.0)
         for seed, (proj, K, N) in enumerate(smoke.GPTQ_PROJ):
-            qw, qz, sc = smoke.quant_weights(torch, K, N, 4, 300 + seed, awq)
+            if kernel in ("K6", "K10"):
+                awq = kernel == "K10"
+                w = smoke.quant_weights(torch, K, N, 4, 300 + seed, awq)
+                kw = dict(group_size=smoke.GPTQ_GS) if awq else \
+                    dict(bits=4, group_size=smoke.GPTQ_GS)
+                fn = qmm.awq_matmul if awq else qmm.gptq_matmul
+            else:
+                key = kernel.lower()
+                w = smoke.gguf_weights(torch, key, K, N, seed * 10 +
+                                       smoke.GGUF_KERNELS[key][1])
+                if kernel == "K15":
+                    # _int_mm's operand in the layout cuBLAS takes
+                    # without a copy (column-major), made before the
+                    # timing.
+                    w_cm = w[0].t().contiguous().t()
             gen = torch.Generator(device="cuda").manual_seed(400 + seed)
             x_all = torch.randn(max(MS), K, generator=gen,
                                 device="cuda").to(torch.bfloat16)
             for m in MS:
                 x = x_all[:m]
-                ms = timer(lambda: fn(x, qw, qz, sc, stream=False, **kw))
+                if kernel in ("K6", "K10"):
+                    ms = timer(lambda: fn(x, *w, stream=False, **kw))
+                elif kernel == "K14":
+                    ms = timer(lambda: qmm.gguf_i8g_matmul(x, *w))
+                else:
+                    x8, xs = qmm.quantize_activations_int8(x)
+                    ms = timer(lambda: qmm.gguf_w8a8_launch(x8, xs, *w))
+                    int_mm[m] += timer(lambda: torch._int_mm(x8, w_cm))
                 layer[m] += ms
                 print(json.dumps({"tree": tree, "kernel": kernel, "m": m,
                                   "proj": proj, "ms": ms}), flush=True)
-            del qw, qz, sc, x_all
+            del w, x_all
+            if kernel == "K15":
+                del w_cm
             torch.cuda.empty_cache()
-        for m in MS:
-            print(json.dumps({"tree": tree, "kernel": kernel, "m": m,
-                              "layer_ms": layer[m]}), flush=True)
+        emit(kernel, layer)
+        if kernel == "K15":
+            emit("torch._int_mm on K15's int8 shapes", int_mm)
 
 
 def main() -> int:
     args = sys.argv[1:]
-    if args[:1] == ["--one"] and len(args) == 2:
-        time_tree(args[1])
+    if args[:1] == ["--one"] and len(args) == 3:
+        time_tree(args[2], args[1].split(","))
         return 0
-    if any(a.startswith("-") for a in args):
-        print(f"usage: {sys.argv[0]} [TREE ...]", file=sys.stderr)
+    kernels = KERNELS
+    if args[:1] == ["--kernels"] and len(args) >= 2:
+        kernels = tuple(args[1].split(","))
+        args = args[2:]
+    if any(a.startswith("-") for a in args) or \
+            not set(kernels) <= set(KERNELS):
+        print(f"usage: {sys.argv[0]} [--kernels {','.join(KERNELS)}] "
+              "[TREE ...]", file=sys.stderr)
         return 2
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -79,7 +125,7 @@ def main() -> int:
         timeout=60, check=True).stdout.strip(), flush=True)
     for tree in args or [HERE]:
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--one", tree]).returncode
+                             "--one", ",".join(kernels), tree]).returncode
         if rc:
             print(f"{tree}: exit {rc}", file=sys.stderr)
             return rc

@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero:
 2. Build: compiles every kernel source under `aphrodite_tpu_torch/csrc/`
    with nvcc for sm_90a (one process per source, in parallel) and prints
    each source's `-Xptxas -v` report on one line, then K1's dynamic
-   shared memory per block by page type and slot width, and K6 / K10's
-   (`quant_gemm_kernel`) at 4 and 8 bits.
+   shared memory per block by page type and slot width, K6 / K10's
+   (`quant_gemm_kernel`) at 4 and 8 bits, and that of K14's and K15's
+   m > 64 kernels.
 3. Kernels vs plain versions at the main path's shapes (Hq 32, Hkv 8,
    head_dim 128, bf16, 16- and 32-token pages):
    - paged decode attention, K1 (the ragged grid, called with the
@@ -132,22 +133,31 @@ Phases, in order; any failure exits non-zero:
    request (temperature 0.8) served alone and in a batch of 8 gives the
    same tokens.
 13. GGUF kernels vs plain versions at the same four projections, m 1,
-   8, 64, 512 and 4096, through the wrappers the engine calls:
-   `gguf_q8_matmul` (K13, a bf16 scale row per 32 input rows),
-   `gguf_i8g_matmul` (K14, per 16 rows) and `gguf_w8a8_matmul` (K9,
-   then K15, per 128 rows). Weights are quantized on the card from an
-   N(0, 0.02) weight as the at-rest forms hold real ones (codes in
-   [-127, 127], K14's Q6_K-shaped in [-32, 31]). Phase 8's tolerance;
-   each case timed as phase 8 times them (K15 alone on K9's rows, with a
-   check that it equals the wrapper's output), the plain version and the
-   library yardstick (torch.matmul over the weight dequantized to bf16
-   beforehand, twice the int8 bytes) at m 8 and 4096.
+   8, 64, 512 and 4096 (K14 and K15 also at 65, 72, 128 and 256, where
+   their m > 64 kernels split the K range), through the wrappers the
+   engine calls: `gguf_q8_matmul` (K13, a bf16 scale row per 32 input
+   rows), `gguf_i8g_matmul` (K14, per 16 rows; at m > 64
+   `quant_gemm_kernel<8, kI8g>`) and `gguf_w8a8_matmul` (K9, then K15,
+   per 128 rows; at m > 64 `w8a8_gemm_kernel`). Weights are quantized on
+   the card from an N(0, 0.02) weight as the at-rest forms hold real
+   ones (codes in [-127, 127], K14's Q6_K-shaped in [-32, 31]). Phase
+   8's tolerance; at every m > 64 a control must miss it (K15's plain
+   version with its scale rows shifted by one group, K14's reading d16
+   per 32 rows). Each case timed as phase 8 times them (K15 alone on
+   K9's rows, with a check that it equals the wrapper's output), the
+   plain version and the library yardstick (torch.matmul over the
+   weight dequantized to bf16 beforehand, twice the int8 bytes) at m 8
+   and 4096; the m > 64 kernels' layer times at m 72, 128, 512 and 4096
+   are logged on one line.
 14. End to end with dummy GGUF weights (quantization="gguf", seed 0) in
    the JAX bench's three at-rest forms: the default turbo form (K9 +
    K15), BENCH_GGUF_FMT=q8_0 (K13) and BENCH_GGUF_FMT=q6_k (K14).
    Phase 4's mix at multi_step 1 in each, and the 96-request round in
-   the turbo form. Each form must launch its kernel and neither of the
-   other two, and K1, K2 and K4. The KV pool's page count is logged
+   the turbo and q6_k forms. Each form must launch its kernel and
+   neither of the other two, and K1, K2 and K4; the turbo and q6_k
+   forms their m > 64 kernel too (`gguf_w8a8_gemm`, `gguf_i8g_gemm`),
+   whose split reduce (`quant_gemm_split_reduce`) the 96-request round
+   must launch. The KV pool's page count is logged
    beside bf16's, and a batch-8 decode step profiled as in phase 9 (the
    GGUF matmuls' device time beside their weight-streaming bound).
 15. A `.gguf` file through the loader: the script writes (under the
@@ -157,7 +167,8 @@ Phases, in order; any failure exits non-zero:
    mixed group, K14), attn_output and ffn_down Q8_0 (K13), ffn_gate and
    ffn_up Q4_0 (turbo, K15). Loaded with quantization="gguf", bf16,
    skip_tokenizer_init; each bucket's at-rest form is asserted; 8 greedy
-   requests (phase 4's mix) must launch all three kernels; a prompt and 3
+   requests (phase 4's mix) must launch all three kernels (K14 and K15
+   at m > 64 too); a prompt and 3
    decode steps are held against the same model run through the plain
    versions: each GGUF matmul against its plain version on the same
    activations (phase 8's tolerance), the logits within 2e-2 of max
@@ -1019,6 +1030,11 @@ GGUF_KERNELS = {"k13": ("gguf_q8_matmul", 32, 1210),
                 "k14": ("gguf_i8g_matmul", 16, 1476),
                 "k15": ("gguf_w8a8_matmul", 128, 1551)}
 GGUF_MS = (1, 8, 64, 512, 4096)
+# K14 and K15 also at the m > 64 their split plans serve (decode batches
+# above 64, short prompt rounds).
+GEMM_MS = (65, 72, 128, 256)
+# m at which the m > 64 kernels' layer times are logged for PERF.md.
+GEMM_LOG_MS = (72, 128, 512, 4096)
 
 
 def gguf_weights(torch, key, K, N, seed):
@@ -1043,9 +1059,12 @@ def gguf_layer_bytes(key, K, N):
 
 def check_and_time_gguf(torch, qmm, timer):
     """K13, K14 and K15 against their plain versions at the Mistral-7B
-    projection shapes and m 1-4096, through the wrappers the engine
-    calls; K15 timed alone on K9's rows (checked equal to the wrapper's
-    output). Plain and library times at m 8 (decode) and 4096 (a prompt
+    projection shapes and m 1-4096 (K14 and K15 also at GEMM_MS), through
+    the wrappers the engine calls; K15 timed alone on K9's rows (checked
+    equal to the wrapper's output). At m > 64 K14 and K15 run their
+    warpgroup-MMA kernels, and each has a control that must miss the
+    tolerance (K15's scale rows shifted by one group, K14's d16 read per
+    32 rows). Plain and library times at m 8 (decode) and 4096 (a prompt
     round). Returns {key: {...}} summed over one layer's four projections
     at m 8, and the same at m 4096 under "<key>@4096"."""
     out = {}
@@ -1054,6 +1073,8 @@ def check_and_time_gguf(torch, qmm, timer):
             out[key if m == 8 else f"{key}@4096"] = dict(
                 ms=0.0, plain_ms=0.0, library_ms=0.0, bound_bytes_ms=0.0,
                 bound_ops_ms=0.0, max_abs_err=0.0)
+    layer_ms = {key: dict.fromkeys(GEMM_LOG_MS, 0.0) for key in ("k14", "k15")}
+    sms = qmm.build.sm_count("cuda")
     for seed, (proj, K, N) in enumerate(GPTQ_PROJ):
         gen = torch.Generator(device="cuda").manual_seed(300 + seed)
         x_all = torch.randn(4096, K, generator=gen, device="cuda").to(
@@ -1064,12 +1085,32 @@ def check_and_time_gguf(torch, qmm, timer):
             plain_fn = getattr(qmm, name + "_plain")
             w16 = (qs.float() * sc.float().repeat_interleave(G, dim=0)).to(
                 torch.bfloat16)
-            for m in GGUF_MS:
+            ms_list = sorted(GGUF_MS + (GEMM_MS if key != "k13" else ()))
+            for m in ms_list:
                 x = x_all[:m]
                 got = wrapper(x, qs, sc)
                 plain = plain_fn(x, qs, sc)
                 err = check_close(torch, got, plain,
                                   f"{name} {proj} m={m}")
+                plan = ""
+                if key != "k13" and m > 64:
+                    # The control: a wrong plain version must miss.
+                    bad = (plain_fn(x, qs, torch.roll(sc, 1, 0))
+                           if key == "k15" else qmm.gguf_q8_matmul_plain(
+                               x, qs, sc[:K // 32]))
+                    c_err = (got.float() - bad.float()).abs()
+                    if not bool((c_err > ATOL + RTOL *
+                                 bad.float().abs()).any()):
+                        fail(f"{name} {proj} m={m}: the control ("
+                             + ("scale rows shifted by one group"
+                                if key == "k15" else "d16 read per 32 rows")
+                             + ") is within tolerance of the kernel")
+                    unit, block_n = (128, 128) if key == "k15" else (64, 256)
+                    splits, per = qmm.gemm_plan(m, K, N, unit, sms,
+                                                block_n=block_n)
+                    plan = (f"; plan: 128 x {block_n} tiles, {splits} "
+                            f"split(s) of {per} x {unit} rows; control max "
+                            f"err {c_err.max().item():.4f}")
                 if key == "k15":
                     x8, xs = qmm.quantize_activations_int8(x)
 
@@ -1090,10 +1131,12 @@ def check_and_time_gguf(torch, qmm, timer):
                 ops = 2 * m * K * N
                 torch.cuda.synchronize()
                 ms = timer(run)
+                if m in GEMM_LOG_MS and key in layer_ms:
+                    layer_ms[key][m] += ms
                 b_ms, b_by = bound(nbytes, ops, rate)
                 line = (f"{name} {proj} (K {K}, N {N}) m={m}: kernel "
                         f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max err "
-                        f"{err}")
+                        f"{err}{plan}")
                 if m in (8, 4096):
                     plain_ms = timer(lambda: plain_fn(x, qs, sc))
                     lib = timer(lambda: torch.matmul(x, w16))
@@ -1119,8 +1162,11 @@ def check_and_time_gguf(torch, qmm, timer):
         t_b, t_o = rec.pop("bound_bytes_ms"), rec.pop("bound_ops_ms")
         rec["bound_ms"], rec["bound_by"] = (t_b, "bytes") if t_b >= t_o \
             else (t_o, "operations")
-    log("GGUF kernels vs plain: all cases within tolerance; per layer (4 "
-        "projections) at m 8 and 4096: " + json.dumps(out))
+    log("GGUF kernels vs plain: all cases within tolerance, every control "
+        "missed it; per layer (4 projections) at m 8 and 4096: "
+        + json.dumps(out))
+    log("K14 / K15 m > 64 kernels (K15 alone on K9's rows), ms per layer "
+        "(4 projections) by m: " + json.dumps(layer_ms))
     return out
 
 
@@ -1544,6 +1590,8 @@ AWQ_A8_KERNELS = BF16_KERNELS + ("quantize_activations_int8",
                                  "awq_matmul_a8", "awq_matmul_stream_a8")
 AWQ_A16_KERNELS = BF16_KERNELS + ("awq_matmul", "awq_matmul_stream")
 GGUF_MATMULS = ("gguf_q8_matmul", "gguf_i8g_matmul", "gguf_w8a8_matmul")
+# The counters of K14's and K15's m > 64 kernels.
+GGUF_GEMMS = ("gguf_i8g_gemm", "gguf_w8a8_gemm")
 
 
 def check_outputs(outputs, n: int, what: str) -> None:
@@ -1749,7 +1797,8 @@ def run_sliding_window(torch, counters, card: str):
 
 QUANT_KERNEL_NAMES = ("quant_mma_kernel", "int8_mma_kernel",
                       "nib_mma_kernel", "split_reduce_kernel",
-                      "quant8_kernel")
+                      "quant8_kernel", "quant_gemm_kernel",
+                      "w8a8_gemm_kernel")
 
 
 def profile_decode(torch, engine, tag: str = "",
@@ -1837,7 +1886,7 @@ def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
             f"{engine.cache_config.num_gpu_blocks} KV pages (bf16 had "
             f"{bf16_pages})")
         tag = f"{label} "
-        absent = tuple(k for k in late_names + GGUF_MATMULS +
+        absent = tuple(k for k in late_names + GGUF_MATMULS + GGUF_GEMMS +
                        ("quantize_activations_int8",) if k != kernel)
         runs = [run_engine(torch, engine, 1, counters, card,
                            required=BF16_KERNELS + (kernel,), absent=absent,
@@ -1919,7 +1968,10 @@ def main() -> int:
     log("K6 / K10 (quant_gemm_kernel: 128 x 256 tiles, 288 threads) dynamic "
         "shared memory per block: " + " / ".join(
             f"{qmm.gemm_smem_bytes(bits)} B at {bits} bits" for bits in (4, 8))
-        + f" (the card allows {optin} B)")
+        + f"; K14 at m > 64 (quant_gemm_kernel<8, kI8g>) "
+        f"{qmm.gguf_gemm_smem_bytes(False)} B; K15 at m > 64 "
+        f"(w8a8_gemm_kernel: 128 x 128 tiles, 256 threads) "
+        f"{qmm.gguf_gemm_smem_bytes(True)} B (the card allows {optin} B)")
 
     # 3. Kernels vs plain versions, and times.
     log_clocks("before the kernel checks")
@@ -2162,8 +2214,9 @@ def main() -> int:
     # 14. End to end with dummy GGUF weights in the JAX bench's three
     # at-rest forms (BENCH_GGUF_FMT).
     q8, i8g, w8a8 = GGUF_MATMULS
+    gemm_of = dict(zip((i8g, w8a8), GGUF_GEMMS))
     for fmt, kernel, wide in (("", w8a8, True), ("q8_0", q8, False),
-                              ("q6_k", i8g, False)):
+                              ("q6_k", i8g, True)):
         form = fmt or "turbo"
         os.environ["BENCH_GGUF_FMT"] = fmt
         engine = quant_engine(torch, model_dir, f"GGUF {form}",
@@ -2174,9 +2227,14 @@ def main() -> int:
             f"{engine.cache_config.num_gpu_blocks} KV pages (bf16 had "
             f"{bf16_pages})")
         tag = f"GGUF {form} "
-        required = BF16_KERNELS + (kernel,) + \
+        # The mix's prompt rounds take K14's / K15's m > 64 kernel, its
+        # decode steps the skinny tiles; the 96-request round's decode
+        # steps the m > 64 kernel and its split reduce.
+        gemm = (gemm_of[kernel],) if kernel in gemm_of else ()
+        required = BF16_KERNELS + (kernel,) + gemm + \
             (("quantize_activations_int8",) if kernel == w8a8 else ())
-        absent = tuple(k for k in GGUF_MATMULS if k != kernel)
+        absent = tuple(k for k in GGUF_MATMULS + GGUF_GEMMS
+                       if k not in (kernel,) + gemm)
         by_path[tag.strip()] = {}
         runs = [run_engine(torch, engine, 1, counters, smi,
                            required=required, absent=absent, tag=tag)]
@@ -2184,7 +2242,7 @@ def main() -> int:
             runs.append(run_wide_round(
                 torch, engine, counters, smi,
                 ("paged_decode_attention", "write_kv_pages_prefill",
-                 kernel), kernel, layers, tag))
+                 "quant_gemm_split_reduce") + gemm, gemm[0], layers, tag))
         for run in runs:
             for name, n in run.items():
                 by_path[tag.strip()][name] = \
@@ -2214,7 +2272,7 @@ def main() -> int:
     log(f"GGUF file: layer 0 at-rest forms {forms}")
     by_path["GGUF file"] = run_engine(
         torch, engine, 1, counters, smi, tag="GGUF file ",
-        required=BF16_KERNELS + GGUF_MATMULS +
+        required=BF16_KERNELS + GGUF_MATMULS + GGUF_GEMMS +
         ("quantize_activations_int8",))
     runner = engine.executor.model_runner
     compare_with_plain(torch, runner.model, runner.params,
@@ -2299,6 +2357,10 @@ def main() -> int:
               replaces=f"{pallas_qmm}:{line}", launches=launches[name],
               **gguf[key]) for key, (name, _, line) in GGUF_KERNELS.items()
          ] + [dict(name=name, route="cuda", source=quant_src,
+                   replaces=f"{pallas_qmm}:{GGUF_KERNELS[key][2]}",
+                   launches=launches[name], **gguf[f"{key}@4096"])
+              for key, name in zip(("k14", "k15"), GGUF_GEMMS)
+              ] + [dict(name=name, route="cuda", source=quant_src,
                    replaces=f"{pallas_qmm}:{line}", launches=launches[name],
                    **late[key]) for key, (name, line) in LATE_KERNELS.items()]
     keys = ("name", "route", "source", "replaces", "launches",

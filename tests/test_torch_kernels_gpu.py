@@ -15,7 +15,9 @@ which is 1.6e-2 at 2-4). The GPTQ
 and AWQ matmuls (bf16 outputs, f32 sums taken in another order): the
 same 2e-2 + 2e-2 |plain|, and so the GGUF matmuls (K13, K14 and K15,
 which sums exact int32 group dots in f32). int8 activation
-quantization: exactly equal. K12, K16 on bf16 and K17 (bf16 outputs of
+quantization: exactly equal. K15 at m > 64 folds each group in group
+order with one fma (the plain version rounds a product and a sum) and
+is held to the same tolerance. K12, K16 on bf16 and K17 (bf16 outputs of
 f32 sums): 2e-2 + 2e-2 |plain|. K16 on f32 x: within 1e-4 of max
 |plain| (three bf16 products per term keep about 16 mantissa bits of
 each operand; the plain version sums exact f32 products).
@@ -536,32 +538,79 @@ def _gguf_problem(dev, kind, m, K, N, seed=0):
     return x, qs, scales
 
 
+def _gguf_counter(kind, m):
+    """The counter of the kernel a GGUF wrapper launches at m: K14's and
+    K15's warpgroup-MMA kernels above 64 rows, else the wrapper's own."""
+    if m > 64 and kind != "q8":
+        return getattr(tqm, f"GGUF_{kind.upper()}_GEMM_LAUNCHES")
+    return getattr(tqm, f"GGUF_{kind.upper()}_MATMUL_LAUNCHES")
+
+
+def _gguf_reduces(kind, m, K, N, dev):
+    """The split reduces one K14 / K15 launch adds at m > 64."""
+    if m <= 64 or kind == "q8":
+        return 0
+    unit, block_n = (64, 256) if kind == "i8g" else (128, 128)
+    return int(tqm.gemm_plan(m, K, N, unit, tqm.build.sm_count(dev),
+                             block_n=block_n)[0] > 1)
+
+
 @pytest.mark.parametrize("kind", ["q8", "i8g", "w8a8"])
 @pytest.mark.parametrize("m,K,N", [
     (1, 4096, 6144), (8, 14336, 4096), (33, 512, 384), (64, 4096, 4096),
-    (65, 256, 128), (300, 4096, 1024)])
+    (65, 256, 128), (300, 4096, 1024)] + [
+    (m, K, N) for m in (65, 72, 128, 256, 512) for K, N in _PROJ] + [
+    (200, 2048, 384), (129, 1024, 1152), (77, 14336, 4096)])
 def test_gguf_matmul_kernels_match_plain(dev, kind, m, K, N):
-    """Every tiling: 16-64-row blocks with split K (m <= 64), 128-row
-    blocks above; the wrappers count one launch each."""
+    """Every tiling: 16-64-row blocks with split K (m <= 64); above, K13's
+    128-row blocks, K14's quant_gemm_kernel (128 x 256 tiles; N 384 and
+    1152 end on a 128-column half tile) and K15's w8a8_gemm_kernel, with
+    their split plans; one launch counted each, and the split reduce
+    where the plan splits."""
     if kind == "q8" or kind == "i8g":
         K = max(256, K // 256 * 256)
     x, qs, scales = _gguf_problem(dev, kind, m, K, N, seed=m + K)
     name = f"gguf_{kind}_matmul"
-    counter = getattr(tqm, f"GGUF_{kind.upper()}_MATMUL_LAUNCHES")
-    before = counter.count
+    counter = _gguf_counter(kind, m)
+    before = (counter.count, tqm.QUANT_GEMM_REDUCE_LAUNCHES.count)
     got = getattr(tqm, name)(x, qs, scales)
     want = getattr(tqm, name + "_plain")(x, qs, scales)
     torch.cuda.synchronize()
-    assert counter.count == before + 1
+    assert (counter.count, tqm.QUANT_GEMM_REDUCE_LAUNCHES.count) == \
+        (before[0] + 1, before[1] + _gguf_reduces(kind, m, K, N, dev))
     assert got.dtype == torch.bfloat16 and got.shape == (m, N)
     _close(got, want)
 
 
+@pytest.mark.parametrize("kind", ["i8g", "w8a8"])
+@pytest.mark.parametrize("m", [72, 300, 1000])
+def test_gguf_gemm_controls_miss_the_tolerance(dev, kind, m):
+    """A wrong plain version must miss `_close`'s tolerance against the
+    m > 64 kernels: K15 with its scale rows shifted by one group, K14
+    reading d16 per 32 rows; so a layout or fold fault that gives
+    plausible numbers cannot pass the checks above."""
+    K, N = 4096, 4096
+    x, qs, scales = _gguf_problem(dev, kind, m, K, N, seed=m)
+    if kind == "w8a8":
+        got = tqm.gguf_w8a8_matmul(x, qs, scales)
+        good = tqm.gguf_w8a8_matmul_plain(x, qs, scales)
+        bad = tqm.gguf_w8a8_matmul_plain(x, qs, scales.roll(1, 0))
+    else:
+        got = tqm.gguf_i8g_matmul(x, qs, scales)
+        good = tqm.gguf_i8g_matmul_plain(x, qs, scales)
+        bad = tqm.gguf_q8_matmul_plain(x, qs, scales[:K // 32])
+    torch.cuda.synchronize()
+    _close(got, good)
+    assert _misses(got, bad)
+
+
 @pytest.mark.parametrize("kind", ["q8", "i8g"])
-def test_gguf_kernels_take_unaligned_rows(dev, kind):
+@pytest.mark.parametrize("m", [24, 200])
+def test_gguf_kernels_take_unaligned_rows(dev, kind, m):
     """x starting 2 bytes past a 16-byte boundary stages element by
-    element and gives the aligned copy's result."""
-    x, qs, scales = _gguf_problem(dev, kind, 24, 512, 256)
+    element (K14 at m > 64: its consumers store x where TMA cannot) and
+    gives the aligned copy's result."""
+    x, qs, scales = _gguf_problem(dev, kind, m, 512, 256)
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
     shifted = buf[1:].view_as(x)
     shifted.copy_(x)
@@ -571,11 +620,20 @@ def test_gguf_kernels_take_unaligned_rows(dev, kind):
                        getattr(tqm, name)(x, qs, scales))
 
 
-def test_gguf_w8a8_kernel_on_k9_rows_equals_the_wrapper(dev):
-    x, qs, scales = _gguf_problem(dev, "w8a8", 8, 4096, 6144)
+@pytest.mark.parametrize("m", [8, 72, 300])
+def test_gguf_w8a8_kernel_on_k9_rows_equals_the_wrapper(dev, m):
+    x, qs, scales = _gguf_problem(dev, "w8a8", m, 4096, 6144)
     x8, xs = tqm.quantize_activations_int8(x)
     assert torch.equal(tqm.gguf_w8a8_launch(x8, xs, qs, scales),
                        tqm.gguf_w8a8_matmul(x, qs, scales))
+    # K9's rows as a view one byte past an aligned start: the consumers
+    # store them where TMA cannot.
+    buf = torch.empty(x8.numel() + 1, dtype=torch.int8, device=dev)
+    shifted = buf[1:].view_as(x8)
+    shifted.copy_(x8)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    assert torch.equal(tqm.gguf_w8a8_launch(shifted, xs, qs, scales),
+                       tqm.gguf_w8a8_launch(x8, xs, qs, scales))
 
 
 def test_gguf_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -498,3 +498,78 @@ def test_gemm_plan_splits_start_on_groups_and_none_is_empty(sms):
                 assert splits <= max(1, sms // tiles)
                 # Shapes and the SM count alone decide it.
                 assert tqm.gemm_plan(m, K, N, gs, sms) == (splits, per)
+
+
+# K14's and K15's plans at m > 64 (`gemm_plan` over 64-row chunks, 128 x
+# 256 tiles; over 128-row groups, 128 x 128 tiles), on 132 SMs.
+@pytest.mark.parametrize("m,K,N,unit,block_n,want", [
+    (65, 4096, 4096, 64, 256, (8, 8)),      # 16 tiles: 8 splits of 8 chunks
+    (72, 4096, 6144, 64, 256, (5, 13)),
+    (128, 14336, 4096, 64, 256, (8, 28)),
+    (256, 4096, 4096, 64, 256, (4, 16)),
+    (4096, 14336, 4096, 64, 256, (1, 224)),
+    (65, 4096, 4096, 128, 128, (4, 8)),     # 32 tiles: 4 splits of 8 groups
+    (72, 4096, 6144, 128, 128, (2, 16)),
+    (128, 4096, 28672, 128, 128, (1, 32)),  # 224 tiles cover the SMs
+    (256, 14336, 4096, 128, 128, (2, 56)),
+    (4096, 4096, 4096, 128, 128, (1, 32)),
+])
+def test_gguf_gemm_plan_table(m, K, N, unit, block_n, want):
+    assert tqm.gemm_plan(m, K, N, unit, 132, block_n=block_n) == want
+
+
+@pytest.mark.parametrize("sms", [132, 114, 66])
+@pytest.mark.parametrize("kernel", ["k14", "k15"])
+def test_gguf_gemm_plan_splits_start_on_a_unit_and_fit_the_sms(kernel, sms):
+    """Every split starts on a 64-row chunk (K14) or a 128-row scale group
+    (K15), none is empty, and where the plan splits, tiles x splits stays
+    within the SMs."""
+    unit, block_n = (64, 256) if kernel == "k14" else (128, 128)
+    for m in (65, 72, 96, 128, 129, 200, 256, 257, 512, 1000, 4096):
+        for K, N in ((4096, 6144), (4096, 4096), (4096, 28672),
+                     (14336, 4096), (2048, 384), (256, 128)):
+            units = K // unit
+            splits, per = tqm.gemm_plan(m, K, N, unit, sms, block_n=block_n)
+            # Split s covers rows [s * per * unit, ...): a whole unit each.
+            starts = [s * per for s in range(splits)]
+            assert starts[-1] < units and splits * per >= units
+            tiles = -(-m // 128) * -(-N // block_n)
+            assert splits == 1 or tiles * splits <= sms
+            assert tqm.gemm_plan(m, K, N, unit, sms, block_n=block_n) == \
+                (splits, per)
+
+
+def _tiling_at_132(m, K, N, gs):
+    """The skinny tiles' plan as it was with the SM count fixed at 132
+    (H100 SXM): least of 16/32/64 rows, splits toward 4 blocks per SM."""
+    block_m = next(b for b in (16, 32, 64) if m <= b)
+    groups = K // gs
+    want = -(-132 * 4 // (N // 128))
+    splits = max(1, min(groups, want, K // (16 * m)))
+    per = -(-groups // splits)
+    return block_m, -(-groups // per)
+
+
+def test_tiling_reads_the_sm_count():
+    """At 132 SMs every skinny plan at Mistral-7B's projections and m 1-64
+    is the one the fixed count gave (H100 SXM plans do not move), for
+    the 128-row groups of GPTQ, AWQ and K15 and the 64-row units of K12,
+    K13, K14, K16 and K17; on a card with another count the plan follows
+    that count."""
+    moved = 0
+    for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
+        for gs in (128, 64):
+            for m in range(1, 65):
+                want = _tiling_at_132(m, K, N, gs)
+                assert tqm._tiling(m, K, N, gs, True, 132) == want
+                block_m, splits = tqm._tiling(m, K, N, gs, True, 66)
+                groups = K // gs
+                s = max(1, min(groups, -(-66 * 4 // (N // 128)),
+                               K // (16 * m)))
+                assert (block_m, splits) == \
+                    (want[0], -(-groups // -(-groups // s)))
+                moved += splits != want[1]
+    assert moved > 0
+    assert tqm._tiling(4096, 4096, 4096, 128, False, 66) == (128, 1)
+    with pytest.raises(ValueError):
+        tqm._tiling(65, 4096, 4096, 128, True, 132)
