@@ -3,22 +3,26 @@
 //
 // Replaces the twelve Pallas TPU kernels of
 // aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6, K10 and, at
-// m > 64, K14 are one templated kernel, quant_gemm_kernel
+// m > 64, K12, K13 and K14 are one templated kernel, quant_gemm_kernel
 // (warp-specialized wgmma, below), with a word decoder each; K15 at
 // m > 64 is w8a8_gemm_kernel (s8 wgmma and a per-group fold, below);
-// K7, K8 and K11 another, quant_mma_kernel; K13, K17 and K14 / K15 at
-// m <= 64 a third, int8_mma_kernel; K12 and K16 a fourth,
+// K7, K8 and K11 another, quant_mma_kernel; K17 and K13 / K14 / K15 at
+// m <= 64 a third, int8_mma_kernel; K16 and K12 at m <= 64 a fourth,
 // nib_mma_kernel. The last three share the block tile, the x staging,
 // the mma.sync fragments, the A8 group fold, the epilogue and the
 // launcher (Tile, stage_x, mma_chunk, fold_group, store_tile,
 // launch_tiles) and differ only in how they load the W words and write
 // the W tile:
-//   _gguf_q4k_kernel (:1117)   -> nib_mma_kernel<Q4K> (K12, Q4_K exact)
+//   _gguf_q4k_kernel (:1117)   -> nib_mma_kernel<Q4K> at m <= 64,
+//                                 quant_gemm_kernel<4, kQ4k> above (K12,
+//                                 Q4_K exact)
 //   _sqllm_kernel (:1630)      -> nib_mma_kernel<LUT> (K16, bf16 x) and
 //                                 nib_mma_kernel<LUT, X32> (K16, f32 x)
 //   _int8_kernel (:1706)       -> int8_mma_kernel<G 0> (K17, int8 per
 //                                 column)
-//   _gguf_q8_kernel (:1210)    -> int8_mma_kernel<G 32> (K13, Q8_0)
+//   _gguf_q8_kernel (:1210)    -> int8_mma_kernel<G 32> at m <= 64,
+//                                 quant_gemm_kernel<8, kQ8> above (K13,
+//                                 Q8_0)
 //   _gguf_i8g_kernel (:1476)   -> int8_mma_kernel<G 16> at m <= 64,
 //                                 quant_gemm_kernel<8, kI8g> above (K14,
 //                                 grouped int8)
@@ -92,7 +96,11 @@
 // x and W tiles in L2. Where the 128 x 256 tiles fall short of the SMs
 // (decode batches of 65-256 rows) the groups are split over blocks
 // (gemm_plan in the wrapper) and split_reduce_kernel adds the f32
-// partials in split order.
+// partials in split order. The GGUF products at m > 64 (K12-K14) take
+// the same kernel with their own decoders (K12's words are GPTQ's 4-bit
+// layout with a (dl, ml) pair per 32 rows in place of the scale and
+// zero; K13's and K14's bytes the MN-major tile, a scale row per 32 or
+// 16 rows), 64-row chunks as the split unit and two W tiles.
 // The other kernels: a block owns BM rows x 128 columns of the output
 // and walks its quantization groups in order; each group is cut into
 // 64-deep k chunks.
@@ -685,10 +693,11 @@ int8_mma_kernel(const typename TL::T* __restrict__ x,
                        chunks_per_split, cs);
 }
 
-// The bf16 128-row tile (K13 and K14 above 64 rows) with two blocks per SM,
-// at most 128 registers: left free it takes 138 and runs one block per SM,
-// about 1.6x slower at m 4096. Naming a minimum for the other tiles raises
-// their registers and slows decode, so they keep int8_mma_kernel's bound.
+// The bf16 128-row tile (K17 above 64 rows) with two blocks per SM, at
+// most 128 registers: left free K13's instance took 138 and ran one block
+// per SM, about 1.6x slower at m 4096. Naming a minimum for the other
+// tiles raises their registers and slows decode, so they keep
+// int8_mma_kernel's bound.
 template <class TL, int G>
 __global__ void __launch_bounds__(kThreads, 2)
 int8_mma_kernel_2blk(const typename TL::T* __restrict__ x,
@@ -737,10 +746,11 @@ __device__ __forceinline__ void stage_x_split(
 // (row k in word k / 8 at shift 4 * (k % 8): the natural order; the TPU's
 // plane-order unpack and x column permutation were sublane tricks and are
 // gone). The W tile is dequantized in shared memory per 64-deep chunk:
-//   Q4K (K12): w = bf16(q * dl - ml) in f32 (no fused multiply-add, as the
-//     Pallas body and the plain version round), dl and ml [K / 32, N] bf16
-//     rows per 32 input rows; a thread's 8-row word never straddles a
-//     group, so it reads one (dl, ml) pair per word.
+//   Q4K (K12, m <= 64): w = bf16(q * dl - ml) in f32 (q * dl is exact, so
+//     the difference rounds once, as the Pallas body and the plain
+//     version round), dl and ml [K / 32, N] bf16 rows per 32 input rows;
+//     a thread's 8-row word never straddles a group, so it reads one
+//     (dl, ml) pair per word.
 //   LUT (K16): w = lut[n, q], the block's [16, 128] slice of the codebook
 //     staged once in shared memory as f32 [16][128], where a warp's 32
 //     neighbouring columns fall in 32 distinct banks whatever the codes.
@@ -900,9 +910,12 @@ __global__ void split_reduce_kernel(const float* __restrict__ partial,
 // ------------------------------------------------------------ K6 / K10 --
 //
 // quant_gemm_kernel<BITS, D>: the W4A16 / W8A16 product at m > 64 (see
-// the header), and K14's at m > 64 (D kI8g: the codes are bytes, the
-// scale rows come four to a chunk, there is no zero row, and the split
-// unit is one 64-row chunk). One block owns 128 rows x 256 columns of
+// the header), and the GGUF products at m > 64, where the split unit is
+// one 64-row chunk: K14's (D kI8g: the codes are bytes, the scale rows
+// come four to a chunk, there is no zero row), K13's (kQ8: K14's layout
+// with two scale rows a chunk) and K12's (kQ4k: GPTQ's 4-bit words, two
+// dl rows where GPTQ has a scale row, two ml rows where it has a zero
+// row). One block owns 128 rows x 256 columns of
 // the output and walks its quantization groups in 64-deep chunks:
 //   - warp 8, the loader: one thread keeps a ring of kStages chunks in
 //     flight with TMA (the x tile in the 128-byte swizzle, the packed
@@ -925,21 +938,39 @@ constexpr int kXBytes = kBM * kBK * 2;      // one x stage, 16 KB
 constexpr int kWtBytes = kBN * kBK * 2;     // one bf16 W tile, 32 KB
 
 // The word decoders: GPTQ and AWQ packed codes (K6, K10), and GGUF's
-// grouped int8 form (K14: int8 codes [K, N], a bf16 scale row per 16
-// input rows, no zero point).
-enum class Dec { kGptq, kAwq, kI8g };
+// forms (no zero point): grouped int8 (K14: int8 codes [K, N], a bf16
+// scale row per 16 input rows), Q8_0 (K13: the same codes, a scale row
+// per 32) and exact Q4_K (K12: GPTQ's 4-bit K-major words [K / 8, N],
+// a bf16 (dl, ml) pair of rows per 32 input rows).
+enum class Dec { kGptq, kAwq, kI8g, kQ8, kQ4k };
 
 template <int BITS, Dec D>
 struct Cfg {
   static constexpr int kPack = 32 / BITS;
-  // K14 keeps two W tiles, not three, for a fourth stage: with its 34 KB
-  // stages the loads are latency-bound, so bytes in flight set the rate.
-  static constexpr int kWt = D == Dec::kI8g ? 2 : kWtTiles;
-  static constexpr int kStages = D == Dec::kI8g ? 4 : BITS == 8 ? 3 : 5;
+  // The GGUF decoders: every chunk is whole (64 rows of whole scale
+  // groups), and one chunk is the split unit.
+  static constexpr bool kGguf =
+      D == Dec::kI8g || D == Dec::kQ8 || D == Dec::kQ4k;
+  // Byte codes [K, N] (K13, K14), read as rows of 256 columns.
+  static constexpr bool kBytes = D == Dec::kI8g || D == Dec::kQ8;
+  // The W tile wgmma reads: K-major (W^T rows of 64 k) where a word holds
+  // one column's k rows (GPTQ, K12), else MN-major.
+  static constexpr bool kKMajor = D == Dec::kGptq || D == Dec::kQ4k;
+  // The GGUF decoders keep two W tiles, not three, for a fourth (K13,
+  // K14) or fifth (K12) stage: with 26-34 KB stages the loads are
+  // latency-bound, so bytes in flight set the rate (K12's five stages
+  // and three tiles would pass the 232 448-byte opt-in limit by 80).
+  static constexpr int kWt = kGguf ? 2 : kWtTiles;
+  static constexpr int kStages =
+      kBytes ? 4 : D == Dec::kQ4k ? 5 : BITS == 8 ? 3 : 5;
   static constexpr int kWordBytes = kBK * kBN * BITS / 8;   // packed W
-  // Scale rows: one per chunk, K14's four (a row per 16 of its 64 k).
-  static constexpr int kSBytes = kBN * 2 * (D == Dec::kI8g ? 4 : 1);
-  static constexpr int kZBytes = D == Dec::kI8g ? 0 : kBN * BITS / 8;
+  // Scale rows a chunk: one (GPTQ, AWQ), K14's four (a row per 16 of its
+  // 64 k), K13's and K12's two (a row per 32).
+  static constexpr int kSRows = D == Dec::kI8g ? 4 : kGguf ? 2 : 1;
+  static constexpr int kSBytes = kBN * 2 * kSRows;
+  // The zero row (GPTQ, AWQ) or K12's ml rows; none for byte codes.
+  static constexpr int kZBytes =
+      kBytes ? 0 : D == Dec::kQ4k ? kSBytes : kBN * BITS / 8;
   static constexpr int kBarBytes = 8 * 2 * kStages;
   // Bytes one stage's TMA loads bring (x counted only when TMA loads it).
   static constexpr int kWsBytes = kWordBytes + kSBytes + kZBytes;
@@ -1132,8 +1163,10 @@ __device__ __forceinline__ int swz(int r, int c) {
 // bf16 tile `wt` (kn of the chunk's 64 rows are real; the rest read as
 // zero; FULL: all 64, no masks). Every value is bf16(float(q - z) * s):
 // 128 + q and 128 + z are exact in bf16, so is their difference, and the
-// product is rounded once. K14 (kI8g): bf16(float(q) * d), d the scale
-// row of the code's 16-row group, as the plain version rounds it.
+// product is rounded once. K14 (kI8g) and K13 (kQ8): bf16(float(q) * d),
+// d the scale row of the code's 16-row (K14) or 32-row (K13) group, as
+// the plain version rounds it. K12 (kQ4k): bf16(float(q * dl) - ml), as
+// the plain version and the Pallas body round it.
 template <int BITS, Dec D, bool FULL>
 __device__ __forceinline__ void dequant_chunk(const uint32_t* ws,
                                               const uint32_t* zs,
@@ -1141,21 +1174,22 @@ __device__ __forceinline__ void dequant_chunk(const uint32_t* ws,
                                               unsigned char* wt, int kn,
                                               int tid) {
   constexpr int PACK = 32 / BITS;
-  if constexpr (D == Dec::kI8g) {
+  if constexpr (Cfg<BITS, D>::kBytes) {
     // Columns 8j .. 8j + 7 (j = tid & 31) at 8 rows of the chunk's
     // 16-row group r = tid / 64 (the first or second 8 by warp parity), so
-    // a thread reads one scale row: each row's 8 codes (8 bytes of the
-    // stage) become one 16-byte piece of the MN-major tile, as AWQ's word
-    // columns. q ^ 0x80 = q + 128 in [0, 255], so 2^23 + q + 128 is a
-    // float by one byte permute, and fma(2^23 + q + 128, d,
-    // -(2^23 + 128) d) = q d exactly (the addend is exact: d has 8
-    // significant bits), rounded once to bf16 by the pack. Every chunk is
-    // whole (64 rows of whole 16-row groups).
+    // a thread reads one scale row (K14's row r, K13's r / 2): each row's
+    // 8 codes (8 bytes of the stage) become one 16-byte piece of the
+    // MN-major tile, as AWQ's word columns. q ^ 0x80 = q + 128 in
+    // [0, 255], so 2^23 + q + 128 is a float by one byte permute, and
+    // fma(2^23 + q + 128, d, -(2^23 + 128) d) = q d exactly (the addend
+    // is exact: d has 8 significant bits), rounded once to bf16 by the
+    // pack. Every chunk is whole (64 rows of whole scale groups).
     const int j = tid & 31, r = tid >> 6;
     const int k0 = 16 * r + 8 * ((tid >> 5) & 1);
     const unsigned char* wb = reinterpret_cast<const unsigned char*>(ws);
     unsigned char* blk = wt + (j >> 3) * (kBK * 128);
-    const uint4 s4 = reinterpret_cast<const uint4*>(ss + r * kBN)[j];
+    const int srow = D == Dec::kQ8 ? r >> 1 : r;
+    const uint4 s4 = reinterpret_cast<const uint4*>(ss + srow * kBN)[j];
     const uint32_t sv[4] = {s4.x, s4.y, s4.z, s4.w};
     float d[8], c[8];
 #pragma unroll
@@ -1185,6 +1219,39 @@ __device__ __forceinline__ void dequant_chunk(const uint32_t* ws,
       }
       *reinterpret_cast<uint4*>(blk + swz(k, j & 7)) =
           make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else if constexpr (D == Dec::kQ4k) {
+    // GPTQ's 4-bit branch below with an affine pair in place of the zero
+    // and scale: column n = tid of the K-major tile, word kc holds rows
+    // 8kc .. 8kc + 7, so words 0-3 take the first (dl, ml) rows and 4-7
+    // the second. q * dl is exact in f32 (4 by 8 significant bits), so
+    // fma(q, dl, -ml) rounds once, as the plain version's subtraction
+    // does; the pack rounds to bf16. q comes from nib2 (bf16 128 + q)
+    // widened to f32 minus 128, exact.
+    const int n = tid;
+    const __nv_bfloat16* ms = reinterpret_cast<const __nv_bfloat16*>(zs);
+    uint32_t w[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) w[r] = ws[r * kBN + n];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float dl = __uint_as_float(bf16_bits(ss[h * kBN + n]) << 16);
+      const float nml = -__uint_as_float(bf16_bits(ms[h * kBN + n]) << 16);
+#pragma unroll
+      for (int kc = 4 * h; kc < 4 * h + 4; ++kc) {
+        const uint32_t w4 = w[kc] >> 4;
+        uint32_t o[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // rows 2i (the low half) and 2i + 1 (the high half)
+          const uint32_t v = nib2(__byte_perm(w[kc], w4, i | ((4 + i) << 8)));
+          const float q0 = __fsub_rn(__uint_as_float(v << 16), 128.f);
+          const float q1 = __fsub_rn(__uint_as_float(v & 0xffff0000u), 128.f);
+          o[i] = pack_bf2(__fmaf_rn(q0, dl, nml), __fmaf_rn(q1, dl, nml));
+        }
+        *reinterpret_cast<uint4*>(wt + swz(n, kc)) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
     }
   } else if constexpr (D == Dec::kAwq) {
     // Word column j (columns 8j .. 8j + 7) at rows tid / 32 + 8i: each
@@ -1286,7 +1353,8 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   constexpr int PACK = C::kPack;
   constexpr bool AWQ = D == Dec::kAwq;
   static_assert(!AWQ || BITS == 4, "AWQ packs 8 4-bit codes");
-  static_assert(D != Dec::kI8g || BITS == 8, "K14's codes are bytes");
+  static_assert(!C::kBytes || BITS == 8, "K13's and K14's codes are bytes");
+  static_assert(D != Dec::kQ4k || BITS == 4, "K12's codes are 4-bit");
 
   // The ring, 1024-byte aligned for the 128-byte swizzle; offset from
   // smem_raw (not through an integer) so that accesses stay ld/st.shared.
@@ -1345,10 +1413,17 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
       uint64_t* bar = &full[slot];
       mbar_expect_tx(bar, C::kWsBytes + (x_tma ? kXBytes : 0));
       if (x_tma) tma_load(x_s + slot * kXBytes, &x_map, bar, k0, m0);
-      if constexpr (D == Dec::kI8g) {
-        // The [64, 256] code chunk and its four d16 rows (gs is 64).
+      if constexpr (C::kBytes) {
+        // The [64, 256] code chunk and its four d16 (K14) or two d (K13)
+        // rows (gs is 64).
         tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0, k0);
-        tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0, k0 / 16);
+        tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0,
+                 k0 / (kBK / C::kSRows));
+      } else if constexpr (D == Dec::kQ4k) {
+        // The chunk's 8 word rows and its two dl and two ml rows.
+        tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0, k0 / 8);
+        tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0, k0 / 32);
+        tma_load(z_s + slot * C::kZBytes, &z_map, bar, n0, k0 / 32);
       } else {
         if constexpr (AWQ) {
           tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0 / 8, k0);
@@ -1397,8 +1472,8 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
         reinterpret_cast<const __nv_bfloat16*>(sc_s + slot * C::kSBytes);
     unsigned char* wt = wt_s + (t % C::kWt) * kWtBytes;
     // A whole chunk (every chunk where the group size is a multiple of 64,
-    // and every K14 chunk) takes the unmasked instance.
-    if constexpr (D == Dec::kI8g) {
+    // and every GGUF chunk) takes the unmasked instance.
+    if constexpr (C::kGguf) {
       dequant_chunk<BITS, D, true>(ws, zs, ss, wt, kn, tid);
     } else if (kn == kBK) {
       dequant_chunk<BITS, D, true>(ws, zs, ss, wt, kn, tid);
@@ -1426,11 +1501,11 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t da =
           make_desc(x_base + slot * kXBytes + kk * 32, 16, 1024);
-      if constexpr (D != Dec::kGptq) {
-        wgmma_256<1>(acc, da, make_desc(wt_t + kk * 16 * 128, 8192, 1024),
+      if constexpr (C::kKMajor) {
+        wgmma_256<0>(acc, da, make_desc(wt_t + kk * 32, 16, 1024),
                      t > 0 || kk > 0);
       } else {
-        wgmma_256<0>(acc, da, make_desc(wt_t + kk * 32, 16, 1024),
+        wgmma_256<1>(acc, da, make_desc(wt_t + kk * 16 * 128, 8192, 1024),
                      t > 0 || kk > 0);
       }
     }
@@ -1530,17 +1605,21 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
 // which split_reduce_kernel adds in split order. Four tensor maps per
 // call (a host encoding each, no device work). The dynamic shared memory
 // above 48 KB is allowed once per instance.
-// K14 (kI8g): qweight is the int8 codes [K, N], scales the d16 rows
-// [K / 16, N], no qzeros, and gs the split unit, 64 rows.
+// The GGUF decoders take gs the split unit, 64 rows, and no zero rows:
+// K14 (kI8g) and K13 (kQ8): qweight is the int8 codes [K, N], scales the
+// d16 rows [K / 16, N] or the d rows [K / 32, N]; K12 (kQ4k): qweight the
+// 4-bit words [K / 8, N], scales the dl rows and qzeros the ml rows, both
+// [K / 32, N].
 template <int BITS, Dec D>
 int launch_gemm(const void* x, const void* qweight, const void* qzeros,
                 const void* scales, void* out, float* partial, int m, int K,
                 int N, int gs, int splits, cudaStream_t stream) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
+  using C = Cfg<BITS, D>;
   constexpr bool AWQ = D == Dec::kAwq;
-  constexpr int PACK = Cfg<BITS, D>::kPack;
+  constexpr int PACK = C::kPack;
   if (splits < 1 || gs <= 0 || K % gs != 0 || N % 128 != 0 ||
-      (!AWQ && gs % PACK != 0) || (D == Dec::kI8g && gs != kBK))
+      (!AWQ && gs % PACK != 0) || (C::kGguf && gs != kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = quant_gemm_kernel<BITS, D>;
   constexpr int smem = Cfg<BITS, D>::kSmemBytes;
@@ -1561,10 +1640,17 @@ int launch_gemm(const void* x, const void* qweight, const void* qzeros,
   CUtensorMap x_map{}, w_map{}, s_map{}, z_map{};
   bool ok = !x_tma || tensor_map(&x_map, kBf16, 2, x, K, m, kBK, kBM,
                                   CU_TENSOR_MAP_SWIZZLE_128B);
-  if constexpr (D == Dec::kI8g) {
+  if constexpr (C::kBytes) {
+    constexpr int rows = kBK / C::kSRows;      // input rows a scale row
     ok = ok && tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qweight,
                           N, K, kBN, kBK, kFlat);
-    ok = ok && tensor_map(&s_map, kBf16, 2, scales, N, K / 16, kBN, 4, kFlat);
+    ok = ok && tensor_map(&s_map, kBf16, 2, scales, N, K / rows, kBN,
+                          C::kSRows, kFlat);
+  } else if constexpr (D == Dec::kQ4k) {
+    ok = ok && tensor_map(&w_map, kU32, 4, qweight, N, K / 8, kBN, kBK / 8,
+                          kFlat);
+    ok = ok && tensor_map(&s_map, kBf16, 2, scales, N, K / 32, kBN, 2, kFlat);
+    ok = ok && tensor_map(&z_map, kBf16, 2, qzeros, N, K / 32, kBN, 2, kFlat);
   } else {
     ok = ok && (AWQ ? tensor_map(&w_map, kU32, 4, qweight, N / 8, K,
                                  kBN / 8, kBK, kFlat)
@@ -2005,14 +2091,15 @@ int launch(const void* x, const float* xs, const void* qweight,
 
 // GGUF and K17: the split unit is 64 rows (A16) or one scale group (A8),
 // as the wrapper's `_tiling` counted them; cs, K17's column scales (G 0).
-// K14 and K15 take only the 16-64-row tiles here: at m > 64 they run
-// quant_gemm_kernel<8, kI8g> and w8a8_gemm_kernel.
+// K13, K14 and K15 take only the 16-64-row tiles here: at m > 64 they run
+// quant_gemm_kernel<8, kQ8>, quant_gemm_kernel<8, kI8g> and
+// w8a8_gemm_kernel.
 template <int G, bool A8>
 int launch_int8(const void* x, const float* xs, const void* qs,
                 const void* scales, void* out, float* partial, int m, int K,
                 int N, int splits, int block_m, cudaStream_t stream,
                 const float* cs = nullptr) {
-  constexpr bool kSkinnyOnly = A8 || G == 16;
+  constexpr bool kSkinnyOnly = A8 || G == 16 || G == 32;
   if (m > 0 && (K % (A8 ? G : kChunk) != 0 || N % kBN != 0 ||
                 (kSkinnyOnly && block_m == 128)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2040,12 +2127,16 @@ int launch_int8(const void* x, const float* xs, const void* qs,
 }
 
 // K12 and K16: the split unit is 64 rows. The dynamic shared memory above
-// 48 KB (the f32 variant) is allowed once per kernel instance.
+// 48 KB (the f32 variant) is allowed once per kernel instance. K12 takes
+// only the 16-64-row tiles here: at m > 64 it runs
+// quant_gemm_kernel<4, kQ4k>.
 template <Nib MODE, bool X32>
 int launch_nib(const void* x, const void* qweight, const void* s0,
                const void* s1, void* out, float* partial, int m, int K,
                int N, int splits, int block_m, cudaStream_t stream) {
-  if (m > 0 && (K % kChunk != 0 || N % kBN != 0))
+  constexpr bool kSkinnyOnly = MODE == Nib::kQ4K;
+  if (m > 0 && (K % kChunk != 0 || N % kBN != 0 ||
+                (kSkinnyOnly && block_m == 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   using OutT = typename std::conditional<X32, float, __nv_bfloat16>::type;
   const int units = K / kChunk;
@@ -2053,20 +2144,21 @@ int launch_nib(const void* x, const void* qweight, const void* s0,
   return launch_tiles<false, OutT>(
       [&](auto tl, dim3 grid, float* part) {
         using TL = decltype(tl);
-        auto kernel = nib_mma_kernel<TL, MODE, X32>;
-        constexpr int smem = nib_smem_bytes<TL, MODE, X32>();
-        if constexpr (smem > 48 * 1024) {
-          static bool allowed = false;
-          if (!allowed) {
-            cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-            allowed = true;
+        if constexpr (!kSkinnyOnly || TL::BM != 128) {
+          auto kernel = nib_mma_kernel<TL, MODE, X32>;
+          constexpr int smem = nib_smem_bytes<TL, MODE, X32>();
+          if constexpr (smem > 48 * 1024) {
+            static bool allowed = false;
+            if (!allowed) {
+              cudaFuncSetAttribute(
+                  kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+              allowed = true;
+            }
           }
+          kernel<<<grid, kThreads, smem, stream>>>(
+              x, static_cast<const uint32_t*>(qweight), s0, s1, out, part,
+              m, K, N, per);
         }
-        kernel<<<grid, kThreads, smem, stream>>>(
-            x, static_cast<const uint32_t*>(qweight), s0, s1, out, part, m,
-            K, N, per);
       },
       block_m, nullptr, out, partial, m, N, splits, stream);
 }
@@ -2111,11 +2203,17 @@ extern "C" int quant_gemm_smem_bytes(int bits) {
                    : gemm::Cfg<4, gemm::Dec::kGptq>::kSmemBytes;
 }
 
-// Dynamic shared memory per block of K14's (quant_gemm_kernel<8, kI8g>)
-// and K15's (w8a8_gemm_kernel) m > 64 kernels.
-extern "C" int gguf_gemm_smem_bytes(int w8a8) {
-  return w8a8 ? gemm::kW8SmemBytes
-              : gemm::Cfg<8, gemm::Dec::kI8g>::kSmemBytes;
+// Dynamic shared memory per block of the GGUF kernels' m > 64 kernel,
+// by kernel number: K12 (quant_gemm_kernel<4, kQ4k>), K13 (<8, kQ8>), K14
+// (<8, kI8g>) and K15 (w8a8_gemm_kernel); 0 for any other number.
+extern "C" int gguf_gemm_smem_bytes(int kernel) {
+  switch (kernel) {
+    case 12: return gemm::Cfg<4, gemm::Dec::kQ4k>::kSmemBytes;
+    case 13: return gemm::Cfg<8, gemm::Dec::kQ8>::kSmemBytes;
+    case 14: return gemm::Cfg<8, gemm::Dec::kI8g>::kSmemBytes;
+    case 15: return gemm::kW8SmemBytes;
+    default: return 0;
+  }
 }
 
 // y[m, N] = x[m, K] @ dequant(W), x and scales bf16. block_m 128 is K6
@@ -2183,13 +2281,17 @@ extern "C" int quant8(const void* x, void* x8, float* xs, int m, int K,
 }
 
 // K13: y[m, N] = x[m, K] @ bf16(qs[K, N] * d[K / 32, N]), Q8_0 at rest.
-// block_m 16, 32 or 64 with splits >= 1 (m <= 64), else 128.
+// block_m 128 is quant_gemm_kernel<8, kQ8> (`splits` runs of 64-row
+// chunks, then split_reduce_kernel); 16, 32 and 64 the skinny tiles.
 extern "C" int gguf_q8_mm(const void* x, const void* qs, const void* d,
                           void* out, float* partial, int m, int K, int N,
                           int splits, int block_m, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_m == 128)
+    return gemm::launch_gemm<8, gemm::Dec::kQ8>(
+        x, qs, nullptr, d, out, partial, m, K, N, gemm::kBK, splits, st);
   return launch_int8<32, false>(x, nullptr, qs, d, out, partial, m, K, N,
-                                splits, block_m,
-                                static_cast<cudaStream_t>(stream));
+                                splits, block_m, st);
 }
 
 // K14: y[m, N] = x[m, K] @ bf16(qs[K, N] * d16[K / 16, N]), grouped int8.
@@ -2223,14 +2325,19 @@ extern "C" int gguf_w8a8_mm(const void* x8, const float* xs, const void* qs8,
 }
 
 // K12: y[m, N] = x[m, K] @ bf16(q * dl - ml), GGUF's exact Q4_K form: 4-bit
-// codes qweight [K / 8, N], bf16 dl and ml [K / 32, N].
+// codes qweight [K / 8, N], bf16 dl and ml [K / 32, N]. block_m 128 is
+// quant_gemm_kernel<4, kQ4k> (`splits` runs of 64-row chunks, then
+// split_reduce_kernel); 16, 32 and 64 the skinny tiles.
 extern "C" int gguf_q4k_mm(const void* x, const void* qweight, const void* dl,
                            const void* ml, void* out, float* partial, int m,
                            int K, int N, int splits, int block_m,
                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_m == 128)
+    return gemm::launch_gemm<4, gemm::Dec::kQ4k>(
+        x, qweight, ml, dl, out, partial, m, K, N, gemm::kBK, splits, st);
   return launch_nib<Nib::kQ4K, false>(x, qweight, dl, ml, out, partial, m, K,
-                                      N, splits, block_m,
-                                      static_cast<cudaStream_t>(stream));
+                                      N, splits, block_m, st);
 }
 
 // K16, bf16: y[m, N] = x[m, K] @ w, w[k, n] = lut[n, q[k, n]], lut [N, 16]

@@ -34,16 +34,18 @@ Port of the GPTQ, AWQ and GGUF parts of
   128-row group an exact int32 dot times the group's scale row added in
   f32 in group order, times xs at the end. At m <= 64 (the Pallas
   wrappers have no skinny variant) the block covers 16-64 rows and
-  splits K like K7 (K13 above too, with 128 rows). K14 and K15 at
-  m > 64 take the warpgroup-MMA kernels: K14 K6's `quant_gemm_kernel`
-  with a byte decoder (128 x 256 tiles), K15 `w8a8_gemm_kernel` (s8
-  wgmma, a per-group fold, 128 x 128 tiles), each split over runs of
-  whole 64-row chunks (K14) or 128-row groups (K15) by `gemm_plan`
-  where the tiles fall short of the SMs.
+  splits K like K7. At m > 64 they take the warpgroup-MMA kernels: K13
+  and K14 K6's `quant_gemm_kernel` with a byte decoder (128 x 256
+  tiles), K15 `w8a8_gemm_kernel` (s8 wgmma, a per-group fold, 128 x
+  128 tiles), each split over runs of whole 64-row chunks (K13, K14)
+  or 128-row groups (K15) by `gemm_plan` where the tiles fall short of
+  the SMs.
 - `gguf_q4k_matmul` (K12, Pallas `_gguf_q4k_kernel`; GGUF's exact Q4_K
   form): 4-bit codes qweight [K/8, N] (8 along K), w = q * dl - ml with
   affine rows dl, ml [K/32, N] per 32 input rows, taken in f32 and
-  rounded to x's dtype; bf16 products with f32 sums.
+  rounded to x's dtype; bf16 products with f32 sums. At m > 64 K6's
+  `quant_gemm_kernel` with K12's decoder (GPTQ's 4-bit words, a (dl,
+  ml) pair per 32 rows), planned as K13's.
 - `squeezellm_matmul` (K16, Pallas `_sqllm_kernel`): the same 4-bit
   packing, w[k, n] = lut[n, q[k, n]] with a 16-entry codebook per output
   column. Two kernels: bf16 x and codebook (SqueezeLLM), and f32 x and
@@ -53,7 +55,8 @@ Port of the GPTQ, AWQ and GGUF parts of
 - `int8_matmul` (K17, Pallas `_int8_kernel`): y = (x @ int8 W [K, N]) *
   scales[N], the codes exact in bf16, the f32 sum times the column's
   f32 scale, then rounded.
-  K12, K16 and K17 tile m like the GGUF kernels above.
+  K16 and K17 tile m like the GGUF kernels above at m <= 64, and take
+  128-row blocks with no split above.
 
 Layouts, as the checkpoints store them; scales [G, N], G = K //
 group_size, row k in group k // group_size (the kernels' contiguous
@@ -102,20 +105,23 @@ QUANTIZE_ACTIVATIONS_INT8_LAUNCHES = build.launch_counter(
 GGUF_Q8_MATMUL_LAUNCHES = build.launch_counter("gguf_q8_matmul")
 GGUF_I8G_MATMUL_LAUNCHES = build.launch_counter("gguf_i8g_matmul")
 GGUF_W8A8_MATMUL_LAUNCHES = build.launch_counter("gguf_w8a8_matmul")
-#: K14's and K15's m > 64 kernels (the counters above count m <= 64).
+GGUF_Q4K_MATMUL_LAUNCHES = build.launch_counter("gguf_q4k_matmul")
+#: K12's, K13's, K14's and K15's m > 64 kernels (the counters above count
+#: m <= 64).
+GGUF_Q4K_GEMM_LAUNCHES = build.launch_counter("gguf_q4k_gemm")
+GGUF_Q8_GEMM_LAUNCHES = build.launch_counter("gguf_q8_gemm")
 GGUF_I8G_GEMM_LAUNCHES = build.launch_counter("gguf_i8g_gemm")
 GGUF_W8A8_GEMM_LAUNCHES = build.launch_counter("gguf_w8a8_gemm")
-GGUF_Q4K_MATMUL_LAUNCHES = build.launch_counter("gguf_q4k_matmul")
 SQUEEZELLM_MATMUL_LAUNCHES = build.launch_counter("squeezellm_matmul")
 SQUEEZELLM_MATMUL_F32_LAUNCHES = build.launch_counter(
     "squeezellm_matmul_f32")
 INT8_MATMUL_LAUNCHES = build.launch_counter("int8_matmul")
-#: The reduce after a split K6, K10, K14 or K15 launch (`gemm_plan`).
+#: The reduce after a split K6, K10, K12-K14 or K15 launch (`gemm_plan`).
 QUANT_GEMM_REDUCE_LAUNCHES = build.launch_counter("quant_gemm_split_reduce")
 
 STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
 BLOCK_N = 128              # output columns per block
-GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K14's output tile
+GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K12-K14's output tile
 W8A8_BLOCK_N = 128         # K15's at m > 64: 128 x 128
 _BLOCKS_PER_SM = 4         # split-K target: this many blocks per SM
 # AWQ: column 8j + e of a packed word sits at shift 4 * AWQ_ORDER[e].
@@ -438,7 +444,7 @@ def _check(x, qweight, qzeros, scales, bits, gs, what: str,
 def gemm_plan(m: int, K: int, N: int, gs: int, sms: int,
               block_n: int = GEMM_BLOCK_N) -> Tuple[int, int]:
     """(splits, groups per split) of a warpgroup-MMA kernel's grid
-    (N / block_n, m / 128, splits): K6 / K10 (groups of gs rows), K14
+    (N / block_n, m / 128, splits): K6 / K10 (groups of gs rows), K12-K14
     (64-row chunks) and K15 (128-row groups, block_n 128), from shapes
     and the card's SM count alone (no host sync, so a CUDA graph can
     capture the launch). Where the 128 x block_n output tiles fall short
@@ -530,13 +536,16 @@ def gemm_smem_bytes(bits: int) -> int:
     return int(fn(bits))
 
 
-def gguf_gemm_smem_bytes(w8a8: bool) -> int:
-    """The dynamic shared memory per block of K14's (False) or K15's
-    (True) m > 64 kernel, as its launcher asks for it."""
+def gguf_gemm_smem_bytes(kernel: int) -> int:
+    """The dynamic shared memory per block of the m > 64 kernel of K12,
+    K13, K14 or K15 (`kernel`, the number), as its launcher asks for
+    it."""
+    if kernel not in (12, 13, 14, 15):
+        raise ValueError(f"no m > 64 GGUF kernel K{kernel}")
     fn = build.library("quant_matmul").gguf_gemm_smem_bytes
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    return int(fn(int(w8a8)))
+    return int(fn(kernel))
 
 
 def _resolve_stream(stream, m: int) -> bool:
@@ -692,7 +701,8 @@ def _tiled_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
     """One launch of a GGUF, K12, K16 or K17 entry point: `ptrs` are its
     input pointers, x [m, K] first. At m <= 64 the block covers 16-64
     rows and the K range is split over blocks in units of `unit` rows,
-    as `_tiling` splits K7's; above, 128-row blocks and no split."""
+    as `_tiling` splits K7's; above (K16, K17), 128-row blocks and no
+    split."""
     m, K = x.shape
     block_m, splits = _tiling(m, K, N, unit, m <= STREAM_M_MAX,
                               build.sm_count(x.device))
@@ -711,26 +721,24 @@ def _tiled_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
     return out
 
 
-def _gguf_launch(entry: str, x, xs, qs, scales, *,
-                 counter: build.LaunchCounter, what: str,
-                 gemm_counter: Optional[build.LaunchCounter] = None
-                 ) -> torch.Tensor:
-    """One launch of a GGUF entry point on (bf16 x) or, with xs, (int8
-    rows x and their scales xs), split in units of 64 rows (K13, K14) or
-    of a 128-row scale group (K15). With `gemm_counter` (K14, K15) an
-    m above 64 takes the warpgroup-MMA kernel, planned by `gemm_plan`
-    (a split reduce after it where it splits), and counts there."""
-    ptrs = (x.data_ptr(),) + ((xs.data_ptr(),) if xs is not None else ()) \
-        + (qs.data_ptr(), scales.data_ptr())
-    unit = 128 if xs is not None else 64
+def _gguf_launch(entry: str, x, ptrs: Tuple[int, ...], N: int, *,
+                 counter: build.LaunchCounter,
+                 gemm_counter: build.LaunchCounter, what: str,
+                 w8a8: bool = False) -> torch.Tensor:
+    """One launch of a GGUF entry point (K12-K15) on bf16 x or, with
+    `w8a8`, K9's int8 rows x; `ptrs` are its input pointers, x first.
+    At m <= 64 the skinny tiles, split in units of 64 rows or (w8a8) of
+    a 128-row scale group, counting on `counter`; above, the
+    warpgroup-MMA kernel planned by `gemm_plan` over the same units (a
+    split reduce after it where it splits), counting on
+    `gemm_counter`."""
+    unit = 128 if w8a8 else 64
     m, K = x.shape
-    N = qs.shape[1]
-    if gemm_counter is None or m <= STREAM_M_MAX:
+    if m <= STREAM_M_MAX:
         return _tiled_launch(entry, x, ptrs, N, unit, torch.bfloat16,
                              counter=counter, what=what)
     splits, _ = gemm_plan(m, K, N, unit, build.sm_count(x.device),
-                          block_n=W8A8_BLOCK_N if xs is not None
-                          else GEMM_BLOCK_N)
+                          block_n=W8A8_BLOCK_N if w8a8 else GEMM_BLOCK_N)
     out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((splits, m, N), dtype=torch.float32,
                           device=x.device) if splits > 1 else None
@@ -751,8 +759,10 @@ def gguf_q8_matmul(x: torch.Tensor, qs: torch.Tensor,
     if not build.on_cuda(x, qs, d):
         return gguf_q8_matmul_plain(x, qs, d)
     _check_gguf(x, qs, d, 32, "gguf_q8_matmul")
-    return _gguf_launch("gguf_q8_mm", x, None, qs, d,
-                        counter=GGUF_Q8_MATMUL_LAUNCHES,
+    return _gguf_launch("gguf_q8_mm", x,
+                        (x.data_ptr(), qs.data_ptr(), d.data_ptr()),
+                        qs.shape[1], counter=GGUF_Q8_MATMUL_LAUNCHES,
+                        gemm_counter=GGUF_Q8_GEMM_LAUNCHES,
                         what="gguf_q8_matmul")
 
 
@@ -763,10 +773,11 @@ def gguf_i8g_matmul(x: torch.Tensor, qs: torch.Tensor,
     if not build.on_cuda(x, qs, d16):
         return gguf_i8g_matmul_plain(x, qs, d16)
     _check_gguf(x, qs, d16, 16, "gguf_i8g_matmul")
-    return _gguf_launch("gguf_i8g_mm", x, None, qs, d16,
-                        counter=GGUF_I8G_MATMUL_LAUNCHES,
-                        what="gguf_i8g_matmul",
-                        gemm_counter=GGUF_I8G_GEMM_LAUNCHES)
+    return _gguf_launch("gguf_i8g_mm", x,
+                        (x.data_ptr(), qs.data_ptr(), d16.data_ptr()),
+                        qs.shape[1], counter=GGUF_I8G_MATMUL_LAUNCHES,
+                        gemm_counter=GGUF_I8G_GEMM_LAUNCHES,
+                        what="gguf_i8g_matmul")
 
 
 def gguf_w8a8_launch(x8: torch.Tensor, xs: torch.Tensor, qs8: torch.Tensor,
@@ -781,10 +792,12 @@ def gguf_w8a8_launch(x8: torch.Tensor, xs: torch.Tensor, qs8: torch.Tensor,
             not xs.is_contiguous():
         raise ValueError("gguf_w8a8_matmul: xs must be contiguous float32 "
                          f"[{m}, 1], got {tuple(xs.shape)} {xs.dtype}")
-    return _gguf_launch("gguf_w8a8_mm", x8, xs, qs8, s128,
+    return _gguf_launch("gguf_w8a8_mm", x8,
+                        (x8.data_ptr(), xs.data_ptr(), qs8.data_ptr(),
+                         s128.data_ptr()), N,
                         counter=GGUF_W8A8_MATMUL_LAUNCHES,
-                        what="gguf_w8a8_matmul",
-                        gemm_counter=GGUF_W8A8_GEMM_LAUNCHES)
+                        gemm_counter=GGUF_W8A8_GEMM_LAUNCHES,
+                        what="gguf_w8a8_matmul", w8a8=True)
 
 
 def gguf_w8a8_matmul(x: torch.Tensor, qs8: torch.Tensor,
@@ -850,10 +863,11 @@ def gguf_q4k_matmul(x: torch.Tensor, qweight: torch.Tensor, dl: torch.Tensor,
                              f"[{K // 32}, {N}], got {tuple(t.shape)} "
                              f"{t.dtype}")
     _check_contiguous(what, x, qweight, dl, ml)
-    return _tiled_launch(
-        "gguf_q4k_mm", x, (x.data_ptr(), qweight.data_ptr(), dl.data_ptr(),
-                           ml.data_ptr()), N, 64, torch.bfloat16,
-        counter=GGUF_Q4K_MATMUL_LAUNCHES, what=what)
+    return _gguf_launch("gguf_q4k_mm", x,
+                        (x.data_ptr(), qweight.data_ptr(), dl.data_ptr(),
+                         ml.data_ptr()), N,
+                        counter=GGUF_Q4K_MATMUL_LAUNCHES,
+                        gemm_counter=GGUF_Q4K_GEMM_LAUNCHES, what=what)
 
 
 def squeezellm_matmul(x: torch.Tensor, qweight: torch.Tensor,

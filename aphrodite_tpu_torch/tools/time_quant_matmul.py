@@ -6,7 +6,7 @@ the call is enqueued, so the wrapper's host time stays out; median of
 20).
 
     python3 aphrodite_tpu_torch/tools/time_quant_matmul.py \\
-        [--kernels K6,K10,K14,K15] [TREE ...]
+        [--kernels K6,K10,K12,K13,K14,K15] [TREE ...]
 
 Each TREE (default: this checkout) is a checkout of the repository, for
 example an earlier commit unpacked with `git archive` into a directory
@@ -16,20 +16,27 @@ inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096:
 - K6 and K10: `gptq_matmul` and `awq_matmul` with `stream=False` on
   this checkout's `chip_smoke.quant_weights` (4-bit codes in groups of
   128) and bf16 x from a seed;
-- K14: `gguf_i8g_matmul` on `chip_smoke.gguf_weights` (Q6_K-shaped
-  codes, a scale row per 16 rows);
+- K12: `gguf_q4k_matmul` on `chip_smoke.late_weights` (random Q4_K
+  codes, dl and ml rows per 32 rows);
+- K13 and K14: `gguf_q8_matmul` and `gguf_i8g_matmul` on
+  `chip_smoke.gguf_weights` (codes in [-127, 127] with a scale row per
+  32 rows; Q6_K-shaped codes with one per 16);
 - K15: `gguf_w8a8_launch` on K9's rows of the same x and
   `chip_smoke.gguf_weights` (a scale row per 128 rows); beside it
   `torch._int_mm` on the same int8 shapes (the weight in column-major
   order, copied before the timing), a floor for int8 tensor-core
   throughput on this card (no group scales: no yardstick of the same
   function).
-`--kernels` picks some of them (default: all four). To compare two
-trees within one call give them as A B B A. Prints the card's name and
-power limit, then one JSON object per tree, kernel, m and projection,
-{"tree", "kernel", "m", "proj", "ms"}, and one per tree, kernel and m
-with the sum over the four projections (one layer), {"tree", "kernel",
-"m", "layer_ms"}.
+Beside K12, K13 and K14, `torch.matmul` over the same weight
+dequantized to bf16 beforehand (the library yardstick of chip_smoke's
+phases 13 and 16). `--kernels` picks some of them (default: K6, K10,
+K14 and K15). To compare two trees within one call give them as A B B
+A. Prints the card's name and power limit, then one JSON object per
+tree, kernel, m and projection, {"tree", "kernel", "m", "proj", "ms"},
+and one per tree, kernel and m with the sum over the four projections
+(one layer) and its bound (chip_smoke's: the bytes over 3.35 TB/s or
+the operations over the bf16 or int8 peak, whichever is larger),
+{"tree", "kernel", "m", "layer_ms", "bound_ms"}.
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 MS = (72, 128, 512, 4096)
-KERNELS = ("K6", "K10", "K14", "K15")
+KERNELS = ("K6", "K10", "K12", "K13", "K14", "K15")
+DEFAULT = ("K6", "K10", "K14", "K15")
 
 
 def time_tree(tree: str, kernels) -> None:
@@ -56,53 +64,80 @@ def time_tree(tree: str, kernels) -> None:
     from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
     timer = smoke.Timer(torch)
 
-    def emit(kernel, layer):
+    def emit(kernel, layer, bound=None):
         for m in MS:
-            print(json.dumps({"tree": tree, "kernel": kernel, "m": m,
-                              "layer_ms": layer[m]}), flush=True)
+            rec = {"tree": tree, "kernel": kernel, "m": m,
+                   "layer_ms": layer[m]}
+            if bound is not None:
+                rec["bound_ms"] = bound[m]
+            print(json.dumps(rec), flush=True)
 
     for kernel in kernels:
         layer = dict.fromkeys(MS, 0.0)
-        int_mm = dict.fromkeys(MS, 0.0)
+        yard = dict.fromkeys(MS, 0.0)
+        t_bytes = dict.fromkeys(MS, 0.0)       # the bound's two terms
+        t_ops = dict.fromkeys(MS, 0.0)
         for seed, (proj, K, N) in enumerate(smoke.GPTQ_PROJ):
+            key = kernel.lower()
+            w16 = None
             if kernel in ("K6", "K10"):
                 awq = kernel == "K10"
                 w = smoke.quant_weights(torch, K, N, 4, 300 + seed, awq)
                 kw = dict(group_size=smoke.GPTQ_GS) if awq else \
                     dict(bits=4, group_size=smoke.GPTQ_GS)
                 fn = qmm.awq_matmul if awq else qmm.gptq_matmul
+                w_bytes = smoke.weight_bytes(K, N, 4)
+            elif kernel == "K12":
+                w, w16 = smoke.late_weights(torch, qmm, key, K, N,
+                                            seed * 10 + len(key))
+                w_bytes = smoke.late_layer_bytes(key, K, N)
             else:
-                key = kernel.lower()
-                w = smoke.gguf_weights(torch, key, K, N, seed * 10 +
-                                       smoke.GGUF_KERNELS[key][1])
+                G = smoke.GGUF_KERNELS[key][1]
+                w = smoke.gguf_weights(torch, key, K, N, seed * 10 + G)
+                w_bytes = smoke.gguf_layer_bytes(key, K, N)
                 if kernel == "K15":
                     # _int_mm's operand in the layout cuBLAS takes
                     # without a copy (column-major), made before the
                     # timing.
                     w_cm = w[0].t().contiguous().t()
+                else:
+                    w16 = (w[0].float() * w[1].float().repeat_interleave(
+                        G, dim=0)).to(torch.bfloat16)
             gen = torch.Generator(device="cuda").manual_seed(400 + seed)
             x_all = torch.randn(max(MS), K, generator=gen,
                                 device="cuda").to(torch.bfloat16)
             for m in MS:
                 x = x_all[:m]
+                ops = 2 * m * K * N
                 if kernel in ("K6", "K10"):
                     ms = timer(lambda: fn(x, *w, stream=False, **kw))
-                elif kernel == "K14":
-                    ms = timer(lambda: qmm.gguf_i8g_matmul(x, *w))
-                else:
+                elif kernel == "K15":
                     x8, xs = qmm.quantize_activations_int8(x)
                     ms = timer(lambda: qmm.gguf_w8a8_launch(x8, xs, *w))
-                    int_mm[m] += timer(lambda: torch._int_mm(x8, w_cm))
+                    yard[m] += timer(lambda: torch._int_mm(x8, w_cm))
+                else:
+                    fn = {"K12": qmm.gguf_q4k_matmul,
+                          "K13": qmm.gguf_q8_matmul,
+                          "K14": qmm.gguf_i8g_matmul}[kernel]
+                    ms = timer(lambda: fn(x, *w))
+                    yard[m] += timer(lambda: torch.matmul(x, w16))
+                x_bytes = m * K + m * 4 if kernel == "K15" else m * K * 2
+                t_bytes[m] += (x_bytes + w_bytes + m * N * 2) / \
+                    smoke.HBM_BYTES_PER_S * 1e3
+                t_ops[m] += ops / (smoke.INT8_OPS_PER_S if kernel == "K15"
+                                   else smoke.BF16_FLOPS_PER_S) * 1e3
                 layer[m] += ms
                 print(json.dumps({"tree": tree, "kernel": kernel, "m": m,
                                   "proj": proj, "ms": ms}), flush=True)
-            del w, x_all
+            del w, w16, x_all
             if kernel == "K15":
                 del w_cm
             torch.cuda.empty_cache()
-        emit(kernel, layer)
+        emit(kernel, layer, {m: max(t_bytes[m], t_ops[m]) for m in MS})
         if kernel == "K15":
-            emit("torch._int_mm on K15's int8 shapes", int_mm)
+            emit("torch._int_mm on K15's int8 shapes", yard)
+        elif kernel != "K6" and kernel != "K10":
+            emit(f"torch.matmul over {kernel}'s weight in bf16", yard)
 
 
 def main() -> int:
@@ -110,7 +145,7 @@ def main() -> int:
     if args[:1] == ["--one"] and len(args) == 3:
         time_tree(args[2], args[1].split(","))
         return 0
-    kernels = KERNELS
+    kernels = DEFAULT
     if args[:1] == ["--kernels"] and len(args) >= 2:
         kernels = tuple(args[1].split(","))
         args = args[2:]

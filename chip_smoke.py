@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero:
    with nvcc for sm_90a (one process per source, in parallel) and prints
    each source's `-Xptxas -v` report on one line, then K1's dynamic
    shared memory per block by page type and slot width, K6 / K10's
-   (`quant_gemm_kernel`) at 4 and 8 bits, and that of K14's and K15's
-   m > 64 kernels.
+   (`quant_gemm_kernel`) at 4 and 8 bits, and that of K12's, K13's,
+   K14's and K15's m > 64 kernels.
 3. Kernels vs plain versions at the main path's shapes (Hq 32, Hkv 8,
    head_dim 128, bf16, 16- and 32-token pages):
    - paged decode attention, K1 (the ragged grid, called with the
@@ -133,17 +133,18 @@ Phases, in order; any failure exits non-zero:
    request (temperature 0.8) served alone and in a batch of 8 gives the
    same tokens.
 13. GGUF kernels vs plain versions at the same four projections, m 1,
-   8, 64, 512 and 4096 (K14 and K15 also at 65, 72, 128 and 256, where
-   their m > 64 kernels split the K range), through the wrappers the
-   engine calls: `gguf_q8_matmul` (K13, a bf16 scale row per 32 input
-   rows), `gguf_i8g_matmul` (K14, per 16 rows; at m > 64
-   `quant_gemm_kernel<8, kI8g>`) and `gguf_w8a8_matmul` (K9, then K15,
-   per 128 rows; at m > 64 `w8a8_gemm_kernel`). Weights are quantized on
-   the card from an N(0, 0.02) weight as the at-rest forms hold real
-   ones (codes in [-127, 127], K14's Q6_K-shaped in [-32, 31]). Phase
-   8's tolerance; at every m > 64 a control must miss it (K15's plain
-   version with its scale rows shifted by one group, K14's reading d16
-   per 32 rows). Each case timed as phase 8 times them (K15 alone on
+   8, 64, 512 and 4096 and 65, 72, 128 and 256 (where the m > 64
+   kernels split the K range), through the wrappers the engine calls:
+   `gguf_q8_matmul` (K13, a bf16 scale row per 32 input rows; at m > 64
+   `quant_gemm_kernel<8, kQ8>`), `gguf_i8g_matmul` (K14, per 16 rows; at
+   m > 64 `quant_gemm_kernel<8, kI8g>`) and `gguf_w8a8_matmul` (K9, then
+   K15, per 128 rows; at m > 64 `w8a8_gemm_kernel`). Weights are
+   quantized on the card from an N(0, 0.02) weight as the at-rest forms
+   hold real ones (codes in [-127, 127], K14's Q6_K-shaped in [-32,
+   31]). Phase 8's tolerance; at every m > 64 a control must miss it
+   (K15's and K13's plain versions with their scale rows shifted by one
+   group, K14's reading d16 per 32 rows). Each case timed as phase 8
+   times them (K15 alone on
    K9's rows, with a check that it equals the wrapper's output), the
    plain version and the library yardstick (torch.matmul over the
    weight dequantized to bf16 beforehand, twice the int8 bytes) at m 8
@@ -152,12 +153,12 @@ Phases, in order; any failure exits non-zero:
 14. End to end with dummy GGUF weights (quantization="gguf", seed 0) in
    the JAX bench's three at-rest forms: the default turbo form (K9 +
    K15), BENCH_GGUF_FMT=q8_0 (K13) and BENCH_GGUF_FMT=q6_k (K14).
-   Phase 4's mix at multi_step 1 in each, and the 96-request round in
-   the turbo and q6_k forms. Each form must launch its kernel and
-   neither of the other two, and K1, K2 and K4; the turbo and q6_k
-   forms their m > 64 kernel too (`gguf_w8a8_gemm`, `gguf_i8g_gemm`),
-   whose split reduce (`quant_gemm_split_reduce`) the 96-request round
-   must launch. The KV pool's page count is logged
+   Phase 4's mix at multi_step 1 in each, then the 96-request round.
+   Each form must launch its kernel and neither of the other two, and
+   K1, K2 and K4, and its m > 64 kernel too (`gguf_w8a8_gemm`,
+   `gguf_q8_gemm`, `gguf_i8g_gemm`; the other forms' never), whose split
+   reduce (`quant_gemm_split_reduce`) the 96-request round must launch.
+   The KV pool's page count is logged
    beside bf16's, and a batch-8 decode step profiled as in phase 9 (the
    GGUF matmuls' device time beside their weight-streaming bound).
 15. A `.gguf` file through the loader: the script writes (under the
@@ -167,8 +168,8 @@ Phases, in order; any failure exits non-zero:
    mixed group, K14), attn_output and ffn_down Q8_0 (K13), ffn_gate and
    ffn_up Q4_0 (turbo, K15). Loaded with quantization="gguf", bf16,
    skip_tokenizer_init; each bucket's at-rest form is asserted; 8 greedy
-   requests (phase 4's mix) must launch all three kernels (K14 and K15
-   at m > 64 too); a prompt and 3
+   requests (phase 4's mix) must launch all three kernels (at m > 64
+   too); a prompt and 3
    decode steps are held against the same model run through the plain
    versions: each GGUF matmul against its plain version on the same
    activations (phase 8's tolerance), the logits within 2e-2 of max
@@ -180,9 +181,12 @@ Phases, in order; any failure exits non-zero:
    d16 read per 32 rows, or K13's d shifted by one group, must each miss
    2e-2.
 16. K12, K16 and K17 vs plain versions at the same four projections, m
-   1, 8, 64, 512 and 4096, through the wrappers the engine calls:
-   `gguf_q4k_matmul` (K12, random Q4_K codes with affine dl/ml rows per
-   32 input rows), `squeezellm_matmul` on bf16 x (K16, an N(0, 0.02)
+   1, 8, 64, 512 and 4096 (K12 also at 65, 72, 128 and 256), through the
+   wrappers the engine calls: `gguf_q4k_matmul` (K12, random Q4_K codes
+   with affine dl/ml rows per 32 input rows; at m > 64
+   `quant_gemm_kernel<4, kQ4k>`, and at every m > 64 a control must miss
+   the tolerance: its plain version with dl and ml shifted by one
+   group), `squeezellm_matmul` on bf16 x (K16, an N(0, 0.02)
    bf16 codebook per column) and on f32 x (K16's f32 kernel, QuIP#'s
    E8P table times Wscale 0.05, codes over its 12 values) and
    `int8_matmul` (K17, int8 codes times f32 column scales). Tolerance:
@@ -190,14 +194,18 @@ Phases, in order; any failure exits non-zero:
    phase 13, with the plain version and the library yardstick
    (torch.matmul over the weight dequantized beforehand: bf16, f32 for
    K16-f32, K17's scales folded in) at m 8 and 4096; the bound takes
-   three bf16 products per term for K16-f32.
+   three bf16 products per term for K16-f32. K12's m > 64 layer times
+   at m 72, 128, 512 and 4096 are logged on one line.
 17. End to end with dummy weights at Mistral-7B width and depth, as
    SqueezeLLM (K16), int8 (K17; its int8 weights stay zero, as in the
    JAX package), QuIP# (K16 on f32 activations, no K17) and GGUF's exact
    Q4_K form (APHRODITE_GGUF_EXACT=1: K12, and none of K9, K13-K15):
    phase 4's mix at multi_step 1, in which every engine step must launch
    the arm's kernel a positive multiple of 128 times (4 projections x 32
-   layers) and none of the other quantized matmuls; the 96-request round;
+   layers; K12 counted with its m > 64 kernel, `gguf_q4k_gemm`, which
+   the exact-Q4_K arm must launch and every other arm must not) and none
+   of the other quantized matmuls; the 96-request round (the exact-Q4_K
+   arm's with the split reduce);
    a batch-8 decode step profiled as in phase 9 (with the kernel
    launches per step: QuIP#'s Hadamard transforms are eager torch ops).
 18. 2-layer models at Mistral-7B width through K12, K16, K16-f32 and K17
@@ -1030,8 +1038,8 @@ GGUF_KERNELS = {"k13": ("gguf_q8_matmul", 32, 1210),
                 "k14": ("gguf_i8g_matmul", 16, 1476),
                 "k15": ("gguf_w8a8_matmul", 128, 1551)}
 GGUF_MS = (1, 8, 64, 512, 4096)
-# K14 and K15 also at the m > 64 their split plans serve (decode batches
-# above 64, short prompt rounds).
+# The m > 64 kernels (K12-K15) also at the m their split plans serve
+# (decode batches above 64, short prompt rounds).
 GEMM_MS = (65, 72, 128, 256)
 # m at which the m > 64 kernels' layer times are logged for PERF.md.
 GEMM_LOG_MS = (72, 128, 512, 4096)
@@ -1059,12 +1067,12 @@ def gguf_layer_bytes(key, K, N):
 
 def check_and_time_gguf(torch, qmm, timer):
     """K13, K14 and K15 against their plain versions at the Mistral-7B
-    projection shapes and m 1-4096 (K14 and K15 also at GEMM_MS), through
-    the wrappers the engine calls; K15 timed alone on K9's rows (checked
-    equal to the wrapper's output). At m > 64 K14 and K15 run their
-    warpgroup-MMA kernels, and each has a control that must miss the
-    tolerance (K15's scale rows shifted by one group, K14's d16 read per
-    32 rows). Plain and library times at m 8 (decode) and 4096 (a prompt
+    projection shapes and m 1-4096 and GEMM_MS, through the wrappers the
+    engine calls; K15 timed alone on K9's rows (checked equal to the
+    wrapper's output). At m > 64 they run their warpgroup-MMA kernels,
+    and each has a control that must miss the tolerance (K15's and K13's
+    scale rows shifted by one group, K14's d16 read per 32 rows). Plain
+    and library times at m 8 (decode) and 4096 (a prompt
     round). Returns {key: {...}} summed over one layer's four projections
     at m 8, and the same at m 4096 under "<key>@4096"."""
     out = {}
@@ -1073,7 +1081,7 @@ def check_and_time_gguf(torch, qmm, timer):
             out[key if m == 8 else f"{key}@4096"] = dict(
                 ms=0.0, plain_ms=0.0, library_ms=0.0, bound_bytes_ms=0.0,
                 bound_ops_ms=0.0, max_abs_err=0.0)
-    layer_ms = {key: dict.fromkeys(GEMM_LOG_MS, 0.0) for key in ("k14", "k15")}
+    layer_ms = {key: dict.fromkeys(GEMM_LOG_MS, 0.0) for key in GGUF_KERNELS}
     sms = qmm.build.sm_count("cuda")
     for seed, (proj, K, N) in enumerate(GPTQ_PROJ):
         gen = torch.Generator(device="cuda").manual_seed(300 + seed)
@@ -1085,32 +1093,24 @@ def check_and_time_gguf(torch, qmm, timer):
             plain_fn = getattr(qmm, name + "_plain")
             w16 = (qs.float() * sc.float().repeat_interleave(G, dim=0)).to(
                 torch.bfloat16)
-            ms_list = sorted(GGUF_MS + (GEMM_MS if key != "k13" else ()))
-            for m in ms_list:
+            for m in sorted(GGUF_MS + GEMM_MS):
                 x = x_all[:m]
                 got = wrapper(x, qs, sc)
                 plain = plain_fn(x, qs, sc)
                 err = check_close(torch, got, plain,
                                   f"{name} {proj} m={m}")
                 plan = ""
-                if key != "k13" and m > 64:
+                if m > 64:
                     # The control: a wrong plain version must miss.
-                    bad = (plain_fn(x, qs, torch.roll(sc, 1, 0))
-                           if key == "k15" else qmm.gguf_q8_matmul_plain(
-                               x, qs, sc[:K // 32]))
-                    c_err = (got.float() - bad.float()).abs()
-                    if not bool((c_err > ATOL + RTOL *
-                                 bad.float().abs()).any()):
-                        fail(f"{name} {proj} m={m}: the control ("
-                             + ("scale rows shifted by one group"
-                                if key == "k15" else "d16 read per 32 rows")
-                             + ") is within tolerance of the kernel")
-                    unit, block_n = (128, 128) if key == "k15" else (64, 256)
-                    splits, per = qmm.gemm_plan(m, K, N, unit, sms,
-                                                block_n=block_n)
-                    plan = (f"; plan: 128 x {block_n} tiles, {splits} "
-                            f"split(s) of {per} x {unit} rows; control max "
-                            f"err {c_err.max().item():.4f}")
+                    bad = (qmm.gguf_q8_matmul_plain(x, qs, sc[:K // 32])
+                           if key == "k14" else
+                           plain_fn(x, qs, torch.roll(sc, 1, 0)))
+                    plan = control_missed(
+                        torch, qmm, got, bad, f"{name} {proj} m={m}",
+                        "d16 read per 32 rows" if key == "k14" else
+                        "scale rows shifted by one group", m, K, N,
+                        unit=128 if key == "k15" else 64,
+                        block_n=128 if key == "k15" else 256, sms=sms)
                 if key == "k15":
                     x8, xs = qmm.quantize_activations_int8(x)
 
@@ -1165,9 +1165,23 @@ def check_and_time_gguf(torch, qmm, timer):
     log("GGUF kernels vs plain: all cases within tolerance, every control "
         "missed it; per layer (4 projections) at m 8 and 4096: "
         + json.dumps(out))
-    log("K14 / K15 m > 64 kernels (K15 alone on K9's rows), ms per layer "
-        "(4 projections) by m: " + json.dumps(layer_ms))
+    log("K13 / K14 / K15 m > 64 kernels (K15 alone on K9's rows), ms per "
+        "layer (4 projections) by m: " + json.dumps(layer_ms))
     return out
+
+
+def control_missed(torch, qmm, got, bad, what: str, control: str, m: int,
+                   K: int, N: int, unit: int, block_n: int, sms: int) -> str:
+    """Fails unless the control `bad` (a wrong plain version) misses the
+    tolerance against the m > 64 kernel's output `got`; returns the log's
+    note of the kernel's split plan and the control's error."""
+    c_err = (got.float() - bad.float()).abs()
+    if not bool((c_err > ATOL + RTOL * bad.float().abs()).any()):
+        fail(f"{what}: the control ({control}) is within tolerance of the "
+             "kernel")
+    splits, per = qmm.gemm_plan(m, K, N, unit, sms, block_n=block_n)
+    return (f"; plan: 128 x {block_n} tiles, {splits} split(s) of {per} x "
+            f"{unit} rows; control max err {c_err.max().item():.4f}")
 
 
 # ------------------------------------------- K12, K16 and K17 kernels --
@@ -1258,7 +1272,9 @@ def check_close_f32(torch, got, want, what):
 def check_and_time_late(torch, qmm, timer):
     """K12, K16 (bf16 x, and f32 x on QuIP#'s table) and K17 against
     their plain versions at the Mistral-7B projection shapes and m
-    1-4096, through the wrappers the engine calls; each timed like phase
+    1-4096 (K12 also at GEMM_MS, where its m > 64 kernel splits, with a
+    control at every m > 64: dl and ml shifted by one group), through
+    the wrappers the engine calls; each timed like phase
     8, its plain version and the library call (torch.matmul over the
     weight dequantized beforehand: bf16, f32 for K16-f32, K17's scales
     folded in) at m 8 and 4096. Bound: the bytes over 3.35 TB/s, or the
@@ -1271,6 +1287,8 @@ def check_and_time_late(torch, qmm, timer):
             out[key if m == 8 else f"{key}@4096"] = dict(
                 ms=0.0, plain_ms=0.0, library_ms=0.0, bound_bytes_ms=0.0,
                 bound_ops_ms=0.0, max_abs_err=0.0)
+    k12_layer_ms = dict.fromkeys(GEMM_LOG_MS, 0.0)
+    sms = qmm.build.sm_count("cuda")
     for seed, (proj, K, N) in enumerate(GPTQ_PROJ):
         gen = torch.Generator(device="cuda").manual_seed(500 + seed)
         x_all = torch.randn(4096, K, generator=gen, device="cuda")
@@ -1281,23 +1299,33 @@ def check_and_time_late(torch, qmm, timer):
             args, w_lib = late_weights(torch, qmm, key, K, N, seed * 10 +
                                        len(key))
             xb = x_all if f32 else x_all.to(torch.bfloat16)
-            for m in GGUF_MS:
+            for m in sorted(GGUF_MS + (GEMM_MS if key == "k12" else ())):
                 x = xb[:m]
                 got = wrapper(x, *args)
                 plain = plain_fn(x, *args)
                 what = f"{name} {proj} m={m}"
                 err = check_close_f32(torch, got, plain, what) if f32 \
                     else check_close(torch, got, plain, what)
+                plan = ""
+                if key == "k12" and m > 64:
+                    qw, dl, ml = args
+                    plan = control_missed(
+                        torch, qmm, got, plain_fn(
+                            x, qw, torch.roll(dl, 1, 0), torch.roll(ml, 1, 0)),
+                        what, "dl and ml shifted by one group", m, K, N,
+                        unit=64, block_n=256, sms=sms)
                 size = 4 if f32 else 2
                 nbytes = m * K * size + late_layer_bytes(key, K, N) + \
                     m * N * size
                 ops = 2 * m * K * N * (3 if f32 else 1)
                 torch.cuda.synchronize()
                 ms = timer(lambda: wrapper(x, *args))
+                if key == "k12" and m in GEMM_LOG_MS:
+                    k12_layer_ms[m] += ms
                 b_ms, b_by = bound(nbytes, ops)
                 line = (f"{name} {proj} (K {K}, N {N}) m={m}: kernel "
                         f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max err "
-                        f"{err}")
+                        f"{err}{plan}")
                 if m in (8, 4096):
                     plain_ms = timer(lambda: plain_fn(x, *args))
                     lib = timer(lambda: torch.matmul(x, w_lib))
@@ -1320,8 +1348,11 @@ def check_and_time_late(torch, qmm, timer):
         t_b, t_o = rec.pop("bound_bytes_ms"), rec.pop("bound_ops_ms")
         rec["bound_ms"], rec["bound_by"] = (t_b, "bytes") if t_b >= t_o \
             else (t_o, "operations")
-    log("K12/K16/K17 vs plain: all cases within tolerance; per layer (4 "
-        "projections) at m 8 and 4096: " + json.dumps(out))
+    log("K12/K16/K17 vs plain: all cases within tolerance, every K12 "
+        "control missed it; per layer (4 projections) at m 8 and 4096: "
+        + json.dumps(out))
+    log("K12 m > 64 kernel, ms per layer (4 projections) by m: "
+        + json.dumps(k12_layer_ms))
     return out
 
 
@@ -1590,8 +1621,10 @@ AWQ_A8_KERNELS = BF16_KERNELS + ("quantize_activations_int8",
                                  "awq_matmul_a8", "awq_matmul_stream_a8")
 AWQ_A16_KERNELS = BF16_KERNELS + ("awq_matmul", "awq_matmul_stream")
 GGUF_MATMULS = ("gguf_q8_matmul", "gguf_i8g_matmul", "gguf_w8a8_matmul")
-# The counters of K14's and K15's m > 64 kernels.
-GGUF_GEMMS = ("gguf_i8g_gemm", "gguf_w8a8_gemm")
+# The counters of K13's, K14's and K15's m > 64 kernels, in that order.
+GGUF_GEMMS = ("gguf_q8_gemm", "gguf_i8g_gemm", "gguf_w8a8_gemm")
+# K12's m > 64 kernel.
+Q4K_GEMM = "gguf_q4k_gemm"
 
 
 def check_outputs(outputs, n: int, what: str) -> None:
@@ -1611,9 +1644,9 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
                tokens=None, per_step=None):
     """Phase 4's request mix; fails if a kernel of `required` did not
     launch or one of `absent` did. Fills `tokens` (request id without
-    the tag -> token ids) when given. With `per_step` (a counter name, a
-    launch count n) every engine step must launch that kernel a positive
-    multiple of n times (n = its matmuls per forward pass)."""
+    the tag -> token ids) when given. With `per_step` (counter names, a
+    launch count n) every engine step must launch those kernels, summed,
+    a positive multiple of n times (n = the matmuls per forward pass)."""
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
     engine.scheduler_config.multi_step = multi_step
     sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
@@ -1631,13 +1664,15 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
     outputs, steps = {}, 0
     late_added = False
     deltas = []
+    def stepped():
+        return sum(counters[name].count for name in per_step[0])
     while engine.has_unfinished_requests():
-        before = counters[per_step[0]].count if per_step else 0
+        before = stepped() if per_step else 0
         for out in engine.step():
             if out.finished:
                 outputs[out.request_id] = out
         if per_step:
-            deltas.append(counters[per_step[0]].count - before)
+            deltas.append(stepped() - before)
         steps += 1
         if not late_added:
             # Two 12-token prompts one round later: alone in their prompt
@@ -1660,9 +1695,9 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
             fail(f"{tag}multi_step={multi_step}: kernel {name} launched "
                  f"{launches[name]} times where it must not ({launches})")
     if per_step and any(d <= 0 or d % per_step[1] for d in deltas):
-        fail(f"{tag}multi_step={multi_step}: {per_step[0]} launches per "
-             f"engine step {deltas}, not a positive multiple of "
-             f"{per_step[1]} in every step")
+        fail(f"{tag}multi_step={multi_step}: {' + '.join(per_step[0])} "
+             f"launches per engine step {deltas}, not a positive multiple "
+             f"of {per_step[1]} in every step")
     if tokens is not None:
         for rid, out in outputs.items():
             tokens[rid[len(tag):]] = list(out.outputs[0].token_ids)
@@ -1670,7 +1705,8 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
     log(f"e2e {tag}multi_step={multi_step}: 8 requests x 32 tokens, "
         f"{steps} engine steps, {dt:.3f} s, {new_tokens / dt:.1f} generated "
         f"tok/s on {card}, launches {launches}"
-        + (f"; {per_step[0]} per step {deltas}" if per_step else ""))
+        + (f"; {' + '.join(per_step[0])} per step {deltas}" if per_step
+           else ""))
     return launches
 
 
@@ -1886,14 +1922,20 @@ def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
             f"{engine.cache_config.num_gpu_blocks} KV pages (bf16 had "
             f"{bf16_pages})")
         tag = f"{label} "
+        # K12's prompt rounds and wide decode steps take its m > 64
+        # kernel, with the split reduce in the 96-request round.
+        gemm = (Q4K_GEMM,) if key == "k12" else ()
         absent = tuple(k for k in late_names + GGUF_MATMULS + GGUF_GEMMS +
-                       ("quantize_activations_int8",) if k != kernel)
+                       (Q4K_GEMM, "quantize_activations_int8")
+                       if k not in (kernel,) + gemm)
+        wide = ("quant_gemm_split_reduce",) + gemm if gemm else (kernel,)
         runs = [run_engine(torch, engine, 1, counters, card,
-                           required=BF16_KERNELS + (kernel,), absent=absent,
-                           tag=tag, per_step=(kernel, 4 * layers)),
+                           required=BF16_KERNELS + (kernel,) + gemm,
+                           absent=absent, tag=tag,
+                           per_step=((kernel,) + gemm, 4 * layers)),
                 run_wide_round(torch, engine, counters, card,
                                ("paged_decode_attention",
-                                "write_kv_pages_prefill", kernel), kernel,
+                                "write_kv_pages_prefill") + wide, wide[-1],
                                layers, tag)]
         by_path[label] = {}
         for run in runs:
@@ -1968,10 +2010,12 @@ def main() -> int:
     log("K6 / K10 (quant_gemm_kernel: 128 x 256 tiles, 288 threads) dynamic "
         "shared memory per block: " + " / ".join(
             f"{qmm.gemm_smem_bytes(bits)} B at {bits} bits" for bits in (4, 8))
-        + f"; K14 at m > 64 (quant_gemm_kernel<8, kI8g>) "
-        f"{qmm.gguf_gemm_smem_bytes(False)} B; K15 at m > 64 "
-        f"(w8a8_gemm_kernel: 128 x 128 tiles, 256 threads) "
-        f"{qmm.gguf_gemm_smem_bytes(True)} B (the card allows {optin} B)")
+        + f"; at m > 64 K12 (quant_gemm_kernel<4, kQ4k>) "
+        f"{qmm.gguf_gemm_smem_bytes(12)} B, K13 (<8, kQ8>) "
+        f"{qmm.gguf_gemm_smem_bytes(13)} B, K14 (<8, kI8g>) "
+        f"{qmm.gguf_gemm_smem_bytes(14)} B, K15 (w8a8_gemm_kernel: 128 x "
+        f"128 tiles, 256 threads) {qmm.gguf_gemm_smem_bytes(15)} B (the "
+        f"card allows {optin} B)")
 
     # 3. Kernels vs plain versions, and times.
     log_clocks("before the kernel checks")
@@ -2214,9 +2258,8 @@ def main() -> int:
     # 14. End to end with dummy GGUF weights in the JAX bench's three
     # at-rest forms (BENCH_GGUF_FMT).
     q8, i8g, w8a8 = GGUF_MATMULS
-    gemm_of = dict(zip((i8g, w8a8), GGUF_GEMMS))
-    for fmt, kernel, wide in (("", w8a8, True), ("q8_0", q8, False),
-                              ("q6_k", i8g, True)):
+    gemm_of = dict(zip(GGUF_MATMULS, GGUF_GEMMS))
+    for fmt, kernel in (("", w8a8), ("q8_0", q8), ("q6_k", i8g)):
         form = fmt or "turbo"
         os.environ["BENCH_GGUF_FMT"] = fmt
         engine = quant_engine(torch, model_dir, f"GGUF {form}",
@@ -2227,22 +2270,21 @@ def main() -> int:
             f"{engine.cache_config.num_gpu_blocks} KV pages (bf16 had "
             f"{bf16_pages})")
         tag = f"GGUF {form} "
-        # The mix's prompt rounds take K14's / K15's m > 64 kernel, its
+        # The mix's prompt rounds take the form's m > 64 kernel, its
         # decode steps the skinny tiles; the 96-request round's decode
         # steps the m > 64 kernel and its split reduce.
-        gemm = (gemm_of[kernel],) if kernel in gemm_of else ()
-        required = BF16_KERNELS + (kernel,) + gemm + \
+        gemm = gemm_of[kernel]
+        required = BF16_KERNELS + (kernel, gemm) + \
             (("quantize_activations_int8",) if kernel == w8a8 else ())
         absent = tuple(k for k in GGUF_MATMULS + GGUF_GEMMS
-                       if k not in (kernel,) + gemm)
+                       if k not in (kernel, gemm))
         by_path[tag.strip()] = {}
         runs = [run_engine(torch, engine, 1, counters, smi,
-                           required=required, absent=absent, tag=tag)]
-        if wide:
-            runs.append(run_wide_round(
-                torch, engine, counters, smi,
-                ("paged_decode_attention", "write_kv_pages_prefill",
-                 "quant_gemm_split_reduce") + gemm, gemm[0], layers, tag))
+                           required=required, absent=absent, tag=tag),
+                run_wide_round(
+                    torch, engine, counters, smi,
+                    ("paged_decode_attention", "write_kv_pages_prefill",
+                     "quant_gemm_split_reduce", gemm), gemm, layers, tag)]
         for run in runs:
             for name, n in run.items():
                 by_path[tag.strip()][name] = \
@@ -2359,10 +2401,13 @@ def main() -> int:
          ] + [dict(name=name, route="cuda", source=quant_src,
                    replaces=f"{pallas_qmm}:{GGUF_KERNELS[key][2]}",
                    launches=launches[name], **gguf[f"{key}@4096"])
-              for key, name in zip(("k14", "k15"), GGUF_GEMMS)
+              for key, name in zip(GGUF_KERNELS, GGUF_GEMMS)
               ] + [dict(name=name, route="cuda", source=quant_src,
                    replaces=f"{pallas_qmm}:{line}", launches=launches[name],
-                   **late[key]) for key, (name, line) in LATE_KERNELS.items()]
+                   **late[key]) for key, (name, line) in LATE_KERNELS.items()
+                   ] + [dict(name=Q4K_GEMM, route="cuda", source=quant_src,
+                             replaces=f"{pallas_qmm}:{LATE_KERNELS['k12'][1]}",
+                             launches=launches[Q4K_GEMM], **late["k12@4096"])]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -539,18 +539,18 @@ def _gguf_problem(dev, kind, m, K, N, seed=0):
 
 
 def _gguf_counter(kind, m):
-    """The counter of the kernel a GGUF wrapper launches at m: K14's and
-    K15's warpgroup-MMA kernels above 64 rows, else the wrapper's own."""
-    if m > 64 and kind != "q8":
+    """The counter of the kernel a GGUF wrapper launches at m: the
+    warpgroup-MMA kernels above 64 rows, else the wrapper's own."""
+    if m > 64:
         return getattr(tqm, f"GGUF_{kind.upper()}_GEMM_LAUNCHES")
     return getattr(tqm, f"GGUF_{kind.upper()}_MATMUL_LAUNCHES")
 
 
 def _gguf_reduces(kind, m, K, N, dev):
-    """The split reduces one K14 / K15 launch adds at m > 64."""
-    if m <= 64 or kind == "q8":
+    """The split reduces one K12-K15 launch adds at m > 64."""
+    if m <= 64:
         return 0
-    unit, block_n = (64, 256) if kind == "i8g" else (128, 128)
+    unit, block_n = (128, 128) if kind == "w8a8" else (64, 256)
     return int(tqm.gemm_plan(m, K, N, unit, tqm.build.sm_count(dev),
                              block_n=block_n)[0] > 1)
 
@@ -563,10 +563,10 @@ def _gguf_reduces(kind, m, K, N, dev):
     (200, 2048, 384), (129, 1024, 1152), (77, 14336, 4096)])
 def test_gguf_matmul_kernels_match_plain(dev, kind, m, K, N):
     """Every tiling: 16-64-row blocks with split K (m <= 64); above, K13's
-    128-row blocks, K14's quant_gemm_kernel (128 x 256 tiles; N 384 and
-    1152 end on a 128-column half tile) and K15's w8a8_gemm_kernel, with
-    their split plans; one launch counted each, and the split reduce
-    where the plan splits."""
+    and K14's quant_gemm_kernel (128 x 256 tiles; N 384 and 1152 end on
+    a 128-column half tile) and K15's w8a8_gemm_kernel, with their split
+    plans; one launch counted each, and the split reduce where the plan
+    splits."""
     if kind == "q8" or kind == "i8g":
         K = max(256, K // 256 * 256)
     x, qs, scales = _gguf_problem(dev, kind, m, K, N, seed=m + K)
@@ -582,16 +582,20 @@ def test_gguf_matmul_kernels_match_plain(dev, kind, m, K, N):
     _close(got, want)
 
 
-@pytest.mark.parametrize("kind", ["i8g", "w8a8"])
+@pytest.mark.parametrize("kind", ["q8", "i8g", "w8a8"])
 @pytest.mark.parametrize("m", [72, 300, 1000])
 def test_gguf_gemm_controls_miss_the_tolerance(dev, kind, m):
     """A wrong plain version must miss `_close`'s tolerance against the
-    m > 64 kernels: K15 with its scale rows shifted by one group, K14
-    reading d16 per 32 rows; so a layout or fold fault that gives
-    plausible numbers cannot pass the checks above."""
+    m > 64 kernels: K15 and K13 with their scale rows shifted by one
+    group, K14 reading d16 per 32 rows; so a layout or fold fault that
+    gives plausible numbers cannot pass the checks above."""
     K, N = 4096, 4096
     x, qs, scales = _gguf_problem(dev, kind, m, K, N, seed=m)
-    if kind == "w8a8":
+    if kind == "q8":
+        got = tqm.gguf_q8_matmul(x, qs, scales)
+        good = tqm.gguf_q8_matmul_plain(x, qs, scales)
+        bad = tqm.gguf_q8_matmul_plain(x, qs, scales.roll(1, 0))
+    elif kind == "w8a8":
         got = tqm.gguf_w8a8_matmul(x, qs, scales)
         good = tqm.gguf_w8a8_matmul_plain(x, qs, scales)
         bad = tqm.gguf_w8a8_matmul_plain(x, qs, scales.roll(1, 0))
@@ -682,16 +686,20 @@ _PACKED4 = {"q4k": ("gguf_q4k_matmul", "GGUF_Q4K_MATMUL_LAUNCHES"),
     (1, 4096, 6144), (8, 14336, 4096), (33, 512, 384), (64, 4096, 4096),
     (65, 256, 128), (300, 4096, 1024)])
 def test_k12_k16_k17_kernels_match_plain(dev, kind, m, K, N):
-    """Every tiling: 16-64-row blocks with split K (m <= 64), 128-row
-    blocks above; the wrappers count one launch each, on their own
-    counter (K16's f32 kernel has its own)."""
+    """Every tiling: 16-64-row blocks with split K (m <= 64); above, K12's
+    quant_gemm_kernel and K16's and K17's 128-row blocks; the wrappers
+    count one launch each, on their own counter (K16's f32 kernel and
+    K12's m > 64 kernel have their own)."""
     K = max(256, K // 256 * 256)
     args = _packed4_problem(dev, "lut" if kind == "lut32" else kind, m, K,
                             N, seed=m + K, f32=kind == "lut32")
     name, counter_name = _PACKED4[kind]
+    if kind == "q4k" and m > 64:
+        counter_name = "GGUF_Q4K_GEMM_LAUNCHES"
     counter = getattr(tqm, counter_name)
-    others = [getattr(tqm, c) for _, c in _PACKED4.values()
-              if c != counter_name]
+    others = [getattr(tqm, c) for c in sorted(
+        {c for _, c in _PACKED4.values()} | {"GGUF_Q4K_GEMM_LAUNCHES"})
+        if c != counter_name]
     before = counter.count, [c.count for c in others]
     got = getattr(tqm, name)(*args)
     want = getattr(tqm, name + "_plain")(*args)
@@ -720,6 +728,111 @@ def test_k12_k16_k17_kernels_take_unaligned_rows(dev, kind):
     assert shifted.data_ptr() % 16 and shifted.is_contiguous()
     fn = getattr(tqm, _PACKED4[kind][0])
     assert torch.equal(fn(shifted, *args[1:]), fn(x, *args[1:]))
+
+
+@pytest.mark.parametrize("m", [65, 72, 200, 300, 1000])
+@pytest.mark.parametrize("K,N", _PROJ + ((2048, 384), (1024, 1152)))
+def test_k12_gemm_matches_plain(dev, m, K, N):
+    """K12 at m > 64 (quant_gemm_kernel<4, kQ4k>: 128 x 256 tiles, N 384
+    and 1152 ending on a half tile) against its plain version, one launch
+    and, where the plan splits, the split reduce counted; a control (dl
+    and ml shifted by one 32-row group) must miss the tolerance."""
+    x, qw, dl, ml = _packed4_problem(dev, "q4k", m, K, N, seed=m + K + N)
+    before = (tqm.GGUF_Q4K_GEMM_LAUNCHES.count,
+              tqm.GGUF_Q4K_MATMUL_LAUNCHES.count,
+              tqm.QUANT_GEMM_REDUCE_LAUNCHES.count)
+    got = tqm.gguf_q4k_matmul(x, qw, dl, ml)
+    want = tqm.gguf_q4k_matmul_plain(x, qw, dl, ml)
+    bad = tqm.gguf_q4k_matmul_plain(x, qw, dl.roll(1, 0), ml.roll(1, 0))
+    torch.cuda.synchronize()
+    splits, _ = tqm.gemm_plan(m, K, N, 64, tqm.build.sm_count(dev))
+    assert (tqm.GGUF_Q4K_GEMM_LAUNCHES.count,
+            tqm.GGUF_Q4K_MATMUL_LAUNCHES.count,
+            tqm.QUANT_GEMM_REDUCE_LAUNCHES.count) == \
+        (before[0] + 1, before[1], before[2] + int(splits > 1))
+    assert got.dtype == torch.bfloat16 and got.shape == (m, N)
+    _close(got, want)
+    assert _misses(got, bad)
+
+
+@pytest.mark.parametrize("m,K,N", [(72, 4096, 4096), (300, 14336, 4096),
+                                   (200, 1024, 1152)])
+def test_k12_gemm_takes_views_of_x(dev, m, K, N):
+    """K12 at m > 64 on x given as a view at a row offset (TMA loads it)
+    and at an unaligned element offset (the consumers store it), against
+    the plain version on a copy."""
+    x_all, qw, dl, ml = _packed4_problem(dev, "q4k", m + 8, K, N, seed=m)
+    for what, x in _views(x_all, m).items():
+        assert x.is_contiguous() and x.data_ptr() != x_all.data_ptr(), what
+        got = tqm.gguf_q4k_matmul(x, qw, dl, ml)
+        want = tqm.gguf_q4k_matmul_plain(x.clone(), qw, dl, ml)
+        torch.cuda.synchronize()
+        _close(got, want)
+
+
+@pytest.mark.parametrize("spread", ["narrow", "wide", "mixed"])
+def test_k12_gemm_dequantizes_exactly(dev, spread):
+    """With x rows of the identity (m 128, each row one 1), K12's m > 64
+    kernel returns rows of its dequantized W tile: they equal the plain
+    version's bf16 W bit for bit (zeros of either sign taken as one).
+    dl and ml (either sign, some ml zero) span 2^-8 .. 2^-4 ("narrow"),
+    2^-20 .. 2^0 ("wide": q * dl - ml often rounds in f32 before it
+    rounds to bf16, where one bf16 rounding can differ), or the two in
+    alternate 32-column runs ("mixed")."""
+    K, N = 1024, 1152
+    g = torch.Generator(device=dev).manual_seed(12)
+    qw = torch.randint(-2 ** 31, 2 ** 31, (K // 8, N), generator=g,
+                       device=dev, dtype=torch.int64).to(torch.int32)
+
+    def spread_of(lo, hi, signed):
+        e = torch.randint(lo, hi + 1, (K // 32, N), generator=g, device=dev)
+        v = (1 + torch.rand(K // 32, N, generator=g, device=dev)) * \
+            torch.exp2(e.float())
+        if signed:
+            v = v * torch.where(torch.rand(K // 32, N, generator=g,
+                                           device=dev) < 0.5, -1.0, 1.0)
+            v[torch.rand(K // 32, N, generator=g, device=dev) < 0.05] = 0
+        return v.to(torch.bfloat16)
+    narrow = spread_of(-8, -5, False), spread_of(-8, -5, True)
+    wide = spread_of(-20, 0, False), spread_of(-20, 0, True)
+    if spread == "mixed":
+        run = (torch.arange(N, device=dev) // 32) % 2 == 0
+        dl, ml = (torch.where(run, a, b) for a, b in zip(narrow, wide))
+    else:
+        dl, ml = narrow if spread == "narrow" else wide
+    w = tqm.gguf_q4k_dequantize_plain(qw, dl, ml, torch.bfloat16)
+    for r0 in range(0, K, 128):
+        x = torch.zeros(128, K, dtype=torch.bfloat16, device=dev)
+        x[torch.arange(128, device=dev), r0 + torch.arange(128, device=dev)] = 1
+        got = tqm.gguf_q4k_matmul(x, qw, dl, ml)
+        torch.cuda.synchronize()
+        assert torch.equal((got + 0).view(torch.int16),
+                           (w[r0:r0 + 128] + 0).view(torch.int16)), r0
+
+
+def test_k13_gemm_dequantizes_exactly(dev):
+    """With x rows of the identity (m 128), K13's m > 64 kernel returns
+    rows of its dequantized W tile: bf16(q * d) bit for bit as the plain
+    version rounds it (zeros of either sign taken as one), for every int8
+    code and d of either sign over 2^-20 .. 2^1."""
+    K, N = 1024, 1152
+    g = torch.Generator(device=dev).manual_seed(13)
+    qs = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    e = torch.randint(-20, 2, (K // 32, N), generator=g, device=dev)
+    d = ((1 + torch.rand(K // 32, N, generator=g, device=dev)) *
+         torch.exp2(e.float()) *
+         torch.where(torch.rand(K // 32, N, generator=g, device=dev) < 0.5,
+                     -1.0, 1.0)).to(torch.bfloat16)
+    w = (qs.float() * d.float().repeat_interleave(32, dim=0)).to(
+        torch.bfloat16)
+    for r0 in range(0, K, 128):
+        x = torch.zeros(128, K, dtype=torch.bfloat16, device=dev)
+        x[torch.arange(128, device=dev), r0 + torch.arange(128, device=dev)] = 1
+        got = tqm.gguf_q8_matmul(x, qs, d)
+        torch.cuda.synchronize()
+        assert torch.equal((got + 0).view(torch.int16),
+                           (w[r0:r0 + 128] + 0).view(torch.int16)), r0
 
 
 def test_k12_k16_k17_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -500,8 +500,9 @@ def test_gemm_plan_splits_start_on_groups_and_none_is_empty(sms):
                 assert tqm.gemm_plan(m, K, N, gs, sms) == (splits, per)
 
 
-# K14's and K15's plans at m > 64 (`gemm_plan` over 64-row chunks, 128 x
-# 256 tiles; over 128-row groups, 128 x 128 tiles), on 132 SMs.
+# K12's, K13's and K14's plans at m > 64 (`gemm_plan` over 64-row chunks,
+# 128 x 256 tiles) and K15's (over 128-row groups, 128 x 128 tiles), on
+# 132 SMs.
 @pytest.mark.parametrize("m,K,N,unit,block_n,want", [
     (65, 4096, 4096, 64, 256, (8, 8)),      # 16 tiles: 8 splits of 8 chunks
     (72, 4096, 6144, 64, 256, (5, 13)),
@@ -513,18 +514,25 @@ def test_gemm_plan_splits_start_on_groups_and_none_is_empty(sms):
     (128, 4096, 28672, 128, 128, (1, 32)),  # 224 tiles cover the SMs
     (256, 14336, 4096, 128, 128, (2, 56)),
     (4096, 4096, 4096, 128, 128, (1, 32)),
+    # K12 and K13 (K14's unit and tile) at the rest of Mistral-7B's shapes.
+    (65, 4096, 6144, 64, 256, (5, 13)),     # 24 tiles: 5 splits of 13
+    (96, 4096, 28672, 64, 256, (1, 64)),    # 112 tiles: no split
+    (129, 14336, 4096, 64, 256, (4, 56)),   # 2 row tiles x 16
+    (200, 4096, 4096, 64, 256, (4, 16)),
+    (512, 4096, 6144, 64, 256, (1, 64)),
+    (4096, 4096, 28672, 64, 256, (1, 64)),
 ])
 def test_gguf_gemm_plan_table(m, K, N, unit, block_n, want):
     assert tqm.gemm_plan(m, K, N, unit, 132, block_n=block_n) == want
 
 
 @pytest.mark.parametrize("sms", [132, 114, 66])
-@pytest.mark.parametrize("kernel", ["k14", "k15"])
+@pytest.mark.parametrize("kernel", ["k12", "k13", "k14", "k15"])
 def test_gguf_gemm_plan_splits_start_on_a_unit_and_fit_the_sms(kernel, sms):
-    """Every split starts on a 64-row chunk (K14) or a 128-row scale group
-    (K15), none is empty, and where the plan splits, tiles x splits stays
-    within the SMs."""
-    unit, block_n = (64, 256) if kernel == "k14" else (128, 128)
+    """Every split starts on a 64-row chunk (K12-K14) or a 128-row scale
+    group (K15), none is empty, and where the plan splits, tiles x splits
+    stays within the SMs."""
+    unit, block_n = (128, 128) if kernel == "k15" else (64, 256)
     for m in (65, 72, 96, 128, 129, 200, 256, 257, 512, 1000, 4096):
         for K, N in ((4096, 6144), (4096, 4096), (4096, 28672),
                      (14336, 4096), (2048, 384), (256, 128)):
@@ -573,3 +581,86 @@ def test_tiling_reads_the_sm_count():
     assert tqm._tiling(4096, 4096, 4096, 128, False, 66) == (128, 1)
     with pytest.raises(ValueError):
         tqm._tiling(65, 4096, 4096, 128, True, 132)
+
+
+def _bf16_sweep(lo_exp: int, hi_exp: int) -> np.ndarray:
+    """Every positive normal bf16 value with a binary exponent in [lo_exp,
+    hi_exp], as float64 (128 mantissas per exponent)."""
+    bits = np.arange(0x0080, 0x7F80, dtype=np.uint32)
+    v = (bits << 16).view(np.float32).astype(np.float64)
+    e = np.floor(np.log2(v))
+    return v[(e >= lo_exp) & (e <= hi_exp)]
+
+
+def _two_sum_err(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The rounding error of a + b in float64 (Knuth's TwoSum): zero where
+    the float64 sum is exact."""
+    s = a + b
+    bb = s - a
+    return (a - (s - bb)) + (b - bb)
+
+
+def test_k12_decoder_fma_rounds_as_the_plain_version():
+    """K12's m > 64 decoder writes bf16(fma(q, dl, -ml)) in f32, where the
+    plain version (and the Pallas body) rounds q * dl, subtracts ml and
+    rounds, then rounds to bf16. For every code 0-15 and every bf16 dl of
+    33 binades q * dl is exact in f32 (4 by 8 significant bits), so both
+    round the exact difference, taken in float64 (checked exact), once to
+    f32: the same value, and the same bf16. The plain version's own
+    dequantization gives that bf16 too."""
+    dl = _bf16_sweep(-24, 8)
+    rs = np.random.RandomState(12)
+    ml = np.concatenate([[0.0], rs.choice(dl, 31), -rs.choice(dl, 16)])
+    q = np.arange(16, dtype=np.float64)
+    prod = q[:, None] * dl[None, :]
+    assert np.array_equal(prod.astype(np.float32).astype(np.float64), prod)
+    prod = prod[:, :, None]
+    exact = prod - ml
+    assert not _two_sum_err(prod, -ml).any()
+    fma32 = exact.astype(np.float32)               # one rounding
+    f32 = np.float32
+    twice = (q.astype(f32)[:, None, None] * dl.astype(f32)[None, :, None]) \
+        - ml.astype(f32)                           # mul, then sub
+    assert np.array_equal(fma32, twice)
+    # One rounding straight to bf16 (what a bf16 fma would give) differs
+    # from these two on the sweep, so the decoder keeps the f32 step.
+    mant, exp = np.frexp(exact)
+    once = np.ldexp(np.round(mant * 256), exp - 8)
+    assert (once != torch.from_numpy(fma32).to(torch.bfloat16).double()
+            .numpy()).any()
+    # The plain version on a layout that holds codes 0-15 (rows k % 16)
+    # in every column: columns sweep dl, 32-row groups sweep ml.
+    n = 1024
+    cols = np.linspace(0, dl.size - 1, n).astype(np.int64)
+    groups = ml.size
+    codes = np.tile(np.arange(16, dtype=np.int64), 2 * groups)
+    words = np.zeros(codes.size // 8, dtype=np.int64)
+    for p in range(8):
+        words |= codes[p::8] << (4 * p)
+    qweight = torch.from_numpy(np.repeat(
+        words.astype(np.uint32).view(np.int32)[:, None], n, axis=1))
+    dl_t = torch.from_numpy(np.repeat(dl[cols][None, :], groups, 0)).to(
+        torch.bfloat16)
+    ml_t = torch.from_numpy(np.repeat(ml[:, None], n, 1)).to(torch.bfloat16)
+    assert torch.equal(dl_t.double(), torch.from_numpy(
+        np.repeat(dl[cols][None, :], groups, 0)))   # bf16 values, exact
+    w = tqm.gguf_q4k_dequantize_plain(qweight, dl_t, ml_t, torch.bfloat16)
+    rows = np.arange(codes.size)[:, None]
+    want = torch.from_numpy(fma32[codes[:, None], cols[None, :], rows // 32])
+    assert torch.equal(w, want.to(torch.bfloat16))
+
+
+def test_byte_decoder_fma_is_exact():
+    """K13's and K14's m > 64 decoder writes bf16(fma(2^23 + q + 128, d,
+    -(2^23 + 128) d)): the addend is exact in f32 (17 by 8 significant
+    bits, under 2^24), so the fma gives q * d exactly, for every int8
+    code and every bf16 d of 41 binades, and the pack rounds it once, as
+    the plain version rounds q * d."""
+    d = _bf16_sweep(-30, 10)
+    q = np.arange(-128, 128, dtype=np.float64)[:, None]
+    c = -(2.0 ** 23 + 128) * d
+    assert np.array_equal(c.astype(np.float32).astype(np.float64), c)
+    prod = (2.0 ** 23 + q + 128) * d              # exact in float64
+    assert not _two_sum_err(prod, c).any()
+    fma32 = (prod + c).astype(np.float32)
+    assert np.array_equal(fma32.astype(np.float64), q * d)
