@@ -3,12 +3,13 @@
 //
 // Replaces the twelve Pallas TPU kernels of
 // aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6, K10 and, at
-// m > 64, K12, K13 and K14 are one templated kernel, quant_gemm_kernel
-// (warp-specialized wgmma, below), with a word decoder each; K15 at
-// m > 64 is w8a8_gemm_kernel (s8 wgmma and a per-group fold, below);
-// K7, K8 and K11 another, quant_mma_kernel; K17 and K13 / K14 / K15 at
-// m <= 64 a third, int8_mma_kernel; K16 and K12 at m <= 64 a fourth,
-// nib_mma_kernel. The last three share the block tile, the x staging,
+// m > 64, K12, K13, K14, K16 on bf16 x and K17 are one templated kernel,
+// quant_gemm_kernel (warp-specialized wgmma, below), with a word decoder
+// each; K15 at m > 64 is w8a8_gemm_kernel (s8 wgmma and a per-group fold,
+// below); K7, K8 and K11 another, quant_mma_kernel; K13-K15 and K17 at
+// m <= 64 a third, int8_mma_kernel; K12 and K16 on bf16 x at m <= 64 and
+// K16 on f32 x a fourth, nib_mma_kernel. The last three share the block
+// tile, the x staging,
 // the mma.sync fragments, the A8 group fold, the epilogue and the
 // launcher (Tile, stage_x, mma_chunk, fold_group, store_tile,
 // launch_tiles) and differ only in how they load the W words and write
@@ -16,10 +17,13 @@
 //   _gguf_q4k_kernel (:1117)   -> nib_mma_kernel<Q4K> at m <= 64,
 //                                 quant_gemm_kernel<4, kQ4k> above (K12,
 //                                 Q4_K exact)
-//   _sqllm_kernel (:1630)      -> nib_mma_kernel<LUT> (K16, bf16 x) and
-//                                 nib_mma_kernel<LUT, X32> (K16, f32 x)
-//   _int8_kernel (:1706)       -> int8_mma_kernel<G 0> (K17, int8 per
-//                                 column)
+//   _sqllm_kernel (:1630)      -> nib_mma_kernel<LUT> at m <= 64,
+//                                 quant_gemm_kernel<4, kLut> above (K16,
+//                                 bf16 x), and nib_mma_kernel<LUT, X32>
+//                                 (K16, f32 x)
+//   _int8_kernel (:1706)       -> int8_mma_kernel<G 0> at m <= 64,
+//                                 quant_gemm_kernel<8, kInt8> above (K17,
+//                                 int8 per column)
 //   _gguf_q8_kernel (:1210)    -> int8_mma_kernel<G 32> at m <= 64,
 //                                 quant_gemm_kernel<8, kQ8> above (K13,
 //                                 Q8_0)
@@ -96,11 +100,14 @@
 // x and W tiles in L2. Where the 128 x 256 tiles fall short of the SMs
 // (decode batches of 65-256 rows) the groups are split over blocks
 // (gemm_plan in the wrapper) and split_reduce_kernel adds the f32
-// partials in split order. The GGUF products at m > 64 (K12-K14) take
-// the same kernel with their own decoders (K12's words are GPTQ's 4-bit
-// layout with a (dl, ml) pair per 32 rows in place of the scale and
-// zero; K13's and K14's bytes the MN-major tile, a scale row per 32 or
-// 16 rows), 64-row chunks as the split unit and two W tiles.
+// partials in split order. The GGUF products at m > 64 (K12-K14), K16 on
+// bf16 x and K17 take the same kernel with their own decoders (K12's
+// words are GPTQ's 4-bit layout with a (dl, ml) pair per 32 rows in place
+// of the scale and zero; K13's and K14's bytes the MN-major tile, a scale
+// row per 32 or 16 rows; K16 K12's words through a per-column codebook
+// held in shared memory for the whole block; K17 K13's bytes with no
+// rows, its f32 column scale in the epilogue), 64-row chunks as the
+// split unit and two W tiles.
 // The other kernels: a block owns BM rows x 128 columns of the output
 // and walks its quantization groups in order; each group is cut into
 // 64-deep k chunks.
@@ -215,6 +222,7 @@ struct Tile {
   static constexpr int LD = kChunk + Elem<A8>::kPad;
   static constexpr int VEC = 16 / static_cast<int>(sizeof(T));   // x per uint4
   static_assert(MI >= 1 && NI >= 1 && WM % 16 == 0 && WN % 8 == 0, "tile");
+  static_assert(VEC * sizeof(T) == 16, "16-byte x loads");
 };
 
 // This thread's place in the tile: warp row wm and column wn, and its
@@ -693,24 +701,6 @@ int8_mma_kernel(const typename TL::T* __restrict__ x,
                        chunks_per_split, cs);
 }
 
-// The bf16 128-row tile (K17 above 64 rows) with two blocks per SM, at
-// most 128 registers: left free K13's instance took 138 and ran one block
-// per SM, about 1.6x slower at m 4096. Naming a minimum for the other
-// tiles raises their registers and slows decode, so they keep
-// int8_mma_kernel's bound.
-template <class TL, int G>
-__global__ void __launch_bounds__(kThreads, 2)
-int8_mma_kernel_2blk(const typename TL::T* __restrict__ x,
-                     const float* __restrict__ xs,
-                     const uint32_t* __restrict__ qs,
-                     const __nv_bfloat16* __restrict__ scales,
-                     __nv_bfloat16* __restrict__ out,
-                     float* __restrict__ partial, int m, int K, int N,
-                     int chunks_per_split, const float* __restrict__ cs) {
-  int8_mma_tile<TL, G>(x, xs, qs, scales, out, partial, m, K, N,
-                       chunks_per_split, cs);
-}
-
 // K16 on f32 x: stage x rows [m0, m0 + BM) x k [k0, k0 + 64) as two bf16
 // tiles, hi = bf16(x) and lo = bf16(x - hi), zeros past m; 16-byte f32
 // loads when `vec` (aligned rows).
@@ -910,12 +900,17 @@ __global__ void split_reduce_kernel(const float* __restrict__ partial,
 // ------------------------------------------------------------ K6 / K10 --
 //
 // quant_gemm_kernel<BITS, D>: the W4A16 / W8A16 product at m > 64 (see
-// the header), and the GGUF products at m > 64, where the split unit is
-// one 64-row chunk: K14's (D kI8g: the codes are bytes, the scale rows
-// come four to a chunk, there is no zero row), K13's (kQ8: K14's layout
-// with two scale rows a chunk) and K12's (kQ4k: GPTQ's 4-bit words, two
-// dl rows where GPTQ has a scale row, two ml rows where it has a zero
-// row). One block owns 128 rows x 256 columns of
+// the header), and the GGUF, SqueezeLLM and int8-weight products at
+// m > 64, where the split unit is one 64-row chunk: K14's (D kI8g: the
+// codes are bytes, the scale rows come four to a chunk, there is no zero
+// row), K13's (kQ8: K14's layout with two scale rows a chunk), K12's
+// (kQ4k: GPTQ's 4-bit words, two dl rows where GPTQ has a scale row, two
+// ml rows where it has a zero row), K16's (kLut: K12's words and no rows;
+// the block's [16, 256] slice of the codebook loaded once into shared
+// memory beside the ring) and K17's (kInt8: K13's bytes and no rows; the
+// column scales times the f32 sums in the epilogue, or in
+// split_reduce_kernel after a split). One block owns 128 rows x 256
+// columns of
 // the output and walks its quantization groups in 64-deep chunks:
 //   - warp 8, the loader: one thread keeps a ring of kStages chunks in
 //     flight with TMA (the x tile in the 128-byte swizzle, the packed
@@ -937,46 +932,63 @@ constexpr int kWtTiles = 3;                 // bf16 W tiles in the ring
 constexpr int kXBytes = kBM * kBK * 2;      // one x stage, 16 KB
 constexpr int kWtBytes = kBN * kBK * 2;     // one bf16 W tile, 32 KB
 
-// The word decoders: GPTQ and AWQ packed codes (K6, K10), and GGUF's
-// forms (no zero point): grouped int8 (K14: int8 codes [K, N], a bf16
-// scale row per 16 input rows), Q8_0 (K13: the same codes, a scale row
-// per 32) and exact Q4_K (K12: GPTQ's 4-bit K-major words [K / 8, N],
-// a bf16 (dl, ml) pair of rows per 32 input rows).
-enum class Dec { kGptq, kAwq, kI8g, kQ8, kQ4k };
+// The word decoders: GPTQ and AWQ packed codes (K6, K10), GGUF's forms
+// (no zero point): grouped int8 (K14: int8 codes [K, N], a bf16 scale row
+// per 16 input rows), Q8_0 (K13: the same codes, a scale row per 32) and
+// exact Q4_K (K12: GPTQ's 4-bit K-major words [K / 8, N], a bf16 (dl, ml)
+// pair of rows per 32 input rows); and two with no rows per chunk:
+// SqueezeLLM's (K16 on bf16 x: K12's words, each code looked up in its
+// column's 16-entry bf16 codebook, lut [N, 16]) and int8 weights' (K17:
+// K13's codes as they are, times an f32 scale per column in the
+// epilogue).
+enum class Dec { kGptq, kAwq, kI8g, kQ8, kQ4k, kLut, kInt8 };
 
 template <int BITS, Dec D>
 struct Cfg {
   static constexpr int kPack = 32 / BITS;
-  // The GGUF decoders: every chunk is whole (64 rows of whole scale
-  // groups), and one chunk is the split unit.
-  static constexpr bool kGguf =
-      D == Dec::kI8g || D == Dec::kQ8 || D == Dec::kQ4k;
-  // Byte codes [K, N] (K13, K14), read as rows of 256 columns.
-  static constexpr bool kBytes = D == Dec::kI8g || D == Dec::kQ8;
+  // K12-K14, K16 and K17: every chunk is whole (64 rows of whole scale
+  // groups, where there are any), and one chunk is the split unit.
+  static constexpr bool kChunked = D == Dec::kI8g || D == Dec::kQ8 ||
+                                   D == Dec::kQ4k || D == Dec::kLut ||
+                                   D == Dec::kInt8;
+  // Byte codes [K, N] (K13, K14, K17), read as rows of 256 columns.
+  static constexpr bool kBytes =
+      D == Dec::kI8g || D == Dec::kQ8 || D == Dec::kInt8;
+  // 4-bit codes 8 rows to a word, [K / 8, N] (K12, K16).
+  static constexpr bool kNibWords = D == Dec::kQ4k || D == Dec::kLut;
   // The W tile wgmma reads: K-major (W^T rows of 64 k) where a word holds
-  // one column's k rows (GPTQ, K12), else MN-major.
-  static constexpr bool kKMajor = D == Dec::kGptq || D == Dec::kQ4k;
-  // The GGUF decoders keep two W tiles, not three, for a fourth (K13,
-  // K14) or fifth (K12) stage: with 26-34 KB stages the loads are
-  // latency-bound, so bytes in flight set the rate (K12's five stages
+  // one column's k rows (GPTQ, K12, K16), else MN-major.
+  static constexpr bool kKMajor = D == Dec::kGptq || kNibWords;
+  // The chunked decoders keep two W tiles, not three, for a fourth (K13,
+  // K14, K17) or fifth (K12, K16) stage: with 24-34 KB stages the loads
+  // are latency-bound, so bytes in flight set the rate (K12's five stages
   // and three tiles would pass the 232 448-byte opt-in limit by 80).
-  static constexpr int kWt = kGguf ? 2 : kWtTiles;
+  static constexpr int kWt = kChunked ? 2 : kWtTiles;
   static constexpr int kStages =
-      kBytes ? 4 : D == Dec::kQ4k ? 5 : BITS == 8 ? 3 : 5;
+      kBytes ? 4 : kNibWords ? 5 : BITS == 8 ? 3 : 5;
   static constexpr int kWordBytes = kBK * kBN * BITS / 8;   // packed W
   // Scale rows a chunk: one (GPTQ, AWQ), K14's four (a row per 16 of its
-  // 64 k), K13's and K12's two (a row per 32).
-  static constexpr int kSRows = D == Dec::kI8g ? 4 : kGguf ? 2 : 1;
+  // 64 k), K13's and K12's two (a row per 32), none for K16 and K17.
+  static constexpr int kSRows = D == Dec::kI8g                   ? 4
+                                : D == Dec::kQ8 || D == Dec::kQ4k ? 2
+                                : kChunked                        ? 0
+                                                                  : 1;
   static constexpr int kSBytes = kBN * 2 * kSRows;
-  // The zero row (GPTQ, AWQ) or K12's ml rows; none for byte codes.
-  static constexpr int kZBytes =
-      kBytes ? 0 : D == Dec::kQ4k ? kSBytes : kBN * BITS / 8;
+  // The zero row (GPTQ, AWQ) or K12's ml rows; none for the others.
+  static constexpr int kZBytes = D == Dec::kQ4k ? kSBytes
+                                 : kChunked     ? 0
+                                                : kBN * BITS / 8;
   static constexpr int kBarBytes = 8 * 2 * kStages;
   // Bytes one stage's TMA loads bring (x counted only when TMA loads it).
   static constexpr int kWsBytes = kWordBytes + kSBytes + kZBytes;
   static constexpr int kSmemBytes =
       1024 + kStages * (kXBytes + kWordBytes + kSBytes + kZBytes) +
       kWt * kWtBytes + kBarBytes;
+  // K16's codebook tile (`lut_smem`, static shared memory) beside the
+  // dynamic ring; a block's whole shared memory.
+  static constexpr int kLutBytes = D == Dec::kLut ? 16 * kBN * 4 : 0;
+  static constexpr int kBlockSmemBytes = kSmemBytes + kLutBytes;
+  static_assert(kBlockSmemBytes <= 232448, "the opt-in limit per block");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1145,12 +1157,47 @@ __device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// (a & b) | c.
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b,
+                                           uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
 // (v & 0x000f000f) | 0x43004300: two 4-bit codes q as bf16 128 + q.
 __device__ __forceinline__ uint32_t nib2(uint32_t v) {
-  uint32_t d;
-  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n"
-      : "=r"(d) : "r"(v), "r"(0x000f000fu), "r"(0x43004300u));
-  return d;
+  return and_or(v, 0x000f000fu, 0x43004300u);
+}
+
+// K17: the int8 codes b0, b1 of `w` picked by `sel` (0x4140: bytes 0
+// and 1; 0x4342: bytes 2 and 3) as a bf16 pair, exactly. The byte
+// permute sets 0x43 above each code (bf16 bits 0x43bb); one AND keeps
+// bf16 128 + (b & 0x7f), another bf16 128 + 128 (b >> 7); their bf16x2
+// difference is (b & 0x7f) - 128 (b >> 7) = q, exact (integers below
+// 2^8). Four instructions a pair, two a code.
+__device__ __forceinline__ uint32_t i8_pair(uint32_t w, uint32_t sel) {
+  const uint32_t t = __byte_perm(w, 0x43434343u, sel);
+  return bf2_sub(t & 0xff7fff7fu, t & 0xff80ff80u);
+}
+
+// K16's codebook tile at m > 64: entry q of the block's column n at word
+// q * 256 + n, the bf16 entry in the high half (an f32 of the same
+// value). A warp's 32 neighbouring columns fall in 32 distinct banks
+// whatever their codes. Static shared memory, so its address is a
+// constant the lookups take as an immediate.
+__device__ __forceinline__ uint32_t* lut_smem() {
+  __shared__ __align__(16) uint32_t lut[16 * kBN];
+  return lut;
+}
+
+// The byte offset in lut_smem of code `c` (0-7, bits 4c .. 4c + 3) of
+// word `w` for the column at byte offset `col` (4n, below 1024): the
+// code shifted to bits 10-13, then one lop3.
+__device__ __forceinline__ uint32_t lut_offset(uint32_t w, int c,
+                                               uint32_t col) {
+  const uint32_t s = c <= 2 ? w << (10 - 4 * c) : w >> (4 * c - 10);
+  return and_or(s, 0x3c00u, col);
 }
 
 // Byte offset of 16-byte piece `c` of 128-byte row `r` in the swizzle.
@@ -1166,7 +1213,9 @@ __device__ __forceinline__ int swz(int r, int c) {
 // product is rounded once. K14 (kI8g) and K13 (kQ8): bf16(float(q) * d),
 // d the scale row of the code's 16-row (K14) or 32-row (K13) group, as
 // the plain version rounds it. K12 (kQ4k): bf16(float(q * dl) - ml), as
-// the plain version and the Pallas body round it.
+// the plain version and the Pallas body round it. K16 (kLut): the
+// column's codebook entry lut[n][q] (bf16), bit for bit. K17 (kInt8):
+// bf16(q), exact.
 template <int BITS, Dec D, bool FULL>
 __device__ __forceinline__ void dequant_chunk(const uint32_t* ws,
                                               const uint32_t* zs,
@@ -1174,7 +1223,50 @@ __device__ __forceinline__ void dequant_chunk(const uint32_t* ws,
                                               unsigned char* wt, int kn,
                                               int tid) {
   constexpr int PACK = 32 / BITS;
-  if constexpr (Cfg<BITS, D>::kBytes) {
+  if constexpr (D == Dec::kInt8) {
+    // K17: columns 8j .. 8j + 7 (j = tid & 31) at rows k0 .. k0 + 7 (the
+    // byte branch's split below): each row's 8 codes (8 bytes of the
+    // stage) become one 16-byte piece of the MN-major tile, bf16(q)
+    // exactly as the plain version and the Pallas body cast them; no
+    // scale (the column's comes in the epilogue). 2 instructions a code.
+    const int j = tid & 31;
+    const int k0 = 16 * (tid >> 6) + 8 * ((tid >> 5) & 1);
+    const unsigned char* wb = reinterpret_cast<const unsigned char*>(ws);
+    unsigned char* blk = wt + (j >> 3) * (kBK * 128);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = k0 + i;
+      const uint2 q = *reinterpret_cast<const uint2*>(wb + k * kBN + 8 * j);
+      *reinterpret_cast<uint4*>(blk + swz(k, j & 7)) =
+          make_uint4(i8_pair(q.x, 0x4140), i8_pair(q.x, 0x4342),
+                     i8_pair(q.y, 0x4140), i8_pair(q.y, 0x4342));
+    }
+  } else if constexpr (D == Dec::kLut) {
+    // K16: column n = tid of the K-major tile, word kc holds rows 8kc ..
+    // 8kc + 7 (K12's words). Each code is this column's codebook entry,
+    // bit for bit: the code shifted into place, one lop3 with the
+    // column's offset, one ld.shared (lut_smem's address an immediate),
+    // and half a byte permute to pair two rows' bf16: 3.5 instructions a
+    // code.
+    const int n = tid;
+    const unsigned char* lut =
+        reinterpret_cast<const unsigned char*>(lut_smem());
+    const uint32_t col = static_cast<uint32_t>(n) << 2;
+    uint32_t w[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) w[r] = ws[r * kBN + n];
+#pragma unroll
+    for (int kc = 0; kc < 8; ++kc) {
+      uint32_t o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)   // rows 8kc + 2i and 8kc + 2i + 1
+        o[i] = __byte_perm(ld32(lut + lut_offset(w[kc], 2 * i, col)),
+                           ld32(lut + lut_offset(w[kc], 2 * i + 1, col)),
+                           0x7632);
+      *reinterpret_cast<uint4*>(wt + swz(n, kc)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else if constexpr (Cfg<BITS, D>::kBytes) {
     // Columns 8j .. 8j + 7 (j = tid & 31) at 8 rows of the chunk's
     // 16-row group r = tid / 64 (the first or second 8 by warp parity), so
     // a thread reads one scale row (K14's row r, K13's r / 2): each row's
@@ -1347,14 +1439,16 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
                   const __nv_bfloat16* __restrict__ x,
                   __nv_bfloat16* __restrict__ out,
                   float* __restrict__ partial, int m, int K, int N, int gs,
-                  int groups_per_split, int x_tma) {
+                  int groups_per_split, int x_tma,
+                  const void* __restrict__ cols) {
   using C = Cfg<BITS, D>;
   constexpr int S = C::kStages;
   constexpr int PACK = C::kPack;
   constexpr bool AWQ = D == Dec::kAwq;
   static_assert(!AWQ || BITS == 4, "AWQ packs 8 4-bit codes");
-  static_assert(!C::kBytes || BITS == 8, "K13's and K14's codes are bytes");
-  static_assert(D != Dec::kQ4k || BITS == 4, "K12's codes are 4-bit");
+  static_assert(!C::kBytes || BITS == 8,
+                "K13's, K14's and K17's codes are bytes");
+  static_assert(!C::kNibWords || BITS == 4, "K12's and K16's codes are 4-bit");
 
   // The ring, 1024-byte aligned for the 128-byte swizzle; offset from
   // smem_raw (not through an integer) so that accesses stay ld/st.shared.
@@ -1415,15 +1509,18 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
       if (x_tma) tma_load(x_s + slot * kXBytes, &x_map, bar, k0, m0);
       if constexpr (C::kBytes) {
         // The [64, 256] code chunk and its four d16 (K14) or two d (K13)
-        // rows (gs is 64).
+        // rows, none for K17 (gs is 64).
         tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0, k0);
-        tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0,
-                 k0 / (kBK / C::kSRows));
-      } else if constexpr (D == Dec::kQ4k) {
-        // The chunk's 8 word rows and its two dl and two ml rows.
+        if constexpr (C::kSRows > 0)
+          tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0,
+                   k0 / (kBK / C::kSRows));
+      } else if constexpr (C::kNibWords) {
+        // The chunk's 8 word rows and K12's two dl and two ml rows.
         tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0, k0 / 8);
-        tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0, k0 / 32);
-        tma_load(z_s + slot * C::kZBytes, &z_map, bar, n0, k0 / 32);
+        if constexpr (D == Dec::kQ4k) {
+          tma_load(sc_s + slot * C::kSBytes, &s_map, bar, n0, k0 / 32);
+          tma_load(z_s + slot * C::kZBytes, &z_map, bar, n0, k0 / 32);
+        }
       } else {
         if constexpr (AWQ) {
           tma_load(words_s + slot * C::kWordBytes, &w_map, bar, n0 / 8, k0);
@@ -1473,7 +1570,7 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     unsigned char* wt = wt_s + (t % C::kWt) * kWtBytes;
     // A whole chunk (every chunk where the group size is a multiple of 64,
     // and every GGUF chunk) takes the unmasked instance.
-    if constexpr (C::kGguf) {
+    if constexpr (C::kChunked) {
       dequant_chunk<BITS, D, true>(ws, zs, ss, wt, kn, tid);
     } else if (kn == kBK) {
       dequant_chunk<BITS, D, true>(ws, zs, ss, wt, kn, tid);
@@ -1486,6 +1583,23 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
   };
 
+  if constexpr (D == Dec::kLut) {
+    // K16: this thread's column's 16 codebook entries, once per block
+    // (zeros past N: a half tile reads no codebook row of another
+    // matrix). A thread's lookups read only its own column's, so no
+    // barrier.
+    uint32_t v[16] = {};
+    if (n0 + tid < N) {
+      const uint16_t* src = static_cast<const uint16_t*>(cols) +
+                            static_cast<size_t>(n0 + tid) * 16;
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        v[q] = static_cast<uint32_t>(__ldg(src + q)) << 16;
+    }
+    uint32_t* lut = lut_smem();
+#pragma unroll
+    for (int q = 0; q < 16; ++q) lut[q * kBN + tid] = v[q];
+  }
   float acc[128];
   const uint32_t x_base = smem_u32(x_s) + wg * 64 * 128;
   const uint32_t wt_base = smem_u32(wt_s);
@@ -1547,12 +1661,19 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     for (int h = 0; h < 2; ++h) {
       const int r = row + h * 8;
       if (r >= m) continue;
-      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
       if (partial != nullptr) {
         *reinterpret_cast<float2*>(
             partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
             make_float2(v0, v1);
       } else {
+        if constexpr (D == Dec::kInt8) {
+          // K17: bf16(sum * s[col]) in f32, as `_int8_kernel`'s flush
+          // (split_reduce_kernel applies it after a split).
+          const float* cs = static_cast<const float*>(cols);
+          v0 *= cs[col];
+          v1 *= cs[col + 1];
+        }
         *reinterpret_cast<__nv_bfloat162*>(
             out + static_cast<size_t>(r) * N + col) =
             __floats2bfloat162_rn(v0, v1);
@@ -1605,21 +1726,25 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
 // which split_reduce_kernel adds in split order. Four tensor maps per
 // call (a host encoding each, no device work). The dynamic shared memory
 // above 48 KB is allowed once per instance.
-// The GGUF decoders take gs the split unit, 64 rows, and no zero rows:
+// The chunked decoders take gs the split unit, 64 rows, and no zero rows:
 // K14 (kI8g) and K13 (kQ8): qweight is the int8 codes [K, N], scales the
 // d16 rows [K / 16, N] or the d rows [K / 32, N]; K12 (kQ4k): qweight the
 // 4-bit words [K / 8, N], scales the dl rows and qzeros the ml rows, both
-// [K / 32, N].
+// [K / 32, N]; K16 (kLut): qweight K12's words, `cols` the codebook
+// [N, 16] bf16; K17 (kInt8): qweight K13's codes, `cols` the column scales
+// [N] f32 (applied by split_reduce_kernel after a split).
 template <int BITS, Dec D>
 int launch_gemm(const void* x, const void* qweight, const void* qzeros,
                 const void* scales, void* out, float* partial, int m, int K,
-                int N, int gs, int splits, cudaStream_t stream) {
+                int N, int gs, int splits, cudaStream_t stream,
+                const void* cols = nullptr) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
   using C = Cfg<BITS, D>;
   constexpr bool AWQ = D == Dec::kAwq;
   constexpr int PACK = C::kPack;
   if (splits < 1 || gs <= 0 || K % gs != 0 || N % 128 != 0 ||
-      (!AWQ && gs % PACK != 0) || (C::kGguf && gs != kBK))
+      (!AWQ && gs % PACK != 0) || (C::kChunked && gs != kBK) ||
+      ((D == Dec::kLut || D == Dec::kInt8) && cols == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = quant_gemm_kernel<BITS, D>;
   constexpr int smem = Cfg<BITS, D>::kSmemBytes;
@@ -1641,16 +1766,22 @@ int launch_gemm(const void* x, const void* qweight, const void* qzeros,
   bool ok = !x_tma || tensor_map(&x_map, kBf16, 2, x, K, m, kBK, kBM,
                                   CU_TENSOR_MAP_SWIZZLE_128B);
   if constexpr (C::kBytes) {
-    constexpr int rows = kBK / C::kSRows;      // input rows a scale row
     ok = ok && tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qweight,
                           N, K, kBN, kBK, kFlat);
-    ok = ok && tensor_map(&s_map, kBf16, 2, scales, N, K / rows, kBN,
-                          C::kSRows, kFlat);
-  } else if constexpr (D == Dec::kQ4k) {
+    if constexpr (C::kSRows > 0) {
+      constexpr int rows = kBK / C::kSRows;    // input rows a scale row
+      ok = ok && tensor_map(&s_map, kBf16, 2, scales, N, K / rows, kBN,
+                            C::kSRows, kFlat);
+    }
+  } else if constexpr (C::kNibWords) {
     ok = ok && tensor_map(&w_map, kU32, 4, qweight, N, K / 8, kBN, kBK / 8,
                           kFlat);
-    ok = ok && tensor_map(&s_map, kBf16, 2, scales, N, K / 32, kBN, 2, kFlat);
-    ok = ok && tensor_map(&z_map, kBf16, 2, qzeros, N, K / 32, kBN, 2, kFlat);
+    if constexpr (D == Dec::kQ4k) {
+      ok = ok &&
+           tensor_map(&s_map, kBf16, 2, scales, N, K / 32, kBN, 2, kFlat);
+      ok = ok &&
+           tensor_map(&z_map, kBf16, 2, qzeros, N, K / 32, kBN, 2, kFlat);
+    }
   } else {
     ok = ok && (AWQ ? tensor_map(&w_map, kU32, 4, qweight, N / 8, K,
                                  kBN / 8, kBK, kFlat)
@@ -1665,13 +1796,15 @@ int launch_gemm(const void* x, const void* qweight, const void* qzeros,
   const dim3 grid((N + kBN - 1) / kBN, (m + kBM - 1) / kBM, splits);
   kernel<<<grid, kThreads, smem, stream>>>(
       x_map, w_map, s_map, z_map, static_cast<const __nv_bfloat16*>(x),
-      static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, gps, x_tma);
+      static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, gps, x_tma, cols);
   if (splits > 1) {
     const size_t total = static_cast<size_t>(m) * N;
     const int threads = 256;
     split_reduce_kernel<__nv_bfloat16>
         <<<static_cast<unsigned>((total + threads - 1) / threads), threads,
-           0, stream>>>(partial, nullptr, nullptr,
+           0, stream>>>(partial, nullptr,
+                        D == Dec::kInt8 ? static_cast<const float*>(cols)
+                                        : nullptr,
                         static_cast<__nv_bfloat16*>(out), splits, m, N);
   }
   return static_cast<int>(cudaGetLastError());
@@ -2091,17 +2224,16 @@ int launch(const void* x, const float* xs, const void* qweight,
 
 // GGUF and K17: the split unit is 64 rows (A16) or one scale group (A8),
 // as the wrapper's `_tiling` counted them; cs, K17's column scales (G 0).
-// K13, K14 and K15 take only the 16-64-row tiles here: at m > 64 they run
-// quant_gemm_kernel<8, kQ8>, quant_gemm_kernel<8, kI8g> and
-// w8a8_gemm_kernel.
+// Only the 16-64-row tiles run here: at m > 64 K13, K14, K15 and K17 run
+// quant_gemm_kernel<8, kQ8>, quant_gemm_kernel<8, kI8g>,
+// w8a8_gemm_kernel and quant_gemm_kernel<8, kInt8>.
 template <int G, bool A8>
 int launch_int8(const void* x, const float* xs, const void* qs,
                 const void* scales, void* out, float* partial, int m, int K,
                 int N, int splits, int block_m, cudaStream_t stream,
                 const float* cs = nullptr) {
-  constexpr bool kSkinnyOnly = A8 || G == 16 || G == 32;
   if (m > 0 && (K % (A8 ? G : kChunk) != 0 || N % kBN != 0 ||
-                (kSkinnyOnly && block_m == 128)))
+                block_m == 128))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kUnitChunks = A8 ? G / kChunk : 1;
   const int units = K / (kChunk * kUnitChunks);
@@ -2109,32 +2241,28 @@ int launch_int8(const void* x, const float* xs, const void* qs,
   return launch_tiles<A8>(
       [&](auto tl, dim3 grid, float* part) {
         using TL = decltype(tl);
-        auto go = [&](auto* kernel) {
-          kernel<<<grid, kThreads, 0, stream>>>(
+        if constexpr (TL::BM != 128) {
+          int8_mma_kernel<TL, G><<<grid, kThreads, 0, stream>>>(
               static_cast<const typename TL::T*>(x), xs,
               static_cast<const uint32_t*>(qs),
               static_cast<const __nv_bfloat16*>(scales),
               static_cast<__nv_bfloat16*>(out), part, m, K, N,
               per * kUnitChunks, cs);
-        };
-        if constexpr (TL::BM == 128) {
-          if constexpr (!kSkinnyOnly) go(int8_mma_kernel_2blk<TL, G>);
-        } else {
-          go(int8_mma_kernel<TL, G>);
         }
       },
       block_m, xs, out, partial, m, N, splits, stream, cs);
 }
 
 // K12 and K16: the split unit is 64 rows. The dynamic shared memory above
-// 48 KB (the f32 variant) is allowed once per kernel instance. K12 takes
-// only the 16-64-row tiles here: at m > 64 it runs
-// quant_gemm_kernel<4, kQ4k>.
+// 48 KB (the f32 variant) is allowed once per kernel instance. K16 on f32
+// x (QuIP#) takes every tile here; K12 and K16 on bf16 x only the
+// 16-64-row tiles: at m > 64 they run quant_gemm_kernel<4, kQ4k> and
+// quant_gemm_kernel<4, kLut>.
 template <Nib MODE, bool X32>
 int launch_nib(const void* x, const void* qweight, const void* s0,
                const void* s1, void* out, float* partial, int m, int K,
                int N, int splits, int block_m, cudaStream_t stream) {
-  constexpr bool kSkinnyOnly = MODE == Nib::kQ4K;
+  constexpr bool kSkinnyOnly = !(MODE == Nib::kLut && X32);
   if (m > 0 && (K % kChunk != 0 || N % kBN != 0 ||
                 (kSkinnyOnly && block_m == 128)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2203,15 +2331,20 @@ extern "C" int quant_gemm_smem_bytes(int bits) {
                    : gemm::Cfg<4, gemm::Dec::kGptq>::kSmemBytes;
 }
 
-// Dynamic shared memory per block of the GGUF kernels' m > 64 kernel,
-// by kernel number: K12 (quant_gemm_kernel<4, kQ4k>), K13 (<8, kQ8>), K14
-// (<8, kI8g>) and K15 (w8a8_gemm_kernel); 0 for any other number.
+// Shared memory per block of the m > 64 kernel of K12-K17, by kernel
+// number: K12 (quant_gemm_kernel<4, kQ4k>), K13 (<8, kQ8>), K14 (<8,
+// kI8g>), K15 (w8a8_gemm_kernel), K16 on bf16 x (<4, kLut>: its dynamic
+// ring and 16 KB static codebook tile) and K17 (<8, kInt8>); 0 for any
+// other number. Every `Dec` of quant_gemm_kernel answers here or in
+// quant_gemm_smem_bytes.
 extern "C" int gguf_gemm_smem_bytes(int kernel) {
   switch (kernel) {
-    case 12: return gemm::Cfg<4, gemm::Dec::kQ4k>::kSmemBytes;
-    case 13: return gemm::Cfg<8, gemm::Dec::kQ8>::kSmemBytes;
-    case 14: return gemm::Cfg<8, gemm::Dec::kI8g>::kSmemBytes;
+    case 12: return gemm::Cfg<4, gemm::Dec::kQ4k>::kBlockSmemBytes;
+    case 13: return gemm::Cfg<8, gemm::Dec::kQ8>::kBlockSmemBytes;
+    case 14: return gemm::Cfg<8, gemm::Dec::kI8g>::kBlockSmemBytes;
     case 15: return gemm::kW8SmemBytes;
+    case 16: return gemm::Cfg<4, gemm::Dec::kLut>::kBlockSmemBytes;
+    case 17: return gemm::Cfg<8, gemm::Dec::kInt8>::kBlockSmemBytes;
     default: return 0;
   }
 }
@@ -2341,13 +2474,19 @@ extern "C" int gguf_q4k_mm(const void* x, const void* qweight, const void* dl,
 }
 
 // K16, bf16: y[m, N] = x[m, K] @ w, w[k, n] = lut[n, q[k, n]], lut [N, 16]
-// bf16 (SqueezeLLM).
+// bf16 (SqueezeLLM). block_m 128 is quant_gemm_kernel<4, kLut> (`splits`
+// runs of 64-row chunks, then split_reduce_kernel); 16, 32 and 64 the
+// skinny tiles.
 extern "C" int sqllm_mm(const void* x, const void* qweight, const void* lut,
                         void* out, float* partial, int m, int K, int N,
                         int splits, int block_m, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_m == 128)
+    return gemm::launch_gemm<4, gemm::Dec::kLut>(
+        x, qweight, nullptr, nullptr, out, partial, m, K, N, gemm::kBK,
+        splits, st, lut);
   return launch_nib<Nib::kLut, false>(x, qweight, lut, nullptr, out, partial,
-                                      m, K, N, splits, block_m,
-                                      static_cast<cudaStream_t>(stream));
+                                      m, K, N, splits, block_m, st);
 }
 
 // K16, f32: the same with f32 x, lut and y (QuIP#'s 4-bit at-rest form).
@@ -2361,10 +2500,17 @@ extern "C" int sqllm_mm_f32(const void* x, const void* qweight,
 }
 
 // K17: y[m, N] = bf16((x[m, K] @ int8 w[K, N]) * scales[N]), scales f32.
+// block_m 128 is quant_gemm_kernel<8, kInt8> (`splits` runs of 64-row
+// chunks, then split_reduce_kernel with the scales); 16, 32 and 64 the
+// skinny tiles.
 extern "C" int int8_mm(const void* x, const void* w, const float* scales,
                        void* out, float* partial, int m, int K, int N,
                        int splits, int block_m, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_m == 128)
+    return gemm::launch_gemm<8, gemm::Dec::kInt8>(
+        x, w, nullptr, nullptr, out, partial, m, K, N, gemm::kBK, splits,
+        st, scales);
   return launch_int8<0, false>(x, nullptr, w, nullptr, out, partial, m, K, N,
-                               splits, block_m,
-                               static_cast<cudaStream_t>(stream), scales);
+                               splits, block_m, st, scales);
 }

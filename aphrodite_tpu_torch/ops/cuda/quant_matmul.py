@@ -48,15 +48,18 @@ Port of the GPTQ, AWQ and GGUF parts of
   ml) pair per 32 rows), planned as K13's.
 - `squeezellm_matmul` (K16, Pallas `_sqllm_kernel`): the same 4-bit
   packing, w[k, n] = lut[n, q[k, n]] with a 16-entry codebook per output
-  column. Two kernels: bf16 x and codebook (SqueezeLLM), and f32 x and
-  codebook (QuIP#'s 4-bit at-rest form), whose products reach f32
-  accuracy by three bf16 products per term (x_hi w_hi + x_hi w_lo +
-  x_lo w_hi) with f32 sums; the output is in x's dtype.
+  column. bf16 x and codebook (SqueezeLLM): the skinny tiles at m <= 64;
+  above, K6's `quant_gemm_kernel` with a codebook decoder (K12's words,
+  the block's codebook slice in shared memory), planned as K13's. f32 x
+  and codebook (QuIP#'s 4-bit at-rest form): one kernel at every m,
+  whose products reach f32 accuracy by three bf16 products per term
+  (x_hi w_hi + x_hi w_lo + x_lo w_hi) with f32 sums, 128-row blocks and
+  no split above 64 rows; the output is in x's dtype.
 - `int8_matmul` (K17, Pallas `_int8_kernel`): y = (x @ int8 W [K, N]) *
   scales[N], the codes exact in bf16, the f32 sum times the column's
-  f32 scale, then rounded.
-  K16 and K17 tile m like the GGUF kernels above at m <= 64, and take
-  128-row blocks with no split above.
+  f32 scale, then rounded. The skinny tiles at m <= 64; above, K6's
+  `quant_gemm_kernel` with K13's bytes and no scale rows, planned as
+  K13's (the column scales in its epilogue, or in the split reduce).
 
 Layouts, as the checkpoints store them; scales [G, N], G = K //
 group_size, row k in group k // group_size (the kernels' contiguous
@@ -116,12 +119,16 @@ SQUEEZELLM_MATMUL_LAUNCHES = build.launch_counter("squeezellm_matmul")
 SQUEEZELLM_MATMUL_F32_LAUNCHES = build.launch_counter(
     "squeezellm_matmul_f32")
 INT8_MATMUL_LAUNCHES = build.launch_counter("int8_matmul")
-#: The reduce after a split K6, K10, K12-K14 or K15 launch (`gemm_plan`).
+#: K16's (bf16 x) and K17's m > 64 kernels (the two counters above count
+#: m <= 64; K16 on f32 x counts every m on its own).
+SQUEEZELLM_GEMM_LAUNCHES = build.launch_counter("squeezellm_gemm")
+INT8_GEMM_LAUNCHES = build.launch_counter("int8_gemm")
+#: The reduce after a split K6, K10 or K12-K17 launch (`gemm_plan`).
 QUANT_GEMM_REDUCE_LAUNCHES = build.launch_counter("quant_gemm_split_reduce")
 
 STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
 BLOCK_N = 128              # output columns per block
-GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K12-K14's output tile
+GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K12-K14 / K16 / K17
 W8A8_BLOCK_N = 128         # K15's at m > 64: 128 x 128
 _BLOCKS_PER_SM = 4         # split-K target: this many blocks per SM
 # AWQ: column 8j + e of a packed word sits at shift 4 * AWQ_ORDER[e].
@@ -444,8 +451,9 @@ def _check(x, qweight, qzeros, scales, bits, gs, what: str,
 def gemm_plan(m: int, K: int, N: int, gs: int, sms: int,
               block_n: int = GEMM_BLOCK_N) -> Tuple[int, int]:
     """(splits, groups per split) of a warpgroup-MMA kernel's grid
-    (N / block_n, m / 128, splits): K6 / K10 (groups of gs rows), K12-K14
-    (64-row chunks) and K15 (128-row groups, block_n 128), from shapes
+    (N / block_n, m / 128, splits): K6 / K10 (groups of gs rows), K12-K14,
+    K16 and K17 (64-row chunks) and K15 (128-row groups, block_n 128),
+    from shapes
     and the card's SM count alone (no host sync, so a CUDA graph can
     capture the launch). Where the 128 x block_n output tiles fall short
     of the SMs, the groups are split into contiguous runs so that tiles
@@ -537,11 +545,11 @@ def gemm_smem_bytes(bits: int) -> int:
 
 
 def gguf_gemm_smem_bytes(kernel: int) -> int:
-    """The dynamic shared memory per block of the m > 64 kernel of K12,
-    K13, K14 or K15 (`kernel`, the number), as its launcher asks for
-    it."""
-    if kernel not in (12, 13, 14, 15):
-        raise ValueError(f"no m > 64 GGUF kernel K{kernel}")
+    """The shared memory per block of the m > 64 kernel of K12-K17
+    (`kernel`, the number): its launcher's dynamic request, plus K16's
+    static 16 KB codebook tile."""
+    if kernel not in (12, 13, 14, 15, 16, 17):
+        raise ValueError(f"no m > 64 kernel K{kernel}")
     fn = build.library("quant_matmul").gguf_gemm_smem_bytes
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -701,8 +709,8 @@ def _tiled_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
     """One launch of a GGUF, K12, K16 or K17 entry point: `ptrs` are its
     input pointers, x [m, K] first. At m <= 64 the block covers 16-64
     rows and the K range is split over blocks in units of `unit` rows,
-    as `_tiling` splits K7's; above (K16, K17), 128-row blocks and no
-    split."""
+    as `_tiling` splits K7's; above (K16 on f32 x), 128-row blocks and
+    no split."""
     m, K = x.shape
     block_m, splits = _tiling(m, K, N, unit, m <= STREAM_M_MAX,
                               build.sm_count(x.device))
@@ -721,12 +729,13 @@ def _tiled_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
     return out
 
 
-def _gguf_launch(entry: str, x, ptrs: Tuple[int, ...], N: int, *,
+def _launch_by_m(entry: str, x, ptrs: Tuple[int, ...], N: int, *,
                  counter: build.LaunchCounter,
                  gemm_counter: build.LaunchCounter, what: str,
                  w8a8: bool = False) -> torch.Tensor:
-    """One launch of a GGUF entry point (K12-K15) on bf16 x or, with
-    `w8a8`, K9's int8 rows x; `ptrs` are its input pointers, x first.
+    """One launch of an entry point with an m > 64 warpgroup-MMA kernel
+    (K12-K15, K16 on bf16 x, K17) on bf16 x or, with `w8a8`, K9's int8
+    rows x; `ptrs` are its input pointers, x first.
     At m <= 64 the skinny tiles, split in units of 64 rows or (w8a8) of
     a 128-row scale group, counting on `counter`; above, the
     warpgroup-MMA kernel planned by `gemm_plan` over the same units (a
@@ -759,7 +768,7 @@ def gguf_q8_matmul(x: torch.Tensor, qs: torch.Tensor,
     if not build.on_cuda(x, qs, d):
         return gguf_q8_matmul_plain(x, qs, d)
     _check_gguf(x, qs, d, 32, "gguf_q8_matmul")
-    return _gguf_launch("gguf_q8_mm", x,
+    return _launch_by_m("gguf_q8_mm", x,
                         (x.data_ptr(), qs.data_ptr(), d.data_ptr()),
                         qs.shape[1], counter=GGUF_Q8_MATMUL_LAUNCHES,
                         gemm_counter=GGUF_Q8_GEMM_LAUNCHES,
@@ -773,7 +782,7 @@ def gguf_i8g_matmul(x: torch.Tensor, qs: torch.Tensor,
     if not build.on_cuda(x, qs, d16):
         return gguf_i8g_matmul_plain(x, qs, d16)
     _check_gguf(x, qs, d16, 16, "gguf_i8g_matmul")
-    return _gguf_launch("gguf_i8g_mm", x,
+    return _launch_by_m("gguf_i8g_mm", x,
                         (x.data_ptr(), qs.data_ptr(), d16.data_ptr()),
                         qs.shape[1], counter=GGUF_I8G_MATMUL_LAUNCHES,
                         gemm_counter=GGUF_I8G_GEMM_LAUNCHES,
@@ -792,7 +801,7 @@ def gguf_w8a8_launch(x8: torch.Tensor, xs: torch.Tensor, qs8: torch.Tensor,
             not xs.is_contiguous():
         raise ValueError("gguf_w8a8_matmul: xs must be contiguous float32 "
                          f"[{m}, 1], got {tuple(xs.shape)} {xs.dtype}")
-    return _gguf_launch("gguf_w8a8_mm", x8,
+    return _launch_by_m("gguf_w8a8_mm", x8,
                         (x8.data_ptr(), xs.data_ptr(), qs8.data_ptr(),
                          s128.data_ptr()), N,
                         counter=GGUF_W8A8_MATMUL_LAUNCHES,
@@ -863,7 +872,7 @@ def gguf_q4k_matmul(x: torch.Tensor, qweight: torch.Tensor, dl: torch.Tensor,
                              f"[{K // 32}, {N}], got {tuple(t.shape)} "
                              f"{t.dtype}")
     _check_contiguous(what, x, qweight, dl, ml)
-    return _gguf_launch("gguf_q4k_mm", x,
+    return _launch_by_m("gguf_q4k_mm", x,
                         (x.data_ptr(), qweight.data_ptr(), dl.data_ptr(),
                          ml.data_ptr()), N,
                         counter=GGUF_Q4K_MATMUL_LAUNCHES,
@@ -885,13 +894,14 @@ def squeezellm_matmul(x: torch.Tensor, qweight: torch.Tensor,
         raise ValueError(f"{what}: lut must be [{N}, 16] in x's dtype "
                          f"{x.dtype}, got {tuple(lut.shape)} {lut.dtype}")
     _check_contiguous(what, x, qweight, lut)
-    f32 = x.dtype == torch.float32
-    return _tiled_launch(
-        "sqllm_mm_f32" if f32 else "sqllm_mm", x,
-        (x.data_ptr(), qweight.data_ptr(), lut.data_ptr()), N, 64, x.dtype,
-        counter=SQUEEZELLM_MATMUL_F32_LAUNCHES if f32
-        else SQUEEZELLM_MATMUL_LAUNCHES,
-        what=what + ("_f32" if f32 else ""))
+    ptrs = (x.data_ptr(), qweight.data_ptr(), lut.data_ptr())
+    if x.dtype == torch.float32:
+        return _tiled_launch("sqllm_mm_f32", x, ptrs, N, 64, x.dtype,
+                             counter=SQUEEZELLM_MATMUL_F32_LAUNCHES,
+                             what=what + "_f32")
+    return _launch_by_m("sqllm_mm", x, ptrs, N,
+                        counter=SQUEEZELLM_MATMUL_LAUNCHES,
+                        gemm_counter=SQUEEZELLM_GEMM_LAUNCHES, what=what)
 
 
 def int8_matmul(x: torch.Tensor, weight: torch.Tensor,
@@ -912,6 +922,7 @@ def int8_matmul(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"{what}: scales must be float32 [{N}], got "
                          f"{tuple(scales.shape)} {scales.dtype}")
     _check_contiguous(what, x, weight, scales)
-    return _tiled_launch(
+    return _launch_by_m(
         "int8_mm", x, (x.data_ptr(), weight.data_ptr(), scales.data_ptr()),
-        N, 64, torch.bfloat16, counter=INT8_MATMUL_LAUNCHES, what=what)
+        N, counter=INT8_MATMUL_LAUNCHES, gemm_counter=INT8_GEMM_LAUNCHES,
+        what=what)

@@ -6,7 +6,7 @@ the call is enqueued, so the wrapper's host time stays out; median of
 20).
 
     python3 aphrodite_tpu_torch/tools/time_quant_matmul.py \\
-        [--kernels K6,K10,K12,K13,K14,K15] [TREE ...]
+        [--kernels K6,K10,K12,K13,K14,K15,K16,K17] [--ptxas] [TREE ...]
 
 Each TREE (default: this checkout) is a checkout of the repository, for
 example an earlier commit unpacked with `git archive` into a directory
@@ -16,8 +16,10 @@ inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096:
 - K6 and K10: `gptq_matmul` and `awq_matmul` with `stream=False` on
   this checkout's `chip_smoke.quant_weights` (4-bit codes in groups of
   128) and bf16 x from a seed;
-- K12: `gguf_q4k_matmul` on `chip_smoke.late_weights` (random Q4_K
-  codes, dl and ml rows per 32 rows);
+- K12, K16 and K17: `gguf_q4k_matmul`, `squeezellm_matmul` on bf16 x
+  and `int8_matmul` on `chip_smoke.late_weights` (random Q4_K codes, dl
+  and ml rows per 32 rows; random 4-bit codes with an N(0, 0.02) bf16
+  codebook per column; int8 codes with f32 column scales);
 - K13 and K14: `gguf_q8_matmul` and `gguf_i8g_matmul` on
   `chip_smoke.gguf_weights` (codes in [-127, 127] with a scale row per
   32 rows; Q6_K-shaped codes with one per 16);
@@ -27,22 +29,30 @@ inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096:
   order, copied before the timing), a floor for int8 tensor-core
   throughput on this card (no group scales: no yardstick of the same
   function).
-Beside K12, K13 and K14, `torch.matmul` over the same weight
-dequantized to bf16 beforehand (the library yardstick of chip_smoke's
-phases 13 and 16). `--kernels` picks some of them (default: K6, K10,
+Beside K12, K13, K14, K16 and K17, `torch.matmul` over the same weight
+dequantized to bf16 beforehand, K17's column scales folded in (the
+library yardstick of chip_smoke's phases 13 and 16). `--kernels` picks some of them (default: K6, K10,
 K14 and K15). To compare two trees within one call give them as A B B
 A. Prints the card's name and power limit, then one JSON object per
 tree, kernel, m and projection, {"tree", "kernel", "m", "proj", "ms"},
 and one per tree, kernel and m with the sum over the four projections
 (one layer) and its bound (chip_smoke's: the bytes over 3.35 TB/s or
 the operations over the bf16 or int8 peak, whichever is larger),
-{"tree", "kernel", "m", "layer_ms", "bound_ms"}.
+{"tree", "kernel", "m", "layer_ms", "bound_ms"}. With `--ptxas`, each
+tree first prints one object per kernel instance of its
+`csrc/quant_matmul.cu` build, {"tree", "ptxas", "registers",
+"spill_bytes"}: the instance by its demangled name without its
+parameter list (c++filt, where the toolkit's machine has it), so that
+two trees' reports compare by name; and each warning of that build
+(a wgmma serialization, C7515 / C7518), {"tree", "ptxas_warning"}.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -50,11 +60,61 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 MS = (72, 128, 512, 4096)
-KERNELS = ("K6", "K10", "K12", "K13", "K14", "K15")
+KERNELS = ("K6", "K10", "K12", "K13", "K14", "K15", "K16", "K17")
+LATE = {"K12": "gguf_q4k_matmul", "K16": "squeezellm_matmul",
+        "K17": "int8_matmul"}
 DEFAULT = ("K6", "K10", "K14", "K15")
 
 
-def time_tree(tree: str, kernels) -> None:
+def _instance(name: str) -> str:
+    """A demangled kernel name without its return type and parameters."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def ptxas_report(tree: str, build) -> None:
+    """Registers and spill bytes of every entry of quant_matmul.cu, from
+    the `-Xptxas -v` report of this process's build of it."""
+    build.build_all()
+    entries, name, spill = [], None, 0
+    for line in build.build_logs.get("quant_matmul", "").splitlines():
+        if "warning" in line.lower():
+            print(json.dumps({"tree": tree, "ptxas_warning": line.strip()}),
+                  flush=True)
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name, spill = found.group(1), 0
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found:
+            spill = int(found.group(1)) + int(found.group(2))
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            entries.append((name, int(found.group(1)), spill))
+            name = None
+    if not entries:
+        print(json.dumps({"tree": tree, "ptxas": "no report (cached "
+                          "library)"}), flush=True)
+        return
+    names = [e[0] for e in entries]
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    for shown, (_, regs, spills) in sorted(zip(map(_instance, names),
+                                               entries)):
+        print(json.dumps({"tree": tree, "ptxas": shown, "registers": regs,
+                          "spill_bytes": spills}), flush=True)
+
+
+def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_timer", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -62,6 +122,8 @@ def time_tree(tree: str, kernels) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
+    if ptxas:
+        ptxas_report(tree, qmm.build)
     timer = smoke.Timer(torch)
 
     def emit(kernel, layer, bound=None):
@@ -87,7 +149,7 @@ def time_tree(tree: str, kernels) -> None:
                     dict(bits=4, group_size=smoke.GPTQ_GS)
                 fn = qmm.awq_matmul if awq else qmm.gptq_matmul
                 w_bytes = smoke.weight_bytes(K, N, 4)
-            elif kernel == "K12":
+            elif kernel in LATE:
                 w, w16 = smoke.late_weights(torch, qmm, key, K, N,
                                             seed * 10 + len(key))
                 w_bytes = smoke.late_layer_bytes(key, K, N)
@@ -116,9 +178,9 @@ def time_tree(tree: str, kernels) -> None:
                     ms = timer(lambda: qmm.gguf_w8a8_launch(x8, xs, *w))
                     yard[m] += timer(lambda: torch._int_mm(x8, w_cm))
                 else:
-                    fn = {"K12": qmm.gguf_q4k_matmul,
-                          "K13": qmm.gguf_q8_matmul,
-                          "K14": qmm.gguf_i8g_matmul}[kernel]
+                    fn = getattr(qmm, LATE.get(kernel) or {
+                        "K13": "gguf_q8_matmul",
+                        "K14": "gguf_i8g_matmul"}[kernel])
                     ms = timer(lambda: fn(x, *w))
                     yard[m] += timer(lambda: torch.matmul(x, w16))
                 x_bytes = m * K + m * 4 if kernel == "K15" else m * K * 2
@@ -142,17 +204,20 @@ def time_tree(tree: str, kernels) -> None:
 
 def main() -> int:
     args = sys.argv[1:]
-    if args[:1] == ["--one"] and len(args) == 3:
-        time_tree(args[2], args[1].split(","))
+    if args[:1] == ["--one"] and len(args) == 4:
+        time_tree(args[3], [k for k in args[1].split(",") if k],
+                  args[2] == "ptxas")
         return 0
     kernels = DEFAULT
     if args[:1] == ["--kernels"] and len(args) >= 2:
-        kernels = tuple(args[1].split(","))
+        kernels = tuple(k for k in args[1].split(",") if k)
         args = args[2:]
+    ptxas = args[:1] == ["--ptxas"]
+    args = args[1:] if ptxas else args
     if any(a.startswith("-") for a in args) or \
             not set(kernels) <= set(KERNELS):
         print(f"usage: {sys.argv[0]} [--kernels {','.join(KERNELS)}] "
-              "[TREE ...]", file=sys.stderr)
+              "[--ptxas] [TREE ...]", file=sys.stderr)
         return 2
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -160,7 +225,8 @@ def main() -> int:
         timeout=60, check=True).stdout.strip(), flush=True)
     for tree in args or [HERE]:
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--one", ",".join(kernels), tree]).returncode
+                             "--one", ",".join(kernels),
+                             "ptxas" if ptxas else "-", tree]).returncode
         if rc:
             print(f"{tree}: exit {rc}", file=sys.stderr)
             return rc

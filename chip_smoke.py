@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero:
    with nvcc for sm_90a (one process per source, in parallel) and prints
    each source's `-Xptxas -v` report on one line, then K1's dynamic
    shared memory per block by page type and slot width, K6 / K10's
-   (`quant_gemm_kernel`) at 4 and 8 bits, and that of K12's, K13's,
-   K14's and K15's m > 64 kernels.
+   (`quant_gemm_kernel`) at 4 and 8 bits, and that of the m > 64
+   kernels of K12-K15, K16 on bf16 x and K17.
 3. Kernels vs plain versions at the main path's shapes (Hq 32, Hkv 8,
    head_dim 128, bf16, 16- and 32-token pages):
    - paged decode attention, K1 (the ragged grid, called with the
@@ -181,31 +181,36 @@ Phases, in order; any failure exits non-zero:
    d16 read per 32 rows, or K13's d shifted by one group, must each miss
    2e-2.
 16. K12, K16 and K17 vs plain versions at the same four projections, m
-   1, 8, 64, 512 and 4096 (K12 also at 65, 72, 128 and 256), through the
-   wrappers the engine calls: `gguf_q4k_matmul` (K12, random Q4_K codes
-   with affine dl/ml rows per 32 input rows; at m > 64
-   `quant_gemm_kernel<4, kQ4k>`, and at every m > 64 a control must miss
-   the tolerance: its plain version with dl and ml shifted by one
-   group), `squeezellm_matmul` on bf16 x (K16, an N(0, 0.02)
-   bf16 codebook per column) and on f32 x (K16's f32 kernel, QuIP#'s
+   1, 8, 64, 512 and 4096 (K12, K16 on bf16 x and K17 also at 65, 72,
+   128 and 256), through the wrappers the engine calls: `gguf_q4k_matmul`
+   (K12, random Q4_K codes with affine dl/ml rows per 32 input rows; at
+   m > 64 `quant_gemm_kernel<4, kQ4k>`), `squeezellm_matmul` on bf16 x
+   (K16, an N(0, 0.02) bf16 codebook per column; at m > 64
+   `quant_gemm_kernel<4, kLut>`) and on f32 x (K16's f32 kernel, QuIP#'s
    E8P table times Wscale 0.05, codes over its 12 values) and
-   `int8_matmul` (K17, int8 codes times f32 column scales). Tolerance:
-   phase 8's for bf16; K16 on f32 x within 1e-4 of max |plain|. Timed as
-   phase 13, with the plain version and the library yardstick
-   (torch.matmul over the weight dequantized beforehand: bf16, f32 for
-   K16-f32, K17's scales folded in) at m 8 and 4096; the bound takes
-   three bf16 products per term for K16-f32. K12's m > 64 layer times
-   at m 72, 128, 512 and 4096 are logged on one line.
+   `int8_matmul` (K17, int8 codes times f32 column scales; at m > 64
+   `quant_gemm_kernel<8, kInt8>`). At every m > 64 a control must miss
+   the tolerance: K12's plain version with dl and ml shifted by one
+   group, K16's with its codebook columns rolled by one, K17's with its
+   column scales rolled by one. Tolerance: phase 8's for bf16; K16 on
+   f32 x within 1e-4 of max |plain|. Timed as phase 13, with the plain
+   version and the library yardstick (torch.matmul over the weight
+   dequantized beforehand: bf16, f32 for K16-f32, K17's scales folded
+   in) at m 8 and 4096; the bound takes three bf16 products per term for
+   K16-f32. The m > 64 kernels' layer times (K12, K16, K17) at m 72,
+   128, 512 and 4096 are logged on one line.
 17. End to end with dummy weights at Mistral-7B width and depth, as
    SqueezeLLM (K16), int8 (K17; its int8 weights stay zero, as in the
    JAX package), QuIP# (K16 on f32 activations, no K17) and GGUF's exact
    Q4_K form (APHRODITE_GGUF_EXACT=1: K12, and none of K9, K13-K15):
    phase 4's mix at multi_step 1, in which every engine step must launch
    the arm's kernel a positive multiple of 128 times (4 projections x 32
-   layers; K12 counted with its m > 64 kernel, `gguf_q4k_gemm`, which
-   the exact-Q4_K arm must launch and every other arm must not) and none
-   of the other quantized matmuls; the 96-request round (the exact-Q4_K
-   arm's with the split reduce);
+   layers; K12, K16 on bf16 x and K17 each counted with its m > 64
+   kernel, `gguf_q4k_gemm`, `squeezellm_gemm`, `int8_gemm`, which its arm
+   must launch and every other arm must not; QuIP#'s arm launches
+   `squeezellm_matmul_f32` at every m) and none of the other quantized
+   matmuls; the 96-request round (with the split reduce, but for
+   QuIP#'s);
    a batch-8 decode step profiled as in phase 9 (with the kernel
    launches per step: QuIP#'s Hadamard transforms are eager torch ops).
 18. 2-layer models at Mistral-7B width through K12, K16, K16-f32 and K17
@@ -1192,6 +1197,9 @@ LATE_KERNELS = {"k12": ("gguf_q4k_matmul", 1117),
                 "k16f32": ("squeezellm_matmul_f32", 1630),
                 "k17": ("int8_matmul", 1706)}
 LATE_MATMULS = ("gguf_q4k_matmul", "squeezellm_matmul", "int8_matmul")
+# The counters of the m > 64 kernels of K12, K16 on bf16 x and K17.
+LATE_GEMMS = {"k12": "gguf_q4k_gemm", "k16": "squeezellm_gemm",
+              "k17": "int8_gemm"}
 F32_RTOL = 1e-4                   # K16 on f32 x: of max |plain|
 
 
@@ -1269,12 +1277,30 @@ def check_close_f32(torch, got, want, what):
     return err
 
 
+def late_control(torch, qmm, key, x, args):
+    """The wrong plain version the m > 64 kernels of K12, K16 and K17 must
+    miss, and what it is: K12's dl and ml shifted by one group, K16's
+    codebook columns rolled by one, K17's column scales rolled by one."""
+    if key == "k12":
+        qw, dl, ml = args
+        return (qmm.gguf_q4k_matmul_plain(x, qw, torch.roll(dl, 1, 0),
+                                          torch.roll(ml, 1, 0)),
+                "dl and ml shifted by one group")
+    if key == "k16":
+        qw, lut = args
+        return (qmm.squeezellm_matmul_plain(x, qw, torch.roll(lut, 1, 0)),
+                "codebook columns rolled by one")
+    w, s = args
+    return (qmm.int8_matmul_plain(x, w, torch.roll(s, 1, 0)),
+            "column scales rolled by one")
+
+
 def check_and_time_late(torch, qmm, timer):
     """K12, K16 (bf16 x, and f32 x on QuIP#'s table) and K17 against
     their plain versions at the Mistral-7B projection shapes and m
-    1-4096 (K12 also at GEMM_MS, where its m > 64 kernel splits, with a
-    control at every m > 64: dl and ml shifted by one group), through
-    the wrappers the engine calls; each timed like phase
+    1-4096 (K12, K16 on bf16 x and K17 also at GEMM_MS, where their m > 64
+    kernels split, with a control at every m > 64: `late_control`),
+    through the wrappers the engine calls; each timed like phase
     8, its plain version and the library call (torch.matmul over the
     weight dequantized beforehand: bf16, f32 for K16-f32, K17's scales
     folded in) at m 8 and 4096. Bound: the bytes over 3.35 TB/s, or the
@@ -1287,7 +1313,7 @@ def check_and_time_late(torch, qmm, timer):
             out[key if m == 8 else f"{key}@4096"] = dict(
                 ms=0.0, plain_ms=0.0, library_ms=0.0, bound_bytes_ms=0.0,
                 bound_ops_ms=0.0, max_abs_err=0.0)
-    k12_layer_ms = dict.fromkeys(GEMM_LOG_MS, 0.0)
+    layer_ms = {key: dict.fromkeys(GEMM_LOG_MS, 0.0) for key in LATE_GEMMS}
     sms = qmm.build.sm_count("cuda")
     for seed, (proj, K, N) in enumerate(GPTQ_PROJ):
         gen = torch.Generator(device="cuda").manual_seed(500 + seed)
@@ -1299,7 +1325,8 @@ def check_and_time_late(torch, qmm, timer):
             args, w_lib = late_weights(torch, qmm, key, K, N, seed * 10 +
                                        len(key))
             xb = x_all if f32 else x_all.to(torch.bfloat16)
-            for m in sorted(GGUF_MS + (GEMM_MS if key == "k12" else ())):
+            for m in sorted(GGUF_MS + (GEMM_MS if key in LATE_GEMMS
+                                       else ())):
                 x = xb[:m]
                 got = wrapper(x, *args)
                 plain = plain_fn(x, *args)
@@ -1307,21 +1334,19 @@ def check_and_time_late(torch, qmm, timer):
                 err = check_close_f32(torch, got, plain, what) if f32 \
                     else check_close(torch, got, plain, what)
                 plan = ""
-                if key == "k12" and m > 64:
-                    qw, dl, ml = args
-                    plan = control_missed(
-                        torch, qmm, got, plain_fn(
-                            x, qw, torch.roll(dl, 1, 0), torch.roll(ml, 1, 0)),
-                        what, "dl and ml shifted by one group", m, K, N,
-                        unit=64, block_n=256, sms=sms)
+                if key in LATE_GEMMS and m > 64:
+                    bad, control = late_control(torch, qmm, key, x, args)
+                    plan = control_missed(torch, qmm, got, bad, what,
+                                          control, m, K, N, unit=64,
+                                          block_n=256, sms=sms)
                 size = 4 if f32 else 2
                 nbytes = m * K * size + late_layer_bytes(key, K, N) + \
                     m * N * size
                 ops = 2 * m * K * N * (3 if f32 else 1)
                 torch.cuda.synchronize()
                 ms = timer(lambda: wrapper(x, *args))
-                if key == "k12" and m in GEMM_LOG_MS:
-                    k12_layer_ms[m] += ms
+                if key in LATE_GEMMS and m in GEMM_LOG_MS:
+                    layer_ms[key][m] += ms
                 b_ms, b_by = bound(nbytes, ops)
                 line = (f"{name} {proj} (K {K}, N {N}) m={m}: kernel "
                         f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max err "
@@ -1348,11 +1373,11 @@ def check_and_time_late(torch, qmm, timer):
         t_b, t_o = rec.pop("bound_bytes_ms"), rec.pop("bound_ops_ms")
         rec["bound_ms"], rec["bound_by"] = (t_b, "bytes") if t_b >= t_o \
             else (t_o, "operations")
-    log("K12/K16/K17 vs plain: all cases within tolerance, every K12 "
-        "control missed it; per layer (4 projections) at m 8 and 4096: "
+    log("K12/K16/K17 vs plain: all cases within tolerance, every control "
+        "missed it; per layer (4 projections) at m 8 and 4096: "
         + json.dumps(out))
-    log("K12 m > 64 kernel, ms per layer (4 projections) by m: "
-        + json.dumps(k12_layer_ms))
+    log("K12 / K16 (bf16 x) / K17 m > 64 kernels, ms per layer (4 "
+        "projections) by m: " + json.dumps(layer_ms))
     return out
 
 
@@ -1623,8 +1648,6 @@ AWQ_A16_KERNELS = BF16_KERNELS + ("awq_matmul", "awq_matmul_stream")
 GGUF_MATMULS = ("gguf_q8_matmul", "gguf_i8g_matmul", "gguf_w8a8_matmul")
 # The counters of K13's, K14's and K15's m > 64 kernels, in that order.
 GGUF_GEMMS = ("gguf_q8_gemm", "gguf_i8g_gemm", "gguf_w8a8_gemm")
-# K12's m > 64 kernel.
-Q4K_GEMM = "gguf_q4k_gemm"
 
 
 def check_outputs(outputs, n: int, what: str) -> None:
@@ -1904,9 +1927,11 @@ def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
     SqueezeLLM (K16), int8 (K17), QuIP# (K16 on f32 activations) and
     GGUF's exact Q4_K form (APHRODITE_GGUF_EXACT=1, K12): phase 4's mix
     at multi_step 1, where every engine step must launch the arm's
-    kernel 4 * layers times (or a multiple) and none of the others, then
-    the 96-request round and a profiled batch-8 decode step. Returns the
-    launches by path."""
+    kernel 4 * layers times (or a multiple; counted with its m > 64
+    kernel, where it has one) and none of the others, then the
+    96-request round (with the split reduce where the arm has an m > 64
+    kernel) and a profiled batch-8 decode step. Returns the launches by
+    path."""
     by_path = {}
     late_names = tuple(name for name, _ in LATE_KERNELS.values())
     for quantization, key, label, env in (
@@ -1922,11 +1947,13 @@ def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
             f"{engine.cache_config.num_gpu_blocks} KV pages (bf16 had "
             f"{bf16_pages})")
         tag = f"{label} "
-        # K12's prompt rounds and wide decode steps take its m > 64
-        # kernel, with the split reduce in the 96-request round.
-        gemm = (Q4K_GEMM,) if key == "k12" else ()
+        # K12's, K16's (bf16 x) and K17's prompt rounds and wide decode
+        # steps take their m > 64 kernel, with the split reduce in the
+        # 96-request round; QuIP#'s K16 on f32 x has none.
+        gemm = (LATE_GEMMS[key],) if key in LATE_GEMMS else ()
         absent = tuple(k for k in late_names + GGUF_MATMULS + GGUF_GEMMS +
-                       (Q4K_GEMM, "quantize_activations_int8")
+                       tuple(LATE_GEMMS.values()) +
+                       ("quantize_activations_int8",)
                        if k not in (kernel,) + gemm)
         wide = ("quant_gemm_split_reduce",) + gemm if gemm else (kernel,)
         runs = [run_engine(torch, engine, 1, counters, card,
@@ -2014,8 +2041,10 @@ def main() -> int:
         f"{qmm.gguf_gemm_smem_bytes(12)} B, K13 (<8, kQ8>) "
         f"{qmm.gguf_gemm_smem_bytes(13)} B, K14 (<8, kI8g>) "
         f"{qmm.gguf_gemm_smem_bytes(14)} B, K15 (w8a8_gemm_kernel: 128 x "
-        f"128 tiles, 256 threads) {qmm.gguf_gemm_smem_bytes(15)} B (the "
-        f"card allows {optin} B)")
+        f"128 tiles, 256 threads) {qmm.gguf_gemm_smem_bytes(15)} B, K16 on "
+        f"bf16 x (<4, kLut>, its 16 KB static codebook tile included) "
+        f"{qmm.gguf_gemm_smem_bytes(16)} B, K17 (<8, kInt8>) "
+        f"{qmm.gguf_gemm_smem_bytes(17)} B (the card allows {optin} B)")
 
     # 3. Kernels vs plain versions, and times.
     log_clocks("before the kernel checks")
@@ -2405,9 +2434,10 @@ def main() -> int:
               ] + [dict(name=name, route="cuda", source=quant_src,
                    replaces=f"{pallas_qmm}:{line}", launches=launches[name],
                    **late[key]) for key, (name, line) in LATE_KERNELS.items()
-                   ] + [dict(name=Q4K_GEMM, route="cuda", source=quant_src,
-                             replaces=f"{pallas_qmm}:{LATE_KERNELS['k12'][1]}",
-                             launches=launches[Q4K_GEMM], **late["k12@4096"])]
+                   ] + [dict(name=name, route="cuda", source=quant_src,
+                             replaces=f"{pallas_qmm}:{LATE_KERNELS[key][1]}",
+                             launches=launches[name], **late[f"{key}@4096"])
+                        for key, name in LATE_GEMMS.items()]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

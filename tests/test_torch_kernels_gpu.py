@@ -18,7 +18,8 @@ which sums exact int32 group dots in f32). int8 activation
 quantization: exactly equal. K15 at m > 64 folds each group in group
 order with one fma (the plain version rounds a product and a sum) and
 is held to the same tolerance. K12, K16 on bf16 and K17 (bf16 outputs of
-f32 sums): 2e-2 + 2e-2 |plain|. K16 on f32 x: within 1e-4 of max
+f32 sums): 2e-2 + 2e-2 |plain|; their m > 64 kernels also dequantize
+bit for bit (identity rows of x). K16 on f32 x: within 1e-4 of max
 |plain| (three bf16 products per term keep about 16 mantissa bits of
 each operand; the plain version sums exact f32 products).
 The threefry draws (`modeling/layers/prng.py`): keys, bits and uniforms
@@ -679,6 +680,10 @@ _PACKED4 = {"q4k": ("gguf_q4k_matmul", "GGUF_Q4K_MATMUL_LAUNCHES"),
             "lut": ("squeezellm_matmul", "SQUEEZELLM_MATMUL_LAUNCHES"),
             "lut32": ("squeezellm_matmul", "SQUEEZELLM_MATMUL_F32_LAUNCHES"),
             "int8": ("int8_matmul", "INT8_MATMUL_LAUNCHES")}
+# The counters of K12's, K16's (bf16 x) and K17's m > 64 kernels.
+_PACKED4_GEMM = {"q4k": "GGUF_Q4K_GEMM_LAUNCHES",
+                 "lut": "SQUEEZELLM_GEMM_LAUNCHES",
+                 "int8": "INT8_GEMM_LAUNCHES"}
 
 
 @pytest.mark.parametrize("kind", list(_PACKED4))
@@ -686,19 +691,19 @@ _PACKED4 = {"q4k": ("gguf_q4k_matmul", "GGUF_Q4K_MATMUL_LAUNCHES"),
     (1, 4096, 6144), (8, 14336, 4096), (33, 512, 384), (64, 4096, 4096),
     (65, 256, 128), (300, 4096, 1024)])
 def test_k12_k16_k17_kernels_match_plain(dev, kind, m, K, N):
-    """Every tiling: 16-64-row blocks with split K (m <= 64); above, K12's
-    quant_gemm_kernel and K16's and K17's 128-row blocks; the wrappers
-    count one launch each, on their own counter (K16's f32 kernel and
-    K12's m > 64 kernel have their own)."""
+    """Every tiling: 16-64-row blocks with split K (m <= 64); above, the
+    quant_gemm_kernel of K12, K16 on bf16 x and K17, and K16's f32
+    128-row blocks; the wrappers count one launch each, on their own
+    counter (K16's f32 kernel and the m > 64 kernels have their own)."""
     K = max(256, K // 256 * 256)
     args = _packed4_problem(dev, "lut" if kind == "lut32" else kind, m, K,
                             N, seed=m + K, f32=kind == "lut32")
     name, counter_name = _PACKED4[kind]
-    if kind == "q4k" and m > 64:
-        counter_name = "GGUF_Q4K_GEMM_LAUNCHES"
+    if m > 64 and kind in _PACKED4_GEMM:
+        counter_name = _PACKED4_GEMM[kind]
     counter = getattr(tqm, counter_name)
     others = [getattr(tqm, c) for c in sorted(
-        {c for _, c in _PACKED4.values()} | {"GGUF_Q4K_GEMM_LAUNCHES"})
+        {c for _, c in _PACKED4.values()} | set(_PACKED4_GEMM.values()))
         if c != counter_name]
     before = counter.count, [c.count for c in others]
     got = getattr(tqm, name)(*args)
@@ -830,6 +835,113 @@ def test_k13_gemm_dequantizes_exactly(dev):
         x = torch.zeros(128, K, dtype=torch.bfloat16, device=dev)
         x[torch.arange(128, device=dev), r0 + torch.arange(128, device=dev)] = 1
         got = tqm.gguf_q8_matmul(x, qs, d)
+        torch.cuda.synchronize()
+        assert torch.equal((got + 0).view(torch.int16),
+                           (w[r0:r0 + 128] + 0).view(torch.int16)), r0
+
+
+# K16 on bf16 x and K17 at m > 64: (wrapper, counter attribute, the
+# control: the plain version with the codebook's columns, or the column
+# scales, rolled by one).
+_K16_K17 = {
+    "lut": ("squeezellm_matmul", "SQUEEZELLM_GEMM_LAUNCHES",
+            lambda x, qw, lut: tqm.squeezellm_matmul_plain(
+                x, qw, lut.roll(1, 0))),
+    "int8": ("int8_matmul", "INT8_GEMM_LAUNCHES",
+             lambda x, w, s: tqm.int8_matmul_plain(x, w, s.roll(1, 0))),
+}
+
+
+@pytest.mark.parametrize("kind", list(_K16_K17))
+@pytest.mark.parametrize("m", [65, 72, 200, 300, 1000])
+@pytest.mark.parametrize("K,N", _PROJ + ((2048, 384), (1024, 1152)))
+def test_k16_k17_gemm_matches_plain(dev, kind, m, K, N):
+    """K16 on bf16 x (quant_gemm_kernel<4, kLut>) and K17
+    (quant_gemm_kernel<8, kInt8>) at m > 64, 128 x 256 tiles (N 384 and
+    1152 end on a half tile, whose codebook rows past N the kernel must
+    not read), against their plain versions; one launch on the m > 64
+    counter and, where the plan splits, the split reduce (K17's column
+    scales applied there); a control must miss the tolerance."""
+    name, counter_name, control = _K16_K17[kind]
+    args = _packed4_problem(dev, kind, m, K, N, seed=m + K + N)
+    gemm, skinny = getattr(tqm, counter_name), getattr(tqm, _PACKED4[kind][1])
+    before = (gemm.count, skinny.count, tqm.QUANT_GEMM_REDUCE_LAUNCHES.count)
+    got = getattr(tqm, name)(*args)
+    want = getattr(tqm, name + "_plain")(*args)
+    bad = control(*args)
+    torch.cuda.synchronize()
+    splits, _ = tqm.gemm_plan(m, K, N, 64, tqm.build.sm_count(dev))
+    assert (gemm.count, skinny.count,
+            tqm.QUANT_GEMM_REDUCE_LAUNCHES.count) == \
+        (before[0] + 1, before[1], before[2] + int(splits > 1))
+    assert got.dtype == torch.bfloat16 and got.shape == (m, N)
+    _close(got, want)
+    assert _misses(got, bad)
+
+
+@pytest.mark.parametrize("kind", list(_K16_K17))
+@pytest.mark.parametrize("m,K,N", [(72, 4096, 4096), (300, 14336, 4096),
+                                   (200, 1024, 1152)])
+def test_k16_k17_gemm_takes_views_of_x(dev, kind, m, K, N):
+    """K16 on bf16 x and K17 at m > 64 on x given as a view at a row
+    offset (TMA loads it) and at an unaligned element offset (the
+    consumers store it), against the plain version on a copy."""
+    name = _K16_K17[kind][0]
+    x_all, *w = _packed4_problem(dev, kind, m + 8, K, N, seed=m)
+    for what, x in _views(x_all, m).items():
+        assert x.is_contiguous() and x.data_ptr() != x_all.data_ptr(), what
+        got = getattr(tqm, name)(x, *w)
+        want = getattr(tqm, name + "_plain")(x.clone(), *w)
+        torch.cuda.synchronize()
+        _close(got, want)
+
+
+def _identity_rows(dev, K, r0):
+    """x [128, K] bf16 with x[i, r0 + i] = 1 and zeros elsewhere."""
+    x = torch.zeros(128, K, dtype=torch.bfloat16, device=dev)
+    x[torch.arange(128, device=dev), r0 + torch.arange(128, device=dev)] = 1
+    return x
+
+
+def test_k16_gemm_dequantizes_exactly(dev):
+    """With x rows of the identity (m 128), K16's m > 64 kernel returns
+    rows of its W tile: the codebook entries lut[n, q] bit for bit, as the
+    plain version's bf16 W holds them (zeros of either sign taken as one),
+    for codebook entries of either sign over 2^-30 .. 2^10 and a half
+    tile (N 1152)."""
+    K, N = 1024, 1152
+    g = torch.Generator(device=dev).manual_seed(16)
+    qw = torch.randint(-2 ** 31, 2 ** 31, (K // 8, N), generator=g,
+                       device=dev, dtype=torch.int64).to(torch.int32)
+    e = torch.randint(-30, 11, (N, 16), generator=g, device=dev)
+    lut = ((1 + torch.rand(N, 16, generator=g, device=dev)) *
+           torch.exp2(e.float()) *
+           torch.where(torch.rand(N, 16, generator=g, device=dev) < 0.5,
+                       -1.0, 1.0)).to(torch.bfloat16)
+    lut[torch.rand(N, 16, generator=g, device=dev) < 0.05] = 0
+    w = tqm.squeezellm_dequantize_plain(qw, lut, torch.bfloat16)
+    for r0 in range(0, K, 128):
+        got = tqm.squeezellm_matmul(_identity_rows(dev, K, r0), qw, lut)
+        torch.cuda.synchronize()
+        assert torch.equal((got + 0).view(torch.int16),
+                           (w[r0:r0 + 128] + 0).view(torch.int16)), r0
+
+
+def test_k17_gemm_dequantizes_exactly(dev):
+    """With x rows of the identity (m 128), K17's m > 64 kernel returns
+    bf16(float(q) * s) bit for bit for every int8 code (the plan splits
+    here: the scales come in the split reduce), s over 2^-20 .. 2^1."""
+    K, N = 1024, 1152
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    q[:256] = torch.arange(-128, 128, device=dev, dtype=torch.int8)[:, None]
+    s = (1 + torch.rand(N, generator=g, device=dev)) * torch.exp2(
+        torch.randint(-20, 2, (N,), generator=g, device=dev).float())
+    assert tqm.gemm_plan(128, K, N, 64, tqm.build.sm_count(dev))[0] > 1
+    w = (q.float() * s).to(torch.bfloat16)
+    for r0 in range(0, K, 128):
+        got = tqm.int8_matmul(_identity_rows(dev, K, r0), q, s)
         torch.cuda.synchronize()
         assert torch.equal((got + 0).view(torch.int16),
                            (w[r0:r0 + 128] + 0).view(torch.int16)), r0

@@ -421,7 +421,7 @@ def _packed4_inputs(seed, kind, K, N, m):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("K,N,m", [(256, 128, 1), (512, 256, 8),
-                                   (1024, 256, 33)])
+                                   (1024, 256, 33), (512, 256, 130)])
 @pytest.mark.parametrize("kind", list(PACKED4))
 def test_k12_k16_k17_plain_match_pallas(kind, K, N, m, dtype):
     name, args = PACKED4[kind]
@@ -527,11 +527,11 @@ def test_gguf_gemm_plan_table(m, K, N, unit, block_n, want):
 
 
 @pytest.mark.parametrize("sms", [132, 114, 66])
-@pytest.mark.parametrize("kernel", ["k12", "k13", "k14", "k15"])
+@pytest.mark.parametrize("kernel", ["k12", "k13", "k14", "k15", "k16", "k17"])
 def test_gguf_gemm_plan_splits_start_on_a_unit_and_fit_the_sms(kernel, sms):
-    """Every split starts on a 64-row chunk (K12-K14) or a 128-row scale
-    group (K15), none is empty, and where the plan splits, tiles x splits
-    stays within the SMs."""
+    """Every split starts on a 64-row chunk (K12-K14, K16, K17) or a
+    128-row scale group (K15), none is empty, and where the plan splits,
+    tiles x splits stays within the SMs."""
     unit, block_n = (128, 128) if kernel == "k15" else (64, 256)
     for m in (65, 72, 96, 128, 129, 200, 256, 257, 512, 1000, 4096):
         for K, N in ((4096, 6144), (4096, 4096), (4096, 28672),
@@ -664,3 +664,36 @@ def test_byte_decoder_fma_is_exact():
     assert not _two_sum_err(prod, c).any()
     fma32 = (prod + c).astype(np.float32)
     assert np.array_equal(fma32.astype(np.float64), q * d)
+
+
+def _bf16_bits_to_f64(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+
+
+def test_int8_decoder_bit_trick_is_exact():
+    """K17's m > 64 decoder (`i8_pair` in csrc/quant_matmul.cu): a byte
+    permute puts 0x43 above each int8 code b (bf16 bits 0x43bb), one AND
+    keeps 0x43bb & 0xff7f = bf16 128 + (b & 0x7f), another 0x43bb &
+    0xff80 = bf16 128 + 128 (b >> 7), and one bf16 subtraction of the two
+    gives q = (b & 0x7f) - 128 (b >> 7). Emulated for all 256 codes: both
+    operands are exact bf16 integers, their difference is exact (no
+    rounding), and it equals bf16(q) bit for bit, as the plain version
+    (and the Pallas body's cast) gives it."""
+    b = np.arange(256, dtype=np.uint32)
+    q = b.astype(np.uint8).view(np.int8).astype(np.float64)
+    t = 0x4300 | b                       # __byte_perm(w, 0x43434343, sel)
+    hi = _bf16_bits_to_f64(t & 0xFF7F)
+    lo = _bf16_bits_to_f64(t & 0xFF80)
+    assert np.array_equal(hi, 128 + (b & 0x7F))
+    assert np.array_equal(lo, 128 + 128 * (b >> 7))
+    diff = hi - lo                       # exact in float64
+    # sub.rn.bf16x2 rounds the exact difference once to bf16: an integer
+    # of magnitude at most 128 is a bf16, so the rounding changes nothing.
+    as_bf16 = torch.from_numpy(diff).to(torch.bfloat16)
+    assert np.array_equal(as_bf16.double().numpy(), diff)
+    assert np.array_equal(diff, q)
+    want = torch.from_numpy(q.astype(np.float32)).to(torch.bfloat16)
+    assert torch.equal(as_bf16.view(torch.int16), want.view(torch.int16))
+    # The plain version takes the same codes as f32: the same values.
+    w = torch.from_numpy(b.astype(np.uint8).view(np.int8))
+    assert torch.equal(w.float(), as_bf16.float())
