@@ -1,11 +1,12 @@
 // Paged decode attention over the token-major KV cache, CUDA C++ for
-// sm_90a. Two kernels, one per Pallas grid of
+// sm_90a. One kernel, paged_decode_kernel (with paged_decode_merge_kernel
+// where it splits), serves both Pallas grids of
 // aphrodite_tpu/ops/pallas/paged_attention.py:
 //
-//   paged_decode_kernel (K1) replaces _decode_kernel_ragged (:565, the
-//     ragged work-list grid, launched at :888-896 and :1005);
-//   paged_decode_tm_kernel (K5) replaces _decode_kernel_tm (:252, the
-//     padded (batch, head-block) grid, launched at :906-920 and :1005).
+//   K1 replaces _decode_kernel_ragged (:565, the ragged work-list grid,
+//     launched at :888-896 and :1005);
+//   K5 replaces _decode_kernel_tm (:252, the padded (batch, head-block)
+//     grid, launched at :906-920 and :1005).
 //
 // Both compute, for one query token per sequence: GQA, optional ALiBi,
 // the online softmax of the Pallas bodies, and the optional fused write
@@ -88,17 +89,12 @@
 //    KB and the kernel is bytes-bound, so 64-row warpgroup tiles would
 //    be mostly padding.
 //
-// K5, grid (batch, Hkv / hb), hb = head_block(Hkv) <= 8 as the Pallas
-// grid: one block per (sequence, head block) serves group · hb rows (32
-// at Mistral-7B geometry, one block per sequence), walking each chunk
-// in two passes as the Pallas body does. Each token's K row of the head
-// block, hb · d contiguous values (2 KB in bf16), is one 16-byte-vector
-// run: the block stages 16 tokens' rows at a time, and each kv head has
-// its own warp(s), up to 4 query rows a warp. Fused write: the block
-// first stores the (quantized) new K/V of its heads into slot ctx-1,
-// then __syncthreads(), then attends. K5 is a simple first version (no
-// ring, no tensor cores, no splits); the main path does not launch it.
-// Rows with ctx 0 write zeros in both kernels.
+// K5 is the same launch: K1's grid (batch, Hkv, n_split) is the padded
+// grid at one kv head a block, with K1's splits and merge. Blocks of two
+// kv heads (one run of 2 d values a token) measured 9% faster on an H100
+// at batch 8 and 7-44% slower wherever the halved grid fell under two
+// blocks an SM, four heads never faster (PERF.md), so K5 keeps one.
+// Rows with ctx 0 write zeros.
 //
 // The C entry points launch on the caller's stream, allocate nothing
 // and return cudaGetLastError().
@@ -119,9 +115,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 // K1: 4 warps x 4 rows (group <= 16).
 constexpr int kK1Threads = 128;
 constexpr int kK1Warps = kK1Threads / 32;
-// K5: up to 16 warps (hb * ceil(group / 4) <= 16); 16 tokens per tile.
-constexpr int kK5MaxThreads = 512;
-constexpr int kK5TileTokens = 16;
 
 typedef __nv_fp8_e5m2 fp8;
 
@@ -261,7 +254,7 @@ struct Args {
   const void* knew;          // [B, Hkv, d] or null
   const void* vnew;
   int num_kv_heads, group, head_dim, num_pages, page_size, pages_per_seq,
-      pages_per_chunk, head_block;
+      pages_per_chunk;
   float qk_scale;            // scale * kv_scale * log2(e)
   float kv_scale;
 };
@@ -934,150 +927,6 @@ __global__ void __launch_bounds__(kK1Threads) paged_decode_merge_kernel(
   }
 }
 
-// ----------------------------------------------------------------- K5 --
-
-template <typename T, typename P, bool kAmla>
-__global__ void __launch_bounds__(kK5MaxThreads) paged_decode_tm_kernel(
-    Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int d = a.head_dim;
-  const int ps = a.page_size;
-  const int hb = a.head_block;
-  const int hbd = hb * d;                          // a token's row
-  const int rows = a.group * hb;                   // query rows
-  const int ct = a.pages_per_chunk * ps;
-  P* tile = reinterpret_cast<P*>(smem);            // [16, hb*d]
-  float* q_s = reinterpret_cast<float*>(
-      smem + ((static_cast<size_t>(kK5TileTokens) * hbd * sizeof(P) + 15) /
-              16) * 16);                           // [rows, d]
-  float* s_s = q_s + rows * d;                     // [rows, ct]
-
-  const int b = blockIdx.x;
-  const int j = blockIdx.y;                        // head block
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t hd = static_cast<int64_t>(a.num_kv_heads) * d;
-  const int* table = a.block_tables + static_cast<int64_t>(b) *
-                                          a.pages_per_seq;
-  int ctx = a.context_lens[b];
-  P* kp = static_cast<P*>(a.k_pages);
-  P* vp = static_cast<P*>(a.v_pages);
-  const int64_t lane0 = static_cast<int64_t>(j) * hbd;
-
-  if (a.knew != nullptr && ctx > 0) {
-    const int pos = ctx - 1;
-    const int64_t row =
-        (static_cast<int64_t>(clamp_page(table[pos / ps], a.num_pages)) *
-             ps + pos % ps) * hd + lane0;
-    fused_write(kp, vp, static_cast<const T*>(a.knew),
-                static_cast<const T*>(a.vnew), row,
-                static_cast<int64_t>(b) * hd + lane0, hbd, a.kv_scale);
-  }
-  // Query rows of the head block: row r serves kv head r / group.
-  const int64_t q_base = static_cast<int64_t>(b) * a.num_kv_heads *
-                             a.group * d + static_cast<int64_t>(j) * rows * d;
-  const T* q = static_cast<const T*>(a.q);
-  for (int i = threadIdx.x; i < rows * d; i += blockDim.x)
-    q_s[i] = round_op<P>(to_f(q[q_base + i]) * a.qk_scale);
-  __syncthreads();
-
-  // Warp w: kv head hh = w / wph of the block, rows r0 .. r0 + nrows.
-  const int wph = (a.group + kRowsPerWarp - 1) / kRowsPerWarp;
-  const int hh = warp / wph;
-  const int r0 = hh * a.group + (warp % wph) * kRowsPerWarp;
-  const int nrows = min(kRowsPerWarp, (hh + 1) * a.group - r0);
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-  float acc[kRowsPerWarp][kMaxLaneElems];
-  float slope[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kNegBig;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kMaxLaneElems; ++e) acc[r][e] = 0.f;
-    slope[r] = (a.alibi != nullptr && r < nrows)
-                   ? a.alibi[j * rows + r0 + r] * kLog2e : 0.f;
-  }
-
-  ctx = min(ctx, a.pages_per_seq * ps);
-  const int n_chunks = (ctx + ct - 1) / ct;
-  const int vecs_per_row = hbd * static_cast<int>(sizeof(P)) / 16;
-  const int elems_per_vec = 16 / static_cast<int>(sizeof(P));
-
-  // Tokens [t0, t0 + n) of the sequence, each its hb*d-wide row.
-  auto stage = [&](const P* pages, int t0, int n) {
-    for (int i = threadIdx.x; i < n * vecs_per_row; i += blockDim.x) {
-      const int r = i / vecs_per_row;
-      const int c = i % vecs_per_row;
-      const int pos = t0 + r;
-      const int64_t off =
-          (static_cast<int64_t>(clamp_page(table[pos / ps], a.num_pages)) *
-               ps + pos % ps) * hd + lane0 + c * elems_per_vec;
-      reinterpret_cast<uint4*>(tile)[i] =
-          *reinterpret_cast<const uint4*>(pages + off);
-    }
-  };
-
-  for (int c = 0; c < n_chunks; ++c) {
-    const int base = c * ct;
-    const int valid = min(ct, ctx - base);
-    // Pass 1: scores.
-    for (int t0 = 0; t0 < valid; t0 += kK5TileTokens) {
-      const int n = min(kK5TileTokens, valid - t0);
-      stage(kp, base + t0, n);
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        if (r >= nrows) break;
-        const float* qg = q_s + (r0 + r) * d;
-        float* srow = s_s + (r0 + r) * ct + t0;
-        for (int t = 0; t < n; ++t) {
-          const P* kt = tile + t * hbd + hh * d;
-          float part = 0.f;
-#pragma unroll
-          for (int e = 0; e < kMaxLaneElems; ++e) {
-            const int jj = lane + 32 * e;
-            if (jj < d) part += qg[jj] * to_f(kt[jj]);
-          }
-          const float s = warp_sum(part);
-          if (lane == 0)
-            srow[t] = s + slope[r] * static_cast<float>(base + t0 + t);
-        }
-      }
-      __syncthreads();
-    }
-    chunk_max<kAmla>(s_s + r0 * ct, ct, nrows, valid, lane, m, l, acc);
-    // Pass 2: P.V.
-    float l_chunk[kRowsPerWarp] = {0.f, 0.f, 0.f, 0.f};
-    for (int t0 = 0; t0 < valid; t0 += kK5TileTokens) {
-      const int n = min(kK5TileTokens, valid - t0);
-      stage(vp, base + t0, n);
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        if (r >= nrows) break;
-        const float* srow = s_s + (r0 + r) * ct + t0;
-        for (int t = 0; t < n; ++t) {
-          const float pt = exp2f(srow[t] - m[r]);
-          l_chunk[r] += pt;
-          const float po = round_op<P>(pt);
-          const P* vt = tile + t * hbd + hh * d;
-#pragma unroll
-          for (int e = 0; e < kMaxLaneElems; ++e) {
-            const int jj = lane + 32 * e;
-            if (jj < d) acc[r][e] += po * to_f(vt[jj]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) l[r] += l_chunk[r];
-  }
-  write_out(static_cast<T*>(a.out) + q_base + static_cast<int64_t>(r0) * d,
-            nrows, d, d, lane, a.kv_scale, l, acc);
-}
-
 // ------------------------------------------------------------ launch --
 
 // The device's opt-in shared memory per block (227 KB on an H100),
@@ -1161,37 +1010,9 @@ int launch_k1(const Args& a, int batch, int n_split, bool wide, float* part,
   return static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
-template <typename T, typename P, bool kAmla>
-int launch_k5(const Args& a, int batch, cudaStream_t stream) {
-  const size_t ct = static_cast<size_t>(a.pages_per_chunk) * a.page_size;
-  const int rows = a.group * a.head_block;
-  const int threads = 32 * a.head_block *
-                      ((a.group + kRowsPerWarp - 1) / kRowsPerWarp);
-  if (threads > kK5MaxThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      round16(static_cast<size_t>(kK5TileTokens) * a.head_block *
-              a.head_dim * sizeof(P)) +
-      static_cast<size_t>(rows) * (a.head_dim + ct) * sizeof(float);
-  auto kernel = paged_decode_tm_kernel<T, P, kAmla>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (batch > 0)
-    kernel<<<dim3(batch, a.num_kv_heads / a.head_block), threads, smem,
-             stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, typename P>
-int launch_amla(const Args& a, int batch, bool tm, bool amla, int n_split,
-                bool wide, float* part, cudaStream_t s) {
-  if (tm)
-    return amla ? launch_k5<T, P, true>(a, batch, s)
-                : launch_k5<T, P, false>(a, batch, s);
+int launch_amla(const Args& a, int batch, bool amla, int n_split, bool wide,
+                float* part, cudaStream_t s) {
   return amla ? launch_k1<T, P, true>(a, batch, n_split, wide, part, s)
               : launch_k1<T, P, false>(a, batch, n_split, wide, part, s);
 }
@@ -1200,39 +1021,39 @@ int launch_amla(const Args& a, int batch, bool tm, bool amla, int n_split,
 // page_dtype: 0 = float32, 1 = bfloat16, 2 = int8, 3 = float8 e5m2;
 // float pages take the activation dtype.
 int dispatch(const Args& a, int batch, int act_dtype, int page_dtype,
-             bool tm, bool amla, int n_split, bool wide, float* part,
+             bool amla, int n_split, bool wide, float* part,
              cudaStream_t s) {
   const int n_chunks = a.pages_per_seq / a.pages_per_chunk;
   // K1 stages each token's row in 16-byte copies.
   const int page_bytes = page_dtype == 0 ? (act_dtype == 0 ? 4 : 2)
                                          : (page_dtype == 1 ? 2 : 1);
   if (a.group < 1 || a.head_dim > 32 * kMaxLaneElems ||
-      (!tm && (a.group > kMmaRows || a.head_dim * page_bytes % 16 != 0)) ||
+      a.group > kMmaRows || a.head_dim * page_bytes % 16 != 0 ||
       n_split < 1 ||
-      (n_split > 1 && (tm || n_split > n_chunks || part == nullptr)))
+      (n_split > 1 && (n_split > n_chunks || part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (act_dtype == 0) {
     switch (page_dtype) {
       case 0:
-        return launch_amla<float, float>(a, batch, tm, amla, n_split, wide,
+        return launch_amla<float, float>(a, batch, amla, n_split, wide,
                                          part, s);
       case 2:
-        return launch_amla<float, int8_t>(a, batch, tm, amla, n_split,
+        return launch_amla<float, int8_t>(a, batch, amla, n_split,
                                           wide, part, s);
       case 3:
-        return launch_amla<float, fp8>(a, batch, tm, amla, n_split, wide,
+        return launch_amla<float, fp8>(a, batch, amla, n_split, wide,
                                        part, s);
     }
   } else if (act_dtype == 1) {
     switch (page_dtype) {
       case 1:
         return launch_amla<__nv_bfloat16, __nv_bfloat16>(
-            a, batch, tm, amla, n_split, wide, part, s);
+            a, batch, amla, n_split, wide, part, s);
       case 2:
-        return launch_amla<__nv_bfloat16, int8_t>(a, batch, tm, amla,
+        return launch_amla<__nv_bfloat16, int8_t>(a, batch, amla,
                                                   n_split, wide, part, s);
       case 3:
-        return launch_amla<__nv_bfloat16, fp8>(a, batch, tm, amla, n_split,
+        return launch_amla<__nv_bfloat16, fp8>(a, batch, amla, n_split,
                                                wide, part, s);
     }
   }
@@ -1241,22 +1062,20 @@ int dispatch(const Args& a, int batch, int act_dtype, int page_dtype,
 
 }  // namespace
 
-// K1 (tm = 0) and K5 (tm = 1) share this entry's arguments; head_block
-// is K5's (1 for K1).
+// K1 and K5 (the same launch); n_split > 1 adds the merge.
 extern "C" int paged_decode_attention(
     void* out, const void* q, void* k_pages, void* v_pages,
     const int* block_tables, const int* context_lens, const float* alibi,
     const void* knew, const void* vnew, int batch, int num_kv_heads,
     int group, int head_dim, int num_pages, int page_size,
-    int pages_per_seq, int pages_per_chunk, int head_block, float qk_scale,
-    float kv_scale, int act_dtype, int page_dtype, int tm, int amla,
-    int n_split, int wide, float* part, void* stream) {
+    int pages_per_seq, int pages_per_chunk, float qk_scale, float kv_scale,
+    int act_dtype, int page_dtype, int amla, int n_split, int wide,
+    float* part, void* stream) {
   Args a{out, q, k_pages, v_pages, block_tables, context_lens, alibi,
          knew, vnew, num_kv_heads, group, head_dim, num_pages, page_size,
-         pages_per_seq, pages_per_chunk, head_block, qk_scale, kv_scale};
-  return dispatch(a, batch, act_dtype, page_dtype, tm != 0, amla != 0,
-                  n_split, wide != 0, part,
-                  static_cast<cudaStream_t>(stream));
+         pages_per_seq, pages_per_chunk, qk_scale, kv_scale};
+  return dispatch(a, batch, act_dtype, page_dtype, amla != 0, n_split,
+                  wide != 0, part, static_cast<cudaStream_t>(stream));
 }
 
 // K1's dynamic shared memory per block, as its launcher plans it for

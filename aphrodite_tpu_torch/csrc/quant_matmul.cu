@@ -6,9 +6,10 @@
 // m > 64, K12, K13, K14, K16 on bf16 x and K17 are one templated kernel,
 // quant_gemm_kernel (warp-specialized wgmma, below), with a word decoder
 // each; K15 at m > 64 is w8a8_gemm_kernel (s8 wgmma and a per-group fold,
-// below); K7, K8 and K11 another, quant_mma_kernel; K13-K15 and K17 at
-// m <= 64 a third, int8_mma_kernel; K12 and K16 on bf16 x at m <= 64 and
-// K16 on f32 x a fourth, nib_mma_kernel. The last three share the block
+// below); K7 is quant_stream_kernel (a cp.async ring and W dequantized
+// straight into mma.sync fragments, below); K8 and K11 quant_mma_kernel;
+// K13-K15 and K17 at m <= 64 int8_mma_kernel; K12 and K16 on bf16 x at m
+// <= 64 and K16 on f32 x nib_mma_kernel. The last three share the block
 // tile, the x staging,
 // the mma.sync fragments, the A8 group fold, the epilogue and the
 // launcher (Tile, stage_x, mma_chunk, fold_group, store_tile,
@@ -33,9 +34,8 @@
 //   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128, A8> at m <= 64,
 //                                 w8a8_gemm_kernel above (K15, W8A8)
 //   _kernel (:554)          -> quant_gemm_kernel<BITS, kGptq> (K6)
-//   _stream_kernel (:308)   -> quant_mma_kernel, 16-64-row tiles with
-//                              split K, GPTQ and AWQ layouts, a16 and a8
-//                              arms (K7)
+//   _stream_kernel (:308)   -> quant_stream_kernel, 8-64 rows, split K,
+//                              GPTQ and AWQ layouts, a16 and a8 arms (K7)
 //   _gptq_a8_kernel, _gptq_a8_deferred_kernel (:1274, :1311)
 //                           -> quant_mma_kernel<A8>, 128-row tiles, GPTQ
 //                              layout (K8)
@@ -59,7 +59,7 @@
 // What bounds them on an H100:
 // - K7 (m <= 64, every decode step): bytes. Each int4 weight is used by at
 //   most 64 rows; the least time is the packed weight read once over
-//   3.35 TB/s (8.4 us for down_proj at Mistral-7B width).
+//   3.35 TB/s (8.8 us for down_proj at Mistral-7B width).
 // - K6 / K10 (m > 64: prompt rounds, decode batches above 64): bf16
 //   operations at large m (989 TFLOP/s: 1.81 ms per Mistral-7B layer at
 //   m 4096), bytes below a few hundred rows. Inside the SM the limit is
@@ -108,9 +108,10 @@
 // held in shared memory for the whole block; K17 K13's bytes with no
 // rows, its f32 column scale in the epilogue), 64-row chunks as the
 // split unit and two W tiles.
-// The other kernels: a block owns BM rows x 128 columns of the output
-// and walks its quantization groups in order; each group is cut into
-// 64-deep k chunks.
+// K7: see quant_stream_kernel below. The other mma.sync kernels
+// (quant_mma_kernel for K8 / K11, int8_mma_kernel, nib_mma_kernel): a
+// block owns BM rows x 128 columns of the output and walks its
+// quantization groups in order; each group is cut into 64-deep k chunks.
 // For every chunk the block stages x in shared memory and dequantizes the
 // chunk of W there (in the natural row order: the TPU's plane-order unpack
 // and x column permutation were sublane tricks and are gone; the packed
@@ -126,15 +127,15 @@
 // (unpacked in natural column order: the TPU's plane-major columns and
 // output un-permutation were lane tricks and are gone). The TPU kernels
 // carried the f32 sum across a sequential grid axis in VMEM scratch; here
-// the k loop is inside the block. For skinny m (K7) a block covers 16, 32
-// or 64 rows, so the weight is streamed once, and the groups are split
-// over several blocks to fill
+// the k loop is inside the block. For skinny m (K12-K17 at m <= 64) a
+// block covers 16, 32 or 64 rows, so the weight is streamed once, and
+// the K range is split over several blocks to fill
 // the 132 SMs: each split writes f32 partial sums and a second kernel adds
 // them in split order (deterministic, no atomics), applies the A8 row
 // scale and rounds to bf16. x of up to 64 x 14336 does not fit in shared
 // memory, so it is staged chunk by chunk like W. The two TPU W4A8 bodies
 // (classic and deferred rescale) differ only in the f32 summation order;
-// this one kernel computes both. No cp.async / TMA pipeline and no wgmma
+// quant_mma_kernel computes both. No cp.async / TMA pipeline and no wgmma
 // in these yet.
 //
 // Each C entry point launches on the caller's stream, allocates nothing
@@ -145,6 +146,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
@@ -2160,8 +2162,617 @@ int launch_w8a8(const void* x8, const float* xs, const void* qs8,
 
 }  // namespace gemm
 
+// ----------------------------------------------------------------- K7 --
+//
+// quant_stream_kernel<BITS, AWQ, A8, NT>: the GPTQ (4 and 8 bits) and AWQ
+// product at m <= 64, every decode step of a GPTQ or AWQ checkpoint up to
+// batch 64, a16 and a8 arms. Bytes bound it: each packed word serves at
+// most 64 rows, so the least time is the weight and its scale and zero
+// rows read once (34 us per Mistral-7B layer at 3.35 TB/s). The design
+// keeps those bytes in flight and spends few instructions per word once
+// they land:
+// - A cp.async ring per block of 128 output columns (eight warps): 3
+//   stages of 128 k rows (8.5 KB; 2 of 16.5 KB at 8 bits), 16-byte
+//   cp.async.cg copies issued stages - 1 ahead, one block barrier a
+//   stage.
+// - x resident: the block's K range of x (M_TILE = 8 NT rows, at most
+//   32: m 33-64 takes two row blocks; the wrapper's plan keeps it within
+//   64 KB) and of the scale and zero rows is staged once, at the start,
+//   x permuted in place into the fragments' k order. Small blocks, two
+//   or three an SM, measured faster than deeper rings or more x a block
+//   (PERF.md).
+// - W straight into mma fragments ("swap AB"): y^T = W^T x^T with
+//   mma.sync m16n8k16 (bf16) or m16n8k32 (s8, the a8 arm). A warp owns 16
+//   output columns as the A operand's 16 rows and up to 64 x rows as NT
+//   8-wide n-tiles; each k32 step's words are dequantized from the ring
+//   into A-fragment registers, with no W tile and no barrier for it.
+//   - Columns: A row g is column 2g of the warp's 16 and row g + 8 column
+//     2g + 1, so a thread's two columns are neighbours: one 64-bit load of
+//     their GPTQ words, one nibble pair (r, r + 4) of an AWQ word, one
+//     bf16x2 store of the result.
+//   - k: thread t of a quad takes rows 8t .. 8t + 7 of each k32 step, one
+//     GPTQ word a column. bf16: the register of pair r = 2s + h (step s,
+//     fragment half h) holds rows 8t + r and 8t + r + 4, (w >> 4r) &
+//     0x000f000f, bf16 128 + q in one lop3; s8: rows 8t + 0, 2, 4, 6 in
+//     the low k half, the odd rows in the high one. x is staged in that
+//     order (each 8-row run permuted in place), so a thread's B fragments
+//     of a step are one 16-byte (8-byte) shared load. AWQ takes the same
+//     rows, one word each, and swaps the halves of its column pairs.
+//   - Every W value is bf16(float(q - z) * s), as the plain version rounds
+//     it: 128 + q and 128 + z are exact in bf16, so is their difference,
+//     and one bf16x2 multiply rounds the product once (8 bits: the same in
+//     f32, then one conversion). The AutoGPTQ +1 zero and the AWQ nibble
+//     order (awq_shift) are as in the other kernels.
+//   - a8: codes minus zero, in [-16, 14] (GPTQ) or [-15, 15] (AWQ), as int8
+//     bytes; exact int32 dots per group, folded into f32 in group order
+//     with the group's scale row as fold_group does, times xs[row] in the
+//     epilogue or the split reduce.
+// - Splits over whole units of lcm(gs, 32) rows, or of 32 rows where
+//   that passes 1024 (gs = K, groups of 2048 and more: a split then
+//   starts and ends inside a group, the a8 arm folding its share of the
+//   group's sum), from shapes and the SM count alone (the wrapper's
+//   stream_plan); split_reduce_kernel, a second launch on the same
+//   stream, adds the f32 partials in split order.
+// Group sizes are multiples of 8, so a thread's rows of a step lie in one
+// group; where a step crosses groups (gs not a multiple of 32) each thread
+// takes its own group's zero and scale, and the a8 arm runs the step once
+// per group with the other groups' codes masked to zero.
+namespace streamed {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBN = 16 * kWarps;        // output columns a tile
+constexpr int kKC = 128;                // k rows a ring stage
+
+template <int BITS, bool AWQ>
+struct Cfg {
+  static constexpr int kPack = 32 / BITS;
+  // A stage's words: GPTQ [kKC / pack word rows][kBN + pad words], the
+  // pad (8 words at 4 bits, 4 at 8) putting the quads' 64-bit loads in
+  // distinct banks; AWQ [kKC rows][kBN / 8 words], rows swizzled
+  // (awq_word).
+  static constexpr int kRows = AWQ ? kKC : kKC / kPack;
+  static constexpr int kRowWords = AWQ ? kBN / 8 : kBN + (BITS == 4 ? 8 : 4);
+  static constexpr int kStageWords = kRows * kRowWords;
+  static constexpr int kStages = BITS == 8 ? 2 : 3;
+  static constexpr int kRingBytes = kStages * kStageWords * 4;
+  static constexpr int kZeroWords = kBN / kPack;     // a group's zero row
+};
+
+// AWQ stage: the word offset of word w of row r. Rows of kBN / 8 words
+// pack 128-byte lines; within its line a row's place is XORed with
+// (r >> 3) & 3 times 8 words (4 where rows are 16 words), so the rows 8t
+// + j that the four quads read together fall in distinct banks, and
+// 16-byte copies stay whole.
+__device__ __forceinline__ int awq_word(int r, int w) {
+  constexpr int kRowWords = kBN / 8;
+  const int e = r * kRowWords + w;
+  return (e & ~31) | ((e & 31) ^ (((r >> 3) & 3) * (kRowWords == 16 ? 4 : 8)));
+}
+
+// Bytes of a row of resident x: the block's K range rounded up to 128,
+// plus half (bf16) or a quarter (int8) of a line, so that the rows one
+// shared load reads fall in distinct banks.
+__host__ __device__ constexpr int x_stride(int k_rows, int es) {
+  return (k_rows * es + 127) / 128 * 128 + (es == 2 ? 64 : 32);
+}
+
+__host__ __device__ constexpr int gcd_int(int a, int b) {
+  return b == 0 ? a : gcd_int(b, a % b);
+}
+
+// The split unit: lcm(gs, 32) rows, whole groups and whole k32 steps, up
+// to 1024 rows (32 rows of bf16 x over it fill a block's 64 KB); past
+// that one k32 step (gs = K, groups of 2048 rows and more), and a split
+// may start and end inside a group.
+__host__ __device__ constexpr int split_unit(int gs) {
+  return gs / gcd_int(gs, 32) * 32 <= 1024 ? gs / gcd_int(gs, 32) * 32 : 32;
+}
+
+// The most groups one split's k rows touch.
+inline int split_groups(int K, int gs, int k_split) {
+  int most = 0;
+  for (int k0 = 0; k0 < K; k0 += k_split)
+    most = std::max(most,
+                    (std::min(K, k0 + k_split) - 1) / gs - k0 / gs + 1);
+  return most;
+}
+
+// The ring, the split's scale and zero rows, and its x.
+template <int BITS, bool AWQ, bool A8>
+constexpr int smem_bytes(int k_rows, int groups, int nt) {
+  using C = Cfg<BITS, AWQ>;
+  return C::kRingBytes + groups * (kBN * 2 + C::kZeroWords * 4) +
+         8 * nt * x_stride(k_rows, A8 ? 1 : 2);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 4-bit codes (the low nibble of each byte of v) minus a zero
+// replicated in zz, as int8 bytes: (q | 0x80) - z borrows nothing
+// (128 + q - z >= 113), and ^ 0x80 leaves q - z.
+__device__ __forceinline__ uint32_t s8_codes(uint32_t v, uint32_t zz) {
+  return (gemm::and_or(v, 0x0f0f0f0fu, 0x80808080u) - zz) ^ 0x80808080u;
+}
+
+// A group's constants for the thread's columns c0 and c0 + 1: z0 / z1 and
+// s0 / s1 per column (GPTQ bf16x2 pairs of one value, 8 bits f32 bits);
+// AWQ both columns in one bf16x2 (z0, s0); a8 zeros replicated per byte.
+struct Consts {
+  uint32_t z0, z1, s0, s1;
+};
+
+template <int BITS, bool AWQ, bool A8>
+__device__ __forceinline__ Consts group_consts(const __nv_bfloat16* sc_s,
+                                               const uint32_t* z_s, int g,
+                                               int c0) {
+  using C = Cfg<BITS, AWQ>;
+  const uint32_t s2 = ld32(sc_s + g * kBN + c0);       // s[c0], s[c0 + 1]
+  const uint32_t zw = z_s[g * C::kZeroWords + c0 / C::kPack];
+  Consts q{0u, 0u, 0u, 0u};
+  if constexpr (AWQ) {
+    // c0 and c0 + 1 at nibbles r and r + 4 of their word, r = (c0 % 8) / 2.
+    const uint32_t v = zw >> (2 * (c0 & 7));
+    if constexpr (A8) {
+      q.z0 = (v & 0xfu) * 0x01010101u;
+      q.z1 = ((v >> 16) & 0xfu) * 0x01010101u;
+    } else {
+      q.z0 = gemm::nib2(v);                            // 128 + z, both
+      q.s0 = s2;
+    }
+  } else {
+    constexpr uint32_t kMask = (1u << BITS) - 1u;
+    const uint32_t v = zw >> (BITS * (c0 % C::kPack));
+    const uint32_t za = (v & kMask) + 1u;              // the AutoGPTQ +1
+    const uint32_t zb = ((v >> BITS) & kMask) + 1u;
+    if constexpr (A8) {
+      q.z0 = za * 0x01010101u;
+      q.z1 = zb * 0x01010101u;
+    } else if constexpr (BITS == 4) {
+      q.z0 = (0x4300u | za) * 0x10001u;
+      q.z1 = (0x4300u | zb) * 0x10001u;
+      q.s0 = __byte_perm(s2, s2, 0x1010);
+      q.s1 = __byte_perm(s2, s2, 0x3232);
+    } else {
+      q.z0 = __float_as_uint(8388608.f + static_cast<float>(za));
+      q.z1 = __float_as_uint(8388608.f + static_cast<float>(zb));
+      q.s0 = s2 << 16;                                 // f32 of the bf16
+      q.s1 = s2 & 0xffff0000u;
+    }
+  }
+  return q;
+}
+
+// This thread's A fragments of k32 step b of a stage: bf16 a[s] for the
+// two m16n8k16 steps (a[s][2h] column c0 and a[s][2h + 1] column c0 + 1 at
+// rows 8t + 2s + h and 8t + 2s + h + 4), s8 a[0] for the m16n8k32 (a[0][0]
+// and a[0][1] rows 8t + 0, 2, 4, 6 of c0 and c0 + 1, a[0][2] and a[0][3]
+// the odd rows).
+template <int BITS, bool AWQ, bool A8>
+__device__ __forceinline__ void step_fragments(const uint32_t* stage, int b,
+                                               int warp, int gid, int t,
+                                               const Consts& q,
+                                               uint32_t (&a)[2][4]) {
+  using C = Cfg<BITS, AWQ>;
+  using gemm::bf2_mul;
+  using gemm::bf2_sub;
+  using gemm::nib2;
+  if constexpr (AWQ) {
+    // Rows 32b + 8t + j of word column 2 warp + gid / 4, shifted so the
+    // thread's columns sit at nibbles 0 and 4.
+    const int wc = 2 * warp + (gid >> 2);
+    const int sh = 4 * (gid & 3);
+    uint32_t v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = stage[awq_word(32 * b + 8 * t + j, wc)] >> sh;
+    if constexpr (A8) {
+      const uint32_t p02 = __byte_perm(v[0], v[2], 0x6240);
+      const uint32_t p46 = __byte_perm(v[4], v[6], 0x6240);
+      const uint32_t p13 = __byte_perm(v[1], v[3], 0x6240);
+      const uint32_t p57 = __byte_perm(v[5], v[7], 0x6240);
+      a[0][0] = s8_codes(__byte_perm(p02, p46, 0x5410), q.z0);
+      a[0][1] = s8_codes(__byte_perm(p02, p46, 0x7632), q.z1);
+      a[0][2] = s8_codes(__byte_perm(p13, p57, 0x5410), q.z0);
+      a[0][3] = s8_codes(__byte_perm(p13, p57, 0x7632), q.z1);
+    } else {
+      uint32_t p[8];      // (c0, c0 + 1) at row 8t + j, dequantized
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        p[j] = bf2_mul(bf2_sub(nib2(v[j]), q.z0), q.s0);
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 2 * s + h;
+          a[s][2 * h] = __byte_perm(p[r], p[r + 4], 0x5410);
+          a[s][2 * h + 1] = __byte_perm(p[r], p[r + 4], 0x7632);
+        }
+    }
+  } else if constexpr (BITS == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(
+        stage + (4 * b + t) * C::kRowWords + warp * 16 + 2 * gid);
+    if constexpr (A8) {
+      a[0][0] = s8_codes(w.x, q.z0);
+      a[0][1] = s8_codes(w.y, q.z1);
+      a[0][2] = s8_codes(w.x >> 4, q.z0);
+      a[0][3] = s8_codes(w.y >> 4, q.z1);
+    } else {
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int sh = 8 * s + 4 * h;
+          a[s][2 * h] = bf2_mul(bf2_sub(nib2(w.x >> sh), q.z0), q.s0);
+          a[s][2 * h + 1] = bf2_mul(bf2_sub(nib2(w.y >> sh), q.z1), q.s1);
+        }
+    }
+  } else {
+    // 8 bits: rows 8t .. 8t + 3 in word row 8b + 2t, the next four in the
+    // row after; q - z as (2^23 + q) - (2^23 + z) in f32, exact, times s,
+    // exact, rounded once to bf16.
+    const uint32_t* row = stage + (8 * b + 2 * t) * C::kRowWords +
+                          warp * 16 + 2 * gid;
+    const uint2 lo = *reinterpret_cast<const uint2*>(row);
+    const uint2 hi = *reinterpret_cast<const uint2*>(row + C::kRowWords);
+    const float z0 = __uint_as_float(q.z0), z1 = __uint_as_float(q.z1);
+    const float s0 = __uint_as_float(q.s0), s1 = __uint_as_float(q.s1);
+    auto val = [](uint32_t w, int byte, float z, float s) {
+      return (__uint_as_float(__byte_perm(w, 0x4b000000u, byte | 0x7440)) -
+              z) * s;
+    };
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 2 * s + h;
+        a[s][2 * h] =
+            gemm::pack_bf2(val(lo.x, r, z0, s0), val(hi.x, r, z0, s0));
+        a[s][2 * h + 1] =
+            gemm::pack_bf2(val(lo.y, r, z1, s1), val(hi.y, r, z1, s1));
+      }
+  }
+}
+
+// Grid (N / kBN, m / (8 NT), splits), kThreads: row block y takes x rows
+// [8 NT y, + 8 NT). Split z covers k rows [z k_split,
+// min(K, (z + 1) k_split)), whole units of split_unit; without a split
+// (partial null) the bf16 result (a8: times xs[row]) goes to out, else the
+// f32 sums to partial[z][row][col].
+template <int BITS, bool AWQ, bool A8, int NT>
+__global__ void __launch_bounds__(kThreads, 2)
+quant_stream_kernel(
+    const void* __restrict__ x, const float* __restrict__ xs,
+    const uint32_t* __restrict__ qweight, const uint32_t* __restrict__ qzeros,
+    const __nv_bfloat16* __restrict__ scales, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ partial, int m, int K, int N, int gs, int k_split) {
+  using C = Cfg<BITS, AWQ>;
+  constexpr int ES = A8 ? 1 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * 8 * NT;          // the block's first x row
+  const int k_begin = blockIdx.z * k_split;
+  const int k_rows = min(K - k_begin, k_split);
+  const int n_kb = k_rows / 32;
+  const int g_begin = k_begin / gs;            // groups the split touches
+  const int n_groups = (k_begin + k_rows - 1) / gs - g_begin + 1;
+  const int n_stages = (n_kb + 3) / 4;
+  const int xrow = x_stride(k_rows, ES);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
+  __nv_bfloat16* sc_s =
+      reinterpret_cast<__nv_bfloat16*>(smem + C::kRingBytes);
+  uint32_t* z_s = reinterpret_cast<uint32_t*>(sc_s + n_groups * kBN);
+  unsigned char* x_s =
+      reinterpret_cast<unsigned char*>(z_s + n_groups * C::kZeroWords);
+
+  // The split's scale and zero rows and x rows [0, m) of its K range, in
+  // the first copy group. Rows past m are never stored: their products
+  // land in outputs no one writes.
+  constexpr int kSc = kBN / 8, kZc = C::kZeroWords / 4;
+  for (int i = tid; i < n_groups * kSc; i += kThreads) {
+    const int g = i / kSc, c = i % kSc;
+    cp_async16(sc_s + g * kBN + c * 8,
+               scales + static_cast<size_t>(g_begin + g) * N + n0 + c * 8);
+  }
+  for (int i = tid; i < n_groups * kZc; i += kThreads) {
+    const int g = i / kZc, c = i % kZc;
+    cp_async16(z_s + g * C::kZeroWords + c * 4,
+               qzeros + static_cast<size_t>(g_begin + g) * (N / C::kPack) +
+                   n0 / C::kPack + c * 4);
+  }
+  const int rows = min(m - m0, 8 * NT);
+  const int runs = k_rows * ES / 16;          // 16-byte runs of a row
+  const unsigned char* xb = static_cast<const unsigned char*>(x) +
+                            (static_cast<size_t>(m0) * K + k_begin) * ES;
+  const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (x_vec)
+    for (int r = 0; r < rows; ++r)
+      for (int c = tid; c < runs; c += kThreads)
+        cp_async16(x_s + r * xrow + c * 16,
+                   xb + static_cast<size_t>(r) * K * ES + c * 16);
+  // Stage st: k rows [k_begin + st kKC, + kKC) of the block's columns.
+  auto issue = [&](int st) {
+    if (st < n_stages) {
+      uint32_t* dst = ring + (st % C::kStages) * C::kStageWords;
+      const int k0 = k_begin + st * kKC;
+      const int rows_k = min(kKC, k_begin + k_rows - k0);
+      if constexpr (AWQ) {
+        constexpr int kCopies = kBN / 32;         // 16-byte copies a row
+        const size_t ld = static_cast<size_t>(N / 8);
+        const uint32_t* src = qweight + k0 * ld + n0 / 8;
+        for (int i = tid; i < rows_k * kCopies; i += kThreads) {
+          const int r = i / kCopies, c = i % kCopies;
+          cp_async16(dst + awq_word(r, 4 * c), src + r * ld + 4 * c);
+        }
+      } else {
+        constexpr int kCopies = kBN / 4;
+        const uint32_t* src =
+            qweight + static_cast<size_t>(k0 / C::kPack) * N + n0;
+        for (int i = tid; i < rows_k / C::kPack * kCopies; i += kThreads) {
+          const int r = i / kCopies, c = i % kCopies;
+          cp_async16(dst + r * C::kRowWords + 4 * c,
+                     src + static_cast<size_t>(r) * N + 4 * c);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < C::kStages - 1; ++s) issue(s);
+
+  // x in fragment order: each run of 8 k rows permuted in place, bf16
+  // rows 0, 4, 1, 5, 2, 6, 3, 7 and int8 0, 2, 4, 6, 1, 3, 5, 7.
+  auto permute = [](uint4 v) {
+    if constexpr (A8)
+      return make_uint4(__byte_perm(v.x, v.y, 0x6420),
+                        __byte_perm(v.x, v.y, 0x7531),
+                        __byte_perm(v.z, v.w, 0x6420),
+                        __byte_perm(v.z, v.w, 0x7531));
+    else
+      return make_uint4(__byte_perm(v.x, v.z, 0x5410),
+                        __byte_perm(v.x, v.z, 0x7632),
+                        __byte_perm(v.y, v.w, 0x5410),
+                        __byte_perm(v.y, v.w, 0x7632));
+  };
+  if (!x_vec) {
+    // An unaligned view of x: byte loads, permuted on the way.
+    for (int r = 0; r < rows; ++r)
+      for (int c = tid; c < runs; c += kThreads) {
+        const unsigned char* src =
+            xb + static_cast<size_t>(r) * K * ES + c * 16;
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[i] = src[4 * i] | (src[4 * i + 1] << 8) | (src[4 * i + 2] << 16) |
+                 (static_cast<uint32_t>(src[4 * i + 3]) << 24);
+        *reinterpret_cast<uint4*>(x_s + r * xrow + c * 16) =
+            permute(make_uint4(w[0], w[1], w[2], w[3]));
+      }
+  }
+
+  float acc[NT][4];
+  int iacc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[nt][e] = 0.f;
+      iacc[nt][e] = 0;
+    }
+  const int n_nt = min(NT, (m - m0 + 7) / 8);  // n-tiles with a live row
+  const int c0 = warp * 16 + 2 * gid;          // the thread's columns
+  const unsigned char* x_lane = x_s + gid * xrow + t * 8 * ES;
+  Consts q{0u, 0u, 0u, 0u};
+  // The thread's group and its end, k from k_begin (the split may start
+  // inside a group); a8: the group being summed.
+  int sg = -1, sg_end = g_begin * gs - k_begin;
+  int fg = 0, fg_end = sg_end + gs;
+
+  // a8: the step's s8 products into the exact group sums.
+  auto products_s8 = [&](const uint32_t* af, int kb) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      if (nt < n_nt) {
+        const uint2 xv = *reinterpret_cast<const uint2*>(
+            x_lane + nt * 8 * xrow + kb * 32);
+        const uint32_t bf[2] = {xv.x, xv.y};
+        mma_s8(iacc[nt], af, bf);
+      }
+  };
+  // a8, at group fg's end: its sums times its scales, added in group order.
+  auto fold = [&]() {
+    const uint32_t s2 = ld32(sc_s + fg * kBN + c0);
+    const float s0 = __uint_as_float(s2 << 16);
+    const float s1 = __uint_as_float(s2 & 0xffff0000u);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[nt][e] = __fadd_rn(acc[nt][e],
+                               __fmul_rn(static_cast<float>(iacc[nt][e]),
+                                         e < 2 ? s0 : s1));
+        iacc[nt][e] = 0;
+      }
+    ++fg;
+    fg_end += gs;
+  };
+
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();              // stage st landed; stage st - 1 is free
+    if (st == 0 && x_vec) {       // x, the scale and zero rows landed too
+      for (int r = 0; r < rows; ++r)
+        for (int c = tid; c < runs; c += kThreads) {
+          uint4* p = reinterpret_cast<uint4*>(x_s + r * xrow + c * 16);
+          *p = permute(*p);
+        }
+      __syncthreads();
+    }
+    issue(st + C::kStages - 1);
+    const uint32_t* stage = ring + (st % C::kStages) * C::kStageWords;
+    const int nb = min(4, n_kb - st * 4);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (b >= nb) break;
+      const int kb = st * 4 + b;
+      const int kk = kb * 32;
+      if (kk + 8 * t >= sg_end) {
+        do {
+          ++sg;
+          sg_end += gs;
+        } while (kk + 8 * t >= sg_end);
+        q = group_consts<BITS, AWQ, A8>(sc_s, z_s, sg, c0);
+      }
+      uint32_t a[2][4];
+      step_fragments<BITS, AWQ, A8>(stage, b, warp, gid, t, q, a);
+      if constexpr (A8) {
+        if (kk + 32 <= fg_end) {
+          products_s8(a[0], kb);
+          if (kk + 32 == fg_end) fold();
+        } else {
+          // The step crosses groups: once per group, the others' codes 0.
+          for (;;) {
+            const bool mine = sg == fg;
+            const uint32_t am[4] = {mine ? a[0][0] : 0u, mine ? a[0][1] : 0u,
+                                    mine ? a[0][2] : 0u, mine ? a[0][3] : 0u};
+            products_s8(am, kb);
+            if (fg_end > kk + 32) break;
+            fold();
+            if (fg_end - gs >= kk + 32) break;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          if (nt < n_nt) {
+            const uint4 xv = *reinterpret_cast<const uint4*>(
+                x_lane + nt * 8 * xrow + kb * 64);
+            const uint32_t b0[2] = {xv.x, xv.y};
+            const uint32_t b1[2] = {xv.z, xv.w};
+            mma_bf16(acc[nt], a[0], b0);
+            mma_bf16(acc[nt], a[1], b1);
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  // a8: a group the split ends inside.
+  if constexpr (A8)
+    if (fg_end - gs < k_rows) fold();
+
+  // Columns c0, c0 + 1 of rows 8 nt + 2t and + 1.
+  const int col = n0 + c0;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + nt * 8 + 2 * t + h;
+      if (nt >= n_nt || r >= m) continue;
+      const float v0 = acc[nt][h], v1 = acc[nt][2 + h];
+      if (partial != nullptr) {
+        *reinterpret_cast<float2*>(
+            partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
+            make_float2(v0, v1);
+      } else {
+        const float rs = A8 ? xs[r] : 1.f;
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r) * N +
+                                           col) =
+            __floats2bfloat162_rn(v0 * rs, v1 * rs);
+      }
+    }
+}
+
+template <int BITS, bool AWQ, bool A8, int NT>
+int run(const void* x, const float* xs, const void* qweight,
+        const void* qzeros, const void* scales, void* out, float* partial,
+        int m, int K, int N, int gs, int splits, int k_split,
+        cudaStream_t stream) {
+  auto kernel = quant_stream_kernel<BITS, AWQ, A8, NT>;
+  const int smem = smem_bytes<BITS, AWQ, A8>(
+      k_split, split_groups(K, gs, k_split), NT);
+  static int allowed = 48 * 1024;
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
+  }
+  kernel<<<dim3(N / kBN, (m + 8 * NT - 1) / (8 * NT), splits), kThreads,
+           smem, stream>>>(
+      x, xs, static_cast<const uint32_t*>(qweight),
+      static_cast<const uint32_t*>(qzeros),
+      static_cast<const __nv_bfloat16*>(scales),
+      static_cast<__nv_bfloat16*>(out), splits > 1 ? partial : nullptr, m, K,
+      N, gs, k_split);
+  if (splits > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t total = static_cast<size_t>(m) * N;
+    split_reduce_kernel<__nv_bfloat16>
+        <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+            partial, A8 ? xs : nullptr, nullptr,
+            static_cast<__nv_bfloat16*>(out), splits, m, N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// block_m 8, 16, 32 or 64 rows (NT 1, 2 or 4 n-tiles; 64 as two 32-row
+// blocks); `splits` runs of whole units, as the wrapper's stream_plan
+// counted them (each non-empty).
+template <int BITS, bool AWQ, bool A8>
+int launch(const void* x, const float* xs, const void* qweight,
+           const void* qzeros, const void* scales, void* out, float* partial,
+           int m, int K, int N, int gs, int splits, int block_m,
+           cudaStream_t stream) {
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  if (gs <= 0 || gs % 8 != 0 || N % kBN != 0 || m > block_m ||
+      splits < 1 || (splits > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int unit = split_unit(gs);
+  if (K % unit != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int units = K / unit;
+  const int per = (units + splits - 1) / splits;
+  if ((units + per - 1) / per != splits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int k_split = per * unit;
+  switch (block_m) {
+    case 8:
+      return run<BITS, AWQ, A8, 1>(x, xs, qweight, qzeros, scales, out,
+                                   partial, m, K, N, gs, splits, k_split,
+                                   stream);
+    case 16:
+      return run<BITS, AWQ, A8, 2>(x, xs, qweight, qzeros, scales, out,
+                                   partial, m, K, N, gs, splits, k_split,
+                                   stream);
+    case 32:
+      return run<BITS, AWQ, A8, 4>(x, xs, qweight, qzeros, scales, out,
+                                   partial, m, K, N, gs, splits, k_split,
+                                   stream);
+    case 64:   // two 32-row blocks
+      return run<BITS, AWQ, A8, 4>(x, xs, qweight, qzeros, scales, out,
+                                   partial, m, K, N, gs, splits, k_split,
+                                   stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace streamed
+
 // The launcher the kernels share: `tile(TL{}, grid, partial)` launches the
-// kernel for block_m 16, 32 or 64 (one warp row: K7's skinny tiles, split
+// kernel for block_m 16, 32 or 64 (one warp row: the skinny tiles, split
 // K) or 128 (two warp rows), over the output's 128-column blocks, its row
 // blocks and `splits`; `partial` is null without a split. With a split,
 // split_reduce_kernel then adds the f32 partials (times xs for A8, times
@@ -2191,35 +2802,40 @@ int launch_tiles(LaunchTile&& tile, int block_m, const float* xs, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// GPTQ / AWQ: a split covers ceil(G / splits) groups. The a16 128-row
-// tile is quant_gemm_kernel (K6, K10); quant_mma_kernel takes the rest.
+// GPTQ / AWQ: block_m 8-64 is K7 (quant_stream_kernel, `splits` runs of
+// whole units); 128 is K6 / K10 (quant_gemm_kernel, runs of groups) for
+// a16 and K8 / K11 (quant_mma_kernel, no split) for a8.
 template <int BITS, bool A8, bool AWQ>
 int launch(const void* x, const float* xs, const void* qweight,
            const void* qzeros, const void* scales, void* out,
            float* partial, int m, int K, int N, int gs, int splits,
            int block_m, cudaStream_t stream) {
+  if (block_m != 128)
+    return streamed::launch<BITS, AWQ, A8>(x, xs, qweight, qzeros, scales,
+                                           out, partial, m, K, N, gs,
+                                           splits, block_m, stream);
   if constexpr (!A8) {
-    if (block_m == 128)
-      return gemm::launch_gemm<BITS, AWQ ? gemm::Dec::kAwq
-                                         : gemm::Dec::kGptq>(
-          x, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
-          stream);
+    return gemm::launch_gemm<BITS, AWQ ? gemm::Dec::kAwq
+                                       : gemm::Dec::kGptq>(
+        x, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
+        stream);
+  } else {
+    const int G = K / gs;
+    const int gps = (G + splits - 1) / splits;
+    return launch_tiles<A8>(
+        [&](auto tl, dim3 grid, float* part) {
+          using TL = decltype(tl);
+          if constexpr (TL::BM == 128) {
+            quant_mma_kernel<TL, BITS, AWQ><<<grid, kThreads, 0, stream>>>(
+                static_cast<const typename TL::T*>(x), xs,
+                static_cast<const uint32_t*>(qweight),
+                static_cast<const uint32_t*>(qzeros),
+                static_cast<const __nv_bfloat16*>(scales),
+                static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, gps);
+          }
+        },
+        block_m, xs, out, partial, m, N, splits, stream);
   }
-  const int G = K / gs;
-  const int gps = (G + splits - 1) / splits;
-  return launch_tiles<A8>(
-      [&](auto tl, dim3 grid, float* part) {
-        using TL = decltype(tl);
-        if constexpr (A8 || TL::BM != 128) {
-          quant_mma_kernel<TL, BITS, AWQ><<<grid, kThreads, 0, stream>>>(
-              static_cast<const typename TL::T*>(x), xs,
-              static_cast<const uint32_t*>(qweight),
-              static_cast<const uint32_t*>(qzeros),
-              static_cast<const __nv_bfloat16*>(scales),
-              static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, gps);
-        }
-      },
-      block_m, xs, out, partial, m, N, splits, stream);
 }
 
 // GGUF and K17: the split unit is 64 rows (A16) or one scale group (A8),
@@ -2351,7 +2967,8 @@ extern "C" int gguf_gemm_smem_bytes(int kernel) {
 
 // y[m, N] = x[m, K] @ dequant(W), x and scales bf16. block_m 128 is K6
 // (quant_gemm_kernel; `splits` groups runs, then split_reduce_kernel);
-// 16, 32 and 64 are K7 (with splits > 1, `partial` holds splits*m*N f32).
+// 8, 16, 32 and 64 are K7 (quant_stream_kernel; `splits` runs of
+// lcm(gs, 32) rows; with splits > 1, `partial` holds splits*m*N f32).
 extern "C" int gptq_mm_a16(const void* x, const void* qweight,
                            const void* qzeros, const void* scales, void* out,
                            float* partial, int m, int K, int N, int gs,
@@ -2367,8 +2984,8 @@ extern "C" int gptq_mm_a16(const void* x, const void* qweight,
 }
 
 // y[m, N] = bf16(xs[m] * sum_g s[g] * (x8[m, g] . (q - z)[g])), x8 int8
-// from quant8, 4-bit codes. block_m 128 is K8; 16, 32 and 64 the a8 arm
-// of K7.
+// from quant8, 4-bit codes. block_m 128 is K8; 8, 16, 32 and 64 the a8
+// arm of K7.
 extern "C" int gptq_mm_a8(const void* x8, const float* xs,
                           const void* qweight, const void* qzeros,
                           const void* scales, void* out, float* partial,
@@ -2380,7 +2997,7 @@ extern "C" int gptq_mm_a8(const void* x8, const float* xs,
 }
 
 // AWQ layout, y[m, N] = x[m, K] @ dequant(W), x and scales bf16. block_m 128
-// is K10 (quant_gemm_kernel, as K6); 16, 32 and 64 are K7's AWQ layout
+// is K10 (quant_gemm_kernel, as K6); 8, 16, 32 and 64 are K7's AWQ layout
 // (split K as for GPTQ).
 extern "C" int awq_mm_a16(const void* x, const void* qweight,
                           const void* qzeros, const void* scales, void* out,
@@ -2392,8 +3009,8 @@ extern "C" int awq_mm_a16(const void* x, const void* qweight,
 }
 
 // AWQ layout, y[m, N] = bf16(xs[m] * sum_g s[g] * (x8[m, g] . (q - z)[g])),
-// x8 int8 from quant8. block_m 128 is K11; 16, 32 and 64 the a8 arm of K7's
-// AWQ layout.
+// x8 int8 from quant8. block_m 128 is K11; 8, 16, 32 and 64 the a8 arm of
+// K7's AWQ layout.
 extern "C" int awq_mm_a8(const void* x8, const float* xs,
                          const void* qweight, const void* qzeros,
                          const void* scales, void* out, float* partial,

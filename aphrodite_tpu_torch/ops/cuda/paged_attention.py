@@ -20,13 +20,15 @@ JAX package has two grids:
 CUDA input the kernel does not take raises. Both flags are read at call
 time, as the JAX function reads them.
 
-K1 splits each sequence's chunks over `choose_decode_splits` blocks
-(flash-decoding, from the shapes and the card's SM count): each split
-keeps its own online-softmax state over a contiguous run of whole
-chunks, and a merge kernel (its own launch
-counter) combines the splits with the same power-of-two rescale. The
-plain version takes the same `num_splits` and repeats that arithmetic;
-at 1 split it is the sequential walk of the Pallas body.
+Both are one CUDA launch: K1's grid (batch, Hkv, n_split) is the padded
+grid at one kv head a block, so K5 launches K1's kernel and counts it
+under its own counter. It splits a sequence's chunks over
+`choose_decode_splits` blocks (flash-decoding): each split keeps its own
+online-softmax state over a contiguous run of whole chunks, and a merge
+kernel (its own launch counter) combines the splits with the same
+power-of-two rescale. The plain version takes the same
+`num_splits` and repeats that arithmetic; at 1 split it is the
+sequential walk of the Pallas body.
 
 The plain version repeats the Pallas bodies' arithmetic, which is the
 same for both grids at the same chunking: chunks of `pages_per_chunk`
@@ -76,11 +78,9 @@ def _exp2(x: torch.Tensor) -> torch.Tensor:
 _WORK_BUCKETS = [8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512,
                  768, 1024, 1536, 2048, 3072, 4096]
 
-# Kernel limits (csrc/paged_attention.cu): K1 4 warps x 4 rows, K5 at
-# most 16 warps (a warp per 4 rows of a kv head); 8 lanes of head_dim
-# per warp lane.
+# Kernel limits (csrc/paged_attention.cu): 4 warps x 4 rows a kv head;
+# 8 lanes of head_dim per warp lane.
 _MAX_GROUP = 16
-_MAX_TM_WARPS = 16
 _MAX_HEAD_DIM = 256
 #: Block-table entries a K1 split stages in shared memory (8 KB): longer
 #: tables take more splits.
@@ -105,8 +105,8 @@ def amla_enabled() -> bool:
 # ------------------------------------------------------- host helpers --
 
 def head_block(num_kv_heads: int) -> int:
-    """Largest divisor of H that is <= 8: the kv heads one K5 block
-    serves, as one cell of the Pallas padded grid did."""
+    """Largest divisor of H that is <= 8: the kv heads one cell of the
+    Pallas padded grid serves (K5 on the card serves one a block)."""
     for hb in (8, 7, 6, 5, 4, 3, 2):
         if num_kv_heads % hb == 0:
             return hb
@@ -361,17 +361,20 @@ def _entry():
     """The C entry point, its argument types set once (ctypes rebuilds
     its converters on every assignment)."""
     fn = build.library("paged_attention").paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 9 + \
+        [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
             knew, vnew, *, scale: float, kv_scale: float, ppc: int,
-            amla: bool, tm: bool, num_splits: Optional[int]) -> torch.Tensor:
-    """K1 (tm False; with its merge when it splits) or K5 (tm True) on
-    CUDA tensors; raises on inputs the kernels do not take."""
+            amla: bool, tm: bool, num_splits: Optional[int]
+            ) -> torch.Tensor:
+    """K1 (tm False) or K5 (tm True, the same launch under K5's
+    counter), with the merge where it splits, on CUDA tensors; raises on
+    inputs the kernel does not take."""
     what = "paged_decode_attention" + ("_tm" if tm else "")
     batch, num_q_heads, d, num_kv_heads = _geometry(q, k_pages)
     group = num_q_heads // num_kv_heads
@@ -385,13 +388,11 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
         raise TypeError(f"{what}: q must be bf16 or f32 and the pages "
                         f"that dtype, int8 or float8_e5m2, got {act}/"
                         f"{page}/{v_pages.dtype}")
-    hb = head_block(num_kv_heads) if tm else 1
-    unit = hb * d * k_pages.element_size()       # bytes staged per row
-    if group > _MAX_GROUP or d > _MAX_HEAD_DIM or unit % 16 or \
-            (tm and hb * -(-group // 4) > _MAX_TM_WARPS):
+    if group > _MAX_GROUP or d > _MAX_HEAD_DIM or \
+            d * k_pages.element_size() % 16:
         raise ValueError(f"{what}: unsupported geometry group={group} "
                          f"head_dim={d} page_size={page_size} "
-                         f"head_block={hb} page dtype {page}")
+                         f"page dtype {page}")
     if block_tables.dtype != torch.int32 or \
             context_lens.dtype != torch.int32 or \
             block_tables.shape[0] != batch or \
@@ -412,19 +413,13 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
               alibi_slopes, knew, vnew):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
-    wide = False
-    if tm:
-        if num_splits not in (None, 1):
-            raise ValueError(f"{what}: the padded grid does not split")
-        n_split = 1
-    else:
-        sms = sm_count(q.device)
-        n_split = choose_decode_splits(batch, num_kv_heads, pps, ppc, sms) \
-            if num_splits is None else int(num_splits)
-        if not 1 <= n_split <= max(pps // ppc, 1):
-            raise ValueError(f"{what}: num_splits={n_split} outside [1, "
-                             f"{pps // ppc}] (the table's chunks)")
-        wide = wide_slots(batch, num_kv_heads, n_split, sms)
+    sms = sm_count(q.device)
+    n_split = choose_decode_splits(batch, num_kv_heads, pps, ppc, sms) \
+        if num_splits is None else int(num_splits)
+    if not 1 <= n_split <= max(pps // ppc, 1):
+        raise ValueError(f"{what}: num_splits={n_split} outside [1, "
+                         f"{pps // ppc}] (the table's chunks)")
+    wide = wide_slots(batch, num_kv_heads, n_split, sms)
     out = torch.empty_like(q)
     # Each split's f32 state: acc [batch, Hkv, n_split, group, d], then
     # m and l [batch, Hkv, n_split, group].
@@ -435,9 +430,9 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
              v_pages.data_ptr(), block_tables.data_ptr(),
              context_lens.data_ptr(), build.ptr(alibi_slopes),
              build.ptr(knew), build.ptr(vnew), batch, num_kv_heads, group,
-             d, num_pages, page_size, pps, ppc, hb,
+             d, num_pages, page_size, pps, ppc,
              float(scale) * float(kv_scale) * _LOG2E, float(kv_scale),
-             _ACT_CODE[act], _PAGE_CODE[page], int(tm), int(amla), n_split,
+             _ACT_CODE[act], _PAGE_CODE[page], int(amla), n_split,
              int(wide), build.ptr(part), build.stream_of(q))
     (PAGED_DECODE_ATTENTION_TM_LAUNCHES if tm else
      PAGED_DECODE_ATTENTION_LAUNCHES).add()
@@ -450,9 +445,10 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
 def k1_smem_bytes(page_dtype: torch.dtype, wide: bool, group: int,
                   head_dim: int, page_size: int, pages_per_chunk: int,
                   pages_per_seq: int, n_split: int) -> int:
-    """K1's dynamic shared memory per block as its launcher plans it on
-    the current device, with narrow or wide slots (`wide_slots`), or -1
-    where no ring fits. Builds the kernels; card-side diagnostics."""
+    """K1's (and so K5's) dynamic shared memory per block as its
+    launcher plans it on the current device, with narrow or wide slots
+    (`wide_slots`), or -1 where no ring fits. Builds the kernels;
+    card-side diagnostics."""
     fn = build.library("paged_attention").paged_decode_smem_bytes
     fn.argtypes = [ctypes.c_int] * 8
     fn.restype = ctypes.c_longlong
@@ -489,7 +485,7 @@ def paged_decode_attention(
     entries must point at a valid page or be clamped (the kernels clamp
     them); positions >= ctx are masked. `pages_per_chunk` is clamped
     down to a divisor of the table width, as in the JAX function.
-    `num_splits` is a test hook that forces K1's split count (None:
+    `num_splits` is a test hook that forces the split count (None:
     `choose_decode_splits` on the card, the sequential walk on the
     CPU); the engine never passes it."""
     ppc = clamp_pages_per_chunk(block_tables.shape[1], pages_per_chunk)

@@ -86,6 +86,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -131,6 +132,8 @@ BLOCK_N = 128              # output columns per block
 GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K12-K14 / K16 / K17
 W8A8_BLOCK_N = 128         # K15's at m > 64: 128 x 128
 _BLOCKS_PER_SM = 4         # split-K target: this many blocks per SM
+STREAM_BLOCK_N = 128       # K7's output columns per block (8 warps x 16)
+_STREAM_X_BYTES = 65536    # K7's resident x per block, at most
 # AWQ: column 8j + e of a packed word sits at shift 4 * AWQ_ORDER[e].
 AWQ_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)
 
@@ -470,12 +473,13 @@ def gemm_plan(m: int, K: int, N: int, gs: int, sms: int,
 def _tiling(m: int, K: int, N: int, gs: int, stream: bool, sms: int
             ) -> Tuple[int, int]:
     """(block_m, splits) of the launchers that tile 128 columns, on a
-    card of `sms` SMs. The tiled a8 kernels (K8/K11) take 128 rows and
-    no split (K6 and K10 follow `gemm_plan`). The skinny kernel (K7)
-    takes the least of 16/32/64 rows that covers m, and splits the
-    quantization groups over enough blocks to give each SM four, but no
-    further than keeps the f32 partial sums (written and read once)
-    below the weight's own bytes."""
+    card of `sms` SMs: K12-K17's skinny tiles (`int8_mma_kernel`,
+    `nib_mma_kernel`) over split units of `gs` rows; without `stream`,
+    128 rows and no split. The skinny tiles take the least of 16/32/64
+    rows that covers m, and split the units over enough blocks to give
+    each SM four, but no further than keeps the f32 partial sums
+    (written and read once) below the weight's own bytes. K7 has its own
+    plan, `stream_plan`."""
     if not stream:
         return 128, 1
     if m > STREAM_M_MAX:
@@ -490,6 +494,63 @@ def _tiling(m: int, K: int, N: int, gs: int, stream: bool, sms: int
     return block_m, -(-groups // per)
 
 
+def stream_unit(gs: int) -> int:
+    """K7's split unit: lcm(gs, 32) rows, whole groups and whole k32
+    steps, up to 1024 rows (32 rows of bf16 x over it fill a block's
+    `_STREAM_X_BYTES`); past that 32 rows (gs = K, groups of 2048 rows
+    and more), and a split may start and end inside a group: the a16 arms
+    take each step's group scale, the a8 arm folds its share of a group's
+    exact sum."""
+    unit = gs // math.gcd(gs, 32) * 32
+    return unit if unit <= 1024 else 32
+
+
+def stream_plan(m: int, K: int, N: int, gs: int, sms: int, bits: int = 4,
+                a8: bool = False) -> Tuple[int, int]:
+    """(block_m, splits) of K7 (`quant_stream_kernel`) on a card of `sms`
+    SMs, from shapes alone (no host sync, so a CUDA graph can capture the
+    launch). block_m is the least of 8/16/32/64 rows that covers m (1, 2
+    or 4 n-tiles of the mma; 64 as two 32-row blocks); the grid is (N /
+    128, row blocks, splits), each split a run of whole units of
+    `stream_unit` rows, none empty. Splits aim
+    at four blocks per SM, but no further than keeps the f32 partial
+    sums (splits x m x N x 4 bytes) within a tenth of the packed weight's
+    bytes, unless that leaves SMs without a block (N / 128 x splits <
+    sms: m above 8 or so at N 4096), and no fewer than keep each block's
+    resident x (up to 32 rows of its K range, bf16 or, with `a8`, int8)
+    within `_STREAM_X_BYTES`. Raises on shapes the kernel does not take:
+    gs a multiple of 8, K of the unit."""
+    if m > STREAM_M_MAX:
+        raise ValueError(f"the streamed kernel takes m <= {STREAM_M_MAX}, "
+                         f"got {m} (use stream=False)")
+    block_m = next(b for b in (8, 16, 32, 64) if m <= b)
+    rows = min(block_m, 32)                # a block's x rows
+    unit = stream_unit(gs)
+    if gs % 8 or K % unit:
+        raise ValueError(f"the streamed kernel takes groups of a multiple "
+                         f"of 8 rows and K a multiple of its {unit}-row "
+                         f"split unit, got group {gs}, K {K}")
+    units = K // unit
+    per_x = _STREAM_X_BYTES // (rows * unit * (1 if a8 else 2))
+    least = -(-units // per_x)             # splits x needs
+    blocks = N // STREAM_BLOCK_N * -(-max(m, 1) // rows)
+    fill = -(-sms * _BLOCKS_PER_SM // blocks)
+    cap = max(K * bits // (320 * max(m, 1)), -(-sms // blocks))
+    splits = min(units, max(least, min(fill, cap)))
+    per = -(-units // splits)
+    return block_m, -(-units // per)
+
+
+def _plan(m: int, K: int, N: int, gs: int, stream: bool, a8: bool,
+          bits: int, sms: int) -> Tuple[int, int]:
+    """(block_m, splits) of a GPTQ / AWQ launch: K7 (`stream_plan`) when
+    streamed, else 128 rows, split by `gemm_plan` (K6 / K10) or not at
+    all (K8 / K11)."""
+    if stream:
+        return stream_plan(m, K, N, gs, sms, bits, a8)
+    return GEMM_BLOCK_M, 1 if a8 else gemm_plan(m, K, N, gs, sms)[0]
+
+
 def _launch(a8: bool, x, xs, qweight, qzeros, scales, *, bits: int,
             gs: int, stream: bool, counter: build.LaunchCounter,
             what: str, awq: bool = False) -> torch.Tensor:
@@ -498,12 +559,8 @@ def _launch(a8: bool, x, xs, qweight, qzeros, scales, *, bits: int,
     m, K = x.shape
     N = scales.shape[1]
     gemm = not (a8 or stream)          # K6 / K10
-    if gemm:
-        block_m = GEMM_BLOCK_M
-        splits, _ = gemm_plan(m, K, N, gs, build.sm_count(x.device))
-    else:
-        block_m, splits = _tiling(m, K, N, gs, stream,
-                                  build.sm_count(x.device))
+    block_m, splits = _plan(m, K, N, gs, stream, a8, bits,
+                            build.sm_count(x.device))
     out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((splits, m, N), dtype=torch.float32,
                           device=x.device) if splits > 1 else None
@@ -625,8 +682,8 @@ def gptq_matmul_a8(x: torch.Tensor, qweight: torch.Tensor,
     m, K, N, gs = _check(x, qweight, qzeros, scales, bits, group_size,
                          "gptq_matmul_a8")
     use_stream = _resolve_stream(stream, m)
-    _tiling(m, K, N, gs, use_stream,          # raise before quantizing
-            build.sm_count(x.device))
+    _plan(m, K, N, gs, use_stream, True, 4,   # raise before quantizing
+          build.sm_count(x.device))
     x8, xs = quantize_activations_int8(x)
     return _launch(True, x8, xs, qweight, qzeros, scales, bits=4, gs=gs,
                    stream=use_stream,
@@ -667,8 +724,8 @@ def awq_matmul_a8(x: torch.Tensor, qweight: torch.Tensor,
     m, K, N, gs = _check(x, qweight, qzeros, scales, 4, group_size,
                          "awq_matmul_a8", awq=True)
     use_stream = _resolve_stream(stream, m)
-    _tiling(m, K, N, gs, use_stream,          # raise before quantizing
-            build.sm_count(x.device))
+    _plan(m, K, N, gs, use_stream, True, 4,   # raise before quantizing
+          build.sm_count(x.device))
     x8, xs = quantize_activations_int8(x)
     return _launch(True, x8, xs, qweight, qzeros, scales, bits=4,
                    gs=gs, stream=use_stream,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""K1's kernel time in checkouts of the repository, on one CUDA card,
-all taken with this checkout's `chip_smoke.Timer` (L2 flushed, the
-stream held by a device spin until the call is enqueued, so the
-wrapper's host time stays out; median of 20).
+"""K1's and K5's kernel time in checkouts of the repository, on one
+CUDA card, all taken with this checkout's `chip_smoke.Timer` (L2
+flushed, the stream held by a device spin until the call is enqueued,
+so the wrapper's host time stays out; median of 20).
 
     python3 aphrodite_tpu_torch/tools/time_decode_attention.py [TREE ...]
 
@@ -10,11 +10,12 @@ Each TREE (default: this checkout) is a checkout of the repository, for
 example an earlier commit unpacked with `git archive` into a directory
 that .gitignore lists. Each is timed in a process of its own, with its
 own package and kernels (built into TREE/build/kernels), at chip_smoke's
-K1 shapes: batch 8 with the engine's decode contexts, 64 x 2047 and
-8 x 1016, 32-token pages, fused write, on bf16, int8 and fp8 pages. To
-compare two trees within one call give them as A B B A. Prints the
-card's name and power limit, then one JSON object per tree, page type
-and shape: {"tree", "page", "shape", "ms"}.
+shapes: batch 8 with the engine's decode contexts, 64 x 2047 and 8 x
+1016, 32-token pages, fused write, on bf16, int8 and fp8 pages; K1 with
+a work list, K5 (the padded grid) without one. To compare two trees
+within one call give them as A B B A. Prints the card's name and power
+limit, then one JSON object per tree, kernel, page type and shape:
+{"tree", "kernel", "page", "shape", "ms"}.
 """
 from __future__ import annotations
 
@@ -54,10 +55,14 @@ def time_tree(tree: str) -> None:
             kw = dict(scale=smoke.HEAD_DIM ** -0.5,
                       kv_scale=dequant_scale(page_dtype, smoke.KV_SCALE),
                       pages_per_chunk=ppc)
-            ms = timer(lambda: pa.paged_decode_attention(
-                q, kp, vp, tb, ctx, sl, kn, vn, work_items=work, **kw))
-            print(json.dumps({"tree": tree, "page": str(page_dtype).replace(
-                "torch.", ""), "shape": shape, "ms": ms}), flush=True)
+            page = str(page_dtype).replace("torch.", "")
+            for kernel, extra in (("K1", dict(work_items=work)),
+                                  ("K5", {})):
+                ms = timer(lambda: pa.paged_decode_attention(
+                    q, kp, vp, tb, ctx, sl, kn, vn, **extra, **kw))
+                print(json.dumps({"tree": tree, "kernel": kernel,
+                                  "page": page, "shape": shape,
+                                  "ms": ms}), flush=True)
 
 
 def main() -> int:

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""The prompt-round quantized matmuls' kernel time in checkouts of the
-repository, on one CUDA card, all taken with this checkout's
-`chip_smoke.Timer` (L2 flushed, the stream held by a device spin until
-the call is enqueued, so the wrapper's host time stays out; median of
-20).
+"""The quantized matmuls' kernel time in checkouts of the repository,
+on one CUDA card, all taken with this checkout's `chip_smoke.Timer` (L2
+flushed, the stream held by a device spin until the call is enqueued, so
+the wrapper's host time stays out; median of 20).
 
     python3 aphrodite_tpu_torch/tools/time_quant_matmul.py \\
-        [--kernels K6,K10,K12,K13,K14,K15,K16,K17] [--ptxas] [TREE ...]
+        [--kernels K6,K7,K10,K12,K13,K14,K15,K16,K17] [--ptxas] [TREE ...]
 
 Each TREE (default: this checkout) is a checkout of the repository, for
 example an earlier commit unpacked with `git archive` into a directory
 that .gitignore lists. Each is timed in a process of its own, with its
 own package and kernels (built into TREE/build/kernels), on the same
-inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096:
+inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096
+(K7: m 1, 8, 16, 32 and 64):
+- K7, the decode product at m <= 64, its four arms: `gptq_matmul` and
+  `awq_matmul` with `stream=True` ("K7 gptq", "K7 awq"; GPTQ also at 8
+  bits, "K7 gptq8", and at group_size -1, one group of K rows, "K7
+  gptq_gK") and the a8 matmul alone on K9's rows of the same x ("K7
+  gptq_a8", "K7 awq_a8", the launch the a8 wrappers make after K9), on
+  `chip_smoke.quant_weights`; beside the a16 arms `torch.matmul` over
+  the weight dequantized to bf16 beforehand (the a8 arms have no
+  library call);
 - K6 and K10: `gptq_matmul` and `awq_matmul` with `stream=False` on
   this checkout's `chip_smoke.quant_weights` (4-bit codes in groups of
   128) and bf16 x from a seed;
@@ -39,12 +47,12 @@ and one per tree, kernel and m with the sum over the four projections
 (one layer) and its bound (chip_smoke's: the bytes over 3.35 TB/s or
 the operations over the bf16 or int8 peak, whichever is larger),
 {"tree", "kernel", "m", "layer_ms", "bound_ms"}. With `--ptxas`, each
-tree first prints one object per kernel instance of its
-`csrc/quant_matmul.cu` build, {"tree", "ptxas", "registers",
-"spill_bytes"}: the instance by its demangled name without its
-parameter list (c++filt, where the toolkit's machine has it), so that
-two trees' reports compare by name; and each warning of that build
-(a wgmma serialization, C7515 / C7518), {"tree", "ptxas_warning"}.
+tree first prints one object per kernel instance of its `csrc/*.cu`
+builds, {"tree", "source", "ptxas", "registers", "spill_bytes"}: the
+instance by its demangled name without its parameter list (c++filt,
+where the toolkit's machine has it), so that two trees' reports compare
+by name; and each warning of those builds (a wgmma serialization, C7515
+/ C7518), {"tree", "source", "ptxas_warning"}.
 """
 from __future__ import annotations
 
@@ -60,7 +68,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 MS = (72, 128, 512, 4096)
-KERNELS = ("K6", "K10", "K12", "K13", "K14", "K15", "K16", "K17")
+K7_MS = (1, 8, 16, 32, 64)
+K7_ARMS = ("gptq", "gptq8", "gptq_gK", "gptq_a8", "awq", "awq_a8")
+KERNELS = ("K6", "K7", "K10", "K12", "K13", "K14", "K15", "K16", "K17")
 LATE = {"K12": "gguf_q4k_matmul", "K16": "squeezellm_matmul",
         "K17": "int8_matmul"}
 DEFAULT = ("K6", "K10", "K14", "K15")
@@ -79,14 +89,19 @@ def _instance(name: str) -> str:
 
 
 def ptxas_report(tree: str, build) -> None:
-    """Registers and spill bytes of every entry of quant_matmul.cu, from
-    the `-Xptxas -v` report of this process's build of it."""
+    """Registers and spill bytes of every kernel entry of the tree's
+    sources, from the `-Xptxas -v` reports of this process's builds."""
     build.build_all()
+    for source in sorted(build.build_logs):
+        _ptxas_source(tree, source, build.build_logs[source])
+
+
+def _ptxas_source(tree: str, source: str, log: str) -> None:
     entries, name, spill = [], None, 0
-    for line in build.build_logs.get("quant_matmul", "").splitlines():
+    for line in log.splitlines():
         if "warning" in line.lower():
-            print(json.dumps({"tree": tree, "ptxas_warning": line.strip()}),
-                  flush=True)
+            print(json.dumps({"tree": tree, "source": source,
+                              "ptxas_warning": line.strip()}), flush=True)
         found = re.search(r"Compiling entry function '(\w+)'", line)
         if found:
             name, spill = found.group(1), 0
@@ -100,8 +115,9 @@ def ptxas_report(tree: str, build) -> None:
             entries.append((name, int(found.group(1)), spill))
             name = None
     if not entries:
-        print(json.dumps({"tree": tree, "ptxas": "no report (cached "
-                          "library)"}), flush=True)
+        print(json.dumps({"tree": tree, "source": source,
+                          "ptxas": "no report (cached library)"}),
+              flush=True)
         return
     names = [e[0] for e in entries]
     if shutil.which("c++filt"):
@@ -110,8 +126,68 @@ def ptxas_report(tree: str, build) -> None:
                                check=True).stdout.splitlines()
     for shown, (_, regs, spills) in sorted(zip(map(_instance, names),
                                                entries)):
-        print(json.dumps({"tree": tree, "ptxas": shown, "registers": regs,
-                          "spill_bytes": spills}), flush=True)
+        print(json.dumps({"tree": tree, "source": source, "ptxas": shown,
+                          "registers": regs, "spill_bytes": spills}),
+              flush=True)
+
+
+def time_k7(tree: str, torch, qmm, smoke, timer) -> None:
+    """K7's four arms, per projection and per layer, with the library
+    call and the bound (chip_smoke's phase 8 and 10 arithmetic)."""
+    for arm in K7_ARMS:
+        awq, a8 = arm.startswith("awq"), arm.endswith("a8")
+        bits = 8 if arm == "gptq8" else 4
+        layer = dict.fromkeys(K7_MS, 0.0)
+        yard = dict.fromkeys(K7_MS, 0.0)
+        bound = dict.fromkeys(K7_MS, 0.0)
+        for seed, (proj, K, N) in enumerate(smoke.GPTQ_PROJ):
+            gs = K if arm == "gptq_gK" else smoke.GPTQ_GS
+            qw, qz, sc = smoke.quant_weights(torch, K, N, bits, 500 + seed,
+                                             awq, gs)
+            kw = dict(group_size=gs) if awq else \
+                dict(bits=bits, group_size=-1 if gs == K else gs)
+            w16 = None if a8 else (qmm.dequantize_awq_plain if awq else
+                                   qmm.dequantize_plain)(
+                qw, qz, sc, dtype=torch.bfloat16, **kw)
+            gen = torch.Generator(device="cuda").manual_seed(600 + seed)
+            x_all = torch.randn(max(K7_MS), K, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+            for m in K7_MS:
+                x = x_all[:m]
+                if a8:
+                    x8, xs = qmm.quantize_activations_int8(x)
+                    counter = getattr(qmm, f"{'AWQ' if awq else 'GPTQ'}"
+                                      "_MATMUL_STREAM_A8_LAUNCHES")
+                    ms = timer(lambda: qmm._launch(
+                        True, x8, xs, qw, qz, sc, bits=4,
+                        gs=gs, stream=True, counter=counter,
+                        what="K7 a8", awq=awq))
+                    x_bytes = m * K + m * 4
+                    rate = smoke.INT8_OPS_PER_S
+                else:
+                    fn = qmm.awq_matmul if awq else qmm.gptq_matmul
+                    ms = timer(lambda: fn(x, qw, qz, sc, stream=True, **kw))
+                    yard[m] += timer(lambda: torch.matmul(x, w16))
+                    x_bytes = m * K * 2
+                    rate = smoke.BF16_FLOPS_PER_S
+                nbytes = x_bytes + smoke.weight_bytes(K, N, bits, gs) + \
+                    m * N * 2
+                bound[m] += max(nbytes / smoke.HBM_BYTES_PER_S,
+                                2 * m * K * N / rate) * 1e3
+                layer[m] += ms
+                print(json.dumps({"tree": tree, "kernel": f"K7 {arm}",
+                                  "m": m, "proj": proj, "ms": ms}),
+                      flush=True)
+            del qw, qz, sc, w16, x_all
+            torch.cuda.empty_cache()
+        for m in K7_MS:
+            print(json.dumps({"tree": tree, "kernel": f"K7 {arm}", "m": m,
+                              "layer_ms": layer[m], "bound_ms": bound[m]}),
+                  flush=True)
+            if not a8:
+                print(json.dumps({"tree": tree, "kernel": "torch.matmul "
+                                  f"over K7 {arm}'s weight in bf16",
+                                  "m": m, "layer_ms": yard[m]}), flush=True)
 
 
 def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
@@ -135,6 +211,9 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
             print(json.dumps(rec), flush=True)
 
     for kernel in kernels:
+        if kernel == "K7":
+            time_k7(tree, torch, qmm, smoke, timer)
+            continue
         layer = dict.fromkeys(MS, 0.0)
         yard = dict.fromkeys(MS, 0.0)
         t_bytes = dict.fromkeys(MS, 0.0)       # the bound's two terms

@@ -21,9 +21,12 @@ Phases, in order; any failure exits non-zero:
      tokens, with and without the fused KV write and ALiBi, AMLA on and
      off, on bf16 pages; then both on int8 (scale 0.05) and fp8 e5m2
      pages. K1 runs at split counts 1, 2, the policy's and one per
-     chunk (its `num_splits` hook), each against the plain version at
-     the same count. Tolerance: |kernel - plain| <= 2e-2 + 2e-2 |plain| (bf16
-     outputs of f32 sums in another order; exp2 differs by an ulp).
+     chunk (its `num_splits` hook), K5 (K1's kernel on the padded grid,
+     one kv head a block) at the split count its policy takes, each
+     against the plain version at the same count; then a K5 control,
+     the plain version on the neighbouring head's K rows, must miss.
+     Tolerance: |kernel - plain| <= 2e-2 + 2e-2 |plain| (bf16 outputs
+     of f32 sums in another order; exp2 differs by an ulp).
      Pages written by the fused write, quantized codes included: exact.
    - prefill page writer (K2): full pages, tail pages, skipped cells.
      Exact.
@@ -39,8 +42,9 @@ Phases, in order; any failure exits non-zero:
    pages move half the KV bytes) and its operations over 989 TFLOP/s
    (bf16), from this run's inputs. K1 and K5 are timed on every page
    type at phase 4's decode batch and at batch 64 x 2047, K1 also at
-   batch 8 x 1016 (the long-context profile's shape), with K1's split
-   count, merge launches and its wrapper's host time per call.
+   batch 8 x 1016 (the long-context profile's shape), with the split
+   count, merge launches and the wrapper's host time
+   per call; the plain version at the kernel's split count.
    A full-width 2-layer model (weights large enough that attention
    matters) is checked end to end against itself run through the plain
    versions: prompt + 3 decode steps, logits within 2e-2 relative.
@@ -58,9 +62,9 @@ Phases, in order; any failure exits non-zero:
    time per step, K1's share (with its merge) and the kernels that take
    the most; once at 64-token prompts and once at 1000-token ones.
 5. The same engine and mix with APHRODITE_ATTN_RAGGED=0, at multi_step 1
-   and 8: K5 must launch and K1 must not. Each request's tokens are
-   logged beside the ragged run's (no equality required: the kernels
-   sum in other orders).
+   and 8: K5 must launch, with the merge (the mix's decode grids
+   split), and K1 must not. Each request's tokens must equal the
+   ragged run's: K5 is K1's launch on the same grid and split count.
 6. The same model and mix with kv_cache_dtype "int8", then "fp8", at
    multi_step 1 and 8: K1 launches on 8-bit pages and the prompts take
    the quantizing slot writer (K4, not K2). The KV pool's page count is
@@ -75,8 +79,10 @@ Phases, in order; any failure exits non-zero:
 8. GPTQ kernels vs plain versions at the four projection shapes of
    Mistral-7B, (K, N) = (4096, 6144) qkv, (4096, 4096) o, (4096, 28672)
    gate_up and (14336, 4096) down, group 128, bf16 activations:
-   - K7, the skinny weight-streaming kernel, at m 1, 8 and 64: W4A16,
-     W8A16 and the W4A8 arm;
+   - K7, the decode product (`quant_stream_kernel`), at m 1, 3, 8, 17,
+     33 and 64: W4A16, W8A16 and the W4A8 arm, its plan (rows, splits)
+     logged; at m 8 a control must miss the tolerance: the plain version
+     with the zero rows shifted by one group;
    - K6 (W4A16 and W8A16) at m 72, 128, 512 and 4096 (72 and 128: decode
      batches above 64, where the plan splits the groups), with the plan
      (tile, splits) and the wrapper's host time per call logged, and K8
@@ -377,8 +383,9 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
                            amlas=(True, False), alibis=(False, True)):
     """K1 (`ragged`: with a work list) or K5 (without) vs the plain
     version across the main path's shapes, on bf16, int8 or fp8 pages;
-    K1 at every forced split count of `k1_split_counts`, against the
-    plain version at the same count. Returns the largest error."""
+    K1 at every forced split count of `k1_split_counts`, K5 at its
+    policy's, each against the plain version at the same split count.
+    Returns the largest error."""
     import random
     from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
     rng = random.Random(0)
@@ -398,11 +405,14 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
             ppc = pa.choose_pages_per_chunk(pps, page_size, batch)
             work = pa.build_decode_work_list(
                 [-(-c // page_size) for c in ctxs], ppc) if ragged else None
-            split_counts = k1_split_counts(pa, batch, pps, ppc) \
+            # K1: forced split counts; K5: its policy's.
+            variants = k1_split_counts(pa, batch, pps, ppc) \
                 if ragged else [None]
             for fused, alibi, amla, splits in (
                     (f, a, m, n) for f in (False, True) for a in alibis
-                    for m in amlas for n in split_counts):
+                    for m in amlas for n in variants):
+                n_split = splits or pa.choose_decode_splits(
+                    batch, HKV, pps, ppc, pa.sm_count("cuda"))
                 q, kp, vp, tb, ctx, sl, kn, vn = decode_problem(
                     torch, ctxs, page_size, pps, seed=cases, alibi=alibi,
                     fused=fused, page_dtype=page_dtype)
@@ -413,12 +423,12 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
                     q, kp, vp, tb, ctx, sl, kn, vn, work_items=work,
                     num_splits=splits, **kw)
                 want = pa.paged_decode_attention_plain(
-                    q, kp2, vp2, tb, ctx, sl, kn, vn,
-                    num_splits=splits or 1, **kw)
+                    q, kp2, vp2, tb, ctx, sl, kn, vn, num_splits=n_split,
+                    **kw)
                 torch.cuda.synchronize()
                 what = (f"{name} {kind} page {page_size} batch {batch} "
                         f"fused {fused} alibi {alibi} amla {amla}"
-                        + (f" splits {splits}" if ragged else ""))
+                        + f" splits {n_split}")
                 if fused:
                     got, want = got[0], want[0]
                     if not (_pages_equal(torch, kp, kp2) and
@@ -435,8 +445,38 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
         f"{kind} pages vs plain: {cases} cases, max abs err {worst} "
         f"(tolerance {ATOL} + {RTOL}|plain|); fused-write pages exact"
         + ("; split counts 1, 2, the policy's and one per chunk"
-           if ragged else ""))
+           if ragged else "; at its policy's split counts"))
     return worst
+
+
+def check_k5_control(torch, pa):
+    """K5 at batch 64 x 2047 (bf16, 32-token pages) within tolerance of
+    the plain version, and a wrong plain version, the K rows of the
+    neighbouring kv head (pages rolled by head_dim along the lanes),
+    beyond it: a head-offset fault in the staged rows cannot pass."""
+    ctxs = [2047] * 62 + [1000, 17]
+    q, kp, vp, tb, ctx, _, _, _ = decode_problem(torch, ctxs, 32, 64,
+                                                 seed=77)
+    ppc = pa.choose_pages_per_chunk(64, 32, len(ctxs))
+    n_split = pa.choose_decode_splits(len(ctxs), HKV, 64, ppc,
+                                      pa.sm_count("cuda"))
+    kw = dict(scale=HEAD_DIM ** -0.5, pages_per_chunk=ppc)
+    got = pa.paged_decode_attention(q, kp, vp, tb, ctx, **kw)
+    good = pa.paged_decode_attention_plain(q, kp, vp, tb, ctx,
+                                           num_splits=n_split, **kw)
+    bad = pa.paged_decode_attention_plain(q, kp.roll(HEAD_DIM, 2), vp, tb,
+                                          ctx, num_splits=n_split, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - good.float()).abs()
+    c_err = (got.float() - bad.float()).abs()
+    if bool((err > ATOL + RTOL * good.float().abs()).any()):
+        fail(f"K5 control case: max err {err.max().item()} against plain")
+    if not bool((c_err > ATOL + RTOL * bad.float().abs()).any()):
+        fail("K5: the control (the neighbouring head's K rows) is within "
+             "tolerance of the kernel")
+    log(f"K5 control (the neighbouring kv head's K rows) missed: max err "
+        f"{c_err.max().item():.4f} against {err.max().item():.4f} for the "
+        f"plain version ({n_split} split(s))")
 
 
 def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
@@ -462,8 +502,8 @@ def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
     merges = pa.PAGED_DECODE_MERGE_LAUNCHES.count
     call()
     merges = pa.PAGED_DECODE_MERGE_LAUNCHES.count - merges
-    n_split = pa.choose_decode_splits(
-        batch, HKV, pps, ppc, pa.sm_count("cuda")) if ragged else 1
+    n_split = pa.choose_decode_splits(batch, HKV, pps, ppc,
+                                      pa.sm_count("cuda"))
     # The wrapper's host time per call: 50 calls enqueued back to back.
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -472,8 +512,11 @@ def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
     host_us = (time.perf_counter() - t0) / 50 * 1e6
     torch.cuda.synchronize()
     ms = timer(call)
+    # K1's plain version at one split (its PERF.md rows); K5's at the
+    # split count it picks.
     plain_ms = timer(lambda: pa.paged_decode_attention_plain(
-        q, kp, vp, tb, ctx, sl, kn, vn, **kw))
+        q, kp, vp, tb, ctx, sl, kn, vn,
+        num_splits=1 if ragged else n_split, **kw))
     # Library yardstick: SDPA over each sequence's KV gathered to the
     # batch-max context and dequantized to bf16 (gather, dequant and
     # head expansion outside the timing).
@@ -848,26 +891,28 @@ def compare_with_plain(torch, model, params, label: str,
 GPTQ_PROJ = (("qkv", 4096, 6144), ("o", 4096, 4096),
              ("gate_up", 4096, 28672), ("down", 14336, 4096))
 GPTQ_GS = 128
+# K7's m (phases 8 and 10): 1-64 rows, every n-tile count of its mma.
+K7_MS = (1, 3, 8, 17, 33, 64)
 
 
-def quant_weights(torch, K, N, bits, seed, awq: bool):
-    """Random packed codes and zeros, scales in [0.002, 0.022): GPTQ
-    qweight [K / pack, N], AWQ qweight [K, N / 8]."""
+def quant_weights(torch, K, N, bits, seed, awq: bool, gs=GPTQ_GS):
+    """Random packed codes and zeros, scales in [0.002, 0.022), in groups
+    of gs rows: GPTQ qweight [K / pack, N], AWQ qweight [K, N / 8]."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     pack = 32 // bits
 
     def bits32(*shape):
         return torch.empty(*shape, dtype=torch.int32, device="cuda").random_(
             -2 ** 31, 2 ** 31, generator=gen)
-    scales = (torch.rand(K // GPTQ_GS, N, generator=gen, device="cuda") *
+    scales = (torch.rand(K // gs, N, generator=gen, device="cuda") *
               0.02 + 0.002).to(torch.bfloat16)
     qweight = bits32(K, N // 8) if awq else bits32(K // pack, N)
-    return qweight, bits32(K // GPTQ_GS, N // pack), scales
+    return qweight, bits32(K // gs, N // pack), scales
 
 
-def weight_bytes(K, N, bits):
+def weight_bytes(K, N, bits, gs=GPTQ_GS):
     """Packed codes, zeros and bf16 scales of one GPTQ or AWQ layer."""
-    G = K // GPTQ_GS
+    G = K // gs
     return K * N * bits // 8 + G * N * bits // 8 + G * N * 2
 
 
@@ -918,10 +963,10 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
                    qmm.dequantize_plain)(qw, qz, sc, dtype=torch.bfloat16,
                                          **kw)
             wbytes = weight_bytes(K, N, bits)
-            cases = [("k7", m) for m in (1, 8, 64)] + \
+            cases = [("k7", m) for m in K7_MS] + \
                 [(big, m) for m in (72, 128, 512, 4096)]
             if bits == 4:
-                cases += [("k7a8", m) for m in (1, 8, 64)] + \
+                cases += [("k7a8", m) for m in K7_MS] + \
                     [(big_a8, m) for m in (512, 4096)]
             for kern, m in cases:
                 x = x_all[:m]
@@ -967,6 +1012,25 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
                             "kernel: the matmul alone on K9's rows")
                 err = check_close(torch, got, plain(),
                                   f"{fmt} {kern} {proj} m={m} bits={bits}")
+                if stream:
+                    rows, splits = qmm.stream_plan(
+                        m, K, N, GPTQ_GS, qmm.build.sm_count("cuda"), bits,
+                        kern == "k7a8")
+                    what += (f"; plan: {rows}-row blocks of "
+                             f"{qmm.STREAM_BLOCK_N} columns, {splits} "
+                             "split(s)")
+                    if m == 8:
+                        # The control: zero rows shifted by one group.
+                        bad = (a8_plain if kern == "k7a8" else a16_plain)(
+                            x, qw, qz.roll(1, 0), sc, **kw)
+                        c_err = (got.float() - bad.float()).abs()
+                        if not bool((c_err > ATOL + RTOL *
+                                     bad.float().abs()).any()):
+                            fail(f"{fmt} {kern} {proj} m={m} bits={bits}: "
+                                 "the control (zeros shifted by one group) "
+                                 "is within tolerance of the kernel")
+                        what += (f"; control (zeros shifted by one group) "
+                                 f"max err {c_err.max().item():.4f}")
                 if kern == big:
                     # K6 / K10's plan, and the wrapper's host time per
                     # call: 50 calls enqueued back to back.
@@ -1043,6 +1107,7 @@ GGUF_KERNELS = {"k13": ("gguf_q8_matmul", 32, 1210),
                 "k14": ("gguf_i8g_matmul", 16, 1476),
                 "k15": ("gguf_w8a8_matmul", 128, 1551)}
 GGUF_MS = (1, 8, 64, 512, 4096)
+
 # The m > 64 kernels (K12-K15) also at the m their split plans serve
 # (decode batches above 64, short prompt rounds).
 GEMM_MS = (65, 72, 128, 256)
@@ -1666,7 +1731,8 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
                required=BF16_KERNELS, tag: str = "", absent=(),
                tokens=None, per_step=None):
     """Phase 4's request mix; fails if a kernel of `required` did not
-    launch or one of `absent` did. Fills `tokens` (request id without
+    launch or one of `absent` did (K5 is absent from every run but those
+    under APHRODITE_ATTN_RAGGED=0). Fills `tokens` (request id without
     the tag -> token ids) when given. With `per_step` (counter names, a
     launch count n) every engine step must launch those kernels, summed,
     a positive multiple of n times (n = the matmuls per forward pass)."""
@@ -1713,7 +1779,7 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
         if launches.get(name, 0) <= 0:
             fail(f"{tag}multi_step={multi_step}: kernel {name} never "
                  f"launched on the main path ({launches})")
-    for name in absent:
+    for name in tuple(absent) + _k5_absent():
         if launches.get(name, 0):
             fail(f"{tag}multi_step={multi_step}: kernel {name} launched "
                  f"{launches[name]} times where it must not ({launches})")
@@ -1731,6 +1797,12 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
         + (f"; {' + '.join(per_step[0])} per step {deltas}" if per_step
            else ""))
     return launches
+
+
+def _k5_absent():
+    """K5 launches only under APHRODITE_ATTN_RAGGED=0."""
+    return () if os.environ.get("APHRODITE_ATTN_RAGGED") == "0" else \
+        ("paged_decode_attention_tm",)
 
 
 def run_wide_round(torch, engine, counters, card: str, required, decode,
@@ -1764,6 +1836,10 @@ def run_wide_round(torch, engine, counters, card: str, required, decode,
         if launches.get(name, 0) <= 0:
             fail(f"{tag}96-request round: kernel {name} never launched "
                  f"({launches})")
+    for name in _k5_absent():
+        if launches.get(name, 0):
+            fail(f"{tag}96-request round: kernel {name} launched "
+                 f"{launches[name]} times where it must not")
     if launches.get(decode, 0) < 31 * 4 * layers:
         fail(f"{tag}96-request round: {decode} launched "
              f"{launches.get(decode, 0)} times, fewer than the "
@@ -2061,6 +2137,7 @@ def main() -> int:
                 k1_err = max(k1_err, err)
             else:
                 k5_err = max(k5_err, err)
+    check_k5_control(torch, pa)
     k2, k3, k4 = check_and_time_writers(torch, kw, timer)
     # K1 and K5 timed at phase 4's decode batch: 8 sequences about 16
     # tokens into their 32 new tokens, 32-token pages, fused write; and
@@ -2135,18 +2212,20 @@ def main() -> int:
     for ms in (1, 8):
         add("bf16 padded grid", run_engine(
             torch, engine, ms, counters, smi, tag="padded ",
-            required=("paged_decode_attention_tm", "write_kv_pages_prefill",
-                      "write_kv_pages"),
-            absent=("paged_decode_attention", "paged_decode_merge"),
+            required=("paged_decode_attention_tm", "paged_decode_merge",
+                      "write_kv_pages_prefill", "write_kv_pages"),
+            absent=("paged_decode_attention",),
             tokens=padded_tokens))
     os.environ.pop("APHRODITE_ATTN_RAGGED")
     same = sum(padded_tokens[k] == v for k, v in ragged_tokens.items())
     log(f"APHRODITE_ATTN_RAGGED=0 (K5) vs the ragged grid (K1): {same} of "
-        f"{len(ragged_tokens)} requests' 32 tokens equal (no equality "
-        "required: the two kernels sum in other orders)")
+        f"{len(ragged_tokens)} requests' 32 tokens equal (required: K5 is "
+        "K1's launch on the same grid and split count)")
     for rid in sorted(ragged_tokens):
         if padded_tokens[rid] != ragged_tokens[rid]:
             log(f"  {rid}: K1 {ragged_tokens[rid]} / K5 {padded_tokens[rid]}")
+    if same != len(ragged_tokens):
+        fail("APHRODITE_ATTN_RAGGED=0: K5's tokens differ from K1's")
     del engine
     free_engine(torch, "bf16")
 

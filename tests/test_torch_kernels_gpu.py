@@ -106,9 +106,9 @@ def test_decode_attention_kernels_on_every_page_type(dev, ragged, splits,
                                                      page_dtype, fused,
                                                      alibi, amla):
     """K1 (with a work list; its split count forced or the policy's) and
-    K5 (without) against the plain version at the same split count;
-    fused-write codes exact; the merge launches exactly when K1
-    splits."""
+    K5 (without; the policy's split count on its grid) against the plain
+    version at the same split count; fused-write codes exact; the merge
+    launches exactly when the kernel splits."""
     ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512]
     q, kp, vp, tb, ctx, kn, vn = _decode_problem(
         dev, ctxs, page_dtype=page_dtype, seed=3)
@@ -120,9 +120,10 @@ def test_decode_attention_kernels_on_every_page_type(dev, ragged, splits,
         [-(-c // 32) for c in ctxs], ppc) if ragged else None
     if splits == "chunks":
         splits = tb.shape[1] // ppc
-    n_split = (tpa.choose_decode_splits(len(ctxs), 8, tb.shape[1], ppc,
-                                        tpa.sm_count(dev))
-               if splits is None else splits) if ragged else 1
+    # K5 splits too: K1's policy on the same (batch, Hkv) grid.
+    n_split = tpa.choose_decode_splits(len(ctxs), 8, tb.shape[1], ppc,
+                                       tpa.sm_count(dev)) \
+        if splits is None else splits
     kv_scale = tkq.dequant_scale(page_dtype, KV_SCALE)
     counter = tpa.PAGED_DECODE_ATTENTION_LAUNCHES if ragged else \
         tpa.PAGED_DECODE_ATTENTION_TM_LAUNCHES
@@ -223,6 +224,71 @@ def test_k1_splits_a_table_wider_than_a_split_stages(dev):
     torch.cuda.synchronize()
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
     _close(got, want)
+
+
+# K5 (the padded grid, no work list): every geometry K1 serves, with
+# the split count its grid gives; batch 8 (splits) and 64 (the B 64 x
+# 2047 row of chip_smoke: 2047 tokens in every row).
+@pytest.mark.parametrize("batch", [8, 64])
+@pytest.mark.parametrize("page_dtype,page_size,d,hq,hkv", [
+    (dt, *geo) for dt in (torch.bfloat16, torch.int8, torch.float8_e5m2,
+                          torch.float32)
+    for geo in K1_GEOMETRIES if geo[1] % 16 == 0 or dt.itemsize > 1])
+def test_k5_serves_every_geometry(dev, batch, page_dtype, page_size, d,
+                                  hq, hkv):
+    """K5 at page sizes 1-256, head_dim 72-256, groups 4-16, fused write
+    and ALiBi (AMLA at batch 8, the multiply at 64), against the plain
+    version at the split count it picks."""
+    ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512] if batch == 8 else \
+        [2047] * 62 + [0, 1]
+    pps = -(-2048 // page_size)
+    ppc = tpa.choose_pages_per_chunk(pps, page_size, batch)
+    n_split = tpa.choose_decode_splits(batch, hkv, pps, ppc,
+                                       tpa.sm_count(dev))
+    q, kp, vp, tb, ctx, kn, vn = _decode_problem(
+        dev, ctxs, page_size=page_size, pps=pps, seed=7,
+        page_dtype=page_dtype, d=d, hq=hq, hkv=hkv)
+    slopes = torch.tensor([2.0 ** -(i / 4 + 1) for i in range(hq)],
+                          device=dev)
+    kw = dict(scale=d ** -0.5, kv_scale=tkq.dequant_scale(page_dtype,
+                                                          KV_SCALE),
+              pages_per_chunk=ppc, amla=batch == 8)
+    before = tpa.PAGED_DECODE_ATTENTION_TM_LAUNCHES.count
+    merges = tpa.PAGED_DECODE_MERGE_LAUNCHES.count
+    kp2, vp2 = kp.clone(), vp.clone()
+    got, _, _ = tpa.paged_decode_attention(q, kp, vp, tb, ctx, slopes, kn,
+                                           vn, **kw)
+    want, _, _ = tpa.paged_decode_attention_plain(
+        q, kp2, vp2, tb, ctx, slopes, kn, vn, num_splits=n_split, **kw)
+    torch.cuda.synchronize()
+    assert tpa.PAGED_DECODE_ATTENTION_TM_LAUNCHES.count == before + 1
+    assert tpa.PAGED_DECODE_MERGE_LAUNCHES.count == merges + (n_split > 1)
+    assert torch.equal(_bytes(kp), _bytes(kp2))
+    assert torch.equal(_bytes(vp), _bytes(vp2))
+    assert (got[batch - 2] == 0).all() if batch == 64 else \
+        (got[1] == 0).all()                        # the ctx 0 row
+    _close(got, want)
+
+
+def test_k5_control_misses_the_tolerance(dev):
+    """A wrong plain version, the K rows of the neighbouring head block
+    (pages rolled by d along the lanes), must miss `_close`'s tolerance
+    against K5, so a head-offset fault in the staged slots cannot pass
+    the checks above."""
+    ctxs = [2047] * 62 + [1000, 17]
+    q, kp, vp, tb, ctx, _, _ = _decode_problem(dev, ctxs, seed=9)
+    ppc = tpa.choose_pages_per_chunk(tb.shape[1], 32, len(ctxs))
+    n_split = tpa.choose_decode_splits(len(ctxs), 8, tb.shape[1], ppc,
+                                       tpa.sm_count(dev))
+    kw = dict(scale=128 ** -0.5, pages_per_chunk=ppc)
+    got = tpa.paged_decode_attention(q, kp, vp, tb, ctx, **kw)
+    good = tpa.paged_decode_attention_plain(q, kp, vp, tb, ctx,
+                                            num_splits=n_split, **kw)
+    bad = tpa.paged_decode_attention_plain(q, kp.roll(128, 2), vp, tb, ctx,
+                                           num_splits=n_split, **kw)
+    torch.cuda.synchronize()
+    _close(got, good)
+    assert _misses(got, bad)
 
 
 @pytest.mark.parametrize("page_dtype", [torch.int8, torch.float8_e5m2])
@@ -445,6 +511,110 @@ def test_gptq_matmul_a8_kernels_match_plain(dev, m, K, N, stream):
     assert (counter.count, tqm.QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.count) \
         == (before[0] + 1, before[1] + 1)
     _close(got, want)
+
+
+# K7 (quant_stream_kernel), its four arms at Mistral-7B's projections,
+# m 1-64 and groups of 32, 64 and 128.
+_K7_ARMS = ("gptq", "gptq8", "gptq_a8", "awq", "awq_a8")
+
+
+def _k7_call(arm, dev, m, K, N, gs, seed=0):
+    """(kernel, plain) callables of x for one K7 arm and its inputs x; gs
+    -1 is one group of K rows (GPTQ's group_size -1; AWQ, which has no
+    such setting, takes gs K)."""
+    if arm.startswith("awq"):
+        gs = K if gs == -1 else gs
+        x, qw, qz, sc = _awq_problem(dev, m, K, N, gs, seed=seed)
+        fn = tqm.awq_matmul_a8 if arm == "awq_a8" else tqm.awq_matmul
+        plain = tqm.awq_matmul_a8_plain if arm == "awq_a8" else \
+            tqm.awq_matmul_plain
+        kw = dict(group_size=gs)
+    else:
+        bits = 8 if arm == "gptq8" else 4
+        x, qw, qz, sc = _gptq_problem(dev, m, K, N, bits=bits,
+                                      gs=K if gs == -1 else gs, seed=seed)
+        fn = tqm.gptq_matmul_a8 if arm == "gptq_a8" else tqm.gptq_matmul
+        plain = tqm.gptq_matmul_a8_plain if arm == "gptq_a8" else \
+            tqm.gptq_matmul_plain
+        kw = dict(bits=bits, group_size=gs)
+    return (x, lambda xx: fn(xx, qw, qz, sc, stream=True, **kw),
+            lambda xx, zz=qz: plain(xx, qw, zz, sc, **kw), qz)
+
+
+_K7_COUNTER = {
+    "gptq": "GPTQ_MATMUL_STREAM_LAUNCHES",
+    "gptq8": "GPTQ_MATMUL_STREAM_LAUNCHES",
+    "gptq_a8": "GPTQ_MATMUL_STREAM_A8_LAUNCHES",
+    "awq": "AWQ_MATMUL_STREAM_LAUNCHES",
+    "awq_a8": "AWQ_MATMUL_STREAM_A8_LAUNCHES",
+}
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("K,N", _PROJ)
+@pytest.mark.parametrize("m", [1, 3, 8, 17, 33, 64])
+@pytest.mark.parametrize("arm", _K7_ARMS)
+def test_k7_matches_plain(dev, arm, m, K, N, gs):
+    """K7's arms (GPTQ 4 and 8 bits a16, GPTQ a8, AWQ a16 and a8) against
+    their plain versions within 2e-2 + 2e-2 |plain|, one launch each."""
+    x, fn, plain, _ = _k7_call(arm, dev, m, K, N, gs)
+    counter = getattr(tqm, _K7_COUNTER[arm])
+    before = counter.count
+    got = fn(x)
+    want = plain(x)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    _close(got, want)
+
+
+@pytest.mark.parametrize("gs", [-1, 2048])
+@pytest.mark.parametrize("K,N", _PROJ)
+@pytest.mark.parametrize("m", [1, 8, 17, 64])
+@pytest.mark.parametrize("arm", _K7_ARMS)
+def test_k7_serves_one_group_and_large_groups(dev, arm, m, K, N, gs):
+    """K7 at one group of K rows (group_size -1) and at groups of 2048,
+    where 32 rows of x over a group pass a block's 64 KB and splits start
+    and end inside a group, against the plain version."""
+    x, fn, plain, _ = _k7_call(arm, dev, m, K, N, gs, seed=11)
+    counter = getattr(tqm, _K7_COUNTER[arm])
+    before = counter.count
+    got = fn(x)
+    want = plain(x)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    _close(got, want)
+
+
+@pytest.mark.parametrize("arm", _K7_ARMS)
+@pytest.mark.parametrize("m,K,N,gs", [(8, 4096, 6144, 128),
+                                      (33, 14336, 4096, 64),
+                                      (5, 3200, 1024, 40)])
+def test_k7_takes_views_of_x_and_odd_groups(dev, arm, m, K, N, gs):
+    """K7 on x given as a view at a row offset and at an unaligned
+    element offset, and at groups of 40 rows (a k32 step crossing
+    groups), against the plain version on a copy."""
+    x_all, fn, plain, _ = _k7_call(arm, dev, m + 8, K, N, gs, seed=3)
+    for what, x in _views(x_all, m).items():
+        assert x.is_contiguous() and x.data_ptr() != x_all.data_ptr(), what
+        got = fn(x)
+        want = plain(x.clone())
+        torch.cuda.synchronize()
+        _close(got, want)
+
+
+@pytest.mark.parametrize("arm", _K7_ARMS)
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_k7_control_misses_the_tolerance(dev, arm, m):
+    """A wrong plain version, the zero rows shifted by one group, must
+    miss `_close`'s tolerance against K7, so a group-tracking or
+    fragment-map fault that gives plausible numbers cannot pass."""
+    x, fn, plain, qz = _k7_call(arm, dev, m, 4096, 4096, 128, seed=5)
+    got = fn(x)
+    good = plain(x)
+    bad = plain(x, qz.roll(1, 0))
+    torch.cuda.synchronize()
+    _close(got, good)
+    assert _misses(got, bad)
 
 
 def test_gptq_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -309,13 +309,14 @@ def _page_bytes(t):
 
 
 @functools.lru_cache(maxsize=None)
-def _pallas_split_case(kind, hq, hkv, ppc, alibi, fused, amla):
-    """The Pallas ragged body in interpret mode (out, and the pages'
-    bytes after the fused write), once per case."""
+def _pallas_split_case(kind, hq, hkv, ppc, alibi, fused, amla, ragged=True):
+    """The Pallas ragged body (or, without `ragged`, the padded-grid body
+    `_decode_kernel_tm`) in interpret mode (out, and the pages' bytes
+    after the fused write), once per case."""
     q, kp, vp, bt, knew, vnew, slopes = _split_problem(kind, hq, hkv)
     kv_scale = tkq.dequant_scale(_PAGE_TORCH[kind], KV_S)
     work = jpa.build_decode_work_list(
-        [-(-int(c) // PAGE) for c in SPLIT_CTX], ppc)
+        [-(-int(c) // PAGE) for c in SPLIT_CTX], ppc) if ragged else None
     res = jpa.paged_decode_attention(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
         jnp.asarray(bt), jnp.asarray(SPLIT_CTX),
@@ -453,3 +454,68 @@ def test_choose_decode_splits_table(batch, hkv, pps, ppc, sms, want):
 ])
 def test_wide_slots_table(batch, hkv, n_split, sms, want):
     assert tpa.wide_slots(batch, hkv, n_split, sms) == want
+
+
+# ---- K5: K1's kernel on the padded grid, one kv head a block ----
+
+@pytest.mark.parametrize("batch,hkv,pps,ppc,sms,want", [
+    (8, 8, 36, 4, 132, 5),      # the e2e decode batch: 64 blocks x 5
+    (8, 8, 32, 16, 132, 2),     # B 8 x 1016: 2 chunks
+    (64, 8, 64, 8, 132, 1),     # B 64 x 2047: 512 blocks, one split
+    (66, 8, 64, 8, 132, 1),
+    (16, 8, 64, 8, 132, 3),     # 128 blocks fall short of 2 an SM
+    (8, 8, 64, 16, 132, 4),     # 64 blocks x 4 chunks
+    (8, 8, 36, 4, 114, 3),      # 114 SMs: 64 x 3 splits
+    (8, 6, 36, 4, 132, 5),      # 48 blocks
+    (8, 5, 36, 4, 132, 5),      # a head block of 5 (Pallas) changes nothing
+    (8, 12, 36, 4, 132, 3),     # 96 blocks
+    (4, 8, 36, 4, 132, 9),      # 32 blocks: a split a chunk
+    (1, 8, 64, 8, 132, 8),
+    (0, 8, 64, 8, 132, 1),
+    (64, 8, 4096, 8, 132, 2),   # two splits stage 4096 entries
+    (17, 8, 64, 8, 132, 1),     # 136 blocks cover the SMs
+    (32, 4, 64, 8, 132, 3),     # 128 blocks
+])
+def test_k5_split_table(batch, hkv, pps, ppc, sms, want):
+    """K5's split count: K1's policy on the same (batch, Hkv) grid, from
+    shapes and the SM count alone."""
+    assert tpa.choose_decode_splits(batch, hkv, pps, ppc, sms) == want
+
+
+def _k5_split_count(splits, batch, hkv, ppc):
+    if splits == "k5":
+        return tpa.choose_decode_splits(batch, hkv, PPS, ppc, H100_SMS)
+    return splits
+
+
+@pytest.mark.parametrize("splits", ["k5", 2, 3])
+@pytest.mark.parametrize("kind,hq,hkv,ppc,alibi,fused,amla", SPLIT_CASES)
+def test_k5_split_plain_matches_pallas_tm_interpret(kind, hq, hkv, ppc,
+                                                    alibi, fused, amla,
+                                                    splits):
+    """K5 (no work list) on the CPU is the plain version at K5's split
+    count (the policy's on its padded grid, or forced): against the
+    Pallas padded-grid body `_decode_kernel_tm` in interpret mode, which
+    walks every chunk of a row in order, within 1e-5 (as for K1's
+    splits); fused-write bytes exact."""
+    n = _k5_split_count(splits, len(SPLIT_CTX), hkv, ppc)
+    assert 1 < n <= PPS // ppc
+    want, wk, wv = _pallas_split_case(kind, hq, hkv, ppc, alibi, fused,
+                                      amla, ragged=False)
+    q, kp, vp, bt, knew, vnew, slopes = _split_problem(kind, hq, hkv)
+    got = tpa.paged_decode_attention(
+        torch.from_numpy(q), _torch_pages(kp, kind),
+        _torch_pages(vp, kind), torch.from_numpy(bt),
+        torch.from_numpy(SPLIT_CTX),
+        torch.from_numpy(slopes) if alibi else None,
+        torch.from_numpy(knew).bfloat16() if fused else None,
+        torch.from_numpy(vnew).bfloat16() if fused else None,
+        scale=0.1, kv_scale=tkq.dequant_scale(_PAGE_TORCH[kind], KV_S),
+        pages_per_chunk=ppc, amla=amla, num_splits=n)
+    if fused:
+        got, gk, gv = got
+        np.testing.assert_array_equal(_page_bytes(gk).view(np.uint8), wk)
+        np.testing.assert_array_equal(_page_bytes(gv).view(np.uint8), wv)
+    got = got.numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert (got[SPLIT_CTX == 0] == 0).all()

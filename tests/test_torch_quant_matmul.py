@@ -697,3 +697,503 @@ def test_int8_decoder_bit_trick_is_exact():
     # The plain version takes the same codes as f32: the same values.
     w = torch.from_numpy(b.astype(np.uint8).view(np.int8))
     assert torch.equal(w.float(), as_bf16.float())
+
+
+# ---- K7 (csrc/quant_matmul.cu quant_stream_kernel), emulated ----
+#
+# The streamed kernel dequantizes packed words straight into mma.sync A
+# fragments (W^T as A, x^T as B). Its fragment map, emulated here lane by
+# lane with the kernel's own bit operations on one ring stage (128 k rows
+# of a block's 128 columns, eight warps, four k32 steps): each warp's A
+# registers hold each (column, k) of its 16 x 32 tile once, every value
+# equal to the plain version's dequantized weight bit for bit; x, staged
+# in the same k order, gives B fragments whose k matches A's at every
+# (lane, register, element); and the PTX products of those fragments
+# equal the tile's W^T x (float64, the same sums).
+
+_MASK32 = np.uint64(0xFFFFFFFF)
+
+
+def _prmt(x, y, sel):
+    """__byte_perm(x, y, sel): byte i of the result is byte sel[i] of
+    the eight bytes x (0-3) then y (4-7)."""
+    x = np.asarray(x, np.uint64)
+    y = np.asarray(y, np.uint64)
+    src = [(x >> np.uint64(8 * i)) & np.uint64(0xFF) for i in range(4)] + \
+        [(y >> np.uint64(8 * i)) & np.uint64(0xFF) for i in range(4)]
+    out = np.zeros(np.broadcast(x, y).shape, np.uint64)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 7] << np.uint64(8 * i)
+    return out
+
+
+def _bf16_bits(f):
+    """float64 values -> bf16 bits, rounded to nearest even."""
+    t = torch.from_numpy(np.asarray(f, np.float64)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().astype(np.uint64) & np.uint64(0xFFFF)
+
+
+def _halves(u):
+    u = np.asarray(u, np.uint64)
+    return (_bf16_bits_to_f64(u & np.uint64(0xFFFF)),
+            _bf16_bits_to_f64(u >> np.uint64(16)))
+
+
+def _bf2(lo, hi):
+    return _bf16_bits(lo) | (_bf16_bits(hi) << np.uint64(16))
+
+
+def _bf2_sub(a, b):      # sub.rn.bf16x2: the exact difference, rounded once
+    (a0, a1), (b0, b1) = _halves(a), _halves(b)
+    return _bf2(a0 - b0, a1 - b1)
+
+
+def _bf2_mul(a, b):      # mul.rn.bf16x2: the exact product, rounded once
+    (a0, a1), (b0, b1) = _halves(a), _halves(b)
+    return _bf2(a0 * b0, a1 * b1)
+
+
+def _nib2(v):
+    return (np.asarray(v, np.uint64) & np.uint64(0x000F000F)) | \
+        np.uint64(0x43004300)
+
+
+def _s8_codes(v, zz):
+    v = (np.asarray(v, np.uint64) & np.uint64(0x0F0F0F0F)) | \
+        np.uint64(0x80808080)
+    return ((v - np.asarray(zz, np.uint64)) & _MASK32) ^ \
+        np.uint64(0x80808080)
+
+
+def _awq_word(r, w, row_words=16):
+    """The kernel's awq_word: rows of `row_words` words packed in 32-word
+    lines, a row's place in its line XORed with (r >> 3) & 3 times 8
+    (4 for 16-word rows)."""
+    e = r * row_words + w
+    return (e & ~31) | ((e & 31) ^ (((r >> 3) & 3) *
+                                     (4 if row_words == 16 else 8)))
+
+
+def _k7_problem(kind, seed=0):
+    """One stage's inputs: K 128 x N 128, groups of 32, x of 8 rows."""
+    rs = np.random.RandomState(seed)
+    K, N, gs = 128, 128, 32
+    bits = 8 if kind == "gptq8" else 4
+    pack = 32 // bits
+    codes = rs.randint(0, 1 << bits, size=(K, N)).astype(np.uint64)
+    zeros = rs.randint(0, 1 << bits, size=(K // gs, N)).astype(np.uint64)
+    if kind == "awq":
+        order = np.array(tqm.AWQ_ORDER, np.uint64)
+
+        def pack_cols(a):
+            out = np.zeros((a.shape[0], a.shape[1] // 8), np.uint64)
+            for e in range(8):
+                out |= a[:, e::8] << (np.uint64(4) * order[e])
+            return out
+        qweight, qzeros = pack_cols(codes), pack_cols(zeros)
+    else:
+        qweight = np.zeros((K // pack, N), np.uint64)
+        for j in range(pack):
+            qweight |= codes[j::pack] << np.uint64(bits * j)
+        qzeros = np.zeros((K // gs, N // pack), np.uint64)
+        for j in range(pack):
+            qzeros |= zeros[:, j::pack] << np.uint64(bits * j)
+    scales = torch.from_numpy(rs.uniform(0.002, 0.03, size=(K // gs, N))
+                              ).to(torch.bfloat16)
+    x = torch.from_numpy(rs.normal(size=(8, K))).to(torch.bfloat16)
+    as_i32 = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32))
+    return (as_i32(qweight), as_i32(qzeros), scales, x, bits, gs,
+            qweight, qzeros)
+
+
+def _k7_stage_words(kind, qweight):
+    """The ring stage's words as the kernel's copies lay them out: GPTQ
+    [word row][128 + pad words], AWQ rows at _awq_word."""
+    if kind == "awq":
+        stage = np.zeros(128 * 16, np.uint64)
+        for r in range(128):
+            for w in range(16):
+                stage[_awq_word(r, w)] = qweight[r, w]
+        return stage, 16
+    row_words = 128 + (8 if kind == "gptq4" else 4)
+    stage = np.zeros(qweight.shape[0] * row_words, np.uint64)
+    for r in range(qweight.shape[0]):
+        stage[r * row_words:r * row_words + 128] = qweight[r]
+    return stage, row_words
+
+
+def _k7_fragments(kind, a8, stage, row_words, qzeros, scales, warp, b,
+                  zero_plus):
+    """step_fragments and group_consts for every lane of `warp` at k32
+    step b (group b: groups of 32). Returns uint64 [32, 2, 4] registers
+    (a8: step 0 only)."""
+    lane = np.arange(32)
+    gid, t = lane >> 2, lane & 3
+    c0 = warp * 16 + 2 * gid
+    sbits = scales.view(torch.int16).numpy().astype(np.uint64) & \
+        np.uint64(0xFFFF)
+    s2 = sbits[b, c0] | (sbits[b, c0 + 1] << np.uint64(16))
+    regs = np.zeros((32, 2, 4), np.uint64)
+    if kind == "awq":
+        v = qzeros[b, c0 // 8] >> (2 * (c0 & 7)).astype(np.uint64)
+        wc = 2 * warp + (gid >> 2)
+        w = np.stack([stage[[_awq_word(32 * b + 8 * tt + j, int(c))
+                             for tt, c in zip(t, wc)]]
+                      for j in range(8)], 1)
+        w = w >> (4 * (gid & 3)).astype(np.uint64)[:, None]
+        if a8:
+            zz0 = (v & np.uint64(0xF)) * np.uint64(0x01010101)
+            zz1 = ((v >> np.uint64(16)) & np.uint64(0xF)) * \
+                np.uint64(0x01010101)
+            p02, p46 = _prmt(w[:, 0], w[:, 2], 0x6240), \
+                _prmt(w[:, 4], w[:, 6], 0x6240)
+            p13, p57 = _prmt(w[:, 1], w[:, 3], 0x6240), \
+                _prmt(w[:, 5], w[:, 7], 0x6240)
+            regs[:, 0, 0] = _s8_codes(_prmt(p02, p46, 0x5410), zz0)
+            regs[:, 0, 1] = _s8_codes(_prmt(p02, p46, 0x7632), zz1)
+            regs[:, 0, 2] = _s8_codes(_prmt(p13, p57, 0x5410), zz0)
+            regs[:, 0, 3] = _s8_codes(_prmt(p13, p57, 0x7632), zz1)
+        else:
+            z2 = _nib2(v)
+            p = [_bf2_mul(_bf2_sub(_nib2(w[:, j]), z2), s2) for j in range(8)]
+            for s in range(2):
+                for h in range(2):
+                    r = 2 * s + h
+                    regs[:, s, 2 * h] = _prmt(p[r], p[r + 4], 0x5410)
+                    regs[:, s, 2 * h + 1] = _prmt(p[r], p[r + 4], 0x7632)
+        return regs
+    bits = 4 if kind == "gptq4" else 8
+    pack = 32 // bits
+    mask = np.uint64((1 << bits) - 1)
+    v = qzeros[b, c0 // pack] >> (bits * (c0 % pack)).astype(np.uint64)
+    za = (v & mask) + np.uint64(zero_plus)
+    zb = ((v >> np.uint64(bits)) & mask) + np.uint64(zero_plus)
+    if bits == 4:
+        at = (4 * b + t) * row_words + warp * 16 + 2 * gid
+        wx, wy = stage[at], stage[at + 1]
+        if a8:
+            zza, zzb = za * np.uint64(0x01010101), zb * np.uint64(0x01010101)
+            regs[:, 0, 0] = _s8_codes(wx, zza)
+            regs[:, 0, 1] = _s8_codes(wy, zzb)
+            regs[:, 0, 2] = _s8_codes(wx >> np.uint64(4), zza)
+            regs[:, 0, 3] = _s8_codes(wy >> np.uint64(4), zzb)
+            return regs
+        z0 = (np.uint64(0x4300) | za) * np.uint64(0x10001)
+        z1 = (np.uint64(0x4300) | zb) * np.uint64(0x10001)
+        sa, sb = _prmt(s2, s2, 0x1010), _prmt(s2, s2, 0x3232)
+        for s in range(2):
+            for h in range(2):
+                sh = np.uint64(8 * s + 4 * h)
+                regs[:, s, 2 * h] = _bf2_mul(_bf2_sub(_nib2(wx >> sh), z0),
+                                             sa)
+                regs[:, s, 2 * h + 1] = _bf2_mul(
+                    _bf2_sub(_nib2(wy >> sh), z1), sb)
+        return regs
+    # 8 bits: f32 (2^23 + q) - (2^23 + z), times s, one rounding to bf16.
+    f32 = np.float32
+    at = (8 * b + 2 * t) * row_words + warp * 16 + 2 * gid
+    lo = (stage[at], stage[at + 1])
+    hi = (stage[at + row_words], stage[at + row_words + 1])
+    zf = (f32(2 ** 23) + za.astype(f32), f32(2 ** 23) + zb.astype(f32))
+    sf = (_bf16_bits_to_f64(s2 & np.uint64(0xFFFF)).astype(f32),
+          _bf16_bits_to_f64(s2 >> np.uint64(16)).astype(f32))
+
+    def val(w, byte, c):
+        q = (w >> np.uint64(8 * byte)) & np.uint64(0xFF)
+        return ((f32(2 ** 23) + q.astype(f32)) - zf[c]) * sf[c]
+    for s in range(2):
+        for h in range(2):
+            r = 2 * s + h
+            for c in range(2):
+                regs[:, s, 2 * h + c] = _bf2(val(lo[c], r, c),
+                                             val(hi[c], r, c))
+    return regs
+
+
+# The kernel's fragment map, as the CUDA comments state it: A row g of
+# a warp's tile is column 2g, row g + 8 column 2g + 1; thread t of a quad
+# takes k rows 8t .. 8t + 7 of a step. PTX m16n8k16 (bf16): register i,
+# element e holds A row gid + 8 (i & 1), k 2t + e + 8 (i >> 1) of step s;
+# the kernel's physical k is 8t + 2s + (i >> 1) + 4e. m16n8k32 (s8):
+# register i, byte e holds row gid + 8 (i & 1), k 4t + e + 16 (i >> 1);
+# physical k 8t + 2e + (i >> 1). B registers use the same (t, element)
+# -> k, with the register's k half in place of i >> 1.
+def _k7_a_map(a8):
+    """[(lane, step, reg, element)] -> (column in the warp's 16, k)."""
+    out = {}
+    for lane in range(32):
+        gid, t = lane >> 2, lane & 3
+        for i in range(4):
+            col = 2 * gid + (i & 1)
+            if a8:
+                for e in range(4):
+                    out[(lane, 0, i, e)] = (col, 8 * t + 2 * e + (i >> 1))
+            else:
+                for s in range(2):
+                    for e in range(2):
+                        out[(lane, s, i, e)] = \
+                            (col, 8 * t + 2 * s + (i >> 1) + 4 * e)
+    return out
+
+
+@pytest.mark.parametrize("kind,a8", [("gptq4", False), ("gptq8", False),
+                                     ("awq", False), ("gptq4", True),
+                                     ("awq", True)])
+def test_k7_fragment_map_covers_the_tile(kind, a8):
+    (qw_t, qz_t, scales, x, bits, gs, qweight, qzeros) = _k7_problem(kind)
+    awq = kind == "awq"
+    # The plain version's dequantized weight (bf16) and, for a8, codes
+    # minus zero (the AutoGPTQ +1 in the GPTQ layout).
+    if awq:
+        w_plain = tqm.dequantize_awq_plain(qw_t, qz_t, scales,
+                                           group_size=gs,
+                                           dtype=torch.bfloat16)
+        codes = tqm._awq_codes(qw_t, qz_t, gs)
+    else:
+        w_plain = tqm.dequantize_plain(qw_t, qz_t, scales, bits=bits,
+                                       group_size=gs, dtype=torch.bfloat16)
+        codes = tqm._codes(qw_t, qz_t, bits, gs)
+    w_plain = w_plain.double().numpy()
+    codes = codes.numpy()
+    stage, row_words = _k7_stage_words(kind, qweight)
+    amap = _k7_a_map(a8)
+    # Every (column, k) of a 16 x 32 tile once.
+    assert sorted(amap.values()) == [(c, k) for c in range(16)
+                                     for k in range(32)]
+    if a8:
+        x8, _ = tqm.quantize_activations_int8_plain(x)
+        xv = x8.numpy().astype(np.float64)
+        perm = [0, 2, 4, 6, 1, 3, 5, 7]
+    else:
+        xv = x.double().numpy()
+        perm = [0, 4, 1, 5, 2, 6, 3, 7]
+    # x in fragment order: each run of 8 k rows permuted in place.
+    xp = xv.reshape(8, -1, 8)[:, :, perm].reshape(8, -1)
+    for warp in range(8):
+        for b in range(4):
+            regs = _k7_fragments(kind, a8, stage, row_words, qzeros,
+                                 scales, warp, b, 0 if awq else 1)
+            k0, c_base = 32 * b, 16 * warp
+            a_tile = np.zeros((16, 32))
+            for (lane, s, i, e), (col, k) in amap.items():
+                reg = int(regs[lane, s, i])
+                if a8:
+                    byte = (reg >> (8 * e)) & 0xFF
+                    v = byte - 256 if byte > 127 else byte
+                    want = codes[k0 + k, c_base + col]
+                else:
+                    v = _bf16_bits_to_f64(np.array(
+                        [(reg >> (16 * e)) & 0xFFFF]))[0]
+                    want = w_plain[k0 + k, c_base + col]
+                assert v == want, (kind, a8, warp, b, lane, s, i, e)
+                a_tile[col, k] = v
+            # B from the staged x: lane (gid, t)'s 16 (8) bytes of a step,
+            # registers in order; the k each element takes must be A's.
+            for lane in range(32):
+                gid, t = lane >> 2, lane & 3
+                run = xp[gid, k0 + 8 * t:k0 + 8 * t + 8]
+                for j, val in enumerate(run):
+                    if a8:       # b0 bytes 0-3 (k half 0), b1 (half 1)
+                        i, e = j // 4, j % 4
+                        k = 8 * t + 2 * e + i
+                    else:        # (step 0: b0, b1), (step 1: b0, b1)
+                        s, i, e = j // 4, (j // 2) % 2, j % 2
+                        k = 8 * t + 2 * s + i + 4 * e
+                    assert val == xv[gid, k0 + k]
+            # The products over the step: D[col, row] = W^T x.
+            got = a_tile @ xv[:, k0:k0 + 32].T
+            want = (codes if a8 else w_plain)[k0:k0 + 32,
+                                              c_base:c_base + 16].T @ \
+                xv[:, k0:k0 + 32].T
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("row_words", [8, 16, 32, 64])
+def test_k7_awq_word_loads_are_conflict_free(row_words):
+    """The AWQ stage's row swizzle, for blocks of 64-512 columns: every
+    word has one place, 16-byte copies stay whole, and for every warp,
+    step and word j of a thread's eight, the 32 lanes' 32-bit loads touch
+    eight distinct words in eight distinct banks (four lanes share each
+    word: a broadcast)."""
+    places = [_awq_word(r, w, row_words) for r in range(128)
+              for w in range(row_words)]
+    assert sorted(places) == list(range(128 * row_words))
+    for r in range(128):
+        for c in range(0, row_words, 4):
+            first = _awq_word(r, c, row_words)
+            assert first % 4 == 0 and [_awq_word(r, c + i, row_words)
+                                       for i in range(4)] == \
+                list(range(first, first + 4))
+    for warp in range(row_words // 2):
+        for b in range(4):
+            for j in range(8):
+                addrs = set()
+                for lane in range(32):
+                    gid, t = lane >> 2, lane & 3
+                    addrs.add(_awq_word(32 * b + 8 * t + j,
+                                        2 * warp + (gid >> 2), row_words))
+                assert len(addrs) == 8
+                assert len({a % 32 for a in addrs}) == 8
+
+
+# K7's plan (`stream_plan`) on 132 SMs at Mistral-7B's four projections.
+@pytest.mark.parametrize("m,K,N,gs,a8,want", [
+    (1, 4096, 6144, 128, False, (8, 11)),     # 48 column blocks: 11 wanted
+    (8, 4096, 6144, 128, False, (8, 6)),      # a tenth allows 6
+    (8, 4096, 4096, 128, False, (8, 6)),
+    (1, 4096, 4096, 128, False, (8, 16)),     # 17 wanted: runs of 2 groups
+    (8, 4096, 28672, 128, False, (8, 3)),     # 224 column blocks
+    (8, 14336, 4096, 128, False, (8, 16)),
+    (16, 4096, 4096, 128, False, (16, 5)),    # a tenth allows 3; 32 x 5
+    (32, 4096, 4096, 128, False, (32, 5)),    # blocks give every SM one
+    (32, 4096, 28672, 128, False, (32, 4)),   # x of 32 rows: 1024 a block
+    (64, 4096, 6144, 128, False, (64, 4)),    # two 32-row blocks, as m 32
+    (64, 4096, 28672, 128, True, (64, 2)),    # int8 x: 2048 a block
+    (64, 14336, 4096, 128, False, (64, 14)),
+    (3, 4096, 6144, 32, False, (8, 11)),      # groups of 32: 32-row units
+    (8, 3200, 4096, 200, False, (8, 4)),      # groups of 200: 800-row units
+])
+def test_k7_stream_plan_table(m, K, N, gs, a8, want):
+    assert tqm.stream_plan(m, K, N, gs, 132, a8=a8) == want
+
+
+@pytest.mark.parametrize("sms", [132, 114, 66])
+def test_k7_stream_plan_splits_fit(sms):
+    """Every split is a run of whole `stream_unit` units (lcm(gs, 32) rows
+    up to 1024, else 32), none empty;
+    the plan depends on shapes and the SM count alone; each block's x
+    fits its bound; wherever there are more splits than the x bound needs
+    and than give every SM a block, the f32 partials stay within a tenth
+    of the packed weight's bytes; and the splits never exceed what four
+    blocks per SM want unless x needs them."""
+    for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
+        for gs in (32, 64, 128, 1024, 2048, K):
+            for bits in (4, 8):
+                for a8 in ((False, True) if bits == 4 else (False,)):
+                    for m in (1, 2, 3, 8, 9, 16, 17, 33, 48, 64):
+                        block_m, splits = tqm.stream_plan(
+                            m, K, N, gs, sms, bits, a8)
+                        assert block_m == next(b for b in (8, 16, 32, 64)
+                                               if m <= b)
+                        unit = tqm.stream_unit(gs)
+                        units = K // unit
+                        per = -(-units // splits)
+                        assert -(-units // per) == splits   # none empty
+                        rows = min(block_m, 32)     # a block's x rows
+                        x_bytes = rows * per * unit * (1 if a8 else 2)
+                        assert x_bytes <= tqm._STREAM_X_BYTES
+                        least = -(-units // (tqm._STREAM_X_BYTES // (
+                            rows * unit * (1 if a8 else 2))))
+                        if splits > least:
+                            assert splits <= -(-sms * 4 // (N // 128))
+                        if splits > max(least, -(-sms // (N // 128))):
+                            assert splits * m * N * 4 * 10 <= \
+                                K * N * bits // 8
+                        assert tqm.stream_plan(m, K, N, gs, sms, bits,
+                                               a8) == (block_m, splits)
+
+
+def test_k7_stream_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="m <= 64"):
+        tqm.stream_plan(65, 4096, 4096, 128, 132)
+    with pytest.raises(ValueError, match="multiple"):
+        tqm.stream_plan(8, 4096, 4096, 132, 132)      # gs % 8
+    with pytest.raises(ValueError, match="multiple"):
+        tqm.stream_plan(8, 4080, 4096, 136, 132)      # K % lcm(136, 32)
+    with pytest.raises(ValueError, match="multiple"):
+        tqm.stream_plan(64, 4104, 4096, 4104, 132)    # one group, K % 32
+
+
+@pytest.mark.parametrize("gs", [-1, 1000, 2048])
+@pytest.mark.parametrize("m", [1, 8, 17, 64])
+def test_k7_stream_plan_serves_one_group_and_large_groups(m, gs):
+    """One group of K rows (GPTQ's group_size -1) and groups whose
+    lcm(gs, 32) passes 1024 rows split over 32-row units, so every m
+    plans at Mistral-7B's four projections with each block's x within
+    its bound, and as many splits as at groups of 128 but where the
+    split count rounds to other whole units (K 14336)."""
+    for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
+        g = K if gs == -1 else gs
+        assert tqm.stream_unit(g) == 32
+        for a8 in (False, True):
+            block_m, splits = tqm.stream_plan(m, K, N, g, 132, 4, a8)
+            per = -(-(K // 32) // splits) * 32
+            assert min(block_m, 32) * per * (1 if a8 else 2) <= \
+                tqm._STREAM_X_BYTES
+            if K != 14336:
+                assert (block_m, splits) == tqm.stream_plan(
+                    m, K, N, 128, 132, 4, a8)
+
+
+def _k7_group_walk(K, gs, k_split, a8):
+    """`quant_stream_kernel`'s group bookkeeping, split by split and step
+    by step: yields (split start, rows, staged groups, [(row, group) for
+    each thread's run of 8 rows], [(group, rows summed) for each a8
+    fold]); groups are the split's own indices (g_begin + index)."""
+    for k_begin in range(0, K, k_split):
+        k_rows = min(K - k_begin, k_split)
+        g_begin = k_begin // gs
+        n_groups = (k_begin + k_rows - 1) // gs - g_begin + 1
+        runs, folds = [], []
+        sg = [-1] * 4
+        sg_end = [g_begin * gs - k_begin] * 4
+        fg, fg_end, summed = 0, g_begin * gs - k_begin + gs, 0
+        for kb in range(k_rows // 32):
+            kk = 32 * kb
+            for t in range(4):
+                while kk + 8 * t >= sg_end[t]:
+                    sg[t] += 1
+                    sg_end[t] += gs
+                runs.append((kk + 8 * t, sg[t]))
+            if not a8:
+                continue
+            if kk + 32 <= fg_end:
+                summed += 32
+                if kk + 32 == fg_end:
+                    folds.append((fg, summed))
+                    fg, fg_end, summed = fg + 1, fg_end + gs, 0
+                continue
+            while True:           # the step crosses groups
+                summed += sum(8 for t in range(4) if sg[t] == fg)
+                if fg_end > kk + 32:
+                    break
+                folds.append((fg, summed))
+                fg, fg_end, summed = fg + 1, fg_end + gs, 0
+                if fg_end - gs >= kk + 32:
+                    break
+        if a8 and fg_end - gs < k_rows:      # a group the split ends in
+            folds.append((fg, summed))
+        yield k_begin, k_rows, n_groups, runs, folds
+
+
+@pytest.mark.parametrize("K,gs,m", [(4096, 128, 8), (4096, 4096, 8),
+                                    (14336, 14336, 64), (4096, 2048, 17),
+                                    (14336, 2048, 1), (3200, 40, 8),
+                                    (4000, 1000, 64)])
+def test_k7_group_walk_takes_each_row_once_in_its_group(K, gs, m):
+    """The kernel's per-thread group tracking and the a8 arm's folds over
+    the splits `stream_plan` gives, splits starting inside a group
+    included: each run of 8 k rows takes its own group's scale and zero,
+    every group index lies within the split's staged rows, and in the a8
+    arm each group a split touches is folded once, in group order, over
+    exactly the split's rows of it."""
+    for a8 in (False, True):
+        _, splits = tqm.stream_plan(m, K, 4096, gs, 132, 4, a8)
+        unit = tqm.stream_unit(gs)
+        k_split = -(-(K // unit) // splits) * unit
+        seen = 0
+        for k_begin, k_rows, n_groups, runs, folds in _k7_group_walk(
+                K, gs, k_split, a8):
+            g_begin = k_begin // gs
+            assert [r for r, _ in runs] == list(range(0, k_rows, 8))
+            for r, g in runs:
+                assert 0 <= g < n_groups
+                assert (k_begin + r) // gs == g_begin + g
+            if a8:
+                assert [g for g, _ in folds] == list(range(n_groups))
+                for g, rows in folds:
+                    lo = max(k_begin, (g_begin + g) * gs)
+                    hi = min(k_begin + k_rows, (g_begin + g + 1) * gs)
+                    assert rows == hi - lo
+            seen += k_rows
+        assert seen == K
