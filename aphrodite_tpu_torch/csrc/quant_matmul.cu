@@ -5,16 +5,15 @@
 // aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6, K10 and, at
 // m > 64, K12, K13, K14, K16 on bf16 x and K17 are one templated kernel,
 // quant_gemm_kernel (warp-specialized wgmma, below), with a word decoder
-// each; K15 at m > 64 is w8a8_gemm_kernel (s8 wgmma and a per-group fold,
-// below); K7 is quant_stream_kernel (a cp.async ring and W dequantized
-// straight into mma.sync fragments, below); K8 and K11 quant_mma_kernel;
-// K13-K15 and K17 at m <= 64 int8_mma_kernel; K12 and K16 on bf16 x at m
-// <= 64 and K16 on f32 x nib_mma_kernel. The last three share the block
-// tile, the x staging,
-// the mma.sync fragments, the A8 group fold, the epilogue and the
-// launcher (Tile, stage_x, mma_chunk, fold_group, store_tile,
-// launch_tiles) and differ only in how they load the W words and write
-// the W tile:
+// each; K8, K11 and, at m > 64, K15 are one templated kernel,
+// w8a8_gemm_kernel (s8 wgmma and a per-group fold, below), with a decoder
+// each; K7 is quant_stream_kernel (a cp.async ring and W dequantized
+// straight into mma.sync fragments, below); K13-K15 and K17 at m <= 64
+// int8_mma_kernel; K12 and K16 on bf16 x at m <= 64 and K16 on f32 x
+// nib_mma_kernel. The last two share the block tile, the x staging, the
+// mma.sync fragments, the A8 group fold, the epilogue and the launcher
+// (Tile, stage_x, mma_chunk, fold_group, store_tile, launch_tiles) and
+// differ only in how they load the W words and write the W tile:
 //   _gguf_q4k_kernel (:1117)   -> nib_mma_kernel<Q4K> at m <= 64,
 //                                 quant_gemm_kernel<4, kQ4k> above (K12,
 //                                 Q4_K exact)
@@ -32,18 +31,17 @@
 //                                 quant_gemm_kernel<8, kI8g> above (K14,
 //                                 grouped int8)
 //   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128, A8> at m <= 64,
-//                                 w8a8_gemm_kernel above (K15, W8A8)
+//                                 w8a8_gemm_kernel<kQs8> above (K15,
+//                                 W8A8)
 //   _kernel (:554)          -> quant_gemm_kernel<BITS, kGptq> (K6)
 //   _stream_kernel (:308)   -> quant_stream_kernel, 8-64 rows, split K,
 //                              GPTQ and AWQ layouts, a16 and a8 arms (K7)
 //   _gptq_a8_kernel, _gptq_a8_deferred_kernel (:1274, :1311)
-//                           -> quant_mma_kernel<A8>, 128-row tiles, GPTQ
-//                              layout (K8)
+//                           -> w8a8_gemm_kernel<kGptq4> (K8)
 //   _quant8_kernel (:781)   -> quant8_kernel (K9)
 //   _awq_kernel (:718)      -> quant_gemm_kernel<4, kAwq> (K10)
 //   _awq_a8_kernel, _awq_a8_deferred_kernel (:937, :971)
-//                           -> quant_mma_kernel<A8>, 128-row tiles, AWQ
-//                              layout (K11)
+//                           -> w8a8_gemm_kernel<kAwq4> (K11)
 //
 // Layouts; scales [G, N] bf16, G = K / group_size, group g spans rows
 // [g*gs, (g+1)*gs):
@@ -67,8 +65,9 @@
 //   dequantized bf16 W tile is written there and wgmma reads x once and
 //   W twice (once per consumer warpgroup), about 36 bytes of shared
 //   traffic per thousand operations.
-// - K8 / K11: int8 operations at large m (1979 TOP/s), bytes below a few
-//   hundred rows.
+// - K8 / K11 and K15 at m > 64: int8 operations at large m (1979 TOP/s:
+//   0.90 ms per Mistral-7B layer at m 4096), bytes below a few hundred
+//   rows.
 // - K9: bytes (x read once, the int8 copy and the row scales written once).
 // - K13-K15: bytes at decode (the int8 weight and its bf16 scale rows read
 //   once: 0.066-0.073 ms per layer at Mistral-7B width, about twice K7's
@@ -108,35 +107,30 @@
 // held in shared memory for the whole block; K17 K13's bytes with no
 // rows, its f32 column scale in the epilogue), 64-row chunks as the
 // split unit and two W tiles.
+// K8 / K11 / K15 (w8a8_gemm_kernel): K6's structure for int8 x, 128 x 128
+// tiles, s8 wgmma into exact int32 group dots folded into f32 in group
+// order; its decoders turn the weight's chunk into a K-major s8 tile
+// (K15 transposes its bytes; K8's GPTQ words are K-major already, one
+// column's two words one 16-byte piece; K11's AWQ words get a nibble
+// transpose). The two TPU W4A8 bodies (classic and deferred rescale)
+// differ only in the f32 summation order; the one kernel computes both.
 // K7: see quant_stream_kernel below. The other mma.sync kernels
-// (quant_mma_kernel for K8 / K11, int8_mma_kernel, nib_mma_kernel): a
-// block owns BM rows x 128 columns of the output and walks its
-// quantization groups in order; each group is cut into 64-deep k chunks.
-// For every chunk the block stages x in shared memory and dequantizes the
-// chunk of W there (in the natural row order: the TPU's plane-order unpack
-// and x column permutation were sublane tricks and are gone; the packed
-// words of the next chunk are already on their way into registers), then
-// its eight warps run mma.sync on the tile: bf16 m16n8k16 with f32 sums (A16),
-// or s8 m16n8k32 with exact int32 sums per group and the f32 rescale by the
-// group's scale when the group ends (A8: codes minus zero lie in [-16, 14]
-// for GPTQ and [-15, 15] for AWQ and fit int8 exactly). The layouts differ
-// only in how the W chunk is staged: a GPTQ word holds 8 k rows of one
-// column, so a thread dequantizes one column's rows; an AWQ word holds 8
-// columns of one k row, so a thread holds 4 consecutive rows of one word
-// column and writes, for each of its 8 columns, those 4 rows at once
-// (unpacked in natural column order: the TPU's plane-major columns and
-// output un-permutation were lane tricks and are gone). The TPU kernels
-// carried the f32 sum across a sequential grid axis in VMEM scratch; here
-// the k loop is inside the block. For skinny m (K12-K17 at m <= 64) a
-// block covers 16, 32 or 64 rows, so the weight is streamed once, and
-// the K range is split over several blocks to fill
+// (int8_mma_kernel, nib_mma_kernel): a block owns BM rows x 128 columns
+// of the output and walks its K range in 64-deep k chunks. For every
+// chunk the block stages x in shared memory and dequantizes the chunk of
+// W there (the packed words of the next chunk are already on their way
+// into registers), then its eight warps run mma.sync on the tile: bf16
+// m16n8k16 with f32 sums (A16), or s8 m16n8k32 with exact int32 sums per
+// group and the f32 rescale by the group's scale when the group ends
+// (A8). The TPU kernels carried the f32 sum across a sequential grid axis
+// in VMEM scratch; here the k loop is inside the block. For skinny m
+// (K12-K17 at m <= 64) a block covers 16, 32 or 64 rows, so the weight is
+// streamed once, and the K range is split over several blocks to fill
 // the 132 SMs: each split writes f32 partial sums and a second kernel adds
 // them in split order (deterministic, no atomics), applies the A8 row
 // scale and rounds to bf16. x of up to 64 x 14336 does not fit in shared
-// memory, so it is staged chunk by chunk like W. The two TPU W4A8 bodies
-// (classic and deferred rescale) differ only in the f32 summation order;
-// quant_mma_kernel computes both. No cp.async / TMA pipeline and no wgmma
-// in these yet.
+// memory, so it is staged chunk by chunk like W. No cp.async / TMA
+// pipeline and no wgmma in these yet.
 //
 // Each C entry point launches on the caller's stream, allocates nothing
 // and returns cudaGetLastError(). Build without --use_fast_math: K9's
@@ -201,12 +195,7 @@ __device__ __forceinline__ void st_words(void* p, const uint32_t* w) {
   }
 }
 
-// AWQ: the shift of column 8j + e in its word, 4 * {0,4,1,5,2,6,3,7}[e].
-__device__ __forceinline__ constexpr int awq_shift(int e) {
-  return 4 * ((e & 1) ? 4 + (e >> 1) : (e >> 1));
-}
-
-// The block tile shared by quant_mma_kernel and int8_mma_kernel: BM rows x
+// The block tile shared by int8_mma_kernel and nib_mma_kernel: BM rows x
 // 128 columns of the output over WARPS_M x (8 / WARPS_M) warps, each warp
 // MI x NI mma fragments; x and W are staged 64 k at a time in shared tiles
 // [rows][LD] (W transposed, [column][k]: the mma B operand's layout).
@@ -380,200 +369,6 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
-// GPTQ and AWQ (K6-K8, K10, K11): one block over the groups
-// [g_begin, g_end) of split blockIdx.z.
-//
-// Each group is cut into chunks of 64 k. Every thread holds its packed
-// words of the next chunk in registers, loaded before the current chunk's
-// products, so the weight stream's latency overlaps the tensor-core work
-// and the barriers. GPTQ: the two threads that own a column share its
-// words. AWQ: a warp covers 4 neighbouring word columns (16 bytes of a
-// row) x 8 four-row groups, so its loads take whole halves of 32-byte
-// sectors and its shared-memory stores, 8 bytes of one column each, span
-// 16 banks per word column.
-template <class TL, int BITS, bool AWQ>
-__global__ void __launch_bounds__(kThreads)
-quant_mma_kernel(const typename TL::T* __restrict__ x,
-                 const float* __restrict__ xs,
-                 const uint32_t* __restrict__ qweight,
-                 const uint32_t* __restrict__ qzeros,
-                 const __nv_bfloat16* __restrict__ scales,
-                 __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ partial, int m, int K, int N, int gs,
-                 int groups_per_split) {
-  using T = typename TL::T;
-  constexpr bool A8 = TL::A8;
-  constexpr int PACK = 32 / BITS;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  // Words per thread per chunk: GPTQ 2 threads per column, kChunk / PACK
-  // words each; AWQ 64 rows x 16 words over 256 threads.
-  constexpr int WPT = AWQ ? kChunk * (kBN / 8) / kThreads : kChunk / PACK / 2;
-  static_assert(!AWQ || (BITS == 4 && WPT == 4), "AWQ packs 8 4-bit codes");
-
-  __shared__ __align__(16) T x_tile[TL::BM][TL::LD];
-  __shared__ __align__(16) T w_tile[kBN][TL::LD];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const Lane l = lane_of<TL>();
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * TL::BM;
-  const int G = K / gs;
-  const int g_begin = blockIdx.z * groups_per_split;
-  const int g_end = min(G, g_begin + groups_per_split);
-  const int chunks = (gs + kChunk - 1) / kChunk;    // per group
-  // 16-byte x loads when every chunk start and row start is aligned.
-  const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     K % TL::VEC == 0 && gs % TL::VEC == 0;
-
-  // GPTQ: the column this thread dequantizes and its half of the chunk's
-  // words (fixed: 256 threads, 128 columns).
-  const int my_n = tid % kBN;
-  const int my_col = n0 + my_n;
-  const int my_half = tid / kBN;
-  // AWQ: this thread's word column (8 output columns from aw_col * 8) and
-  // its rows aw_rg * 4 .. + 3 of every chunk.
-  const int aw_col = ((warp & 3) << 2) | (lane & 3);
-  const int aw_rg = ((warp >> 2) << 3) | (lane >> 2);
-  const size_t awq_ld = static_cast<size_t>(N / 8);
-
-  float acc[TL::MI][TL::NI][4];
-  zero_acc<TL>(acc);
-
-  // GPTQ: words wi = my_half + 2 * i of chunk c of group g; AWQ: rows
-  // aw_rg * 4 + i of word column aw_col. Zero past the group.
-  uint32_t words[WPT];
-  auto load_words = [&](int g, int c) {
-    const int k0 = g * gs + c * kChunk;
-    const int kn = min(kChunk, (g + 1) * gs - k0);
-#pragma unroll
-    for (int i = 0; i < WPT; ++i) {
-      if constexpr (AWQ) {
-        const int r = aw_rg * WPT + i;
-        words[i] = r < kn
-            ? qweight[static_cast<size_t>(k0 + r) * awq_ld + n0 / 8 + aw_col]
-            : 0u;
-      } else {
-        const int kk = (my_half + 2 * i) * PACK;
-        words[i] = kk < kn
-            ? qweight[static_cast<size_t>((k0 + kk) / PACK) * N + my_col] : 0u;
-      }
-    }
-  };
-  if (g_begin < g_end) load_words(g_begin, 0);
-
-  for (int g = g_begin; g < g_end; ++g) {
-    // The group's zero and scale: GPTQ of this thread's column, AWQ of the
-    // 8 columns of its word column.
-    int z = 0;
-    float s = 0.f;
-    int zs[8];
-    float ss[8];
-    if constexpr (AWQ) {
-      const uint32_t zw = qzeros[static_cast<size_t>(g) * awq_ld + n0 / 8 +
-                                 aw_col];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        zs[e] = static_cast<int>((zw >> awq_shift(e)) & 0xfu);
-        if constexpr (!A8)
-          ss[e] = __bfloat162float(
-              scales[static_cast<size_t>(g) * N + n0 + aw_col * 8 + e]);
-      }
-    } else {
-      const uint32_t zw = qzeros[static_cast<size_t>(g) * (N / PACK) +
-                                 my_col / PACK];
-      z = static_cast<int>((zw >> (BITS * (my_col % PACK))) & MASK) + 1;
-      s = __bfloat162float(scales[static_cast<size_t>(g) * N + my_col]);
-    }
-    int iacc[TL::MI][TL::NI][4];
-    if constexpr (A8) zero_acc<TL>(iacc);
-    for (int c = 0; c < chunks; ++c) {
-      const int k0 = g * gs + c * kChunk;
-      const int kn = min(kChunk, (g + 1) * gs - k0);   // rows in the chunk
-      stage_x<TL>(x_tile, x, m, K, m0, k0, kn, x_vec);
-      // Dequantize this thread's words into the W tile; past kn the
-      // stored values are zero.
-      if constexpr (AWQ) {
-        // 4 rows of each of the word's 8 columns, in natural column order.
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int n = aw_col * 8 + e;
-          const int sh = awq_shift(e);
-          if constexpr (A8) {
-            uint32_t packed = 0u;
-#pragma unroll
-            for (int i = 0; i < WPT; ++i) {
-              const int q = static_cast<int>((words[i] >> sh) & 0xfu);
-              const uint32_t b = aw_rg * WPT + i < kn
-                  ? static_cast<uint32_t>(q - zs[e]) & 0xffu : 0u;
-              packed |= b << (8 * i);
-            }
-            *reinterpret_cast<uint32_t*>(&w_tile[n][aw_rg * WPT]) = packed;
-          } else {
-            uint32_t packed[WPT / 2];
-#pragma unroll
-            for (int i = 0; i < WPT; i += 2) {
-              const int q0 = static_cast<int>((words[i] >> sh) & 0xfu);
-              const int q1 = static_cast<int>((words[i + 1] >> sh) & 0xfu);
-              const __nv_bfloat162 w2 = __floats2bfloat162_rn(
-                  aw_rg * WPT + i < kn
-                      ? static_cast<float>(q0 - zs[e]) * ss[e] : 0.f,
-                  aw_rg * WPT + i + 1 < kn
-                      ? static_cast<float>(q1 - zs[e]) * ss[e] : 0.f);
-              packed[i / 2] = *reinterpret_cast<const uint32_t*>(&w2);
-            }
-            st_words<WPT / 2>(&w_tile[n][aw_rg * WPT], packed);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < WPT; ++i) {
-          const int kk = (my_half + 2 * i) * PACK;
-          const uint32_t word = words[i];
-          const bool valid = kk < kn;
-          if constexpr (A8) {
-            uint32_t packed[2] = {0u, 0u};
-#pragma unroll
-            for (int j = 0; j < PACK; ++j) {
-              const int q = static_cast<int>((word >> (BITS * j)) & MASK);
-              const uint32_t b = valid ? static_cast<uint32_t>(q - z) & 0xffu : 0u;
-              packed[j / 4] |= b << (8 * (j % 4));
-            }
-            st_words<2>(&w_tile[my_n][kk], packed);
-          } else {
-            uint32_t packed[PACK / 2];
-#pragma unroll
-            for (int j = 0; j < PACK; j += 2) {
-              const int q0 = static_cast<int>((word >> (BITS * j)) & MASK);
-              const int q1 = static_cast<int>((word >> (BITS * (j + 1))) & MASK);
-              const __nv_bfloat162 w2 = __floats2bfloat162_rn(
-                  valid ? static_cast<float>(q0 - z) * s : 0.f,
-                  valid ? static_cast<float>(q1 - z) * s : 0.f);
-              packed[j / 2] = *reinterpret_cast<const uint32_t*>(&w2);
-            }
-            st_words<PACK / 2>(&w_tile[my_n][kk], packed);
-          }
-        }
-      }
-      // Next chunk's words (next group's first at the group's end).
-      if (c + 1 < chunks) {
-        load_words(g, c + 1);
-      } else if (g + 1 < g_end) {
-        load_words(g + 1, 0);
-      }
-      __syncthreads();
-      if constexpr (A8) {
-        mma_chunk<TL>(x_tile, w_tile, iacc, l);
-      } else {
-        mma_chunk<TL>(x_tile, w_tile, acc, l);
-      }
-      __syncthreads();
-    }
-    if constexpr (A8) fold_group<TL>(acc, iacc, scales + static_cast<size_t>(g) * N, n0, l);
-  }
-  store_tile<TL>(acc, xs, out, partial, m, N, m0, n0, l);
-}
-
 // K13 / K14 / K15: int8 weights qs [K, N] with one scale row per G input
 // rows (scales [K / G, N] bf16), no zero point and no unpacking.
 //   A8 false (K13, G 32; K14, G 16): x bf16; the chunk of W is
@@ -586,10 +381,10 @@ quant_mma_kernel(const typename TL::T* __restrict__ x,
 //     bf16), and the f32 sums are times the column's f32 scale cs[n] in
 //     the epilogue (in split_reduce_kernel after a split).
 // A block walks the chunks [c_begin, c_end) of 64 k rows (split
-// blockIdx.z; for A8 a split starts on a group). Only the W tile differs
-// from quant_mma_kernel: each thread stages 4 neighbouring columns x 8 k
-// rows of a chunk, 8 32-bit words, one per k row, so a warp reads 128
-// contiguous bytes of each row; it writes them to the transposed tile, 8 k
+// blockIdx.z; for A8 a split starts on a group). Each thread stages 4
+// neighbouring columns x 8 k rows of a chunk, 8 32-bit words, one per k
+// row, so a warp reads 128 contiguous bytes of each row; it writes them
+// to the transposed tile, 8 k
 // values of a column in one 16-byte (bf16) or 8-byte (int8) store. The
 // words of the next chunk are loaded before the current chunk's products.
 // Eight rows of a chunk never straddle a scale group (G >= 16), so a
@@ -751,8 +546,8 @@ __device__ __forceinline__ void stage_x_split(
 //     and the f32 sums take x_lo w_hi + x_hi w_lo + x_hi w_hi (bf16x3,
 //     about 2^-16 relative per product; single-pass TF32 would keep 10
 //     mantissa bits); the output is f32.
-// A thread owns one column of the tile and half the chunk's 8 words (as
-// quant_mma_kernel's GPTQ layout), so a warp's word loads cover 128
+// A thread owns one column of the tile and half the chunk's 8 words, so
+// a warp's word loads cover 128
 // contiguous bytes. The words of the next chunk are loaded before the
 // current chunk's products. Shared memory is dynamic: the f32 variant's
 // four tiles and codebook take 82 KB at 128 rows.
@@ -1812,40 +1607,74 @@ int launch_gemm(const void* x, const void* qweight, const void* qzeros,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------------------------ K15 --
+// ------------------------------------------------------- K8, K11, K15 --
 //
-// w8a8_gemm_kernel: K15, y = bf16(xs[m] * sum_g s128[g] * (x8[m, g] .
-// qs8[g])) at m > 64, over 128-row groups g. One block owns 128 rows x
-// 128 columns of the output and walks its groups in 128-deep chunks (one
-// chunk, one group). Both wgmma operands of an 8-bit product are read
-// K-major from shared memory: x8 [m, K] is K-major already and goes in by
-// TMA in the 128-byte swizzle (a chunk row is exactly one swizzle row);
-// qs8 [K, N] is N-major and stays so at rest, so the consumers transpose
-// each chunk into a K-major swizzled tile (byte permutes) while the
-// tensor cores run the chunk before, as quant_gemm_kernel dequantizes.
-// Two consumer warpgroups run wgmma m64n128k32 s8 x s8 into s32, 64
-// rows each: a group's four products start with scale-d 0 and give its
-// exact int32 dots (|dot| <= 128 * 127 * 128 < 2^22). Once they are
-// done, the group is folded into the f32 sums in group order, acc =
-// fma(float(dot), s128[g][n], acc): the plain version's order, with one
-// rounding where it takes two. Its scale row came in the chunk's stage,
-// and the chunk's transpose writes it out as f32. Two
-// s32 sets alternate, so that group t - 1 folds while group t's
-// products run: with the f32 sums, 3 x 64 accumulator registers a
-// thread. No loader warp: a block of 288 threads caps a thread at 224
-// registers, so consumer thread 0 issues each stage's TMA loads (x8
-// chunk, qs8 chunk, scale row) as soon as both warpgroups are past the
-// chunk that held it. The flush multiplies by xs[row] (split_reduce_kernel
-// does, after a split) and rounds to bf16.
+// w8a8_gemm_kernel<D>: the int8-activation products at m > 64, y =
+// bf16(xs[m] * sum_g s[g] * (x8[m, g] . w8[g])) over scale groups g, x8
+// int8 rows from quant8. The decoder D says what the int8 weight w8 is at
+// rest: K15's (A8Dec::kQs8: int8 codes qs8 [K, N], 128-row groups), K8's
+// (kGptq4: GPTQ's 4-bit words [K / 8, N], w8 = q - (z + 1) in [-16, 14])
+// and K11's (kAwq4: AWQ's words [K, N / 8], 8 interleaved columns a word,
+// w8 = q - z in [-15, 15]). One block owns 128 rows x 128 columns of the
+// output and walks its chunks of 128 k rows. Both wgmma operands of an
+// 8-bit product are read K-major from shared memory: x8 [m, K] is K-major
+// already and goes in by TMA in the 128-byte swizzle (a chunk row is
+// exactly one swizzle row); the consumers decode each chunk's weight into
+// a K-major swizzled s8 tile while the tensor cores run the chunk before,
+// as quant_gemm_kernel dequantizes:
+//   - kQs8: qs8 is N-major at rest; four 4 x 4 byte transposes give a
+//     thread 16 k bytes of each of 4 columns (byte permutes).
+//   - kGptq4: a word holds 8 k rows of one column, so two words of a
+//     column are one 16-byte piece of the tile, with no transpose: the
+//     even and odd nibbles masked out (one lop3 each, 0x80 set above
+//     each code), the zero subtracted from every byte at once (the 0x80
+//     keeps the bytes from borrowing, one add and one xor take it off
+//     again), and the halves interleaved by two byte permutes.
+//   - kAwq4: a word holds 8 columns of one k row. A thread takes the
+//     even (columns 8j + 0, 4, 1, 5) or the odd nibbles (8j + 2, 6, 3, 7)
+//     of 16 rows of word column j, subtracts the zeros as kGptq4 does,
+//     and transposes them into 4 pieces as kQs8 does.
+// Two consumer warpgroups run wgmma m64n128k32 s8 x s8 into s32, 64 rows
+// each: a group's products start with scale-d 0 and give its exact int32
+// dots (K15: |dot| <= 128 * 127 * 128 < 2^22; K8 / K11: gs * 127 * 16,
+// so a group past 8192 rows is folded every 8192 to stay below 2^24,
+// where the conversion to f32 is exact). Once they are done, the group
+// is folded into the f32 sums in group order, acc = fma(float(dot),
+// s[g][n], acc): the plain version's order, with one rounding where it
+// takes two. Its scale row came in the stage, and the chunk's decode
+// writes it out as f32. Two s32 sets alternate by group, so that group
+// g - 1 folds while group g's products run: with the f32 sums, 3 x 64
+// accumulator registers a thread. No loader warp: a block of 288
+// threads caps a thread at 224 registers, so consumer thread 0 issues
+// each stage's TMA loads (x8 chunk, the weight's chunk, the group's scale
+// row and, for K8 / K11, its zero row) as soon as both warpgroups are
+// past the chunk that held it. The flush multiplies by xs[row]
+// (split_reduce_kernel does, after a split) and rounds to bf16.
+// A group is cut into ceil(gs / 128) chunks, its last one short where
+// 128 does not divide gs (its other rows decode as zero), and a split is
+// a run of those chunks (the wrapper's a8_gemm_plan): it may start and
+// end inside a group, whose scale is constant over it, so one group of K
+// rows (GPTQ's group_size -1) still spreads over the SMs.
 constexpr int kW8Tile = 128;                // rows, columns and k of a chunk
-constexpr int kW8Stages = 5;
 constexpr int kW8Threads = 256;             // two consumer warpgroups
 constexpr int kW8Bytes = kW8Tile * kW8Tile; // x8 stage, qs8 stage, K-major tile
 constexpr int kW8SBytes = kW8Tile * 2;      // scale row
-// A stage: the x8 and qs8 chunks, the bf16 scale row and its f32 copy.
-constexpr int kW8SmemBytes =
-    1024 + kW8Stages * (2 * kW8Bytes + 3 * kW8SBytes) + kWtTiles * kW8Bytes +
-    8 * kW8Stages;
+
+enum class A8Dec { kQs8, kGptq4, kAwq4 };
+
+template <A8Dec D>
+struct W8Cfg {
+  static constexpr bool kNib = D != A8Dec::kQs8;
+  static constexpr int kStages = kNib ? 6 : 5;
+  static constexpr int kWBytes = kNib ? kW8Bytes / 2 : kW8Bytes;  // at rest
+  static constexpr int kZBytes = kNib ? 128 : 0;   // the zero row, 64 used
+  // A stage: the x8 chunk, the weight's chunk, the bf16 scale row and its
+  // f32 copy, the zero row.
+  static constexpr int kSmemBytes =
+      1024 + kStages * (kW8Bytes + kWBytes + 3 * kW8SBytes + kZBytes) +
+      kWtTiles * kW8Bytes + 8 * kStages;
+  static_assert(kSmemBytes <= 232448, "the opt-in limit per block");
+};
 
 // d[64 x 128] (+)= A[64 x 32] B[32 x 128], s8 x s8 into s32, A and B
 // K-major in the 128-byte swizzle; scale_d 0 on a group's first product.
@@ -1887,7 +1716,7 @@ __device__ __forceinline__ void wgmma_s8_128(int* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// float(v), exact for |v| < 2^24. An asm volatile, so that the
+// float(v), exact for |v| <= 2^24. An asm volatile, so that the
 // accumulator read stays after the wgmma wait before it.
 __device__ __forceinline__ float s32_to_f32(int v) {
   float r;
@@ -1915,52 +1744,231 @@ __device__ __forceinline__ void w8a8_fold(float (&acc)[64],
 }
 
 // One step of the consumers' loop: chunk t's products into `cur` (its x8
-// stage, its K-major tile), chunk t + 1's transpose, the consumer
+// stage, its K-major tile; `opens`: the chunk opens a group of `cur`, so
+// its first product takes scale-d 0), chunk t + 1's decode, the consumer
 // barrier once both warpgroups have finished chunk t - 1's products,
 // thread 0's refill of the stage chunk t - 1 held (its scale row was
-// copied out as f32 by its transpose), then chunk t - 1's fold from
-// `prev` while the tensor cores run chunk t. The caller alternates the
-// two sets.
-template <class Prepare, class Load>
+// copied out as f32 by its decode), then, where chunk t opens a group,
+// the fold of the group before it from `prev` while the tensor cores run
+// chunk t. The caller alternates the two sets by group.
+template <int S, class Prepare, class Load>
 __device__ __forceinline__ void w8a8_step(
-    int t, int T, int (&cur)[64], const int (&prev)[64], float (&acc)[64],
-    uint32_t x_stage, uint32_t w_tile, const float2* srow,
+    int t, int T, bool opens, int (&cur)[64], const int (&prev)[64],
+    float (&acc)[64], uint32_t x_stage, uint32_t w_tile, const float2* srow,
     Prepare& prepare, Load& load) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     wgmma_s8_128(cur, make_desc(x_stage + kk * 32, 16, 1024),
-                 make_desc(w_tile + kk * 32, 16, 1024), kk > 0);
+                 make_desc(w_tile + kk * 32, 16, 1024), kk > 0 || !opens);
   wgmma_commit();
   if (t + 1 < T) prepare(t + 1);
   wgmma_wait<1>();                        // chunk t - 1's products done
-  // The transpose's stores become visible to the next step's wgmma. After
+  // The decode's stores become visible to the next step's wgmma. After
   // the wait, not inside the pipeline stage: there ptxas serialized the
   // products (warning C7514).
   fence_proxy_async();
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
   // Stage (t - 1) % S is free: both warpgroups are past chunk t - 1.
-  if (threadIdx.x == 0 && t > 0 && t - 1 + kW8Stages < T)
-    load(t - 1 + kW8Stages);
-  if (t > 0) w8a8_fold(acc, prev, srow);
+  if (threadIdx.x == 0 && t > 0 && t - 1 + S < T) load(t - 1 + S);
+  if (t > 0 && opens) w8a8_fold(acc, prev, srow);
 }
 
+// Bytes j0 and j1 of two words (a, b) as [a.j0, b.j0, a.j1, b.j1].
+__device__ __forceinline__ uint32_t pick2(int j0, int j1) {
+  return static_cast<uint32_t>(j0 | (4 + j0) << 4 | j1 << 8 |
+                               (4 + j1) << 12);
+}
+
+// A 4 x 4 byte transpose: words a, b, c, d (4 k rows of 4 columns) into
+// o[s][i], 4 k bytes of column (rot + s) % 4, where sel01 and sel23 are
+// pick2(rot, rot + 1) and pick2(rot + 2, rot + 3).
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b,
+                                           uint32_t c, uint32_t d,
+                                           uint32_t sel01, uint32_t sel23,
+                                           uint32_t (&o)[4][4], int i) {
+  const uint32_t t0 = __byte_perm(a, b, sel01);
+  const uint32_t t1 = __byte_perm(a, b, sel23);
+  const uint32_t t2 = __byte_perm(c, d, sel01);
+  const uint32_t t3 = __byte_perm(c, d, sel23);
+  o[0][i] = __byte_perm(t0, t2, 0x5410);
+  o[1][i] = __byte_perm(t0, t2, 0x7632);
+  o[2][i] = __byte_perm(t1, t3, 0x5410);
+  o[3][i] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Four 4-bit codes (the low nibble of each byte of v) minus a zero
+// replicated in zz (or one zero a byte), as int8 bytes: (q | 0x80) - z
+// borrows nothing (128 + q - z >= 112 for z up to 16), and ^ 0x80 leaves
+// q - z.
+__device__ __forceinline__ uint32_t s8_codes(uint32_t v, uint32_t zz) {
+  return (and_or(v, 0x0f0f0f0fu, 0x80808080u) - zz) ^ 0x80808080u;
+}
+
+// The decoders: each consumer thread's share of a chunk's K-major s8
+// tile `wt` (column n's 128 k bytes in row n, 16-byte piece c at
+// swz(n, c)), from the stage's weight `ws` and zero row `zrow`. Only the
+// first `kn` k rows are real (the rest decode as zero); FULL: all 128.
+template <A8Dec D> struct A8Decoder;
+
+// K15: warp c takes rows 16c .. 16c + 15 of the qs8 chunk, lane q
+// columns 4q .. 4q + 3 (one 32-bit word of each row: a warp reads whole
+// 128-byte rows). Four 4 x 4 byte transposes give the 16 k bytes of
+// each of its 4 columns, one 16-byte piece of the K-major tile each.
+// Lane q starts at column 4q + rot, rot = (q / 2) % 4, so that the 8
+// lanes of a quarter warp store to 8 distinct 16-byte bank groups.
+template <> struct A8Decoder<A8Dec::kQs8> {
+  int c16, q;
+  uint32_t sel01, sel23;
+  int st_off[4];
+  __device__ explicit A8Decoder(int tid) : c16(tid >> 5), q(tid & 31) {
+    const int rot = (q >> 1) & 3;
+    sel01 = pick2(rot, (rot + 1) & 3);
+    sel23 = pick2((rot + 2) & 3, (rot + 3) & 3);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int n = 4 * q + ((s + rot) & 3);
+      st_off[s] = n * 128 + ((c16 ^ (n & 7)) << 4);
+    }
+  }
+  template <bool FULL>
+  __device__ __forceinline__ void run(const unsigned char* stage,
+                                      const uint32_t*, unsigned char* wt,
+                                      int) const {
+    const unsigned char* ws = stage + c16 * 16 * 128 + 4 * q;
+    uint32_t o[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      transpose4(ld32(ws + (4 * i) * 128), ld32(ws + (4 * i + 1) * 128),
+                 ld32(ws + (4 * i + 2) * 128), ld32(ws + (4 * i + 3) * 128),
+                 sel01, sel23, o, i);
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      *reinterpret_cast<uint4*>(wt + st_off[s]) =
+          make_uint4(o[s][0], o[s][1], o[s][2], o[s][3]);
+  }
+};
+
+// K8: the stage holds words [16 word rows][128 columns]. Thread (n =
+// tid % 128, half h = tid / 128) takes pieces 4h .. 4h + 3 of column n:
+// words 2c and 2c + 1 of its column are k rows 16c .. 16c + 15, nibble
+// j of a word row j. lo = the even rows, hi = the odd ones, each a byte;
+// [lo.b0, hi.b0, lo.b1, hi.b1] are rows 0-3 in order. A warp's loads are
+// one 128-byte word row, and the 8 lanes of a quarter warp store to 8
+// distinct bank groups (n % 8 differs).
+template <> struct A8Decoder<A8Dec::kGptq4> {
+  int n, c0;
+  __device__ explicit A8Decoder(int tid)
+      : n(tid & 127), c0((tid >> 7) * 4) {}
+  template <bool FULL>
+  __device__ __forceinline__ void run(const unsigned char* stage,
+                                      const uint32_t* zrow, unsigned char* wt,
+                                      int kn) const {
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(stage) + n;
+    // The AutoGPTQ zero, z + 1 in [1, 16], in every byte.
+    const uint32_t zz =
+        (((zrow[n >> 3] >> (4 * (n & 7))) & 0xfu) + 1u) * 0x01010101u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + i;
+      uint32_t o[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t w = ws[(2 * c + h) * 128];
+        const uint32_t lo = s8_codes(w, zz), hi = s8_codes(w >> 4, zz);
+        const bool real = FULL || 16 * c + 8 * h < kn;
+        o[2 * h] = real ? __byte_perm(lo, hi, 0x5140) : 0u;
+        o[2 * h + 1] = real ? __byte_perm(lo, hi, 0x7362) : 0u;
+      }
+      *reinterpret_cast<uint4*>(wt + swz(n, c)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  }
+};
+
+// K11: the stage holds words [128 k rows][16 word columns]. Warp c takes
+// rows 16c .. 16c + 15, lane (j = lane / 2, h = lane % 2) word column j's
+// even (h 0) or odd (h 1) nibbles: byte b of (w >> 4h) & 0x0f0f0f0f is
+// column 8j + 2h + b / 2 + 4 (b % 2) (AWQ's order, nibble p holding
+// column {0, 2, 4, 6, 1, 3, 5, 7}[p]). The zero row's word j gives the 4
+// zeros in the same bytes. Four 4 x 4 transposes give 16 k bytes of
+// each of the 4 columns. A warp's loads are one 64-byte row, each word
+// read by two lanes; lane (j, h) starts at byte rot = j % 4, so that the
+// 8 lanes of a quarter warp (4 word columns, both halves) store to the 8
+// columns 8j + e with distinct e = n % 8: 8 distinct bank groups.
+template <> struct A8Decoder<A8Dec::kAwq4> {
+  int c, j, sh;
+  uint32_t sel01, sel23;
+  int st_off[4];
+  __device__ explicit A8Decoder(int tid)
+      : c(tid >> 5), j((tid & 31) >> 1), sh(4 * (tid & 1)) {
+    const int rot = j & 3;
+    sel01 = pick2(rot, (rot + 1) & 3);
+    sel23 = pick2((rot + 2) & 3, (rot + 3) & 3);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int b = (s + rot) & 3;
+      const int n = 8 * j + sh / 2 + (b >> 1) + 4 * (b & 1);
+      st_off[s] = swz(n, c);
+    }
+  }
+  template <bool FULL>
+  __device__ __forceinline__ void run(const unsigned char* stage,
+                                      const uint32_t* zrow, unsigned char* wt,
+                                      int kn) const {
+    const uint32_t* ws =
+        reinterpret_cast<const uint32_t*>(stage) + 16 * 16 * c + j;
+    const uint32_t zz = (zrow[j] >> sh) & 0x0f0f0f0fu;
+    uint32_t o[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t v[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        v[r] = s8_codes(ws[(4 * i + r) * 16] >> sh, zz);
+        if (!FULL && 16 * c + 4 * i + r >= kn) v[r] = 0u;
+      }
+      transpose4(v[0], v[1], v[2], v[3], sel01, sel23, o, i);
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      *reinterpret_cast<uint4*>(wt + st_off[s]) =
+          make_uint4(o[s][0], o[s][1], o[s][2], o[s][3]);
+  }
+};
+
+// K8's and K11's place in their chunk walk: chunk j of group g.
+struct ChunkWalk {
+  int g, j;
+  __device__ __forceinline__ void next(int cpg) {
+    if (++j == cpg) {
+      j = 0;
+      ++g;
+    }
+  }
+};
+
+template <A8Dec D>
 __global__ void __launch_bounds__(kW8Threads, 1)
 w8a8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
                  const __grid_constant__ CUtensorMap w_map,
                  const __grid_constant__ CUtensorMap s_map,
+                 const __grid_constant__ CUtensorMap z_map,
                  const int8_t* __restrict__ x8, const float* __restrict__ xs,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
-                 int m, int K, int N, int groups_per_split, int x_tma) {
-  constexpr int S = kW8Stages;
+                 int m, int K, int N, int gs, int chunks_per_split,
+                 int x_tma) {
+  using C = W8Cfg<D>;
+  constexpr int S = C::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* x_s = smem;                              // [S][128 x 128 B]
   unsigned char* wt_s = x_s + S * kW8Bytes;               // [3][128 n x 128 k]
-  unsigned char* w_s = wt_s + kWtTiles * kW8Bytes;        // [S][128 k x 128 n]
-  unsigned char* sc_s = w_s + S * kW8Bytes;               // [S][128] bf16
+  unsigned char* w_s = wt_s + kWtTiles * kW8Bytes;        // [S][weight chunk]
+  unsigned char* sc_s = w_s + S * C::kWBytes;             // [S][128] bf16
   float* sf_s = reinterpret_cast<float*>(sc_s + S * kW8SBytes);  // f32 rows
-  uint64_t* full = reinterpret_cast<uint64_t*>(sf_s + S * kW8Tile);
+  unsigned char* z_s = reinterpret_cast<unsigned char*>(sf_s + S * kW8Tile);
+  uint64_t* full = reinterpret_cast<uint64_t*>(z_s + S * C::kZBytes);
 
   // Tile order as quant_gemm_kernel's: groups of 8 row tiles, column by
   // column.
@@ -1970,20 +1978,55 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   const int group_m = min(static_cast<int>(gridDim.y) - first_m, 8);
   const int m0 = (first_m + lin % per_group % group_m) * kW8Tile;
   const int n0 = lin % per_group / group_m * kW8Tile;
-  const int g_begin = blockIdx.z * groups_per_split;
-  const int T = max(0, min(K / kW8Tile, g_begin + groups_per_split) - g_begin);
+  // Chunks a group (K15: gs 128, one), and this split's run of them.
+  const int cpg = C::kNib ? (gs + kW8Tile - 1) / kW8Tile : 1;
+  const int chunks = C::kNib ? K / gs * cpg : K / kW8Tile;
+  const int c_begin = blockIdx.z * chunks_per_split;
+  const int T = max(0, min(chunks, c_begin + chunks_per_split) - c_begin);
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
+  // K8 / K11: the split's first chunk is chunk walk0.j of group walk0.g.
+  // The loads, the decodes and the steps each walk the chunks in order
+  // from there (ChunkWalk), with no division a chunk: in the loop, those
+  // cost a quarter of the kernel's time.
+  const int g0 = c_begin / cpg;
+  const ChunkWalk walk0{g0, c_begin - g0 * cpg};
+  ChunkWalk at_load = walk0, at_prep = walk0;
+  // Chunk t, the next one of walk `w`: group g, first row k0, kn real
+  // rows.
+  auto chunk = [&](ChunkWalk& w, int t, int& g, int& k0, int& kn) {
+    if constexpr (C::kNib) {
+      g = w.g;
+      k0 = w.g * gs + w.j * kW8Tile;
+      kn = min(kW8Tile, gs - w.j * kW8Tile);
+      w.next(cpg);
+    } else {
+      g = c_begin + t;
+      k0 = g * kW8Tile;
+      kn = kW8Tile;
+    }
+  };
 
-  // Chunk t (group g_begin + t) into stage t % S.
+  // Chunk t into stage t % S.
   auto load = [&](int t) {
     const int slot = t % S;
-    const int g = g_begin + t;
+    int g, k0, kn;
+    chunk(at_load, t, g, k0, kn);
     uint64_t* bar = &full[slot];
-    mbar_expect_tx(bar, kW8Bytes + kW8SBytes + (x_tma ? kW8Bytes : 0));
-    if (x_tma) tma_load(x_s + slot * kW8Bytes, &x_map, bar, g * kW8Tile, m0);
-    tma_load(w_s + slot * kW8Bytes, &w_map, bar, n0, g * kW8Tile);
+    mbar_expect_tx(bar, C::kWBytes + kW8SBytes + (C::kNib ? 64 : 0) +
+                            (x_tma ? kW8Bytes : 0));
+    if (x_tma) tma_load(x_s + slot * kW8Bytes, &x_map, bar, k0, m0);
+    unsigned char* wd = w_s + slot * C::kWBytes;
+    if constexpr (D == A8Dec::kGptq4) {
+      tma_load(wd, &w_map, bar, n0, k0 / 8);
+    } else if constexpr (D == A8Dec::kAwq4) {
+      tma_load(wd, &w_map, bar, n0 / 8, k0);
+    } else {
+      tma_load(wd, &w_map, bar, n0, k0);
+    }
     tma_load(sc_s + slot * kW8SBytes, &s_map, bar, n0, g);
+    if constexpr (C::kNib)
+      tma_load(z_s + slot * C::kZBytes, &z_map, bar, n0 / 8, g);
   };
   if (tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
@@ -1992,34 +2035,18 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   }
   __syncthreads();
 
-  // The transpose: warp c takes rows 16c .. 16c + 15 of the chunk, lane q
-  // columns 4q .. 4q + 3 (one 32-bit word of each row: a warp reads whole
-  // 128-byte rows). Four 4 x 4 byte transposes give the 16 k bytes of
-  // each of its 4 columns, one 16-byte piece of the K-major tile each.
-  // Lane q starts at column 4q + rot, rot = (q / 2) % 4, so that the 8
-  // lanes of a quarter warp store to 8 distinct 16-byte bank groups.
-  const int c16 = tid >> 5, q = tid & 31, rot = (q >> 1) & 3;
-  auto pick = [](int j0, int j1) {   // bytes j0 and j1 of two words
-    return static_cast<uint32_t>(j0 | (4 + j0) << 4 | j1 << 8 |
-                                 (4 + j1) << 12);
-  };
-  const uint32_t sel01 = pick(rot, (rot + 1) & 3);
-  const uint32_t sel23 = pick((rot + 2) & 3, (rot + 3) & 3);
-  int st_off[4];
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int n = 4 * q + ((s + rot) & 3);
-    st_off[s] = n * 128 + ((c16 ^ (n & 7)) << 4);
-  }
-  // Chunk t's stage in place and its qs8 transposed into K-major tile
+  const A8Decoder<D> dec(tid);
+  // Chunk t's stage in place and its weight decoded into K-major tile
   // t % 3; x8 stored by the consumers where TMA could not load it (an
   // unaligned view). The caller fences the stores for the async proxy.
   auto prepare = [&](int t) {
     const int slot = t % S;
     mbar_wait(&full[slot], (t / S) & 1);
+    int g, k0, kn;
+    chunk(at_prep, t, g, k0, kn);
     if (!x_tma) {
       unsigned char* xd = x_s + slot * kW8Bytes;
-      const int r = tid >> 1, k0 = (g_begin + t) * kW8Tile;
+      const int r = tid >> 1;
 #pragma unroll
       for (int c4 = 0; c4 < 4; ++c4) {
         const int cc = 4 * (tid & 1) + c4;    // 16-byte piece of the row
@@ -2029,7 +2056,8 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
               x8 + static_cast<size_t>(m0 + r) * K + k0 + cc * 16);
 #pragma unroll
           for (int b = 0; b < 16; ++b)
-            w[b >> 2] |= static_cast<uint32_t>(src[b]) << (8 * (b & 3));
+            if (cc * 16 + b < kn)
+              w[b >> 2] |= static_cast<uint32_t>(src[b]) << (8 * (b & 3));
         }
         *reinterpret_cast<uint4*>(xd + swz(r, cc)) =
             make_uint4(w[0], w[1], w[2], w[3]);
@@ -2040,28 +2068,15 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
       sf_s[slot * kW8Tile + tid] = __bfloat162float(
           reinterpret_cast<const __nv_bfloat16*>(sc_s +
                                                  slot * kW8SBytes)[tid]);
-    const unsigned char* ws = w_s + slot * kW8Bytes + c16 * 16 * 128 + 4 * q;
+    const unsigned char* ws = w_s + slot * C::kWBytes;
+    const uint32_t* zrow =
+        reinterpret_cast<const uint32_t*>(z_s + slot * C::kZBytes);
     unsigned char* wt = wt_s + (t % kWtTiles) * kW8Bytes;
-    uint32_t o[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t a = ld32(ws + (4 * i) * 128);
-      const uint32_t b = ld32(ws + (4 * i + 1) * 128);
-      const uint32_t c = ld32(ws + (4 * i + 2) * 128);
-      const uint32_t d = ld32(ws + (4 * i + 3) * 128);
-      const uint32_t t0 = __byte_perm(a, b, sel01);
-      const uint32_t t1 = __byte_perm(a, b, sel23);
-      const uint32_t t2 = __byte_perm(c, d, sel01);
-      const uint32_t t3 = __byte_perm(c, d, sel23);
-      o[0][i] = __byte_perm(t0, t2, 0x5410);
-      o[1][i] = __byte_perm(t0, t2, 0x7632);
-      o[2][i] = __byte_perm(t1, t3, 0x5410);
-      o[3][i] = __byte_perm(t1, t3, 0x7632);
+    if (!C::kNib || kn == kW8Tile) {
+      dec.template run<true>(ws, zrow, wt, kn);
+    } else {
+      dec.template run<false>(ws, zrow, wt, kn);
     }
-#pragma unroll
-    for (int s = 0; s < 4; ++s)
-      *reinterpret_cast<uint4*>(wt + st_off[s]) =
-          make_uint4(o[s][0], o[s][1], o[s][2], o[s][3]);
   };
   float acc[64];
 #pragma unroll
@@ -2076,20 +2091,52 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   };
   auto x_stage = [&](int t) { return x_base + (t % S) * kW8Bytes; };
   auto w_tile = [&](int t) { return wt_base + (t % kWtTiles) * kW8Bytes; };
-  // The two s32 sets alternate by step, so the loop runs an even number
-  // of steps: an odd T adds a last step whose products (on a consumed
-  // stage) are never folded.
   if (T > 0) prepare(0);
   fence_proxy_async();
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-  for (int t = 0; t < T; t += 2) {
-    w8a8_step(t, T, sa, sb, acc, x_stage(t), w_tile(t), srow(t - 1),
-              prepare, load);
-    w8a8_step(t + 1, T, sb, sa, acc, x_stage(t + 1), w_tile(t + 1), srow(t),
-              prepare, load);
+  if constexpr (!C::kNib) {
+    // K15: every chunk is a group, so the sets alternate by step and the
+    // loop runs an even number of steps: an odd T adds a last step whose
+    // products (on a consumed stage) are never folded.
+    for (int t = 0; t < T; t += 2) {
+      w8a8_step<S>(t, T, true, sa, sb, acc, x_stage(t), w_tile(t),
+                   srow(t - 1), prepare, load);
+      w8a8_step<S>(t + 1, T, true, sb, sa, acc, x_stage(t + 1),
+                   w_tile(t + 1), srow(t), prepare, load);
+    }
+    wgmma_wait<0>();
+    if (T > 0 && T % 2 == 0) w8a8_fold(acc, sb, srow(T - 1));
+  } else {
+    // K8 / K11: a group's chunks accumulate into one set, the next group
+    // into the other; a group past 64 chunks (8192 rows) is folded every
+    // 64, so that every dot stays below 2^24 (8192 * 127 * 16).
+    ChunkWalk at_step = walk0;            // chunk t's place
+    bool last_a = true;                   // the last group's set
+    int t = 0;
+    while (t < T) {
+      do {
+        w8a8_step<S>(t, T, t == 0 || (at_step.j & 63) == 0, sa, sb, acc,
+                     x_stage(t), w_tile(t), srow(t - 1), prepare, load);
+        at_step.next(cpg);
+      } while (++t < T && (at_step.j & 63) != 0);
+      last_a = true;
+      if (t >= T) break;
+      do {
+        w8a8_step<S>(t, T, (at_step.j & 63) == 0, sb, sa, acc, x_stage(t),
+                     w_tile(t), srow(t - 1), prepare, load);
+        at_step.next(cpg);
+      } while (++t < T && (at_step.j & 63) != 0);
+      last_a = false;
+    }
+    wgmma_wait<0>();
+    if (T > 0) {
+      if (last_a) {
+        w8a8_fold(acc, sa, srow(T - 1));
+      } else {
+        w8a8_fold(acc, sb, srow(T - 1));
+      }
+    }
   }
-  wgmma_wait<0>();
-  if (T > 0 && T % 2 == 0) w8a8_fold(acc, sb, srow(T - 1));
 
   const int lt = tid & 127;
   const int row = m0 + wg * 64 + (lt >> 5) * 16 + ((lt & 31) >> 2);
@@ -2115,40 +2162,65 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// K15 at m > 64: grid (N / 128, m / 128, splits); a split covers
-// groups_per_split whole 128-row groups and writes f32 partials, which
-// split_reduce_kernel adds in split order and multiplies by xs.
-int launch_w8a8(const void* x8, const float* xs, const void* qs8,
-                const void* s128, void* out, float* partial, int m, int K,
-                int N, int splits, cudaStream_t stream) {
+// K8, K11 and K15 at m > 64: grid (N / 128, m / 128, splits); a split
+// covers chunks_per_split chunks of 128 rows (K15: one a 128-row group;
+// K8 / K11: ceil(gs / 128) a group) and writes f32 partials, which
+// split_reduce_kernel adds in split order and multiplies by xs. K15
+// takes qs8 [K, N] and s128 [K / 128, N]; K8 GPTQ's qweight [K / 8, N],
+// qzeros [G, N / 8] and scales [G, N]; K11 AWQ's qweight [K, N / 8] and
+// the same rows. Tensor maps are encoded per call (a host encoding each,
+// no device work); the dynamic shared memory above 48 KB is allowed once
+// per instance.
+template <A8Dec D>
+int launch_w8a8(const void* x8, const float* xs, const void* qw,
+                const void* qz, const void* scales, void* out,
+                float* partial, int m, int K, int N, int gs, int splits,
+                cudaStream_t stream) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
-  if (splits < 1 || K % kW8Tile != 0 || N % kW8Tile != 0)
+  using C = W8Cfg<D>;
+  if (splits < 1 || gs <= 0 || K % gs != 0 || N % kW8Tile != 0 ||
+      (!C::kNib && gs != kW8Tile) || (D == A8Dec::kGptq4 && gs % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = w8a8_gemm_kernel<D>;
   static bool allowed = false;
   if (!allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        w8a8_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kW8SmemBytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     allowed = true;
   }
-  const int G = K / kW8Tile;
-  const int gps = (G + splits - 1) / splits;
+  const int G = K / gs;
+  const int chunks = G * (C::kNib ? (gs + kW8Tile - 1) / kW8Tile : 1);
+  const int per = (chunks + splits - 1) / splits;
   constexpr auto kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  const int x_tma = reinterpret_cast<uintptr_t>(x8) % 16 == 0;
-  CUtensorMap x_map{}, w_map{}, s_map{};
+  constexpr auto kU32 = CU_TENSOR_MAP_DATA_TYPE_UINT32;
+  constexpr auto kFlat = CU_TENSOR_MAP_SWIZZLE_NONE;
+  // TMA for x8 needs a 16-byte aligned base, row stride and chunk start.
+  const int x_tma = reinterpret_cast<uintptr_t>(x8) % 16 == 0 &&
+                    K % 16 == 0 && gs % 16 == 0;
+  CUtensorMap x_map{}, w_map{}, s_map{}, z_map{};
   bool ok = !x_tma || tensor_map(&x_map, kU8, 1, x8, K, m, kW8Tile, kW8Tile,
                                   CU_TENSOR_MAP_SWIZZLE_128B);
-  ok = ok && tensor_map(&w_map, kU8, 1, qs8, N, K, kW8Tile, kW8Tile,
-                        CU_TENSOR_MAP_SWIZZLE_NONE);
-  ok = ok && tensor_map(&s_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, s128, N,
-                        G, kW8Tile, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if constexpr (D == A8Dec::kGptq4) {
+    ok = ok && tensor_map(&w_map, kU32, 4, qw, N, K / 8, kW8Tile,
+                          kW8Tile / 8, kFlat);
+  } else if constexpr (D == A8Dec::kAwq4) {
+    ok = ok && tensor_map(&w_map, kU32, 4, qw, N / 8, K, kW8Tile / 8,
+                          kW8Tile, kFlat);
+  } else {
+    ok = ok && tensor_map(&w_map, kU8, 1, qw, N, K, kW8Tile, kW8Tile, kFlat);
+  }
+  ok = ok && tensor_map(&s_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, scales,
+                        N, G, kW8Tile, 1, kFlat);
+  if constexpr (C::kNib)
+    ok = ok && tensor_map(&z_map, kU32, 4, qz, N / 8, G, kW8Tile / 8, 1,
+                          kFlat);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   float* part = splits > 1 ? partial : nullptr;
   const dim3 grid(N / kW8Tile, (m + kW8Tile - 1) / kW8Tile, splits);
-  w8a8_gemm_kernel<<<grid, kW8Threads, kW8SmemBytes, stream>>>(
-      x_map, w_map, s_map, static_cast<const int8_t*>(x8), xs,
-      static_cast<__nv_bfloat16*>(out), part, m, K, N, gps, x_tma);
+  kernel<<<grid, kW8Threads, C::kSmemBytes, stream>>>(
+      x_map, w_map, s_map, z_map, static_cast<const int8_t*>(x8), xs,
+      static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, per, x_tma);
   if (splits > 1) {
     const size_t total = static_cast<size_t>(m) * N;
     const int threads = 256;
@@ -2202,7 +2274,7 @@ int launch_w8a8(const void* x8, const float* xs, const void* qs8,
 //     it: 128 + q and 128 + z are exact in bf16, so is their difference,
 //     and one bf16x2 multiply rounds the product once (8 bits: the same in
 //     f32, then one conversion). The AutoGPTQ +1 zero and the AWQ nibble
-//     order (awq_shift) are as in the other kernels.
+//     order are as in the other kernels.
 //   - a8: codes minus zero, in [-16, 14] (GPTQ) or [-15, 15] (AWQ), as int8
 //     bytes; exact int32 dots per group, folded into f32 in group order
 //     with the group's scale row as fold_group does, times xs[row] in the
@@ -2299,12 +2371,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Four 4-bit codes (the low nibble of each byte of v) minus a zero
-// replicated in zz, as int8 bytes: (q | 0x80) - z borrows nothing
-// (128 + q - z >= 113), and ^ 0x80 leaves q - z.
-__device__ __forceinline__ uint32_t s8_codes(uint32_t v, uint32_t zz) {
-  return (gemm::and_or(v, 0x0f0f0f0fu, 0x80808080u) - zz) ^ 0x80808080u;
-}
+using gemm::s8_codes;
 
 // A group's constants for the thread's columns c0 and c0 + 1: z0 / z1 and
 // s0 / s1 per column (GPTQ bf16x2 pairs of one value, 8 bits f32 bits);
@@ -2788,7 +2855,13 @@ int launch_tiles(LaunchTile&& tile, int block_m, const float* xs, void* out,
     case 16: tile(Tile<16, 1, A8>{}, grid(16), part); break;
     case 32: tile(Tile<32, 1, A8>{}, grid(32), part); break;
     case 64: tile(Tile<64, 1, A8>{}, grid(64), part); break;
-    case 128: tile(Tile<128, 2, A8>{}, grid(128), part); break;
+    case 128:   // K16 on f32 x only: no A8 tile takes 128 rows
+      if constexpr (A8) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      } else {
+        tile(Tile<128, 2, A8>{}, grid(128), part);
+        break;
+      }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (splits > 1) {
@@ -2804,7 +2877,8 @@ int launch_tiles(LaunchTile&& tile, int block_m, const float* xs, void* out,
 
 // GPTQ / AWQ: block_m 8-64 is K7 (quant_stream_kernel, `splits` runs of
 // whole units); 128 is K6 / K10 (quant_gemm_kernel, runs of groups) for
-// a16 and K8 / K11 (quant_mma_kernel, no split) for a8.
+// a16 and K8 / K11 (w8a8_gemm_kernel with a 4-bit decoder, runs of
+// 128-row chunks) for a8.
 template <int BITS, bool A8, bool AWQ>
 int launch(const void* x, const float* xs, const void* qweight,
            const void* qzeros, const void* scales, void* out,
@@ -2814,27 +2888,17 @@ int launch(const void* x, const float* xs, const void* qweight,
     return streamed::launch<BITS, AWQ, A8>(x, xs, qweight, qzeros, scales,
                                            out, partial, m, K, N, gs,
                                            splits, block_m, stream);
-  if constexpr (!A8) {
+  if constexpr (A8) {
+    static_assert(BITS == 4, "W4A8 takes 4-bit codes");
+    return gemm::launch_w8a8<AWQ ? gemm::A8Dec::kAwq4
+                                 : gemm::A8Dec::kGptq4>(
+        x, xs, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
+        stream);
+  } else {
     return gemm::launch_gemm<BITS, AWQ ? gemm::Dec::kAwq
                                        : gemm::Dec::kGptq>(
         x, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
         stream);
-  } else {
-    const int G = K / gs;
-    const int gps = (G + splits - 1) / splits;
-    return launch_tiles<A8>(
-        [&](auto tl, dim3 grid, float* part) {
-          using TL = decltype(tl);
-          if constexpr (TL::BM == 128) {
-            quant_mma_kernel<TL, BITS, AWQ><<<grid, kThreads, 0, stream>>>(
-                static_cast<const typename TL::T*>(x), xs,
-                static_cast<const uint32_t*>(qweight),
-                static_cast<const uint32_t*>(qzeros),
-                static_cast<const __nv_bfloat16*>(scales),
-                static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, gps);
-          }
-        },
-        block_m, xs, out, partial, m, N, splits, stream);
   }
 }
 
@@ -2947,18 +3011,21 @@ extern "C" int quant_gemm_smem_bytes(int bits) {
                    : gemm::Cfg<4, gemm::Dec::kGptq>::kSmemBytes;
 }
 
-// Shared memory per block of the m > 64 kernel of K12-K17, by kernel
-// number: K12 (quant_gemm_kernel<4, kQ4k>), K13 (<8, kQ8>), K14 (<8,
-// kI8g>), K15 (w8a8_gemm_kernel), K16 on bf16 x (<4, kLut>: its dynamic
-// ring and 16 KB static codebook tile) and K17 (<8, kInt8>); 0 for any
-// other number. Every `Dec` of quant_gemm_kernel answers here or in
-// quant_gemm_smem_bytes.
+// Shared memory per block of the m > 64 kernel of K8 and K11-K17, by
+// kernel number: K8 (w8a8_gemm_kernel<kGptq4>), K11 (<kAwq4>), K12
+// (quant_gemm_kernel<4, kQ4k>), K13 (<8, kQ8>), K14 (<8, kI8g>), K15
+// (w8a8_gemm_kernel<kQs8>), K16 on bf16 x (<4, kLut>: its dynamic ring and
+// 16 KB static codebook tile) and K17 (<8, kInt8>); 0 for any other
+// number. Every `Dec` of quant_gemm_kernel answers here or in
+// quant_gemm_smem_bytes, every `A8Dec` of w8a8_gemm_kernel here.
 extern "C" int gguf_gemm_smem_bytes(int kernel) {
   switch (kernel) {
+    case 8: return gemm::W8Cfg<gemm::A8Dec::kGptq4>::kSmemBytes;
+    case 11: return gemm::W8Cfg<gemm::A8Dec::kAwq4>::kSmemBytes;
     case 12: return gemm::Cfg<4, gemm::Dec::kQ4k>::kBlockSmemBytes;
     case 13: return gemm::Cfg<8, gemm::Dec::kQ8>::kBlockSmemBytes;
     case 14: return gemm::Cfg<8, gemm::Dec::kI8g>::kBlockSmemBytes;
-    case 15: return gemm::kW8SmemBytes;
+    case 15: return gemm::W8Cfg<gemm::A8Dec::kQs8>::kSmemBytes;
     case 16: return gemm::Cfg<4, gemm::Dec::kLut>::kBlockSmemBytes;
     case 17: return gemm::Cfg<8, gemm::Dec::kInt8>::kBlockSmemBytes;
     default: return 0;
@@ -2984,8 +3051,9 @@ extern "C" int gptq_mm_a16(const void* x, const void* qweight,
 }
 
 // y[m, N] = bf16(xs[m] * sum_g s[g] * (x8[m, g] . (q - z)[g])), x8 int8
-// from quant8, 4-bit codes. block_m 128 is K8; 8, 16, 32 and 64 the a8
-// arm of K7.
+// from quant8, 4-bit codes. block_m 128 is K8 (w8a8_gemm_kernel<kGptq4>,
+// `splits` runs of 128-row chunks, then split_reduce_kernel); 8, 16, 32
+// and 64 the a8 arm of K7.
 extern "C" int gptq_mm_a8(const void* x8, const float* xs,
                           const void* qweight, const void* qzeros,
                           const void* scales, void* out, float* partial,
@@ -3009,8 +3077,8 @@ extern "C" int awq_mm_a16(const void* x, const void* qweight,
 }
 
 // AWQ layout, y[m, N] = bf16(xs[m] * sum_g s[g] * (x8[m, g] . (q - z)[g])),
-// x8 int8 from quant8. block_m 128 is K11; 8, 16, 32 and 64 the a8 arm of
-// K7's AWQ layout.
+// x8 int8 from quant8. block_m 128 is K11 (w8a8_gemm_kernel<kAwq4>, as
+// K8); 8, 16, 32 and 64 the a8 arm of K7's AWQ layout.
 extern "C" int awq_mm_a8(const void* x8, const float* xs,
                          const void* qweight, const void* qzeros,
                          const void* scales, void* out, float* partial,
@@ -3060,16 +3128,17 @@ extern "C" int gguf_i8g_mm(const void* x, const void* qs, const void* d16,
 
 // K15: y[m, N] = bf16(xs[m] * sum_g s128[g] * (x8[m, g] . qs8[g])), x8
 // int8 rows from quant8, 128-row groups. block_m 128 is w8a8_gemm_kernel
-// (`splits` runs of groups, then split_reduce_kernel); 16, 32 and 64 the
-// skinny tiles.
+// (kQs8, `splits` runs of groups, then split_reduce_kernel); 16, 32 and 64
+// the skinny tiles.
 extern "C" int gguf_w8a8_mm(const void* x8, const float* xs, const void* qs8,
                             const void* s128, void* out, float* partial,
                             int m, int K, int N, int splits, int block_m,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (block_m == 128)
-    return gemm::launch_w8a8(x8, xs, qs8, s128, out, partial, m, K, N,
-                             splits, st);
+    return gemm::launch_w8a8<gemm::A8Dec::kQs8>(
+        x8, xs, qs8, nullptr, s128, out, partial, m, K, N, gemm::kW8Tile,
+        splits, st);
   return launch_int8<128, true>(x8, xs, qs8, s128, out, partial, m, K, N,
                                 splits, block_m, st);
 }

@@ -15,12 +15,16 @@ Port of the GPTQ, AWQ and GGUF parts of
   kernel's a8 arm (K7) at m <= 64, else K8 (Pallas `_gptq_a8_kernel`
   and `_gptq_a8_deferred_kernel`; the two bodies differ only in f32
   summation order and one kernel computes both, so `deferred` is
-  accepted and has no effect).
+  accepted and has no effect): K15's `w8a8_gemm_kernel` (s8 warpgroup
+  MMA, 128 x 128 tiles, a per-group fold) with a 4-bit decoder, each
+  group cut into 128-row chunks and split over runs of chunks where the
+  tiles fall short of the SMs (`a8_gemm_plan`).
 - `awq_matmul` (W4A16, AWQ layout): K7's AWQ layout at m <= 64, else
   K10 (Pallas `_awq_kernel`; K6's kernel and plan in the AWQ layout).
 - `awq_matmul_a8` (W4A8, AWQ layout): K9, then K7's AWQ a8 arm at
   m <= 64, else K11 (Pallas `_awq_a8_kernel` and
-  `_awq_a8_deferred_kernel`, again one kernel for both bodies).
+  `_awq_a8_deferred_kernel`, again one kernel for both bodies): K8's
+  kernel and plan with a nibble-transposing decoder.
 - `quantize_activations_int8` (K9, Pallas `_quant8_kernel`): per-row
   xs = max(absmax, 1e-8) / 127 and x8 = clip(round(x / xs), -127, 127),
   rounding half to even.
@@ -124,13 +128,15 @@ INT8_MATMUL_LAUNCHES = build.launch_counter("int8_matmul")
 #: m <= 64; K16 on f32 x counts every m on its own).
 SQUEEZELLM_GEMM_LAUNCHES = build.launch_counter("squeezellm_gemm")
 INT8_GEMM_LAUNCHES = build.launch_counter("int8_gemm")
-#: The reduce after a split K6, K10 or K12-K17 launch (`gemm_plan`).
+#: The reduce after a split K6, K8, K10 or K11-K17 launch (`gemm_plan`,
+#: `a8_gemm_plan`).
 QUANT_GEMM_REDUCE_LAUNCHES = build.launch_counter("quant_gemm_split_reduce")
 
 STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
 BLOCK_N = 128              # output columns per block
 GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K12-K14 / K16 / K17
-W8A8_BLOCK_N = 128         # K15's at m > 64: 128 x 128
+W8A8_BLOCK_N = 128         # K8's, K11's and K15's at m > 64: 128 x 128
+A8_CHUNK = 128             # their k rows a chunk
 _BLOCKS_PER_SM = 4         # split-K target: this many blocks per SM
 STREAM_BLOCK_N = 128       # K7's output columns per block (8 warps x 16)
 _STREAM_X_BYTES = 65536    # K7's resident x per block, at most
@@ -470,6 +476,19 @@ def gemm_plan(m: int, K: int, N: int, gs: int, sms: int,
     return -(-groups // per), per
 
 
+def a8_gemm_plan(m: int, K: int, N: int, gs: int, sms: int
+                 ) -> Tuple[int, int]:
+    """(splits, chunks per split) of K8 / K11 (`w8a8_gemm_kernel` with a
+    4-bit decoder): `gemm_plan` with 128 x 128 tiles over chunks of 128
+    rows, each group of gs rows cut into ceil(gs / 128) of them (the last
+    one short where 128 does not divide gs). A split is a run of whole
+    chunks and may start and end inside a group (the group's scale is
+    constant over it), so one group of K rows still splits."""
+    chunks = K // gs * -(-gs // A8_CHUNK)
+    return gemm_plan(m, chunks * A8_CHUNK, N, A8_CHUNK, sms,
+                     block_n=W8A8_BLOCK_N)
+
+
 def _tiling(m: int, K: int, N: int, gs: int, stream: bool, sms: int
             ) -> Tuple[int, int]:
     """(block_m, splits) of the launchers that tile 128 columns, on a
@@ -544,11 +563,12 @@ def stream_plan(m: int, K: int, N: int, gs: int, sms: int, bits: int = 4,
 def _plan(m: int, K: int, N: int, gs: int, stream: bool, a8: bool,
           bits: int, sms: int) -> Tuple[int, int]:
     """(block_m, splits) of a GPTQ / AWQ launch: K7 (`stream_plan`) when
-    streamed, else 128 rows, split by `gemm_plan` (K6 / K10) or not at
-    all (K8 / K11)."""
+    streamed, else 128 rows, split by `gemm_plan` (K6 / K10) or
+    `a8_gemm_plan` (K8 / K11)."""
     if stream:
         return stream_plan(m, K, N, gs, sms, bits, a8)
-    return GEMM_BLOCK_M, 1 if a8 else gemm_plan(m, K, N, gs, sms)[0]
+    plan = a8_gemm_plan if a8 else gemm_plan
+    return GEMM_BLOCK_M, plan(m, K, N, gs, sms)[0]
 
 
 def _launch(a8: bool, x, xs, qweight, qzeros, scales, *, bits: int,
@@ -558,7 +578,6 @@ def _launch(a8: bool, x, xs, qweight, qzeros, scales, *, bits: int,
     a8 entry point; x is int8 rows with their scales xs for a8."""
     m, K = x.shape
     N = scales.shape[1]
-    gemm = not (a8 or stream)          # K6 / K10
     block_m, splits = _plan(m, K, N, gs, stream, a8, bits,
                             build.sm_count(x.device))
     out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
@@ -575,7 +594,7 @@ def _launch(a8: bool, x, xs, qweight, qzeros, scales, *, bits: int,
                 len(ptrs), len(tail))
     err = fn(*ptrs, *tail, build.stream_of(x))
     counter.add()
-    if gemm and splits > 1:
+    if not stream and splits > 1:      # K6, K8, K10, K11 split
         QUANT_GEMM_REDUCE_LAUNCHES.add()
     build.check(err, f"{what} (streamed)" if stream else what)
     return out
@@ -602,10 +621,10 @@ def gemm_smem_bytes(bits: int) -> int:
 
 
 def gguf_gemm_smem_bytes(kernel: int) -> int:
-    """The shared memory per block of the m > 64 kernel of K12-K17
-    (`kernel`, the number): its launcher's dynamic request, plus K16's
-    static 16 KB codebook tile."""
-    if kernel not in (12, 13, 14, 15, 16, 17):
+    """The shared memory per block of the m > 64 kernel of K8 and
+    K11-K17 (`kernel`, the number): its launcher's dynamic request, plus
+    K16's static 16 KB codebook tile."""
+    if kernel not in (8, 11, 12, 13, 14, 15, 16, 17):
         raise ValueError(f"no m > 64 kernel K{kernel}")
     fn = build.library("quant_matmul").gguf_gemm_smem_bytes
     fn.argtypes = [ctypes.c_int]

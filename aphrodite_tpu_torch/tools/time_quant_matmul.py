@@ -5,7 +5,8 @@ flushed, the stream held by a device spin until the call is enqueued, so
 the wrapper's host time stays out; median of 20).
 
     python3 aphrodite_tpu_torch/tools/time_quant_matmul.py \\
-        [--kernels K6,K7,K10,K12,K13,K14,K15,K16,K17] [--ptxas] [TREE ...]
+        [--kernels K6,K7,K8,K10,K11,K12,K13,K14,K15,K16,K17] [--ptxas] \
+        [TREE ...]
 
 Each TREE (default: this checkout) is a checkout of the repository, for
 example an earlier commit unpacked with `git archive` into a directory
@@ -24,6 +25,10 @@ inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096
 - K6 and K10: `gptq_matmul` and `awq_matmul` with `stream=False` on
   this checkout's `chip_smoke.quant_weights` (4-bit codes in groups of
   128) and bf16 x from a seed;
+- K8 and K11: the GPTQ and AWQ W4A8 matmul alone on K9's rows of the
+  same x (the launch `gptq_matmul_a8` and `awq_matmul_a8` make after K9,
+  `stream=False`) on the same weights; beside them `torch._int_mm` on
+  the same int8 shapes, as for K15;
 - K12, K16 and K17: `gguf_q4k_matmul`, `squeezellm_matmul` on bf16 x
   and `int8_matmul` on `chip_smoke.late_weights` (random Q4_K codes, dl
   and ml rows per 32 rows; random 4-bit codes with an N(0, 0.02) bf16
@@ -37,6 +42,12 @@ inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096
   order, copied before the timing), a floor for int8 tensor-core
   throughput on this card (no group scales: no yardstick of the same
   function).
+- W4A8: not a kernel but the e2e prompt round those two serve, GPTQ
+  and AWQ with APHRODITE_W4A8=1: chip_smoke's phase 9 and 11 engine
+  (Mistral-7B width, dummy weights, this checkout's
+  `chip_smoke.quant_model_dir`) on the tree's package, one round of 4 x
+  512 tokens under torch.profiler (`chip_smoke.profile_prompt_round`):
+  {"tree", "kernel", "device_ms", "quant_ms"}.
 Beside K12, K13, K14, K16 and K17, `torch.matmul` over the same weight
 dequantized to bf16 beforehand, K17's column scales folded in (the
 library yardstick of chip_smoke's phases 13 and 16). `--kernels` picks some of them (default: K6, K10,
@@ -70,7 +81,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 MS = (72, 128, 512, 4096)
 K7_MS = (1, 8, 16, 32, 64)
 K7_ARMS = ("gptq", "gptq8", "gptq_gK", "gptq_a8", "awq", "awq_a8")
-KERNELS = ("K6", "K7", "K10", "K12", "K13", "K14", "K15", "K16", "K17")
+KERNELS = ("K6", "K7", "K8", "K10", "K11", "K12", "K13", "K14", "K15",
+           "K16", "K17", "W4A8")
 LATE = {"K12": "gguf_q4k_matmul", "K16": "squeezellm_matmul",
         "K17": "int8_matmul"}
 DEFAULT = ("K6", "K10", "K14", "K15")
@@ -190,6 +202,33 @@ def time_k7(tree: str, torch, qmm, smoke, timer) -> None:
                                   "m": m, "layer_ms": yard[m]}), flush=True)
 
 
+def time_prompt_rounds(tree: str, torch, smoke) -> None:
+    """The GPTQ and AWQ W4A8 prompt round (K9 + K8 or K11 at 2048 rows)
+    on chip_smoke's e2e engine, the tree's package serving it."""
+    import gc
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    os.environ["APHRODITE_W4A8"] = "1"
+    for awq in (False, True):
+        engine = AphroditeEngine.from_engine_args(EngineArgs(
+            model=smoke.quant_model_dir(awq), load_format="dummy",
+            dtype="bfloat16", seed=0, block_size=32, max_model_len=2048,
+            skip_tokenizer_init=True, disable_log_stats=True))
+        fmt = "AWQ" if awq else "GPTQ"
+        # quant_mma_kernel: K8 / K11 in trees before w8a8_gemm_kernel
+        # took them.
+        dev_ms, quant_ms = smoke.profile_prompt_round(
+            torch, engine, f"{tree} {fmt} W4A8 ",
+            smoke.QUANT_KERNEL_NAMES + ("quant_mma_kernel",))
+        print(json.dumps({"tree": tree, "kernel": f"{fmt} W4A8 prompt "
+                          "round", "device_ms": dev_ms,
+                          "quant_ms": quant_ms}), flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    os.environ.pop("APHRODITE_W4A8")
+
+
 def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_timer", os.path.join(HERE, "chip_smoke.py"))
@@ -214,6 +253,9 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
         if kernel == "K7":
             time_k7(tree, torch, qmm, smoke, timer)
             continue
+        if kernel == "W4A8":
+            time_prompt_rounds(tree, torch, smoke)
+            continue
         layer = dict.fromkeys(MS, 0.0)
         yard = dict.fromkeys(MS, 0.0)
         t_bytes = dict.fromkeys(MS, 0.0)       # the bound's two terms
@@ -228,6 +270,15 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
                     dict(bits=4, group_size=smoke.GPTQ_GS)
                 fn = qmm.awq_matmul if awq else qmm.gptq_matmul
                 w_bytes = smoke.weight_bytes(K, N, 4)
+            elif kernel in ("K8", "K11"):
+                awq = kernel == "K11"
+                w = smoke.quant_weights(torch, K, N, 4, 300 + seed, awq)
+                counter = qmm.AWQ_MATMUL_A8_LAUNCHES if awq else \
+                    qmm.GPTQ_MATMUL_A8_LAUNCHES
+                w_bytes = smoke.weight_bytes(K, N, 4)
+                # _int_mm's operand: int8 [K, N] in column-major order.
+                w_cm = torch.randint(-16, 15, (N, K), dtype=torch.int8,
+                                     device="cuda").t()
             elif kernel in LATE:
                 w, w16 = smoke.late_weights(torch, qmm, key, K, N,
                                             seed * 10 + len(key))
@@ -252,6 +303,13 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
                 ops = 2 * m * K * N
                 if kernel in ("K6", "K10"):
                     ms = timer(lambda: fn(x, *w, stream=False, **kw))
+                elif kernel in ("K8", "K11"):
+                    x8, xs = qmm.quantize_activations_int8(x)
+                    ms = timer(lambda: qmm._launch(
+                        True, x8, xs, *w, bits=4, gs=smoke.GPTQ_GS,
+                        stream=False, counter=counter, what=kernel,
+                        awq=awq))
+                    yard[m] += timer(lambda: torch._int_mm(x8, w_cm))
                 elif kernel == "K15":
                     x8, xs = qmm.quantize_activations_int8(x)
                     ms = timer(lambda: qmm.gguf_w8a8_launch(x8, xs, *w))
@@ -262,21 +320,22 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
                         "K14": "gguf_i8g_matmul"}[kernel])
                     ms = timer(lambda: fn(x, *w))
                     yard[m] += timer(lambda: torch.matmul(x, w16))
-                x_bytes = m * K + m * 4 if kernel == "K15" else m * K * 2
+                int8 = kernel in ("K8", "K11", "K15")
+                x_bytes = m * K + m * 4 if int8 else m * K * 2
                 t_bytes[m] += (x_bytes + w_bytes + m * N * 2) / \
                     smoke.HBM_BYTES_PER_S * 1e3
-                t_ops[m] += ops / (smoke.INT8_OPS_PER_S if kernel == "K15"
+                t_ops[m] += ops / (smoke.INT8_OPS_PER_S if int8
                                    else smoke.BF16_FLOPS_PER_S) * 1e3
                 layer[m] += ms
                 print(json.dumps({"tree": tree, "kernel": kernel, "m": m,
                                   "proj": proj, "ms": ms}), flush=True)
             del w, w16, x_all
-            if kernel == "K15":
+            if kernel in ("K8", "K11", "K15"):
                 del w_cm
             torch.cuda.empty_cache()
         emit(kernel, layer, {m: max(t_bytes[m], t_ops[m]) for m in MS})
-        if kernel == "K15":
-            emit("torch._int_mm on K15's int8 shapes", yard)
+        if kernel in ("K8", "K11", "K15"):
+            emit(f"torch._int_mm on {kernel}'s int8 shapes", yard)
         elif kernel != "K6" and kernel != "K10":
             emit(f"torch.matmul over {kernel}'s weight in bf16", yard)
 

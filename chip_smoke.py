@@ -12,7 +12,7 @@ Phases, in order; any failure exits non-zero:
    each source's `-Xptxas -v` report on one line, then K1's dynamic
    shared memory per block by page type and slot width, K6 / K10's
    (`quant_gemm_kernel`) at 4 and 8 bits, and that of the m > 64
-   kernels of K12-K15, K16 on bf16 x and K17.
+   kernels of K8, K11, K12-K15, K16 on bf16 x and K17.
 3. Kernels vs plain versions at the main path's shapes (Hq 32, Hkv 8,
    head_dim 128, bf16, 16- and 32-token pages):
    - paged decode attention, K1 (the ragged grid, called with the
@@ -86,7 +86,9 @@ Phases, in order; any failure exits non-zero:
    - K6 (W4A16 and W8A16) at m 72, 128, 512 and 4096 (72 and 128: decode
      batches above 64, where the plan splits the groups), with the plan
      (tile, splits) and the wrapper's host time per call logged, and K8
-     (W4A8) at m 512 and 4096;
+     (W4A8) at the same m with its plan (splits of 128-row chunks)
+     logged and a control that must miss the tolerance at each m: the
+     plain version with the zero rows shifted by one group;
    - K9 (per-row int8 quantization) at m 1, 8, 64, 512 and 4096: exact.
    Each check calls the wrapper the engine calls (`gptq_matmul`,
    `gptq_matmul_a8`, which runs K9 then the matmul) against its plain
@@ -108,19 +110,23 @@ Phases, in order; any failure exits non-zero:
    batch above 64). Counters are reset before and read after each run:
    the W4A8 runs must launch K9 with K8 and K7's a8 arm, the W4A16 runs
    K6 and K7, both K1, K2 and K4; the 96-request round's decode steps
-   must take K8 / K6, and in W4A16 K6's split reduce
-   (`quant_gemm_split_reduce`: batch 96 is one row tile). The launches
+   must take K8 / K6 and their split reduce (`quant_gemm_split_reduce`:
+   batch 96 is one row tile). The launches
    of every kernel are logged per path
    (bf16, GPTQ and AWQ arms); the kernel JSON gives their sum.
    Then a batch-8 GPTQ decode step under
    torch.profiler in each arm: wall and device time, and the quantized
-   matmuls' device time beside their weight-streaming bound. The GPTQ
-   engine is freed.
+   matmuls' device time beside their weight-streaming bound; and one
+   prompt round of 4 x 512 tokens (2048 rows: K8 or K6) under
+   torch.profiler: its device time and the quantized kernels' share.
+   The GPTQ engine is freed.
 10. AWQ kernels vs plain versions at the same four projections, group
    128, bf16 (the AWQ layout: qweight [K, N/8], 8 interleaved columns per
    word): K7's AWQ layout, a16 and a8 arms, at m 1, 8 and 64; K10 (a16)
    at m 72, 128, 512 and 4096 (plan and host time logged as for K6) and
-   K11 (a8) at m 512 and 4096. Each check calls the wrapper the
+   K11 (a8) at the same m, plan logged and two controls at each m: the
+   zero rows shifted by one group, and AWQ's column interleave undone
+   (the words read in natural column order). Each check calls the
    engine calls (`awq_matmul`, `awq_matmul_a8`) against its plain
    version, with phase 8's tolerance, and is timed as phase 8 times the
    GPTQ cases (library yardstick for K10/K7-a16: torch.matmul over the
@@ -130,9 +136,9 @@ Phases, in order; any failure exits non-zero:
    128, zero point, GEMM version; dummy weights from seed 0), W4A8
    (APHRODITE_W4A8=1) then W4A16: phase 4's request mix at multi_step 1,
    then the 96-request round. The W4A8 arm must launch K9 with K11 and
-   K7's AWQ a8 arm, the W4A16 arm K10 (its split reduce in the wide
-   round) and K7's AWQ layout, both K1, K2 and K4. A batch-8 decode
-   step is profiled in each arm as in phase 9.
+   K7's AWQ a8 arm, the W4A16 arm K10 and K7's AWQ layout (each with its
+   split reduce in the wide round), both K1, K2 and K4. A batch-8 decode
+   step and a prompt round are profiled in each arm as in phase 9.
 12. Seeded draws on the card: JAX's threefry keys, bits and uniforms
    (`modeling/layers/prng.py`) for 64 rows x vocab 32000 bit-equal to
    the same calls on the CPU, and the tokens drawn equal; one seeded
@@ -925,6 +931,32 @@ def check_close(torch, got, want, what):
     return err.max().item()
 
 
+def a8_gemm_controls(qmm, got, x, qw, qz, sc, awq: bool,
+                     label: str) -> str:
+    """K8's or K11's output `got` must miss the tolerance against wrong
+    plain versions: the zero rows shifted by one group and, for K11,
+    AWQ's column interleave undone (the words read as 8 columns in
+    natural order). Returns the log text."""
+    gs = GPTQ_GS
+    if awq:
+        bad = {"zeros shifted by one group": qmm.awq_matmul_a8_plain(
+            x, qw, qz.roll(1, 0), sc, group_size=gs),
+               "AWQ interleave undone": qmm._a8(
+            x, qmm.unpack_cols(qw, 4) -
+            qmm.unpack_cols(qz, 4).repeat_interleave(gs, dim=0), sc, gs)}
+    else:
+        bad = {"zeros shifted by one group": qmm.gptq_matmul_a8_plain(
+            x, qw, qz.roll(1, 0), sc, bits=4, group_size=gs)}
+    text = ""
+    for what, b in bad.items():
+        c_err = (got.float() - b.float()).abs()
+        if not bool((c_err > ATOL + RTOL * b.float().abs()).any()):
+            fail(f"{label}: the control ({what}) is within tolerance of "
+                 "the kernel")
+        text += f"; control ({what}) max err {c_err.max().item():.4f}"
+    return text
+
+
 def check_and_time_quant(torch, qmm, timer, awq: bool):
     """The quantized matmul kernels of one layout against their plain
     versions at the Mistral-7B projection shapes, each timed: GPTQ K6-K9
@@ -967,7 +999,7 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
                 [(big, m) for m in (72, 128, 512, 4096)]
             if bits == 4:
                 cases += [("k7a8", m) for m in K7_MS] + \
-                    [(big_a8, m) for m in (512, 4096)]
+                    [(big_a8, m) for m in (72, 128, 512, 4096)]
             for kern, m in cases:
                 x = x_all[:m]
                 stream = kern in ("k7", "k7a8")
@@ -1010,6 +1042,10 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
                     what = (f"; checked: {a8.__name__} (K9 + matmul, "
                             f"{timer(wrapper):.4f} ms) vs plain; timed as "
                             "kernel: the matmul alone on K9's rows")
+                    if kern == big_a8:
+                        what += a8_gemm_controls(
+                            qmm, got, x, qw, qz, sc, awq,
+                            f"{fmt} {kern} {proj} m={m}")
                 err = check_close(torch, got, plain(),
                                   f"{fmt} {kern} {proj} m={m} bits={bits}")
                 if stream:
@@ -1031,6 +1067,11 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
                                  "is within tolerance of the kernel")
                         what += (f"; control (zeros shifted by one group) "
                                  f"max err {c_err.max().item():.4f}")
+                if kern == big_a8:
+                    splits, per = qmm.a8_gemm_plan(
+                        m, K, N, GPTQ_GS, qmm.build.sm_count("cuda"))
+                    what += (f"; plan: 128 x 128 tiles, {splits} split(s) "
+                             f"of {per} chunks of 128 rows")
                 if kern == big:
                     # K6 / K10's plan, and the wrapper's host time per
                     # call: 50 calls enqueued back to back.
@@ -1930,7 +1971,7 @@ def run_sliding_window(torch, counters, card: str):
     return launches
 
 
-QUANT_KERNEL_NAMES = ("quant_mma_kernel", "int8_mma_kernel",
+QUANT_KERNEL_NAMES = ("quant_stream_kernel", "int8_mma_kernel",
                       "nib_mma_kernel", "split_reduce_kernel",
                       "quant8_kernel", "quant_gemm_kernel",
                       "w8a8_gemm_kernel")
@@ -1995,6 +2036,65 @@ def profile_decode(torch, engine, tag: str = "",
             f"(share {quant_ms / dev_ms:.3f}); weight-streaming bound "
             f"{quant_bound_ms:.3f} ms/step ({quant_ms / quant_bound_ms:.2f}"
             f"x)")
+
+
+def quant_model_dir(awq: bool) -> str:
+    """A model directory under build/ holding MISTRAL_7B's config.json
+    with a 4-bit quantization_config, group 128, for dummy weights:
+    GPTQ's (no act-order) or TheBloke/Mistral-7B-v0.1-AWQ's (zero point,
+    GEMM version)."""
+    quant = {"quant_method": "awq", "bits": 4, "group_size": GPTQ_GS,
+             "zero_point": True, "version": "gemm"} if awq else \
+        {"quant_method": "gptq", "bits": 4, "group_size": GPTQ_GS,
+         "desc_act": False, "sym": False}
+    path = os.path.join(HERE, "build",
+                        f"chip_smoke_{'awq' if awq else 'gptq'}_model")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(MISTRAL_7B, quantization_config=quant), f)
+    return path
+
+
+def profile_prompt_round(torch, engine, tag: str = "",
+                         names=QUANT_KERNEL_NAMES):
+    """One prompt round at the e2e geometry under torch.profiler: 4
+    prompts of 512 tokens (2048 rows, the scheduler's token budget at
+    max_model_len 2048), one output token each, after one such round
+    unprofiled to warm up. Logs the round's device kernel time and the
+    quantized kernels' (K9, the matmuls, the split reduce: the kernels
+    `names` match) and returns both in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    engine.scheduler_config.multi_step = 1
+    sp = SamplingParams(temperature=0.0, max_tokens=1, ignore_eos=True)
+
+    def prompt_round(salt: int) -> int:
+        for i in range(4):
+            engine.add_request(f"{tag}round-{salt}-{i}", None, sp,
+                               prompt_token_ids=[
+                                   (j * 37 + i * 11 + salt) % 31000 + 100
+                                   for j in range(512)])
+        steps = 0
+        while engine.has_unfinished_requests():
+            engine.step()
+            steps += 1
+        torch.cuda.synchronize()
+        return steps
+    prompt_round(0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps = prompt_round(1)
+    rows = [(ev.self_device_time_total, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    dev_ms = sum(us for us, _ in rows) / 1e3
+    quant_ms = sum(us for us, k in rows if any(n in k for n in names)) \
+        / 1e3
+    log(f"{tag}prompt round, 4 x 512 tokens at Mistral-7B width: {steps} "
+        f"engine step(s), device kernels {dev_ms:.3f} ms, quantized "
+        f"kernels {quant_ms:.3f} ms (share {quant_ms / dev_ms:.3f})")
+    return dev_ms, quant_ms
 
 
 def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
@@ -2113,6 +2213,8 @@ def main() -> int:
     log("K6 / K10 (quant_gemm_kernel: 128 x 256 tiles, 288 threads) dynamic "
         "shared memory per block: " + " / ".join(
             f"{qmm.gemm_smem_bytes(bits)} B at {bits} bits" for bits in (4, 8))
+        + f"; K8 / K11 (w8a8_gemm_kernel<kGptq4 / kAwq4>) "
+        f"{qmm.gguf_gemm_smem_bytes(8)} / {qmm.gguf_gemm_smem_bytes(11)} B"
         + f"; at m > 64 K12 (quant_gemm_kernel<4, kQ4k>) "
         f"{qmm.gguf_gemm_smem_bytes(12)} B, K13 (<8, kQ8>) "
         f"{qmm.gguf_gemm_smem_bytes(13)} B, K14 (<8, kI8g>) "
@@ -2263,12 +2365,7 @@ def main() -> int:
     gptq = check_and_time_quant(torch, qmm, timer, awq=False)
 
     # 9. End to end with GPTQ, W4A8 then W4A16.
-    gptq_dir = os.path.join(HERE, "build", "chip_smoke_gptq_model")
-    os.makedirs(gptq_dir, exist_ok=True)
-    with open(os.path.join(gptq_dir, "config.json"), "w") as f:
-        json.dump(dict(MISTRAL_7B, quantization_config={
-            "quant_method": "gptq", "bits": 4, "group_size": GPTQ_GS,
-            "desc_act": False, "sym": False}), f)
+    gptq_dir = quant_model_dir(awq=False)
     t0 = time.perf_counter()
     engine = AphroditeEngine.from_engine_args(EngineArgs(
         model=gptq_dir, load_format="dummy", dtype="bfloat16", seed=0,
@@ -2286,7 +2383,8 @@ def main() -> int:
     # The wide round has page-aligned prompts only (no slot writer) and
     # no batch at or below 64 (no skinny kernel).
     for arm, flag, required, wide, decode in (
-            ("W4A8", "1", W4A8_KERNELS, ("quantize_activations_int8",),
+            ("W4A8", "1", W4A8_KERNELS, ("quantize_activations_int8",
+                                          "quant_gemm_split_reduce"),
              "gptq_matmul_a8"),
             ("W4A16", "0", W4A16_KERNELS, ("quant_gemm_split_reduce",),
              "gptq_matmul")):
@@ -2303,6 +2401,7 @@ def main() -> int:
                 by_path[tag.strip()][name] = \
                     by_path[tag.strip()].get(name, 0) + n
         profile_decode(torch, engine, tag, quant_bound_ms=step_bound_ms)
+        profile_prompt_round(torch, engine, tag)
     os.environ.pop("APHRODITE_W4A8")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"GPTQ e2e peak memory {peak:.2f} GiB on {smi}")
@@ -2314,12 +2413,7 @@ def main() -> int:
 
     # 11. End to end with AWQ (TheBloke/Mistral-7B-v0.1-AWQ's
     # quant_config), W4A8 then W4A16.
-    awq_dir = os.path.join(HERE, "build", "chip_smoke_awq_model")
-    os.makedirs(awq_dir, exist_ok=True)
-    with open(os.path.join(awq_dir, "config.json"), "w") as f:
-        json.dump(dict(MISTRAL_7B, quantization_config={
-            "quant_method": "awq", "bits": 4, "group_size": GPTQ_GS,
-            "zero_point": True, "version": "gemm"}), f)
+    awq_dir = quant_model_dir(awq=True)
     t0 = time.perf_counter()
     engine = AphroditeEngine.from_engine_args(EngineArgs(
         model=awq_dir, load_format="dummy", dtype="bfloat16", seed=0,
@@ -2332,7 +2426,8 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     torch.cuda.reset_peak_memory_stats()
     for arm, flag, required, wide, decode in (
-            ("W4A8", "1", AWQ_A8_KERNELS, ("quantize_activations_int8",),
+            ("W4A8", "1", AWQ_A8_KERNELS, ("quantize_activations_int8",
+                                            "quant_gemm_split_reduce"),
              "awq_matmul_a8"),
             ("W4A16", "0", AWQ_A16_KERNELS, ("quant_gemm_split_reduce",),
              "awq_matmul")):
@@ -2350,6 +2445,7 @@ def main() -> int:
                 by_path[tag.strip()][name] = \
                     by_path[tag.strip()].get(name, 0) + n
         profile_decode(torch, engine, tag, quant_bound_ms=step_bound_ms)
+        profile_prompt_round(torch, engine, tag)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"AWQ e2e peak memory {peak:.2f} GiB on {smi}")
 

@@ -15,9 +15,10 @@ which is 1.6e-2 at 2-4). The GPTQ
 and AWQ matmuls (bf16 outputs, f32 sums taken in another order): the
 same 2e-2 + 2e-2 |plain|, and so the GGUF matmuls (K13, K14 and K15,
 which sums exact int32 group dots in f32). int8 activation
-quantization: exactly equal. K15 at m > 64 folds each group in group
-order with one fma (the plain version rounds a product and a sum) and
-is held to the same tolerance. K12, K16 on bf16 and K17 (bf16 outputs of
+quantization: exactly equal. K15, K8 and K11 at m > 64 fold each group
+in group order with one fma (the plain version rounds a product and a
+sum; a split folds its part of a group) and are held to the same
+tolerance. K12, K16 on bf16 and K17 (bf16 outputs of
 f32 sums): 2e-2 + 2e-2 |plain|; their m > 64 kernels also dequantize
 bit for bit (identity rows of x). K16 on f32 x: within 1e-4 of max
 |plain| (three bf16 products per term keep about 16 mantissa bits of
@@ -392,11 +393,13 @@ _PROJ = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 _GEMM_M = (65, 96, 128, 129, 257, 1000, 4096)
 
 
-def _reduces(m, K, N, gs, stream, dev):
-    """The split reduces one K6 / K10 launch adds (none when streamed)."""
+def _reduces(m, K, N, gs, stream, dev, a8=False):
+    """The split reduces one K6 / K10 (or, with `a8`, K8 / K11) launch
+    adds (none when streamed)."""
     if stream:
         return 0
-    return int(tqm.gemm_plan(m, K, N, gs, tqm.build.sm_count(dev))[0] > 1)
+    plan = tqm.a8_gemm_plan if a8 else tqm.gemm_plan
+    return int(plan(m, K, N, gs, tqm.build.sm_count(dev))[0] > 1)
 
 
 @pytest.mark.parametrize("m,K,N,bits,gs,stream", [
@@ -495,22 +498,110 @@ def test_gemm_control_misses_the_tolerance(dev, awq, m):
     assert _misses(got, bad)
 
 
-@pytest.mark.parametrize("m,K,N,stream", [
-    (1, 4096, 6144, True), (8, 14336, 4096, True), (64, 4096, 4096, True),
-    (65, 4096, 4096, False), (300, 2048, 2048, False),
+@pytest.mark.parametrize("m,K,N,gs,stream", [
+    (1, 4096, 6144, 128, True), (8, 14336, 4096, 128, True),
+    (64, 4096, 4096, 128, True),
+    (65, 4096, 4096, 128, False), (300, 2048, 2048, 128, False),
+    (8, 1024, 512, 128, False),           # m 8 unstreamed: one row tile
+] + [(m, K, N, 128, False) for m in (72, 128, 129, 4096)
+     for K, N in _PROJ] + [
+    (72, 4096, 4096, 1024, False), (1000, 14336, 4096, 1024, False),
+    (72, 4096, 6144, -1, False),          # one group of K rows, split
+    (129, 14336, 4096, -1, False), (4096, 4096, 4096, -1, False),
+    (130, 3200, 4096, 200, False),        # groups of 200: 128 + 72 rows
+    (513, 4080, 1152, 136, False),        # groups of 136: x8 by the consumers
+    (77, 2048, 384, 128, False),          # N 384, N 1152: odd tile counts
+    (129, 1024, 1152, 256, False),
+    (96, 2048, 1024, 64, False),          # groups of 64: half chunks
 ])
-def test_gptq_matmul_a8_kernels_match_plain(dev, m, K, N, stream):
-    x, qw, qz, sc = _gptq_problem(dev, m, K, N)
+def test_gptq_matmul_a8_kernels_match_plain(dev, m, K, N, gs, stream):
+    """K7's a8 arm (streamed) and K8 (`w8a8_gemm_kernel` with the GPTQ
+    decoder) against the plain version within 2e-2 + 2e-2 |plain|: K9
+    and one matmul launch each, and K8's split reduce where
+    `a8_gemm_plan` splits (one group of K rows too)."""
+    x, qw, qz, sc = _gptq_problem(dev, m, K, N, gs=K if gs == -1 else gs)
     counter = tqm.GPTQ_MATMUL_STREAM_A8_LAUNCHES if stream \
         else tqm.GPTQ_MATMUL_A8_LAUNCHES
-    before = (counter.count, tqm.QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.count)
-    got = tqm.gptq_matmul_a8(x, qw, qz, sc, bits=4, group_size=128,
+    counts = lambda: (counter.count,
+                      tqm.QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.count,
+                      tqm.QUANT_GEMM_REDUCE_LAUNCHES.count)
+    before = counts()
+    got = tqm.gptq_matmul_a8(x, qw, qz, sc, bits=4, group_size=gs,
                              stream=stream)
-    want = tqm.gptq_matmul_a8_plain(x, qw, qz, sc, bits=4, group_size=128)
+    want = tqm.gptq_matmul_a8_plain(x, qw, qz, sc, bits=4, group_size=gs)
     torch.cuda.synchronize()
-    assert (counter.count, tqm.QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.count) \
-        == (before[0] + 1, before[1] + 1)
+    g = K if gs == -1 else gs
+    assert counts() == (before[0] + 1, before[1] + 1,
+                        before[2] + _reduces(m, K, N, g, stream, dev, True))
     _close(got, want)
+
+
+def _a8_gemm_call(dev, awq, m, K, N, gs=128, seed=0):
+    """x, (K9 + K8 or K11 wrapper), (the matmul alone on K9's rows x8,
+    xs), (plain of x, optionally other zeros) and the zeros."""
+    if awq:
+        x, qw, qz, sc = _awq_problem(dev, m, K, N, gs, seed=seed)
+        wrapper = lambda xx: tqm.awq_matmul_a8(xx, qw, qz, sc, group_size=gs,
+                                               stream=False)
+        plain = lambda xx, zz=qz: tqm.awq_matmul_a8_plain(
+            xx, qw, zz, sc, group_size=gs)
+        counter = tqm.AWQ_MATMUL_A8_LAUNCHES
+    else:
+        x, qw, qz, sc = _gptq_problem(dev, m, K, N, gs=gs, seed=seed)
+        wrapper = lambda xx: tqm.gptq_matmul_a8(xx, qw, qz, sc, bits=4,
+                                                group_size=gs, stream=False)
+        plain = lambda xx, zz=qz: tqm.gptq_matmul_a8_plain(
+            xx, qw, zz, sc, bits=4, group_size=gs)
+        counter = tqm.GPTQ_MATMUL_A8_LAUNCHES
+    launch = lambda x8, xs: tqm._launch(
+        True, x8, xs, qw, qz, sc, bits=4, gs=gs, stream=False,
+        counter=counter, what="a8 launch", awq=awq)
+    return x, wrapper, launch, plain, (qw, qz, sc)
+
+
+def _awq_natural_order_plain(x, qw, qz, sc, gs):
+    """The AWQ a8 plain version with AWQ's interleave undone: the words
+    read as 8 columns in natural order (column 8j + e at shift 4e)."""
+    codes = tqm.unpack_cols(qw, 4) - \
+        tqm.unpack_cols(qz, 4).repeat_interleave(gs, dim=0)
+    return tqm._a8(x, codes, sc, gs)
+
+
+@pytest.mark.parametrize("awq", [False, True])
+@pytest.mark.parametrize("m", [72, 300, 1000])
+def test_a8_gemm_controls_miss_the_tolerance(dev, awq, m):
+    """Wrong plain versions must miss `_close`'s tolerance against K8 /
+    K11: the zero rows shifted by one group and, for K11, AWQ's column
+    interleave undone; so a decoder, layout or fold fault that gives
+    plausible numbers cannot pass the checks above."""
+    x, wrapper, _, plain, (qw, qz, sc) = _a8_gemm_call(
+        dev, awq, m, 4096, 4096, seed=m)
+    got = wrapper(x)
+    bad = [plain(x, qz.roll(1, 0))]
+    if awq:
+        bad.append(_awq_natural_order_plain(x, qw, qz, sc, 128))
+    good = plain(x)
+    torch.cuda.synchronize()
+    _close(got, good)
+    for b in bad:
+        assert _misses(got, b)
+
+
+@pytest.mark.parametrize("awq", [False, True])
+@pytest.mark.parametrize("m", [72, 300])
+def test_a8_gemm_on_k9_rows_equals_the_wrapper(dev, awq, m):
+    """K8 / K11 launched alone on K9's rows (what chip_smoke and the
+    timing tool time) equals the wrapper's output; and on K9's rows as a
+    view one byte past an aligned start (the consumers store x8 where
+    TMA cannot) equals the aligned launch."""
+    x, wrapper, launch, _, _ = _a8_gemm_call(dev, awq, m, 4096, 6144)
+    x8, xs = tqm.quantize_activations_int8(x)
+    assert torch.equal(launch(x8, xs), wrapper(x))
+    buf = torch.empty(x8.numel() + 1, dtype=torch.int8, device=dev)
+    shifted = buf[1:].view_as(x8)
+    shifted.copy_(x8)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    assert torch.equal(launch(shifted, xs), launch(x8, xs))
 
 
 # K7 (quant_stream_kernel), its four arms at Mistral-7B's projections,
@@ -677,8 +768,7 @@ def test_awq_matmul_kernels_match_plain(dev, m, K, N, gs, stream, a8):
     want = plain(x, qw, qz, sc, group_size=gs)
     torch.cuda.synchronize()
     assert (counter.count, tqm.QUANT_GEMM_REDUCE_LAUNCHES.count) == \
-        (before[0] + 1,
-         before[1] + (0 if a8 else _reduces(m, K, N, gs, stream, dev)))
+        (before[0] + 1, before[1] + _reduces(m, K, N, gs, stream, dev, a8))
     _close(got, want)
 
 

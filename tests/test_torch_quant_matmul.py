@@ -547,6 +547,112 @@ def test_gguf_gemm_plan_splits_start_on_a_unit_and_fit_the_sms(kernel, sms):
                 (splits, per)
 
 
+# K8's and K11's plan (`a8_gemm_plan`): 128 x 128 tiles over 128-row
+# chunks, each group of gs rows cut into ceil(gs / 128) of them; gs K is
+# GPTQ's group_size -1. On 132 SMs (H100 SXM) and 114 (H100 PCIe).
+@pytest.mark.parametrize("m,K,N,gs,sms,want", [
+    (72, 4096, 4096, 128, 132, (4, 8)),      # 32 tiles: 4 splits of 8
+    (72, 4096, 6144, 128, 132, (2, 16)),
+    (72, 4096, 28672, 128, 132, (1, 32)),    # 224 tiles cover the SMs
+    (72, 14336, 4096, 128, 132, (4, 28)),
+    (72, 4096, 4096, 4096, 132, (4, 8)),     # one group, split as 128s
+    (72, 14336, 4096, 14336, 132, (4, 28)),
+    (65, 4096, 4096, 1024, 132, (4, 8)),     # groups of 8 chunks
+    (96, 4096, 6144, 1024, 132, (2, 16)),
+    (128, 4096, 4096, 128, 132, (4, 8)),
+    (512, 4096, 4096, 128, 132, (1, 32)),    # 128 tiles
+    (512, 14336, 4096, 14336, 132, (1, 112)),
+    (4096, 4096, 28672, 128, 132, (1, 32)),
+    (130, 3200, 4096, 200, 132, (2, 16)),    # groups of 200: 2 chunks each
+    (72, 4096, 4096, 128, 114, (3, 11)),     # 3 wanted: runs of 11
+    (72, 14336, 4096, 14336, 114, (3, 38)),
+    (96, 4096, 6144, 128, 114, (2, 16)),
+    (512, 4096, 4096, 1024, 114, (1, 32)),
+])
+def test_a8_gemm_plan_table(m, K, N, gs, sms, want):
+    assert tqm.a8_gemm_plan(m, K, N, gs, sms) == want
+
+
+def _a8_chunk_walk(K, gs, per, split):
+    """`w8a8_gemm_kernel`'s chunk bookkeeping for one split of a K8 / K11
+    launch: [(group, first row, real rows, opens a fold unit)] for each of
+    its chunks, as the kernel's `chunk` and `opens` compute them (a new
+    s32 set where a group starts, and every 64 chunks of a longer
+    group)."""
+    cpg = -(-gs // 128)
+    chunks = K // gs * cpg
+    c_begin = split * per
+    walk = []
+    for t in range(max(0, min(chunks, c_begin + per) - c_begin)):
+        c = c_begin + t
+        g = c // cpg
+        r = (c - g * cpg) * 128
+        walk.append((g, g * gs + r, min(128, gs - r),
+                     t == 0 or c % cpg % 64 == 0))
+    return walk
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_a8_gemm_plan_splits_start_on_a_chunk_and_fold_each_group(sms):
+    """At m 65-4096, Mistral-7B's four projections and groups of 128,
+    1024 and K rows (group_size -1): every split starts on a 128-row
+    chunk and none is empty; where the plan splits, tiles x splits stays
+    within the SMs; one group of K rows splits at m 72; the plan depends
+    on shapes and the SM count alone. The kernel's chunk walk over those
+    splits takes each row of K once, in its own group, and a split folds
+    each group it touches in group order: once, or (groups past 8192
+    rows) once per run of at most 8192 of its rows, so that every dot
+    stays below 2^24 (|dot| <= 8192 * 127 * 16), where its conversion to
+    f32 is exact."""
+    for m in (65, 72, 96, 128, 512, 4096):
+        for K, N in ((4096, 6144), (4096, 4096), (4096, 28672),
+                     (14336, 4096)):
+            for gs in (128, 1024, K):
+                splits, per = tqm.a8_gemm_plan(m, K, N, gs, sms)
+                chunks = K // gs * -(-gs // 128)
+                assert (splits - 1) * per < chunks <= splits * per
+                tiles = -(-m // 128) * (N // 128)
+                assert splits == 1 or tiles * splits <= sms
+                if gs == K and m == 72 and N == 4096:
+                    assert splits > 1
+                assert tqm.a8_gemm_plan(m, K, N, gs, sms) == (splits, per)
+                rows = []
+                for split in range(splits):
+                    walk = _a8_chunk_walk(K, gs, per, split)
+                    assert walk and walk[0][1] % 128 == 0
+                    units = []                # [(group, rows)] per fold
+                    for g, _, kn, opens in walk:
+                        if opens:
+                            units.append([g, 0])
+                        assert units[-1][0] == g
+                        units[-1][1] += kn
+                    groups = [g for g, _ in units]
+                    assert groups == sorted(groups)
+                    assert all(n <= 8192 for _, n in units)
+                    if gs <= 8192:
+                        assert len(set(groups)) == len(groups)
+                    assert 8192 * 127 * 16 < 2 ** 24
+                    for g, k0, kn, _ in walk:
+                        assert 0 < kn <= 128
+                        assert all(k // gs == g for k in (k0, k0 + kn - 1))
+                        rows.extend(range(k0, k0 + kn))
+                assert rows == list(range(K))
+
+
+def test_a8_gemm_walk_cuts_odd_groups_into_short_chunks():
+    """Groups of 200 (AWQ's K 3200) and 136 rows: a group's last chunk is
+    short (72 and 8 rows real), every row once in its group."""
+    for K, gs in ((3200, 200), (4080, 136)):
+        for m in (72, 130, 513):
+            splits, per = tqm.a8_gemm_plan(m, K, 4096, gs, 132)
+            walk = [w for s in range(splits)
+                    for w in _a8_chunk_walk(K, gs, per, s)]
+            assert [kn for _, _, kn, _ in walk] == \
+                [128, gs - 128] * (K // gs)
+            assert [k for _, k0, kn, _ in walk
+                    for k in range(k0, k0 + kn)] == list(range(K))
+
+
 def _tiling_at_132(m, K, N, gs):
     """The skinny tiles' plan as it was with the SM count fixed at 132
     (H100 SXM): least of 16/32/64 rows, splits toward 4 blocks per SM."""
@@ -1034,6 +1140,177 @@ def test_k7_awq_word_loads_are_conflict_free(row_words):
                                         2 * warp + (gid >> 2), row_words))
                 assert len(addrs) == 8
                 assert len({a % 32 for a in addrs}) == 8
+
+
+# ---- K8, K11, K15 at m > 64 (csrc/quant_matmul.cu w8a8_gemm_kernel) ----
+#
+# The decoders turn one chunk of 128 k rows of the weight, as the TMA ring
+# stage holds it, into the K-major swizzled s8 tile wgmma reads (column
+# n's 128 k bytes in row n, 16-byte piece c at n * 128 + (c ^ n % 8) *
+# 16). Emulated thread by thread with the kernel's own bit operations.
+
+
+def _swz(r, c):
+    return r * 128 + ((c ^ (r & 7)) << 4)
+
+
+def _pick2(j0, j1):
+    return j0 | (4 + j0) << 4 | j1 << 8 | (4 + j1) << 12
+
+
+def _prmt_each(x, y, sel):
+    """__byte_perm with a selector per element."""
+    x, y, sel = np.broadcast_arrays(np.asarray(x, np.uint64),
+                                    np.asarray(y, np.uint64),
+                                    np.asarray(sel, np.uint64))
+    src = np.stack([(x >> np.uint64(8 * i)) & np.uint64(0xFF)
+                    for i in range(4)] +
+                   [(y >> np.uint64(8 * i)) & np.uint64(0xFF)
+                    for i in range(4)])
+    out = np.zeros(x.shape, np.uint64)
+    for i in range(4):
+        idx = ((sel >> np.uint64(4 * i)) & np.uint64(7)).astype(np.int64)
+        out |= np.take_along_axis(src, idx[None], 0)[0] << np.uint64(8 * i)
+    return out
+
+
+def _transpose4(a, b, c, d, sel01, sel23):
+    t0, t1 = _prmt_each(a, b, sel01), _prmt_each(a, b, sel23)
+    t2, t3 = _prmt_each(c, d, sel01), _prmt_each(c, d, sel23)
+    return [_prmt_each(t0, t2, 0x5410), _prmt_each(t0, t2, 0x7632),
+            _prmt_each(t1, t3, 0x5410), _prmt_each(t1, t3, 0x7632)]
+
+
+def _w8_decode(kind, stage, zrow, kn):
+    """Every consumer thread's stores of one chunk, one entry a store
+    (s of 4): (byte offsets [256], the 16 bytes [256, 16]), threads in
+    order."""
+    tid = np.arange(256)
+    stores = []
+
+    def piece(words):
+        return np.stack([(w >> np.uint64(8 * b)) & np.uint64(0xFF)
+                         for w in words for b in range(4)], 1)
+    if kind == "gptq":
+        n, c0 = tid & 127, (tid >> 7) * 4
+        zz = (((zrow[n >> 3] >> (4 * (n & 7)).astype(np.uint64)) &
+               np.uint64(0xF)) + np.uint64(1)) * np.uint64(0x01010101)
+        for i in range(4):
+            c = c0 + i
+            o = []
+            for h in range(2):
+                w = stage[(2 * c + h) * 128 + n]
+                lo, hi = _s8_codes(w, zz), _s8_codes(w >> np.uint64(4), zz)
+                real = 16 * c + 8 * h < kn
+                o += [np.where(real, _prmt(lo, hi, 0x5140), 0),
+                      np.where(real, _prmt(lo, hi, 0x7362), 0)]
+            stores.append((_swz(n, c), piece(o)))
+        return stores
+    if kind == "awq":
+        c, j, sh = tid >> 5, (tid & 31) >> 1, 4 * (tid & 1)
+        rot = j & 3
+        zz = (zrow[j] >> sh.astype(np.uint64)) & np.uint64(0x0F0F0F0F)
+        rows = [[stage[(16 * c + 4 * i + r) * 16 + j] >> sh.astype(np.uint64)
+                 for r in range(4)] for i in range(4)]
+        vals = [[np.where(16 * c + 4 * i + r < kn, _s8_codes(w, zz), 0)
+                 for r, w in enumerate(ws)] for i, ws in enumerate(rows)]
+        n_of = lambda b: 8 * j + sh // 2 + (b >> 1) + 4 * (b & 1)
+    else:                                     # K15: qs8 [128 k][128 n]
+        c, q = tid >> 5, tid & 31
+        rot = (q >> 1) & 3
+        vals = [[stage[(16 * c + 4 * i + r) * 32 + q] for r in range(4)]
+                for i in range(4)]
+        n_of = lambda b: 4 * q + b
+    sel01 = _pick2(rot, (rot + 1) & 3)
+    sel23 = _pick2((rot + 2) & 3, (rot + 3) & 3)
+    o = [_transpose4(*v, sel01, sel23) for v in vals]    # o[i][s]
+    for s in range(4):
+        stores.append((_swz(n_of((s + rot) & 3), c),
+                       piece([o[i][s] for i in range(4)])))
+    return stores
+
+
+def _w8_problem(kind, gs, seed):
+    """K 2 gs x N 128 of random words and zeros, as the GPU tests make
+    them: the packed tensors (uint64 numpy) and the plain codes minus
+    zero [K, N] (`_codes` with the AutoGPTQ +1, `_awq_codes`), or K15's
+    int8 codes."""
+    rs = np.random.RandomState(seed)
+    K, N = 2 * gs, 128
+    if kind == "qs8":
+        qs = rs.randint(-127, 128, (K, N)).astype(np.int64)
+        return qs.astype(np.uint8).astype(np.uint64), None, qs
+    words = lambda *shape: rs.randint(0, 2 ** 32, shape, dtype=np.uint64)
+    qw = words(K, N // 8) if kind == "awq" else words(K // 8, N)
+    qz = words(2, N // 8)
+    t = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32))
+    codes = tqm._awq_codes(t(qw), t(qz), gs) if kind == "awq" else \
+        tqm._codes(t(qw), t(qz), 4, gs)
+    return qw, qz, codes.numpy()
+
+
+@pytest.mark.parametrize("kind,gs,chunk", [
+    ("gptq", 128, 1), ("awq", 128, 1), ("qs8", 128, 1),
+    ("gptq", 200, 1), ("awq", 200, 1),       # a group's short last chunk
+    ("gptq", 136, 2), ("awq", 200, 2),       # a chunk past the first group
+])
+def test_w8a8_decoders_fill_the_k_major_tile(kind, gs, chunk):
+    """Each decoder fills the K-major s8 tile of one chunk (group
+    `chunk` // cpg, its chunk `chunk` % cpg) with exactly the plain
+    version's codes minus zero of its real rows and zero past them,
+    every byte stored once; the 8 lanes of every quarter warp store to 8
+    distinct 16-byte bank groups (AWQ and K15 by their rotation)."""
+    qw, qz, codes = _w8_problem(kind, gs, seed=gs + chunk)
+    K = codes.shape[0]
+    cpg = -(-gs // 128)
+    g = chunk // cpg
+    r0 = (chunk % cpg) * 128
+    k0, kn = g * gs + r0, min(128, gs - r0)
+    # The ring stage as TMA fills it (rows past K read as zero).
+    if kind == "gptq":
+        rows = np.zeros((16, 128), np.uint64)
+        src = qw[k0 // 8:k0 // 8 + 16]
+    elif kind == "awq":
+        rows = np.zeros((128, 16), np.uint64)
+        src = qw[k0:k0 + 128]
+    else:
+        rows = np.zeros((128, 32), np.uint64)     # 4 bytes a word
+        b = qw[k0:k0 + 128]
+        src = sum(b[:, i::4] << np.uint64(8 * i) for i in range(4))
+    rows[:len(src)] = src
+    zrow = qz[g] if qz is not None else None
+    tile = np.full(128 * 128, -1, np.int64)
+    writes = np.zeros(128 * 128, np.int64)
+    for off, bytes16 in _w8_decode(kind, rows.reshape(-1), zrow, kn):
+        for lane0 in range(0, 256, 8):            # quarter warps
+            groups = (off[lane0:lane0 + 8] // 16) % 8
+            assert len(set(groups.tolist())) == 8, (kind, lane0)
+        for o, v in zip(off, bytes16):
+            tile[o:o + 16] = v.astype(np.uint8).view(np.int8)
+            writes[o:o + 16] += 1
+    assert (writes == 1).all()
+    want = np.zeros((128, 128), np.int64)         # [n, k]
+    want[:, :kn] = codes[k0:k0 + kn].T
+    got = np.array([[tile[_swz(n, k // 16) + k % 16] for k in range(128)]
+                    for n in range(128)])
+    np.testing.assert_array_equal(got, want)
+    if kind != "qs8":
+        assert got.min() >= (-16 if kind == "gptq" else -15)
+        assert got.max() <= (14 if kind == "gptq" else 15)
+
+
+def test_w8a8_awq_decoder_loads_hit_distinct_banks():
+    """K11's decoder reads its stage ([128 k][16 word columns]) one row a
+    load: a warp's 32 lanes read 16 distinct words (two lanes each, a
+    broadcast) in 16 distinct banks; K8's read one 128-word row, 32
+    banks."""
+    for c in range(8):
+        for i in range(16):
+            words = {(16 * c + i) * 16 + (lane >> 1) for lane in range(32)}
+            assert len(words) == 16 and len({w % 32 for w in words}) == 16
+    for row in range(16):
+        words = {row * 128 + n for n in range(32)}
+        assert len({w % 32 for w in words}) == 32
 
 
 # K7's plan (`stream_plan`) on 132 SMs at Mistral-7B's four projections.
