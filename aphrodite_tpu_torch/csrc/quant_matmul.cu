@@ -3,23 +3,24 @@
 //
 // Replaces the twelve Pallas TPU kernels of
 // aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6, K10 and, at
-// m > 64, K12, K13, K14, K16 on bf16 x and K17 are one templated kernel,
-// quant_gemm_kernel (warp-specialized wgmma, below), with a word decoder
-// each; K8, K11 and, at m > 64, K15 are one templated kernel,
+// m > 64, K12, K13, K14, K16 (bf16 and f32 x) and K17 are one templated
+// kernel, quant_gemm_kernel (warp-specialized wgmma, below), with a word
+// decoder each; K8, K11 and, at m > 64, K15 are one templated kernel,
 // w8a8_gemm_kernel (s8 wgmma and a per-group fold, below), with a decoder
-// each; K7 is quant_stream_kernel (a cp.async ring and W dequantized
-// straight into mma.sync fragments, below); K13-K15 and K17 at m <= 64
-// int8_mma_kernel; K12 and K16 on bf16 x at m <= 64 and K16 on f32 x
-// nib_mma_kernel. The last two share the block tile, the x staging, the
-// mma.sync fragments, the A8 group fold, the epilogue and the launcher
-// (Tile, stage_x, mma_chunk, fold_group, store_tile, launch_tiles) and
-// differ only in how they load the W words and write the W tile:
-//   _gguf_q4k_kernel (:1117)   -> nib_mma_kernel<Q4K> at m <= 64,
+// each; K7 and, at m <= 64, K12 and K16 (bf16 and f32 x) are one
+// templated kernel, quant_stream_kernel (a cp.async ring and W dequantized
+// straight into mma.sync fragments, below), with a decoder each; K13-K15
+// and K17 at m <= 64 are int8_mma_kernel (block tile, x staging, mma.sync
+// fragments, A8 group fold and epilogue: Tile, stage_x, mma_chunk,
+// fold_group, store_tile):
+//   _gguf_q4k_kernel (:1117)   -> quant_stream_kernel<4, kQ4k> at m <= 64,
 //                                 quant_gemm_kernel<4, kQ4k> above (K12,
 //                                 Q4_K exact)
-//   _sqllm_kernel (:1630)      -> nib_mma_kernel<LUT> at m <= 64,
+//   _sqllm_kernel (:1630)      -> quant_stream_kernel<4, kLut> at m <= 64,
 //                                 quant_gemm_kernel<4, kLut> above (K16,
-//                                 bf16 x), and nib_mma_kernel<LUT, X32>
+//                                 bf16 x); quant_stream_kernel<4,
+//                                 kLutX32> at m <= 64, split_x32_kernel
+//                                 then quant_gemm_kernel<4, kLutX32> above
 //                                 (K16, f32 x)
 //   _int8_kernel (:1706)       -> int8_mma_kernel<G 0> at m <= 64,
 //                                 quant_gemm_kernel<8, kInt8> above (K17,
@@ -34,8 +35,8 @@
 //                                 w8a8_gemm_kernel<kQs8> above (K15,
 //                                 W8A8)
 //   _kernel (:554)          -> quant_gemm_kernel<BITS, kGptq> (K6)
-//   _stream_kernel (:308)   -> quant_stream_kernel, 8-64 rows, split K,
-//                              GPTQ and AWQ layouts, a16 and a8 arms (K7)
+//   _stream_kernel (:308)   -> quant_stream_kernel<BITS, kGptq / kAwq>,
+//                              8-64 rows, split K, a16 and a8 arms (K7)
 //   _gptq_a8_kernel, _gptq_a8_deferred_kernel (:1274, :1311)
 //                           -> w8a8_gemm_kernel<kGptq4> (K8)
 //   _quant8_kernel (:781)   -> quant8_kernel (K9)
@@ -55,9 +56,10 @@
 //   Dequant: w[k, n] = (q[k, n] - z[g, n]) * s[g, n] (the zero as stored).
 //
 // What bounds them on an H100:
-// - K7 (m <= 64, every decode step): bytes. Each int4 weight is used by at
-//   most 64 rows; the least time is the packed weight read once over
-//   3.35 TB/s (8.8 us for down_proj at Mistral-7B width).
+// - K7, and K12 and K16 at m <= 64 (every decode step): bytes. Each int4
+//   weight is used by at most 64 rows; the least time is the packed
+//   weight read once over 3.35 TB/s (8.8 us for down_proj at Mistral-7B
+//   width).
 // - K6 / K10 (m > 64: prompt rounds, decode batches above 64): bf16
 //   operations at large m (989 TFLOP/s: 1.81 ms per Mistral-7B layer at
 //   m 4096), bytes below a few hundred rows. Inside the SM the limit is
@@ -106,7 +108,11 @@
 // row per 32 or 16 rows; K16 K12's words through a per-column codebook
 // held in shared memory for the whole block; K17 K13's bytes with no
 // rows, its f32 column scale in the epilogue), 64-row chunks as the
-// split unit and two W tiles.
+// split unit and two W tiles. K16 on f32 x (QuIP#) takes it on 128 x 128
+// tiles: a pass before it splits x into bf16 hi and lo rows, the loader
+// brings both x tiles, the codebook decoder writes a hi and a lo W tile,
+// and each k16 takes three wgmma products (x_lo w_hi + x_hi w_lo + x_hi
+// w_hi) into the f32 sums.
 // K8 / K11 / K15 (w8a8_gemm_kernel): K6's structure for int8 x, 128 x 128
 // tiles, s8 wgmma into exact int32 group dots folded into f32 in group
 // order; its decoders turn the weight's chunk into a K-major s8 tile
@@ -114,8 +120,9 @@
 // column's two words one 16-byte piece; K11's AWQ words get a nibble
 // transpose). The two TPU W4A8 bodies (classic and deferred rescale)
 // differ only in the f32 summation order; the one kernel computes both.
-// K7: see quant_stream_kernel below. The other mma.sync kernels
-// (int8_mma_kernel, nib_mma_kernel): a block owns BM rows x 128 columns
+// K7, K12 and K16 at m <= 64: see quant_stream_kernel below.
+// int8_mma_kernel (K13-K15, K17 at m <= 64): a block owns BM rows x 128
+// columns
 // of the output and walks its K range in 64-deep k chunks. For every
 // chunk the block stages x in shared memory and dequantizes the chunk of
 // W there (the packed words of the next chunk are already on their way
@@ -123,8 +130,8 @@
 // m16n8k16 with f32 sums (A16), or s8 m16n8k32 with exact int32 sums per
 // group and the f32 rescale by the group's scale when the group ends
 // (A8). The TPU kernels carried the f32 sum across a sequential grid axis
-// in VMEM scratch; here the k loop is inside the block. For skinny m
-// (K12-K17 at m <= 64) a block covers 16, 32 or 64 rows, so the weight is
+// in VMEM scratch; here the k loop is inside the block. A block covers 16,
+// 32 or 64 rows, so the weight is
 // streamed once, and the K range is split over several blocks to fill
 // the 132 SMs: each split writes f32 partial sums and a second kernel adds
 // them in split order (deterministic, no atomics), applies the A8 row
@@ -195,7 +202,7 @@ __device__ __forceinline__ void st_words(void* p, const uint32_t* w) {
   }
 }
 
-// The block tile shared by int8_mma_kernel and nib_mma_kernel: BM rows x
+// int8_mma_kernel's block tile: BM rows x
 // 128 columns of the output over WARPS_M x (8 / WARPS_M) warps, each warp
 // MI x NI mma fragments; x and W are staged 64 k at a time in shared tiles
 // [rows][LD] (W transposed, [column][k]: the mma B operand's layout).
@@ -328,13 +335,13 @@ __device__ __forceinline__ void fold_group(
 }
 
 // Epilogue: accumulator rows gid and gid + 8, columns tig*2 and +1. Without
-// a split, to `out` in OutT (A8: times the row scale xs; with column scales
-// cs: times cs[col], K17); with one, the f32 sums to
+// a split, to `out` in bf16 (A8: times the row scale xs; with column
+// scales cs: times cs[col], K17); with one, the f32 sums to
 // `partial[split, row, col]` for split_reduce_kernel.
-template <class TL, typename OutT = __nv_bfloat16>
+template <class TL>
 __device__ __forceinline__ void store_tile(
     const float (&acc)[TL::MI][TL::NI][4], const float* __restrict__ xs,
-    OutT* __restrict__ out, float* __restrict__ partial, int m,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int m,
     int N, int m0, int n0, Lane l, const float* __restrict__ cs = nullptr) {
 #pragma unroll
   for (int mi = 0; mi < TL::MI; ++mi) {
@@ -351,9 +358,6 @@ __device__ __forceinline__ void store_tile(
         if (partial != nullptr) {
           *reinterpret_cast<float2*>(
               partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
-              make_float2(v0, v1);
-        } else if constexpr (std::is_same<OutT, float>::value) {
-          *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * N + col) =
               make_float2(v0, v1);
         } else if (cs != nullptr) {
           *reinterpret_cast<__nv_bfloat162*>(
@@ -498,179 +502,6 @@ int8_mma_kernel(const typename TL::T* __restrict__ x,
                        chunks_per_split, cs);
 }
 
-// K16 on f32 x: stage x rows [m0, m0 + BM) x k [k0, k0 + 64) as two bf16
-// tiles, hi = bf16(x) and lo = bf16(x - hi), zeros past m; 16-byte f32
-// loads when `vec` (aligned rows).
-template <class TL>
-__device__ __forceinline__ void stage_x_split(
-    __nv_bfloat16 (*hi)[TL::LD], __nv_bfloat16 (*lo)[TL::LD],
-    const float* __restrict__ x, int m, int K, int m0, int k0, bool vec) {
-  auto split = [](float a, float b, uint32_t& h, uint32_t& w) {
-    const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
-    const float2 f = __bfloat1622float2(h2);
-    const __nv_bfloat162 l2 = __floats2bfloat162_rn(a - f.x, b - f.y);
-    h = *reinterpret_cast<const uint32_t*>(&h2);
-    w = *reinterpret_cast<const uint32_t*>(&l2);
-  };
-  constexpr int VPR = kChunk / 4;   // float4 per row
-  for (int i = threadIdx.x; i < TL::BM * VPR; i += kThreads) {
-    const int r = i / VPR, v = i % VPR;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m0 + r < m) {
-      const float* src = x + static_cast<size_t>(m0 + r) * K + k0 + v * 4;
-      val = vec ? *reinterpret_cast<const float4*>(src)
-                : make_float4(src[0], src[1], src[2], src[3]);
-    }
-    uint32_t h[2], w[2];
-    split(val.x, val.y, h[0], w[0]);
-    split(val.z, val.w, h[1], w[1]);
-    st_words<2>(&hi[r][v * 4], h);
-    st_words<2>(&lo[r][v * 4], w);
-  }
-}
-
-// K12 and K16: 4-bit codes packed 8 per int32 along K, qweight [K / 8, N]
-// (row k in word k / 8 at shift 4 * (k % 8): the natural order; the TPU's
-// plane-order unpack and x column permutation were sublane tricks and are
-// gone). The W tile is dequantized in shared memory per 64-deep chunk:
-//   Q4K (K12, m <= 64): w = bf16(q * dl - ml) in f32 (q * dl is exact, so
-//     the difference rounds once, as the Pallas body and the plain
-//     version round), dl and ml [K / 32, N] bf16 rows per 32 input rows;
-//     a thread's 8-row word never straddles a group, so it reads one
-//     (dl, ml) pair per word.
-//   LUT (K16): w = lut[n, q], the block's [16, 128] slice of the codebook
-//     staged once in shared memory as f32 [16][128], where a warp's 32
-//     neighbouring columns fall in 32 distinct banks whatever the codes.
-//     bf16 x (SqueezeLLM): the entries are bf16 and go to the tile exactly.
-//     f32 x (X32, QuIP#): x and w are each split into bf16 hi + lo tiles,
-//     and the f32 sums take x_lo w_hi + x_hi w_lo + x_hi w_hi (bf16x3,
-//     about 2^-16 relative per product; single-pass TF32 would keep 10
-//     mantissa bits); the output is f32.
-// A thread owns one column of the tile and half the chunk's 8 words, so
-// a warp's word loads cover 128
-// contiguous bytes. The words of the next chunk are loaded before the
-// current chunk's products. Shared memory is dynamic: the f32 variant's
-// four tiles and codebook take 82 KB at 128 rows.
-enum class Nib { kQ4K, kLut };
-
-template <class TL, Nib MODE, bool X32>
-constexpr int nib_smem_bytes() {
-  return (TL::BM + kBN) * TL::LD * static_cast<int>(sizeof(__nv_bfloat16)) *
-             (X32 ? 2 : 1) +
-         (MODE == Nib::kLut ? 16 * kBN * static_cast<int>(sizeof(float)) : 0);
-}
-
-template <class TL, Nib MODE, bool X32>
-__global__ void __launch_bounds__(kThreads)
-nib_mma_kernel(const void* __restrict__ xv,
-               const uint32_t* __restrict__ qweight,
-               const void* __restrict__ s0, const void* __restrict__ s1,
-               void* __restrict__ out, float* __restrict__ partial, int m,
-               int K, int N, int chunks_per_split) {
-  static_assert(!TL::A8 && (MODE == Nib::kLut || !X32), "nib variants");
-  using OutT = typename std::conditional<X32, float, __nv_bfloat16>::type;
-  constexpr int LD = TL::LD;
-  constexpr int WPT = kChunk / 8 / 2;   // words per thread per chunk
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto x_hi = reinterpret_cast<__nv_bfloat16 (*)[LD]>(smem);
-  auto w_hi = x_hi + TL::BM;
-  auto x_lo = w_hi + kBN;               // X32 only
-  auto w_lo = x_lo + TL::BM;            // X32 only
-  auto lut_s = reinterpret_cast<float (*)[kBN]>(X32 ? w_lo + kBN : x_lo);
-
-  const int tid = threadIdx.x;
-  const Lane l = lane_of<TL>();
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * TL::BM;
-  const int c_begin = blockIdx.z * chunks_per_split;
-  const int c_end = min(K / kChunk, c_begin + chunks_per_split);
-  const int my_n = tid % kBN;
-  const int my_col = n0 + my_n;
-  const int my_half = tid / kBN;
-  const bool x_vec = reinterpret_cast<uintptr_t>(xv) % 16 == 0;
-
-  if constexpr (MODE == Nib::kLut) {
-    for (int i = tid; i < 16 * kBN; i += kThreads) {
-      const int v = i / kBN, n = i % kBN;
-      const size_t idx = static_cast<size_t>(n0 + n) * 16 + v;
-      if constexpr (X32) {
-        lut_s[v][n] = static_cast<const float*>(s0)[idx];
-      } else {
-        lut_s[v][n] = __bfloat162float(
-            static_cast<const __nv_bfloat16*>(s0)[idx]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float acc[TL::MI][TL::NI][4];
-  zero_acc<TL>(acc);
-
-  uint32_t words[WPT];
-  auto load_words = [&](int c) {
-    const size_t r = static_cast<size_t>(c) * (kChunk / 8) + my_half;
-#pragma unroll
-    for (int i = 0; i < WPT; ++i)
-      words[i] = qweight[(r + 2 * i) * N + my_col];
-  };
-  if (c_begin < c_end) load_words(c_begin);
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int k0 = c * kChunk;
-    if constexpr (X32) {
-      stage_x_split<TL>(x_hi, x_lo, static_cast<const float*>(xv), m, K, m0,
-                        k0, x_vec);
-    } else {
-      stage_x<TL>(x_hi, static_cast<const __nv_bfloat16*>(xv), m, K, m0,
-                  k0, kChunk, x_vec);
-    }
-#pragma unroll
-    for (int i = 0; i < WPT; ++i) {
-      const int kk = (my_half + 2 * i) * 8;
-      const uint32_t word = words[i];
-      float d = 0.f, mn = 0.f;
-      if constexpr (MODE == Nib::kQ4K) {
-        const size_t g = static_cast<size_t>((k0 + kk) / 32) * N + my_col;
-        d = __bfloat162float(static_cast<const __nv_bfloat16*>(s0)[g]);
-        mn = __bfloat162float(static_cast<const __nv_bfloat16*>(s1)[g]);
-      }
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        const int q0 = static_cast<int>((word >> (4 * j)) & 0xfu);
-        const int q1 = static_cast<int>((word >> (4 * (j + 1))) & 0xfu);
-        float w0, w1;
-        if constexpr (MODE == Nib::kQ4K) {
-          w0 = __fsub_rn(__fmul_rn(static_cast<float>(q0), d), mn);
-          w1 = __fsub_rn(__fmul_rn(static_cast<float>(q1), d), mn);
-        } else {
-          w0 = lut_s[q0][my_n];
-          w1 = lut_s[q1][my_n];
-        }
-        const __nv_bfloat162 h2 = __floats2bfloat162_rn(w0, w1);
-        hi[j / 2] = *reinterpret_cast<const uint32_t*>(&h2);
-        if constexpr (X32) {
-          const float2 f = __bfloat1622float2(h2);
-          const __nv_bfloat162 l2 = __floats2bfloat162_rn(w0 - f.x, w1 - f.y);
-          lo[j / 2] = *reinterpret_cast<const uint32_t*>(&l2);
-        }
-      }
-      st_words<4>(&w_hi[my_n][kk], hi);
-      if constexpr (X32) st_words<4>(&w_lo[my_n][kk], lo);
-    }
-    if (c + 1 < c_end) load_words(c + 1);
-    __syncthreads();
-    if constexpr (X32) {
-      mma_chunk<TL>(x_lo, w_hi, acc, l);
-      mma_chunk<TL>(x_hi, w_lo, acc, l);
-    }
-    mma_chunk<TL>(x_hi, w_hi, acc, l);
-    __syncthreads();
-  }
-  store_tile<TL, OutT>(acc, nullptr, static_cast<OutT*>(out), partial, m, N,
-                       m0, n0, l);
-}
-
 // Second pass of a split-K launch: out = OutT(sum over splits, in order,
 // times the A8 row scale when xs is given, times the column scale when cs
 // is given).
@@ -706,8 +537,11 @@ __global__ void split_reduce_kernel(const float* __restrict__ partial,
 // the block's [16, 256] slice of the codebook loaded once into shared
 // memory beside the ring) and K17's (kInt8: K13's bytes and no rows; the
 // column scales times the f32 sums in the epilogue, or in
-// split_reduce_kernel after a split). One block owns 128 rows x 256
-// columns of
+// split_reduce_kernel after a split); and K16's on f32 x (kLutX32: x
+// split beforehand into bf16 hi and lo rows by split_x32_kernel, both x
+// tiles in each stage, the f32 codebook's entries split into (hi | lo <<
+// 16) words, hi and lo W tiles, three products a k16 on 128 x 128 tiles,
+// f32 out). One block owns 128 rows x 256 columns of
 // the output and walks its quantization groups in 64-deep chunks:
 //   - warp 8, the loader: one thread keeps a ring of kStages chunks in
 //     flight with TMA (the x tile in the 128-byte swizzle, the packed
@@ -737,33 +571,46 @@ constexpr int kWtBytes = kBN * kBK * 2;     // one bf16 W tile, 32 KB
 // SqueezeLLM's (K16 on bf16 x: K12's words, each code looked up in its
 // column's 16-entry bf16 codebook, lut [N, 16]) and int8 weights' (K17:
 // K13's codes as they are, times an f32 scale per column in the
-// epilogue).
-enum class Dec { kGptq, kAwq, kI8g, kQ8, kQ4k, kLut, kInt8 };
+// epilogue); and K16's on f32 x (kLutX32: QuIP#'s f32 codebook lut [N,
+// 16], each entry split into bf16 hi and lo).
+enum class Dec { kGptq, kAwq, kI8g, kQ8, kQ4k, kLut, kInt8, kLutX32 };
 
 template <int BITS, Dec D>
 struct Cfg {
   static constexpr int kPack = 32 / BITS;
+  // K16 on f32 x: x and W each as bf16 hi and lo tiles, three products a
+  // term, on 128 x 128 tiles (at 256 columns two sets of hi and lo W tiles
+  // would take 128 KB of the 227).
+  static constexpr bool kX32 = D == Dec::kLutX32;
+  static constexpr int kCols = kX32 ? 128 : kBN;    // columns a block
+  static constexpr int kAcc = kCols / 2;            // f32 sums a thread
   // K12-K14, K16 and K17: every chunk is whole (64 rows of whole scale
   // groups, where there are any), and one chunk is the split unit.
   static constexpr bool kChunked = D == Dec::kI8g || D == Dec::kQ8 ||
                                    D == Dec::kQ4k || D == Dec::kLut ||
-                                   D == Dec::kInt8;
+                                   D == Dec::kInt8 || kX32;
   // Byte codes [K, N] (K13, K14, K17), read as rows of 256 columns.
   static constexpr bool kBytes =
       D == Dec::kI8g || D == Dec::kQ8 || D == Dec::kInt8;
   // 4-bit codes 8 rows to a word, [K / 8, N] (K12, K16).
-  static constexpr bool kNibWords = D == Dec::kQ4k || D == Dec::kLut;
+  static constexpr bool kNibWords =
+      D == Dec::kQ4k || D == Dec::kLut || kX32;
   // The W tile wgmma reads: K-major (W^T rows of 64 k) where a word holds
   // one column's k rows (GPTQ, K12, K16), else MN-major.
   static constexpr bool kKMajor = D == Dec::kGptq || kNibWords;
   // The chunked decoders keep two W tiles, not three, for a fourth (K13,
   // K14, K17) or fifth (K12, K16) stage: with 24-34 KB stages the loads
   // are latency-bound, so bytes in flight set the rate (K12's five stages
-  // and three tiles would pass the 232 448-byte opt-in limit by 80).
+  // and three tiles would pass the 232 448-byte opt-in limit by 80). K16
+  // on f32 x: two sets of hi and lo tiles, four stages of 36 KB.
   static constexpr int kWt = kChunked ? 2 : kWtTiles;
   static constexpr int kStages =
-      kBytes ? 4 : kNibWords ? 5 : BITS == 8 ? 3 : 5;
-  static constexpr int kWordBytes = kBK * kBN * BITS / 8;   // packed W
+      kBytes || kX32 ? 4 : kNibWords ? 5 : BITS == 8 ? 3 : 5;
+  static constexpr int kWordBytes = kBK * kCols * BITS / 8;   // packed W
+  // One stage's x (K16 on f32 x: the hi tile, then the lo tile) and one
+  // set of W tiles (hi, then lo).
+  static constexpr int kXStage = kX32 ? 2 * kXBytes : kXBytes;
+  static constexpr int kWtSet = kX32 ? 2 * kCols * kBK * 2 : kWtBytes;
   // Scale rows a chunk: one (GPTQ, AWQ), K14's four (a row per 16 of its
   // 64 k), K13's and K12's two (a row per 32), none for K16 and K17.
   static constexpr int kSRows = D == Dec::kI8g                   ? 4
@@ -779,11 +626,12 @@ struct Cfg {
   // Bytes one stage's TMA loads bring (x counted only when TMA loads it).
   static constexpr int kWsBytes = kWordBytes + kSBytes + kZBytes;
   static constexpr int kSmemBytes =
-      1024 + kStages * (kXBytes + kWordBytes + kSBytes + kZBytes) +
-      kWt * kWtBytes + kBarBytes;
+      1024 + kStages * (kXStage + kWordBytes + kSBytes + kZBytes) +
+      kWt * kWtSet + kBarBytes;
   // K16's codebook tile (`lut_smem`, static shared memory) beside the
   // dynamic ring; a block's whole shared memory.
-  static constexpr int kLutBytes = D == Dec::kLut ? 16 * kBN * 4 : 0;
+  static constexpr int kLutBytes =
+      D == Dec::kLut || kX32 ? 16 * kCols * 4 : 0;
   static constexpr int kBlockSmemBytes = kSmemBytes + kLutBytes;
   static_assert(kBlockSmemBytes <= 232448, "the opt-in limit per block");
 };
@@ -928,11 +776,51 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
+// d[64 x 128] = A[64 x 16] B[16 x 128] (+ d unless scale_d is 0), bf16
+// into f32, B K-major (K16 on f32 x).
+__device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // Keep the compiler from moving accumulator reads or writes across the
 // asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&acc)[128]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
 }
 
 // Exact bf16x2 arithmetic (sm_90): one rounding each.
@@ -952,6 +840,18 @@ __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) {
 __device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// K16 on f32 x: hi = bf16(v), lo = bf16(v - hi) for v = a and b, as
+// bf16x2 pairs: v - hi is exact in f32 (the rounding error of an 8-bit
+// significand), so hi + lo is within 2^-17 |v| of v (lo keeps 8 of its
+// up to 16 bits).
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h2);
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  lo = pack_bf2(a - f.x, b - f.y);
 }
 
 // (a & b) | c.
@@ -979,22 +879,26 @@ __device__ __forceinline__ uint32_t i8_pair(uint32_t w, uint32_t sel) {
 }
 
 // K16's codebook tile at m > 64: entry q of the block's column n at word
-// q * 256 + n, the bf16 entry in the high half (an f32 of the same
-// value). A warp's 32 neighbouring columns fall in 32 distinct banks
-// whatever their codes. Static shared memory, so its address is a
-// constant the lookups take as an immediate.
+// q * COLS + n (kLut: the bf16 entry in the high half, an f32 of the same
+// value; kLutX32: bf16 hi | lo << 16 of the f32 entry). A warp's 32
+// neighbouring columns fall in 32 distinct banks whatever their codes.
+// Static shared memory, so its address is a constant the lookups take as
+// an immediate.
+template <int COLS>
 __device__ __forceinline__ uint32_t* lut_smem() {
-  __shared__ __align__(16) uint32_t lut[16 * kBN];
+  __shared__ __align__(16) uint32_t lut[16 * COLS];
   return lut;
 }
 
-// The byte offset in lut_smem of code `c` (0-7, bits 4c .. 4c + 3) of
-// word `w` for the column at byte offset `col` (4n, below 1024): the
-// code shifted to bits 10-13, then one lop3.
+// The byte offset in a codebook of code `c` (0-7, bits 4c .. 4c + 3) of
+// word `w` for the column at byte offset `col` (no bit of it in S .. S +
+// 3): the code shifted to bits S .. S + 3 (lut_smem: 10 for 256 columns,
+// 9 for 128; quant_stream_kernel: 8 and 9), then one lop3.
+template <int S>
 __device__ __forceinline__ uint32_t lut_offset(uint32_t w, int c,
                                                uint32_t col) {
-  const uint32_t s = c <= 2 ? w << (10 - 4 * c) : w >> (4 * c - 10);
-  return and_or(s, 0x3c00u, col);
+  const uint32_t s = 4 * c <= S ? w << (S - 4 * c) : w >> (4 * c - S);
+  return and_or(s, 0xfu << S, col);
 }
 
 // Byte offset of 16-byte piece `c` of 128-byte row `r` in the swizzle.
@@ -1047,7 +951,7 @@ __device__ __forceinline__ void dequant_chunk(const uint32_t* ws,
     // code.
     const int n = tid;
     const unsigned char* lut =
-        reinterpret_cast<const unsigned char*>(lut_smem());
+        reinterpret_cast<const unsigned char*>(lut_smem<kBN>());
     const uint32_t col = static_cast<uint32_t>(n) << 2;
     uint32_t w[8];
 #pragma unroll
@@ -1057,11 +961,40 @@ __device__ __forceinline__ void dequant_chunk(const uint32_t* ws,
       uint32_t o[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)   // rows 8kc + 2i and 8kc + 2i + 1
-        o[i] = __byte_perm(ld32(lut + lut_offset(w[kc], 2 * i, col)),
-                           ld32(lut + lut_offset(w[kc], 2 * i + 1, col)),
+        o[i] = __byte_perm(ld32(lut + lut_offset<10>(w[kc], 2 * i, col)),
+                           ld32(lut + lut_offset<10>(w[kc], 2 * i + 1, col)),
                            0x7632);
       *reinterpret_cast<uint4*>(wt + swz(n, kc)) =
           make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else if constexpr (D == Dec::kLutX32) {
+    // K16 on f32 x: column n = tid % 128 of the two K-major tiles (hi,
+    // then lo, 16 KB each), word rows 4h .. 4h + 3 (h = tid / 128: rows
+    // 32h .. 32h + 31). Each code is one lookup of its column's (hi | lo
+    // << 16) entry; two rows' hi halves pair into the hi tile, their lo
+    // halves into the lo tile: 4 instructions a code.
+    const int n = tid & 127, h = tid >> 7;
+    const unsigned char* lut =
+        reinterpret_cast<const unsigned char*>(lut_smem<128>());
+    const uint32_t col = static_cast<uint32_t>(n) << 2;
+    uint32_t w[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w[r] = ws[(4 * h + r) * 128 + n];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      uint32_t oh[4], ol[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {   // rows 2i and 2i + 1 of word r
+        const uint32_t e0 = ld32(lut + lut_offset<9>(w[r], 2 * i, col));
+        const uint32_t e1 = ld32(lut + lut_offset<9>(w[r], 2 * i + 1, col));
+        oh[i] = __byte_perm(e0, e1, 0x5410);
+        ol[i] = __byte_perm(e0, e1, 0x7632);
+      }
+      const int off = swz(n, 4 * h + r);
+      *reinterpret_cast<uint4*>(wt + off) =
+          make_uint4(oh[0], oh[1], oh[2], oh[3]);
+      *reinterpret_cast<uint4*>(wt + 128 * kBK * 2 + off) =
+          make_uint4(ol[0], ol[1], ol[2], ol[3]);
     }
   } else if constexpr (Cfg<BITS, D>::kBytes) {
     // Columns 8j .. 8j + 7 (j = tid & 31) at 8 rows of the chunk's
@@ -1252,8 +1185,8 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* x_s = smem;                              // [S][128 x 64]
-  unsigned char* wt_s = x_s + S * kXBytes;                // [kWt][W tile]
-  unsigned char* words_s = wt_s + C::kWt * kWtBytes;      // [S][packed]
+  unsigned char* wt_s = x_s + S * C::kXStage;             // [kWt][W tile]
+  unsigned char* words_s = wt_s + C::kWt * C::kWtSet;     // [S][packed]
   unsigned char* sc_s = words_s + S * C::kWordBytes;      // [S][rows][256]
   unsigned char* z_s = sc_s + S * C::kSBytes;             // [S][zero row]
   uint64_t* full = reinterpret_cast<uint64_t*>(z_s + S * C::kZBytes);
@@ -1267,7 +1200,7 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   const int first_m = lin / per_group * 8;
   const int group_m = min(static_cast<int>(gridDim.y) - first_m, 8);
   const int m0 = (first_m + lin % per_group % group_m) * kBM;
-  const int n0 = lin % per_group / group_m * kBN;
+  const int n0 = lin % per_group / group_m * C::kCols;
   const int G = K / gs;
   const int g_begin = blockIdx.z * groups_per_split;
   const int g_end = min(G, g_begin + groups_per_split);
@@ -1302,8 +1235,11 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
       int g, k0, kn;
       chunk(t, g, k0, kn);
       uint64_t* bar = &full[slot];
-      mbar_expect_tx(bar, C::kWsBytes + (x_tma ? kXBytes : 0));
-      if (x_tma) tma_load(x_s + slot * kXBytes, &x_map, bar, k0, m0);
+      mbar_expect_tx(bar, C::kWsBytes + (x_tma ? C::kXStage : 0));
+      if (x_tma) tma_load(x_s + slot * C::kXStage, &x_map, bar, k0, m0);
+      // K16 on f32 x: x_map covers [hi; lo], the lo rows m further on.
+      if constexpr (C::kX32)
+        tma_load(x_s + slot * C::kXStage + kXBytes, &x_map, bar, k0, m + m0);
       if constexpr (C::kBytes) {
         // The [64, 256] code chunk and its four d16 (K14) or two d (K13)
         // rows, none for K17 (gs is 64).
@@ -1347,8 +1283,8 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     int g, k0, kn;
     chunk(t, g, k0, kn);
     mbar_wait(&full[slot], (t / S) & 1);
-    if (!x_tma) {
-      unsigned char* xd = x_s + slot * kXBytes;
+    if (!C::kX32 && !x_tma) {
+      unsigned char* xd = x_s + slot * C::kXStage;
       for (int i = 0; i < 32; ++i) {
         const int e = tid + 256 * i, r = e >> 6, k = e & 63;
         __nv_bfloat16 v = __float2bfloat16(0.f);
@@ -1364,7 +1300,7 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
         reinterpret_cast<const uint32_t*>(z_s + slot * C::kZBytes);
     const __nv_bfloat16* ss =
         reinterpret_cast<const __nv_bfloat16*>(sc_s + slot * C::kSBytes);
-    unsigned char* wt = wt_s + (t % C::kWt) * kWtBytes;
+    unsigned char* wt = wt_s + (t % C::kWt) * C::kWtSet;
     // A whole chunk (every chunk where the group size is a multiple of 64,
     // and every GGUF chunk) takes the unmasked instance.
     if constexpr (C::kChunked) {
@@ -1393,28 +1329,57 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
       for (int q = 0; q < 16; ++q)
         v[q] = static_cast<uint32_t>(__ldg(src + q)) << 16;
     }
-    uint32_t* lut = lut_smem();
+    uint32_t* lut = lut_smem<kBN>();
 #pragma unroll
     for (int q = 0; q < 16; ++q) lut[q * kBN + tid] = v[q];
+  } else if constexpr (C::kX32) {
+    // K16 on f32 x: column n = tid % 128's entries 8h .. 8h + 7 (h = tid /
+    // 128), split into bf16 (hi | lo << 16); the decoders read both
+    // halves of their column's 16, so a barrier follows.
+    const int n = tid & 127, h = tid >> 7;
+    const float* src = static_cast<const float*>(cols) +
+                       static_cast<size_t>(n0 + n) * 16 + 8 * h;
+    uint32_t* lut = lut_smem<128>();
+#pragma unroll
+    for (int q = 0; q < 8; q += 2) {
+      uint32_t hw, lw;
+      split_bf16(__ldg(src + q), __ldg(src + q + 1), hw, lw);
+      lut[(8 * h + q) * 128 + n] = __byte_perm(hw, lw, 0x5410);
+      lut[(8 * h + q + 1) * 128 + n] = __byte_perm(hw, lw, 0x7632);
+    }
+    consumers_sync();
   }
-  float acc[128];
+  float acc[C::kAcc];
   const uint32_t x_base = smem_u32(x_s) + wg * 64 * 128;
   const uint32_t wt_base = smem_u32(wt_s);
   if (T > 0) prepare(0);
   consumers_sync();
   for (int t = 0; t < T; ++t) {
     const int slot = t % S;
-    const uint32_t wt_t = wt_base + (t % C::kWt) * kWtBytes;
+    const uint32_t wt_t = wt_base + (t % C::kWt) * C::kWtSet;
     // Both warpgroups run every chunk, real rows or not: a branch around
     // the products would make ptxas serialize them.
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t da =
-          make_desc(x_base + slot * kXBytes + kk * 32, 16, 1024);
+          make_desc(x_base + slot * C::kXStage + kk * 32, 16, 1024);
       if constexpr (C::kKMajor) {
-        wgmma_256<0>(acc, da, make_desc(wt_t + kk * 32, 16, 1024),
-                     t > 0 || kk > 0);
+        if constexpr (C::kX32) {
+          // x_lo w_hi + x_hi w_lo + x_hi w_hi into the f32 sums.
+          const uint64_t dl =
+              make_desc(x_base + slot * C::kXStage + kXBytes + kk * 32, 16,
+                        1024);
+          const uint64_t wh = make_desc(wt_t + kk * 32, 16, 1024);
+          const uint64_t wl =
+              make_desc(wt_t + C::kCols * kBK * 2 + kk * 32, 16, 1024);
+          wgmma_128(acc, dl, wh, t > 0 || kk > 0);
+          wgmma_128(acc, da, wl, 1);
+          wgmma_128(acc, da, wh, 1);
+        } else {
+          wgmma_256<0>(acc, da, make_desc(wt_t + kk * 32, 16, 1024),
+                       t > 0 || kk > 0);
+        }
       } else {
         wgmma_256<1>(acc, da, make_desc(wt_t + kk * 16 * 128, 8192, 1024),
                      t > 0 || kk > 0);
@@ -1443,7 +1408,7 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   wgmma_wait<0>();
   if (T == 0) {
 #pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::kAcc; ++i) acc[i] = 0.f;
   }
   fence_acc(acc);
   // Accumulator i of thread (warp w, lane l): row w * 16 + l / 4 (+ 8
@@ -1451,7 +1416,7 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   const int lt = tid & 127;
   const int row = m0 + wg * 64 + (lt >> 5) * 16 + ((lt & 31) >> 2);
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < C::kAcc / 4; ++j) {
     const int col = n0 + j * 8 + (lt & 3) * 2;
     if (col >= N) continue;
 #pragma unroll
@@ -1462,6 +1427,10 @@ quant_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
       if (partial != nullptr) {
         *reinterpret_cast<float2*>(
             partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
+            make_float2(v0, v1);
+      } else if constexpr (C::kX32) {
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) +
+                                   static_cast<size_t>(r) * N + col) =
             make_float2(v0, v1);
       } else {
         if constexpr (D == Dec::kInt8) {
@@ -1541,7 +1510,7 @@ int launch_gemm(const void* x, const void* qweight, const void* qzeros,
   constexpr int PACK = C::kPack;
   if (splits < 1 || gs <= 0 || K % gs != 0 || N % 128 != 0 ||
       (!AWQ && gs % PACK != 0) || (C::kChunked && gs != kBK) ||
-      ((D == Dec::kLut || D == Dec::kInt8) && cols == nullptr))
+      ((D == Dec::kLut || D == Dec::kInt8 || C::kX32) && cols == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = quant_gemm_kernel<BITS, D>;
   constexpr int smem = Cfg<BITS, D>::kSmemBytes;
@@ -1559,8 +1528,11 @@ int launch_gemm(const void* x, const void* qweight, const void* qzeros,
   constexpr auto kFlat = CU_TENSOR_MAP_SWIZZLE_NONE;
   // TMA for x needs a 16-byte aligned base and row stride.
   const int x_tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 8 == 0;
+  // K16 on f32 x: x is split_x32_kernel's [hi; lo], 2m rows, always TMA.
+  if (C::kX32 && !x_tma) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap x_map{}, w_map{}, s_map{}, z_map{};
-  bool ok = !x_tma || tensor_map(&x_map, kBf16, 2, x, K, m, kBK, kBM,
+  bool ok = !x_tma || tensor_map(&x_map, kBf16, 2, x, K,
+                                  C::kX32 ? 2 * m : m, kBK, kBM,
                                   CU_TENSOR_MAP_SWIZZLE_128B);
   if constexpr (C::kBytes) {
     ok = ok && tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qweight,
@@ -1571,8 +1543,8 @@ int launch_gemm(const void* x, const void* qweight, const void* qzeros,
                             C::kSRows, kFlat);
     }
   } else if constexpr (C::kNibWords) {
-    ok = ok && tensor_map(&w_map, kU32, 4, qweight, N, K / 8, kBN, kBK / 8,
-                          kFlat);
+    ok = ok && tensor_map(&w_map, kU32, 4, qweight, N, K / 8, C::kCols,
+                          kBK / 8, kFlat);
     if constexpr (D == Dec::kQ4k) {
       ok = ok &&
            tensor_map(&s_map, kBf16, 2, scales, N, K / 32, kBN, 2, kFlat);
@@ -1590,21 +1562,76 @@ int launch_gemm(const void* x, const void* qweight, const void* qzeros,
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   float* part = splits > 1 ? partial : nullptr;
-  const dim3 grid((N + kBN - 1) / kBN, (m + kBM - 1) / kBM, splits);
+  const dim3 grid((N + C::kCols - 1) / C::kCols, (m + kBM - 1) / kBM,
+                  splits);
   kernel<<<grid, kThreads, smem, stream>>>(
       x_map, w_map, s_map, z_map, static_cast<const __nv_bfloat16*>(x),
       static_cast<__nv_bfloat16*>(out), part, m, K, N, gs, gps, x_tma, cols);
   if (splits > 1) {
     const size_t total = static_cast<size_t>(m) * N;
     const int threads = 256;
-    split_reduce_kernel<__nv_bfloat16>
-        <<<static_cast<unsigned>((total + threads - 1) / threads), threads,
-           0, stream>>>(partial, nullptr,
-                        D == Dec::kInt8 ? static_cast<const float*>(cols)
-                                        : nullptr,
-                        static_cast<__nv_bfloat16*>(out), splits, m, N);
+    const unsigned blocks =
+        static_cast<unsigned>((total + threads - 1) / threads);
+    if constexpr (C::kX32) {
+      split_reduce_kernel<float><<<blocks, threads, 0, stream>>>(
+          partial, nullptr, nullptr, static_cast<float*>(out), splits, m, N);
+    } else {
+      split_reduce_kernel<__nv_bfloat16><<<blocks, threads, 0, stream>>>(
+          partial, nullptr,
+          D == Dec::kInt8 ? static_cast<const float*>(cols) : nullptr,
+          static_cast<__nv_bfloat16*>(out), splits, m, N);
+    }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K16 on f32 x at m > 64, the pass before quant_gemm_kernel<4, kLutX32>:
+// x [m, K] f32 (n = m K values) into xhl [2m, K] bf16, hi = bf16(x) in
+// rows [0, m) and lo = bf16(x - hi) in rows [m, 2m), the two x tiles the
+// kernel loads by TMA. Bytes bound it: x read once, 4 bytes written a
+// value (0.25 ms a Mistral-7B layer at m 4096, beside ~9 of products).
+// Four values a thread, 16-byte loads where x is aligned.
+__global__ void split_x32_kernel(const float* __restrict__ x,
+                                 __nv_bfloat16* __restrict__ xhl, size_t n,
+                                 int vec) {
+  const size_t i =
+      (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  float v[4];
+  if (vec) {
+    const float4 f = *reinterpret_cast<const float4*>(x + i);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = x[i + j];
+  }
+  uint32_t h[2], l[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) split_bf16(v[2 * j], v[2 * j + 1], h[j], l[j]);
+  *reinterpret_cast<uint2*>(xhl + i) = make_uint2(h[0], h[1]);
+  *reinterpret_cast<uint2*>(xhl + n + i) = make_uint2(l[0], l[1]);
+}
+
+// K16 on f32 x at m > 64: split_x32_kernel into xhl (2 m K bf16, 16-byte
+// aligned), then quant_gemm_kernel<4, kLutX32> on 128 x 128 tiles
+// (`splits` runs of 64-row chunks, then split_reduce_kernel<float>); f32
+// out.
+int launch_gemm_x32(const float* x, const void* qweight, const void* lut,
+                    void* xhl, void* out, float* partial, int m, int K,
+                    int N, int splits, cudaStream_t stream) {
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  if (xhl == nullptr || reinterpret_cast<uintptr_t>(xhl) % 16 != 0 ||
+      K % kBK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = static_cast<size_t>(m) * K;
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  split_x32_kernel<<<static_cast<unsigned>((n / 4 + 255) / 256), 256, 0,
+                     stream>>>(x, static_cast<__nv_bfloat16*>(xhl), n, vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_gemm<4, Dec::kLutX32>(xhl, qweight, nullptr, nullptr, out,
+                                      partial, m, K, N, kBK, splits, stream,
+                                      lut);
 }
 
 // ------------------------------------------------------- K8, K11, K15 --
@@ -2234,15 +2261,17 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 
 }  // namespace gemm
 
-// ----------------------------------------------------------------- K7 --
+// ------------------------------------------------------ K7, K12, K16 --
 //
-// quant_stream_kernel<BITS, AWQ, A8, NT>: the GPTQ (4 and 8 bits) and AWQ
-// product at m <= 64, every decode step of a GPTQ or AWQ checkpoint up to
-// batch 64, a16 and a8 arms. Bytes bound it: each packed word serves at
-// most 64 rows, so the least time is the weight and its scale and zero
-// rows read once (34 us per Mistral-7B layer at 3.35 TB/s). The design
-// keeps those bytes in flight and spends few instructions per word once
-// they land:
+// quant_stream_kernel<BITS, D, A8, NT>: the products at m <= 64, every
+// decode step up to batch 64: GPTQ (4 and 8 bits) and AWQ, a16 and a8
+// arms (K7), GGUF's exact Q4_K form (K12, D kQ4k) and the codebook form
+// on bf16 x (K16, SqueezeLLM, D kLut) and on f32 x (K16, QuIP#, D
+// kLutX32). Bytes bound them: each packed word serves at most 64 rows, so
+// the least time is the weight and its scale and zero rows (K12's dl and
+// ml rows, K16's codebook) read once (34 us per Mistral-7B layer at 3.35
+// TB/s for 4-bit codes). The design keeps those bytes in flight and
+// spends few instructions per word once they land:
 // - A cp.async ring per block of 128 output columns (eight warps): 3
 //   stages of 128 k rows (8.5 KB; 2 of 16.5 KB at 8 bits), 16-byte
 //   cp.async.cg copies issued stages - 1 ahead, one block barrier a
@@ -2279,12 +2308,38 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 //     bytes; exact int32 dots per group, folded into f32 in group order
 //     with the group's scale row as fold_group does, times xs[row] in the
 //     epilogue or the split reduce.
+//   - K12: GPTQ's 4-bit words and fragment map; a (dl, ml) pair of rows per
+//     32 input rows takes the place of the scale and zero rows (a group of
+//     32: one k32 step), carried in the ring stage beside its words (four
+//     dl rows, then four ml rows), so no rows are staged up front. Each
+//     value is bf16(f32(q) * dl - ml), the
+//     product and the difference rounded separately in f32 (q * dl is
+//     exact), as the plain version rounds it; q comes from the nibble pair
+//     as bf16 128 + q, widened to f32 minus 128, exact.
+//   - K16: GPTQ's 4-bit words, each code looked up in its column's
+//     16-entry codebook, staged once a block in shared memory (16 KB).
+//     The four lanes of a quad share their columns but hold other codes,
+//     so a table lane t reads must lie in banks no other lane reads: bf16
+//     (kLut) keeps four copies, lane t reading copy t, each word (q, p)
+//     the entries of the column pair p = (2p, 2p + 1) for code q, placed
+//     at p ^ 8t in its row, so the 32 lanes of every lookup hit 32 banks
+//     whatever the codes; a value is one lookup, half a byte permute (the
+//     pair's half). f32 (kLutX32, QuIP#): each entry split once into bf16
+//     hi and lo, one word (hi | lo << 16) per (code, column), two copies
+//     (lane t reads copy t / 2, column n at n ^ 16 (t / 2)); odd lanes
+//     look up their two columns in the other order, so that lanes t and t
+//     ^ 1 read other columns, and swap the results back: 32 banks again.
+//     x is split once, when it is staged, into bf16 hi and lo runs in
+//     fragment order, and each k16 takes three products, x_lo w_hi + x_hi
+//     w_lo + x_hi w_hi, into f32 sums (bf16x3, about 2^-16 relative per
+//     term); the output is f32.
 // - Splits over whole units of lcm(gs, 32) rows, or of 32 rows where
 //   that passes 1024 (gs = K, groups of 2048 and more: a split then
 //   starts and ends inside a group, the a8 arm folding its share of the
 //   group's sum), from shapes and the SM count alone (the wrapper's
 //   stream_plan); split_reduce_kernel, a second launch on the same
-//   stream, adds the f32 partials in split order.
+//   stream, adds the f32 partials in split order. K12 and K16 split over
+//   32-row units.
 // Group sizes are multiples of 8, so a thread's rows of a step lie in one
 // group; where a step crosses groups (gs not a multiple of 32) each thread
 // takes its own group's zero and scale, and the a8 arm runs the step once
@@ -2296,19 +2351,37 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBN = 16 * kWarps;        // output columns a tile
 constexpr int kKC = 128;                // k rows a ring stage
 
-template <int BITS, bool AWQ>
+// The word decoders: GPTQ's K-major words (K7, 4 or 8 bits), AWQ's
+// interleaved ones (K7), GPTQ's 4-bit words with K12's (dl, ml) rows, and
+// the same words through K16's codebook on bf16 x or on f32 x.
+enum class SDec { kGptq, kAwq, kQ4k, kLut, kLutX32 };
+
+template <int BITS, SDec D>
 struct Cfg {
+  static constexpr bool kAwq = D == SDec::kAwq;
+  static constexpr bool kLut = D == SDec::kLut || D == SDec::kLutX32;
   static constexpr int kPack = 32 / BITS;
   // A stage's words: GPTQ [kKC / pack word rows][kBN + pad words], the
   // pad (8 words at 4 bits, 4 at 8) putting the quads' 64-bit loads in
   // distinct banks; AWQ [kKC rows][kBN / 8 words], rows swizzled
   // (awq_word).
-  static constexpr int kRows = AWQ ? kKC : kKC / kPack;
-  static constexpr int kRowWords = AWQ ? kBN / 8 : kBN + (BITS == 4 ? 8 : 4);
-  static constexpr int kStageWords = kRows * kRowWords;
+  static constexpr int kRows = kAwq ? kKC : kKC / kPack;
+  static constexpr int kRowWords = kAwq ? kBN / 8 : kBN + (BITS == 4 ? 8 : 4);
+  // K12: the stage also carries its four dl rows, then its four ml rows
+  // (128 bf16 each), at word kRowsOff.
+  static constexpr int kRowsOff = kRows * kRowWords;
+  static constexpr int kStageWords =
+      kRowsOff + (D == SDec::kQ4k ? 8 * kBN / 2 : 0);
   static constexpr int kStages = BITS == 8 ? 2 : 3;
   static constexpr int kRingBytes = kStages * kStageWords * 4;
-  static constexpr int kZeroWords = kBN / kPack;     // a group's zero row
+  // The split's rows staged once: a group's scale row and zero row
+  // (GPTQ, AWQ); K12's rows come with the ring stages, K16 has none.
+  static constexpr bool kGroupRows = D == SDec::kGptq || D == SDec::kAwq;
+  static constexpr int kScaleBytes = kGroupRows ? kBN * 2 : 0;
+  static constexpr int kZeroWords = kGroupRows ? kBN / kPack : 0;
+  // K16's codebook: bf16 four copies of [16 codes][64 column pairs], f32
+  // two copies of [16 codes][128 columns] of (hi | lo << 16), 16 KB each.
+  static constexpr int kLutBytes = kLut ? 16384 : 0;
 };
 
 // AWQ stage: the word offset of word w of row r. Rows of kBN / 8 words
@@ -2323,10 +2396,11 @@ __device__ __forceinline__ int awq_word(int r, int w) {
 }
 
 // Bytes of a row of resident x: the block's K range rounded up to 128,
-// plus half (bf16) or a quarter (int8) of a line, so that the rows one
-// shared load reads fall in distinct banks.
+// plus half (bf16), a quarter (int8) or an eighth (f32 x as bf16 hi and
+// lo runs) of a line, so that the rows one shared load reads fall in
+// distinct banks.
 __host__ __device__ constexpr int x_stride(int k_rows, int es) {
-  return (k_rows * es + 127) / 128 * 128 + (es == 2 ? 64 : 32);
+  return (k_rows * es + 127) / 128 * 128 + (es == 2 ? 64 : es == 1 ? 32 : 16);
 }
 
 __host__ __device__ constexpr int gcd_int(int a, int b) {
@@ -2350,12 +2424,20 @@ inline int split_groups(int K, int gs, int k_split) {
   return most;
 }
 
-// The ring, the split's scale and zero rows, and its x.
-template <int BITS, bool AWQ, bool A8>
+// Bytes of resident x an element: int8 (a8), bf16, or f32 x as bf16 hi
+// and lo.
+template <SDec D, bool A8>
+__host__ __device__ constexpr int x_elem_bytes() {
+  return A8 ? 1 : D == SDec::kLutX32 ? 4 : 2;
+}
+
+// The ring, K16's codebook, the split's scale and zero rows, and its x.
+template <int BITS, SDec D, bool A8>
 constexpr int smem_bytes(int k_rows, int groups, int nt) {
-  using C = Cfg<BITS, AWQ>;
-  return C::kRingBytes + groups * (kBN * 2 + C::kZeroWords * 4) +
-         8 * nt * x_stride(k_rows, A8 ? 1 : 2);
+  using C = Cfg<BITS, D>;
+  return C::kRingBytes + C::kLutBytes +
+         groups * (C::kScaleBytes + C::kZeroWords * 4) +
+         8 * nt * x_stride(k_rows, x_elem_bytes<D, A8>());
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -2372,23 +2454,26 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 using gemm::s8_codes;
+using gemm::split_bf16;
 
 // A group's constants for the thread's columns c0 and c0 + 1: z0 / z1 and
 // s0 / s1 per column (GPTQ bf16x2 pairs of one value, 8 bits f32 bits);
-// AWQ both columns in one bf16x2 (z0, s0); a8 zeros replicated per byte.
+// AWQ both columns in one bf16x2 (z0, s0); a8 zeros replicated per byte;
+// K12 -ml (z) and dl (s) as f32 bits (`q4k_consts`); K16 no group: s0 /
+// s1 the byte offsets of the thread's codebook entries (`lut_lanes`).
 struct Consts {
   uint32_t z0, z1, s0, s1;
 };
 
-template <int BITS, bool AWQ, bool A8>
+template <int BITS, SDec D, bool A8>
 __device__ __forceinline__ Consts group_consts(const __nv_bfloat16* sc_s,
                                                const uint32_t* z_s, int g,
                                                int c0) {
-  using C = Cfg<BITS, AWQ>;
+  using C = Cfg<BITS, D>;
   const uint32_t s2 = ld32(sc_s + g * kBN + c0);       // s[c0], s[c0 + 1]
   const uint32_t zw = z_s[g * C::kZeroWords + c0 / C::kPack];
   Consts q{0u, 0u, 0u, 0u};
-  if constexpr (AWQ) {
+  if constexpr (C::kAwq) {
     // c0 and c0 + 1 at nibbles r and r + 4 of their word, r = (c0 % 8) / 2.
     const uint32_t v = zw >> (2 * (c0 & 7));
     if constexpr (A8) {
@@ -2421,21 +2506,54 @@ __device__ __forceinline__ Consts group_consts(const __nv_bfloat16* sc_s,
   return q;
 }
 
+// K12, step b of a stage: dl and ml of the thread's columns c0 (low
+// halves of the rows' words) and c0 + 1, as f32 bits; -ml by its sign.
+template <int BITS, SDec D>
+__device__ __forceinline__ Consts q4k_consts(const uint32_t* stage, int b,
+                                             int c0) {
+  using C = Cfg<BITS, D>;
+  const uint32_t d2 = stage[C::kRowsOff + b * (kBN / 2) + c0 / 2];
+  const uint32_t m2 = stage[C::kRowsOff + (4 + b) * (kBN / 2) + c0 / 2];
+  return Consts{(m2 << 16) ^ 0x80000000u, (m2 & 0xffff0000u) ^ 0x80000000u,
+                d2 << 16, d2 & 0xffff0000u};
+}
+
+// K16: the byte offsets in the codebook of lane (warp, gid, t)'s entries,
+// without the code (`lut_offset` ors it in): kLut copy t, the column pair p
+// = 8 warp + gid at p ^ 8t (s0); kLutX32 copy t / 2, column c0 + (t & 1)
+// (s0) and c0 + 1 - (t & 1) (s1) at n ^ 16 (t / 2).
+template <SDec D>
+__device__ __forceinline__ Consts lut_lanes(int warp, int gid, int t) {
+  Consts q{0u, 0u, 0u, 0u};
+  if constexpr (D == SDec::kLut) {
+    const int p = 8 * warp + gid;
+    q.s0 = static_cast<uint32_t>(4096 * t + 4 * (p ^ (8 * t)));
+  } else {
+    const int u = t >> 1, odd = t & 1, c0 = 16 * warp + 2 * gid;
+    q.s0 = static_cast<uint32_t>(8192 * u + 4 * ((c0 + odd) ^ (16 * u)));
+    q.s1 = static_cast<uint32_t>(8192 * u + 4 * ((c0 + 1 - odd) ^ (16 * u)));
+  }
+  return q;
+}
+
 // This thread's A fragments of k32 step b of a stage: bf16 a[s] for the
 // two m16n8k16 steps (a[s][2h] column c0 and a[s][2h + 1] column c0 + 1 at
 // rows 8t + 2s + h and 8t + 2s + h + 4), s8 a[0] for the m16n8k32 (a[0][0]
 // and a[0][1] rows 8t + 0, 2, 4, 6 of c0 and c0 + 1, a[0][2] and a[0][3]
-// the odd rows).
-template <int BITS, bool AWQ, bool A8>
-__device__ __forceinline__ void step_fragments(const uint32_t* stage, int b,
-                                               int warp, int gid, int t,
-                                               const Consts& q,
-                                               uint32_t (&a)[2][4]) {
-  using C = Cfg<BITS, AWQ>;
+// the odd rows); kLutX32 the hi halves in a, the lo halves in al. `lut`:
+// K16's codebook.
+template <int BITS, SDec D, bool A8>
+__device__ __forceinline__ void step_fragments(const uint32_t* stage,
+                                               const unsigned char* lut,
+                                               int b, int warp, int gid,
+                                               int t, const Consts& q,
+                                               uint32_t (&a)[2][4],
+                                               uint32_t (&al)[2][4]) {
+  using C = Cfg<BITS, D>;
   using gemm::bf2_mul;
   using gemm::bf2_sub;
   using gemm::nib2;
-  if constexpr (AWQ) {
+  if constexpr (C::kAwq) {
     // Rows 32b + 8t + j of word column 2 warp + gid / 4, shifted so the
     // thread's columns sit at nibbles 0 and 4.
     const int wc = 2 * warp + (gid >> 2);
@@ -2475,6 +2593,62 @@ __device__ __forceinline__ void step_fragments(const uint32_t* stage, int b,
       a[0][1] = s8_codes(w.y, q.z1);
       a[0][2] = s8_codes(w.x >> 4, q.z0);
       a[0][3] = s8_codes(w.y >> 4, q.z1);
+    } else if constexpr (D == SDec::kQ4k) {
+      // bf16(q * dl - ml), q * dl exact, each step rounded in f32.
+      const float dl[2] = {__uint_as_float(q.s0), __uint_as_float(q.s1)};
+      const float nml[2] = {__uint_as_float(q.z0), __uint_as_float(q.z1)};
+      const uint32_t wc[2] = {w.x, w.y};
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const uint32_t v = nib2(wc[c] >> (8 * s + 4 * h));
+            const float q0 = __fsub_rn(__uint_as_float(v << 16), 128.f);
+            const float q1 =
+                __fsub_rn(__uint_as_float(v & 0xffff0000u), 128.f);
+            a[s][2 * h + c] = gemm::pack_bf2(
+                __fadd_rn(__fmul_rn(q0, dl[c]), nml[c]),
+                __fadd_rn(__fmul_rn(q1, dl[c]), nml[c]));
+          }
+    } else if constexpr (D == SDec::kLut) {
+      // Rows r and r + 4: the pair words' low halves (c0), high (c0 + 1).
+      auto e = [&](uint32_t v, int j) {
+        return ld32(lut + gemm::lut_offset<8>(v, j, q.s0));
+      };
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 2 * s + h;
+          a[s][2 * h] = __byte_perm(e(w.x, r), e(w.x, r + 4), 0x5410);
+          a[s][2 * h + 1] = __byte_perm(e(w.y, r), e(w.y, r + 4), 0x7632);
+        }
+    } else if constexpr (D == SDec::kLutX32) {
+      // Column A (c0 + odd) at s0, B at s1; the hi halves pair into a,
+      // the lo halves into al; odd lanes swap A and B back.
+      const bool odd = t & 1;
+      const uint32_t wa = odd ? w.y : w.x, wb = odd ? w.x : w.y;
+      auto e = [&](uint32_t v, int j, uint32_t col) {
+        return ld32(lut + gemm::lut_offset<9>(v, j, col));
+      };
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 2 * s + h;
+          const uint32_t a0 = e(wa, r, q.s0), a4 = e(wa, r + 4, q.s0);
+          const uint32_t b0 = e(wb, r, q.s1), b4 = e(wb, r + 4, q.s1);
+          const uint32_t ha = __byte_perm(a0, a4, 0x5410);
+          const uint32_t la = __byte_perm(a0, a4, 0x7632);
+          const uint32_t hb = __byte_perm(b0, b4, 0x5410);
+          const uint32_t lb = __byte_perm(b0, b4, 0x7632);
+          a[s][2 * h] = odd ? hb : ha;
+          a[s][2 * h + 1] = odd ? ha : hb;
+          al[s][2 * h] = odd ? lb : la;
+          al[s][2 * h + 1] = odd ? la : lb;
+        }
     } else {
 #pragma unroll
       for (int s = 0; s < 2; ++s)
@@ -2515,17 +2689,23 @@ __device__ __forceinline__ void step_fragments(const uint32_t* stage, int b,
 // Grid (N / kBN, m / (8 NT), splits), kThreads: row block y takes x rows
 // [8 NT y, + 8 NT). Split z covers k rows [z k_split,
 // min(K, (z + 1) k_split)), whole units of split_unit; without a split
-// (partial null) the bf16 result (a8: times xs[row]) goes to out, else the
-// f32 sums to partial[z][row][col].
-template <int BITS, bool AWQ, bool A8, int NT>
+// (partial null) the result goes to out (bf16, a8: times xs[row]; f32 for
+// kLutX32), else the f32 sums to partial[z][row][col]. K12: qzeros the ml
+// rows, scales the dl rows, gs 32; K16: scales the codebook [N, 16] (bf16,
+// or f32 for kLutX32), gs 32, no qzeros.
+template <int BITS, SDec D, bool A8, int NT>
 __global__ void __launch_bounds__(kThreads, 2)
 quant_stream_kernel(
     const void* __restrict__ x, const float* __restrict__ xs,
     const uint32_t* __restrict__ qweight, const uint32_t* __restrict__ qzeros,
-    const __nv_bfloat16* __restrict__ scales, __nv_bfloat16* __restrict__ out,
+    const void* __restrict__ scales, void* __restrict__ out,
     float* __restrict__ partial, int m, int K, int N, int gs, int k_split) {
-  using C = Cfg<BITS, AWQ>;
-  constexpr int ES = A8 ? 1 : 2;
+  using C = Cfg<BITS, D>;
+  constexpr bool X32 = D == SDec::kLutX32;
+  constexpr int ES = x_elem_bytes<D, A8>();
+  static_assert(!A8 || D == SDec::kGptq || D == SDec::kAwq,
+                "the a8 arm takes GPTQ and AWQ words");
+  static_assert(BITS == 4 || D == SDec::kGptq, "8-bit codes are GPTQ's");
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, t = lane & 3;
@@ -2539,33 +2719,38 @@ quant_stream_kernel(
   const int n_stages = (n_kb + 3) / 4;
   const int xrow = x_stride(k_rows, ES);
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
+  const unsigned char* lut_s = smem + C::kRingBytes;
   __nv_bfloat16* sc_s =
-      reinterpret_cast<__nv_bfloat16*>(smem + C::kRingBytes);
-  uint32_t* z_s = reinterpret_cast<uint32_t*>(sc_s + n_groups * kBN);
+      reinterpret_cast<__nv_bfloat16*>(smem + C::kRingBytes + C::kLutBytes);
+  uint32_t* z_s = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<unsigned char*>(sc_s) + n_groups * C::kScaleBytes);
   unsigned char* x_s =
       reinterpret_cast<unsigned char*>(z_s + n_groups * C::kZeroWords);
 
   // The split's scale and zero rows and x rows [0, m) of its K range, in
   // the first copy group. Rows past m are never stored: their products
   // land in outputs no one writes.
-  constexpr int kSc = kBN / 8, kZc = C::kZeroWords / 4;
-  for (int i = tid; i < n_groups * kSc; i += kThreads) {
-    const int g = i / kSc, c = i % kSc;
-    cp_async16(sc_s + g * kBN + c * 8,
-               scales + static_cast<size_t>(g_begin + g) * N + n0 + c * 8);
-  }
-  for (int i = tid; i < n_groups * kZc; i += kThreads) {
-    const int g = i / kZc, c = i % kZc;
-    cp_async16(z_s + g * C::kZeroWords + c * 4,
-               qzeros + static_cast<size_t>(g_begin + g) * (N / C::kPack) +
-                   n0 / C::kPack + c * 4);
+  if constexpr (C::kGroupRows) {
+    constexpr int kSc = kBN / 8, kZc = C::kZeroWords / 4;
+    const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scales);
+    for (int i = tid; i < n_groups * kSc; i += kThreads) {
+      const int g = i / kSc, c = i % kSc;
+      cp_async16(sc_s + g * kBN + c * 8,
+                 sc + static_cast<size_t>(g_begin + g) * N + n0 + c * 8);
+    }
+    for (int i = tid; i < n_groups * kZc; i += kThreads) {
+      const int g = i / kZc, c = i % kZc;
+      cp_async16(z_s + g * C::kZeroWords + c * 4,
+                 qzeros + static_cast<size_t>(g_begin + g) * (N / C::kPack) +
+                     n0 / C::kPack + c * 4);
+    }
   }
   const int rows = min(m - m0, 8 * NT);
   const int runs = k_rows * ES / 16;          // 16-byte runs of a row
   const unsigned char* xb = static_cast<const unsigned char*>(x) +
                             (static_cast<size_t>(m0) * K + k_begin) * ES;
   const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (x_vec)
+  if (!X32 && x_vec)
     for (int r = 0; r < rows; ++r)
       for (int c = tid; c < runs; c += kThreads)
         cp_async16(x_s + r * xrow + c * 16,
@@ -2576,7 +2761,7 @@ quant_stream_kernel(
       uint32_t* dst = ring + (st % C::kStages) * C::kStageWords;
       const int k0 = k_begin + st * kKC;
       const int rows_k = min(kKC, k_begin + k_rows - k0);
-      if constexpr (AWQ) {
+      if constexpr (C::kAwq) {
         constexpr int kCopies = kBN / 32;         // 16-byte copies a row
         const size_t ld = static_cast<size_t>(N / 8);
         const uint32_t* src = qweight + k0 * ld + n0 / 8;
@@ -2592,6 +2777,18 @@ quant_stream_kernel(
           const int r = i / kCopies, c = i % kCopies;
           cp_async16(dst + r * C::kRowWords + 4 * c,
                      src + static_cast<size_t>(r) * N + 4 * c);
+        }
+        if constexpr (D == SDec::kQ4k) {
+          // The stage's dl rows (`scales`) then its ml rows (`qzeros`),
+          // one a 32-row group, 16 copies a row.
+          const int g0 = k0 / 32, ng = rows_k / 32;
+          for (int i = tid; i < 2 * ng * 16; i += kThreads) {
+            const int h = i / (ng * 16), r = i / 16 % ng, c = i % 16;
+            const void* row = h ? static_cast<const void*>(qzeros) : scales;
+            cp_async16(dst + C::kRowsOff + (4 * h + r) * (kBN / 2) + c * 4,
+                       static_cast<const __nv_bfloat16*>(row) +
+                           static_cast<size_t>(g0 + r) * N + n0 + c * 8);
+          }
         }
       }
     }
@@ -2614,7 +2811,33 @@ quant_stream_kernel(
                         __byte_perm(v.y, v.w, 0x5410),
                         __byte_perm(v.y, v.w, 0x7632));
   };
-  if (!x_vec) {
+  if constexpr (X32) {
+    // f32 x, split once into bf16 hi and lo: each run of 8 k rows is 32
+    // bytes, the hi run in bf16 fragment order and the lo run after it.
+    const int runs8 = k_rows / 8;
+    const float* xf = static_cast<const float*>(x) +
+                      static_cast<size_t>(m0) * K + k_begin;
+    for (int i = tid; i < rows * runs8; i += kThreads) {
+      const int r = i / runs8, c = i % runs8;
+      const float* src = xf + static_cast<size_t>(r) * K + c * 8;
+      float v[8];
+      if (x_vec) {
+        const float4 p = reinterpret_cast<const float4*>(src)[0];
+        const float4 u = reinterpret_cast<const float4*>(src)[1];
+        v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
+        v[4] = u.x; v[5] = u.y; v[6] = u.z; v[7] = u.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = src[j];
+      }
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_bf16(v[j], v[j + 4], h[j], l[j]);
+      uint4* dst = reinterpret_cast<uint4*>(x_s + r * xrow + c * 32);
+      dst[0] = make_uint4(h[0], h[1], h[2], h[3]);
+      dst[1] = make_uint4(l[0], l[1], l[2], l[3]);
+    }
+  } else if (!x_vec) {
     // An unaligned view of x: byte loads, permuted on the way.
     for (int r = 0; r < rows; ++r)
       for (int c = tid; c < runs; c += kThreads) {
@@ -2628,6 +2851,39 @@ quant_stream_kernel(
         *reinterpret_cast<uint4*>(x_s + r * xrow + c * 16) =
             permute(make_uint4(w[0], w[1], w[2], w[3]));
       }
+  }
+  if constexpr (C::kLut) {
+    // K16's codebook, the block's 128 columns (see the header).
+    uint32_t* lut = reinterpret_cast<uint32_t*>(smem + C::kRingBytes);
+    if constexpr (X32) {
+      const int n = tid & 127, q0 = 8 * (tid >> 7);
+      const float* src = static_cast<const float*>(scales) +
+                         static_cast<size_t>(n0 + n) * 16 + q0;
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        uint32_t h, l;
+        split_bf16(__ldg(src + i), __ldg(src + i + 1), h, l);
+        const uint32_t e0 = __byte_perm(h, l, 0x5410);   // hi | lo << 16
+        const uint32_t e1 = __byte_perm(h, l, 0x7632);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          lut[u * 2048 + (q0 + i) * 128 + (n ^ (16 * u))] = e0;
+          lut[u * 2048 + (q0 + i + 1) * 128 + (n ^ (16 * u))] = e1;
+        }
+      }
+    } else {
+      const int p = tid & 63, q0 = 4 * (tid >> 6);
+      const uint16_t* src = static_cast<const uint16_t*>(scales) +
+                            static_cast<size_t>(n0 + 2 * p) * 16 + q0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t e = static_cast<uint32_t>(__ldg(src + i)) |
+                           static_cast<uint32_t>(__ldg(src + 16 + i)) << 16;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          lut[c * 1024 + (q0 + i) * 64 + (p ^ (8 * c))] = e;
+      }
+    }
   }
 
   float acc[NT][4];
@@ -2643,6 +2899,7 @@ quant_stream_kernel(
   const int c0 = warp * 16 + 2 * gid;          // the thread's columns
   const unsigned char* x_lane = x_s + gid * xrow + t * 8 * ES;
   Consts q{0u, 0u, 0u, 0u};
+  if constexpr (C::kLut) q = lut_lanes<D>(warp, gid, t);
   // The thread's group and its end, k from k_begin (the split may start
   // inside a group); a8: the group being summed.
   int sg = -1, sg_end = g_begin * gs - k_begin;
@@ -2680,7 +2937,7 @@ quant_stream_kernel(
   for (int st = 0; st < n_stages; ++st) {
     cp_async_wait<C::kStages - 2>();
     __syncthreads();              // stage st landed; stage st - 1 is free
-    if (st == 0 && x_vec) {       // x, the scale and zero rows landed too
+    if (!X32 && st == 0 && x_vec) {   // x, the scale and zero rows landed
       for (int r = 0; r < rows; ++r)
         for (int c = tid; c < runs; c += kThreads) {
           uint4* p = reinterpret_cast<uint4*>(x_s + r * xrow + c * 16);
@@ -2696,15 +2953,19 @@ quant_stream_kernel(
       if (b >= nb) break;
       const int kb = st * 4 + b;
       const int kk = kb * 32;
-      if (kk + 8 * t >= sg_end) {
-        do {
-          ++sg;
-          sg_end += gs;
-        } while (kk + 8 * t >= sg_end);
-        q = group_consts<BITS, AWQ, A8>(sc_s, z_s, sg, c0);
+      if constexpr (D == SDec::kQ4k) {
+        q = q4k_consts<BITS, D>(stage, b, c0);   // step b is one group
+      } else if constexpr (C::kGroupRows) {
+        if (kk + 8 * t >= sg_end) {
+          do {
+            ++sg;
+            sg_end += gs;
+          } while (kk + 8 * t >= sg_end);
+          q = group_consts<BITS, D, A8>(sc_s, z_s, sg, c0);
+        }
       }
-      uint32_t a[2][4];
-      step_fragments<BITS, AWQ, A8>(stage, b, warp, gid, t, q, a);
+      uint32_t a[2][4], al[2][4];
+      step_fragments<BITS, D, A8>(stage, lut_s, b, warp, gid, t, q, a, al);
       if constexpr (A8) {
         if (kk + 32 <= fg_end) {
           products_s8(a[0], kb);
@@ -2721,6 +2982,24 @@ quant_stream_kernel(
             if (fg_end - gs >= kk + 32) break;
           }
         }
+      } else if constexpr (X32) {
+        // The hi and lo runs of the step's 8 k rows; per k16, x_lo w_hi
+        // + x_hi w_lo + x_hi w_hi.
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          if (nt < n_nt) {
+            const uint4* xp = reinterpret_cast<const uint4*>(
+                x_lane + nt * 8 * xrow + kb * 128);
+            const uint4 xh = xp[0], xl = xp[1];
+            const uint32_t h0[2] = {xh.x, xh.y}, h1[2] = {xh.z, xh.w};
+            const uint32_t l0[2] = {xl.x, xl.y}, l1[2] = {xl.z, xl.w};
+            mma_bf16(acc[nt], a[0], l0);
+            mma_bf16(acc[nt], al[0], h0);
+            mma_bf16(acc[nt], a[0], h0);
+            mma_bf16(acc[nt], a[1], l1);
+            mma_bf16(acc[nt], al[1], h1);
+            mma_bf16(acc[nt], a[1], h1);
+          }
       } else {
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
@@ -2753,22 +3032,27 @@ quant_stream_kernel(
         *reinterpret_cast<float2*>(
             partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
             make_float2(v0, v1);
+      } else if constexpr (X32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(out) +
+                                   static_cast<size_t>(r) * N + col) =
+            make_float2(v0, v1);
       } else {
         const float rs = A8 ? xs[r] : 1.f;
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r) * N +
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
+                                           static_cast<size_t>(r) * N +
                                            col) =
             __floats2bfloat162_rn(v0 * rs, v1 * rs);
       }
     }
 }
 
-template <int BITS, bool AWQ, bool A8, int NT>
+template <int BITS, SDec D, bool A8, int NT>
 int run(const void* x, const float* xs, const void* qweight,
         const void* qzeros, const void* scales, void* out, float* partial,
         int m, int K, int N, int gs, int splits, int k_split,
         cudaStream_t stream) {
-  auto kernel = quant_stream_kernel<BITS, AWQ, A8, NT>;
-  const int smem = smem_bytes<BITS, AWQ, A8>(
+  auto kernel = quant_stream_kernel<BITS, D, A8, NT>;
+  const int smem = smem_bytes<BITS, D, A8>(
       k_split, split_groups(K, gs, k_split), NT);
   static int allowed = 48 * 1024;
   if (smem > allowed) {
@@ -2780,18 +3064,21 @@ int run(const void* x, const float* xs, const void* qweight,
   kernel<<<dim3(N / kBN, (m + 8 * NT - 1) / (8 * NT), splits), kThreads,
            smem, stream>>>(
       x, xs, static_cast<const uint32_t*>(qweight),
-      static_cast<const uint32_t*>(qzeros),
-      static_cast<const __nv_bfloat16*>(scales),
-      static_cast<__nv_bfloat16*>(out), splits > 1 ? partial : nullptr, m, K,
-      N, gs, k_split);
+      static_cast<const uint32_t*>(qzeros), scales, out,
+      splits > 1 ? partial : nullptr, m, K, N, gs, k_split);
   if (splits > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t total = static_cast<size_t>(m) * N;
-    split_reduce_kernel<__nv_bfloat16>
-        <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-            partial, A8 ? xs : nullptr, nullptr,
-            static_cast<__nv_bfloat16*>(out), splits, m, N);
+    const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
+    if constexpr (D == SDec::kLutX32) {
+      split_reduce_kernel<float><<<blocks, 256, 0, stream>>>(
+          partial, nullptr, nullptr, static_cast<float*>(out), splits, m, N);
+    } else {
+      split_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
+          partial, A8 ? xs : nullptr, nullptr,
+          static_cast<__nv_bfloat16*>(out), splits, m, N);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -2799,7 +3086,7 @@ int run(const void* x, const float* xs, const void* qweight,
 // block_m 8, 16, 32 or 64 rows (NT 1, 2 or 4 n-tiles; 64 as two 32-row
 // blocks); `splits` runs of whole units, as the wrapper's stream_plan
 // counted them (each non-empty).
-template <int BITS, bool AWQ, bool A8>
+template <int BITS, SDec D, bool A8>
 int launch(const void* x, const float* xs, const void* qweight,
            const void* qzeros, const void* scales, void* out, float* partial,
            int m, int K, int N, int gs, int splits, int block_m,
@@ -2817,63 +3104,23 @@ int launch(const void* x, const float* xs, const void* qweight,
   const int k_split = per * unit;
   switch (block_m) {
     case 8:
-      return run<BITS, AWQ, A8, 1>(x, xs, qweight, qzeros, scales, out,
-                                   partial, m, K, N, gs, splits, k_split,
-                                   stream);
+      return run<BITS, D, A8, 1>(x, xs, qweight, qzeros, scales, out,
+                                 partial, m, K, N, gs, splits, k_split,
+                                 stream);
     case 16:
-      return run<BITS, AWQ, A8, 2>(x, xs, qweight, qzeros, scales, out,
-                                   partial, m, K, N, gs, splits, k_split,
-                                   stream);
+      return run<BITS, D, A8, 2>(x, xs, qweight, qzeros, scales, out,
+                                 partial, m, K, N, gs, splits, k_split,
+                                 stream);
     case 32:
-      return run<BITS, AWQ, A8, 4>(x, xs, qweight, qzeros, scales, out,
-                                   partial, m, K, N, gs, splits, k_split,
-                                   stream);
     case 64:   // two 32-row blocks
-      return run<BITS, AWQ, A8, 4>(x, xs, qweight, qzeros, scales, out,
-                                   partial, m, K, N, gs, splits, k_split,
-                                   stream);
+      return run<BITS, D, A8, 4>(x, xs, qweight, qzeros, scales, out,
+                                 partial, m, K, N, gs, splits, k_split,
+                                 stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace streamed
-
-// The launcher the kernels share: `tile(TL{}, grid, partial)` launches the
-// kernel for block_m 16, 32 or 64 (one warp row: the skinny tiles, split
-// K) or 128 (two warp rows), over the output's 128-column blocks, its row
-// blocks and `splits`; `partial` is null without a split. With a split,
-// split_reduce_kernel then adds the f32 partials (times xs for A8, times
-// the column scales cs for K17) into `out` of OutT.
-template <bool A8, typename OutT = __nv_bfloat16, typename LaunchTile>
-int launch_tiles(LaunchTile&& tile, int block_m, const float* xs, void* out,
-                 float* partial, int m, int N, int splits,
-                 cudaStream_t stream, const float* cs = nullptr) {
-  if (m <= 0) return static_cast<int>(cudaGetLastError());
-  float* part = splits > 1 ? partial : nullptr;
-  auto grid = [&](int bm) { return dim3(N / kBN, (m + bm - 1) / bm, splits); };
-  switch (block_m) {
-    case 16: tile(Tile<16, 1, A8>{}, grid(16), part); break;
-    case 32: tile(Tile<32, 1, A8>{}, grid(32), part); break;
-    case 64: tile(Tile<64, 1, A8>{}, grid(64), part); break;
-    case 128:   // K16 on f32 x only: no A8 tile takes 128 rows
-      if constexpr (A8) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      } else {
-        tile(Tile<128, 2, A8>{}, grid(128), part);
-        break;
-      }
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (splits > 1) {
-    const size_t total = static_cast<size_t>(m) * N;
-    const int threads = 256;
-    const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-    split_reduce_kernel<OutT><<<blocks, threads, 0, stream>>>(
-        partial, A8 ? xs : nullptr, cs, static_cast<OutT*>(out), splits, m,
-        N);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // GPTQ / AWQ: block_m 8-64 is K7 (quant_stream_kernel, `splits` runs of
 // whole units); 128 is K6 / K10 (quant_gemm_kernel, runs of groups) for
@@ -2885,9 +3132,10 @@ int launch(const void* x, const float* xs, const void* qweight,
            float* partial, int m, int K, int N, int gs, int splits,
            int block_m, cudaStream_t stream) {
   if (block_m != 128)
-    return streamed::launch<BITS, AWQ, A8>(x, xs, qweight, qzeros, scales,
-                                           out, partial, m, K, N, gs,
-                                           splits, block_m, stream);
+    return streamed::launch<BITS, AWQ ? streamed::SDec::kAwq
+                                     : streamed::SDec::kGptq, A8>(
+        x, xs, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
+        block_m, stream);
   if constexpr (A8) {
     static_assert(BITS == 4, "W4A8 takes 4-bit codes");
     return gemm::launch_w8a8<AWQ ? gemm::A8Dec::kAwq4
@@ -2902,73 +3150,50 @@ int launch(const void* x, const float* xs, const void* qweight,
   }
 }
 
-// GGUF and K17: the split unit is 64 rows (A16) or one scale group (A8),
-// as the wrapper's `_tiling` counted them; cs, K17's column scales (G 0).
-// Only the 16-64-row tiles run here: at m > 64 K13, K14, K15 and K17 run
-// quant_gemm_kernel<8, kQ8>, quant_gemm_kernel<8, kI8g>,
-// w8a8_gemm_kernel and quant_gemm_kernel<8, kInt8>.
+// GGUF and K17 at m <= 64 (int8_mma_kernel): block_m 16, 32 or 64 over
+// the output's 128-column blocks, its row blocks and `splits` runs of the
+// split unit, 64 rows (A16) or one scale group (A8), as the wrapper's
+// `_tiling` counted them; cs, K17's column scales (G 0). With a split,
+// split_reduce_kernel then adds the f32 partials (times xs for A8, times
+// cs for K17). At m > 64 K13, K14, K15 and K17 run quant_gemm_kernel<8,
+// kQ8>, quant_gemm_kernel<8, kI8g>, w8a8_gemm_kernel and
+// quant_gemm_kernel<8, kInt8>.
 template <int G, bool A8>
 int launch_int8(const void* x, const float* xs, const void* qs,
                 const void* scales, void* out, float* partial, int m, int K,
                 int N, int splits, int block_m, cudaStream_t stream,
                 const float* cs = nullptr) {
-  if (m > 0 && (K % (A8 ? G : kChunk) != 0 || N % kBN != 0 ||
-                block_m == 128))
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  if (K % (A8 ? G : kChunk) != 0 || N % kBN != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kUnitChunks = A8 ? G / kChunk : 1;
   const int units = K / (kChunk * kUnitChunks);
   const int per = (units + splits - 1) / splits;
-  return launch_tiles<A8>(
-      [&](auto tl, dim3 grid, float* part) {
-        using TL = decltype(tl);
-        if constexpr (TL::BM != 128) {
-          int8_mma_kernel<TL, G><<<grid, kThreads, 0, stream>>>(
-              static_cast<const typename TL::T*>(x), xs,
-              static_cast<const uint32_t*>(qs),
-              static_cast<const __nv_bfloat16*>(scales),
-              static_cast<__nv_bfloat16*>(out), part, m, K, N,
-              per * kUnitChunks, cs);
-        }
-      },
-      block_m, xs, out, partial, m, N, splits, stream, cs);
-}
-
-// K12 and K16: the split unit is 64 rows. The dynamic shared memory above
-// 48 KB (the f32 variant) is allowed once per kernel instance. K16 on f32
-// x (QuIP#) takes every tile here; K12 and K16 on bf16 x only the
-// 16-64-row tiles: at m > 64 they run quant_gemm_kernel<4, kQ4k> and
-// quant_gemm_kernel<4, kLut>.
-template <Nib MODE, bool X32>
-int launch_nib(const void* x, const void* qweight, const void* s0,
-               const void* s1, void* out, float* partial, int m, int K,
-               int N, int splits, int block_m, cudaStream_t stream) {
-  constexpr bool kSkinnyOnly = !(MODE == Nib::kLut && X32);
-  if (m > 0 && (K % kChunk != 0 || N % kBN != 0 ||
-                (kSkinnyOnly && block_m == 128)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  using OutT = typename std::conditional<X32, float, __nv_bfloat16>::type;
-  const int units = K / kChunk;
-  const int per = (units + splits - 1) / splits;
-  return launch_tiles<false, OutT>(
-      [&](auto tl, dim3 grid, float* part) {
-        using TL = decltype(tl);
-        if constexpr (!kSkinnyOnly || TL::BM != 128) {
-          auto kernel = nib_mma_kernel<TL, MODE, X32>;
-          constexpr int smem = nib_smem_bytes<TL, MODE, X32>();
-          if constexpr (smem > 48 * 1024) {
-            static bool allowed = false;
-            if (!allowed) {
-              cudaFuncSetAttribute(
-                  kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-              allowed = true;
-            }
-          }
-          kernel<<<grid, kThreads, smem, stream>>>(
-              x, static_cast<const uint32_t*>(qweight), s0, s1, out, part,
-              m, K, N, per);
-        }
-      },
-      block_m, nullptr, out, partial, m, N, splits, stream);
+  float* part = splits > 1 ? partial : nullptr;
+  auto tile = [&](auto tl) {
+    using TL = decltype(tl);
+    int8_mma_kernel<TL, G>
+        <<<dim3(N / kBN, (m + TL::BM - 1) / TL::BM, splits), kThreads, 0,
+           stream>>>(static_cast<const typename TL::T*>(x), xs,
+                     static_cast<const uint32_t*>(qs),
+                     static_cast<const __nv_bfloat16*>(scales),
+                     static_cast<__nv_bfloat16*>(out), part, m, K, N,
+                     per * kUnitChunks, cs);
+  };
+  switch (block_m) {
+    case 16: tile(Tile<16, 1, A8>{}); break;
+    case 32: tile(Tile<32, 1, A8>{}); break;
+    case 64: tile(Tile<64, 1, A8>{}); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (splits > 1) {
+    const size_t total = static_cast<size_t>(m) * N;
+    split_reduce_kernel<__nv_bfloat16>
+        <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+            partial, A8 ? xs : nullptr, cs,
+            static_cast<__nv_bfloat16*>(out), splits, m, N);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K9: one block per row. Pass 1 reduces |x| to the row's absmax, pass 2
@@ -3015,10 +3240,14 @@ extern "C" int quant_gemm_smem_bytes(int bits) {
 // kernel number: K8 (w8a8_gemm_kernel<kGptq4>), K11 (<kAwq4>), K12
 // (quant_gemm_kernel<4, kQ4k>), K13 (<8, kQ8>), K14 (<8, kI8g>), K15
 // (w8a8_gemm_kernel<kQs8>), K16 on bf16 x (<4, kLut>: its dynamic ring and
-// 16 KB static codebook tile) and K17 (<8, kInt8>); 0 for any other
-// number. Every `Dec` of quant_gemm_kernel answers here or in
+// 16 KB static codebook tile), K16 on f32 x (kernel 16 with f32 set: <4,
+// kLutX32>, its ring and 8 KB codebook tile) and K17 (<8, kInt8>); 0 for
+// any other number. Every `Dec` of quant_gemm_kernel answers here or in
 // quant_gemm_smem_bytes, every `A8Dec` of w8a8_gemm_kernel here.
-extern "C" int gguf_gemm_smem_bytes(int kernel) {
+extern "C" int gguf_gemm_smem_bytes(int kernel, int f32) {
+  if (f32) return kernel == 16
+                      ? gemm::Cfg<4, gemm::Dec::kLutX32>::kBlockSmemBytes
+                      : 0;
   switch (kernel) {
     case 8: return gemm::W8Cfg<gemm::A8Dec::kGptq4>::kSmemBytes;
     case 11: return gemm::W8Cfg<gemm::A8Dec::kAwq4>::kSmemBytes;
@@ -3146,7 +3375,8 @@ extern "C" int gguf_w8a8_mm(const void* x8, const float* xs, const void* qs8,
 // K12: y[m, N] = x[m, K] @ bf16(q * dl - ml), GGUF's exact Q4_K form: 4-bit
 // codes qweight [K / 8, N], bf16 dl and ml [K / 32, N]. block_m 128 is
 // quant_gemm_kernel<4, kQ4k> (`splits` runs of 64-row chunks, then
-// split_reduce_kernel); 16, 32 and 64 the skinny tiles.
+// split_reduce_kernel); 8, 16, 32 and 64 quant_stream_kernel<4, kQ4k>
+// (`splits` runs of 32 rows, as stream_plan counts them).
 extern "C" int gguf_q4k_mm(const void* x, const void* qweight, const void* dl,
                            const void* ml, void* out, float* partial, int m,
                            int K, int N, int splits, int block_m,
@@ -3155,14 +3385,15 @@ extern "C" int gguf_q4k_mm(const void* x, const void* qweight, const void* dl,
   if (block_m == 128)
     return gemm::launch_gemm<4, gemm::Dec::kQ4k>(
         x, qweight, ml, dl, out, partial, m, K, N, gemm::kBK, splits, st);
-  return launch_nib<Nib::kQ4K, false>(x, qweight, dl, ml, out, partial, m, K,
-                                      N, splits, block_m, st);
+  return streamed::launch<4, streamed::SDec::kQ4k, false>(
+      x, nullptr, qweight, ml, dl, out, partial, m, K, N, 32, splits,
+      block_m, st);
 }
 
 // K16, bf16: y[m, N] = x[m, K] @ w, w[k, n] = lut[n, q[k, n]], lut [N, 16]
 // bf16 (SqueezeLLM). block_m 128 is quant_gemm_kernel<4, kLut> (`splits`
-// runs of 64-row chunks, then split_reduce_kernel); 16, 32 and 64 the
-// skinny tiles.
+// runs of 64-row chunks, then split_reduce_kernel); 8, 16, 32 and 64
+// quant_stream_kernel<4, kLut> (`splits` runs of 32 rows).
 extern "C" int sqllm_mm(const void* x, const void* qweight, const void* lut,
                         void* out, float* partial, int m, int K, int N,
                         int splits, int block_m, void* stream) {
@@ -3171,18 +3402,28 @@ extern "C" int sqllm_mm(const void* x, const void* qweight, const void* lut,
     return gemm::launch_gemm<4, gemm::Dec::kLut>(
         x, qweight, nullptr, nullptr, out, partial, m, K, N, gemm::kBK,
         splits, st, lut);
-  return launch_nib<Nib::kLut, false>(x, qweight, lut, nullptr, out, partial,
-                                      m, K, N, splits, block_m, st);
+  return streamed::launch<4, streamed::SDec::kLut, false>(
+      x, nullptr, qweight, nullptr, lut, out, partial, m, K, N, 32, splits,
+      block_m, st);
 }
 
-// K16, f32: the same with f32 x, lut and y (QuIP#'s 4-bit at-rest form).
+// K16, f32: the same with f32 x, lut and y (QuIP#'s 4-bit at-rest form),
+// three bf16 products a term. block_m 128 is split_x32_kernel into xhl
+// (2 m K bf16 scratch), then quant_gemm_kernel<4, kLutX32> (`splits` runs
+// of 64-row chunks on 128 x 128 tiles, then split_reduce_kernel<float>);
+// 8, 16, 32 and 64 quant_stream_kernel<4, kLutX32> (`splits` runs of 32
+// rows; xhl unused).
 extern "C" int sqllm_mm_f32(const void* x, const void* qweight,
-                            const void* lut, void* out, float* partial,
-                            int m, int K, int N, int splits, int block_m,
-                            void* stream) {
-  return launch_nib<Nib::kLut, true>(x, qweight, lut, nullptr, out, partial,
-                                     m, K, N, splits, block_m,
-                                     static_cast<cudaStream_t>(stream));
+                            const void* lut, void* xhl, void* out,
+                            float* partial, int m, int K, int N, int splits,
+                            int block_m, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_m == 128)
+    return gemm::launch_gemm_x32(static_cast<const float*>(x), qweight, lut,
+                                 xhl, out, partial, m, K, N, splits, st);
+  return streamed::launch<4, streamed::SDec::kLutX32, false>(
+      x, nullptr, qweight, nullptr, lut, out, partial, m, K, N, 32, splits,
+      block_m, st);
 }
 
 // K17: y[m, N] = bf16((x[m, K] @ int8 w[K, N]) * scales[N]), scales f32.

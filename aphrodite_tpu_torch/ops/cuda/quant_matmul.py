@@ -47,18 +47,24 @@ Port of the GPTQ, AWQ and GGUF parts of
 - `gguf_q4k_matmul` (K12, Pallas `_gguf_q4k_kernel`; GGUF's exact Q4_K
   form): 4-bit codes qweight [K/8, N] (8 along K), w = q * dl - ml with
   affine rows dl, ml [K/32, N] per 32 input rows, taken in f32 and
-  rounded to x's dtype; bf16 products with f32 sums. At m > 64 K6's
-  `quant_gemm_kernel` with K12's decoder (GPTQ's 4-bit words, a (dl,
-  ml) pair per 32 rows), planned as K13's.
+  rounded to x's dtype; bf16 products with f32 sums. At m <= 64 K7's
+  `quant_stream_kernel` with K12's decoder (GPTQ's word map, a (dl, ml)
+  pair per 32 rows in place of the scale and zero rows), planned by
+  `stream_plan` over 32-row units; above, K6's `quant_gemm_kernel` with
+  the same words, planned as K13's.
 - `squeezellm_matmul` (K16, Pallas `_sqllm_kernel`): the same 4-bit
   packing, w[k, n] = lut[n, q[k, n]] with a 16-entry codebook per output
-  column. bf16 x and codebook (SqueezeLLM): the skinny tiles at m <= 64;
-  above, K6's `quant_gemm_kernel` with a codebook decoder (K12's words,
-  the block's codebook slice in shared memory), planned as K13's. f32 x
-  and codebook (QuIP#'s 4-bit at-rest form): one kernel at every m,
-  whose products reach f32 accuracy by three bf16 products per term
-  (x_hi w_hi + x_hi w_lo + x_lo w_hi) with f32 sums, 128-row blocks and
-  no split above 64 rows; the output is in x's dtype.
+  column. bf16 x and codebook (SqueezeLLM): at m <= 64 K7's
+  `quant_stream_kernel` with a codebook decoder (the block's codebook
+  in shared memory, laid out so a warp's lookups hit 32 banks), planned
+  by `stream_plan`; above, K6's `quant_gemm_kernel` with a codebook
+  decoder, planned as K13's. f32 x and codebook (QuIP#'s 4-bit at-rest
+  form): the same two kernels, whose products reach f32 accuracy by
+  three bf16 products per term (x_lo w_hi + x_hi w_lo + x_hi w_hi) with
+  f32 sums, x and the codebook split once into bf16 hi and lo: at m <=
+  64 x is split as it is staged; above, a pass splits x into a bf16
+  scratch [2m, K] and `quant_gemm_kernel` runs 128 x 128 tiles with hi
+  and lo W tiles (`gemm_plan` with 128-column tiles); the output is f32.
 - `int8_matmul` (K17, Pallas `_int8_kernel`): y = (x @ int8 W [K, N]) *
   scales[N], the codes exact in bf16, the f32 sum times the column's
   f32 scale, then rounded. The skinny tiles at m <= 64; above, K6's
@@ -124,9 +130,10 @@ SQUEEZELLM_MATMUL_LAUNCHES = build.launch_counter("squeezellm_matmul")
 SQUEEZELLM_MATMUL_F32_LAUNCHES = build.launch_counter(
     "squeezellm_matmul_f32")
 INT8_MATMUL_LAUNCHES = build.launch_counter("int8_matmul")
-#: K16's (bf16 x) and K17's m > 64 kernels (the two counters above count
-#: m <= 64; K16 on f32 x counts every m on its own).
+#: K16's (bf16 and f32 x) and K17's m > 64 kernels (the three counters
+#: above count m <= 64).
 SQUEEZELLM_GEMM_LAUNCHES = build.launch_counter("squeezellm_gemm")
+SQUEEZELLM_F32_GEMM_LAUNCHES = build.launch_counter("squeezellm_f32_gemm")
 INT8_GEMM_LAUNCHES = build.launch_counter("int8_gemm")
 #: The reduce after a split K6, K8, K10 or K11-K17 launch (`gemm_plan`,
 #: `a8_gemm_plan`).
@@ -136,6 +143,7 @@ STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
 BLOCK_N = 128              # output columns per block
 GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K12-K14 / K16 / K17
 W8A8_BLOCK_N = 128         # K8's, K11's and K15's at m > 64: 128 x 128
+X32_BLOCK_N = 128          # K16's on f32 x at m > 64: 128 x 128
 A8_CHUNK = 128             # their k rows a chunk
 _BLOCKS_PER_SM = 4         # split-K target: this many blocks per SM
 STREAM_BLOCK_N = 128       # K7's output columns per block (8 warps x 16)
@@ -461,8 +469,8 @@ def gemm_plan(m: int, K: int, N: int, gs: int, sms: int,
               block_n: int = GEMM_BLOCK_N) -> Tuple[int, int]:
     """(splits, groups per split) of a warpgroup-MMA kernel's grid
     (N / block_n, m / 128, splits): K6 / K10 (groups of gs rows), K12-K14,
-    K16 and K17 (64-row chunks) and K15 (128-row groups, block_n 128),
-    from shapes
+    K16 and K17 (64-row chunks; K16 on f32 x block_n 128) and K15 (128-row
+    groups, block_n 128), from shapes
     and the card's SM count alone (no host sync, so a CUDA graph can
     capture the launch). Where the 128 x block_n output tiles fall short
     of the SMs, the groups are split into contiguous runs so that tiles
@@ -491,14 +499,13 @@ def a8_gemm_plan(m: int, K: int, N: int, gs: int, sms: int
 
 def _tiling(m: int, K: int, N: int, gs: int, stream: bool, sms: int
             ) -> Tuple[int, int]:
-    """(block_m, splits) of the launchers that tile 128 columns, on a
-    card of `sms` SMs: K12-K17's skinny tiles (`int8_mma_kernel`,
-    `nib_mma_kernel`) over split units of `gs` rows; without `stream`,
-    128 rows and no split. The skinny tiles take the least of 16/32/64
-    rows that covers m, and split the units over enough blocks to give
-    each SM four, but no further than keeps the f32 partial sums
-    (written and read once) below the weight's own bytes. K7 has its own
-    plan, `stream_plan`."""
+    """(block_m, splits) of K13-K15's and K17's skinny tiles
+    (`int8_mma_kernel`) on a card of `sms` SMs, over split units of `gs`
+    rows; without `stream`, 128 rows and no split. The skinny tiles take
+    the least of 16/32/64 rows that covers m, and split the units over
+    enough blocks to give each SM four, but no further than keeps the f32
+    partial sums (written and read once) below the weight's own bytes.
+    K7, K12 and K16 have their own plan, `stream_plan`."""
     if not stream:
         return 128, 1
     if m > STREAM_M_MAX:
@@ -525,20 +532,21 @@ def stream_unit(gs: int) -> int:
 
 
 def stream_plan(m: int, K: int, N: int, gs: int, sms: int, bits: int = 4,
-                a8: bool = False) -> Tuple[int, int]:
-    """(block_m, splits) of K7 (`quant_stream_kernel`) on a card of `sms`
-    SMs, from shapes alone (no host sync, so a CUDA graph can capture the
-    launch). block_m is the least of 8/16/32/64 rows that covers m (1, 2
-    or 4 n-tiles of the mma; 64 as two 32-row blocks); the grid is (N /
-    128, row blocks, splits), each split a run of whole units of
-    `stream_unit` rows, none empty. Splits aim
-    at four blocks per SM, but no further than keeps the f32 partial
-    sums (splits x m x N x 4 bytes) within a tenth of the packed weight's
-    bytes, unless that leaves SMs without a block (N / 128 x splits <
-    sms: m above 8 or so at N 4096), and no fewer than keep each block's
-    resident x (up to 32 rows of its K range, bf16 or, with `a8`, int8)
-    within `_STREAM_X_BYTES`. Raises on shapes the kernel does not take:
-    gs a multiple of 8, K of the unit."""
+                x_bytes: int = 2) -> Tuple[int, int]:
+    """(block_m, splits) of `quant_stream_kernel` (K7; K12 and K16 at
+    m <= 64, with gs 32) on a card of `sms` SMs, from shapes alone (no
+    host sync, so a CUDA graph can capture the launch). block_m is the
+    least of 8/16/32/64 rows that covers m (1, 2 or 4 n-tiles of the mma;
+    64 as two 32-row blocks); the grid is (N / 128, row blocks, splits),
+    each split a run of whole units of `stream_unit` rows, none empty.
+    Splits aim at four blocks per SM, but no further than keeps the f32
+    partial sums (splits x m x N x 4 bytes) within a tenth of the packed
+    weight's bytes, unless that leaves SMs without a block (N / 128 x
+    splits < sms: m above 8 or so at N 4096), and no fewer than keep each
+    block's resident x (up to 32 rows of its K range, `x_bytes` an
+    element: 2 for bf16, 1 for the a8 arms' int8, 4 for f32 x held as
+    bf16 hi and lo) within `_STREAM_X_BYTES`. Raises on shapes the kernel
+    does not take: gs a multiple of 8, K of the unit."""
     if m > STREAM_M_MAX:
         raise ValueError(f"the streamed kernel takes m <= {STREAM_M_MAX}, "
                          f"got {m} (use stream=False)")
@@ -550,7 +558,7 @@ def stream_plan(m: int, K: int, N: int, gs: int, sms: int, bits: int = 4,
                          f"of 8 rows and K a multiple of its {unit}-row "
                          f"split unit, got group {gs}, K {K}")
     units = K // unit
-    per_x = _STREAM_X_BYTES // (rows * unit * (1 if a8 else 2))
+    per_x = _STREAM_X_BYTES // (rows * unit * x_bytes)
     least = -(-units // per_x)             # splits x needs
     blocks = N // STREAM_BLOCK_N * -(-max(m, 1) // rows)
     fill = -(-sms * _BLOCKS_PER_SM // blocks)
@@ -566,7 +574,7 @@ def _plan(m: int, K: int, N: int, gs: int, stream: bool, a8: bool,
     streamed, else 128 rows, split by `gemm_plan` (K6 / K10) or
     `a8_gemm_plan` (K8 / K11)."""
     if stream:
-        return stream_plan(m, K, N, gs, sms, bits, a8)
+        return stream_plan(m, K, N, gs, sms, bits, 1 if a8 else 2)
     plan = a8_gemm_plan if a8 else gemm_plan
     return GEMM_BLOCK_M, plan(m, K, N, gs, sms)[0]
 
@@ -620,16 +628,19 @@ def gemm_smem_bytes(bits: int) -> int:
     return int(fn(bits))
 
 
-def gguf_gemm_smem_bytes(kernel: int) -> int:
+def gguf_gemm_smem_bytes(kernel: int, f32: bool = False) -> int:
     """The shared memory per block of the m > 64 kernel of K8 and
-    K11-K17 (`kernel`, the number): its launcher's dynamic request, plus
-    K16's static 16 KB codebook tile."""
-    if kernel not in (8, 11, 12, 13, 14, 15, 16, 17):
-        raise ValueError(f"no m > 64 kernel K{kernel}")
+    K11-K17 (`kernel`, the number; with `f32`, K16's on f32 x): its
+    launcher's dynamic request, plus K16's static codebook tile (16 KB,
+    8 KB on f32 x)."""
+    if kernel not in (8, 11, 12, 13, 14, 15, 16, 17) or \
+            (f32 and kernel != 16):
+        raise ValueError(f"no m > 64 kernel K{kernel}"
+                         + (" on f32 x" if f32 else ""))
     fn = build.library("quant_matmul").gguf_gemm_smem_bytes
-    fn.argtypes = [ctypes.c_int]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
-    return int(fn(kernel))
+    return int(fn(kernel, int(f32)))
 
 
 def _resolve_stream(stream, m: int) -> bool:
@@ -779,28 +790,24 @@ def _check_gguf(x, qs, scales, G: int, what: str,
     return m, K, N
 
 
-def _tiled_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
-                  N: int, unit: int, out_dtype: torch.dtype, *,
-                  counter: build.LaunchCounter, what: str) -> torch.Tensor:
-    """One launch of a GGUF, K12, K16 or K17 entry point: `ptrs` are its
-    input pointers, x [m, K] first. At m <= 64 the block covers 16-64
-    rows and the K range is split over blocks in units of `unit` rows,
-    as `_tiling` splits K7's; above (K16 on f32 x), 128-row blocks and
-    no split."""
+def _entry_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
+                  N: int, block_m: int, splits: int,
+                  out_dtype: torch.dtype, *, counter: build.LaunchCounter,
+                  what: str) -> torch.Tensor:
+    """One launch of a GGUF, K12, K16 or K17 entry point (its input
+    pointers `ptrs`, x [m, K] first, then out, partial, m, K, N, splits,
+    block_m and the stream) with the plan given; `counter` counts it, and
+    the split reduce where a 128-row launch splits."""
     m, K = x.shape
-    block_m, splits = _tiling(m, K, N, unit, m <= STREAM_M_MAX,
-                              build.sm_count(x.device))
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     partial = torch.empty((splits, m, N), dtype=torch.float32,
                           device=x.device) if splits > 1 else None
     ptrs = ptrs + (out.data_ptr(), build.ptr(partial))
-    tail = (m, K, N, splits, block_m)
-    fn = getattr(build.library("quant_matmul"), entry)
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
-        [ctypes.c_int] * len(tail) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(*ptrs, *tail, build.stream_of(x))
+    err = _entry(entry, len(ptrs), 5)(*ptrs, m, K, N, splits, block_m,
+                                      build.stream_of(x))
     counter.add()
+    if block_m == GEMM_BLOCK_M and splits > 1:
+        QUANT_GEMM_REDUCE_LAUNCHES.add()
     build.check(err, what)
     return out
 
@@ -808,33 +815,35 @@ def _tiled_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
 def _launch_by_m(entry: str, x, ptrs: Tuple[int, ...], N: int, *,
                  counter: build.LaunchCounter,
                  gemm_counter: build.LaunchCounter, what: str,
-                 w8a8: bool = False) -> torch.Tensor:
+                 w8a8: bool = False, streamed: bool = False,
+                 block_n: int = GEMM_BLOCK_N) -> torch.Tensor:
     """One launch of an entry point with an m > 64 warpgroup-MMA kernel
-    (K12-K15, K16 on bf16 x, K17) on bf16 x or, with `w8a8`, K9's int8
-    rows x; `ptrs` are its input pointers, x first.
-    At m <= 64 the skinny tiles, split in units of 64 rows or (w8a8) of
-    a 128-row scale group, counting on `counter`; above, the
-    warpgroup-MMA kernel planned by `gemm_plan` over the same units (a
-    split reduce after it where it splits), counting on
-    `gemm_counter`."""
+    (K12-K17) on x, bf16, f32 (K16 on f32 x, whose output is f32) or,
+    with `w8a8`, K9's int8 rows; `ptrs` are its input pointers, x first.
+    At m <= 64, counting on `counter`: with `streamed` (K12, K16)
+    `quant_stream_kernel`, planned by `stream_plan` over 32-row units;
+    else the skinny tiles (`_tiling`), split in units of 64 rows or
+    (w8a8) of a 128-row scale group. Above, counting on `gemm_counter`:
+    the warpgroup-MMA kernel on 128 x `block_n` tiles, planned by
+    `gemm_plan` over the same units (a split reduce after it where it
+    splits)."""
     unit = 128 if w8a8 else 64
     m, K = x.shape
+    sms = build.sm_count(x.device)
+    out_dtype = torch.float32 if x.dtype == torch.float32 else \
+        torch.bfloat16
     if m <= STREAM_M_MAX:
-        return _tiled_launch(entry, x, ptrs, N, unit, torch.bfloat16,
+        if streamed:
+            block_m, splits = stream_plan(m, K, N, 32, sms, 4,
+                                          x.element_size())
+        else:
+            block_m, splits = _tiling(m, K, N, unit, True, sms)
+        return _entry_launch(entry, x, ptrs, N, block_m, splits, out_dtype,
                              counter=counter, what=what)
-    splits, _ = gemm_plan(m, K, N, unit, build.sm_count(x.device),
-                          block_n=W8A8_BLOCK_N if w8a8 else GEMM_BLOCK_N)
-    out = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((splits, m, N), dtype=torch.float32,
-                          device=x.device) if splits > 1 else None
-    ptrs = ptrs + (out.data_ptr(), build.ptr(partial))
-    err = _entry(entry, len(ptrs), 5)(*ptrs, m, K, N, splits, GEMM_BLOCK_M,
-                                      build.stream_of(x))
-    gemm_counter.add()
-    if splits > 1:
-        QUANT_GEMM_REDUCE_LAUNCHES.add()
-    build.check(err, what)
-    return out
+    splits, _ = gemm_plan(m, K, N, unit, sms,
+                          block_n=W8A8_BLOCK_N if w8a8 else block_n)
+    return _entry_launch(entry, x, ptrs, N, GEMM_BLOCK_M, splits, out_dtype,
+                         counter=gemm_counter, what=what)
 
 
 def gguf_q8_matmul(x: torch.Tensor, qs: torch.Tensor,
@@ -952,15 +961,19 @@ def gguf_q4k_matmul(x: torch.Tensor, qweight: torch.Tensor, dl: torch.Tensor,
                         (x.data_ptr(), qweight.data_ptr(), dl.data_ptr(),
                          ml.data_ptr()), N,
                         counter=GGUF_Q4K_MATMUL_LAUNCHES,
-                        gemm_counter=GGUF_Q4K_GEMM_LAUNCHES, what=what)
+                        gemm_counter=GGUF_Q4K_GEMM_LAUNCHES, what=what,
+                        streamed=True)
 
 
 def squeezellm_matmul(x: torch.Tensor, qweight: torch.Tensor,
                       lut: torch.Tensor) -> torch.Tensor:
     """y [m, N] = x [m, K] @ w, w[k, n] = lut[n, q[k, n]]: 4-bit codes
     qweight [K/8, N], a 16-entry codebook lut [N, 16] per output column
-    (K16). bf16 x and lut take the bf16 kernel (SqueezeLLM), f32 x and
-    lut the f32 one (QuIP#); y is in x's dtype."""
+    (K16). bf16 x and lut take the bf16 decoders (SqueezeLLM), f32 x and
+    lut the f32 ones (QuIP#: three bf16 products a term, f32 sums): the
+    streamed kernel at m <= 64, the warpgroup-MMA kernel above (on f32 x
+    after a pass that splits x into bf16 hi and lo rows, in a scratch of
+    2 m K bf16); y is in x's dtype."""
     if not build.on_cuda(x, qweight, lut):
         return squeezellm_matmul_plain(x, qweight, lut)
     what = "squeezellm_matmul"
@@ -972,12 +985,18 @@ def squeezellm_matmul(x: torch.Tensor, qweight: torch.Tensor,
     _check_contiguous(what, x, qweight, lut)
     ptrs = (x.data_ptr(), qweight.data_ptr(), lut.data_ptr())
     if x.dtype == torch.float32:
-        return _tiled_launch("sqllm_mm_f32", x, ptrs, N, 64, x.dtype,
-                             counter=SQUEEZELLM_MATMUL_F32_LAUNCHES,
-                             what=what + "_f32")
+        # The gemm's scratch for x split into bf16 [hi; lo] rows.
+        xhl = torch.empty((2 * m, K), dtype=torch.bfloat16,
+                          device=x.device) if m > STREAM_M_MAX else None
+        return _launch_by_m("sqllm_mm_f32", x, ptrs + (build.ptr(xhl),), N,
+                            counter=SQUEEZELLM_MATMUL_F32_LAUNCHES,
+                            gemm_counter=SQUEEZELLM_F32_GEMM_LAUNCHES,
+                            what=what + "_f32", streamed=True,
+                            block_n=X32_BLOCK_N)
     return _launch_by_m("sqllm_mm", x, ptrs, N,
                         counter=SQUEEZELLM_MATMUL_LAUNCHES,
-                        gemm_counter=SQUEEZELLM_GEMM_LAUNCHES, what=what)
+                        gemm_counter=SQUEEZELLM_GEMM_LAUNCHES, what=what,
+                        streamed=True)
 
 
 def int8_matmul(x: torch.Tensor, weight: torch.Tensor,

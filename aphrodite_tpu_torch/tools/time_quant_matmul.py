@@ -5,15 +5,17 @@ flushed, the stream held by a device spin until the call is enqueued, so
 the wrapper's host time stays out; median of 20).
 
     python3 aphrodite_tpu_torch/tools/time_quant_matmul.py \\
-        [--kernels K6,K7,K8,K10,K11,K12,K13,K14,K15,K16,K17] [--ptxas] \
-        [TREE ...]
+        [--kernels K6,K7,K8,K9,K10,K11,K12,K13,K14,K15,K16,K16f32,K17] \\
+        [--ptxas] [TREE ...]
 
 Each TREE (default: this checkout) is a checkout of the repository, for
 example an earlier commit unpacked with `git archive` into a directory
 that .gitignore lists. Each is timed in a process of its own, with its
 own package and kernels (built into TREE/build/kernels), on the same
 inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096
-(K7: m 1, 8, 16, 32 and 64):
+(K7: m 1, 8, 16, 32 and 64; K12, K16, K16f32 and K17: m 1, 8, 16, 33,
+64, 72, 128, 512 and 4096, both of their kernels; K9: m 1, 8, 16, 32, 64
+and 4096):
 - K7, the decode product at m <= 64, its four arms: `gptq_matmul` and
   `awq_matmul` with `stream=True` ("K7 gptq", "K7 awq"; GPTQ also at 8
   bits, "K7 gptq8", and at group_size -1, one group of K rows, "K7
@@ -29,10 +31,16 @@ inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096
   same x (the launch `gptq_matmul_a8` and `awq_matmul_a8` make after K9,
   `stream=False`) on the same weights; beside them `torch._int_mm` on
   the same int8 shapes, as for K15;
-- K12, K16 and K17: `gguf_q4k_matmul`, `squeezellm_matmul` on bf16 x
-  and `int8_matmul` on `chip_smoke.late_weights` (random Q4_K codes, dl
-  and ml rows per 32 rows; random 4-bit codes with an N(0, 0.02) bf16
-  codebook per column; int8 codes with f32 column scales);
+- K9: `quantize_activations_int8` on each projection's x (bf16 [m, K]),
+  its bound the bytes (x read, the int8 rows and the f32 row scales
+  written) over 3.35 TB/s; no library call;
+- K12, K16, K16f32 and K17: `gguf_q4k_matmul`, `squeezellm_matmul` on
+  bf16 x, `squeezellm_matmul` on f32 x (QuIP#'s form) and `int8_matmul`
+  on `chip_smoke.late_weights` (random Q4_K codes, dl and ml rows per 32
+  rows; random 4-bit codes with an N(0, 0.02) bf16 codebook per column;
+  codes over the 12 E8P values with `chip_smoke.quip_lut`'s f32 table;
+  int8 codes with f32 column scales), K16f32's bound taking three bf16
+  products a term and 4-byte x and y;
 - K13 and K14: `gguf_q8_matmul` and `gguf_i8g_matmul` on
   `chip_smoke.gguf_weights` (codes in [-127, 127] with a scale row per
   32 rows; Q6_K-shaped codes with one per 16);
@@ -49,9 +57,10 @@ inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096
   512 tokens under torch.profiler (`chip_smoke.profile_prompt_round`):
   {"tree", "kernel", "device_ms", "quant_ms"}.
 Beside K12, K13, K14, K16 and K17, `torch.matmul` over the same weight
-dequantized to bf16 beforehand, K17's column scales folded in (the
-library yardstick of chip_smoke's phases 13 and 16). `--kernels` picks some of them (default: K6, K10,
-K14 and K15). To compare two trees within one call give them as A B B
+dequantized to bf16 beforehand (K16f32: to f32, on the f32 x), K17's
+column scales folded in (the library yardstick of chip_smoke's phases
+13 and 16). `--kernels` picks some of them (default: K6, K10, K14 and
+K15). To compare two trees within one call give them as A B B
 A. Prints the card's name and power limit, then one JSON object per
 tree, kernel, m and projection, {"tree", "kernel", "m", "proj", "ms"},
 and one per tree, kernel and m with the sum over the four projections
@@ -80,11 +89,13 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 
 MS = (72, 128, 512, 4096)
 K7_MS = (1, 8, 16, 32, 64)
+K9_MS = (1, 8, 16, 32, 64, 4096)
+LATE_MS = (1, 8, 16, 33, 64, 72, 128, 512, 4096)
 K7_ARMS = ("gptq", "gptq8", "gptq_gK", "gptq_a8", "awq", "awq_a8")
-KERNELS = ("K6", "K7", "K8", "K10", "K11", "K12", "K13", "K14", "K15",
-           "K16", "K17", "W4A8")
+KERNELS = ("K6", "K7", "K8", "K9", "K10", "K11", "K12", "K13", "K14",
+           "K15", "K16", "K16f32", "K17", "W4A8")
 LATE = {"K12": "gguf_q4k_matmul", "K16": "squeezellm_matmul",
-        "K17": "int8_matmul"}
+        "K16f32": "squeezellm_matmul", "K17": "int8_matmul"}
 DEFAULT = ("K6", "K10", "K14", "K15")
 
 
@@ -202,6 +213,30 @@ def time_k7(tree: str, torch, qmm, smoke, timer) -> None:
                                   "m": m, "layer_ms": yard[m]}), flush=True)
 
 
+def time_k9(tree: str, torch, qmm, smoke, timer) -> None:
+    """K9 per projection and per layer (the four projections' x, as
+    the W4A8 arms quantize them) beside its bytes bound."""
+    layer = dict.fromkeys(K9_MS, 0.0)
+    bound = dict.fromkeys(K9_MS, 0.0)
+    for seed, (proj, K, _) in enumerate(smoke.GPTQ_PROJ):
+        gen = torch.Generator(device="cuda").manual_seed(700 + seed)
+        x_all = torch.randn(max(K9_MS), K, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        for m in K9_MS:
+            x = x_all[:m]
+            ms = timer(lambda: qmm.quantize_activations_int8(x))
+            layer[m] += ms
+            bound[m] += (m * K * 2 + m * K + m * 4) / \
+                smoke.HBM_BYTES_PER_S * 1e3
+            print(json.dumps({"tree": tree, "kernel": "K9", "m": m,
+                              "proj": proj, "ms": ms}), flush=True)
+        del x_all
+    for m in K9_MS:
+        print(json.dumps({"tree": tree, "kernel": "K9", "m": m,
+                          "layer_ms": layer[m], "bound_ms": bound[m]}),
+              flush=True)
+
+
 def time_prompt_rounds(tree: str, torch, smoke) -> None:
     """The GPTQ and AWQ W4A8 prompt round (K9 + K8 or K11 at 2048 rows)
     on chip_smoke's e2e engine, the tree's package serving it."""
@@ -242,7 +277,7 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
     timer = smoke.Timer(torch)
 
     def emit(kernel, layer, bound=None):
-        for m in MS:
+        for m in layer:
             rec = {"tree": tree, "kernel": kernel, "m": m,
                    "layer_ms": layer[m]}
             if bound is not None:
@@ -256,10 +291,15 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
         if kernel == "W4A8":
             time_prompt_rounds(tree, torch, smoke)
             continue
-        layer = dict.fromkeys(MS, 0.0)
-        yard = dict.fromkeys(MS, 0.0)
-        t_bytes = dict.fromkeys(MS, 0.0)       # the bound's two terms
-        t_ops = dict.fromkeys(MS, 0.0)
+        if kernel == "K9":
+            time_k9(tree, torch, qmm, smoke, timer)
+            continue
+        ms_list = LATE_MS if kernel in LATE else MS
+        f32 = kernel == "K16f32"
+        layer = dict.fromkeys(ms_list, 0.0)
+        yard = dict.fromkeys(ms_list, 0.0)
+        t_bytes = dict.fromkeys(ms_list, 0.0)  # the bound's two terms
+        t_ops = dict.fromkeys(ms_list, 0.0)
         for seed, (proj, K, N) in enumerate(smoke.GPTQ_PROJ):
             key = kernel.lower()
             w16 = None
@@ -296,11 +336,13 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
                     w16 = (w[0].float() * w[1].float().repeat_interleave(
                         G, dim=0)).to(torch.bfloat16)
             gen = torch.Generator(device="cuda").manual_seed(400 + seed)
-            x_all = torch.randn(max(MS), K, generator=gen,
-                                device="cuda").to(torch.bfloat16)
-            for m in MS:
+            x_all = torch.randn(max(ms_list), K, generator=gen,
+                                device="cuda")
+            if not f32:
+                x_all = x_all.to(torch.bfloat16)
+            for m in ms_list:
                 x = x_all[:m]
-                ops = 2 * m * K * N
+                ops = 2 * m * K * N * (3 if f32 else 1)
                 if kernel in ("K6", "K10"):
                     ms = timer(lambda: fn(x, *w, stream=False, **kw))
                 elif kernel in ("K8", "K11"):
@@ -321,8 +363,9 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
                     ms = timer(lambda: fn(x, *w))
                     yard[m] += timer(lambda: torch.matmul(x, w16))
                 int8 = kernel in ("K8", "K11", "K15")
-                x_bytes = m * K + m * 4 if int8 else m * K * 2
-                t_bytes[m] += (x_bytes + w_bytes + m * N * 2) / \
+                size = 4 if f32 else 2
+                x_bytes = m * K + m * 4 if int8 else m * K * size
+                t_bytes[m] += (x_bytes + w_bytes + m * N * size) / \
                     smoke.HBM_BYTES_PER_S * 1e3
                 t_ops[m] += ops / (smoke.INT8_OPS_PER_S if int8
                                    else smoke.BF16_FLOPS_PER_S) * 1e3
@@ -333,11 +376,13 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
             if kernel in ("K8", "K11", "K15"):
                 del w_cm
             torch.cuda.empty_cache()
-        emit(kernel, layer, {m: max(t_bytes[m], t_ops[m]) for m in MS})
+        emit(kernel, layer,
+             {m: max(t_bytes[m], t_ops[m]) for m in ms_list})
         if kernel in ("K8", "K11", "K15"):
             emit(f"torch._int_mm on {kernel}'s int8 shapes", yard)
         elif kernel != "K6" and kernel != "K10":
-            emit(f"torch.matmul over {kernel}'s weight in bf16", yard)
+            emit(f"torch.matmul over {kernel}'s weight in "
+                 f"{'f32' if f32 else 'bf16'}", yard)
 
 
 def main() -> int:

@@ -12,7 +12,7 @@ Phases, in order; any failure exits non-zero:
    each source's `-Xptxas -v` report on one line, then K1's dynamic
    shared memory per block by page type and slot width, K6 / K10's
    (`quant_gemm_kernel`) at 4 and 8 bits, and that of the m > 64
-   kernels of K8, K11, K12-K15, K16 on bf16 x and K17.
+   kernels of K8, K11, K12-K15, K16 on bf16 and f32 x and K17.
 3. Kernels vs plain versions at the main path's shapes (Hq 32, Hkv 8,
    head_dim 128, bf16, 16- and 32-token pages):
    - paged decode attention, K1 (the ragged grid, called with the
@@ -193,36 +193,40 @@ Phases, in order; any failure exits non-zero:
    d16 read per 32 rows, or K13's d shifted by one group, must each miss
    2e-2.
 16. K12, K16 and K17 vs plain versions at the same four projections, m
-   1, 8, 64, 512 and 4096 (K12, K16 on bf16 x and K17 also at 65, 72,
-   128 and 256), through the wrappers the engine calls: `gguf_q4k_matmul`
-   (K12, random Q4_K codes with affine dl/ml rows per 32 input rows; at
-   m > 64 `quant_gemm_kernel<4, kQ4k>`), `squeezellm_matmul` on bf16 x
-   (K16, an N(0, 0.02) bf16 codebook per column; at m > 64
-   `quant_gemm_kernel<4, kLut>`) and on f32 x (K16's f32 kernel, QuIP#'s
-   E8P table times Wscale 0.05, codes over its 12 values) and
+   1, 8, 64, 512 and 4096 and 65, 72, 128 and 256, through the wrappers
+   the engine calls: `gguf_q4k_matmul` (K12, random Q4_K codes with
+   affine dl/ml rows per 32 input rows; at m <= 64
+   `quant_stream_kernel<4, kQ4k>`, above `quant_gemm_kernel<4, kQ4k>`),
+   `squeezellm_matmul` on bf16 x (K16, an N(0, 0.02) bf16 codebook per
+   column; `quant_stream_kernel<4, kLut>`, above `quant_gemm_kernel<4,
+   kLut>`) and on f32 x (QuIP#'s E8P table times Wscale 0.05, codes over
+   its 12 values; `quant_stream_kernel<4, kLutX32>`, above
+   `split_x32_kernel` and `quant_gemm_kernel<4, kLutX32>`) and
    `int8_matmul` (K17, int8 codes times f32 column scales; at m > 64
-   `quant_gemm_kernel<8, kInt8>`). At every m > 64 a control must miss
-   the tolerance: K12's plain version with dl and ml shifted by one
-   group, K16's with its codebook columns rolled by one, K17's with its
-   column scales rolled by one. Tolerance: phase 8's for bf16; K16 on
-   f32 x within 1e-4 of max |plain|. Timed as phase 13, with the plain
+   `quant_gemm_kernel<8, kInt8>`); each call must count one launch on
+   its kernel's counter (the m > 64 kernels on their own). At every
+   m > 64 a control must miss the tolerance: K12's plain version with dl
+   and ml shifted by one group, K16's with its codebook columns rolled by
+   one (on f32 x, QuIP#'s table the same in every column, its entries
+   rolled by one code), K17's with its column scales rolled by one. Tolerance: phase 8's
+   for bf16; K16 on f32 x within 1e-4 of max |plain| (its control must
+   pass that). Timed as phase 13, with the plain
    version and the library yardstick (torch.matmul over the weight
    dequantized beforehand: bf16, f32 for K16-f32, K17's scales folded
    in) at m 8 and 4096; the bound takes three bf16 products per term for
-   K16-f32. The m > 64 kernels' layer times (K12, K16, K17) at m 72,
-   128, 512 and 4096 are logged on one line.
+   K16-f32. The m > 64 kernels' layer times (K12, K16, K16-f32, K17) at
+   m 72, 128, 512 and 4096 are logged on one line.
 17. End to end with dummy weights at Mistral-7B width and depth, as
    SqueezeLLM (K16), int8 (K17; its int8 weights stay zero, as in the
    JAX package), QuIP# (K16 on f32 activations, no K17) and GGUF's exact
    Q4_K form (APHRODITE_GGUF_EXACT=1: K12, and none of K9, K13-K15):
    phase 4's mix at multi_step 1, in which every engine step must launch
    the arm's kernel a positive multiple of 128 times (4 projections x 32
-   layers; K12, K16 on bf16 x and K17 each counted with its m > 64
-   kernel, `gguf_q4k_gemm`, `squeezellm_gemm`, `int8_gemm`, which its arm
-   must launch and every other arm must not; QuIP#'s arm launches
-   `squeezellm_matmul_f32` at every m) and none of the other quantized
-   matmuls; the 96-request round (with the split reduce, but for
-   QuIP#'s);
+   layers; each arm's skinny kernel counted with its m > 64 kernel,
+   `gguf_q4k_gemm`, `squeezellm_gemm`, `squeezellm_f32_gemm` (QuIP#),
+   `int8_gemm`, which its arm must launch and every other arm must not)
+   and none of the other quantized matmuls; the 96-request round (with
+   the split reduce);
    a batch-8 decode step profiled as in phase 9 (with the kernel
    launches per step: QuIP#'s Hadamard transforms are eager torch ops).
 18. 2-layer models at Mistral-7B width through K12, K16, K16-f32 and K17
@@ -1051,7 +1055,7 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
                 if stream:
                     rows, splits = qmm.stream_plan(
                         m, K, N, GPTQ_GS, qmm.build.sm_count("cuda"), bits,
-                        kern == "k7a8")
+                        1 if kern == "k7a8" else 2)
                     what += (f"; plan: {rows}-row blocks of "
                              f"{qmm.STREAM_BLOCK_N} columns, {splits} "
                              "split(s)")
@@ -1303,9 +1307,10 @@ LATE_KERNELS = {"k12": ("gguf_q4k_matmul", 1117),
                 "k16f32": ("squeezellm_matmul_f32", 1630),
                 "k17": ("int8_matmul", 1706)}
 LATE_MATMULS = ("gguf_q4k_matmul", "squeezellm_matmul", "int8_matmul")
-# The counters of the m > 64 kernels of K12, K16 on bf16 x and K17.
+# The counters of the m > 64 kernels of K12, K16 (bf16 and f32 x) and
+# K17.
 LATE_GEMMS = {"k12": "gguf_q4k_gemm", "k16": "squeezellm_gemm",
-              "k17": "int8_gemm"}
+              "k16f32": "squeezellm_f32_gemm", "k17": "int8_gemm"}
 F32_RTOL = 1e-4                   # K16 on f32 x: of max |plain|
 
 
@@ -1383,10 +1388,27 @@ def check_close_f32(torch, got, want, what):
     return err
 
 
+def control_missed_f32(torch, qmm, got, bad, what: str, control: str,
+                       m: int, K: int, N: int, sms: int) -> str:
+    """K16 on f32 x at m > 64: fails unless the control `bad` misses
+    F32_RTOL of max |bad| against the kernel's output `got`; returns the
+    log's note of the plan (128 x 128 tiles) and the control's error."""
+    c_err = (got - bad).abs().max().item()
+    if c_err <= F32_RTOL * bad.abs().max().item():
+        fail(f"{what}: the control ({control}) is within tolerance of the "
+             "kernel")
+    splits, per = qmm.gemm_plan(m, K, N, 64, sms,
+                                block_n=qmm.X32_BLOCK_N)
+    return (f"; plan: 128 x {qmm.X32_BLOCK_N} tiles, {splits} split(s) of "
+            f"{per} x 64 rows; control max err {c_err:.6f}")
+
+
 def late_control(torch, qmm, key, x, args):
-    """The wrong plain version the m > 64 kernels of K12, K16 and K17 must
-    miss, and what it is: K12's dl and ml shifted by one group, K16's
-    codebook columns rolled by one, K17's column scales rolled by one."""
+    """The wrong plain version the m > 64 kernels of K12, K16 (bf16 and
+    f32 x) and K17 must miss, and what it is: K12's dl and ml shifted by
+    one group, K16's codebook columns rolled by one (on f32 x QuIP#'s
+    table entries rolled by one code), K17's column scales rolled by
+    one."""
     if key == "k12":
         qw, dl, ml = args
         return (qmm.gguf_q4k_matmul_plain(x, qw, torch.roll(dl, 1, 0),
@@ -1396,6 +1418,11 @@ def late_control(torch, qmm, key, x, args):
         qw, lut = args
         return (qmm.squeezellm_matmul_plain(x, qw, torch.roll(lut, 1, 0)),
                 "codebook columns rolled by one")
+    if key == "k16f32":
+        # QuIP#'s table is the same in every column: roll its codes.
+        qw, lut = args
+        return (qmm.squeezellm_matmul_plain(x, qw, torch.roll(lut, 1, 1)),
+                "table entries rolled by one code")
     w, s = args
     return (qmm.int8_matmul_plain(x, w, torch.roll(s, 1, 0)),
             "column scales rolled by one")
@@ -1404,9 +1431,10 @@ def late_control(torch, qmm, key, x, args):
 def check_and_time_late(torch, qmm, timer):
     """K12, K16 (bf16 x, and f32 x on QuIP#'s table) and K17 against
     their plain versions at the Mistral-7B projection shapes and m
-    1-4096 (K12, K16 on bf16 x and K17 also at GEMM_MS, where their m > 64
-    kernels split, with a control at every m > 64: `late_control`),
-    through the wrappers the engine calls; each timed like phase
+    1-4096 and GEMM_MS, where their m > 64 kernels split, with a control
+    at every m > 64 (`late_control`), through the wrappers the engine
+    calls, each call counted once on its kernel's counter (the skinny
+    one at m <= 64, LATE_GEMMS above); each timed like phase
     8, its plain version and the library call (torch.matmul over the
     weight dequantized beforehand: bf16, f32 for K16-f32, K17's scales
     folded in) at m 8 and 4096. Bound: the bytes over 3.35 TB/s, or the
@@ -1421,6 +1449,7 @@ def check_and_time_late(torch, qmm, timer):
                 bound_ops_ms=0.0, max_abs_err=0.0)
     layer_ms = {key: dict.fromkeys(GEMM_LOG_MS, 0.0) for key in LATE_GEMMS}
     sms = qmm.build.sm_count("cuda")
+    counters = qmm.build.COUNTERS
     for seed, (proj, K, N) in enumerate(GPTQ_PROJ):
         gen = torch.Generator(device="cuda").manual_seed(500 + seed)
         x_all = torch.randn(4096, K, generator=gen, device="cuda")
@@ -1431,27 +1460,35 @@ def check_and_time_late(torch, qmm, timer):
             args, w_lib = late_weights(torch, qmm, key, K, N, seed * 10 +
                                        len(key))
             xb = x_all if f32 else x_all.to(torch.bfloat16)
-            for m in sorted(GGUF_MS + (GEMM_MS if key in LATE_GEMMS
-                                       else ())):
+            for m in sorted(GGUF_MS + GEMM_MS):
                 x = xb[:m]
+                counter = counters[LATE_GEMMS[key] if m > 64 else name]
+                before = counter.count
                 got = wrapper(x, *args)
+                if counter.count != before + 1:
+                    fail(f"{name} {proj} m={m}: counter {counter.name} "
+                         f"moved by {counter.count - before}, not 1")
                 plain = plain_fn(x, *args)
                 what = f"{name} {proj} m={m}"
                 err = check_close_f32(torch, got, plain, what) if f32 \
                     else check_close(torch, got, plain, what)
                 plan = ""
-                if key in LATE_GEMMS and m > 64:
+                if m > 64:
                     bad, control = late_control(torch, qmm, key, x, args)
-                    plan = control_missed(torch, qmm, got, bad, what,
-                                          control, m, K, N, unit=64,
-                                          block_n=256, sms=sms)
+                    if f32:
+                        plan = control_missed_f32(torch, qmm, got, bad, what,
+                                                  control, m, K, N, sms)
+                    else:
+                        plan = control_missed(torch, qmm, got, bad, what,
+                                              control, m, K, N, unit=64,
+                                              block_n=256, sms=sms)
                 size = 4 if f32 else 2
                 nbytes = m * K * size + late_layer_bytes(key, K, N) + \
                     m * N * size
                 ops = 2 * m * K * N * (3 if f32 else 1)
                 torch.cuda.synchronize()
                 ms = timer(lambda: wrapper(x, *args))
-                if key in LATE_GEMMS and m in GEMM_LOG_MS:
+                if m in GEMM_LOG_MS:
                     layer_ms[key][m] += ms
                 b_ms, b_by = bound(nbytes, ops)
                 line = (f"{name} {proj} (K {K}, N {N}) m={m}: kernel "
@@ -1482,8 +1519,8 @@ def check_and_time_late(torch, qmm, timer):
     log("K12/K16/K17 vs plain: all cases within tolerance, every control "
         "missed it; per layer (4 projections) at m 8 and 4096: "
         + json.dumps(out))
-    log("K12 / K16 (bf16 x) / K17 m > 64 kernels, ms per layer (4 "
-        "projections) by m: " + json.dumps(layer_ms))
+    log("K12 / K16 (bf16 x) / K16 (f32 x) / K17 m > 64 kernels, ms per "
+        "layer (4 projections) by m: " + json.dumps(layer_ms))
     return out
 
 
@@ -1972,7 +2009,7 @@ def run_sliding_window(torch, counters, card: str):
 
 
 QUANT_KERNEL_NAMES = ("quant_stream_kernel", "int8_mma_kernel",
-                      "nib_mma_kernel", "split_reduce_kernel",
+                      "split_reduce_kernel", "split_x32_kernel",
                       "quant8_kernel", "quant_gemm_kernel",
                       "w8a8_gemm_kernel")
 
@@ -2104,10 +2141,9 @@ def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
     GGUF's exact Q4_K form (APHRODITE_GGUF_EXACT=1, K12): phase 4's mix
     at multi_step 1, where every engine step must launch the arm's
     kernel 4 * layers times (or a multiple; counted with its m > 64
-    kernel, where it has one) and none of the others, then the
-    96-request round (with the split reduce where the arm has an m > 64
-    kernel) and a profiled batch-8 decode step. Returns the launches by
-    path."""
+    kernel) and none of the others, then the 96-request round (its m > 64
+    kernel with the split reduce) and a profiled batch-8 decode step.
+    Returns the launches by path."""
     by_path = {}
     late_names = tuple(name for name, _ in LATE_KERNELS.values())
     for quantization, key, label, env in (
@@ -2123,15 +2159,14 @@ def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
             f"{engine.cache_config.num_gpu_blocks} KV pages (bf16 had "
             f"{bf16_pages})")
         tag = f"{label} "
-        # K12's, K16's (bf16 x) and K17's prompt rounds and wide decode
-        # steps take their m > 64 kernel, with the split reduce in the
-        # 96-request round; QuIP#'s K16 on f32 x has none.
-        gemm = (LATE_GEMMS[key],) if key in LATE_GEMMS else ()
+        # Every arm's prompt rounds and wide decode steps take its m > 64
+        # kernel, with the split reduce in the 96-request round.
+        gemm = (LATE_GEMMS[key],)
         absent = tuple(k for k in late_names + GGUF_MATMULS + GGUF_GEMMS +
                        tuple(LATE_GEMMS.values()) +
                        ("quantize_activations_int8",)
                        if k not in (kernel,) + gemm)
-        wide = ("quant_gemm_split_reduce",) + gemm if gemm else (kernel,)
+        wide = ("quant_gemm_split_reduce",) + gemm
         runs = [run_engine(torch, engine, 1, counters, card,
                            required=BF16_KERNELS + (kernel,) + gemm,
                            absent=absent, tag=tag,
@@ -2221,7 +2256,9 @@ def main() -> int:
         f"{qmm.gguf_gemm_smem_bytes(14)} B, K15 (w8a8_gemm_kernel: 128 x "
         f"128 tiles, 256 threads) {qmm.gguf_gemm_smem_bytes(15)} B, K16 on "
         f"bf16 x (<4, kLut>, its 16 KB static codebook tile included) "
-        f"{qmm.gguf_gemm_smem_bytes(16)} B, K17 (<8, kInt8>) "
+        f"{qmm.gguf_gemm_smem_bytes(16)} B, K16 on f32 x (<4, kLutX32>: "
+        f"128 x 128 tiles, its 8 KB codebook tile included) "
+        f"{qmm.gguf_gemm_smem_bytes(16, f32=True)} B, K17 (<8, kInt8>) "
         f"{qmm.gguf_gemm_smem_bytes(17)} B (the card allows {optin} B)")
 
     # 3. Kernels vs plain versions, and times.

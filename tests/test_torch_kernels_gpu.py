@@ -22,7 +22,9 @@ tolerance. K12, K16 on bf16 and K17 (bf16 outputs of
 f32 sums): 2e-2 + 2e-2 |plain|; their m > 64 kernels also dequantize
 bit for bit (identity rows of x). K16 on f32 x: within 1e-4 of max
 |plain| (three bf16 products per term keep about 16 mantissa bits of
-each operand; the plain version sums exact f32 products).
+each operand; the plain version sums exact f32 products); its m > 64
+kernel returns bf16 hi + lo of each f32 entry bit for bit (identity
+rows of x).
 The threefry draws (`modeling/layers/prng.py`): keys, bits and uniforms
 bit-equal to the same calls on the CPU, and the tokens drawn equal.
 """
@@ -943,6 +945,7 @@ _PACKED4 = {"q4k": ("gguf_q4k_matmul", "GGUF_Q4K_MATMUL_LAUNCHES"),
 # The counters of K12's, K16's (bf16 x) and K17's m > 64 kernels.
 _PACKED4_GEMM = {"q4k": "GGUF_Q4K_GEMM_LAUNCHES",
                  "lut": "SQUEEZELLM_GEMM_LAUNCHES",
+                 "lut32": "SQUEEZELLM_F32_GEMM_LAUNCHES",
                  "int8": "INT8_GEMM_LAUNCHES"}
 
 
@@ -951,10 +954,10 @@ _PACKED4_GEMM = {"q4k": "GGUF_Q4K_GEMM_LAUNCHES",
     (1, 4096, 6144), (8, 14336, 4096), (33, 512, 384), (64, 4096, 4096),
     (65, 256, 128), (300, 4096, 1024)])
 def test_k12_k16_k17_kernels_match_plain(dev, kind, m, K, N):
-    """Every tiling: 16-64-row blocks with split K (m <= 64); above, the
-    quant_gemm_kernel of K12, K16 on bf16 x and K17, and K16's f32
-    128-row blocks; the wrappers count one launch each, on their own
-    counter (K16's f32 kernel and the m > 64 kernels have their own)."""
+    """Every kernel: at m <= 64 quant_stream_kernel (K12, K16 on bf16 and
+    f32 x; 8-64-row blocks, split K) and int8_mma_kernel (K17); above,
+    quant_gemm_kernel; the wrappers count one launch each, on their own
+    counter (K16's f32 arms and the m > 64 kernels have their own)."""
     K = max(256, K // 256 * 256)
     args = _packed4_problem(dev, "lut" if kind == "lut32" else kind, m, K,
                             N, seed=m + K, f32=kind == "lut32")
@@ -1205,6 +1208,160 @@ def test_k17_gemm_dequantizes_exactly(dev):
         torch.cuda.synchronize()
         assert torch.equal((got + 0).view(torch.int16),
                            (w[r0:r0 + 128] + 0).view(torch.int16)), r0
+
+
+# K12 and K16 at m <= 64 (quant_stream_kernel<4, kQ4k / kLut / kLutX32):
+# (counter, the control: the plain version with K12's dl and ml rows
+# shifted by one 32-row group, or K16's codebook columns rolled by one).
+_STREAMED = {
+    "q4k": ("GGUF_Q4K_MATMUL_LAUNCHES",
+            lambda x, qw, dl, ml: tqm.gguf_q4k_matmul_plain(
+                x, qw, dl.roll(1, 0), ml.roll(1, 0))),
+    "lut": ("SQUEEZELLM_MATMUL_LAUNCHES",
+            lambda x, qw, lut: tqm.squeezellm_matmul_plain(
+                x, qw, lut.roll(1, 0))),
+    "lut32": ("SQUEEZELLM_MATMUL_F32_LAUNCHES",
+              lambda x, qw, lut: tqm.squeezellm_matmul_plain(
+                  x, qw, lut.roll(1, 0))),
+}
+
+
+def _close_f32(got, want):
+    """K16 on f32 x: finite, within 1e-4 of max |plain|."""
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
+def _misses_f32(got, want):
+    return (got - want).abs().max().item() > 1e-4 * want.abs().max().item()
+
+
+def _streamed_call(dev, kind, m, K, N, seed):
+    args = _packed4_problem(dev, "lut" if kind == "lut32" else kind, m, K,
+                            N, seed=seed, f32=kind == "lut32")
+    name = "gguf_q4k_matmul" if kind == "q4k" else "squeezellm_matmul"
+    return args, getattr(tqm, name), getattr(tqm, name + "_plain")
+
+
+@pytest.mark.parametrize("K,N", _PROJ)
+@pytest.mark.parametrize("m", [1, 3, 8, 17, 33, 64])
+@pytest.mark.parametrize("kind", list(_STREAMED))
+def test_k12_k16_stream_matches_plain(dev, kind, m, K, N):
+    """K12 and K16 (bf16 and f32 x) at m <= 64 on quant_stream_kernel at
+    Mistral-7B's projections: one launch on the skinny counter, the plan
+    splitting K over runs of 32-row units (which start and end inside
+    K12's 32-row dl/ml groups' runs and across K16's codebook rows), the
+    result within the tolerance and a control missing it."""
+    counter_name, control = _STREAMED[kind]
+    args, fn, plain = _streamed_call(dev, kind, m, K, N, seed=m + K + N)
+    counter = getattr(tqm, counter_name)
+    before = counter.count
+    got = fn(*args)
+    want = plain(*args)
+    bad = control(*args)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    x_bytes = 4 if kind == "lut32" else 2
+    assert tqm.stream_plan(m, K, N, 32, tqm.build.sm_count(dev), 4,
+                           x_bytes)[1] > 1
+    if kind == "lut32":
+        _close_f32(got, want)
+        assert _misses_f32(got, bad)
+    else:
+        _close(got, want)
+        assert _misses(got, bad)
+
+
+@pytest.mark.parametrize("kind", list(_STREAMED))
+@pytest.mark.parametrize("m,K,N", [(8, 4096, 6144), (33, 14336, 4096),
+                                   (5, 1024, 1152)])
+def test_k12_k16_stream_takes_views_of_x(dev, kind, m, K, N):
+    """K12 and K16 at m <= 64 on x given as a view at a row offset (the
+    cp.async path; f32 x 16-byte loads) and at an unaligned element
+    offset (element loads), against the plain version on a copy."""
+    args, fn, plain = _streamed_call(dev, kind, m + 8, K, N, seed=m)
+    x_all, w = args[0], args[1:]
+    for what, x in _views(x_all, m).items():
+        assert x.is_contiguous() and x.data_ptr() != x_all.data_ptr(), what
+        got = fn(x, *w)
+        want = plain(x.clone(), *w)
+        torch.cuda.synchronize()
+        if kind == "lut32":
+            _close_f32(got, want)
+        else:
+            _close(got, want)
+
+
+@pytest.mark.parametrize("m", [65, 72, 200, 300, 1000])
+@pytest.mark.parametrize("K,N", _PROJ + ((2048, 384), (1024, 1152)))
+def test_k16_f32_gemm_matches_plain(dev, m, K, N):
+    """K16 on f32 x at m > 64 (split_x32_kernel, then
+    quant_gemm_kernel<4, kLutX32> on 128 x 128 tiles) against its plain
+    version within 1e-4 of max |plain|; one launch on its m > 64 counter
+    and, where the plan splits, the split reduce; the control (codebook
+    columns rolled by one) must miss."""
+    x, qw, lut = _packed4_problem(dev, "lut", m, K, N, seed=m + K + N,
+                                  f32=True)
+    gemm, skinny = tqm.SQUEEZELLM_F32_GEMM_LAUNCHES, \
+        tqm.SQUEEZELLM_MATMUL_F32_LAUNCHES
+    before = (gemm.count, skinny.count, tqm.QUANT_GEMM_REDUCE_LAUNCHES.count)
+    got = tqm.squeezellm_matmul(x, qw, lut)
+    want = tqm.squeezellm_matmul_plain(x, qw, lut)
+    bad = tqm.squeezellm_matmul_plain(x, qw, lut.roll(1, 0))
+    torch.cuda.synchronize()
+    splits, _ = tqm.gemm_plan(m, K, N, 64, tqm.build.sm_count(dev),
+                              block_n=tqm.X32_BLOCK_N)
+    assert (gemm.count, skinny.count,
+            tqm.QUANT_GEMM_REDUCE_LAUNCHES.count) == \
+        (before[0] + 1, before[1], before[2] + int(splits > 1))
+    assert got.shape == (m, N)
+    _close_f32(got, want)
+    assert _misses_f32(got, bad)
+
+
+@pytest.mark.parametrize("m,K,N", [(72, 4096, 4096), (300, 14336, 4096),
+                                   (200, 1024, 1152)])
+def test_k16_f32_gemm_takes_views_of_x(dev, m, K, N):
+    """K16 on f32 x at m > 64 on x given as a view at a row offset (the
+    split pass's 16-byte loads) and at an unaligned element offset (its
+    element loads), against the plain version on a copy."""
+    x_all, qw, lut = _packed4_problem(dev, "lut", m + 8, K, N, seed=m,
+                                      f32=True)
+    for what, x in _views(x_all, m).items():
+        assert x.is_contiguous() and x.data_ptr() != x_all.data_ptr(), what
+        got = tqm.squeezellm_matmul(x, qw, lut)
+        want = tqm.squeezellm_matmul_plain(x.clone(), qw, lut)
+        torch.cuda.synchronize()
+        _close_f32(got, want)
+
+
+def test_k16_f32_gemm_dequantizes_exactly(dev):
+    """With f32 x rows of the identity (m 128), K16's m > 64 kernel on f32
+    x returns rows of its W tiles: bf16 hi + lo of each f32 codebook entry
+    (hi = bf16(w), lo = bf16(w - hi)) bit for bit, for entries of either
+    sign over 2^-30 .. 2^10 (the plan splits: the f32 reduce adds zeros to
+    each)."""
+    K, N = 1024, 1152
+    g = torch.Generator(device=dev).manual_seed(1632)
+    qw = torch.randint(-2 ** 31, 2 ** 31, (K // 8, N), generator=g,
+                       device=dev, dtype=torch.int64).to(torch.int32)
+    e = torch.randint(-30, 11, (N, 16), generator=g, device=dev)
+    lut = (1 + torch.rand(N, 16, generator=g, device=dev)) * \
+        torch.exp2(e.float()) * \
+        torch.where(torch.rand(N, 16, generator=g, device=dev) < 0.5,
+                    -1.0, 1.0)
+    lut[torch.rand(N, 16, generator=g, device=dev) < 0.05] = 0
+    hi = lut.to(torch.bfloat16).float()
+    lo = (lut - hi).to(torch.bfloat16).float()
+    w = tqm.squeezellm_dequantize_plain(qw, hi + lo, torch.float32)
+    assert tqm.gemm_plan(128, K, N, 64, tqm.build.sm_count(dev),
+                         block_n=tqm.X32_BLOCK_N)[0] > 1
+    for r0 in range(0, K, 128):
+        got = tqm.squeezellm_matmul(_identity_rows(dev, K, r0).float(), qw,
+                                    lut)
+        torch.cuda.synchronize()
+        assert torch.equal(got + 0, w[r0:r0 + 128] + 0), r0
 
 
 def test_k12_k16_k17_wrappers_refuse_what_the_kernels_do_not_take(dev):

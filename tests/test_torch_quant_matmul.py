@@ -527,12 +527,15 @@ def test_gguf_gemm_plan_table(m, K, N, unit, block_n, want):
 
 
 @pytest.mark.parametrize("sms", [132, 114, 66])
-@pytest.mark.parametrize("kernel", ["k12", "k13", "k14", "k15", "k16", "k17"])
+@pytest.mark.parametrize("kernel", ["k12", "k13", "k14", "k15", "k16",
+                                    "k16f32", "k17"])
 def test_gguf_gemm_plan_splits_start_on_a_unit_and_fit_the_sms(kernel, sms):
     """Every split starts on a 64-row chunk (K12-K14, K16, K17) or a
     128-row scale group (K15), none is empty, and where the plan splits,
-    tiles x splits stays within the SMs."""
-    unit, block_n = (128, 128) if kernel == "k15" else (64, 256)
+    tiles x splits stays within the SMs (K16 on f32 x: 128 x 128
+    tiles)."""
+    unit, block_n = (128, 128) if kernel == "k15" else \
+        (64, 128) if kernel == "k16f32" else (64, 256)
     for m in (65, 72, 96, 128, 129, 200, 256, 257, 512, 1000, 4096):
         for K, N in ((4096, 6144), (4096, 4096), (4096, 28672),
                      (14336, 4096), (2048, 384), (256, 128)):
@@ -1331,7 +1334,7 @@ def test_w8a8_awq_decoder_loads_hit_distinct_banks():
     (8, 3200, 4096, 200, False, (8, 4)),      # groups of 200: 800-row units
 ])
 def test_k7_stream_plan_table(m, K, N, gs, a8, want):
-    assert tqm.stream_plan(m, K, N, gs, 132, a8=a8) == want
+    assert tqm.stream_plan(m, K, N, gs, 132, x_bytes=1 if a8 else 2) == want
 
 
 @pytest.mark.parametrize("sms", [132, 114, 66])
@@ -1349,7 +1352,7 @@ def test_k7_stream_plan_splits_fit(sms):
                 for a8 in ((False, True) if bits == 4 else (False,)):
                     for m in (1, 2, 3, 8, 9, 16, 17, 33, 48, 64):
                         block_m, splits = tqm.stream_plan(
-                            m, K, N, gs, sms, bits, a8)
+                            m, K, N, gs, sms, bits, 1 if a8 else 2)
                         assert block_m == next(b for b in (8, 16, 32, 64)
                                                if m <= b)
                         unit = tqm.stream_unit(gs)
@@ -1367,7 +1370,8 @@ def test_k7_stream_plan_splits_fit(sms):
                             assert splits * m * N * 4 * 10 <= \
                                 K * N * bits // 8
                         assert tqm.stream_plan(m, K, N, gs, sms, bits,
-                                               a8) == (block_m, splits)
+                                               1 if a8 else 2) == \
+                            (block_m, splits)
 
 
 def test_k7_stream_plan_refuses_what_the_kernel_does_not_take():
@@ -1393,13 +1397,14 @@ def test_k7_stream_plan_serves_one_group_and_large_groups(m, gs):
         g = K if gs == -1 else gs
         assert tqm.stream_unit(g) == 32
         for a8 in (False, True):
-            block_m, splits = tqm.stream_plan(m, K, N, g, 132, 4, a8)
+            block_m, splits = tqm.stream_plan(m, K, N, g, 132, 4,
+                                              1 if a8 else 2)
             per = -(-(K // 32) // splits) * 32
             assert min(block_m, 32) * per * (1 if a8 else 2) <= \
                 tqm._STREAM_X_BYTES
             if K != 14336:
                 assert (block_m, splits) == tqm.stream_plan(
-                    m, K, N, 128, 132, 4, a8)
+                    m, K, N, 128, 132, 4, 1 if a8 else 2)
 
 
 def _k7_group_walk(K, gs, k_split, a8):
@@ -1455,7 +1460,8 @@ def test_k7_group_walk_takes_each_row_once_in_its_group(K, gs, m):
     arm each group a split touches is folded once, in group order, over
     exactly the split's rows of it."""
     for a8 in (False, True):
-        _, splits = tqm.stream_plan(m, K, 4096, gs, 132, 4, a8)
+        _, splits = tqm.stream_plan(m, K, 4096, gs, 132, 4,
+                                    1 if a8 else 2)
         unit = tqm.stream_unit(gs)
         k_split = -(-(K // unit) // splits) * unit
         seen = 0
@@ -1474,3 +1480,350 @@ def test_k7_group_walk_takes_each_row_once_in_its_group(K, gs, m):
                     assert rows == hi - lo
             seen += k_rows
         assert seen == K
+
+
+# ---- K12 and K16 at m <= 64 (quant_stream_kernel's kQ4k, kLut and
+# kLutX32 decoders), emulated ----
+#
+# The same ring stage and fragment map as K7's GPTQ 4-bit words (thread t
+# of a quad takes rows 8t .. 8t + 7 of a k32 step; `_k7_a_map`). K12 takes
+# each value through f32: bf16(f32(q) * dl - ml), the product and the
+# difference rounded separately; K16 looks each code up in the block's
+# codebook as the kernel stages it in shared memory (kLut: four copies of
+# [16 codes][64 column pairs], lane t reading copy t, pair p at p ^ 8t;
+# kLutX32: two copies of [16 codes][128 columns] of (hi | lo << 16), lane t
+# reading copy t // 2, column n at n ^ 16 (t // 2), odd lanes looking up
+# their columns in the other order).
+
+
+def _lut_tables(kind, lut):
+    """The kernel's shared codebook as 32-bit words, built by its staging
+    loop thread by thread (every word written once): kLut from the bf16
+    codebook's bits [128, 16], kLutX32 from the f32 codebook [128, 16]."""
+    words = np.full(4096, -1, np.int64)
+    for tid in range(256):
+        if kind == "lut":
+            p, q0 = tid & 63, 4 * (tid >> 6)
+            for i in range(4):
+                e = int(lut[2 * p, q0 + i]) | int(lut[2 * p + 1, q0 + i]) << 16
+                for c in range(4):
+                    at = c * 1024 + (q0 + i) * 64 + (p ^ (8 * c))
+                    assert words[at] == -1
+                    words[at] = e
+        else:
+            n, q0 = tid & 127, 8 * (tid >> 7)
+            for i in range(8):
+                v = np.float32(lut[n, q0 + i])
+                hi = int(_bf16_bits(np.float64(v))[()])
+                lo = int(_bf16_bits(np.float64(
+                    v - np.float32(_bf16_bits_to_f64(np.array([hi]))[0])))[()])
+                for u in range(2):
+                    at = u * 2048 + (q0 + i) * 128 + (n ^ (16 * u))
+                    assert words[at] == -1
+                    words[at] = hi | lo << 16
+    assert (words >= 0).all()
+    return words.astype(np.uint64)
+
+
+def _lut_offset(w, j, s, col):
+    """lut_offset<S>: code j of word w shifted to bits S .. S + 3, or
+    col."""
+    w = np.asarray(w, np.uint64)
+    sh = (w << np.uint64(s - 4 * j)) if 4 * j <= s else \
+        (w >> np.uint64(4 * j - s))
+    sh = sh & _MASK32
+    col = np.asarray(col, np.uint64)
+    assert not (col & np.uint64(0xF << s)).any()
+    return (sh & np.uint64(0xF << s)) | col
+
+
+def _k16_k12_fragments(kind, stage, table, warp, b, lookups=None):
+    """step_fragments (and lut_lanes / q4k_consts) of kQ4k, kLut and
+    kLutX32 for every lane of `warp` at k32 step b: uint64 [32, 2, 4] A
+    registers (kLutX32: the hi halves, then the lo halves). K12's stage
+    carries its four dl rows, then its four ml rows, after the words
+    (word 2176 on, 64 words a row); `lookups` collects each lookup
+    instruction's 32 word addresses."""
+    lane = np.arange(32)
+    gid, t = lane >> 2, lane & 3
+    c0 = warp * 16 + 2 * gid
+    at = (4 * b + t) * 136 + warp * 16 + 2 * gid
+    wx, wy = stage[at], stage[at + 1]
+    regs = np.zeros((32, 2, 4), np.uint64)
+    lo_regs = np.zeros((32, 2, 4), np.uint64)
+    f32 = np.float32
+    if kind == "q4k":
+        d2 = stage[2176 + b * 64 + c0 // 2]
+        m2 = stage[2176 + (4 + b) * 64 + c0 // 2]
+        dl = [_bf16_bits_to_f64((d2 >> np.uint64(16 * c)) & np.uint64(0xFFFF))
+              .astype(f32) for c in range(2)]
+        nml = [-_bf16_bits_to_f64((m2 >> np.uint64(16 * c)) &
+                                  np.uint64(0xFFFF)).astype(f32)
+               for c in range(2)]
+        for s in range(2):
+            for h in range(2):
+                for c, w in enumerate((wx, wy)):
+                    v = _nib2(w >> np.uint64(8 * s + 4 * h))
+                    q0 = (_bf16_bits_to_f64(v & np.uint64(0xFFFF)).astype(f32)
+                          - f32(128))
+                    q1 = (_bf16_bits_to_f64(v >> np.uint64(16)).astype(f32)
+                          - f32(128))
+                    regs[:, s, 2 * h + c] = _bf2(
+                        (q0 * dl[c]).astype(f32) + nml[c],
+                        (q1 * dl[c]).astype(f32) + nml[c])
+        return regs
+    if kind == "lut":
+        p = 8 * warp + gid
+        col = (4096 * t + 4 * (p ^ (8 * t))).astype(np.uint64)
+
+        def e(w, j):
+            addr = _lut_offset(w, j, 8, col)
+            if lookups is not None:
+                lookups.append(addr // np.uint64(4))
+            return table[(addr // np.uint64(4)).astype(np.int64)]
+        for s in range(2):
+            for h in range(2):
+                r = 2 * s + h
+                regs[:, s, 2 * h] = _prmt(e(wx, r), e(wx, r + 4), 0x5410)
+                regs[:, s, 2 * h + 1] = _prmt(e(wy, r), e(wy, r + 4), 0x7632)
+        return regs
+    u, odd = t >> 1, (t & 1).astype(bool)
+    col_a = (8192 * u + 4 * ((c0 + odd) ^ (16 * u))).astype(np.uint64)
+    col_b = (8192 * u + 4 * ((c0 + 1 - odd) ^ (16 * u))).astype(np.uint64)
+    wa, wb = np.where(odd, wy, wx), np.where(odd, wx, wy)
+
+    def e(w, j, col):
+        addr = _lut_offset(w, j, 9, col)
+        if lookups is not None:
+            lookups.append(addr // np.uint64(4))
+        return table[(addr // np.uint64(4)).astype(np.int64)]
+    for s in range(2):
+        for h in range(2):
+            r = 2 * s + h
+            a0, a4 = e(wa, r, col_a), e(wa, r + 4, col_a)
+            b0, b4 = e(wb, r, col_b), e(wb, r + 4, col_b)
+            ha, la = _prmt(a0, a4, 0x5410), _prmt(a0, a4, 0x7632)
+            hb, lb = _prmt(b0, b4, 0x5410), _prmt(b0, b4, 0x7632)
+            regs[:, s, 2 * h] = np.where(odd, hb, ha)
+            regs[:, s, 2 * h + 1] = np.where(odd, ha, hb)
+            lo_regs[:, s, 2 * h] = np.where(odd, lb, la)
+            lo_regs[:, s, 2 * h + 1] = np.where(odd, la, lb)
+    return np.concatenate([regs, lo_regs], 1)
+
+
+def _k16_k12_problem(kind, seed):
+    """One stage: K 128 x N 128 random 4-bit words; K12's dl and ml rows
+    over wide binades (either sign for ml, some zero), K16's codebook
+    (bf16 or f32) over 2^-30 .. 2^10 of either sign."""
+    rs = np.random.RandomState(seed)
+    K, N = 128, 128
+    qweight = rs.randint(0, 2 ** 32, (K // 8, N), dtype=np.uint64)
+    qw_t = torch.from_numpy(qweight.astype(np.uint32).view(np.int32))
+    if kind == "q4k":
+        def spread(signed):
+            v = (1 + rs.rand(K // 32, N)) * 2.0 ** rs.randint(-20, 1,
+                                                              (K // 32, N))
+            if signed:
+                v *= np.where(rs.rand(K // 32, N) < 0.5, -1, 1)
+                v[rs.rand(K // 32, N) < 0.05] = 0
+            return torch.from_numpy(v).to(torch.bfloat16)
+        dl, ml = spread(False), spread(True)
+        want = tqm.gguf_q4k_dequantize_plain(qw_t, dl, ml, torch.bfloat16)
+        bits = tuple(t.view(torch.int16).numpy().astype(np.uint64) &
+                     np.uint64(0xFFFF) for t in (dl, ml))
+        return qweight, want, bits, None
+    lut = (1 + rs.rand(N, 16)) * 2.0 ** rs.randint(-30, 11, (N, 16)) * \
+        np.where(rs.rand(N, 16) < 0.5, -1, 1)
+    lut[rs.rand(N, 16) < 0.05] = 0
+    if kind == "lut":
+        lut_t = torch.from_numpy(lut).to(torch.bfloat16)
+        table = _lut_tables(kind, lut_t.view(torch.int16).numpy()
+                            .astype(np.int64) & 0xFFFF)
+        want = tqm.squeezellm_dequantize_plain(qw_t, lut_t, torch.bfloat16)
+    else:
+        lut_t = torch.from_numpy(lut.astype(np.float32))
+        table = _lut_tables(kind, lut_t.numpy())
+        want = tqm.squeezellm_dequantize_plain(qw_t, lut_t, torch.float32)
+    return qweight, want, None, table
+
+
+@pytest.mark.parametrize("kind", ["q4k", "lut", "lut32"])
+def test_k12_k16_stream_fragment_map_covers_the_tile(kind):
+    """Every (k, n) of each warp's k32 steps of a stage lands once in the
+    lane's A registers, equal to the plain version's dequantized weight
+    bit for bit: K12's bf16(f32(q) dl - ml), K16's codebook entry (bf16);
+    on f32 x the hi register holds bf16(w) and the lo register bf16(w -
+    hi) of the plain version's f32 entry, bit for bit, with |w - hi - lo|
+    <= 2^-16 |w|."""
+    qweight, want, rows, table = _k16_k12_problem(kind, seed=len(kind))
+    # [16 word rows][128 + 8], then K12's dl and ml rows as bf16 pairs.
+    stage = np.zeros(16 * 136 + 8 * 64, np.uint64)
+    for r in range(16):
+        stage[r * 136:r * 136 + 128] = qweight[r]
+    if kind == "q4k":
+        for h, bits in enumerate(rows):
+            for g in range(4):
+                at = 2176 + (4 * h + g) * 64
+                stage[at:at + 64] = bits[g, 0::2] | \
+                    (bits[g, 1::2] << np.uint64(16))
+    amap = _k7_a_map(False)
+    want = want.double().numpy()
+    for warp in range(8):
+        for b in range(4):
+            regs = _k16_k12_fragments(kind, stage, table, warp, b)
+            seen = set()
+            for (lane, s, i, e), (col, k) in amap.items():
+                n, kk = 16 * warp + col, 32 * b + k
+                seen.add((n, kk))
+                half = lambda reg: _bf16_bits_to_f64(np.array(
+                    [(int(reg) >> (16 * e)) & 0xFFFF]))[0]
+                hi = half(regs[lane, s, i])
+                w = want[kk, n]
+                if kind != "lut32":
+                    assert hi == w, (kind, warp, b, lane, s, i, e)
+                    continue
+                lo = half(regs[lane, 2 + s, i])
+                assert hi == _bf16_bits_to_f64(_bf16_bits(w))[()]
+                rest = np.float64(np.float32(w) - np.float32(hi))
+                assert lo == _bf16_bits_to_f64(_bf16_bits(rest))[()]
+                assert abs(w - hi - lo) <= 2.0 ** -16 * abs(w)
+            assert len(seen) == 16 * 32
+
+
+@pytest.mark.parametrize("kind", ["lut", "lut32"])
+def test_k16_stream_codebook_lookups_are_conflict_free(kind):
+    """For random codes, every lookup instruction of every warp and step:
+    no two of the 32 lanes read one bank at different words (lanes that
+    read one word share it by broadcast), so a lookup takes one shared
+    load whatever the codes."""
+    qweight, _, _, table = _k16_k12_problem(kind, seed=7)
+    stage = np.zeros(16 * 136, np.uint64)
+    for r in range(16):
+        stage[r * 136:r * 136 + 128] = qweight[r]
+    n_loads = 0
+    for warp in range(8):
+        for b in range(4):
+            lookups = []
+            _k16_k12_fragments(kind, stage, table, warp, b, lookups)
+            assert len(lookups) == 16
+            for words in lookups:
+                by_bank = {}
+                for wd in words.tolist():
+                    by_bank.setdefault(wd % 32, set()).add(wd)
+                assert all(len(v) == 1 for v in by_bank.values())
+                n_loads += 1
+    assert n_loads == 8 * 4 * 16
+
+
+def test_k16_x32_split_and_three_products():
+    """K16 on f32 x: x and the f32 codebook split into bf16 hi = bf16(v)
+    and lo = bf16(v - hi) lie within 2^-16 |v| of v (seeded values over
+    2^-40 .. 2^40); the kernel's sum of x_lo w_hi + x_hi w_lo + x_hi w_hi
+    (each bf16 product exact in f32, summed in f32 one k16 at a time) is
+    within chip_smoke's F32_RTOL (1e-4 of max |y|) of the float64 product
+    of the f32 values, at QuIP#'s table and Mistral-7B's K."""
+    rs = np.random.RandomState(32)
+
+    def split(v):
+        v = np.asarray(v, np.float32)
+        hi = torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+        lo = torch.from_numpy(v - hi).to(torch.bfloat16).float().numpy()
+        return hi, lo
+    v = ((1 + rs.rand(100000)) * 2.0 ** rs.randint(-40, 41, 100000) *
+         np.where(rs.rand(100000) < 0.5, -1, 1)).astype(np.float32)
+    hi, lo = split(v)
+    assert (np.abs(v.astype(np.float64) - hi - lo) <=
+            2.0 ** -16 * np.abs(v)).all()
+    # x after QuIP#'s Hadamard transform (unit scale), E8P values / 4 times
+    # Wscale 0.05 as the codebook, K 4096 and 14336.
+    from aphrodite_tpu_torch.modeling.layers.quantization.quip import (
+        E8P_VALUES4)
+    table = np.array(E8P_VALUES4, np.float32) / np.float32(4) * \
+        np.float32(0.05)
+    for K in (4096, 14336):
+        x = rs.randn(4, K).astype(np.float32)
+        w = table[rs.randint(0, len(table), (K, 8))]
+        xh, xl = split(x)
+        wh, wl = split(w)
+        acc = np.zeros((4, 8), np.float32)
+        for k0 in range(0, K, 16):
+            sl = slice(k0, k0 + 16)
+            for a, b_ in ((xl, wh), (xh, wl), (xh, wh)):
+                acc = (acc.astype(np.float64) + a[:, sl].astype(np.float64)
+                       @ b_[sl].astype(np.float64)).astype(np.float32)
+        ref = x.astype(np.float64) @ w.astype(np.float64)
+        assert np.abs(acc - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+# The split plan of K12 and K16 at m <= 64 (`stream_plan` with gs 32 and
+# the resident x's element bytes: 2 for bf16 x, 4 for f32 x as bf16 hi and
+# lo) on 132 SMs, at QuIP#'s Llama-2-7B shapes (4096 -> 12288, 4096 ->
+# 4096, 4096 -> 22016, 11008 -> 4096) and Mistral-7B's.
+@pytest.mark.parametrize("m,K,N,x_bytes,want", [
+    (1, 4096, 6144, 2, (8, 11)),
+    (8, 4096, 4096, 2, (8, 6)),
+    (8, 14336, 4096, 2, (8, 17)),
+    (33, 4096, 28672, 2, (64, 4)),       # x of 32 rows: 1024 rows a block
+    (1, 4096, 6144, 4, (8, 11)),
+    (8, 4096, 4096, 4, (8, 6)),
+    (8, 14336, 4096, 4, (8, 17)),
+    (32, 4096, 28672, 4, (32, 8)),       # 32 rows of f32 x: 512 a block
+    (64, 14336, 4096, 4, (64, 28)),
+    (8, 4096, 12288, 4, (8, 6)),
+    (1, 4096, 22016, 4, (8, 4)),
+    (8, 11008, 4096, 4, (8, 17)),
+    (64, 11008, 4096, 4, (64, 22)),
+])
+def test_k12_k16_stream_plan_table(m, K, N, x_bytes, want):
+    assert tqm.stream_plan(m, K, N, 32, 132, 4, x_bytes) == want
+
+
+def _stream_smem(kind, k_split, nt):
+    """quant_stream_kernel's shared memory a block (smem_bytes): the
+    ring (K12's stages carry their dl and ml rows), K16's codebook and
+    the resident x."""
+    ring = 3 * (16 * 136 + (8 * 64 if kind == "q4k" else 0)) * 4
+    es = 4 if kind == "lut32" else 2
+    x_row = -(-k_split * es // 128) * 128 + (16 if es == 4 else 64)
+    lut = 0 if kind == "q4k" else 16384
+    return ring + lut + 8 * nt * x_row
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("kind", ["q4k", "lut", "lut32"])
+def test_k12_k16_stream_blocks_fit_two_an_sm(kind, sms):
+    """At every m 1-64 and QuIP#'s and Mistral-7B's shapes the plan's
+    splits are runs of whole 32-row units, none empty, each block's x
+    within `_STREAM_X_BYTES`, and a block's shared memory (with the 1 KB
+    the card reserves per block) lets two blocks share an SM's 228 KB, as
+    the kernel's launch bounds ask."""
+    for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                 (4096, 12288), (4096, 22016), (11008, 4096)):
+        for m in range(1, 65):
+            x_bytes = 4 if kind == "lut32" else 2
+            block_m, splits = tqm.stream_plan(m, K, N, 32, sms, 4, x_bytes)
+            units = K // 32
+            per = -(-units // splits)
+            assert -(-units // per) == splits
+            rows = min(block_m, 32)
+            assert rows * per * 32 * x_bytes <= tqm._STREAM_X_BYTES
+            nt = rows // 8
+            assert 2 * (_stream_smem(kind, per * 32, nt) + 1024) <= 233472
+
+
+# K16 on f32 x at m > 64 (`gemm_plan` over 64-row chunks, 128 x 128
+# tiles) on 132 SMs, at Mistral-7B's and QuIP#'s Llama-2-7B shapes.
+@pytest.mark.parametrize("m,K,N,want", [
+    (65, 4096, 4096, (4, 16)),      # 32 tiles: 4 splits of 16 chunks
+    (72, 4096, 6144, (2, 32)),      # 48 tiles
+    (128, 4096, 28672, (1, 64)),    # 224 tiles cover the SMs
+    (128, 14336, 4096, (4, 56)),
+    (256, 4096, 4096, (2, 32)),     # 2 row tiles x 32
+    (512, 14336, 4096, (1, 224)),
+    (4096, 4096, 6144, (1, 64)),
+    (65, 4096, 12288, (1, 64)),     # 96 tiles
+    (65, 11008, 4096, (4, 43)),     # 172 chunks: 4 splits of 43
+    (200, 4096, 22016, (1, 64)),
+])
+def test_k16_x32_gemm_plan_table(m, K, N, want):
+    assert tqm.gemm_plan(m, K, N, 64, 132, block_n=tqm.X32_BLOCK_N) == want
