@@ -3,16 +3,16 @@
 //
 // Replaces the twelve Pallas TPU kernels of
 // aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6, K10 and, at
-// m > 64, K12, K13, K14, K16 (bf16 and f32 x) and K17 are one templated
-// kernel, quant_gemm_kernel (warp-specialized wgmma, below), with a word
-// decoder each; K8, K11 and, at m > 64, K15 are one templated kernel,
-// w8a8_gemm_kernel (s8 wgmma and a per-group fold, below), with a decoder
-// each; K7 and, at m <= 64, K12 and K16 (bf16 and f32 x) are one
-// templated kernel, quant_stream_kernel (a cp.async ring and W dequantized
-// straight into mma.sync fragments, below), with a decoder each; K13-K15
-// and K17 at m <= 64 are int8_mma_kernel (block tile, x staging, mma.sync
-// fragments, A8 group fold and epilogue: Tile, stage_x, mma_chunk,
-// fold_group, store_tile):
+// m > 64, K12, K13, K14 (from 17 rows), K16 (bf16 and f32 x) and K17 are
+// one templated kernel, quant_gemm_kernel (warp-specialized wgmma, below),
+// with a word decoder each; K8, K11 and, at m > 64, K15 are one templated
+// kernel, w8a8_gemm_kernel (s8 wgmma and a per-group fold, below), with a
+// decoder each; K7 and, at m <= 64, K12, K16 (bf16 and f32 x) and (up to
+// 16 rows) K14 are one templated kernel, quant_stream_kernel (a cp.async
+// ring and W dequantized straight into mma.sync fragments, below), with a
+// decoder each; K13, K15 and K17 at m <= 64 are int8_mma_kernel (block
+// tile, x staging, mma.sync fragments, A8 group fold and epilogue: Tile,
+// stage_x, mma_chunk, fold_group, store_tile):
 //   _gguf_q4k_kernel (:1117)   -> quant_stream_kernel<4, kQ4k> at m <= 64,
 //                                 quant_gemm_kernel<4, kQ4k> above (K12,
 //                                 Q4_K exact)
@@ -28,7 +28,7 @@
 //   _gguf_q8_kernel (:1210)    -> int8_mma_kernel<G 32> at m <= 64,
 //                                 quant_gemm_kernel<8, kQ8> above (K13,
 //                                 Q8_0)
-//   _gguf_i8g_kernel (:1476)   -> int8_mma_kernel<G 16> at m <= 64,
+//   _gguf_i8g_kernel (:1476)   -> quant_stream_kernel<8, kI8g> at m <= 16,
 //                                 quant_gemm_kernel<8, kI8g> above (K14,
 //                                 grouped int8)
 //   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128, A8> at m <= 64,
@@ -39,7 +39,7 @@
 //                              8-64 rows, split K, a16 and a8 arms (K7)
 //   _gptq_a8_kernel, _gptq_a8_deferred_kernel (:1274, :1311)
 //                           -> w8a8_gemm_kernel<kGptq4> (K8)
-//   _quant8_kernel (:781)   -> quant8_kernel (K9)
+//   _quant8_kernel (:781)   -> quant8_kernel<V> (K9)
 //   _awq_kernel (:718)      -> quant_gemm_kernel<4, kAwq> (K10)
 //   _awq_a8_kernel, _awq_a8_deferred_kernel (:937, :971)
 //                           -> w8a8_gemm_kernel<kAwq4> (K11)
@@ -70,7 +70,8 @@
 // - K8 / K11 and K15 at m > 64: int8 operations at large m (1979 TOP/s:
 //   0.90 ms per Mistral-7B layer at m 4096), bytes below a few hundred
 //   rows.
-// - K9: bytes (x read once, the int8 copy and the row scales written once).
+// - K9: bytes (x read once, the int8 copy and the row scales written once);
+//   at decode (1-64 rows) the launch itself.
 // - K13-K15: bytes at decode (the int8 weight and its bf16 scale rows read
 //   once: 0.066-0.073 ms per layer at Mistral-7B width, about twice K7's
 //   int4 bound), operations at prompt rounds (bf16 for K13/K14, int8 for
@@ -120,8 +121,9 @@
 // column's two words one 16-byte piece; K11's AWQ words get a nibble
 // transpose). The two TPU W4A8 bodies (classic and deferred rescale)
 // differ only in the f32 summation order; the one kernel computes both.
-// K7, K12 and K16 at m <= 64: see quant_stream_kernel below.
-// int8_mma_kernel (K13-K15, K17 at m <= 64): a block owns BM rows x 128
+// K7, K12, K14 and K16 at m <= 64: see quant_stream_kernel below. K9:
+// see quant8_kernel, at the end.
+// int8_mma_kernel (K13, K15, K17 at m <= 64): a block owns BM rows x 128
 // columns
 // of the output and walks its K range in 64-deep k chunks. For every
 // chunk the block stages x in shared memory and dequantizes the chunk of
@@ -373,9 +375,9 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
-// K13 / K14 / K15: int8 weights qs [K, N] with one scale row per G input
+// K13 / K15: int8 weights qs [K, N] with one scale row per G input
 // rows (scales [K / G, N] bf16), no zero point and no unpacking.
-//   A8 false (K13, G 32; K14, G 16): x bf16; the chunk of W is
+//   A8 false (K13, G 32): x bf16; the chunk of W is
 //     dequantized in the tile, bf16(float(q) * float(d[k / G][n])), and
 //     the products are bf16 m16n8k16 with f32 sums.
 //   A8 true (K15, G 128): x int8 rows from quant8; per 128-row group the
@@ -391,7 +393,7 @@ __device__ __forceinline__ void store_tile(
 // to the transposed tile, 8 k
 // values of a column in one 16-byte (bf16) or 8-byte (int8) store. The
 // words of the next chunk are loaded before the current chunk's products.
-// Eight rows of a chunk never straddle a scale group (G >= 16), so a
+// Eight rows of a chunk never straddle a scale group (G >= 32), so a
 // thread needs one scale per column.
 template <class TL, int G>
 __device__ __forceinline__ void int8_mma_tile(
@@ -2261,19 +2263,21 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 
 }  // namespace gemm
 
-// ------------------------------------------------------ K7, K12, K16 --
+// ------------------------------------------------- K7, K12, K14, K16 --
 //
 // quant_stream_kernel<BITS, D, A8, NT>: the products at m <= 64, every
 // decode step up to batch 64: GPTQ (4 and 8 bits) and AWQ, a16 and a8
-// arms (K7), GGUF's exact Q4_K form (K12, D kQ4k) and the codebook form
-// on bf16 x (K16, SqueezeLLM, D kLut) and on f32 x (K16, QuIP#, D
-// kLutX32). Bytes bound them: each packed word serves at most 64 rows, so
-// the least time is the weight and its scale and zero rows (K12's dl and
-// ml rows, K16's codebook) read once (34 us per Mistral-7B layer at 3.35
-// TB/s for 4-bit codes). The design keeps those bytes in flight and
-// spends few instructions per word once they land:
+// arms (K7), GGUF's exact Q4_K form (K12, D kQ4k), its grouped int8 form
+// (K14, D kI8g) and the codebook form on bf16 x (K16, SqueezeLLM, D kLut)
+// and on f32 x (K16, QuIP#, D kLutX32). Bytes bound them: each packed
+// word serves at most 64 rows, so the least time is the weight and its
+// scale and zero rows (K12's dl and ml rows, K14's d16 rows, K16's
+// codebook) read once (34 us per Mistral-7B layer at 3.35 TB/s for 4-bit
+// codes, 73 us for K14's bytes). The design keeps those bytes in flight
+// and spends few instructions per word once they land:
 // - A cp.async ring per block of 128 output columns (eight warps): 3
-//   stages of 128 k rows (8.5 KB; 2 of 16.5 KB at 8 bits), 16-byte
+//   stages of 128 k rows (8.5 KB; 2 of 16.5 KB at 8 bits, 2 of 18.25 KB
+//   for K14's bytes and d16 rows), 16-byte
 //   cp.async.cg copies issued stages - 1 ahead, one block barrier a
 //   stage.
 // - x resident: the block's K range of x (M_TILE = 8 NT rows, at most
@@ -2316,6 +2320,16 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 //     product and the difference rounded separately in f32 (q * dl is
 //     exact), as the plain version rounds it; q comes from the nibble pair
 //     as bf16 128 + q, widened to f32 minus 128, exact.
+//   - K14: int8 codes [K, N], MN-major: a stage row is the block's 128
+//     bytes of one k row, its 16-byte pieces swizzled (i8g_piece) so that
+//     one ldmatrix.x4.trans gives a lane its 8 rows x 2 columns of a step
+//     in the fragment map above, conflict-free; the stage carries its
+//     eight d16 rows (a row per 16 k rows: a thread's 8 rows lie in one),
+//     and each value is bf16(q d) rounded once, as quant_gemm_kernel's
+//     byte decoder rounds it. K14 splits over 32-row units; the wrapper
+//     sends it 16 rows at most (from 17 rows quant_gemm_kernel, whose
+//     TMA loads run faster, takes less time; at 33-64 two row blocks
+//     would each read and decode the whole weight).
 //   - K16: GPTQ's 4-bit words, each code looked up in its column's
 //     16-entry codebook, staged once a block in shared memory (16 KB).
 //     The four lanes of a quad share their columns but hold other codes,
@@ -2338,8 +2352,8 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 //   starts and ends inside a group, the a8 arm folding its share of the
 //   group's sum), from shapes and the SM count alone (the wrapper's
 //   stream_plan); split_reduce_kernel, a second launch on the same
-//   stream, adds the f32 partials in split order. K12 and K16 split over
-//   32-row units.
+//   stream, adds the f32 partials in split order. K12, K14 and K16 split
+//   over 32-row units.
 // Group sizes are multiples of 8, so a thread's rows of a step lie in one
 // group; where a step crosses groups (gs not a multiple of 32) each thread
 // takes its own group's zero and scale, and the a8 arm runs the step once
@@ -2352,30 +2366,37 @@ constexpr int kBN = 16 * kWarps;        // output columns a tile
 constexpr int kKC = 128;                // k rows a ring stage
 
 // The word decoders: GPTQ's K-major words (K7, 4 or 8 bits), AWQ's
-// interleaved ones (K7), GPTQ's 4-bit words with K12's (dl, ml) rows, and
-// the same words through K16's codebook on bf16 x or on f32 x.
-enum class SDec { kGptq, kAwq, kQ4k, kLut, kLutX32 };
+// interleaved ones (K7), GPTQ's 4-bit words with K12's (dl, ml) rows, the
+// same words through K16's codebook on bf16 x or on f32 x, and K14's
+// MN-major int8 codes with a d16 row per 16 rows.
+enum class SDec { kGptq, kAwq, kQ4k, kLut, kLutX32, kI8g };
 
 template <int BITS, SDec D>
 struct Cfg {
   static constexpr bool kAwq = D == SDec::kAwq;
   static constexpr bool kLut = D == SDec::kLut || D == SDec::kLutX32;
+  static constexpr bool kBytes = D == SDec::kI8g;
   static constexpr int kPack = 32 / BITS;
   // A stage's words: GPTQ [kKC / pack word rows][kBN + pad words], the
   // pad (8 words at 4 bits, 4 at 8) putting the quads' 64-bit loads in
   // distinct banks; AWQ [kKC rows][kBN / 8 words], rows swizzled
-  // (awq_word).
-  static constexpr int kRows = kAwq ? kKC : kKC / kPack;
-  static constexpr int kRowWords = kAwq ? kBN / 8 : kBN + (BITS == 4 ? 8 : 4);
+  // (awq_word); K14 [kKC rows][128 bytes], 16-byte pieces swizzled
+  // (i8g_piece).
+  static constexpr int kRows = kAwq || kBytes ? kKC : kKC / kPack;
+  static constexpr int kRowWords =
+      kAwq ? kBN / 8 : kBytes ? kBN / 4 : kBN + (BITS == 4 ? 8 : 4);
   // K12: the stage also carries its four dl rows, then its four ml rows
-  // (128 bf16 each), at word kRowsOff.
+  // (128 bf16 each), at word kRowsOff; K14 its eight d16 rows, kD16Words
+  // apart (the pad puts a warp's two rows in other banks).
   static constexpr int kRowsOff = kRows * kRowWords;
+  static constexpr int kD16Words = kBN / 2 + 8;
   static constexpr int kStageWords =
-      kRowsOff + (D == SDec::kQ4k ? 8 * kBN / 2 : 0);
+      kRowsOff + (D == SDec::kQ4k ? 8 * kBN / 2 : kBytes ? 8 * kD16Words : 0);
   static constexpr int kStages = BITS == 8 ? 2 : 3;
   static constexpr int kRingBytes = kStages * kStageWords * 4;
   // The split's rows staged once: a group's scale row and zero row
-  // (GPTQ, AWQ); K12's rows come with the ring stages, K16 has none.
+  // (GPTQ, AWQ); K12's and K14's rows come with the ring stages, K16
+  // has none.
   static constexpr bool kGroupRows = D == SDec::kGptq || D == SDec::kAwq;
   static constexpr int kScaleBytes = kGroupRows ? kBN * 2 : 0;
   static constexpr int kZeroWords = kGroupRows ? kBN / kPack : 0;
@@ -2401,6 +2422,14 @@ __device__ __forceinline__ int awq_word(int r, int w) {
 // distinct banks.
 __host__ __device__ constexpr int x_stride(int k_rows, int es) {
   return (k_rows * es + 127) / 128 * 128 + (es == 2 ? 64 : es == 1 ? 32 : 16);
+}
+
+// K14 stage: the byte offset of 16-byte piece c (columns 16c .. 16c + 15)
+// of k row r. Piece c ^ ((r >> 2) & 7) of the row's 128 bytes, so the
+// eight rows one ldmatrix matrix reads (r0 + 4i, i = 0 .. 7, r0 < 4) fall
+// in eight distinct 16-byte bank groups.
+__device__ __forceinline__ int i8g_piece(int r, int c) {
+  return r * 128 + ((c ^ ((r >> 2) & 7)) << 4);
 }
 
 __host__ __device__ constexpr int gcd_int(int a, int b) {
@@ -2444,6 +2473,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(s), "l"(src) : "memory");
+}
+// Four 8 x 8 b16 matrices, transposed: lane l gives the row address of
+// matrix l / 8, row l % 8, and gets rows 2 (l % 4) and + 1 of column l / 4
+// of each (one register a matrix, the first row in the low half).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&v)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "r"(addr)
+      : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -2518,6 +2558,17 @@ __device__ __forceinline__ Consts q4k_consts(const uint32_t* stage, int b,
                 d2 << 16, d2 & 0xffff0000u};
 }
 
+// K14: in z0, the byte offset in a stage's first k32 step of the row
+// address lane `lane` of `warp` gives ldmatrix (step b adds b * 4096):
+// matrix r = lane / 8, row j = lane % 8 is k row 8 (j / 2) + r + 4 (j % 2)
+// of the step, in the warp's 16-byte piece. Lane (gid, t) then gets rows
+// 8t + r and 8t + r + 4 of its two columns in register r.
+__device__ __forceinline__ Consts i8g_lane(int warp, int lane) {
+  const int r = lane >> 3, j = lane & 7;
+  const int row = 8 * (j >> 1) + r + 4 * (j & 1);
+  return Consts{static_cast<uint32_t>(i8g_piece(row, warp)), 0u, 0u, 0u};
+}
+
 // K16: the byte offsets in the codebook of lane (warp, gid, t)'s entries,
 // without the code (`lut_offset` ors it in): kLut copy t, the column pair p
 // = 8 warp + gid at p ^ 8t (s0); kLutX32 copy t / 2, column c0 + (t & 1)
@@ -2541,7 +2592,8 @@ __device__ __forceinline__ Consts lut_lanes(int warp, int gid, int t) {
 // rows 8t + 2s + h and 8t + 2s + h + 4), s8 a[0] for the m16n8k32 (a[0][0]
 // and a[0][1] rows 8t + 0, 2, 4, 6 of c0 and c0 + 1, a[0][2] and a[0][3]
 // the odd rows); kLutX32 the hi halves in a, the lo halves in al. `lut`:
-// K16's codebook.
+// K16's codebook. K14: d0 / d1 (s0 / s1) the f32 bits of the step's d16
+// pair, z0 the lane's ldmatrix row (i8g_lane).
 template <int BITS, SDec D, bool A8>
 __device__ __forceinline__ void step_fragments(const uint32_t* stage,
                                                const unsigned char* lut,
@@ -2659,6 +2711,31 @@ __device__ __forceinline__ void step_fragments(const uint32_t* stage,
           a[s][2 * h + 1] = bf2_mul(bf2_sub(nib2(w.y >> sh), q.z1), q.s1);
         }
     }
+  } else if constexpr (C::kBytes) {
+    // K14: one ldmatrix of the step's 32 rows of the warp's 16 columns;
+    // register r = 2s + h holds (q[8t + r][c0], q[8t + r][c0 + 1],
+    // q[8t + r + 4][c0], q[8t + r + 4][c0 + 1]). As quant_gemm_kernel's
+    // byte decoder: q ^ 0x80 = q + 128, 2^23 + q + 128 is a float by one
+    // byte permute, and fma(2^23 + q + 128, d, -(2^23 + 128) d) = q d
+    // exactly, rounded once to bf16 by the pack.
+    uint32_t v[4];
+    ldsm_x4_trans(v, static_cast<uint32_t>(__cvta_generic_to_shared(stage)) +
+                         b * 32 * 128 + q.z0);
+    const float d0 = __uint_as_float(q.s0), d1 = __uint_as_float(q.s1);
+    const float e0 = __fmul_rn(-8388736.f, d0);
+    const float e1 = __fmul_rn(-8388736.f, d1);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint32_t w = v[r] ^ 0x80808080u;
+      auto val = [w](int byte, float d, float e) {
+        return __fmaf_rn(
+            __uint_as_float(__byte_perm(w, 0x4b000000u, byte | 0x7440)), d,
+            e);
+      };
+      a[r >> 1][2 * (r & 1)] = gemm::pack_bf2(val(0, d0, e0), val(2, d0, e0));
+      a[r >> 1][2 * (r & 1) + 1] =
+          gemm::pack_bf2(val(1, d1, e1), val(3, d1, e1));
+    }
   } else {
     // 8 bits: rows 8t .. 8t + 3 in word row 8b + 2t, the next four in the
     // row after; q - z as (2^23 + q) - (2^23 + z) in f32, exact, times s,
@@ -2691,7 +2768,8 @@ __device__ __forceinline__ void step_fragments(const uint32_t* stage,
 // min(K, (z + 1) k_split)), whole units of split_unit; without a split
 // (partial null) the result goes to out (bf16, a8: times xs[row]; f32 for
 // kLutX32), else the f32 sums to partial[z][row][col]. K12: qzeros the ml
-// rows, scales the dl rows, gs 32; K16: scales the codebook [N, 16] (bf16,
+// rows, scales the dl rows, gs 32; K14: qweight the int8 codes [K, N],
+// scales the d16 rows, gs 16; K16: scales the codebook [N, 16] (bf16,
 // or f32 for kLutX32), gs 32, no qzeros.
 template <int BITS, SDec D, bool A8, int NT>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -2705,7 +2783,9 @@ quant_stream_kernel(
   constexpr int ES = x_elem_bytes<D, A8>();
   static_assert(!A8 || D == SDec::kGptq || D == SDec::kAwq,
                 "the a8 arm takes GPTQ and AWQ words");
-  static_assert(BITS == 4 || D == SDec::kGptq, "8-bit codes are GPTQ's");
+  static_assert(BITS == 4 || D == SDec::kGptq || D == SDec::kI8g,
+                "8-bit codes are GPTQ's or K14's");
+  static_assert(D != SDec::kI8g || BITS == 8, "K14's codes are bytes");
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, t = lane & 3;
@@ -2768,6 +2848,26 @@ quant_stream_kernel(
         for (int i = tid; i < rows_k * kCopies; i += kThreads) {
           const int r = i / kCopies, c = i % kCopies;
           cp_async16(dst + awq_word(r, 4 * c), src + r * ld + 4 * c);
+        }
+      } else if constexpr (C::kBytes) {
+        // K14: each k row's 128 bytes (i8g_piece), then the stage's d16
+        // rows (`scales`), one a 16-row group, 16 copies a row.
+        constexpr int kCopies = kBN / 16;
+        const unsigned char* src =
+            reinterpret_cast<const unsigned char*>(qweight) +
+            static_cast<size_t>(k0) * N + n0;
+        unsigned char* dstb = reinterpret_cast<unsigned char*>(dst);
+        for (int i = tid; i < rows_k * kCopies; i += kThreads) {
+          const int r = i / kCopies, c = i % kCopies;
+          cp_async16(dstb + i8g_piece(r, c),
+                     src + static_cast<size_t>(r) * N + c * 16);
+        }
+        const int g0 = k0 / 16, ng = rows_k / 16;
+        const __nv_bfloat16* d16 = static_cast<const __nv_bfloat16*>(scales);
+        for (int i = tid; i < ng * 16; i += kThreads) {
+          const int r = i / 16, c = i % 16;
+          cp_async16(dst + C::kRowsOff + r * C::kD16Words + c * 4,
+                     d16 + static_cast<size_t>(g0 + r) * N + n0 + c * 8);
         }
       } else {
         constexpr int kCopies = kBN / 4;
@@ -2900,6 +3000,7 @@ quant_stream_kernel(
   const unsigned char* x_lane = x_s + gid * xrow + t * 8 * ES;
   Consts q{0u, 0u, 0u, 0u};
   if constexpr (C::kLut) q = lut_lanes<D>(warp, gid, t);
+  if constexpr (C::kBytes) q = i8g_lane(warp, lane);
   // The thread's group and its end, k from k_begin (the split may start
   // inside a group); a8: the group being summed.
   int sg = -1, sg_end = g_begin * gs - k_begin;
@@ -2955,6 +3056,12 @@ quant_stream_kernel(
       const int kk = kb * 32;
       if constexpr (D == SDec::kQ4k) {
         q = q4k_consts<BITS, D>(stage, b, c0);   // step b is one group
+      } else if constexpr (C::kBytes) {
+        // K14: the thread's rows 8t .. 8t + 7 lie in d16 row 2b + t / 2.
+        const uint32_t d2 =
+            stage[C::kRowsOff + (2 * b + (t >> 1)) * C::kD16Words + c0 / 2];
+        q.s0 = d2 << 16;
+        q.s1 = d2 & 0xffff0000u;
       } else if constexpr (C::kGroupRows) {
         if (kk + 8 * t >= sg_end) {
           do {
@@ -3150,7 +3257,7 @@ int launch(const void* x, const float* xs, const void* qweight,
   }
 }
 
-// GGUF and K17 at m <= 64 (int8_mma_kernel): block_m 16, 32 or 64 over
+// K13, K15 and K17 at m <= 64 (int8_mma_kernel): block_m 16, 32 or 64 over
 // the output's 128-column blocks, its row blocks and `splits` runs of the
 // split unit, 64 rows (A16) or one scale group (A8), as the wrapper's
 // `_tiling` counted them; cs, K17's column scales (G 0). With a split,
@@ -3196,35 +3303,87 @@ int launch_int8(const void* x, const float* xs, const void* qs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9: one block per row. Pass 1 reduces |x| to the row's absmax, pass 2
-// writes clip(rint(x / xs), -127, 127) with xs = max(absmax, 1e-8) / 127.
-constexpr int kQuantThreads = 256;
-
-__global__ void __launch_bounds__(kQuantThreads)
+// K9: one block a row of x [m, K] bf16, blockDim.x threads (a multiple of
+// 32, at most 1024), each holding up to V 16-byte runs of the row (the
+// wrapper's quant8_plan picks both from m, K and the SM count, so a CUDA
+// graph can capture the launch: wide blocks where the rows are few).
+// Bytes bound it: x read once, x8 and xs written once; at decode the
+// launch itself. The row is read from device memory once: thread i
+// issues all of its loads (runs i, i + T, ..., 16 bytes each) before it
+// reduces, keeps the row in registers, reduces |x| by warp shuffles and
+// one shared step, then quantizes from its registers and stores each
+// run's 8 codes in one 8-byte store. xs = max(absmax, 1e-8) / 127 and x8
+// = clip(rint(x / xs), -127, 127) with IEEE division and rintf (half to
+// even), as the plain version. Where the row is not whole 16-byte runs
+// from a 16-byte aligned start (K % 8, a view of x at an odd offset) or
+// longer than T V runs, the same kernel reads it element by element,
+// twice (the second read mostly from L2).
+template <int V>
+__global__ void __launch_bounds__(1024)
 quant8_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
               float* __restrict__ xs, int K) {
-  __shared__ float warp_max[kQuantThreads / 32];
+  __shared__ float warp_max[32];
+  const int tid = threadIdx.x, threads = blockDim.x;
   const size_t row = blockIdx.x;
   const __nv_bfloat16* xr = x + row * K;
+  int8_t* out = x8 + row * K;
+  const int runs = K / 8;
+  const bool vec = K % 8 == 0 && runs <= V * threads &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  uint4 v[V];
   float amax = 0.f;
-  for (int i = threadIdx.x; i < K; i += kQuantThreads)
-    amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int u = tid + j * threads;
+      v[j] = u < runs ? reinterpret_cast<const uint4*>(xr)[u]
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        amax = fmaxf(amax, fmaxf(fabsf(__uint_as_float(w[e] << 16)),
+                                 fabsf(__uint_as_float(w[e] & 0xffff0000u))));
+    }
+  } else {
+    for (int i = tid; i < K; i += threads)
+      amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
+  if ((tid & 31) == 0) warp_max[tid >> 5] = amax;
   __syncthreads();
-  amax = warp_max[0];
+  amax = (tid & 31) < threads / 32 ? warp_max[tid & 31] : 0.f;
 #pragma unroll
-  for (int w = 1; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   const float scale = fmaxf(amax, 1e-8f) / 127.0f;
-  int8_t* out = x8 + row * K;
-  for (int i = threadIdx.x; i < K; i += kQuantThreads) {
-    float q = rintf(__bfloat162float(xr[i]) / scale);
-    q = fminf(fmaxf(q, -127.0f), 127.0f);
-    out[i] = static_cast<int8_t>(q);
+  auto code = [scale](float f) {
+    return __float2int_rn(fminf(fmaxf(rintf(f / scale), -127.0f), 127.0f));
+  };
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int u = tid + j * threads;
+      if (u >= runs) break;
+      const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+      uint32_t p[4];   // codes 2e and 2e + 1 in bytes 0 and 1
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[e] = __byte_perm(code(__uint_as_float(w[e] << 16)),
+                           code(__uint_as_float(w[e] & 0xffff0000u)), 0x0040);
+      *reinterpret_cast<uint2*>(out + static_cast<size_t>(u) * 8) =
+          make_uint2(__byte_perm(p[0], p[1], 0x5410),
+                     __byte_perm(p[2], p[3], 0x5410));
+    }
+  } else {
+    for (int i = tid; i < K; i += threads)
+      out[i] = static_cast<int8_t>(code(__bfloat162float(xr[i])));
   }
-  if (threadIdx.x == 0) xs[row] = scale;
+  if (tid == 0) xs[row] = scale;
 }
 
 }  // namespace
@@ -3318,11 +3477,23 @@ extern "C" int awq_mm_a8(const void* x8, const float* xs,
                                static_cast<cudaStream_t>(stream));
 }
 
+// K9: `threads` threads a row (a multiple of 32, at most 1024), each
+// holding up to `per` 16-byte runs of it (1, 2, 4 or 8), as the wrapper's
+// quant8_plan picks them.
 extern "C" int quant8(const void* x, void* x8, float* xs, int m, int K,
-                      void* stream) {
-  if (m > 0) {
-    quant8_kernel<<<m, kQuantThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(x8), xs, K);
+                      int threads, int per, void* stream) {
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  if (threads < 32 || threads > 1024 || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* q = static_cast<int8_t*>(x8);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (per) {
+    case 1: quant8_kernel<1><<<m, threads, 0, st>>>(xb, q, xs, K); break;
+    case 2: quant8_kernel<2><<<m, threads, 0, st>>>(xb, q, xs, K); break;
+    case 4: quant8_kernel<4><<<m, threads, 0, st>>>(xb, q, xs, K); break;
+    case 8: quant8_kernel<8><<<m, threads, 0, st>>>(xb, q, xs, K); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -3343,7 +3514,9 @@ extern "C" int gguf_q8_mm(const void* x, const void* qs, const void* d,
 
 // K14: y[m, N] = x[m, K] @ bf16(qs[K, N] * d16[K / 16, N]), grouped int8.
 // block_m 128 is quant_gemm_kernel<8, kI8g> (`splits` runs of 64-row
-// chunks, then split_reduce_kernel); 16, 32 and 64 the skinny tiles.
+// chunks, then split_reduce_kernel, which the wrapper sends every m over
+// 16); 8 and 16 quant_stream_kernel<8, kI8g> (`splits` runs of 32 rows,
+// as stream_plan counts them).
 extern "C" int gguf_i8g_mm(const void* x, const void* qs, const void* d16,
                            void* out, float* partial, int m, int K, int N,
                            int splits, int block_m, void* stream) {
@@ -3351,8 +3524,9 @@ extern "C" int gguf_i8g_mm(const void* x, const void* qs, const void* d16,
   if (block_m == 128)
     return gemm::launch_gemm<8, gemm::Dec::kI8g>(
         x, qs, nullptr, d16, out, partial, m, K, N, gemm::kBK, splits, st);
-  return launch_int8<16, false>(x, nullptr, qs, d16, out, partial, m, K, N,
-                                splits, block_m, st);
+  return streamed::launch<8, streamed::SDec::kI8g, false>(
+      x, nullptr, qs, nullptr, d16, out, partial, m, K, N, 16, splits,
+      block_m, st);
 }
 
 // K15: y[m, N] = bf16(xs[m] * sum_g s128[g] * (x8[m, g] . qs8[g])), x8

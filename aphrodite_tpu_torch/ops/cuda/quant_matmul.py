@@ -27,7 +27,10 @@ Port of the GPTQ, AWQ and GGUF parts of
   kernel and plan with a nibble-transposing decoder.
 - `quantize_activations_int8` (K9, Pallas `_quant8_kernel`): per-row
   xs = max(absmax, 1e-8) / 127 and x8 = clip(round(x / xs), -127, 127),
-  rounding half to even.
+  rounding half to even. One block a row reads it once in 16-byte loads
+  into registers (`quant8_plan`: threads and runs a thread from m, K and
+  the SM count), or element by element where the row is not whole
+  aligned 16-byte runs.
 - GGUF at-rest forms, int8 weights qs [K, N] with a scale row per group
   of G input rows (scales [K/G, N]), no zero point:
   `gguf_q8_matmul` (K13, Pallas `_gguf_q8_kernel`; Q8_0, G 32) and
@@ -36,10 +39,14 @@ Port of the GPTQ, AWQ and GGUF parts of
   products with f32 sums; `gguf_w8a8_matmul` (K15, Pallas
   `_gguf_w8a8_kernel`; the turbo form, G 128) runs K9 on x, then per
   128-row group an exact int32 dot times the group's scale row added in
-  f32 in group order, times xs at the end. At m <= 64 (the Pallas
-  wrappers have no skinny variant) the block covers 16-64 rows and
-  splits K like K7. At m > 64 they take the warpgroup-MMA kernels: K13
-  and K14 K6's `quant_gemm_kernel` with a byte decoder (128 x 256
+  f32 in group order, times xs at the end. At m <= 16 (the Pallas
+  wrappers have no skinny variant) K14 runs K7's `quant_stream_kernel`
+  with a byte decoder (each ring stage a block's 128 columns of 128 k
+  rows and their eight d16 rows), planned by `stream_plan` over 32-row
+  units at 8 bits; K13 and K15 at m <= 64 the skinny tiles, whose block
+  covers 16-64 rows and splits K like K7. Above they take the
+  warpgroup-MMA kernels (K14 from 17 rows): K13 and K14 K6's
+  `quant_gemm_kernel` with a byte decoder (128 x 256
   tiles), K15 `w8a8_gemm_kernel` (s8 wgmma, a per-group fold, 128 x
   128 tiles), each split over runs of whole 64-row chunks (K13, K14)
   or 128-row groups (K15) by `gemm_plan` where the tiles fall short of
@@ -121,7 +128,7 @@ GGUF_I8G_MATMUL_LAUNCHES = build.launch_counter("gguf_i8g_matmul")
 GGUF_W8A8_MATMUL_LAUNCHES = build.launch_counter("gguf_w8a8_matmul")
 GGUF_Q4K_MATMUL_LAUNCHES = build.launch_counter("gguf_q4k_matmul")
 #: K12's, K13's, K14's and K15's m > 64 kernels (the counters above count
-#: m <= 64).
+#: m <= 64; K14's m > 16, `I8G_STREAM_M_MAX`).
 GGUF_Q4K_GEMM_LAUNCHES = build.launch_counter("gguf_q4k_gemm")
 GGUF_Q8_GEMM_LAUNCHES = build.launch_counter("gguf_q8_gemm")
 GGUF_I8G_GEMM_LAUNCHES = build.launch_counter("gguf_i8g_gemm")
@@ -140,6 +147,11 @@ INT8_GEMM_LAUNCHES = build.launch_counter("int8_gemm")
 QUANT_GEMM_REDUCE_LAUNCHES = build.launch_counter("quant_gemm_split_reduce")
 
 STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
+# K14's rows on quant_stream_kernel. From 17 rows its 128-row
+# warpgroup-MMA kernel, whose loads run faster, takes less time (at 32
+# rows 0.184 against 0.220 ms a Mistral-7B layer; at 33-64, where two
+# 32-row blocks each read and decode the whole weight, half; PERF.md).
+I8G_STREAM_M_MAX = 16
 BLOCK_N = 128              # output columns per block
 GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K12-K14 / K16 / K17
 W8A8_BLOCK_N = 128         # K8's, K11's and K15's at m > 64: 128 x 128
@@ -499,13 +511,13 @@ def a8_gemm_plan(m: int, K: int, N: int, gs: int, sms: int
 
 def _tiling(m: int, K: int, N: int, gs: int, stream: bool, sms: int
             ) -> Tuple[int, int]:
-    """(block_m, splits) of K13-K15's and K17's skinny tiles
+    """(block_m, splits) of K13's, K15's and K17's skinny tiles
     (`int8_mma_kernel`) on a card of `sms` SMs, over split units of `gs`
     rows; without `stream`, 128 rows and no split. The skinny tiles take
     the least of 16/32/64 rows that covers m, and split the units over
     enough blocks to give each SM four, but no further than keeps the f32
     partial sums (written and read once) below the weight's own bytes.
-    K7, K12 and K16 have their own plan, `stream_plan`."""
+    K7, K12, K14 and K16 have their own plan, `stream_plan`."""
     if not stream:
         return 128, 1
     if m > STREAM_M_MAX:
@@ -518,6 +530,26 @@ def _tiling(m: int, K: int, N: int, gs: int, stream: bool, sms: int
     splits = max(1, min(groups, want, K // (16 * m)))
     per = -(-groups // splits)
     return block_m, -(-groups // per)
+
+
+def quant8_plan(m: int, K: int, sms: int) -> Tuple[int, int]:
+    """(threads, runs a thread) of K9's launch, one block a row of K
+    bf16, from shapes and the card's SM count alone (so a CUDA graph can
+    capture the launch): each thread holds up to `per` 16-byte runs (8
+    values) of the row in registers, the least of 1, 2, 4 and 8 that
+    keeps the block within a thread target (else 8), and the block has
+    enough warps to hold every run, at most 1024 threads. The target is
+    1024 threads where the rows are few (m <= 4 blocks an SM: decode
+    steps, short prompt rounds), so that each block's few loads and
+    divisions a thread finish soon, and 256 where many blocks share each
+    SM (PERF.md). The kernel reads the row element by element where it
+    is not whole 16-byte runs from an aligned start (K % 8, a view at an
+    odd offset) or longer than 1024 x 8 runs."""
+    runs = max(1, -(-K // 8))
+    target = 1024 if m <= 4 * sms else 256
+    per = next((p for p in (1, 2, 4, 8) if -(-runs // p) <= target), 8)
+    threads = -(-runs // per)
+    return min(1024, -(-threads // 32) * 32), per
 
 
 def stream_unit(gs: int) -> int:
@@ -534,19 +566,20 @@ def stream_unit(gs: int) -> int:
 def stream_plan(m: int, K: int, N: int, gs: int, sms: int, bits: int = 4,
                 x_bytes: int = 2) -> Tuple[int, int]:
     """(block_m, splits) of `quant_stream_kernel` (K7; K12 and K16 at
-    m <= 64, with gs 32) on a card of `sms` SMs, from shapes alone (no
-    host sync, so a CUDA graph can capture the launch). block_m is the
-    least of 8/16/32/64 rows that covers m (1, 2 or 4 n-tiles of the mma;
-    64 as two 32-row blocks); the grid is (N / 128, row blocks, splits),
-    each split a run of whole units of `stream_unit` rows, none empty.
-    Splits aim at four blocks per SM, but no further than keeps the f32
-    partial sums (splits x m x N x 4 bytes) within a tenth of the packed
-    weight's bytes, unless that leaves SMs without a block (N / 128 x
-    splits < sms: m above 8 or so at N 4096), and no fewer than keep each
-    block's resident x (up to 32 rows of its K range, `x_bytes` an
-    element: 2 for bf16, 1 for the a8 arms' int8, 4 for f32 x held as
-    bf16 hi and lo) within `_STREAM_X_BYTES`. Raises on shapes the kernel
-    does not take: gs a multiple of 8, K of the unit."""
+    m <= 64, with gs 32; K14 with gs 16 and `bits` 8) on a card of
+    `sms` SMs, from shapes alone (no host sync, so a CUDA graph can
+    capture the launch). block_m is the least of 8/16/32/64 rows that
+    covers m (1, 2 or 4 n-tiles of the mma; 64 as two 32-row blocks);
+    the grid is (N / 128, row blocks, splits), each split a run of whole
+    units of `stream_unit` rows, none empty. Splits aim at four blocks
+    per SM, but no further than keeps the f32 partial sums (splits x m
+    x N x 4 bytes) within a tenth of the packed weight's bytes (`bits` a
+    weight), unless that leaves SMs without a block (N / 128 x splits <
+    sms: m above 8 or so at N 4096), and no fewer than keep each block's
+    resident x (up to 32 rows of its K range, `x_bytes` an element: 2
+    for bf16, 1 for the a8 arms' int8, 4 for f32 x held as bf16 hi and
+    lo) within `_STREAM_X_BYTES`. Raises on shapes the kernel does not
+    take: gs a multiple of 8, K of the unit."""
     if m > STREAM_M_MAX:
         raise ValueError(f"the streamed kernel takes m <= {STREAM_M_MAX}, "
                          f"got {m} (use stream=False)")
@@ -664,12 +697,10 @@ def quantize_activations_int8(x: torch.Tensor
     m, K = x.shape
     x8 = torch.empty((m, K), dtype=torch.int8, device=x.device)
     xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    fn = build.library("quant_matmul").quant8
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), x8.data_ptr(), xs.data_ptr(), m, K,
-             build.stream_of(x))
+    plan = quant8_plan(m, K, build.sm_count(x.device))
+    err = _entry("quant8", 3, 4)(x.data_ptr(), x8.data_ptr(),
+                                 xs.data_ptr(), m, K, *plan,
+                                 build.stream_of(x))
     QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.add()
     build.check(err, "quantize_activations_int8")
     return x8, xs
@@ -816,14 +847,17 @@ def _launch_by_m(entry: str, x, ptrs: Tuple[int, ...], N: int, *,
                  counter: build.LaunchCounter,
                  gemm_counter: build.LaunchCounter, what: str,
                  w8a8: bool = False, streamed: bool = False,
+                 bits: int = 4, stream_m: int = STREAM_M_MAX,
                  block_n: int = GEMM_BLOCK_N) -> torch.Tensor:
     """One launch of an entry point with an m > 64 warpgroup-MMA kernel
     (K12-K17) on x, bf16, f32 (K16 on f32 x, whose output is f32) or,
     with `w8a8`, K9's int8 rows; `ptrs` are its input pointers, x first.
-    At m <= 64, counting on `counter`: with `streamed` (K12, K16)
-    `quant_stream_kernel`, planned by `stream_plan` over 32-row units;
-    else the skinny tiles (`_tiling`), split in units of 64 rows or
-    (w8a8) of a 128-row scale group. Above, counting on `gemm_counter`:
+    At m <= `stream_m` (64; K14 16), counting on `counter`: with
+    `streamed` (K12, K14, K16) `quant_stream_kernel`, planned by
+    `stream_plan` over 32-row units with the weight's `bits` a code (8
+    for K14's bytes); else the skinny tiles (`_tiling`), split in units
+    of 64 rows or (w8a8) of a 128-row scale group. Above, counting on
+    `gemm_counter`:
     the warpgroup-MMA kernel on 128 x `block_n` tiles, planned by
     `gemm_plan` over the same units (a split reduce after it where it
     splits)."""
@@ -832,9 +866,9 @@ def _launch_by_m(entry: str, x, ptrs: Tuple[int, ...], N: int, *,
     sms = build.sm_count(x.device)
     out_dtype = torch.float32 if x.dtype == torch.float32 else \
         torch.bfloat16
-    if m <= STREAM_M_MAX:
+    if m <= stream_m:
         if streamed:
-            block_m, splits = stream_plan(m, K, N, 32, sms, 4,
+            block_m, splits = stream_plan(m, K, N, 32, sms, bits,
                                           x.element_size())
         else:
             block_m, splits = _tiling(m, K, N, unit, True, sms)
@@ -871,7 +905,8 @@ def gguf_i8g_matmul(x: torch.Tensor, qs: torch.Tensor,
                         (x.data_ptr(), qs.data_ptr(), d16.data_ptr()),
                         qs.shape[1], counter=GGUF_I8G_MATMUL_LAUNCHES,
                         gemm_counter=GGUF_I8G_GEMM_LAUNCHES,
-                        what="gguf_i8g_matmul")
+                        what="gguf_i8g_matmul", streamed=True, bits=8,
+                        stream_m=I8G_STREAM_M_MAX)
 
 
 def gguf_w8a8_launch(x8: torch.Tensor, xs: torch.Tensor, qs8: torch.Tensor,

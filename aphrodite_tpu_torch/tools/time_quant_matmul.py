@@ -13,9 +13,12 @@ example an earlier commit unpacked with `git archive` into a directory
 that .gitignore lists. Each is timed in a process of its own, with its
 own package and kernels (built into TREE/build/kernels), on the same
 inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096
-(K7: m 1, 8, 16, 32 and 64; K12, K16, K16f32 and K17: m 1, 8, 16, 33,
-64, 72, 128, 512 and 4096, both of their kernels; K9: m 1, 8, 16, 32, 64
-and 4096):
+(K7: m 1, 8, 16, 32 and 64; K12-K17 and K16f32: m 1, 8, 16, 32, 33,
+64, 72, 128, 512 and 4096, both of their kernels; K9: m 1, 8, 16, 32,
+64, 512 and 4096). Each tree first times an empty launch
+(`torch.cuda._sleep(0)`) on the same timer, the floor under a kernel
+that moves almost nothing (K9 at decode): {"tree", "kernel": "empty
+launch", "ms"}.
 - K7, the decode product at m <= 64, its four arms: `gptq_matmul` and
   `awq_matmul` with `stream=True` ("K7 gptq", "K7 awq"; GPTQ also at 8
   bits, "K7 gptq8", and at group_size -1, one group of K rows, "K7
@@ -43,13 +46,14 @@ and 4096):
   products a term and 4-byte x and y;
 - K13 and K14: `gguf_q8_matmul` and `gguf_i8g_matmul` on
   `chip_smoke.gguf_weights` (codes in [-127, 127] with a scale row per
-  32 rows; Q6_K-shaped codes with one per 16);
+  32 rows; Q6_K-shaped codes with one per 16), their skinny kernels at
+  m <= 64 (K14's `quant_stream_kernel`);
 - K15: `gguf_w8a8_launch` on K9's rows of the same x and
-  `chip_smoke.gguf_weights` (a scale row per 128 rows); beside it
-  `torch._int_mm` on the same int8 shapes (the weight in column-major
-  order, copied before the timing), a floor for int8 tensor-core
-  throughput on this card (no group scales: no yardstick of the same
-  function).
+  `chip_smoke.gguf_weights` (a scale row per 128 rows); beside it, at
+  m > 16 (what it takes), `torch._int_mm` on the same int8 shapes (the
+  weight in column-major order, copied before the timing), a floor for
+  int8 tensor-core throughput on this card (no group scales: no
+  yardstick of the same function).
 - W4A8: not a kernel but the e2e prompt round those two serve, GPTQ
   and AWQ with APHRODITE_W4A8=1: chip_smoke's phase 9 and 11 engine
   (Mistral-7B width, dummy weights, this checkout's
@@ -89,13 +93,14 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 
 MS = (72, 128, 512, 4096)
 K7_MS = (1, 8, 16, 32, 64)
-K9_MS = (1, 8, 16, 32, 64, 4096)
-LATE_MS = (1, 8, 16, 33, 64, 72, 128, 512, 4096)
+K9_MS = (1, 8, 16, 32, 64, 512, 4096)
+LATE_MS = (1, 8, 16, 32, 33, 64, 72, 128, 512, 4096)
 K7_ARMS = ("gptq", "gptq8", "gptq_gK", "gptq_a8", "awq", "awq_a8")
 KERNELS = ("K6", "K7", "K8", "K9", "K10", "K11", "K12", "K13", "K14",
            "K15", "K16", "K16f32", "K17", "W4A8")
 LATE = {"K12": "gguf_q4k_matmul", "K16": "squeezellm_matmul",
         "K16f32": "squeezellm_matmul", "K17": "int8_matmul"}
+GGUF = ("K13", "K14", "K15")
 DEFAULT = ("K6", "K10", "K14", "K15")
 
 
@@ -275,6 +280,9 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
     if ptxas:
         ptxas_report(tree, qmm.build)
     timer = smoke.Timer(torch)
+    print(json.dumps({"tree": tree, "kernel": "empty launch",
+                      "ms": timer(lambda: torch.cuda._sleep(0))}),
+          flush=True)
 
     def emit(kernel, layer, bound=None):
         for m in layer:
@@ -294,7 +302,7 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
         if kernel == "K9":
             time_k9(tree, torch, qmm, smoke, timer)
             continue
-        ms_list = LATE_MS if kernel in LATE else MS
+        ms_list = LATE_MS if kernel in LATE or kernel in GGUF else MS
         f32 = kernel == "K16f32"
         layer = dict.fromkeys(ms_list, 0.0)
         yard = dict.fromkeys(ms_list, 0.0)
@@ -355,7 +363,8 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
                 elif kernel == "K15":
                     x8, xs = qmm.quantize_activations_int8(x)
                     ms = timer(lambda: qmm.gguf_w8a8_launch(x8, xs, *w))
-                    yard[m] += timer(lambda: torch._int_mm(x8, w_cm))
+                    if m > 16:        # torch._int_mm takes more rows
+                        yard[m] += timer(lambda: torch._int_mm(x8, w_cm))
                 else:
                     fn = getattr(qmm, LATE.get(kernel) or {
                         "K13": "gguf_q8_matmul",
@@ -379,7 +388,8 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
         emit(kernel, layer,
              {m: max(t_bytes[m], t_ops[m]) for m in ms_list})
         if kernel in ("K8", "K11", "K15"):
-            emit(f"torch._int_mm on {kernel}'s int8 shapes", yard)
+            emit(f"torch._int_mm on {kernel}'s int8 shapes",
+                 {m: v for m, v in yard.items() if m > 16})
         elif kernel != "K6" and kernel != "K10":
             emit(f"torch.matmul over {kernel}'s weight in "
                  f"{'f32' if f32 else 'bf16'}", yard)

@@ -89,7 +89,10 @@ Phases, in order; any failure exits non-zero:
      (W4A8) at the same m with its plan (splits of 128-row chunks)
      logged and a control that must miss the tolerance at each m: the
      plain version with the zero rows shifted by one group;
-   - K9 (per-row int8 quantization) at m 1, 8, 64, 512 and 4096: exact.
+   - K9 (per-row int8 quantization) at m 1, 8, 64, 512 and 4096: exact,
+     on x, on a contiguous view of it 2 bytes past a 16-byte boundary
+     and on rows of an odd K (K - 3); timed at each m, its plan (threads,
+     16-byte runs a thread) logged.
    Each check calls the wrapper the engine calls (`gptq_matmul`,
    `gptq_matmul_a8`, which runs K9 then the matmul) against its plain
    version. Tolerance for the matmuls: |kernel - plain| <= 2e-2 + 2e-2
@@ -145,15 +148,18 @@ Phases, in order; any failure exits non-zero:
    request (temperature 0.8) served alone and in a batch of 8 gives the
    same tokens.
 13. GGUF kernels vs plain versions at the same four projections, m 1,
-   8, 64, 512 and 4096 and 65, 72, 128 and 256 (where the m > 64
+   8, 16, 32, 64, 512 and 4096 and 65, 72, 128 and 256 (where the m > 64
    kernels split the K range), through the wrappers the engine calls:
    `gguf_q8_matmul` (K13, a bf16 scale row per 32 input rows; at m > 64
    `quant_gemm_kernel<8, kQ8>`), `gguf_i8g_matmul` (K14, per 16 rows; at
-   m > 64 `quant_gemm_kernel<8, kI8g>`) and `gguf_w8a8_matmul` (K9, then
+   m <= 16 `quant_stream_kernel<8, kI8g>`, its stream plan logged, at m 8
+   with a control that must miss: d16 read per 32 rows; above
+   `quant_gemm_kernel<8, kI8g>`) and `gguf_w8a8_matmul` (K9, then
    K15, per 128 rows; at m > 64 `w8a8_gemm_kernel`). Weights are
    quantized on the card from an N(0, 0.02) weight as the at-rest forms
    hold real ones (codes in [-127, 127], K14's Q6_K-shaped in [-32,
-   31]). Phase 8's tolerance; at every m > 64 a control must miss it
+   31]). Phase 8's tolerance; at every m on a warpgroup-MMA kernel (K14
+   from m 17, the others above 64) a control must miss it
    (K15's and K13's plain versions with their scale rows shifted by one
    group, K14's reading d16 per 32 rows). Each case timed as phase 8
    times them (K15 alone on
@@ -172,7 +178,9 @@ Phases, in order; any failure exits non-zero:
    reduce (`quant_gemm_split_reduce`) the 96-request round must launch.
    The KV pool's page count is logged
    beside bf16's, and a batch-8 decode step profiled as in phase 9 (the
-   GGUF matmuls' device time beside their weight-streaming bound).
+   GGUF matmuls' device time beside their weight-streaming bound; K9's
+   device ms a step in the turbo run, K14's in the q6_k run; phase 9's
+   GPTQ W4A8 profile reports K9's too).
 15. A `.gguf` file through the loader: the script writes (under the
    gitignored `build/`, deleted after) a 2-layer Llama at Mistral-7B
    width with a 32000-token `tokenizer.ggml.*` vocabulary: F32 norms,
@@ -1112,21 +1120,33 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
             del w16
         for m in () if awq else (1, 8, 64, 512, 4096):
             x = x_all[:m]
-            got8, gots = qmm.quantize_activations_int8(x)
-            want8, wants = qmm.quantize_activations_int8_plain(x)
-            torch.cuda.synchronize()
-            if not (torch.equal(got8, want8) and torch.equal(gots, wants)):
-                fail(f"K9 quantize_activations_int8 {proj} m={m} differs "
-                     "from its plain version")
-            if m < 512:
-                continue                # decode sizes: checked, not timed
+            # Also on a contiguous view 2 bytes past a 16-byte boundary
+            # (the element path) and on rows of an odd K (K - 3: the
+            # element path too).
+            buf = torch.empty(m * K + 1, dtype=x.dtype, device="cuda")
+            view = buf[1:].view(m, K)
+            view.copy_(x)
+            odd = x[:, :K - 3].contiguous()
+            for what, xv in (("", x), (" (unaligned view)", view),
+                             (f" (K {K - 3})", odd)):
+                got8, gots = qmm.quantize_activations_int8(xv)
+                want8, wants = qmm.quantize_activations_int8_plain(xv)
+                torch.cuda.synchronize()
+                if not (torch.equal(got8, want8) and
+                        torch.equal(gots, wants)):
+                    fail(f"K9 quantize_activations_int8 {proj} m={m}{what} "
+                         "differs from its plain version")
+            del buf, view, odd
             ms = timer(lambda: qmm.quantize_activations_int8(x))
             plain_ms = timer(
                 lambda: qmm.quantize_activations_int8_plain(x))
             nbytes = m * K * 2 + m * K + m * 4
-            log(f"k9 input of {proj} m={m} K={K}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes), exact")
+            log(f"k9 input of {proj} m={m} K={K} (plan "
+                f"{qmm.quant8_plan(m, K, qmm.build.sm_count('cuda'))}: "
+                "threads, runs a thread): kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes), exact, "
+                "also on an unaligned view and an odd K")
             if m == main_m["k9"]:
                 rec = out["k9"]
                 rec["ms"] += ms
@@ -1151,7 +1171,7 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
 GGUF_KERNELS = {"k13": ("gguf_q8_matmul", 32, 1210),
                 "k14": ("gguf_i8g_matmul", 16, 1476),
                 "k15": ("gguf_w8a8_matmul", 128, 1551)}
-GGUF_MS = (1, 8, 64, 512, 4096)
+GGUF_MS = (1, 8, 16, 32, 64, 512, 4096)
 
 # The m > 64 kernels (K12-K15) also at the m their split plans serve
 # (decode batches above 64, short prompt rounds).
@@ -1215,7 +1235,26 @@ def check_and_time_gguf(torch, qmm, timer):
                 err = check_close(torch, got, plain,
                                   f"{name} {proj} m={m}")
                 plan = ""
-                if m > 64:
+                # K14's quant_stream_kernel takes up to 16 rows, K13's
+                # and K15's skinny tiles 64; the warpgroup-MMA kernels
+                # the rest.
+                skinny = qmm.I8G_STREAM_M_MAX if key == "k14" else 64
+                if key == "k14" and m <= skinny:
+                    block_m, splits = qmm.stream_plan(m, K, N, 16, sms, 8, 2)
+                    plan = (f"; stream plan: {block_m}-row blocks, {splits} "
+                            f"split(s) of {-(-(K // 32) // splits) * 32} rows")
+                if key == "k14" and m == 8:
+                    # quant_stream_kernel's d16 rows: reading them per 32
+                    # rows must miss.
+                    bad = qmm.gguf_q8_matmul_plain(x, qs, sc[:K // 32])
+                    c_err = (got.float() - bad.float()).abs()
+                    if not bool((c_err > ATOL + RTOL * bad.float().abs()
+                                 ).any()):
+                        fail(f"{name} {proj} m={m}: the control (d16 read "
+                             "per 32 rows) is within tolerance of the kernel")
+                    plan += ("; control (d16 read per 32 rows) max err "
+                             f"{c_err.max().item():.4f}")
+                if m > skinny:
                     # The control: a wrong plain version must miss.
                     bad = (qmm.gguf_q8_matmul_plain(x, qs, sc[:K // 32])
                            if key == "k14" else
@@ -2015,14 +2054,18 @@ QUANT_KERNEL_NAMES = ("quant_stream_kernel", "int8_mma_kernel",
 
 
 def profile_decode(torch, engine, tag: str = "",
-                   quant_bound_ms: float = 0.0, prompt_len: int = 64) -> None:
+                   quant_bound_ms: float = 0.0, prompt_len: int = 64,
+                   named=()) -> None:
     """Where a decode step's time goes at the e2e geometry: 8 running
     sequences (prompts of `prompt_len` tokens). 4 single decode steps
     are timed on the host clock (synchronised), then 4 more run under
     torch.profiler, which gives the device's kernel time per step, its
     share of the wall time, K1's (with its merge) and the kernels that
     take the most. With `quant_bound_ms` it also reports the quantized
-    matmuls' device time per step beside that weight-streaming bound."""
+    matmuls' device time per step beside that weight-streaming bound;
+    `named` pairs (label, kernel name) report that kernel's device ms
+    and launches a step (K9's quant8_kernel, K14's quant_stream_kernel
+    where no other decoder runs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
@@ -2064,6 +2107,11 @@ def profile_decode(torch, engine, tag: str = "",
         f"{dev_ms:.2f} ms/step (busy share {dev_ms / wall_ms:.3f}), "
         f"{n_launch} kernel launches/step; K1 with its merge {k1_ms:.3f} "
         f"ms/step (share {k1_ms / dev_ms:.3f}); top kernels: {top}")
+    for label, kernel in named:
+        k_us = sum(us for us, k, _ in rows if kernel in k)
+        k_n = sum(c for _, k, c in rows if kernel in k) // steps
+        log(f"{tag}{label}: {k_us / 1e3 / steps:.4f} ms/step of device "
+            f"time, {k_n} launches/step")
     if quant_bound_ms:
         quant_ms = sum(us for us, k, _ in rows
                        if any(n in k for n in QUANT_KERNEL_NAMES)) / 1e3 \
@@ -2437,7 +2485,9 @@ def main() -> int:
             for name, n in run.items():
                 by_path[tag.strip()][name] = \
                     by_path[tag.strip()].get(name, 0) + n
-        profile_decode(torch, engine, tag, quant_bound_ms=step_bound_ms)
+        profile_decode(torch, engine, tag, quant_bound_ms=step_bound_ms,
+                       named=(("K9 (quant8_kernel)", "quant8_kernel"),)
+                       if arm == "W4A8" else ())
         profile_prompt_round(torch, engine, tag)
     os.environ.pop("APHRODITE_W4A8")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2532,7 +2582,11 @@ def main() -> int:
                     by_path[tag.strip()].get(name, 0) + n
         step_bound = layers * sum(gguf_layer_bytes(key, K, N) for _, K, N
                                   in GPTQ_PROJ) / HBM_BYTES_PER_S * 1e3
-        profile_decode(torch, engine, tag, quant_bound_ms=step_bound)
+        named = {"k15": (("K9 (quant8_kernel)", "quant8_kernel"),),
+                 "k14": (("K14 (quant_stream_kernel<8, kI8g>)",
+                          "quant_stream_kernel"),)}.get(key, ())
+        profile_decode(torch, engine, tag, quant_bound_ms=step_bound,
+                       named=named)
         del engine
         free_engine(torch, f"GGUF {form}")
 

@@ -376,16 +376,39 @@ def _close(got, want):
         err.max().item()
 
 
-def test_quantize_activations_int8_kernel_is_exact(dev):
-    for m, K in ((1, 4096), (64, 14336), (513, 4096)):
-        x = torch.randn(m, K, device=dev).to(torch.bfloat16) * 3
-        x[0, :7] = 0.5 * torch.arange(7, device=dev)   # halves round to even
+# K9's K: odd and short rows (the element path), Mistral-7B's widths, a
+# row twice the widest, and one longer than the register path holds
+# (1024 threads x 8 runs of 8).
+_K9_K = (1, 7, 4100, 4096, 14336, 28672, 65544)
+
+
+@pytest.mark.parametrize("K", _K9_K)
+def test_quantize_activations_int8_kernel_is_exact(dev, K):
+    """K9 equals its plain version bit for bit, codes and row scales, at
+    the decode and prompt m, on x and on a contiguous view of it that
+    starts 2 bytes past a 16-byte boundary; with rows of halves (ties
+    round to even) and a zero row (the 1e-8 floor). A control: scales
+    taken from absmax / 128 differ."""
+    for m in (1, 8, 64, 513, 4096):
+        g = torch.Generator(device=dev).manual_seed(m * K)
+        x = torch.randn(m, K, generator=g, device=dev).to(torch.bfloat16) * 3
+        x[0, :7] = (0.5 * torch.arange(7, device=dev))[:K]  # halves: ties
         if m > 1:
             x[1] = 0                                    # the 1e-8 floor
-        x8, xs = tqm.quantize_activations_int8(x)
+        buf = torch.empty(m * K + 1, dtype=x.dtype, device=dev)
+        shifted = buf[1:].view(m, K)
+        shifted.copy_(x)
+        assert shifted.data_ptr() % 16 and shifted.is_contiguous()
         p8, ps = tqm.quantize_activations_int8_plain(x)
-        torch.cuda.synchronize()
-        assert torch.equal(x8, p8) and torch.equal(xs, ps)
+        before = tqm.QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.count
+        for what, xv in (("aligned", x), ("view", shifted)):
+            x8, xs = tqm.quantize_activations_int8(xv)
+            torch.cuda.synchronize()
+            assert torch.equal(x8, p8) and torch.equal(xs, ps), (what, m)
+        assert tqm.QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.count == before + 2
+        bad = torch.clamp(x.float().abs().amax(dim=1, keepdim=True),
+                          min=1e-8) / torch.full_like(xs, 128.0)
+        assert not torch.equal(xs, bad)
 
 
 # Mistral-7B's four projections (K, N): qkv, o, gate_up, down.
@@ -801,17 +824,25 @@ def _gguf_problem(dev, kind, m, K, N, seed=0):
     return x, qs, scales
 
 
+def _gguf_skinny_m(kind):
+    """The rows up to which a GGUF wrapper runs its skinny kernel: K14's
+    quant_stream_kernel takes 16, K13's and K15's tiles 64."""
+    return tqm.I8G_STREAM_M_MAX if kind == "i8g" else tqm.STREAM_M_MAX
+
+
 def _gguf_counter(kind, m):
     """The counter of the kernel a GGUF wrapper launches at m: the
-    warpgroup-MMA kernels above 64 rows, else the wrapper's own."""
-    if m > 64:
+    warpgroup-MMA kernels above the skinny kernel's rows, else the
+    wrapper's own."""
+    if m > _gguf_skinny_m(kind):
         return getattr(tqm, f"GGUF_{kind.upper()}_GEMM_LAUNCHES")
     return getattr(tqm, f"GGUF_{kind.upper()}_MATMUL_LAUNCHES")
 
 
 def _gguf_reduces(kind, m, K, N, dev):
-    """The split reduces one K12-K15 launch adds at m > 64."""
-    if m <= 64:
+    """The split reduces one K13-K15 launch adds on its warpgroup-MMA
+    kernel."""
+    if m <= _gguf_skinny_m(kind):
         return 0
     unit, block_n = (128, 128) if kind == "w8a8" else (64, 256)
     return int(tqm.gemm_plan(m, K, N, unit, tqm.build.sm_count(dev),
@@ -822,14 +853,17 @@ def _gguf_reduces(kind, m, K, N, dev):
 @pytest.mark.parametrize("m,K,N", [
     (1, 4096, 6144), (8, 14336, 4096), (33, 512, 384), (64, 4096, 4096),
     (65, 256, 128), (300, 4096, 1024)] + [
+    (m, K, N) for m in (3, 8, 16, 17, 32, 33, 64) for K, N in _PROJ] + [
     (m, K, N) for m in (65, 72, 128, 256, 512) for K, N in _PROJ] + [
     (200, 2048, 384), (129, 1024, 1152), (77, 14336, 4096)])
 def test_gguf_matmul_kernels_match_plain(dev, kind, m, K, N):
-    """Every tiling: 16-64-row blocks with split K (m <= 64); above, K13's
-    and K14's quant_gemm_kernel (128 x 256 tiles; N 384 and 1152 end on
-    a 128-column half tile) and K15's w8a8_gemm_kernel, with their split
-    plans; one launch counted each, and the split reduce where the plan
-    splits."""
+    """Every tiling: at m <= 16 K14's quant_stream_kernel (8-16-row
+    blocks, K split over 32-row units by stream_plan) and at m <= 64 K13's
+    and K15's 16-64-row tiles with split K; above, K13's and K14's
+    quant_gemm_kernel (128 x 256 tiles; N 384 and 1152 end on a
+    128-column half tile; K14's from 17 rows) and K15's
+    w8a8_gemm_kernel, with their split plans; one launch counted each,
+    and the split reduce where the plan splits."""
     if kind == "q8" or kind == "i8g":
         K = max(256, K // 256 * 256)
     x, qs, scales = _gguf_problem(dev, kind, m, K, N, seed=m + K)
@@ -872,11 +906,12 @@ def test_gguf_gemm_controls_miss_the_tolerance(dev, kind, m):
 
 
 @pytest.mark.parametrize("kind", ["q8", "i8g"])
-@pytest.mark.parametrize("m", [24, 200])
+@pytest.mark.parametrize("m", [8, 24, 200])
 def test_gguf_kernels_take_unaligned_rows(dev, kind, m):
     """x starting 2 bytes past a 16-byte boundary stages element by
-    element (K14 at m > 64: its consumers store x where TMA cannot) and
-    gives the aligned copy's result."""
+    element (K14 at m <= 16: quant_stream_kernel's byte loads; above its
+    consumers store x where TMA cannot) and gives the aligned copy's
+    result."""
     x, qs, scales = _gguf_problem(dev, kind, m, 512, 256)
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
     shifted = buf[1:].view_as(x)
@@ -885,6 +920,23 @@ def test_gguf_kernels_take_unaligned_rows(dev, kind, m):
     name = f"gguf_{kind}_matmul"
     assert torch.equal(getattr(tqm, name)(shifted, qs, scales),
                        getattr(tqm, name)(x, qs, scales))
+
+
+@pytest.mark.parametrize("K,N", _PROJ)
+@pytest.mark.parametrize("m", [8, 33])
+def test_k14_decode_control_misses_the_tolerance(dev, m, K, N):
+    """K14 at decode (m 8: quant_stream_kernel<8, kI8g>; m 33:
+    quant_gemm_kernel<8, kI8g> on a part-filled 128-row tile) within the
+    tolerance of its plain version, and a plain version reading d16 per
+    32 rows misses it, so a d16 row fault that gives plausible numbers
+    cannot pass `test_gguf_matmul_kernels_match_plain`."""
+    x, qs, d16 = _gguf_problem(dev, "i8g", m, K, N, seed=m + N)
+    got = tqm.gguf_i8g_matmul(x, qs, d16)
+    good = tqm.gguf_i8g_matmul_plain(x, qs, d16)
+    bad = tqm.gguf_q8_matmul_plain(x, qs, d16[:K // 32])
+    torch.cuda.synchronize()
+    _close(got, good)
+    assert _misses(got, bad)
 
 
 @pytest.mark.parametrize("m", [8, 72, 300])

@@ -670,9 +670,9 @@ def _tiling_at_132(m, K, N, gs):
 def test_tiling_reads_the_sm_count():
     """At 132 SMs every skinny plan at Mistral-7B's projections and m 1-64
     is the one the fixed count gave (H100 SXM plans do not move), for
-    the 128-row groups of GPTQ, AWQ and K15 and the 64-row units of K12,
-    K13, K14, K16 and K17; on a card with another count the plan follows
-    that count."""
+    the 128-row groups of GPTQ, AWQ and K15 and the 64-row units of K13
+    and K17; on a card with another count the plan follows that
+    count."""
     moved = 0
     for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
         for gs in (128, 64):
@@ -1780,17 +1780,20 @@ def test_k12_k16_stream_plan_table(m, K, N, x_bytes, want):
 
 def _stream_smem(kind, k_split, nt):
     """quant_stream_kernel's shared memory a block (smem_bytes): the
-    ring (K12's stages carry their dl and ml rows), K16's codebook and
-    the resident x."""
-    ring = 3 * (16 * 136 + (8 * 64 if kind == "q4k" else 0)) * 4
+    ring (K12's stages carry their dl and ml rows; K14's two stages their
+    bytes and d16 rows), K16's codebook and the resident x."""
+    if kind == "i8g":
+        ring = 2 * (128 * 32 + 8 * _I8G_D16_WORDS) * 4
+    else:
+        ring = 3 * (16 * 136 + (8 * 64 if kind == "q4k" else 0)) * 4
     es = 4 if kind == "lut32" else 2
     x_row = -(-k_split * es // 128) * 128 + (16 if es == 4 else 64)
-    lut = 0 if kind == "q4k" else 16384
+    lut = 16384 if kind in ("lut", "lut32") else 0
     return ring + lut + 8 * nt * x_row
 
 
 @pytest.mark.parametrize("sms", [132, 114])
-@pytest.mark.parametrize("kind", ["q4k", "lut", "lut32"])
+@pytest.mark.parametrize("kind", ["q4k", "lut", "lut32", "i8g"])
 def test_k12_k16_stream_blocks_fit_two_an_sm(kind, sms):
     """At every m 1-64 and QuIP#'s and Mistral-7B's shapes the plan's
     splits are runs of whole 32-row units, none empty, each block's x
@@ -1801,7 +1804,9 @@ def test_k12_k16_stream_blocks_fit_two_an_sm(kind, sms):
                  (4096, 12288), (4096, 22016), (11008, 4096)):
         for m in range(1, 65):
             x_bytes = 4 if kind == "lut32" else 2
-            block_m, splits = tqm.stream_plan(m, K, N, 32, sms, 4, x_bytes)
+            block_m, splits = tqm.stream_plan(m, K, N, 32, sms,
+                                              8 if kind == "i8g" else 4,
+                                              x_bytes)
             units = K // 32
             per = -(-units // splits)
             assert -(-units // per) == splits
@@ -1827,3 +1832,264 @@ def test_k12_k16_stream_blocks_fit_two_an_sm(kind, sms):
 ])
 def test_k16_x32_gemm_plan_table(m, K, N, want):
     assert tqm.gemm_plan(m, K, N, 64, 132, block_n=tqm.X32_BLOCK_N) == want
+
+
+# ---- K14 at m <= 64 (quant_stream_kernel's kI8g decoder), emulated ----
+#
+# A ring stage holds the block's 128 columns of int8 codes for 128 k rows,
+# 16-byte piece c of row r at byte i8g_piece(r, c) = 128 r + 16 (c ^ (r >>
+# 2) & 7), then the stage's eight d16 rows, 72 words apart. One
+# ldmatrix.x4.trans a k32 step (lane l gives row l % 8 of matrix l // 8:
+# k row 8 (j // 2) + r + 4 (j % 2) of the step, j = l % 8, r = l // 8)
+# hands lane (gid, t) rows 8t + r and 8t + r + 4 of its columns c0 = 16
+# warp + 2 gid and c0 + 1 in register r: K7's fragment map (`_k7_a_map`).
+# Each code becomes bf16(fma(2^23 + (q ^ 0x80), d, -(2^23 + 128) d)).
+
+_I8G_D16 = 16384          # byte offset of a stage's d16 rows
+_I8G_D16_WORDS = 72       # words from one d16 row to the next
+
+
+def _i8g_piece(r, c):
+    return r * 128 + ((c ^ ((r >> 2) & 7)) << 4)
+
+
+def _i8g_lane_row(lane):
+    """The k row of a step whose address lane `lane` gives ldmatrix."""
+    r, j = lane >> 3, lane & 7
+    return 8 * (j >> 1) + r + 4 * (j & 1)
+
+
+def _i8g_stage(codes, d16_bits):
+    """The stage's bytes as the kernel's copies place them: int8 codes
+    [128, 128], then bf16 bits d16 [8, 128]."""
+    stage = np.zeros(_I8G_D16 + 8 * _I8G_D16_WORDS * 4, np.uint8)
+    raw = np.ascontiguousarray(codes).view(np.uint8)
+    for r in range(128):
+        for c in range(8):
+            at = _i8g_piece(r, c)
+            assert not stage[at:at + 16].any()
+            stage[at:at + 16] = raw[r, 16 * c:16 * c + 16]
+    d = np.ascontiguousarray(d16_bits.astype(np.uint16)).view(np.uint8)
+    for g in range(8):
+        at = _I8G_D16 + g * _I8G_D16_WORDS * 4
+        stage[at:at + 256] = d[g]
+    return stage
+
+
+def _ldsm_x4_trans(stage, addrs):
+    """ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 for one warp: lane l
+    gives addrs[l], row l % 8 of matrix l // 8; lane (gid, t) gets rows 2t
+    (low half) and 2t + 1 (high half) of b16 column gid of each matrix.
+    Returns uint64 [32, 4]."""
+    regs = np.zeros((32, 4), np.uint64)
+    for lane in range(32):
+        gid, t = lane >> 2, lane & 3
+        for i in range(4):
+            v = 0
+            for e in range(2):
+                a = addrs[8 * i + 2 * t + e] + 2 * gid
+                v |= (int(stage[a]) | int(stage[a + 1]) << 8) << (16 * e)
+            regs[lane, i] = v
+    return regs
+
+
+def _fma32(a, b, c):
+    """fma.rn.f32 of an f32 a and a bf16 b (exact product in float64: 24 by
+    8 significant bits) where the sum with c is exact in float64 (checked):
+    that sum, rounded once to f32."""
+    b = b.astype(np.float64)
+    assert np.array_equal(_bf16_bits_to_f64(_bf16_bits(b)), b)
+    p = a.astype(np.float64) * b
+    assert not _two_sum_err(p, c.astype(np.float64)).any()
+    return (p + c.astype(np.float64)).astype(np.float32)
+
+
+def _i8g_values(w, byte, d):
+    """The decoder on byte `byte` of words w (q ^ 0x80 already applied) at
+    f32 scales d: fma(2^23 + byte, d, fl(-(2^23 + 128) d)) in f32."""
+    a = (((np.asarray(w, np.uint64) >> np.uint64(8 * byte)) & np.uint64(0xFF))
+         | np.uint64(0x4B000000)).astype(np.uint32).view(np.float32)
+    e = (np.float32(-8388736.0) * np.asarray(d, np.float32)).astype(
+        np.float32)
+    return _fma32(a, np.asarray(d, np.float32), e)
+
+
+def _i8g_fragments(stage, warp, b, loads=None):
+    """step_fragments (with i8g_lane and the loop's d16 pair) of kI8g for
+    every lane of `warp` at k32 step b: uint64 [32, 2, 4] A registers.
+    `loads` collects the ldmatrix's row addresses and the d16 words."""
+    lane = np.arange(32)
+    gid, t = lane >> 2, lane & 3
+    addrs = [b * 32 * 128 + _i8g_piece(_i8g_lane_row(l), warp)
+             for l in range(32)]
+    v = _ldsm_x4_trans(stage, addrs)
+    c0 = 16 * warp + 2 * gid
+    at = _I8G_D16 // 4 + (2 * b + (t >> 1)) * _I8G_D16_WORDS + c0 // 2
+    d2 = stage.view(np.uint32)[at].astype(np.uint64)
+    if loads is not None:
+        loads.append((addrs, at))
+    d = [_bf16_bits_to_f64(d2 & np.uint64(0xFFFF)),
+         _bf16_bits_to_f64(d2 >> np.uint64(16))]
+    regs = np.zeros((32, 2, 4), np.uint64)
+    for r in range(4):
+        w = v[:, r] ^ np.uint64(0x80808080)
+        regs[:, r >> 1, 2 * (r & 1)] = _bf2(_i8g_values(w, 0, d[0]),
+                                            _i8g_values(w, 2, d[0]))
+        regs[:, r >> 1, 2 * (r & 1) + 1] = _bf2(_i8g_values(w, 1, d[1]),
+                                                _i8g_values(w, 3, d[1]))
+    return regs
+
+
+def _i8g_problem(seed):
+    """One stage: int8 codes [128, 128] over all 256 values, d16 [8, 128]
+    bf16 over normals of 2^-30 .. 2^20, subnormals and zero, either sign."""
+    rs = np.random.RandomState(seed)
+    codes = rs.randint(-128, 128, (128, 128)).astype(np.int8)
+    d = (1 + rs.rand(8, 128)) * 2.0 ** rs.randint(-30, 21, (8, 128)) * \
+        np.where(rs.rand(8, 128) < 0.5, -1, 1)
+    d[rs.rand(8, 128) < 0.05] = 0
+    sub = rs.rand(8, 128) < 0.1
+    d[sub] = rs.randint(1, 128, sub.sum()) * 2.0 ** -133
+    d16 = torch.from_numpy(d).to(torch.bfloat16)
+    bits = d16.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    return codes, d16, bits
+
+
+def test_k14_stream_fragment_map_covers_the_tile():
+    """Every (k, n) of each warp's four k32 steps of a stage lands once in
+    the lane's A registers, through the ldmatrix of the swizzled stage and
+    the byte decoder, equal to the plain version's dequantized weight
+    (`gguf_i8g_matmul_plain`'s `_dequant`) bit for bit."""
+    codes, d16, bits = _i8g_problem(14)
+    stage = _i8g_stage(codes, bits)
+    want = tqm._dequant(torch.from_numpy(codes), d16, 16,
+                        torch.bfloat16).double().numpy()
+    amap = _k7_a_map(False)
+    for warp in range(8):
+        for b in range(4):
+            regs = _i8g_fragments(stage, warp, b)
+            seen = set()
+            for (lane, s, i, e), (col, k) in amap.items():
+                n, kk = 16 * warp + col, 32 * b + k
+                seen.add((n, kk))
+                got = _bf16_bits_to_f64(np.array(
+                    [(int(regs[lane, s, i]) >> (16 * e)) & 0xFFFF]))[0]
+                assert got == want[kk, n], (warp, b, lane, s, i, e)
+            assert len(seen) == 16 * 32
+
+
+def test_k14_stream_stage_loads_are_conflict_free():
+    """The stage's copies and loads: every 16-byte piece of its 128 rows
+    has one 16-byte aligned place; for every warp and step, the eight row
+    addresses of each of the ldmatrix's four matrices fall in eight
+    distinct 16-byte bank groups (one wavefront a matrix), and the 32
+    lanes' d16 loads put no two words in one bank."""
+    places = sorted(_i8g_piece(r, c) for r in range(128) for c in range(8))
+    assert places == list(range(0, _I8G_D16, 16))
+    codes, _, bits = _i8g_problem(15)
+    stage = _i8g_stage(codes, bits)
+    n_loads = 0
+    for warp in range(8):
+        for b in range(4):
+            loads = []
+            _i8g_fragments(stage, warp, b, loads)
+            addrs, d16_words = loads[0]
+            for i in range(4):
+                rows = addrs[8 * i:8 * i + 8]
+                assert all(a % 16 == 0 for a in rows)
+                assert len({(a // 16) % 8 for a in rows}) == 8
+                n_loads += 1
+            by_bank = {}
+            for wd in d16_words.tolist():
+                by_bank.setdefault(wd % 32, set()).add(wd)
+            assert all(len(v) == 1 for v in by_bank.values())
+    assert n_loads == 8 * 4 * 4
+
+
+def test_k14_stream_decoder_equals_the_plain_dequant():
+    """The decoder's arithmetic for all 256 codes and every d16 of a spread
+    (every bf16 subnormal, normals of 2^-126 .. 2^100 at 16 mantissas a
+    binade, zero, either sign): bf16(fma(2^23 + (q ^ 0x80), d, -(2^23 +
+    128) d)) equals the plain version's bf16(f32(q) * f32(d)) bit for bit
+    wherever q d is not zero, and where it is zero both are zero (the fma
+    gives +0 where the plain product may be -0; a product or a sum with
+    either gives the same value). The fma is exact while -(2^23 + 128) d
+    is a finite f32, |d| < 2^104; GGUF's scales are far below that."""
+    sub = np.arange(1, 0x80, dtype=np.uint32)
+    norm = np.array([(e << 7) | m for e in range(1, 127 + 101)
+                     for m in range(0, 128, 8)], np.uint32)
+    pos = np.concatenate([[0], sub, norm])
+    d_bits = np.concatenate([pos, pos | 0x8000])
+    d = _bf16_bits_to_f64(d_bits)
+    assert np.abs(d).max() < 2.0 ** 104 and (np.abs(d) < 2.0 ** -126).sum() \
+        == 2 * 128
+    q = np.arange(-128, 128)
+    w = (q.astype(np.int64) & 0xFF) ^ 0x80        # the byte after the XOR
+    got = _bf2(_i8g_values(w[:, None], 0, d[None, :]), 0.0) & \
+        np.uint64(0xFFFF)
+    d16 = torch.from_numpy(d_bits.astype(np.uint16).view(np.int16)[None, :]
+                           ).view(torch.bfloat16)
+    want = tqm._dequant(torch.from_numpy(q.astype(np.int8))[:, None],
+                        d16, 256, torch.bfloat16)
+    want = want.view(torch.int16).numpy().astype(np.uint64) & \
+        np.uint64(0xFFFF)
+    zero = (q[:, None] == 0) | (d[None, :] == 0)
+    assert np.array_equal(got[~zero], want[~zero])
+    assert (got[zero] == 0).all() and \
+        (_bf16_bits_to_f64(want[zero]) == 0).all()
+    assert (got[~zero] & np.uint64(0x7FFF)).all()   # no product underflows
+
+
+# K14's plan on quant_stream_kernel, m <= 16 (`stream_plan` over 32-row
+# units at 8 bits: the f32 partials' cap counts the byte codes) on 132
+# SMs, at Mistral-7B's four projections.
+@pytest.mark.parametrize("m,K,N,want", [
+    (1, 4096, 6144, (8, 11)),
+    (1, 4096, 4096, (8, 16)),
+    (1, 4096, 28672, (8, 3)),
+    (1, 14336, 4096, (8, 17)),
+    (8, 4096, 6144, (8, 11)),       # 4 bits: 6 (a tenth of half the bytes)
+    (8, 4096, 4096, (8, 12)),       # 4 bits: 6
+    (8, 4096, 28672, (8, 3)),
+    (8, 14336, 4096, (8, 17)),
+    (9, 4096, 6144, (16, 11)),      # 4 bits: 5
+    (16, 4096, 4096, (16, 6)),      # 4 bits: 5
+    (16, 4096, 28672, (16, 3)),
+    (16, 14336, 4096, (16, 17)),    # 4 bits: 11
+])
+def test_k14_stream_plan_table(m, K, N, want):
+    assert tqm.stream_plan(m, K, N, 16, 132, 8, 2) == want
+    assert tqm.stream_plan(m, K, N, 32, 132, 8, 2) == want
+
+
+# K9's launch plan (`quant8_plan`) on 132 SMs: threads a row and 16-byte
+# runs a thread, at decode m (a 1024-thread target) and at a prompt
+# round's (256).
+@pytest.mark.parametrize("m,K,want", [
+    (1, 1, (32, 1)), (8, 7, (32, 1)), (64, 64, (32, 1)),
+    (8, 4096, (512, 1)), (64, 4100, (544, 1)), (1, 14336, (896, 2)),
+    (528, 14336, (896, 2)), (32, 28672, (896, 4)),
+    (8, 65536, (1024, 8)), (8, 65544, (1024, 8)),
+    (529, 4096, (256, 2)), (4096, 2048, (256, 1)), (4096, 4096, (256, 2)),
+    (4096, 4100, (160, 4)), (4096, 8192, (256, 4)),
+    (4096, 14336, (224, 8)), (4096, 16384, (256, 8)),
+    (4096, 28672, (448, 8)), (4096, 65536, (1024, 8)),
+])
+def test_k9_launch_plan_table(m, K, want):
+    assert tqm.quant8_plan(m, K, 132) == want
+
+
+@pytest.mark.parametrize("m", [1, 4096])
+def test_k9_plan_holds_every_row_it_can(m):
+    """For every K of whole 16-byte runs up to 1024 x 8 runs the plan's
+    threads (a multiple of 32, at most 1024) hold the row in registers,
+    with no warp left without a run; past that the kernel takes its
+    element path."""
+    for K in range(8, 65537, 8):
+        threads, per = tqm.quant8_plan(m, K, 132)
+        assert threads % 32 == 0 and 32 <= threads <= 1024
+        assert per in (1, 2, 4, 8)
+        assert threads * per * 8 >= K
+        assert (threads - 32) * per * 8 < K
+    threads, per = tqm.quant8_plan(m, 65544, 132)
+    assert threads * per * 8 < 65544
