@@ -3,16 +3,17 @@
 //
 // Replaces the twelve Pallas TPU kernels of
 // aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6, K10 and, at
-// m > 64, K12, K13, K14 (from 17 rows), K16 (bf16 and f32 x) and K17 are
-// one templated kernel, quant_gemm_kernel (warp-specialized wgmma, below),
-// with a word decoder each; K8, K11 and, at m > 64, K15 are one templated
-// kernel, w8a8_gemm_kernel (s8 wgmma and a per-group fold, below), with a
-// decoder each; K7 and, at m <= 64, K12, K16 (bf16 and f32 x) and (up to
-// 16 rows) K14 are one templated kernel, quant_stream_kernel (a cp.async
-// ring and W dequantized straight into mma.sync fragments, below), with a
-// decoder each; K13, K15 and K17 at m <= 64 are int8_mma_kernel (block
-// tile, x staging, mma.sync fragments, A8 group fold and epilogue: Tile,
-// stage_x, mma_chunk, fold_group, store_tile):
+// m > 64, K12 and K16 (bf16 and f32 x), and above 13-16 rows K13, K14
+// and K17 are one templated kernel, quant_gemm_kernel (warp-specialized
+// wgmma, below), with a word decoder each; K8, K11 and, at m > 64, K15
+// are one templated kernel, w8a8_gemm_kernel (s8 wgmma and a per-group
+// fold, below), with a decoder each; K7 and, at m <= 64, K12 and K16
+// (bf16 and f32 x), and up to 13-16 rows K13, K14 and K17 are one
+// templated kernel, quant_stream_kernel (a cp.async ring and W
+// dequantized straight into mma.sync fragments, below), with a decoder
+// each; K15 at m <= 64 is int8_mma_kernel (block tile, x staging, s8
+// mma.sync fragments, group fold and epilogue: Tile, stage_x, mma_chunk,
+// fold_group, store_tile):
 //   _gguf_q4k_kernel (:1117)   -> quant_stream_kernel<4, kQ4k> at m <= 64,
 //                                 quant_gemm_kernel<4, kQ4k> above (K12,
 //                                 Q4_K exact)
@@ -22,16 +23,16 @@
 //                                 kLutX32> at m <= 64, split_x32_kernel
 //                                 then quant_gemm_kernel<4, kLutX32> above
 //                                 (K16, f32 x)
-//   _int8_kernel (:1706)       -> int8_mma_kernel<G 0> at m <= 64,
+//   _int8_kernel (:1706)       -> quant_stream_kernel<8, kInt8> at m <= 16,
 //                                 quant_gemm_kernel<8, kInt8> above (K17,
 //                                 int8 per column)
-//   _gguf_q8_kernel (:1210)    -> int8_mma_kernel<G 32> at m <= 64,
+//   _gguf_q8_kernel (:1210)    -> quant_stream_kernel<8, kQ8> at m <= 16,
 //                                 quant_gemm_kernel<8, kQ8> above (K13,
 //                                 Q8_0)
-//   _gguf_i8g_kernel (:1476)   -> quant_stream_kernel<8, kI8g> at m <= 16,
+//   _gguf_i8g_kernel (:1476)   -> quant_stream_kernel<8, kI8g> at m <= 13,
 //                                 quant_gemm_kernel<8, kI8g> above (K14,
 //                                 grouped int8)
-//   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128, A8> at m <= 64,
+//   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128> at m <= 64,
 //                                 w8a8_gemm_kernel<kQs8> above (K15,
 //                                 W8A8)
 //   _kernel (:554)          -> quant_gemm_kernel<BITS, kGptq> (K6)
@@ -72,15 +73,14 @@
 //   rows.
 // - K9: bytes (x read once, the int8 copy and the row scales written once);
 //   at decode (1-64 rows) the launch itself.
-// - K13-K15: bytes at decode (the int8 weight and its bf16 scale rows read
-//   once: 0.066-0.073 ms per layer at Mistral-7B width, about twice K7's
-//   int4 bound), operations at prompt rounds (bf16 for K13/K14, int8 for
-//   K15).
-// - K12, K16 and K17: bytes at decode (4-bit codes with K12's bf16 dl/ml
-//   rows per 32 input rows or K16's 16-entry codebook per column; K17's
-//   int8 codes and f32 column scales), bf16 operations at prompt rounds;
-//   K16 on f32 x does three bf16 products per term, so three times the
-//   bf16 operations.
+// - K13-K15 and K17: bytes at decode (the int8 weight and its bf16 scale
+//   rows or f32 column scales read once: 0.066-0.073 ms per layer at
+//   Mistral-7B width, about twice K7's int4 bound), operations at prompt
+//   rounds (bf16 for K13/K14/K17, int8 for K15).
+// - K12 and K16: bytes at decode (4-bit codes with K12's bf16 dl/ml rows
+//   per 32 input rows or K16's 16-entry codebook per column), bf16
+//   operations at prompt rounds; K16 on f32 x does three bf16 products
+//   per term, so three times the bf16 operations.
 //
 // What the design does about it.
 // K6 / K10 (quant_gemm_kernel): a block owns 128 rows x 256 columns of
@@ -121,25 +121,23 @@
 // column's two words one 16-byte piece; K11's AWQ words get a nibble
 // transpose). The two TPU W4A8 bodies (classic and deferred rescale)
 // differ only in the f32 summation order; the one kernel computes both.
-// K7, K12, K14 and K16 at m <= 64: see quant_stream_kernel below. K9:
-// see quant8_kernel, at the end.
-// int8_mma_kernel (K13, K15, K17 at m <= 64): a block owns BM rows x 128
-// columns
-// of the output and walks its K range in 64-deep k chunks. For every
-// chunk the block stages x in shared memory and dequantizes the chunk of
-// W there (the packed words of the next chunk are already on their way
-// into registers), then its eight warps run mma.sync on the tile: bf16
-// m16n8k16 with f32 sums (A16), or s8 m16n8k32 with exact int32 sums per
-// group and the f32 rescale by the group's scale when the group ends
-// (A8). The TPU kernels carried the f32 sum across a sequential grid axis
-// in VMEM scratch; here the k loop is inside the block. A block covers 16,
-// 32 or 64 rows, so the weight is
-// streamed once, and the K range is split over several blocks to fill
-// the 132 SMs: each split writes f32 partial sums and a second kernel adds
-// them in split order (deterministic, no atomics), applies the A8 row
-// scale and rounds to bf16. x of up to 64 x 14336 does not fit in shared
-// memory, so it is staged chunk by chunk like W. No cp.async / TMA
-// pipeline and no wgmma in these yet.
+// K7, K12, K16 at m <= 64 and K13, K14, K17 up to 13-16 rows: see
+// quant_stream_kernel below. K9: see quant8_kernel, at the end.
+// int8_mma_kernel (K15 at m <= 64, the last of the first port's skinny
+// tile kernels): a block owns BM rows x 128 columns of the output and
+// walks its K range in 64-deep k chunks. For every chunk the block stages
+// K9's int8 x in shared memory and transposes the chunk of W there (the
+// words of the next chunk are already on their way into registers), then
+// its eight warps run s8 m16n8k32 mma.sync on the tile, exact int32 sums
+// per group, with the f32 rescale by the group's scale when the group
+// ends. The TPU kernel carried the f32 sum across a sequential grid axis
+// in VMEM scratch; here the k loop is inside the block. A block covers
+// 16, 32 or 64 rows, so the weight is streamed once, and the K range is
+// split over several blocks to fill the 132 SMs: each split writes f32
+// partial sums and a second kernel adds them in split order
+// (deterministic, no atomics), applies the row scale and rounds to bf16.
+// x of up to 64 x 14336 does not fit in shared memory, so it is staged
+// chunk by chunk like W. No cp.async / TMA pipeline and no wgmma here.
 //
 // Each C entry point launches on the caller's stream, allocates nothing
 // and returns cudaGetLastError(). Build without --use_fast_math: K9's
@@ -177,52 +175,28 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <bool A8> struct Elem;
-template <> struct Elem<false> {
-  using T = __nv_bfloat16;
-  static constexpr int kPad = 8;     // 16 bytes: conflict-free fragments
-  static __device__ __forceinline__ T zero() { return __float2bfloat16(0.f); }
-};
-template <> struct Elem<true> {
-  using T = int8_t;
-  static constexpr int kPad = 16;
-  static __device__ __forceinline__ T zero() { return 0; }
-};
-
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *static_cast<const uint32_t*>(p);
 }
 
-// Store WORDS 32-bit words to 8- or 16-byte aligned shared memory.
-template <int WORDS>
-__device__ __forceinline__ void st_words(void* p, const uint32_t* w) {
-  if constexpr (WORDS == 4) {
-    *static_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else {
-    static_assert(WORDS == 2, "2 or 4 words");
-    *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  }
-}
-
-// int8_mma_kernel's block tile: BM rows x
-// 128 columns of the output over WARPS_M x (8 / WARPS_M) warps, each warp
-// MI x NI mma fragments; x and W are staged 64 k at a time in shared tiles
-// [rows][LD] (W transposed, [column][k]: the mma B operand's layout).
-template <int BM_, int WARPS_M_, bool A8_>
+// int8_mma_kernel's block tile: BM rows x 128 columns of the output over
+// WARPS_M x (8 / WARPS_M) warps, each warp MI x NI mma fragments; int8 x
+// and W are staged 64 k at a time in shared tiles [rows][LD] (W
+// transposed, [column][k]: the mma B operand's layout; 16 bytes of pad a
+// row keep the fragments' loads conflict-free).
+template <int BM_, int WARPS_M_>
 struct Tile {
   static constexpr int BM = BM_;
   static constexpr int WARPS_M = WARPS_M_;
-  static constexpr bool A8 = A8_;
-  using T = typename Elem<A8>::T;
+  using T = int8_t;
   static constexpr int WARPS_N = 8 / WARPS_M;
   static constexpr int WM = BM / WARPS_M;
   static constexpr int WN = kBN / WARPS_N;
   static constexpr int MI = WM / 16;
   static constexpr int NI = WN / 8;
-  static constexpr int LD = kChunk + Elem<A8>::kPad;
-  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));   // x per uint4
+  static constexpr int LD = kChunk + 16;
+  static constexpr int VEC = 16;                 // x per uint4
   static_assert(MI >= 1 && NI >= 1 && WM % 16 == 0 && WN % 8 == 0, "tile");
-  static_assert(VEC * sizeof(T) == 16, "16-byte x loads");
 };
 
 // This thread's place in the tile: warp row wm and column wn, and its
@@ -237,7 +211,7 @@ __device__ __forceinline__ Lane lane_of() {
   return Lane{warp / TL::WARPS_N, warp % TL::WARPS_N, lane >> 2, lane & 3};
 }
 
-// Zero a warp's accumulators: f32 sums, or A8's exact int32 dots.
+// Zero a warp's accumulators: the f32 sums or the exact int32 dots.
 template <class TL, typename Acc>
 __device__ __forceinline__ void zero_acc(Acc (&acc)[TL::MI][TL::NI][4]) {
 #pragma unroll
@@ -269,7 +243,7 @@ __device__ __forceinline__ void stage_x(typename TL::T (*x_tile)[TL::LD],
   } else {
     for (int i = threadIdx.x; i < TL::BM * kChunk; i += kThreads) {
       const int r = i / kChunk, col = i % kChunk;
-      T v = Elem<TL::A8>::zero();
+      T v = 0;
       if (m0 + r < m && col < kn)
         v = x[static_cast<size_t>(m0 + r) * K + k0 + col];
       x_tile[r][col] = v;
@@ -277,45 +251,37 @@ __device__ __forceinline__ void stage_x(typename TL::T (*x_tile)[TL::LD],
   }
 }
 
-// The warp's products over a staged 64-deep chunk: bf16 m16n8k16 into the
-// f32 sums, or (A8) s8 m16n8k32 into the exact int32 dots.
-template <class TL, typename Acc>
+// The warp's s8 m16n8k32 products over a staged 64-deep chunk into the
+// exact int32 dots.
+template <class TL>
 __device__ __forceinline__ void mma_chunk(
     typename TL::T (*x_tile)[TL::LD], typename TL::T (*w_tile)[TL::LD],
-    Acc (&acc)[TL::MI][TL::NI][4], Lane l) {
-  constexpr int KS = TL::A8 ? 32 : 16;   // k per mma
-  constexpr int EB = KS / 8;             // elements per 32-bit register
+    int (&acc)[TL::MI][TL::NI][4], Lane l) {
 #pragma unroll
-  for (int ks = 0; ks < kChunk; ks += KS) {
+  for (int ks = 0; ks < kChunk; ks += 32) {
     uint32_t a[TL::MI][4], b[TL::NI][2];
 #pragma unroll
     for (int mi = 0; mi < TL::MI; ++mi) {
       const int r = l.wm * TL::WM + mi * 16 + l.gid;
-      a[mi][0] = ld32(&x_tile[r][ks + l.tig * EB]);
-      a[mi][1] = ld32(&x_tile[r + 8][ks + l.tig * EB]);
-      a[mi][2] = ld32(&x_tile[r][ks + KS / 2 + l.tig * EB]);
-      a[mi][3] = ld32(&x_tile[r + 8][ks + KS / 2 + l.tig * EB]);
+      a[mi][0] = ld32(&x_tile[r][ks + l.tig * 4]);
+      a[mi][1] = ld32(&x_tile[r + 8][ks + l.tig * 4]);
+      a[mi][2] = ld32(&x_tile[r][ks + 16 + l.tig * 4]);
+      a[mi][3] = ld32(&x_tile[r + 8][ks + 16 + l.tig * 4]);
     }
 #pragma unroll
     for (int ni = 0; ni < TL::NI; ++ni) {
       const int n = l.wn * TL::WN + ni * 8 + l.gid;
-      b[ni][0] = ld32(&w_tile[n][ks + l.tig * EB]);
-      b[ni][1] = ld32(&w_tile[n][ks + KS / 2 + l.tig * EB]);
+      b[ni][0] = ld32(&w_tile[n][ks + l.tig * 4]);
+      b[ni][1] = ld32(&w_tile[n][ks + 16 + l.tig * 4]);
     }
 #pragma unroll
     for (int mi = 0; mi < TL::MI; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < TL::NI; ++ni) {
-        if constexpr (TL::A8) {
-          mma_s8(acc[mi][ni], a[mi], b[ni]);
-        } else {
-          mma_bf16(acc[mi][ni], a[mi], b[ni]);
-        }
-      }
+      for (int ni = 0; ni < TL::NI; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
   }
 }
 
-// A8, at a group's end: its exact integer dots times its scale row `srow`
+// At a group's end: its exact integer dots times its scale row `srow`
 // (the group's row of scales [G, N]), added to the f32 sums in group order.
 template <class TL>
 __device__ __forceinline__ void fold_group(
@@ -337,21 +303,20 @@ __device__ __forceinline__ void fold_group(
 }
 
 // Epilogue: accumulator rows gid and gid + 8, columns tig*2 and +1. Without
-// a split, to `out` in bf16 (A8: times the row scale xs; with column
-// scales cs: times cs[col], K17); with one, the f32 sums to
-// `partial[split, row, col]` for split_reduce_kernel.
+// a split, to `out` in bf16, times the row scale xs; with one, the f32
+// sums to `partial[split, row, col]` for split_reduce_kernel.
 template <class TL>
 __device__ __forceinline__ void store_tile(
     const float (&acc)[TL::MI][TL::NI][4], const float* __restrict__ xs,
     __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int m,
-    int N, int m0, int n0, Lane l, const float* __restrict__ cs = nullptr) {
+    int N, int m0, int n0, Lane l) {
 #pragma unroll
   for (int mi = 0; mi < TL::MI; ++mi) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = m0 + l.wm * TL::WM + mi * 16 + l.gid + half * 8;
       if (r >= m) continue;
-      const float rs = (TL::A8 && partial == nullptr) ? xs[r] : 1.f;
+      const float rs = partial == nullptr ? xs[r] : 1.f;
 #pragma unroll
       for (int ni = 0; ni < TL::NI; ++ni) {
         const int col = n0 + l.wn * TL::WN + ni * 8 + l.tig * 2;
@@ -361,10 +326,6 @@ __device__ __forceinline__ void store_tile(
           *reinterpret_cast<float2*>(
               partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
               make_float2(v0, v1);
-        } else if (cs != nullptr) {
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + static_cast<size_t>(r) * N + col) =
-              __floats2bfloat162_rn(v0 * cs[col], v1 * cs[col + 1]);
         } else {
           *reinterpret_cast<__nv_bfloat162*>(
               out + static_cast<size_t>(r) * N + col) =
@@ -375,39 +336,25 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
-// K13 / K15: int8 weights qs [K, N] with one scale row per G input
-// rows (scales [K / G, N] bf16), no zero point and no unpacking.
-//   A8 false (K13, G 32): x bf16; the chunk of W is
-//     dequantized in the tile, bf16(float(q) * float(d[k / G][n])), and
-//     the products are bf16 m16n8k16 with f32 sums.
-//   A8 true (K15, G 128): x int8 rows from quant8; per 128-row group the
-//     exact int32 dot (s8 m16n8k32), times the group's scale row, is added
-//     to the f32 sum in group order; times xs[row] at the end.
-//   G 0 (K17): x bf16; the codes go to the tile as they are (exact in
-//     bf16), and the f32 sums are times the column's f32 scale cs[n] in
-//     the epilogue (in split_reduce_kernel after a split).
-// A block walks the chunks [c_begin, c_end) of 64 k rows (split
-// blockIdx.z; for A8 a split starts on a group). Each thread stages 4
+// K15 at m <= 64: int8 weights qs [K, N] with one scale row per G input
+// rows (scales [K / G, N] bf16), no zero point and no unpacking; x int8
+// rows from quant8. Per G-row group the exact int32 dot (s8 m16n8k32),
+// times the group's scale row, is added to the f32 sum in group order;
+// times xs[row] at the end. A block walks the chunks [c_begin, c_end) of
+// 64 k rows (split blockIdx.z, starting on a group). Each thread stages 4
 // neighbouring columns x 8 k rows of a chunk, 8 32-bit words, one per k
 // row, so a warp reads 128 contiguous bytes of each row; it writes them
-// to the transposed tile, 8 k
-// values of a column in one 16-byte (bf16) or 8-byte (int8) store. The
+// to the transposed tile, 8 k values of a column in one 8-byte store. The
 // words of the next chunk are loaded before the current chunk's products.
-// Eight rows of a chunk never straddle a scale group (G >= 32), so a
-// thread needs one scale per column.
 template <class TL, int G>
 __device__ __forceinline__ void int8_mma_tile(
     const typename TL::T* __restrict__ x, const float* __restrict__ xs,
     const uint32_t* __restrict__ qs, const __nv_bfloat16* __restrict__ scales,
     __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int m,
-    int K, int N, int chunks_per_split, const float* __restrict__ cs) {
+    int K, int N, int chunks_per_split) {
   using T = typename TL::T;
-  constexpr bool A8 = TL::A8;
-  constexpr int CPG = A8 ? G / kChunk : 1;   // chunks per A8 scale group
-  static_assert(G == 0 ? !A8
-                       : (A8 ? G % kChunk == 0
-                             : (kChunk % G == 0 && G % 8 == 0)),
-                "scale groups");
+  constexpr int CPG = G / kChunk;           // chunks per scale group
+  static_assert(G % kChunk == 0, "scale groups");
 
   __shared__ __align__(16) T x_tile[TL::BM][TL::LD];
   __shared__ __align__(16) T w_tile[kBN][TL::LD];
@@ -440,55 +387,28 @@ __device__ __forceinline__ void int8_mma_tile(
 
   for (int c = c_begin; c < c_end; ++c) {
     const int k0 = c * kChunk;
-    if constexpr (A8) {
-      if ((c - c_begin) % CPG == 0) zero_acc<TL>(iacc);
-    }
+    if ((c - c_begin) % CPG == 0) zero_acc<TL>(iacc);
     stage_x<TL>(x_tile, x, m, K, m0, k0, kChunk, x_vec);
     // This thread's 4 columns x 8 rows into the transposed W tile.
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = cq * 4 + j;
-      if constexpr (A8) {
-        uint32_t packed[2] = {0u, 0u};
+      uint32_t packed[2] = {0u, 0u};
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          packed[i / 4] |= ((words[i] >> (8 * j)) & 0xffu) << (8 * (i % 4));
-        st_words<2>(&w_tile[n][r0], packed);
-      } else {
-        float d = 1.f;
-        if constexpr (G > 0)
-          d = __bfloat162float(
-              scales[static_cast<size_t>((k0 + r0) / G) * N + n0 + n]);
-        uint32_t packed[4];
-#pragma unroll
-        for (int i = 0; i < 8; i += 2) {
-          const float q0 = static_cast<float>(
-              static_cast<int8_t>((words[i] >> (8 * j)) & 0xffu));
-          const float q1 = static_cast<float>(
-              static_cast<int8_t>((words[i + 1] >> (8 * j)) & 0xffu));
-          const __nv_bfloat162 w2 =
-              __floats2bfloat162_rn(__fmul_rn(q0, d), __fmul_rn(q1, d));
-          packed[i / 2] = *reinterpret_cast<const uint32_t*>(&w2);
-        }
-        st_words<4>(&w_tile[n][r0], packed);
-      }
+      for (int i = 0; i < 8; ++i)
+        packed[i / 4] |= ((words[i] >> (8 * j)) & 0xffu) << (8 * (i % 4));
+      *reinterpret_cast<uint2*>(&w_tile[n][r0]) =
+          make_uint2(packed[0], packed[1]);
     }
     if (c + 1 < c_end) load_words(c + 1);
     __syncthreads();
-    if constexpr (A8) {
-      mma_chunk<TL>(x_tile, w_tile, iacc, l);
-    } else {
-      mma_chunk<TL>(x_tile, w_tile, acc, l);
-    }
+    mma_chunk<TL>(x_tile, w_tile, iacc, l);
     __syncthreads();
-    if constexpr (A8) {
-      if ((c - c_begin) % CPG == CPG - 1)
-        fold_group<TL>(acc, iacc, scales + static_cast<size_t>(c / CPG) * N,
-                       n0, l);
-    }
+    if ((c - c_begin) % CPG == CPG - 1)
+      fold_group<TL>(acc, iacc, scales + static_cast<size_t>(c / CPG) * N,
+                     n0, l);
   }
-  store_tile<TL>(acc, xs, out, partial, m, N, m0, n0, l,
-                 G == 0 ? cs : nullptr);
+  store_tile<TL>(acc, xs, out, partial, m, N, m0, n0, l);
 }
 
 template <class TL, int G>
@@ -499,9 +419,9 @@ int8_mma_kernel(const typename TL::T* __restrict__ x,
                 const __nv_bfloat16* __restrict__ scales,
                 __nv_bfloat16* __restrict__ out,
                 float* __restrict__ partial, int m, int K, int N,
-                int chunks_per_split, const float* __restrict__ cs) {
+                int chunks_per_split) {
   int8_mma_tile<TL, G>(x, xs, qs, scales, out, partial, m, K, N,
-                       chunks_per_split, cs);
+                       chunks_per_split);
 }
 
 // Second pass of a split-K launch: out = OutT(sum over splits, in order,
@@ -2263,21 +2183,24 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 
 }  // namespace gemm
 
-// ------------------------------------------------- K7, K12, K14, K16 --
+// -------------------------------------- K7, K12, K13, K14, K16, K17 --
 //
 // quant_stream_kernel<BITS, D, A8, NT>: the products at m <= 64, every
 // decode step up to batch 64: GPTQ (4 and 8 bits) and AWQ, a16 and a8
 // arms (K7), GGUF's exact Q4_K form (K12, D kQ4k), its grouped int8 form
-// (K14, D kI8g) and the codebook form on bf16 x (K16, SqueezeLLM, D kLut)
-// and on f32 x (K16, QuIP#, D kLutX32). Bytes bound them: each packed
-// word serves at most 64 rows, so the least time is the weight and its
-// scale and zero rows (K12's dl and ml rows, K14's d16 rows, K16's
-// codebook) read once (34 us per Mistral-7B layer at 3.35 TB/s for 4-bit
-// codes, 73 us for K14's bytes). The design keeps those bytes in flight
-// and spends few instructions per word once they land:
+// (K14, D kI8g) and its Q8_0 form (K13, D kQ8), int8 weights with f32
+// column scales (K17, D kInt8), and the codebook form on bf16 x (K16,
+// SqueezeLLM, D kLut) and on f32 x (K16, QuIP#, D kLutX32). Bytes bound
+// them: each packed word serves at most 64 rows, so the least time is
+// the weight and its scale and zero rows (K12's dl and ml rows, K13's d
+// and K14's d16 rows, K16's codebook, K17's column scales) read once (34
+// us per Mistral-7B layer at 3.35 TB/s for 4-bit codes, 66-73 us for the
+// bytes). The design keeps those bytes in flight and spends few
+// instructions per word once they land:
 // - A cp.async ring per block of 128 output columns (eight warps): 3
-//   stages of 128 k rows (8.5 KB; 2 of 16.5 KB at 8 bits, 2 of 18.25 KB
-//   for K14's bytes and d16 rows), 16-byte
+//   stages of 128 k rows (8.5 KB; 2 of 16.5 KB at 8 bits; 2 of 16 KB for
+//   K17's bytes, 17 KB for K13's with their d rows, 18.25 KB for K14's
+//   with their d16 rows), 16-byte
 //   cp.async.cg copies issued stages - 1 ahead, one block barrier a
 //   stage.
 // - x resident: the block's K range of x (M_TILE = 8 NT rows, at most
@@ -2326,10 +2249,19 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 //     in the fragment map above, conflict-free; the stage carries its
 //     eight d16 rows (a row per 16 k rows: a thread's 8 rows lie in one),
 //     and each value is bf16(q d) rounded once, as quant_gemm_kernel's
-//     byte decoder rounds it. K14 splits over 32-row units; the wrapper
-//     sends it 16 rows at most (from 17 rows quant_gemm_kernel, whose
-//     TMA loads run faster, takes less time; at 33-64 two row blocks
-//     would each read and decode the whole weight).
+//     byte decoder rounds it. K13 and K17: the same stage and ldmatrix;
+//     K13's stage carries its four d rows (a row per 32 k rows: step b is
+//     one group), K17's none. Each code becomes bf16(q), exactly, by a
+//     byte permute, two masks and a bf16x2 subtraction (`i8_pair`); K13
+//     multiplies the pair by (d, d), one bf16x2 multiply rounding q d
+//     once as the plain version does (bit for bit, zeros' signs too);
+//     K17's f32 column scale multiplies the f32 sums in the epilogue or
+//     the split reduce, then one rounding. They split over 32-row units;
+//     the wrappers send K13 and K17 16 rows at most, K14 13
+//     (Q8_STREAM_M_MAX, INT8_STREAM_M_MAX, I8G_STREAM_M_MAX: above,
+//     quant_gemm_kernel, whose TMA loads run faster, takes less time; at
+//     33-64 two row blocks would each read and decode the whole weight).
+//     K is a multiple of 32: a split's last stage may be short.
 //   - K16: GPTQ's 4-bit words, each code looked up in its column's
 //     16-entry codebook, staged once a block in shared memory (16 KB).
 //     The four lanes of a quad share their columns but hold other codes,
@@ -2352,8 +2284,8 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 //   starts and ends inside a group, the a8 arm folding its share of the
 //   group's sum), from shapes and the SM count alone (the wrapper's
 //   stream_plan); split_reduce_kernel, a second launch on the same
-//   stream, adds the f32 partials in split order. K12, K14 and K16 split
-//   over 32-row units.
+//   stream, adds the f32 partials in split order. K12-K14, K16 and K17
+//   split over 32-row units.
 // Group sizes are multiples of 8, so a thread's rows of a step lie in one
 // group; where a step crosses groups (gs not a multiple of 32) each thread
 // takes its own group's zero and scale, and the a8 arm runs the step once
@@ -2367,31 +2299,38 @@ constexpr int kKC = 128;                // k rows a ring stage
 
 // The word decoders: GPTQ's K-major words (K7, 4 or 8 bits), AWQ's
 // interleaved ones (K7), GPTQ's 4-bit words with K12's (dl, ml) rows, the
-// same words through K16's codebook on bf16 x or on f32 x, and K14's
-// MN-major int8 codes with a d16 row per 16 rows.
-enum class SDec { kGptq, kAwq, kQ4k, kLut, kLutX32, kI8g };
+// same words through K16's codebook on bf16 x or on f32 x, and MN-major
+// int8 codes: K14's with a d16 row per 16 rows, K13's (Q8_0) with a d row
+// per 32, K17's with none (an f32 scale per column in the epilogue).
+enum class SDec { kGptq, kAwq, kQ4k, kLut, kLutX32, kI8g, kQ8, kInt8 };
 
 template <int BITS, SDec D>
 struct Cfg {
   static constexpr bool kAwq = D == SDec::kAwq;
   static constexpr bool kLut = D == SDec::kLut || D == SDec::kLutX32;
-  static constexpr bool kBytes = D == SDec::kI8g;
+  static constexpr bool kBytes =
+      D == SDec::kI8g || D == SDec::kQ8 || D == SDec::kInt8;
   static constexpr int kPack = 32 / BITS;
   // A stage's words: GPTQ [kKC / pack word rows][kBN + pad words], the
   // pad (8 words at 4 bits, 4 at 8) putting the quads' 64-bit loads in
   // distinct banks; AWQ [kKC rows][kBN / 8 words], rows swizzled
-  // (awq_word); K14 [kKC rows][128 bytes], 16-byte pieces swizzled
-  // (i8g_piece).
+  // (awq_word); the byte codes (K13, K14, K17) [kKC rows][128 bytes],
+  // 16-byte pieces swizzled (i8g_piece).
   static constexpr int kRows = kAwq || kBytes ? kKC : kKC / kPack;
   static constexpr int kRowWords =
       kAwq ? kBN / 8 : kBytes ? kBN / 4 : kBN + (BITS == 4 ? 8 : 4);
   // K12: the stage also carries its four dl rows, then its four ml rows
-  // (128 bf16 each), at word kRowsOff; K14 its eight d16 rows, kD16Words
-  // apart (the pad puts a warp's two rows in other banks).
+  // (128 bf16 each), at word kRowsOff. The byte codes' kDRows scale rows
+  // there, one a kKC / kDRows k rows, kDWords apart: K14's eight d16 rows,
+  // kD16Words apart (the pad puts a warp's two rows of a step in other
+  // banks); K13's four d rows, unpadded (a warp reads one row a step, 8
+  // neighbouring words, each quad one); K17 none.
   static constexpr int kRowsOff = kRows * kRowWords;
   static constexpr int kD16Words = kBN / 2 + 8;
+  static constexpr int kDRows = D == SDec::kI8g ? 8 : D == SDec::kQ8 ? 4 : 0;
+  static constexpr int kDWords = D == SDec::kI8g ? kD16Words : kBN / 2;
   static constexpr int kStageWords =
-      kRowsOff + (D == SDec::kQ4k ? 8 * kBN / 2 : kBytes ? 8 * kD16Words : 0);
+      kRowsOff + (D == SDec::kQ4k ? 8 * kBN / 2 : kDRows * kDWords);
   static constexpr int kStages = BITS == 8 ? 2 : 3;
   static constexpr int kRingBytes = kStages * kStageWords * 4;
   // The split's rows staged once: a group's scale row and zero row
@@ -2711,6 +2650,28 @@ __device__ __forceinline__ void step_fragments(const uint32_t* stage,
           a[s][2 * h + 1] = bf2_mul(bf2_sub(nib2(w.y >> sh), q.z1), q.s1);
         }
     }
+  } else if constexpr (D == SDec::kQ8 || D == SDec::kInt8) {
+    // K13 and K17: K14's ldmatrix (below). Bytes 0 and 2 of register r
+    // (column c0 at rows 8t + r and + 4) and bytes 1 and 3 (c0 + 1) become
+    // exact bf16 pairs of q by `i8_pair`; K13 then multiplies each by its
+    // column's (d, d) in one bf16x2 multiply, the exact product q d
+    // rounded once (a zero keeps the product's sign, as the plain
+    // version's f32 product does). K17's codes stay as they are; its
+    // column scale comes in the epilogue.
+    uint32_t v[4];
+    ldsm_x4_trans(v, static_cast<uint32_t>(__cvta_generic_to_shared(stage)) +
+                         b * 32 * 128 + q.z0);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      uint32_t p0 = gemm::i8_pair(v[r], 0x4240);
+      uint32_t p1 = gemm::i8_pair(v[r], 0x4341);
+      if constexpr (D == SDec::kQ8) {
+        p0 = bf2_mul(p0, q.s0);
+        p1 = bf2_mul(p1, q.s1);
+      }
+      a[r >> 1][2 * (r & 1)] = p0;
+      a[r >> 1][2 * (r & 1) + 1] = p1;
+    }
   } else if constexpr (C::kBytes) {
     // K14: one ldmatrix of the step's 32 rows of the warp's 16 columns;
     // register r = 2s + h holds (q[8t + r][c0], q[8t + r][c0 + 1],
@@ -2767,10 +2728,12 @@ __device__ __forceinline__ void step_fragments(const uint32_t* stage,
 // [8 NT y, + 8 NT). Split z covers k rows [z k_split,
 // min(K, (z + 1) k_split)), whole units of split_unit; without a split
 // (partial null) the result goes to out (bf16, a8: times xs[row]; f32 for
-// kLutX32), else the f32 sums to partial[z][row][col]. K12: qzeros the ml
-// rows, scales the dl rows, gs 32; K14: qweight the int8 codes [K, N],
-// scales the d16 rows, gs 16; K16: scales the codebook [N, 16] (bf16,
-// or f32 for kLutX32), gs 32, no qzeros.
+// kLutX32; K17 times its column scales), else the f32 sums to
+// partial[z][row][col]. K12: qzeros the ml rows, scales the dl rows, gs
+// 32; K13, K14, K17: qweight the int8 codes [K, N], scales K13's d rows
+// (gs 32), K14's d16 rows (gs 16) or K17's f32 column scales [N] (gs
+// 32); K16: scales the codebook [N, 16] (bf16, or f32 for kLutX32), gs
+// 32, no qzeros.
 template <int BITS, SDec D, bool A8, int NT>
 __global__ void __launch_bounds__(kThreads, 2)
 quant_stream_kernel(
@@ -2783,9 +2746,9 @@ quant_stream_kernel(
   constexpr int ES = x_elem_bytes<D, A8>();
   static_assert(!A8 || D == SDec::kGptq || D == SDec::kAwq,
                 "the a8 arm takes GPTQ and AWQ words");
-  static_assert(BITS == 4 || D == SDec::kGptq || D == SDec::kI8g,
-                "8-bit codes are GPTQ's or K14's");
-  static_assert(D != SDec::kI8g || BITS == 8, "K14's codes are bytes");
+  static_assert(BITS == 4 || D == SDec::kGptq || C::kBytes,
+                "8-bit codes are GPTQ's or bytes");
+  static_assert(!C::kBytes || BITS == 8, "byte codes are 8 bits");
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, t = lane & 3;
@@ -2850,8 +2813,9 @@ quant_stream_kernel(
           cp_async16(dst + awq_word(r, 4 * c), src + r * ld + 4 * c);
         }
       } else if constexpr (C::kBytes) {
-        // K14: each k row's 128 bytes (i8g_piece), then the stage's d16
-        // rows (`scales`), one a 16-row group, 16 copies a row.
+        // K13, K14, K17: each k row's 128 bytes (i8g_piece), then the
+        // stage's scale rows (`scales`: K14's d16, one a 16-row group;
+        // K13's d, one a 32-row group; K17 none), 16 copies a row.
         constexpr int kCopies = kBN / 16;
         const unsigned char* src =
             reinterpret_cast<const unsigned char*>(qweight) +
@@ -2862,12 +2826,15 @@ quant_stream_kernel(
           cp_async16(dstb + i8g_piece(r, c),
                      src + static_cast<size_t>(r) * N + c * 16);
         }
-        const int g0 = k0 / 16, ng = rows_k / 16;
-        const __nv_bfloat16* d16 = static_cast<const __nv_bfloat16*>(scales);
-        for (int i = tid; i < ng * 16; i += kThreads) {
-          const int r = i / 16, c = i % 16;
-          cp_async16(dst + C::kRowsOff + r * C::kD16Words + c * 4,
-                     d16 + static_cast<size_t>(g0 + r) * N + n0 + c * 8);
+        if constexpr (C::kDRows > 0) {
+          constexpr int kDRowK = kKC / C::kDRows;    // k rows a d row
+          const int g0 = k0 / kDRowK, ng = rows_k / kDRowK;
+          const __nv_bfloat16* d = static_cast<const __nv_bfloat16*>(scales);
+          for (int i = tid; i < ng * 16; i += kThreads) {
+            const int r = i / 16, c = i % 16;
+            cp_async16(dst + C::kRowsOff + r * C::kDWords + c * 4,
+                       d + static_cast<size_t>(g0 + r) * N + n0 + c * 8);
+          }
         }
       } else {
         constexpr int kCopies = kBN / 4;
@@ -3056,12 +3023,18 @@ quant_stream_kernel(
       const int kk = kb * 32;
       if constexpr (D == SDec::kQ4k) {
         q = q4k_consts<BITS, D>(stage, b, c0);   // step b is one group
-      } else if constexpr (C::kBytes) {
+      } else if constexpr (D == SDec::kI8g) {
         // K14: the thread's rows 8t .. 8t + 7 lie in d16 row 2b + t / 2.
         const uint32_t d2 =
             stage[C::kRowsOff + (2 * b + (t >> 1)) * C::kD16Words + c0 / 2];
         q.s0 = d2 << 16;
         q.s1 = d2 & 0xffff0000u;
+      } else if constexpr (D == SDec::kQ8) {
+        // K13: step b is one Q8_0 group, d row b; each column's d as a
+        // bf16 pair (d, d).
+        const uint32_t d2 = stage[C::kRowsOff + b * C::kDWords + c0 / 2];
+        q.s0 = __byte_perm(d2, d2, 0x1010);
+        q.s1 = __byte_perm(d2, d2, 0x3232);
       } else if constexpr (C::kGroupRows) {
         if (kk + 8 * t >= sg_end) {
           do {
@@ -3143,6 +3116,15 @@ quant_stream_kernel(
         *reinterpret_cast<float2*>(static_cast<float*>(out) +
                                    static_cast<size_t>(r) * N + col) =
             make_float2(v0, v1);
+      } else if constexpr (D == SDec::kInt8) {
+        // K17: the f32 sums times the columns' f32 scales (`scales`),
+        // rounded once, as the plain version.
+        const float2 cs = *reinterpret_cast<const float2*>(
+            static_cast<const float*>(scales) + col);
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
+                                           static_cast<size_t>(r) * N +
+                                           col) =
+            __floats2bfloat162_rn(v0 * cs.x, v1 * cs.y);
       } else {
         const float rs = A8 ? xs[r] : 1.f;
         *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
@@ -3182,8 +3164,10 @@ int run(const void* x, const float* xs, const void* qweight,
       split_reduce_kernel<float><<<blocks, 256, 0, stream>>>(
           partial, nullptr, nullptr, static_cast<float*>(out), splits, m, N);
     } else {
+      // K17: its column scales (`scales`) after the sum.
       split_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
-          partial, A8 ? xs : nullptr, nullptr,
+          partial, A8 ? xs : nullptr,
+          D == SDec::kInt8 ? static_cast<const float*>(scales) : nullptr,
           static_cast<__nv_bfloat16*>(out), splits, m, N);
     }
   }
@@ -3257,23 +3241,19 @@ int launch(const void* x, const float* xs, const void* qweight,
   }
 }
 
-// K13, K15 and K17 at m <= 64 (int8_mma_kernel): block_m 16, 32 or 64 over
-// the output's 128-column blocks, its row blocks and `splits` runs of the
-// split unit, 64 rows (A16) or one scale group (A8), as the wrapper's
-// `_tiling` counted them; cs, K17's column scales (G 0). With a split,
-// split_reduce_kernel then adds the f32 partials (times xs for A8, times
-// cs for K17). At m > 64 K13, K14, K15 and K17 run quant_gemm_kernel<8,
-// kQ8>, quant_gemm_kernel<8, kI8g>, w8a8_gemm_kernel and
-// quant_gemm_kernel<8, kInt8>.
-template <int G, bool A8>
+// K15 at m <= 64 (int8_mma_kernel): block_m 16, 32 or 64 over the
+// output's 128-column blocks, its row blocks and `splits` runs of scale
+// groups of G rows, as the wrapper's `_tiling` counted them; with a
+// split, split_reduce_kernel then adds the f32 partials and applies xs.
+// At m > 64 K15 runs w8a8_gemm_kernel.
+template <int G>
 int launch_int8(const void* x, const float* xs, const void* qs,
                 const void* scales, void* out, float* partial, int m, int K,
-                int N, int splits, int block_m, cudaStream_t stream,
-                const float* cs = nullptr) {
+                int N, int splits, int block_m, cudaStream_t stream) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
-  if (K % (A8 ? G : kChunk) != 0 || N % kBN != 0)
+  if (K % G != 0 || N % kBN != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kUnitChunks = A8 ? G / kChunk : 1;
+  constexpr int kUnitChunks = G / kChunk;
   const int units = K / (kChunk * kUnitChunks);
   const int per = (units + splits - 1) / splits;
   float* part = splits > 1 ? partial : nullptr;
@@ -3285,20 +3265,20 @@ int launch_int8(const void* x, const float* xs, const void* qs,
                      static_cast<const uint32_t*>(qs),
                      static_cast<const __nv_bfloat16*>(scales),
                      static_cast<__nv_bfloat16*>(out), part, m, K, N,
-                     per * kUnitChunks, cs);
+                     per * kUnitChunks);
   };
   switch (block_m) {
-    case 16: tile(Tile<16, 1, A8>{}); break;
-    case 32: tile(Tile<32, 1, A8>{}); break;
-    case 64: tile(Tile<64, 1, A8>{}); break;
+    case 16: tile(Tile<16, 1>{}); break;
+    case 32: tile(Tile<32, 1>{}); break;
+    case 64: tile(Tile<64, 1>{}); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (splits > 1) {
     const size_t total = static_cast<size_t>(m) * N;
     split_reduce_kernel<__nv_bfloat16>
         <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-            partial, A8 ? xs : nullptr, cs,
-            static_cast<__nv_bfloat16*>(out), splits, m, N);
+            partial, xs, nullptr, static_cast<__nv_bfloat16*>(out), splits,
+            m, N);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -3500,7 +3480,9 @@ extern "C" int quant8(const void* x, void* x8, float* xs, int m, int K,
 
 // K13: y[m, N] = x[m, K] @ bf16(qs[K, N] * d[K / 32, N]), Q8_0 at rest.
 // block_m 128 is quant_gemm_kernel<8, kQ8> (`splits` runs of 64-row
-// chunks, then split_reduce_kernel); 16, 32 and 64 the skinny tiles.
+// chunks, then split_reduce_kernel, which the wrapper sends every m over
+// Q8_STREAM_M_MAX); 8, 16, 32 and 64 quant_stream_kernel<8, kQ8>
+// (`splits` runs of 32 rows, as stream_plan counts them).
 extern "C" int gguf_q8_mm(const void* x, const void* qs, const void* d,
                           void* out, float* partial, int m, int K, int N,
                           int splits, int block_m, void* stream) {
@@ -3508,15 +3490,16 @@ extern "C" int gguf_q8_mm(const void* x, const void* qs, const void* d,
   if (block_m == 128)
     return gemm::launch_gemm<8, gemm::Dec::kQ8>(
         x, qs, nullptr, d, out, partial, m, K, N, gemm::kBK, splits, st);
-  return launch_int8<32, false>(x, nullptr, qs, d, out, partial, m, K, N,
-                                splits, block_m, st);
+  return streamed::launch<8, streamed::SDec::kQ8, false>(
+      x, nullptr, qs, nullptr, d, out, partial, m, K, N, 32, splits,
+      block_m, st);
 }
 
 // K14: y[m, N] = x[m, K] @ bf16(qs[K, N] * d16[K / 16, N]), grouped int8.
 // block_m 128 is quant_gemm_kernel<8, kI8g> (`splits` runs of 64-row
 // chunks, then split_reduce_kernel, which the wrapper sends every m over
-// 16); 8 and 16 quant_stream_kernel<8, kI8g> (`splits` runs of 32 rows,
-// as stream_plan counts them).
+// I8G_STREAM_M_MAX); 8, 16, 32 and 64 quant_stream_kernel<8, kI8g>
+// (`splits` runs of 32 rows, as stream_plan counts them).
 extern "C" int gguf_i8g_mm(const void* x, const void* qs, const void* d16,
                            void* out, float* partial, int m, int K, int N,
                            int splits, int block_m, void* stream) {
@@ -3542,8 +3525,8 @@ extern "C" int gguf_w8a8_mm(const void* x8, const float* xs, const void* qs8,
     return gemm::launch_w8a8<gemm::A8Dec::kQs8>(
         x8, xs, qs8, nullptr, s128, out, partial, m, K, N, gemm::kW8Tile,
         splits, st);
-  return launch_int8<128, true>(x8, xs, qs8, s128, out, partial, m, K, N,
-                                splits, block_m, st);
+  return launch_int8<128>(x8, xs, qs8, s128, out, partial, m, K, N, splits,
+                          block_m, st);
 }
 
 // K12: y[m, N] = x[m, K] @ bf16(q * dl - ml), GGUF's exact Q4_K form: 4-bit
@@ -3602,8 +3585,11 @@ extern "C" int sqllm_mm_f32(const void* x, const void* qweight,
 
 // K17: y[m, N] = bf16((x[m, K] @ int8 w[K, N]) * scales[N]), scales f32.
 // block_m 128 is quant_gemm_kernel<8, kInt8> (`splits` runs of 64-row
-// chunks, then split_reduce_kernel with the scales); 16, 32 and 64 the
-// skinny tiles.
+// chunks, then split_reduce_kernel with the scales, which the wrapper
+// sends every m over INT8_STREAM_M_MAX); 8, 16, 32 and 64
+// quant_stream_kernel<8, kInt8> (`splits` runs of 32 rows, as
+// stream_plan counts them; the scales in its epilogue or the split
+// reduce).
 extern "C" int int8_mm(const void* x, const void* w, const float* scales,
                        void* out, float* partial, int m, int K, int N,
                        int splits, int block_m, void* stream) {
@@ -3612,6 +3598,7 @@ extern "C" int int8_mm(const void* x, const void* w, const float* scales,
     return gemm::launch_gemm<8, gemm::Dec::kInt8>(
         x, w, nullptr, nullptr, out, partial, m, K, N, gemm::kBK, splits,
         st, scales);
-  return launch_int8<0, false>(x, nullptr, w, nullptr, out, partial, m, K, N,
-                               splits, block_m, st, scales);
+  return streamed::launch<8, streamed::SDec::kInt8, false>(
+      x, nullptr, w, nullptr, scales, out, partial, m, K, N, 32, splits,
+      block_m, st);
 }

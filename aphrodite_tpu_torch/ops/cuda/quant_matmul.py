@@ -39,18 +39,17 @@ Port of the GPTQ, AWQ and GGUF parts of
   products with f32 sums; `gguf_w8a8_matmul` (K15, Pallas
   `_gguf_w8a8_kernel`; the turbo form, G 128) runs K9 on x, then per
   128-row group an exact int32 dot times the group's scale row added in
-  f32 in group order, times xs at the end. At m <= 16 (the Pallas
-  wrappers have no skinny variant) K14 runs K7's `quant_stream_kernel`
-  with a byte decoder (each ring stage a block's 128 columns of 128 k
-  rows and their eight d16 rows), planned by `stream_plan` over 32-row
-  units at 8 bits; K13 and K15 at m <= 64 the skinny tiles, whose block
-  covers 16-64 rows and splits K like K7. Above they take the
-  warpgroup-MMA kernels (K14 from 17 rows): K13 and K14 K6's
-  `quant_gemm_kernel` with a byte decoder (128 x 256
-  tiles), K15 `w8a8_gemm_kernel` (s8 wgmma, a per-group fold, 128 x
-  128 tiles), each split over runs of whole 64-row chunks (K13, K14)
-  or 128-row groups (K15) by `gemm_plan` where the tiles fall short of
-  the SMs.
+  f32 in group order, times xs at the end. Up to `Q8_STREAM_M_MAX` (16)
+  and `I8G_STREAM_M_MAX` (13) rows (the Pallas wrappers have no skinny
+  variant) K13 and K14 run K7's `quant_stream_kernel` with a byte
+  decoder (each ring stage a block's 128 columns of 128 k rows and
+  their four d or eight d16 rows), planned by `stream_plan` over 32-row
+  units at 8 bits; K15 at m <= 64 the skinny tiles, whose block covers
+  16-64 rows and splits K like K7. Above they take the warpgroup-MMA kernels: K13 and K14 K6's
+  `quant_gemm_kernel` with a byte decoder (128 x 256 tiles), K15
+  `w8a8_gemm_kernel` (s8 wgmma, a per-group fold, 128 x 128 tiles),
+  each split over runs of whole 64-row chunks (K13, K14) or 128-row
+  groups (K15) by `gemm_plan` where the tiles fall short of the SMs.
 - `gguf_q4k_matmul` (K12, Pallas `_gguf_q4k_kernel`; GGUF's exact Q4_K
   form): 4-bit codes qweight [K/8, N] (8 along K), w = q * dl - ml with
   affine rows dl, ml [K/32, N] per 32 input rows, taken in f32 and
@@ -74,9 +73,11 @@ Port of the GPTQ, AWQ and GGUF parts of
   and lo W tiles (`gemm_plan` with 128-column tiles); the output is f32.
 - `int8_matmul` (K17, Pallas `_int8_kernel`): y = (x @ int8 W [K, N]) *
   scales[N], the codes exact in bf16, the f32 sum times the column's
-  f32 scale, then rounded. The skinny tiles at m <= 64; above, K6's
-  `quant_gemm_kernel` with K13's bytes and no scale rows, planned as
-  K13's (the column scales in its epilogue, or in the split reduce).
+  f32 scale, then rounded. Up to `INT8_STREAM_M_MAX` (16) rows K7's
+  `quant_stream_kernel` with K13's bytes and no scale rows, planned as
+  K13's; above, K6's `quant_gemm_kernel` with the same bytes, planned as
+  K13's; both apply the column scales in their epilogue, or in the
+  split reduce.
 
 Layouts, as the checkpoints store them; scales [G, N], G = K //
 group_size, row k in group k // group_size (the kernels' contiguous
@@ -128,7 +129,8 @@ GGUF_I8G_MATMUL_LAUNCHES = build.launch_counter("gguf_i8g_matmul")
 GGUF_W8A8_MATMUL_LAUNCHES = build.launch_counter("gguf_w8a8_matmul")
 GGUF_Q4K_MATMUL_LAUNCHES = build.launch_counter("gguf_q4k_matmul")
 #: K12's, K13's, K14's and K15's m > 64 kernels (the counters above count
-#: m <= 64; K14's m > 16, `I8G_STREAM_M_MAX`).
+#: the rest: K12 and K15 m <= 64, K13 m <= `Q8_STREAM_M_MAX`, K14 m <=
+#: `I8G_STREAM_M_MAX`, and these above).
 GGUF_Q4K_GEMM_LAUNCHES = build.launch_counter("gguf_q4k_gemm")
 GGUF_Q8_GEMM_LAUNCHES = build.launch_counter("gguf_q8_gemm")
 GGUF_I8G_GEMM_LAUNCHES = build.launch_counter("gguf_i8g_gemm")
@@ -138,7 +140,8 @@ SQUEEZELLM_MATMUL_F32_LAUNCHES = build.launch_counter(
     "squeezellm_matmul_f32")
 INT8_MATMUL_LAUNCHES = build.launch_counter("int8_matmul")
 #: K16's (bf16 and f32 x) and K17's m > 64 kernels (the three counters
-#: above count m <= 64).
+#: above count the rest: K16 m <= 64, K17 m <= `INT8_STREAM_M_MAX`, and
+#: K17's here above it).
 SQUEEZELLM_GEMM_LAUNCHES = build.launch_counter("squeezellm_gemm")
 SQUEEZELLM_F32_GEMM_LAUNCHES = build.launch_counter("squeezellm_f32_gemm")
 INT8_GEMM_LAUNCHES = build.launch_counter("int8_gemm")
@@ -147,11 +150,16 @@ INT8_GEMM_LAUNCHES = build.launch_counter("int8_gemm")
 QUANT_GEMM_REDUCE_LAUNCHES = build.launch_counter("quant_gemm_split_reduce")
 
 STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
-# K14's rows on quant_stream_kernel. From 17 rows its 128-row
-# warpgroup-MMA kernel, whose loads run faster, takes less time (at 32
-# rows 0.184 against 0.220 ms a Mistral-7B layer; at 33-64, where two
-# 32-row blocks each read and decode the whole weight, half; PERF.md).
-I8G_STREAM_M_MAX = 16
+# The byte codes' rows on quant_stream_kernel (K13, K14, K17), each
+# wrapper's last m at which it took less time than the 128-row
+# warpgroup-MMA kernel (whose loads run faster) a Mistral-7B layer: at 17
+# rows, where the stream kernel's block grows to 32 rows, the gemm takes
+# 0.179-0.183 ms against 0.196-0.203; K14, whose stage carries twice
+# K13's scale rows, from 14 rows (0.185 against 0.183 at 14, 0.187
+# against 0.184 at 16; within 1.5% at 13-16); PERF.md.
+Q8_STREAM_M_MAX = 16
+I8G_STREAM_M_MAX = 13
+INT8_STREAM_M_MAX = 16
 BLOCK_N = 128              # output columns per block
 GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K12-K14 / K16 / K17
 W8A8_BLOCK_N = 128         # K8's, K11's and K15's at m > 64: 128 x 128
@@ -511,13 +519,14 @@ def a8_gemm_plan(m: int, K: int, N: int, gs: int, sms: int
 
 def _tiling(m: int, K: int, N: int, gs: int, stream: bool, sms: int
             ) -> Tuple[int, int]:
-    """(block_m, splits) of K13's, K15's and K17's skinny tiles
-    (`int8_mma_kernel`) on a card of `sms` SMs, over split units of `gs`
-    rows; without `stream`, 128 rows and no split. The skinny tiles take
-    the least of 16/32/64 rows that covers m, and split the units over
-    enough blocks to give each SM four, but no further than keeps the f32
-    partial sums (written and read once) below the weight's own bytes.
-    K7, K12, K14 and K16 have their own plan, `stream_plan`."""
+    """(block_m, splits) of K15's skinny tiles (`int8_mma_kernel`) on a
+    card of `sms` SMs, over split units of `gs` rows (its 128-row
+    groups); without `stream`, 128 rows and no split. The skinny tiles
+    take the least of 16/32/64 rows that covers m, and split the units
+    over enough blocks to give each SM four, but no further than keeps
+    the f32 partial sums (written and read once) below the weight's own
+    bytes. K7, K12-K14, K16 and K17 have their own plan,
+    `stream_plan`."""
     if not stream:
         return 128, 1
     if m > STREAM_M_MAX:
@@ -566,7 +575,7 @@ def stream_unit(gs: int) -> int:
 def stream_plan(m: int, K: int, N: int, gs: int, sms: int, bits: int = 4,
                 x_bytes: int = 2) -> Tuple[int, int]:
     """(block_m, splits) of `quant_stream_kernel` (K7; K12 and K16 at
-    m <= 64, with gs 32; K14 with gs 16 and `bits` 8) on a card of
+    m <= 64, with gs 32; K13, K14 and K17 with `bits` 8) on a card of
     `sms` SMs, from shapes alone (no host sync, so a CUDA graph can
     capture the launch). block_m is the least of 8/16/32/64 rows that
     covers m (1, 2 or 4 n-tiles of the mma; 64 as two 32-row blocks);
@@ -846,32 +855,34 @@ def _entry_launch(entry: str, x: torch.Tensor, ptrs: Tuple[int, ...],
 def _launch_by_m(entry: str, x, ptrs: Tuple[int, ...], N: int, *,
                  counter: build.LaunchCounter,
                  gemm_counter: build.LaunchCounter, what: str,
-                 w8a8: bool = False, streamed: bool = False,
-                 bits: int = 4, stream_m: int = STREAM_M_MAX,
-                 block_n: int = GEMM_BLOCK_N) -> torch.Tensor:
+                 w8a8: bool = False, bits: int = 4,
+                 stream_m: int = STREAM_M_MAX,
+                 block_n: int = GEMM_BLOCK_N,
+                 stream: Optional[bool] = None) -> torch.Tensor:
     """One launch of an entry point with an m > 64 warpgroup-MMA kernel
     (K12-K17) on x, bf16, f32 (K16 on f32 x, whose output is f32) or,
     with `w8a8`, K9's int8 rows; `ptrs` are its input pointers, x first.
-    At m <= `stream_m` (64; K14 16), counting on `counter`: with
-    `streamed` (K12, K14, K16) `quant_stream_kernel`, planned by
-    `stream_plan` over 32-row units with the weight's `bits` a code (8
-    for K14's bytes); else the skinny tiles (`_tiling`), split in units
-    of 64 rows or (w8a8) of a 128-row scale group. Above, counting on
-    `gemm_counter`:
-    the warpgroup-MMA kernel on 128 x `block_n` tiles, planned by
-    `gemm_plan` over the same units (a split reduce after it where it
-    splits)."""
+    At m <= `stream_m` (64; K13, K14 and K17 their `*_STREAM_M_MAX`), or
+    wherever `stream` is True (m <= 64), counting on `counter`:
+    `quant_stream_kernel` (K12-K14, K16, K17), planned by `stream_plan`
+    over 32-row units with the weight's `bits` a code (8 for the byte
+    codes), or with `w8a8` K15's skinny tiles (`_tiling`), split in units
+    of a 128-row scale group. Above, or wherever `stream` is False,
+    counting on `gemm_counter`: the warpgroup-MMA kernel on 128 x
+    `block_n` tiles, planned by `gemm_plan` over 64-row chunks or (w8a8)
+    128-row groups (a split reduce after it where it splits)."""
     unit = 128 if w8a8 else 64
     m, K = x.shape
     sms = build.sm_count(x.device)
     out_dtype = torch.float32 if x.dtype == torch.float32 else \
         torch.bfloat16
-    if m <= stream_m:
-        if streamed:
+    use_stream = m <= stream_m if stream is None else stream
+    if use_stream:
+        if w8a8:
+            block_m, splits = _tiling(m, K, N, unit, True, sms)
+        else:
             block_m, splits = stream_plan(m, K, N, 32, sms, bits,
                                           x.element_size())
-        else:
-            block_m, splits = _tiling(m, K, N, unit, True, sms)
         return _entry_launch(entry, x, ptrs, N, block_m, splits, out_dtype,
                              counter=counter, what=what)
     splits, _ = gemm_plan(m, K, N, unit, sms,
@@ -880,10 +891,11 @@ def _launch_by_m(entry: str, x, ptrs: Tuple[int, ...], N: int, *,
                          counter=gemm_counter, what=what)
 
 
-def gguf_q8_matmul(x: torch.Tensor, qs: torch.Tensor,
-                   d: torch.Tensor) -> torch.Tensor:
+def gguf_q8_matmul(x: torch.Tensor, qs: torch.Tensor, d: torch.Tensor, *,
+                   stream: Optional[bool] = None) -> torch.Tensor:
     """y [m, N] = x [m, K] @ (int8 qs [K, N] * d [K/32, N]), Q8_0 at rest
-    (K13)."""
+    (K13). `stream` pins quant_stream_kernel (True, m <= 64) or the
+    warpgroup-MMA kernel (False); None picks by m (`Q8_STREAM_M_MAX`)."""
     if not build.on_cuda(x, qs, d):
         return gguf_q8_matmul_plain(x, qs, d)
     _check_gguf(x, qs, d, 32, "gguf_q8_matmul")
@@ -891,13 +903,15 @@ def gguf_q8_matmul(x: torch.Tensor, qs: torch.Tensor,
                         (x.data_ptr(), qs.data_ptr(), d.data_ptr()),
                         qs.shape[1], counter=GGUF_Q8_MATMUL_LAUNCHES,
                         gemm_counter=GGUF_Q8_GEMM_LAUNCHES,
-                        what="gguf_q8_matmul")
+                        what="gguf_q8_matmul", bits=8,
+                        stream_m=Q8_STREAM_M_MAX, stream=stream)
 
 
-def gguf_i8g_matmul(x: torch.Tensor, qs: torch.Tensor,
-                    d16: torch.Tensor) -> torch.Tensor:
+def gguf_i8g_matmul(x: torch.Tensor, qs: torch.Tensor, d16: torch.Tensor,
+                    *, stream: Optional[bool] = None) -> torch.Tensor:
     """y [m, N] = x [m, K] @ (int8 qs [K, N] * d16 [K/16, N]), the
-    grouped-int8 at-rest form (K14)."""
+    grouped-int8 at-rest form (K14). `stream` as `gguf_q8_matmul`'s (None:
+    `I8G_STREAM_M_MAX`)."""
     if not build.on_cuda(x, qs, d16):
         return gguf_i8g_matmul_plain(x, qs, d16)
     _check_gguf(x, qs, d16, 16, "gguf_i8g_matmul")
@@ -905,8 +919,8 @@ def gguf_i8g_matmul(x: torch.Tensor, qs: torch.Tensor,
                         (x.data_ptr(), qs.data_ptr(), d16.data_ptr()),
                         qs.shape[1], counter=GGUF_I8G_MATMUL_LAUNCHES,
                         gemm_counter=GGUF_I8G_GEMM_LAUNCHES,
-                        what="gguf_i8g_matmul", streamed=True, bits=8,
-                        stream_m=I8G_STREAM_M_MAX)
+                        what="gguf_i8g_matmul", bits=8,
+                        stream_m=I8G_STREAM_M_MAX, stream=stream)
 
 
 def gguf_w8a8_launch(x8: torch.Tensor, xs: torch.Tensor, qs8: torch.Tensor,
@@ -996,8 +1010,7 @@ def gguf_q4k_matmul(x: torch.Tensor, qweight: torch.Tensor, dl: torch.Tensor,
                         (x.data_ptr(), qweight.data_ptr(), dl.data_ptr(),
                          ml.data_ptr()), N,
                         counter=GGUF_Q4K_MATMUL_LAUNCHES,
-                        gemm_counter=GGUF_Q4K_GEMM_LAUNCHES, what=what,
-                        streamed=True)
+                        gemm_counter=GGUF_Q4K_GEMM_LAUNCHES, what=what)
 
 
 def squeezellm_matmul(x: torch.Tensor, qweight: torch.Tensor,
@@ -1026,18 +1039,17 @@ def squeezellm_matmul(x: torch.Tensor, qweight: torch.Tensor,
         return _launch_by_m("sqllm_mm_f32", x, ptrs + (build.ptr(xhl),), N,
                             counter=SQUEEZELLM_MATMUL_F32_LAUNCHES,
                             gemm_counter=SQUEEZELLM_F32_GEMM_LAUNCHES,
-                            what=what + "_f32", streamed=True,
-                            block_n=X32_BLOCK_N)
+                            what=what + "_f32", block_n=X32_BLOCK_N)
     return _launch_by_m("sqllm_mm", x, ptrs, N,
                         counter=SQUEEZELLM_MATMUL_LAUNCHES,
-                        gemm_counter=SQUEEZELLM_GEMM_LAUNCHES, what=what,
-                        streamed=True)
+                        gemm_counter=SQUEEZELLM_GEMM_LAUNCHES, what=what)
 
 
-def int8_matmul(x: torch.Tensor, weight: torch.Tensor,
-                scales: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, weight: torch.Tensor, scales: torch.Tensor,
+                *, stream: Optional[bool] = None) -> torch.Tensor:
     """y [m, N] = (x [m, K] @ int8 weight [K, N]) * scales [N] (K17); x
-    bf16, scales f32."""
+    bf16, scales f32. `stream` as `gguf_q8_matmul`'s (None:
+    `INT8_STREAM_M_MAX`)."""
     if not build.on_cuda(x, weight, scales):
         return int8_matmul_plain(x, weight, scales)
     what = "int8_matmul"
@@ -1055,4 +1067,5 @@ def int8_matmul(x: torch.Tensor, weight: torch.Tensor,
     return _launch_by_m(
         "int8_mm", x, (x.data_ptr(), weight.data_ptr(), scales.data_ptr()),
         N, counter=INT8_MATMUL_LAUNCHES, gemm_counter=INT8_GEMM_LAUNCHES,
-        what=what)
+        what=what, bits=8, stream_m=INT8_STREAM_M_MAX,
+        stream=stream)

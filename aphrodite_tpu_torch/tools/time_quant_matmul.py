@@ -6,16 +6,16 @@ the wrapper's host time stays out; median of 20).
 
     python3 aphrodite_tpu_torch/tools/time_quant_matmul.py \\
         [--kernels K6,K7,K8,K9,K10,K11,K12,K13,K14,K15,K16,K16f32,K17] \\
-        [--ptxas] [TREE ...]
+        [--ptxas] [--routes] [TREE ...]
 
 Each TREE (default: this checkout) is a checkout of the repository, for
 example an earlier commit unpacked with `git archive` into a directory
 that .gitignore lists. Each is timed in a process of its own, with its
 own package and kernels (built into TREE/build/kernels), on the same
 inputs, at Mistral-7B's four projections and m 72, 128, 512 and 4096
-(K7: m 1, 8, 16, 32 and 64; K12-K17 and K16f32: m 1, 8, 16, 32, 33,
-64, 72, 128, 512 and 4096, both of their kernels; K9: m 1, 8, 16, 32,
-64, 512 and 4096). Each tree first times an empty launch
+(K7: m 1, 8, 16, 32 and 64; K12-K17 and K16f32: m 1, 8, 16, 17, 24,
+32, 33, 64, 72, 128, 512 and 4096, both of their kernels; K9: m 1, 8,
+16, 32, 64, 512 and 4096). Each tree first times an empty launch
 (`torch.cuda._sleep(0)`) on the same timer, the floor under a kernel
 that moves almost nothing (K9 at decode): {"tree", "kernel": "empty
 launch", "ms"}.
@@ -46,8 +46,8 @@ launch", "ms"}.
   products a term and 4-byte x and y;
 - K13 and K14: `gguf_q8_matmul` and `gguf_i8g_matmul` on
   `chip_smoke.gguf_weights` (codes in [-127, 127] with a scale row per
-  32 rows; Q6_K-shaped codes with one per 16), their skinny kernels at
-  m <= 64 (K14's `quant_stream_kernel`);
+  32 rows; Q6_K-shaped codes with one per 16), each on the route the
+  wrapper takes at that m;
 - K15: `gguf_w8a8_launch` on K9's rows of the same x and
   `chip_smoke.gguf_weights` (a scale row per 128 rows); beside it, at
   m > 16 (what it takes), `torch._int_mm` on the same int8 shapes (the
@@ -70,17 +70,26 @@ tree, kernel, m and projection, {"tree", "kernel", "m", "proj", "ms"},
 and one per tree, kernel and m with the sum over the four projections
 (one layer) and its bound (chip_smoke's: the bytes over 3.35 TB/s or
 the operations over the bf16 or int8 peak, whichever is larger),
-{"tree", "kernel", "m", "layer_ms", "bound_ms"}. With `--ptxas`, each
-tree first prints one object per kernel instance of its `csrc/*.cu`
-builds, {"tree", "source", "ptxas", "registers", "spill_bytes"}: the
-instance by its demangled name without its parameter list (c++filt,
-where the toolkit's machine has it), so that two trees' reports compare
-by name; and each warning of those builds (a wgmma serialization, C7515
-/ C7518), {"tree", "source", "ptxas_warning"}.
+{"tree", "kernel", "m", "layer_ms", "bound_ms"}. With `--routes`, K13,
+K14 and K17 (where `--kernels` names them) are also timed on each route
+pinned, `quant_stream_kernel` (`stream=True`) and the 128-row
+warpgroup-MMA kernel (`stream=False`), at m 8, 9, 12-17, 24 and 32
+(their m list gains 9 and 12-15), the rows around the wrappers'
+thresholds (`Q8_STREAM_M_MAX`, `I8G_STREAM_M_MAX`, `INT8_STREAM_M_MAX`):
+{"tree", "kernel", "route", "m", "layer_ms"}, or {"tree", "kernel",
+"route": "not pinnable"} for a tree whose wrapper takes no `stream`.
+With `--ptxas`, each tree first prints one object per kernel instance
+of its `csrc/*.cu` builds, {"tree", "source", "ptxas", "registers",
+"spill_bytes"}: the instance by its demangled name without its
+parameter list (c++filt, where the toolkit's machine has it), so that
+two trees' reports compare by name; and each warning of those builds (a
+wgmma serialization, C7515 / C7518), {"tree", "source",
+"ptxas_warning"}.
 """
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -94,7 +103,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 MS = (72, 128, 512, 4096)
 K7_MS = (1, 8, 16, 32, 64)
 K9_MS = (1, 8, 16, 32, 64, 512, 4096)
-LATE_MS = (1, 8, 16, 32, 33, 64, 72, 128, 512, 4096)
+LATE_MS = (1, 8, 16, 17, 24, 32, 33, 64, 72, 128, 512, 4096)
+ROUTE_MS = (8, 9, 12, 13, 14, 15, 16, 17, 24, 32)
+ROUTED = ("K13", "K14", "K17")
 K7_ARMS = ("gptq", "gptq8", "gptq_gK", "gptq_a8", "awq", "awq_a8")
 KERNELS = ("K6", "K7", "K8", "K9", "K10", "K11", "K12", "K13", "K14",
            "K15", "K16", "K16f32", "K17", "W4A8")
@@ -269,7 +280,8 @@ def time_prompt_rounds(tree: str, torch, smoke) -> None:
     os.environ.pop("APHRODITE_W4A8")
 
 
-def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
+def time_tree(tree: str, kernels, ptxas: bool = False,
+              routes: bool = False) -> None:
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_timer", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -292,6 +304,7 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
                 rec["bound_ms"] = bound[m]
             print(json.dumps(rec), flush=True)
 
+    pinned = {}       # (kernel, route) -> {m: layer ms}
     for kernel in kernels:
         if kernel == "K7":
             time_k7(tree, torch, qmm, smoke, timer)
@@ -303,6 +316,8 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
             time_k9(tree, torch, qmm, smoke, timer)
             continue
         ms_list = LATE_MS if kernel in LATE or kernel in GGUF else MS
+        if routes and kernel in ROUTED:
+            ms_list = tuple(sorted(set(ms_list) | set(ROUTE_MS)))
         f32 = kernel == "K16f32"
         layer = dict.fromkeys(ms_list, 0.0)
         yard = dict.fromkeys(ms_list, 0.0)
@@ -371,6 +386,13 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
                         "K14": "gguf_i8g_matmul"}[kernel])
                     ms = timer(lambda: fn(x, *w))
                     yard[m] += timer(lambda: torch.matmul(x, w16))
+                    if routes and kernel in ROUTED and m in ROUTE_MS and \
+                            "stream" in inspect.signature(fn).parameters:
+                        for route, pin in (("stream", True),
+                                           ("gemm", False)):
+                            rec = pinned.setdefault((kernel, route), {})
+                            rec[m] = rec.get(m, 0.0) + timer(
+                                lambda: fn(x, *w, stream=pin))
                 int8 = kernel in ("K8", "K11", "K15")
                 size = 4 if f32 else 2
                 x_bytes = m * K + m * 4 if int8 else m * K * size
@@ -393,24 +415,35 @@ def time_tree(tree: str, kernels, ptxas: bool = False) -> None:
         elif kernel != "K6" and kernel != "K10":
             emit(f"torch.matmul over {kernel}'s weight in "
                  f"{'f32' if f32 else 'bf16'}", yard)
+        if routes and kernel in ROUTED:
+            if (kernel, "stream") not in pinned:
+                print(json.dumps({"tree": tree, "kernel": kernel,
+                                  "route": "not pinnable"}), flush=True)
+            for route in ("stream", "gemm"):
+                for m, ms in pinned.get((kernel, route), {}).items():
+                    print(json.dumps({"tree": tree, "kernel": kernel,
+                                      "route": route, "m": m,
+                                      "layer_ms": ms}), flush=True)
 
 
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--one"] and len(args) == 4:
+        flags = args[2].split(",")
         time_tree(args[3], [k for k in args[1].split(",") if k],
-                  args[2] == "ptxas")
+                  "ptxas" in flags, "routes" in flags)
         return 0
     kernels = DEFAULT
     if args[:1] == ["--kernels"] and len(args) >= 2:
         kernels = tuple(k for k in args[1].split(",") if k)
         args = args[2:]
-    ptxas = args[:1] == ["--ptxas"]
-    args = args[1:] if ptxas else args
+    flags = []
+    while args[:1] in (["--ptxas"], ["--routes"]):
+        flags.append(args.pop(0)[2:])
     if any(a.startswith("-") for a in args) or \
             not set(kernels) <= set(KERNELS):
         print(f"usage: {sys.argv[0]} [--kernels {','.join(KERNELS)}] "
-              "[--ptxas] [TREE ...]", file=sys.stderr)
+              "[--ptxas] [--routes] [TREE ...]", file=sys.stderr)
         return 2
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -419,7 +452,7 @@ def main() -> int:
     for tree in args or [HERE]:
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
                              "--one", ",".join(kernels),
-                             "ptxas" if ptxas else "-", tree]).returncode
+                             ",".join(flags) or "-", tree]).returncode
         if rc:
             print(f"{tree}: exit {rc}", file=sys.stderr)
             return rc

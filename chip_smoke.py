@@ -148,20 +148,21 @@ Phases, in order; any failure exits non-zero:
    request (temperature 0.8) served alone and in a batch of 8 gives the
    same tokens.
 13. GGUF kernels vs plain versions at the same four projections, m 1,
-   8, 16, 32, 64, 512 and 4096 and 65, 72, 128 and 256 (where the m > 64
-   kernels split the K range), through the wrappers the engine calls:
-   `gguf_q8_matmul` (K13, a bf16 scale row per 32 input rows; at m > 64
-   `quant_gemm_kernel<8, kQ8>`), `gguf_i8g_matmul` (K14, per 16 rows; at
-   m <= 16 `quant_stream_kernel<8, kI8g>`, its stream plan logged, at m 8
-   with a control that must miss: d16 read per 32 rows; above
-   `quant_gemm_kernel<8, kI8g>`) and `gguf_w8a8_matmul` (K9, then
-   K15, per 128 rows; at m > 64 `w8a8_gemm_kernel`). Weights are
-   quantized on the card from an N(0, 0.02) weight as the at-rest forms
-   hold real ones (codes in [-127, 127], K14's Q6_K-shaped in [-32,
-   31]). Phase 8's tolerance; at every m on a warpgroup-MMA kernel (K14
-   from m 17, the others above 64) a control must miss it
-   (K15's and K13's plain versions with their scale rows shifted by one
-   group, K14's reading d16 per 32 rows). Each case timed as phase 8
+   8, 16, 17, 32, 33, 64, 512 and 4096 and 65, 72, 128 and 256 (where
+   the m > 64 kernels split the K range), through the wrappers the
+   engine calls: `gguf_q8_matmul` (K13, a bf16 scale row per 32 input
+   rows) and `gguf_i8g_matmul` (K14, per 16 rows), up to 16 and 13 rows
+   (`Q8_STREAM_M_MAX`, `I8G_STREAM_M_MAX`) on `quant_stream_kernel<8,
+   kQ8 / kI8g>`, its stream plan logged, above on `quant_gemm_kernel<8,
+   kQ8 / kI8g>`;
+   and `gguf_w8a8_matmul` (K9, then K15, per 128 rows; at m > 64
+   `w8a8_gemm_kernel`). Weights are quantized on the card from an N(0,
+   0.02) weight as the at-rest forms hold real ones (codes in [-127,
+   127], K14's Q6_K-shaped in [-32, 31]). Phase 8's tolerance; controls
+   that must miss it: K13's plain version with d shifted by one group
+   and with d read per 16 rows (K14's map) at every m, on both routes;
+   K14's reading d16 per 32 rows at m 8 and on its gemm, K15's with its
+   scale rows shifted by one group above 64. Each case timed as phase 8
    times them (K15 alone on
    K9's rows, with a check that it equals the wrapper's output), the
    plain version and the library yardstick (torch.matmul over the
@@ -176,11 +177,14 @@ Phases, in order; any failure exits non-zero:
    K1, K2 and K4, and its m > 64 kernel too (`gguf_w8a8_gemm`,
    `gguf_q8_gemm`, `gguf_i8g_gemm`; the other forms' never), whose split
    reduce (`quant_gemm_split_reduce`) the 96-request round must launch.
+   The mix's decode steps (batch 8 at most) count on the form's
+   own counter, which K13 and K14 add to only where they launch
+   `quant_stream_kernel`; the 96-request round's on the m > 64 kernel's.
    The KV pool's page count is logged
    beside bf16's, and a batch-8 decode step profiled as in phase 9 (the
    GGUF matmuls' device time beside their weight-streaming bound; K9's
-   device ms a step in the turbo run, K14's in the q6_k run; phase 9's
-   GPTQ W4A8 profile reports K9's too).
+   device ms a step in the turbo run, K13's in the q8_0 run, K14's in the
+   q6_k run; phase 9's GPTQ W4A8 profile reports K9's too).
 15. A `.gguf` file through the loader: the script writes (under the
    gitignored `build/`, deleted after) a 2-layer Llama at Mistral-7B
    width with a 32000-token `tokenizer.ggml.*` vocabulary: F32 norms,
@@ -201,22 +205,25 @@ Phases, in order; any failure exits non-zero:
    d16 read per 32 rows, or K13's d shifted by one group, must each miss
    2e-2.
 16. K12, K16 and K17 vs plain versions at the same four projections, m
-   1, 8, 64, 512 and 4096 and 65, 72, 128 and 256, through the wrappers
-   the engine calls: `gguf_q4k_matmul` (K12, random Q4_K codes with
-   affine dl/ml rows per 32 input rows; at m <= 64
+   1, 8, 16, 17, 32, 33, 64, 512 and 4096 and 65, 72, 128 and 256,
+   through the wrappers the engine calls: `gguf_q4k_matmul` (K12,
+   random Q4_K codes with affine dl/ml rows per 32 input rows; at m <= 64
    `quant_stream_kernel<4, kQ4k>`, above `quant_gemm_kernel<4, kQ4k>`),
    `squeezellm_matmul` on bf16 x (K16, an N(0, 0.02) bf16 codebook per
    column; `quant_stream_kernel<4, kLut>`, above `quant_gemm_kernel<4,
    kLut>`) and on f32 x (QuIP#'s E8P table times Wscale 0.05, codes over
    its 12 values; `quant_stream_kernel<4, kLutX32>`, above
    `split_x32_kernel` and `quant_gemm_kernel<4, kLutX32>`) and
-   `int8_matmul` (K17, int8 codes times f32 column scales; at m > 64
+   `int8_matmul` (K17, int8 codes times f32 column scales; at m <= 16
+   (`INT8_STREAM_M_MAX`) `quant_stream_kernel<8, kInt8>`, its stream
+   plan logged, from m 17
    `quant_gemm_kernel<8, kInt8>`); each call must count one launch on
-   its kernel's counter (the m > 64 kernels on their own). At every
-   m > 64 a control must miss the tolerance: K12's plain version with dl
-   and ml shifted by one group, K16's with its codebook columns rolled by
-   one (on f32 x, QuIP#'s table the same in every column, its entries
-   rolled by one code), K17's with its column scales rolled by one. Tolerance: phase 8's
+   its kernel's counter (the quant_gemm_kernel launches on their own).
+   A control must miss the tolerance at every m > 64, and for K17 at
+   every m: K12's plain version with dl and ml shifted by one group,
+   K16's with its codebook columns rolled by one (on f32 x, QuIP#'s
+   table the same in every column, its entries rolled by one code),
+   K17's with its column scales rolled by one. Tolerance: phase 8's
    for bf16; K16 on f32 x within 1e-4 of max |plain| (its control must
    pass that). Timed as phase 13, with the plain
    version and the library yardstick (torch.matmul over the weight
@@ -233,10 +240,12 @@ Phases, in order; any failure exits non-zero:
    layers; each arm's skinny kernel counted with its m > 64 kernel,
    `gguf_q4k_gemm`, `squeezellm_gemm`, `squeezellm_f32_gemm` (QuIP#),
    `int8_gemm`, which its arm must launch and every other arm must not)
-   and none of the other quantized matmuls; the 96-request round (with
-   the split reduce);
+   and none of the other quantized matmuls (the int8 arm's decode steps
+   on K17's `quant_stream_kernel`, its prompt rounds on `int8_gemm`);
+   the 96-request round (with the split reduce);
    a batch-8 decode step profiled as in phase 9 (with the kernel
-   launches per step: QuIP#'s Hadamard transforms are eager torch ops).
+   launches per step: QuIP#'s Hadamard transforms are eager torch ops;
+   K17's stream kernel's device ms a step in the int8 arm).
 18. 2-layer models at Mistral-7B width through K12, K16, K16-f32 and K17
    vs their plain versions (`compare_with_plain`: logits within 2e-2 of
    max |logit|, each quantized matmul on the model's activations within
@@ -1171,7 +1180,10 @@ def check_and_time_quant(torch, qmm, timer, awq: bool):
 GGUF_KERNELS = {"k13": ("gguf_q8_matmul", 32, 1210),
                 "k14": ("gguf_i8g_matmul", 16, 1476),
                 "k15": ("gguf_w8a8_matmul", 128, 1551)}
-GGUF_MS = (1, 8, 16, 32, 64, 512, 4096)
+# 16 and 17: K13's and K17's routes meet there (Q8_STREAM_M_MAX,
+# INT8_STREAM_M_MAX);
+# 32 and 33: quant_stream_kernel's row blocks (K12, K16) change there.
+GGUF_MS = (1, 8, 16, 17, 32, 33, 64, 512, 4096)
 
 # The m > 64 kernels (K12-K15) also at the m their split plans serve
 # (decode batches above 64, short prompt rounds).
@@ -1235,26 +1247,37 @@ def check_and_time_gguf(torch, qmm, timer):
                 err = check_close(torch, got, plain,
                                   f"{name} {proj} m={m}")
                 plan = ""
-                # K14's quant_stream_kernel takes up to 16 rows, K13's
-                # and K15's skinny tiles 64; the warpgroup-MMA kernels
-                # the rest.
-                skinny = qmm.I8G_STREAM_M_MAX if key == "k14" else 64
-                if key == "k14" and m <= skinny:
-                    block_m, splits = qmm.stream_plan(m, K, N, 16, sms, 8, 2)
+                # K13's and K14's quant_stream_kernel takes up to
+                # Q8_STREAM_M_MAX / I8G_STREAM_M_MAX rows, K15's skinny
+                # tiles 64; the warpgroup-MMA kernels the rest.
+                skinny = {"k13": qmm.Q8_STREAM_M_MAX,
+                          "k14": qmm.I8G_STREAM_M_MAX}.get(key, 64)
+                if key != "k15" and m <= skinny:
+                    block_m, splits = qmm.stream_plan(m, K, N, 32, sms, 8, 2)
                     plan = (f"; stream plan: {block_m}-row blocks, {splits} "
                             f"split(s) of {-(-(K // 32) // splits) * 32} rows")
                 if key == "k14" and m == 8:
                     # quant_stream_kernel's d16 rows: reading them per 32
                     # rows must miss.
-                    bad = qmm.gguf_q8_matmul_plain(x, qs, sc[:K // 32])
-                    c_err = (got.float() - bad.float()).abs()
-                    if not bool((c_err > ATOL + RTOL * bad.float().abs()
-                                 ).any()):
-                        fail(f"{name} {proj} m={m}: the control (d16 read "
-                             "per 32 rows) is within tolerance of the kernel")
-                    plan += ("; control (d16 read per 32 rows) max err "
-                             f"{c_err.max().item():.4f}")
-                if m > skinny:
+                    plan += stream_control_missed(
+                        torch, got, qmm.gguf_q8_matmul_plain(
+                            x, qs, sc[:K // 32]), f"{name} {proj} m={m}",
+                        "d16 read per 32 rows")
+                if key == "k13":
+                    # Both routes: d shifted by one group, and d read per
+                    # 16 rows (K14's map), must miss.
+                    what = f"{name} {proj} m={m}"
+                    bad = plain_fn(x, qs, torch.roll(sc, 1, 0))
+                    plan += control_missed(
+                        torch, qmm, got, bad, what, "d shifted by one group",
+                        m, K, N, unit=64, block_n=256, sms=sms) \
+                        if m > skinny else stream_control_missed(
+                            torch, got, bad, what, "d shifted by one group")
+                    plan += stream_control_missed(
+                        torch, got, qmm.gguf_i8g_matmul_plain(
+                            x, qs, torch.cat([sc, sc])), what,
+                        "d read per 16 rows")
+                if m > skinny and key != "k13":
                     # The control: a wrong plain version must miss.
                     bad = (qmm.gguf_q8_matmul_plain(x, qs, sc[:K // 32])
                            if key == "k14" else
@@ -1324,18 +1347,25 @@ def check_and_time_gguf(torch, qmm, timer):
     return out
 
 
-def control_missed(torch, qmm, got, bad, what: str, control: str, m: int,
-                   K: int, N: int, unit: int, block_n: int, sms: int) -> str:
+def stream_control_missed(torch, got, bad, what: str, control: str) -> str:
     """Fails unless the control `bad` (a wrong plain version) misses the
-    tolerance against the m > 64 kernel's output `got`; returns the log's
-    note of the kernel's split plan and the control's error."""
+    tolerance against the kernel's output `got`; returns the log's note
+    of the control's error."""
     c_err = (got.float() - bad.float()).abs()
     if not bool((c_err > ATOL + RTOL * bad.float().abs()).any()):
         fail(f"{what}: the control ({control}) is within tolerance of the "
              "kernel")
+    return f"; control ({control}) max err {c_err.max().item():.4f}"
+
+
+def control_missed(torch, qmm, got, bad, what: str, control: str, m: int,
+                   K: int, N: int, unit: int, block_n: int, sms: int) -> str:
+    """`stream_control_missed` against a warpgroup-MMA kernel's output
+    `got`; the note adds the kernel's split plan."""
+    note = stream_control_missed(torch, got, bad, what, control)
     splits, per = qmm.gemm_plan(m, K, N, unit, sms, block_n=block_n)
     return (f"; plan: 128 x {block_n} tiles, {splits} split(s) of {per} x "
-            f"{unit} rows; control max err {c_err.max().item():.4f}")
+            f"{unit} rows{note}")
 
 
 # ------------------------------------------- K12, K16 and K17 kernels --
@@ -1499,9 +1529,13 @@ def check_and_time_late(torch, qmm, timer):
             args, w_lib = late_weights(torch, qmm, key, K, N, seed * 10 +
                                        len(key))
             xb = x_all if f32 else x_all.to(torch.bfloat16)
+            # K17's quant_gemm_kernel takes every m over
+            # INT8_STREAM_M_MAX, the others' every m over 64.
+            gemm_from = qmm.INT8_STREAM_M_MAX if key == "k17" else 64
             for m in sorted(GGUF_MS + GEMM_MS):
                 x = xb[:m]
-                counter = counters[LATE_GEMMS[key] if m > 64 else name]
+                counter = counters[LATE_GEMMS[key] if m > gemm_from
+                                   else name]
                 before = counter.count
                 got = wrapper(x, *args)
                 if counter.count != before + 1:
@@ -1512,7 +1546,16 @@ def check_and_time_late(torch, qmm, timer):
                 err = check_close_f32(torch, got, plain, what) if f32 \
                     else check_close(torch, got, plain, what)
                 plan = ""
-                if m > 64:
+                if key == "k17" and m <= gemm_from:
+                    # quant_stream_kernel<8, kInt8>: its plan, and the
+                    # control must miss there too.
+                    block_m, splits = qmm.stream_plan(m, K, N, 32, sms, 8, 2)
+                    bad, control = late_control(torch, qmm, key, x, args)
+                    plan = (f"; stream plan: {block_m}-row blocks, {splits} "
+                            f"split(s) of {-(-(K // 32) // splits) * 32} rows"
+                            + stream_control_missed(torch, got, bad, what,
+                                                    control))
+                if m > gemm_from:
                     bad, control = late_control(torch, qmm, key, x, args)
                     if f32:
                         plan = control_missed_f32(torch, qmm, got, bad, what,
@@ -2229,7 +2272,10 @@ def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
                 by_path[label][name] = by_path[label].get(name, 0) + n
         step_bound = layers * sum(late_layer_bytes(key, K, N) for _, K, N
                                   in GPTQ_PROJ) / HBM_BYTES_PER_S * 1e3
-        profile_decode(torch, engine, tag, quant_bound_ms=step_bound)
+        named = (("K17 (quant_stream_kernel<8, kInt8>)",
+                  "quant_stream_kernel"),) if key == "k17" else ()
+        profile_decode(torch, engine, tag, quant_bound_ms=step_bound,
+                       named=named)
         for name in env:
             os.environ.pop(name)
         del engine
@@ -2584,6 +2630,8 @@ def main() -> int:
                                   in GPTQ_PROJ) / HBM_BYTES_PER_S * 1e3
         named = {"k15": (("K9 (quant8_kernel)", "quant8_kernel"),),
                  "k14": (("K14 (quant_stream_kernel<8, kI8g>)",
+                          "quant_stream_kernel"),),
+                 "k13": (("K13 (quant_stream_kernel<8, kQ8>)",
                           "quant_stream_kernel"),)}.get(key, ())
         profile_decode(torch, engine, tag, quant_bound_ms=step_bound,
                        named=named)

@@ -20,7 +20,8 @@ in group order with one fma (the plain version rounds a product and a
 sum; a split folds its part of a group) and are held to the same
 tolerance. K12, K16 on bf16 and K17 (bf16 outputs of
 f32 sums): 2e-2 + 2e-2 |plain|; their m > 64 kernels also dequantize
-bit for bit (identity rows of x). K16 on f32 x: within 1e-4 of max
+bit for bit (identity rows of x), and so do K13's and K17's stream
+kernels. K16 on f32 x: within 1e-4 of max
 |plain| (three bf16 products per term keep about 16 mantissa bits of
 each operand; the plain version sums exact f32 products); its m > 64
 kernel returns bf16 hi + lo of each f32 entry bit for bit (identity
@@ -825,9 +826,11 @@ def _gguf_problem(dev, kind, m, K, N, seed=0):
 
 
 def _gguf_skinny_m(kind):
-    """The rows up to which a GGUF wrapper runs its skinny kernel: K14's
-    quant_stream_kernel takes 16, K13's and K15's tiles 64."""
-    return tqm.I8G_STREAM_M_MAX if kind == "i8g" else tqm.STREAM_M_MAX
+    """The rows up to which a GGUF wrapper runs its skinny kernel: K13's
+    and K14's quant_stream_kernel take `Q8_STREAM_M_MAX` and
+    `I8G_STREAM_M_MAX`, K15's tiles 64."""
+    return {"q8": tqm.Q8_STREAM_M_MAX,
+            "i8g": tqm.I8G_STREAM_M_MAX}.get(kind, tqm.STREAM_M_MAX)
 
 
 def _gguf_counter(kind, m):
@@ -857,13 +860,14 @@ def _gguf_reduces(kind, m, K, N, dev):
     (m, K, N) for m in (65, 72, 128, 256, 512) for K, N in _PROJ] + [
     (200, 2048, 384), (129, 1024, 1152), (77, 14336, 4096)])
 def test_gguf_matmul_kernels_match_plain(dev, kind, m, K, N):
-    """Every tiling: at m <= 16 K14's quant_stream_kernel (8-16-row
-    blocks, K split over 32-row units by stream_plan) and at m <= 64 K13's
-    and K15's 16-64-row tiles with split K; above, K13's and K14's
-    quant_gemm_kernel (128 x 256 tiles; N 384 and 1152 end on a
-    128-column half tile; K14's from 17 rows) and K15's
-    w8a8_gemm_kernel, with their split plans; one launch counted each,
-    and the split reduce where the plan splits."""
+    """Every tiling: up to `Q8_STREAM_M_MAX` / `I8G_STREAM_M_MAX` rows
+    K13's and K14's quant_stream_kernel (8-16-row blocks, K split over
+    32-row units by stream_plan) and at m <= 64 K15's 16-64-row tiles
+    with split K;
+    above, K13's and K14's quant_gemm_kernel (128 x 256 tiles; N 384 and
+    1152 end on a 128-column half tile) and K15's w8a8_gemm_kernel, with
+    their split plans; one launch counted each, and the split reduce
+    where the plan splits."""
     if kind == "q8" or kind == "i8g":
         K = max(256, K // 256 * 256)
     x, qs, scales = _gguf_problem(dev, kind, m, K, N, seed=m + K)
@@ -920,6 +924,154 @@ def test_gguf_kernels_take_unaligned_rows(dev, kind, m):
     name = f"gguf_{kind}_matmul"
     assert torch.equal(getattr(tqm, name)(shifted, qs, scales),
                        getattr(tqm, name)(x, qs, scales))
+
+
+# K13 and K17 at decode: (wrapper, stream counter, gemm counter, the
+# controls: K13's plain version with d shifted by one group and with d
+# read per 16 rows (K14's map), K17's with its column scales rolled by
+# one).
+_BYTE_DECODE = {
+    "q8": ("gguf_q8_matmul", "GGUF_Q8_MATMUL_LAUNCHES",
+           "GGUF_Q8_GEMM_LAUNCHES",
+           (("d shifted by one group",
+             lambda x, qs, d: tqm.gguf_q8_matmul_plain(x, qs, d.roll(1, 0))),
+            ("d read per 16 rows",
+             lambda x, qs, d: tqm.gguf_i8g_matmul_plain(
+                 x, qs, torch.cat([d, d]))))),
+    "int8": ("int8_matmul", "INT8_MATMUL_LAUNCHES", "INT8_GEMM_LAUNCHES",
+             (("column scales rolled by one",
+               lambda x, w, s: tqm.int8_matmul_plain(x, w, s.roll(1, 0))),)),
+}
+
+
+def _byte_decode_problem(dev, kind, m, K, N, seed):
+    if kind == "q8":
+        return _gguf_problem(dev, "q8", m, K, N, seed=seed)
+    return _packed4_problem(dev, "int8", m, K, N, seed=seed)
+
+
+@pytest.mark.parametrize("route", ["default", "stream", "gemm"])
+@pytest.mark.parametrize("K,N", _PROJ + ((512, 384),))
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 33, 64])
+@pytest.mark.parametrize("kind", list(_BYTE_DECODE))
+def test_k13_k17_decode_matches_plain(dev, kind, m, K, N, route):
+    """K13 and K17 at decode on both routes: the wrapper's own choice
+    (quant_stream_kernel<8, kQ8 / kInt8> up to `Q8_STREAM_M_MAX` /
+    `INT8_STREAM_M_MAX` rows, quant_gemm_kernel<8, kQ8 / kInt8> from the
+    next row), and each route
+    pinned (`stream`), at Mistral-7B's projections (the stream plan
+    splits K; the gemm splits at N 4096 and 6144, not at 28672) and a
+    small shape. One launch on the route's counter, none on the other,
+    the split reduce where the gemm's plan splits; the result within
+    `_close` of the plain version, and every control misses it."""
+    name, stream_c, gemm_c, controls = _BYTE_DECODE[kind]
+    args = _byte_decode_problem(dev, kind, m, K, N, seed=m + K + N)
+    stream = {"default": None, "stream": True, "gemm": False}[route]
+    limit = tqm.Q8_STREAM_M_MAX if kind == "q8" else tqm.INT8_STREAM_M_MAX
+    use_stream = m <= limit if stream is None else stream
+    counters = [getattr(tqm, stream_c), getattr(tqm, gemm_c),
+                tqm.QUANT_GEMM_REDUCE_LAUNCHES]
+    before = [c.count for c in counters]
+    got = getattr(tqm, name)(*args, stream=stream)
+    want = getattr(tqm, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    reduce = 0 if use_stream else int(tqm.gemm_plan(
+        m, K, N, 64, tqm.build.sm_count(dev))[0] > 1)
+    assert [c.count - b for c, b in zip(counters, before)] == \
+        ([1, 0, 0] if use_stream else [0, 1, reduce])
+    assert got.dtype == torch.bfloat16 and got.shape == (m, N)
+    _close(got, want)
+    for what, control in controls:
+        assert _misses(got, control(*args)), what
+
+
+@pytest.mark.parametrize("kind", list(_BYTE_DECODE))
+@pytest.mark.parametrize("m,K,N,splits", [
+    (8, 512, 28672, 1), (16, 256, 28672, 1), (1, 256, 128, 8),
+    (16, 4096, 4096, 6)])
+def test_k13_k17_stream_split_and_unsplit(dev, kind, m, K, N, splits):
+    """quant_stream_kernel<8, kQ8 / kInt8> where `stream_plan` gives one
+    split (the epilogue writes bf16, K17 times its column scales there)
+    and several (the split reduce adds the partials, K17's scales
+    applied there), against the plain version."""
+    sms = tqm.build.sm_count(dev)
+    if tqm.stream_plan(m, K, N, 32, sms, 8, 2)[1] != splits:
+        pytest.skip(f"the plan splits otherwise on {sms} SMs")
+    args = _byte_decode_problem(dev, kind, m, K, N, seed=m + K)
+    got = getattr(tqm, _BYTE_DECODE[kind][0])(*args, stream=True)
+    want = getattr(tqm, _BYTE_DECODE[kind][0] + "_plain")(*args)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 40])
+@pytest.mark.parametrize("K", [4160, 320])
+def test_k17_takes_k_of_a_half_stage(dev, m, K):
+    """K17's wrapper takes K a multiple of 64 (its JAX gate 256): K % 128
+    == 64 leaves the stream kernel's split a short last stage (two k32
+    steps) and the gemm a 64-row chunk; both match the plain version."""
+    for stream in (True, False):
+        args = _packed4_problem(dev, "int8", m, K, 1024, seed=m + K)
+        got = tqm.int8_matmul(*args, stream=stream)
+        want = tqm.int8_matmul_plain(*args)
+        torch.cuda.synchronize()
+        _close(got, want)
+
+
+@pytest.mark.parametrize("kind", list(_BYTE_DECODE))
+@pytest.mark.parametrize("m,K,N", [(8, 4096, 6144), (16, 14336, 4096),
+                                   (5, 1024, 1152)])
+def test_k13_k17_stream_takes_views_of_x(dev, kind, m, K, N):
+    """K13 and K17 on quant_stream_kernel on x given as a view at a row
+    offset (the cp.async path) and at an unaligned element offset
+    (element loads), against the plain version on a copy."""
+    x_all, *w = _byte_decode_problem(dev, kind, m + 8, K, N, seed=m)
+    name = _BYTE_DECODE[kind][0]
+    for what, x in _views(x_all, m).items():
+        assert x.is_contiguous() and x.data_ptr() != x_all.data_ptr(), what
+        got = getattr(tqm, name)(x, *w, stream=True)
+        want = getattr(tqm, name + "_plain")(x.clone(), *w)
+        torch.cuda.synchronize()
+        _close(got, want)
+
+
+@pytest.mark.parametrize("kind", list(_BYTE_DECODE))
+def test_k13_k17_stream_dequantizes_exactly(dev, kind):
+    """With x of 16 identity rows, K13's and K17's stream kernels return
+    rows of their W: K13 bf16(q * d) bit for bit as the plain version
+    rounds it (zeros of either sign taken as one), for every int8 code
+    and d of either sign over 2^-20 .. 2^1 and zero; K17
+    bf16(float(q) * s) for s over 2^-20 .. 2^1 (its plan splits at N
+    1152: the scales come in the split reduce)."""
+    K, N = 1024, 1152
+    g = torch.Generator(device=dev).manual_seed(1317)
+    q = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    q[:256] = torch.arange(-128, 128, device=dev, dtype=torch.int8)[:, None]
+    if kind == "q8":
+        e = torch.randint(-20, 2, (K // 32, N), generator=g, device=dev)
+        d = ((1 + torch.rand(K // 32, N, generator=g, device=dev)) *
+             torch.exp2(e.float()) *
+             torch.where(torch.rand(K // 32, N, generator=g, device=dev) <
+                         0.5, -1.0, 1.0))
+        d[torch.rand(K // 32, N, generator=g, device=dev) < 0.05] = 0
+        d = d.to(torch.bfloat16)
+        w = (q.float() * d.float().repeat_interleave(32, dim=0)).to(
+            torch.bfloat16)
+        args = (q, d)
+    else:
+        s = (1 + torch.rand(N, generator=g, device=dev)) * torch.exp2(
+            torch.randint(-20, 2, (N,), generator=g, device=dev).float())
+        w = (q.float() * s).to(torch.bfloat16)
+        args = (q, s)
+    fn = getattr(tqm, _BYTE_DECODE[kind][0])
+    for r0 in range(0, K, 16):
+        x = torch.zeros(16, K, dtype=torch.bfloat16, device=dev)
+        x[torch.arange(16, device=dev), r0 + torch.arange(16, device=dev)] = 1
+        got = fn(x, *args, stream=True)
+        torch.cuda.synchronize()
+        assert torch.equal((got + 0).view(torch.int16),
+                           (w[r0:r0 + 16] + 0).view(torch.int16)), r0
 
 
 @pytest.mark.parametrize("K,N", _PROJ)
@@ -1006,15 +1158,16 @@ _PACKED4_GEMM = {"q4k": "GGUF_Q4K_GEMM_LAUNCHES",
     (1, 4096, 6144), (8, 14336, 4096), (33, 512, 384), (64, 4096, 4096),
     (65, 256, 128), (300, 4096, 1024)])
 def test_k12_k16_k17_kernels_match_plain(dev, kind, m, K, N):
-    """Every kernel: at m <= 64 quant_stream_kernel (K12, K16 on bf16 and
-    f32 x; 8-64-row blocks, split K) and int8_mma_kernel (K17); above,
-    quant_gemm_kernel; the wrappers count one launch each, on their own
-    counter (K16's f32 arms and the m > 64 kernels have their own)."""
+    """Every kernel: at m <= 64 (K17 up to `INT8_STREAM_M_MAX` rows)
+    quant_stream_kernel (K12, K16 on bf16 and f32 x, K17; 8-64-row
+    blocks, split K); above, quant_gemm_kernel; the wrappers count one
+    launch each, on their own counter (K16's f32 arms and the
+    quant_gemm_kernel launches have their own)."""
     K = max(256, K // 256 * 256)
     args = _packed4_problem(dev, "lut" if kind == "lut32" else kind, m, K,
                             N, seed=m + K, f32=kind == "lut32")
     name, counter_name = _PACKED4[kind]
-    if m > 64 and kind in _PACKED4_GEMM:
+    if m > (tqm.INT8_STREAM_M_MAX if kind == "int8" else tqm.STREAM_M_MAX):
         counter_name = _PACKED4_GEMM[kind]
     counter = getattr(tqm, counter_name)
     others = [getattr(tqm, c) for c in sorted(

@@ -670,9 +670,8 @@ def _tiling_at_132(m, K, N, gs):
 def test_tiling_reads_the_sm_count():
     """At 132 SMs every skinny plan at Mistral-7B's projections and m 1-64
     is the one the fixed count gave (H100 SXM plans do not move), for
-    the 128-row groups of GPTQ, AWQ and K15 and the 64-row units of K13
-    and K17; on a card with another count the plan follows that
-    count."""
+    128-row groups (K15's) and 64-row units; on a card with another count
+    the plan follows that count."""
     moved = 0
     for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
         for gs in (128, 64):
@@ -1781,9 +1780,12 @@ def test_k12_k16_stream_plan_table(m, K, N, x_bytes, want):
 def _stream_smem(kind, k_split, nt):
     """quant_stream_kernel's shared memory a block (smem_bytes): the
     ring (K12's stages carry their dl and ml rows; K14's two stages their
-    bytes and d16 rows), K16's codebook and the resident x."""
+    bytes and d16 rows, K13's their bytes and d rows, K17's their bytes),
+    K16's codebook and the resident x."""
     if kind == "i8g":
         ring = 2 * (128 * 32 + 8 * _I8G_D16_WORDS) * 4
+    elif kind in ("q8", "int8"):
+        ring = 2 * (128 * 32 + (4 * 64 if kind == "q8" else 0)) * 4
     else:
         ring = 3 * (16 * 136 + (8 * 64 if kind == "q4k" else 0)) * 4
     es = 4 if kind == "lut32" else 2
@@ -1793,7 +1795,8 @@ def _stream_smem(kind, k_split, nt):
 
 
 @pytest.mark.parametrize("sms", [132, 114])
-@pytest.mark.parametrize("kind", ["q4k", "lut", "lut32", "i8g"])
+@pytest.mark.parametrize("kind", ["q4k", "lut", "lut32", "i8g", "q8",
+                                  "int8"])
 def test_k12_k16_stream_blocks_fit_two_an_sm(kind, sms):
     """At every m 1-64 and QuIP#'s and Mistral-7B's shapes the plan's
     splits are runs of whole 32-row units, none empty, each block's x
@@ -1804,9 +1807,9 @@ def test_k12_k16_stream_blocks_fit_two_an_sm(kind, sms):
                  (4096, 12288), (4096, 22016), (11008, 4096)):
         for m in range(1, 65):
             x_bytes = 4 if kind == "lut32" else 2
-            block_m, splits = tqm.stream_plan(m, K, N, 32, sms,
-                                              8 if kind == "i8g" else 4,
-                                              x_bytes)
+            block_m, splits = tqm.stream_plan(
+                m, K, N, 32, sms, 8 if kind in ("i8g", "q8", "int8") else 4,
+                x_bytes)
             units = K // 32
             per = -(-units // splits)
             assert -(-units // per) == splits
@@ -2060,6 +2063,325 @@ def test_k14_stream_decoder_equals_the_plain_dequant():
 def test_k14_stream_plan_table(m, K, N, want):
     assert tqm.stream_plan(m, K, N, 16, 132, 8, 2) == want
     assert tqm.stream_plan(m, K, N, 32, 132, 8, 2) == want
+
+
+# ---- K13 and K17 at decode (quant_stream_kernel's kQ8 / kInt8), emulated ----
+#
+# K14's stage and ldmatrix (above) with other scale rows: K13's stage
+# carries its four d rows (a row per 32 k rows, 64 words each, unpadded)
+# after the 128 code rows, K17's none. Each code becomes bf16(q) exactly
+# (`i8_pair`: a byte permute puts 0x43 above the code, two masks and a
+# bf16x2 subtraction), bytes 0 and 2 of a register (column c0, rows r
+# and r + 4) into one pair and bytes 1 and 3 (c0 + 1) into the other;
+# K13 multiplies each pair by its column's (d, d) in one bf16x2 multiply.
+
+_Q8_D = 16384             # byte offset of a K13 stage's d rows
+_Q8_D_WORDS = 64          # words from one d row to the next
+
+
+def _byte_stage(codes, d_bits=None):
+    """K13's (with bf16 bits d [4, 128]) or K17's (without) stage bytes as
+    the kernel's copies place them."""
+    rows = 0 if d_bits is None else 4
+    stage = np.zeros(_Q8_D + rows * _Q8_D_WORDS * 4, np.uint8)
+    raw = np.ascontiguousarray(codes).view(np.uint8)
+    for r in range(128):
+        for c in range(8):
+            stage[_i8g_piece(r, c):_i8g_piece(r, c) + 16] = \
+                raw[r, 16 * c:16 * c + 16]
+    if rows:
+        d = np.ascontiguousarray(d_bits.astype(np.uint16)).view(np.uint8)
+        for g in range(rows):
+            at = _Q8_D + g * _Q8_D_WORDS * 4
+            assert not stage[at:at + 256].any()
+            stage[at:at + 256] = d[g]
+    return stage
+
+
+def _i8_pair(w, sel):
+    """gemm::i8_pair: the two codes `sel` picks as an exact bf16 pair."""
+    t = _prmt(w, 0x43434343, sel)
+    return _bf2_sub(t & np.uint64(0xFF7FFF7F), t & np.uint64(0xFF80FF80))
+
+
+def _byte_fragments(kind, stage, warp, b, loads=None):
+    """step_fragments of kQ8 ("q8", with the loop's d pair) or kInt8
+    ("int8") for every lane of `warp` at k32 step b: uint64 [32, 2, 4] A
+    registers. `loads` collects the ldmatrix's row addresses and the d
+    words."""
+    lane = np.arange(32)
+    gid, t = lane >> 2, lane & 3
+    addrs = [b * 32 * 128 + _i8g_piece(_i8g_lane_row(l), warp)
+             for l in range(32)]
+    v = _ldsm_x4_trans(stage, addrs)
+    at = None
+    if kind == "q8":
+        at = _Q8_D // 4 + b * _Q8_D_WORDS + (16 * warp + 2 * gid) // 2
+        d2 = stage.view(np.uint32)[at].astype(np.uint64)
+        s0, s1 = _prmt(d2, d2, 0x1010), _prmt(d2, d2, 0x3232)
+    if loads is not None:
+        loads.append((addrs, at))
+    regs = np.zeros((32, 2, 4), np.uint64)
+    for r in range(4):
+        p0, p1 = _i8_pair(v[:, r], 0x4240), _i8_pair(v[:, r], 0x4341)
+        if kind == "q8":
+            p0, p1 = _bf2_mul(p0, s0), _bf2_mul(p1, s1)
+        regs[:, r >> 1, 2 * (r & 1)] = p0
+        regs[:, r >> 1, 2 * (r & 1) + 1] = p1
+    return regs
+
+
+def _bf16_spread():
+    """bf16 bits of +-0, every subnormal and every finite normal binade
+    at 16 mantissas, either sign."""
+    sub = np.arange(1, 0x80, dtype=np.uint32)
+    norm = np.array([(e << 7) | m for e in range(1, 255)
+                     for m in range(0, 128, 8)], np.uint32)
+    pos = np.concatenate([[0], sub, norm, [0x7F7F]])   # and the largest
+    return np.concatenate([pos, pos | 0x8000])
+
+
+def _byte_problem(seed):
+    """One stage: codes [128, 128] over all 256 values, d [4, 128] bf16
+    bits drawn from `_bf16_spread` (zeros, subnormals, huge values)."""
+    rs = np.random.RandomState(seed)
+    codes = rs.randint(-128, 128, (128, 128)).astype(np.int8)
+    codes[:2] = np.arange(-128, 128).astype(np.int8).reshape(2, 128)
+    bits = rs.choice(_bf16_spread(), (4, 128)).astype(np.int64)
+    d = torch.from_numpy(bits.astype(np.uint16).view(np.int16)).view(
+        torch.bfloat16)
+    return codes, d, bits
+
+
+@pytest.mark.parametrize("kind", ["q8", "int8"])
+def test_k13_k17_stream_fragment_map_covers_the_tile(kind):
+    """Every (k, n) of each warp's four k32 steps of a stage lands once in
+    the lane's A registers through the ldmatrix of the swizzled stage and
+    the kQ8 / kInt8 decoder, equal bit for bit (zeros' signs too) to the
+    plain version's weight: K13's bf16(f32(q) * f32(d[k // 32]))
+    (`gguf_q8_matmul_plain`'s `_dequant`), K17's bf16(q) (its column
+    scale comes after the sums)."""
+    codes, d, bits = _byte_problem(13 if kind == "q8" else 17)
+    stage = _byte_stage(codes, bits if kind == "q8" else None)
+    q = torch.from_numpy(codes)
+    w = tqm._dequant(q, d, 32, torch.bfloat16) if kind == "q8" else \
+        q.to(torch.bfloat16)
+    want = w.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    amap = _k7_a_map(False)
+    for warp in range(8):
+        for b in range(4):
+            regs = _byte_fragments(kind, stage, warp, b)
+            seen = set()
+            for (lane, s, i, e), (col, k) in amap.items():
+                n, kk = 16 * warp + col, 32 * b + k
+                seen.add((n, kk))
+                got = (int(regs[lane, s, i]) >> (16 * e)) & 0xFFFF
+                assert got == want[kk, n], (warp, b, lane, s, i, e)
+            assert len(seen) == 16 * 32
+
+
+def test_k13_stream_stage_rows_and_loads():
+    """K13's stage: the four d rows lie after the 128 code rows, one
+    (unpadded, 64 words) a 32-row group; for every warp and step each
+    lane's d word is its columns' pair in row b, the group of all 8 of its
+    rows (8t .. 8t + 7 of the step); the 32 lanes' d loads touch 8
+    neighbouring words, a quad sharing one (a broadcast), so no two words
+    in one bank; and the ldmatrix's rows are K14's, one wavefront a
+    matrix."""
+    codes, _, bits = _byte_problem(130)
+    stage = _byte_stage(codes, bits)
+    assert stage.size == 128 * 128 + 4 * 128 * 2
+    lane = np.arange(32)
+    gid, t = lane >> 2, lane & 3
+    for warp in range(8):
+        for b in range(4):
+            loads = []
+            _byte_fragments("q8", stage, warp, b, loads)
+            addrs, at = loads[0]
+            row = (at - _Q8_D // 4) // _Q8_D_WORDS
+            assert (row == b).all()
+            assert ((32 * b + 8 * t) // 32 == row).all()
+            assert ((32 * b + 8 * t + 7) // 32 == row).all()
+            assert ((at - _Q8_D // 4) % _Q8_D_WORDS ==
+                    (16 * warp + 2 * gid) // 2).all()
+            by_bank = {}
+            for wd in at.tolist():
+                by_bank.setdefault(wd % 32, set()).add(wd)
+            assert all(len(v) == 1 for v in by_bank.values())
+            assert len(set(at.tolist())) == 8
+            for i in range(4):
+                rows = addrs[8 * i:8 * i + 8]
+                assert len({(a // 16) % 8 for a in rows}) == 8
+
+
+def test_k13_stream_decoder_equals_the_plain_dequant_bit_for_bit():
+    """kQ8's arithmetic for all 256 codes and every d of a spread (+-0,
+    every bf16 subnormal, every finite binade at 16 mantissas up to the
+    largest bf16, either sign): `i8_pair` then one bf16x2 multiply by (d,
+    d) equals the plain version's bf16(f32(q) * f32(d)) bit for bit, the
+    zeros' signs and the products past bf16's range (inf) included: q d
+    is exact in f32 (8 by 8 significant bits, subnormal products on
+    2^-133 steps), so both round the exact product once."""
+    d_bits = _bf16_spread()
+    q = np.arange(-128, 128)
+    w = (q.astype(np.int64) & 0xFF)[:, None] | 0x43004300   # any word
+    pair = _i8_pair(np.broadcast_to(w, (256, d_bits.size)), 0x4240)
+    d2 = np.broadcast_to(d_bits.astype(np.uint64) * np.uint64(0x10001),
+                         (256, d_bits.size))
+    got = _bf2_mul(pair, d2) & np.uint64(0xFFFF)
+    d = torch.from_numpy(d_bits.astype(np.uint16).view(np.int16)[None, :]
+                         ).view(torch.bfloat16)
+    want = tqm._dequant(torch.from_numpy(q.astype(np.int8))[:, None], d,
+                        256, torch.bfloat16)
+    want = want.view(torch.int16).numpy().astype(np.uint64) & \
+        np.uint64(0xFFFF)
+    assert np.array_equal(got, want)
+    assert (want == 0x8000).any() and (want == 0x7F80).any() and \
+        (want == 0xFF80).any()          # -0, +inf and -inf are reached
+
+
+def test_k17_stream_decoder_is_exact():
+    """kInt8's arithmetic: `i8_pair` on bytes (0, 2) and (1, 3) of a
+    register gives bf16(q) of each byte, bit for bit, for all 256 codes
+    in every byte position: what the plain version's f32 codes hold."""
+    q = np.arange(-128, 128)
+    b = (q.astype(np.int64) & 0xFF).astype(np.uint64)
+    rs = np.random.RandomState(17)
+    other = rs.randint(0, 256, (3, 256)).astype(np.uint64)
+    want = torch.from_numpy(q.astype(np.float32)).to(torch.bfloat16)
+    want = want.view(torch.int16).numpy().astype(np.uint64) & \
+        np.uint64(0xFFFF)
+    for pos in range(4):
+        bytes_ = list(other)
+        bytes_.insert(pos, b)
+        w = sum(v << np.uint64(8 * i) for i, v in enumerate(bytes_))
+        sel, half = (0x4240, pos // 2) if pos % 2 == 0 else \
+            (0x4341, pos // 2)
+        got = (_i8_pair(w, sel) >> np.uint64(16 * half)) & np.uint64(0xFFFF)
+        assert np.array_equal(got, want), pos
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_k17_stream_epilogue_order_equals_the_plain_version(splits):
+    """K17's stream epilogue: the f32 sums (in split order through the
+    split reduce), times the column's f32 scale, rounded once to bf16.
+    With integer x the f32 sums are exact in any order, so the emulated
+    order equals `int8_matmul_plain` bit for bit; rounding the sum to
+    bf16 before the scale, or scaling each split's partial, does not."""
+    rs = np.random.RandomState(170 + splits)
+    m, K, N = 8, 384, 256
+    x = rs.randint(-8, 9, (m, K)).astype(np.float32)
+    w = rs.randint(-127, 128, (K, N)).astype(np.int8)
+    s = (rs.rand(N) * 4e-4 + 1e-4).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    assert torch.equal(xt.float(), torch.from_numpy(x))
+    want = tqm.int8_matmul_plain(xt, torch.from_numpy(w),
+                                 torch.from_numpy(s))
+    f32 = np.float32
+    parts = [x[:, k0:k0 + K // splits].astype(np.float64) @
+             w[k0:k0 + K // splits].astype(np.float64)
+             for k0 in range(0, K, K // splits)]
+    acc = f32(0)
+    for p in parts:
+        assert np.array_equal(p.astype(f32), p)          # exact partials
+        acc = (acc + p.astype(f32)).astype(f32)
+    got = torch.from_numpy((acc * s).astype(f32)).to(torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    early = torch.from_numpy(acc).to(torch.bfloat16).float() * \
+        torch.from_numpy(s)
+    assert not torch.equal(early.to(torch.bfloat16), want)
+    if splits > 1:
+        each = sum(torch.from_numpy((p.astype(f32) * s).astype(f32))
+                   for p in parts)
+        assert not torch.equal(each.to(torch.bfloat16), want)
+
+
+# K13's and K17's plan on quant_stream_kernel (`stream_plan` over 32-row
+# units at 8 bits, K14's) on 132 SMs at Mistral-7B's four projections:
+# m <= 16 is the wrappers' route; 17-64 the stream route the timing
+# tool forces to compare it with the gemm.
+@pytest.mark.parametrize("m,K,N,want", [
+    (1, 4096, 6144, (8, 11)),
+    (1, 4096, 4096, (8, 16)),
+    (1, 4096, 28672, (8, 3)),
+    (1, 14336, 4096, (8, 17)),
+    (8, 4096, 6144, (8, 11)),
+    (8, 4096, 4096, (8, 12)),
+    (8, 4096, 28672, (8, 3)),
+    (8, 14336, 4096, (8, 17)),
+    (16, 4096, 6144, (16, 6)),
+    (16, 4096, 4096, (16, 6)),
+    (16, 4096, 28672, (16, 3)),
+    (16, 14336, 4096, (16, 17)),
+    (17, 4096, 4096, (32, 6)),
+    (32, 14336, 4096, (32, 14)),
+    (64, 4096, 28672, (64, 4)),       # x of 32 rows: 4 splits at least
+    (64, 14336, 4096, (64, 14)),
+])
+def test_k13_k17_stream_plan_table(m, K, N, want):
+    assert tqm.stream_plan(m, K, N, 32, 132, 8, 2) == want
+
+
+# The routes: kernel -> (wrapper, threshold attribute, stream counter,
+# gemm counter).
+_BYTE_ROUTES = {
+    "k13": ("gguf_q8_matmul", "Q8_STREAM_M_MAX", "gguf_q8_matmul",
+            "gguf_q8_gemm"),
+    "k14": ("gguf_i8g_matmul", "I8G_STREAM_M_MAX", "gguf_i8g_matmul",
+            "gguf_i8g_gemm"),
+    "k17": ("int8_matmul", "INT8_STREAM_M_MAX", "int8_matmul", "int8_gemm"),
+}
+
+
+def _byte_route_args(kernel, m, K, N):
+    x = torch.zeros(m, K, dtype=torch.bfloat16)
+    w = torch.zeros(K, N, dtype=torch.int8)
+    if kernel == "k17":
+        return x, w, torch.ones(N)
+    G = 32 if kernel == "k13" else 16
+    return x, w, torch.ones(K // G, N, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", list(_BYTE_ROUTES))
+def test_byte_decoders_route_by_the_threshold(kernel, monkeypatch):
+    """The wrappers of K13, K14 and K17, as if their tensors were on a
+    card of 132 SMs: m <= its threshold (16; K14 13) goes to
+    quant_stream_kernel (block_m 8 or 16, `stream_plan`'s splits, the
+    wrapper's own counter), every larger m to the warpgroup-MMA kernel
+    (block_m 128, `gemm_plan`'s splits over 64-row chunks, the gemm
+    counter); `stream` pins either
+    route, and the stream route refuses m over 64."""
+    name, attr, stream_counter, gemm_counter = _BYTE_ROUTES[kernel]
+    threshold = getattr(tqm, attr)
+    assert threshold == (13 if kernel == "k14" else 16)
+    calls = []
+    monkeypatch.setattr(tqm.build, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(tqm.build, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(
+        tqm, "_entry_launch",
+        lambda entry, x, ptrs, N, block_m, splits, out_dtype, *, counter,
+        what: calls.append((block_m, splits, counter.name)))
+    fn = getattr(tqm, name)
+    for K, N in ((4096, 6144), (14336, 4096)):
+        args = _byte_route_args(kernel, 72, K, N)
+        for m in range(1, 73):
+            fn(args[0][:m], *args[1:])
+            if m <= threshold:
+                want = tqm.stream_plan(m, K, N, 32, 132, 8, 2) + \
+                    (stream_counter,)
+            else:
+                want = (128, tqm.gemm_plan(m, K, N, 64, 132)[0],
+                        gemm_counter)
+            assert calls.pop() == want, (K, N, m)
+        fn(args[0][:40], *args[1:], stream=True)
+        assert calls.pop() == tqm.stream_plan(40, K, N, 32, 132, 8, 2) + \
+            (stream_counter,)
+        fn(args[0][:8], *args[1:], stream=False)
+        assert calls.pop() == (128, tqm.gemm_plan(8, K, N, 64, 132)[0],
+                               gemm_counter)
+        with pytest.raises(ValueError, match="m <= 64"):
+            fn(args[0][:65], *args[1:], stream=True)
+    assert not calls
 
 
 # K9's launch plan (`quant8_plan`) on 132 SMs: threads a row and 16-byte
