@@ -5,15 +5,13 @@
 // aphrodite_tpu/ops/pallas/quant_matmul.py (K6-K17). K6, K10 and, at
 // m > 64, K12 and K16 (bf16 and f32 x), and above 13-16 rows K13, K14
 // and K17 are one templated kernel, quant_gemm_kernel (warp-specialized
-// wgmma, below), with a word decoder each; K8, K11 and, at m > 64, K15
-// are one templated kernel, w8a8_gemm_kernel (s8 wgmma and a per-group
-// fold, below), with a decoder each; K7 and, at m <= 64, K12 and K16
-// (bf16 and f32 x), and up to 13-16 rows K13, K14 and K17 are one
-// templated kernel, quant_stream_kernel (a cp.async ring and W
+// wgmma, below), with a word decoder each; K8, K11 and, above 12 rows,
+// K15 are one templated kernel, w8a8_gemm_kernel (s8 wgmma and a
+// per-group fold, below), with a decoder each; K7 and, at m <= 64, K12
+// and K16 (bf16 and f32 x), and up to 12-16 rows K13, K14, K15 and K17
+// are one templated kernel, quant_stream_kernel (a cp.async ring and W
 // dequantized straight into mma.sync fragments, below), with a decoder
-// each; K15 at m <= 64 is int8_mma_kernel (block tile, x staging, s8
-// mma.sync fragments, group fold and epilogue: Tile, stage_x, mma_chunk,
-// fold_group, store_tile):
+// each:
 //   _gguf_q4k_kernel (:1117)   -> quant_stream_kernel<4, kQ4k> at m <= 64,
 //                                 quant_gemm_kernel<4, kQ4k> above (K12,
 //                                 Q4_K exact)
@@ -32,9 +30,9 @@
 //   _gguf_i8g_kernel (:1476)   -> quant_stream_kernel<8, kI8g> at m <= 13,
 //                                 quant_gemm_kernel<8, kI8g> above (K14,
 //                                 grouped int8)
-//   _gguf_w8a8_kernel (:1551)  -> int8_mma_kernel<G 128> at m <= 64,
-//                                 w8a8_gemm_kernel<kQs8> above (K15,
-//                                 W8A8)
+//   _gguf_w8a8_kernel (:1551)  -> quant_stream_kernel<8, kQs8, a8> at
+//                                 m <= 12, w8a8_gemm_kernel<kQs8> above
+//                                 (K15, W8A8)
 //   _kernel (:554)          -> quant_gemm_kernel<BITS, kGptq> (K6)
 //   _stream_kernel (:308)   -> quant_stream_kernel<BITS, kGptq / kAwq>,
 //                              8-64 rows, split K, a16 and a8 arms (K7)
@@ -121,23 +119,8 @@
 // column's two words one 16-byte piece; K11's AWQ words get a nibble
 // transpose). The two TPU W4A8 bodies (classic and deferred rescale)
 // differ only in the f32 summation order; the one kernel computes both.
-// K7, K12, K16 at m <= 64 and K13, K14, K17 up to 13-16 rows: see
+// K7, K12, K16 at m <= 64 and K13, K14, K15, K17 up to 12-16 rows: see
 // quant_stream_kernel below. K9: see quant8_kernel, at the end.
-// int8_mma_kernel (K15 at m <= 64, the last of the first port's skinny
-// tile kernels): a block owns BM rows x 128 columns of the output and
-// walks its K range in 64-deep k chunks. For every chunk the block stages
-// K9's int8 x in shared memory and transposes the chunk of W there (the
-// words of the next chunk are already on their way into registers), then
-// its eight warps run s8 m16n8k32 mma.sync on the tile, exact int32 sums
-// per group, with the f32 rescale by the group's scale when the group
-// ends. The TPU kernel carried the f32 sum across a sequential grid axis
-// in VMEM scratch; here the k loop is inside the block. A block covers
-// 16, 32 or 64 rows, so the weight is streamed once, and the K range is
-// split over several blocks to fill the 132 SMs: each split writes f32
-// partial sums and a second kernel adds them in split order
-// (deterministic, no atomics), applies the row scale and rounds to bf16.
-// x of up to 64 x 14336 does not fit in shared memory, so it is staged
-// chunk by chunk like W. No cp.async / TMA pipeline and no wgmma here.
 //
 // Each C entry point launches on the caller's stream, allocates nothing
 // and returns cudaGetLastError(). Build without --use_fast_math: K9's
@@ -152,10 +135,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int kThreads = 256;   // eight warps
-constexpr int kBN = 128;        // output columns per block
-constexpr int kChunk = 64;      // k values staged per step
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          const uint32_t* b) {
@@ -177,251 +156,6 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *static_cast<const uint32_t*>(p);
-}
-
-// int8_mma_kernel's block tile: BM rows x 128 columns of the output over
-// WARPS_M x (8 / WARPS_M) warps, each warp MI x NI mma fragments; int8 x
-// and W are staged 64 k at a time in shared tiles [rows][LD] (W
-// transposed, [column][k]: the mma B operand's layout; 16 bytes of pad a
-// row keep the fragments' loads conflict-free).
-template <int BM_, int WARPS_M_>
-struct Tile {
-  static constexpr int BM = BM_;
-  static constexpr int WARPS_M = WARPS_M_;
-  using T = int8_t;
-  static constexpr int WARPS_N = 8 / WARPS_M;
-  static constexpr int WM = BM / WARPS_M;
-  static constexpr int WN = kBN / WARPS_N;
-  static constexpr int MI = WM / 16;
-  static constexpr int NI = WN / 8;
-  static constexpr int LD = kChunk + 16;
-  static constexpr int VEC = 16;                 // x per uint4
-  static_assert(MI >= 1 && NI >= 1 && WM % 16 == 0 && WN % 8 == 0, "tile");
-};
-
-// This thread's place in the tile: warp row wm and column wn, and its
-// fragment row group gid and thread in group tig.
-struct Lane {
-  int wm, wn, gid, tig;
-};
-
-template <class TL>
-__device__ __forceinline__ Lane lane_of() {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  return Lane{warp / TL::WARPS_N, warp % TL::WARPS_N, lane >> 2, lane & 3};
-}
-
-// Zero a warp's accumulators: the f32 sums or the exact int32 dots.
-template <class TL, typename Acc>
-__device__ __forceinline__ void zero_acc(Acc (&acc)[TL::MI][TL::NI][4]) {
-#pragma unroll
-  for (int mi = 0; mi < TL::MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < TL::NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = Acc(0);
-}
-
-// Stage x rows [m0, m0 + BM) x k [k0, k0 + kn) into x_tile, zeros past m
-// and kn; 16-byte loads when `vec` (aligned rows) and the chunk is full.
-template <class TL>
-__device__ __forceinline__ void stage_x(typename TL::T (*x_tile)[TL::LD],
-                                        const typename TL::T* __restrict__ x,
-                                        int m, int K, int m0, int k0, int kn,
-                                        bool vec) {
-  using T = typename TL::T;
-  if (vec && kn == kChunk) {
-    constexpr int VPR = kChunk / TL::VEC;
-    for (int i = threadIdx.x; i < TL::BM * VPR; i += kThreads) {
-      const int r = i / VPR, v = i % VPR;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < m)
-        val = *reinterpret_cast<const uint4*>(
-            x + static_cast<size_t>(m0 + r) * K + k0 + v * TL::VEC);
-      *reinterpret_cast<uint4*>(&x_tile[r][v * TL::VEC]) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < TL::BM * kChunk; i += kThreads) {
-      const int r = i / kChunk, col = i % kChunk;
-      T v = 0;
-      if (m0 + r < m && col < kn)
-        v = x[static_cast<size_t>(m0 + r) * K + k0 + col];
-      x_tile[r][col] = v;
-    }
-  }
-}
-
-// The warp's s8 m16n8k32 products over a staged 64-deep chunk into the
-// exact int32 dots.
-template <class TL>
-__device__ __forceinline__ void mma_chunk(
-    typename TL::T (*x_tile)[TL::LD], typename TL::T (*w_tile)[TL::LD],
-    int (&acc)[TL::MI][TL::NI][4], Lane l) {
-#pragma unroll
-  for (int ks = 0; ks < kChunk; ks += 32) {
-    uint32_t a[TL::MI][4], b[TL::NI][2];
-#pragma unroll
-    for (int mi = 0; mi < TL::MI; ++mi) {
-      const int r = l.wm * TL::WM + mi * 16 + l.gid;
-      a[mi][0] = ld32(&x_tile[r][ks + l.tig * 4]);
-      a[mi][1] = ld32(&x_tile[r + 8][ks + l.tig * 4]);
-      a[mi][2] = ld32(&x_tile[r][ks + 16 + l.tig * 4]);
-      a[mi][3] = ld32(&x_tile[r + 8][ks + 16 + l.tig * 4]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < TL::NI; ++ni) {
-      const int n = l.wn * TL::WN + ni * 8 + l.gid;
-      b[ni][0] = ld32(&w_tile[n][ks + l.tig * 4]);
-      b[ni][1] = ld32(&w_tile[n][ks + 16 + l.tig * 4]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < TL::MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < TL::NI; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
-  }
-}
-
-// At a group's end: its exact integer dots times its scale row `srow`
-// (the group's row of scales [G, N]), added to the f32 sums in group order.
-template <class TL>
-__device__ __forceinline__ void fold_group(
-    float (&acc)[TL::MI][TL::NI][4], const int (&iacc)[TL::MI][TL::NI][4],
-    const __nv_bfloat16* __restrict__ srow, int n0, Lane l) {
-#pragma unroll
-  for (int ni = 0; ni < TL::NI; ++ni) {
-    const int col = n0 + l.wn * TL::WN + ni * 8 + l.tig * 2;
-    const float s0 = __bfloat162float(srow[col]);
-    const float s1 = __bfloat162float(srow[col + 1]);
-#pragma unroll
-    for (int mi = 0; mi < TL::MI; ++mi)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[mi][ni][e] = __fadd_rn(
-            acc[mi][ni][e],
-            __fmul_rn(static_cast<float>(iacc[mi][ni][e]), (e & 1) ? s1 : s0));
-  }
-}
-
-// Epilogue: accumulator rows gid and gid + 8, columns tig*2 and +1. Without
-// a split, to `out` in bf16, times the row scale xs; with one, the f32
-// sums to `partial[split, row, col]` for split_reduce_kernel.
-template <class TL>
-__device__ __forceinline__ void store_tile(
-    const float (&acc)[TL::MI][TL::NI][4], const float* __restrict__ xs,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int m,
-    int N, int m0, int n0, Lane l) {
-#pragma unroll
-  for (int mi = 0; mi < TL::MI; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + l.wm * TL::WM + mi * 16 + l.gid + half * 8;
-      if (r >= m) continue;
-      const float rs = partial == nullptr ? xs[r] : 1.f;
-#pragma unroll
-      for (int ni = 0; ni < TL::NI; ++ni) {
-        const int col = n0 + l.wn * TL::WN + ni * 8 + l.tig * 2;
-        const float v0 = acc[mi][ni][half * 2];
-        const float v1 = acc[mi][ni][half * 2 + 1];
-        if (partial != nullptr) {
-          *reinterpret_cast<float2*>(
-              partial + (static_cast<size_t>(blockIdx.z) * m + r) * N + col) =
-              make_float2(v0, v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + static_cast<size_t>(r) * N + col) =
-              __floats2bfloat162_rn(v0 * rs, v1 * rs);
-        }
-      }
-    }
-  }
-}
-
-// K15 at m <= 64: int8 weights qs [K, N] with one scale row per G input
-// rows (scales [K / G, N] bf16), no zero point and no unpacking; x int8
-// rows from quant8. Per G-row group the exact int32 dot (s8 m16n8k32),
-// times the group's scale row, is added to the f32 sum in group order;
-// times xs[row] at the end. A block walks the chunks [c_begin, c_end) of
-// 64 k rows (split blockIdx.z, starting on a group). Each thread stages 4
-// neighbouring columns x 8 k rows of a chunk, 8 32-bit words, one per k
-// row, so a warp reads 128 contiguous bytes of each row; it writes them
-// to the transposed tile, 8 k values of a column in one 8-byte store. The
-// words of the next chunk are loaded before the current chunk's products.
-template <class TL, int G>
-__device__ __forceinline__ void int8_mma_tile(
-    const typename TL::T* __restrict__ x, const float* __restrict__ xs,
-    const uint32_t* __restrict__ qs, const __nv_bfloat16* __restrict__ scales,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int m,
-    int K, int N, int chunks_per_split) {
-  using T = typename TL::T;
-  constexpr int CPG = G / kChunk;           // chunks per scale group
-  static_assert(G % kChunk == 0, "scale groups");
-
-  __shared__ __align__(16) T x_tile[TL::BM][TL::LD];
-  __shared__ __align__(16) T w_tile[kBN][TL::LD];
-
-  const int tid = threadIdx.x;
-  const Lane l = lane_of<TL>();
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * TL::BM;
-  const int c_begin = blockIdx.z * chunks_per_split;
-  const int c_end = min(K / kChunk, c_begin + chunks_per_split);
-  // Staging: columns n0 + 4 * cq .. + 3, rows r0 .. r0 + 7 of a chunk.
-  const int cq = tid & 31;
-  const int r0 = (tid >> 5) * 8;
-  const size_t ldw = static_cast<size_t>(N / 4);
-  const uint32_t* qcol = qs + n0 / 4 + cq;
-  // 16-byte x loads when the rows start aligned (K is a multiple of 64).
-  const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-
-  float acc[TL::MI][TL::NI][4];
-  zero_acc<TL>(acc);
-  int iacc[TL::MI][TL::NI][4];
-
-  uint32_t words[8];
-  auto load_words = [&](int c) {
-    const size_t k = static_cast<size_t>(c) * kChunk + r0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) words[i] = qcol[(k + i) * ldw];
-  };
-  if (c_begin < c_end) load_words(c_begin);
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int k0 = c * kChunk;
-    if ((c - c_begin) % CPG == 0) zero_acc<TL>(iacc);
-    stage_x<TL>(x_tile, x, m, K, m0, k0, kChunk, x_vec);
-    // This thread's 4 columns x 8 rows into the transposed W tile.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = cq * 4 + j;
-      uint32_t packed[2] = {0u, 0u};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        packed[i / 4] |= ((words[i] >> (8 * j)) & 0xffu) << (8 * (i % 4));
-      *reinterpret_cast<uint2*>(&w_tile[n][r0]) =
-          make_uint2(packed[0], packed[1]);
-    }
-    if (c + 1 < c_end) load_words(c + 1);
-    __syncthreads();
-    mma_chunk<TL>(x_tile, w_tile, iacc, l);
-    __syncthreads();
-    if ((c - c_begin) % CPG == CPG - 1)
-      fold_group<TL>(acc, iacc, scales + static_cast<size_t>(c / CPG) * N,
-                     n0, l);
-  }
-  store_tile<TL>(acc, xs, out, partial, m, N, m0, n0, l);
-}
-
-template <class TL, int G>
-__global__ void __launch_bounds__(kThreads)
-int8_mma_kernel(const typename TL::T* __restrict__ x,
-                const float* __restrict__ xs,
-                const uint32_t* __restrict__ qs,
-                const __nv_bfloat16* __restrict__ scales,
-                __nv_bfloat16* __restrict__ out,
-                float* __restrict__ partial, int m, int K, int N,
-                int chunks_per_split) {
-  int8_mma_tile<TL, G>(x, xs, qs, scales, out, partial, m, K, N,
-                       chunks_per_split);
 }
 
 // Second pass of a split-K launch: out = OutT(sum over splits, in order,
@@ -2111,15 +1845,15 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// K8, K11 and K15 at m > 64: grid (N / 128, m / 128, splits); a split
-// covers chunks_per_split chunks of 128 rows (K15: one a 128-row group;
-// K8 / K11: ceil(gs / 128) a group) and writes f32 partials, which
-// split_reduce_kernel adds in split order and multiplies by xs. K15
-// takes qs8 [K, N] and s128 [K / 128, N]; K8 GPTQ's qweight [K / 8, N],
-// qzeros [G, N / 8] and scales [G, N]; K11 AWQ's qweight [K, N / 8] and
-// the same rows. Tensor maps are encoded per call (a host encoding each,
-// no device work); the dynamic shared memory above 48 KB is allowed once
-// per instance.
+// K8, K11 at m > 64 and K15 above 12 rows: grid (N / 128, m / 128,
+// splits); a split covers chunks_per_split chunks of 128 rows (K15: one a
+// 128-row group; K8 / K11: ceil(gs / 128) a group) and writes f32
+// partials, which split_reduce_kernel adds in split order and multiplies
+// by xs. K15 takes qs8 [K, N] and s128 [K / 128, N]; K8 GPTQ's qweight
+// [K / 8, N], qzeros [G, N / 8] and scales [G, N]; K11 AWQ's qweight [K,
+// N / 8] and the same rows. Tensor maps are encoded per call (a host
+// encoding each, no device work); the dynamic shared memory above 48 KB
+// is allowed once per instance.
 template <A8Dec D>
 int launch_w8a8(const void* x8, const float* xs, const void* qw,
                 const void* qz, const void* scales, void* out,
@@ -2188,19 +1922,21 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 // quant_stream_kernel<BITS, D, A8, NT>: the products at m <= 64, every
 // decode step up to batch 64: GPTQ (4 and 8 bits) and AWQ, a16 and a8
 // arms (K7), GGUF's exact Q4_K form (K12, D kQ4k), its grouped int8 form
-// (K14, D kI8g) and its Q8_0 form (K13, D kQ8), int8 weights with f32
-// column scales (K17, D kInt8), and the codebook form on bf16 x (K16,
+// (K14, D kI8g), its Q8_0 form (K13, D kQ8) and its turbo form on K9's
+// int8 rows (K15, D kQs8, the a8 arm), int8 weights with f32 column
+// scales (K17, D kInt8), and the codebook form on bf16 x (K16,
 // SqueezeLLM, D kLut) and on f32 x (K16, QuIP#, D kLutX32). Bytes bound
 // them: each packed word serves at most 64 rows, so the least time is
-// the weight and its scale and zero rows (K12's dl and ml rows, K13's d
-// and K14's d16 rows, K16's codebook, K17's column scales) read once (34
+// the weight and its scale and zero rows (K12's dl and ml rows, K13's d,
+// K14's d16 and K15's s128 rows, K16's codebook, K17's column scales)
+// read once (34
 // us per Mistral-7B layer at 3.35 TB/s for 4-bit codes, 66-73 us for the
 // bytes). The design keeps those bytes in flight and spends few
 // instructions per word once they land:
 // - A cp.async ring per block of 128 output columns (eight warps): 3
 //   stages of 128 k rows (8.5 KB; 2 of 16.5 KB at 8 bits; 2 of 16 KB for
-//   K17's bytes, 17 KB for K13's with their d rows, 18.25 KB for K14's
-//   with their d16 rows), 16-byte
+//   K17's bytes, 16.25 KB for K15's with their s128 row, 17 KB for K13's
+//   with their d rows, 18.25 KB for K14's with their d16 rows), 16-byte
 //   cp.async.cg copies issued stages - 1 ahead, one block barrier a
 //   stage.
 // - x resident: the block's K range of x (M_TILE = 8 NT rows, at most
@@ -2233,7 +1969,7 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 //     order are as in the other kernels.
 //   - a8: codes minus zero, in [-16, 14] (GPTQ) or [-15, 15] (AWQ), as int8
 //     bytes; exact int32 dots per group, folded into f32 in group order
-//     with the group's scale row as fold_group does, times xs[row] in the
+//     with the group's scale row (`fold`), times xs[row] in the
 //     epilogue or the split reduce.
 //   - K12: GPTQ's 4-bit words and fragment map; a (dl, ml) pair of rows per
 //     32 input rows takes the place of the scale and zero rows (a group of
@@ -2262,6 +1998,18 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 //     quant_gemm_kernel, whose TMA loads run faster, takes less time; at
 //     33-64 two row blocks would each read and decode the whole weight).
 //     K is a multiple of 32: a split's last stage may be short.
+//   - K15 (a8): K14's stage and ldmatrix on int8 codes qs8 [K, N], the
+//     stage's one s128 row after them (a 128-row stage is exactly one
+//     group). The a8 arm's register a[0][i] wants rows 8t + 0, 2, 4, 6
+//     (i = 0, 1) or 8t + 1, 3, 5, 7 (i = 2, 3) of one column, and the
+//     ldmatrix's register r holds rows 8t + r and 8t + r + 4 of both:
+//     each A register is one byte permute of two of them, no conversion
+//     and no multiply. The group's exact int32 sums are folded into f32
+//     with the stage's scale row when its four steps are done, as the a8
+//     arm folds, times xs[row] in the epilogue or the split reduce. It
+//     splits over 128-row units (whole groups); the wrapper sends it 12
+//     rows at most (K15_STREAM_M_MAX; above, w8a8_gemm_kernel, whose
+//     128-row tiles take 0.16 ms a layer at any m up to 64).
 //   - K16: GPTQ's 4-bit words, each code looked up in its column's
 //     16-entry codebook, staged once a block in shared memory (16 KB).
 //     The four lanes of a quad share their columns but hold other codes,
@@ -2285,7 +2033,7 @@ int launch_w8a8(const void* x8, const float* xs, const void* qw,
 //   group's sum), from shapes and the SM count alone (the wrapper's
 //   stream_plan); split_reduce_kernel, a second launch on the same
 //   stream, adds the f32 partials in split order. K12-K14, K16 and K17
-//   split over 32-row units.
+//   split over 32-row units, K15 over 128-row units.
 // Group sizes are multiples of 8, so a thread's rows of a step lie in one
 // group; where a step crosses groups (gs not a multiple of 32) each thread
 // takes its own group's zero and scale, and the a8 arm runs the step once
@@ -2301,20 +2049,21 @@ constexpr int kKC = 128;                // k rows a ring stage
 // interleaved ones (K7), GPTQ's 4-bit words with K12's (dl, ml) rows, the
 // same words through K16's codebook on bf16 x or on f32 x, and MN-major
 // int8 codes: K14's with a d16 row per 16 rows, K13's (Q8_0) with a d row
-// per 32, K17's with none (an f32 scale per column in the epilogue).
-enum class SDec { kGptq, kAwq, kQ4k, kLut, kLutX32, kI8g, kQ8, kInt8 };
+// per 32, K17's with none (an f32 scale per column in the epilogue), and
+// K15's on the a8 arm with an s128 row per 128.
+enum class SDec { kGptq, kAwq, kQ4k, kLut, kLutX32, kI8g, kQ8, kInt8, kQs8 };
 
 template <int BITS, SDec D>
 struct Cfg {
   static constexpr bool kAwq = D == SDec::kAwq;
   static constexpr bool kLut = D == SDec::kLut || D == SDec::kLutX32;
-  static constexpr bool kBytes =
-      D == SDec::kI8g || D == SDec::kQ8 || D == SDec::kInt8;
+  static constexpr bool kBytes = D == SDec::kI8g || D == SDec::kQ8 ||
+                                 D == SDec::kInt8 || D == SDec::kQs8;
   static constexpr int kPack = 32 / BITS;
   // A stage's words: GPTQ [kKC / pack word rows][kBN + pad words], the
   // pad (8 words at 4 bits, 4 at 8) putting the quads' 64-bit loads in
   // distinct banks; AWQ [kKC rows][kBN / 8 words], rows swizzled
-  // (awq_word); the byte codes (K13, K14, K17) [kKC rows][128 bytes],
+  // (awq_word); the byte codes (K13-K15, K17) [kKC rows][128 bytes],
   // 16-byte pieces swizzled (i8g_piece).
   static constexpr int kRows = kAwq || kBytes ? kKC : kKC / kPack;
   static constexpr int kRowWords =
@@ -2324,18 +2073,21 @@ struct Cfg {
   // there, one a kKC / kDRows k rows, kDWords apart: K14's eight d16 rows,
   // kD16Words apart (the pad puts a warp's two rows of a step in other
   // banks); K13's four d rows, unpadded (a warp reads one row a step, 8
-  // neighbouring words, each quad one); K17 none.
+  // neighbouring words, each quad one); K15's one s128 row (the stage's
+  // group); K17 none.
   static constexpr int kRowsOff = kRows * kRowWords;
   static constexpr int kD16Words = kBN / 2 + 8;
-  static constexpr int kDRows = D == SDec::kI8g ? 8 : D == SDec::kQ8 ? 4 : 0;
+  static constexpr int kDRows = D == SDec::kI8g ? 8
+                                : D == SDec::kQ8 ? 4
+                                : D == SDec::kQs8 ? 1 : 0;
   static constexpr int kDWords = D == SDec::kI8g ? kD16Words : kBN / 2;
   static constexpr int kStageWords =
       kRowsOff + (D == SDec::kQ4k ? 8 * kBN / 2 : kDRows * kDWords);
   static constexpr int kStages = BITS == 8 ? 2 : 3;
   static constexpr int kRingBytes = kStages * kStageWords * 4;
   // The split's rows staged once: a group's scale row and zero row
-  // (GPTQ, AWQ); K12's and K14's rows come with the ring stages, K16
-  // has none.
+  // (GPTQ, AWQ); K12's, K13's, K14's and K15's rows come with the ring
+  // stages, K16 and K17 have none.
   static constexpr bool kGroupRows = D == SDec::kGptq || D == SDec::kAwq;
   static constexpr int kScaleBytes = kGroupRows ? kBN * 2 : 0;
   static constexpr int kZeroWords = kGroupRows ? kBN / kPack : 0;
@@ -2650,6 +2402,18 @@ __device__ __forceinline__ void step_fragments(const uint32_t* stage,
           a[s][2 * h + 1] = bf2_mul(bf2_sub(nib2(w.y >> sh), q.z1), q.s1);
         }
     }
+  } else if constexpr (D == SDec::kQs8) {
+    // K15 (a8): K14's ldmatrix (below); register r holds q[8t + r] and
+    // q[8t + r + 4] of c0 (bytes 0, 2) and c0 + 1 (bytes 1, 3). Rows 8t +
+    // 0, 2, 4, 6 of c0 are bytes 0 of v[0], v[2], then bytes 2 of them;
+    // the odd rows the same of v[1], v[3]; c0 + 1 bytes 1 and 3.
+    uint32_t v[4];
+    ldsm_x4_trans(v, static_cast<uint32_t>(__cvta_generic_to_shared(stage)) +
+                         b * 32 * 128 + q.z0);
+    a[0][0] = __byte_perm(v[0], v[2], 0x6240);
+    a[0][1] = __byte_perm(v[0], v[2], 0x7351);
+    a[0][2] = __byte_perm(v[1], v[3], 0x6240);
+    a[0][3] = __byte_perm(v[1], v[3], 0x7351);
   } else if constexpr (D == SDec::kQ8 || D == SDec::kInt8) {
     // K13 and K17: K14's ldmatrix (below). Bytes 0 and 2 of register r
     // (column c0 at rows 8t + r and + 4) and bytes 1 and 3 (c0 + 1) become
@@ -2744,8 +2508,10 @@ quant_stream_kernel(
   using C = Cfg<BITS, D>;
   constexpr bool X32 = D == SDec::kLutX32;
   constexpr int ES = x_elem_bytes<D, A8>();
-  static_assert(!A8 || D == SDec::kGptq || D == SDec::kAwq,
-                "the a8 arm takes GPTQ and AWQ words");
+  static_assert(!A8 || D == SDec::kGptq || D == SDec::kAwq ||
+                    D == SDec::kQs8,
+                "the a8 arm takes GPTQ and AWQ words and K15's bytes");
+  static_assert(A8 || D != SDec::kQs8, "K15's codes take int8 x");
   static_assert(BITS == 4 || D == SDec::kGptq || C::kBytes,
                 "8-bit codes are GPTQ's or bytes");
   static_assert(!C::kBytes || BITS == 8, "byte codes are 8 bits");
@@ -2984,9 +2750,16 @@ quant_stream_kernel(
         mma_s8(iacc[nt], af, bf);
       }
   };
+  // a8: group fg's scales of columns c0, c0 + 1 (K15: the stage's s128
+  // row, its one group; GPTQ, AWQ: the rows staged up front).
+  auto group_scales = [&](const uint32_t* stage) {
+    if constexpr (C::kBytes)
+      return stage[C::kRowsOff + c0 / 2];
+    else
+      return ld32(sc_s + fg * kBN + c0);
+  };
   // a8, at group fg's end: its sums times its scales, added in group order.
-  auto fold = [&]() {
-    const uint32_t s2 = ld32(sc_s + fg * kBN + c0);
+  auto fold = [&](uint32_t s2) {
     const float s0 = __uint_as_float(s2 << 16);
     const float s1 = __uint_as_float(s2 & 0xffff0000u);
 #pragma unroll
@@ -3049,7 +2822,7 @@ quant_stream_kernel(
       if constexpr (A8) {
         if (kk + 32 <= fg_end) {
           products_s8(a[0], kb);
-          if (kk + 32 == fg_end) fold();
+          if (kk + 32 == fg_end) fold(group_scales(stage));
         } else {
           // The step crosses groups: once per group, the others' codes 0.
           for (;;) {
@@ -3058,7 +2831,7 @@ quant_stream_kernel(
                                     mine ? a[0][2] : 0u, mine ? a[0][3] : 0u};
             products_s8(am, kb);
             if (fg_end > kk + 32) break;
-            fold();
+            fold(group_scales(stage));
             if (fg_end - gs >= kk + 32) break;
           }
         }
@@ -3095,9 +2868,9 @@ quant_stream_kernel(
     }
   }
   cp_async_wait<0>();
-  // a8: a group the split ends inside.
-  if constexpr (A8)
-    if (fg_end - gs < k_rows) fold();
+  // a8: a group the split ends inside (never K15's: whole groups).
+  if constexpr (A8 && !C::kBytes)
+    if (fg_end - gs < k_rows) fold(group_scales(nullptr));
 
   // Columns c0, c0 + 1 of rows 8 nt + 2t and + 1.
   const int col = n0 + c0;
@@ -3239,48 +3012,6 @@ int launch(const void* x, const float* xs, const void* qweight,
         x, qweight, qzeros, scales, out, partial, m, K, N, gs, splits,
         stream);
   }
-}
-
-// K15 at m <= 64 (int8_mma_kernel): block_m 16, 32 or 64 over the
-// output's 128-column blocks, its row blocks and `splits` runs of scale
-// groups of G rows, as the wrapper's `_tiling` counted them; with a
-// split, split_reduce_kernel then adds the f32 partials and applies xs.
-// At m > 64 K15 runs w8a8_gemm_kernel.
-template <int G>
-int launch_int8(const void* x, const float* xs, const void* qs,
-                const void* scales, void* out, float* partial, int m, int K,
-                int N, int splits, int block_m, cudaStream_t stream) {
-  if (m <= 0) return static_cast<int>(cudaGetLastError());
-  if (K % G != 0 || N % kBN != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kUnitChunks = G / kChunk;
-  const int units = K / (kChunk * kUnitChunks);
-  const int per = (units + splits - 1) / splits;
-  float* part = splits > 1 ? partial : nullptr;
-  auto tile = [&](auto tl) {
-    using TL = decltype(tl);
-    int8_mma_kernel<TL, G>
-        <<<dim3(N / kBN, (m + TL::BM - 1) / TL::BM, splits), kThreads, 0,
-           stream>>>(static_cast<const typename TL::T*>(x), xs,
-                     static_cast<const uint32_t*>(qs),
-                     static_cast<const __nv_bfloat16*>(scales),
-                     static_cast<__nv_bfloat16*>(out), part, m, K, N,
-                     per * kUnitChunks);
-  };
-  switch (block_m) {
-    case 16: tile(Tile<16, 1>{}); break;
-    case 32: tile(Tile<32, 1>{}); break;
-    case 64: tile(Tile<64, 1>{}); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (splits > 1) {
-    const size_t total = static_cast<size_t>(m) * N;
-    split_reduce_kernel<__nv_bfloat16>
-        <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-            partial, xs, nullptr, static_cast<__nv_bfloat16*>(out), splits,
-            m, N);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // K9: one block a row of x [m, K] bf16, blockDim.x threads (a multiple of
@@ -3514,8 +3245,10 @@ extern "C" int gguf_i8g_mm(const void* x, const void* qs, const void* d16,
 
 // K15: y[m, N] = bf16(xs[m] * sum_g s128[g] * (x8[m, g] . qs8[g])), x8
 // int8 rows from quant8, 128-row groups. block_m 128 is w8a8_gemm_kernel
-// (kQs8, `splits` runs of groups, then split_reduce_kernel); 16, 32 and 64
-// the skinny tiles.
+// (kQs8, `splits` runs of groups, then split_reduce_kernel, which the
+// wrapper sends every m over K15_STREAM_M_MAX); 8, 16, 32 and 64 the a8
+// arm of quant_stream_kernel<8, kQs8> (`splits` runs of 128-row groups,
+// as stream_plan counts them; xs in its epilogue or the split reduce).
 extern "C" int gguf_w8a8_mm(const void* x8, const float* xs, const void* qs8,
                             const void* s128, void* out, float* partial,
                             int m, int K, int N, int splits, int block_m,
@@ -3525,8 +3258,9 @@ extern "C" int gguf_w8a8_mm(const void* x8, const float* xs, const void* qs8,
     return gemm::launch_w8a8<gemm::A8Dec::kQs8>(
         x8, xs, qs8, nullptr, s128, out, partial, m, K, N, gemm::kW8Tile,
         splits, st);
-  return launch_int8<128>(x8, xs, qs8, s128, out, partial, m, K, N, splits,
-                          block_m, st);
+  return streamed::launch<8, streamed::SDec::kQs8, true>(
+      x8, xs, qs8, nullptr, s128, out, partial, m, K, N, 128, splits,
+      block_m, st);
 }
 
 // K12: y[m, N] = x[m, K] @ bf16(q * dl - ml), GGUF's exact Q4_K form: 4-bit

@@ -6,6 +6,9 @@ Port of `aphrodite_tpu/ops/pallas/kv_write.py`:
 - `write_kv_pages_prefill` (K2, Pallas `_prefill_write_kernel`): whole
   pages of page-aligned prompt chunks; a tail page writes its first
   `valid` rows and keeps the rest; page ids >= num_pages skip the cell.
+  A grid of (cell, group of rows) blocks, planned by
+  `prefill_write_plan` from the page's geometry alone, each thread
+  loading its K and V vectors of a round before it stores one.
 - `write_kv_pages` (K3 with `distinct_pages=True`, Pallas
   `_decode_write_kernel`; K4 by default, Pallas `_write_kernel`): one
   row per token into its slot; slots >= num_slots skip. One CUDA scatter
@@ -45,6 +48,10 @@ WRITE_KV_PAGES_PREFILL_LAUNCHES = build.launch_counter(
 
 # uint8: the byte view of int8 / fp8 pages and of their quantized rows.
 _DTYPES = (torch.bfloat16, torch.float32, torch.uint8)
+# K2: threads a block at most, and the 16-byte vectors of K (and as many
+# of V) each loads in a round before its stores (`kPrefillVecs`).
+PREFILL_THREADS = 256
+PREFILL_VECS = 4
 
 
 def _check_rows(knew, vnew, k_pages, v_pages, index, what: str) -> int:
@@ -179,6 +186,22 @@ def write_kv_pages_prefill_plain(knew: torch.Tensor, vnew: torch.Tensor,
     return k_pages, v_pages
 
 
+def prefill_write_plan(page_size: int, row_bytes: int) -> Tuple[int, int]:
+    """(rows a block, threads a block) of K2's launch, grid (cells,
+    ceil(page_size / rows)), from the page's geometry alone (no host
+    sync, so a CUDA graph can capture the launch): as many rows as one
+    round of `PREFILL_THREADS` threads at `PREFILL_VECS` vectors each
+    covers (8 rows of 2048 bytes: Mistral-7B's 8 kv heads in bf16), at
+    least one and at most the page, and the fewest whole warps, up to
+    `PREFILL_THREADS`, that take the block's vectors in one round (rows
+    wider than a round take several)."""
+    row_vecs = row_bytes // 16
+    round_vecs = PREFILL_THREADS * PREFILL_VECS
+    rows = max(1, min(page_size, round_vecs // row_vecs))
+    warps = -(-rows * row_vecs // (32 * PREFILL_VECS))
+    return rows, min(PREFILL_THREADS, 32 * warps)
+
+
 def _write_kv_pages_prefill_kernel(knew, vnew, k_pages, v_pages, page_ids,
                                    valids) -> Pages:
     row_bytes = _check_rows(knew, vnew, k_pages, v_pages, page_ids,
@@ -195,12 +218,13 @@ def _write_kv_pages_prefill_kernel(knew, vnew, k_pages, v_pages, page_ids,
                          f"{knew.shape[0]}")
     lib = build.library("kv_write")
     fn = lib.kv_write_prefill
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(k_pages.data_ptr(), v_pages.data_ptr(), knew.data_ptr(),
              vnew.data_ptr(), page_ids.data_ptr(), valids.data_ptr(),
              cells, num_pages, page_size, row_bytes,
+             *prefill_write_plan(page_size, row_bytes),
              build.stream_of(k_pages))
     WRITE_KV_PAGES_PREFILL_LAUNCHES.add()
     build.check(err, "write_kv_pages_prefill")

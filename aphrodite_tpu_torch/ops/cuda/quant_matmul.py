@@ -39,13 +39,14 @@ Port of the GPTQ, AWQ and GGUF parts of
   products with f32 sums; `gguf_w8a8_matmul` (K15, Pallas
   `_gguf_w8a8_kernel`; the turbo form, G 128) runs K9 on x, then per
   128-row group an exact int32 dot times the group's scale row added in
-  f32 in group order, times xs at the end. Up to `Q8_STREAM_M_MAX` (16)
-  and `I8G_STREAM_M_MAX` (13) rows (the Pallas wrappers have no skinny
-  variant) K13 and K14 run K7's `quant_stream_kernel` with a byte
-  decoder (each ring stage a block's 128 columns of 128 k rows and
-  their four d or eight d16 rows), planned by `stream_plan` over 32-row
-  units at 8 bits; K15 at m <= 64 the skinny tiles, whose block covers
-  16-64 rows and splits K like K7. Above they take the warpgroup-MMA kernels: K13 and K14 K6's
+  f32 in group order, times xs at the end. Up to `Q8_STREAM_M_MAX` (16),
+  `I8G_STREAM_M_MAX` (13) and `K15_STREAM_M_MAX` (12) rows (the Pallas
+  wrappers have no skinny variant) K13, K14 and K15 run K7's
+  `quant_stream_kernel` with a byte decoder (each ring stage a block's
+  128 columns of 128 k rows and their four d, eight d16 or one s128
+  rows; K15 on its a8 arm, s8 products of K9's rows), planned by
+  `stream_plan` over 32-row units at 8 bits (K15: 128-row groups, int8
+  x). Above they take the warpgroup-MMA kernels: K13 and K14 K6's
   `quant_gemm_kernel` with a byte decoder (128 x 256 tiles), K15
   `w8a8_gemm_kernel` (s8 wgmma, a per-group fold, 128 x 128 tiles),
   each split over runs of whole 64-row chunks (K13, K14) or 128-row
@@ -129,8 +130,8 @@ GGUF_I8G_MATMUL_LAUNCHES = build.launch_counter("gguf_i8g_matmul")
 GGUF_W8A8_MATMUL_LAUNCHES = build.launch_counter("gguf_w8a8_matmul")
 GGUF_Q4K_MATMUL_LAUNCHES = build.launch_counter("gguf_q4k_matmul")
 #: K12's, K13's, K14's and K15's m > 64 kernels (the counters above count
-#: the rest: K12 and K15 m <= 64, K13 m <= `Q8_STREAM_M_MAX`, K14 m <=
-#: `I8G_STREAM_M_MAX`, and these above).
+#: the rest: K12 m <= 64, K13 m <= `Q8_STREAM_M_MAX`, K14 m <=
+#: `I8G_STREAM_M_MAX`, K15 m <= `K15_STREAM_M_MAX`, and these above).
 GGUF_Q4K_GEMM_LAUNCHES = build.launch_counter("gguf_q4k_gemm")
 GGUF_Q8_GEMM_LAUNCHES = build.launch_counter("gguf_q8_gemm")
 GGUF_I8G_GEMM_LAUNCHES = build.launch_counter("gguf_i8g_gemm")
@@ -160,9 +161,15 @@ STREAM_M_MAX = 64          # rows the skinny kernel (K7) takes
 Q8_STREAM_M_MAX = 16
 I8G_STREAM_M_MAX = 13
 INT8_STREAM_M_MAX = 16
+# K15 on quant_stream_kernel's a8 arm against w8a8_gemm_kernel (128-row
+# tiles, s8 warpgroup MMA), chosen the same way: the gemm takes
+# 0.155-0.163 ms at every m <= 64, the stream kernel 0.154 at 8, 0.159
+# at 12 (0.160-0.161 on the gemm), 0.161 at 13 (0.158-0.160) and 0.167 at
+# 16 (0.155); PERF.md.
+K15_STREAM_M_MAX = 12
 BLOCK_N = 128              # output columns per block
 GEMM_BLOCK_M, GEMM_BLOCK_N = 128, 256   # K6 / K10 / K12-K14 / K16 / K17
-W8A8_BLOCK_N = 128         # K8's, K11's and K15's at m > 64: 128 x 128
+W8A8_BLOCK_N = 128         # K8's, K11's and K15's w8a8 gemm: 128 x 128
 X32_BLOCK_N = 128          # K16's on f32 x at m > 64: 128 x 128
 A8_CHUNK = 128             # their k rows a chunk
 _BLOCKS_PER_SM = 4         # split-K target: this many blocks per SM
@@ -517,30 +524,6 @@ def a8_gemm_plan(m: int, K: int, N: int, gs: int, sms: int
                      block_n=W8A8_BLOCK_N)
 
 
-def _tiling(m: int, K: int, N: int, gs: int, stream: bool, sms: int
-            ) -> Tuple[int, int]:
-    """(block_m, splits) of K15's skinny tiles (`int8_mma_kernel`) on a
-    card of `sms` SMs, over split units of `gs` rows (its 128-row
-    groups); without `stream`, 128 rows and no split. The skinny tiles
-    take the least of 16/32/64 rows that covers m, and split the units
-    over enough blocks to give each SM four, but no further than keeps
-    the f32 partial sums (written and read once) below the weight's own
-    bytes. K7, K12-K14, K16 and K17 have their own plan,
-    `stream_plan`."""
-    if not stream:
-        return 128, 1
-    if m > STREAM_M_MAX:
-        raise ValueError(f"the streamed kernel takes m <= {STREAM_M_MAX}, "
-                         f"got {m} (use stream=False)")
-    block_m = next(b for b in (16, 32, 64) if m <= b)
-    groups = K // gs
-    n_tiles = N // BLOCK_N
-    want = -(-sms * _BLOCKS_PER_SM // n_tiles)
-    splits = max(1, min(groups, want, K // (16 * m)))
-    per = -(-groups // splits)
-    return block_m, -(-groups // per)
-
-
 def quant8_plan(m: int, K: int, sms: int) -> Tuple[int, int]:
     """(threads, runs a thread) of K9's launch, one block a row of K
     bf16, from shapes and the card's SM count alone (so a CUDA graph can
@@ -575,10 +558,11 @@ def stream_unit(gs: int) -> int:
 def stream_plan(m: int, K: int, N: int, gs: int, sms: int, bits: int = 4,
                 x_bytes: int = 2) -> Tuple[int, int]:
     """(block_m, splits) of `quant_stream_kernel` (K7; K12 and K16 at
-    m <= 64, with gs 32; K13, K14 and K17 with `bits` 8) on a card of
-    `sms` SMs, from shapes alone (no host sync, so a CUDA graph can
-    capture the launch). block_m is the least of 8/16/32/64 rows that
-    covers m (1, 2 or 4 n-tiles of the mma; 64 as two 32-row blocks);
+    m <= 64, with gs 32; K13, K14 and K17 with `bits` 8; K15 with gs 128,
+    `bits` 8 and int8 x) on a card of `sms` SMs, from shapes alone (no
+    host sync, so a CUDA graph can capture the launch). block_m is the
+    least of 8/16/32/64 rows that covers m (1, 2 or 4 n-tiles of the
+    mma; 64 as two 32-row blocks);
     the grid is (N / 128, row blocks, splits), each split a run of whole
     units of `stream_unit` rows, none empty. Splits aim at four blocks
     per SM, but no further than keeps the f32 partial sums (splits x m
@@ -862,15 +846,15 @@ def _launch_by_m(entry: str, x, ptrs: Tuple[int, ...], N: int, *,
     """One launch of an entry point with an m > 64 warpgroup-MMA kernel
     (K12-K17) on x, bf16, f32 (K16 on f32 x, whose output is f32) or,
     with `w8a8`, K9's int8 rows; `ptrs` are its input pointers, x first.
-    At m <= `stream_m` (64; K13, K14 and K17 their `*_STREAM_M_MAX`), or
+    At m <= `stream_m` (64; K13-K15 and K17 their `*_STREAM_M_MAX`), or
     wherever `stream` is True (m <= 64), counting on `counter`:
-    `quant_stream_kernel` (K12-K14, K16, K17), planned by `stream_plan`
-    over 32-row units with the weight's `bits` a code (8 for the byte
-    codes), or with `w8a8` K15's skinny tiles (`_tiling`), split in units
-    of a 128-row scale group. Above, or wherever `stream` is False,
-    counting on `gemm_counter`: the warpgroup-MMA kernel on 128 x
-    `block_n` tiles, planned by `gemm_plan` over 64-row chunks or (w8a8)
-    128-row groups (a split reduce after it where it splits)."""
+    `quant_stream_kernel` (K12-K17), planned by `stream_plan` over
+    32-row units (K15: its 128-row groups) with the weight's `bits` a
+    code (8 for the byte codes) and x's bytes an element. Above, or
+    wherever `stream` is False, counting on `gemm_counter`: the
+    warpgroup-MMA kernel on 128 x `block_n` tiles, planned by `gemm_plan`
+    over 64-row chunks or (w8a8) 128-row groups (a split reduce after it
+    where it splits)."""
     unit = 128 if w8a8 else 64
     m, K = x.shape
     sms = build.sm_count(x.device)
@@ -878,11 +862,8 @@ def _launch_by_m(entry: str, x, ptrs: Tuple[int, ...], N: int, *,
         torch.bfloat16
     use_stream = m <= stream_m if stream is None else stream
     if use_stream:
-        if w8a8:
-            block_m, splits = _tiling(m, K, N, unit, True, sms)
-        else:
-            block_m, splits = stream_plan(m, K, N, 32, sms, bits,
-                                          x.element_size())
+        block_m, splits = stream_plan(m, K, N, unit if w8a8 else 32, sms,
+                                      bits, x.element_size())
         return _entry_launch(entry, x, ptrs, N, block_m, splits, out_dtype,
                              counter=counter, what=what)
     splits, _ = gemm_plan(m, K, N, unit, sms,
@@ -924,9 +905,11 @@ def gguf_i8g_matmul(x: torch.Tensor, qs: torch.Tensor, d16: torch.Tensor,
 
 
 def gguf_w8a8_launch(x8: torch.Tensor, xs: torch.Tensor, qs8: torch.Tensor,
-                     s128: torch.Tensor) -> torch.Tensor:
+                     s128: torch.Tensor, *, stream: Optional[bool] = None
+                     ) -> torch.Tensor:
     """K15 alone on K9's int8 rows x8 [m, K] and their scales xs [m, 1];
-    bf16 out."""
+    bf16 out. `stream` pins quant_stream_kernel's a8 arm (True, m <= 64)
+    or w8a8_gemm_kernel (False); None picks by m (`K15_STREAM_M_MAX`)."""
     if not build.on_cuda(x8, xs, qs8, s128):
         return gguf_w8a8_launch_plain(x8, xs, qs8, s128)
     m, K, N = _check_gguf(x8, qs8, s128, 128, "gguf_w8a8_matmul",
@@ -940,19 +923,23 @@ def gguf_w8a8_launch(x8: torch.Tensor, xs: torch.Tensor, qs8: torch.Tensor,
                          s128.data_ptr()), N,
                         counter=GGUF_W8A8_MATMUL_LAUNCHES,
                         gemm_counter=GGUF_W8A8_GEMM_LAUNCHES,
-                        what="gguf_w8a8_matmul", w8a8=True)
+                        what="gguf_w8a8_matmul", w8a8=True, bits=8,
+                        stream_m=K15_STREAM_M_MAX, stream=stream)
 
 
 def gguf_w8a8_matmul(x: torch.Tensor, qs8: torch.Tensor,
-                     s128: torch.Tensor) -> torch.Tensor:
+                     s128: torch.Tensor, *, stream: Optional[bool] = None
+                     ) -> torch.Tensor:
     """W8A8, the GGUF turbo form: x quantized per row to int8 (K9), then
     y [m, N] = xs * sum_g s128[g] * (x8[:, g] . qs8[g]) over 128-row
-    groups (K15)."""
+    groups (K15). `stream` as `gguf_w8a8_launch`'s."""
     if not build.on_cuda(x, qs8, s128):
         return gguf_w8a8_matmul_plain(x, qs8, s128)
-    _check_gguf(x, qs8, s128, 128, "gguf_w8a8_matmul")  # before K9
+    m, K, N = _check_gguf(x, qs8, s128, 128, "gguf_w8a8_matmul")
+    if stream:                     # raise before K9
+        stream_plan(m, K, N, 128, build.sm_count(x.device), 8, 1)
     x8, xs = quantize_activations_int8(x)
-    return gguf_w8a8_launch(x8, xs, qs8, s128)
+    return gguf_w8a8_launch(x8, xs, qs8, s128, stream=stream)
 
 
 # ------------------------------------------------- K12, K16 and K17 --

@@ -49,11 +49,13 @@ launch", "ms"}.
   32 rows; Q6_K-shaped codes with one per 16), each on the route the
   wrapper takes at that m;
 - K15: `gguf_w8a8_launch` on K9's rows of the same x and
-  `chip_smoke.gguf_weights` (a scale row per 128 rows); beside it, at
-  m > 16 (what it takes), `torch._int_mm` on the same int8 shapes (the
-  weight in column-major order, copied before the timing), a floor for
-  int8 tensor-core throughput on this card (no group scales: no
-  yardstick of the same function).
+  `chip_smoke.gguf_weights` (a scale row per 128 rows), on the route
+  the wrapper takes at that m; beside it `torch.matmul` over the weight
+  dequantized to bf16 beforehand on the bf16 x (chip_smoke's library
+  yardstick) and, at m > 16 (what it takes), `torch._int_mm` on the same
+  int8 shapes (the weight in column-major order, copied before the
+  timing), a floor for int8 tensor-core throughput on this card (no
+  group scales).
 - W4A8: not a kernel but the e2e prompt round those two serve, GPTQ
   and AWQ with APHRODITE_W4A8=1: chip_smoke's phase 9 and 11 engine
   (Mistral-7B width, dummy weights, this checkout's
@@ -71,11 +73,12 @@ and one per tree, kernel and m with the sum over the four projections
 (one layer) and its bound (chip_smoke's: the bytes over 3.35 TB/s or
 the operations over the bf16 or int8 peak, whichever is larger),
 {"tree", "kernel", "m", "layer_ms", "bound_ms"}. With `--routes`, K13,
-K14 and K17 (where `--kernels` names them) are also timed on each route
-pinned, `quant_stream_kernel` (`stream=True`) and the 128-row
-warpgroup-MMA kernel (`stream=False`), at m 8, 9, 12-17, 24 and 32
-(their m list gains 9 and 12-15), the rows around the wrappers'
-thresholds (`Q8_STREAM_M_MAX`, `I8G_STREAM_M_MAX`, `INT8_STREAM_M_MAX`):
+K14, K15 and K17 (where `--kernels` names them) are also timed on each
+route pinned, `quant_stream_kernel` (`stream=True`) and the 128-row
+warpgroup-MMA kernel (`stream=False`; K15's `w8a8_gemm_kernel`), at m 8,
+9, 12-17, 24 and 32, K15 also at 33 and 64 (their m list gains 9 and
+12-15), the rows around the wrappers' thresholds (`Q8_STREAM_M_MAX`,
+`I8G_STREAM_M_MAX`, `K15_STREAM_M_MAX`, `INT8_STREAM_M_MAX`):
 {"tree", "kernel", "route", "m", "layer_ms"}, or {"tree", "kernel",
 "route": "not pinnable"} for a tree whose wrapper takes no `stream`.
 With `--ptxas`, each tree first prints one object per kernel instance
@@ -105,7 +108,8 @@ K7_MS = (1, 8, 16, 32, 64)
 K9_MS = (1, 8, 16, 32, 64, 512, 4096)
 LATE_MS = (1, 8, 16, 17, 24, 32, 33, 64, 72, 128, 512, 4096)
 ROUTE_MS = (8, 9, 12, 13, 14, 15, 16, 17, 24, 32)
-ROUTED = ("K13", "K14", "K17")
+K15_ROUTE_MS = ROUTE_MS + (33, 64)
+ROUTED = ("K13", "K14", "K15", "K17")
 K7_ARMS = ("gptq", "gptq8", "gptq_gK", "gptq_a8", "awq", "awq_a8")
 KERNELS = ("K6", "K7", "K8", "K9", "K10", "K11", "K12", "K13", "K14",
            "K15", "K16", "K16f32", "K17", "W4A8")
@@ -316,11 +320,13 @@ def time_tree(tree: str, kernels, ptxas: bool = False,
             time_k9(tree, torch, qmm, smoke, timer)
             continue
         ms_list = LATE_MS if kernel in LATE or kernel in GGUF else MS
+        route_ms = K15_ROUTE_MS if kernel == "K15" else ROUTE_MS
         if routes and kernel in ROUTED:
-            ms_list = tuple(sorted(set(ms_list) | set(ROUTE_MS)))
+            ms_list = tuple(sorted(set(ms_list) | set(route_ms)))
         f32 = kernel == "K16f32"
         layer = dict.fromkeys(ms_list, 0.0)
         yard = dict.fromkeys(ms_list, 0.0)
+        int_mm = dict.fromkeys(ms_list, 0.0)   # K15's torch._int_mm
         t_bytes = dict.fromkeys(ms_list, 0.0)  # the bound's two terms
         t_ops = dict.fromkeys(ms_list, 0.0)
         for seed, (proj, K, N) in enumerate(smoke.GPTQ_PROJ):
@@ -355,9 +361,8 @@ def time_tree(tree: str, kernels, ptxas: bool = False,
                     # without a copy (column-major), made before the
                     # timing.
                     w_cm = w[0].t().contiguous().t()
-                else:
-                    w16 = (w[0].float() * w[1].float().repeat_interleave(
-                        G, dim=0)).to(torch.bfloat16)
+                w16 = (w[0].float() * w[1].float().repeat_interleave(
+                    G, dim=0)).to(torch.bfloat16)
             gen = torch.Generator(device="cuda").manual_seed(400 + seed)
             x_all = torch.randn(max(ms_list), K, generator=gen,
                                 device="cuda")
@@ -377,22 +382,24 @@ def time_tree(tree: str, kernels, ptxas: bool = False,
                     yard[m] += timer(lambda: torch._int_mm(x8, w_cm))
                 elif kernel == "K15":
                     x8, xs = qmm.quantize_activations_int8(x)
-                    ms = timer(lambda: qmm.gguf_w8a8_launch(x8, xs, *w))
+                    fn, args = qmm.gguf_w8a8_launch, (x8, xs, *w)
+                    ms = timer(lambda: fn(*args))
+                    yard[m] += timer(lambda: torch.matmul(x, w16))
                     if m > 16:        # torch._int_mm takes more rows
-                        yard[m] += timer(lambda: torch._int_mm(x8, w_cm))
+                        int_mm[m] += timer(lambda: torch._int_mm(x8, w_cm))
                 else:
                     fn = getattr(qmm, LATE.get(kernel) or {
                         "K13": "gguf_q8_matmul",
                         "K14": "gguf_i8g_matmul"}[kernel])
-                    ms = timer(lambda: fn(x, *w))
+                    args = (x, *w)
+                    ms = timer(lambda: fn(*args))
                     yard[m] += timer(lambda: torch.matmul(x, w16))
-                    if routes and kernel in ROUTED and m in ROUTE_MS and \
-                            "stream" in inspect.signature(fn).parameters:
-                        for route, pin in (("stream", True),
-                                           ("gemm", False)):
-                            rec = pinned.setdefault((kernel, route), {})
-                            rec[m] = rec.get(m, 0.0) + timer(
-                                lambda: fn(x, *w, stream=pin))
+                if routes and kernel in ROUTED and m in route_ms and \
+                        "stream" in inspect.signature(fn).parameters:
+                    for route, pin in (("stream", True), ("gemm", False)):
+                        rec = pinned.setdefault((kernel, route), {})
+                        rec[m] = rec.get(m, 0.0) + timer(
+                            lambda: fn(*args, stream=pin))
                 int8 = kernel in ("K8", "K11", "K15")
                 size = 4 if f32 else 2
                 x_bytes = m * K + m * 4 if int8 else m * K * size
@@ -411,8 +418,9 @@ def time_tree(tree: str, kernels, ptxas: bool = False,
              {m: max(t_bytes[m], t_ops[m]) for m in ms_list})
         if kernel in ("K8", "K11", "K15"):
             emit(f"torch._int_mm on {kernel}'s int8 shapes",
-                 {m: v for m, v in yard.items() if m > 16})
-        elif kernel != "K6" and kernel != "K10":
+                 {m: v for m, v in (int_mm if kernel == "K15" else
+                                    yard).items() if m > 16})
+        if kernel not in ("K6", "K8", "K10", "K11"):
             emit(f"torch.matmul over {kernel}'s weight in "
                  f"{'f32' if f32 else 'bf16'}", yard)
         if routes and kernel in ROUTED:

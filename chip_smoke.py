@@ -29,7 +29,8 @@ Phases, in order; any failure exits non-zero:
      of f32 sums in another order; exp2 differs by an ulp).
      Pages written by the fused write, quantized codes included: exact.
    - prefill page writer (K2): full pages, tail pages, skipped cells.
-     Exact.
+     Exact; a control, the plain version also writing row `valid` of
+     each tail page, must differ.
    - slot writer (K3/K4): shared pages, out-of-range slots, on bf16,
      int8 and fp8 pages. Exact.
    Times each kernel (CUDA events, L2 flushed before every launch, the
@@ -155,15 +156,17 @@ Phases, in order; any failure exits non-zero:
    (`Q8_STREAM_M_MAX`, `I8G_STREAM_M_MAX`) on `quant_stream_kernel<8,
    kQ8 / kI8g>`, its stream plan logged, above on `quant_gemm_kernel<8,
    kQ8 / kI8g>`;
-   and `gguf_w8a8_matmul` (K9, then K15, per 128 rows; at m > 64
-   `w8a8_gemm_kernel`). Weights are quantized on the card from an N(0,
-   0.02) weight as the at-rest forms hold real ones (codes in [-127,
-   127], K14's Q6_K-shaped in [-32, 31]). Phase 8's tolerance; controls
-   that must miss it: K13's plain version with d shifted by one group
-   and with d read per 16 rows (K14's map) at every m, on both routes;
-   K14's reading d16 per 32 rows at m 8 and on its gemm, K15's with its
-   scale rows shifted by one group above 64. Each case timed as phase 8
-   times them (K15 alone on
+   and `gguf_w8a8_matmul` (K9, then K15, per 128 rows; up to 12 rows,
+   `K15_STREAM_M_MAX`, the a8 arm of `quant_stream_kernel<8, kQs8>`,
+   above `w8a8_gemm_kernel`; K15 alone on K9's rows also with each route
+   pinned at m 1, 8, 13, 16, 17, 32, 33 and 64). Weights are quantized on
+   the card from an N(0, 0.02) weight as the at-rest forms hold real ones
+   (codes in [-127, 127], K14's Q6_K-shaped in [-32, 31]). Phase 8's
+   tolerance; controls that must miss it: K13's plain version with d
+   shifted by one group and with d read per 16 rows (K14's map) at every
+   m, on both routes; K14's reading d16 per 32 rows at m 8 and on its
+   gemm, K15's with its scale rows shifted by one group at every m, on
+   both routes. Each case timed as phase 8 times them (K15 alone on
    K9's rows, with a check that it equals the wrapper's output), the
    plain version and the library yardstick (torch.matmul over the
    weight dequantized to bf16 beforehand, twice the int8 bytes) at m 8
@@ -577,25 +580,21 @@ def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
 
 # ------------------------------------------------------- K2 / K3 / K4 --
 
-def check_and_time_writers(torch, kw, timer):
+def k2_problem(torch, gen, num_pages: int, page_size: int = 32):
+    """K2's inputs at the first prompt round of phase 4: prompts of 1000,
+    300, 64, 1000, 300, 64 tokens padded to 1024 in a batch bucket of 8
+    (256 cells, 88 live, 2728 rows), each live page of a prompt at a
+    random page of a pool of `num_pages`, the bucket's other cells
+    skipped (page id num_pages), a prompt's last page its tail. Returns
+    knew, vnew [cells * page_size, Hkv * d] bf16, page ids and valids
+    (int32 on the card), the identity src_blocks (host), and the live
+    source rows with their slots (int64 on the card): the rows
+    index_copy_, the library yardstick, writes."""
     import numpy as np
-    gen = torch.Generator(device="cuda").manual_seed(7)
     hd = HKV * HEAD_DIM
-    page_size = 32
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
-
-    # K2 at the first prompt round of phase 4: prompts of 1000, 300, 64,
-    # 1000, 300, 64 tokens padded to 1024 in a batch bucket of 8, plus a
-    # cell list with tail pages and skipped cells.
     prompts = [1000, 300, 64, 1000, 300, 64]
     padded_batch, padded_len = 8, 1024
     ppp = padded_len // page_size
-    num_pages = 4096
-    kp, vp = randn(num_pages, page_size, hd), randn(num_pages, page_size,
-                                                    hd)
     cells = padded_batch * ppp
     pid = np.full((cells,), num_pages, dtype=np.int32)
     vld = np.zeros((cells,), dtype=np.int32)
@@ -607,28 +606,65 @@ def check_and_time_writers(torch, kw, timer):
             pid[i * ppp + p] = perm[nxt]
             vld[i * ppp + p] = min(n - p * page_size, page_size)
             nxt += 1
-    knew = randn(cells * page_size, hd)
-    vnew = randn(cells * page_size, hd)
-    pid_t = torch.from_numpy(pid).cuda()
-    vld_t = torch.from_numpy(vld).cuda()
-    sblk = np.arange(cells, dtype=np.int32)
+    live = np.repeat(pid < num_pages, page_size) & \
+        (np.tile(np.arange(page_size), cells) < np.repeat(vld, page_size))
+    slots = (np.repeat(pid.astype(np.int64), page_size) * page_size +
+             np.tile(np.arange(page_size), cells))[live]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    return dict(knew=randn(cells * page_size, hd),
+                vnew=randn(cells * page_size, hd),
+                pid=torch.from_numpy(pid).cuda(),
+                vld=torch.from_numpy(vld).cuda(),
+                sblk=np.arange(cells, dtype=np.int32),
+                live=torch.from_numpy(live).cuda(),
+                slots=torch.from_numpy(slots).cuda(),
+                cells=cells, rows=int(vld.sum()))
+
+
+def k2_bound_bytes(c) -> int:
+    """K2's bytes at `k2_problem`'s cells: the live rows of K and V read
+    once and written once, and the page ids and valids read."""
+    return 2 * 2 * c["rows"] * HKV * HEAD_DIM * 2 + c["cells"] * 8
+
+
+def check_and_time_writers(torch, kw, timer):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    hd = HKV * HEAD_DIM
+    page_size = 32
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    # K2 at the first prompt round of phase 4, with tail pages and
+    # skipped cells.
+    num_pages = 4096
+    kp, vp = randn(num_pages, page_size, hd), randn(num_pages, page_size,
+                                                    hd)
+    c = k2_problem(torch, gen, num_pages, page_size)
+    knew, vnew, pid_t, vld_t, sblk = (c[k] for k in ("knew", "vnew", "pid",
+                                                     "vld", "sblk"))
     a = kw.write_kv_pages_prefill(knew, vnew, kp.clone(), vp.clone(),
                                   pid_t, sblk, vld_t)
     b = kw.write_kv_pages_prefill_plain(knew, vnew, kp.clone(), vp.clone(),
                                         pid_t, vld_t)
+    # The control: the plain version also writing row `valid` of each
+    # tail page must differ from the kernel's pages.
+    bad = kw.write_kv_pages_prefill_plain(knew, vnew, kp.clone(),
+                                          vp.clone(), pid_t, vld_t + 1)
     torch.cuda.synchronize()
     if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
         fail("K2 write_kv_pages_prefill differs from its plain version")
-    rows = int(vld.sum())
+    if torch.equal(a[0], bad[0]) or torch.equal(a[1], bad[1]):
+        fail("K2: the control (row valid written) equals the kernel's "
+             "pages")
+    cells, rows = c["cells"], c["rows"]
     # Library yardstick: index_copy_ of the valid rows into their slots.
-    live = torch.from_numpy(np.repeat(pid < num_pages, page_size) &
-                            (np.tile(np.arange(page_size), cells) <
-                             np.repeat(vld, page_size))).cuda()
-    slots = (torch.from_numpy(np.repeat(pid.astype(np.int64), page_size) *
-                              page_size +
-                              np.tile(np.arange(page_size),
-                                      cells)).cuda())[live]
-    src_k, src_v = knew[live], vnew[live]
+    slots = c["slots"]
+    src_k, src_v = knew[c["live"]], vnew[c["live"]]
     k_flat, v_flat = kp.view(-1, hd), vp.view(-1, hd)
     k2 = dict(
         ms=timer(lambda: kw.write_kv_pages_prefill(
@@ -637,10 +673,12 @@ def check_and_time_writers(torch, kw, timer):
             knew, vnew, kp, vp, pid_t, vld_t)),
         library_ms=timer(lambda: (k_flat.index_copy_(0, slots, src_k),
                                   v_flat.index_copy_(0, slots, src_v))))
-    k2["bound_ms"], k2["bound_by"] = bound(
-        2 * 2 * rows * hd * 2 + cells * 8, 0)
+    k2["bound_ms"], k2["bound_by"] = bound(k2_bound_bytes(c), 0)
+    block_rows, threads = kw.prefill_write_plan(page_size, hd * 2)
     log(f"K2 write_kv_pages_prefill vs plain: exact ({cells} cells, "
-        f"{rows} rows, tail pages and skipped cells)")
+        f"{rows} rows, tail pages and skipped cells; blocks of {block_rows}"
+        f" rows, {threads} threads); the control (row valid written) "
+        "differs")
 
     # K3/K4: shared pages and out-of-range slots, exact.
     kp2, vp2 = randn(64, page_size, hd), randn(64, page_size, hd)
@@ -1247,15 +1285,20 @@ def check_and_time_gguf(torch, qmm, timer):
                 err = check_close(torch, got, plain,
                                   f"{name} {proj} m={m}")
                 plan = ""
-                # K13's and K14's quant_stream_kernel takes up to
-                # Q8_STREAM_M_MAX / I8G_STREAM_M_MAX rows, K15's skinny
-                # tiles 64; the warpgroup-MMA kernels the rest.
+                # quant_stream_kernel takes up to Q8_STREAM_M_MAX /
+                # I8G_STREAM_M_MAX / K15_STREAM_M_MAX rows (K15 over
+                # 128-row groups, on int8 x); the warpgroup-MMA kernels
+                # the rest.
                 skinny = {"k13": qmm.Q8_STREAM_M_MAX,
-                          "k14": qmm.I8G_STREAM_M_MAX}.get(key, 64)
-                if key != "k15" and m <= skinny:
-                    block_m, splits = qmm.stream_plan(m, K, N, 32, sms, 8, 2)
+                          "k14": qmm.I8G_STREAM_M_MAX,
+                          "k15": qmm.K15_STREAM_M_MAX}[key]
+                if m <= skinny:
+                    unit, xb = (128, 1) if key == "k15" else (32, 2)
+                    block_m, splits = qmm.stream_plan(m, K, N, unit, sms, 8,
+                                                      xb)
                     plan = (f"; stream plan: {block_m}-row blocks, {splits} "
-                            f"split(s) of {-(-(K // 32) // splits) * 32} rows")
+                            f"split(s) of {-(-(K // unit) // splits) * unit}"
+                            " rows")
                 if key == "k14" and m == 8:
                     # quant_stream_kernel's d16 rows: reading them per 32
                     # rows must miss.
@@ -1277,17 +1320,25 @@ def check_and_time_gguf(torch, qmm, timer):
                         torch, got, qmm.gguf_i8g_matmul_plain(
                             x, qs, torch.cat([sc, sc])), what,
                         "d read per 16 rows")
-                if m > skinny and key != "k13":
-                    # The control: a wrong plain version must miss.
-                    bad = (qmm.gguf_q8_matmul_plain(x, qs, sc[:K // 32])
-                           if key == "k14" else
-                           plain_fn(x, qs, torch.roll(sc, 1, 0)))
-                    plan = control_missed(
-                        torch, qmm, got, bad, f"{name} {proj} m={m}",
-                        "d16 read per 32 rows" if key == "k14" else
+                if key == "k15":
+                    # Both routes: the scale rows shifted by one group
+                    # must miss.
+                    what = f"{name} {proj} m={m}"
+                    bad = plain_fn(x, qs, torch.roll(sc, 1, 0))
+                    plan += control_missed(
+                        torch, qmm, got, bad, what,
                         "scale rows shifted by one group", m, K, N,
-                        unit=128 if key == "k15" else 64,
-                        block_n=128 if key == "k15" else 256, sms=sms)
+                        unit=128, block_n=128, sms=sms) \
+                        if m > skinny else stream_control_missed(
+                            torch, got, bad, what,
+                            "scale rows shifted by one group")
+                if m > skinny and key == "k14":
+                    # The control: a wrong plain version must miss.
+                    plan = control_missed(
+                        torch, qmm, got,
+                        qmm.gguf_q8_matmul_plain(x, qs, sc[:K // 32]),
+                        f"{name} {proj} m={m}", "d16 read per 32 rows", m,
+                        K, N, unit=64, block_n=256, sms=sms)
                 if key == "k15":
                     x8, xs = qmm.quantize_activations_int8(x)
 
@@ -1332,6 +1383,8 @@ def check_and_time_gguf(torch, qmm, timer):
                 log(line)
                 for k in (key, f"{key}@4096"):
                     out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
+            if key == "k15":
+                check_k15_routes(torch, qmm, x_all, qs, sc, proj)
             del qs, sc, w16
         del x_all
         torch.cuda.empty_cache()
@@ -1345,6 +1398,33 @@ def check_and_time_gguf(torch, qmm, timer):
     log("K13 / K14 / K15 m > 64 kernels (K15 alone on K9's rows), ms per "
         "layer (4 projections) by m: " + json.dumps(layer_ms))
     return out
+
+
+# K15's rows around its routes' meeting point and block sizes, each
+# checked on both routes pinned.
+K15_PIN_MS = (1, 8, 13, 16, 17, 32, 33, 64)
+
+
+def check_k15_routes(torch, qmm, x_all, qs, sc, proj: str) -> None:
+    """K15 alone on K9's rows with each route pinned (`stream=True`:
+    quant_stream_kernel's a8 arm; False: w8a8_gemm_kernel) at
+    `K15_PIN_MS`, against `gguf_w8a8_launch_plain` on the same rows
+    within the tolerance, and the plain version with the scale rows
+    shifted by one group must miss it."""
+    notes = []
+    for m in K15_PIN_MS:
+        x8, xs = qmm.quantize_activations_int8(x_all[:m])
+        want = qmm.gguf_w8a8_launch_plain(x8, xs, qs, sc)
+        bad = qmm.gguf_w8a8_launch_plain(x8, xs, qs, torch.roll(sc, 1, 0))
+        for route, pin in (("stream", True), ("gemm", False)):
+            what = f"gguf_w8a8_launch {proj} m={m} on the {route} route"
+            got = qmm.gguf_w8a8_launch(x8, xs, qs, sc, stream=pin)
+            err = check_close(torch, got, want, what)
+            stream_control_missed(torch, got, bad, what,
+                                  "scale rows shifted by one group")
+            notes.append(f"{m}/{route} {err:.4f}")
+    log(f"K15 {proj}, both routes pinned vs plain (max err), every "
+        "control missed: " + ", ".join(notes))
 
 
 def stream_control_missed(torch, got, bad, what: str, control: str) -> str:
@@ -2090,10 +2170,9 @@ def run_sliding_window(torch, counters, card: str):
     return launches
 
 
-QUANT_KERNEL_NAMES = ("quant_stream_kernel", "int8_mma_kernel",
-                      "split_reduce_kernel", "split_x32_kernel",
-                      "quant8_kernel", "quant_gemm_kernel",
-                      "w8a8_gemm_kernel")
+QUANT_KERNEL_NAMES = ("quant_stream_kernel", "split_reduce_kernel",
+                      "split_x32_kernel", "quant8_kernel",
+                      "quant_gemm_kernel", "w8a8_gemm_kernel")
 
 
 def profile_decode(torch, engine, tag: str = "",
@@ -2608,8 +2687,8 @@ def main() -> int:
             f"{bf16_pages})")
         tag = f"GGUF {form} "
         # The mix's prompt rounds take the form's m > 64 kernel, its
-        # decode steps the skinny tiles; the 96-request round's decode
-        # steps the m > 64 kernel and its split reduce.
+        # decode steps quant_stream_kernel; the 96-request round's
+        # decode steps the m > 64 kernel and its split reduce.
         gemm = gemm_of[kernel]
         required = BF16_KERNELS + (kernel, gemm) + \
             (("quantize_activations_int8",) if kernel == w8a8 else ())

@@ -338,6 +338,56 @@ def test_writers_match_plain(dev):
     assert torch.equal(c[0], d[0]) and torch.equal(c[1], d[1])
 
 
+# K2's geometries: (page size, kv heads of 128, page dtype); rows of 256
+# bytes to 4 KB, and 768 (3 heads: 21-row blocks, which do not divide a
+# 32-row page).
+_K2_PAGES = [(16, 8, torch.bfloat16), (32, 8, torch.bfloat16),
+             (16, 1, torch.bfloat16), (32, 1, torch.bfloat16),
+             (32, 8, torch.float32), (16, 1, torch.float32),
+             (32, 3, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("page_size,hkv,page_dtype", _K2_PAGES)
+def test_prefill_writer_is_exact_on_every_geometry(dev, page_size, hkv,
+                                                   page_dtype):
+    """K2 (grid (cell, group of rows) from `prefill_write_plan`) against
+    its plain version on full pages, tail pages of every length, skipped
+    cells (page id num_pages and beyond) and cells of valid 0: every page
+    bit for bit, the rows past valid keeping their contents; one launch
+    counted. The control, the plain version also writing row `valid` of
+    each tail page (`valids + 1`), must differ."""
+    g = torch.Generator(device=dev).manual_seed(page_size + hkv)
+    hd, num_pages = hkv * 128, 96
+    kp = torch.randn(num_pages, page_size, hd, generator=g,
+                     device=dev).to(page_dtype)
+    vp = torch.randn(num_pages, page_size, hd, generator=g,
+                     device=dev).to(page_dtype)
+    valid = [page_size] * 5 + list(range(1, page_size)) + [0, page_size, 3]
+    cells = len(valid) + 3
+    pid = torch.randperm(num_pages, generator=g, device=dev)[:cells].to(
+        torch.int32)
+    vld = torch.tensor(valid + [page_size] * 3, dtype=torch.int32,
+                       device=dev)
+    pid[-3:] = torch.tensor([num_pages, num_pages + 7, 2 ** 30],
+                            dtype=torch.int32, device=dev)
+    knew = torch.randn(cells * page_size, hd, generator=g, device=dev).to(
+        page_dtype)
+    vnew = torch.randn(cells * page_size, hd, generator=g, device=dev).to(
+        page_dtype)
+    sblk = np.arange(cells, dtype=np.int32)
+    before = tkw.WRITE_KV_PAGES_PREFILL_LAUNCHES.count
+    a = tkw.write_kv_pages_prefill(knew, vnew, kp.clone(), vp.clone(), pid,
+                                   sblk, vld)
+    b = tkw.write_kv_pages_prefill_plain(knew, vnew, kp.clone(), vp.clone(),
+                                         pid, vld)
+    bad = tkw.write_kv_pages_prefill_plain(knew, vnew, kp.clone(),
+                                           vp.clone(), pid, vld + 1)
+    torch.cuda.synchronize()
+    assert tkw.WRITE_KV_PAGES_PREFILL_LAUNCHES.count == before + 1
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert not torch.equal(a[0], bad[0]) and not torch.equal(a[1], bad[1])
+
+
 def test_wrappers_count_launches_and_refuse_bad_inputs(dev):
     q, kp, vp, tb, ctx, kn, vn = _decode_problem(dev, [5, 9])
     before = tpa.PAGED_DECODE_ATTENTION_LAUNCHES.count
@@ -826,11 +876,10 @@ def _gguf_problem(dev, kind, m, K, N, seed=0):
 
 
 def _gguf_skinny_m(kind):
-    """The rows up to which a GGUF wrapper runs its skinny kernel: K13's
-    and K14's quant_stream_kernel take `Q8_STREAM_M_MAX` and
-    `I8G_STREAM_M_MAX`, K15's tiles 64."""
-    return {"q8": tqm.Q8_STREAM_M_MAX,
-            "i8g": tqm.I8G_STREAM_M_MAX}.get(kind, tqm.STREAM_M_MAX)
+    """The rows up to which a GGUF wrapper runs quant_stream_kernel:
+    `Q8_STREAM_M_MAX`, `I8G_STREAM_M_MAX` and `K15_STREAM_M_MAX`."""
+    return {"q8": tqm.Q8_STREAM_M_MAX, "i8g": tqm.I8G_STREAM_M_MAX,
+            "w8a8": tqm.K15_STREAM_M_MAX}[kind]
 
 
 def _gguf_counter(kind, m):
@@ -860,10 +909,10 @@ def _gguf_reduces(kind, m, K, N, dev):
     (m, K, N) for m in (65, 72, 128, 256, 512) for K, N in _PROJ] + [
     (200, 2048, 384), (129, 1024, 1152), (77, 14336, 4096)])
 def test_gguf_matmul_kernels_match_plain(dev, kind, m, K, N):
-    """Every tiling: up to `Q8_STREAM_M_MAX` / `I8G_STREAM_M_MAX` rows
-    K13's and K14's quant_stream_kernel (8-16-row blocks, K split over
-    32-row units by stream_plan) and at m <= 64 K15's 16-64-row tiles
-    with split K;
+    """Every tiling: up to `Q8_STREAM_M_MAX` / `I8G_STREAM_M_MAX` /
+    `K15_STREAM_M_MAX` rows K13's, K14's and K15's quant_stream_kernel
+    (8-16-row blocks, K split over 32-row units, K15's over its 128-row
+    groups, by stream_plan);
     above, K13's and K14's quant_gemm_kernel (128 x 256 tiles; N 384 and
     1152 end on a 128-column half tile) and K15's w8a8_gemm_kernel, with
     their split plans; one launch counted each, and the split reduce
@@ -1105,6 +1154,76 @@ def test_gguf_w8a8_kernel_on_k9_rows_equals_the_wrapper(dev, m):
     assert shifted.data_ptr() % 16 and shifted.is_contiguous()
     assert torch.equal(tqm.gguf_w8a8_launch(shifted, xs, qs, scales),
                        tqm.gguf_w8a8_launch(x8, xs, qs, scales))
+
+
+# K15 at decode: the rows pinned on each route; Mistral-7B's projections,
+# a small shape, and K of 9 and 33 groups, whose splits end on a short run
+# of groups.
+_K15_M = (1, 8, 13, 16, 17, 32, 33, 64)
+_K15_SHAPES = _PROJ + ((512, 384), (1152, 384), (4224, 1024))
+
+
+@pytest.mark.parametrize("route", ["default", "stream", "gemm"])
+@pytest.mark.parametrize("K,N", _K15_SHAPES)
+@pytest.mark.parametrize("m", _K15_M)
+def test_k15_decode_matches_plain_on_both_routes(dev, m, K, N, route):
+    """K15 alone on K9's rows at decode on the wrapper's own route
+    (quant_stream_kernel<8, kQs8> on its a8 arm up to `K15_STREAM_M_MAX`
+    rows, w8a8_gemm_kernel from the next) and on each route pinned
+    (`stream`), at Mistral-7B's projections (the stream plan splits K
+    into runs of 128-row groups), K of 9 and 33 groups and a small shape:
+    one launch on the route's counter, none on the other, the split
+    reduce where the gemm's plan splits; within `_close` of the plain
+    version, and the plain version with the scale rows shifted by one
+    group misses it."""
+    x, qs, s128 = _gguf_problem(dev, "w8a8", m, K, N, seed=m + K + N)
+    x8, xs = tqm.quantize_activations_int8(x)
+    stream = {"default": None, "stream": True, "gemm": False}[route]
+    use_stream = m <= tqm.K15_STREAM_M_MAX if stream is None else stream
+    counters = [tqm.GGUF_W8A8_MATMUL_LAUNCHES, tqm.GGUF_W8A8_GEMM_LAUNCHES,
+                tqm.QUANT_GEMM_REDUCE_LAUNCHES]
+    before = [c.count for c in counters]
+    got = tqm.gguf_w8a8_launch(x8, xs, qs, s128, stream=stream)
+    want = tqm.gguf_w8a8_launch_plain(x8, xs, qs, s128)
+    bad = tqm.gguf_w8a8_launch_plain(x8, xs, qs, s128.roll(1, 0))
+    torch.cuda.synchronize()
+    reduce = 0 if use_stream else int(tqm.gemm_plan(
+        m, K, N, 128, tqm.build.sm_count(dev), block_n=128)[0] > 1)
+    assert [c.count - b for c, b in zip(counters, before)] == \
+        ([1, 0, 0] if use_stream else [0, 1, reduce])
+    assert got.dtype == torch.bfloat16 and got.shape == (m, N)
+    _close(got, want)
+    assert _misses(got, bad)
+
+
+@pytest.mark.parametrize("m,K,N,splits", [
+    (8, 512, 28672, 1), (16, 1024, 28672, 1), (1, 256, 128, 2),
+    (8, 4096, 4096, 11)])
+def test_k15_stream_split_and_unsplit(dev, m, K, N, splits):
+    """K15's stream route where `stream_plan` gives one split (the
+    epilogue multiplies by xs and rounds) and several (the split reduce
+    adds the f32 partials in split order, then xs): within `_close` of
+    the plain version; unsplit, where the group order is the plain
+    version's, equal to it bit for bit."""
+    sms = tqm.build.sm_count(dev)
+    if tqm.stream_plan(m, K, N, 128, sms, 8, 1)[1] != splits:
+        pytest.skip(f"the plan splits otherwise on {sms} SMs")
+    x, qs, s128 = _gguf_problem(dev, "w8a8", m, K, N, seed=m + K)
+    x8, xs = tqm.quantize_activations_int8(x)
+    got = tqm.gguf_w8a8_launch(x8, xs, qs, s128, stream=True)
+    want = tqm.gguf_w8a8_launch_plain(x8, xs, qs, s128)
+    torch.cuda.synchronize()
+    _close(got, want)
+    if splits == 1:
+        assert torch.equal(got, want)
+
+
+def test_k15_stream_refuses_more_than_64_rows(dev):
+    x, qs, s128 = _gguf_problem(dev, "w8a8", 65, 512, 256)
+    before = tqm.QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.count
+    with pytest.raises(ValueError, match="m <= 64"):
+        tqm.gguf_w8a8_matmul(x, qs, s128, stream=True)
+    assert tqm.QUANTIZE_ACTIVATIONS_INT8_LAUNCHES.count == before
 
 
 def test_gguf_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -102,6 +102,131 @@ def test_prefill_writer_refuses_non_identity_sources():
                                np.array([0, 7], np.int32), vld)
 
 
+# ---- K2's launch (csrc/kv_write.cu `kv_write_prefill_kernel`), emulated ----
+
+def _k2_copies(page_ids, valids, num_pages, page_size, row_bytes):
+    """The 16-byte vectors K2's launch copies, block by block and thread
+    by thread as the kernel indexes them: grid (cells, ceil(page_size /
+    rows)) of `threads` from `prefill_write_plan`; block (c, y) reads
+    page_ids[c] and valids[c] and returns where the page is out of range
+    or valid <= y rows, else copies rows [y rows, min(valid, page_size,
+    (y + 1) rows)), thread t vectors t + threads (4 j + u) of them, u <
+    PREFILL_VECS, in round j. Returns (source vector, page vector,
+    thread) arrays."""
+    rows, threads = tkw.prefill_write_plan(page_size, row_bytes)
+    row_vecs = row_bytes // 16
+    per_round = tkw.PREFILL_VECS * threads
+    src, dst, thr = [], [], []
+    for c, page in enumerate(page_ids):
+        if page < 0 or page >= num_pages:
+            continue
+        for y in range(-(-page_size // rows)):
+            r0 = y * rows
+            valid = min(valids[c], page_size)
+            if valid <= r0:
+                continue
+            r1 = min(valid, r0 + rows)
+            n = (r1 - r0) * row_vecs
+            t = np.arange(threads)
+            i = (t[None, :, None] + per_round *
+                 np.arange(-(-n // per_round))[:, None, None] +
+                 threads * np.arange(tkw.PREFILL_VECS)[None, None, :])
+            t = np.broadcast_to(t[None, :, None], i.shape)
+            keep = i < n
+            src.append((c * page_size + r0) * row_vecs + i[keep])
+            dst.append((page * page_size + r0) * row_vecs + i[keep])
+            thr.append(t[keep])
+    if not src:
+        return (np.zeros(0, np.int64),) * 3
+    return tuple(np.concatenate(a) for a in (src, dst, thr))
+
+
+_K2_CELLS = {
+    # tail pages, skipped cells (past the pool and negative), a cell of
+    # no rows, valids past the page (clamped), full pages
+    "tails_and_skips": ([3, 9, 0, 7, 12, -1, 5, 2],
+                        [32, 5, 1, 31, 32, 32, 0, 40]),
+    "all_full": ([1, 4, 6, 8], [32, 32, 32, 32]),
+    "one_row_each": ([2, 11, 3], [1, 1, 1]),
+}
+
+
+@pytest.mark.parametrize("row_bytes", [128, 256, 768, 2048, 4096, 65536])
+@pytest.mark.parametrize("page_size", [8, 16, 32])
+@pytest.mark.parametrize("cells", list(_K2_CELLS))
+def test_prefill_launch_covers_each_live_row_once(cells, page_size,
+                                                  row_bytes):
+    """K2's plan and indexing: every 16-byte vector of every live cell's
+    rows r < min(valid, page_size) is copied exactly once, to the same
+    row of its page, and nothing else is read or written (rows at and
+    past valid, skipped cells); a thread's vectors are distinct."""
+    num_pages = 12
+    pid, vld = (np.array(a) for a in _K2_CELLS[cells])
+    src, dst, thr = _k2_copies(pid, vld, num_pages, page_size, row_bytes)
+    row_vecs = row_bytes // 16
+    want_src, want_dst = [], []
+    for c, (page, valid) in enumerate(zip(pid, vld)):
+        if 0 <= page < num_pages:
+            n = min(valid, page_size) * row_vecs
+            want_src.append(c * page_size * row_vecs + np.arange(n))
+            want_dst.append(page * page_size * row_vecs + np.arange(n))
+    order = np.argsort(dst, kind="stable")
+    assert np.array_equal(dst[order], np.sort(np.concatenate(want_dst)))
+    assert len(np.unique(dst)) == len(dst)
+    # Each vector lands on its own row of its page, from its cell.
+    want = dict(zip(np.concatenate(want_dst).tolist(),
+                    np.concatenate(want_src).tolist()))
+    assert all(want[d] == s for d, s in zip(dst.tolist(), src.tolist()))
+    assert len({(t, s) for t, s in zip(thr.tolist(), src.tolist())}) == \
+        len(src)
+
+
+def test_prefill_launch_equals_the_plain_writer():
+    """The emulated launch applied to pages (f32 values, bit patterns
+    copied) gives `write_kv_pages_prefill_plain`'s pages exactly, at
+    Mistral-7B's row (8 kv heads x 128 in bf16: 2048 bytes, 128 vectors)
+    with 32-row pages: tail pages, a skipped cell, a full page."""
+    rng = np.random.default_rng(12)
+    pages, page_size, hd = 10, 32, 512             # 512 f32: 2048 bytes
+    kp, vp = _pages(rng, pages, page_size, hd)
+    pid = np.array([4, 0, pages, 7, 2], dtype=np.int32)
+    vld = np.array([32, 17, 0, 1, 31], dtype=np.int32)
+    knew = rng.normal(size=(len(pid) * page_size, hd)).astype(np.float32)
+    vnew = rng.normal(size=(len(pid) * page_size, hd)).astype(np.float32)
+    src, dst, _ = _k2_copies(pid, vld, pages, page_size, hd * 4)
+    got = []
+    for new, old in ((knew, kp), (vnew, vp)):
+        out = old.copy().reshape(-1, 4)           # 16-byte vectors
+        out[dst] = new.reshape(-1, 4)[src]
+        got.append(out.reshape(old.shape))
+    wk, wv = tkw.write_kv_pages_prefill_plain(_t(knew), _t(vnew), _t(kp),
+                                              _t(vp), _t(pid), _t(vld))
+    np.testing.assert_array_equal(got[0], wk.numpy())
+    np.testing.assert_array_equal(got[1], wv.numpy())
+
+
+# K2's plan, (rows a block, threads a block), by page size and row bytes.
+@pytest.mark.parametrize("page_size,row_bytes,want", [
+    (32, 2048, (8, 256)),        # Mistral-7B's 8 kv heads: 8 loads a thread
+    (16, 2048, (8, 256)),
+    (32, 4096, (4, 256)),        # f32 pages
+    (32, 1024, (16, 256)),       # 8-bit pages of 8 kv heads
+    (32, 256, (32, 128)),        # one kv head: the whole page, 4 warps
+    (16, 128, (16, 32)),
+    (32, 768, (21, 256)),        # rows that do not divide the page
+    (8, 65536, (1, 256)),        # a row wider than a round: 4 rounds
+])
+def test_prefill_write_plan_table(page_size, row_bytes, want):
+    rows, threads = tkw.prefill_write_plan(page_size, row_bytes)
+    assert (rows, threads) == want
+    assert threads % 32 == 0 and 32 <= threads <= tkw.PREFILL_THREADS
+    # One round covers the block's vectors unless a row alone exceeds it.
+    per_round = tkw.PREFILL_VECS * threads
+    assert rows * row_bytes // 16 <= per_round or rows == 1
+    assert rows * row_bytes // 16 > per_round - 32 * tkw.PREFILL_VECS or \
+        rows == page_size or threads == tkw.PREFILL_THREADS
+
+
 def test_bf16_pages_round_trip_exactly():
     """bf16 pages: the plain writers copy bit patterns."""
     rng = np.random.default_rng(2)

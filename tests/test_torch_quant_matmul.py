@@ -657,38 +657,61 @@ def test_a8_gemm_walk_cuts_odd_groups_into_short_chunks():
 
 
 def _tiling_at_132(m, K, N, gs):
-    """The skinny tiles' plan as it was with the SM count fixed at 132
-    (H100 SXM): least of 16/32/64 rows, splits toward 4 blocks per SM."""
-    block_m = next(b for b in (16, 32, 64) if m <= b)
-    groups = K // gs
-    want = -(-132 * 4 // (N // 128))
-    splits = max(1, min(groups, want, K // (16 * m)))
-    per = -(-groups // splits)
-    return block_m, -(-groups // per)
+    """K15's route and plan at m on a card of 132 SMs (H100 SXM), as its
+    wrapper takes them (they replace the skinny tiles' `_tiling`): up to
+    `K15_STREAM_M_MAX` rows quant_stream_kernel's a8 arm, `stream_plan`
+    over gs-row groups of 8-bit codes and int8 x; above, w8a8_gemm_kernel,
+    128 rows and `gemm_plan`'s splits of the groups over 128 x 128
+    tiles."""
+    if m <= tqm.K15_STREAM_M_MAX:
+        return tqm.stream_plan(m, K, N, gs, 132, 8, 1)
+    return 128, tqm.gemm_plan(m, K, N, gs, 132, block_n=128)[0]
 
 
-def test_tiling_reads_the_sm_count():
-    """At 132 SMs every skinny plan at Mistral-7B's projections and m 1-64
-    is the one the fixed count gave (H100 SXM plans do not move), for
-    128-row groups (K15's) and 64-row units; on a card with another count
-    the plan follows that count."""
+def test_tiling_reads_the_sm_count(monkeypatch):
+    """K15's launch as `gguf_w8a8_launch` makes it, as if its tensors
+    were on a card: at 132 SMs every plan at Mistral-7B's projections and
+    m 1-64 is `_tiling_at_132`'s, the stream route's splits whole runs of
+    128-row groups, none empty; the SM count is read from x8's device
+    (build.sm_count), and on a card of 66 SMs the plan follows that
+    count, so some plans move; the stream route refuses m 65."""
+    calls, asked = [], []
+    sms = [132]
+    monkeypatch.setattr(tqm.build, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(tqm.build, "sm_count",
+                        lambda dev: asked.append(dev) or sms[0])
+    monkeypatch.setattr(
+        tqm, "_entry_launch",
+        lambda entry, x, ptrs, N, block_m, splits, out_dtype, *, counter,
+        what: calls.append((entry, block_m, splits)))
     moved = 0
     for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
-        for gs in (128, 64):
-            for m in range(1, 65):
-                want = _tiling_at_132(m, K, N, gs)
-                assert tqm._tiling(m, K, N, gs, True, 132) == want
-                block_m, splits = tqm._tiling(m, K, N, gs, True, 66)
-                groups = K // gs
-                s = max(1, min(groups, -(-66 * 4 // (N // 128)),
-                               K // (16 * m)))
-                assert (block_m, splits) == \
-                    (want[0], -(-groups // -(-groups // s)))
-                moved += splits != want[1]
-    assert moved > 0
-    assert tqm._tiling(4096, 4096, 4096, 128, False, 66) == (128, 1)
-    with pytest.raises(ValueError):
-        tqm._tiling(65, 4096, 4096, 128, True, 132)
+        x8 = torch.zeros(64, K, dtype=torch.int8)
+        xs = torch.ones(64, 1)
+        qs8 = torch.zeros(K, N, dtype=torch.int8)
+        s128 = torch.ones(K // 128, N, dtype=torch.bfloat16)
+        for m in range(1, 65):
+            want = _tiling_at_132(m, K, N, 128)
+            sms[0] = 132
+            tqm.gguf_w8a8_launch(x8[:m], xs[:m], qs8, s128)
+            assert calls.pop() == ("gguf_w8a8_mm",) + want, (K, N, m)
+            assert asked.pop() == x8.device
+            block_m, splits = want
+            if m <= tqm.K15_STREAM_M_MAX:
+                units = K // 128
+                per = -(-units // splits)
+                assert block_m in (8, 16) and -(-units // per) == splits
+            sms[0] = 66
+            tqm.gguf_w8a8_launch(x8[:m], xs[:m], qs8, s128)
+            on66 = calls.pop()[1:]
+            assert on66 == (tqm.stream_plan(m, K, N, 128, 66, 8, 1)
+                            if m <= tqm.K15_STREAM_M_MAX else
+                            (128, tqm.gemm_plan(m, K, N, 128, 66,
+                                                block_n=128)[0]))
+            moved += on66 != want
+    assert moved > 0 and not calls
+    with pytest.raises(ValueError, match="m <= 64"):
+        tqm.stream_plan(65, 4096, 4096, 128, 132, 8, 1)
 
 
 def _bf16_sweep(lo_exp: int, hi_exp: int) -> np.ndarray:
@@ -1780,43 +1803,48 @@ def test_k12_k16_stream_plan_table(m, K, N, x_bytes, want):
 def _stream_smem(kind, k_split, nt):
     """quant_stream_kernel's shared memory a block (smem_bytes): the
     ring (K12's stages carry their dl and ml rows; K14's two stages their
-    bytes and d16 rows, K13's their bytes and d rows, K17's their bytes),
-    K16's codebook and the resident x."""
+    bytes and d16 rows, K13's their bytes and d rows, K15's their bytes
+    and s128 row, K17's their bytes), K16's codebook and the resident x
+    (K15's int8)."""
     if kind == "i8g":
         ring = 2 * (128 * 32 + 8 * _I8G_D16_WORDS) * 4
-    elif kind in ("q8", "int8"):
-        ring = 2 * (128 * 32 + (4 * 64 if kind == "q8" else 0)) * 4
+    elif kind in ("q8", "qs8", "int8"):
+        ring = 2 * (128 * 32 + {"q8": 4, "qs8": 1}.get(kind, 0) * 64) * 4
     else:
         ring = 3 * (16 * 136 + (8 * 64 if kind == "q4k" else 0)) * 4
-    es = 4 if kind == "lut32" else 2
-    x_row = -(-k_split * es // 128) * 128 + (16 if es == 4 else 64)
+    es = {"lut32": 4, "qs8": 1}.get(kind, 2)
+    x_row = -(-k_split * es // 128) * 128 + {4: 16, 2: 64, 1: 32}[es]
     lut = 16384 if kind in ("lut", "lut32") else 0
     return ring + lut + 8 * nt * x_row
 
 
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("kind", ["q4k", "lut", "lut32", "i8g", "q8",
-                                  "int8"])
+                                  "qs8", "int8"])
 def test_k12_k16_stream_blocks_fit_two_an_sm(kind, sms):
     """At every m 1-64 and QuIP#'s and Mistral-7B's shapes the plan's
-    splits are runs of whole 32-row units, none empty, each block's x
-    within `_STREAM_X_BYTES`, and a block's shared memory (with the 1 KB
-    the card reserves per block) lets two blocks share an SM's 228 KB, as
-    the kernel's launch bounds ask."""
+    splits are runs of whole 32-row units (K15's of 128-row groups), none
+    empty, each block's x within `_STREAM_X_BYTES`, and a block's shared
+    memory (with the 1 KB the card reserves per block) lets two blocks
+    share an SM's 228 KB, as the kernel's launch bounds ask."""
+    unit = 128 if kind == "qs8" else 32
+    x_bytes = {"lut32": 4, "qs8": 1}.get(kind, 2)
+    bits = 8 if kind in ("i8g", "q8", "qs8", "int8") else 4
     for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
                  (4096, 12288), (4096, 22016), (11008, 4096)):
+        if K % unit:
+            continue
         for m in range(1, 65):
-            x_bytes = 4 if kind == "lut32" else 2
-            block_m, splits = tqm.stream_plan(
-                m, K, N, 32, sms, 8 if kind in ("i8g", "q8", "int8") else 4,
-                x_bytes)
-            units = K // 32
+            block_m, splits = tqm.stream_plan(m, K, N, unit, sms, bits,
+                                              x_bytes)
+            units = K // unit
             per = -(-units // splits)
             assert -(-units // per) == splits
             rows = min(block_m, 32)
-            assert rows * per * 32 * x_bytes <= tqm._STREAM_X_BYTES
+            assert rows * per * unit * x_bytes <= tqm._STREAM_X_BYTES
             nt = rows // 8
-            assert 2 * (_stream_smem(kind, per * 32, nt) + 1024) <= 233472
+            assert 2 * (_stream_smem(kind, per * unit, nt) + 1024) <= \
+                233472
 
 
 # K16 on f32 x at m > 64 (`gemm_plan` over 64-row chunks, 128 x 128
@@ -2080,9 +2108,9 @@ _Q8_D_WORDS = 64          # words from one d row to the next
 
 
 def _byte_stage(codes, d_bits=None):
-    """K13's (with bf16 bits d [4, 128]) or K17's (without) stage bytes as
-    the kernel's copies place them."""
-    rows = 0 if d_bits is None else 4
+    """K13's (with bf16 bits d [4, 128]), K15's (s128 [1, 128]) or K17's
+    (without) stage bytes as the kernel's copies place them."""
+    rows = 0 if d_bits is None else len(d_bits)
     stage = np.zeros(_Q8_D + rows * _Q8_D_WORDS * 4, np.uint8)
     raw = np.ascontiguousarray(codes).view(np.uint8)
     for r in range(128):
@@ -2322,6 +2350,173 @@ def test_k13_k17_stream_plan_table(m, K, N, want):
     assert tqm.stream_plan(m, K, N, 32, 132, 8, 2) == want
 
 
+# ---- K15 at decode (quant_stream_kernel's kQs8 on the a8 arm), emulated ----
+#
+# K14's stage and ldmatrix on K15's int8 codes, the stage's one s128 row
+# after the 128 code rows (a 128-row stage is one group). The a8 arm's
+# m16n8k32 A register i of a lane holds rows 8t + 2e + (i >> 1), e < 4,
+# of column c0 + (i & 1) (`_k7_a_map(True)`); each is one byte permute
+# of two ldmatrix registers. The group's exact int32 sums are folded into
+# f32 with the stage's s128 pair when its four steps are done.
+
+
+def _qs8_stage(qs8, s128_bits, k0, n0):
+    """The ring stage of block column n0 at k rows [k0, k0 + 128), as the
+    kernel's copies place it: the codes' 16-byte pieces (`i8g_piece`),
+    then s128 row k0 // 128 of the block's 128 columns."""
+    rows = s128_bits[k0 // 128:k0 // 128 + 1, n0:n0 + 128]
+    return _byte_stage(qs8[k0:k0 + 128, n0:n0 + 128], rows)
+
+
+def _qs8_fragments(stage, warp, b):
+    """step_fragments of kQs8 for every lane of `warp` at k32 step b:
+    uint64 [32, 4] s8 A registers (a[0][i])."""
+    addrs = [b * 32 * 128 + _i8g_piece(_i8g_lane_row(l), warp)
+             for l in range(32)]
+    v = _ldsm_x4_trans(stage, addrs)
+    return np.stack([_prmt(v[:, 0], v[:, 2], 0x6240),
+                     _prmt(v[:, 0], v[:, 2], 0x7351),
+                     _prmt(v[:, 1], v[:, 3], 0x6240),
+                     _prmt(v[:, 1], v[:, 3], 0x7351)], axis=1)
+
+
+def test_k15_stream_fragment_map_covers_the_tile():
+    """Every (k, n) byte of each warp's four k32 steps of a stage lands
+    once in the lane's s8 A registers, as the code (all 256 byte values
+    at each of a register's four places), through the swizzled stage,
+    the ldmatrix and the byte permutes, in the k order in which the a8
+    arm stages K9's rows (each 8-row run permuted to rows 0, 2, 4, 6, 1,
+    3, 5, 7; a lane's B bytes of a step one 8-byte load), so the step's
+    products are qs8^T x8 exactly; and the s128 pair each lane's fold
+    reads (word kRowsOff + c0 / 2) is the stage's group's scale of
+    columns c0 and c0 + 1, for stages at other k rows and block
+    columns."""
+    rs = np.random.RandomState(15)
+    K, N = 384, 256
+    qs8 = rs.randint(-128, 128, (K, N)).astype(np.int8)
+    qs8[:2, :128] = np.arange(-128, 128).astype(np.int8).reshape(2, 128)
+    s128 = torch.from_numpy(rs.rand(K // 128, N).astype(np.float32)).to(
+        torch.bfloat16)
+    bits = s128.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    x8 = rs.randint(-127, 128, (8, K)).astype(np.int64)
+    xp = x8.reshape(8, -1, 8)[:, :, [0, 2, 4, 6, 1, 3, 5, 7]].reshape(8, -1)
+    amap = _k7_a_map(True)
+    lane = np.arange(32)
+    gid = lane >> 2
+    for ln in range(32):         # B: byte e of register i is k 8t + 2e + i
+        for j in range(8):
+            i, e = j // 4, j % 4
+            assert (xp[ln >> 2, 8 * (ln & 3) + j] ==
+                    x8[ln >> 2, 8 * (ln & 3) + 2 * e + i])
+    for k0, n0 in ((0, 0), (128, 128), (256, 0)):
+        stage = _qs8_stage(qs8, bits, k0, n0)
+        assert stage.size == 128 * 128 + 256     # 16.25 KB
+        words = stage.view(np.uint32)
+        for warp in range(8):
+            c0 = 16 * warp + 2 * gid
+            s2 = words[128 * 32 + c0 // 2].astype(np.int64)
+            assert (s2 & 0xFFFF == bits[k0 // 128, n0 + c0]).all()
+            assert (s2 >> 16 == bits[k0 // 128, n0 + c0 + 1]).all()
+            for b in range(4):
+                regs = _qs8_fragments(stage, warp, b)
+                seen = set()
+                a_tile = np.zeros((16, 32), np.int64)
+                for (ln, _, i, e), (col, k) in amap.items():
+                    byte = (int(regs[ln, i]) >> (8 * e)) & 0xFF
+                    got = byte - 256 if byte > 127 else byte
+                    n, kk = n0 + 16 * warp + col, k0 + 32 * b + k
+                    assert got == qs8[kk, n], (k0, n0, warp, b, ln, i, e)
+                    seen.add((n, kk))
+                    a_tile[col, k] = got
+                assert len(seen) == 16 * 32
+                kb, nb = k0 + 32 * b, n0 + 16 * warp
+                assert np.array_equal(
+                    a_tile @ x8[:, kb:kb + 32].T,
+                    qs8[kb:kb + 32, nb:nb + 16].astype(np.int64).T @
+                    x8[:, kb:kb + 32].T)
+
+
+def _k15_stream_order(x8, xs, qs8, s128, splits):
+    """quant_stream_kernel<8, kQs8>'s arithmetic in its order, in numpy
+    float32 (one rounding an operation): each split a run of whole
+    128-row groups; per group the exact int32 dot, acc = acc +
+    f32(float(dot) * s) in group order from 0; one split: bf16(acc *
+    xs); more: the split reduce's sum of the splits' acc in split order
+    from 0, then times xs, then bf16."""
+    f32 = np.float32
+    x = x8.numpy().astype(np.int64)
+    q = qs8.numpy().astype(np.int64)
+    s = s128.float().numpy()
+    groups = x.shape[1] // 128
+    per = -(-groups // splits)
+    parts = []
+    for g0 in range(0, groups, per):
+        acc = np.zeros((x.shape[0], q.shape[1]), f32)
+        for g in range(g0, min(groups, g0 + per)):
+            dot = x[:, 128 * g:128 * g + 128] @ q[128 * g:128 * g + 128]
+            assert np.abs(dot).max() < 2 ** 24     # exact in f32
+            acc = (acc + (dot.astype(f32) * s[g]).astype(f32)).astype(f32)
+        parts.append(acc)
+    total = parts[0]
+    if len(parts) > 1:
+        total = np.zeros_like(parts[0])
+        for p in parts:
+            total = (total + p).astype(f32)
+    out = (total * xs.numpy().astype(f32)).astype(f32)
+    return torch.from_numpy(out).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_k15_stream_order_equals_the_plain_version(splits):
+    """The emulated kernel order against `gguf_w8a8_launch_plain` on K9's
+    rows: unsplit (the plain version's group order) bit for bit; over
+    three splits (the split reduce's order) within the card tests'
+    tolerance, 2e-2 + 2e-2 |plain| (bf16 outputs of f32 sums in another
+    order)."""
+    rs = np.random.RandomState(150 + splits)
+    m, K, N = 8, 768, 256
+    x = torch.from_numpy(rs.randn(m, K).astype(np.float32))
+    qs8 = torch.from_numpy(rs.randint(-127, 128, (K, N)).astype(np.int8))
+    s128 = torch.from_numpy((rs.rand(K // 128, N) * 0.002 + 1e-4).astype(
+        np.float32)).to(torch.bfloat16)
+    x8, xs = tqm.quantize_activations_int8(x)
+    want = tqm.gguf_w8a8_launch_plain(x8, xs, qs8, s128)
+    got = _k15_stream_order(x8, xs, qs8, s128, splits)
+    if splits == 1:
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2e-2 + 2e-2 * want.float().abs()).all())
+    # Scaling each group by xs before the fold is not the kernel's order.
+    early = _k15_stream_order(x8, torch.ones_like(xs), qs8, s128, 1)
+    assert not torch.equal(early, want)
+
+
+# K15's plan on quant_stream_kernel (`stream_plan` over its 128-row
+# groups, 8-bit codes, int8 x) on 132 SMs at Mistral-7B's four
+# projections: m <= 12 is the wrapper's route; 13-64 the stream route
+# the timing tool forces to compare it with the gemm.
+@pytest.mark.parametrize("m,K,N,want", [
+    (1, 4096, 6144, (8, 11)),
+    (1, 4096, 4096, (8, 16)),
+    (1, 4096, 28672, (8, 3)),
+    (1, 14336, 4096, (8, 16)),       # 112 groups: runs of 7
+    (8, 4096, 6144, (8, 11)),
+    (8, 4096, 4096, (8, 11)),        # 12 wanted: runs of 3 groups
+    (8, 4096, 28672, (8, 3)),
+    (8, 14336, 4096, (8, 16)),
+    (16, 4096, 6144, (16, 6)),
+    (16, 4096, 4096, (16, 6)),
+    (16, 4096, 28672, (16, 3)),
+    (16, 14336, 4096, (16, 16)),
+    (17, 4096, 4096, (32, 6)),
+    (32, 14336, 4096, (32, 11)),
+    (64, 4096, 28672, (64, 2)),      # int8 x of 32 rows: 2048 a block
+    (64, 14336, 4096, (64, 7)),
+])
+def test_k15_stream_plan_table(m, K, N, want):
+    assert tqm.stream_plan(m, K, N, 128, 132, 8, 1) == want
+
+
 # The routes: kernel -> (wrapper, threshold attribute, stream counter,
 # gemm counter).
 _BYTE_ROUTES = {
@@ -2329,11 +2524,17 @@ _BYTE_ROUTES = {
             "gguf_q8_gemm"),
     "k14": ("gguf_i8g_matmul", "I8G_STREAM_M_MAX", "gguf_i8g_matmul",
             "gguf_i8g_gemm"),
+    "k15": ("gguf_w8a8_launch", "K15_STREAM_M_MAX", "gguf_w8a8_matmul",
+            "gguf_w8a8_gemm"),
     "k17": ("int8_matmul", "INT8_STREAM_M_MAX", "int8_matmul", "int8_gemm"),
 }
 
 
 def _byte_route_args(kernel, m, K, N):
+    if kernel == "k15":         # K9's rows and their scales
+        return (torch.zeros(m, K, dtype=torch.int8), torch.ones(m, 1),
+                torch.zeros(K, N, dtype=torch.int8),
+                torch.ones(K // 128, N, dtype=torch.bfloat16))
     x = torch.zeros(m, K, dtype=torch.bfloat16)
     w = torch.zeros(K, N, dtype=torch.int8)
     if kernel == "k17":
@@ -2342,18 +2543,33 @@ def _byte_route_args(kernel, m, K, N):
     return x, w, torch.ones(K // G, N, dtype=torch.bfloat16)
 
 
+def _byte_stream_plan(kernel, m, K, N):
+    """A byte decoder's `stream_plan` at m on 132 SMs: K13, K14 and K17
+    over 32-row units of bf16 x, K15 over 128-row groups of int8 x."""
+    return tqm.stream_plan(m, K, N, 128, 132, 8, 1) if kernel == "k15" \
+        else tqm.stream_plan(m, K, N, 32, 132, 8, 2)
+
+
+def _byte_gemm_splits(kernel, m, K, N):
+    """A byte decoder's `gemm_plan` splits at m on 132 SMs: K13, K14 and
+    K17 over 64-row chunks of 128 x 256 tiles, K15 over 128-row groups of
+    128 x 128 tiles."""
+    return tqm.gemm_plan(m, K, N, 128, 132, block_n=128)[0] \
+        if kernel == "k15" else tqm.gemm_plan(m, K, N, 64, 132)[0]
+
+
 @pytest.mark.parametrize("kernel", list(_BYTE_ROUTES))
 def test_byte_decoders_route_by_the_threshold(kernel, monkeypatch):
-    """The wrappers of K13, K14 and K17, as if their tensors were on a
-    card of 132 SMs: m <= its threshold (16; K14 13) goes to
-    quant_stream_kernel (block_m 8 or 16, `stream_plan`'s splits, the
-    wrapper's own counter), every larger m to the warpgroup-MMA kernel
-    (block_m 128, `gemm_plan`'s splits over 64-row chunks, the gemm
-    counter); `stream` pins either
-    route, and the stream route refuses m over 64."""
+    """The wrappers of K13, K14, K15 (alone on K9's rows) and K17, as if
+    their tensors were on a card of 132 SMs: m <= its threshold (16; K14
+    13, K15 12) goes to quant_stream_kernel (block_m 8 or 16, `stream_plan`'s
+    splits, the wrapper's own counter), every larger m to the
+    warpgroup-MMA kernel (block_m 128, `gemm_plan`'s splits, the gemm
+    counter); `stream` pins either route, and the stream route refuses m
+    over 64 (K15's `gguf_w8a8_matmul` before it quantizes x)."""
     name, attr, stream_counter, gemm_counter = _BYTE_ROUTES[kernel]
     threshold = getattr(tqm, attr)
-    assert threshold == (13 if kernel == "k14" else 16)
+    assert threshold == {"k14": 13, "k15": 12}.get(kernel, 16)
     calls = []
     monkeypatch.setattr(tqm.build, "on_cuda", lambda *t: True)
     monkeypatch.setattr(tqm.build, "sm_count", lambda dev: 132)
@@ -2362,25 +2578,32 @@ def test_byte_decoders_route_by_the_threshold(kernel, monkeypatch):
         lambda entry, x, ptrs, N, block_m, splits, out_dtype, *, counter,
         what: calls.append((block_m, splits, counter.name)))
     fn = getattr(tqm, name)
+
+    def rows(args, m):          # the wrapper's arguments at m rows
+        return (args[0][:m], args[1][:m]) + args[2:] if kernel == "k15" \
+            else (args[0][:m],) + args[1:]
     for K, N in ((4096, 6144), (14336, 4096)):
         args = _byte_route_args(kernel, 72, K, N)
         for m in range(1, 73):
-            fn(args[0][:m], *args[1:])
+            fn(*rows(args, m))
             if m <= threshold:
-                want = tqm.stream_plan(m, K, N, 32, 132, 8, 2) + \
-                    (stream_counter,)
+                want = _byte_stream_plan(kernel, m, K, N) + (stream_counter,)
             else:
-                want = (128, tqm.gemm_plan(m, K, N, 64, 132)[0],
+                want = (128, _byte_gemm_splits(kernel, m, K, N),
                         gemm_counter)
             assert calls.pop() == want, (K, N, m)
-        fn(args[0][:40], *args[1:], stream=True)
-        assert calls.pop() == tqm.stream_plan(40, K, N, 32, 132, 8, 2) + \
+        fn(*rows(args, 40), stream=True)
+        assert calls.pop() == _byte_stream_plan(kernel, 40, K, N) + \
             (stream_counter,)
-        fn(args[0][:8], *args[1:], stream=False)
-        assert calls.pop() == (128, tqm.gemm_plan(8, K, N, 64, 132)[0],
+        fn(*rows(args, 8), stream=False)
+        assert calls.pop() == (128, _byte_gemm_splits(kernel, 8, K, N),
                                gemm_counter)
         with pytest.raises(ValueError, match="m <= 64"):
-            fn(args[0][:65], *args[1:], stream=True)
+            fn(*rows(args, 65), stream=True)
+        if kernel == "k15":
+            x = torch.zeros(65, K, dtype=torch.bfloat16)
+            with pytest.raises(ValueError, match="m <= 64"):
+                tqm.gguf_w8a8_matmul(x, *args[2:], stream=True)
     assert not calls
 
 
