@@ -110,14 +110,3 @@ def pad_to_multiple(x: int, multiple: int) -> int:
 
 def in_wsl() -> bool:
     return False
-
-
-def get_device_platform() -> str:
-    """Return the torch device platform: 'cuda' when a card is visible,
-    else 'cpu'."""
-    import torch
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
-def is_cuda() -> bool:
-    return get_device_platform() == "cuda"

@@ -106,6 +106,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "kv_quant.cuh"
+
 namespace {
 
 constexpr int kRowsPerWarp = 4;
@@ -132,7 +134,8 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// The write path's number format (ops/kv_quant.py quantize_kv).
+// The write path's number format (ops/kv_quant.py quantize_kv; the
+// 8-bit codes are kv_quant.cuh's, shared with the slot writer).
 __device__ __forceinline__ void store_page(float* p, float x, float) {
   *p = x;
 }
@@ -141,11 +144,10 @@ __device__ __forceinline__ void store_page(__nv_bfloat16* p, float x,
   *p = __float2bfloat16(x);
 }
 __device__ __forceinline__ void store_page(int8_t* p, float x, float s) {
-  const float code = fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f);
-  *p = static_cast<int8_t>(code);
+  *p = kvq::int8_code(x, s);
 }
 __device__ __forceinline__ void store_page(fp8* p, float x, float) {
-  p->__x = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E5M2);
+  p->__x = kvq::fp8_code(x);
 }
 
 template <typename P>

@@ -9,10 +9,11 @@ directory `.gitignore` lists):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Nothing here
-runs at import: the CPU tests import every module, and the build needs
-`nvcc` and a CUDA card.
+The file name carries a hash of the source, the headers of `csrc/`
+(`*.cuh`) and the flags, so an edited source or header is rebuilt and
+an unchanged one is loaded as it is. Nothing here runs at import: the
+CPU tests import every module, and the build needs `nvcc` and a CUDA
+card.
 
 Each C entry point returns `cudaGetLastError()` after its launch; the
 wrappers raise `KernelLaunchError` when that is not 0. Pointers go in as
@@ -92,8 +93,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    # The source and every header of csrc/ (a source may include any).
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [name + ".cu"] + headers:
+        with open(os.path.join(_CSRC, path), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 

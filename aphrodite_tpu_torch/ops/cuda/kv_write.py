@@ -13,11 +13,14 @@ Port of `aphrodite_tpu/ops/pallas/kv_write.py`:
   `_decode_write_kernel`; K4 by default, Pallas `_write_kernel`): one
   row per token into its slot; slots >= num_slots skip. One CUDA scatter
   serves both entry points (tokens that share a page write different
-  rows); each counts its launches under its own name. On int8 and fp8
-  pages it follows the JAX package's route for them (the XLA scatter
-  after `quantize_kv`): the rows are quantized, then the same scatter
-  copies their bytes. Two tokens must not share a slot: the scatter
-  runs them in parallel.
+  rows); each counts its launches under its own name. Blocks of tokens
+  planned by `slot_write_plan` from the token count, the row's bytes
+  and the SM count, each thread loading its K and V vectors of a round
+  before it stores one. It takes the model's bf16 or f32 rows and, on
+  int8 and fp8 pages, quantizes them itself (the rules of
+  `ops/kv_quant.quantize_kv`, which the plain version runs): one launch
+  a layer. Two tokens must not share a slot: the scatter runs them in
+  parallel.
 
 Each public function launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors, and for nothing else: a CUDA tensor the
@@ -35,8 +38,6 @@ import torch
 
 from aphrodite_tpu_torch.ops.cuda import build
 from aphrodite_tpu_torch.ops.kv_cache import write_to_kv_cache
-from aphrodite_tpu_torch.ops.kv_quant import (KV_8BIT_DTYPES, byte_view,
-                                              quantize_kv)
 
 Pages = Tuple[torch.Tensor, torch.Tensor]
 
@@ -46,22 +47,46 @@ WRITE_KV_PAGES_DECODE_LAUNCHES = build.launch_counter(
 WRITE_KV_PAGES_PREFILL_LAUNCHES = build.launch_counter(
     "write_kv_pages_prefill")
 
-# uint8: the byte view of int8 / fp8 pages and of their quantized rows.
+# K2's page dtypes (uint8: the byte view of int8 / fp8 pages); its
+# source rows are of the page dtype.
 _DTYPES = (torch.bfloat16, torch.float32, torch.uint8)
 # K2: threads a block at most, and the 16-byte vectors of K (and as many
 # of V) each loads in a round before its stores (`kPrefillVecs`).
 PREFILL_THREADS = 256
 PREFILL_VECS = 4
+# K3 / K4: the (source, page) dtype pairs the slot writer takes, as the
+# kernel's `kind` (csrc/kv_write.cu `Kind`): copies, and bf16 or f32
+# rows quantized to int8 or fp8 e5m2 pages.
+SLOT_KINDS = {
+    (torch.bfloat16, torch.bfloat16): 0,
+    (torch.float32, torch.float32): 0,
+    (torch.bfloat16, torch.int8): 1,
+    (torch.float32, torch.int8): 2,
+    (torch.bfloat16, torch.float8_e5m2): 3,
+    (torch.float32, torch.float8_e5m2): 4,
+}
+# K3 / K4: threads a block at most, the 16-byte source vectors of K (and
+# as many of V) each loads in a round before its stores (`kSlotVecs`),
+# and the token count from which a block reads its slots before its data
+# rather than beside it: where the two orders cross on a padded prompt
+# round of a third live rows, bf16 and int8 pages (NVIDIA H100 80GB
+# HBM3, `tools/time_kv_write.py --sweep`; PERF.md). On rounds of live
+# rows alone reading beside stays 0.2-0.5 us faster.
+SLOT_THREADS = 256
+SLOT_VECS = 4
+SLOT_FIRST_MIN_TOKENS = 512
 
 
-def _check_rows(knew, vnew, k_pages, v_pages, index, what: str) -> int:
-    """Validate the kernel's inputs; returns the row width in bytes."""
-    if k_pages.dtype not in _DTYPES or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"{what}: pages must be bf16, f32 or bytes and "
-                        f"alike, got {k_pages.dtype}/{v_pages.dtype}")
-    if knew.dtype != k_pages.dtype or vnew.dtype != k_pages.dtype:
-        raise TypeError(f"{what}: knew/vnew must match the page dtype "
-                        f"{k_pages.dtype}, got {knew.dtype}/{vnew.dtype}")
+def _check_rows(knew, vnew, k_pages, v_pages, index, what: str,
+                pairs) -> int:
+    """Validate the kernel's inputs against the (source, page) dtype
+    pairs it takes; returns a page row's width in bytes."""
+    if v_pages.dtype != k_pages.dtype or vnew.dtype != knew.dtype or \
+            (knew.dtype, k_pages.dtype) not in pairs:
+        raise TypeError(f"{what}: takes (rows, pages) dtypes "
+                        f"{sorted({(str(a), str(b)) for a, b in pairs})}, "
+                        f"got {knew.dtype}/{vnew.dtype} rows and "
+                        f"{k_pages.dtype}/{v_pages.dtype} pages")
     if k_pages.shape != v_pages.shape or k_pages.dim() != 3:
         raise ValueError(f"{what}: pages must be [P, S, H*d] and alike")
     hd = k_pages.shape[2]
@@ -73,6 +98,9 @@ def _check_rows(knew, vnew, k_pages, v_pages, index, what: str) -> int:
     for t in (knew, vnew, k_pages, v_pages, index):
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (knew, vnew, k_pages, v_pages)):
+        raise ValueError(f"{what}: rows and pages must start on a "
+                         "16-byte boundary")
     row_bytes = hd * k_pages.element_size()
     if row_bytes % 16:
         raise ValueError(f"{what}: a row of {row_bytes} bytes is not a "
@@ -93,21 +121,51 @@ def write_kv_pages_plain(knew: torch.Tensor, vnew: torch.Tensor,
                              kv_scale=kv_scale)
 
 
-def _write_kv_pages_kernel(knew, vnew, k_pages, v_pages, slots,
-                           counter) -> Pages:
+def slot_write_plan(num_tokens: int, row_bytes: int,
+                    sms: int) -> Tuple[int, int, bool]:
+    """(rows a block, threads a block, slots read first) of K3 / K4's
+    launch, grid ceil(num_tokens / rows), from shapes and the SM count
+    alone (no host sync, so a CUDA graph can capture the launch).
+    `row_bytes` is one source row's (a token's K in the model's dtype),
+    which sets a thread's loads whatever the page dtype. Rows: as many as
+    one round of `SLOT_THREADS` threads at `SLOT_VECS` source vectors
+    each covers (8 of 2048 bytes: Mistral-7B's 8 kv heads in bf16), but
+    no more than spread the tokens over every SM, nor than the threads
+    (a thread reads one slot); threads: the fewest whole warps, up to
+    `SLOT_THREADS`, that take the block's vectors in one round (rows
+    wider than a round take several) and its slots. The slots are read
+    before the data from `SLOT_FIRST_MIN_TOKENS` tokens on, else beside
+    it."""
+    row_vecs = row_bytes // 16
+    round_rows = max(1, SLOT_THREADS * SLOT_VECS // row_vecs)
+    rows = max(1, min(round_rows, -(-num_tokens // sms), SLOT_THREADS))
+    warps = max(-(-rows * row_vecs // (32 * SLOT_VECS)), -(-rows // 32))
+    return (rows, min(SLOT_THREADS, 32 * warps),
+            num_tokens >= SLOT_FIRST_MIN_TOKENS)
+
+
+def _write_kv_pages_kernel(knew, vnew, k_pages, v_pages, slots, counter,
+                           kv_scale: float) -> Pages:
     row_bytes = _check_rows(knew, vnew, k_pages, v_pages, slots,
-                            counter.name)
-    if slots.shape[0] != knew.shape[0]:
+                            counter.name, SLOT_KINDS)
+    num_tokens = knew.shape[0]
+    if slots.shape[0] != num_tokens:
         raise ValueError(f"{counter.name}: one slot per token")
+    if num_tokens == 0:
+        return k_pages, v_pages
     num_pages, page_size, _ = k_pages.shape
-    lib = build.library("kv_write")
-    fn = lib.kv_write_slots
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
+    rows, threads, first = slot_write_plan(
+        num_tokens, knew.shape[1] * knew.element_size(),
+        build.sm_count(knew.device))
+    fn = build.library("kv_write").kv_write_slots
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
+        [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(k_pages.data_ptr(), v_pages.data_ptr(), knew.data_ptr(),
-             vnew.data_ptr(), slots.data_ptr(), knew.shape[0],
-             num_pages * page_size, row_bytes, build.stream_of(k_pages))
+             vnew.data_ptr(), slots.data_ptr(), num_tokens,
+             num_pages * page_size, row_bytes,
+             SLOT_KINDS[(knew.dtype, k_pages.dtype)], rows, threads,
+             int(first), float(kv_scale), build.stream_of(k_pages))
     counter.add()
     build.check(err, counter.name)
     return k_pages, v_pages
@@ -131,14 +189,8 @@ def write_kv_pages(knew: torch.Tensor, vnew: torch.Tensor,
                                     kv_scale)
     counter = WRITE_KV_PAGES_DECODE_LAUNCHES if distinct_pages else \
         WRITE_KV_PAGES_LAUNCHES
-    if k_pages.dtype in KV_8BIT_DTYPES:
-        rows = [byte_view(quantize_kv(x, k_pages.dtype, kv_scale))
-                for x in (knew, vnew)]
-        _write_kv_pages_kernel(*rows, byte_view(k_pages),
-                               byte_view(v_pages), slots, counter)
-        return k_pages, v_pages
     return _write_kv_pages_kernel(knew, vnew, k_pages, v_pages, slots,
-                                  counter)
+                                  counter, kv_scale)
 
 
 # --------------------------------------------- K2: prefill page writer --
@@ -205,7 +257,8 @@ def prefill_write_plan(page_size: int, row_bytes: int) -> Tuple[int, int]:
 def _write_kv_pages_prefill_kernel(knew, vnew, k_pages, v_pages, page_ids,
                                    valids) -> Pages:
     row_bytes = _check_rows(knew, vnew, k_pages, v_pages, page_ids,
-                            "write_kv_pages_prefill")
+                            "write_kv_pages_prefill",
+                            {(d, d) for d in _DTYPES})
     num_pages, page_size, _ = k_pages.shape
     cells = page_ids.shape[0]
     if valids.shape != page_ids.shape or valids.dtype != torch.int32 or \

@@ -31,8 +31,21 @@ Phases, in order; any failure exits non-zero:
    - prefill page writer (K2): full pages, tail pages, skipped cells.
      Exact; a control, the plain version also writing row `valid` of
      each tail page, must differ.
-   - slot writer (K3/K4): shared pages, out-of-range slots, on bf16,
-     int8 and fp8 pages. Exact.
+   - slot writer (K3/K4, `kv_write_slots_kernel`, which quantizes 8-bit
+     pages itself): every timed arm below in the plan's slot-read order
+     and in both pinned; bf16 and f32 rows into bf16/f32, int8 and fp8
+     pages, shared pages and padding slots of every kind; int8 ties and
+     clamps at S 0.25, fp8 e5m2 midpoints, overflow to +-inf and NaN.
+     Exact; two controls must differ: the plain version at kv_scale x
+     1.01 on int8 pages, and with the live slots moved one row on bf16
+     pages. Timed at the window run's 2 rows (K3), a 64-row decode round
+     (K3), phase 4's unaligned round (K4, 24 live slots of 32),
+     `k2_problem`'s 2728 rows as slots and the same round's 8192 padded
+     rows on bf16, int8 and fp8 pages (K4: an 8-bit prompt round's
+     route), each with its plan, its device launches a call (1) and
+     `index_copy_` of the live rows (of the codes on 8-bit pages, where
+     no PyTorch call quantizes and scatters: a floor, not the library
+     call).
    Times each kernel (CUDA events, L2 flushed before every launch, the
    stream held by a device spin until the call is enqueued so host time
    stays out, median), its plain version, one PyTorch library call
@@ -69,7 +82,11 @@ Phases, in order; any failure exits non-zero:
 6. The same model and mix with kv_cache_dtype "int8", then "fp8", at
    multi_step 1 and 8: K1 launches on 8-bit pages and the prompts take
    the quantizing slot writer (K4, not K2). The KV pool's page count is
-   logged beside bf16's, and a batch-8 decode step profiled as in 4.
+   logged beside bf16's, and a batch-8 decode step profiled as in 4;
+   then a prompt round of 4 x 512 tokens under torch.profiler: its
+   device time and launches, and the slot writer's, which must be one
+   launch a layer (as many slot kernels as K4 calls, 32 a forward
+   pass).
 7. Sliding window: the published config of mistralai/Mistral-7B-v0.1
    (MistralForCausalLM, sliding_window 4096, max_position_embeddings
    32768; the script writes the dict), bf16, dummy weights from seed 0,
@@ -268,6 +285,7 @@ well under 600 s on an NVIDIA H100 80GB HBM3 (PERF.md).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -281,6 +299,7 @@ HQ, HKV, HEAD_DIM = 32, 8, 128
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8
+F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 ATOL = RTOL = 2e-2
 KV_SCALE = 0.05                    # int8 KV scale (the default)
 
@@ -680,62 +699,303 @@ def check_and_time_writers(torch, kw, timer):
         f" rows, {threads} threads); the control (row valid written) "
         "differs")
 
-    # K3/K4: shared pages and out-of-range slots, exact.
-    kp2, vp2 = randn(64, page_size, hd), randn(64, page_size, hd)
-    toks = 96
-    slots4 = torch.randperm(64 * page_size, generator=gen,
-                            device="cuda")[:toks].to(torch.int32)
-    slots4[::5] = 64 * page_size          # padding lanes
-    kn, vn = randn(toks, hd), randn(toks, hd)
-    from aphrodite_tpu_torch.ops.kv_quant import quantize_kv
-    for page_dtype in (torch.bfloat16, torch.int8, torch.float8_e5m2):
-        kq = quantize_kv(kp2, page_dtype, KV_SCALE)
-        vq = quantize_kv(vp2, page_dtype, KV_SCALE)
-        for distinct in (False, True):
-            a = kw.write_kv_pages(kn, vn, kq.clone(), vq.clone(), slots4,
-                                  distinct_pages=distinct,
-                                  kv_scale=KV_SCALE)
-            b = kw.write_kv_pages_plain(kn, vn, kq.clone(), vq.clone(),
-                                        slots4, KV_SCALE)
-            torch.cuda.synchronize()
-            if not (_pages_equal(torch, a[0], b[0]) and
-                    _pages_equal(torch, a[1], b[1])):
-                fail(f"K3/K4 write_kv_pages on {page_dtype} pages differs "
-                     "from its plain version")
-    log("K3/K4 write_kv_pages vs plain: exact (shared pages, "
-        "out-of-range slots; bf16, int8 and fp8 pages)")
-    # Timed at phase 4's unaligned round: two 12-token prompts padded to
-    # 16 rows each (24 live slots of 32).
-    t_slots = torch.full((32,), num_pages * page_size, dtype=torch.int32,
-                         device="cuda")
-    t_slots[:12] = torch.arange(12, dtype=torch.int32) + 5 * page_size
-    t_slots[16:28] = torch.arange(12, dtype=torch.int32) + 9 * page_size
-    tk, tv = randn(32, hd), randn(32, hd)
-    live4 = t_slots < num_pages * page_size
-    idx4 = t_slots[live4].long()
-    sk, sv = tk[live4], tv[live4]
-    k4 = dict(
-        ms=timer(lambda: kw.write_kv_pages(tk, tv, kp, vp, t_slots)),
-        plain_ms=timer(lambda: kw.write_kv_pages_plain(tk, tv, kp, vp,
-                                                       t_slots)),
-        library_ms=timer(lambda: (k_flat.index_copy_(0, idx4, sk),
-                                  v_flat.index_copy_(0, idx4, sv))))
-    k4["bound_ms"], k4["bound_by"] = bound(2 * 2 * 24 * hd * 2 + 32 * 4, 0)
-    # K3 (distinct pages) timed at the sliding-window run's decode step:
-    # 2 sequences, one row each into its own page.
-    d_slots = torch.tensor([7 * page_size + 3, 11 * page_size + 30],
-                           dtype=torch.int32, device="cuda")
-    dk, dv = randn(2, hd), randn(2, hd)
-    idx3 = d_slots.long()
-    k3 = dict(
-        ms=timer(lambda: kw.write_kv_pages(dk, dv, kp, vp, d_slots,
-                                           distinct_pages=True)),
-        plain_ms=timer(lambda: kw.write_kv_pages_plain(dk, dv, kp, vp,
-                                                       d_slots)),
-        library_ms=timer(lambda: (k_flat.index_copy_(0, idx3, dk),
-                                  v_flat.index_copy_(0, idx3, dv))))
-    k3["bound_ms"], k3["bound_by"] = bound(2 * 2 * 2 * hd * 2 + 2 * 4, 0)
+    k3, k4 = check_and_time_slot_writers(torch, kw, timer, gen)
     return k2, k3, k4
+
+
+def slot_arms(torch, gen, num_pages: int = 4096, page_size: int = 32):
+    """K3 / K4's timed arms at the main path's shapes, 8 kv heads of 128,
+    32-token pages in a pool of `num_pages`: (name, distinct_pages, knew,
+    vnew, page dtype, slots int32 on the card; padding slots num_slots):
+    K3 at the sliding-window run's decode step (2 rows, each into its own
+    page) and at a 64-row decode round; K4 at phase 4's unaligned round
+    (two 12-token prompts padded to 16 rows: 24 live slots of 32), at
+    `k2_problem`'s round with its 2728 live rows as slots, and at the
+    same round's 8192 padded rows (the route of an 8-bit prompt round)
+    on bf16, int8 and fp8 e5m2 pages. The rows are bf16 (the model's)."""
+    hd = HKV * HEAD_DIM
+    num_slots = num_pages * page_size
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    c = k2_problem(torch, gen, num_pages, page_size)
+    padded = torch.full((c["knew"].shape[0],), num_slots, dtype=torch.int32,
+                        device="cuda")
+    padded[c["live"]] = c["slots"].to(torch.int32)
+    unaligned = torch.full((32,), num_slots, dtype=torch.int32,
+                           device="cuda")
+    unaligned[:12] = torch.arange(12, dtype=torch.int32) + 5 * page_size
+    unaligned[16:28] = torch.arange(12, dtype=torch.int32) + 9 * page_size
+    wide = torch.randperm(num_pages, generator=gen, device="cuda")[:64] * \
+        page_size + torch.randint(page_size, (64,), generator=gen,
+                                  device="cuda")
+    arms = [
+        ("K3 bf16, 2 rows", True, randn(2, hd), randn(2, hd),
+         torch.bfloat16, torch.tensor([7 * page_size + 3,
+                                       11 * page_size + 30],
+                                      dtype=torch.int32, device="cuda")),
+        ("K3 bf16, B 64", True, randn(64, hd), randn(64, hd),
+         torch.bfloat16, wide.to(torch.int32)),
+        ("K4 bf16, 32 slots, 24 live", False, randn(32, hd), randn(32, hd),
+         torch.bfloat16, unaligned),
+        ("K4 bf16, 2728 rows", False, c["knew"][c["live"]].contiguous(),
+         c["vnew"][c["live"]].contiguous(), torch.bfloat16,
+         c["slots"].to(torch.int32))]
+    for kind, page_dtype in (("bf16", torch.bfloat16), ("int8", torch.int8),
+                             ("fp8", torch.float8_e5m2)):
+        arms.append((f"K4 {kind}, 8192 rows, 2728 live", False, c["knew"],
+                     c["vnew"], page_dtype, padded))
+    return arms
+
+
+def slot_pages(torch, gen, num_pages: int = 4096, page_size: int = 32):
+    """K and V pages of `slot_arms`' pool by page dtype: bf16 N(0, 1) and
+    its int8 (scale KV_SCALE) and fp8 e5m2 codes."""
+    from aphrodite_tpu_torch.ops.kv_quant import quantize_kv
+    shape = (num_pages, page_size, HKV * HEAD_DIM)
+    bf = [torch.randn(*shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2)]
+    return {dt: [quantize_kv(p, dt, KV_SCALE) for p in bf]
+            for dt in (torch.bfloat16, torch.int8, torch.float8_e5m2)}
+
+
+def device_launches(torch, fn) -> int:
+    """Device kernels (and copies or fills) one call of `fn` runs, by
+    torch.profiler after one call unprofiled (host and device activity:
+    with the device's alone a run was seen to miss the kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA)
+
+
+def time_slot_arm(torch, kw, timer, arm, pages, num_slots: int):
+    """One `slot_arms` arm: the wrapper (the parent's whole chain on 8-bit
+    pages in an older tree), its plain version, the library call
+    (`index_copy_` of the live rows, K and V; on 8-bit pages no PyTorch
+    call quantizes and scatters, so None, and `index_copy_` of the codes
+    as `floor_ms`), device launches a call, and the bound: the live rows
+    read (source dtype) and written (page dtype) once, K and V, and every
+    slot read, over 3.35 TB/s, against a division a value (8-bit pages)
+    over 67 TFLOP/s of f32."""
+    from aphrodite_tpu_torch.ops.kv_quant import quantize_kv
+    name, distinct, kn, vn, page_dtype, slots = arm
+    kp, vp = pages[page_dtype]
+    hd = kn.shape[1]
+    live = (slots >= 0) & (slots < num_slots)
+    idx = slots[live].long()
+    n_live = int(live.sum())
+    k_flat, v_flat = (p.view(torch.uint8).view(-1, hd)
+                      if p.element_size() == 1 else p.view(-1, hd)
+                      for p in (kp, vp))
+    rows = [x[live] for x in (kn, vn)]
+    if page_dtype != kn.dtype:
+        rows = [quantize_kv(r, page_dtype, KV_SCALE).view(torch.uint8)
+                for r in rows]
+
+    def call():
+        kw.write_kv_pages(kn, vn, kp, vp, slots, distinct_pages=distinct,
+                          kv_scale=KV_SCALE)
+    copy_ms = timer(lambda: (k_flat.index_copy_(0, idx, rows[0]),
+                             v_flat.index_copy_(0, idx, rows[1])))
+    quant = page_dtype != kn.dtype
+    t = dict(ms=timer(call),
+             plain_ms=timer(lambda: kw.write_kv_pages_plain(
+                 kn, vn, kp, vp, slots, KV_SCALE)),
+             library_ms=None if quant else copy_ms,
+             floor_ms=copy_ms if quant else None,
+             launches_per_call=device_launches(torch, call),
+             tokens=kn.shape[0], live=n_live)
+    nbytes = 2 * n_live * hd * (kn.element_size() + kp.element_size()) + \
+        4 * kn.shape[0]
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 2 * n_live * hd if quant
+                                         else 0, F32_FLOPS_PER_S)
+    return name, t
+
+
+@contextlib.contextmanager
+def slot_order(kw, first):
+    """Pin K3 / K4's slot-read order through its plan's threshold:
+    `first` True reads the slots first at every token count, False
+    beside the data, None keeps the plan's choice."""
+    saved = kw.SLOT_FIRST_MIN_TOKENS
+    if first is not None:
+        kw.SLOT_FIRST_MIN_TOKENS = 0 if first else 1 << 62
+    try:
+        yield
+    finally:
+        kw.SLOT_FIRST_MIN_TOKENS = saved
+
+
+def edge_rows(torch, src_dtype, hd: int, n: int = 48):
+    """n rows of the 8-bit write rules' edge values, each exact in bf16:
+    int8 ties at S = 0.25 (x / S = k + 1/2, k in [-128, 127]) and values
+    that clamp at +-127; every midpoint of two neighbouring finite fp8
+    e5m2 values and of the largest and +inf (61440), values past it,
+    +-inf and NaN; all of them negated too, repeated to fill a row and
+    shifted one place a row."""
+    e5m2 = torch.arange(0, 0x7C, dtype=torch.uint8).view(
+        torch.float8_e5m2).float()
+    vals = torch.cat([
+        torch.arange(-128, 128).float() * 0.25 + 0.125,
+        torch.tensor([31.875, 32.0, 40.0, 2.0 ** 30]), e5m2,
+        (e5m2[:-1] + e5m2[1:]) / 2,
+        torch.tensor([61440.0, 65536.0, 2.0 ** 20, float("inf"),
+                      float("nan")])])
+    vals = torch.cat([vals, -vals]).repeat(-(-hd // (2 * len(vals))) + 1)
+    rows = torch.stack([vals[r:r + hd] for r in range(n)])
+    return rows.to("cuda", src_dtype).contiguous()
+
+
+def check_slot_writers(torch, kw, arms, pages, num_slots: int):
+    """K3 / K4 exact against the plain version: every timed arm, in the
+    plan's slot-read order and in both pinned; every (rows, pages) dtype
+    pair the kernel takes on shared pages with padding slots of every
+    kind; the 8-bit rules' edges (int8 ties and clamps at S = 0.25, fp8
+    e5m2 midpoints, overflow and NaN) from bf16 and f32 rows. Then the
+    controls, which must miss: the plain version at kv_scale x 1.01 on
+    int8 pages, and with every live slot moved one row on bf16 pages."""
+    from aphrodite_tpu_torch.ops.kv_quant import quantize_kv
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def same(a, b):
+        return _pages_equal(torch, a[0], b[0]) and \
+            _pages_equal(torch, a[1], b[1])
+
+    def check(what, kn, vn, kp, vp, slots, scale=KV_SCALE, orders=(None,),
+              distinct=False):
+        want = kw.write_kv_pages_plain(kn, vn, kp.clone(), vp.clone(), slots,
+                                       scale)
+        for first in orders:
+            with slot_order(kw, first):
+                got = kw.write_kv_pages(kn, vn, kp.clone(), vp.clone(),
+                                        slots, distinct_pages=distinct,
+                                        kv_scale=scale)
+            torch.cuda.synchronize()
+            if not same(got, want):
+                fail(f"K3/K4 write_kv_pages differs from its plain version: "
+                     f"{what}, slots read first {first}")
+        return got
+
+    for name, distinct, kn, vn, page_dtype, slots in arms:
+        check(name, kn, vn, *pages[page_dtype], slots,
+              orders=(None, False, True), distinct=distinct)
+    hd = HKV * HEAD_DIM
+    base = torch.randn(64, 32, hd, generator=gen, device="cuda")
+    slots = torch.randperm(64 * 32, generator=gen, device="cuda")[:96].to(
+        torch.int32)
+    slots[::5] = 64 * 32                    # padding lanes
+    slots[1::7] = 64 * 32 + 9
+    slots[2::11] = -1
+    for (src_dtype, page_dtype) in kw.SLOT_KINDS:
+        kn, vn = (torch.randn(96, hd, generator=gen, device="cuda").mul_(
+            3).to(src_dtype) for _ in range(2))
+        kp = quantize_kv(base, page_dtype, KV_SCALE)
+        check(f"{src_dtype} rows into {page_dtype} pages", kn, vn, kp,
+              kp.flip(0).contiguous(), slots, orders=(None, False, True))
+        if page_dtype in (torch.int8, torch.float8_e5m2):
+            edges = edge_rows(torch, src_dtype, hd)
+            check(f"edge values, {src_dtype} rows into {page_dtype} pages",
+                  edges, edges.flip(0).contiguous(), kp, kp.clone(),
+                  slots[:48], scale=0.25, orders=(False, True))
+    log("K3/K4 write_kv_pages vs plain: exact (every timed arm in both "
+        "slot-read orders; bf16 and f32 rows into bf16/f32, int8 and fp8 "
+        "pages, shared pages, padding slots; int8 ties and clamps at S "
+        "0.25, fp8 midpoints, overflow and NaN)")
+    kn = torch.randn(96, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    kp = quantize_kv(base, torch.int8, KV_SCALE)
+    got = kw.write_kv_pages(kn, kn, kp.clone(), kp.clone(), slots,
+                            kv_scale=KV_SCALE)
+    bad = kw.write_kv_pages_plain(kn, kn, kp.clone(), kp.clone(), slots,
+                                  KV_SCALE * 1.01)
+    kb = base.to(torch.bfloat16)
+    got_b = kw.write_kv_pages(kn, kn, kb.clone(), kb.clone(), slots)
+    moved = torch.where((slots >= 0) & (slots < 64 * 32),
+                        (slots + 1) % (64 * 32), slots)
+    bad_b = kw.write_kv_pages_plain(kn, kn, kb.clone(), kb.clone(), moved)
+    torch.cuda.synchronize()
+    if same(got, bad) or same(got_b, bad_b):
+        fail("K3/K4: a control (kv_scale x 1.01 on int8 pages, slots "
+             "moved one row on bf16 pages) equals the kernel's pages")
+    log("K3/K4 controls (kv_scale x 1.01 on int8 pages, slots moved one "
+        "row on bf16 pages) differ")
+
+
+def check_fused_write_edges(torch, pa, kw):
+    """K1's (work list) and K5's fused write at the 8-bit rules' edges
+    (`edge_rows` as the new K and V, S = 0.25 on int8 pages): the pages
+    equal the slot writer's plain version writing the same rows at each
+    sequence's position ctx - 1 (a sequence at ctx 0 writes nothing)."""
+    from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
+    ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512]
+    page_size, pps, batch = 32, 64, len(ctxs)
+    ppc = pa.choose_pages_per_chunk(pps, page_size, batch)
+    work = pa.build_decode_work_list([-(-c // page_size) for c in ctxs], ppc)
+    rows = edge_rows(torch, torch.bfloat16, HKV * HEAD_DIM, batch)
+    vrows = rows.flip(0).contiguous()
+    for page_dtype in (torch.int8, torch.float8_e5m2):
+        scale = dequant_scale(page_dtype, 0.25)
+        for name, items in (("K1", work), ("K5", None)):
+            q, kp, vp, tb, ctx, _, _, _ = decode_problem(
+                torch, ctxs, page_size, pps, seed=5, page_dtype=page_dtype)
+            pos = (ctx.long() - 1).clamp(min=0)
+            slots = tb.long().gather(1, (pos // page_size)[:, None])[:, 0] \
+                * page_size + pos % page_size
+            slots = torch.where(ctx > 0, slots, kp.shape[0] * page_size).to(
+                torch.int32)
+            want = kw.write_kv_pages_plain(rows, vrows, kp.clone(),
+                                           vp.clone(), slots, scale)
+            pa.paged_decode_attention(
+                q, kp, vp, tb, ctx, None, rows.view(batch, HKV, HEAD_DIM),
+                vrows.view(batch, HKV, HEAD_DIM), work_items=items,
+                scale=HEAD_DIM ** -0.5, kv_scale=scale, pages_per_chunk=ppc)
+            torch.cuda.synchronize()
+            if not (_pages_equal(torch, kp, want[0]) and
+                    _pages_equal(torch, vp, want[1])):
+                fail(f"{name} fused write on {page_dtype} pages differs from "
+                     "the slot writer's plain version at the edge values")
+    log("K1/K5 fused write at the 8-bit edges (int8 ties and clamps at S "
+        "0.25, fp8 midpoints, overflow and NaN) equals the slot writer's "
+        "plain version on int8 and fp8 pages")
+
+
+def check_and_time_slot_writers(torch, kw, timer, gen):
+    """K3 / K4: `check_slot_writers` on `slot_arms`, then each arm timed
+    with `time_slot_arm`. Returns K3's arm at the window run's decode
+    step and K4's at the 8-bit prompt round on int8 pages, for the kernel
+    line."""
+    pages = slot_pages(torch, gen)
+    arms = slot_arms(torch, gen)
+    num_slots = 4096 * 32
+    check_slot_writers(torch, kw, arms, pages, num_slots)
+    sms = kw.build.sm_count("cuda")
+    timed = {}
+    for arm in arms:
+        name, t = time_slot_arm(torch, kw, timer, arm, pages, num_slots)
+        timed[name] = t
+        rows, threads, first = kw.slot_write_plan(
+            arm[2].shape[0], arm[2].shape[1] * arm[2].element_size(), sms)
+        lib = (f"index_copy_ {t['library_ms']:.4f} ms" if t["library_ms"]
+               is not None else f"no library call (index_copy_ of the "
+               f"codes {t['floor_ms']:.4f} ms)")
+        log(f"{name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, {lib}, bound {t['bound_ms']:.6f} ms ({t['bound_by']}); "
+            f"{t['launches_per_call']} device launch(es) a call; plan "
+            f"{rows} rows, {threads} threads, slots read "
+            f"{'first' if first else 'beside the data'}")
+        if t["launches_per_call"] != 1:
+            fail(f"{name}: write_kv_pages ran {t['launches_per_call']} "
+                 "device launches, not 1")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return ({k: timed["K3 bf16, 2 rows"][k] for k in keys},
+            {k: timed["K4 int8, 8192 rows, 2728 live"][k] for k in keys})
 
 
 # ------------------------------------------ full-width model check --
@@ -2262,14 +2522,13 @@ def quant_model_dir(awq: bool) -> str:
     return path
 
 
-def profile_prompt_round(torch, engine, tag: str = "",
-                         names=QUANT_KERNEL_NAMES):
+def _profiled_prompt_round(torch, engine, tag: str, counters=None):
     """One prompt round at the e2e geometry under torch.profiler: 4
     prompts of 512 tokens (2048 rows, the scheduler's token budget at
     max_model_len 2048), one output token each, after one such round
-    unprofiled to warm up. Logs the round's device kernel time and the
-    quantized kernels' (K9, the matmuls, the split reduce: the kernels
-    `names` match) and returns both in ms."""
+    unprofiled to warm up; `counters` are reset before the profiled
+    round. Returns its device rows [(us, launches, kernel name)] and its
+    engine steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
@@ -2289,19 +2548,56 @@ def profile_prompt_round(torch, engine, tag: str = "",
         torch.cuda.synchronize()
         return steps
     prompt_round(0)
+    for c in (counters or {}).values():
+        c.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         steps = prompt_round(1)
-    rows = [(ev.self_device_time_total, ev.key)
+    return [(ev.self_device_time_total, ev.count, ev.key)
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA]
-    dev_ms = sum(us for us, _ in rows) / 1e3
-    quant_ms = sum(us for us, k in rows if any(n in k for n in names)) \
+            if ev.device_type == DeviceType.CUDA], steps
+
+
+def profile_prompt_round(torch, engine, tag: str = "",
+                         names=QUANT_KERNEL_NAMES):
+    """`_profiled_prompt_round`'s round: logs its device kernel time and
+    the quantized kernels' (K9, the matmuls, the split reduce: the kernels
+    `names` match) and returns both in ms."""
+    rows, steps = _profiled_prompt_round(torch, engine, tag)
+    dev_ms = sum(us for us, _, _ in rows) / 1e3
+    quant_ms = sum(us for us, _, k in rows if any(n in k for n in names)) \
         / 1e3
     log(f"{tag}prompt round, 4 x 512 tokens at Mistral-7B width: {steps} "
         f"engine step(s), device kernels {dev_ms:.3f} ms, quantized "
         f"kernels {quant_ms:.3f} ms (share {quant_ms / dev_ms:.3f})")
     return dev_ms, quant_ms
+
+
+def profile_kv8_prompt_round(torch, engine, counters, layers: int,
+                             tag: str = ""):
+    """`_profiled_prompt_round`'s round on 8-bit KV pages, where every
+    layer writes its prompt rows through the slot writer (K4): the
+    round's device kernel time and launches, the slot kernel's
+    (`kv_write_slots_kernel`) and K4's counter. Fails unless the counter
+    took `layers` calls a forward pass and the device ran one slot
+    kernel a call. Returns them in a dict (times in ms)."""
+    rows, steps = _profiled_prompt_round(torch, engine, tag, counters)
+    calls = counters["write_kv_pages"].count
+    slot = [(us, n) for us, n, k in rows if "kv_write_slots" in k]
+    r = dict(steps=steps, device_ms=sum(us for us, _, _ in rows) / 1e3,
+             launches=sum(n for _, n, _ in rows),
+             slot_ms=sum(us for us, _ in slot) / 1e3,
+             slot_launches=sum(n for _, n in slot), calls=calls)
+    log(f"{tag}prompt round, 4 x 512 tokens at Mistral-7B width: {steps} "
+        f"engine step(s), device kernels {r['device_ms']:.3f} ms in "
+        f"{r['launches']} launches; the slot writer (K4) "
+        f"{r['slot_ms']:.4f} ms in {r['slot_launches']} launches, "
+        f"{calls} write_kv_pages calls ({calls / max(steps, 1):g} a step)")
+    if calls != layers * steps or r["slot_launches"] != calls:
+        fail(f"{tag}prompt round: {calls} write_kv_pages calls and "
+             f"{r['slot_launches']} slot kernels for {steps} steps of "
+             f"{layers} layers (want one launch a layer)")
+    return r
 
 
 def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
@@ -2450,6 +2746,7 @@ def main() -> int:
             else:
                 k5_err = max(k5_err, err)
     check_k5_control(torch, pa)
+    check_fused_write_edges(torch, pa, kw)
     k2, k3, k4 = check_and_time_writers(torch, kw, timer)
     # K1 and K5 timed at phase 4's decode batch: 8 sequences about 16
     # tokens into their 32 new tokens, 32-token pages, fused write; and
@@ -2563,6 +2860,8 @@ def main() -> int:
                 required=("paged_decode_attention", "write_kv_pages"),
                 absent=("write_kv_pages_prefill",)))
         profile_decode(torch, engine, f"{path} ")
+        profile_kv8_prompt_round(torch, engine, counters,
+                                 MISTRAL_7B["num_hidden_layers"], f"{path} ")
         del engine
         free_engine(torch, path)
 

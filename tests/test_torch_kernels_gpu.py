@@ -50,6 +50,9 @@ def dev():
 
 
 KV_SCALE = 0.05
+# A `tkw.SLOT_FIRST_MIN_TOKENS` no launch reaches: K3 / K4 read their
+# slots beside the data (0 pins the other order, slots first).
+SLOTS_BESIDE = 1 << 62
 
 
 def _decode_problem(dev, ctxs, page_size=32, pps=64, seed=0,
@@ -296,8 +299,12 @@ def test_k5_control_misses_the_tolerance(dev):
 
 
 @pytest.mark.parametrize("page_dtype", [torch.int8, torch.float8_e5m2])
-def test_slot_writers_on_8bit_pages_are_exact(dev, page_dtype):
-    """K3 / K4 on 8-bit pages: quantize, then the byte scatter."""
+def test_slot_writers_on_8bit_pages_are_exact(dev, page_dtype,
+                                              monkeypatch):
+    """K3 / K4 on 8-bit pages: one launch quantizes the bf16 rows in
+    registers and scatters the codes, bit-equal to the plain version's
+    quantize-then-scatter (rows of 3 N(0, 1), so int8 codes at scale
+    0.05 clamp), in both slot-read orders."""
     g = torch.Generator(device=dev).manual_seed(2)
     kp = tkq.quantize_kv(torch.randn(16, 16, 1024, generator=g, device=dev),
                          page_dtype, KV_SCALE)
@@ -306,15 +313,174 @@ def test_slot_writers_on_8bit_pages_are_exact(dev, page_dtype):
     slots = torch.randperm(256, generator=g, device=dev)[:64].to(
         torch.int32)
     slots[::7] = 256
-    for distinct in (False, True):
+    b = tkw.write_kv_pages_plain(knew, knew * 2, kp.clone(), kp.clone(),
+                                 slots, KV_SCALE)
+    plan = tkw.SLOT_FIRST_MIN_TOKENS
+    for distinct, min_tokens in ((False, plan), (True, plan),
+                                 (False, 0), (True, SLOTS_BESIDE)):
+        monkeypatch.setattr(tkw, "SLOT_FIRST_MIN_TOKENS", min_tokens)
+        counter = tkw.WRITE_KV_PAGES_DECODE_LAUNCHES if distinct else \
+            tkw.WRITE_KV_PAGES_LAUNCHES
+        before = counter.count
         a = tkw.write_kv_pages(knew, knew * 2, kp.clone(), kp.clone(),
                                slots, distinct_pages=distinct,
                                kv_scale=KV_SCALE)
-        b = tkw.write_kv_pages_plain(knew, knew * 2, kp.clone(),
-                                     kp.clone(), slots, KV_SCALE)
         torch.cuda.synchronize()
+        assert counter.count == before + 1
         assert torch.equal(_bytes(a[0]), _bytes(b[0]))
         assert torch.equal(_bytes(a[1]), _bytes(b[1]))
+
+
+def _edge_rows(dev, src_dtype, hd=1024):
+    """Rows of the 8-bit write rules' edge values, each exact in bf16:
+    int8 ties at S = 0.25 (x = k / 4 + 1 / 8, so x / S = k + 1/2, k in
+    [-128, 127]) and values that clamp at +-127 (x / S from 127.5 to
+    4e9); every midpoint of two neighbouring finite fp8 e5m2 values and
+    of the largest and +inf (61440), values past it, +-inf and NaN of
+    both signs; all of them negated too, the rows filled out by
+    repeating the list, then shifted one place a row."""
+    e5m2 = torch.arange(0, 0x7C, dtype=torch.uint8).view(
+        torch.float8_e5m2).float()
+    mids = (e5m2[:-1] + e5m2[1:]) / 2
+    vals = torch.cat([
+        torch.arange(-128, 128).float() * 0.25 + 0.125,
+        torch.tensor([31.875, 32.0, 40.0, 2.0 ** 30]), e5m2, mids,
+        torch.tensor([61440.0, 65536.0, 2.0 ** 20, float("inf"),
+                      float("nan")])])
+    vals = torch.cat([vals, -vals])
+    assert bool((vals.to(torch.bfloat16).float().nan_to_num(7) ==
+                 vals.nan_to_num(7)).all())
+    rows = vals.repeat(-(-hd // len(vals)) + 1)
+    rows = torch.stack([rows[r:r + hd] for r in range(48)])
+    return rows.to(dev, src_dtype).contiguous()
+
+
+@pytest.mark.parametrize("src_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("page_dtype", [torch.int8, torch.float8_e5m2])
+def test_slot_writer_rounds_as_the_plain_cast(dev, page_dtype, src_dtype):
+    """The kernel's 8-bit codes at their edges, bit-equal to the plain
+    version (`quantize_kv`, torch's division, rounding and cast): int8
+    round-half-even ties and clamps at S = 0.25, fp8 e5m2 rounding
+    midpoints (subnormal ones too), overflow to +-inf and NaN (torch's
+    NaN byte, 0x7F with the sign), from bf16 and f32 rows."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    knew = _edge_rows(dev, src_dtype)
+    vnew = knew.flip(0).contiguous()
+    kp = torch.zeros(8, 16, 1024, device=dev, dtype=torch.uint8).view(
+        page_dtype)
+    slots = torch.randperm(128, generator=g, device=dev)[:48].to(
+        torch.int32)
+    slots[::5] = 128
+    a = tkw.write_kv_pages(knew, vnew, kp.clone(), kp.clone(), slots,
+                           kv_scale=0.25)
+    b = tkw.write_kv_pages_plain(knew, vnew, kp.clone(), kp.clone(), slots,
+                                 0.25)
+    torch.cuda.synchronize()
+    assert torch.equal(_bytes(a[0]), _bytes(b[0]))
+    assert torch.equal(_bytes(a[1]), _bytes(b[1]))
+
+
+@pytest.mark.parametrize("ragged", [True, False], ids=["K1", "K5"])
+@pytest.mark.parametrize("page_dtype", [torch.int8, torch.float8_e5m2])
+def test_fused_write_rounds_as_the_slot_writer(dev, page_dtype, ragged):
+    """K1's (work list) and K5's fused write at the 8-bit rules' edges
+    (`_edge_rows` as the new K and V, S = 0.25 on int8 pages): page bytes
+    equal to the slot writer's plain version writing the same rows at
+    each sequence's position ctx - 1 (ctx 0 writes nothing)."""
+    ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512]
+    b = len(ctxs)
+    q, kp, vp, tb, ctx, _, _ = _decode_problem(dev, ctxs, seed=5,
+                                               page_dtype=page_dtype)
+    knew = _edge_rows(dev, torch.bfloat16)[:b].contiguous()
+    vnew = knew.flip(0).contiguous()
+    kv_scale = tkq.dequant_scale(page_dtype, 0.25)
+    ppc = tpa.choose_pages_per_chunk(tb.shape[1], 32, b)
+    work = tpa.build_decode_work_list(
+        [-(-c // 32) for c in ctxs], ppc) if ragged else None
+    pos = (ctx.long() - 1).clamp(min=0)
+    slots = tb.long().gather(1, (pos // 32)[:, None])[:, 0] * 32 + pos % 32
+    slots = torch.where(ctx > 0, slots, kp.shape[0] * 32).to(torch.int32)
+    want = tkw.write_kv_pages_plain(knew, vnew, kp.clone(), vp.clone(),
+                                    slots, kv_scale)
+    tpa.paged_decode_attention(q, kp, vp, tb, ctx, None,
+                               knew.view(b, 8, 128), vnew.view(b, 8, 128),
+                               work_items=work, scale=128 ** -0.5,
+                               kv_scale=kv_scale, pages_per_chunk=ppc)
+    torch.cuda.synchronize()
+    assert torch.equal(_bytes(kp), _bytes(want[0]))
+    assert torch.equal(_bytes(vp), _bytes(want[1]))
+
+
+def _slot_round(dev, g, num_tokens, hd=1024):
+    """Slots of a round of `num_tokens` tokens in a pool of 32-row pages:
+    from 1024 tokens on a padded prompt round (341 live rows of each
+    1024, the rest padding: 8192 rows, 2728 live, as chip_smoke's first
+    8-bit round), else a decode round with every fifth token padding."""
+    if num_tokens >= 1024:
+        live = torch.arange(num_tokens, device=dev) % 1024 < 341
+    else:
+        live = torch.arange(num_tokens, device=dev) % 5 != 4
+    num_slots = 32 * (-(-int(live.sum()) // 32) + 4)
+    slots = torch.full((num_tokens,), num_slots, dtype=torch.int32,
+                       device=dev)
+    slots[live] = torch.randperm(num_slots, generator=g, device=dev)[
+        :int(live.sum())].to(torch.int32)
+    return slots, num_slots // 32
+
+
+@pytest.mark.parametrize("num_tokens", [2, 64, 8192])
+@pytest.mark.parametrize("pair", list(tkw.SLOT_KINDS),
+                         ids=lambda p: f"{p[0]}-{p[1]}".replace("torch.", ""))
+def test_slot_writer_is_exact_on_every_pair(dev, pair, num_tokens,
+                                            monkeypatch):
+    """K3 / K4 on every (rows, pages) dtype pair it takes, at the window
+    run's 2 rows, a 64-row decode round and an 8-bit prompt round of 8192
+    rows, most of them padding: bit-equal to the plain version in the
+    plan's slot-read order and in both pinned, one launch a call."""
+    src_dtype, page_dtype = pair
+    g = torch.Generator(device=dev).manual_seed(num_tokens)
+    slots, num_pages = _slot_round(dev, g, num_tokens)
+    knew, vnew = (torch.randn(num_tokens, 1024, generator=g,
+                              device=dev).mul_(3).to(src_dtype)
+                  for _ in range(2))
+    kp = tkq.quantize_kv(torch.randn(num_pages, 32, 1024, generator=g,
+                                     device=dev), page_dtype, KV_SCALE)
+    b = tkw.write_kv_pages_plain(knew, vnew, kp.clone(), kp.clone(), slots,
+                                 KV_SCALE)
+    for min_tokens in (tkw.SLOT_FIRST_MIN_TOKENS, SLOTS_BESIDE, 0):
+        monkeypatch.setattr(tkw, "SLOT_FIRST_MIN_TOKENS", min_tokens)
+        before = tkw.WRITE_KV_PAGES_LAUNCHES.count
+        a = tkw.write_kv_pages(knew, vnew, kp.clone(), kp.clone(), slots,
+                               kv_scale=KV_SCALE)
+        torch.cuda.synchronize()
+        assert tkw.WRITE_KV_PAGES_LAUNCHES.count == before + 1
+        assert torch.equal(_bytes(a[0]), _bytes(b[0]))
+        assert torch.equal(_bytes(a[1]), _bytes(b[1]))
+
+
+def test_slot_writer_controls_miss(dev):
+    """Controls that must miss the kernel's pages: the plain version at
+    kv_scale x 1.01 on int8 pages, and with every live slot moved one
+    row on bf16 pages."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    slots, num_pages = _slot_round(dev, g, 64)
+    knew = torch.randn(64, 1024, generator=g, device=dev).to(torch.bfloat16)
+    for page_dtype in (torch.int8, torch.bfloat16):
+        kp = tkq.quantize_kv(torch.randn(num_pages, 32, 1024, generator=g,
+                                         device=dev), page_dtype, KV_SCALE)
+        a = tkw.write_kv_pages(knew, knew, kp.clone(), kp.clone(), slots,
+                               kv_scale=KV_SCALE)
+        if page_dtype == torch.int8:
+            bad = tkw.write_kv_pages_plain(knew, knew, kp.clone(),
+                                           kp.clone(), slots,
+                                           KV_SCALE * 1.01)
+        else:
+            moved = torch.where(slots < num_pages * 32,
+                                (slots + 1) % (num_pages * 32), slots)
+            bad = tkw.write_kv_pages_plain(knew, knew, kp.clone(),
+                                           kp.clone(), moved, KV_SCALE)
+        torch.cuda.synchronize()
+        assert not torch.equal(_bytes(a[0]), _bytes(bad[0]))
 
 
 def test_writers_match_plain(dev):

@@ -1,8 +1,12 @@
 """KV page writers (K2, K3, K4) in the PyTorch port against the JAX
 package: the port's plain versions against the Pallas kernels run in
 interpret mode, and the plain KV-cache ops (`ops/kv_cache.py`) against
-the JAX ones, on the same numpy inputs. Every comparison is exact: the
-writers copy values and do no arithmetic."""
+the JAX ones, on the same numpy inputs; and the CUDA launches of K2 and
+K3 / K4 emulated vector by vector against the plain versions. Every
+comparison is exact: the writers copy values, or quantize them by
+`quantize_kv`'s rules on both sides."""
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +15,7 @@ import torch
 from aphrodite_tpu.ops import kv_cache as jkv
 from aphrodite_tpu.ops.pallas import kv_write as jkw
 from aphrodite_tpu_torch.ops import kv_cache as tkv
+from aphrodite_tpu_torch.ops import kv_quant as tkq
 from aphrodite_tpu_torch.ops.cuda import kv_write as tkw
 
 
@@ -225,6 +230,295 @@ def test_prefill_write_plan_table(page_size, row_bytes, want):
     assert rows * row_bytes // 16 <= per_round or rows == 1
     assert rows * row_bytes // 16 > per_round - 32 * tkw.PREFILL_VECS or \
         rows == page_size or threads == tkw.PREFILL_THREADS
+
+
+# ---- K3 / K4's launch (csrc/kv_write.cu `kv_write_slots_kernel`), emulated ----
+
+def _slot_launch(slots, num_slots, row_bytes, src_vecs, sms,
+                 slot_first=None):
+    """The 16-byte vectors K3 / K4's launch reads and writes, block by
+    block and thread by thread as the kernel indexes them: grid
+    ceil(tokens / rows) of `threads` from `slot_write_plan` (its source
+    rows of `row_bytes * src_vecs` bytes: `src_vecs` source vectors a
+    16-byte page vector); block b takes tokens [b rows, (b + 1) rows);
+    thread t its items t + threads (U j + u), u < U = SLOT_VECS /
+    src_vecs, in round j, item i page vector i % row_vecs of the block's
+    row i / row_vecs. With the slots read first a block of padding
+    returns and padding rows are not read; else every row of the block
+    is read. Items of rows whose slot lies outside [0, num_slots) are not
+    written. Returns (source vectors read, their thread) and (page vector
+    written, its first source vector, its thread), threads numbered
+    across the grid."""
+    num_tokens = len(slots)
+    rows, threads, first = tkw.slot_write_plan(num_tokens,
+                                               row_bytes * src_vecs, sms)
+    if slot_first is not None:
+        first = slot_first
+    row_vecs = row_bytes // 16
+    u_vecs = tkw.SLOT_VECS // src_vecs
+    per_round = u_vecs * threads
+    reads, read_thr, writes, write_src, write_thr = [], [], [], [], []
+    for b in range(-(-num_tokens // rows)):
+        t0 = b * rows
+        block_slots = np.asarray(slots[t0:t0 + rows], dtype=np.int64)
+        live = (block_slots >= 0) & (block_slots < num_slots)
+        if first and not live.any():
+            continue
+        n = len(block_slots) * row_vecs
+        t = np.arange(threads)
+        i = (t[None, :, None] + per_round *
+             np.arange(-(-n // per_round))[:, None, None] +
+             threads * np.arange(u_vecs)[None, None, :])
+        thr = np.broadcast_to(t[None, :, None], i.shape) + b * threads
+        keep = i < n
+        i, thr = i[keep], thr[keep]
+        r, c = i // row_vecs, i % row_vecs
+        src0 = ((t0 + r) * row_vecs + c) * src_vecs
+        load = live[r] if first else np.ones(len(i), dtype=bool)
+        for w in range(src_vecs):
+            reads.append(src0[load] + w)
+            read_thr.append(thr[load])
+        writes.append(block_slots[r[live[r]]] * row_vecs + c[live[r]])
+        write_src.append(src0[live[r]])
+        write_thr.append(thr[live[r]])
+    cat = [np.concatenate(a) if a else np.zeros(0, np.int64)
+           for a in (reads, read_thr, writes, write_src, write_thr)]
+    return tuple(cat)
+
+
+def _slot_vector(num_tokens, seed):
+    """Slots of `num_tokens` tokens in a pool of 2 tokens + 16 slots: a
+    third of them padding (num_slots, past it, negative), in runs at the
+    end of each 1024-token sequence from 2728 tokens on (a padded prompt
+    round), else scattered; the rest distinct live slots."""
+    rng = np.random.default_rng(seed)
+    num_slots = 2 * num_tokens + 16
+    slots = rng.permutation(num_slots)[:num_tokens].astype(np.int64)
+    if num_tokens >= 2728:
+        dead = np.arange(num_tokens) % 1024 >= 341
+    else:
+        dead = rng.random(num_tokens) < 1 / 3
+    pads = np.array([num_slots, num_slots + 5, -1, 2 ** 30])
+    slots[dead] = pads[np.arange(dead.sum()) % len(pads)]
+    return slots, num_slots
+
+
+# (page row bytes, source vectors a page vector): a one-vector row, 8-bit
+# pages from bf16 and f32 rows, bf16 pages of one and of 8 kv heads, f32
+# pages, a row wider than a round.
+_SLOT_ROWS = [(16, 1), (128, 1), (1024, 2), (1024, 4), (2048, 1),
+              (4096, 1), (65536, 1)]
+
+
+_SLOT_LAUNCHES = [(n, b, v) for n in (1, 2, 31, 33, 64, 2728, 8192)
+                  for b, v in _SLOT_ROWS if b < 65536 or n <= 64]
+
+
+@pytest.mark.parametrize("slot_first", [False, True])
+@pytest.mark.parametrize("num_tokens,row_bytes,src_vecs", _SLOT_LAUNCHES)
+def test_slot_launch_writes_each_live_row_once(num_tokens, row_bytes,
+                                                src_vecs, slot_first):
+    """K3 / K4's plan and indexing, in both slot-read orders: every
+    16-byte page vector of every live token's row is written exactly
+    once, into its slot's row, from that token's source vectors; nothing
+    else is written; every read lies in the source rows, each vector
+    read once, and with the slots read first padding rows are not read.
+    (The 65536-byte row up to 64 tokens: its emulation grows with the
+    bytes.)"""
+    slots, num_slots = _slot_vector(num_tokens, num_tokens + row_bytes)
+    reads, read_thr, dst, src0, thr = _slot_launch(
+        slots, num_slots, row_bytes, src_vecs, 132, slot_first)
+    row_vecs = row_bytes // 16
+    live = np.flatnonzero((slots >= 0) & (slots < num_slots))
+    want_dst = (slots[live][:, None] * row_vecs +
+                np.arange(row_vecs)[None, :]).ravel()
+    want_src = ((live[:, None] * row_vecs + np.arange(row_vecs)[None, :])
+                * src_vecs).ravel()
+    order = np.argsort(dst, kind="stable")
+    assert len(np.unique(dst)) == len(dst)
+    np.testing.assert_array_equal(dst[order], np.sort(want_dst))
+    want = dict(zip(want_dst.tolist(), want_src.tolist()))
+    assert all(want[d] == s for d, s in zip(dst.tolist(), src0.tolist()))
+    assert len(np.unique(reads)) == len(reads)
+    assert reads.min(initial=0) >= 0
+    assert reads.max(initial=0) < num_tokens * row_vecs * src_vecs
+    read_rows = np.unique(reads // (row_vecs * src_vecs))
+    if slot_first:
+        np.testing.assert_array_equal(read_rows, live)
+    else:
+        np.testing.assert_array_equal(read_rows, np.arange(num_tokens))
+    # A thread's stores are distinct page vectors.
+    assert len({(t, d) for t, d in zip(thr.tolist(), dst.tolist())}) == \
+        len(dst)
+
+
+@pytest.mark.parametrize("page_dtype,src_dtype", [
+    (torch.float32, torch.float32),
+    (torch.int8, torch.float32),
+    (torch.int8, torch.bfloat16),
+    (torch.float8_e5m2, torch.bfloat16),
+])
+@pytest.mark.parametrize("slot_first", [False, True])
+def test_slot_launch_equals_the_plain_writer(page_dtype, src_dtype,
+                                             slot_first):
+    """The emulated launch applied to pages gives `write_kv_pages_plain`'s
+    pages exactly, at Mistral-7B's 8 kv heads of 128 with 32-row pages:
+    each page vector is its 16 source values quantized by
+    `quantize_kv` (copied as bit patterns on f32 pages); shared pages,
+    padding slots of every kind."""
+    rng = np.random.default_rng(21)
+    pages, page_size, hd, num_tokens = 12, 32, 1024, 160
+    num_slots = pages * page_size
+    slots = rng.permutation(num_slots)[:num_tokens].astype(np.int64)
+    slots[::6] = num_slots
+    slots[1::9] = -1
+    scale = 0.05
+    kp = tkq.quantize_kv(torch.from_numpy(rng.normal(
+        size=(pages, page_size, hd)).astype(np.float32)), page_dtype, scale)
+    vp = tkq.quantize_kv(torch.from_numpy(rng.normal(
+        size=(pages, page_size, hd)).astype(np.float32)), page_dtype, scale)
+    knew, vnew = (torch.from_numpy(rng.normal(size=(num_tokens, hd)).astype(
+        np.float32) * 4).to(src_dtype) for _ in range(2))
+    page_elt = kp.element_size()
+    src_vecs = knew.element_size() // page_elt
+    _, _, dst, src0, _ = _slot_launch(slots, num_slots, hd * page_elt,
+                                      src_vecs, 132, slot_first)
+    per_vec = 16 // page_elt                  # values a page vector
+    got = []
+    for new, old in ((knew, kp), (vnew, vp)):
+        vals = new.reshape(-1)
+        first = src0 * (16 // new.element_size())     # first source value
+        idx = torch.from_numpy(first[:, None] + np.arange(per_vec)[None, :])
+        codes = tkq.quantize_kv(vals[idx], page_dtype, scale)
+        out = old.clone().view(torch.uint8).reshape(-1, 16)
+        out[torch.from_numpy(dst)] = codes.view(torch.uint8).reshape(-1, 16)
+        got.append(out.reshape(-1))
+    wk, wv = tkw.write_kv_pages_plain(knew, vnew, kp.clone(), vp.clone(),
+                                      torch.from_numpy(slots).to(
+                                          torch.int32), scale)
+    assert torch.equal(got[0], wk.view(torch.uint8).reshape(-1))
+    assert torch.equal(got[1], wv.view(torch.uint8).reshape(-1))
+
+
+# K3 / K4's plan, (rows a block, threads a block, slots read first), by
+# token count and source row bytes, on 132 SMs.
+@pytest.mark.parametrize("num_tokens,row_bytes,want", [
+    (1, 2048, (1, 32, False)),       # Mistral-7B's 8 kv heads in bf16
+    (2, 2048, (1, 32, False)),       # the window run's decode step (K3)
+    (64, 2048, (1, 32, False)),      # a wide decode round: one row an SM
+    (511, 2048, (4, 128, False)),
+    (512, 2048, (4, 128, True)),     # SLOT_FIRST_MIN_TOKENS
+    (1024, 2048, (8, 256, True)),
+    (2728, 2048, (8, 256, True)),    # a prompt round's live rows
+    (8192, 2048, (8, 256, True)),    # the same round padded (8-bit pages)
+    (8192, 4096, (4, 256, True)),    # f32 rows
+    (1, 128, (1, 32, False)),        # one kv head of 64 in bf16
+    (8192, 128, (63, 128, True)),    # small rows: one block an SM
+    (4, 65536, (1, 256, False)),     # a row wider than a round: 4 rounds
+    (8192, 16, (63, 64, True)),      # 16-byte rows: a thread a slot
+    (100000, 16, (256, 256, True)),
+])
+def test_slot_write_plan_table(num_tokens, row_bytes, want):
+    rows, threads, first = tkw.slot_write_plan(num_tokens, row_bytes, 132)
+    assert (rows, threads, first) == want
+    assert threads % 32 == 0 and 32 <= threads <= tkw.SLOT_THREADS
+    assert rows <= threads                    # a thread reads one slot
+    assert first == (num_tokens >= tkw.SLOT_FIRST_MIN_TOKENS)
+    # One round covers the block's source vectors unless a row alone
+    # exceeds it; no more rows than spread the tokens over the SMs.
+    per_round = tkw.SLOT_VECS * threads
+    assert rows * row_bytes // 16 <= per_round or rows == 1
+    assert rows <= max(1, -(-num_tokens // 132))
+
+
+def test_slot_writer_takes_its_dtype_pairs_only():
+    """The slot writer's checks take bf16 and f32 rows into pages of
+    their own dtype or into int8 / fp8 e5m2 pages, and refuse every
+    other pair (K2 takes only rows of the page dtype)."""
+    def check(src, page, pairs=tkw.SLOT_KINDS):
+        kp = torch.zeros(2, 4, 64, dtype=page)
+        knew = torch.zeros(3, 64, dtype=src)
+        return tkw._check_rows(knew, knew, kp, kp.clone(),
+                               torch.zeros(3, dtype=torch.int32), "t",
+                               pairs)
+    for src in (torch.bfloat16, torch.float32):
+        assert check(src, src) == 64 * torch.tensor([], dtype=src
+                                                    ).element_size()
+        for page in (torch.int8, torch.float8_e5m2):
+            assert check(src, page) == 64
+    for src, page in ((torch.bfloat16, torch.float32),
+                      (torch.float32, torch.bfloat16),
+                      (torch.int8, torch.int8),
+                      (torch.float16, torch.int8),
+                      (torch.uint8, torch.uint8)):
+        with pytest.raises(TypeError):
+            check(src, page)
+    with pytest.raises(TypeError):
+        check(torch.bfloat16, torch.int8, {(d, d) for d in tkw._DTYPES})
+
+
+def _rn32(v):
+    """A rational to float32, rounded to nearest, ties to even."""
+    f = np.float32(float(v))
+    cands = (np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - v),
+                                     int(np.float32(c).view(np.int32)) & 1))
+
+
+def _fma32(a, b, c):
+    """float32 fma, a * b + c rounded once, on arrays of finite values."""
+    return np.array([_rn32(Fraction(float(x)) * Fraction(float(y)) +
+                           Fraction(float(z)))
+                     for x, y, z in np.broadcast(a, b, c)], np.float32)
+
+
+def _int8_code(x, s):
+    """The slot writer's int8 rule (csrc/kv_write.cu `quantize_vec`, with
+    csrc/kv_quant.cuh's `quotient`, `quotient_safe` and `int8_of`) in
+    float32 numpy, value by value: where x is 0 or |x| lies in [2^-60,
+    2^60), q = x r (r = RN(1 / s)) refined twice by q + (x - s q) r, each
+    step one fma; elsewhere the IEEE division (the kernel then divides
+    all 16 values of the vector, which gives each the same code); then
+    round half to even (cvt.rni: NaN to 0) and clamp to +-127."""
+    x = np.asarray(x, dtype=np.float32)
+    s = np.float32(s)
+    r = np.float32(1) / s
+    ex = (x.view(np.uint32) >> 23) & 0xFF
+    safe = ((ex >= 67) & (ex < 187)) | (x == 0)
+    with np.errstate(all="ignore"):
+        q = x / s
+        xs = x[safe]
+        qs = xs * r
+        for _ in range(2):
+            qs = _fma32(_fma32(-s, qs, xs), r, qs)
+        q[safe] = qs
+        code = np.clip(np.nan_to_num(np.rint(q), nan=0.0), -127, 127)
+    return code.astype(np.int8)
+
+
+@pytest.mark.parametrize("scale", [0.05, 0.25, 1 / 3, 0.0123, 7.0])
+def test_int8_code_rule_matches_quantize_kv(scale):
+    """The kernels' int8 rule (the quotient refined from the reciprocal by
+    two fma corrections, no division) equals `quantize_kv`'s IEEE
+    division, rounding and clamp on random values, on random bfloat16
+    bit patterns (whose x / S lie near half-integers often), on every
+    half-integer code boundary and the 16 float32 values on each side of
+    it, and on 0, +-inf, NaN and magnitudes outside the fma range."""
+    rng = np.random.default_rng(3)
+    s = np.float32(scale)
+    ties = (np.arange(-130, 131, dtype=np.float32) + np.float32(0.5)) * s
+    around = ties[:, None].view(np.int32) + np.arange(-16, 17)[None, :]
+    bf16 = (rng.integers(0, 2 ** 16, 3000).astype(np.uint32) << 16).view(
+        np.float32)
+    vals = np.concatenate([
+        rng.normal(size=1500).astype(np.float32) * s * 60,
+        bf16[np.isfinite(bf16)],
+        around.astype(np.int32).view(np.float32).ravel(),
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 2.0 ** 70, 1e-30],
+                 np.float32)])
+    want = tkq.quantize_kv(torch.from_numpy(vals), torch.int8, scale)
+    np.testing.assert_array_equal(_int8_code(vals, scale), want.numpy())
 
 
 def test_bf16_pages_round_trip_exactly():
