@@ -33,4 +33,8 @@ def __getattr__(name):
         from aphrodite_tpu_torch.engine.aphrodite_engine import (
             AphroditeEngine)
         return AphroditeEngine
+    if name == "AsyncAphrodite":
+        from aphrodite_tpu_torch.engine.async_aphrodite import (
+            AsyncAphrodite)
+        return AsyncAphrodite
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

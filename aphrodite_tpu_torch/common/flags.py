@@ -487,11 +487,10 @@ _register(Flag(
     "time) from the disagg executor hot path (profiling aid)."))
 
 _register(Flag(
-    "APHRODITE_SPEC", "bool", False,
+    "APHRODITE_SPEC", "bool", True,
     "Self-drafting speculative decoding (n-gram/prompt-lookup "
-    "drafter + multi-token verify on the decode path). Off by default "
-    "in the PyTorch port, which has no verify path yet: EngineArgs "
-    "refuses 1."))
+    "drafter + multi-token verify on the decode path); 0 pins the "
+    "classic single-token decode path for A/B runs."))
 
 _register(Flag(
     "APHRODITE_SPEC_K", "int", 4,

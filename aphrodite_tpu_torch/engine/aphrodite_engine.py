@@ -2,10 +2,11 @@
 
 The JAX package's engine (`aphrodite_tpu/engine/aphrodite_engine.py`)
 copied, with these changes: the single-GPU `GPUExecutor` replaces
-`TPUExecutor`; the JAX compilation cache and `jax.profiler` hooks are
-gone; the tokenizer and the Prometheus metrics are imported only when
-asked for (`skip_tokenizer_init=True` and `log_stats=False` need
-neither `transformers` nor `prometheus_client`). `step()` is
+`TPUExecutor`; the JAX compilation cache is gone and the profiler
+hooks run `torch.profiler`; the tokenizer and the Prometheus metrics
+are imported only when asked for (`skip_tokenizer_init=True` and
+`log_stats=False` need neither `transformers` nor
+`prometheus_client`). `step()` is
 schedule -> executor -> process outputs, with the same round kinds
 (combined prompt + decode rounds, pipelined prompt rounds, decode
 bursts), stop conditions, beam search and crash barrier.
@@ -13,6 +14,7 @@ bursts), stop conditions, beam search and crash barrier.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from typing import (Callable, Dict, Iterable, List, Optional, Tuple,
@@ -149,6 +151,54 @@ class AphroditeEngine:
         # health state code, reincarnation counters, drain remaining)
         # merged into every Stats snapshot for Prometheus.
         self.lifecycle_source: Optional[Callable[[], Dict]] = None
+
+    # -- profiling (torch.profiler: host ops, and the card's kernels
+    #    through CUPTI when the engine runs on CUDA) --
+
+    def start_profile(self, trace_dir: str) -> None:
+        """Begin a torch.profiler trace of engine steps; `stop_profile`
+        writes it to `trace_dir` as a Chrome trace. Host ops and CUDA
+        kernels are recorded whichever thread runs them (the async
+        engine steps on a worker thread)."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        if self._profiling:
+            raise RuntimeError("profiler already running")
+        activities = [ProfilerActivity.CPU]
+        if self.executor.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        # Host ops of every thread, the step's worker thread too.
+        config = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+        self._profiler = profile(activities=activities,
+                                 experimental_config=config)
+        self._profiler.start()
+        self._trace_dir = trace_dir
+        self._profiling = True
+        if self.executor.device.type == "cuda":
+            torch.cuda.synchronize(self.executor.device)
+        logger.info("Started torch.profiler trace -> %s", trace_dir)
+
+    def stop_profile(self) -> str:
+        """Stop the trace and write it; returns the trace file's path."""
+        import torch
+        if not self._profiling:
+            raise RuntimeError("profiler not running")
+        try:
+            if self.executor.device.type == "cuda":
+                torch.cuda.synchronize(self.executor.device)
+            self._profiler.stop()
+            path = os.path.join(
+                self._trace_dir,
+                f"trace-{os.getpid()}-{time.time_ns()}.json")
+            self._profiler.export_chrome_trace(path)
+        finally:
+            # A failed flush (disk full) must not wedge the API.
+            self._profiling = False
+            self._profiler = None
+        logger.info("Stopped torch.profiler trace -> %s", path)
+        return path
 
     # -- construction --
 
@@ -481,7 +531,10 @@ class AphroditeEngine:
             "restoring %d request(s), %d unrestorable.",
             len(restorable), len(lost))
         # Device half first: if THIS throws the engine is beyond
-        # saving and the caller falls through to DEAD.
+        # saving and the caller falls through to DEAD. The old
+        # executor's weights and pages go first: a second copy beside
+        # them would not fit a 7B model's card.
+        self.executor.release()
         self.executor = GPUExecutor(self.model_config, self.cache_config,
                                     self.parallel_config,
                                     self.scheduler_config,

@@ -169,9 +169,6 @@ class EngineArgs:
         from aphrodite_tpu_torch.common import flags
         if self.enable_lora:
             refuse("LoRA", "LoRA")
-        if flags.get_bool("APHRODITE_SPEC"):
-            refuse("speculative decoding (APHRODITE_SPEC=1)",
-                   "sliding window, prefix caching and spec verify")
         model_config = ModelConfig(
             self.model, self.tokenizer, self.tokenizer_mode,
             self.trust_remote_code, self.download_dir, self.load_format,

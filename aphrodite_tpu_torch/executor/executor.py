@@ -150,9 +150,35 @@ class GPUExecutor:
                 num_steps, blocks_to_copy, extra_cap)
         return outputs
 
-    def execute_spec_verify(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speculative verify is not in the PyTorch port yet")
+    def execute_spec_verify(
+        self,
+        seq_group_metadata_list: List[SequenceGroupMetadata],
+        drafts,
+        blocks_to_swap_in: Dict[int, int],
+        blocks_to_swap_out: Dict[int, int],
+        blocks_to_copy: Dict[int, List[int]],
+    ):
+        """Speculative verify round: k+1 rows per drafted sequence in
+        one dispatch (see ModelRunner.execute_spec_verify)."""
+        self._pre_step(blocks_to_swap_in, blocks_to_swap_out)
+        results, self.cache_engine.kv_caches = \
+            self.model_runner.execute_spec_verify(
+                seq_group_metadata_list, self.cache_engine.kv_caches,
+                drafts, blocks_to_copy)
+        return results
+
+    def release(self) -> None:
+        """Drop the weights and the KV pool and return the card's cached
+        blocks, so a rebuilt executor does not sit beside this one's
+        memory (engine reincarnation)."""
+        self.model_runner.params = None
+        self.model_runner.model = None
+        self.params = self.model = None
+        self.cache_engine.kv_caches = []
+        self.cache_engine._host_pool = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
 
     def dispatch_prompt_round(
         self,

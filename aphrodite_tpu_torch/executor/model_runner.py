@@ -16,14 +16,17 @@ eagerly, so a "step program" is a plain call:
 - the decode burst (multi_step > 1) is a Python loop of K model steps
   with device-side feedback of tokens, positions, slots and context
   lengths — no host synchronisation inside (CUDA graphs are a later
-  step).
+  step);
+- `execute_spec_verify`: the speculative verify round, k+1 rows per
+  drafted sequence in one dispatch (the slot writer K4, then K1 read
+  only), one host transfer, delta rejection on the host.
 
 KV pages are updated in place by the attention layer.
 """
 from __future__ import annotations
 
 import bisect
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +38,8 @@ from aphrodite_tpu_torch.common.sampling_params import SamplingType
 from aphrodite_tpu_torch.common.sequence import (SamplerOutput,
                                                  SequenceGroupMetadata)
 from aphrodite_tpu_torch.modeling.input_metadata import InputMetadata
+from aphrodite_tpu_torch.modeling.layers.rejection import (
+    delta_rejection_length)
 from aphrodite_tpu_torch.modeling.layers.sampler import (Sampler,
                                                          fused_sample)
 from aphrodite_tpu_torch.modeling.sampling_metadata import (
@@ -77,6 +82,17 @@ def _overwritten(slots: np.ndarray, num_slots: int) -> np.ndarray:
     keep = np.zeros((n,), dtype=bool)
     keep[n - 1 - last_rev] = True
     return ~keep & (slots < num_slots)
+
+
+class SpecVerifyResult(NamedTuple):
+    """One group's outcome of a speculative verify dispatch: `samples`
+    is the accepted run in emission order (1..k+1 SequenceOutputs: the
+    matched drafts plus the first-mismatch sample, or the bonus sample
+    on full acceptance); `accepted` counts matched drafts (the
+    drafter's signal, before any stop the engine applies)."""
+    samples: list
+    accepted: int
+    proposed: int
 
 
 class StepHandle:
@@ -317,6 +333,58 @@ class ModelRunner:
         for prefix in inputs.get("newly_computed", ()):
             prefix.computed = True
 
+    def _decode_inputs(self, tokens, positions, slot_list, ctx_list,
+                       tables_list, **meta) -> dict:
+        """Pad single-token rows into the decode step's inputs: the
+        batch bucket, out-of-range slots and page ids on pad rows (ctx
+        0), and the ragged (sequence, chunk) work list over each row's
+        reserved pages (kept for the kernel's signature; the CUDA kernel
+        walks pages itself). `meta` sets further InputMetadata fields."""
+        batch = len(tokens)
+        padded_batch = _bucket(batch, _DECODE_BATCH_BUCKETS)
+        max_pages = max(len(t) for t in tables_list)
+        max_pages = -(-max_pages // self.pages_bucket) * self.pages_bucket
+
+        ids = np.zeros((padded_batch, 1), dtype=np.int32)
+        pos_arr = np.zeros((padded_batch, 1), dtype=np.int32)
+        slots = np.full((padded_batch,), self.num_slots, dtype=np.int32)
+        ctx_lens = np.zeros((padded_batch,), dtype=np.int32)
+        num_pages_oob = self.num_slots // self.page_size
+        tables = np.full((padded_batch, max_pages), num_pages_oob,
+                         dtype=np.int32)
+        ids[:batch, 0] = tokens
+        pos_arr[:batch, 0] = positions
+        slots[:batch] = slot_list
+        ctx_lens[:batch] = ctx_list
+        for i, t in enumerate(tables_list):
+            tables[i, :len(t)] = t
+
+        ppc = choose_pages_per_chunk(max_pages, self.page_size,
+                                     padded_batch)
+        page_counts = [len(t) for t in tables_list] + \
+            [0] * (padded_batch - batch)
+        nw_real = sum(max(1, -(-c // ppc)) for c in page_counts)
+        chunks_cap = -(-max_pages // ppc)
+        mix = 1
+        while padded_batch * mix < nw_real:
+            mix *= 2
+        work = build_decode_work_list(
+            page_counts, ppc, pad_to=padded_batch * min(mix, chunks_cap))
+
+        metadata = InputMetadata(
+            slot_mapping=self._dev(slots),
+            block_tables=self._dev(tables),
+            context_lens=self._dev(ctx_lens),
+            kv_scale=self.kv_scale,
+            decode_work=work,
+            decode_ppc=ppc,
+            **meta,
+        )
+        return dict(input_ids=self._dev(ids),
+                    positions=self._dev(pos_arr), metadata=metadata,
+                    sel=self._dev(np.arange(padded_batch, dtype=np.int32)),
+                    num_rows=batch, is_prompt=False, use_prefix=False)
+
     def _prepare_decode(
         self, seq_group_metadata_list: List[SequenceGroupMetadata]
     ) -> Tuple[dict, SamplingMetadata]:
@@ -348,67 +416,21 @@ class ModelRunner:
                 ctx_list.append(ctx)
                 tables_list.append(table)
 
-        batch = len(tokens)
-        padded_batch = _bucket(batch, _DECODE_BATCH_BUCKETS)
-        max_pages = max(len(t) for t in tables_list)
-        max_pages = -(-max_pages // self.pages_bucket) * self.pages_bucket
-
-        ids = np.zeros((padded_batch, 1), dtype=np.int32)
-        pos_arr = np.zeros((padded_batch, 1), dtype=np.int32)
-        slots = np.full((padded_batch,), self.num_slots, dtype=np.int32)
-        ctx_lens = np.zeros((padded_batch,), dtype=np.int32)
-        num_pages_oob = self.num_slots // self.page_size
-        tables = np.full((padded_batch, max_pages), num_pages_oob,
-                         dtype=np.int32)
-        ids[:batch, 0] = tokens
-        pos_arr[:batch, 0] = positions
-        slots[:batch] = slot_list
-        ctx_lens[:batch] = ctx_list
-        for i, t in enumerate(tables_list):
-            tables[i, :len(t)] = t
-
         if __debug__ and flags.get_bool("APHRODITE_DEBUG_KV"):
             written = [s // self.page_size for s in slot_list]
             assert len(set(written)) == len(written), (
                 "decode slots share a page — sequence-exclusive-pages "
                 f"precondition violated: {sorted(written)}")
-
-        # Ragged work list over each row's reserved pages (kept for the
-        # kernel's signature; the CUDA kernel walks pages itself).
-        ppc = choose_pages_per_chunk(max_pages, self.page_size,
-                                     padded_batch)
-        page_counts = [len(t) for t in tables_list] + \
-            [0] * (padded_batch - batch)
-        nw_real = sum(max(1, -(-c // ppc)) for c in page_counts)
-        chunks_cap = -(-max_pages // ppc)
-        mix = 1
-        while padded_batch * mix < nw_real:
-            mix *= 2
-        work = build_decode_work_list(
-            page_counts, ppc, pad_to=padded_batch * min(mix, chunks_cap))
-
-        metadata = InputMetadata(
-            slot_mapping=self._dev(slots),
-            block_tables=self._dev(tables),
-            context_lens=self._dev(ctx_lens),
-            kv_scale=self.kv_scale,
-            decode_work=work,
-            decode_ppc=ppc,
-        )
         sampling = SamplingMetadata(
             seq_groups=seq_groups,
             seq_data=seq_data_map,
             prompt_lens=[],
-            selected_token_indices=np.arange(batch, dtype=np.int32),
+            selected_token_indices=np.arange(len(tokens), dtype=np.int32),
             categorized_sample_indices={},
             persistent_metadata=PersistentMetadata(persistent),
         )
-        inputs = dict(input_ids=self._dev(ids),
-                      positions=self._dev(pos_arr), metadata=metadata,
-                      sel=self._dev(np.arange(padded_batch,
-                                              dtype=np.int32)),
-                      num_rows=batch, is_prompt=False, use_prefix=False)
-        return inputs, sampling
+        return self._decode_inputs(tokens, positions, slot_list, ctx_list,
+                                   tables_list), sampling
 
     # ---- public API ----
 
@@ -556,10 +578,116 @@ class ModelRunner:
         return StepHandle(packed, sampling, plan,
                           num_steps=num_steps), kv_caches
 
-    def execute_spec_verify(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speculative verify is not in the PyTorch port yet (the "
-            "config refuses APHRODITE_SPEC=1)")
+    def _prepare_spec_verify(
+        self,
+        seq_group_metadata_list: List[SequenceGroupMetadata],
+        drafts: Dict[int, List[int]],
+    ) -> Tuple[dict, SamplingMetadata, List[int], List[int]]:
+        """Build the widened verify batch: a sequence with k_i drafts
+        gives k_i+1 single-seq rows. Row j carries the token at position
+        L-1+j (the last real token for j=0, draft j-1 after) and attends
+        with ctx = L+j, so it sees exactly what the classic path sees at
+        that output position: the slot writer puts every row's KV in
+        the pages before attention, and each row's context length hides
+        the later rows. Returns (inputs, sampling, each row's salt
+        offset j, rows per group)."""
+        seq_groups, seq_data_map, persistent = [], {}, {}
+        tokens, positions, slot_list, ctx_list, tables_list = \
+            [], [], [], [], []
+        row_offsets: List[int] = []
+        rows_per_group: List[int] = []
+        for md in seq_group_metadata_list:
+            (seq_id,) = md.seq_data.keys()
+            data = md.seq_data[seq_id]
+            seq_data_map[seq_id] = data
+            persistent[seq_id] = md.persistent_data.get(seq_id, {})
+            table = md.block_tables[seq_id]
+            draft = drafts.get(seq_id) or []
+            rows_per_group.append(len(draft) + 1)
+            base_pos = data.get_len() - 1
+            for j, tok in enumerate([data.get_last_token_id()] +
+                                    list(draft)):
+                # One single-seq group a row: the sampler plan derives
+                # each row's knobs and seed independently and finalize
+                # emits one output a row.
+                seq_groups.append(([seq_id], md.sampling_params))
+                tokens.append(int(tok))
+                pos = base_pos + j
+                positions.append(pos)
+                # Direct index (no wrap): the scheduler's speculative
+                # page reservation must cover position L-1+k; an
+                # IndexError here means that reservation broke.
+                page = table[pos // self.page_size]
+                slot_list.append(page * self.page_size +
+                                 pos % self.page_size)
+                ctx_list.append(pos + 1)
+                tables_list.append(table)
+                row_offsets.append(j)
+
+        # Verify rows share pages (consecutive positions of one
+        # sequence); what still holds is that no two rows share a slot.
+        if __debug__ and flags.get_bool("APHRODITE_DEBUG_KV"):
+            assert len(set(slot_list)) == len(slot_list), (
+                f"spec verify rows share a KV slot: {sorted(slot_list)}")
+        sampling = SamplingMetadata(
+            seq_groups=seq_groups,
+            seq_data=seq_data_map,
+            prompt_lens=[],
+            selected_token_indices=np.arange(len(tokens), dtype=np.int32),
+            categorized_sample_indices={},
+            persistent_metadata=PersistentMetadata(persistent),
+        )
+        inputs = self._decode_inputs(tokens, positions, slot_list,
+                                     ctx_list, tables_list,
+                                     spec_verify=True)
+        return inputs, sampling, row_offsets, rows_per_group
+
+    def execute_spec_verify(
+        self,
+        seq_group_metadata_list: List[SequenceGroupMetadata],
+        kv_caches: KVCaches,
+        drafts: Dict[int, List[int]],
+        blocks_to_copy: Optional[Dict[int, List[int]]] = None,
+    ) -> Tuple[List[SpecVerifyResult], KVCaches]:
+        """Score k+1 positions per sequence in one dispatch and run delta
+        rejection over each drafted suffix on the host.
+
+        Row j samples from the target with the salt of output position
+        output_len + j (never a per-step salt), so greedy and seeded
+        streams equal `APHRODITE_SPEC=0`'s. The engine enforces
+        eligibility (single-seq groups, best_of 1, no logprobs, no
+        penalties, no host logits processors)."""
+        kv_caches = self._apply_block_copies(kv_caches, blocks_to_copy)
+        inputs, sampling, row_offsets, rows_per_group = \
+            self._prepare_spec_verify(seq_group_metadata_list, drafts)
+        padded = inputs["input_ids"].shape[0]
+        plan = self.sampler.plan(sampling, pad_to=padded,
+                                 salt1_offsets=row_offsets)
+        assert plan.max_best_of == 1 and plan.num_topk == 0 and \
+            not plan.need_logprobs, "spec verify eligibility broken"
+        logits, kv_caches = self._logits(
+            self.params, inputs["input_ids"], inputs["positions"],
+            kv_caches, inputs["metadata"], inputs["sel"])
+        packed, _ = fused_sample(
+            logits, plan.tensors, plan.bases, plan.salt1, plan.salt2,
+            max_best_of=1, num_topk=0, need_logprobs=False,
+            draw_rows=plan.draw_rows)
+        per_row = self.sampler.finalize(sampling, plan,
+                                        packed.cpu().numpy(), None)
+
+        results: List[SpecVerifyResult] = []
+        row = 0
+        for md, n_rows in zip(seq_group_metadata_list, rows_per_group):
+            (seq_id,) = md.seq_data.keys()
+            draft = drafts.get(seq_id) or []
+            rows = per_row[row:row + n_rows]
+            sampled = [g.samples[0].output_token for g in rows]
+            m = delta_rejection_length(sampled, draft)
+            results.append(SpecVerifyResult(
+                samples=[rows[j].samples[0] for j in range(m + 1)],
+                accepted=m, proposed=len(draft)))
+            row += n_rows
+        return results, kv_caches
 
     def profile_run(self, num_seqs: int, seq_len: int) -> None:
         """Cache-less prefill of num_seqs x seq_len tokens plus the LM

@@ -31,8 +31,9 @@ class InputMetadata:
     # arrays (see ops/cuda/paged_attention.build_decode_work_list).
     decode_work: Optional[tuple] = None
     is_prompt: bool = False
-    # Speculative verify batch (rows share pages); the port refuses
-    # speculative decoding, so this stays False.
+    # Speculative verify batch: k+1 rows a sequence share its pages, so
+    # the attention layer writes them with the slot scatter and attends
+    # read-only.
     spec_verify: bool = False
     # Tensor-parallel degree; always 1 in the port.
     tp: int = 1

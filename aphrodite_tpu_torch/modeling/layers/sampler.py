@@ -21,7 +21,7 @@ differ only in their key parts (`Sampler._key_parts`).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -361,9 +361,13 @@ class Sampler:
                              logprobs)
 
     def plan(self, metadata: SamplingMetadata,
-             pad_to: Optional[int] = None) -> SamplePlan:
+             pad_to: Optional[int] = None,
+             salt1_offsets: Optional[Sequence[int]] = None) -> SamplePlan:
         """Build the host-side step plan: device knob tensors (padded to
-        the program's row bucket), PRNG key parts, and static shapes."""
+        the program's row bucket), PRNG key parts, and static shapes.
+        `salt1_offsets` (one per leading row) is added to the host copy
+        of salt1 before it moves to the device: a verify row j samples
+        with the salt of output position output_len + j."""
         tensors, row_to_seq = build_sampling_tensors(
             metadata, self.vocab_size, pad_to=pad_to, device=self.device)
         num_rows = len(row_to_seq)
@@ -373,9 +377,12 @@ class Sampler:
                      if seq_id in group_of and
                      group_of[seq_id][1].sampling_type == SamplingType.RANDOM]
         self._step += 1
-        bases, salt1, salt2 = (
-            torch.from_numpy(a).to(self.device) for a in self._key_parts(
-                metadata, rows, row_to_seq, group_of))
+        parts = self._key_parts(metadata, rows, row_to_seq, group_of)
+        if salt1_offsets is not None:
+            parts[1][:len(salt1_offsets)] += np.asarray(salt1_offsets,
+                                                        dtype=np.int32)
+        bases, salt1, salt2 = (torch.from_numpy(a).to(self.device)
+                               for a in parts)
         max_best_of = max([1] + [
             p.best_of for (_, p) in metadata.seq_groups
             if p.sampling_type == SamplingType.RANDOM

@@ -43,7 +43,10 @@ BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+# Reentrant: `library` builds under it, and `build_all` takes it too, so
+# a first kernel call on the async engine's worker thread and a build
+# from the main thread never run nvcc or load a library twice.
+_lock = threading.RLock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: nvcc's standard error per source from the last build (the `-Xptxas -v`
 #: register / shared-memory / spill report), empty for cached libraries.
@@ -55,17 +58,22 @@ class KernelLaunchError(RuntimeError):
 
 
 class LaunchCounter:
-    """Launches of one kernel: one per launch by its wrapper."""
+    """Launches of one kernel: one per launch by its wrapper. Locked, so
+    the count stays exact when the async engine launches from a worker
+    thread while another thread reads or resets it."""
 
     def __init__(self, name: str) -> None:
         self.name = name
         self.count = 0
+        self._lock = threading.Lock()
 
     def add(self) -> None:
-        self.count += 1
+        with self._lock:
+            self.count += 1
 
     def reset(self) -> None:
-        self.count = 0
+        with self._lock:
+            self.count = 0
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}
@@ -107,6 +115,11 @@ def build_all() -> Dict[str, str]:
     """Compile every source whose library is missing, all in parallel.
     Returns {name: library path}; raises with nvcc's output when a build
     fails."""
+    with _lock:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     targets = {name: _target(name) for name in sources()}
     procs = {}

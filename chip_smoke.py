@@ -62,6 +62,15 @@ Phases, in order; any failure exits non-zero:
    A full-width 2-layer model (weights large enough that attention
    matters) is checked end to end against itself run through the plain
    versions: prompt + 3 decode steps, logits within 2e-2 relative.
+3b. The speculative verify shape on bf16, int8 and fp8 pages: 8
+   sequences x 5 rows (k = 4 drafts; ctx L..L+4 at phase 4's decode
+   contexts), the rows of a sequence sharing its block table, padded to
+   48 rows as the model runner pads them. K4 (the slot scatter, shared
+   pages) writes the 40 slots: exact against its plain version; K1 reads
+   them read-only: within 2e-2 + 2e-2 |plain| of its plain version at
+   its split count; a control, every row of a sequence at ctx L+4, must
+   miss that tolerance. Each timed as in 3, beside its plain version,
+   the library call and the bound.
 4. End to end: the port's engine serves a Llama of Mistral-7B width and
    depth (hidden 4096, 32 layers, 32/8 heads, intermediate 14336, vocab
    32000), bf16, dummy weights from seed 0, 32-token pages, token ids in
@@ -79,6 +88,34 @@ Phases, in order; any failure exits non-zero:
    and 8: K5 must launch, with the merge (the mix's decode grids
    split), and K1 must not. Each request's tokens must equal the
    ragged run's: K5 is K1's launch on the same grid and split count.
+5b. Speculative decoding (APHRODITE_SPEC=1; every other phase pins 0)
+   on the same engine: 8 prompts repeating a 16-token n-gram (the mix's
+   lengths, 48 new tokens, greedy but two seeded), at multi_step 1,
+   first with APHRODITE_SPEC=0, then with it on twice: drafts from the
+   engine's n-gram drafter, then from an oracle that drafts the classic
+   run's own next tokens (dummy weights rarely emit what a prompt's
+   n-gram predicts, so only the oracle reaches full acceptance). Every
+   request's tokens must equal the classic run's in both, the oracle
+   run must make accepted verify dispatches, and each dispatch must
+   launch K4 then read-only K1 once a layer (counted inside the
+   dispatches). Logged: engine steps, wall time, drafts proposed and
+   accepted. Then 6 batch-8 decode rounds of 64-token n-gram prompts
+   on the classic path, with the n-gram drafter and with the oracle,
+   timed on the host clock and under torch.profiler: a verify round's
+   wall and device time against a classic round's, tokens a round and
+   tok/s. Then the async run's streams on this sync engine
+   (APHRODITE_SPEC=1): its reference.
+5c. AsyncAphrodite (a new engine of the same seed and geometry, the
+   sync one freed first) with APHRODITE_SPEC on: 16 concurrent
+   `generate` streams of token ids (`skip_tokenizer_init`; the HTTP
+   layer is not imported): mixed lengths, three seeded, one with a
+   256-token prefix, one a continuation of the reference's first 8
+   tokens (`emitted_token_ids`), one aborted after 4 tokens. Every
+   stream's tokens must equal the sync engine's (the continuation's
+   joint tokens), every page must be back in the free pool, and the
+   torch.profiler trace the run is wrapped in (`start_profile` /
+   `stop_profile`, written under build/) must name K1's and K4's
+   kernels. Logged: TTFT and per-token latency (one-sample figures).
 6. The same model and mix with kv_cache_dtype "int8", then "fp8", at
    multi_step 1 and 8: K1 launches on 8-bit pages and the prompts take
    the quantizing slot writer (K4, not K2). The KV pool's page count is
@@ -763,17 +800,22 @@ def slot_pages(torch, gen, num_pages: int = 4096, page_size: int = 32):
 def device_launches(torch, fn) -> int:
     """Device kernels (and copies or fills) one call of `fn` runs, by
     torch.profiler after one call unprofiled (host and device activity:
-    with the device's alone a run was seen to miss the kernel)."""
+    with the device's alone a run was seen to miss the kernel). The
+    most of three profiled calls: a trace was seen to hold no kernel
+    for a call that ran one; a trace drops events, never adds them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA)
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(ev.count for ev in prof.key_averages()
+                          if ev.device_type == DeviceType.CUDA))
+    return max(counts)
 
 
 def time_slot_arm(torch, kw, timer, arm, pages, num_slots: int):
@@ -2658,6 +2700,628 @@ def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
     return by_path
 
 
+# ------------------------------------- the serving path: spec verify --
+
+# The verify shape: phase 4's 8 decode sequences (the mix's lengths, 16
+# tokens into their answers), each with k = APHRODITE_SPEC_K drafts, so
+# k + 1 rows a sequence share its block table at ctx L .. L + k.
+VERIFY_CTX = [1016, 316, 80, 1016, 316, 80, 28, 28]
+SPEC_K = 4
+
+
+def verify_problem(torch, pa, page_dtype, seed: int = 0,
+                   page_size: int = 32):
+    """One verify round's K4 and K1 inputs as the model runner builds
+    them (`_prepare_spec_verify`): row j of sequence s at position
+    L_s - 1 + j with ctx L_s + j and its slot from the sequence's table,
+    the 40 rows padded to the decode bucket of 48 (out-of-range slots,
+    ctx 0, out-of-range page ids clamped as the attention layer clamps
+    them), K1's work list and chunking from the runner's rules."""
+    from aphrodite_tpu_torch.ops.kv_quant import quantize_kv
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows_per = SPEC_K + 1
+    batch = len(VERIFY_CTX) * rows_per
+    padded = 48
+    need = [-(-(L + SPEC_K) // page_size) for L in VERIFY_CTX]
+    pps = -(-max(need) // 4) * 4
+    num_pages = sum(need) + 8
+    num_slots = num_pages * page_size
+    hd = HKV * HEAD_DIM
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    perm = torch.randperm(num_pages, generator=torch.Generator().manual_seed(
+        seed)).tolist()
+    tables, slots, ctx, counts = [], [], [], []
+    for s, L in enumerate(VERIFY_CTX):
+        table = perm[sum(need[:s]):sum(need[:s + 1])]
+        for j in range(rows_per):
+            pos = L - 1 + j
+            tables.append(table)
+            slots.append(table[pos // page_size] * page_size +
+                         pos % page_size)
+            ctx.append(pos + 1)
+            counts.append(len(table))
+    tb = torch.full((padded, pps), num_pages, dtype=torch.int32)
+    for i, t in enumerate(tables):
+        tb[i, :len(t)] = torch.tensor(t, dtype=torch.int32)
+    slot_t = torch.full((padded,), num_slots, dtype=torch.int32)
+    slot_t[:batch] = torch.tensor(slots, dtype=torch.int32)
+    ctx_t = torch.zeros((padded,), dtype=torch.int32)
+    ctx_t[:batch] = torch.tensor(ctx, dtype=torch.int32)
+    bad_ctx = ctx_t.clone()
+    bad_ctx[:batch] = torch.tensor([L + SPEC_K for L in VERIFY_CTX
+                                    for _ in range(rows_per)],
+                                   dtype=torch.int32)
+    ppc = pa.choose_pages_per_chunk(pps, page_size, padded)
+    counts += [0] * (padded - batch)
+    nw_real = sum(max(1, -(-c // ppc)) for c in counts)
+    mix = 1
+    while padded * mix < nw_real:
+        mix *= 2
+    work = pa.build_decode_work_list(
+        counts, ppc, pad_to=padded * min(mix, -(-pps // ppc)))
+    kp = quantize_kv(randn(num_pages, page_size, hd), page_dtype, KV_SCALE)
+    vp = quantize_kv(randn(num_pages, page_size, hd), page_dtype, KV_SCALE)
+    return dict(q=randn(padded, HQ, HEAD_DIM), knew=randn(padded, hd),
+                vnew=randn(padded, hd), kp=kp, vp=vp,
+                tables=tb.cuda().clamp(max=num_pages - 1),
+                slots=slot_t.cuda(), ctx=ctx_t.cuda(),
+                bad_ctx=bad_ctx.cuda(), ppc=ppc, work=work, pps=pps,
+                rows=batch, padded=padded, num_slots=num_slots)
+
+
+def check_verify_shape(torch, pa, kw, timer):
+    """K4 then read-only K1 at the verify shape on bf16, int8 and fp8
+    pages: K4's pages exactly the plain version's; K1 within 2e-2 +
+    2e-2 |plain| of the plain version at its split count, on the pages
+    K4 wrote; a control, every row of a sequence at ctx L + k (the rows
+    seeing the drafts after them), must miss that tolerance. Each timed
+    (CUDA events, L2 flushed) beside its plain version, the library
+    call (`index_copy_` on bf16 pages; SDPA over the gathered,
+    dequantized KV) and the bound. Returns {page kind: {"K4": ..., "K1":
+    ...}}."""
+    import torch.nn.functional as F
+    from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
+    out = {}
+    for page_dtype in (torch.bfloat16, torch.int8, torch.float8_e5m2):
+        kind = str(page_dtype).replace("torch.", "")
+        p = verify_problem(torch, pa, page_dtype)
+        kv_scale = dequant_scale(page_dtype, KV_SCALE)
+        kp2, vp2 = p["kp"].clone(), p["vp"].clone()
+        k4 = kw.WRITE_KV_PAGES_LAUNCHES.count
+        kw.write_kv_pages(p["knew"], p["vnew"], p["kp"], p["vp"],
+                          p["slots"], distinct_pages=False,
+                          kv_scale=KV_SCALE)
+        kw.write_kv_pages_plain(p["knew"], p["vnew"], kp2, vp2, p["slots"],
+                                KV_SCALE)
+        torch.cuda.synchronize()
+        if kw.WRITE_KV_PAGES_LAUNCHES.count != k4 + 1:
+            fail(f"verify shape {kind}: K4 did not count one launch")
+        if not (_pages_equal(torch, p["kp"], kp2) and
+                _pages_equal(torch, p["vp"], vp2)):
+            fail(f"verify shape {kind}: K4's pages differ from plain")
+        n_split = pa.choose_decode_splits(p["padded"], HKV, p["pps"],
+                                          p["ppc"], pa.sm_count("cuda"))
+        akw = dict(scale=HEAD_DIM ** -0.5, kv_scale=kv_scale,
+                   pages_per_chunk=p["ppc"])
+        args = (p["q"], p["kp"], p["vp"], p["tables"])
+        k1 = pa.PAGED_DECODE_ATTENTION_LAUNCHES.count
+
+        def attend(ctx):
+            return pa.paged_decode_attention(*args, ctx, None, None, None,
+                                             work_items=p["work"], **akw)
+        got = attend(p["ctx"])
+        want = pa.paged_decode_attention_plain(
+            *args, p["ctx"], None, None, None, num_splits=n_split, **akw)
+        bad = attend(p["bad_ctx"])
+        torch.cuda.synchronize()
+        if pa.PAGED_DECODE_ATTENTION_LAUNCHES.count != k1 + 2:
+            fail(f"verify shape {kind}: K1 did not count its launches")
+        err = (got.float() - want.float()).abs()
+        lim = ATOL + RTOL * want.float().abs()
+        if not torch.isfinite(got.float()).all() or \
+                bool((err > lim).any()):
+            fail(f"verify shape {kind}: K1 max err {err.max().item()}")
+        c_err = (bad.float() - want.float()).abs()
+        if not bool((c_err > lim).any()):
+            fail(f"verify shape {kind}: the control (ctx L + k on every "
+                 "row) is within tolerance of the plain version")
+        arm = ("verify", False, p["knew"], p["vnew"], page_dtype,
+               p["slots"])
+        _, t4 = time_slot_arm(torch, kw, timer, arm,
+                              {page_dtype: (p["kp"], p["vp"])},
+                              p["num_slots"])
+        t4["max_abs_err"] = 0.0
+        # K1: kernel, plain at its split count, SDPA over each row's KV
+        # gathered to the longest context and dequantized to bf16.
+        rows, pps = p["padded"], p["pps"]
+        ms = timer(lambda: attend(p["ctx"]))
+        plain_ms = timer(lambda: pa.paged_decode_attention_plain(
+            *args, p["ctx"], None, None, None, num_splits=n_split, **akw))
+        lmax = max(VERIFY_CTX) + SPEC_K
+        idx = p["tables"].long()
+        kg = (p["kp"][idx].to(torch.bfloat16) * kv_scale).view(
+            rows, pps * 32, HKV, HEAD_DIM)[:, :lmax]
+        vg = (p["vp"][idx].to(torch.bfloat16) * kv_scale).view(
+            rows, pps * 32, HKV, HEAD_DIM)[:, :lmax]
+        group = HQ // HKV
+        kx = kg.permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous()
+        vx = vg.permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous()
+        mask = (torch.arange(lmax, device="cuda")[None] <
+                p["ctx"].long()[:, None]).view(rows, 1, 1, lmax)
+        q4 = p["q"].view(rows, HQ, 1, HEAD_DIM)
+        library_ms = timer(lambda: F.scaled_dot_product_attention(
+            q4, kx, vx, attn_mask=mask, scale=HEAD_DIM ** -0.5))
+        del kg, vg, kx, vx
+        # A sequence's k + 1 rows share one table: its L + k tokens of
+        # KV need to come from memory once. The operations count every
+        # row's context.
+        total_ctx = int(p["ctx"].sum())
+        kv_tokens = sum(L + SPEC_K for L in VERIFY_CTX)
+        elt = p["kp"].element_size()
+        nbytes = (kv_tokens * HKV * HEAD_DIM * 2 * elt
+                  + 2 * rows * HQ * HEAD_DIM * 2 + rows * pps * 4 + rows * 4)
+        b_ms, b_by = bound(nbytes, 4 * HQ * HEAD_DIM * total_ctx)
+        t1 = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=b_ms, bound_by=b_by, n_split=n_split,
+                  max_abs_err=err.max().item(),
+                  control_err=c_err.max().item())
+        out[kind] = {"K4": t4, "K1": t1}
+        log(f"verify shape ({len(VERIFY_CTX)} sequences x {SPEC_K + 1} "
+            f"rows, padded to {rows}; ctx L..L+{SPEC_K}) on {kind} pages: "
+            f"K4 exact, {t4['ms']:.4f} ms (plain {t4['plain_ms']:.4f}, "
+            f"library {t4['library_ms']}, bound {t4['bound_ms']:.6f} "
+            f"({t4['bound_by']}), {t4['launches_per_call']} device "
+            f"launch(es) a call); K1 read-only max err "
+            f"{t1['max_abs_err']:.4g} (tolerance {ATOL} + {RTOL}|plain|), "
+            f"{ms:.4f} ms (plain {plain_ms:.4f}, SDPA {library_ms:.4f}, "
+            f"bound {b_ms:.6f} ({b_by}), {n_split} split(s)); the control "
+            f"(ctx L+{SPEC_K} on every row) missed by max err "
+            f"{t1['control_err']:.4f}")
+    return out
+
+
+def spec_prompt(n: int, salt: int):
+    """A prompt of `n` tokens repeating a 16-token n-gram, so the
+    drafter finds the prompt's tail earlier in it (tests/engine/
+    test_spec_decode.py's PROMPT at the e2e model's vocabulary)."""
+    unit = [(i * 131 + salt * 977) % 31000 + 100 for i in range(16)]
+    return (unit * (n // 16 + 1))[:n]
+
+
+SPEC_MIX = [(1000, None), (300, None), (64, None), (1000, None),
+            (300, None), (64, None), (12, 7), (40, 4242)]
+
+
+def oracle_drafter(references):
+    """A drafter that proposes the next k tokens the classic run emitted
+    after the same history (`references`: full token lists, prompt and
+    output): a perfect prompt-lookup match, to measure verify rounds at
+    full acceptance where dummy weights give the n-gram drafter little
+    to match."""
+    by_head = {tuple(full[:32]): full for full in references}
+
+    def propose(seq_id, token_ids, k):
+        full = by_head.get(tuple(token_ids[:32]))
+        n = len(token_ids)
+        if full is None or list(full[:n]) != list(token_ids):
+            return []
+        return list(full[n:n + k])
+    return propose
+
+
+def time_drafter(histories, reps: int = 30):
+    """Host ms of one decode round's drafting, as `_spec_round` does it:
+    `NgramDrafter.propose` (k = APHRODITE_SPEC_K, fresh acceptance
+    state, so full width) once per sequence over `histories`. Returns
+    the median and the least of `reps` rounds."""
+    from aphrodite_tpu_torch.common import flags
+    from aphrodite_tpu_torch.processing.drafter import NgramDrafter
+    drafter = NgramDrafter()
+    k = flags.get_int("APHRODITE_SPEC_K")
+    rounds = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for seq_id, history in enumerate(histories):
+            drafter.propose(seq_id, history, k)
+        rounds.append((time.perf_counter() - t0) * 1e3)
+    rounds.sort()
+    return rounds[len(rounds) // 2], rounds[0]
+
+
+def log_drafter_cost(mix_histories, card: str):
+    """The drafter's host cost a round at batch 8 and 64: on the spec
+    mix's own final histories (prompt and 48 tokens; batch 64 repeats
+    them 8 times), and on random tokens of the same lengths, where no
+    n-gram recurs and every length is scanned to the end."""
+    import random
+    rng = random.Random(0)
+    noise = [[rng.randrange(100, 31100) for _ in h] for h in mix_histories]
+    parts = []
+    for label, hist in (("the mix's histories", mix_histories),
+                        ("random tokens", noise)):
+        for batch in (8, 64):
+            med, least = time_drafter(hist * (batch // len(hist)))
+            parts.append(f"{label} at batch {batch}: {med:.3f} ms a round "
+                         f"(least {least:.3f})")
+    log(f"n-gram drafter's host time a decode round (history lengths "
+        f"{sorted(len(h) for h in mix_histories)}, 30 rounds each, "
+        f"median) on {card}'s host: " + "; ".join(parts))
+
+
+def run_spec_mix(torch, engine, counters, card: str, spec: bool,
+                 propose=None, tag: str = ""):
+    """The mix with n-gram prompts at multi_step 1, 48 new tokens each,
+    greedy but for the last two (seeded, temperature 1): APHRODITE_SPEC
+    as `spec` says, drafts from `propose` in place of the engine's
+    drafter when given. Returns (tokens by request, launches, stats):
+    verify dispatches and, inside them, K1's and K4's launches; drafts
+    proposed and accepted; engine steps; wall time; the full token
+    lists (prompt and output)."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    os.environ["APHRODITE_SPEC"] = "1" if spec else "0"
+    engine.scheduler_config.multi_step = 1
+    tag = tag or ("spec" if spec else "classic")
+    if propose is not None:
+        engine.drafter.propose = propose
+    ex = engine.executor
+    real = ex.execute_spec_verify
+    stats = dict(dispatches=0, k1=0, k4=0, proposed=0, accepted=0,
+                 rows=0)
+
+    def verify(mds, drafts, *a, **kwargs):
+        k1 = counters["paged_decode_attention"].count
+        k4 = counters["write_kv_pages"].count
+        results = real(mds, drafts, *a, **kwargs)
+        stats["dispatches"] += 1
+        stats["k1"] += counters["paged_decode_attention"].count - k1
+        stats["k4"] += counters["write_kv_pages"].count - k4
+        stats["rows"] += sum(len(d) + 1 for d in drafts.values())
+        for r in results:
+            stats["proposed"] += r.proposed
+            stats["accepted"] += r.accepted
+        return results
+    ex.execute_spec_verify = verify
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (n, seed) in enumerate(SPEC_MIX):
+        sp = SamplingParams(temperature=0.0 if seed is None else 1.0,
+                            seed=seed, max_tokens=48, ignore_eos=True)
+        engine.add_request(f"{tag}-{i}", None, sp,
+                           prompt_token_ids=spec_prompt(n, i))
+    outputs, steps = {}, 0
+    try:
+        while engine.has_unfinished_requests():
+            for out in engine.step():
+                if out.finished:
+                    outputs[out.request_id[len(tag) + 1:]] = out
+            steps += 1
+    finally:
+        del ex.execute_spec_verify
+        if propose is not None:
+            del engine.drafter.propose
+    torch.cuda.synchronize()
+    stats["wall_s"] = time.perf_counter() - t0
+    stats["steps"] = steps
+    os.environ["APHRODITE_SPEC"] = "0"
+    launches = {name: c.count for name, c in counters.items()}
+    tokens = {}
+    for rid, out in outputs.items():
+        toks = list(out.outputs[0].token_ids)
+        if len(toks) != 48 or not all(0 <= t < 32000 for t in toks):
+            fail(f"{tag} mix {rid}: bad tokens {toks}")
+        tokens[rid] = toks
+    stats["full"] = [list(out.prompt_token_ids) +
+                     list(out.outputs[0].token_ids)
+                     for out in outputs.values()]
+    if len(tokens) != len(SPEC_MIX):
+        fail(f"{tag} mix: {len(tokens)} of {len(SPEC_MIX)} finished")
+    log(f"e2e {tag} mix (n-gram prompts, 8 requests x 48 tokens, "
+        f"multi_step 1): {steps} engine steps, {stats['wall_s']:.3f} s, "
+        f"{8 * 48 / stats['wall_s']:.1f} generated tok/s on {card}; "
+        f"verify dispatches {stats['dispatches']} ({stats['rows']} rows), "
+        f"K1 / K4 launches inside them {stats['k1']} / {stats['k4']}, "
+        f"drafts proposed {stats['proposed']}, accepted "
+        f"{stats['accepted']}; launches {launches}")
+    return tokens, launches, stats
+
+
+def profile_references(engine, max_tokens: int = 96):
+    """`profile_spec_step`'s 8 sequences run to `max_tokens` on the
+    classic path: their full token lists, an oracle's references."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    os.environ["APHRODITE_SPEC"] = "0"
+    engine.scheduler_config.multi_step = 1
+    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens,
+                        ignore_eos=True)
+    for i in range(8):
+        engine.add_request(f"ref-prof-{i}", None, sp,
+                           prompt_token_ids=spec_prompt(64, 20 + i))
+    full = []
+    while engine.has_unfinished_requests():
+        for out in engine.step():
+            if out.finished:
+                full.append(list(out.prompt_token_ids) +
+                            list(out.outputs[0].token_ids))
+    return full
+
+
+def profile_spec_step(torch, engine, spec: bool, steps: int = 6,
+                      propose=None, tag: str = ""):
+    """Batch-8 decode rounds of 64-token n-gram prompts with
+    APHRODITE_SPEC as `spec` says (drafts from `propose` when given),
+    after the prompt rounds and two rounds of warm-up: wall ms a round
+    (synchronised, unprofiled), then the same number under
+    torch.profiler for the device's kernel time a round; tokens emitted
+    a round, and how many of the rounds were verify rounds. Returns the
+    figures and the sequences' full token lists."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    os.environ["APHRODITE_SPEC"] = "1" if spec else "0"
+    engine.scheduler_config.multi_step = 1
+    tag = tag or ("spec" if spec else "classic")
+    sp = SamplingParams(temperature=0.0, max_tokens=1983, ignore_eos=True)
+    for i in range(8):
+        engine.add_request(f"{tag}-prof-{i}", None, sp,
+                           prompt_token_ids=spec_prompt(64, 20 + i))
+    ex = engine.executor
+    real = ex.execute_spec_verify
+    verifies = [0]
+
+    def verify(*a, **kw):
+        verifies[0] += 1
+        return real(*a, **kw)
+    ex.execute_spec_verify = verify
+    if propose is not None:
+        engine.drafter.propose = propose
+
+    def emitted():
+        return sum(g.get_seqs()[0].get_output_len()
+                   for g in engine.scheduler.running)
+    try:
+        while len(engine.scheduler.running) < 8 or \
+                engine.scheduler.waiting or engine.scheduler.prefilling:
+            engine.step()
+        for _ in range(2):
+            engine.step()
+        torch.cuda.synchronize()
+        n0, v0, t0 = emitted(), verifies[0], time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        tok = (emitted() - n0) / steps
+        n_verify = verifies[0] - v0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
+    finally:
+        del ex.execute_spec_verify
+        if propose is not None:
+            del engine.drafter.propose
+        for i in range(8):
+            engine.abort_request(f"{tag}-prof-{i}")
+        os.environ["APHRODITE_SPEC"] = "0"
+    dev_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA) / 1e3 / steps
+    log(f"{tag} decode round, batch 8 at Mistral-7B width, 64-token "
+        f"n-gram prompts: wall {wall_ms:.2f} ms/round (unprofiled), "
+        f"device kernels {dev_ms:.2f} ms/round, {tok:.2f} tokens/round "
+        f"({tok / 8:.2f} a sequence), {n_verify} of {steps} timed rounds "
+        f"verify rounds; {tok / wall_ms * 1e3:.1f} tok/s of wall time")
+    return dict(wall_ms=wall_ms, dev_ms=dev_ms, tokens=tok,
+                verify_rounds=n_verify)
+
+
+# ---------------------------------------- the serving path: async --
+
+def async_requests():
+    """The async run's 16 streams: (name, prompt, sampling kwargs,
+    prefix_pos). Mixed lengths, n-gram prompts for most (verify
+    rounds), seeded ones, one with a prefix; "resume" is later sent as a
+    continuation of its first 8 tokens, "abort" is aborted mid-decode."""
+    reqs = []
+    for i, n in enumerate((1000, 300, 64, 12, 700, 128, 40, 2)):
+        reqs.append((f"g{i}", spec_prompt(n, 30 + i),
+                     dict(temperature=0.0, max_tokens=24 + 4 * i), None))
+    for i, n in enumerate((64, 500, 16)):
+        reqs.append((f"s{i}", spec_prompt(n, 40 + i),
+                     dict(temperature=1.0, seed=100 + i, top_p=0.9,
+                          max_tokens=20), None))
+    reqs.append(("prefix", spec_prompt(320, 50),
+                 dict(temperature=0.0, max_tokens=24), 256))
+    reqs.append(("resume", spec_prompt(200, 51),
+                 dict(temperature=0.0, max_tokens=32), None))
+    reqs.append(("long", [(i * 37) % 31000 + 100 for i in range(900)],
+                 dict(temperature=0.0, max_tokens=16), None))
+    reqs.append(("plain", [(i * 53) % 31000 + 100 for i in range(33)],
+                 dict(temperature=0.0, max_tokens=16), None))
+    reqs.append(("abort", spec_prompt(100, 52),
+                 dict(temperature=0.0, max_tokens=400), None))
+    return reqs
+
+
+def run_sync_reference(torch, engine):
+    """The async run's streams (but the aborted one) on the sync engine
+    with APHRODITE_SPEC on, all added at once: tokens by name."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    os.environ["APHRODITE_SPEC"] = "1"
+    engine.scheduler_config.multi_step = 1
+    for name, prompt, sp, prefix_pos in async_requests():
+        if name != "abort":
+            engine.add_request(f"ref-{name}", None, SamplingParams(
+                ignore_eos=True, **sp), prompt_token_ids=prompt,
+                prefix_pos=prefix_pos)
+    tokens = {}
+    while engine.has_unfinished_requests():
+        for out in engine.step():
+            if out.finished:
+                tokens[out.request_id[4:]] = list(out.outputs[0].token_ids)
+    engine.scheduler.clear_prefixes()
+    os.environ["APHRODITE_SPEC"] = "0"
+    return tokens
+
+
+def check_release(torch, executor):
+    """`GPUExecutor.release()`, which reincarnation calls before it
+    builds a new executor, must give the weights' and the pages' memory
+    back while the engine still holds the old executor."""
+    def storages(tree, out):
+        if isinstance(tree, torch.Tensor):
+            st = tree.untyped_storage()
+            out[st.data_ptr()] = st.nbytes()
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                storages(v, out)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                storages(v, out)
+        return out
+    weights = sum(storages(executor.params, {}).values())
+    pages = sum(storages(executor.cache_engine.kv_caches, {}).values())
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    executor.release()
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    log(f"executor release(): {before / 2**30:.2f} -> {after / 2**30:.2f} "
+        f"GiB allocated; weights {weights / 2**30:.2f} GiB and pages "
+        f"{pages / 2**30:.2f} GiB were held")
+    if before - after < 0.99 * (weights + pages):
+        fail(f"release() freed {(before - after) / 2**30:.2f} GiB of the "
+             f"{(weights + pages) / 2**30:.2f} GiB of weights and pages")
+
+
+def run_async_serving(torch, model_dir, counters, card: str, reference):
+    """`AsyncAphrodite` on phase 4's geometry (a new engine from the same
+    seed, so the same weights): 16 concurrent `generate` streams, with
+    APHRODITE_SPEC on, between `start_profile` and `stop_profile`. Every
+    stream but the aborted one must give the sync engine's tokens
+    (`reference`; the resumed stream its joint tokens), the aborted
+    stream's pages must be free, and the trace must name K1's and K4's
+    kernels. Returns the launches and the one-sample latency figures."""
+    import asyncio
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.engine.args_tools import AsyncEngineArgs
+    from aphrodite_tpu_torch.engine.async_aphrodite import AsyncAphrodite
+    os.environ["APHRODITE_SPEC"] = "1"
+    t0 = time.perf_counter()
+    engine = AsyncAphrodite.from_engine_args(AsyncEngineArgs(
+        model=model_dir, load_format="dummy", dtype="bfloat16", seed=0,
+        block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+        disable_log_stats=True, disable_log_requests=True))
+    sync = engine.engine
+    log(f"async engine up in {time.perf_counter() - t0:.1f} s: "
+        f"{sync.cache_config.num_gpu_blocks} KV pages of 32 tokens")
+    trace_dir = os.path.join(HERE, "build", "chip_smoke_trace")
+    bm = sync.scheduler.block_manager
+    total = sync.cache_config.num_gpu_blocks
+    times, finals, aborted = {}, {}, {}
+    for c in counters.values():
+        c.reset()
+
+    async def stream(name, prompt, sp, prefix_pos):
+        emitted = reference["resume"][:8] if name == "resume" else None
+        t_submit = time.perf_counter()
+        stamps, final = [], None
+        async for out in engine.generate(
+                None, SamplingParams(ignore_eos=True, **sp), name,
+                prompt_token_ids=prompt, prefix_pos=prefix_pos,
+                emitted_token_ids=emitted):
+            stamps.append((time.perf_counter(),
+                           len(out.outputs[0].token_ids)))
+            final = out
+            if name == "abort" and len(out.outputs[0].token_ids) >= 4:
+                await engine.abort(name)
+                aborted["tokens"] = len(out.outputs[0].token_ids)
+                break
+        times[name] = (t_submit, stamps)
+        finals[name] = final
+
+    async def serve():
+        sync.start_profile(trace_dir)
+        t_start = time.perf_counter()
+        try:
+            await asyncio.gather(*(stream(*r) for r in async_requests()))
+            # The abort lands at the loop's next step: wait for idle.
+            for _ in range(2000):
+                if not sync.has_unfinished_requests():
+                    break
+                await asyncio.sleep(0.005)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+        finally:
+            path = sync.stop_profile()
+        return wall, path
+
+    wall, trace = asyncio.run(serve())
+    os.environ["APHRODITE_SPEC"] = "0"
+    launches = {name: c.count for name, c in counters.items()}
+    if sync.has_unfinished_requests():
+        fail("async run: the engine still holds requests after the abort")
+    if bm.block_tables:
+        fail(f"async run: block tables left behind {sorted(bm.block_tables)}")
+    sync.scheduler.clear_prefixes()
+    if bm.get_num_free_gpu_blocks() != total:
+        fail(f"async run: {total - bm.get_num_free_gpu_blocks()} pages not "
+             "returned to the free pool")
+    mismatched = []
+    for name, _, sp, _ in async_requests():
+        if name == "abort":
+            continue
+        got = list(finals[name].outputs[0].token_ids)
+        if got != reference[name]:
+            mismatched.append(f"{name}: async {got} / sync {reference[name]}")
+        if len(got) != sp["max_tokens"]:
+            fail(f"async run {name}: {len(got)} tokens")
+    if mismatched:
+        fail("async tokens differ from the sync engine's: " +
+             "; ".join(mismatched))
+    with open(trace) as f:
+        text = f.read()
+    named = {k: text.count(k) for k in ("paged_decode_kernel",
+                                        "kv_write_slots_kernel")}
+    if not all(named.values()):
+        fail(f"async run: the profiler trace {trace} lacks a kernel "
+             f"({named})")
+    for name in ("paged_decode_attention", "write_kv_pages",
+                 "write_kv_pages_prefill"):
+        if launches.get(name, 0) <= 0:
+            fail(f"async run: kernel {name} never launched ({launches})")
+    ttft = sorted(s[0][0] - t for t, s in times.values() if s)
+    tpot = sorted((s[-1][0] - s[0][0]) / (s[-1][1] - s[0][1])
+                  for _, s in times.values()
+                  if len(s) > 1 and s[-1][1] > s[0][1])
+    new_tokens = sum(len(f.outputs[0].token_ids) for n, f in finals.items()
+                     if f is not None) - 8
+    stats = dict(wall_s=wall, ttft_p50_s=ttft[len(ttft) // 2],
+                 ttft_max_s=ttft[-1], tpot_p50_ms=tpot[len(tpot) // 2] * 1e3,
+                 tpot_max_ms=tpot[-1] * 1e3, tokens=new_tokens)
+    log(f"e2e async serving (16 concurrent streams, one aborted after "
+        f"{aborted.get('tokens')} tokens, one resumed from 8 emitted "
+        f"tokens, one with a 256-token prefix; APHRODITE_SPEC on): "
+        f"{wall:.3f} s, {new_tokens} tokens, {new_tokens / wall:.1f} "
+        f"generated tok/s on {card}; one-sample smoke figures: TTFT p50 "
+        f"{stats['ttft_p50_s']:.3f} s, max {stats['ttft_max_s']:.3f} s; "
+        f"per output token p50 {stats['tpot_p50_ms']:.2f} ms, max "
+        f"{stats['tpot_max_ms']:.2f} ms; every stream's tokens equal the "
+        f"sync engine's; all {total} pages free after the abort; trace "
+        f"{os.path.relpath(trace, HERE)} names K1 {named['paged_decode_kernel']} "
+        f"and K4 {named['kv_write_slots_kernel']} times; launches {launches}")
+    check_release(torch, sync.executor)
+    del engine, sync, bm
+    free_engine(torch, "async")
+    return launches, stats
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "aphrodite_tpu_torch")):
         print("chip_smoke: aphrodite_tpu_torch/ not found beside this "
@@ -2680,6 +3344,9 @@ def main() -> int:
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # Every phase but the serving path's (5b, 5c) runs the classic decode
+    # path: their launch counts a step assume no verify rounds.
+    os.environ["APHRODITE_SPEC"] = "0"
 
     # 2. Build.
     from aphrodite_tpu_torch.ops.cuda import build
@@ -2780,6 +3447,8 @@ def main() -> int:
     k1, k5 = ({k: attn[(name, "bfloat16", "B 8")][k] for k in keys[:5]}
               for name in ("K1", "K5"))
     check_model_against_plain(torch)
+    # 3b. K4 then read-only K1 at the speculative verify shape.
+    check_verify_shape(torch, pa, kw, timer)
 
     # 4. End to end at Mistral-7B width and depth.
     from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
@@ -2835,8 +3504,64 @@ def main() -> int:
             log(f"  {rid}: K1 {ragged_tokens[rid]} / K5 {padded_tokens[rid]}")
     if same != len(ragged_tokens):
         fail("APHRODITE_ATTN_RAGGED=0: K5's tokens differ from K1's")
+
+    # 5b. Speculative decoding on the same engine: the n-gram mix with
+    # APHRODITE_SPEC on and off, tokens equal; verify rounds against
+    # classic decode rounds; the async run's sync reference.
+    classic_tokens, _, classic = run_spec_mix(torch, engine, counters, smi,
+                                              spec=False)
+    by_path["spec"] = {}
+    arms = {}
+    # The engine's n-gram drafter, then one that drafts the classic run's
+    # own next tokens (full acceptance: dummy weights rarely emit what
+    # the prompt's n-gram predicts).
+    for arm, propose in (("spec", None),
+                         ("oracle", oracle_drafter(classic["full"]))):
+        tokens, launches, stats = run_spec_mix(
+            torch, engine, counters, smi, spec=True, propose=propose,
+            tag=arm)
+        arms[arm] = stats
+        for name, n in launches.items():
+            by_path["spec"][name] = by_path["spec"].get(name, 0) + n
+        diff = [rid for rid in classic_tokens
+                if tokens[rid] != classic_tokens[rid]]
+        for rid in diff:
+            log(f"  {arm} {rid}: classic {classic_tokens[rid]} / spec "
+                f"{tokens[rid]}")
+        if diff:
+            fail(f"APHRODITE_SPEC=1 ({arm} drafts): tokens of {diff} "
+                 "differ from the classic run's")
+        layers = MISTRAL_7B["num_hidden_layers"]
+        if stats["k1"] != layers * stats["dispatches"] or \
+                stats["k4"] != layers * stats["dispatches"]:
+            fail(f"{arm} verify rounds: {stats['k1']} K1 and "
+                 f"{stats['k4']} K4 launches in {stats['dispatches']} "
+                 f"dispatches, not {layers} each a dispatch")
+        log(f"{arm} drafts vs classic (the n-gram mix, 8 x 48 tokens): "
+            f"tokens equal; engine steps {stats['steps']} / "
+            f"{classic['steps']} ({stats['steps'] / 8:.2f} / "
+            f"{classic['steps'] / 8:.2f} a request); wall "
+            f"{stats['wall_s']:.3f} / {classic['wall_s']:.3f} s; "
+            f"{stats['dispatches']} verify dispatches, each K4 then "
+            f"read-only K1 in every layer ({stats['k4']} / {stats['k1']} "
+            f"launches); drafts proposed {stats['proposed']}, accepted "
+            f"{stats['accepted']}")
+    log_drafter_cost(arms["spec"]["full"], smi)
+    if arms["oracle"]["dispatches"] < 1 or arms["oracle"]["accepted"] < 1:
+        fail("APHRODITE_SPEC=1: the oracle-drafted mix made no accepted "
+             "verify dispatch")
+    profile_spec_step(torch, engine, spec=False)
+    profile_spec_step(torch, engine, spec=True)
+    profile_spec_step(torch, engine, spec=True,
+                      propose=oracle_drafter(profile_references(engine)),
+                      tag="oracle")
+    reference = run_sync_reference(torch, engine)
     del engine
     free_engine(torch, "bf16")
+
+    # 5c. AsyncAphrodite: 16 concurrent streams through the serving path.
+    by_path["async"], _ = run_async_serving(torch, model_dir, counters, smi,
+                                            reference)
 
     # 6. int8 and fp8 KV pages.
     for kv_dtype, page_dtype in (("int8", torch.int8),

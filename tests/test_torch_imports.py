@@ -6,8 +6,9 @@
   executor's DeviceConfig) raise without a CUDA card unless the caller
   passes device="cpu"; they never fall back to the CPU on their own.
 - Configurations outside the port's slices are refused at config time
-  with a message naming the later slice; int8 / fp8 KV caches and
-  sliding-window (Mistral) models are served.
+  with a message naming the later slice; int8 / fp8 KV caches,
+  sliding-window (Mistral) models and speculative decoding are served.
+- The two flag registries hold the same names, types and defaults.
 """
 import ast
 import json
@@ -91,6 +92,23 @@ def test_entry_points_refuse_the_cpu_unless_asked(tiny_model_dir):
         DeviceConfig("tpu")
 
 
+def test_async_entry_point_refuses_the_cpu_unless_asked(tiny_model_dir):
+    """AsyncAphrodite (and so the OpenAI server, which builds it from the
+    same arguments) runs on the card unless the caller passes
+    device="cpu"."""
+    _no_card()
+    from aphrodite_tpu_torch.engine.args_tools import AsyncEngineArgs
+    from aphrodite_tpu_torch.engine.async_aphrodite import AsyncAphrodite
+    kw = dict(model=tiny_model_dir, load_format="dummy",
+              skip_tokenizer_init=True, swap_space=0.01,
+              disable_log_stats=True, disable_log_requests=True)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        AsyncAphrodite.from_engine_args(AsyncEngineArgs(**kw))
+    engine = AsyncAphrodite.from_engine_args(AsyncEngineArgs(
+        device="cpu", **kw))
+    assert engine.engine.executor.device.type == "cpu"
+
+
 def _model_dir(tmp_path, tiny_model_dir, **changes):
     path = tmp_path / "model"
     shutil.copytree(tiny_model_dir, path)
@@ -121,11 +139,78 @@ def test_out_of_slice_engine_args_are_refused(tiny_model_dir, change,
 
 
 def test_speculative_decoding_is_refused(tiny_model_dir, monkeypatch):
+    """The port once refused APHRODITE_SPEC=1 at config time; it now
+    serves speculative decoding, on by default as in the JAX package.
+    The test keeps its id and holds what replaced the refusal: with
+    APHRODITE_SPEC=1 the configs build on the CPU and the runner serves
+    `execute_spec_verify` (the drafter is pinned to a two-token draft,
+    so every decode round of the tiny model's random weights is a
+    verify round)."""
+    from aphrodite_tpu_torch.common import flags
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
     from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    from aphrodite_tpu_torch.executor.model_runner import ModelRunner
+    monkeypatch.delenv("APHRODITE_SPEC", raising=False)
+    assert flags.get_bool("APHRODITE_SPEC") is True
     monkeypatch.setenv("APHRODITE_SPEC", "1")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        EngineArgs(model=tiny_model_dir, load_format="dummy",
-                   device="cpu").create_engine_configs()
+    configs = EngineArgs(model=tiny_model_dir, load_format="dummy",
+                         device="cpu", block_size=16, max_model_len=128,
+                         swap_space=0.01).create_engine_configs()
+    configs[1].num_gpu_blocks = 64
+    engine = AphroditeEngine(*configs, log_stats=False,
+                             skip_tokenizer_init=True)
+    results = []
+    real = ModelRunner.execute_spec_verify
+
+    def spy(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        results.extend(out[0])
+        return out
+    monkeypatch.setattr(ModelRunner, "execute_spec_verify", spy)
+    monkeypatch.setattr(engine.drafter, "propose",
+                        lambda seq_id, tokens, k: [7, 7][:k])
+    engine.add_request("spec", None, SamplingParams(
+        temperature=0.0, max_tokens=8, ignore_eos=True),
+        prompt_token_ids=[11, 23, 37, 41] * 5)
+    outs = []
+    while engine.has_unfinished_requests():
+        outs = engine.step() or outs
+    assert results and all(r.proposed > 0 for r in results)
+    assert all(len(r.samples) == r.accepted + 1 for r in results)
+    assert len(outs[0].outputs[0].token_ids) == 8
+
+
+def test_flag_registries_match():
+    """Both packages register the same 48 flags with the same types and
+    defaults (APHRODITE_SPEC included, on in both)."""
+    from aphrodite_tpu.common import flags as jax_flags
+    from aphrodite_tpu_torch.common import flags
+    jax_reg, reg = jax_flags.registry(), flags.registry()
+    assert len(reg) == 48
+    assert sorted(reg) == sorted(jax_reg)
+    for name, flag in reg.items():
+        assert (flag.type, flag.default) == \
+            (jax_reg[name].type, jax_reg[name].default), name
+    assert reg["APHRODITE_SPEC"].default is True
+
+
+def test_serving_modules_are_scanned_and_chip_smoke_skips_endpoints():
+    """The serving modules are among the scanned sources, and the card's
+    smoke script drives `AsyncAphrodite` without the HTTP layer (its
+    packages are not on the card machine)."""
+    scanned = {os.path.relpath(p, REPO) for p in _sources()}
+    for rel in ("engine/async_aphrodite.py", "endpoints/utils.py",
+                "endpoints/openai/protocol.py",
+                "endpoints/openai/api_server.py", "common/grammar.py",
+                "modeling/layers/rejection.py"):
+        assert f"aphrodite_tpu_torch/{rel}" in scanned, rel
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        mods = list(_imported(ast.parse(f.read())))
+    assert "aphrodite_tpu_torch.engine.async_aphrodite" in mods
+    assert not [m for m in mods
+                if m.startswith("aphrodite_tpu_torch.endpoints.")
+                and m != "aphrodite_tpu_torch.endpoints.llm"]
 
 
 @pytest.mark.parametrize("change,match", [

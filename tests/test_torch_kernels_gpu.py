@@ -28,6 +28,9 @@ kernel returns bf16 hi + lo of each f32 entry bit for bit (identity
 rows of x).
 The threefry draws (`modeling/layers/prng.py`): keys, bits and uniforms
 bit-equal to the same calls on the CPU, and the tokens drawn equal.
+The speculative verify shape (K4 then read-only K1, rows of a sequence
+sharing one table): K4 exact, K1 within the attention tolerance, and a
+control (every row at the sequence's last context) beyond it.
 """
 import numpy as np
 import pytest
@@ -502,6 +505,91 @@ def test_writers_match_plain(dev):
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert torch.equal(c[0], d[0]) and torch.equal(c[1], d[1])
+
+
+# The speculative verify shape: 8 sequences (contexts L as phase 4 of
+# chip_smoke decodes them) x (k + 1) rows, k = 4.
+_VERIFY_CTX = [1016, 316, 80, 1016, 316, 80, 28, 28]
+
+
+@pytest.mark.parametrize("page_dtype", [torch.bfloat16, torch.int8,
+                                        torch.float8_e5m2])
+@pytest.mark.parametrize("seqs,padded", [(8, 48), (128, 640)])
+def test_verify_rows_k4_then_read_only_k1(dev, page_dtype, seqs, padded):
+    """A verify round as the model runner builds it: row j of a sequence
+    at position L - 1 + j with ctx L + j, the k + 1 rows sharing the
+    sequence's block table, padded to the runner's batch (8 sequences:
+    40 rows in the bucket of 48; 128: 640 rows, past the largest decode
+    bucket, unpadded) with out-of-range slots and page ids, ctx 0. K4
+    writes the slots with shared pages: exact, one launch; K1 then reads
+    them read-only: within 2e-2 + 2e-2 |plain| of its plain version at
+    its split count; a control with every row at ctx L + k misses that
+    tolerance."""
+    k, ps, hd = 4, 32, 1024
+    g = torch.Generator(device=dev).manual_seed(5)
+    ctxs = [_VERIFY_CTX[i % 8] + i // 8 for i in range(seqs)]
+    need = [-(-(L + k) // ps) for L in ctxs]
+    pps = -(-max(need) // 4) * 4
+    num_pages = sum(need) + 8
+    perm = torch.randperm(num_pages, generator=g, device=dev).tolist()
+    tb = torch.full((padded, pps), num_pages, dtype=torch.int32)
+    slots = torch.full((padded,), num_pages * ps, dtype=torch.int32)
+    ctx = torch.zeros((padded,), dtype=torch.int32)
+    bad = torch.zeros((padded,), dtype=torch.int32)
+    counts, row = [], 0
+    for s, L in enumerate(ctxs):
+        table = perm[sum(need[:s]):sum(need[:s + 1])]
+        for j in range(k + 1):
+            pos = L - 1 + j
+            tb[row, :len(table)] = torch.tensor(table)
+            slots[row] = table[pos // ps] * ps + pos % ps
+            ctx[row], bad[row] = pos + 1, L + k
+            counts.append(len(table))
+            row += 1
+    counts += [0] * (padded - row)
+    tb, slots, ctx, bad = (t.to(dev) for t in (tb, slots, ctx, bad))
+    tb = tb.clamp(max=num_pages - 1)
+    kp = tkq.quantize_kv(torch.randn(num_pages, ps, hd, generator=g,
+                                     device=dev), page_dtype, KV_SCALE)
+    vp = tkq.quantize_kv(torch.randn(num_pages, ps, hd, generator=g,
+                                     device=dev), page_dtype, KV_SCALE)
+    knew, vnew = (torch.randn(padded, hd, generator=g, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(padded, 32, 128, generator=g, device=dev).to(
+        torch.bfloat16)
+    before = tkw.WRITE_KV_PAGES_LAUNCHES.count
+    a = tkw.write_kv_pages(knew, vnew, kp.clone(), vp.clone(), slots,
+                           distinct_pages=False, kv_scale=KV_SCALE)
+    b = tkw.write_kv_pages_plain(knew, vnew, kp.clone(), vp.clone(), slots,
+                                 KV_SCALE)
+    torch.cuda.synchronize()
+    assert tkw.WRITE_KV_PAGES_LAUNCHES.count == before + 1
+    assert torch.equal(_bytes(a[0]), _bytes(b[0]))
+    assert torch.equal(_bytes(a[1]), _bytes(b[1]))
+    ppc = tpa.choose_pages_per_chunk(pps, ps, padded)
+    nw_real = sum(max(1, -(-c // ppc)) for c in counts)
+    mix = 1
+    while padded * mix < nw_real:
+        mix *= 2
+    work = tpa.build_decode_work_list(
+        counts, ppc, pad_to=padded * min(mix, -(-pps // ppc)))
+    n_split = tpa.choose_decode_splits(padded, 8, pps, ppc,
+                                       tpa.sm_count(dev))
+    kw = dict(scale=128 ** -0.5,
+              kv_scale=tkq.dequant_scale(page_dtype, KV_SCALE),
+              pages_per_chunk=ppc)
+    before = tpa.PAGED_DECODE_ATTENTION_LAUNCHES.count
+    got = tpa.paged_decode_attention(q, a[0], a[1], tb, ctx,
+                                     work_items=work, **kw)
+    ctl = tpa.paged_decode_attention(q, a[0], a[1], tb, bad,
+                                     work_items=work, **kw)
+    want = tpa.paged_decode_attention_plain(q, a[0], a[1], tb, ctx,
+                                            num_splits=n_split, **kw)
+    torch.cuda.synchronize()
+    assert tpa.PAGED_DECODE_ATTENTION_LAUNCHES.count == before + 2
+    assert (got[row:] == 0).all()                   # padding rows
+    _close(got, want)
+    assert _misses(ctl, want)
 
 
 # K2's geometries: (page size, kv heads of 128, page dtype); rows of 256
