@@ -4,9 +4,9 @@ Reference: `aphrodite/engine/args_tools.py` (EngineArgs `:11`,
 add_cli_args `:52`, create_engine_configs `:278`, AsyncEngineArgs `:314`).
 Flag names are kept CLI-compatible with the reference so existing deploy
 scripts port over. In the PyTorch port, configurations outside its
-ported slices (LoRA, speculative decoding, multi-GPU, quantization other
-than GPTQ, AWQ and GGUF, GGUF's exact Q4_K form) are refused here or by
-the config classes, naming the later slice that brings them.
+ported slices (multi-GPU, quantized methods whose kernels do not take a
+layer's shape on the card) are refused here or by the config classes,
+naming the later slice that brings them.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 from aphrodite_tpu_torch.common.config import (CacheConfig, DeviceConfig,
                                                LoRAConfig, ModelConfig,
                                                ParallelConfig,
-                                               SchedulerConfig, refuse)
+                                               SchedulerConfig)
 
 
 @dataclass
@@ -167,8 +167,6 @@ class EngineArgs:
             ModelConfig, CacheConfig, ParallelConfig, SchedulerConfig,
             DeviceConfig, Optional[LoRAConfig]]:
         from aphrodite_tpu_torch.common import flags
-        if self.enable_lora:
-            refuse("LoRA", "LoRA")
         model_config = ModelConfig(
             self.model, self.tokenizer, self.tokenizer_mode,
             self.trust_remote_code, self.download_dir, self.load_format,

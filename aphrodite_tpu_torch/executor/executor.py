@@ -7,6 +7,11 @@ the KV pool `gpu_memory_utilization` of the card's memory
 (`torch.cuda.mem_get_info`) minus that peak. On the CPU (tests) there is
 no memory to read, and a fixed budget applies unless the pool is sized
 explicitly.
+
+With a lora_config the model's linear layers carry adapter slots and a
+`WorkerLoRAManager` loads adapters on demand; before every round
+(`_pre_step`, the one point each execution path passes) it makes the
+batch's adapters resident and hands the runner their slots.
 """
 from __future__ import annotations
 
@@ -45,8 +50,6 @@ class GPUExecutor:
         device_config: DeviceConfig,
         lora_config=None,
     ) -> None:
-        if lora_config is not None:
-            raise NotImplementedError("LoRA is not in the PyTorch port yet")
         self.model_config = model_config
         self.cache_config = cache_config
         self.parallel_config = parallel_config
@@ -54,7 +57,8 @@ class GPUExecutor:
         self.device = torch.device(device_config.resolve())
         logger.info("Loading model %s on %s ...", model_config.model,
                     self.device)
-        self.model, self.params = get_model(model_config, self.device)
+        self.model, self.params = get_model(model_config, self.device,
+                                            lora_config)
         self.model_runner = ModelRunner(
             self.model, self.params, model_config, scheduler_config,
             page_size=cache_config.block_size,
@@ -65,6 +69,16 @@ class GPUExecutor:
                                         self.device)
         self.model_runner.num_slots = self.cache_engine.num_slots
         self.model_runner.kv_scale = self.cache_engine.kv_scale
+        self.lora_manager = None
+        if lora_config is not None:
+            from aphrodite_tpu_torch.lora.models import layouts_from_model
+            from aphrodite_tpu_torch.lora.worker_manager import (
+                WorkerLoRAManager)
+            self.lora_manager = WorkerLoRAManager(
+                lora_config,
+                write_slot_fn=self.model_runner.write_lora_slot,
+                clear_slot_fn=self.model_runner.clear_lora_slot,
+                module_layouts=layouts_from_model(self.model))
 
     @property
     def disagg(self) -> bool:
@@ -111,12 +125,19 @@ class GPUExecutor:
 
     # -- step execution --
 
-    def _pre_step(self, blocks_to_swap_in, blocks_to_swap_out) -> None:
+    def _pre_step(self, seq_group_metadata_list, blocks_to_swap_in,
+                  blocks_to_swap_out) -> None:
+        """Swaps and LoRA activation, before anything of the round is
+        dispatched: adapter slots are written here and nowhere else."""
         faultinject.fire("executor.execute_model")
         if blocks_to_swap_out:
             self.cache_engine.swap_out(blocks_to_swap_out)
         if blocks_to_swap_in:
             self.cache_engine.swap_in(blocks_to_swap_in)
+        if self.lora_manager is not None and seq_group_metadata_list:
+            self.lora_manager.set_active_adapters(
+                [md.lora_request for md in seq_group_metadata_list])
+            self.model_runner.lora_slot_of = self.lora_manager.slot_of
 
     def execute_model(
         self,
@@ -125,7 +146,8 @@ class GPUExecutor:
         blocks_to_swap_out: Dict[int, int],
         blocks_to_copy: Dict[int, List[int]],
     ) -> SamplerOutput:
-        self._pre_step(blocks_to_swap_in, blocks_to_swap_out)
+        self._pre_step(seq_group_metadata_list, blocks_to_swap_in,
+                       blocks_to_swap_out)
         output, self.cache_engine.kv_caches = \
             self.model_runner.execute_model(seq_group_metadata_list,
                                             self.cache_engine.kv_caches,
@@ -143,7 +165,8 @@ class GPUExecutor:
     ) -> List[SamplerOutput]:
         """Multi-step decode: one scheduling round drives `num_steps`
         device iterations."""
-        self._pre_step(blocks_to_swap_in, blocks_to_swap_out)
+        self._pre_step(seq_group_metadata_list, blocks_to_swap_in,
+                       blocks_to_swap_out)
         outputs, self.cache_engine.kv_caches = \
             self.model_runner.execute_decode_burst(
                 seq_group_metadata_list, self.cache_engine.kv_caches,
@@ -160,7 +183,8 @@ class GPUExecutor:
     ):
         """Speculative verify round: k+1 rows per drafted sequence in
         one dispatch (see ModelRunner.execute_spec_verify)."""
-        self._pre_step(blocks_to_swap_in, blocks_to_swap_out)
+        self._pre_step(seq_group_metadata_list, blocks_to_swap_in,
+                       blocks_to_swap_out)
         results, self.cache_engine.kv_caches = \
             self.model_runner.execute_spec_verify(
                 seq_group_metadata_list, self.cache_engine.kv_caches,
@@ -187,7 +211,7 @@ class GPUExecutor:
     ):
         """Enqueue one pure-prefill round without synchronising (None =
         the caller must run the synced path)."""
-        self._pre_step({}, {})
+        self._pre_step(prompt_metadata, {}, {})
         kv = self.model_runner._apply_block_copies(
             self.cache_engine.kv_caches, blocks_to_copy)
         handle, self.cache_engine.kv_caches = \
@@ -214,7 +238,8 @@ class GPUExecutor:
         step and the decode burst are enqueued back to back and one host
         synchronisation collects both; sampling configs off the fused
         path fall back to two synced steps within the round."""
-        self._pre_step(blocks_to_swap_in, blocks_to_swap_out)
+        self._pre_step(prompt_metadata + decode_metadata,
+                       blocks_to_swap_in, blocks_to_swap_out)
         runner = self.model_runner
         kv = runner._apply_block_copies(self.cache_engine.kv_caches,
                                         blocks_to_copy)

@@ -21,7 +21,14 @@ eagerly, so a "step program" is a plain call:
   drafted sequence in one dispatch (the slot writer K4, then K1 read
   only), one host transfer, delta rejection on the host.
 
-KV pages are updated in place by the attention layer.
+KV pages are updated in place by the attention layer. With LoRA, each
+row's adapter slot (-1 for none; every row of a sequence, its k+1
+verify rows and every step of its burst take the sequence's slot) is
+built on the host with the batch and rides the positions' upload; the
+runner injects it, with its one-hot mask, into every LoRA bucket of the
+step's parameters (`_params_with_lora`). Adapters are written into
+their slots (`write_lora_slot`) before the step is dispatched, so stream
+order puts the write after any round still in flight.
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ from aphrodite_tpu_torch.common.logger import init_logger
 from aphrodite_tpu_torch.common.sampling_params import SamplingType
 from aphrodite_tpu_torch.common.sequence import (SamplerOutput,
                                                  SequenceGroupMetadata)
+from aphrodite_tpu_torch.lora.layers import (LORA_A, LORA_B, LORA_IDX,
+                                             LORA_MASK, slot_mask)
 from aphrodite_tpu_torch.modeling.input_metadata import InputMetadata
 from aphrodite_tpu_torch.modeling.layers.rejection import (
     delta_rejection_length)
@@ -139,9 +148,78 @@ class ModelRunner:
         self.sampler = Sampler(model_config.get_vocab_size(), device)
         self.pages_bucket = _PAGES_BUCKET if page_size <= 16 else \
             max(2, _PAGES_BUCKET // 2)
+        # LoRA: the buckets carrying adapter slots, the slot count, and
+        # the slot resolver the executor's WorkerLoRAManager installs.
+        self.lora_buckets = [k for k, b in params.items() if LORA_A in b]
+        self.max_loras = getattr(getattr(model, "linear_method", None),
+                                 "max_loras", 0)
+        self.lora_slot_of = None
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _dev_with_lora(self, arr: np.ndarray, lora_idx):
+        """Upload int32 `arr` and the step's LoRA slots (or None) in one
+        copy; returns their device tensors."""
+        if lora_idx is None:
+            return self._dev(arr), None
+        flat = self._dev(np.concatenate([arr.ravel(), lora_idx]))
+        return flat[:arr.size].view(arr.shape), flat[arr.size:]
+
+    # ---- LoRA slots ----
+
+    def write_lora_slot(self, bucket_key: str, slot: int, a: np.ndarray,
+                        b: np.ndarray) -> None:
+        """Place one adapter's (A [in, r], B [r, out]) into slot `slot`
+        of a bucket's stacks, rank-padded with zeros and cast to the
+        stacks' dtype."""
+        bucket = self.params[bucket_key]
+        sa, sb = bucket[LORA_A], bucket[LORA_B]
+        rank = sa.shape[0] // self.max_loras
+        a_pad = np.zeros((rank, sa.shape[1]), dtype=np.float32)
+        b_pad = np.zeros((sb.shape[0], rank), dtype=np.float32)
+        a_pad[:a.shape[1]] = a.T
+        b_pad[:, :b.shape[0]] = b.T
+        cols = slice(slot * rank, (slot + 1) * rank)
+        sa[cols].copy_(torch.from_numpy(a_pad))
+        sb[:, cols].copy_(torch.from_numpy(b_pad))
+
+    def clear_lora_slot(self, bucket_key: str, slot: int) -> None:
+        bucket = self.params[bucket_key]
+        rank = bucket[LORA_A].shape[0] // self.max_loras
+        cols = slice(slot * rank, (slot + 1) * rank)
+        bucket[LORA_A][cols] = 0
+        bucket[LORA_B][:, cols] = 0
+
+    def _lora_rows(self, seq_group_metadata_list, padded: int,
+                   rows_per_group) -> Optional[np.ndarray]:
+        """[padded] int32 adapter slot of each row (-1: none, padding
+        included), or None when no row has an adapter (the delta is then
+        skipped: y + 0 is y)."""
+        if not self.lora_buckets or self.lora_slot_of is None:
+            return None
+        idx = np.full((padded,), -1, dtype=np.int32)
+        row = 0
+        for md, n_rows in zip(seq_group_metadata_list, rows_per_group):
+            if md.lora_request is not None:
+                idx[row:row + n_rows] = self.lora_slot_of(
+                    md.lora_request.lora_int_id)
+            row += n_rows
+        return idx if (idx >= 0).any() else None
+
+    def _params_with_lora(self, inputs: dict):
+        """The step's parameters: every LoRA bucket given the rows' slots
+        and their mask (shallow copies), or the parameters as they are
+        when no row has an adapter."""
+        idx = inputs.get("lora_idx")
+        if idx is None:
+            return self.params
+        mask = slot_mask(idx, self.max_loras, self.model.dtype)
+        params = dict(self.params)
+        for key in self.lora_buckets:
+            params[key] = {**self.params[key], LORA_IDX: idx,
+                           LORA_MASK: mask}
+        return params
 
     # ---- step bodies ----
 
@@ -162,6 +240,9 @@ class ModelRunner:
         stacked packed results [num_steps, rows, w]."""
         all_packed = []
         ps = self.page_size
+        # Pad rows (ctx 0) stay dead: a live pad row would take the fused
+        # KV write through its clamped table into the last page.
+        live = meta.context_lens > 0
         for t in range(num_steps):
             hidden, kv_caches = self.model(params, ids, pos, kv_caches,
                                            meta)
@@ -185,7 +266,8 @@ class ModelRunner:
             slots = torch.clamp(page.long() * ps + p % ps,
                                 max=self.num_slots)
             meta = meta.replace(slot_mapping=slots.to(torch.int32),
-                                context_lens=(p + 1).to(torch.int32))
+                                context_lens=torch.where(
+                                    live, p + 1, 0).to(torch.int32))
         return torch.stack(all_packed), kv_caches
 
     # ---- host batch builders ----
@@ -320,10 +402,13 @@ class ModelRunner:
         padded_rows = -(-num_rows // _PAGES_BUCKET) * _PAGES_BUCKET
         sel = np.zeros((padded_rows,), dtype=np.int32)
         sel[:num_rows] = selected
-        inputs = dict(input_ids=self._dev(ids), positions=self._dev(pos),
+        pos_t, lora_idx = self._dev_with_lora(pos, self._lora_rows(
+            seq_group_metadata_list, padded_batch, [1] * batch))
+        inputs = dict(input_ids=self._dev(ids), positions=pos_t,
                       metadata=metadata, sel=self._dev(sel),
                       num_rows=num_rows, is_prompt=True,
-                      use_prefix=use_prefix, newly_computed=newly_computed)
+                      use_prefix=use_prefix, newly_computed=newly_computed,
+                      lora_idx=lora_idx)
         return inputs, sampling
 
     @staticmethod
@@ -334,12 +419,14 @@ class ModelRunner:
             prefix.computed = True
 
     def _decode_inputs(self, tokens, positions, slot_list, ctx_list,
-                       tables_list, **meta) -> dict:
+                       tables_list, lora_groups, **meta) -> dict:
         """Pad single-token rows into the decode step's inputs: the
         batch bucket, out-of-range slots and page ids on pad rows (ctx
         0), and the ragged (sequence, chunk) work list over each row's
         reserved pages (kept for the kernel's signature; the CUDA kernel
-        walks pages itself). `meta` sets further InputMetadata fields."""
+        walks pages itself). `lora_groups` is (the groups, rows a group)
+        for the rows' adapter slots; `meta` sets further InputMetadata
+        fields."""
         batch = len(tokens)
         padded_batch = _bucket(batch, _DECODE_BATCH_BUCKETS)
         max_pages = max(len(t) for t in tables_list)
@@ -380,10 +467,14 @@ class ModelRunner:
             decode_ppc=ppc,
             **meta,
         )
-        return dict(input_ids=self._dev(ids),
-                    positions=self._dev(pos_arr), metadata=metadata,
+        groups, rows_per_group = lora_groups
+        pos_t, lora_idx = self._dev_with_lora(pos_arr, self._lora_rows(
+            groups, padded_batch, rows_per_group))
+        return dict(input_ids=self._dev(ids), positions=pos_t,
+                    metadata=metadata,
                     sel=self._dev(np.arange(padded_batch, dtype=np.int32)),
-                    num_rows=batch, is_prompt=False, use_prefix=False)
+                    num_rows=batch, is_prompt=False, use_prefix=False,
+                    lora_idx=lora_idx)
 
     def _prepare_decode(
         self, seq_group_metadata_list: List[SequenceGroupMetadata]
@@ -429,8 +520,11 @@ class ModelRunner:
             categorized_sample_indices={},
             persistent_metadata=PersistentMetadata(persistent),
         )
-        return self._decode_inputs(tokens, positions, slot_list, ctx_list,
-                                   tables_list), sampling
+        return self._decode_inputs(
+            tokens, positions, slot_list, ctx_list, tables_list,
+            lora_groups=(seq_group_metadata_list,
+                         [len(md.seq_data)
+                          for md in seq_group_metadata_list])), sampling
 
     # ---- public API ----
 
@@ -474,8 +568,8 @@ class ModelRunner:
         meta = inputs["metadata"].replace(is_prompt=inputs["is_prompt"],
                                           use_prefix=inputs["use_prefix"])
         logits, kv_caches = self._logits(
-            self.params, inputs["input_ids"], inputs["positions"],
-            kv_caches, meta, inputs["sel"])
+            self._params_with_lora(inputs), inputs["input_ids"],
+            inputs["positions"], kv_caches, meta, inputs["sel"])
         self._mark_prefixes(inputs)
         logits = logits[:inputs["num_rows"]]
         if any(p.logits_processors for _, p in sampling.seq_groups):
@@ -508,8 +602,8 @@ class ModelRunner:
         meta = inputs["metadata"].replace(is_prompt=True,
                                           use_prefix=inputs["use_prefix"])
         logits, kv_caches = self._logits(
-            self.params, inputs["input_ids"], inputs["positions"],
-            kv_caches, meta, inputs["sel"])
+            self._params_with_lora(inputs), inputs["input_ids"],
+            inputs["positions"], kv_caches, meta, inputs["sel"])
         packed, _ = fused_sample(
             logits, plan.tensors, plan.bases, plan.salt1, plan.salt2,
             max_best_of=plan.max_best_of, num_topk=plan.num_topk,
@@ -571,10 +665,11 @@ class ModelRunner:
                 r = min(cap_of.get(seq_id, num_steps), num_steps)
                 pos_cap[row, 0] = data.get_len() - 1 + r
                 row += 1
+        # Every step of the burst keeps each row's adapter slot.
         packed, kv_caches = self._burst(
-            self.params, inputs["input_ids"], inputs["positions"],
-            kv_caches, inputs["metadata"], plan, self._dev(greedy),
-            self._dev(pos_cap), num_steps)
+            self._params_with_lora(inputs), inputs["input_ids"],
+            inputs["positions"], kv_caches, inputs["metadata"], plan,
+            self._dev(greedy), self._dev(pos_cap), num_steps)
         return StepHandle(packed, sampling, plan,
                           num_steps=num_steps), kv_caches
 
@@ -637,9 +732,10 @@ class ModelRunner:
             categorized_sample_indices={},
             persistent_metadata=PersistentMetadata(persistent),
         )
-        inputs = self._decode_inputs(tokens, positions, slot_list,
-                                     ctx_list, tables_list,
-                                     spec_verify=True)
+        inputs = self._decode_inputs(
+            tokens, positions, slot_list, ctx_list, tables_list,
+            lora_groups=(seq_group_metadata_list, rows_per_group),
+            spec_verify=True)
         return inputs, sampling, row_offsets, rows_per_group
 
     def execute_spec_verify(
@@ -666,8 +762,9 @@ class ModelRunner:
         assert plan.max_best_of == 1 and plan.num_topk == 0 and \
             not plan.need_logprobs, "spec verify eligibility broken"
         logits, kv_caches = self._logits(
-            self.params, inputs["input_ids"], inputs["positions"],
-            kv_caches, inputs["metadata"], inputs["sel"])
+            self._params_with_lora(inputs), inputs["input_ids"],
+            inputs["positions"], kv_caches, inputs["metadata"],
+            inputs["sel"])
         packed, _ = fused_sample(
             logits, plan.tensors, plan.bases, plan.salt1, plan.salt2,
             max_best_of=1, num_topk=0, need_logprobs=False,

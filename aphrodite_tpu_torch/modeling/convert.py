@@ -12,8 +12,10 @@ SV, Wscale and Hadamard factors as they are): only a FLOATING 2-D
 `weight` transposes, GGUF's dense `weight` included (the JAX GGUF
 method stores it [in, out], the port [out, in]). An int8 `weight` (the
 int8 method's, QuIP#'s int8 form) keeps [in, out] on both sides: K17
-reads W as [K, N]. Used to give both sides the same weights in parity
-tests.
+reads W as [K, N]. LoRA slot stacks, A [slots, in, R] and B [slots, R,
+out] in the JAX package, become the port's slot-concatenated A [slots *
+R, in] and B [out, slots * R] (`lora/layers.py`). Used to give both
+sides the same weights in parity tests.
 """
 from __future__ import annotations
 
@@ -39,6 +41,10 @@ def params_from_jax(np_params: Dict[str, Dict[str, np.ndarray]]
             if name == "weight" and arr.ndim == 2 and floating and \
                     key.endswith(_LINEAR_SUFFIXES):
                 arr = arr.T
+            elif name == "lora_A_stacked":
+                arr = arr.transpose(0, 2, 1).reshape(-1, arr.shape[1])
+            elif name == "lora_B_stacked":
+                arr = arr.reshape(-1, arr.shape[2]).T
             if arr.dtype.name == "bfloat16":      # ml_dtypes, no numpy twin
                 out[name] = torch.from_numpy(
                     arr.astype(np.float32)).to(torch.bfloat16)

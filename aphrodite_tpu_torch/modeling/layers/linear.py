@@ -61,6 +61,10 @@ class LinearMethod:
 class LinearBase:
     """Shape bookkeeping shared by the linear layers."""
 
+    # Number of stacked sub-projections sharing this layer's matmul
+    # (qkv = 3, gate_up = 2); LoRA sizes its merged rank by this.
+    packed_factor: int = 1
+
     def __init__(self, in_features: int, out_features: int, *,
                  bias: bool = False, dtype: torch.dtype = torch.bfloat16,
                  linear_method: Optional[LinearMethod] = None) -> None:
@@ -71,6 +75,7 @@ class LinearBase:
         self.linear_method = linear_method or LinearMethod()
 
     def init(self, device: torch.device) -> ParamDict:
+        self.linear_method.packed_factor = self.packed_factor
         return self.linear_method.create_weights(
             self.in_features, self.out_features, self.dtype, self.bias,
             device)
@@ -160,6 +165,7 @@ class MergedColumnParallelLinear(_ShardedLoadMixin, ColumnParallelLinear):
 
     def __init__(self, in_features: int, output_sizes, **kw) -> None:
         self.output_sizes = list(output_sizes)
+        self.packed_factor = len(self.output_sizes)
         super().__init__(in_features, sum(self.output_sizes), **kw)
 
     def weight_loader(self, params: ParamDict, name: str,
@@ -174,6 +180,8 @@ class MergedColumnParallelLinear(_ShardedLoadMixin, ColumnParallelLinear):
 
 class QKVParallelLinear(_ShardedLoadMixin, ColumnParallelLinear):
     """Fused QKV projection; the loader slices by 'q' | 'k' | 'v'."""
+
+    packed_factor = 3
 
     def __init__(self, hidden_size: int, head_size: int, num_heads: int,
                  num_kv_heads: Optional[int] = None, **kw) -> None:

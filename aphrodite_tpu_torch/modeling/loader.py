@@ -64,12 +64,17 @@ def initialize_dummy_params(model, device: torch.device, seed: int = 0,
                             scale: float = DUMMY_SCALE) -> Dict:
     """Every floating parameter ~ U(-scale, scale), packed quantized
     payloads uniform over their integer type, other integers zero; all
-    drawn on `device`."""
+    drawn on `device`. LoRA slot stacks start zero and draw nothing, so
+    the base weights are the same with LoRA on or off (a slot is written
+    whole before any row reads it)."""
+    from aphrodite_tpu_torch.lora.layers import LORA_A, LORA_B
     gen = torch.Generator(device=device).manual_seed(seed)
     params = model.init_params(device)
     for bucket in params.values():
         for name, tensor in bucket.items():
-            if tensor.is_floating_point():
+            if name in (LORA_A, LORA_B):
+                tensor.zero_()
+            elif tensor.is_floating_point():
                 tensor.uniform_(-scale, scale, generator=gen)
             elif name in _RANDOM_INT_PARAMS:
                 info = torch.iinfo(tensor.dtype)
@@ -180,9 +185,11 @@ def _weights_iterator(model_path: str, load_format: str,
                      f"{model_path}")
 
 
-def get_model(model_config: ModelConfig,
-              device: torch.device) -> Tuple[object, Dict]:
-    """Build the model and its parameters on `device`."""
+def get_model(model_config: ModelConfig, device: torch.device,
+              lora_config=None) -> Tuple[object, Dict]:
+    """Build the model and its parameters on `device`. With a
+    lora_config every linear layer is built through LoRALinearMethod
+    over its own method, so its bucket carries the adapter slots."""
     model_cls = _get_model_architecture(model_config.hf_config)
     dtype = DTYPES[model_config.dtype]
     linear_method = None
@@ -191,6 +198,13 @@ def get_model(model_config: ModelConfig,
             get_quantization_config)
         linear_method = get_quantization_config(
             model_config).get_linear_method()
+    if lora_config is not None:
+        from aphrodite_tpu_torch.lora.layers import LoRALinearMethod
+        from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
+        linear_method = LoRALinearMethod(
+            linear_method or LinearMethod(),
+            max_loras=lora_config.max_loras,
+            max_rank=lora_config.max_lora_rank)
     model = model_cls(model_config.hf_config, dtype=dtype,
                       linear_method=linear_method)
     if model_config.load_format == "dummy":
@@ -203,4 +217,19 @@ def get_model(model_config: ModelConfig,
                     if t.is_floating_point() else t.to(device)
                     for name, t in bucket.items()}
               for key, bucket in params.items()}
+    if lora_config is not None:
+        _add_empty_lora_params(model, params, device)
     return model, params
+
+
+def _add_empty_lora_params(model, params: Dict,
+                           device: torch.device) -> None:
+    """Checkpoints carry no adapter slots: add the zeroed stacks that
+    `create_weights` declares (shapes read from a meta-device build)."""
+    from aphrodite_tpu_torch.lora.layers import LORA_A, LORA_B
+    for key, bucket in model.init_params(torch.device("meta")).items():
+        for name in (LORA_A, LORA_B):
+            if name in bucket:
+                params.setdefault(key, {})[name] = torch.zeros(
+                    bucket[name].shape, dtype=bucket[name].dtype,
+                    device=device)

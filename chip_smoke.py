@@ -116,6 +116,40 @@ Phases, in order; any failure exits non-zero:
    torch.profiler trace the run is wrapped in (`start_profile` /
    `stop_profile`, written under build/) must name K1's and K4's
    kernels. Logged: TTFT and per-token latency (one-sample figures).
+5d. Multi-LoRA (LoRALinearMethod's delta: torch calls over the slot
+   stacks, no hand kernel; the path's kernels run beneath it). PEFT
+   adapters (adapter_config.json and adapter_model.bin, which the
+   loader reads with torch.load) are written under build/ from numpy
+   seeds.
+   (a) A 2-layer Llama at Mistral-7B width, bf16, enable_lora with
+   max_loras 4 and rank 16, four adapters (all seven projections at
+   rank 16 twice and at rank 8, zero-padded in its slot; q+v only, the
+   subset layout): 8 sequences of 64 tokens, two without an adapter, a
+   prompt round (K2) and 3 decode steps (K1). Adapter rows' logits must
+   lie within 2e-2 + 2e-2 |ref| of a plain f32 forward (plain attention
+   and writers) with each row's W + (alpha / r) B A merged; rows without
+   an adapter must equal, bit for bit, the same model with LoRA off on
+   the same batch; a control that swaps two adapters' slots must miss
+   the bound.
+   (b) The e2e engine (phase 4's model, dummy weights from seed 0) with
+   enable_lora, max_loras 4: phase 4's mix of 8 base requests plus its
+   six first prompts again, each under its own adapter (six adapters
+   over four slots, so the scheduler holds adapter requests back and
+   the slots are evicted and reloaded), with APHRODITE_SPEC off and on,
+   at multi_step 1 and 8. Every request finishes with 32 tokens, every
+   adapter row differs from phase 4's tokens for its prompt, every base
+   row equals phase 4's while its top-2 logit gap (teacher-forced along
+   phase 4's tokens) exceeds the gap bound (4 x the largest logit
+   difference between two batch shapes of the same rows, at least one
+   bf16 ulp), K1, K2 and K4 launch, every page returns to the pool and
+   no step holds more than 4 adapters.
+   (c) (a) over a GPTQ W4A16 base (4 bits, group 128; the f32 reference
+   takes W dequantized by its plain version): K6 and K7 must launch.
+   (d) A batch-8 decode step profiled as in phase 4 with every row
+   under an adapter and with none (beside phase 4's LoRA-off profile),
+   and the delta's device time a decoder layer at batch 8 and 64
+   (`apply` with the rows' slots minus without, timed as in phase 3)
+   beside its bytes bound. A yardstick; it gates nothing.
 6. The same model and mix with kv_cache_dtype "int8", then "fp8", at
    multi_step 1 and 8: K1 launches on 8-bit pages and the prompts take
    the quantizing slot writer (K4, not K2). The KV pool's page count is
@@ -325,6 +359,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -801,20 +836,24 @@ def device_launches(torch, fn) -> int:
     """Device kernels (and copies or fills) one call of `fn` runs, by
     torch.profiler after one call unprofiled (host and device activity:
     with the device's alone a run was seen to miss the kernel). The
-    most of three profiled calls: a trace was seen to hold no kernel
-    for a call that ran one; a trace drops events, never adds them."""
+    most of at least three profiled calls, and of up to eight while
+    every trace so far is empty: a trace was seen to hold no kernel for
+    a call that ran one (three in a row once on an NVIDIA H100); a
+    trace drops events, never adds them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     counts = []
-    for _ in range(3):
+    for i in range(8):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         counts.append(sum(ev.count for ev in prof.key_averages()
                           if ev.device_type == DeviceType.CUDA))
+        if i >= 2 and max(counts) > 0:
+            break
     return max(counts)
 
 
@@ -2479,7 +2518,7 @@ QUANT_KERNEL_NAMES = ("quant_stream_kernel", "split_reduce_kernel",
 
 def profile_decode(torch, engine, tag: str = "",
                    quant_bound_ms: float = 0.0, prompt_len: int = 64,
-                   named=()) -> None:
+                   named=(), lora_requests=None):
     """Where a decode step's time goes at the e2e geometry: 8 running
     sequences (prompts of `prompt_len` tokens). 4 single decode steps
     are timed on the host clock (synchronised), then 4 more run under
@@ -2489,7 +2528,8 @@ def profile_decode(torch, engine, tag: str = "",
     matmuls' device time per step beside that weight-streaming bound;
     `named` pairs (label, kernel name) report that kernel's device ms
     and launches a step (K9's quant8_kernel, K14's quant_stream_kernel
-    where no other decoder runs)."""
+    where no other decoder runs). `lora_requests` gives row i its
+    adapter (a LoRA engine). Returns (wall ms, device ms) a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
@@ -2497,7 +2537,8 @@ def profile_decode(torch, engine, tag: str = "",
     sp = SamplingParams(temperature=0.0, max_tokens=14, ignore_eos=True)
     for i in range(8):
         engine.add_request(f"{tag}prof-{i}", None, sp, prompt_token_ids=[
-            (j * 71 + i * 13) % 31000 + 100 for j in range(prompt_len)])
+            (j * 71 + i * 13) % 31000 + 100 for j in range(prompt_len)],
+            lora_request=lora_requests[i] if lora_requests else None)
     # The prompt rounds, then a decode step to warm up.
     produced = {}
     while len(produced) < 8 or min(produced.values()) < 2:
@@ -2545,6 +2586,7 @@ def profile_decode(torch, engine, tag: str = "",
             f"(share {quant_ms / dev_ms:.3f}); weight-streaming bound "
             f"{quant_bound_ms:.3f} ms/step ({quant_ms / quant_bound_ms:.2f}"
             f"x)")
+    return wall_ms, dev_ms
 
 
 def quant_model_dir(awq: bool) -> str:
@@ -3322,6 +3364,596 @@ def run_async_serving(torch, model_dir, counters, card: str, reference):
     return launches, stats
 
 
+# ------------------------------------------------------- LoRA (5d) --
+
+LORA_SLOTS, LORA_RANK = 4, 16
+LORA_ALL = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+            "down_proj")
+LORA_QV = ("q_proj", "v_proj")
+
+
+def lora_proj(cfg=None):
+    """HF projection -> (module, fan in, fan out, merged bucket, output
+    row offset there) at `cfg`'s widths (MISTRAL_7B's by default)."""
+    cfg = cfg or MISTRAL_7B
+    h, inter = cfg["hidden_size"], cfg["intermediate_size"]
+    kv = cfg["num_key_value_heads"] * (h // cfg["num_attention_heads"])
+    return {"q_proj": ("self_attn", h, h, "self_attn.qkv_proj", 0),
+            "k_proj": ("self_attn", h, kv, "self_attn.qkv_proj", h),
+            "v_proj": ("self_attn", h, kv, "self_attn.qkv_proj", h + kv),
+            "o_proj": ("self_attn", h, h, "self_attn.o_proj", 0),
+            "gate_proj": ("mlp", h, inter, "mlp.gate_up_proj", 0),
+            "up_proj": ("mlp", h, inter, "mlp.gate_up_proj", inter),
+            "down_proj": ("mlp", inter, h, "mlp.down_proj", 0)}
+
+
+def write_peft_adapter(torch, path: str, seed: int, rank: int, targets,
+                       layers: int, std: float, dtype, keep: bool = False):
+    """A PEFT adapter directory at Mistral-7B width: adapter_config.json
+    (lora_alpha 2r) and adapter_model.bin (the loader's torch.load route:
+    the card machine has no safetensors), A [r, in] and B [out, r] drawn
+    ~ N(0, std^2) from numpy RandomState(seed) and stored in `dtype`.
+    With `keep`, returns {(layer, proj): (A, B)} as stored, in f32."""
+    import numpy as np
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": rank, "lora_alpha": 2 * rank,
+                   "target_modules": list(targets)}, f)
+    rs = np.random.RandomState(seed)
+    state, kept = {}, {}
+    for i in range(layers):
+        for proj in targets:
+            part, fan_in, fan_out = lora_proj()[proj][:3]
+            base = f"base_model.model.model.layers.{i}.{part}.{proj}"
+            a = torch.from_numpy((rs.standard_normal((rank, fan_in)) * std)
+                                 .astype(np.float32)).to(dtype)
+            b = torch.from_numpy((rs.standard_normal((fan_out, rank)) * std)
+                                 .astype(np.float32)).to(dtype)
+            state[f"{base}.lora_A.weight"] = a
+            state[f"{base}.lora_B.weight"] = b
+            if keep:
+                kept[(i, proj)] = (a.float(), b.float())
+    torch.save(state, os.path.join(path, "adapter_model.bin"))
+    return kept
+
+
+def drive_rows(torch, runner, kv, prompts, lora_reqs, tables, forced=None,
+               steps: int = 3):
+    """A prompt round of `prompts` (row i under adapter `lora_reqs[i]` or
+    none) and `steps` decode steps through `runner` on pages `kv`. Each
+    row's next token is its logits' argmax, or `forced[i][step]`.
+    Returns (f32 logits [rows, vocab] a step, the tokens of each row)."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.common.sequence import (SequenceData,
+                                                     SequenceGroupMetadata)
+    out_tokens = [[] for _ in prompts]
+    logits_all = []
+    for step in range(steps + 1):
+        mds = []
+        for i, prompt in enumerate(prompts):
+            data = SequenceData(list(prompt))
+            for t in out_tokens[i]:
+                data.append_token_id(t, 0.0)
+            mds.append(SequenceGroupMetadata(
+                f"r{i}", step == 0, {i: data},
+                SamplingParams(temperature=0.0), {i: tables[i]}, {i: {}},
+                lora_request=lora_reqs[i]))
+        inputs, _ = (runner._prepare_prompt(mds) if step == 0
+                     else runner._prepare_decode(mds))
+        meta = inputs["metadata"].replace(is_prompt=step == 0)
+        logits, kv = runner._logits(
+            runner._params_with_lora(inputs), inputs["input_ids"],
+            inputs["positions"], kv, meta, inputs["sel"])
+        rows = logits[:len(prompts)].float()
+        logits_all.append(rows)
+        nxt = rows.argmax(-1).tolist() if forced is None else \
+            [f[step] for f in forced]
+        for i, t in enumerate(nxt):
+            out_tokens[i].append(int(t))
+    torch.cuda.synchronize()
+    return logits_all, out_tokens
+
+
+def lora_bound_excess(torch, got, want) -> float:
+    """max |got - want| / (2e-2 + 2e-2 |want|): above 1 misses the bound."""
+    return ((got - want).abs() / (ATOL + RTOL * want.abs())).max().item()
+
+
+def check_lora_two_layer(torch, counters, gptq: bool):
+    """Phase 5d (a) / (c): a 2-layer Llama at Mistral-7B width, bf16 or
+    GPTQ W4A16 (4 bits, group 128), with LoRA at max_loras 4, rank 16,
+    and four PEFT adapters written under build/ (all seven projections at
+    rank 16 twice and at rank 8, which the slot pads with zeros; q+v only
+    at rank 16, the subset layout). 8 sequences of 64 tokens, two without
+    an adapter: a prompt round (K2; K6 on GPTQ) and 3 decode steps (K1;
+    K7 on GPTQ). Held: adapter rows' logits within 2e-2 + 2e-2 |ref| of a
+    plain f32 forward (the plain attention and writers) with each row's
+    W + (alpha / r) B A merged (GPTQ: W dequantized by its plain version);
+    rows without an adapter bit-equal to the same model with LoRA off on
+    the same batch; a control that swaps two adapters' slots misses the
+    bound (its excess on each row it moves is logged). Returns the
+    bound's largest excess."""
+    from aphrodite_tpu_torch.common.config import LoRAConfig
+    from aphrodite_tpu_torch.lora.layers import (LORA_A, LORA_B,
+                                                 LoRALinearMethod)
+    from aphrodite_tpu_torch.lora.models import layouts_from_model
+    from aphrodite_tpu_torch.lora.request import LoRARequest
+    from aphrodite_tpu_torch.lora.worker_manager import WorkerLoRAManager
+    from aphrodite_tpu_torch.executor.model_runner import ModelRunner
+    from aphrodite_tpu_torch.modeling.layers import attention
+    from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
+    from aphrodite_tpu_torch.modeling.layers.quantization.gptq import (
+        GPTQConfig)
+    from aphrodite_tpu_torch.modeling.models.llama import LlamaForCausalLM
+    from aphrodite_tpu_torch.ops.cuda import kv_write as kw
+    from aphrodite_tpu_torch.ops.cuda import paged_attention as pa
+    from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
+    from aphrodite_tpu_torch.transformers_utils.config import (
+        config_from_dict)
+
+    label = "GPTQ W4A16" if gptq else "bf16"
+    cfg = config_from_dict(dict(MISTRAL_7B, num_hidden_layers=2))
+    dev = torch.device("cuda")
+    base_method = GPTQConfig(4, GPTQ_GS).get_linear_method() if gptq \
+        else LinearMethod()
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+                             linear_method=LoRALinearMethod(
+                                 base_method, LORA_SLOTS, LORA_RANK))
+    params = model.init_params(dev)
+    gen = torch.Generator(device=dev).manual_seed(70 + gptq)
+    # Dense weights U(-0.05, 0.05) as phase 3's model; GPTQ codes random
+    # about a zero point of 8 (random zero points bias whole groups, and
+    # the residual stream then drowns the adapters' deltas: the swapped
+    # control stayed within the bound on 3 of 4 rows) with scales
+    # in [3e-3, 6e-3) (about the same spread); the LM head
+    # U(-1e-3, 1e-3). bf16 against f32 moves the final hidden state by
+    # ~1% whatever the adapters do: with the head at U(-0.01, 0.01) (max
+    # |logit| 1.9) even the rows without an adapter missed 2e-2 + 2e-2
+    # |ref| (by 1.58x, adapter rows 2.19x, on an NVIDIA H100), so the
+    # head maps that drift to logits under the bound's 2e-2 term; the
+    # swapped-slot control shows the bound still sees an adapter's
+    # effect.
+    for key, bucket in params.items():
+        for name, t in bucket.items():
+            if name in (LORA_A, LORA_B):
+                t.zero_()
+            elif key.endswith("layernorm") or key == "model.norm":
+                t.fill_(1.0)
+            elif key == "lm_head":
+                t.uniform_(-1e-3, 1e-3, generator=gen)
+            elif name == "g_idx":
+                t.copy_(torch.arange(t.numel(), device=dev) // GPTQ_GS)
+            elif name == "qweight":
+                t.random_(-2 ** 31, 2 ** 31, generator=gen)
+            elif name == "qzeros":
+                t.fill_(0x77777777)             # z - 1 = 7 in every nibble
+            elif name == "scales":
+                t.copy_(torch.rand(t.shape, generator=gen, device=dev) *
+                        3e-3 + 3e-3)
+            elif t.is_floating_point():
+                t.uniform_(-0.05, 0.05, generator=gen)
+
+    root = os.path.join(HERE, "build", "lora_smoke", "gptq" if gptq
+                        else "bf16")
+    peft, reqs = {}, {}
+    for lid, rank, targets in ((1, 16, LORA_ALL), (2, 16, LORA_ALL),
+                               (3, 8, LORA_ALL), (4, 16, LORA_QV)):
+        path = os.path.join(root, f"a{lid}")
+        peft[lid] = write_peft_adapter(torch, path, 100 * (1 + gptq) + lid,
+                                       rank, targets, 2, 0.04,
+                                       torch.float32, keep=True)
+        reqs[lid] = LoRARequest(f"a{lid}", lid, path)
+
+    class _Cfg:
+        def get_vocab_size(self):
+            return cfg.vocab_size
+
+        def get_sliding_window(self):
+            return None
+    page_size, num_pages = 32, 32
+
+    kv_width = lora_proj()["k_proj"][2]
+
+    def pages(dtype):
+        return [(torch.zeros(num_pages, page_size, kv_width, dtype=dtype,
+                             device=dev),
+                 torch.zeros(num_pages, page_size, kv_width, dtype=dtype,
+                             device=dev)) for _ in range(2)]
+
+    def runner_of(m, p, dtype=torch.bfloat16):
+        return ModelRunner(m, p, _Cfg(), None, page_size,
+                           num_pages * page_size, dev, kv_cache_dtype=dtype)
+    runner = runner_of(model, params)
+    manager = WorkerLoRAManager(
+        LoRAConfig(max_lora_rank=LORA_RANK, max_loras=LORA_SLOTS),
+        runner.write_lora_slot, runner.clear_lora_slot,
+        layouts_from_model(model))
+    row_ids = [1, 2, None, 3, 4, None, 2, 1]
+    row_reqs = [reqs.get(i) for i in row_ids]
+    manager.set_active_adapters(row_reqs)
+    runner.lora_slot_of = manager.slot_of
+    prompts = [[(j * 131 + i * 977) % (cfg.vocab_size - 100) + 50
+                for j in range(64)] for i in range(8)]
+    tables = [[3 * i + 1, 3 * i + 2, 3 * i + 3] for i in range(8)]
+
+    for c in counters.values():
+        c.reset()
+    got, tokens = drive_rows(torch, runner, pages(torch.bfloat16), prompts,
+                             row_reqs, tables)
+    launches = {n: c.count for n, c in counters.items() if c.count}
+    required = ("paged_decode_attention", "write_kv_pages_prefill") + (
+        ("gptq_matmul", "gptq_matmul_stream") if gptq else ())
+    for name in required:
+        if not launches.get(name):
+            fail(f"LoRA 2-layer {label}: kernel {name} never launched "
+                 f"({launches})")
+
+    # LoRA off, the same batch and tokens: rows without an adapter
+    # bit-equal.
+    model_off = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+                                 linear_method=base_method)
+    params_off = {k: {n: t for n, t in b.items()
+                      if n not in (LORA_A, LORA_B)}
+                  for k, b in params.items()}
+    off, _ = drive_rows(torch, runner_of(model_off, params_off),
+                        pages(torch.bfloat16), prompts, [None] * 8, tables,
+                        forced=tokens)
+    base_rows = [i for i, a in enumerate(row_ids) if a is None]
+    if not all(torch.equal(g[base_rows], o[base_rows])
+               for g, o in zip(got, off)):
+        fail(f"LoRA 2-layer {label}: rows without an adapter differ from "
+             "the model with LoRA off on the same batch")
+
+    # The plain f32 reference, one adapter (or none) at a time.
+    ref_base = {}
+    for key, bucket in params.items():
+        if "qweight" in bucket:
+            w = qmm.dequantize_plain(bucket["qweight"], bucket["qzeros"],
+                                     bucket["scales"], bits=4,
+                                     group_size=GPTQ_GS,
+                                     dtype=torch.bfloat16)
+            ref_base[key] = {"weight": w.t().float().contiguous()}
+        else:
+            ref_base[key] = {n: t.float() for n, t in bucket.items()
+                             if n not in (LORA_A, LORA_B)}
+    model_ref = LlamaForCausalLM(cfg, dtype=torch.float32)
+    plain = {
+        (attention, "write_kv_pages"):
+            lambda k, v, kp, vp, s, **_: kw.write_kv_pages_plain(
+                k, v, kp, vp, s),
+        (attention, "write_kv_pages_prefill"):
+            lambda k, v, kp, vp, pid, sb, vld:
+            kw.write_kv_pages_prefill_plain(k, v, kp, vp, pid, vld),
+        (attention, "paged_decode_attention"):
+            pa.paged_decode_attention_plain,
+    }
+    saved = {key: getattr(*key) for key in plain}
+    ref = {}
+    try:
+        for key, fn in plain.items():
+            setattr(*key, fn)
+        for lid in (None, 1, 2, 3, 4):
+            rows = [i for i, a in enumerate(row_ids) if a == lid]
+            p_ref = dict(ref_base)
+            for (layer, proj), (a, b) in (peft[lid].items() if lid
+                                          else ()):
+                scale = 2.0                      # lora_alpha / r
+                suffix, off_row = lora_proj()[proj][3:]
+                key = f"model.layers.{layer}.{suffix}"
+                if p_ref[key] is ref_base[key]:
+                    p_ref[key] = {"weight": ref_base[key]["weight"].clone()}
+                w = p_ref[key]["weight"]
+                w[off_row:off_row + b.shape[0]] += scale * (
+                    b.to(dev) @ a.to(dev))
+            want, _ = drive_rows(
+                torch, runner_of(model_ref, p_ref, torch.float32),
+                pages(torch.float32), [prompts[i] for i in rows],
+                [None] * len(rows), [tables[i] for i in rows],
+                forced=[tokens[i] for i in rows])
+            for j, i in enumerate(rows):
+                ref[i] = [w[j] for w in want]
+            del p_ref
+    finally:
+        for key, fn in saved.items():
+            setattr(*key, fn)
+
+    excess = {i: max(lora_bound_excess(torch, got[s][i], ref[i][s])
+                     for s in range(len(got))) for i in range(8)}
+    held = max(excess[i] for i in range(8) if row_ids[i] is not None)
+
+    # Control: adapters 1 and 2 swap slots.
+    swap = {1: 2, 2: 1}
+    runner.lora_slot_of = lambda i: manager.slot_of(swap.get(i, i))
+    ctl, _ = drive_rows(torch, runner, pages(torch.bfloat16), prompts,
+                        row_reqs, tables, forced=tokens)
+    runner.lora_slot_of = manager.slot_of
+    moved = [i for i, a in enumerate(row_ids) if a in swap]
+    ctl_excess = {i: max(lora_bound_excess(torch, ctl[s][i], ref[i][s])
+                         for s in range(len(ctl))) for i in moved}
+    log(f"LoRA 2-layer {label} model (max_loras {LORA_SLOTS}, rank "
+        f"{LORA_RANK}; adapters all 7 projections r16 x2, r8, q+v r16): "
+        f"prompt + 3 decode steps of 8 rows vs a plain f32 forward with "
+        f"each row's W + (alpha/r) B A merged: |err| / (2e-2 + 2e-2 |ref|)"
+        f" at most {held:.3f} on adapter rows (must be <= 1), "
+        f"{max(excess[i] for i in base_rows):.3f} on the rows without "
+        f"(a reading); those rows bit-equal to LoRA off; control (adapters "
+        f"1 and 2 swap slots) {ctl_excess} (the largest must exceed 1); max "
+        f"|logit| {max(r.abs().max().item() for r in got):.3f}; launches "
+        f"{launches}")
+    if held > 1:
+        fail(f"LoRA 2-layer {label}: adapter rows miss the bound by "
+             f"{held:.3f}x")
+    if max(ctl_excess.values()) <= 1:
+        fail(f"LoRA 2-layer {label}: the swapped-slot control stays within "
+             f"the bound ({ctl_excess})")
+    del model, params, runner, manager, model_off, params_off, ref_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return held
+
+
+def time_lora_delta(torch, timer) -> dict:
+    """Phase 5d (d): device time of the LoRA delta a decoder layer (its
+    four wrapped layers at Mistral-7B width, max_loras 4, rank 16, every
+    row with an adapter, the step's mask prebuilt) at batch 8 and 64:
+    `LoRALinearMethod.apply` with the rows' slots minus the same call
+    without them (the base F.linear), each timed as phase 3 times a
+    kernel, beside the bytes bound of the delta (x, all slots' A and B
+    and y read once, y written once)."""
+    from aphrodite_tpu_torch.lora.layers import (LORA_A, LORA_B, LORA_IDX,
+                                                 LORA_MASK, LoRALinearMethod,
+                                                 slot_mask)
+    from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    method = LoRALinearMethod(LinearMethod(), LORA_SLOTS, LORA_RANK)
+    out = {}
+    for m in (8, 64):
+        idx = (torch.arange(m, device=dev, dtype=torch.int32) % LORA_SLOTS)
+        mask = slot_mask(idx, LORA_SLOTS, torch.bfloat16)
+        with_ms = without_ms = bound_ms = 0.0
+        proj = lora_proj()
+        for fan_in, fan_out, packed in (
+                (proj["q_proj"][1], sum(proj[p][2] for p in LORA_QV) +
+                 proj["k_proj"][2], 3),
+                proj["o_proj"][1:3] + (1,),
+                (proj["gate_proj"][1], 2 * proj["gate_proj"][2], 2),
+                proj["down_proj"][1:3] + (1,)):
+            r = LORA_RANK * packed * LORA_SLOTS
+
+            def randn(*shape):
+                return (torch.randn(*shape, generator=gen, device=dev) *
+                        0.02).to(torch.bfloat16)
+            base = {"weight": randn(fan_out, fan_in),
+                    LORA_A: randn(r, fan_in), LORA_B: randn(fan_out, r)}
+            lora = dict(base, **{LORA_IDX: idx, LORA_MASK: mask})
+            x = randn(m, 1, fan_in)
+            with_ms += timer(lambda: method.apply(lora, x))
+            without_ms += timer(lambda: method.apply(base, x))
+            bound_ms += 2 * (r * fan_in + fan_out * r + m * fan_in +
+                             2 * m * fan_out) / HBM_BYTES_PER_S * 1e3
+        out[m] = (with_ms - without_ms, with_ms, without_ms, bound_ms)
+        log(f"LoRA delta a decoder layer at batch {m} (4 wrapped layers, "
+            f"max_loras {LORA_SLOTS}, rank {LORA_RANK}): "
+            f"{with_ms - without_ms:.4f} ms of device time ({with_ms:.4f} "
+            f"with the delta, {without_ms:.4f} the base alone); bytes bound "
+            f"{bound_ms:.5f} ms; {32 * (with_ms - without_ms):.3f} ms over "
+            "32 layers")
+    return out
+
+
+def lora_gap_bound(torch, runner, prompts, tokens):
+    """Top-2 logit gaps along the base model's own trajectories
+    (`prompts[i]` then `tokens[i]`, teacher-forced in one cache-less
+    prompt round a sequence) and the gap bound: 4 x the largest logit
+    difference between that round and the same sequences two at a time
+    (equal lengths: the same rows in another batch shape), floored at one
+    bf16 ulp of the largest logit. Returns (gaps per sequence, bound)."""
+    from aphrodite_tpu_torch.modeling.input_metadata import InputMetadata
+    dev = torch.device("cuda")
+
+    def forced(seqs):
+        full = [p + t[:-1] for p, t in zip(seqs[0], seqs[1])]
+        n, L = len(full), len(full[0])
+        ids = torch.tensor(full, dtype=torch.int32, device=dev)
+        pos = torch.arange(L, dtype=torch.int32, device=dev).repeat(n, 1)
+        meta = InputMetadata(
+            slot_mapping=torch.zeros((n * L,), dtype=torch.int32,
+                                     device=dev),
+            block_tables=torch.zeros((n, 1), dtype=torch.int32, device=dev),
+            context_lens=torch.zeros((n,), dtype=torch.int32, device=dev),
+            prompt_lens=torch.full((n,), L, dtype=torch.int32, device=dev),
+            is_prompt=True)
+        k = len(seqs[1][0])
+        sel = torch.cat([torch.arange(L - k, L, device=dev) + r * L
+                         for r in range(n)])
+        logits, _ = runner._logits(runner.params, ids, pos, None, meta, sel)
+        return logits.float().view(n, k, -1)
+    alone = [forced(([p], [t]))[0] for p, t in zip(prompts, tokens)]
+    noise = 0.0
+    by_len = {}
+    for i, p in enumerate(prompts):
+        by_len.setdefault(len(p), []).append(i)
+    for group in by_len.values():
+        for i, j in zip(group[::2], group[1::2]):
+            pair = forced(([prompts[i], prompts[j]], [tokens[i], tokens[j]]))
+            noise = max(noise, (pair[0] - alone[i]).abs().max().item(),
+                        (pair[1] - alone[j]).abs().max().item())
+    top = max(a.abs().max().item() for a in alone)
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    gaps = [(lambda t2: (t2[:, 0] - t2[:, 1]).tolist())(
+        a.topk(2, dim=-1).values) for a in alone]
+    return gaps, max(4 * noise, ulp), noise
+
+
+def mix_prompt(n: int, salt: int):
+    """run_engine's prompts (phase 4's mix)."""
+    return [(i * 131 + salt * 977) % 31000 + 100 for i in range(n)]
+
+
+# Phase 4's mix: (request id without the tag, prompt length, salt).
+MIX = [(str(i), n, i) for i, n in enumerate([1000, 300, 64, 1000, 300, 64])]
+MIX_LATE = [(f"late{j}", 12, 10 + j) for j in range(2)]
+
+
+def run_lora_engine(torch, model_dir, counters, card: str, phase4):
+    """Phase 5d (b): the port's engine at Mistral-7B width and depth,
+    bf16, dummy weights from seed 0 (phase 4's), enable_lora with
+    max_loras 4 and rank 16, and six PEFT adapters written under build/
+    (all seven projections, rank 16 or 8). Phase 4's mix of 8
+    base requests plus its six first prompts again, each under its own
+    adapter (6 over 4 slots: the scheduler holds adapter requests back
+    and the slots are evicted and reloaded), with APHRODITE_SPEC off and
+    on, at multi_step 1 and 8. Every request must finish with its 32
+    tokens; every adapter row must differ from phase 4's tokens for its
+    prompt; every base row must equal phase 4's while its top-2 logit
+    gap (the base model teacher-forced along phase 4's tokens) exceeds
+    the gap bound (`lora_gap_bound`); K1, K2 and K4 must launch; every
+    page must return to the pool; no step may hold more than 4 adapters.
+    Then phase 5d (d)'s batch-8 decode profiles on this engine. Returns
+    (launches, the profiles); the caller frees the engine once this
+    frame, whose spies hold it, is gone."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    from aphrodite_tpu_torch.lora.request import LoRARequest
+    root = os.path.join(HERE, "build", "lora_smoke", "e2e")
+    t0 = time.perf_counter()
+    reqs = {}
+    # All seven projections (the subset layout is phase 5d (a)'s), A and
+    # B ~ N(0, 0.3^2): a dummy layer adds ~1e-8 of the residual stream
+    # (the embedding's U(-1e-3, 1e-3)), so an adapter must be strong to
+    # move a token (through gate / up / down it adds ~50x the residual).
+    for lid in range(1, 7):
+        path = os.path.join(root, f"a{lid}")
+        write_peft_adapter(torch, path, 500 + lid, 16 if lid % 2 else 8,
+                           LORA_ALL, MISTRAL_7B["num_hidden_layers"], 0.3,
+                           torch.bfloat16)
+        reqs[lid] = LoRARequest(f"a{lid}", lid, path)
+    log(f"LoRA e2e: 6 adapters at Mistral-7B depth written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    engine = AphroditeEngine.from_engine_args(EngineArgs(
+        model=model_dir, load_format="dummy", dtype="bfloat16", seed=0,
+        block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+        disable_log_stats=True, enable_lora=True, max_loras=LORA_SLOTS,
+        max_lora_rank=LORA_RANK))
+    executor = engine.executor
+    manager = executor.lora_manager.manager
+    total = engine.cache_config.num_gpu_blocks
+    log(f"LoRA engine up in {time.perf_counter() - t0:.1f} s: {total} KV "
+        f"pages of 32 tokens")
+    held, moves = [], {"activate": 0, "deactivate": 0}
+    real_pre = executor._pre_step
+
+    def pre_step(mds, *args):
+        real_pre(mds, *args)
+        held.append((len({md.lora_int_id for md in mds if md.lora_request}),
+                     len(manager._slot_of)))
+    executor._pre_step = pre_step
+    for name in moves:
+        def counted(lora_id, _real=getattr(manager, f"{name}_lora"),
+                    _name=name):
+            done = _real(lora_id)
+            moves[_name] += bool(done)
+            return done
+        setattr(manager, f"{name}_lora", counted)
+
+    gaps = {}
+    for ms in (1, 8):
+        prompts = [mix_prompt(n, salt) for _, n, salt in MIX + MIX_LATE]
+        want = [phase4[f"m{ms}-{rid}"] for rid, _, _ in MIX + MIX_LATE]
+        gaps[ms] = lora_gap_bound(torch, executor.model_runner, prompts,
+                                  want)
+    launches_all = {}
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
+    for spec, ms in ((False, 1), (False, 8), (True, 1), (True, 8)):
+        tag = f"LoRA spec {'on' if spec else 'off'} multi_step={ms}"
+        os.environ["APHRODITE_SPEC"] = "1" if spec else "0"
+        engine.scheduler_config.multi_step = ms
+        held.clear()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for rid, n, salt in MIX:
+            engine.add_request(f"{tag}/{rid}", None, sp,
+                               prompt_token_ids=mix_prompt(n, salt))
+        for lid, (rid, n, salt) in enumerate(MIX, 1):
+            engine.add_request(f"{tag}/a{lid}-{rid}", None, sp,
+                               prompt_token_ids=mix_prompt(n, salt),
+                               lora_request=reqs[lid])
+        outputs, steps = {}, 0
+        while engine.has_unfinished_requests():
+            for out in engine.step():
+                if out.finished:
+                    outputs[out.request_id[len(tag) + 1:]] = \
+                        list(out.outputs[0].token_ids)
+            steps += 1
+            if steps == 1:
+                for rid, n, salt in MIX_LATE:
+                    engine.add_request(f"{tag}/{rid}", None, sp,
+                                       prompt_token_ids=mix_prompt(n, salt))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {n: c.count for n, c in counters.items() if c.count}
+        for name, n in launches.items():
+            launches_all[name] = launches_all.get(name, 0) + n
+        if len(outputs) != 14 or any(len(t) != 32 or not all(
+                0 <= x < 32000 for x in t) for t in outputs.values()):
+            fail(f"{tag}: {len(outputs)} of 14 requests finished with 32 "
+                 "in-vocabulary tokens")
+        for name in BF16_KERNELS[:1] + ("write_kv_pages_prefill",
+                                        "write_kv_pages"):
+            if not launches.get(name):
+                fail(f"{tag}: kernel {name} never launched ({launches})")
+        free = engine.scheduler.block_manager.get_num_free_gpu_blocks()
+        if free != total:
+            fail(f"{tag}: {total - free} pages not returned to the pool")
+        most = max(max(h) for h in held)
+        if most > LORA_SLOTS:
+            fail(f"{tag}: a step held {most} adapters")
+        same_as_base = [f"a{lid}" for lid, (rid, _, _) in enumerate(MIX, 1)
+                        if outputs[f"a{lid}-{rid}"] == phase4[f"m{ms}-{rid}"]]
+        if same_as_base:
+            fail(f"{tag}: adapter rows {same_as_base} equal the base tokens")
+        row_gaps, gap_bound, noise = gaps[ms]
+        compared, stopped = 0, 0
+        for k, (rid, _, _) in enumerate(MIX + MIX_LATE):
+            got, base = outputs[rid], phase4[f"m{ms}-{rid}"]
+            for t, (g, w) in enumerate(zip(got, base)):
+                if row_gaps[k][t] <= gap_bound:
+                    stopped += 1
+                    break              # a near tie may flip from here
+                if g != w:
+                    fail(f"{tag}: base row {rid} differs from phase 4 at "
+                         f"token {t} where the top-2 gap "
+                         f"{row_gaps[k][t]:.3e} exceeds the bound "
+                         f"{gap_bound:.3e}: {got} / {base}")
+                compared += 1
+        log(f"e2e {tag}: 8 base + 6 adapter requests (6 adapters over "
+            f"{LORA_SLOTS} slots) x 32 tokens, {steps} engine steps, "
+            f"{dt:.3f} s, {14 * 32 / dt:.1f} generated tok/s on {card}; "
+            f"adapter rows all differ from the base tokens; base rows equal "
+            f"phase 4's on {compared} tokens compared while the top-2 gap "
+            f"exceeds {gap_bound:.3e} (4 x the batch-shape noise "
+            f"{noise:.3e}; {stopped} rows stopped at a near tie); at most "
+            f"{most} adapters a step; slot activations "
+            f"{moves['activate']}, evictions {moves['deactivate']} so far; "
+            f"all {total} pages free; launches {launches}")
+    os.environ["APHRODITE_SPEC"] = "0"
+    if moves["deactivate"] < 1:
+        fail("LoRA e2e: 6 adapters over 4 slots evicted no slot")
+    every = [reqs[i % LORA_SLOTS + 1] for i in range(8)]
+    profiles = {
+        "every row": profile_decode(torch, engine, "LoRA, every row with "
+                                    "an adapter: ", lora_requests=every),
+        "no row": profile_decode(torch, engine, "LoRA, no row with an "
+                                 "adapter: "),
+    }
+    return launches_all, profiles
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "aphrodite_tpu_torch")):
         print("chip_smoke: aphrodite_tpu_torch/ not found beside this "
@@ -3481,7 +4113,7 @@ def main() -> int:
                                tokens=ragged_tokens))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"e2e peak memory {peak:.2f} GiB on {smi}")
-    profile_decode(torch, engine)
+    lora_off_profile = profile_decode(torch, engine)
     profile_decode(torch, engine, "long-context ", prompt_len=1000)
 
     # 5. The same engine on the padded-grid kernel (K5).
@@ -3562,6 +4194,26 @@ def main() -> int:
     # 5c. AsyncAphrodite: 16 concurrent streams through the serving path.
     by_path["async"], _ = run_async_serving(torch, model_dir, counters, smi,
                                             reference)
+
+    # 5d. Multi-LoRA: 2-layer checks over bf16 and GPTQ W4A16 bases, the
+    # e2e engine with 6 adapters over 4 slots, the decode step's cost.
+    os.environ["APHRODITE_W4A8"] = "0"
+    check_lora_two_layer(torch, counters, gptq=False)
+    check_lora_two_layer(torch, counters, gptq=True)
+    os.environ.pop("APHRODITE_W4A8")
+    by_path["LoRA"], lora_profiles = run_lora_engine(
+        torch, model_dir, counters, smi, ragged_tokens)
+    free_engine(torch, "LoRA")
+    delta = time_lora_delta(torch, timer)
+    (every_wall, every_dev), (none_wall, none_dev) = (
+        lora_profiles["every row"], lora_profiles["no row"])
+    off_wall, off_dev = lora_off_profile
+    log(f"LoRA batch-8 decode step on {smi} (64-token prompts; wall / "
+        f"device ms a step): every row with an adapter {every_wall:.2f} / "
+        f"{every_dev:.2f}; no row with an adapter {none_wall:.2f} / "
+        f"{none_dev:.2f}; LoRA off (phase 4's engine) {off_wall:.2f} / "
+        f"{off_dev:.2f}; the delta {delta[8][0]:.4f} / {delta[64][0]:.4f} ms "
+        f"of device time a decoder layer at batch 8 / 64")
 
     # 6. int8 and fp8 KV pages.
     for kv_dtype, page_dtype in (("int8", torch.int8),

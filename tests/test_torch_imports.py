@@ -7,7 +7,8 @@
   passes device="cpu"; they never fall back to the CPU on their own.
 - Configurations outside the port's slices are refused at config time
   with a message naming the later slice; int8 / fp8 KV caches,
-  sliding-window (Mistral) models and speculative decoding are served.
+  sliding-window (Mistral) models, speculative decoding and LoRA are
+  served.
 - The two flag registries hold the same names, types and defaults.
 """
 import ast
@@ -128,7 +129,20 @@ def _model_dir(tmp_path, tiny_model_dir, **changes):
 ])
 def test_out_of_slice_engine_args_are_refused(tiny_model_dir, change,
                                               match):
+    """LoRA was refused here until the port served it; its case keeps
+    its id and holds what replaced the refusal: the configs build with
+    a LoRAConfig (the port's), as the JAX package's do."""
+    from aphrodite_tpu_torch.common.config import LoRAConfig
     from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    if match == "LoRA":
+        configs = EngineArgs(model=tiny_model_dir, load_format="dummy",
+                             device="cpu", max_loras=2, **change
+                             ).create_engine_configs()
+        assert isinstance(configs[-1], LoRAConfig)
+        assert (configs[-1].max_loras, configs[-1].max_lora_rank,
+                configs[-1].max_cpu_loras) == (2, 16, 2)
+        assert configs[-1].lora_dtype == configs[0].dtype
+        return
     with pytest.raises(NotImplementedError, match=match):
         EngineArgs(**{"model": tiny_model_dir, "load_format": "dummy",
                       "device": "cpu", **change}).create_engine_configs()
@@ -203,7 +217,9 @@ def test_serving_modules_are_scanned_and_chip_smoke_skips_endpoints():
     for rel in ("engine/async_aphrodite.py", "endpoints/utils.py",
                 "endpoints/openai/protocol.py",
                 "endpoints/openai/api_server.py", "common/grammar.py",
-                "modeling/layers/rejection.py"):
+                "modeling/layers/rejection.py", "lora/__init__.py",
+                "lora/request.py", "lora/layers.py", "lora/models.py",
+                "lora/worker_manager.py"):
         assert f"aphrodite_tpu_torch/{rel}" in scanned, rel
     with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
         mods = list(_imported(ast.parse(f.read())))

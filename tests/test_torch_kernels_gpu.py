@@ -1980,3 +1980,53 @@ def test_threefry_draws_on_the_card_equal_the_cpu(dev):
                        prng.uniform(keys, (2, 32000)))
     assert torch.equal(prng.categorical(keys_d, logits.to(dev), 2).cpu(),
                        prng.categorical(keys, logits, 2))
+
+
+# ------------------------------------------------------------- LoRA --
+
+def test_lora_delta_on_the_card_matches_f64(dev):
+    """The LoRA delta (`LoRALinearMethod` over a dense base: x @ A_cat^T,
+    the slot mask, one addmm of B_cat; torch calls, no hand kernel) at
+    Mistral-7B's four wrapped projections (qkv rank 3r, gate_up 2r),
+    max_loras 4, rank 16, batches 1, 8 and 64, rows cycling through
+    slots -1, 0, 1, 2 and 3, against an f64 CPU reference of base +
+    (x @ A_s) @ B_s on the same bf16 values. Tolerance: 2e-2 + 2e-2
+    |ref| (bf16 operands, f32 sums, x @ A rounded to bf16 once, the
+    output rounded to bf16). Rows with slot -1 equal the base F.linear
+    bit for bit."""
+    import torch.nn.functional as F
+    from aphrodite_tpu_torch.lora.layers import (LORA_A, LORA_B, LORA_IDX,
+                                                 LoRALinearMethod)
+    from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
+    slots, rank = 4, 16
+    method = LoRALinearMethod(LinearMethod(), slots, rank)
+    g = torch.Generator(device=dev).manual_seed(23)
+    for fan_in, fan_out, packed in ((4096, 6144, 3), (4096, 4096, 1),
+                                    (4096, 28672, 2), (14336, 4096, 1)):
+        r = rank * packed
+
+        def randn(*shape, std=1.0):
+            return (torch.randn(*shape, generator=g, device=dev) *
+                    std).to(torch.bfloat16)
+        w = randn(fan_out, fan_in, std=0.02)
+        a = randn(slots * r, fan_in, std=0.02)
+        b = randn(fan_out, slots * r, std=0.02)
+        for m in (1, 8, 64):
+            idx = torch.tensor([(i % 5) - 1 for i in range(m)],
+                               dtype=torch.int32, device=dev)
+            x = randn(m, 1, fan_in)
+            got = method.apply({"weight": w, LORA_A: a, LORA_B: b,
+                                LORA_IDX: idx}, x)
+            torch.cuda.synchronize()
+            x64, w64 = x.double().cpu()[:, 0], w.double().cpu()
+            a64, b64 = a.double().cpu(), b.double().cpu()
+            want = x64 @ w64.T
+            for i, s in enumerate(idx.tolist()):
+                if s >= 0:
+                    rows = slice(s * r, (s + 1) * r)
+                    want[i] += (x64[i] @ a64[rows].T) @ b64[:, rows].T
+            err = (got.double().cpu()[:, 0] - want).abs()
+            assert (err <= 2e-2 + 2e-2 * want.abs()).all(), \
+                (fan_in, fan_out, m, err.max().item())
+            base_rows = (idx < 0).nonzero()[:, 0]
+            assert torch.equal(got[base_rows], F.linear(x, w)[base_rows])
