@@ -1,7 +1,8 @@
 """Engine configuration objects for the PyTorch port.
 
 Copied from the JAX package's `common/config.py` with the same classes
-and semantics, narrowed to what the port serves so far: a dense,
+and semantics, narrowed to what the port serves so far: a dense
+Mixtral or DeepSeek-MoE model, or a dense,
 GPTQ-quantized (4 or 8 bits, no act-order), AWQ-quantized (4 bits), GGUF
 (a `.gguf` file, dense or at rest), SqueezeLLM, load-time int8 or QuIP#
 Llama-family model, Mistral's sliding window included, on one CUDA card
@@ -18,7 +19,12 @@ refused HERE, with a message naming the later slice that brings it
   not take; on the card, GGUF, SqueezeLLM, int8 and QuIP# at layer
   shapes the kernels' gates refuse (QuIP#'s int8 form among them) and
   quantized models in float32 (the quantized matmul fallback route);
-- architectures other than Llama's.
+- architectures other than Llama's, Mixtral's and DeepSeek-MoE's;
+- LoRA on the MoE architectures (`LoRAConfig.verify_with_model_config`).
+
+Quantization of any kind on an MoE architecture is refused as well, for
+good: the reference serves no quantized experts (its FusedMoE stacks
+float experts and takes no linear method).
 
 `DeviceConfig` resolves to "cuda" or "cpu" only, and never falls back
 to the CPU on its own.
@@ -125,11 +131,20 @@ class ModelConfig:
 
     def _verify_port_slice(self) -> None:
         """Refuse configurations outside the ported slices."""
+        from aphrodite_tpu_torch.modeling.models import (ModelRegistry,
+                                                         moe_architecture)
+        moe = moe_architecture(self.hf_config)
+        if moe and self.quantization is not None:
+            raise NotImplementedError(
+                f"quantization {self.quantization!r} on the MoE "
+                f"architecture {moe}: the reference serves no quantized "
+                "experts (its FusedMoE stacks float expert weights and "
+                "takes no linear method, so a quantized expert's qweight "
+                "cannot load there), and neither does the PyTorch port.")
         if self.quantization == "gptq":
             self._verify_gptq()
         elif self.quantization == "awq":
             self._verify_awq()
-        from aphrodite_tpu_torch.modeling.models import ModelRegistry
         archs = getattr(self.hf_config, "architectures", None) or []
         if not any(ModelRegistry.load_model_cls(a) is not None
                    for a in archs):
@@ -651,6 +666,11 @@ class LoRAConfig:
                 f"max_loras ({self.max_loras}).")
 
     def verify_with_model_config(self, model_config: ModelConfig) -> None:
+        from aphrodite_tpu_torch.modeling.models import moe_architecture
+        moe = moe_architecture(model_config.hf_config)
+        if moe:
+            refuse(f"LoRA on the MoE architecture {moe}",
+                   "LoRA on MoE models (ROADMAP.md Queue 1)")
         if self.lora_dtype in (None, "auto"):
             self.lora_dtype = model_config.dtype
 

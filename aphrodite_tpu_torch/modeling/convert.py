@@ -14,7 +14,13 @@ method stores it [in, out], the port [out, in]). An int8 `weight` (the
 int8 method's, QuIP#'s int8 form) keeps [in, out] on both sides: K17
 reads W as [K, N]. LoRA slot stacks, A [slots, in, R] and B [slots, R,
 out] in the JAX package, become the port's slot-concatenated A [slots *
-R, in] and B [out, slots * R] (`lora/layers.py`). Used to give both
+R, in] and B [out, slots * R] (`lora/layers.py`). The MoE buckets
+(Mixtral's `model.layers.N.block_sparse_moe`, DeepSeek's
+`model.layers.N.mlp_moe`) hold the router `gate` [H, E] and the expert
+stacks [E, in, out] in the JAX package; the port keeps the linear
+layout, [E, H] and [E, out, in] (`layers/fused_moe.py`). DeepSeek's
+shared experts are a `LlamaMLP` whose buckets end in `.gate_up_proj` /
+`.down_proj` and transpose as every linear does. Used to give both
 sides the same weights in parity tests.
 """
 from __future__ import annotations
@@ -26,6 +32,9 @@ import torch
 
 # Bucket suffixes of the linear layers whose 2-D weight transposes.
 _LINEAR_SUFFIXES = (".qkv_proj", ".o_proj", ".gate_up_proj", ".down_proj")
+# Bucket suffixes of the MoE layers: gate [H, E] -> [E, H], the expert
+# stacks [E, in, out] -> [E, out, in].
+_MOE_SUFFIXES = (".block_sparse_moe", ".mlp_moe")
 
 
 def params_from_jax(np_params: Dict[str, Dict[str, np.ndarray]]
@@ -41,6 +50,8 @@ def params_from_jax(np_params: Dict[str, Dict[str, np.ndarray]]
             if name == "weight" and arr.ndim == 2 and floating and \
                     key.endswith(_LINEAR_SUFFIXES):
                 arr = arr.T
+            elif key.endswith(_MOE_SUFFIXES):
+                arr = arr.T if name == "gate" else arr.transpose(0, 2, 1)
             elif name == "lora_A_stacked":
                 arr = arr.transpose(0, 2, 1).reshape(-1, arr.shape[1])
             elif name == "lora_B_stacked":

@@ -1,7 +1,7 @@
 """Model zoo of the PyTorch port: HF `architectures` names -> classes,
-resolved lazily. This slice registers the Llama-family names that map
-to `llama.py`; the other architectures of the JAX package are a later
-slice (ROADMAP.md)."""
+resolved lazily. Registered: the Llama-family names that map to
+`llama.py`, and the two MoE families (`mixtral.py`, `deepseek.py`); the
+other architectures of the JAX package are a later slice (ROADMAP.md)."""
 from __future__ import annotations
 
 import importlib
@@ -12,7 +12,17 @@ _MODELS = {
     "LLaMAForCausalLM": ("llama", "LlamaForCausalLM"),
     "MistralForCausalLM": ("llama", "LlamaForCausalLM"),
     "YiForCausalLM": ("llama", "LlamaForCausalLM"),
+    "MixtralForCausalLM": ("mixtral", "MixtralForCausalLM"),
+    "DeepseekForCausalLM": ("deepseek", "DeepseekForCausalLM"),
 }
+#: The architectures whose FFNs are FusedMoE layers.
+MOE_ARCHS = ("MixtralForCausalLM", "DeepseekForCausalLM")
+
+
+def moe_architecture(hf_config) -> Optional[str]:
+    """The config's MoE architecture name, or None."""
+    archs = getattr(hf_config, "architectures", None) or []
+    return next((a for a in archs if a in MOE_ARCHS), None)
 
 
 class ModelRegistry:

@@ -5,7 +5,10 @@ plain functions over a flat parameter dict (dotted HF-style bucket keys
 -> {name: tensor}, the JAX package's tree with torch's [out, in] linear
 layout), with the fused `qkv_proj` / `gate_up_proj` projections.
 `__call__` returns the final hidden states and the (in place updated)
-KV caches; `compute_logits` applies the LM head to selected rows.
+KV caches; `compute_logits` applies the LM head to selected rows. The
+MoE models (`mixtral.py`, `deepseek.py`) subclass `LlamaForCausalLM`
+with their own FFN per layer (`_make_mlp`) and checkpoint tensors
+(`_load_other`).
 """
 from __future__ import annotations
 
@@ -59,11 +62,14 @@ class LlamaAttention:
             num_kv_heads=self.num_kv_heads,
             sliding_window=getattr(config, "sliding_window", None))
 
+    def linears(self) -> Dict[str, object]:
+        """Bucket key -> linear layer (the checkpoint loader's map)."""
+        return {f"{self.prefix}.self_attn.qkv_proj": self.qkv_proj,
+                f"{self.prefix}.self_attn.o_proj": self.o_proj}
+
     def init(self, device) -> Params:
-        return {
-            f"{self.prefix}.self_attn.qkv_proj": self.qkv_proj.init(device),
-            f"{self.prefix}.self_attn.o_proj": self.o_proj.init(device),
-        }
+        return {key: layer.init(device)
+                for key, layer in self.linears().items()}
 
     def __call__(self, params: Params, positions: torch.Tensor,
                  hidden: torch.Tensor, kv_cache: Optional[KVCache],
@@ -98,12 +104,13 @@ class LlamaMLP:
             config.intermediate_size, config.hidden_size, dtype=dtype,
             linear_method=linear_method)
 
+    def linears(self) -> Dict[str, object]:
+        return {f"{self.prefix}.mlp.gate_up_proj": self.gate_up_proj,
+                f"{self.prefix}.mlp.down_proj": self.down_proj}
+
     def init(self, device) -> Params:
-        return {
-            f"{self.prefix}.mlp.gate_up_proj":
-                self.gate_up_proj.init(device),
-            f"{self.prefix}.mlp.down_proj": self.down_proj.init(device),
-        }
+        return {key: layer.init(device)
+                for key, layer in self.linears().items()}
 
     def __call__(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         gate_up = self.gate_up_proj(
@@ -113,14 +120,17 @@ class LlamaMLP:
 
 
 class LlamaDecoderLayer:
+    """Attention, then the layer's FFN (`mlp`: a `LlamaMLP`, or an MoE
+    block of `mixtral.py` / `deepseek.py` with the same `init`,
+    `linears` and call)."""
 
     def __init__(self, config, layer_idx: int, dtype,
-                 linear_method: Optional[LinearMethod]) -> None:
+                 linear_method: Optional[LinearMethod], mlp) -> None:
         self.prefix = f"model.layers.{layer_idx}"
         self.rms_eps = config.rms_norm_eps
         self.self_attn = LlamaAttention(config, self.prefix, dtype,
                                         linear_method)
-        self.mlp = LlamaMLP(config, self.prefix, dtype, linear_method)
+        self.mlp = mlp
         self.dtype = dtype
         self.hidden_size = config.hidden_size
 
@@ -159,7 +169,8 @@ class LlamaForCausalLM:
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, dtype=dtype)
         self.layers = [
-            LlamaDecoderLayer(config, i, dtype, linear_method)
+            LlamaDecoderLayer(config, i, dtype, linear_method,
+                              self._make_mlp(config, i, dtype, linear_method))
             for i in range(config.num_hidden_layers)
         ]
         self.lm_head = ParallelLMHead(config.vocab_size,
@@ -167,6 +178,12 @@ class LlamaForCausalLM:
         self.rms_eps = config.rms_norm_eps
         self.tie_word_embeddings = getattr(config, "tie_word_embeddings",
                                            False)
+
+    def _make_mlp(self, config, layer_idx: int, dtype,
+                  linear_method: Optional[LinearMethod]):
+        """Layer `layer_idx`'s FFN (the MoE models override this)."""
+        return LlamaMLP(config, f"model.layers.{layer_idx}", dtype,
+                        linear_method)
 
     # ---- params ----
     def init_params(self, device) -> Params:
@@ -225,11 +242,8 @@ class LlamaForCausalLM:
         (host tensors, HF [out, in] layout kept)."""
         loaders = {}
         for layer in self.layers:
-            p = layer.prefix
-            loaders[f"{p}.self_attn.qkv_proj"] = layer.self_attn.qkv_proj
-            loaders[f"{p}.self_attn.o_proj"] = layer.self_attn.o_proj
-            loaders[f"{p}.mlp.gate_up_proj"] = layer.mlp.gate_up_proj
-            loaders[f"{p}.mlp.down_proj"] = layer.mlp.down_proj
+            loaders.update(layer.self_attn.linears())
+            loaders.update(layer.mlp.linears())
         params: Params = {}
 
         def bucket(key: str) -> Dict[str, torch.Tensor]:
@@ -252,6 +266,9 @@ class LlamaForCausalLM:
                 key, pname = name.rsplit(".", 1)
                 bucket(key)[pname] = tensor
                 continue
+            name = self._load_other(bucket, name, tensor)
+            if name is None:
+                continue
             for hf_frag, merged, shard_id in self._STACKED:
                 if f".{hf_frag}." in name:
                     key, pname = name.replace(hf_frag, merged).rsplit(".", 1)
@@ -263,3 +280,10 @@ class LlamaForCausalLM:
                 if key in loaders:
                     loaders[key].weight_loader(bucket(key), pname, tensor)
         return params
+
+    def _load_other(self, bucket, name: str, tensor: torch.Tensor
+                    ) -> Optional[str]:
+        """A model's own checkpoint tensors (the MoE models' experts and
+        routers): None once consumed, else the name the linear layers'
+        loaders take (renamed where the model maps it)."""
+        return name

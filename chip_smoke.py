@@ -71,6 +71,14 @@ Phases, in order; any failure exits non-zero:
    its split count; a control, every row of a sequence at ctx L+4, must
    miss that tolerance. Each timed as in 3, beside its plain version,
    the library call and the bound.
+3c. (Phase 19 (a).) K1-K4 at DeepSeek-MoE-16B's multi-head geometry, Hq
+   16 over Hkv 16 of 128 (group 1: one live column of K1's 8-wide
+   n-tile), through `heads(16, 16)`: K1 on the ragged grid with its work
+   list, fused write on and off, at split counts 1, 2, the policy's and
+   one per chunk, on bf16, int8 and fp8 pages (phase 3's tolerance), its
+   fused write at the 8-bit edges; K2 and K3 / K4 exact with their
+   controls, every slot arm timed; K1 timed at B 8 and B 64 x 2047 on
+   each page type beside its plain version, SDPA and the bound.
 4. End to end: the port's engine serves a Llama of Mistral-7B width and
    depth (hidden 4096, 32 layers, 32/8 heads, intermediate 14336, vocab
    32000), bf16, dummy weights from seed 0, 32-token pages, token ids in
@@ -348,11 +356,39 @@ Phases, in order; any failure exits non-zero:
    Each has a control that must miss 2e-2: K12's dl shifted by one
    group, K16's codebook columns rolled by one, K17's scales rolled by
    one, QuIP#'s table entries rolled by one code.
-19. Prints the kernel JSON line (launches summed over every path
+19. Mixture of experts (`modeling/layers/fused_moe.py`: routing and the
+   grouped expert products are torch calls, no hand kernel; K1-K4 run
+   beneath):
+   (a) runs as phase 3c, beside the other kernel checks: at the end of
+   a full run torch.profiler's one-call traces of the slot writer came
+   back empty in all eight tries (`device_launches`), twice.
+   (b) 2-layer models at full width against their plain paths
+   (`compare_with_plain`): Mixtral-8x7B (8 experts of 14336, top 2) and
+   DeepSeek-MoE-16B (layer 0 dense at 10944, layer 1 64 experts of
+   1408, top 6, 2 shared), routers U(-a, a) with a = 3 sqrt(3 / hidden).
+   The plain run takes the kernel run's expert picks call by call; the
+   share of its own picks in the kernel run's sets is logged and tokens
+   whose k-th and (k+1)-th probabilities lie more than MOE_PICK_MARGIN
+   apart must agree. Control: every expert stack rolled by one expert
+   must miss the tolerance.
+   (c) DeepSeek-MoE-16B whole (the published config, 28 layers, bf16,
+   dummy weights from seed 0): phase 4's mix at multi_step 1 and 8, then
+   with APHRODITE_SPEC=1 and oracle drafts (verify rows through the MoE
+   FFN). Every request finishes, every engine step launches K1, K2 and
+   K3 / K4 a positive multiple of 28 times, every page comes back; host
+   reads of the group sizes are logged.
+   (d) Mixtral-8x7B at full width, 4 of its 32 layers (46.7B bf16
+   parameters do not fit 80 GB), through the mix at multi_step 1.
+   (e) (c)'s engine profiled: a batch-8 decode step (wall and device ms,
+   launches, the MoE FFN's device ms inside a torch.profiler range,
+   host reads a step, experts touched a layer and the weight-bytes
+   bound, peak memory) and a 2048-row prompt round (the MoE FFN's
+   share).
+20. Prints the kernel JSON line (launches summed over every path
    above), the card line, and last {"ok": true, "device": {...}}.
 
-No earlier phase is cut in depth for time: the whole command ran in
-well under 600 s on an NVIDIA H100 80GB HBM3 (PERF.md).
+No earlier phase is cut in depth for time (PERF.md has the run's
+seconds on an NVIDIA H100 80GB HBM3).
 """
 from __future__ import annotations
 
@@ -451,6 +487,19 @@ def bound(nbytes: float, flops: float, ops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def heads(hq: int, hkv: int):
+    """The kernel checks, timers and `compare_with_plain` at another
+    attention geometry: they read HQ and HKV when called."""
+    global HQ, HKV
+    saved = HQ, HKV
+    HQ, HKV = hq, hkv
+    try:
+        yield
+    finally:
+        HQ, HKV = saved
 
 
 # -------------------------------------------------- K1 problem builder --
@@ -721,7 +770,7 @@ def k2_bound_bytes(c) -> int:
     return 2 * 2 * c["rows"] * HKV * HEAD_DIM * 2 + c["cells"] * 8
 
 
-def check_and_time_writers(torch, kw, timer):
+def check_and_time_writers(torch, kw, timer, profiled: bool = True):
     gen = torch.Generator(device="cuda").manual_seed(7)
     hd = HKV * HEAD_DIM
     page_size = 32
@@ -771,7 +820,7 @@ def check_and_time_writers(torch, kw, timer):
         f" rows, {threads} threads); the control (row valid written) "
         "differs")
 
-    k3, k4 = check_and_time_slot_writers(torch, kw, timer, gen)
+    k3, k4 = check_and_time_slot_writers(torch, kw, timer, gen, profiled)
     return k2, k3, k4
 
 
@@ -857,7 +906,18 @@ def device_launches(torch, fn) -> int:
     return max(counts)
 
 
-def time_slot_arm(torch, kw, timer, arm, pages, num_slots: int):
+def wrapper_launches(kw, fn) -> int:
+    """Launches one call of `fn` counts on the slot writer's counters (the
+    wrapper's own count: what `device_launches` reads from a trace, less
+    any other device work the call might do)."""
+    counters = (kw.WRITE_KV_PAGES_LAUNCHES, kw.WRITE_KV_PAGES_DECODE_LAUNCHES)
+    before = sum(c.count for c in counters)
+    fn()
+    return sum(c.count for c in counters) - before
+
+
+def time_slot_arm(torch, kw, timer, arm, pages, num_slots: int,
+                  profiled: bool = True):
     """One `slot_arms` arm: the wrapper (the parent's whole chain on 8-bit
     pages in an older tree), its plain version, the library call
     (`index_copy_` of the live rows, K and V; on 8-bit pages no PyTorch
@@ -892,7 +952,8 @@ def time_slot_arm(torch, kw, timer, arm, pages, num_slots: int):
                  kn, vn, kp, vp, slots, KV_SCALE)),
              library_ms=None if quant else copy_ms,
              floor_ms=copy_ms if quant else None,
-             launches_per_call=device_launches(torch, call),
+             launches_per_call=device_launches(torch, call) if profiled
+             else wrapper_launches(kw, call),
              tokens=kn.shape[0], live=n_live)
     nbytes = 2 * n_live * hd * (kn.element_size() + kp.element_size()) + \
         4 * kn.shape[0]
@@ -1047,11 +1108,13 @@ def check_fused_write_edges(torch, pa, kw):
         "plain version on int8 and fp8 pages")
 
 
-def check_and_time_slot_writers(torch, kw, timer, gen):
+def check_and_time_slot_writers(torch, kw, timer, gen,
+                                profiled: bool = True):
     """K3 / K4: `check_slot_writers` on `slot_arms`, then each arm timed
-    with `time_slot_arm`. Returns K3's arm at the window run's decode
-    step and K4's at the 8-bit prompt round on int8 pages, for the kernel
-    line."""
+    with `time_slot_arm` and held to one launch a call: device launches
+    in a torch.profiler trace, or with `profiled` False the wrapper's
+    launch counter. Returns K3's arm at the window run's decode step and
+    K4's at the 8-bit prompt round on int8 pages, for the kernel line."""
     pages = slot_pages(torch, gen)
     arms = slot_arms(torch, gen)
     num_slots = 4096 * 32
@@ -1059,7 +1122,8 @@ def check_and_time_slot_writers(torch, kw, timer, gen):
     sms = kw.build.sm_count("cuda")
     timed = {}
     for arm in arms:
-        name, t = time_slot_arm(torch, kw, timer, arm, pages, num_slots)
+        name, t = time_slot_arm(torch, kw, timer, arm, pages, num_slots,
+                                profiled)
         timed[name] = t
         rows, threads, first = kw.slot_write_plan(
             arm[2].shape[0], arm[2].shape[1] * arm[2].element_size(), sms)
@@ -1068,12 +1132,13 @@ def check_and_time_slot_writers(torch, kw, timer, gen):
                f"codes {t['floor_ms']:.4f} ms)")
         log(f"{name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
             f"ms, {lib}, bound {t['bound_ms']:.6f} ms ({t['bound_by']}); "
-            f"{t['launches_per_call']} device launch(es) a call; plan "
+            f"{t['launches_per_call']} "
+            f"{'device' if profiled else 'wrapper'} launch(es) a call; plan "
             f"{rows} rows, {threads} threads, slots read "
             f"{'first' if first else 'beside the data'}")
         if t["launches_per_call"] != 1:
             fail(f"{name}: write_kv_pages ran {t['launches_per_call']} "
-                 "device launches, not 1")
+                 f"{'device' if profiled else 'wrapper'} launches, not 1")
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     return ({k: timed["K3 bf16, 2 rows"][k] for k in keys},
             {k: timed["K4 int8, 8192 rows, 2728 live"][k] for k in keys})
@@ -1106,7 +1171,8 @@ def check_model_against_plain(torch):
 
 def compare_with_plain(torch, model, params, label: str,
                        rel_tol: float = 2e-2, w8a8_rows: bool = False,
-                       controls=None) -> float:
+                       controls=None, moe_margin=None,
+                       param_controls=None) -> float:
     """`model` over `params` (2 layers), a prompt (page-aligned -> K2)
     and 3 decode steps (K1 fused) through the kernels vs through their
     plain versions (attention, writers, the GGUF matmuls and K12, K16,
@@ -1123,12 +1189,21 @@ def compare_with_plain(torch, model, params, label: str,
     plain path with one GGUF matmul made wrong (K15's scale rows shifted
     by one group, K14's d16 read per 32 rows, K13's d shifted by one
     group), must each miss `rel_tol`, or the comparison could not see
-    such a fault. Returns the largest held relative error."""
+    such a fault. With `moe_margin` (a probability) every plain run
+    routes each MoE layer's tokens to the experts the kernel run picked,
+    call by call (a pick that flips at a near tie between the runs would
+    swap a token's FFN wholesale, which says nothing of the kernels); the
+    share of the plain run's own (token, slot) picks in the kernel run's
+    set is logged, and every token whose k-th and (k+1)-th probabilities
+    (the plain run's) lie more than `moe_margin` apart must pick the
+    kernel run's experts. `param_controls` ({what: params}): the held
+    plain path over those parameters must miss `rel_tol`. Returns the
+    largest held relative error."""
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
     from aphrodite_tpu_torch.common.sequence import (SequenceData,
                                                      SequenceGroupMetadata)
     from aphrodite_tpu_torch.executor.model_runner import ModelRunner
-    from aphrodite_tpu_torch.modeling.layers import attention
+    from aphrodite_tpu_torch.modeling.layers import attention, fused_moe
     from aphrodite_tpu_torch.ops.cuda import kv_write as kw
     from aphrodite_tpu_torch.ops.cuda import paged_attention as pa
     from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
@@ -1178,6 +1253,45 @@ def compare_with_plain(torch, model, params, label: str,
         return fn
     kernel_checks = {(qmm, name): checked(name)
                      for name in GGUF_MATMULS + LATE_MATMULS}
+    route = fused_moe.route
+    kernel_picks = []       # (probs, expert ids) of the kernel run's calls
+    pick_stats = []         # the plain run's, a call at a time
+
+    def recording(x, gate, k, renorm):
+        probs, vals, idx = route(x, gate, k, renorm)
+        kernel_picks.append((probs, idx))
+        return probs, vals, idx
+    if moe_margin is not None:
+        kernel_checks[(fused_moe, "route")] = recording
+
+    def on_kernel_picks(versions, stats=None):
+        """`versions` with the router taking the kernel run's picks, call
+        by call (a fresh pass for every run); `stats` collects, a call
+        at a time, the plain picks in the kernel run's sets, all picks,
+        tokens past the margin, those among them that disagree, and the
+        largest probability difference between the runs."""
+        if moe_margin is None:
+            return versions
+        calls = iter(kernel_picks)
+
+        def fn(x, gate, k, renorm):
+            probs, _, own = route(x, gate, k, renorm)
+            kprobs, idx = next(calls)
+            if kprobs.shape != probs.shape:
+                fail(f"{label}: router call order differs between the runs")
+            agree = (own[:, :, None] == idx[:, None, :]).any(-1)
+            top = probs.topk(k + 1, dim=-1).values
+            held = (top[:, k - 1] - top[:, k]) > moe_margin
+            if stats is not None:
+                stats.append((int(agree.sum()), agree.numel(),
+                              int(held.sum()),
+                              int((held & ~agree.all(-1)).sum()),
+                              float((probs - kprobs).abs().max())))
+            vals = probs.gather(1, idx)
+            if renorm:
+                vals = vals / vals.sum(dim=-1, keepdim=True)
+            return probs, vals, idx
+        return {**versions, (fused_moe, "route"): fn}
 
     flips = []              # (codes that differ, codes, largest difference)
 
@@ -1198,7 +1312,7 @@ def compare_with_plain(torch, model, params, label: str,
                                               x.dtype)
         return {**plain_versions, (qmm, "gguf_w8a8_matmul"): fn}
 
-    def run(versions):
+    def run(versions, params=params):
         runner = ModelRunner(model, params, _Cfg(), None, page_size,
                              num_pages * page_size, dev)
         kv = [(torch.zeros(num_pages, page_size, HKV * HEAD_DIM,
@@ -1242,9 +1356,24 @@ def compare_with_plain(torch, model, params, label: str,
                 for g, w in zip(got, want)]
 
     got, got_tokens = run(kernel_checks)
-    want, want_tokens = run(plain_versions)
+    want, want_tokens = run(on_kernel_picks(plain_versions, pick_stats))
     rels = rel_errs(got, want)
-    held = "plain path"
+    held = "plain path" + (" on the kernel run's expert picks"
+                           if moe_margin is not None else "")
+    if moe_margin is not None:
+        agree, picks, tokens, wrong, dp = (
+            sum(st[0] for st in pick_stats), sum(st[1] for st in pick_stats),
+            sum(st[2] for st in pick_stats), sum(st[3] for st in pick_stats),
+            max(st[4] for st in pick_stats))
+        log(f"{label}: router picks over {len(pick_stats)} MoE calls: "
+            f"{agree} of {picks} (token, slot) picks of the plain run in the "
+            f"kernel run's sets ({agree / picks:.4f}); {tokens} tokens with "
+            f"a k-th to (k+1)-th margin over {moe_margin}, {wrong} of them "
+            f"picking otherwise; largest router probability difference "
+            f"between the runs {dp:.2e}")
+        if wrong:
+            fail(f"{label}: {wrong} tokens with a top-k margin over "
+                 f"{moe_margin} picked other experts than the kernel run")
     if w8a8_rows:
         own_rels = rels
         log(f"{label}: plain path on its own int8 rows (a reading, not "
@@ -1271,6 +1400,14 @@ def compare_with_plain(torch, model, params, label: str,
     held_versions = {what: {**plain_versions,
                             **{(qmm, n): f for n, f in wrong.items()}}
                      for what, wrong in (controls or {}).items()}
+    for what, wrong_params in (param_controls or {}).items():
+        c_rels = rel_errs(got, run(on_kernel_picks(plain_versions),
+                                   wrong_params)[0])
+        log(f"{label}: control, {what}: logits rel err per step "
+            f"{c_rels} (must exceed {rel_tol})")
+        if max(c_rels) <= rel_tol:
+            fail(f"{label}: the comparison cannot see {what}: "
+                 f"{max(c_rels)} <= {rel_tol}")
     if w8a8_rows:
         held_versions.update({
             "K15 with its scale rows shifted by one group":
@@ -2296,12 +2433,12 @@ GGUF_MATMULS = ("gguf_q8_matmul", "gguf_i8g_matmul", "gguf_w8a8_matmul")
 GGUF_GEMMS = ("gguf_q8_gemm", "gguf_i8g_gemm", "gguf_w8a8_gemm")
 
 
-def check_outputs(outputs, n: int, what: str) -> None:
+def check_outputs(outputs, n: int, what: str, vocab: int = 32000) -> None:
     if len(outputs) != n:
         fail(f"{what}: {len(outputs)} of {n} finished")
     for rid, out in outputs.items():
         toks = out.outputs[0].token_ids
-        if len(toks) != 32 or not all(0 <= t < 32000 for t in toks):
+        if len(toks) != 32 or not all(0 <= t < vocab for t in toks):
             fail(f"{rid}: bad tokens {toks}")
         lp = out.outputs[0].cumulative_logprob
         if not (lp == lp) or abs(lp) == float("inf"):
@@ -2310,7 +2447,7 @@ def check_outputs(outputs, n: int, what: str) -> None:
 
 def run_engine(torch, engine, multi_step: int, counters, card: str,
                required=BF16_KERNELS, tag: str = "", absent=(),
-               tokens=None, per_step=None):
+               tokens=None, per_step=None, vocab: int = 32000):
     """Phase 4's request mix; fails if a kernel of `required` did not
     launch or one of `absent` did (K5 is absent from every run but those
     under APHRODITE_ATTN_RAGGED=0). Fills `tokens` (request id without
@@ -2355,7 +2492,7 @@ def run_engine(torch, engine, multi_step: int, counters, card: str,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: c.count for name, c in counters.items()}
-    check_outputs(outputs, 8, f"{tag}multi_step={multi_step}")
+    check_outputs(outputs, 8, f"{tag}multi_step={multi_step}", vocab)
     for name in required:
         if launches.get(name, 0) <= 0:
             fail(f"{tag}multi_step={multi_step}: kernel {name} never "
@@ -2518,7 +2655,9 @@ QUANT_KERNEL_NAMES = ("quant_stream_kernel", "split_reduce_kernel",
 
 def profile_decode(torch, engine, tag: str = "",
                    quant_bound_ms: float = 0.0, prompt_len: int = 64,
-                   named=(), lora_requests=None):
+                   named=(), lora_requests=None,
+                   width: str = "Mistral-7B width", scopes=(),
+                   counts=()):
     """Where a decode step's time goes at the e2e geometry: 8 running
     sequences (prompts of `prompt_len` tokens). 4 single decode steps
     are timed on the host clock (synchronised), then 4 more run under
@@ -2529,7 +2668,12 @@ def profile_decode(torch, engine, tag: str = "",
     `named` pairs (label, kernel name) report that kernel's device ms
     and launches a step (K9's quant8_kernel, K14's quant_stream_kernel
     where no other decoder runs). `lora_requests` gives row i its
-    adapter (a LoRA engine). Returns (wall ms, device ms) a step."""
+    adapter (a LoRA engine). `scopes` names torch.profiler ranges
+    (`record_function`) whose kernels' device ms a step, and span on the
+    device timeline, it reports (the ranges' own device rows stay out of
+    the kernel totals);
+    `counts` pairs (label, counter) whose increase a step over the
+    unprofiled steps it reports. Returns (wall ms, device ms) a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
@@ -2545,12 +2689,14 @@ def profile_decode(torch, engine, tag: str = "",
         for out in engine.step():
             produced[out.request_id] = len(out.outputs[0].token_ids)
     steps = 4
+    before = [c.count for _, c in counts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    per_step = [(c.count - b) / steps for (_, c), b in zip(counts, before)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -2560,18 +2706,26 @@ def profile_decode(torch, engine, tag: str = "",
         engine.step()
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.key not in scopes), reverse=True)
     dev_ms = sum(r[0] for r in rows) / 1e3 / steps
     n_launch = sum(r[2] for r in rows) // steps
     top = "; ".join(f"{k[:48]} x{c // steps}/step {us / 1e3 / steps:.3f} ms"
                     for us, k, c in rows[:8])
     k1_ms = sum(us for us, k, _ in rows if "paged_decode_kernel" in k or
                 "paged_decode_merge" in k) / 1e3 / steps
-    log(f"{tag}decode step, batch 8 at Mistral-7B width, {prompt_len}-token "
+    log(f"{tag}decode step, batch 8 at {width}, {prompt_len}-token "
         f"prompts: wall {wall_ms:.2f} ms/step (unprofiled), device kernels "
         f"{dev_ms:.2f} ms/step (busy share {dev_ms / wall_ms:.3f}), "
         f"{n_launch} kernel launches/step; K1 with its merge {k1_ms:.3f} "
         f"ms/step (share {k1_ms / dev_ms:.3f}); top kernels: {top}")
+    for scope in scopes:
+        k_ms, span_ms = (v / steps for v in scope_device_ms(prof, scope))
+        log(f"{tag}{scope}: kernels {k_ms:.3f} ms/step of device time "
+            f"(share {k_ms / dev_ms:.3f}); its span on the device timeline "
+            f"{span_ms:.3f} ms/step (share of the wall {span_ms / wall_ms:.3f})")
+    for (label, _), n in zip(counts, per_step):
+        log(f"{tag}{label}: {n:g} a step")
     for label, kernel in named:
         k_us = sum(us for us, k, _ in rows if kernel in k)
         k_n = sum(c for _, k, c in rows if kernel in k) // steps
@@ -2587,6 +2741,22 @@ def profile_decode(torch, engine, tag: str = "",
             f"{quant_bound_ms:.3f} ms/step ({quant_ms / quant_bound_ms:.2f}"
             f"x)")
     return wall_ms, dev_ms
+
+
+def scope_device_ms(prof, scope: str):
+    """(Device ms of the kernels launched inside every torch.profiler
+    range named `scope`, the ranges' ms on the device timeline: from
+    their first kernel's start to their last one's end, idle gaps
+    included)."""
+    from torch.autograd import DeviceType
+    kernels = span = 0.0
+    for ev in prof.events():
+        if ev.name == scope:
+            if ev.device_type == DeviceType.CPU:
+                kernels += ev.device_time_total
+            else:
+                span += ev.device_time_total
+    return kernels / 1e3, span / 1e3
 
 
 def quant_model_dir(awq: bool) -> str:
@@ -2606,13 +2776,15 @@ def quant_model_dir(awq: bool) -> str:
     return path
 
 
-def _profiled_prompt_round(torch, engine, tag: str, counters=None):
+def _profiled_prompt_round(torch, engine, tag: str, counters=None,
+                           scopes=()):
     """One prompt round at the e2e geometry under torch.profiler: 4
     prompts of 512 tokens (2048 rows, the scheduler's token budget at
     max_model_len 2048), one output token each, after one such round
     unprofiled to warm up; `counters` are reset before the profiled
-    round. Returns its device rows [(us, launches, kernel name)] and its
-    engine steps."""
+    round. Returns its device rows [(us, launches, kernel name)], its
+    engine steps and the device ms of the kernels inside each of
+    `scopes` (torch.profiler ranges, whose own rows stay out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
@@ -2639,7 +2811,8 @@ def _profiled_prompt_round(torch, engine, tag: str, counters=None):
         steps = prompt_round(1)
     return [(ev.self_device_time_total, ev.count, ev.key)
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA], steps
+            if ev.device_type == DeviceType.CUDA and ev.key not in scopes], \
+        steps, {scope: scope_device_ms(prof, scope)[0] for scope in scopes}
 
 
 def profile_prompt_round(torch, engine, tag: str = "",
@@ -2647,7 +2820,7 @@ def profile_prompt_round(torch, engine, tag: str = "",
     """`_profiled_prompt_round`'s round: logs its device kernel time and
     the quantized kernels' (K9, the matmuls, the split reduce: the kernels
     `names` match) and returns both in ms."""
-    rows, steps = _profiled_prompt_round(torch, engine, tag)
+    rows, steps, _ = _profiled_prompt_round(torch, engine, tag)
     dev_ms = sum(us for us, _, _ in rows) / 1e3
     quant_ms = sum(us for us, _, k in rows if any(n in k for n in names)) \
         / 1e3
@@ -2665,7 +2838,7 @@ def profile_kv8_prompt_round(torch, engine, counters, layers: int,
     (`kv_write_slots_kernel`) and K4's counter. Fails unless the counter
     took `layers` calls a forward pass and the device ran one slot
     kernel a call. Returns them in a dict (times in ms)."""
-    rows, steps = _profiled_prompt_round(torch, engine, tag, counters)
+    rows, steps, _ = _profiled_prompt_round(torch, engine, tag, counters)
     calls = counters["write_kv_pages"].count
     slot = [(us, n) for us, n, k in rows if "kv_write_slots" in k]
     r = dict(steps=steps, device_ms=sum(us for us, _, _ in rows) / 1e3,
@@ -3954,6 +4127,336 @@ def run_lora_engine(torch, model_dir, counters, card: str, phase4):
     return launches_all, profiles
 
 
+
+# ------------------------------------------------- mixture of experts --
+
+# The published config.json of deepseek-ai/deepseek-moe-16b-base
+# (Hugging Face hub; `auto_map` and the training-only keys left out):
+# multi-head attention, 16 query heads over 16 KV heads of 128.
+DEEPSEEK_MOE_16B = {
+    "architectures": ["DeepseekForCausalLM"], "attention_bias": False,
+    "bos_token_id": 100000, "eos_token_id": 100001,
+    "first_k_dense_replace": 1, "hidden_act": "silu", "hidden_size": 2048,
+    "initializer_range": 0.02, "intermediate_size": 10944,
+    "max_position_embeddings": 4096, "model_type": "deepseek",
+    "moe_intermediate_size": 1408, "moe_layer_freq": 1,
+    "n_routed_experts": 64, "n_shared_experts": 2, "norm_topk_prob": False,
+    "num_attention_heads": 16, "num_experts_per_tok": 6,
+    "num_hidden_layers": 28, "num_key_value_heads": 16,
+    "rms_norm_eps": 1e-06, "rope_scaling": None, "rope_theta": 10000,
+    "scoring_func": "softmax", "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 102400,
+}
+
+# The published config.json of mistralai/Mixtral-8x7B-v0.1.
+MIXTRAL_8X7B = {
+    "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 14336, "max_position_embeddings": 32768,
+    "model_type": "mixtral", "num_attention_heads": 32,
+    "num_experts_per_tok": 2, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "num_local_experts": 8,
+    "output_router_logits": False, "rms_norm_eps": 1e-05,
+    "rope_theta": 1000000.0, "router_aux_loss_coef": 0.02,
+    "sliding_window": None, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32000,
+}
+
+MOE_BUCKETS = (".block_sparse_moe", ".mlp_moe")
+MOE_STACKS = ("w_gate", "w_up", "w_down")
+# Phase 19 (b): tokens whose k-th and (k+1)-th router probabilities lie
+# further apart than this must pick the same experts in the kernel and
+# the plain run (with router logits of standard deviation ~3, a k-th
+# probability of DeepSeek's 64 experts is ~0.01; a 2% change of a
+# logit moves it by ~2e-4).
+MOE_PICK_MARGIN = 1e-3
+
+
+def check_moe_kernels(torch, pa, kw, timer):
+    """Phase 19 (a): K1-K4 at DeepSeek-MoE-16B's attention, Hq 16 over
+    Hkv 16 of 128 (group 1: one live column of K1's 8-wide n-tile). K1
+    on the ragged grid with a work list, fused write on and off, at its
+    forced split counts, on bf16, int8 and fp8 pages (phase 3's
+    tolerance); K1's fused write at the 8-bit edges; K2 and K3 / K4
+    exact with their controls, and timed; K1 timed at B 8 and B 64 x
+    2047 on each page type beside its plain version, SDPA and the
+    bound."""
+    with heads(16, 16):
+        for page_dtype in (torch.bfloat16, torch.int8, torch.float8_e5m2):
+            check_decode_attention(torch, pa, True, page_dtype,
+                                   amlas=(True,), alibis=(False,))
+        check_fused_write_edges(torch, pa, kw)
+        # Launches a call by the wrapper's counter: phase 3 counts the
+        # same wrapper's device launches by torch.profiler, whose one-call
+        # traces of these arms came back empty in all eight tries at
+        # Hkv 16 in three full runs (never when this phase ran alone).
+        k2, _, _ = check_and_time_writers(torch, kw, timer, profiled=False)
+        log(f"K2 at Hkv 16 (256 cells, 2728 rows): kernel {k2['ms']:.4f} "
+            f"ms, plain {k2['plain_ms']:.4f} ms, index_copy_ "
+            f"{k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.6f} ms "
+            f"({k2['bound_by']})")
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "n_split", "merges", "host_us")
+        e2e_ctx = [1016, 316, 80, 1016, 316, 80, 28, 28]
+        for page_dtype in (torch.bfloat16, torch.int8, torch.float8_e5m2):
+            kind = str(page_dtype).replace("torch.", "")
+            for shape, ctxs, pps in (("B 8", e2e_ctx, 36),
+                                     ("B 64 x 2047", [2047] * 64, 64)):
+                t = dict(zip(keys, time_decode_attention(
+                    torch, pa, timer, ctxs, 32, pps, fused=True,
+                    page_dtype=page_dtype)))
+                log(f"K1 at group 1 (Hq 16 / Hkv 16), {kind} pages at "
+                    f"{shape} (page 32, fused): kernel {t['ms']:.4f} ms, "
+                    f"plain {t['plain_ms']:.4f} ms, sdpa "
+                    f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} "
+                    f"ms ({t['bound_by']}); {t['n_split']} split(s), "
+                    f"{t['merges']} merge launch(es) a call; wrapper "
+                    f"{t['host_us']:.1f} us of host time a call")
+
+
+def moe_params(torch, model, seed: int):
+    """`model`'s parameters on the card, U(-0.05, 0.05) as phase 3's
+    2-layer model, norms 1, and each router U(-a, a) with a = 3 sqrt(3 /
+    hidden): logits of standard deviation ~3 on normed rows, so most
+    top-k margins are clear."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(dev)
+    width = 3 * math.sqrt(3 / model.config.hidden_size)
+    for key, bucket in params.items():
+        for t in bucket.values():
+            t.uniform_(-0.05, 0.05, generator=gen)
+        if key.endswith("layernorm") or key == "model.norm":
+            bucket["weight"].fill_(1.0)
+        if key.endswith(MOE_BUCKETS):
+            bucket["gate"].uniform_(-width, width, generator=gen)
+    return params
+
+
+def check_moe_two_layer(torch, counters):
+    """Phase 19 (b): 2-layer Mixtral-8x7B (8 experts of 14336, top 2,
+    both layers MoE) and DeepSeek-MoE-16B (layer 0 dense at 10944,
+    layer 1 64 routed experts of 1408, top 6, 2 shared) at full width
+    through the kernels vs their plain versions (`compare_with_plain`,
+    the plain run on the kernel run's expert picks, picks past
+    MOE_PICK_MARGIN held equal); the control, every expert stack rolled
+    by one expert, must miss the tolerance."""
+    from aphrodite_tpu_torch.modeling.loader import _get_model_architecture
+    from aphrodite_tpu_torch.transformers_utils.config import (
+        config_from_dict)
+    for name, base, geometry in (("Mixtral-8x7B", MIXTRAL_8X7B, (32, 8)),
+                                 ("DeepSeek-MoE-16B", DEEPSEEK_MOE_16B,
+                                  (16, 16))):
+        cfg = config_from_dict(dict(base, num_hidden_layers=2))
+        model = _get_model_architecture(cfg)(cfg, dtype=torch.bfloat16)
+        params = moe_params(torch, model, seed=2)
+        rolled = {key: {n: t.roll(1, 0) if n in MOE_STACKS else t
+                        for n, t in bucket.items()}
+                  if key.endswith(MOE_BUCKETS) else bucket
+                  for key, bucket in params.items()}
+        k1, k2 = (counters[n] for n in ("paged_decode_attention",
+                                        "write_kv_pages_prefill"))
+        before = k1.count, k2.count
+        with heads(*geometry):
+            compare_with_plain(
+                torch, model, params, f"{name} 2-layer",
+                moe_margin=MOE_PICK_MARGIN, param_controls={
+                    "every expert stack rolled by one expert": rolled})
+        # The kernel run: K2 for the page-aligned prompt, K1 in each of
+        # the 3 decode steps, in both layers.
+        if (k1.count - before[0], k2.count - before[1]) != (6, 2):
+            fail(f"{name} 2-layer: K1 / K2 launched {k1.count - before[0]}"
+                 f" / {k2.count - before[1]} times, not 6 / 2")
+        del model, params, rolled
+        free_engine(torch, f"{name} 2-layer")
+
+
+@contextlib.contextmanager
+def moe_scope(torch, picks=None):
+    """Every FusedMoE call inside a torch.profiler range "fused_moe";
+    with `picks` a list, every routing call's expert ids appended to it
+    (kept on the card: no sync)."""
+    from aphrodite_tpu_torch.modeling.layers import fused_moe
+    real_call, real_route = fused_moe.FusedMoE.__call__, fused_moe.route
+
+    def scoped(self, params, hidden):
+        with torch.profiler.record_function("fused_moe"):
+            return real_call(self, params, hidden)
+
+    def route(*args):
+        probs, vals, idx = real_route(*args)
+        picks.append(idx)
+        return probs, vals, idx
+    fused_moe.FusedMoE.__call__ = scoped
+    if picks is not None:
+        fused_moe.route = route
+    try:
+        yield
+    finally:
+        fused_moe.FusedMoE.__call__ = real_call
+        fused_moe.route = real_route
+
+
+def moe_decode_bytes(cfg: dict, touched: float) -> float:
+    """The weight bytes (bf16) a decode step of a DeepSeek-MoE config
+    reads, with `touched` routed experts a MoE layer: every attention
+    projection, the dense layers' MLPs, each MoE layer's touched experts,
+    shared experts and router, and the LM head (the KV read, under 1% at
+    the profile's contexts, left out)."""
+    h, layers = cfg["hidden_size"], cfg["num_hidden_layers"]
+    d = h // cfg["num_attention_heads"]
+    attn = (2 * cfg["num_attention_heads"] +
+            2 * cfg["num_key_value_heads"]) * d * h
+    moe_layers = layers - cfg["first_k_dense_replace"]
+    inter = cfg["moe_intermediate_size"]
+    per_moe = (touched + cfg["n_shared_experts"]) * 3 * h * inter + \
+        cfg["n_routed_experts"] * h
+    elems = layers * attn + cfg["first_k_dense_replace"] * 3 * h * \
+        cfg["intermediate_size"] + moe_layers * per_moe + \
+        cfg["vocab_size"] * h
+    return 2 * elems
+
+
+def run_moe_engine(torch, counters, card: str, name: str, cfg: dict,
+                   multi_steps=(1, 8), spec: bool = False,
+                   profile: bool = False):
+    """Phase 19 (c) / (d): the port's engine over `cfg` (bf16, dummy
+    weights from seed 0, 32-token pages, max_model_len 2048) through
+    phase 4's mix at each of `multi_steps` (APHRODITE_SPEC=0), then with
+    `spec` once more with APHRODITE_SPEC=1 and drafts from an oracle of
+    the multi_step 1 run's tokens (verify rows through the MoE FFN).
+    Every request finishes with 32 tokens in the vocabulary; every
+    engine step launches K1, K2, K3 and K4, summed, a positive multiple
+    of the layer count; every page comes back. With `profile`, phase 19
+    (e): a batch-8 decode step (wall and device ms, launches, the MoE
+    FFN's device ms, host reads a step, experts touched a layer and the
+    weight-bytes bound, peak memory) and a 2048-row prompt round (the
+    MoE FFN's share). Returns the launches summed over the runs; the
+    caller frees the engine once this returns."""
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    from aphrodite_tpu_torch.modeling.layers import fused_moe
+    model_dir = os.path.join(HERE, "build", f"chip_smoke_{name}")
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    t0 = time.perf_counter()
+    engine = AphroditeEngine.from_engine_args(EngineArgs(
+        model=model_dir, load_format="dummy", dtype="bfloat16", seed=0,
+        block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+        disable_log_stats=True))
+    pages = engine.cache_config.num_gpu_blocks
+    log(f"{name} engine up in {time.perf_counter() - t0:.1f} s: "
+        f"{cfg['num_hidden_layers']} layers, {pages} KV pages of 32 "
+        f"tokens, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated on {card}")
+    layers = cfg["num_hidden_layers"]
+    attention = ("paged_decode_attention", "write_kv_pages_prefill",
+                 "write_kv_pages", "write_kv_pages_decode")
+    summed = {}
+
+    def run(ms, tag, tokens=None):
+        reads = fused_moe.HOST_READS.count
+        launches = run_engine(
+            torch, engine, ms, counters, card, tag=tag, tokens=tokens,
+            required=attention[:3], per_step=(attention, layers),
+            vocab=cfg["vocab_size"])
+        free = engine.scheduler.block_manager.get_num_free_gpu_blocks()
+        if free != pages:
+            fail(f"{tag}multi_step={ms}: {free} of {pages} pages back")
+        log(f"{tag}multi_step={ms}: {fused_moe.HOST_READS.count - reads} "
+            f"host reads of the MoE layers' group sizes; every page back")
+        for k, n in launches.items():
+            summed[k] = summed.get(k, 0) + n
+
+    classic = {}
+    for ms in multi_steps:
+        run(ms, f"{name} ", classic if ms == 1 else None)
+    if spec:
+        refs = [mix_prompt(n, salt) + classic[f"m1-{rid}"]
+                for rid, n, salt in MIX + MIX_LATE]
+        ex = engine.executor
+        real = ex.execute_spec_verify
+        dispatches = []
+
+        def verify(*a, **kw):
+            dispatches.append(1)
+            return real(*a, **kw)
+        os.environ["APHRODITE_SPEC"] = "1"
+        engine.drafter.propose = oracle_drafter(refs)
+        ex.execute_spec_verify = verify
+        drafted = {}
+        try:
+            run(1, f"{name} spec ", drafted)
+        finally:
+            del ex.execute_spec_verify, engine.drafter.propose
+            os.environ["APHRODITE_SPEC"] = "0"
+        if not dispatches:
+            fail(f"{name}: APHRODITE_SPEC=1 made no verify dispatch")
+        same = sum(drafted[rid] == toks for rid, toks in classic.items())
+        log(f"{name} spec (oracle drafts of the multi_step 1 run's "
+            f"tokens): {len(dispatches)} verify dispatches; {same} of "
+            f"{len(classic)} requests' tokens equal the classic run's (a "
+            "reading: bf16 sums of other row counts may flip a near tie)")
+    if profile:
+        picks = []
+        torch.cuda.reset_peak_memory_stats()
+        with moe_scope(torch, picks):
+            profile_decode(torch, engine, f"{name} ", width=f"{name} width",
+                           scopes=("fused_moe",), counts=((
+                               "MoE host reads (group sizes)",
+                               fused_moe.HOST_READS),))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        touched = [int(p.unique().numel()) for p in picks
+                   if p.shape[0] == 8]
+        mean = sum(touched) / len(touched)
+        nbytes = moe_decode_bytes(cfg, mean)
+        log(f"{name} batch-8 decode: {mean:.2f} of "
+            f"{cfg['n_routed_experts']} routed experts touched a MoE layer "
+            f"(48 picks; {len(touched)} layer calls); weight bytes a step "
+            f"{nbytes / 1e9:.2f} GB, bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f}"
+            f" ms (bytes); peak memory {peak:.2f} GiB on {card}")
+        with moe_scope(torch):
+            rows, steps, scoped = _profiled_prompt_round(
+                torch, engine, f"{name} ", scopes=("fused_moe",))
+        dev_ms = sum(us for us, _, _ in rows) / 1e3
+        moe_ms = scoped["fused_moe"]
+        log(f"{name} prompt round, 4 x 512 tokens: {steps} engine step(s), "
+            f"device kernels {dev_ms:.3f} ms in "
+            f"{sum(n for _, n, _ in rows)} launches; the MoE FFN (routing, "
+            f"grouped products, combine) {moe_ms:.3f} ms (share "
+            f"{moe_ms / dev_ms:.3f})")
+    return summed
+
+
+def run_moe_phase(torch, pa, kw, timer, counters, card: str,
+                  only: str = "abcd"):
+    """Phase 19's parts named in `only`: (a) `check_moe_kernels`, (b)
+    `check_moe_two_layer`, (c) with (e) DeepSeek-MoE-16B whole, (d)
+    Mixtral-8x7B at 4 of its 32 layers. Returns (launches by path,
+    seconds by part)."""
+    by_path, seconds = {}, {}
+    engines = {"c": ("DeepSeek-MoE-16B", DEEPSEEK_MOE_16B,
+                     dict(spec=True, profile=True)),
+               "d": ("Mixtral-8x7B-4L",
+                     dict(MIXTRAL_8X7B, num_hidden_layers=4),
+                     dict(multi_steps=(1,)))}
+    for part in only:
+        t0 = time.perf_counter()
+        if part == "a":
+            check_moe_kernels(torch, pa, kw, timer)
+        elif part == "b":
+            check_moe_two_layer(torch, counters)
+        else:
+            name, cfg, kwargs = engines[part]
+            by_path[name] = run_moe_engine(torch, counters, card, name, cfg,
+                                           **kwargs)
+            free_engine(torch, name)
+        seconds[part] = round(time.perf_counter() - t0, 1)
+    return by_path, seconds
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "aphrodite_tpu_torch")):
         print("chip_smoke: aphrodite_tpu_torch/ not found beside this "
@@ -3967,6 +4470,7 @@ def main() -> int:
         return 1
 
     # 1. Card.
+    t_start = time.perf_counter()
     device_kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4081,6 +4585,8 @@ def main() -> int:
     check_model_against_plain(torch)
     # 3b. K4 then read-only K1 at the speculative verify shape.
     check_verify_shape(torch, pa, kw, timer)
+    # 3c. K1-K4 at DeepSeek-MoE-16B's multi-head geometry (phase 19 (a)).
+    check_moe_kernels(torch, pa, kw, timer)
 
     # 4. End to end at Mistral-7B width and depth.
     from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
@@ -4432,6 +4938,16 @@ def main() -> int:
     # 18. 2-layer full-width models through K12, K16, K16-f32 and K17 vs
     # their plain versions, each with a control.
     check_quant_models(torch)
+
+    # 19. Mixture of experts: K1-K4 at DeepSeek-MoE-16B's multi-head
+    # geometry, 2-layer Mixtral and DeepSeek models against their plain
+    # paths, DeepSeek-MoE-16B whole and Mixtral-8x7B at 4 of 32 layers.
+    log_clocks("before the MoE phase")
+    moe_paths, moe_seconds = run_moe_phase(torch, pa, kw, timer, counters,
+                                           smi, only="bcd")
+    by_path.update(moe_paths)
+    log(f"MoE phase (19) seconds {json.dumps(moe_seconds)}; the run so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     launches = {}
     for path in by_path.values():
         for name, n in path.items():

@@ -30,7 +30,11 @@ The threefry draws (`modeling/layers/prng.py`): keys, bits and uniforms
 bit-equal to the same calls on the CPU, and the tokens drawn equal.
 The speculative verify shape (K4 then read-only K1, rows of a sequence
 sharing one table): K4 exact, K1 within the attention tolerance, and a
-control (every row at the sequence's last context) beyond it.
+control (every row at the sequence's last context) beyond it. K1 at
+group 1 (DeepSeek-MoE-16B's 16 over 16 heads): the attention tolerance;
+K2 and K4 at 16 KV heads: exact. The MoE FFN (grouped path, bf16
+products rounded at gate, up, act and down): within 2e-2 + 2e-2 |f64|
+of an f64 evaluation on the same picks.
 """
 import numpy as np
 import pytest
@@ -2030,3 +2034,131 @@ def test_lora_delta_on_the_card_matches_f64(dev):
                 (fan_in, fan_out, m, err.max().item())
             base_rows = (idx < 0).nonzero()[:, 0]
             assert torch.equal(got[base_rows], F.linear(x, w)[base_rows])
+
+
+# ---- DeepSeek-MoE-16B's attention (group 1) and the MoE FFN ----
+
+@pytest.mark.parametrize("page_dtype", [torch.bfloat16, torch.int8,
+                                        torch.float8_e5m2])
+@pytest.mark.parametrize("splits", [1, 2, None],
+                         ids=["1split", "2splits", "policy"])
+def test_k1_at_group_one_matches_plain(dev, page_dtype, splits):
+    """K1 at DeepSeek-MoE-16B's multi-head geometry, 16 query heads over
+    16 KV heads of 128 (one live column of its 8-wide n-tile), on the
+    ragged grid with the fused write: within the attention tolerance of
+    the plain version at the same split count; fused-write codes
+    exact."""
+    ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512]
+    q, kp, vp, tb, ctx, kn, vn = _decode_problem(
+        dev, ctxs, page_dtype=page_dtype, seed=5, hq=16, hkv=16)
+    ppc = tpa.choose_pages_per_chunk(tb.shape[1], 32, len(ctxs))
+    work = tpa.build_decode_work_list([-(-c // 32) for c in ctxs], ppc)
+    n_split = splits or tpa.choose_decode_splits(
+        len(ctxs), 16, tb.shape[1], ppc, tpa.sm_count(dev))
+    kw = dict(scale=128 ** -0.5, pages_per_chunk=ppc,
+              kv_scale=tkq.dequant_scale(page_dtype, KV_SCALE))
+    kp2, vp2 = kp.clone(), vp.clone()
+    before = tpa.PAGED_DECODE_ATTENTION_LAUNCHES.count
+    got, _, _ = tpa.paged_decode_attention(q, kp, vp, tb, ctx, None, kn, vn,
+                                           work_items=work,
+                                           num_splits=splits, **kw)
+    want, _, _ = tpa.paged_decode_attention_plain(q, kp2, vp2, tb, ctx, None,
+                                                  kn, vn, num_splits=n_split,
+                                                  **kw)
+    torch.cuda.synchronize()
+    assert tpa.PAGED_DECODE_ATTENTION_LAUNCHES.count == before + 1
+    assert torch.equal(_bytes(kp), _bytes(kp2))
+    assert torch.equal(_bytes(vp), _bytes(vp2))
+    assert (got[1] == 0).all()                     # ctx 0 row
+    _close(got, want)
+
+
+@pytest.mark.parametrize("page_dtype", [torch.bfloat16, torch.int8,
+                                        torch.float8_e5m2])
+def test_writers_at_sixteen_kv_heads_are_exact(dev, page_dtype):
+    """K2 (bf16 pages: 8-bit prompts take the slot scatter) and K4 with
+    shared pages and padding slots at 16 KV heads of 128 (2048-value
+    rows): bit for bit their plain versions."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    hd, num_pages, ps = 16 * 128, 64, 32
+    base = torch.randn(num_pages, ps, hd, generator=g, device=dev)
+    kp = tkq.quantize_kv(base, page_dtype, KV_SCALE)
+    knew = torch.randn(96, hd, generator=g, device=dev).to(torch.bfloat16)
+    slots = torch.randperm(num_pages * ps, generator=g, device=dev)[:96].to(
+        torch.int32)
+    slots[::5] = num_pages * ps
+    before = tkw.WRITE_KV_PAGES_LAUNCHES.count
+    a = tkw.write_kv_pages(knew, knew.flip(0), kp.clone(), kp.clone(), slots,
+                           kv_scale=KV_SCALE)
+    b = tkw.write_kv_pages_plain(knew, knew.flip(0), kp.clone(), kp.clone(),
+                                 slots, KV_SCALE)
+    torch.cuda.synchronize()
+    assert tkw.WRITE_KV_PAGES_LAUNCHES.count == before + 1
+    assert torch.equal(_bytes(a[0]), _bytes(b[0]))
+    assert torch.equal(_bytes(a[1]), _bytes(b[1]))
+    if page_dtype != torch.bfloat16:
+        return
+    pid = torch.tensor([3, num_pages, 5, 9], dtype=torch.int32, device=dev)
+    vld = torch.tensor([ps, ps, 7, 1], dtype=torch.int32, device=dev)
+    rows = torch.randn(4 * ps, hd, generator=g, device=dev).to(torch.bfloat16)
+    c = tkw.write_kv_pages_prefill(rows, rows.flip(0), kp.clone(), kp.clone(),
+                                   pid, np.arange(4, dtype=np.int32), vld)
+    d = tkw.write_kv_pages_prefill_plain(rows, rows.flip(0), kp.clone(),
+                                         kp.clone(), pid, vld)
+    torch.cuda.synchronize()
+    assert torch.equal(c[0], d[0]) and torch.equal(c[1], d[1])
+
+
+@pytest.mark.parametrize("e,k,h,inter,renorm", [
+    (64, 6, 2048, 1408, False),       # DeepSeek-MoE-16B's routed experts
+    (8, 2, 4096, 14336, True)],       # Mixtral-8x7B's
+    ids=["deepseek", "mixtral"])
+@pytest.mark.parametrize("t", [8, 256])
+def test_moe_ffn_on_the_card_matches_f64(dev, e, k, h, inter, renorm, t):
+    """The grouped MoE FFN in bf16 on the card against an f64 evaluation
+    of the same weights on the same picks (its own f32 routing: an f64
+    route could flip a near tie): within 2e-2 + 2e-2 |f64| (bf16
+    products rounded to bf16 at gate, up, act and down). One host read a
+    call. The control, the experts rolled by one, misses."""
+    import torch.nn.functional as F
+    from aphrodite_tpu_torch.modeling.layers import fused_moe
+    g = torch.Generator(device=dev).manual_seed(e + t)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(
+            torch.bfloat16)
+    params = {"gate": randn(e, h, std=h ** -0.5 * 3),
+              "w_gate": randn(e, inter, h, std=h ** -0.5),
+              "w_up": randn(e, inter, h, std=h ** -0.5),
+              "w_down": randn(e, h, inter, std=inter ** -0.5)}
+    x = randn(t, h)
+    moe = fused_moe.FusedMoE(e, k, h, inter, renormalize=renorm,
+                             dtype=torch.bfloat16)
+    reads = fused_moe.HOST_READS.count
+    got = moe(params, x)
+    torch.cuda.synchronize()
+    assert fused_moe.HOST_READS.count == reads + 1
+    _, vals, idx = fused_moe.route(x, params["gate"], k, renorm)
+
+    def f64(p):
+        want = torch.zeros(t, h, dtype=torch.float64, device=dev)
+        x64 = x.double()
+        for ex in range(e):
+            tok, slot = (idx == ex).nonzero(as_tuple=True)
+            if not tok.numel():
+                continue
+            xs = x64[tok]
+            act = F.silu(xs @ p["w_gate"][ex].double().T) * \
+                (xs @ p["w_up"][ex].double().T)
+            want.index_add_(0, tok, (act @ p["w_down"][ex].double().T) *
+                            vals[tok, slot].double()[:, None])
+        return want
+    want = f64(params)
+    err = (got.double() - want).abs()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert bool((err <= 2e-2 + 2e-2 * want.abs()).all()), err.max().item()
+    rolled = {n: t_.roll(1, 0) if n != "gate" else t_
+              for n, t_ in params.items()}
+    bad = f64(rolled)
+    assert bool(((got.double() - bad).abs() >
+                 2e-2 + 2e-2 * bad.abs()).any())
