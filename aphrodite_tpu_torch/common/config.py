@@ -5,7 +5,9 @@ and semantics, narrowed to what the port serves so far: a dense
 Mixtral or DeepSeek-MoE model, or a dense,
 GPTQ-quantized (4 or 8 bits, no act-order), AWQ-quantized (4 bits), GGUF
 (a `.gguf` file, dense or at rest), SqueezeLLM, load-time int8 or QuIP#
-Llama-family model, Mistral's sliding window included, on one CUDA card
+model of every other architecture the JAX package registers (the Llama
+family, DeciLM, Qwen2, OPT, GPT-J, GPT-NeoX, Phi), Mistral's sliding
+window included, on one CUDA card
 (or the CPU, when the caller asks for it): dense models in bfloat16 or
 float32, the quantized ones in bfloat16 on the card (the kernels take
 bfloat16 activations and scales; QuIP# runs f32 activations through
@@ -19,12 +21,16 @@ refused HERE, with a message naming the later slice that brings it
   not take; on the card, GGUF, SqueezeLLM, int8 and QuIP# at layer
   shapes the kernels' gates refuse (QuIP#'s int8 form among them) and
   quantized models in float32 (the quantized matmul fallback route);
-- architectures other than Llama's, Mixtral's and DeepSeek-MoE's;
+- explicit float16 compute (`dtype="auto"` maps a float16 checkpoint
+  to bfloat16, as in the JAX package);
 - LoRA on the MoE architectures (`LoRAConfig.verify_with_model_config`).
 
 Quantization of any kind on an MoE architecture is refused as well, for
 good: the reference serves no quantized experts (its FusedMoE stacks
-float experts and takes no linear method).
+float experts and takes no linear method); so is an architecture
+neither package registers, and an OPT config whose
+`word_embed_proj_dim` differs from `hidden_size`, which the reference
+OPT (no `project_in` / `project_out`) cannot run.
 
 `DeviceConfig` resolves to "cuda" or "cpu" only, and never falls back
 to the CPU on its own.
@@ -57,6 +63,10 @@ def refuse(what: str, later: str) -> None:
 LATER_FALLBACK = ("the quantized matmul fallback route (dequantize-then-"
                   "matmul for layer shapes the kernels' gates refuse, "
                   "float32 on the card, GPTQ act-order and 2-bit)")
+
+#: Architectures whose MLP is one projection up and one down (no gate).
+_UNGATED_ARCHS = ("OPTForCausalLM", "GPTJForCausalLM", "GPTNeoXForCausalLM",
+                  "PhiForCausalLM")
 
 #: Quantization methods whose matmuls take bfloat16 on the card.
 _BF16_ON_CARD = ("gptq", "awq", "gguf", "squeezellm", "int8")
@@ -148,10 +158,25 @@ class ModelConfig:
         archs = getattr(self.hf_config, "architectures", None) or []
         if not any(ModelRegistry.load_model_cls(a) is not None
                    for a in archs):
-            refuse(f"architecture {archs}", "the other architectures")
+            raise NotImplementedError(
+                f"architecture {archs} is served by neither the JAX package "
+                "nor its PyTorch port (supported architectures: "
+                f"{ModelRegistry.get_supported_archs()}).")
+        if "OPTForCausalLM" in archs and \
+                self.hf_config.word_embed_proj_dim != \
+                self.hf_config.hidden_size:
+            raise NotImplementedError(
+                f"OPT with word_embed_proj_dim "
+                f"{self.hf_config.word_embed_proj_dim} != hidden_size "
+                f"{self.hf_config.hidden_size} (opt-350m): the reference OPT "
+                "has no project_in / project_out, so such a config does not "
+                "run there, and the PyTorch port adds no projection of its "
+                "own.")
         if self.dtype == "float16":
-            refuse("float16 compute (use bfloat16 or float32)",
-                   "the other architectures")
+            refuse("explicit float16 compute (dtype='auto' maps a float16 "
+                   "checkpoint to bfloat16; use that, bfloat16 or float32)",
+                   f"the dtype gaps beside {LATER_FALLBACK} (ROADMAP.md "
+                   "Queue 1, item 2)")
 
     def _verify_gptq(self) -> None:
         """GPTQ is served at 4 or 8 bits without act-order, for the
@@ -200,15 +225,26 @@ class ModelConfig:
         return []
 
     def _linear_shapes(self):
-        """(in, out) of the four quantized projections of a layer."""
+        """(in, out) of the quantized projections of a layer: qkv, o, the
+        MLP's first (gate+up where the MLP is gated) and second; then the
+        qkv shapes of any other per-layer KV head count (DeciLM)."""
         c = self.hf_config
+        hidden = c.hidden_size
         heads = c.num_attention_heads
-        kv_heads = getattr(c, "num_key_value_heads", None) or heads
         head_dim = self.get_head_size()
-        return [(c.hidden_size, (heads + 2 * kv_heads) * head_dim),
-                (heads * head_dim, c.hidden_size),
-                (c.hidden_size, 2 * c.intermediate_size),
-                (c.intermediate_size, c.hidden_size)]
+        kv_counts = sorted(set(self.get_kv_heads_per_layer()), reverse=True)
+        archs = getattr(c, "architectures", None) or []
+        if "OPTForCausalLM" in archs:
+            inter = c.ffn_dim
+        elif "GPTJForCausalLM" in archs:
+            inter = getattr(c, "n_inner", None) or 4 * hidden
+        else:
+            inter = c.intermediate_size
+        gated = not set(archs) & set(_UNGATED_ARCHS)
+        qkv = [(hidden, (heads + 2 * kv) * head_dim) for kv in kv_counts]
+        return [qkv[0], (heads * head_dim, hidden),
+                (hidden, (2 if gated else 1) * inter),
+                (inter, hidden)] + qkv[1:]
 
     def verify_with_device_config(self,
                                   device_config: "DeviceConfig") -> None:

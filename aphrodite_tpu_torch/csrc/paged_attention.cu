@@ -37,7 +37,17 @@
 // and how little each page costs once it has landed.
 //
 // K1 (the main path's decode attention, every step of every
-// configuration), grid (batch, Hkv, n_split), 4 warps a block:
+// configuration), grid (batch, Hkv x row blocks, n_split), 4 warps a
+// block:
+// 0. Row blocks. A block serves at most 16 of a kv head's query rows
+//    (two n-tiles of the score MMA); a larger group (DeciLM's 32 query
+//    heads over one KV head) is split into blocks of 16 rows, ceil(group
+//    / 16) blocks a kv head, each walking the same pages (the second
+//    block's reads mostly hit L2: its neighbour in the grid reads them
+//    at the same time). Every row block of the split holding ctx-1
+//    writes the same fused K/V bytes before reading them. Those grids
+//    run the kRowBlocks instances; at group <= 16 the others run, whose
+//    code is the single-block kernel's.
 // 1. Sequence splits (flash-decoding). A Hopper block cannot carry a
 //    running sum to another block, so the TPU's sequential grid axis
 //    becomes, per block, a loop over a contiguous run of whole chunks:
@@ -114,7 +124,7 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kMaxLaneElems = 8;     // head_dim <= 256
 constexpr float kNegBig = -1073741824.0f;  // -2^30, the Pallas bodies'
 constexpr float kLog2e = 1.4426950408889634f;
-// K1: 4 warps x 4 rows (group <= 16).
+// K1: 4 warps x 4 rows (a row block's 16 query rows).
 constexpr int kK1Threads = 128;
 constexpr int kK1Warps = kK1Threads / 32;
 
@@ -257,6 +267,7 @@ struct Args {
   const void* vnew;
   int num_kv_heads, group, head_dim, num_pages, page_size, pages_per_seq,
       pages_per_chunk;
+  int row_blocks;            // K1: ceil(group / 16) blocks a kv head
   float qk_scale;            // scale * kv_scale * log2(e)
   float kv_scale;
 };
@@ -290,8 +301,8 @@ __host__ __device__ constexpr size_t round16(size_t n) {
 constexpr int kSlotBytes = 16384;
 
 constexpr int kMmaPad = 8;          // bf16 elements after a staged row
-constexpr int kMmaRows = 16;        // query rows: two n-tiles of 8
-constexpr int kMaxNTiles = 2;       // group <= 16
+constexpr int kMmaRows = 16;        // a row block's query rows: two n-tiles
+constexpr int kMaxNTiles = 2;       // of 8
 constexpr int kMaxMTiles = 4;       // head_dim <= 256: 16 m-tiles / 4 warps
 
 // K1's shared memory: the ring, the widened tile (8-bit pages), q (bf16
@@ -438,7 +449,9 @@ struct SplitArgs {
   int n_split;
 };
 
-// Grid (batch, Hkv, n_split), 4 warps. Split s walks the whole chunks
+// Grid (batch, Hkv x row blocks, n_split), 4 warps; block y serves kv
+// head y / row_blocks and its query rows [16 rb, 16 rb + 16) (rb = y %
+// row_blocks), `group` below. Split s walks the whole chunks
 // [s * per, (s + 1) * per) that hold live tokens; its loads, K rows
 // then V rows chunk by chunk, slot_rows tokens a load, run through the
 // ring stages - 1 ahead of the compute. Tensor-core path (bf16 and
@@ -456,7 +469,7 @@ struct SplitArgs {
 // 16-byte aligned whatever the page size.
 // f32 pages keep the CUDA-core dots (a warp per query row, a shuffle sum
 // per score) inside the same split and ring.
-template <typename T, typename P, bool kAmla, int kStages>
+template <typename T, typename P, bool kAmla, int kStages, bool kRowBlocks>
 __global__ void __launch_bounds__(kK1Threads, 4) paged_decode_kernel(
     SplitArgs sa) {
   constexpr bool kMma = !std::is_same<P, float>::value;
@@ -466,7 +479,13 @@ __global__ void __launch_bounds__(kK1Threads, 4) paged_decode_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = a.head_dim;
   const int ps = a.page_size;
-  const int group = a.group;
+  // Without row blocks (group <= 16) the block's rows are its kv head's
+  // whole group and the code is the single-block kernel's.
+  const int h = kRowBlocks ? blockIdx.y / a.row_blocks : blockIdx.y;
+  const int row_first =
+      kRowBlocks ? (blockIdx.y - h * a.row_blocks) * kMmaRows : 0;
+  const int group =                                  // this block's rows
+      kRowBlocks ? min(kMmaRows, a.group - row_first) : a.group;
   const int ppc = a.pages_per_chunk;
   const int ct = ppc * ps;                         // chunk tokens
   const int R = L.slot_rows;
@@ -483,7 +502,6 @@ __global__ void __launch_bounds__(kK1Threads, 4) paged_decode_kernel(
   int* table_s = reinterpret_cast<int*>(smem + L.table);
 
   const int b = blockIdx.x;
-  const int h = blockIdx.y;
   const int split = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -498,7 +516,8 @@ __global__ void __launch_bounds__(kK1Threads, 4) paged_decode_kernel(
   const int per_split = (n_chunks + sa.n_split - 1) / sa.n_split;
 
   // The split holding position ctx-1 writes it before anything reads
-  // its page; no other block reads those bytes.
+  // its page; no other split reads those bytes, and its row blocks all
+  // write the same values.
   if (a.knew != nullptr && ctx_in > 0) {
     const int pos = ctx_in - 1;
     if (min(pos / ct / per_split, sa.n_split - 1) == split) {
@@ -513,7 +532,8 @@ __global__ void __launch_bounds__(kK1Threads, 4) paged_decode_kernel(
     }
   }
   const int64_t q_base =
-      (static_cast<int64_t>(b) * a.num_kv_heads + h) * group * d;
+      ((static_cast<int64_t>(b) * a.num_kv_heads + h) * a.group + row_first) *
+      d;
   const T* q = static_cast<const T*>(a.q);
   if constexpr (kMma) {
     // Padded rows and columns (past the group, past d) read as zero.
@@ -539,7 +559,8 @@ __global__ void __launch_bounds__(kK1Threads, 4) paged_decode_kernel(
   }
   if (tid < kMmaRows) {
     slope_s[tid] = (a.alibi != nullptr && tid < group)
-                       ? a.alibi[h * group + tid] * kLog2e : 0.f;
+                       ? a.alibi[h * a.group + row_first + tid] * kLog2e
+                       : 0.f;
     m_s[tid] = kNegBig;
     l_s[tid] = 0.f;
     delta_s[tid] = 0.f;
@@ -850,9 +871,9 @@ __global__ void __launch_bounds__(kK1Threads, 4) paged_decode_kernel(
 
   const bool direct = sa.n_split == 1;
   const int64_t rows_all = static_cast<int64_t>(gridDim.x) *
-                           a.num_kv_heads * sa.n_split * group;
+                           a.num_kv_heads * sa.n_split * a.group;
   const int64_t row0 = ((static_cast<int64_t>(b) * a.num_kv_heads + h) *
-                            sa.n_split + split) * group;
+                            sa.n_split + split) * a.group + row_first;
   if constexpr (kMma) {
     T* out = static_cast<T*>(a.out) + q_base;
 #pragma unroll
@@ -952,16 +973,18 @@ int split_entries(const Args& a, int n_split) {
   return (n_chunks + n_split - 1) / n_split * a.pages_per_chunk;
 }
 
+// A row block's layout: at most kMmaRows query rows.
 template <typename P>
 K1Layout k1_plan_for(const Args& a, int n_split, bool wide) {
-  return k1_plan<P>(a.group, a.head_dim, a.page_size, a.pages_per_chunk,
-                    split_entries(a, n_split), wide, smem_limit());
+  return k1_plan<P>(std::min(a.group, kMmaRows), a.head_dim, a.page_size,
+                    a.pages_per_chunk, split_entries(a, n_split), wide,
+                    smem_limit());
 }
 
-template <typename T, typename P, bool kAmla, int kStages>
-int launch_k1_ring(const Args& a, const K1Layout& L, int batch, int n_split,
+template <typename T, typename P, bool kAmla, int kStages, bool kRowBlocks>
+int launch_k1_grid(const Args& a, const K1Layout& L, int batch, int n_split,
                    float* part, cudaStream_t stream) {
-  auto kernel = paged_decode_kernel<T, P, kAmla, kStages>;
+  auto kernel = paged_decode_kernel<T, P, kAmla, kStages, kRowBlocks>;
   if (L.total > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -969,8 +992,8 @@ int launch_k1_ring(const Args& a, const K1Layout& L, int batch, int n_split,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (batch == 0) return static_cast<int>(cudaGetLastError());
-  kernel<<<dim3(batch, a.num_kv_heads, n_split), kK1Threads, L.total,
-           stream>>>(SplitArgs{a, L, part, n_split});
+  kernel<<<dim3(batch, a.num_kv_heads * a.row_blocks, n_split), kK1Threads,
+           L.total, stream>>>(SplitArgs{a, L, part, n_split});
   if (n_split > 1) {
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -980,6 +1003,21 @@ int launch_k1_ring(const Args& a, const K1Layout& L, int batch, int n_split,
             a.kv_scale);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Groups past 16 query rows take the row-block instances; the others
+// keep the single-block ones (the same code and registers as before
+// row blocks).
+template <typename T, typename P, bool kAmla, int kStages>
+int launch_k1_ring(const Args& a, const K1Layout& L, int batch, int n_split,
+                   float* part, cudaStream_t stream) {
+  return a.row_blocks > 1
+             ? launch_k1_grid<T, P, kAmla, kStages, true>(a, L, batch,
+                                                          n_split, part,
+                                                          stream)
+             : launch_k1_grid<T, P, kAmla, kStages, false>(a, L, batch,
+                                                           n_split, part,
+                                                           stream);
 }
 
 // The ring's depth is a template argument (the copies' wait takes an
@@ -1022,16 +1060,17 @@ int launch_amla(const Args& a, int batch, bool amla, int n_split, bool wide,
 // act_dtype (q, out, knew/vnew): 0 = float32, 1 = bfloat16.
 // page_dtype: 0 = float32, 1 = bfloat16, 2 = int8, 3 = float8 e5m2;
 // float pages take the activation dtype.
-int dispatch(const Args& a, int batch, int act_dtype, int page_dtype,
+int dispatch(Args a, int batch, int act_dtype, int page_dtype,
              bool amla, int n_split, bool wide, float* part,
              cudaStream_t s) {
   const int n_chunks = a.pages_per_seq / a.pages_per_chunk;
   // K1 stages each token's row in 16-byte copies.
   const int page_bytes = page_dtype == 0 ? (act_dtype == 0 ? 4 : 2)
                                          : (page_dtype == 1 ? 2 : 1);
+  a.row_blocks = (a.group + kMmaRows - 1) / kMmaRows;
   if (a.group < 1 || a.head_dim > 32 * kMaxLaneElems ||
-      a.group > kMmaRows || a.head_dim * page_bytes % 16 != 0 ||
-      n_split < 1 ||
+      static_cast<int64_t>(a.num_kv_heads) * a.row_blocks > 65535 ||
+      a.head_dim * page_bytes % 16 != 0 || n_split < 1 ||
       (n_split > 1 && (n_split > n_chunks || part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (act_dtype == 0) {
@@ -1075,7 +1114,7 @@ extern "C" int paged_decode_attention(
     float* part, void* stream) {
   Args a{out, q, k_pages, v_pages, block_tables, context_lens, alibi,
          knew, vnew, num_kv_heads, group, head_dim, num_pages, page_size,
-         pages_per_seq, pages_per_chunk, qk_scale, kv_scale};
+         pages_per_seq, pages_per_chunk, 1, qk_scale, kv_scale};
   return dispatch(a, batch, act_dtype, page_dtype, amla != 0, n_split,
                   wide != 0, part, static_cast<cudaStream_t>(stream));
 }

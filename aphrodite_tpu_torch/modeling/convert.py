@@ -20,7 +20,12 @@ R, in] and B [out, slots * R] (`lora/layers.py`). The MoE buckets
 stacks [E, in, out] in the JAX package; the port keeps the linear
 layout, [E, H] and [E, out, in] (`layers/fused_moe.py`). DeepSeek's
 shared experts are a `LlamaMLP` whose buckets end in `.gate_up_proj` /
-`.down_proj` and transpose as every linear does. Used to give both
+`.down_proj` and transpose as every linear does. The other
+architectures' linear buckets (OPT's `out_proj`, `fc1`, `fc2`; GPT-J's
+`out_proj`, `mlp.fc_in`, `mlp.fc_out`; NeoX's `dense`,
+`mlp.dense_h_to_4h`, `mlp.dense_4h_to_h`; Phi's `dense`, `mlp.fc1`,
+`mlp.fc2`) transpose too; OPT's position table, LayerNorm weights and
+biases and the heads' biases carry over unchanged. Used to give both
 sides the same weights in parity tests.
 """
 from __future__ import annotations
@@ -30,8 +35,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-# Bucket suffixes of the linear layers whose 2-D weight transposes.
-_LINEAR_SUFFIXES = (".qkv_proj", ".o_proj", ".gate_up_proj", ".down_proj")
+# Bucket suffixes of the linear layers whose 2-D weight transposes: the
+# Llama family's, OPT's and GPT-J's out_proj, OPT's and Phi's fc1 / fc2,
+# GPT-J's fc_in / fc_out, NeoX's and Phi's dense and NeoX's MLP.
+_LINEAR_SUFFIXES = (".qkv_proj", ".o_proj", ".gate_up_proj", ".down_proj",
+                    ".out_proj", ".fc1", ".fc2", ".fc_in", ".fc_out",
+                    ".dense", ".dense_h_to_4h", ".dense_4h_to_h")
 # Bucket suffixes of the MoE layers: gate [H, E] -> [E, H], the expert
 # stacks [E, in, out] -> [E, out, in].
 _MOE_SUFFIXES = (".block_sparse_moe", ".mlp_moe")

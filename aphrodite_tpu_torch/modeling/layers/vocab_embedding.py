@@ -1,7 +1,10 @@
 """Vocab embedding and LM head (port of
 `aphrodite_tpu/modeling/layers/vocab_embedding.py`, one GPU). The table
 is [padded_vocab, hidden]; logits = hidden @ W.T with the padding
-columns sliced off."""
+columns sliced off, plus the head's bias where the model has one (GPT-J
+and Phi: `aphrodite_tpu/modeling/models/gpt_j.py:181-186`,
+`phi.py:183-188`). OPT's head is its `embed_tokens` table, over
+`word_embed_proj_dim` (`opt.py:143-153`)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -42,17 +45,32 @@ class VocabParallelEmbedding:
 
     def weight_loader(self, params: Dict[str, torch.Tensor], name: str,
                       hf_tensor: torch.Tensor, shard_id=None) -> None:
-        """Zero-pad rows beyond the checkpoint vocab."""
-        padded = torch.zeros((self.num_embeddings_padded,
-                              self.embedding_dim), dtype=hf_tensor.dtype)
+        """Zero-pad rows (a bias's entries) beyond the checkpoint vocab."""
+        padded = torch.zeros((self.num_embeddings_padded,) +
+                             tuple(hf_tensor.shape[1:]), dtype=hf_tensor.dtype)
         padded[:hf_tensor.shape[0]] = hf_tensor
         params[name] = padded
 
 
 class ParallelLMHead(VocabParallelEmbedding):
-    """LM head: logits = hidden @ W.T over the true vocab."""
+    """LM head: logits = hidden @ W.T (+ bias) over the true vocab."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, *,
+                 bias: bool = False, **kw) -> None:
+        super().__init__(num_embeddings, embedding_dim, **kw)
+        self.bias = bias
+
+    def init(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        params = super().init(device)
+        if self.bias:
+            params["bias"] = torch.empty((self.num_embeddings_padded,),
+                                         dtype=self.dtype, device=device)
+        return params
 
     def compute_logits(self, params: Dict[str, torch.Tensor],
                        hidden: torch.Tensor) -> torch.Tensor:
-        logits = hidden @ params["weight"].t()
-        return logits[..., :self.org_vocab_size]
+        logits = (hidden @ params["weight"].t())[..., :self.org_vocab_size]
+        bias = params.get("bias")
+        if bias is not None:
+            logits = logits + bias[:self.org_vocab_size]
+        return logits

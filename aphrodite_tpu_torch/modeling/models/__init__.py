@@ -1,7 +1,8 @@
 """Model zoo of the PyTorch port: HF `architectures` names -> classes,
-resolved lazily. Registered: the Llama-family names that map to
-`llama.py`, and the two MoE families (`mixtral.py`, `deepseek.py`); the
-other architectures of the JAX package are a later slice (ROADMAP.md)."""
+resolved lazily. The same names and module names as the JAX package's
+registry (`aphrodite_tpu/modeling/models/__init__.py`): the Llama
+family, DeciLM and Qwen2 over `llama.py`, the two MoE families, OPT,
+GPT-J, GPT-NeoX and Phi."""
 from __future__ import annotations
 
 import importlib
@@ -12,8 +13,14 @@ _MODELS = {
     "LLaMAForCausalLM": ("llama", "LlamaForCausalLM"),
     "MistralForCausalLM": ("llama", "LlamaForCausalLM"),
     "YiForCausalLM": ("llama", "LlamaForCausalLM"),
+    "DeciLMForCausalLM": ("decilm", "DeciLMForCausalLM"),
     "MixtralForCausalLM": ("mixtral", "MixtralForCausalLM"),
     "DeepseekForCausalLM": ("deepseek", "DeepseekForCausalLM"),
+    "OPTForCausalLM": ("opt", "OPTForCausalLM"),
+    "GPTJForCausalLM": ("gpt_j", "GPTJForCausalLM"),
+    "GPTNeoXForCausalLM": ("gpt_neox", "GPTNeoXForCausalLM"),
+    "PhiForCausalLM": ("phi", "PhiForCausalLM"),
+    "Qwen2ForCausalLM": ("qwen2", "Qwen2ForCausalLM"),
 }
 #: The architectures whose FFNs are FusedMoE layers.
 MOE_ARCHS = ("MixtralForCausalLM", "DeepseekForCausalLM")

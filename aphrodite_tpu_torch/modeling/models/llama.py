@@ -32,6 +32,30 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
+# The q / k / v checkpoint tensors of a merged qkv_proj: (HF name
+# fragment, merged layer, shard id).
+QKV_STACKED = [("q_proj", "qkv_proj", "q"), ("k_proj", "qkv_proj", "k"),
+               ("v_proj", "qkv_proj", "v")]
+
+
+def load_linear(loaders: Dict[str, object], bucket, name: str,
+                tensor: torch.Tensor, stacked) -> None:
+    """One checkpoint tensor of a linear layer, as the JAX models load
+    it: a stacked projection's (`stacked`: (HF name fragment, merged
+    layer, shard id)) into its shard of the merged layer, any other
+    into the layer its bucket names (quantized checkpoints' qweight,
+    qzeros, scales and g_idx included); a name of no known layer is
+    skipped."""
+    for hf_frag, merged, shard_id in stacked:
+        if f".{hf_frag}." in name:
+            key, pname = name.replace(hf_frag, merged).rsplit(".", 1)
+            loaders[key].weight_loader(bucket(key), pname, tensor, shard_id)
+            return
+    key, pname = name.rsplit(".", 1)
+    if key in loaders:
+        loaders[key].weight_loader(bucket(key), pname, tensor)
+
+
 class LlamaAttention:
 
     def __init__(self, config, layer_prefix: str, dtype,
@@ -228,10 +252,7 @@ class LlamaForCausalLM:
 
     # ---- checkpoint loading ----
     # (HF name fragment, merged param, shard id), as in the JAX model.
-    _STACKED = [
-        ("q_proj", "qkv_proj", "q"),
-        ("k_proj", "qkv_proj", "k"),
-        ("v_proj", "qkv_proj", "v"),
+    _STACKED = QKV_STACKED + [
         ("gate_proj", "gate_up_proj", 0),
         ("up_proj", "gate_up_proj", 1),
     ]
@@ -267,18 +288,8 @@ class LlamaForCausalLM:
                 bucket(key)[pname] = tensor
                 continue
             name = self._load_other(bucket, name, tensor)
-            if name is None:
-                continue
-            for hf_frag, merged, shard_id in self._STACKED:
-                if f".{hf_frag}." in name:
-                    key, pname = name.replace(hf_frag, merged).rsplit(".", 1)
-                    loaders[key].weight_loader(bucket(key), pname, tensor,
-                                               shard_id)
-                    break
-            else:
-                key, pname = name.rsplit(".", 1)
-                if key in loaders:
-                    loaders[key].weight_loader(bucket(key), pname, tensor)
+            if name is not None:
+                load_linear(loaders, bucket, name, tensor, self._STACKED)
         return params
 
     def _load_other(self, bucket, name: str, tensor: torch.Tensor

@@ -22,11 +22,13 @@ time, as the JAX function reads them.
 
 Both are one CUDA launch: K1's grid (batch, Hkv, n_split) is the padded
 grid at one kv head a block, so K5 launches K1's kernel and counts it
-under its own counter. It splits a sequence's chunks over
-`choose_decode_splits` blocks (flash-decoding): each split keeps its own
-online-softmax state over a contiguous run of whole chunks, and a merge
-kernel (its own launch counter) combines the splits with the same
-power-of-two rescale. The plain version takes the same
+under its own counter. A block serves at most 16 of a kv head's query
+rows; a larger group (the JAX K1 packs any group) takes ceil(group / 16)
+blocks a kv head (`row_blocks`), each reading the same pages. It splits
+a sequence's chunks over `choose_decode_splits` blocks (flash-decoding):
+each split keeps its own online-softmax state over a contiguous run of
+whole chunks, and a merge kernel (its own launch counter) combines the
+splits with the same power-of-two rescale. The plain version takes the same
 `num_splits` and repeats that arithmetic; at 1 split it is the
 sequential walk of the Pallas body.
 
@@ -78,9 +80,10 @@ def _exp2(x: torch.Tensor) -> torch.Tensor:
 _WORK_BUCKETS = [8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512,
                  768, 1024, 1536, 2048, 3072, 4096]
 
-# Kernel limits (csrc/paged_attention.cu): 4 warps x 4 rows a kv head;
-# 8 lanes of head_dim per warp lane.
-_MAX_GROUP = 16
+# Kernel limits (csrc/paged_attention.cu): a block serves up to 16 of a
+# kv head's query rows (4 warps x 4 rows), a larger group ceil(group /
+# 16) blocks (`row_blocks`); 8 lanes of head_dim per warp lane.
+ROWS_PER_BLOCK = 16
 _MAX_HEAD_DIM = 256
 #: Block-table entries a K1 split stages in shared memory (8 KB): longer
 #: tables take more splits.
@@ -138,6 +141,11 @@ def choose_pages_per_chunk(pages_per_seq: int, page_size: int,
 
 
 sm_count = build.sm_count
+
+
+def row_blocks(group: int) -> int:
+    """K1's blocks a kv head: its query rows in blocks of 16."""
+    return -(-group // ROWS_PER_BLOCK)
 
 
 def choose_decode_splits(batch: int, num_kv_heads: int,
@@ -388,11 +396,14 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
         raise TypeError(f"{what}: q must be bf16 or f32 and the pages "
                         f"that dtype, int8 or float8_e5m2, got {act}/"
                         f"{page}/{v_pages.dtype}")
-    if group > _MAX_GROUP or d > _MAX_HEAD_DIM or \
-            d * k_pages.element_size() % 16:
-        raise ValueError(f"{what}: unsupported geometry group={group} "
-                         f"head_dim={d} page_size={page_size} "
-                         f"page dtype {page}")
+    if d > _MAX_HEAD_DIM or d * k_pages.element_size() % 16 or \
+            num_kv_heads * row_blocks(group) > 65535:
+        raise ValueError(f"{what}: unsupported geometry Hq={num_q_heads} "
+                         f"Hkv={num_kv_heads} (group {group}) head_dim={d} "
+                         f"page_size={page_size} page dtype {page} (K1 "
+                         f"takes head_dim <= {_MAX_HEAD_DIM} in whole 16-byte "
+                         "runs of the page dtype, and at most 65535 (kv "
+                         "head, 16-row block) pairs)")
     if block_tables.dtype != torch.int32 or \
             context_lens.dtype != torch.int32 or \
             block_tables.shape[0] != batch or \
@@ -414,12 +425,15 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
     sms = sm_count(q.device)
-    n_split = choose_decode_splits(batch, num_kv_heads, pps, ppc, sms) \
+    # The grid's blocks a (sequence, split): every 16-row block of every
+    # kv head.
+    heads_blocks = num_kv_heads * row_blocks(group)
+    n_split = choose_decode_splits(batch, heads_blocks, pps, ppc, sms) \
         if num_splits is None else int(num_splits)
     if not 1 <= n_split <= max(pps // ppc, 1):
         raise ValueError(f"{what}: num_splits={n_split} outside [1, "
                          f"{pps // ppc}] (the table's chunks)")
-    wide = wide_slots(batch, num_kv_heads, n_split, sms)
+    wide = wide_slots(batch, heads_blocks, n_split, sms)
     out = torch.empty_like(q)
     # Each split's f32 state: acc [batch, Hkv, n_split, group, d], then
     # m and l [batch, Hkv, n_split, group].

@@ -2,20 +2,36 @@
 `json` alone, or a `.gguf` file's metadata.
 
 The JAX package loads configs through `transformers.AutoConfig`
-(`aphrodite_tpu/transformers_utils/config.py:6`). The port runs where
+(`aphrodite_tpu/transformers_utils/config.py:6`), or through its own
+config classes for `model_type` "yi" and "qwen". The port runs where
 `transformers` is not installed, so it reads the JSON into a plain
-attribute object and fills the defaults HF's `LlamaConfig` would give
-the keys a Llama-family checkpoint may leave out; a Mixtral file gets
-HF's `MixtralConfig` defaults over those, and a DeepSeek-MoE file
-(`model_type: "deepseek"`, remote code in HF) the defaults the JAX
-model's own `getattr`s give (`aphrodite_tpu/modeling/models/
-deepseek.py:35-47`).
+attribute object and fills, as data, what those classes would give the
+keys a checkpoint may leave out:
+
+- a Llama-family file (and any other type, DeciLM's "deci" among them)
+  gets HF's `LlamaConfig` defaults; a Mistral or Mixtral file HF's
+  `MistralConfig` / `MixtralConfig` defaults over those, and a
+  DeepSeek-MoE file (`model_type: "deepseek"`, remote code in HF) the
+  defaults the JAX model's own `getattr`s give
+  (`aphrodite_tpu/modeling/models/deepseek.py:35-47`);
+- Qwen2, OPT, GPT-J, GPT-NeoX and Phi files get their own class's
+  defaults alone (transformers 4.57.6,
+  `models/<type>/configuration_<type>.py`), with what those classes
+  derive in `__init__`: GPT-J's `attribute_map` (`hidden_size` is
+  `n_embd`, and so on), Qwen2's window only under `use_sliding_window`,
+  OPT's `word_embed_proj_dim` defaulting to `hidden_size`, NeoX's
+  `partial_rotary_factor` and `rope_theta` from `rotary_pct` and
+  `rotary_emb_base`;
+- "yi" and "qwen" files get the JAX package's own config classes'
+  tables (`configs/yi.py`, `configs/qwen.py`).
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
+
+from aphrodite_tpu_torch.transformers_utils.configs import qwen, yi
 
 # HF LlamaConfig defaults for keys a config.json may omit.
 _LLAMA_DEFAULTS: Dict[str, Any] = {
@@ -52,6 +68,95 @@ _MIXTRAL_DEFAULTS: Dict[str, Any] = {
     "bos_token_id": 1,
     "eos_token_id": 2,
 }
+# transformers 4.57.6's defaults (models/<type>/configuration_<type>.py)
+# for the keys the models and the engine read, by model_type; these
+# families do not start from the Llama table.
+_QWEN2_DEFAULTS: Dict[str, Any] = {
+    "vocab_size": 151936, "hidden_size": 4096, "intermediate_size": 22016,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "hidden_act": "silu",
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-6,
+    "tie_word_embeddings": False, "rope_theta": 10000.0,
+    "rope_scaling": None, "use_sliding_window": False,
+    "sliding_window": 4096, "max_window_layers": 28,
+    "bos_token_id": None, "eos_token_id": None,
+}
+_OPT_DEFAULTS: Dict[str, Any] = {
+    "vocab_size": 50272, "hidden_size": 768, "num_hidden_layers": 12,
+    "ffn_dim": 3072, "max_position_embeddings": 2048,
+    "do_layer_norm_before": True, "_remove_final_layer_norm": False,
+    "word_embed_proj_dim": None, "num_attention_heads": 12,
+    "activation_function": "relu", "enable_bias": True,
+    "layer_norm_elementwise_affine": True, "pad_token_id": 1,
+    "bos_token_id": 2, "eos_token_id": 2, "tie_word_embeddings": True,
+}
+_GPTJ_DEFAULTS: Dict[str, Any] = {
+    "vocab_size": 50400, "n_positions": 2048, "n_embd": 4096,
+    "n_layer": 28, "n_head": 16, "rotary_dim": 64, "n_inner": None,
+    "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+    "bos_token_id": 50256, "eos_token_id": 50256,
+    "tie_word_embeddings": False,
+}
+_GPT_NEOX_DEFAULTS: Dict[str, Any] = {
+    "vocab_size": 50432, "hidden_size": 6144, "num_hidden_layers": 44,
+    "num_attention_heads": 64, "intermediate_size": 24576,
+    "hidden_act": "gelu", "rotary_pct": 0.25, "rotary_emb_base": 10000,
+    "max_position_embeddings": 2048, "layer_norm_eps": 1e-5,
+    "bos_token_id": 0, "eos_token_id": 2, "tie_word_embeddings": False,
+    "use_parallel_residual": True, "rope_scaling": None,
+    "attention_bias": True,
+}
+_PHI_DEFAULTS: Dict[str, Any] = {
+    "vocab_size": 51200, "hidden_size": 2048, "intermediate_size": 8192,
+    "num_hidden_layers": 24, "num_attention_heads": 32,
+    "num_key_value_heads": None, "hidden_act": "gelu_new",
+    "max_position_embeddings": 2048, "layer_norm_eps": 1e-5,
+    "tie_word_embeddings": False, "rope_theta": 10000.0,
+    "rope_scaling": None, "partial_rotary_factor": 0.5,
+    "qk_layernorm": False, "bos_token_id": 1, "eos_token_id": 2,
+}
+# HF GPTJConfig's attribute_map: the engine's names -> GPT-J's.
+_GPTJ_ATTRIBUTE_MAP = {"max_position_embeddings": "n_positions",
+                       "hidden_size": "n_embd",
+                       "num_attention_heads": "n_head",
+                       "num_hidden_layers": "n_layer"}
+
+
+def _qwen2_window(e: Dict[str, Any]) -> None:
+    # Qwen2Config keeps the window only where use_sliding_window is set.
+    if not e["use_sliding_window"]:
+        e["sliding_window"] = None
+
+
+def _opt_proj_dim(e: Dict[str, Any]) -> None:
+    if e["word_embed_proj_dim"] is None:
+        e["word_embed_proj_dim"] = e["hidden_size"]
+
+
+def _neox_rotary(e: Dict[str, Any]) -> None:
+    # GPTNeoXConfig sets these two from rotary_pct / rotary_emb_base,
+    # whatever the file says of them.
+    e["partial_rotary_factor"] = e["rotary_pct"]
+    e["rope_theta"] = e["rotary_emb_base"]
+
+
+def _gptj_aliases(e: Dict[str, Any]) -> None:
+    for alias, real in _GPTJ_ATTRIBUTE_MAP.items():
+        if alias in e:
+            e[real] = e[alias]
+        e[alias] = e[real]
+
+
+# model_type -> (defaults, what the HF class derives in __init__).
+_OWN_DEFAULTS: Dict[str, Any] = {
+    "qwen2": (_QWEN2_DEFAULTS, _qwen2_window),
+    "opt": (_OPT_DEFAULTS, _opt_proj_dim),
+    "gptj": (_GPTJ_DEFAULTS, _gptj_aliases),
+    "gpt_neox": (_GPT_NEOX_DEFAULTS, _neox_rotary),
+    "phi": (_PHI_DEFAULTS, None),
+    "yi": (yi.DEFAULTS, None),
+    "qwen": (qwen.DEFAULTS, None),
+}
 # The JAX DeepSeek model's getattr defaults: no routed experts means
 # every layer is dense.
 _DEEPSEEK_DEFAULTS: Dict[str, Any] = {
@@ -79,14 +184,21 @@ class ModelJsonConfig:
 
 
 def config_from_dict(raw: Dict[str, Any]) -> ModelJsonConfig:
-    """Apply the Llama-family defaults (and Mixtral's or DeepSeek's over
-    them) to a parsed config.json."""
-    entries = dict(_LLAMA_DEFAULTS)
+    """Apply the defaults of the file's model_type (see the module doc)
+    to a parsed config.json."""
     model_type = str(raw.get("model_type", "")).lower()
-    entries.update({"mistral": _MISTRAL_DEFAULTS,
-                    "mixtral": _MIXTRAL_DEFAULTS,
-                    "deepseek": _DEEPSEEK_DEFAULTS}.get(model_type, {}))
+    derive: Optional[Callable[[Dict[str, Any]], None]] = None
+    if model_type in _OWN_DEFAULTS:
+        defaults, derive = _OWN_DEFAULTS[model_type]
+        entries = dict(defaults)
+    else:
+        entries = dict(_LLAMA_DEFAULTS)
+        entries.update({"mistral": _MISTRAL_DEFAULTS,
+                        "mixtral": _MIXTRAL_DEFAULTS,
+                        "deepseek": _DEEPSEEK_DEFAULTS}.get(model_type, {}))
     entries.update(raw)
+    if derive is not None:
+        derive(entries)
     if model_type == "deepseek" and \
             entries["n_routed_experts"] is not None:
         missing = [k for k in _DEEPSEEK_REQUIRED if k not in entries]

@@ -79,6 +79,20 @@ Phases, in order; any failure exits non-zero:
    fused write at the 8-bit edges; K2 and K3 / K4 exact with their
    controls, every slot arm timed; K1 timed at B 8 and B 64 x 2047 on
    each page type beside its plain version, SDPA and the bound.
+3d. (Phase 20's kernels.) K1-K4 at the other architectures' attention
+   geometries: Qwen2-7B's Hq 28 over Hkv 4 (group 7), Phi-2's head_dim
+   80 (32 over 32), GPT-NeoX-20B's 96 (64 over 64), GPT-J-6B's 256 (16
+   over 16) and DeciLM's groups 8, 16 and 32 (32 query heads over 4, 2
+   and 1 KV heads of 128; group 32 runs K1's 16-row blocks). At each:
+   K1 with a work list, fused write on and off, at its forced split
+   counts, on bf16, int8 and fp8 pages (32-token pages, B 1 x 2047 and
+   B 64; phase 3's tolerance), with a control that must miss (the
+   neighbouring kv head's K rows, or at one kv head the query's rows
+   rolled by 16, the other row block's); K1's fused write at the 8-bit
+   edges; K2 and K3 / K4 exact with their controls at the geometry's
+   row width; K1 timed at B 64 x 2047 on each page type and at B 8 on
+   bf16 pages beside its plain version, SDPA and the bound, the fastest
+   named.
 4. End to end: the port's engine serves a Llama of Mistral-7B width and
    depth (hidden 4096, 32 layers, 32/8 heads, intermediate 14336, vocab
    32000), bf16, dummy weights from seed 0, 32-token pages, token ids in
@@ -377,14 +391,35 @@ Phases, in order; any failure exits non-zero:
    FFN). Every request finishes, every engine step launches K1, K2 and
    K3 / K4 a positive multiple of 28 times, every page comes back; host
    reads of the group sizes are logged.
-   (d) Mixtral-8x7B at full width, 4 of its 32 layers (46.7B bf16
-   parameters do not fit 80 GB), through the mix at multi_step 1.
+   (d) Mixtral-8x7B at full width, 2 of its 32 layers (46.7B bf16
+   parameters do not fit 80 GB; 4 layers before, cut for time),
+   through the mix at multi_step 1.
    (e) (c)'s engine profiled: a batch-8 decode step (wall and device ms,
    launches, the MoE FFN's device ms inside a torch.profiler range,
    host reads a step, experts touched a layer and the weight-bytes
    bound, peak memory) and a 2048-row prompt round (the MoE FFN's
    share).
-20. Prints the kernel JSON line (launches summed over every path
+20. The other architectures (`ARCH_MODELS`, published configs written
+   here by hand: Qwen/Qwen2-7B, microsoft/phi-2, EleutherAI/gpt-j-6b,
+   EleutherAI/gpt-neox-20b, facebook/opt-6.7b, and DeciLM-7B's widths
+   with a per-layer KV list [4, 2, 1] of this script's choosing):
+   (a) each at full width cut to 2 layers (DeciLM 3) against its plain
+   path (`compare_with_plain`, 2e-2 of max |logit|) with a control that
+   must miss (Qwen2's q/k/v biases dropped, Phi's rotary over the whole
+   head, GPT-J's rotary neox-style, NeoX's qkv left per-head
+   interleaved, OPT's positions without the +2 offset, DeciLM's K rows
+   rolled by one KV head), then through phase 4's mix at multi_step 1
+   on dummy weights; (b) Qwen2-7B whole (28 layers, bf16, dummy weights
+   from seed 0): the mix at multi_step 1 and 8, then APHRODITE_SPEC=1
+   with oracle drafts; every request finishes, every engine step
+   launches K1, K2 and K3 / K4 a positive multiple of 28 times, K3 never
+   (no sliding window: HF's Qwen2Config keeps none under
+   use_sliding_window false, and the JAX package reads it so), every
+   page comes back; (c) GPTQ W4A16 over a 2-layer Qwen2-7B (random
+   codes, biases after the kernel) through K6 and K7 against its plain
+   path, with two controls; (d) (b)'s engine profiled: a batch-8 decode
+   step against the weights' bytes bound, and a 2048-row prompt round.
+21. Prints the kernel JSON line (launches summed over every path
    above), the card line, and last {"ok": true, "device": {...}}.
 
 No earlier phase is cut in depth for time (PERF.md has the run's
@@ -490,16 +525,22 @@ def bound(nbytes: float, flops: float, ops_per_s: float = BF16_FLOPS_PER_S):
 
 
 @contextlib.contextmanager
-def heads(hq: int, hkv: int):
+def heads(hq: int, hkv: int, head_dim: int = 128):
     """The kernel checks, timers and `compare_with_plain` at another
-    attention geometry: they read HQ and HKV when called."""
-    global HQ, HKV
-    saved = HQ, HKV
-    HQ, HKV = hq, hkv
+    attention geometry: they read HQ, HKV and HEAD_DIM when called."""
+    global HQ, HKV, HEAD_DIM
+    saved = HQ, HKV, HEAD_DIM
+    HQ, HKV, HEAD_DIM = hq, hkv, head_dim
     try:
         yield
     finally:
-        HQ, HKV = saved
+        HQ, HKV, HEAD_DIM = saved
+
+
+def k1_heads(pa) -> int:
+    """K1's blocks a (sequence, split) at the current geometry: each kv
+    head's query rows in blocks of 16 (what its split policy counts)."""
+    return HKV * pa.row_blocks(HQ // HKV)
 
 
 # -------------------------------------------------- K1 problem builder --
@@ -544,18 +585,20 @@ def k1_split_counts(pa, batch, pps, ppc):
     """K1's forced split counts: 1, 2, the policy's choice and one per
     chunk (each once)."""
     n_chunks = pps // ppc
-    policy = pa.choose_decode_splits(batch, HKV, pps, ppc,
+    policy = pa.choose_decode_splits(batch, k1_heads(pa), pps, ppc,
                                      pa.sm_count("cuda"))
     return sorted({n for n in (1, 2, policy, n_chunks) if n <= n_chunks})
 
 
 def check_decode_attention(torch, pa, ragged: bool, page_dtype,
-                           amlas=(True, False), alibis=(False, True)):
+                           amlas=(True, False), alibis=(False, True),
+                           page_sizes=(16, 32), batches=(1, 8, 64)):
     """K1 (`ragged`: with a work list) or K5 (without) vs the plain
-    version across the main path's shapes, on bf16, int8 or fp8 pages;
-    K1 at every forced split count of `k1_split_counts`, K5 at its
-    policy's, each against the plain version at the same split count.
-    Returns the largest error."""
+    version across the main path's shapes (page sizes and batches of
+    `page_sizes` and `batches`), on bf16, int8 or fp8 pages; K1 at every
+    forced split count of `k1_split_counts`, K5 at its policy's, each
+    against the plain version at the same split count. Returns the
+    largest error."""
     import random
     from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
     rng = random.Random(0)
@@ -564,9 +607,9 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
     kv_scale = dequant_scale(page_dtype, KV_SCALE)
     worst = 0.0
     cases = 0
-    for page_size in (16, 32):
+    for page_size in page_sizes:
         pps = 2048 // page_size
-        for batch in (1, 8, 64):
+        for batch in batches:
             specials = [1, 17, 100, 1000, 2047]
             ctxs = [specials[i] if i < len(specials)
                     else rng.randint(1, 2047) for i in range(batch)]
@@ -582,7 +625,7 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
                     (f, a, m, n) for f in (False, True) for a in alibis
                     for m in amlas for n in variants):
                 n_split = splits or pa.choose_decode_splits(
-                    batch, HKV, pps, ppc, pa.sm_count("cuda"))
+                    batch, k1_heads(pa), pps, ppc, pa.sm_count("cuda"))
                 q, kp, vp, tb, ctx, sl, kn, vn = decode_problem(
                     torch, ctxs, page_size, pps, seed=cases, alibi=alibi,
                     fused=fused, page_dtype=page_dtype)
@@ -612,7 +655,8 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
                 worst = max(worst, err.max().item())
                 cases += 1
     log(f"{name} paged_decode_attention{'' if ragged else '_tm'} on "
-        f"{kind} pages vs plain: {cases} cases, max abs err {worst} "
+        f"{kind} pages (Hq {HQ}, Hkv {HKV}, d {HEAD_DIM}) vs plain: "
+        f"{cases} cases, max abs err {worst} "
         f"(tolerance {ATOL} + {RTOL}|plain|); fused-write pages exact"
         + ("; split counts 1, 2, the policy's and one per chunk"
            if ragged else "; at its policy's split counts"))
@@ -628,7 +672,7 @@ def check_k5_control(torch, pa):
     q, kp, vp, tb, ctx, _, _, _ = decode_problem(torch, ctxs, 32, 64,
                                                  seed=77)
     ppc = pa.choose_pages_per_chunk(64, 32, len(ctxs))
-    n_split = pa.choose_decode_splits(len(ctxs), HKV, 64, ppc,
+    n_split = pa.choose_decode_splits(len(ctxs), k1_heads(pa), 64, ppc,
                                       pa.sm_count("cuda"))
     kw = dict(scale=HEAD_DIM ** -0.5, pages_per_chunk=ppc)
     got = pa.paged_decode_attention(q, kp, vp, tb, ctx, **kw)
@@ -672,7 +716,7 @@ def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
     merges = pa.PAGED_DECODE_MERGE_LAUNCHES.count
     call()
     merges = pa.PAGED_DECODE_MERGE_LAUNCHES.count - merges
-    n_split = pa.choose_decode_splits(batch, HKV, pps, ppc,
+    n_split = pa.choose_decode_splits(batch, k1_heads(pa), pps, ppc,
                                       pa.sm_count("cuda"))
     # The wrapper's host time per call: 50 calls enqueued back to back.
     torch.cuda.synchronize()
@@ -770,7 +814,11 @@ def k2_bound_bytes(c) -> int:
     return 2 * 2 * c["rows"] * HKV * HEAD_DIM * 2 + c["cells"] * 8
 
 
-def check_and_time_writers(torch, kw, timer, profiled: bool = True):
+def check_and_time_writers(torch, kw, timer, profiled: bool = True,
+                           timed: bool = True):
+    """K2 exact against its plain version (with a control), then K3 / K4
+    (`check_and_time_slot_writers`); with `timed` False nothing is timed
+    (K3 / K4 only `check_slot_writers`) and None is returned for each."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     hd = HKV * HEAD_DIM
     page_size = 32
@@ -802,6 +850,15 @@ def check_and_time_writers(torch, kw, timer, profiled: bool = True):
         fail("K2: the control (row valid written) equals the kernel's "
              "pages")
     cells, rows = c["cells"], c["rows"]
+    block_rows, threads = kw.prefill_write_plan(page_size, hd * 2)
+    log(f"K2 write_kv_pages_prefill vs plain (row width {hd}): exact "
+        f"({cells} cells, {rows} rows, tail pages and skipped cells; blocks "
+        f"of {block_rows} rows, {threads} threads); the control (row valid "
+        "written) differs")
+    if not timed:
+        check_slot_writers(torch, kw, slot_arms(torch, gen),
+                           slot_pages(torch, gen), 4096 * 32)
+        return None, None, None
     # Library yardstick: index_copy_ of the valid rows into their slots.
     slots = c["slots"]
     src_k, src_v = knew[c["live"]], vnew[c["live"]]
@@ -814,11 +871,6 @@ def check_and_time_writers(torch, kw, timer, profiled: bool = True):
         library_ms=timer(lambda: (k_flat.index_copy_(0, slots, src_k),
                                   v_flat.index_copy_(0, slots, src_v))))
     k2["bound_ms"], k2["bound_by"] = bound(k2_bound_bytes(c), 0)
-    block_rows, threads = kw.prefill_write_plan(page_size, hd * 2)
-    log(f"K2 write_kv_pages_prefill vs plain: exact ({cells} cells, "
-        f"{rows} rows, tail pages and skipped cells; blocks of {block_rows}"
-        f" rows, {threads} threads); the control (row valid written) "
-        "differs")
 
     k3, k4 = check_and_time_slot_writers(torch, kw, timer, gen, profiled)
     return k2, k3, k4
@@ -1169,11 +1221,25 @@ def check_model_against_plain(torch):
     compare_with_plain(torch, model, params, "full-width 2-layer model")
 
 
+def kv_row_widths(model):
+    """Each layer's KV page row width (Hkv x head_dim), from its
+    attention layer (`self_attn`, GPT-J's `attn`, NeoX's `attention`)."""
+    widths = []
+    for layer in model.layers:
+        block = next(getattr(layer, n) for n in ("self_attn", "attention",
+                                                 "attn")
+                     if hasattr(layer, n))
+        widths.append(block.attn.num_kv_heads * block.attn.head_size)
+    return widths
+
+
 def compare_with_plain(torch, model, params, label: str,
                        rel_tol: float = 2e-2, w8a8_rows: bool = False,
                        controls=None, moe_margin=None,
-                       param_controls=None) -> float:
-    """`model` over `params` (2 layers), a prompt (page-aligned -> K2)
+                       param_controls=None, model_controls=None,
+                       prompt_len: int = 64, gptq_control=None) -> float:
+    """`model` over `params` (its few layers, each with pages of its own
+    row width), a prompt (page-aligned -> K2)
     and 3 decode steps (K1 fused) through the kernels vs through their
     plain versions (attention, writers, the GGUF matmuls and K12, K16,
     K17); logits within `rel_tol` of max |logit|. In the kernel run every
@@ -1197,8 +1263,14 @@ def compare_with_plain(torch, model, params, label: str,
     set is logged, and every token whose k-th and (k+1)-th probabilities
     (the plain run's) lie more than `moe_margin` apart must pick the
     kernel run's experts. `param_controls` ({what: params}): the held
-    plain path over those parameters must miss `rel_tol`. Returns the
-    largest held relative error."""
+    plain path over those parameters must miss `rel_tol`;
+    `model_controls` ({what: context manager factory}): the held plain
+    path run inside that context (which changes the model) must miss it
+    too. `prompt_len` (a multiple of 32, at most 125) sets the prompt's
+    rows. `gptq_control` ((what, wrong plain fn)): in the kernel run every
+    GPTQ matmul's output must also miss phase 8's tolerance against that
+    wrong plain version on the same activations. Returns the largest
+    held relative error."""
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
     from aphrodite_tpu_torch.common.sequence import (SequenceData,
                                                      SequenceGroupMetadata)
@@ -1227,6 +1299,9 @@ def compare_with_plain(torch, model, params, label: str,
             kw.write_kv_pages_prefill_plain(k, v, kp, vp, pid, vld),
         (attention, "paged_decode_attention"):
             pa.paged_decode_attention_plain,
+        (qmm, "gptq_matmul"): lambda x, qw, qz, sc, *, bits, group_size:
+            qmm.gptq_matmul_plain(x, qw, qz, sc, bits=bits,
+                                  group_size=group_size),
         (qmm, "gguf_q8_matmul"): qmm.gguf_q8_matmul_plain,
         (qmm, "gguf_i8g_matmul"): qmm.gguf_i8g_matmul_plain,
         (qmm, "gguf_w8a8_matmul"): qmm.gguf_w8a8_matmul_plain,
@@ -1253,6 +1328,23 @@ def compare_with_plain(torch, model, params, label: str,
         return fn
     kernel_checks = {(qmm, name): checked(name)
                      for name in GGUF_MATMULS + LATE_MATMULS}
+
+    gptq_kernel = qmm.gptq_matmul
+    gptq_missed = []        # whether each call's control missed
+
+    def gptq_checked(x, qw, qz, sc, *, bits, group_size):
+        got = gptq_kernel(x, qw, qz, sc, bits=bits, group_size=group_size)
+        err = check_close(torch, got, qmm.gptq_matmul_plain(
+            x, qw, qz, sc, bits=bits, group_size=group_size),
+            f"{label}: gptq_matmul on the model's activations")
+        per_call["gptq_matmul"] = max(per_call.get("gptq_matmul", 0.0), err)
+        if gptq_control is not None:
+            bad = gptq_control[1](x, qw, qz, sc, bits=bits,
+                                  group_size=group_size).float()
+            gptq_missed.append(bool(((got.float() - bad).abs() >
+                                     ATOL + RTOL * bad.abs()).any()))
+        return got
+    kernel_checks[(qmm, "gptq_matmul")] = gptq_checked
     route = fused_moe.route
     kernel_picks = []       # (probs, expert ids) of the kernel run's calls
     pick_stats = []         # the plain run's, a call at a time
@@ -1315,17 +1407,17 @@ def compare_with_plain(torch, model, params, label: str,
     def run(versions, params=params):
         runner = ModelRunner(model, params, _Cfg(), None, page_size,
                              num_pages * page_size, dev)
-        kv = [(torch.zeros(num_pages, page_size, HKV * HEAD_DIM,
+        kv = [(torch.zeros(num_pages, page_size, width,
                            dtype=torch.bfloat16, device=dev),
-               torch.zeros(num_pages, page_size, HKV * HEAD_DIM,
+               torch.zeros(num_pages, page_size, width,
                            dtype=torch.bfloat16, device=dev))
-              for _ in range(2)]
+              for width in kv_row_widths(model)]
         saved = {}
         for (mod, name), fn in versions.items():
             saved[(mod, name)] = getattr(mod, name)
             setattr(mod, name, fn)
         try:
-            tokens = [(i * 37 + 11) % 32000 for i in range(64)]
+            tokens = [(i * 37 + 11) % 32000 for i in range(prompt_len)]
             table = [3, 9, 4, 12]
             logits_all = []
             for step in range(4):
@@ -1356,6 +1448,13 @@ def compare_with_plain(torch, model, params, label: str,
                 for g, w in zip(got, want)]
 
     got, got_tokens = run(kernel_checks)
+    if gptq_control is not None:
+        log(f"{label}: control, {gptq_control[0]}: missed phase 8's "
+            f"tolerance on {sum(gptq_missed)} of {len(gptq_missed)} GPTQ "
+            "matmuls of the kernel run (each must)")
+        if not gptq_missed or not all(gptq_missed):
+            fail(f"{label}: the GPTQ matmul check cannot see "
+                 f"{gptq_control[0]}")
     want, want_tokens = run(on_kernel_picks(plain_versions, pick_stats))
     rels = rel_errs(got, want)
     held = "plain path" + (" on the kernel run's expert picks"
@@ -1391,7 +1490,7 @@ def compare_with_plain(torch, model, params, label: str,
     log(f"{label}, prompt + 3 decode steps: kernel path vs {held}: "
         f"logits rel err per step {rels} (tolerance {rel_tol}; max |logit| "
         f"{max(w.abs().max().item() for w in want):.3f}); tokens "
-        f"{got_tokens[64:]} vs {want_tokens[64:]}"
+        f"{got_tokens[prompt_len:]} vs {want_tokens[prompt_len:]}"
         + (f"; each quantized matmul vs its plain version on the same "
            f"activations, max err {per_call}" if per_call else ""))
     if not all(torch.isfinite(g).all() for g in got) or max(rels) > rel_tol:
@@ -1403,6 +1502,14 @@ def compare_with_plain(torch, model, params, label: str,
     for what, wrong_params in (param_controls or {}).items():
         c_rels = rel_errs(got, run(on_kernel_picks(plain_versions),
                                    wrong_params)[0])
+        log(f"{label}: control, {what}: logits rel err per step "
+            f"{c_rels} (must exceed {rel_tol})")
+        if max(c_rels) <= rel_tol:
+            fail(f"{label}: the comparison cannot see {what}: "
+                 f"{max(c_rels)} <= {rel_tol}")
+    for what, changed in (model_controls or {}).items():
+        with changed():
+            c_rels = rel_errs(got, run(plain_versions)[0])
         log(f"{label}: control, {what}: logits rel err per step "
             f"{c_rels} (must exceed {rel_tol})")
         if max(c_rels) <= rel_tol:
@@ -2568,15 +2675,20 @@ def run_wide_round(torch, engine, counters, card: str, required, decode,
     return launches
 
 
+_T_START = time.perf_counter()
+
+
 def log_clocks(label: str) -> None:
     """The card's SM clock, power draw and temperature now (a throttled
-    card runs every kernel slower)."""
+    card runs every kernel slower), and the seconds since the script
+    started."""
     state = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
         text=True, timeout=60, check=True).stdout.strip()
     log(f"card state {label}: {state} (SM clock, max SM clock, power "
-        "draw, temperature)")
+        f"draw, temperature); {time.perf_counter() - _T_START:.1f} s into "
+        "the run")
 
 
 def free_engine(torch, label: str) -> None:
@@ -2657,11 +2769,12 @@ def profile_decode(torch, engine, tag: str = "",
                    quant_bound_ms: float = 0.0, prompt_len: int = 64,
                    named=(), lora_requests=None,
                    width: str = "Mistral-7B width", scopes=(),
-                   counts=()):
+                   counts=(), steps: int = 4):
     """Where a decode step's time goes at the e2e geometry: 8 running
-    sequences (prompts of `prompt_len` tokens). 4 single decode steps
-    are timed on the host clock (synchronised), then 4 more run under
-    torch.profiler, which gives the device's kernel time per step, its
+    sequences (prompts of `prompt_len` tokens). `steps` (4) single
+    decode steps are timed on the host clock (synchronised), then as
+    many more run under torch.profiler, which gives the device's kernel
+    time per step, its
     share of the wall time, K1's (with its merge) and the kernels that
     take the most. With `quant_bound_ms` it also reports the quantized
     matmuls' device time per step beside that weight-streaming bound;
@@ -2688,7 +2801,6 @@ def profile_decode(torch, engine, tag: str = "",
     while len(produced) < 8 or min(produced.values()) < 2:
         for out in engine.step():
             produced[out.request_id] = len(out.outputs[0].token_ids)
-    steps = 4
     before = [c.count for _, c in counts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2906,8 +3018,10 @@ def run_late_arms(torch, model_dir: str, counters, card: str, layers: int,
                                   in GPTQ_PROJ) / HBM_BYTES_PER_S * 1e3
         named = (("K17 (quant_stream_kernel<8, kInt8>)",
                   "quant_stream_kernel"),) if key == "k17" else ()
+        # QuIP#'s step (~12000 launches) profiled over 2 steps, not 4: its
+        # trace took most of the arm's time (cut for time).
         profile_decode(torch, engine, tag, quant_bound_ms=step_bound,
-                       named=named)
+                       named=named, steps=2 if key == "k16f32" else 4)
         for name in env:
             os.environ.pop(name)
         del engine
@@ -3017,8 +3131,9 @@ def check_verify_shape(torch, pa, kw, timer):
         if not (_pages_equal(torch, p["kp"], kp2) and
                 _pages_equal(torch, p["vp"], vp2)):
             fail(f"verify shape {kind}: K4's pages differ from plain")
-        n_split = pa.choose_decode_splits(p["padded"], HKV, p["pps"],
-                                          p["ppc"], pa.sm_count("cuda"))
+        n_split = pa.choose_decode_splits(p["padded"], k1_heads(pa),
+                                          p["pps"], p["ppc"],
+                                          pa.sm_count("cuda"))
         akw = dict(scale=HEAD_DIM ** -0.5, kv_scale=kv_scale,
                    pages_per_chunk=p["ppc"])
         args = (p["q"], p["kp"], p["vp"], p["tables"])
@@ -4318,6 +4433,44 @@ def moe_decode_bytes(cfg: dict, touched: float) -> float:
     return 2 * elems
 
 
+def run_mix_and_oracle_spec(engine, name: str, run, multi_steps,
+                            spec: bool) -> None:
+    """`run(multi_step, tag, tokens)` at each of `multi_steps` (the
+    multi_step 1 run's tokens kept), then with `spec` once more with
+    APHRODITE_SPEC=1 and an oracle drafter of those tokens: verify rows
+    through the whole model, at least one verify dispatch required."""
+    classic = {}
+    for ms in multi_steps:
+        run(ms, f"{name} ", classic if ms == 1 else None)
+    if not spec:
+        return
+    refs = [mix_prompt(n, salt) + classic[f"m1-{rid}"]
+            for rid, n, salt in MIX + MIX_LATE]
+    ex = engine.executor
+    real = ex.execute_spec_verify
+    dispatches = []
+
+    def verify(*a, **kw):
+        dispatches.append(1)
+        return real(*a, **kw)
+    os.environ["APHRODITE_SPEC"] = "1"
+    engine.drafter.propose = oracle_drafter(refs)
+    ex.execute_spec_verify = verify
+    drafted = {}
+    try:
+        run(1, f"{name} spec ", drafted)
+    finally:
+        del ex.execute_spec_verify, engine.drafter.propose
+        os.environ["APHRODITE_SPEC"] = "0"
+    if not dispatches:
+        fail(f"{name}: APHRODITE_SPEC=1 made no verify dispatch")
+    same = sum(drafted[rid] == toks for rid, toks in classic.items())
+    log(f"{name} spec (oracle drafts of the multi_step 1 run's tokens): "
+        f"{len(dispatches)} verify dispatches; {same} of {len(classic)} "
+        "requests' tokens equal the classic run's (a reading: bf16 sums of "
+        "other row counts may flip a near tie)")
+
+
 def run_moe_engine(torch, counters, card: str, name: str, cfg: dict,
                    multi_steps=(1, 8), spec: bool = False,
                    profile: bool = False):
@@ -4370,43 +4523,16 @@ def run_moe_engine(torch, counters, card: str, name: str, cfg: dict,
         for k, n in launches.items():
             summed[k] = summed.get(k, 0) + n
 
-    classic = {}
-    for ms in multi_steps:
-        run(ms, f"{name} ", classic if ms == 1 else None)
-    if spec:
-        refs = [mix_prompt(n, salt) + classic[f"m1-{rid}"]
-                for rid, n, salt in MIX + MIX_LATE]
-        ex = engine.executor
-        real = ex.execute_spec_verify
-        dispatches = []
-
-        def verify(*a, **kw):
-            dispatches.append(1)
-            return real(*a, **kw)
-        os.environ["APHRODITE_SPEC"] = "1"
-        engine.drafter.propose = oracle_drafter(refs)
-        ex.execute_spec_verify = verify
-        drafted = {}
-        try:
-            run(1, f"{name} spec ", drafted)
-        finally:
-            del ex.execute_spec_verify, engine.drafter.propose
-            os.environ["APHRODITE_SPEC"] = "0"
-        if not dispatches:
-            fail(f"{name}: APHRODITE_SPEC=1 made no verify dispatch")
-        same = sum(drafted[rid] == toks for rid, toks in classic.items())
-        log(f"{name} spec (oracle drafts of the multi_step 1 run's "
-            f"tokens): {len(dispatches)} verify dispatches; {same} of "
-            f"{len(classic)} requests' tokens equal the classic run's (a "
-            "reading: bf16 sums of other row counts may flip a near tie)")
+    run_mix_and_oracle_spec(engine, name, run, multi_steps, spec)
     if profile:
         picks = []
         torch.cuda.reset_peak_memory_stats()
         with moe_scope(torch, picks):
+            # 2 steps, not 4 (~5100 launches a step; cut for time).
             profile_decode(torch, engine, f"{name} ", width=f"{name} width",
                            scopes=("fused_moe",), counts=((
                                "MoE host reads (group sizes)",
-                               fused_moe.HOST_READS),))
+                               fused_moe.HOST_READS),), steps=2)
         peak = torch.cuda.max_memory_allocated() / 2**30
         touched = [int(p.unique().numel()) for p in picks
                    if p.shape[0] == 8]
@@ -4434,13 +4560,13 @@ def run_moe_phase(torch, pa, kw, timer, counters, card: str,
                   only: str = "abcd"):
     """Phase 19's parts named in `only`: (a) `check_moe_kernels`, (b)
     `check_moe_two_layer`, (c) with (e) DeepSeek-MoE-16B whole, (d)
-    Mixtral-8x7B at 4 of its 32 layers. Returns (launches by path,
+    Mixtral-8x7B at 2 of its 32 layers. Returns (launches by path,
     seconds by part)."""
     by_path, seconds = {}, {}
     engines = {"c": ("DeepSeek-MoE-16B", DEEPSEEK_MOE_16B,
                      dict(spec=True, profile=True)),
-               "d": ("Mixtral-8x7B-4L",
-                     dict(MIXTRAL_8X7B, num_hidden_layers=4),
+               "d": ("Mixtral-8x7B-2L",
+                     dict(MIXTRAL_8X7B, num_hidden_layers=2),
                      dict(multi_steps=(1,)))}
     for part in only:
         t0 = time.perf_counter()
@@ -4453,6 +4579,511 @@ def run_moe_phase(torch, pa, kw, timer, counters, card: str,
             by_path[name] = run_moe_engine(torch, counters, card, name, cfg,
                                            **kwargs)
             free_engine(torch, name)
+        seconds[part] = round(time.perf_counter() - t0, 1)
+    return by_path, seconds
+
+
+# ---------------------------------------------- the other architectures --
+
+# The published config.json files (Hugging Face hub; tokenizer and
+# training-only keys left out) of Qwen/Qwen2-7B, microsoft/phi-2,
+# EleutherAI/gpt-j-6b, EleutherAI/gpt-neox-20b and facebook/opt-6.7b.
+QWEN2_7B = {
+    "architectures": ["Qwen2ForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 151643, "eos_token_id": 151643, "hidden_act": "silu",
+    "hidden_size": 3584, "initializer_range": 0.02,
+    "intermediate_size": 18944, "max_position_embeddings": 131072,
+    "max_window_layers": 28, "model_type": "qwen2",
+    "num_attention_heads": 28, "num_hidden_layers": 28,
+    "num_key_value_heads": 4, "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
+    "sliding_window": 131072, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True,
+    "use_sliding_window": False, "vocab_size": 152064,
+}
+PHI_2 = {
+    "architectures": ["PhiForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 50256, "embd_pdrop": 0.0, "eos_token_id": 50256,
+    "hidden_act": "gelu_new", "hidden_size": 2560, "initializer_range": 0.02,
+    "intermediate_size": 10240, "layer_norm_eps": 1e-05,
+    "max_position_embeddings": 2048, "model_type": "phi",
+    "num_attention_heads": 32, "num_hidden_layers": 32,
+    "partial_rotary_factor": 0.4, "qk_layernorm": False, "resid_pdrop": 0.1,
+    "rope_scaling": None, "rope_theta": 10000.0,
+    "tie_word_embeddings": False, "torch_dtype": "float16",
+    "use_cache": True, "vocab_size": 51200,
+}
+GPT_J_6B = {
+    "activation_function": "gelu_new", "architectures": ["GPTJForCausalLM"],
+    "attn_pdrop": 0.0, "bos_token_id": 50256, "embd_pdrop": 0.0,
+    "eos_token_id": 50256, "initializer_range": 0.02,
+    "layer_norm_epsilon": 1e-05, "model_type": "gptj", "n_embd": 4096,
+    "n_head": 16, "n_inner": None, "n_layer": 28, "n_positions": 2048,
+    "resid_pdrop": 0.0, "rotary": True, "rotary_dim": 64,
+    "scale_attn_weights": True, "tie_word_embeddings": False,
+    "use_cache": True, "vocab_size": 50400,
+}
+GPT_NEOX_20B = {
+    "architectures": ["GPTNeoXForCausalLM"],
+    "attention_probs_dropout_prob": 0, "bos_token_id": 0, "eos_token_id": 0,
+    "hidden_act": "gelu_fast", "hidden_dropout_prob": 0, "hidden_size": 6144,
+    "initializer_range": 0.02, "intermediate_size": 24576,
+    "layer_norm_eps": 1e-05, "max_position_embeddings": 2048,
+    "model_type": "gpt_neox", "num_attention_heads": 64,
+    "num_hidden_layers": 44, "rotary_emb_base": 10000, "rotary_pct": 0.25,
+    "tie_word_embeddings": False, "torch_dtype": "float16",
+    "use_cache": True, "use_parallel_residual": True, "vocab_size": 50432,
+}
+OPT_6_7B = {
+    "_remove_final_layer_norm": False, "activation_dropout": 0.0,
+    "activation_function": "relu", "architectures": ["OPTForCausalLM"],
+    "attention_dropout": 0.0, "bos_token_id": 2,
+    "do_layer_norm_before": True, "dropout": 0.1, "eos_token_id": 2,
+    "ffn_dim": 16384, "hidden_size": 4096, "init_std": 0.02,
+    "layerdrop": 0.0, "max_position_embeddings": 2048, "model_type": "opt",
+    "num_attention_heads": 32, "num_hidden_layers": 32, "pad_token_id": 1,
+    "torch_dtype": "float16", "use_cache": True, "vocab_size": 50272,
+    "word_embed_proj_dim": 4096,
+}
+# Deci/DeciLM-7B's widths (hidden 4096, 32 query heads, intermediate
+# 14336, vocab 32000; model_type "deci", a LlamaConfig in remote code).
+# Its published per-layer KV head list is not in the repository: this
+# one, of three layers, takes 4, 2 and 1 heads (groups 8, 16 and 32).
+DECILM_7B_WIDTH = {
+    "architectures": ["DeciLMForCausalLM"], "model_type": "deci",
+    "hidden_size": 4096, "intermediate_size": 14336,
+    "num_attention_heads": 32, "num_hidden_layers": 3,
+    "num_key_value_heads_per_layer": [4, 2, 1], "vocab_size": 32000,
+    "max_position_embeddings": 8192, "rms_norm_eps": 1e-06,
+    "rope_theta": 10000.0, "hidden_act": "silu",
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "bos_token_id": 1, "eos_token_id": 2,
+}
+# Phase 20 (a): (name, config, layers kept).
+ARCH_MODELS = (("Qwen2-7B", QWEN2_7B, 2), ("Phi-2", PHI_2, 2),
+               ("GPT-J-6B", GPT_J_6B, 2), ("GPT-NeoX-20B", GPT_NEOX_20B, 2),
+               ("OPT-6.7B", OPT_6_7B, 2),
+               ("DeciLM-7B width", DECILM_7B_WIDTH, 3))
+# Phase 3d: (name, Hq, Hkv, head_dim).
+ARCH_GEOMETRIES = (("Qwen2-7B", 28, 4, 128), ("Phi-2", 32, 32, 80),
+                   ("GPT-NeoX-20B", 64, 64, 96), ("GPT-J-6B", 16, 16, 256),
+                   ("DeciLM group 8", 32, 4, 128),
+                   ("DeciLM group 16", 32, 2, 128),
+                   ("DeciLM group 32", 32, 1, 128))
+ATTENTION_COUNTERS = ("paged_decode_attention", "write_kv_pages_prefill",
+                      "write_kv_pages", "write_kv_pages_decode")
+
+
+def cut_layers(cfg: dict, layers: int) -> dict:
+    """`cfg` at its first `layers` layers (GPT-J counts them in n_layer;
+    DeciLM's per-layer list is cut with them)."""
+    key = "n_layer" if "n_layer" in cfg else "num_hidden_layers"
+    out = dict(cfg, **{key: layers})
+    if "num_key_value_heads_per_layer" in cfg:
+        out["num_key_value_heads_per_layer"] = \
+            cfg["num_key_value_heads_per_layer"][:layers]
+    return out
+
+
+def check_k1_row_control(torch, pa, label: str):
+    """K1 at B 64 x 2047 (bf16, 32-token pages, its policy's splits)
+    within tolerance of the plain version, and a wrong plain version
+    beyond it: the neighbouring kv head's K rows where the geometry has
+    more than one, else (one kv head of 32 query rows, two row blocks)
+    the plain version on the query with each head's rows rolled by 16,
+    so a row block that read the other block's rows cannot pass."""
+    ctxs = [2047] * 62 + [1000, 17]
+    q, kp, vp, tb, ctx, _, _, _ = decode_problem(torch, ctxs, 32, 64,
+                                                 seed=78)
+    ppc = pa.choose_pages_per_chunk(64, 32, len(ctxs))
+    work = pa.build_decode_work_list([-(-c // 32) for c in ctxs], ppc)
+    n_split = pa.choose_decode_splits(len(ctxs), k1_heads(pa), 64, ppc,
+                                      pa.sm_count("cuda"))
+    kw = dict(scale=HEAD_DIM ** -0.5, pages_per_chunk=ppc)
+    got = pa.paged_decode_attention(q, kp, vp, tb, ctx, work_items=work,
+                                    **kw)
+    good = pa.paged_decode_attention_plain(q, kp, vp, tb, ctx,
+                                           num_splits=n_split, **kw)
+    group = HQ // HKV
+    if HKV > 1:
+        what = "the neighbouring kv head's K rows"
+        bad = pa.paged_decode_attention_plain(
+            q, kp.roll(HEAD_DIM, 2), vp, tb, ctx, num_splits=n_split, **kw)
+    else:
+        what = "each head's query rows rolled by 16 (the other row block)"
+        rolled = q.view(len(ctxs), HKV, group, HEAD_DIM).roll(16, 2)
+        bad = pa.paged_decode_attention_plain(
+            rolled.reshape(q.shape).contiguous(), kp, vp, tb, ctx,
+            num_splits=n_split, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - good.float()).abs()
+    c_err = (got.float() - bad.float()).abs()
+    if bool((err > ATOL + RTOL * good.float().abs()).any()):
+        fail(f"K1 {label} control case: max err {err.max().item()} against "
+             "plain")
+    if not bool((c_err > ATOL + RTOL * bad.float().abs()).any()):
+        fail(f"K1 {label}: the control ({what}) is within tolerance of the "
+             "kernel")
+    log(f"K1 {label} control ({what}) missed: max err "
+        f"{c_err.max().item():.4f} against {err.max().item():.4f} for the "
+        f"plain version ({n_split} split(s), {pa.row_blocks(group)} row "
+        f"block(s) a kv head)")
+
+
+def check_arch_kernels(torch, pa, kw, timer):
+    """Phase 3d: K1-K4 at the other architectures' attention geometries
+    (`ARCH_GEOMETRIES`: Qwen2-7B's group 7, head_dim 80, 96 and 256 at
+    group 1, DeciLM's groups 8, 16 and 32 at head_dim 128). At each: K1
+    on the ragged grid with a work list, fused write on and off, at its
+    forced split counts, on bf16, int8 and fp8 pages, 32-token pages, B
+    1 x 2047 and B 64 (phase 3's tolerance), and its control
+    (`check_k1_row_control`); K1's fused write at the 8-bit edges; K2
+    and K3 / K4 exact with their controls (untimed); K1 timed at B 64 x
+    2047 on each page type, and at B 8 (phase 4's decode batch) on bf16
+    pages, beside its plain version, SDPA and the bound. Returns K1's
+    largest error and its times by (geometry, page type, shape)."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "n_split", "merges", "host_us")
+    e2e_ctx = [1016, 316, 80, 1016, 316, 80, 28, 28]
+    worst, times = 0.0, {}
+    for name, hq, hkv, d in ARCH_GEOMETRIES:
+        t0 = time.perf_counter()
+        with heads(hq, hkv, d):
+            for page_dtype in (torch.bfloat16, torch.int8,
+                               torch.float8_e5m2):
+                worst = max(worst, check_decode_attention(
+                    torch, pa, True, page_dtype, amlas=(True,),
+                    alibis=(False,), page_sizes=(32,), batches=(1, 64)))
+            check_k1_row_control(torch, pa, name)
+            check_fused_write_edges(torch, pa, kw)
+            check_and_time_writers(torch, kw, None, timed=False)
+            for page_dtype in (torch.bfloat16, torch.int8,
+                               torch.float8_e5m2):
+                kind = str(page_dtype).replace("torch.", "")
+                shapes = (("B 64 x 2047", [2047] * 64, 64),) + (
+                    (("B 8", e2e_ctx, 36),)
+                    if page_dtype == torch.bfloat16 else ())
+                for shape, ctxs, pps in shapes:
+                    t = dict(zip(keys, time_decode_attention(
+                        torch, pa, timer, ctxs, 32, pps, fused=True,
+                        page_dtype=page_dtype)))
+                    times[(name, kind, shape)] = t
+                    fastest = min(("K1", t["ms"]), ("plain", t["plain_ms"]),
+                                  ("SDPA", t["library_ms"]),
+                                  key=lambda kv: kv[1])[0]
+                    log(f"K1 at {name} (Hq {hq} / Hkv {hkv}, d {d}), {kind}"
+                        f" pages at {shape} (page 32, fused): kernel "
+                        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                        f"sdpa {t['library_ms']:.4f} ms, bound "
+                        f"{t['bound_ms']:.6f} ms ({t['bound_by']}); fastest "
+                        f"{fastest}; {t['n_split']} split(s), "
+                        f"{t['merges']} merge launch(es) a call")
+        log(f"phase 3d {name}: {time.perf_counter() - t0:.1f} s")
+    return worst, times
+
+
+def arch_params(torch, model, seed: int, bias_width: float = 0.05):
+    """`model`'s parameters on the card, U(-0.05, 0.05) as phase 3's
+    2-layer model, norm weights 1, the q/k/v biases U(-bias_width,
+    bias_width)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(dev)
+    for key, bucket in params.items():
+        for name, t in bucket.items():
+            width = bias_width if (name == "bias" and
+                                   key.endswith(".qkv_proj")) else 0.05
+            t.uniform_(-width, width, generator=gen)
+        if key.endswith(("norm", "ln_1", "ln_f")):
+            bucket["weight"].fill_(1.0)
+    return params
+
+
+@contextlib.contextmanager
+def rotary_swapped(model, attr: str, make):
+    """Every layer's attention (`attr`) with its rotary embedding
+    replaced by `make(old)` inside the block."""
+    blocks = [getattr(layer, attr) for layer in model.layers]
+    saved = [b.rotary for b in blocks]
+    for b in blocks:
+        b.rotary = make(b.rotary)
+    try:
+        yield
+    finally:
+        for b, r in zip(blocks, saved):
+            b.rotary = r
+
+
+def neox_interleaved(bucket, head_dim: int):
+    """A de-interleaved NeoX qkv bucket ([Q | K | V] rows) put back in
+    HF's per-head [q k v] order: the loader's step undone."""
+    out = {}
+    for name, t in bucket.items():
+        heads = t.shape[0] // 3 // head_dim
+        out[name] = t.view(3, heads, head_dim, *t.shape[1:]) \
+            .transpose(0, 1).reshape(t.shape)
+    return out
+
+
+def arch_controls(name: str, model, params):
+    """Phase 20 (a)'s control for a family: (param_controls,
+    model_controls) for `compare_with_plain`, each of which must miss."""
+    from aphrodite_tpu_torch.modeling.layers.rotary_embedding import get_rope
+    if name == "Qwen2-7B":
+        return {"the q/k/v biases dropped": {
+            key: ({n: t for n, t in bucket.items() if n != "bias"}
+                  if key.endswith(".qkv_proj") else bucket)
+            for key, bucket in params.items()}}, {}
+    if name == "GPT-NeoX-20B":
+        d = model.layers[0].attention.head_dim
+        return {"query_key_value left per-head interleaved": {
+            key: (neox_interleaved(bucket, d)
+                  if key.endswith(".qkv_proj") else bucket)
+            for key, bucket in params.items()}}, {}
+    if name == "OPT-6.7B":
+        key = "model.decoder.embed_positions"
+        return {"positions without OPT's +2 offset": dict(params, **{
+            key: {"weight": params[key]["weight"].roll(2, 0)}})}, {}
+    if name.startswith("DeciLM"):
+        key = "model.layers.0.self_attn.qkv_proj"
+        attn = model.layers[0].self_attn
+        q, kv = attn.num_heads * attn.head_dim, \
+            attn.num_kv_heads * attn.head_dim
+        w = params[key]["weight"].clone()
+        w[q:q + kv] = w[q:q + kv].roll(attn.head_dim, 0)
+        return {"layer 0's K rows rolled by one of its 4 KV heads":
+                dict(params, **{key: {"weight": w}})}, {}
+    if name == "GPT-J-6B":
+        return {}, {"rotary applied neox-style": lambda: rotary_swapped(
+            model, "attn", lambda r: get_rope(
+                r.head_size, r.rotary_dim, r.max_position_embeddings,
+                r.base, is_neox_style=True))}
+    return {}, {"rotary over the whole head (80 dims, not 32)":
+                lambda: rotary_swapped(model, "self_attn", lambda r: get_rope(
+                    r.head_size, r.head_size, r.max_position_embeddings,
+                    r.base, is_neox_style=True))}
+
+
+def check_arch_two_layer(torch, counters):
+    """Phase 20 (a), the models: each family of `ARCH_MODELS` at its full
+    width and 2 layers (DeciLM 3, KV heads 4, 2 and 1), weights
+    `arch_params` (Qwen2's q/k/v biases U(-1, 1), as trained Qwen2
+    biases are large), through the kernels vs through their plain
+    versions (`compare_with_plain`: logits within 2e-2 of max |logit|),
+    and the family's control (`arch_controls`), which must miss. The
+    kernel run must launch K2 once a layer (the page-aligned prompt) and
+    K1 once a layer in each of the 3 decode steps."""
+    from aphrodite_tpu_torch.modeling.loader import _get_model_architecture
+    from aphrodite_tpu_torch.transformers_utils.config import (
+        config_from_dict)
+    for name, base, layers in ARCH_MODELS:
+        cfg = config_from_dict(cut_layers(base, layers))
+        model = _get_model_architecture(cfg)(cfg, dtype=torch.bfloat16)
+        params = arch_params(torch, model, seed=3,
+                             bias_width=1.0 if name == "Qwen2-7B" else 0.05)
+        param_controls, model_controls = arch_controls(name, model, params)
+        k1, k2 = (counters[n] for n in ("paged_decode_attention",
+                                        "write_kv_pages_prefill"))
+        before = k1.count, k2.count
+        compare_with_plain(torch, model, params, f"{name} {layers}-layer",
+                           param_controls=param_controls,
+                           model_controls=model_controls)
+        if (k1.count - before[0], k2.count - before[1]) != \
+                (3 * layers, layers):
+            fail(f"{name} {layers}-layer: K1 / K2 launched "
+                 f"{k1.count - before[0]} / {k2.count - before[1]} times, "
+                 f"not {3 * layers} / {layers}")
+        del model, params, param_controls, model_controls
+        free_engine(torch, f"{name} {layers}-layer")
+
+
+def check_gptq_qwen2(torch, counters):
+    """Phase 20 (c): GPTQ W4A16 (4 bits, group 128) over a 2-layer
+    Qwen2-7B at full width, random codes about a zero point of 8, scales
+    in [3e-3, 6e-3), the q/k/v biases U(-4, 4) added after the kernel's
+    product (at U(-1, 1) dropping them moved the logits by 1.8% of max
+    |logit|, inside the tolerance, on an NVIDIA H100): a 96-row prompt
+    (K6) and 3 decode steps (K7) through the kernels vs their plain
+    versions (`compare_with_plain`, each GPTQ
+    matmul also held to its plain version on the model's activations),
+    with two controls: every GPTQ matmul of the kernel run against its
+    plain version with the scales rolled by one group must miss phase
+    8's tolerance (at the logits the roll moved them by only 1.9% of max
+    |logit| on an NVIDIA H100, inside the 2e-2 bound), and the logits of
+    the plain path without the biases must miss 2e-2."""
+    from aphrodite_tpu_torch.modeling.layers.quantization.gptq import (
+        GPTQConfig)
+    from aphrodite_tpu_torch.modeling.models.qwen2 import Qwen2ForCausalLM
+    from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
+    from aphrodite_tpu_torch.transformers_utils.config import (
+        config_from_dict)
+    cfg = config_from_dict(cut_layers(QWEN2_7B, 2))
+    model = Qwen2ForCausalLM(cfg, dtype=torch.bfloat16,
+                             linear_method=GPTQConfig(
+                                 4, GPTQ_GS).get_linear_method())
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(90)
+    params = model.init_params(dev)
+    for key, bucket in params.items():
+        for name, t in bucket.items():
+            if key.endswith("norm"):
+                t.fill_(1.0)
+            elif name == "qweight":
+                t.random_(-2 ** 31, 2 ** 31, generator=gen)
+            elif name == "qzeros":
+                t.fill_(0x77777777)            # zero point 8, stored z - 1
+            elif name == "scales":
+                t.copy_(torch.rand(t.shape, generator=gen, device=dev) *
+                        3e-3 + 3e-3)
+            elif name == "g_idx":
+                t.copy_(torch.arange(t.numel(), device=dev) // GPTQ_GS)
+            elif name == "bias":
+                t.uniform_(-4.0, 4.0, generator=gen)
+            else:
+                t.uniform_(-0.05, 0.05, generator=gen)
+    no_bias = {key: ({n: t for n, t in bucket.items() if n != "bias"}
+                     if key.endswith(".qkv_proj") else bucket)
+               for key, bucket in params.items()}
+    k6, k7 = counters["gptq_matmul"], counters["gptq_matmul_stream"]
+    before = k6.count, k7.count
+    os.environ["APHRODITE_W4A8"] = "0"
+    try:
+        compare_with_plain(
+            torch, model, params, "GPTQ W4A16 Qwen2-7B 2-layer",
+            prompt_len=96,
+            gptq_control=("the plain matmul with its scales rolled by one "
+                          "group", lambda x, qw, qz, sc, *, bits, group_size:
+                          qmm.gptq_matmul_plain(x, qw, qz,
+                                                torch.roll(sc, 1, 0),
+                                                bits=bits,
+                                                group_size=group_size)),
+            param_controls={"the q/k/v biases dropped": no_bias})
+    finally:
+        os.environ.pop("APHRODITE_W4A8")
+    launched = k6.count - before[0], k7.count - before[1]
+    # The kernel run: 4 projections a layer in the prompt round (m 96,
+    # K6) and in each of the 3 decode steps (m 1, K7).
+    if launched != (8, 24):
+        fail(f"GPTQ Qwen2 2-layer: K6 / K7 launched {launched}, not (8, 24)")
+    log(f"GPTQ W4A16 Qwen2-7B 2-layer: K6 / K7 launched {launched[0]} / "
+        f"{launched[1]} times in the kernel run")
+    del model, params, no_bias
+    free_engine(torch, "GPTQ Qwen2 2-layer")
+
+
+def decode_weight_bytes(params, skip=("embed_tokens", "embed_in", "wte")):
+    """(Bytes of every parameter but the input embedding tables, which a
+    decode step reads only its rows of, bytes of every parameter)."""
+    read = total = 0
+    for key, bucket in params.items():
+        n = sum(t.numel() * t.element_size() for t in bucket.values())
+        total += n
+        if not key.endswith(skip):
+            read += n
+    return read, total
+
+
+def run_arch_engine(torch, counters, card: str, name: str, cfg: dict,
+                    multi_steps=(1,), spec: bool = False,
+                    profile: bool = False):
+    """Phase 20 (a)'s engine runs, and (b) with (d): the port's engine
+    over `cfg` (bf16, dummy weights from seed 0, 32-token pages,
+    max_model_len 2048) through phase 4's mix at each of `multi_steps`,
+    then with `spec` once more with APHRODITE_SPEC=1 and oracle drafts
+    (`run_mix_and_oracle_spec`). Every request finishes with 32 tokens in
+    the vocabulary; every engine step launches K1, K2, K3 and K4, summed, a
+    positive multiple of the layer count; K3 (the window branch's slot
+    writer) launches only where the model has a window, which is logged;
+    every page comes back. With `profile` a batch-8 decode step against
+    the weights' bytes bound and a 2048-row prompt round. Returns the
+    launches summed over the runs."""
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    model_dir = os.path.join(HERE, "build", "chip_smoke_" + "".join(
+        c if c.isalnum() else "_" for c in name))
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    t0 = time.perf_counter()
+    engine = AphroditeEngine.from_engine_args(EngineArgs(
+        model=model_dir, load_format="dummy", dtype="bfloat16", seed=0,
+        block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+        disable_log_stats=True))
+    pages = engine.cache_config.num_gpu_blocks
+    layers = engine.model_config.hf_config.num_hidden_layers
+    window = engine.model_config.get_sliding_window()
+    read, total = decode_weight_bytes(engine.executor.params)
+    log(f"{name} engine up in {time.perf_counter() - t0:.1f} s: {layers} "
+        f"layers, {total / 1e9:.2f} GB of weights, {pages} KV pages of 32 "
+        f"tokens (KV heads a layer "
+        f"{sorted(set(engine.model_config.get_kv_heads_per_layer()))}), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on "
+        f"{card}; sliding window {window}: "
+        + ("none, so each decode step writes its tokens inside K1 (the "
+           "fused write) and the window branch's K3 does not run"
+           if window is None else "the runner's window branch (K3 and a "
+           "read-only K1)"))
+    summed = {}
+
+    def run(ms, tag, tokens=None):
+        launches = run_engine(
+            torch, engine, ms, counters, card, tag=tag, tokens=tokens,
+            required=ATTENTION_COUNTERS[:3],
+            per_step=(ATTENTION_COUNTERS, layers),
+            absent=("write_kv_pages_decode",) if window is None else (),
+            vocab=cfg["vocab_size"])
+        free = engine.scheduler.block_manager.get_num_free_gpu_blocks()
+        if free != pages:
+            fail(f"{tag}multi_step={ms}: {free} of {pages} pages back")
+        for k, n in launches.items():
+            summed[k] = summed.get(k, 0) + n
+
+    run_mix_and_oracle_spec(engine, name, run, multi_steps, spec)
+    if profile:
+        torch.cuda.reset_peak_memory_stats()
+        _, dev = profile_decode(torch, engine, f"{name} ",
+                                width=f"{name} width")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        read_ms = read / HBM_BYTES_PER_S * 1e3
+        log(f"{name} batch-8 decode step: weights {total / 1e9:.2f} GB "
+            f"(bound {total / HBM_BYTES_PER_S * 1e3:.3f} ms), of which a "
+            f"step reads {read / 1e9:.2f} GB (all but the input embedding; "
+            f"bound {read_ms:.3f} ms); device {dev / read_ms:.2f}x the read "
+            f"bound; peak memory {peak:.2f} GiB on {card}")
+        rows, steps, _ = _profiled_prompt_round(torch, engine, f"{name} ")
+        dev_ms = sum(us for us, _, _ in rows) / 1e3
+        attn_ms = sum(us for us, _, k in rows if "kv_write" in k or
+                      "paged_decode" in k) / 1e3
+        log(f"{name} prompt round, 4 x 512 tokens: {steps} engine step(s), "
+            f"device kernels {dev_ms:.3f} ms in "
+            f"{sum(n for _, n, _ in rows)} launches; the page writers "
+            f"{attn_ms:.3f} ms")
+    del engine
+    return summed
+
+
+def run_arch_phase(torch, counters, card: str, only: str = "abc"):
+    """Phase 20's parts named in `only`: (a) `check_arch_two_layer`, then
+    each 2-layer model of `ARCH_MODELS` through the mix at multi_step 1
+    (`run_arch_engine`); (b) with (d) Qwen2-7B whole at multi_step 1 and
+    8, with oracle-drafted verify rounds, profiled; (c)
+    `check_gptq_qwen2`. Returns (launches by path, seconds by part)."""
+    by_path, seconds = {}, {}
+    for part in only:
+        t0 = time.perf_counter()
+        if part == "a":
+            check_arch_two_layer(torch, counters)
+            for name, base, layers in ARCH_MODELS:
+                path = f"{name} {layers}-layer"
+                by_path[path] = run_arch_engine(
+                    torch, counters, card, path, cut_layers(base, layers))
+                free_engine(torch, path)
+        elif part == "b":
+            by_path["Qwen2-7B"] = run_arch_engine(
+                torch, counters, card, "Qwen2-7B", QWEN2_7B,
+                multi_steps=(1, 8), spec=True, profile=True)
+            free_engine(torch, "Qwen2-7B")
+        elif part == "c":
+            check_gptq_qwen2(torch, counters)
         seconds[part] = round(time.perf_counter() - t0, 1)
     return by_path, seconds
 
@@ -4587,8 +5218,14 @@ def main() -> int:
     check_verify_shape(torch, pa, kw, timer)
     # 3c. K1-K4 at DeepSeek-MoE-16B's multi-head geometry (phase 19 (a)).
     check_moe_kernels(torch, pa, kw, timer)
+    # 3d. K1-K4 at the other architectures' geometries (phase 20).
+    t0 = time.perf_counter()
+    arch_err, _ = check_arch_kernels(torch, pa, kw, timer)
+    k1_err = max(k1_err, arch_err)
+    log(f"phase 3d: {time.perf_counter() - t0:.1f} s")
 
     # 4. End to end at Mistral-7B width and depth.
+    log_clocks("before the e2e phase (4)")
     from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
     from aphrodite_tpu_torch.engine.args_tools import EngineArgs
     model_dir = os.path.join(HERE, "build", "chip_smoke_model")
@@ -4643,6 +5280,7 @@ def main() -> int:
     if same != len(ragged_tokens):
         fail("APHRODITE_ATTN_RAGGED=0: K5's tokens differ from K1's")
 
+    log_clocks("before the spec phase (5b)")
     # 5b. Speculative decoding on the same engine: the n-gram mix with
     # APHRODITE_SPEC on and off, tokens equal; verify rounds against
     # classic decode rounds; the async run's sync reference.
@@ -4697,10 +5335,12 @@ def main() -> int:
     del engine
     free_engine(torch, "bf16")
 
+    log_clocks("before the async phase (5c)")
     # 5c. AsyncAphrodite: 16 concurrent streams through the serving path.
     by_path["async"], _ = run_async_serving(torch, model_dir, counters, smi,
                                             reference)
 
+    log_clocks("before the LoRA phase (5d)")
     # 5d. Multi-LoRA: 2-layer checks over bf16 and GPTQ W4A16 bases, the
     # e2e engine with 6 adapters over 4 slots, the decode step's cost.
     os.environ["APHRODITE_W4A8"] = "0"
@@ -4721,6 +5361,7 @@ def main() -> int:
         f"{off_dev:.2f}; the delta {delta[8][0]:.4f} / {delta[64][0]:.4f} ms "
         f"of device time a decoder layer at batch 8 / 64")
 
+    log_clocks("before the 8-bit KV phase (6)")
     # 6. int8 and fp8 KV pages.
     for kv_dtype, page_dtype in (("int8", torch.int8),
                                  ("fp8", torch.float8_e5m2)):
@@ -4748,6 +5389,7 @@ def main() -> int:
         del engine
         free_engine(torch, path)
 
+    log_clocks("before the window phase (7)")
     # 7. Sliding window: the published Mistral-7B-v0.1 config.
     add("sliding window", run_sliding_window(torch, counters, smi))
 
@@ -4756,6 +5398,7 @@ def main() -> int:
     from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
     gptq = check_and_time_quant(torch, qmm, timer, awq=False)
 
+    log_clocks("before the GPTQ e2e phase (9)")
     # 9. End to end with GPTQ, W4A8 then W4A16.
     gptq_dir = quant_model_dir(awq=False)
     t0 = time.perf_counter()
@@ -4802,6 +5445,7 @@ def main() -> int:
     del engine
     free_engine(torch, "GPTQ")
 
+    log_clocks("before the AWQ kernel phase (10)")
     # 10. AWQ kernels vs plain versions, and times.
     awq = check_and_time_quant(torch, qmm, timer, awq=True)
 
@@ -4853,6 +5497,7 @@ def main() -> int:
     log_clocks("before the GGUF kernel phase")
     gguf = check_and_time_gguf(torch, qmm, timer)
 
+    log_clocks("before the GGUF e2e phase (14)")
     # 14. End to end with dummy GGUF weights in the JAX bench's three
     # at-rest forms (BENCH_GGUF_FMT).
     q8, i8g, w8a8 = GGUF_MATMULS
@@ -4899,6 +5544,7 @@ def main() -> int:
         del engine
         free_engine(torch, f"GGUF {form}")
 
+    log_clocks("before the GGUF file phase (15)")
     # 15. A .gguf file at full width through the loader.
     import tempfile
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
@@ -4930,24 +5576,35 @@ def main() -> int:
     log_clocks("before the K12/K16/K17 kernel phase")
     late = check_and_time_late(torch, qmm, timer)
 
+    log_clocks("before the late arms' e2e phase (17)")
     # 17. End to end with dummy weights: SqueezeLLM (K16), int8 (K17),
     # QuIP# (K16 on f32 activations) and GGUF's exact Q4_K form (K12).
     by_path.update(run_late_arms(torch, model_dir, counters, smi, layers,
                                  bf16_pages))
 
+    log_clocks("before the quantized 2-layer models (18)")
     # 18. 2-layer full-width models through K12, K16, K16-f32 and K17 vs
     # their plain versions, each with a control.
     check_quant_models(torch)
 
     # 19. Mixture of experts: K1-K4 at DeepSeek-MoE-16B's multi-head
     # geometry, 2-layer Mixtral and DeepSeek models against their plain
-    # paths, DeepSeek-MoE-16B whole and Mixtral-8x7B at 4 of 32 layers.
+    # paths, DeepSeek-MoE-16B whole and Mixtral-8x7B at 2 of 32 layers.
     log_clocks("before the MoE phase")
     moe_paths, moe_seconds = run_moe_phase(torch, pa, kw, timer, counters,
                                            smi, only="bcd")
     by_path.update(moe_paths)
     log(f"MoE phase (19) seconds {json.dumps(moe_seconds)}; the run so far "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # 20. The other architectures: six families at full width against
+    # their plain paths and through the mix, Qwen2-7B whole and
+    # profiled, GPTQ over Qwen2.
+    log_clocks("before the other architectures' phase")
+    arch_paths, arch_seconds = run_arch_phase(torch, counters, smi)
+    by_path.update(arch_paths)
+    log(f"other architectures' phase (20) seconds {json.dumps(arch_seconds)};"
+        f" the run so far {time.perf_counter() - t_start:.1f} s")
     launches = {}
     for path in by_path.values():
         for name, n in path.items():

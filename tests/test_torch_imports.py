@@ -230,7 +230,7 @@ def test_serving_modules_are_scanned_and_chip_smoke_skips_endpoints():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(architectures=["GPTNeoXForCausalLM"]), "architectures"),
+    (dict(architectures=["FalconForCausalLM"]), "architectures"),
     (dict(quantization_config={"quant_method": "squeezellm",
                                "wbits": 4}), "quantized"),
 ])

@@ -2162,3 +2162,142 @@ def test_moe_ffn_on_the_card_matches_f64(dev, e, k, h, inter, renorm, t):
     bad = f64(rolled)
     assert bool(((got.double() - bad).abs() >
                  2e-2 + 2e-2 * bad.abs()).any())
+
+
+# ---- the other architectures' geometries (Qwen2, Phi, NeoX, GPT-J,
+# DeciLM) ----
+
+# (Hq, Hkv, head_dim): Qwen2-7B's group 7, DeciLM's groups 16 and 32,
+# Phi-2's head_dim 80, GPT-NeoX-20B's 96 and GPT-J-6B's 256.
+ARCH_GEOMETRIES = [(28, 4, 128), (32, 2, 128), (32, 1, 128), (32, 32, 80),
+                   (64, 64, 96), (16, 16, 256)]
+
+
+def _attention_f64(q, kp, vp, tables, ctx, scale, kv_scale):
+    """Decode attention in f64: q x scale x kv_scale x log2(e) rounded to
+    bf16 (the kernels' dot operand, the Pallas bodies' rounding), each
+    sequence's first ctx tokens of K and V as stored, the base-2 softmax
+    and the sums in f64, times kv_scale."""
+    b, hq, d = q.shape
+    _, ps, hd = kp.shape
+    hkv = hd // d
+    qs = (q.float() * (scale * kv_scale * 1.4426950408889634)).to(
+        torch.bfloat16).double()
+    out = torch.zeros(b, hq, d, dtype=torch.float64, device=q.device)
+    for i in range(b):
+        n = int(ctx[i])
+        if n == 0:
+            continue
+        pages = tables[i, :-(-n // ps)].long()
+        k = kp[pages].double().reshape(-1, hkv, d)[:n]
+        v = vp[pages].double().reshape(-1, hkv, d)[:n]
+        k = k.repeat_interleave(hq // hkv, 1)      # [n, hq, d]
+        v = v.repeat_interleave(hq // hkv, 1)
+        s2 = torch.einsum("hd,nhd->hn", qs[i], k)
+        p = torch.softmax(s2 * 0.6931471805599453, dim=-1)
+        out[i] = torch.einsum("hn,nhd->hd", p, v) * kv_scale
+    return out
+
+
+@pytest.mark.parametrize("page_dtype", [torch.bfloat16, torch.int8,
+                                        torch.float8_e5m2])
+@pytest.mark.parametrize("hq,hkv,d", ARCH_GEOMETRIES,
+                         ids=["group7", "group16", "group32", "d80", "d96",
+                              "d256"])
+def test_k1_at_the_other_architectures_matches_f64(dev, hq, hkv, d,
+                                                   page_dtype):
+    """K1 on the ragged grid with the fused write at each geometry, its
+    policy's split count (16-row blocks past group 16): within 2e-2 +
+    2e-2 |f64| of an f64 evaluation on the same pages (the fused rows
+    included); the fused-write codes equal the plain version's, and the
+    plain version stays within the attention tolerance too."""
+    ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512]
+    q, kp, vp, tb, ctx, kn, vn = _decode_problem(
+        dev, ctxs, page_dtype=page_dtype, seed=7, d=d, hq=hq, hkv=hkv)
+    ppc = tpa.choose_pages_per_chunk(tb.shape[1], 32, len(ctxs))
+    work = tpa.build_decode_work_list([-(-c // 32) for c in ctxs], ppc)
+    n_split = tpa.choose_decode_splits(
+        len(ctxs), hkv * tpa.row_blocks(hq // hkv), tb.shape[1], ppc,
+        tpa.sm_count(dev))
+    kv_scale = tkq.dequant_scale(page_dtype, KV_SCALE)
+    kw = dict(scale=d ** -0.5, pages_per_chunk=ppc, kv_scale=kv_scale)
+    kp2, vp2 = kp.clone(), vp.clone()
+    before = tpa.PAGED_DECODE_ATTENTION_LAUNCHES.count
+    got, _, _ = tpa.paged_decode_attention(q, kp, vp, tb, ctx, None, kn, vn,
+                                           work_items=work, **kw)
+    want, _, _ = tpa.paged_decode_attention_plain(q, kp2, vp2, tb, ctx, None,
+                                                  kn, vn, num_splits=n_split,
+                                                  **kw)
+    torch.cuda.synchronize()
+    assert tpa.PAGED_DECODE_ATTENTION_LAUNCHES.count == before + 1
+    assert torch.equal(_bytes(kp), _bytes(kp2))
+    assert torch.equal(_bytes(vp), _bytes(vp2))
+    assert (got[1] == 0).all()                     # ctx 0 row
+    _close(got, want)
+    ref = _attention_f64(q, kp, vp, tb, ctx, d ** -0.5, kv_scale)
+    err = (got.double() - ref).abs()
+    assert bool((err <= 2e-2 + 2e-2 * ref.abs()).all()), err.max().item()
+
+
+def test_k1_group_32_row_block_control_misses(dev):
+    """At one KV head of 32 query rows (two 16-row blocks), the plain
+    version on the query with its rows rolled by 16 (each row block
+    given the other's rows) misses the tolerance K1 meets."""
+    ctxs = [2047] * 8
+    q, kp, vp, tb, ctx, _, _ = _decode_problem(dev, ctxs, seed=9, hq=32,
+                                               hkv=1)
+    ppc = tpa.choose_pages_per_chunk(tb.shape[1], 32, len(ctxs))
+    work = tpa.build_decode_work_list([64] * 8, ppc)
+    n_split = tpa.choose_decode_splits(8, 2, tb.shape[1], ppc,
+                                       tpa.sm_count(dev))
+    kw = dict(scale=128 ** -0.5, pages_per_chunk=ppc)
+    got = tpa.paged_decode_attention(q, kp, vp, tb, ctx, work_items=work,
+                                     **kw)
+    good = tpa.paged_decode_attention_plain(q, kp, vp, tb, ctx,
+                                            num_splits=n_split, **kw)
+    bad = tpa.paged_decode_attention_plain(q.roll(16, 1).contiguous(), kp,
+                                           vp, tb, ctx, num_splits=n_split,
+                                           **kw)
+    torch.cuda.synchronize()
+    _close(got, good)
+    err = (got.float() - bad.float()).abs()
+    assert bool((err > 2e-2 + 2e-2 * bad.float().abs()).any())
+
+
+@pytest.mark.parametrize("page_dtype", [torch.bfloat16, torch.int8,
+                                        torch.float8_e5m2])
+@pytest.mark.parametrize("hkv,d", [(4, 128), (1, 128), (32, 80), (64, 96),
+                                   (16, 256)],
+                         ids=["qwen2", "decilm1", "phi2", "neox20b", "gptj"])
+def test_writers_at_the_other_row_widths_are_exact(dev, hkv, d,
+                                                   page_dtype):
+    """K4 with shared pages and padding slots, and K2 on bf16 pages (8-bit
+    prompts take the slot scatter), at each architecture's page row
+    width (Hkv x head_dim, 128 to 6144 values): bit for bit their plain
+    versions."""
+    g = torch.Generator(device=dev).manual_seed(hkv * d)
+    hd, num_pages, ps = hkv * d, 64, 32
+    base = torch.randn(num_pages, ps, hd, generator=g, device=dev)
+    kp = tkq.quantize_kv(base, page_dtype, KV_SCALE)
+    knew = torch.randn(96, hd, generator=g, device=dev).to(torch.bfloat16)
+    slots = torch.randperm(num_pages * ps, generator=g, device=dev)[:96].to(
+        torch.int32)
+    slots[::5] = num_pages * ps
+    a = tkw.write_kv_pages(knew, knew.flip(0), kp.clone(), kp.clone(), slots,
+                           kv_scale=KV_SCALE)
+    b = tkw.write_kv_pages_plain(knew, knew.flip(0), kp.clone(), kp.clone(),
+                                 slots, KV_SCALE)
+    torch.cuda.synchronize()
+    assert torch.equal(_bytes(a[0]), _bytes(b[0]))
+    assert torch.equal(_bytes(a[1]), _bytes(b[1]))
+    if page_dtype != torch.bfloat16:
+        return
+    pid = torch.tensor([3, num_pages, 5, 9], dtype=torch.int32, device=dev)
+    vld = torch.tensor([ps, ps, 7, 1], dtype=torch.int32, device=dev)
+    rows = torch.randn(4 * ps, hd, generator=g, device=dev).to(torch.bfloat16)
+    c = tkw.write_kv_pages_prefill(rows, rows.flip(0), kp.clone(), kp.clone(),
+                                   pid, np.arange(4, dtype=np.int32), vld)
+    e = tkw.write_kv_pages_prefill_plain(rows, rows.flip(0), kp.clone(),
+                                         kp.clone(), pid, vld)
+    torch.cuda.synchronize()
+    assert torch.equal(c[0], e[0]) and torch.equal(c[1], e[1])

@@ -646,7 +646,7 @@ def test_moe_refuses_lora_at_config_time(name, model_dirs):
                    enable_lora=True).create_engine_configs()
 
 
-@pytest.mark.parametrize("arch", ["GPTNeoXForCausalLM", "FooForCausalLM"])
+@pytest.mark.parametrize("arch", ["FalconForCausalLM", "FooForCausalLM"])
 def test_unregistered_architectures_are_still_refused(arch, tmp_path):
     path = _write_config(tmp_path, dict(MIXTRAL, architectures=[arch]))
     with pytest.raises(NotImplementedError, match="architecture"):
