@@ -11,7 +11,8 @@ SqueezeLLM's and QuIP#'s 4-bit qweight) uniformly over their whole
 integer range, so the codes are random bit patterns; other integers
 zero: index-like ones (g_idx) and the int8 method's `weight`, as in the
 JAX package. Checkpoint
-formats read local files; `safetensors` is imported only when a
+formats read local files, a model id first resolved to one by
+`hf_loader.resolve_model_path`; `safetensors` is imported only when a
 safetensors checkpoint is asked for. `load_format="npcache"` converts
 the `*.bin` files once, under a file lock, into a numpy cache beside
 them (`np/`, one `.npy` per tensor and a `weight_names.json` manifest;
@@ -34,6 +35,8 @@ import torch
 
 from aphrodite_tpu_torch.common.config import ModelConfig
 from aphrodite_tpu_torch.common.logger import init_logger
+from aphrodite_tpu_torch.modeling.hf_loader import (_file_lock,
+                                                   resolve_model_path)
 from aphrodite_tpu_torch.modeling.models import ModelRegistry
 
 logger = init_logger(__name__)
@@ -102,26 +105,6 @@ def _torch_bin_weights(model_path: str
                               weights_only=True).items()
 
 
-class _file_lock:
-    """An advisory flock on `path`, held inside the `with` block (the
-    JAX package's lock, copied)."""
-
-    def __init__(self, path: str) -> None:
-        self._path = path
-        self._fd = None
-
-    def __enter__(self):
-        import fcntl
-        self._fd = open(self._path, "w")
-        fcntl.flock(self._fd, fcntl.LOCK_EX)
-        return self
-
-    def __exit__(self, *exc):
-        import fcntl
-        fcntl.flock(self._fd, fcntl.LOCK_UN)
-        self._fd.close()
-
-
 def _np_cache_iterator(model_path: str
                        ) -> Iterator[Tuple[str, torch.Tensor]]:
     """Stream from (building on first use) the numpy cache of a `*.bin`
@@ -156,6 +139,7 @@ def _np_cache_iterator(model_path: str
 def _weights_iterator(model_path: str, load_format: str,
                       gguf_at_rest: bool = False
                       ) -> Iterator[Tuple[str, object]]:
+    model_path = resolve_model_path(model_path)
     if model_path.endswith(".gguf") and os.path.isfile(model_path):
         yield from _gguf_weights(model_path, gguf_at_rest)
         return

@@ -31,6 +31,7 @@ import json
 import os
 from typing import Any, Callable, Dict, Optional
 
+from aphrodite_tpu_torch.modeling.hf_loader import resolve_model_path
 from aphrodite_tpu_torch.transformers_utils.configs import qwen, yi
 
 # HF LlamaConfig defaults for keys a config.json may omit.
@@ -217,20 +218,28 @@ def config_from_dict(raw: Dict[str, Any]) -> ModelJsonConfig:
 def get_config(model: str,
                trust_remote_code: bool = False,
                revision: Optional[str] = None) -> ModelJsonConfig:
-    """Read `<model>/config.json` (a local directory; the port has no
-    hub access), or a single-file `.gguf` checkpoint's metadata.
-    `trust_remote_code` and `revision` are accepted for signature parity
-    with the JAX package and do not apply to a local file."""
+    """Read `<model>/config.json`, or a single-file `.gguf` checkpoint's
+    metadata. A model id that is not a local path resolves first through
+    `resolve_model_path` (the hub snapshot brings `*.json` along), where
+    the JAX package lets `AutoConfig` resolve it. `trust_remote_code` and
+    `revision` are accepted for signature parity with the JAX package
+    and do not apply to a local file."""
     del trust_remote_code, revision
     if model.endswith(".gguf"):
         # Single-file GGUF checkpoint: the config comes from its metadata
         # (reference `transformers_utils/config.py:77-78`).
         from aphrodite_tpu_torch.modeling.gguf import extract_gguf_config
         return extract_gguf_config(model)
-    path = os.path.join(model, "config.json")
-    if not os.path.isfile(path):
+    try:
+        model_dir = resolve_model_path(model)
+    except ValueError as e:
+        # huggingface_hub's HFValidationError: no such local path, and
+        # not a well-formed model id either.
         raise ValueError(
-            f"{model!r} has no config.json: the PyTorch port loads local "
-            "model directories only.")
+            f"{model!r} is neither a local model directory with a "
+            f"config.json nor a hub model id: {e}") from e
+    path = os.path.join(model_dir, "config.json")
+    if not os.path.isfile(path):
+        raise ValueError(f"{model!r} has no config.json.")
     with open(path) as f:
         return config_from_dict(json.load(f))

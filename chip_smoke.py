@@ -96,8 +96,12 @@ Phases, in order; any failure exits non-zero:
 4. End to end: the port's engine serves a Llama of Mistral-7B width and
    depth (hidden 4096, 32 layers, 32/8 heads, intermediate 14336, vocab
    32000), bf16, dummy weights from seed 0, 32-token pages, token ids in
-   and out: 8 greedy requests (prompts of 1000, 300 and 64 tokens, then
-   two of 12 tokens arriving one round later), 32 new tokens each, once
+   and out. Its local model directory goes through
+   `modeling/hf_loader.resolve_model_path`, like every engine's here:
+   once it is built, the run fails if `huggingface_hub` was imported (a
+   local path must pass through without a hub package). Then 8 greedy
+   requests (prompts of 1000, 300 and 64 tokens, then two of 12 tokens
+   arriving one round later), 32 new tokens each, once
    with multi_step=1 and once with multi_step=8. The launch counters are
    reset just before and read just after; K1, K2 and K4 must each have
    launched in both runs (K5 not), and every request must finish with
@@ -5239,6 +5243,11 @@ def main() -> int:
         disable_log_stats=True))
     log(f"engine up in {time.perf_counter() - t0:.1f} s: "
         f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens")
+    hub = "huggingface_hub" in sys.modules
+    log(f"model path {model_dir} passed through resolve_model_path; "
+        f"huggingface_hub imported: {hub} (required: False)")
+    if hub:
+        fail("resolving a local model directory imported huggingface_hub")
     bf16_pages = engine.cache_config.num_gpu_blocks
     counters = build.COUNTERS
     torch.cuda.reset_peak_memory_stats()

@@ -210,16 +210,23 @@ def test_flag_registries_match():
 
 
 def test_serving_modules_are_scanned_and_chip_smoke_skips_endpoints():
-    """The serving modules are among the scanned sources, and the card's
-    smoke script drives `AsyncAphrodite` without the HTTP layer (its
-    packages are not on the card machine)."""
+    """The serving modules (the OpenAI, Kobold and Ooba servers, the
+    fleet router and model-path resolution among them) are among the
+    scanned sources, and the card's smoke script drives `AsyncAphrodite`
+    without the HTTP layer or the fleet (their packages are not on the
+    card machine)."""
     scanned = {os.path.relpath(p, REPO) for p in _sources()}
     for rel in ("engine/async_aphrodite.py", "endpoints/utils.py",
                 "endpoints/openai/protocol.py",
                 "endpoints/openai/api_server.py", "common/grammar.py",
                 "modeling/layers/rejection.py", "lora/__init__.py",
                 "lora/request.py", "lora/layers.py", "lora/models.py",
-                "lora/worker_manager.py"):
+                "lora/worker_manager.py", "endpoints/kobold/__init__.py",
+                "endpoints/kobold/protocol.py",
+                "endpoints/kobold/api_server.py",
+                "endpoints/ooba/__init__.py", "endpoints/ooba/api_server.py",
+                "fleet/__init__.py", "fleet/replica.py", "fleet/router.py",
+                "fleet/launcher.py", "modeling/hf_loader.py"):
         assert f"aphrodite_tpu_torch/{rel}" in scanned, rel
     with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
         mods = list(_imported(ast.parse(f.read())))
@@ -227,6 +234,9 @@ def test_serving_modules_are_scanned_and_chip_smoke_skips_endpoints():
     assert not [m for m in mods
                 if m.startswith("aphrodite_tpu_torch.endpoints.")
                 and m != "aphrodite_tpu_torch.endpoints.llm"]
+    assert not [m for m in mods
+                if m == "aphrodite_tpu_torch.fleet"
+                or m.startswith("aphrodite_tpu_torch.fleet.")]
 
 
 @pytest.mark.parametrize("change,match", [
