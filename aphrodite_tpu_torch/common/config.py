@@ -2,25 +2,20 @@
 
 Copied from the JAX package's `common/config.py` with the same classes
 and semantics, narrowed to what the port serves so far: a dense
-Mixtral or DeepSeek-MoE model, or a dense,
-GPTQ-quantized (4 or 8 bits, no act-order), AWQ-quantized (4 bits), GGUF
+Mixtral or DeepSeek-MoE model, or a dense, GPTQ-quantized (2, 4 or 8
+bits, any group size, act-order included), AWQ-quantized (4 bits), GGUF
 (a `.gguf` file, dense or at rest), SqueezeLLM, load-time int8 or QuIP#
 model of every other architecture the JAX package registers (the Llama
 family, DeciLM, Qwen2, OPT, GPT-J, GPT-NeoX, Phi), Mistral's sliding
-window included, on one CUDA card
-(or the CPU, when the caller asks for it): dense models in bfloat16 or
-float32, the quantized ones in bfloat16 on the card (the kernels take
-bfloat16 activations and scales; QuIP# runs f32 activations through
-K16 whatever the model dtype) and in either on the CPU; KV pages in the
-model dtype, int8 or fp8 (e5m2). Every configuration outside that is
-refused HERE, with a message naming the later slice that brings it
-(`refuse`), so nothing is silently ignored:
+window included, on one CUDA card (or the CPU, when the caller asks for
+it), in bfloat16 or float32; KV pages in the model dtype, int8 or fp8
+(e5m2). Quantized layers whose shape, bits, act-order or activation
+dtype a kernel's gate refuses take the JAX package's dequantize-then-
+matmul route in plain torch (each linear method's `apply`). Every
+configuration outside that is refused HERE, with a message naming the
+later slice that brings it (`refuse`), so nothing is silently ignored:
 
 - tensor/data/sequence parallelism and the disaggregated split;
-- GPTQ act-order, 2-bit, GPTQ and AWQ at layer shapes the kernels do
-  not take; on the card, GGUF, SqueezeLLM, int8 and QuIP# at layer
-  shapes the kernels' gates refuse (QuIP#'s int8 form among them) and
-  quantized models in float32 (the quantized matmul fallback route);
 - explicit float16 compute (`dtype="auto"` maps a float16 checkpoint
   to bfloat16, as in the JAX package);
 - LoRA on the MoE architectures (`LoRAConfig.verify_with_model_config`).
@@ -54,30 +49,6 @@ def refuse(what: str, later: str) -> None:
     raise NotImplementedError(
         f"{what} is not supported by the PyTorch port yet; it arrives "
         f"with a later slice: {later} (see ROADMAP.md).")
-
-
-#: The later slice (ROADMAP Queue 1, item 2) that serves what the
-#: quantized matmul kernels do not take, on the reference's dequantize-
-#: then-matmul path: layer shapes their gates refuse, float32 on the
-#: card, GPTQ act-order and 2-bit.
-LATER_FALLBACK = ("the quantized matmul fallback route (dequantize-then-"
-                  "matmul for layer shapes the kernels' gates refuse, "
-                  "float32 on the card, GPTQ act-order and 2-bit)")
-
-#: Architectures whose MLP is one projection up and one down (no gate).
-_UNGATED_ARCHS = ("OPTForCausalLM", "GPTJForCausalLM", "GPTNeoXForCausalLM",
-                  "PhiForCausalLM")
-
-#: Quantization methods whose matmuls take bfloat16 on the card.
-_BF16_ON_CARD = ("gptq", "awq", "gguf", "squeezellm", "int8")
-
-
-def refuse_gated_shape(method: str, shape, device) -> None:
-    """Raise for a layer shape a kernel's gate refuses, off the CPU (its
-    dequantize route runs on the CPU only; `ModelConfig` refuses such a
-    model on the card before it is built)."""
-    refuse(f"{method} at the layer shape (in, out) {tuple(shape)} that its "
-           f"kernel's gate refuses, on {device.type}", LATER_FALLBACK)
 
 
 # String names avoid importing jax at config time.
@@ -151,10 +122,12 @@ class ModelConfig:
                 "experts (its FusedMoE stacks float expert weights and "
                 "takes no linear method, so a quantized expert's qweight "
                 "cannot load there), and neither does the PyTorch port.")
-        if self.quantization == "gptq":
-            self._verify_gptq()
-        elif self.quantization == "awq":
-            self._verify_awq()
+        if self.quantization is not None:
+            # The method's own checks (GPTQ's bit widths, AWQ's 4 bits)
+            # run here, not at load.
+            from aphrodite_tpu_torch.modeling.layers.quantization import (
+                get_quantization_config)
+            get_quantization_config(self)
         archs = getattr(self.hf_config, "architectures", None) or []
         if not any(ModelRegistry.load_model_cls(a) is not None
                    for a in archs):
@@ -175,123 +148,9 @@ class ModelConfig:
         if self.dtype == "float16":
             refuse("explicit float16 compute (dtype='auto' maps a float16 "
                    "checkpoint to bfloat16; use that, bfloat16 or float32)",
-                   f"the dtype gaps beside {LATER_FALLBACK} (ROADMAP.md "
-                   "Queue 1, item 2)")
-
-    def _verify_gptq(self) -> None:
-        """GPTQ is served at 4 or 8 bits without act-order, for the
-        layer shapes the kernels take (`GPTQConfig.supports`)."""
-        from aphrodite_tpu_torch.modeling.layers.quantization import (
-            get_quantization_config)
-        cfg = get_quantization_config(self)
-        if cfg.desc_act:
-            refuse("GPTQ with desc_act=True (act-order g_idx)",
-                   LATER_FALLBACK)
-        if cfg.weight_bits not in (4, 8):
-            refuse(f"{cfg.weight_bits}-bit GPTQ", LATER_FALLBACK)
-        bad = [s for s in self._linear_shapes() if not cfg.supports(*s)]
-        if bad:
-            refuse(f"GPTQ group size {cfg.group_size} for the linear "
-                   f"shapes (in, out) {bad} (the kernels need in % group "
-                   "== 0, 128 <= group <= 1024 and out % 128 == 0)",
-                   LATER_FALLBACK)
-
-    def _verify_awq(self) -> None:
-        """AWQ (4 bits) is served for the layer shapes the kernels take
-        (`AWQConfig.supports`, the JAX package's `awq_supported`)."""
-        from aphrodite_tpu_torch.modeling.layers.quantization import (
-            get_quantization_config)
-        cfg = get_quantization_config(self)
-        bad = [s for s in self._linear_shapes() if not cfg.supports(*s)]
-        if bad:
-            refuse(f"AWQ group size {cfg.group_size} for the linear shapes "
-                   f"(in, out) {bad} (the kernels need in % group == 0, "
-                   "128 <= group <= 1024 and out % 1024 == 0)",
-                   LATER_FALLBACK)
-
-    def _gguf_forms(self):
-        """[(name, at-rest form, (in, out) of its merged bucket)] of the
-        GGUF projections: each layer shape of a dummy load
-        (`dummy_form`), each projection tensor of a `.gguf` file (its
-        form from the header alone, `checkpoint_forms`)."""
-        from aphrodite_tpu_torch.modeling.layers.quantization.gguf import (
-            bucket_index, checkpoint_forms, dummy_form)
-        shapes = self._linear_shapes()
-        if self.load_format == "dummy":
-            return [("dummy", dummy_form(s[0]), s) for s in shapes]
-        if self.model.endswith(".gguf"):
-            return [(name, form, shapes[bucket_index(name)]) for name, form
-                    in checkpoint_forms(self.model).items()]
-        return []
-
-    def _linear_shapes(self):
-        """(in, out) of the quantized projections of a layer: qkv, o, the
-        MLP's first (gate+up where the MLP is gated) and second; then the
-        qkv shapes of any other per-layer KV head count (DeciLM)."""
-        c = self.hf_config
-        hidden = c.hidden_size
-        heads = c.num_attention_heads
-        head_dim = self.get_head_size()
-        kv_counts = sorted(set(self.get_kv_heads_per_layer()), reverse=True)
-        archs = getattr(c, "architectures", None) or []
-        if "OPTForCausalLM" in archs:
-            inter = c.ffn_dim
-        elif "GPTJForCausalLM" in archs:
-            inter = getattr(c, "n_inner", None) or 4 * hidden
-        else:
-            inter = c.intermediate_size
-        gated = not set(archs) & set(_UNGATED_ARCHS)
-        qkv = [(hidden, (heads + 2 * kv) * head_dim) for kv in kv_counts]
-        return [qkv[0], (heads * head_dim, hidden),
-                (hidden, (2 if gated else 1) * inter),
-                (inter, hidden)] + qkv[1:]
-
-    def verify_with_device_config(self,
-                                  device_config: "DeviceConfig") -> None:
-        """The GPTQ, AWQ, GGUF, SqueezeLLM and int8 kernels take bfloat16
-        activations and scales: on the card they run in bfloat16 only.
-        (float32 stays for device="cpu", where the plain versions run.)
-        On the card every GGUF bucket, SqueezeLLM and int8 layer shape,
-        and QuIP# transform shape must also pass its kernel's gate: the
-        dequantize-then-matmul route of the shapes a gate refuses, and
-        QuIP#'s int8 form (which the reference runs through XLA, never
-        K17), run on the CPU only."""
-        if device_config.device_type == "cpu":
-            return
-        if self.quantization in _BF16_ON_CARD and self.dtype != "bfloat16":
-            refuse(f"{self.quantization.upper()} in {self.dtype} on the "
-                   "CUDA card (use dtype='bfloat16', or device='cpu')",
-                   LATER_FALLBACK)
-        if self.quantization == "gguf":
-            from aphrodite_tpu_torch.modeling.layers.quantization.gguf import (
-                kernel_takes)
-            bad = sorted({(form, shape) for _, form, shape
-                          in self._gguf_forms()
-                          if not kernel_takes(form, *shape)})
-            if bad:
-                refuse(f"GGUF (at-rest form, bucket (in, out)) {bad} on the "
-                       "CUDA card, whose kernels' gates refuse them (K12, "
-                       "K13 and K14 need in % 256 == 0, K15 in % 128 == 0, "
-                       "all out % 128 == 0; use device='cpu')",
-                       LATER_FALLBACK)
-        if self.quantization in ("squeezellm", "int8", "quip"):
-            from aphrodite_tpu_torch.modeling.layers.quantization import (
-                get_quantization_config)
-            cfg = get_quantization_config(self)
-            bad = [s for s in self._linear_shapes() if not cfg.supports(*s)]
-            if bad and self.quantization == "quip":
-                refuse(f"quantization 'quip' in its int8 form, for the "
-                       f"linear shapes (in, out) {bad} whose Hadamard "
-                       "transform shapes K16's gate refuses (in % 256 == 0, "
-                       "out % 128 == 0), on the CUDA card: the reference "
-                       "runs that form through XLA, never K17 (use "
-                       "device='cpu')", LATER_FALLBACK)
-            if bad:
-                refuse(f"quantization {self.quantization!r} for the linear "
-                       f"shapes (in, out) {bad} on the CUDA card, whose "
-                       "kernel's gate refuses them (K16 and K17 need in % "
-                       "256 == 0 and out % 128 == 0; use device='cpu')",
-                       LATER_FALLBACK)
+                   "float16 activations and KV pages in the attention "
+                   "kernels and the page writers (ROADMAP.md Queue 1, "
+                   "item 5)")
 
     def _verify_load_format(self) -> None:
         load_format = self.load_format.lower()

@@ -206,7 +206,6 @@ class EngineArgs:
             lora_config.verify_with_model_config(model_config)
             lora_config.verify_with_scheduler_config(scheduler_config)
         model_config.verify_with_parallel_config(parallel_config)
-        model_config.verify_with_device_config(device_config)
         cache_config.verify_with_parallel_config(parallel_config)
         return (model_config, cache_config, parallel_config,
                 scheduler_config, device_config, lora_config)

@@ -9,11 +9,16 @@ Checkpoint layout, kept as it is on the device:
                             cast on load)
 Dequant: w = (q - z) * s.
 
-Every matmul goes through the CUDA kernels of `ops/cuda/quant_matmul.py`
-(their plain versions for CPU tensors): `awq_matmul` (K7's AWQ layout at
-m <= 64, else K10) or, under APHRODITE_W4A8=1, `awq_matmul_a8` (K9, then
-K7's AWQ a8 arm or K11). AWQ has no g_idx, so the JAX package's CPU path
-(dequantize, then matmul) and the kernels compute the same weight.
+A layer whose shape `AWQConfig.supports` (the JAX package's
+`awq_supported`: in % group == 0, groups of 128-1024 rows, out % 1024
+== 0) goes through the CUDA kernels of `ops/cuda/quant_matmul.py`
+(their plain versions for CPU tensors), on the card for bfloat16
+activations only: `awq_matmul` (K7's AWQ layout at m <= 64, else K10)
+or, under APHRODITE_W4A8=1, `awq_matmul_a8` (K9, then K7's AWQ a8 arm
+or K11). Every other layer takes the JAX package's dequantize-then-
+matmul route in x's dtype, whatever APHRODITE_W4A8 says (so one model,
+Qwen2-7B among them, may run some projections on each route). AWQ has
+no g_idx, so both routes compute the same weight.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 from aphrodite_tpu_torch.common import flags
 from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
 from aphrodite_tpu_torch.modeling.layers.quantization.base_config import (
-    QuantizationConfig)
+    QuantizationConfig, kernel_takes_dtype)
 from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
 
 
@@ -89,27 +94,45 @@ class AWQLinearMethod(LinearMethod):
     def dequantize(self, params: Dict[str, torch.Tensor],
                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         """The weight [in, out] in `dtype`, as the JAX package's
-        `dequantize` (a plain helper: no kernel)."""
-        return qmm.dequantize_awq_plain(
-            params["qweight"], params["qzeros"], params["scales"],
-            group_size=self.config.group_size, dtype=dtype)
+        `dequantize` (a plain helper: no kernel): row k in group
+        k // group_size."""
+        q = qmm.unpack_awq(params["qweight"])
+        z = qmm.unpack_awq(params["qzeros"])
+        g = torch.arange(q.shape[0], device=q.device) // \
+            self.config.group_size
+        w = q.sub_(z[g]).float().mul_(params["scales"].float()[g])
+        return w.to(dtype)
 
     def apply(self, params: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
         qw = params["qweight"]
         in_features, n_packed = qw.shape
-        lead = x.shape[:-1]
-        # APHRODITE_W4A8=1: int8 activations (the JAX bench's default);
-        # AWQ is always 4-bit. Read per call.
-        mm = qmm.awq_matmul_a8 if flags.get_bool("APHRODITE_W4A8") \
-            else qmm.awq_matmul
-        y = mm(x.reshape(-1, in_features).contiguous(), qw,
-               params["qzeros"], params["scales"],
-               group_size=self.config.group_size)
-        y = y.reshape(*lead, n_packed * self.config.pack_factor)
+        out_features = n_packed * self.config.pack_factor
+        if self.uses_kernels(params, x):
+            lead = x.shape[:-1]
+            # APHRODITE_W4A8=1: int8 activations (the JAX bench's
+            # default); AWQ is always 4-bit. Read per call.
+            mm = qmm.awq_matmul_a8 if flags.get_bool("APHRODITE_W4A8") \
+                else qmm.awq_matmul
+            y = mm(x.reshape(-1, in_features).contiguous(), qw,
+                   params["qzeros"], params["scales"],
+                   group_size=self.config.group_size)
+            y = y.reshape(*lead, out_features)
+        else:
+            y = x @ self.dequantize(params, x.dtype)
         if "bias" in params:
             y = y + params["bias"]
         return y
+
+    def uses_kernels(self, params: Dict[str, torch.Tensor],
+                     x: torch.Tensor) -> bool:
+        """The JAX package's route: the kernels serve a layer whose shape
+        `AWQConfig.supports`; on the card only for bfloat16
+        activations."""
+        in_features, n_packed = params["qweight"].shape
+        return self.config.supports(
+            in_features, n_packed * self.config.pack_factor) and \
+            kernel_takes_dtype(x)
 
     def load_weight(self, params, name: str,
                     hf_tensor: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,19 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 from typing import Any, Dict, List
 
+import torch
+
 from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
+
+
+def kernel_takes_dtype(x: torch.Tensor,
+                       dtypes=(torch.bfloat16,)) -> bool:
+    """Whether a quantized kernel that takes activations in `dtypes`
+    serves `x`: on the CPU always (the wrappers run their plain versions
+    in any dtype), elsewhere only in those dtypes. A layer it does not
+    serve takes the dequantize-then-matmul route in x's dtype, as the
+    JAX package does off the TPU."""
+    return x.device.type == "cpu" or x.dtype in dtypes
 
 
 class QuantizationConfig(ABC):

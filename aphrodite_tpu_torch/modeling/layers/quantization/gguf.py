@@ -20,11 +20,10 @@ Every other tensor (embeddings, norms, the LM head, groups with float
 members) dequantizes at load and runs as a dense `weight`, kept in the
 port's [out, in] layout (the JAX package's GGUF method transposes it to
 [in, out]). The at-rest forms are [in, out], as in the JAX package.
-Where a kernel's `*_supported` gate refuses a bucket's shape, `apply`
-dequantizes and multiplies in plain torch, as the JAX package falls back
-to XLA, on the CPU only: on the card `ModelConfig` refuses such a model
-(`kernel_takes`), and `apply` refuses such a bucket, naming the later
-slice (`common/config.LATER_FALLBACK`).
+Where a kernel's `*_supported` gate refuses a bucket's shape, or on the
+card where the activations are not bfloat16 (the kernels take bfloat16
+only), `apply` dequantizes and multiplies in plain torch, as the JAX
+package falls back to XLA.
 """
 from __future__ import annotations
 
@@ -36,10 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from aphrodite_tpu_torch.common import flags
-from aphrodite_tpu_torch.common.config import refuse_gated_shape
 from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
 from aphrodite_tpu_torch.modeling.layers.quantization.base_config import (
-    QuantizationConfig)
+    QuantizationConfig, kernel_takes_dtype)
 from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
 
 
@@ -233,28 +231,6 @@ def dummy_form(in_features: int) -> str:
     return "q4k"
 
 
-_GATES = {"q8_0": qmm.gguf_q8_supported, "i8g": qmm.gguf_i8g_supported,
-          "w8": qmm.gguf_w8a8_supported, "q4k": qmm.gguf_q4k_supported}
-
-#: The projection of each checkpoint tensor -> its merged bucket's index
-#: in `ModelConfig._linear_shapes` (qkv, o, gate_up, down).
-_BUCKET_OF = {"q_proj": 0, "k_proj": 0, "v_proj": 0, "o_proj": 1,
-              "gate_proj": 2, "up_proj": 2, "down_proj": 3}
-
-
-def bucket_index(hf_name: str) -> int:
-    """`model.layers.N.self_attn.q_proj.weight` -> 0 (qkv), and so on."""
-    return _BUCKET_OF[hf_name.split(".")[-2]]
-
-
-def kernel_takes(form: str, in_features: int, out_features: int) -> bool:
-    """Whether the kernel of an at-rest form takes a merged bucket of this
-    shape (its `*_supported` gate). The dense form has no gate: it runs
-    as a dense linear."""
-    gate = _GATES.get(form)
-    return gate is None or gate(in_features, out_features)
-
-
 def _param(t: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(t))
 
@@ -320,40 +296,35 @@ class GGUFLinearMethod(LinearMethod):
 
     def apply(self, params: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
+        if "weight" in params:
+            return F.linear(x, params["weight"], params.get("bias"))
         lead = x.shape[:-1]
+        takes = kernel_takes_dtype(x)
         y = None
         if "qs8" in params:
             K, N = params["qs8"].shape
-            if qmm.gguf_w8a8_supported(K, N):
+            if takes and qmm.gguf_w8a8_supported(K, N):
                 y = qmm.gguf_w8a8_matmul(x.reshape(-1, K).contiguous(),
                                          params["qs8"], params["s128"])
         elif "qweight" in params:
             K, N = params["qweight"].shape[0] * 8, params["qweight"].shape[1]
-            if qmm.gguf_q4k_supported(K, N):
+            if takes and qmm.gguf_q4k_supported(K, N):
                 y = qmm.gguf_q4k_matmul(x.reshape(-1, K).contiguous(),
                                         params["qweight"], params["dl"],
                                         params["ml"])
-        elif "qs" in params and "d16" in params:
+        elif "d16" in params:
             K, N = params["qs"].shape
-            if qmm.gguf_i8g_supported(K, N):
+            if takes and qmm.gguf_i8g_supported(K, N):
                 y = qmm.gguf_i8g_matmul(x.reshape(-1, K).contiguous(),
                                         params["qs"], params["d16"])
-        elif "qs" in params:
+        else:
             K, N = params["qs"].shape
-            if qmm.gguf_q8_supported(K, N):
+            if takes and qmm.gguf_q8_supported(K, N):
                 y = qmm.gguf_q8_matmul(x.reshape(-1, K).contiguous(),
                                        params["qs"], params["d"])
-        elif "weight" in params:
-            return F.linear(x, params["weight"], params.get("bias"))
         if y is None:
-            # A gate refused the shape: dequantize, then multiply, on the
-            # CPU only (`ModelConfig` refuses such a model on the card).
-            if x.device.type != "cpu":
-                w = params.get("qs8", params.get("qs"))
-                shape = tuple(w.shape) if w is not None else (
-                    params["qweight"].shape[0] * 8,
-                    params["qweight"].shape[1])
-                refuse_gated_shape("a GGUF bucket", shape, x.device)
+            # A gate refused the shape, or the kernels do not take x's
+            # dtype: dequantize, then multiply, in x's dtype.
             y = x.reshape(-1, x.shape[-1]) @ self.dequantize(params, x.dtype)
         y = y.reshape(*lead, y.shape[-1])
         if "bias" in params:

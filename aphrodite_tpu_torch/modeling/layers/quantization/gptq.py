@@ -1,5 +1,5 @@
-"""GPTQ weight-only int4/int8 (AutoGPTQ checkpoint format), PyTorch port
-of `aphrodite_tpu/modeling/layers/quantization/gptq.py`.
+"""GPTQ weight-only int2/int4/int8 (AutoGPTQ checkpoint format), PyTorch
+port of `aphrodite_tpu/modeling/layers/quantization/gptq.py`.
 
 Checkpoint layout, kept as it is on the device:
   qweight [in/pack, out]  int32, pack = 32//bits codes along IN
@@ -7,16 +7,25 @@ Checkpoint layout, kept as it is on the device:
   scales  [in/group, out] in the model dtype
   g_idx   [in] int32 group index per input row
 
-Every matmul goes through the CUDA kernels of
-`ops/cuda/quant_matmul.py` (their plain versions for CPU tensors),
-unless APHRODITE_DISABLE_PALLAS_QUANT=1 sends it, as in the JAX package,
-to the plain dequantize-then-matmul route (read per call). Like
-the JAX package's Pallas kernels they take row k's group to be
-k // group_size and do not read g_idx: real desc_act=False checkpoints
-store exactly that g_idx, and desc_act=True is refused by the config.
-(The JAX package's CPU path gathers scales[g_idx] instead; the two agree
-only when g_idx == arange(in) // group_size, which dummy weights, whose
-g_idx is zero, do not satisfy.)
+Two routes, picked per layer and per call from the shape, the bits,
+desc_act and the activation dtype alone, before anything launches (the
+JAX package's `_use_pallas`):
+
+- the CUDA kernels of `ops/cuda/quant_matmul.py` (their plain versions
+  for CPU tensors) where `GPTQConfig.supports` holds (4 or 8 bits, no
+  act-order, groups of 128-1024 rows dividing K, out % 128 == 0), on the
+  card for bfloat16 activations only. Like the JAX package's Pallas
+  kernels they take row k's group to be k // group_size and never read
+  g_idx: real desc_act=False checkpoints store exactly that g_idx;
+- everywhere else, and for every layer under
+  APHRODITE_DISABLE_PALLAS_QUANT=1 (read per call), the JAX package's
+  dequantize-then-matmul route: `dequantize` gathers scales[g_idx] and
+  zeros[g_idx], so an act-order checkpoint's permuted group assignment
+  is honoured; it uses x's dtype and no int8 activations, whatever
+  APHRODITE_W4A8 says.
+
+(The two routes agree only when g_idx == arange(in) // group_size,
+which dummy weights, whose g_idx is zero, do not satisfy.)
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import torch
 from aphrodite_tpu_torch.common import flags
 from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
 from aphrodite_tpu_torch.modeling.layers.quantization.base_config import (
-    QuantizationConfig)
+    QuantizationConfig, kernel_takes_dtype)
 from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
 
 
@@ -99,36 +108,45 @@ class GPTQLinearMethod(LinearMethod):
         q = qmm.unpack_rows(params["qweight"], bits)
         z = qmm.unpack_cols(params["qzeros"], bits) + 1
         g = params["g_idx"].long()
-        scales = params["scales"].float()
-        w = (q - z[g]).float() * scales[g]
+        # (q - z[g]) in f32 times scales[g] in f32, in place: the same
+        # values with two fewer [in, out] temporaries on the card.
+        w = q.sub_(z[g]).float().mul_(params["scales"].float()[g])
         return w.to(dtype)
 
     def apply(self, params: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        if flags.get_bool("APHRODITE_DISABLE_PALLAS_QUANT"):
-            # The JAX package's dequantize-then-matmul route (read per
-            # call): scales gathered by g_idx, no int8 activations.
-            y = x @ self.dequantize(params, x.dtype)
-            if "bias" in params:
-                y = y + params["bias"]
-            return y
         in_features = params["g_idx"].shape[0]
         out_features = params["scales"].shape[1]
-        lead = x.shape[:-1]
-        # APHRODITE_W4A8=1: int8 activations (the JAX bench's default);
-        # 4-bit only, since 8-bit codes minus their zero point overflow
-        # int8. Read per call.
-        mm = qmm.gptq_matmul_a8 if (flags.get_bool("APHRODITE_W4A8") and
-                                    cfg.weight_bits == 4) \
-            else qmm.gptq_matmul
-        y = mm(x.reshape(-1, in_features).contiguous(), params["qweight"],
-               params["qzeros"], params["scales"], bits=cfg.weight_bits,
-               group_size=cfg.group_size)
-        y = y.reshape(*lead, out_features)
+        if self.uses_kernels(params, x):
+            lead = x.shape[:-1]
+            # APHRODITE_W4A8=1: int8 activations (the JAX bench's
+            # default); 4-bit only, since 8-bit codes minus their zero
+            # point overflow int8. Read per call.
+            mm = qmm.gptq_matmul_a8 if (flags.get_bool("APHRODITE_W4A8")
+                                        and cfg.weight_bits == 4) \
+                else qmm.gptq_matmul
+            y = mm(x.reshape(-1, in_features).contiguous(),
+                   params["qweight"], params["qzeros"], params["scales"],
+                   bits=cfg.weight_bits, group_size=cfg.group_size)
+            y = y.reshape(*lead, out_features)
+        else:
+            y = x @ self.dequantize(params, x.dtype)
         if "bias" in params:
             y = y + params["bias"]
         return y
+
+    def uses_kernels(self, params: Dict[str, torch.Tensor],
+                     x: torch.Tensor) -> bool:
+        """The JAX package's `_use_pallas`: the kernels serve a layer
+        their gate takes (which refuses act-order before any kernel could
+        read rows in the wrong groups), unless
+        APHRODITE_DISABLE_PALLAS_QUANT=1; on the card only for bfloat16
+        activations."""
+        return (not flags.get_bool("APHRODITE_DISABLE_PALLAS_QUANT") and
+                self.config.supports(params["g_idx"].shape[0],
+                                     params["scales"].shape[1]) and
+                kernel_takes_dtype(x))
 
     def out_scale(self, name: str) -> int:
         """Divisor on output-dim offsets for merged-layer placement."""

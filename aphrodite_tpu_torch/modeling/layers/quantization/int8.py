@@ -8,9 +8,9 @@ with `scales` [out] beside it (handed to the linear loaders through
 `pending_sidecar`, so merged layers place them with the same output
 offsets). Every matmul goes through K17 (`ops/cuda/quant_matmul.
 int8_matmul`; its plain version for CPU tensors) where its gate takes
-the layer's shape; on the CPU the other shapes take the JAX package's
-XLA route, (x @ W in x's dtype) * scales in x's dtype, and on the card
-`ModelConfig` refuses them.
+the layer's shape and, on the card, the activations are bfloat16; the
+other layers take the JAX package's XLA route, (x @ W in x's dtype) *
+scales in x's dtype.
 """
 from __future__ import annotations
 
@@ -19,10 +19,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from aphrodite_tpu_torch.common.config import refuse_gated_shape
 from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
 from aphrodite_tpu_torch.modeling.layers.quantization.base_config import (
-    QuantizationConfig)
+    QuantizationConfig, kernel_takes_dtype)
 from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
 
 
@@ -38,10 +37,6 @@ class Int8Config(QuantizationConfig):
 
     def get_linear_method(self) -> "Int8LinearMethod":
         return Int8LinearMethod(self)
-
-    def supports(self, in_features: int, out_features: int) -> bool:
-        """Whether K17 takes a layer of this shape."""
-        return qmm.int8_supported(in_features, out_features)
 
 
 class Int8LinearMethod(LinearMethod):
@@ -68,7 +63,8 @@ class Int8LinearMethod(LinearMethod):
               x: torch.Tensor) -> torch.Tensor:
         w = params["weight"]
         in_features, out_features = w.shape
-        if qmm.int8_supported(in_features, out_features):
+        if qmm.int8_supported(in_features, out_features) and \
+                kernel_takes_dtype(x):
             lead = x.shape[:-1]
             # A real load casts the scales to the model dtype, as the JAX
             # package's loader does; K17 takes them in f32.
@@ -76,8 +72,6 @@ class Int8LinearMethod(LinearMethod):
                                 params["scales"].float())
             y = y.reshape(*lead, out_features)
         else:
-            if x.device.type != "cpu":
-                refuse_gated_shape("int8", w.shape, x.device)
             y = (x @ w.to(x.dtype)) * params["scales"].to(x.dtype)
         if "bias" in params:
             y = y + params["bias"]

@@ -11,10 +11,10 @@
   `lookup_table` [q_out, 16] (the 12 quarter-integer E8P values: a
   lossless re-encoding), multiplied by K16 on f32 activations with
   Wscale folded into the table; elsewhere int8 quarter-integer codes
-  `weight` [q_in, q_out], multiplied in plain torch, `xr @ (w * 0.25 *
-  Wscale)`, on the CPU only. (The JAX package gates its K17 call on the
-  same shape predicate, so that form never reaches K17 there either; on
-  the card `ModelConfig` refuses it.)
+  `weight` [q_in, q_out], multiplied in plain torch in f32, `xr @ (w *
+  0.25 * Wscale)`, on the CPU and on the card. (The JAX package gates
+  its K17 call on the same shape predicate, so that form never reaches
+  K17 there either.)
 - The Hadamard transforms (the iterative FWHT butterfly in Sylvester
   order, with an optional non-power-of-two factor `had_left` /
   `had_right`) are plain torch ops, as XLA runs them in the reference.
@@ -28,7 +28,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from aphrodite_tpu_torch.common.config import refuse_gated_shape
 from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
 from aphrodite_tpu_torch.modeling.layers.quantization.base_config import (
     QuantizationConfig)
@@ -174,14 +173,6 @@ class QuipConfig(QuantizationConfig):
     def get_linear_method(self) -> "QuipLinearMethod":
         return QuipLinearMethod(self)
 
-    def supports(self, in_features: int, out_features: int) -> bool:
-        """Whether the layer takes the 4-bit LUT form, which K16 runs (the
-        int8 form never reaches a kernel): its transform shape (q_in,
-        q_out) passes K16's gate."""
-        return qmm.squeezellm_supported(
-            get_hadK(in_features, self.use_rand)[2],
-            get_hadK(out_features, self.use_rand)[2])
-
 
 def _pad_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
@@ -286,14 +277,9 @@ class QuipLinearMethod(LinearMethod):
                 out = qmm.squeezellm_matmul(xr.contiguous(), qw,
                                             lut.float().contiguous())
             else:
-                if x.device.type != "cpu":
-                    refuse_gated_shape("QuIP#", (q_in, q_out), x.device)
                 out = xr @ qmm.squeezellm_dequantize_plain(
                     qw, lut, torch.float32)
         elif w.dtype == torch.int8:
-            if x.device.type != "cpu":
-                refuse_gated_shape("QuIP#'s int8 form", (q_in, q_out),
-                                   x.device)
             out = xr @ (w.float() * (0.25 * ws))
         else:
             out = (xr * ws) @ w.float()

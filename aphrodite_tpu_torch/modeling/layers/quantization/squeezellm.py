@@ -7,11 +7,11 @@ Checkpoint layout, kept as it is on the device:
 
 Dequant: w[i, j] = lookup_table[j, q[i, j]]. Every matmul goes through
 K16 (`ops/cuda/quant_matmul.squeezellm_matmul`; its plain version for CPU
-tensors) where its gate takes the layer's shape.
+tensors, its bf16 or f32 decoders for bfloat16 or float32 activations on
+the card) where its gate takes the layer's shape.
 APHRODITE_DISABLE_PALLAS_QUANT=1 (read per call, as in the JAX package)
-and, on the CPU only, a shape the gate refuses take the JAX package's
-dequantize-then-matmul route; on the card `ModelConfig` refuses such a
-shape and `apply` refuses it too.
+and a shape the gate refuses take the JAX package's dequantize-then-
+matmul route in x's dtype.
 """
 from __future__ import annotations
 
@@ -20,10 +20,9 @@ from typing import Any, Dict
 import torch
 
 from aphrodite_tpu_torch.common import flags
-from aphrodite_tpu_torch.common.config import refuse_gated_shape
 from aphrodite_tpu_torch.modeling.layers.linear import LinearMethod
 from aphrodite_tpu_torch.modeling.layers.quantization.base_config import (
-    QuantizationConfig)
+    QuantizationConfig, kernel_takes_dtype)
 from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
 
 
@@ -46,10 +45,6 @@ class SqueezeLLMConfig(QuantizationConfig):
 
     def get_linear_method(self) -> "SqueezeLLMLinearMethod":
         return SqueezeLLMLinearMethod(self)
-
-    def supports(self, in_features: int, out_features: int) -> bool:
-        """Whether K16 takes a layer of this shape."""
-        return qmm.squeezellm_supported(in_features, out_features)
 
 
 class SqueezeLLMLinearMethod(LinearMethod):
@@ -86,16 +81,14 @@ class SqueezeLLMLinearMethod(LinearMethod):
         out_features = params["lookup_table"].shape[0]
         if flags.get_bool("APHRODITE_DISABLE_PALLAS_QUANT"):
             y = x @ self.dequantize(params, x.dtype)
-        elif qmm.squeezellm_supported(in_features, out_features):
+        elif qmm.squeezellm_supported(in_features, out_features) and \
+                kernel_takes_dtype(x, (torch.bfloat16, torch.float32)):
             lead = x.shape[:-1]
             y = qmm.squeezellm_matmul(
                 x.reshape(-1, in_features).contiguous(), qweight,
                 params["lookup_table"])
             y = y.reshape(*lead, out_features)
         else:
-            if x.device.type != "cpu":
-                refuse_gated_shape("SqueezeLLM",
-                                   (in_features, out_features), x.device)
             y = x @ self.dequantize(params, x.dtype)
         if "bias" in params:
             y = y + params["bias"]

@@ -423,7 +423,51 @@ Phases, in order; any failure exits non-zero:
    codes, biases after the kernel) through K6 and K7 against its plain
    path, with two controls; (d) (b)'s engine profiled: a batch-8 decode
    step against the weights' bytes bound, and a 2048-row prompt round.
-21. Prints the kernel JSON line (launches summed over every path
+21. The quantized fallback route (`modeling/layers/quantization/*`:
+   dequantize, then matmul, in plain torch; no hand kernel, as the JAX
+   package runs it through XLA) for the layers the kernels' gates
+   refuse and for float32 activations, chosen per layer before any
+   launch:
+   (a) at Mistral-7B's four projections, m 1, 8, 64 and 2048: GPTQ
+   4-bit group 32 with an act-order g_idx (a seeded permutation of
+   arange(K) // 32), GPTQ 2-bit group 128 and AWQ group 64, random codes
+   and zeros, scales in [0.002, 0.022); the engine's own `apply` on the
+   card against a float64 dequantize-and-matmul on the card from the
+   same codes (this script's own unpacking; the weight rounded to bf16,
+   as the route and the JAX package's `dequantize` round it), phase 8's
+   tolerance; a
+   control, GPTQ's g_idx rolled by one group or AWQ's zero rows shifted
+   by one group, must miss it; no quantized wrapper may launch. Timed
+   as phase 8 beside the group-128 kernel route at the same shape (K7 at
+   m <= 64, K6 / K10 above) and torch.matmul over the weight
+   dequantized beforehand.
+   (b) GPTQ act-order (the quantize_config of TheBloke/Mistral-7B-v0.1-
+   GPTQ's gptq-4bit-32g-actorder_True branch: 4 bits, group 32,
+   desc_act, sym) at Mistral-7B width and depth, bf16, dummy weights
+   from seed 0, each layer's g_idx then made act-order as in (a):
+   phase 4's mix at multi_step 1 (W4A16); every request finishes, K1,
+   K2 and K4 launch, no K6-K9; a batch-8 decode step and a 2048-row
+   prompt round profiled (wall and device ms, the fallback's share
+   inside a torch.profiler range "quant_fallback", peak memory).
+   (c) A 2-layer GPTQ Llama at Mistral-7B width (4 bits, group 128, no
+   act-order, g_idx = arange(K) // 128): teacher-forced logits at 99
+   positions (a 96-row prompt, every row, then 3 decode steps) with
+   APHRODITE_DISABLE_PALLAS_QUANT=0 (K6 8 and K7 24 launches) and =1
+   (the fallback, none) within ROUTE_BOUND (2e-2) of max |logit|; the
+   fallback with g_idx rolled by one group must miss it.
+   (d) Qwen2-7B (phase 20's published config, 28 layers) with
+   Qwen/Qwen2-7B-Instruct-AWQ's quantization_config (4 bits, group 128,
+   zero point, gemm), bf16, dummy weights from seed 0: each projection's
+   route logged (gate_up on the kernels, qkv, o and down on the
+   fallback); phase 4's mix at multi_step 1 (W4A16), K7's AWQ layout and
+   K10 launching once a layer every engine step and no other quantized
+   kernel; a batch-8 decode step profiled.
+   (e) GGUF q8_0, q6_k and q4_k buckets, SqueezeLLM and int8 at in 384,
+   QuIP#'s int8 form at hidden 128 (bf16), and float32 GPTQ, AWQ, GGUF
+   q8_0 and int8 at shapes their gates take: `apply` on the card against
+   the same `apply` on the CPU at m 1, 5 and 72 (bf16: phase 8's
+   tolerance; f32: 1e-4 of max |CPU|), no quantized wrapper launching.
+22. Prints the kernel JSON line (launches summed over every path
    above), the card line, and last {"ok": true, "device": {...}}.
 
 No earlier phase is cut in depth for time (PERF.md has the run's
@@ -5092,6 +5136,621 @@ def run_arch_phase(torch, counters, card: str, only: str = "abc"):
     return by_path, seconds
 
 
+# ---------------------------------------------- the fallback route (21) --
+
+# The counters of every quantized matmul wrapper and of K9.
+QUANT_COUNTERS = ("gptq_matmul", "gptq_matmul_stream", "gptq_matmul_a8",
+                  "gptq_matmul_stream_a8", "quantize_activations_int8",
+                  "awq_matmul", "awq_matmul_stream", "awq_matmul_a8",
+                  "awq_matmul_stream_a8") + GGUF_MATMULS + GGUF_GEMMS + \
+    LATE_MATMULS + tuple(LATE_GEMMS.values())
+FALLBACK_MS = (1, 8, 64, 2048)
+# Phase 21 (c)'s bound on |fallback - kernels| over max |logit|: both
+# routes round the same dequantized weight to bf16 ((q - z) s in f32,
+# then rounded) and sum its products in f32, in another order; each
+# projection's bf16 output may then round to a neighbouring value (2^-8
+# relative), and 2 layers carry such steps to the logits. 2e-2 is about
+# five bf16 ulps of the largest logit, the bound phase 3 holds the
+# kernel path to against the plain one for the same reason.
+ROUTE_BOUND = 2e-2
+# The quantize_config of TheBloke/Mistral-7B-v0.1-GPTQ's
+# gptq-4bit-32g-actorder_True branch.
+GPTQ_ACT_ORDER = {"quant_method": "gptq", "bits": 4, "group_size": 32,
+                  "desc_act": True, "sym": True}
+# The quantization_config of Qwen/Qwen2-7B-Instruct-AWQ.
+QWEN2_AWQ = {"quant_method": "awq", "bits": 4, "group_size": 128,
+             "zero_point": True, "version": "gemm"}
+
+
+def act_order_g_idx(torch, K: int, gs: int, gen):
+    """A seeded act-order assignment: a permutation of arange(K) // gs on
+    the card, so every group holds exactly gs rows."""
+    groups = torch.arange(K, device="cuda", dtype=torch.int32) // gs
+    return groups[torch.randperm(K, generator=gen, device="cuda")]
+
+
+def unpacked_f64(torch, words, bits: int, along_rows: bool, awq=False):
+    """int32 words -> their codes as float64 on the card (this script's
+    own unpacking, beside the port's): GPTQ codes along rows (qweight) or
+    columns (qzeros), 32 // bits a word, code p at shift p * bits; AWQ
+    columns 8j + e at shift 4 * AWQ_ORDER[e]."""
+    w = words.long()
+    if awq:
+        shifts = torch.tensor([4 * p for p in (0, 4, 1, 5, 2, 6, 3, 7)],
+                              device=w.device)
+    else:
+        shifts = torch.arange(32 // bits, device=w.device) * bits
+    mask = (1 << (4 if awq else bits)) - 1
+    if along_rows:
+        codes = (w[:, None, :] >> shifts[None, :, None]) & mask
+        return codes.reshape(-1, w.shape[1]).double()
+    codes = (w[:, :, None] >> shifts[None, None, :]) & mask
+    return codes.reshape(w.shape[0], -1).double()
+
+
+def f64_weight(torch, arm: str, params, bits: int, gs: int):
+    """The layer's weight [K, N] in float64 from its codes: GPTQ rows in
+    groups g_idx (zeros stored minus one), AWQ rows in groups k // gs.
+    Every entry (q - z) s is exact in f32 (a code difference of at most
+    5 bits times a bf16 scale)."""
+    if arm == "awq":
+        q = unpacked_f64(torch, params["qweight"], 4, False, awq=True)
+        z = unpacked_f64(torch, params["qzeros"], 4, False, awq=True)
+        g = torch.arange(q.shape[0], device=q.device) // gs
+    else:
+        q = unpacked_f64(torch, params["qweight"], bits, True)
+        z = unpacked_f64(torch, params["qzeros"], bits, False) + 1
+        g = params["g_idx"].long()
+    return (q - z[g]) * params["scales"].double()[g]
+
+
+def fallback_arms(torch):
+    """(label, method, bits, group, params builder) of phase 21 (a)'s
+    three arms; the builder takes (K, N, seed) and returns the layer's
+    parameters on the card: random codes and zeros, scales in [0.002,
+    0.022) (`quant_weights`), and for GPTQ g_idx (an act-order
+    assignment for the group-32 arm, arange(K) // 128 for 2 bits)."""
+    from aphrodite_tpu_torch.modeling.layers.quantization.awq import (
+        AWQConfig)
+    from aphrodite_tpu_torch.modeling.layers.quantization.gptq import (
+        GPTQConfig)
+
+    def gptq(bits, gs, desc_act):
+        def build(K, N, seed):
+            qw, qz, sc = quant_weights(torch, K, N, bits, seed, False, gs)
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            g_idx = act_order_g_idx(torch, K, gs, gen) if desc_act else \
+                torch.arange(K, device="cuda", dtype=torch.int32) // gs
+            return {"qweight": qw, "qzeros": qz, "scales": sc,
+                    "g_idx": g_idx}
+        return GPTQConfig(bits, gs, desc_act).get_linear_method(), build
+
+    def awq(gs):
+        def build(K, N, seed):
+            qw, qz, sc = quant_weights(torch, K, N, 4, seed, True, gs)
+            return {"qweight": qw, "qzeros": qz, "scales": sc}
+        return AWQConfig(4, gs).get_linear_method(), build
+    return (("GPTQ 4-bit g32 act-order", "gptq", 4, 32) + gptq(4, 32, True),
+            ("GPTQ 2-bit g128", "gptq", 2, 128) + gptq(2, 128, False),
+            ("AWQ g64", "awq", 4, 64) + awq(64))
+
+
+def fallback_control(torch, arm: str, params, gs: int):
+    """The wrong parameters a control feeds the fallback: GPTQ's g_idx
+    rolled by one group of rows, AWQ's zero rows shifted by one group."""
+    if arm == "awq":
+        return dict(params, qzeros=torch.roll(params["qzeros"], 1, 0))
+    return dict(params, g_idx=torch.roll(params["g_idx"], gs))
+
+
+def check_and_time_fallback(torch, timer, counters, card: str):
+    """Phase 21 (a): each arm of `fallback_arms` at Mistral-7B's four
+    projections, m 1, 8, 64 and 2048, through the engine's own `apply`
+    on the card (the fallback: the gates refuse act-order, 2 bits and
+    groups of 64) against a float64 dequantize-and-matmul on the card
+    from the same codes (`f64_weight`, rounded to bf16 as the route's
+    weight is), within phase 8's tolerance; its
+    control (`fallback_control`) must miss it. No quantized wrapper may
+    launch. Timed as phase 8 (median of 20, L2 flushed, host time held
+    out) beside the group-128 4-bit kernel route of the same layout at
+    the same shape (its `apply`: K7 at m <= 64, K6 / K10 above) and
+    torch.matmul over the weight dequantized beforehand. Returns the
+    times {(arm, proj, m): (fallback, kernel, matmul)} in ms."""
+    from aphrodite_tpu_torch.modeling.layers.quantization.awq import (
+        AWQConfig)
+    from aphrodite_tpu_torch.modeling.layers.quantization.gptq import (
+        GPTQConfig)
+    os.environ["APHRODITE_W4A8"] = "0"
+    times, worst, unrounded = {}, {}, {}
+    try:
+        for a, (label, arm, bits, gs, method, build) in enumerate(
+                fallback_arms(torch)):
+            kmethod = (AWQConfig(4, GPTQ_GS) if arm == "awq" else
+                       GPTQConfig(4, GPTQ_GS)).get_linear_method()
+            for p, (proj, K, N) in enumerate(GPTQ_PROJ):
+                params = build(K, N, 500 + 10 * a + p)
+                kq = quant_weights(torch, K, N, 4, 600 + 10 * a + p,
+                                   arm == "awq")
+                kparams = dict(zip(("qweight", "qzeros", "scales"), kq))
+                if arm != "awq":
+                    kparams["g_idx"] = torch.arange(
+                        K, device="cuda", dtype=torch.int32) // GPTQ_GS
+                # The route's weight is the dequantized one rounded to
+                # x's dtype, as the JAX package's `dequantize(params,
+                # x.dtype)` defines it: the reference rounds it the same
+                # way and takes the products and sums in float64.
+                # Against the unrounded weight (logged, not held) the
+                # bf16 rounding of W alone misses phase 8's tolerance.
+                exact = f64_weight(torch, arm, params, bits, gs)
+                w64 = exact.to(torch.bfloat16).double()
+                bad = fallback_control(torch, arm, params, gs)
+                w16 = method.dequantize(params, torch.bfloat16)
+                gen = torch.Generator(device="cuda").manual_seed(700 + p)
+                x_all = torch.randn(max(FALLBACK_MS), K, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                for m in FALLBACK_MS:
+                    x = x_all[:m]
+                    for c in counters.values():
+                        c.reset()
+                    got = method.apply(params, x)
+                    ref = (x.double() @ w64).float()
+                    err = check_close(torch, got, ref,
+                                      f"fallback {label} {proj} m={m}")
+                    worst[label] = max(worst.get(label, 0.0), err)
+                    unrounded[label] = max(unrounded.get(label, 0.0), (
+                        got.double() - x.double() @ exact).abs().max().item())
+                    miss = (method.apply(bad, x).float() - ref).abs()
+                    if not bool((miss > ATOL + RTOL * ref.abs()).any()):
+                        fail(f"fallback {label} {proj} m={m}: the control "
+                             "is within tolerance of the f64 reference")
+                    launched = {n: counters[n].count for n in QUANT_COUNTERS
+                                if counters[n].count}
+                    if launched:
+                        fail(f"fallback {label} {proj} m={m}: quantized "
+                             f"wrappers launched {launched}")
+                    if not kmethod.uses_kernels(kparams, x):
+                        fail(f"fallback {label} {proj}: the group-128 "
+                             "comparison layer does not take the kernels")
+                    times[(label, proj, m)] = (
+                        timer(lambda: method.apply(params, x)),
+                        timer(lambda: kmethod.apply(kparams, x)),
+                        timer(lambda: x @ w16))
+                del w64, exact, w16, x_all
+                torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("APHRODITE_W4A8")
+    log(f"phase 21 (a) fallback route vs float64 over the bf16 weight on "
+        f"{card}: max err {json.dumps(worst)} (tolerance {ATOL} + "
+        f"{RTOL}|ref|); against float64 over the unrounded weight (a "
+        f"reading, not held) {json.dumps(unrounded)}; every control (GPTQ "
+        "g_idx rolled by one group, AWQ zeros shifted by one group) "
+        "missed; no quantized wrapper launched")
+    for (label, proj, m), (fb, kr, mm) in times.items():
+        log(f"fallback {label} {proj} m={m}: fallback {fb:.4f} ms, "
+            f"group-128 kernel route {kr:.4f} ms, torch.matmul over the "
+            f"dequantized weight {mm:.4f} ms ({fb / kr:.1f}x the kernel "
+            f"route) on {card}")
+    for label in worst:
+        for m in FALLBACK_MS:
+            fb, kr, mm = (sum(times[(label, proj, m)][i]
+                              for proj, _, _ in GPTQ_PROJ) for i in range(3))
+            log(f"fallback {label}, one layer's four projections at m={m}: "
+                f"fallback {fb:.4f} ms, kernel route {kr:.4f} ms, "
+                f"torch.matmul {mm:.4f} ms on {card}")
+    return times
+
+
+@contextlib.contextmanager
+def fallback_scope(torch):
+    """Every GPTQ and AWQ `apply` that takes the dequantize route inside a
+    torch.profiler range "quant_fallback" (the kernel route outside)."""
+    from aphrodite_tpu_torch.modeling.layers.quantization import awq, gptq
+    classes = (gptq.GPTQLinearMethod, awq.AWQLinearMethod)
+    real = {cls: cls.apply for cls in classes}
+
+    def scoped(real_apply):
+        def apply(self, params, x):
+            if self.uses_kernels(params, x):
+                return real_apply(self, params, x)
+            with torch.profiler.record_function("quant_fallback"):
+                return real_apply(self, params, x)
+        return apply
+    for cls in classes:
+        cls.apply = scoped(real[cls])
+    try:
+        yield
+    finally:
+        for cls in classes:
+            cls.apply = real[cls]
+
+
+def profile_fallback_engine(torch, engine, tag: str, card: str,
+                            width: str, prompt: bool = True):
+    """A batch-8 decode step (and with `prompt` a 2048-row prompt round)
+    of a fallback engine under torch.profiler: wall and device ms, the
+    dequantize route's share (`fallback_scope`) and peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    with fallback_scope(torch):
+        wall, dev = profile_decode(torch, engine, tag, width=width,
+                                   scopes=("quant_fallback",))
+        out = {"decode_wall_ms": wall, "decode_device_ms": dev}
+        if prompt:
+            rows, steps, scoped = _profiled_prompt_round(
+                torch, engine, tag, scopes=("quant_fallback",))
+            dev_ms = sum(us for us, _, _ in rows) / 1e3
+            log(f"{tag}prompt round, 4 x 512 tokens at {width}: {steps} "
+                f"engine step(s), device kernels {dev_ms:.3f} ms, of which "
+                f"the dequantize route {scoped['quant_fallback']:.3f} ms "
+                f"(share {scoped['quant_fallback'] / dev_ms:.3f}) on {card}")
+            out.update(prompt_device_ms=dev_ms,
+                       prompt_fallback_ms=scoped["quant_fallback"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{tag}peak memory {peak:.2f} GiB over the profiles on {card}")
+    return out
+
+
+def quant_config_dir(name: str, cfg: dict, quant: dict) -> str:
+    path = os.path.join(HERE, "build", f"chip_smoke_{name}")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(cfg, quantization_config=quant), f)
+    return path
+
+
+def run_act_order_engine(torch, counters, card: str, layers: int):
+    """Phase 21 (b): GPTQ_ACT_ORDER over MISTRAL_7B (its width, `layers`
+    layers), bf16, dummy weights from seed 0, every layer's g_idx then
+    overwritten with an act-order assignment; phase 4's mix at
+    multi_step 1 (W4A16): every request finishes, K1, K2 and K4 launch,
+    no GPTQ kernel nor K9 does; then profiled. Returns the launches."""
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    path = quant_config_dir("gptq_actorder", dict(
+        MISTRAL_7B, num_hidden_layers=layers), GPTQ_ACT_ORDER)
+    t0 = time.perf_counter()
+    engine = AphroditeEngine.from_engine_args(EngineArgs(
+        model=path, load_format="dummy", dtype="bfloat16", seed=0,
+        block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+        disable_log_stats=True))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = 0
+    for bucket in engine.executor.params.values():
+        if "g_idx" in bucket:
+            bucket["g_idx"].copy_(act_order_g_idx(
+                torch, bucket["g_idx"].shape[0], 32, gen))
+            n += 1
+    log(f"GPTQ act-order engine ({layers} layers, group 32, desc_act) up in "
+        f"{time.perf_counter() - t0:.1f} s: {n} layers' g_idx made "
+        f"act-order, {engine.cache_config.num_gpu_blocks} KV pages of 32 "
+        f"tokens, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"on {card}")
+    os.environ["APHRODITE_W4A8"] = "0"
+    try:
+        launches = run_engine(torch, engine, 1, counters, card,
+                              required=("paged_decode_attention",
+                                        "write_kv_pages_prefill",
+                                        "write_kv_pages"),
+                              absent=QUANT_COUNTERS, tag="GPTQ act-order ")
+        profile = profile_fallback_engine(
+            torch, engine, "GPTQ act-order ", card,
+            f"Mistral-7B width, {layers} layers")
+    finally:
+        os.environ.pop("APHRODITE_W4A8")
+    del engine
+    free_engine(torch, "GPTQ act-order")
+    return launches, profile
+
+
+def forced_logits(torch, model, params, tokens, prompt_len: int):
+    """Teacher-forced logits of `model` at every position of `tokens`: a
+    prompt of its first `prompt_len` tokens (every row's logits), then
+    one decode step a further token, fed that token; [len(tokens),
+    vocab] in f32."""
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.common.sequence import (SequenceData,
+                                                     SequenceGroupMetadata)
+    from aphrodite_tpu_torch.executor.model_runner import ModelRunner
+    cfg = model.config
+    dev = torch.device("cuda")
+
+    class _Cfg:
+        def get_vocab_size(self):
+            return cfg.vocab_size
+
+        def get_sliding_window(self):
+            return None
+    page_size, num_pages = 32, 16
+    runner = ModelRunner(model, params, _Cfg(), None, page_size,
+                         num_pages * page_size, dev)
+    kv = [(torch.zeros(num_pages, page_size, width, dtype=torch.bfloat16,
+                       device=dev),
+           torch.zeros(num_pages, page_size, width, dtype=torch.bfloat16,
+                       device=dev)) for width in kv_row_widths(model)]
+    table = [3, 9, 4, 12]
+    rows = []
+    for n in range(prompt_len - 1, len(tokens)):
+        prompt = n == prompt_len - 1
+        data = SequenceData(list(tokens[:n + 1]) if prompt
+                            else list(tokens[:n]))
+        if not prompt:
+            data.append_token_id(tokens[n], 0.0)
+        md = SequenceGroupMetadata("0", prompt, {0: data},
+                                   SamplingParams(temperature=0.0),
+                                   {0: table}, {0: {}})
+        inputs, _ = (runner._prepare_prompt([md]) if prompt
+                     else runner._prepare_decode([md]))
+        meta = inputs["metadata"].replace(is_prompt=prompt)
+        sel = torch.arange(prompt_len, device=dev) if prompt \
+            else inputs["sel"]
+        logits, kv = runner._logits(params, inputs["input_ids"],
+                                    inputs["positions"], kv, meta, sel)
+        rows.append(logits[:prompt_len if prompt else 1].float())
+    torch.cuda.synchronize()
+    return torch.cat(rows)
+
+
+def check_route_agreement(torch, counters, card: str):
+    """Phase 21 (c): a 2-layer GPTQ Llama at Mistral-7B width (4 bits,
+    group 128, no act-order, g_idx = arange(K) // 128 as real desc_act
+    False checkpoints store it; random codes and zeros, scales in [3e-3,
+    6e-3), other weights U(-0.05, 0.05), norms 1): teacher-forced logits
+    along 99 fixed tokens (a 96-row prompt, every row, then 3 decode
+    steps) with APHRODITE_DISABLE_PALLAS_QUANT=0 (K6 and K7) and =1 (the
+    fallback) within ROUTE_BOUND of max |logit|; the fallback with every
+    g_idx rolled by one group must miss it."""
+    from aphrodite_tpu_torch.modeling.layers.quantization.gptq import (
+        GPTQConfig)
+    from aphrodite_tpu_torch.modeling.models.llama import LlamaForCausalLM
+    from aphrodite_tpu_torch.transformers_utils.config import (
+        config_from_dict)
+    cfg = config_from_dict(dict(MISTRAL_7B, num_hidden_layers=2))
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+                             linear_method=GPTQConfig(
+                                 4, GPTQ_GS).get_linear_method())
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(91)
+    params = model.init_params(dev)
+    for key, bucket in params.items():
+        for name, t in bucket.items():
+            if key.endswith("norm"):
+                t.fill_(1.0)
+            elif name in ("qweight", "qzeros"):
+                t.random_(-2 ** 31, 2 ** 31, generator=gen)
+            elif name == "scales":
+                t.copy_(torch.rand(t.shape, generator=gen, device=dev) *
+                        3e-3 + 3e-3)
+            elif name == "g_idx":
+                t.copy_(torch.arange(t.numel(), device=dev) // GPTQ_GS)
+            else:
+                t.uniform_(-0.05, 0.05, generator=gen)
+    rolled = {key: (dict(bucket, g_idx=torch.roll(bucket["g_idx"], GPTQ_GS))
+                    if "g_idx" in bucket else bucket)
+              for key, bucket in params.items()}
+    tokens = [(i * 37 + 11) % 32000 for i in range(99)]
+    runs = {}
+    os.environ["APHRODITE_W4A8"] = "0"
+    try:
+        for label, flag, p in (("kernels", "0", params),
+                               ("fallback", "1", params),
+                               ("fallback, g_idx rolled", "1", rolled)):
+            os.environ["APHRODITE_DISABLE_PALLAS_QUANT"] = flag
+            for c in counters.values():
+                c.reset()
+            runs[label] = forced_logits(torch, model, p, tokens, 96)
+            runs[label + " launches"] = (counters["gptq_matmul"].count,
+                                         counters["gptq_matmul_stream"].count)
+    finally:
+        os.environ.pop("APHRODITE_DISABLE_PALLAS_QUANT")
+        os.environ.pop("APHRODITE_W4A8")
+    # Kernel route: 4 projections x 2 layers in the prompt (K6) and in
+    # each of 3 decode steps (K7); the fallback none.
+    if runs["kernels launches"] != (8, 24) or \
+            runs["fallback launches"] != (0, 0):
+        fail(f"phase 21 (c): K6 / K7 launches {runs['kernels launches']} "
+             f"(kernels) and {runs['fallback launches']} (fallback), not "
+             "(8, 24) and (0, 0)")
+    want = runs["kernels"]
+    scale = want.abs().max().item()
+    rel = (runs["fallback"] - want).abs().max().item() / scale
+    ctl = (runs["fallback, g_idx rolled"] - want).abs().max().item() / scale
+    same = int((runs["fallback"].argmax(-1) == want.argmax(-1)).sum())
+    log(f"phase 21 (c) route agreement at Mistral-7B width, 2 layers, 99 "
+        f"teacher-forced positions on {card}: fallback vs kernels max "
+        f"|diff| {rel:.3e} of max |logit| {scale:.3f} (bound {ROUTE_BOUND}); "
+        f"argmax equal at {same} of {want.shape[0]}; control, g_idx rolled "
+        f"by one group: {ctl:.3e} (must exceed the bound)")
+    if not torch.isfinite(runs["fallback"]).all() or rel > ROUTE_BOUND:
+        fail(f"phase 21 (c): the routes differ by {rel} of max |logit|")
+    if ctl <= ROUTE_BOUND:
+        fail(f"phase 21 (c): the comparison cannot see g_idx rolled by one "
+             f"group: {ctl} <= {ROUTE_BOUND}")
+    del model, params, rolled
+    free_engine(torch, "phase 21 (c) 2-layer")
+
+
+def run_qwen2_awq_engine(torch, counters, card: str, layers: int):
+    """Phase 21 (d): QWEN2_7B (`layers` layers) with QWEN2_AWQ, bf16,
+    dummy weights from seed 0, phase 4's mix at multi_step 1 under W4A16:
+    every request finishes; gate_up (out 37888, a multiple of 1024) runs
+    K7's AWQ layout or K10, once a layer every engine step; qkv (4608), o
+    and down (3584) take the fallback; no K9, no AWQ a8 arm, no GPTQ
+    kernel. Logs each projection's route; profiles a batch-8 decode step.
+    Returns the launches."""
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    from aphrodite_tpu_torch.modeling.layers.quantization import (
+        get_quantization_config)
+    path = quant_config_dir("qwen2_awq", cut_layers(QWEN2_7B, layers),
+                            QWEN2_AWQ)
+    t0 = time.perf_counter()
+    engine = AphroditeEngine.from_engine_args(EngineArgs(
+        model=path, load_format="dummy", dtype="bfloat16", seed=0,
+        block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+        disable_log_stats=True))
+    method = get_quantization_config(engine.model_config).get_linear_method()
+    x = torch.zeros(1, 1, dtype=torch.bfloat16, device="cuda")
+    routes = {key.rsplit(".", 1)[-1]: (
+        tuple(bucket["scales"].shape), "kernels"
+        if method.uses_kernels(bucket, x) else "fallback")
+        for key, bucket in engine.executor.params.items()
+        if key.startswith("model.layers.0.") and "qweight" in bucket}
+    log(f"Qwen2-7B-AWQ engine ({layers} layers) up in "
+        f"{time.perf_counter() - t0:.1f} s on {card}: layer 0's routes "
+        f"(scales shape, route) {routes}; "
+        f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens")
+    want = {"qkv_proj": "fallback", "o_proj": "fallback",
+            "gate_up_proj": "kernels", "down_proj": "fallback"}
+    if {k: r for k, (_, r) in routes.items()} != want:
+        fail(f"Qwen2-7B-AWQ: routes {routes}, expected {want}")
+    gate_up = ("awq_matmul", "awq_matmul_stream")
+    os.environ["APHRODITE_W4A8"] = "0"
+    try:
+        launches = run_engine(
+            torch, engine, 1, counters, card, tag="Qwen2-7B-AWQ ",
+            required=("paged_decode_attention", "write_kv_pages_prefill")
+            + gate_up, absent=tuple(n for n in QUANT_COUNTERS
+                                    if n not in gate_up),
+            per_step=(gate_up, layers), vocab=QWEN2_7B["vocab_size"])
+        profile = profile_fallback_engine(
+            torch, engine, "Qwen2-7B-AWQ ", card,
+            f"Qwen2-7B width, {layers} layers", prompt=False)
+    finally:
+        os.environ.pop("APHRODITE_W4A8")
+    del engine
+    free_engine(torch, "Qwen2-7B-AWQ")
+    return launches, profile
+
+
+def other_format_layers(torch):
+    """Phase 21 (e)'s layers [(label, in, linear method, params on the
+    CPU, activation dtype)] and the generator for their x. bf16 at
+    shapes a gate refuses: GGUF q8_0, q6_k and q4_k buckets at in 384,
+    SqueezeLLM and int8 at 384 x 384, QuIP#'s int8 form at hidden 128;
+    float32 at shapes the gates take (the kernels take bf16 only): GPTQ,
+    AWQ, GGUF q8_0 and int8."""
+    from aphrodite_tpu_torch.modeling.layers.quantization import (
+        get_quantization_config_cls)
+    from aphrodite_tpu_torch.modeling.layers.quantization.quip import (
+        QuipConfig)
+    gen = torch.Generator().manual_seed(21)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int64).to(torch.int8)
+
+    def unit(*shape, lo=1e-3, hi=4e-3, dtype=bf):
+        return (torch.rand(*shape, generator=gen) * (hi - lo) + lo).to(dtype)
+
+    def method(name):
+        return get_quantization_config_cls(name).default().get_linear_method()
+    layers = [
+        ("GGUF q8_0 (384, 256) bf16", 384, method("gguf"),
+         {"qs": i8(384, 256), "d": unit(12, 256)}, bf),
+        ("GGUF q6_k (384, 256) bf16", 384, method("gguf"),
+         {"qs": i8(384, 256), "d16": unit(24, 256)}, bf),
+        ("GGUF q4_k (384, 256) bf16", 384, method("gguf"),
+         {"qweight": words(48, 256), "dl": unit(12, 256),
+          "ml": unit(12, 256, lo=8e-3, hi=3.2e-2)}, bf),
+        ("SqueezeLLM (384, 384) bf16", 384, method("squeezellm"),
+         {"qweight": words(48, 384),
+          "lookup_table": (torch.randn(384, 16, generator=gen) * 0.02
+                           ).to(bf)}, bf),
+        ("int8 (384, 384) bf16", 384, method("int8"),
+         {"weight": i8(384, 384), "scales": unit(384, lo=1e-4, hi=5e-4,
+                                                  dtype=f32)}, bf),
+        ("QuIP# int8 form (128, 128) bf16", 128,
+         QuipConfig().get_linear_method(),
+         {"weight": (torch.randint(0, 12, (128, 128), generator=gen) * 2
+                     - 11).to(torch.int8),
+          "Wscale": torch.tensor(0.05), "SU": (torch.randint(
+              0, 2, (128,), generator=gen) * 2 - 1).to(bf),
+          "SV": (torch.randint(0, 2, (128,), generator=gen) * 2 - 1
+                 ).to(bf)}, bf),
+        ("GPTQ 4-bit g128 (1024, 1024) f32", 1024, method("gptq"),
+         {"qweight": words(128, 1024), "qzeros": words(8, 128),
+          "scales": unit(8, 1024, lo=2e-3, hi=2.2e-2, dtype=f32),
+          "g_idx": torch.arange(1024, dtype=torch.int32) // 128}, f32),
+        ("AWQ g128 (1024, 1024) f32", 1024, method("awq"),
+         {"qweight": words(1024, 128), "qzeros": words(8, 128),
+          "scales": unit(8, 1024, lo=2e-3, hi=2.2e-2, dtype=f32)}, f32),
+        ("GGUF q8_0 (1024, 1024) f32", 1024, method("gguf"),
+         {"qs": i8(1024, 1024), "d": unit(32, 1024, dtype=f32)}, f32),
+        ("int8 (1024, 1024) f32", 1024, method("int8"),
+         {"weight": i8(1024, 1024),
+          "scales": unit(1024, lo=1e-4, hi=5e-4, dtype=f32)}, f32),
+    ]
+    return layers, gen
+
+
+def check_other_formats(torch, counters, card: str):
+    """Phase 21 (e): each of `other_format_layers` through its method's
+    `apply` on the card against the same `apply` on the CPU at m 1, 5 and
+    72: bf16 within phase 8's tolerance, f32 within 1e-4 of max |CPU|;
+    no quantized wrapper launches (the gates refuse the bf16 shapes, the
+    kernels take no f32 activations)."""
+    worst = {}
+    layers, gen = other_format_layers(torch)
+    for label, K, method, params, dtype in layers:
+        card_params = {n: t.cuda() for n, t in params.items()}
+        for m in (1, 5, 72):
+            x = torch.randn(m, K, generator=gen).to(dtype)
+            for c in counters.values():
+                c.reset()
+            got = method.apply(card_params, x.cuda()).cpu()
+            launched = {n: counters[n].count for n in QUANT_COUNTERS
+                        if counters[n].count}
+            if launched:
+                fail(f"phase 21 (e) {label}: wrappers launched {launched}")
+            want = method.apply(params, x)
+            if got.dtype != dtype or got.shape != want.shape:
+                fail(f"phase 21 (e) {label}: {got.dtype} {tuple(got.shape)}"
+                     f" on the card, {want.dtype} {tuple(want.shape)} on "
+                     "the CPU")
+            if dtype == torch.float32:
+                err = (got - want).abs().max().item() / \
+                    want.abs().max().item()
+                if not math.isfinite(err) or err > F32_RTOL:
+                    fail(f"phase 21 (e) {label} m={m}: {err} of max |CPU| "
+                         f"(tolerance {F32_RTOL})")
+            else:
+                err = check_close(torch, got, want,
+                                  f"phase 21 (e) {label} m={m}")
+            worst[label] = max(worst.get(label, 0.0), err)
+    log(f"phase 21 (e) the other formats' fallback on the card vs the CPU "
+        f"(m 1, 5, 72; bf16 max abs err, f32 max err of max |CPU|) on "
+        f"{card}: {json.dumps(worst)}; no quantized wrapper launched")
+
+
+def run_fallback_phase(torch, counters, card: str, only: str = "abcde",
+                       act_order_layers: int = 32, qwen2_layers: int = 28):
+    """Phase 21's parts named in `only`. Returns (launches by path,
+    seconds by part)."""
+    by_path, seconds = {}, {}
+    timer = Timer(torch)
+    for part in only:
+        t0 = time.perf_counter()
+        if part == "a":
+            check_and_time_fallback(torch, timer, counters, card)
+        elif part == "b":
+            by_path["GPTQ act-order"], _ = run_act_order_engine(
+                torch, counters, card, act_order_layers)
+        elif part == "c":
+            check_route_agreement(torch, counters, card)
+        elif part == "d":
+            by_path["Qwen2-7B-AWQ"], _ = run_qwen2_awq_engine(
+                torch, counters, card, qwen2_layers)
+        elif part == "e":
+            check_other_formats(torch, counters, card)
+        seconds[part] = round(time.perf_counter() - t0, 1)
+    return by_path, seconds
+
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "aphrodite_tpu_torch")):
         print("chip_smoke: aphrodite_tpu_torch/ not found beside this "
@@ -5614,6 +6273,16 @@ def main() -> int:
     by_path.update(arch_paths)
     log(f"other architectures' phase (20) seconds {json.dumps(arch_seconds)};"
         f" the run so far {time.perf_counter() - t_start:.1f} s")
+
+    # 21. The quantized fallback route: act-order, 2-bit and small-group
+    # GPTQ, AWQ off its gate, float32 and the other formats' gated shapes
+    # through dequantize-then-matmul.
+    log_clocks("before the fallback phase (21)")
+    fallback_paths, fallback_seconds = run_fallback_phase(torch, counters,
+                                                          smi)
+    by_path.update(fallback_paths)
+    log(f"fallback phase (21) seconds {json.dumps(fallback_seconds)}; the "
+        f"run so far {time.perf_counter() - t_start:.1f} s")
     launches = {}
     for path in by_path.values():
         for name, n in path.items():

@@ -29,7 +29,7 @@ each block), at tiny widths: 2 layers (DeciLM 3, its KV heads [4, 2,
   port's top-2 logprob gap exceeds 1e-4); GPTQ W4A16 over a tiny Qwen2
   (a local AutoGPTQ checkpoint, biases after the kernel) too.
 - Refusals: each family's `LLM` without `device="cpu"` raises where no
-  card is; explicit float16 names ROADMAP Queue 1 item 2; an OPT whose
+  card is; explicit float16 names ROADMAP Queue 1 item 5; an OPT whose
   word_embed_proj_dim differs from hidden_size is refused, as the JAX
   OPT cannot run it.
 """
@@ -654,8 +654,11 @@ def test_llm_refuses_the_cpu_unless_asked(name, tmp_path):
 
 
 def test_explicit_float16_names_item_2(tmp_path):
+    """Explicit float16 stays refused; its message names its own later
+    slice, ROADMAP.md Queue 1 item 5 (the test keeps the id it had when
+    that was item 2)."""
     path = _write_config(tmp_path, CONFIGS["phi"])
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         EngineArgs(model=path, load_format="dummy", device="cpu",
                    dtype="float16").create_engine_configs()
     # auto maps a float16 checkpoint to bfloat16.

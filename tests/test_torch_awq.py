@@ -11,8 +11,10 @@ of 128, so that every projection's output width is a multiple of 1024
 (dequantize, then matmul) and the port's kernels use the same weight.
 
 - Config: AWQ accepted from `quantization_config` and from
-  `quantization="awq"`; shapes outside the kernels' gate refused naming
-  the later slice; float32 AWQ refused on the card, accepted on the CPU.
+  `quantization="awq"`; shapes outside the kernels' gate accepted too,
+  on the CPU and on the card (those layers take the dequantize-then-
+  matmul route, held to the JAX package in tests/test_torch_fallback.py);
+  float32 AWQ accepted on the card and on the CPU.
 - Dummy init: packed payloads span the int32 range.
 - `AWQLinearMethod.apply` against the JAX `dequantize` then matmul,
   W4A16 and (APHRODITE_W4A8=1) W4A8 against the JAX `apply` on its
@@ -197,27 +199,42 @@ def test_awq_from_the_quantization_argument(tmp_path):
     assert model_config.quantization == "awq"
 
 
-@pytest.mark.parametrize("quant,changes,match", [
+@pytest.mark.parametrize("quant,changes,what", [
     (dict(QUANT, group_size=64), {}, "AWQ group size 64"),
     (QUANT, {"intermediate_size": 1152}, "AWQ group size 128"),
     (QUANT, {"hidden_size": 960, "num_attention_heads": 8,
              "head_dim": 120}, "AWQ group size 128"),
 ])
-def test_out_of_gate_awq_is_refused(tmp_path, quant, changes, match):
-    with pytest.raises(NotImplementedError, match=match) as info:
-        _configs(tmp_path, quant, **changes)
-    assert "later slice" in str(info.value)
-    assert "quantized matmul fallback route" in str(info.value)
+def test_out_of_gate_awq_is_refused(tmp_path, quant, changes, what):
+    """These shapes were refused, naming the quantized matmul fallback
+    route, until the port served it; each case keeps its id and holds
+    what replaced the refusal: the configs build on the CPU and on the
+    card (device "cuda" and "auto"), and the kernels' gate refuses the
+    layer the case names (groups of 64; gate_up out 2304 and down in
+    1152 at intermediate 1152; every projection at hidden 960), which
+    `apply` sends to the dequantize route."""
+    from aphrodite_tpu_torch.modeling.layers.quantization import (
+        get_quantization_config)
+    for device in ("cpu", "cuda", "auto"):
+        model_config = _configs(tmp_path, quant, device=device,
+                                **changes)[0]
+        assert model_config.quantization == "awq"
+    cfg = get_quantization_config(model_config)
+    hidden = changes.get("hidden_size", CONFIG["hidden_size"])
+    inter = changes.get("intermediate_size", CONFIG["intermediate_size"])
+    assert not cfg.supports(hidden, 2 * inter) or \
+        not cfg.supports(hidden, hidden), what
 
 
 @pytest.mark.parametrize("device", ["cuda", "auto"])
 def test_awq_in_float32_on_the_card_is_refused(tmp_path, device):
-    with pytest.raises(NotImplementedError,
-                       match="AWQ in float32 on the CUDA card") as info:
-        _configs(tmp_path, QUANT, device=device, dtype="float32")
-    assert "later slice" in str(info.value)
-    assert _configs(tmp_path, QUANT, device=device,
-                    dtype="bfloat16")[0].dtype == "bfloat16"
+    """float32 AWQ was refused on the card until the fallback route
+    served it; the test keeps its id and holds what replaced the
+    refusal: the configs build on the card in float32 and bfloat16 and
+    on the CPU (on a card a float32 layer takes the dequantize route)."""
+    for dtype in ("float32", "bfloat16"):
+        assert _configs(tmp_path, QUANT, device=device,
+                        dtype=dtype)[0].dtype == dtype
     assert _configs(tmp_path, QUANT, dtype="float32")[0].dtype == "float32"
 
 

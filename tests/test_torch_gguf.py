@@ -1,5 +1,5 @@
 """The port's GGUF path (reader, writer, tokenizer, config, at-rest
-loading, the `gguf` linear method, refusals, engine) against the JAX
+loading, the `gguf` linear method, config, engine) against the JAX
 package, on the CPU.
 
 Every `.gguf` file is written under `tmp_path` with the port's
@@ -35,9 +35,11 @@ draw them and written as raw blocks). Flags are set with monkeypatch.
 - Exact Q4_K (K12): APHRODITE_GGUF_EXACT=1 on a Q4_K file, and a dummy
   load in that form, are served (bf16 on the card); the file's greedy
   tokens equal the JAX engine's.
-- Refusals: float32 GGUF on the card; on the card, a file or dummy load
-  whose buckets a kernel's gate refuses (at config time), and such a
-  bucket off the CPU in `apply`.
+- Served where they were once refused: float32 GGUF on the card, and
+  on the card a file or dummy load whose buckets a kernel's gate refuses
+  (those buckets, and every bucket on a float32 card, take the
+  dequantize route in `apply`, which off the CPU runs on meta tensors
+  here).
 """
 import jax
 import jax.numpy as jnp
@@ -469,24 +471,43 @@ def test_apply_falls_back_only_where_a_gate_refuses(monkeypatch):
     assert calls == {"gguf_q8_matmul": 1, "gguf_q4k_matmul": 1}
 
 
-def test_apply_refuses_a_gated_shape_off_the_cpu():
-    """The dequantize route of a shape a gate refuses runs on the CPU
-    only: off it (meta tensors stand in for the card), `apply` raises
-    before any arithmetic, naming the later slice."""
+def test_apply_refuses_a_gated_shape_off_the_cpu(monkeypatch):
+    """Off the CPU the dequantize route of a shape a gate refuses was
+    refused, naming the later slice, until the port served it; the test
+    keeps its id and holds what replaced the refusal: off the CPU (meta
+    tensors stand in for the card) `apply` dequantizes and multiplies,
+    and returns [.., out] in x's dtype, without calling a kernel
+    wrapper; so does a shape the gates take with float32 activations
+    (the kernels take bfloat16 only), and in bfloat16 that shape goes
+    to its wrapper."""
+    calls = []
+    for name in ("gguf_q8_matmul", "gguf_i8g_matmul", "gguf_w8a8_matmul"):
+        def spy(*a, _real=getattr(tqm, name), _name=name):
+            calls.append(_name)
+            return _real(*a)
+        monkeypatch.setattr(TQ.qmm, name, spy)
     method = TQ.GGUFLinearMethod(TQ.GGUFConfig())
     meta = torch.device("meta")
-    for params, K in (({"qs": (128, 128), "d": (4, 128)}, 128),
-                      ({"qs": (128, 128), "d16": (8, 128)}, 128),
-                      ({"qs8": (128, 96), "s128": (1, 96)}, 128)):
+    for params, K, N, dtype in (
+            ({"qs": (128, 128), "d": (4, 128)}, 128, 128, torch.bfloat16),
+            ({"qs": (128, 128), "d16": (8, 128)}, 128, 128, torch.bfloat16),
+            ({"qs8": (128, 96), "s128": (1, 96)}, 128, 96, torch.bfloat16),
+            ({"qs": (256, 128), "d": (8, 128)}, 256, 128, torch.float32),
+            ({"qs8": (256, 128), "s128": (2, 128)}, 256, 128,
+             torch.float32)):
         tensors = {k: torch.empty(shape, device=meta,
                                   dtype=torch.int8 if k.startswith("qs")
-                                  else torch.bfloat16)
+                                  else dtype)
                    for k, shape in params.items()}
-        with pytest.raises(NotImplementedError,
-                           match="gate refuses, on meta") as info:
-            method.apply(tensors, torch.empty(3, K, dtype=torch.bfloat16,
+        y = method.apply(tensors, torch.empty(2, 3, K, dtype=dtype,
                                               device=meta))
-        assert "later slice" in str(info.value)
+        assert (y.shape, y.dtype, y.device) == ((2, 3, N), dtype, meta)
+    assert calls == []
+    tensors = {"qs": torch.empty(256, 128, dtype=torch.int8, device=meta),
+               "d": torch.empty(8, 128, dtype=torch.bfloat16, device=meta)}
+    y = method.apply(tensors, torch.empty(3, 256, dtype=torch.bfloat16,
+                                          device=meta))
+    assert y.shape == (3, 128) and calls == ["gguf_q8_matmul"]
 
 
 # ------------------------------------------------- tokenizer, config --
@@ -610,10 +631,12 @@ def test_dummy_load_in_the_exact_q4k_form_is_refused(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("device", ["cuda", "auto"])
 def test_gguf_in_float32_on_the_card_is_refused(tmp_path, device):
+    """float32 GGUF was refused on the card until the fallback route
+    served it; the test keeps its id and holds what replaced the
+    refusal: the configs build on the card in float32 (every bucket then
+    takes the dequantize route) and bfloat16, and on the CPU."""
     path = write_model(tmp_path / "m.gguf", UNIFORM_Q8, layers=1)
-    with pytest.raises(NotImplementedError,
-                       match="GGUF in float32 on the CUDA card"):
-        _engine_configs(path, device=device)
+    assert _engine_configs(path, device=device)[0].dtype == "float32"
     assert _engine_configs(path, device=device,
                            dtype="bfloat16")[0].dtype == "bfloat16"
     assert _engine_configs(path)[0].dtype == "float32"
@@ -647,25 +670,28 @@ def _write_wide_q8(path):
 
 @pytest.mark.parametrize("load", ["file", "dummy"])
 def test_gated_shapes_are_refused_on_the_card(tmp_path, monkeypatch, load):
-    """On the card every GGUF bucket must pass its kernel's gate: a file
-    (forms from its header) or a dummy load (BENCH_GGUF_FMT=q8_0) at
-    hidden 384 is refused at config time, naming the later slice, and
-    served on the CPU, where the dequantize route runs."""
+    """A file (forms from its header) or a dummy load (BENCH_GGUF_FMT=
+    q8_0) at hidden 384, whose qkv, o and gate_up buckets fail K13's
+    gate, was refused on the card until the fallback route served it;
+    the test keeps its id and holds what replaced the refusal: the
+    configs build on the card and on the CPU, and the file's buckets
+    load in the q8_0 form with exactly those three refused by K13's
+    gate (they take the dequantize route in `apply`)."""
     path = _write_wide_q8(tmp_path / "wide.gguf")
     kw = {}
     if load == "dummy":
         monkeypatch.setenv("BENCH_GGUF_FMT", "q8_0")
         kw = dict(load_format="dummy")
     for device in ("cuda", "auto"):
-        with pytest.raises(NotImplementedError,
-                           match="kernels' gates refuse") as info:
-            _engine_configs(path, device=device, dtype="bfloat16", **kw)
-        msg = str(info.value)
-        assert "later slice" in msg and \
-            "quantized matmul fallback route" in msg
-        assert "('q8_0', (384, 640))" in msg
-        assert "(512, 384)" not in msg
+        assert _engine_configs(path, device=device, dtype="bfloat16",
+                               **kw)[0].quantization == "gguf"
     assert _engine_configs(path, **kw)[0].quantization == "gguf"
+    if load == "file":
+        assert set(TQ.checkpoint_forms(path).values()) == {"q8_0"}
+    shapes = {"qkv": (384, 640), "o": (384, 384), "gate_up": (384, 1024),
+              "down": (512, 384)}
+    assert {k: tqm.gguf_q8_supported(*s) for k, s in shapes.items()} == {
+        "qkv": False, "o": False, "gate_up": False, "down": True}
     # The turbo form (K15 needs in % 128 == 0 only) passes on the card.
     monkeypatch.delenv("BENCH_GGUF_FMT", raising=False)
     assert _engine_configs(path, device="cuda", dtype="bfloat16",

@@ -12,10 +12,13 @@ g_idx and the port's kernels (like the Pallas ones) use contiguous
 groups; with this g_idx the two are the same weight.
 
 - Config: 4- and 8-bit GPTQ accepted; desc_act, 2-bit, shapes the
-  kernels do not take, and SqueezeLLM refused naming the later slice.
+  kernels do not take, and SqueezeLLM at shapes K16 does not take
+  accepted too, on the CPU and on the card (the layers the gates refuse
+  take the dequantize-then-matmul route; tests/test_torch_fallback.py
+  holds that route to the JAX package).
 - Dummy init: packed payloads span the int32 range, g_idx is zero.
-- Config: float32 GPTQ refused on the card (the kernels take bfloat16)
-  and accepted on the CPU.
+- Config: float32 GPTQ accepted on the card (its layers take the
+  dequantize route there) and on the CPU.
 - `GPTQLinearMethod.apply` against the JAX `dequantize` then matmul, and
   under W4A8 against the JAX `apply` on its Pallas route (interpret
   mode): within 1e-5 of max |y| (f32, sums in another order).
@@ -212,36 +215,59 @@ def test_gptq_4_and_8_bit_are_accepted(tmp_path, bits):
     assert model_config.quantization == "gptq"
 
 
-@pytest.mark.parametrize("quant,changes,match", [
+@pytest.mark.parametrize("quant,changes,what", [
     (dict(QUANT, desc_act=True), {}, "desc_act"),
     (dict(QUANT, bits=2), {}, "2-bit GPTQ"),
     (dict(QUANT, group_size=64), {}, "group size 64"),
     (QUANT, {"hidden_size": 96}, "group size 128"),
-    # SqueezeLLM is served (K16); on the card the hidden-128 layers fail
-    # its gate (in % 256), which stands refused.
     ({"quant_method": "squeezellm", "wbits": 4},
      {"device": "cuda", "dtype": "bfloat16"}, "quantization 'squeezellm'"),
 ])
-def test_out_of_slice_gptq_is_refused(tmp_path, quant, changes, match):
-    with pytest.raises(NotImplementedError, match=match) as info:
-        _configs(tmp_path, quant, **changes)
-    assert "later slice" in str(info.value)
-    assert "quantized matmul fallback route" in str(info.value)
+def test_out_of_slice_gptq_is_refused(tmp_path, quant, changes, what):
+    """These configurations were refused, naming the quantized matmul
+    fallback route, until the port served it; each case keeps its id and
+    holds what replaced the refusal: the configs build on the CPU, and
+    on the card (device "cuda" and "auto": the config does not look for
+    a card), and the layers the kernels' gate refuses are the ones the
+    method's `apply` sends to the dequantize route (act-order, 2 bits,
+    groups of 64, hidden 96; SqueezeLLM's hidden-128 layers fail K16's
+    gate the same way)."""
+    from aphrodite_tpu_torch.modeling.layers.quantization import (
+        get_quantization_config)
+    from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
+    changes = dict(changes)
+    dtype = changes.pop("dtype", "auto")
+    changes.pop("device", None)
+    for device in ("cpu", "cuda", "auto"):
+        model_config = _configs(tmp_path, quant, device=device,
+                                dtype=dtype, **changes)[0]
+        assert model_config.quantization == quant["quant_method"]
+    cfg = get_quantization_config(model_config)
+    hidden = changes.get("hidden_size", CONFIG["hidden_size"])
+    if quant["quant_method"] == "gptq":
+        assert not cfg.supports(hidden, hidden), what
+    else:
+        assert not qmm.squeezellm_supported(hidden, hidden), what
 
 
 @pytest.mark.parametrize("device", ["cuda", "auto"])
 def test_gptq_in_float32_on_the_card_is_refused(tmp_path, device):
-    """The kernels take bfloat16 activations and scales, so float32 GPTQ
-    is refused at config time on the card (the config does not look for
-    a card: DeviceConfig resolves later) and accepted on the CPU."""
-    with pytest.raises(NotImplementedError,
-                       match="GPTQ in float32 on the CUDA card") as info:
-        _configs(tmp_path, QUANT, device=device, dtype="float32")
-    assert "later slice" in str(info.value)
-    model_config = _configs(tmp_path, QUANT, device=device,
-                            dtype="bfloat16")[0]
-    assert model_config.dtype == "bfloat16"
+    """float32 GPTQ was refused on the card (the kernels take bfloat16
+    activations) until the fallback route served it; the test keeps its
+    id and holds what replaced the refusal: the configs build on the
+    card in float32 and bfloat16 (the config does not look for a card:
+    DeviceConfig resolves later) and on the CPU, and on a card a float32
+    layer takes the dequantize route (`kernel_takes_dtype`)."""
+    from aphrodite_tpu_torch.modeling.layers.quantization.base_config \
+        import kernel_takes_dtype
+    for dtype in ("float32", "bfloat16"):
+        assert _configs(tmp_path, QUANT, device=device,
+                        dtype=dtype)[0].dtype == dtype
     assert _configs(tmp_path, QUANT, dtype="float32")[0].dtype == "float32"
+    meta = torch.empty(2, 8, device="meta")
+    assert not kernel_takes_dtype(meta)
+    assert kernel_takes_dtype(meta.bfloat16())
+    assert kernel_takes_dtype(torch.empty(2, 8))
 
 
 def test_dummy_gptq_init_spans_int32_and_zeroes_g_idx(gptq_checkpoint):

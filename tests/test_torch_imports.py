@@ -7,8 +7,8 @@
   passes device="cpu"; they never fall back to the CPU on their own.
 - Configurations outside the port's slices are refused at config time
   with a message naming the later slice; int8 / fp8 KV caches,
-  sliding-window (Mistral) models, speculative decoding and LoRA are
-  served.
+  sliding-window (Mistral) models, speculative decoding, LoRA and
+  quantized models at shapes the kernels' gates refuse are served.
 - The two flag registries hold the same names, types and defaults.
 """
 import ast
@@ -122,8 +122,8 @@ def _model_dir(tmp_path, tiny_model_dir, **changes):
 @pytest.mark.parametrize("change,match", [
     (dict(tensor_parallel_size=2), "multi-GPU"),
     (dict(disagg_split="1,1", tensor_parallel_size=2), "multi-GPU"),
-    # SqueezeLLM is served on the CPU; on the card the tiny model's
-    # layers fail K16's gate and wait for the fallback route.
+    # SqueezeLLM on the card at the tiny model's shapes, which K16's gate
+    # refuses: served since the fallback route.
     (dict(quantization="squeezellm", device="cuda"), "quantized matmul"),
     (dict(enable_lora=True), "LoRA"),
 ])
@@ -131,7 +131,10 @@ def test_out_of_slice_engine_args_are_refused(tiny_model_dir, change,
                                               match):
     """LoRA was refused here until the port served it; its case keeps
     its id and holds what replaced the refusal: the configs build with
-    a LoRAConfig (the port's), as the JAX package's do."""
+    a LoRAConfig (the port's), as the JAX package's do. So does the
+    SqueezeLLM case ("quantized matmul"), refused on the card until the
+    fallback route served it: the configs build on the card and on the
+    CPU."""
     from aphrodite_tpu_torch.common.config import LoRAConfig
     from aphrodite_tpu_torch.engine.args_tools import EngineArgs
     if match == "LoRA":
@@ -143,13 +146,17 @@ def test_out_of_slice_engine_args_are_refused(tiny_model_dir, change,
                 configs[-1].max_cpu_loras) == (2, 16, 2)
         assert configs[-1].lora_dtype == configs[0].dtype
         return
+    if "quantization" in change:
+        for device in ("cuda", "auto", "cpu"):
+            assert EngineArgs(**{"model": tiny_model_dir,
+                                 "load_format": "dummy", **change,
+                                 "device": device}
+                              ).create_engine_configs()[0].quantization \
+                == change["quantization"]
+        return
     with pytest.raises(NotImplementedError, match=match):
         EngineArgs(**{"model": tiny_model_dir, "load_format": "dummy",
                       "device": "cpu", **change}).create_engine_configs()
-    if "quantization" in change:
-        EngineArgs(model=tiny_model_dir, load_format="dummy", device="cpu",
-                   quantization=change["quantization"]
-                   ).create_engine_configs()
 
 
 def test_speculative_decoding_is_refused(tiny_model_dir, monkeypatch):
@@ -246,20 +253,22 @@ def test_serving_modules_are_scanned_and_chip_smoke_skips_endpoints():
 ])
 def test_out_of_slice_models_are_refused(tmp_path, tiny_model_dir, change,
                                          match):
-    """Another architecture is refused anywhere; a SqueezeLLM checkpoint
-    is served on the CPU and refused on the card, where the tiny model's
-    layers fail K16's gate."""
+    """Another architecture is refused anywhere. A SqueezeLLM checkpoint
+    was refused on the card, where the tiny model's layers fail K16's
+    gate, until the fallback route served it; its case keeps its id and
+    holds what replaced the refusal: it is served on the card and on the
+    CPU."""
     from aphrodite_tpu_torch.engine.args_tools import EngineArgs
     path = _model_dir(tmp_path, tiny_model_dir, **change)
-    quantized = "quantization_config" in change
+    if "quantization_config" in change:
+        for device in ("cuda", "cpu"):
+            assert EngineArgs(model=path, load_format="dummy",
+                              device=device).create_engine_configs(
+                              )[0].quantization == "squeezellm"
+        return
     with pytest.raises(NotImplementedError, match=match):
-        EngineArgs(model=path, load_format="dummy",
-                   device="cuda" if quantized else "cpu"
+        EngineArgs(model=path, load_format="dummy", device="cpu"
                    ).create_engine_configs()
-    if quantized:
-        assert EngineArgs(model=path, load_format="dummy", device="cpu"
-                          ).create_engine_configs()[0].quantization == \
-            "squeezellm"
 
 
 @pytest.mark.parametrize("args,model,cache_dtype,window", [

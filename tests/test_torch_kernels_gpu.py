@@ -34,7 +34,12 @@ control (every row at the sequence's last context) beyond it. K1 at
 group 1 (DeepSeek-MoE-16B's 16 over 16 heads): the attention tolerance;
 K2 and K4 at 16 KV heads: exact. The MoE FFN (grouped path, bf16
 products rounded at gate, up, act and down): within 2e-2 + 2e-2 |f64|
-of an f64 evaluation on the same picks.
+of an f64 evaluation on the same picks. The quantized fallback route
+(plain torch: dequantize, then matmul) on layers the gates refuse and on
+float32 activations: the card's `apply` against the CPU's, bf16 within
+2e-2 + 2e-2 |cpu|, f32 within 1e-4 of max |cpu|, no quantized wrapper
+launching; an act-order GPTQ engine built for the card generates
+without a GPTQ kernel.
 """
 import numpy as np
 import pytest
@@ -2301,3 +2306,130 @@ def test_writers_at_the_other_row_widths_are_exact(dev, hkv, d,
                                          kp.clone(), pid, vld)
     torch.cuda.synchronize()
     assert torch.equal(c[0], e[0]) and torch.equal(c[1], e[1])
+
+
+# ---- the quantized fallback route (dequantize, then matmul) ----
+
+def _fallback_layer(kind, K, N, g):
+    """CPU parameters of one layer the kernels' gates refuse: GPTQ 4-bit
+    group 32 with an act-order g_idx (a permutation of arange(K) // 32),
+    GPTQ 2-bit group 128, or AWQ group 64; random codes and zeros,
+    scales in [0.002, 0.022)."""
+    from aphrodite_tpu_torch.modeling.layers.quantization.awq import (
+        AWQConfig)
+    from aphrodite_tpu_torch.modeling.layers.quantization.gptq import (
+        GPTQConfig)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                             dtype=torch.int64).to(torch.int32)
+    bits, gs = {"gptq-g32-actorder": (4, 32), "gptq-2bit": (2, 128),
+                "awq-g64": (4, 64)}[kind]
+    scales = (torch.rand(K // gs, N, generator=g) * 0.02 + 0.002).to(
+        torch.bfloat16)
+    if kind == "awq-g64":
+        return AWQConfig(4, gs).get_linear_method(), gs, {
+            "qweight": words(K, N // 8), "qzeros": words(K // gs, N // 8),
+            "scales": scales}
+    pack = 32 // bits
+    g_idx = torch.arange(K, dtype=torch.int32) // gs
+    if kind == "gptq-g32-actorder":
+        g_idx = g_idx[torch.randperm(K, generator=g)]
+    return GPTQConfig(bits, gs, kind == "gptq-g32-actorder"
+                      ).get_linear_method(), gs, {
+        "qweight": words(K // pack, N), "qzeros": words(K // gs, N // pack),
+        "scales": scales, "g_idx": g_idx}
+
+
+@pytest.mark.parametrize("kind", ["gptq-g32-actorder", "gptq-2bit",
+                                  "awq-g64"])
+@pytest.mark.parametrize("m", [1, 8, 72])
+def test_fallback_on_the_card_matches_the_cpu(dev, kind, m):
+    """A layer the gates refuse through its method's `apply` on the card
+    (the dequantize route: no quantized wrapper launches) against the
+    same `apply` on the CPU: 2e-2 + 2e-2 |cpu| (the same bf16 weight,
+    f32 sums in another order, bf16 outputs). A control, GPTQ's g_idx
+    rolled by one group or AWQ's zero rows shifted by one, misses it."""
+    from aphrodite_tpu_torch.ops.cuda import build
+    g = torch.Generator().manual_seed(m)
+    method, gs, params = _fallback_layer(kind, 512, 256, g)
+    x = torch.randn(m, 512, generator=g).to(torch.bfloat16)
+    card = {n: t.to(dev) for n, t in params.items()}
+    before = {n: c.count for n, c in build.COUNTERS.items()}
+    got = method.apply(card, x.to(dev)).cpu()
+    assert {n: c.count for n, c in build.COUNTERS.items()} == before
+    want = method.apply(params, x)
+    err = (got.float() - want.float()).abs()
+    assert (err <= 2e-2 + 2e-2 * want.float().abs()).all(), err.max()
+    bad = dict(card, qzeros=card["qzeros"].roll(1, 0)) if kind == "awq-g64" \
+        else dict(card, g_idx=card["g_idx"].roll(gs))
+    miss = (method.apply(bad, x.to(dev)).cpu().float() - want.float()).abs()
+    assert (miss > 2e-2 + 2e-2 * want.float().abs()).any()
+
+
+def test_other_formats_fallback_on_the_card_matches_the_cpu(dev):
+    """Shapes the gates refuse in bf16 (GGUF q8_0, q6_k and q4_k buckets
+    and SqueezeLLM and int8 layers at in 384, QuIP#'s int8 form at 128)
+    and float32 activations at shapes the gates take (GPTQ, AWQ, GGUF
+    q8_0, int8): `apply` on the card against the CPU's, bf16 within 2e-2
+    + 2e-2 |cpu|, f32 within 1e-4 of max |cpu|; no quantized wrapper
+    launches (chip_smoke phase 21 (e)'s layers)."""
+    import chip_smoke
+    from aphrodite_tpu_torch.ops.cuda import build
+    layers, gen = chip_smoke.other_format_layers(torch)
+    for label, K, method, params, dtype in layers:
+        card = {n: t.to(dev) for n, t in params.items()}
+        for m in (1, 5, 72):
+            x = torch.randn(m, K, generator=gen).to(dtype)
+            before = {n: c.count for n, c in build.COUNTERS.items()}
+            got = method.apply(card, x.to(dev)).cpu()
+            assert {n: c.count for n, c in build.COUNTERS.items()} == \
+                before, label
+            want = method.apply(params, x)
+            assert got.dtype == want.dtype == dtype, label
+            err = (got.float() - want.float()).abs()
+            if dtype == torch.float32:
+                assert err.max() <= 1e-4 * want.abs().max(), label
+            else:
+                assert (err <= 2e-2 + 2e-2 * want.float().abs()).all(), \
+                    (label, err.max())
+
+
+def test_act_order_gptq_engine_generates_on_the_card(dev, tmp_path,
+                                                     monkeypatch):
+    """An act-order GPTQ model (4 bits, group 32, desc_act; a tiny Llama,
+    dummy weights) built for the card and served: every request finishes
+    with tokens in the vocabulary, K1 and K2 launch, no GPTQ kernel nor
+    K9 does."""
+    import json
+    from aphrodite_tpu_torch.common.sampling_params import SamplingParams
+    from aphrodite_tpu_torch.endpoints.llm import LLM
+    from aphrodite_tpu_torch.ops.cuda import build
+    monkeypatch.setenv("APHRODITE_SPEC", "0")
+    (tmp_path / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": 512, "hidden_size": 256, "intermediate_size": 512,
+        "num_hidden_layers": 2, "num_attention_heads": 2,
+        "num_key_value_heads": 1, "max_position_embeddings": 512,
+        "quantization_config": {"quant_method": "gptq", "bits": 4,
+                                "group_size": 32, "desc_act": True,
+                                "sym": True}}))
+    llm = LLM(model=str(tmp_path), load_format="dummy", dtype="bfloat16",
+              max_model_len=256, gpu_memory_utilization=0.3,
+              skip_tokenizer_init=True, disable_log_stats=True)
+    for c in build.COUNTERS.values():
+        c.reset()
+    outs = llm.generate(prompt_token_ids=[[5 + i for i in range(n)]
+                                          for n in (3, 40, 90)],
+                        sampling_params=SamplingParams(
+                            temperature=0.0, max_tokens=8, ignore_eos=True))
+    for o in outs:
+        assert len(o.outputs[0].token_ids) == 8
+        assert all(0 <= t < 512 for t in o.outputs[0].token_ids)
+    counts = {n: c.count for n, c in build.COUNTERS.items()}
+    assert counts.get("paged_decode_attention", 0) > 0
+    assert counts.get("write_kv_pages_prefill", 0) + \
+        counts.get("write_kv_pages", 0) > 0
+    for name in ("gptq_matmul", "gptq_matmul_stream", "gptq_matmul_a8",
+                 "gptq_matmul_stream_a8", "quantize_activations_int8"):
+        assert counts.get(name, 0) == 0, (name, counts)

@@ -19,9 +19,9 @@ layer shape passes K16's gate (in % 256 == 0, out % 128 == 0).
 - Greedy `LLM.generate` is token-equal to the JAX engine's, compared
   while the port's top-2 logprob gap exceeds 1e-4, every projection of
   every step through K16's wrapper.
-- Config: served on the CPU in float32 and on the card in bfloat16;
-  float32 on the card and a shape K16's gate refuses (hidden 128) on the
-  card are refused naming the fallback route.
+- Config: served on the CPU and on the card, in bfloat16 and float32
+  (K16 takes both), at hidden 256 and at hidden 128, whose layers K16's
+  gate refuses (they take the dequantize route).
 
 The helpers `write_checkpoint`, `engine_pair` and `assert_greedy_equal`
 are shared with tests/test_torch_int8.py and tests/test_torch_quip.py.
@@ -276,25 +276,23 @@ def test_greedy_generation_matches_jax(checkpoint, monkeypatch):
 # ------------------------------------------------------------- config --
 
 def test_config_on_the_cpu_and_on_the_card(tmp_path):
-    """Served on the CPU in float32 and on the card in bfloat16; refused
-    on the card in float32 and at hidden 128, where K16's gate refuses
-    every projection, naming the fallback route."""
+    """float32 on the card, and on the card hidden 128, where K16's gate
+    refuses every projection but down, were refused until the fallback
+    route served them; the test keeps its id and holds what replaced the
+    refusals: the configs build on the CPU and on the card in bfloat16
+    and float32, at hidden 256 and 128."""
     path = write_checkpoint(tmp_path / "m", sqllm_projection,
                             dict(CONFIG, quantization_config=SQLLM))
     assert _configs(path)[0].quantization == "squeezellm"
-    assert _configs(path, device="cuda", dtype="bfloat16")[0].dtype == \
-        "bfloat16"
-    with pytest.raises(NotImplementedError,
-                       match="SQUEEZELLM in float32 on the CUDA card") as info:
-        _configs(path, device="cuda")
-    assert "quantized matmul fallback route" in str(info.value)
+    for dtype in ("bfloat16", "float32"):
+        assert _configs(path, device="cuda", dtype=dtype)[0].dtype == dtype
     narrow = tmp_path / "narrow"
     narrow.mkdir()
     (narrow / "config.json").write_text(json.dumps(dict(
         CONFIG, hidden_size=128, quantization_config=SQLLM)))
-    assert _configs(str(narrow))[0].quantization == "squeezellm"
-    with pytest.raises(NotImplementedError,
-                       match="kernel's gate refuses them") as info:
-        _configs(str(narrow), device="cuda", dtype="bfloat16")
-    assert "(128, 256)" in str(info.value) and "(768, 128)" not in \
-        str(info.value)
+    for device in ("cpu", "cuda", "auto"):
+        assert _configs(str(narrow), device=device, dtype="bfloat16"
+                        )[0].quantization == "squeezellm"
+    from aphrodite_tpu_torch.ops.cuda import quant_matmul as qmm
+    assert not qmm.squeezellm_supported(128, 256)
+    assert qmm.squeezellm_supported(768, 128)
