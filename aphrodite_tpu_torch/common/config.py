@@ -8,16 +8,14 @@ bits, any group size, act-order included), AWQ-quantized (4 bits), GGUF
 model of every other architecture the JAX package registers (the Llama
 family, DeciLM, Qwen2, OPT, GPT-J, GPT-NeoX, Phi), Mistral's sliding
 window included, on one CUDA card (or the CPU, when the caller asks for
-it), in bfloat16 or float32; KV pages in the model dtype, int8 or fp8
-(e5m2). Quantized layers whose shape, bits, act-order or activation
+it), in bfloat16, float16 or float32; KV pages in the model dtype, int8
+or fp8 (e5m2). Quantized layers whose shape, bits, act-order or activation
 dtype a kernel's gate refuses take the JAX package's dequantize-then-
 matmul route in plain torch (each linear method's `apply`). Every
 configuration outside that is refused HERE, with a message naming the
 later slice that brings it (`refuse`), so nothing is silently ignored:
 
 - tensor/data/sequence parallelism and the disaggregated split;
-- explicit float16 compute (`dtype="auto"` maps a float16 checkpoint
-  to bfloat16, as in the JAX package);
 - LoRA on the MoE architectures (`LoRAConfig.verify_with_model_config`).
 
 Quantization of any kind on an MoE architecture is refused as well, for
@@ -145,12 +143,6 @@ class ModelConfig:
                 "has no project_in / project_out, so such a config does not "
                 "run there, and the PyTorch port adds no projection of its "
                 "own.")
-        if self.dtype == "float16":
-            refuse("explicit float16 compute (dtype='auto' maps a float16 "
-                   "checkpoint to bfloat16; use that, bfloat16 or float32)",
-                   "float16 activations and KV pages in the attention "
-                   "kernels and the page writers (ROADMAP.md Queue 1, "
-                   "item 5)")
 
     def _verify_load_format(self) -> None:
         load_format = self.load_format.lower()

@@ -27,15 +27,15 @@
 // block takes `rows_per_block` tokens (slot_write_plan, from the token
 // count, the row's bytes and the SM count), and each thread issues its
 // kSlotVecs 16-byte K loads and as many V loads before its first store.
-// It takes the model's bf16 or f32 rows and writes the page dtype's
-// values itself: on int8 and fp8 e5m2 pages it quantizes in registers
-// with kv_quant.cuh's codes (K1's fused write's), so an 8-bit prompt
-// round writes a layer in one launch where a chain of elementwise
+// It takes the model's bf16, fp16 or f32 rows and writes the page
+// dtype's values itself: on int8 and fp8 e5m2 pages it quantizes in
+// registers with kv_quant.cuh's codes (K1's fused write's), so an 8-bit
+// prompt round writes a layer in one launch where a chain of elementwise
 // launches quantized the rows first. The vectors are planned on the page
 // side: a thread stores whole 16-byte page vectors, each from one (copy),
-// two (bf16 -> 8 bits) or four (f32 -> 8 bits) source vectors; int8
-// quotients come from the reciprocal and two fma corrections, without a
-// branch a value. The block reads its tokens' slots in one coalesced
+// two (bf16 or fp16 -> 8 bits) or four (f32 -> 8 bits) source vectors;
+// int8 quotients come from the reciprocal and two fma corrections,
+// without a branch a value. The block reads its tokens' slots in one coalesced
 // load into shared memory, in one of two orders the plan picks from the
 // token count (measured: they cross at 512 tokens on a padded round):
 // in a small launch (K3's decode rows) the data loads go out beside the
@@ -60,9 +60,16 @@
 // return after it. Rows at and past valid are neither read nor
 // written.
 //
+// float16 (fp16 rows into fp16, int8 or fp8 pages; fp16 pages through
+// K2): the JAX package writes them with its XLA scatter and quantize_kv,
+// the Pallas writers being gated out; these are the same kernels at that
+// dtype, fp16 -> fp16 K3 / K4's copy and K2's byte copy, fp16 -> 8 bits
+// two quantizing kinds.
+//
 // Each C entry point launches on the caller's stream, allocates nothing
 // and returns cudaGetLastError().
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -130,12 +137,14 @@ enum Kind : int {
   kF32Int8 = 2,
   kBf16Fp8 = 3,
   kF32Fp8 = 4,
+  kF16Int8 = 5,
+  kF16Fp8 = 6,
 };
 
 // 16-byte source vectors of one 16-byte page vector.
 template <int K>
-constexpr int kSrcVecs =
-    K == kCopy ? 1 : (K == kBf16Int8 || K == kBf16Fp8) ? 2 : 4;
+constexpr int kSrcVecs = K == kCopy ? 1 : (K == kF32Int8 || K == kF32Fp8)
+                                              ? 4 : 2;
 
 constexpr int kSlotVecs = 4;   // K (and V) source vectors a thread's round
 
@@ -143,8 +152,10 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// 16 codes of 16 bf16 (the high half of a word is the odd element; v0,
-// v1) or f32 values (v0-v3), byte b of word w from element 4 w + b; rcp
+// 16 codes of 16 bf16 or fp16 (the high half of a word is the odd
+// element; v0, v1) or f32 values (v0-v3), byte b of word w from element
+// 4 w + b; bf16 and fp16 values widen to f32 exactly, so a code is the
+// one the plain version's f32 arithmetic gives. rcp
 // is __frcp_rn(scale) and safe says the scale lies in [2^-60, 2^60).
 // Branch-free but for one test a vector: int8 quotients are
 // kvq::quotient's unless a value fails kvq::quotient_safe (NaN, inf,
@@ -157,13 +168,18 @@ __device__ __noinline__ uint4 quantize_vec(uint4 v0, uint4 v1, uint4 v2,
                                            uint4 v3, float scale, float rcp,
                                            bool safe) {
   constexpr bool kF32 = K == kF32Int8 || K == kF32Fp8;
-  constexpr bool kFp8 = K == kBf16Fp8 || K == kF32Fp8;
+  constexpr bool kF16 = K == kF16Int8 || K == kF16Fp8;
+  constexpr bool kFp8 = K == kBf16Fp8 || K == kF32Fp8 || K == kF16Fp8;
   const uint4 v[4] = {v0, v1, v2, v3};
   float x[16];
 #pragma unroll
   for (int e = 0; e < 16; ++e) {
     if constexpr (kF32) {
       x[e] = __uint_as_float(word(v[e / 4], e % 4));
+    } else if constexpr (kF16) {
+      const uint32_t h = word(v[e / 8], (e % 8) / 2);
+      x[e] = __half2float(__ushort_as_half(
+          static_cast<unsigned short>(e % 2 ? h >> 16 : h & 0xFFFFu)));
     } else {
       const uint32_t h = word(v[e / 8], (e % 8) / 2);
       x[e] = __uint_as_float(e % 2 ? h & 0xFFFF0000u : h << 16);
@@ -415,6 +431,16 @@ extern "C" int kv_write_slots(void* k_pages, void* v_pages,
       break;
     case kF32Fp8:
       err = launch_slots<kF32Fp8>(grid, threads, smem, first, st, kp, vp,
+                                  kn, vn, slots, num_tokens, num_slots,
+                                  row_vecs, rows_per_block, scale);
+      break;
+    case kF16Int8:
+      err = launch_slots<kF16Int8>(grid, threads, smem, first, st, kp, vp,
+                                   kn, vn, slots, num_tokens, num_slots,
+                                   row_vecs, rows_per_block, scale);
+      break;
+    case kF16Fp8:
+      err = launch_slots<kF16Fp8>(grid, threads, smem, first, st, kp, vp,
                                   kn, vn, slots, num_tokens, num_slots,
                                   row_vecs, rows_per_block, scale);
       break;

@@ -28,6 +28,7 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]
 
 _MODEL_DTYPES = {
     "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
     "float32": torch.float32,
 }
 

@@ -142,8 +142,12 @@ class ModelRunner:
         self.device = device
         self.kv_scale = 1.0                 # int8 KV dequant scale
         # Whole-page prompt writes (K2) take float pages only; int8 and
-        # fp8 prompts take the quantizing slot scatter, as in JAX.
+        # fp8 prompts take the quantizing slot scatter, as in JAX. fp16
+        # pages take K2 too, where the JAX package (which gates fp16 out
+        # of its Pallas writer) writes them with its XLA scatter: another
+        # route to the same bytes.
         self._prefill_writer_ok = kv_cache_dtype in (torch.bfloat16,
+                                                     torch.float16,
                                                      torch.float32)
         self.sampler = Sampler(model_config.get_vocab_size(), device)
         self.pages_bucket = _PAGES_BUCKET if page_size <= 16 else \

@@ -43,6 +43,7 @@ logger = init_logger(__name__)
 
 DTYPES = {
     "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
     "float32": torch.float32,
 }
 

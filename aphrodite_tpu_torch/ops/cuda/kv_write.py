@@ -16,8 +16,8 @@ Port of `aphrodite_tpu/ops/pallas/kv_write.py`:
   rows); each counts its launches under its own name. Blocks of tokens
   planned by `slot_write_plan` from the token count, the row's bytes
   and the SM count, each thread loading its K and V vectors of a round
-  before it stores one. It takes the model's bf16 or f32 rows and, on
-  int8 and fp8 pages, quantizes them itself (the rules of
+  before it stores one. It takes the model's bf16, fp16 or f32 rows
+  and, on int8 and fp8 pages, quantizes them itself (the rules of
   `ops/kv_quant.quantize_kv`, which the plain version runs): one launch
   a layer. Two tokens must not share a slot: the scatter runs them in
   parallel.
@@ -48,22 +48,26 @@ WRITE_KV_PAGES_PREFILL_LAUNCHES = build.launch_counter(
     "write_kv_pages_prefill")
 
 # K2's page dtypes (uint8: the byte view of int8 / fp8 pages); its
-# source rows are of the page dtype.
-_DTYPES = (torch.bfloat16, torch.float32, torch.uint8)
+# source rows are of the page dtype. It copies 16-byte vectors, so fp16
+# pages are the bf16 path byte for byte.
+_DTYPES = (torch.bfloat16, torch.float16, torch.float32, torch.uint8)
 # K2: threads a block at most, and the 16-byte vectors of K (and as many
 # of V) each loads in a round before its stores (`kPrefillVecs`).
 PREFILL_THREADS = 256
 PREFILL_VECS = 4
 # K3 / K4: the (source, page) dtype pairs the slot writer takes, as the
-# kernel's `kind` (csrc/kv_write.cu `Kind`): copies, and bf16 or f32
-# rows quantized to int8 or fp8 e5m2 pages.
+# kernel's `kind` (csrc/kv_write.cu `Kind`): copies, and bf16, fp16 or
+# f32 rows quantized to int8 or fp8 e5m2 pages.
 SLOT_KINDS = {
     (torch.bfloat16, torch.bfloat16): 0,
+    (torch.float16, torch.float16): 0,
     (torch.float32, torch.float32): 0,
     (torch.bfloat16, torch.int8): 1,
     (torch.float32, torch.int8): 2,
     (torch.bfloat16, torch.float8_e5m2): 3,
     (torch.float32, torch.float8_e5m2): 4,
+    (torch.float16, torch.int8): 5,
+    (torch.float16, torch.float8_e5m2): 6,
 }
 # K3 / K4: threads a block at most, the 16-byte source vectors of K (and
 # as many of V) each loads in a round before its stores (`kSlotVecs`),

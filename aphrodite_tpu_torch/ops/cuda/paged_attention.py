@@ -1,6 +1,7 @@
-"""Paged decode attention: the CUDA kernels of `csrc/paged_attention.cu`,
-their plain PyTorch version, and the host helpers the model runner
-shares with them.
+"""Paged decode attention: the CUDA kernels of `csrc/paged_attention.cuh`
+(instantiated by `csrc/paged_attention.cu` and, for fp16 activations,
+`csrc/paged_attention_f16.cu`), their plain PyTorch version, and the
+host helpers the model runner shares with them.
 
 Port of `aphrodite_tpu/ops/pallas/paged_attention.py`: one query token
 per sequence attends over its pages, with GQA, optional ALiBi, and
@@ -39,8 +40,11 @@ rounded up to an integer, the rescale as an exponent-bias add (`amla`,
 `APHRODITE_ATTN_AMLA`, the default) or a multiply, and dot operands
 rounded to bf16 on bf16, int8 and fp8 pages (the scaled query and the
 softmax weights, as the TPU's bf16 matrix products did; int8 and e5m2
-values are exact in bf16). Float32 pages keep everything in float32,
-as the JAX package's CPU route (the jnp reference) does. int8 pages
+values are exact in bf16). Under float16 activations (fp16, int8 or fp8
+pages) the operands round to float16 instead, as the kernel's fp16
+instances do: the JAX package serves fp16 pages through its f32 jnp
+reference, which the tests hold this to. Float32 pages keep everything
+in float32, as the JAX package's CPU route (the jnp reference) does. int8 pages
 fold their scale `kv_scale` into the query and the epilogue
 (`ops/kv_quant.py`). The work list is a TPU grid device: it is
 validated for signature parity and changes nothing in the result.
@@ -80,7 +84,7 @@ def _exp2(x: torch.Tensor) -> torch.Tensor:
 _WORK_BUCKETS = [8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512,
                  768, 1024, 1536, 2048, 3072, 4096]
 
-# Kernel limits (csrc/paged_attention.cu): a block serves up to 16 of a
+# Kernel limits (csrc/paged_attention.cuh): a block serves up to 16 of a
 # kv head's query rows (4 warps x 4 rows), a larger group ceil(group /
 # 16) blocks (`row_blocks`); 8 lanes of head_dim per warp lane.
 ROWS_PER_BLOCK = 16
@@ -88,9 +92,9 @@ _MAX_HEAD_DIM = 256
 #: Block-table entries a K1 split stages in shared memory (8 KB): longer
 #: tables take more splits.
 _MAX_SPLIT_PAGES = 2048
-_ACT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ACT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PAGE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
-              torch.float8_e5m2: 3}
+              torch.float8_e5m2: 3, torch.float16: 4}
 
 
 def ragged_enabled() -> bool:
@@ -231,6 +235,15 @@ def _geometry(q, k_pages):
 
 # -------------------------------------------------------- plain version --
 
+def dot_operand_dtype(act: torch.dtype, page: torch.dtype) -> torch.dtype:
+    """The precision of K1's dot operands (the scaled query and the
+    softmax weights): f32 on f32 pages, fp16 under fp16 activations,
+    else bf16."""
+    if page == torch.float32:
+        return torch.float32
+    return torch.float16 if act == torch.float16 else torch.bfloat16
+
+
 def _mul_pow2(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """x * 2**delta as an exponent-bias add (the Pallas `_mul_pow2`):
     delta is integer-valued and <= 0; entries whose exponent would
@@ -293,8 +306,7 @@ def paged_decode_attention_plain(
             byte_view(pages).view(-1, num_kv_heads, d)[slot] = byte_view(
                 quantize_kv(new[live], pages.dtype, kv_scale))
 
-    op = torch.float32 if k_pages.dtype == torch.float32 else \
-        torch.bfloat16               # dot operand precision
+    op = dot_operand_dtype(q.dtype, k_pages.dtype)
     qs = (q.float() * (scale * kv_scale * _LOG2E)).to(op).float()
     qs = qs.view(batch, num_kv_heads, group, d)
     slopes = None if alibi_slopes is None else \
@@ -365,10 +377,13 @@ def paged_decode_attention_plain(
 # --------------------------------------------------------------- kernels --
 
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(fp16: bool):
     """The C entry point, its argument types set once (ctypes rebuilds
-    its converters on every assignment)."""
-    fn = build.library("paged_attention").paged_decode_attention
+    its converters on every assignment): the fp16 activations' instances
+    are a library of their own (`csrc/paged_attention_f16.cu`), built
+    beside the others' (`csrc/paged_attention.cu`)."""
+    fn = build.library("paged_attention_f16").paged_decode_attention_f16 \
+        if fp16 else build.library("paged_attention").paged_decode_attention
     fn.argtypes = [ctypes.c_void_p] * 9 + \
         [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p] * 2
@@ -393,9 +408,9 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
     if act not in _ACT_CODE or page not in _PAGE_CODE or \
             v_pages.dtype != page or \
             (page in _ACT_CODE and page != act):
-        raise TypeError(f"{what}: q must be bf16 or f32 and the pages "
-                        f"that dtype, int8 or float8_e5m2, got {act}/"
-                        f"{page}/{v_pages.dtype}")
+        raise TypeError(f"{what}: q must be bf16, fp16 or f32 and the "
+                        f"pages that dtype, int8 or float8_e5m2, got "
+                        f"{act}/{page}/{v_pages.dtype}")
     if d > _MAX_HEAD_DIM or d * k_pages.element_size() % 16 or \
             num_kv_heads * row_blocks(group) > 65535:
         raise ValueError(f"{what}: unsupported geometry Hq={num_q_heads} "
@@ -440,14 +455,14 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, alibi_slopes,
     part = torch.empty((batch * num_q_heads * n_split * (d + 2),),
                        dtype=torch.float32, device=q.device) \
         if n_split > 1 else None
-    err = _entry()(out.data_ptr(), q.data_ptr(), k_pages.data_ptr(),
-             v_pages.data_ptr(), block_tables.data_ptr(),
-             context_lens.data_ptr(), build.ptr(alibi_slopes),
-             build.ptr(knew), build.ptr(vnew), batch, num_kv_heads, group,
-             d, num_pages, page_size, pps, ppc,
-             float(scale) * float(kv_scale) * _LOG2E, float(kv_scale),
-             _ACT_CODE[act], _PAGE_CODE[page], int(amla), n_split,
-             int(wide), build.ptr(part), build.stream_of(q))
+    err = _entry(act == torch.float16)(
+        out.data_ptr(), q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), block_tables.data_ptr(),
+        context_lens.data_ptr(), build.ptr(alibi_slopes), build.ptr(knew),
+        build.ptr(vnew), batch, num_kv_heads, group, d, num_pages,
+        page_size, pps, ppc, float(scale) * float(kv_scale) * _LOG2E,
+        float(kv_scale), _ACT_CODE[act], _PAGE_CODE[page], int(amla),
+        n_split, int(wide), build.ptr(part), build.stream_of(q))
     (PAGED_DECODE_ATTENTION_TM_LAUNCHES if tm else
      PAGED_DECODE_ATTENTION_LAUNCHES).add()
     if n_split > 1:

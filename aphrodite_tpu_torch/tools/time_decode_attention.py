@@ -12,10 +12,13 @@ that .gitignore lists. Each is timed in a process of its own, with its
 own package and kernels (built into TREE/build/kernels), at chip_smoke's
 shapes: batch 8 with the engine's decode contexts, 64 x 2047 and 8 x
 1016, 32-token pages, fused write, on bf16, int8 and fp8 pages; K1 with
-a work list, K5 (the padded grid) without one. To compare two trees
-within one call give them as A B B A. Prints the card's name and power
-limit, then one JSON object per tree, kernel, page type and shape:
-{"tree", "kernel", "page", "shape", "ms"}.
+a work list, K5 (the padded grid) without one. Then the same on fp16
+activations over fp16, int8 and fp8 pages (K1's fp16 instances), in a
+tree whose wrapper takes them; another tree prints "not served". To
+compare two trees within one call give them as A B B A. Prints the
+card's name and power limit, then one JSON object per tree, kernel,
+activation and page type and shape: {"tree", "kernel", "act", "page",
+"shape", "ms"}.
 """
 from __future__ import annotations
 
@@ -44,11 +47,18 @@ def time_tree(tree: str) -> None:
     from aphrodite_tpu_torch.ops.cuda import paged_attention as pa
     from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
     timer = smoke.Timer(torch)
-    for page_dtype in (torch.bfloat16, torch.int8, torch.float8_e5m2):
+    for act, page_dtype in ((a, p) for a in ("bfloat16", "float16")
+                            for p in (getattr(torch, a), torch.int8,
+                                      torch.float8_e5m2)):
+        if getattr(torch, act) not in getattr(pa, "_ACT_CODE", {}):
+            print(json.dumps({"tree": tree, "act": act,
+                              "note": "not served"}), flush=True)
+            break
         for shape, ctxs, pps in SHAPES:
-            q, kp, vp, tb, ctx, sl, kn, vn = smoke.decode_problem(
-                torch, ctxs, PAGE_SIZE, pps, seed=99, fused=True,
-                page_dtype=page_dtype)
+            with smoke.activations(act):
+                q, kp, vp, tb, ctx, sl, kn, vn = smoke.decode_problem(
+                    torch, ctxs, PAGE_SIZE, pps, seed=99, fused=True,
+                    page_dtype=page_dtype)
             ppc = pa.choose_pages_per_chunk(pps, PAGE_SIZE, len(ctxs))
             work = pa.build_decode_work_list(
                 [-(-c // PAGE_SIZE) for c in ctxs], ppc)
@@ -61,7 +71,7 @@ def time_tree(tree: str) -> None:
                 ms = timer(lambda: pa.paged_decode_attention(
                     q, kp, vp, tb, ctx, sl, kn, vn, **extra, **kw))
                 print(json.dumps({"tree": tree, "kernel": kernel,
-                                  "page": page, "shape": shape,
+                                  "act": act, "page": page, "shape": shape,
                                   "ms": ms}), flush=True)
 
 

@@ -24,7 +24,9 @@ from the same seed:
   and a 64-row decode round; phase 4's unaligned round; the same prompt
   round's 2728 rows as slots; its 8192 padded rows on bf16, int8 and fp8
   e5m2 pages, where an older tree runs its whole chain, the rows
-  quantized by `quantize_kv` and then scattered), each by
+  quantized by `quantize_kv` and then scattered; then, in a tree whose
+  slot writer takes fp16 rows, K3's two shapes and the 8192 padded rows
+  from fp16 rows into fp16, int8 and fp8 pages), each by
   `chip_smoke.time_slot_arm`: the wrapper, its plain version, the
   library call (`index_copy_`; on 8-bit pages none, and `index_copy_`
   of the codes as a floor), device launches a call and the bound.
@@ -32,7 +34,8 @@ from the same seed:
 With `--sweep`, each tree whose slot writer plans its slot-read order
 (`kv_write.SLOT_FIRST_MIN_TOKENS`) also times both orders, pinned by
 setting that threshold (`chip_smoke.slot_order`), on bf16 and int8
-pages, at 16-8192 tokens, every row live and one third live (each 1024
+pages (from bf16 rows) and, where the tree takes them, on fp16 and int8
+pages from fp16 rows, at 16-8192 tokens, every row live and one third live (each 1024
 tokens, or each eighth of a shorter launch, live in its first third: a
 padded prompt round), the plan's order beside them: where they cross
 sets `SLOT_FIRST_MIN_TOKENS`. Other trees print "not pinnable".
@@ -83,7 +86,10 @@ def time_writers(tree: str, torch, kw, smoke, timer) -> None:
         v_flat.index_copy_(0, c["slots"], src_v))))
     del kp, vp, k_flat, v_flat
     pages = smoke.slot_pages(torch, gen)
-    for arm in smoke.slot_arms(torch, gen):
+    fp16 = (torch.float16, torch.float16) in kw.SLOT_KINDS
+    if not fp16:
+        _emit(tree, "fp16 rows", None, note="not served")
+    for arm in smoke.slot_arms(torch, gen, fp16=fp16):
         name, t = smoke.time_slot_arm(torch, kw, timer, arm, pages,
                                       num_pages * 32)
         _emit(tree, name, t.pop("ms"), **t)
@@ -98,13 +104,17 @@ def sweep_slot_order(tree: str, torch, kw, smoke, timer) -> None:
     hd, num_pages = 1024, 4096
     num_slots = num_pages * 32
     base = torch.randn(num_pages, 32, hd, generator=gen, device="cuda")
-    kn, vn = (torch.randn(max(SWEEP_TOKENS), hd, generator=gen,
-                          device="cuda").to(torch.bfloat16)
-              for _ in range(2))
+    rows = [torch.randn(max(SWEEP_TOKENS), hd, generator=gen,
+                        device="cuda") for _ in range(2)]
     perm = torch.randperm(num_slots, generator=gen, device="cuda").to(
         torch.int32)
     sms = kw.build.sm_count("cuda")
-    for page_dtype in (torch.bfloat16, torch.int8):
+    f16 = torch.float16
+    pairs = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8)]
+    if (f16, f16) in kw.SLOT_KINDS:
+        pairs += [(f16, f16), (f16, torch.int8)]
+    for src_dtype, page_dtype in pairs:
+        kn, vn = (r.to(src_dtype) for r in rows)
         kp = quantize_kv(base, page_dtype, 0.05)
         vp = kp.clone()
         for n in SWEEP_TOKENS:
@@ -121,10 +131,12 @@ def sweep_slot_order(tree: str, torch, kw, smoke, timer) -> None:
                             lambda: kw.write_kv_pages(kn[:n], vn[:n], kp,
                                                       vp, slots,
                                                       kv_scale=0.05))
-                _emit(tree, f"slot order, {page_dtype}", None, tokens=n,
+                _emit(tree, f"slot order, {src_dtype} rows, {page_dtype}",
+                      None, tokens=n,
                       layout=layout, beside_ms=times["False"],
                       first_ms=times["True"], plan_ms=times["None"],
                       plan=list(kw.slot_write_plan(n, hd * 2, sms)))
+        del kn, vn, kp, vp
 
 
 def engine_rounds(tree: str, torch, smoke) -> None:

@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
 1. Card: requires `torch.cuda.is_available()`; prints the device name
    and `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
 2. Build: compiles every kernel source under `aphrodite_tpu_torch/csrc/`
-   with nvcc for sm_90a (one process per source, in parallel) and prints
+   with nvcc for sm_90a (one process per source, in parallel: K1's fp16
+   instances are a source of their own) and prints
    each source's `-Xptxas -v` report on one line, then K1's dynamic
    shared memory per block by page type and slot width, K6 / K10's
    (`quant_gemm_kernel`) at 4 and 8 bits, and that of the m > 64
@@ -28,14 +29,21 @@ Phases, in order; any failure exits non-zero:
      Tolerance: |kernel - plain| <= 2e-2 + 2e-2 |plain| (bf16 outputs
      of f32 sums in another order; exp2 differs by an ulp).
      Pages written by the fused write, quantized codes included: exact.
-   - prefill page writer (K2): full pages, tail pages, skipped cells.
-     Exact; a control, the plain version also writing row `valid` of
-     each tail page, must differ.
+     Then K1's and K5's fp16 instances (fp16 activations; the plain
+     version rounds q and p to fp16 as they do) over fp16 pages at
+     every case above, over int8 and fp8 pages at 32-token pages, each
+     with a control that must miss (the neighbouring head's K rows), the
+     fused write at the edges of fp16 rows (fp16 pages bit for bit), at
+     the same tolerance, the largest error reported.
+   - prefill page writer (K2): full pages, tail pages, skipped cells,
+     on bf16 and fp16 pages. Exact; a control, the plain version also
+     writing row `valid` of each tail page, must differ.
    - slot writer (K3/K4, `kv_write_slots_kernel`, which quantizes 8-bit
      pages itself): every timed arm below in the plan's slot-read order
-     and in both pinned; bf16 and f32 rows into bf16/f32, int8 and fp8
-     pages, shared pages and padding slots of every kind; int8 ties and
-     clamps at S 0.25, fp8 e5m2 midpoints, overflow to +-inf and NaN.
+     and in both pinned; bf16, fp16 and f32 rows into pages of their
+     dtype, int8 and fp8 pages, shared pages and padding slots of every
+     kind; int8 ties and clamps at S 0.25, fp8 e5m2 midpoints, overflow
+     to +-inf and NaN, fp16's own edges around e5m2's overflow.
      Exact; two controls must differ: the plain version at kv_scale x
      1.01 on int8 pages, and with the live slots moved one row on bf16
      pages. Timed at the window run's 2 rows (K3), a 64-row decode round
@@ -45,7 +53,8 @@ Phases, in order; any failure exits non-zero:
      route), each with its plan, its device launches a call (1) and
      `index_copy_` of the live rows (of the codes on 8-bit pages, where
      no PyTorch call quantizes and scatters: a floor, not the library
-     call).
+     call); then from fp16 rows: K3's two arms on fp16 pages and the
+     8192-row round into fp16, int8 and fp8 pages.
    Times each kernel (CUDA events, L2 flushed before every launch, the
    stream held by a device spin until the call is enqueued so host time
    stays out, median), its plain version, one PyTorch library call
@@ -58,7 +67,9 @@ Phases, in order; any failure exits non-zero:
    type at phase 4's decode batch and at batch 64 x 2047, K1 also at
    batch 8 x 1016 (the long-context profile's shape), with the split
    count, merge launches and the wrapper's host time
-   per call; the plain version at the kernel's split count.
+   per call; the plain version at the kernel's split count; their fp16
+   instances on fp16 pages at the same shapes, on 8-bit pages at B 8,
+   SDPA in fp16.
    A full-width 2-layer model (weights large enough that attention
    matters) is checked end to end against itself run through the plain
    versions: prompt + 3 decode steps, logits within 2e-2 relative.
@@ -92,7 +103,9 @@ Phases, in order; any failure exits non-zero:
    edges; K2 and K3 / K4 exact with their controls at the geometry's
    row width; K1 timed at B 64 x 2047 on each page type and at B 8 on
    bf16 pages beside its plain version, SDPA and the bound, the fastest
-   named.
+   named. At group 1 with head_dim 80, 96 and 256 and at group 32, K1's
+   fp16 instances too: the same checks on fp16, int8 and fp8 pages, the
+   control, and K1 timed at B 64 x 2047 on fp16 pages.
 4. End to end: the port's engine serves a Llama of Mistral-7B width and
    depth (hidden 4096, 32 layers, 32/8 heads, intermediate 14336, vocab
    32000), bf16, dummy weights from seed 0, 32-token pages, token ids in
@@ -467,8 +480,26 @@ Phases, in order; any failure exits non-zero:
    q8_0 and int8 at shapes their gates take: `apply` on the card against
    the same `apply` on the CPU at m 1, 5 and 72 (bf16: phase 8's
    tolerance; f32: 1e-4 of max |CPU|), no quantized wrapper launching.
-22. Prints the kernel JSON line (launches summed over every path
-   above), the card line, and last {"ok": true, "device": {...}}.
+22. float16 end to end (`run_fp16_phase`; the JAX package serves
+   `dtype="float16"` with its f32 jnp attention and XLA scatter, the
+   port with K1-K4's fp16 instances), dummy weights from seed 0:
+   (a) MISTRAL_7B whole at dtype float16 (32 layers, 14.5 GB): phase
+   4's mix at multi_step 1 with APHRODITE_SPEC=1 (the default) and
+   again with APHRODITE_ATTN_RAGGED=0 (K5); phase 5b's n-gram mix
+   classic and with oracle drafts (verify rows through K4 and read-only
+   K1 at fp16, tokens equal); a batch-8 decode step profiled beside
+   phase 4's bf16 one (device ms, idle share, K1's ms). (b) The 2-layer
+   full-width check of phase 3 in fp16 on fp16 pages. (c) int8 KV pages
+   at 2 layers through the mix. (d) Mistral-7B-v0.1 (its 4096 window) at
+   2 layers on fp16 pages through the mix: K3 on fp16 rows. (e) GPTQ
+   4-bit group 128 at 2 layers: every layer on the fallback route (the
+   kernels take bf16 activations), the mix, a decode step profiled and
+   projected to 32 layers. Every request finishes; each run's required
+   kernels launch.
+23. Prints the kernel JSON line (launches summed over every path
+   above; the fp16 instances', `name@fp16`, over phase 22's paths, the
+   others' over the rest), the card line, and last {"ok": true,
+   "device": {...}}.
 
 No earlier phase is cut in depth for time (PERF.md has the run's
 seconds on an NVIDIA H100 80GB HBM3).
@@ -487,6 +518,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 HQ, HKV, HEAD_DIM = 32, 8, 128
+ACT = "bfloat16"                   # the kernel checks' activation dtype
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8
@@ -585,6 +617,28 @@ def heads(hq: int, hkv: int, head_dim: int = 128):
         HQ, HKV, HEAD_DIM = saved
 
 
+@contextlib.contextmanager
+def activations(name: str):
+    """The kernel checks and timers on `name` activations ("float16":
+    K1's fp16 instances; the rows the writers take): they read ACT when
+    called."""
+    global ACT
+    saved, ACT = ACT, name
+    try:
+        yield
+    finally:
+        ACT = saved
+
+
+def act_dtype(torch):
+    return getattr(torch, ACT)
+
+
+def act_label() -> str:
+    """" under fp16 activations" where the checks run at float16."""
+    return "" if ACT == "bfloat16" else " under fp16 activations"
+
+
 def k1_heads(pa) -> int:
     """K1's blocks a (sequence, split) at the current geometry: each kv
     head's query rows in blocks of 16 (what its split policy counts)."""
@@ -595,8 +649,9 @@ def k1_heads(pa) -> int:
 
 def decode_problem(torch, ctxs, page_size, pages_per_seq, seed,
                    alibi=False, fused=False, page_dtype=None):
-    """Random decode inputs; pages in bf16, or quantized to int8 (scale
-    KV_SCALE) or fp8 e5m2 from the same bf16 values."""
+    """Random decode inputs in the activation dtype (`activations`);
+    pages in it, or quantized to int8 (scale KV_SCALE) or fp8 e5m2 from
+    the same values."""
     from aphrodite_tpu_torch.ops.kv_quant import quantize_kv
     gen = torch.Generator(device="cuda").manual_seed(seed)
     batch = len(ctxs)
@@ -605,12 +660,12 @@ def decode_problem(torch, ctxs, page_size, pages_per_seq, seed,
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
+            act_dtype(torch))
     q = randn(batch, HQ, HEAD_DIM)
     kp = quantize_kv(randn(num_pages, page_size, hd),
-                     page_dtype or torch.bfloat16, KV_SCALE)
+                     page_dtype or act_dtype(torch), KV_SCALE)
     vp = quantize_kv(randn(num_pages, page_size, hd),
-                     page_dtype or torch.bfloat16, KV_SCALE)
+                     page_dtype or act_dtype(torch), KV_SCALE)
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     tables = perm[:batch * pages_per_seq].view(batch, pages_per_seq).to(
         torch.int32).contiguous()
@@ -624,8 +679,10 @@ def decode_problem(torch, ctxs, page_size, pages_per_seq, seed,
 
 
 def _pages_equal(torch, a, b):
-    view = (lambda t: t.view(torch.uint8)) if a.element_size() == 1 \
-        else (lambda t: t)
+    """Equal pages: bit for bit on 8-bit and fp16 pages (a copied NaN
+    keeps its bits), by value otherwise."""
+    view = (lambda t: t.view(torch.uint8)) if a.element_size() == 1 or \
+        a.dtype == torch.float16 else (lambda t: t)
     return torch.equal(view(a), view(b))
 
 
@@ -687,7 +744,8 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
                     q, kp2, vp2, tb, ctx, sl, kn, vn, num_splits=n_split,
                     **kw)
                 torch.cuda.synchronize()
-                what = (f"{name} {kind} page {page_size} batch {batch} "
+                what = (f"{name} {kind}{act_label()} page {page_size} "
+                        f"batch {batch} "
                         f"fused {fused} alibi {alibi} amla {amla}"
                         + f" splits {n_split}")
                 if fused:
@@ -703,7 +761,8 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
                 worst = max(worst, err.max().item())
                 cases += 1
     log(f"{name} paged_decode_attention{'' if ragged else '_tm'} on "
-        f"{kind} pages (Hq {HQ}, Hkv {HKV}, d {HEAD_DIM}) vs plain: "
+        f"{kind} pages{act_label()} (Hq {HQ}, Hkv {HKV}, d {HEAD_DIM}) vs "
+        f"plain: "
         f"{cases} cases, max abs err {worst} "
         f"(tolerance {ATOL} + {RTOL}|plain|); fused-write pages exact"
         + ("; split counts 1, 2, the policy's and one per chunk"
@@ -711,19 +770,24 @@ def check_decode_attention(torch, pa, ragged: bool, page_dtype,
     return worst
 
 
-def check_k5_control(torch, pa):
-    """K5 at batch 64 x 2047 (bf16, 32-token pages) within tolerance of
-    the plain version, and a wrong plain version, the K rows of the
-    neighbouring kv head (pages rolled by head_dim along the lanes),
-    beyond it: a head-offset fault in the staged rows cannot pass."""
+def check_k5_control(torch, pa, ragged: bool = False):
+    """K5 (K1 with `ragged`) at batch 64 x 2047 (pages of the activation
+    dtype, 32 tokens) within tolerance of the plain version, and a wrong
+    plain version, the K rows of the neighbouring kv head (pages rolled
+    by head_dim along the lanes), beyond it: a head-offset fault in the
+    staged rows cannot pass."""
+    name = "K1" if ragged else "K5"
     ctxs = [2047] * 62 + [1000, 17]
     q, kp, vp, tb, ctx, _, _, _ = decode_problem(torch, ctxs, 32, 64,
                                                  seed=77)
     ppc = pa.choose_pages_per_chunk(64, 32, len(ctxs))
     n_split = pa.choose_decode_splits(len(ctxs), k1_heads(pa), 64, ppc,
                                       pa.sm_count("cuda"))
+    work = pa.build_decode_work_list([-(-c // 32) for c in ctxs], ppc) \
+        if ragged else None
     kw = dict(scale=HEAD_DIM ** -0.5, pages_per_chunk=ppc)
-    got = pa.paged_decode_attention(q, kp, vp, tb, ctx, **kw)
+    got = pa.paged_decode_attention(q, kp, vp, tb, ctx, work_items=work,
+                                    **kw)
     good = pa.paged_decode_attention_plain(q, kp, vp, tb, ctx,
                                            num_splits=n_split, **kw)
     bad = pa.paged_decode_attention_plain(q, kp.roll(HEAD_DIM, 2), vp, tb,
@@ -732,13 +796,15 @@ def check_k5_control(torch, pa):
     err = (got.float() - good.float()).abs()
     c_err = (got.float() - bad.float()).abs()
     if bool((err > ATOL + RTOL * good.float().abs()).any()):
-        fail(f"K5 control case: max err {err.max().item()} against plain")
+        fail(f"{name}{act_label()} control case: max err "
+             f"{err.max().item()} against plain")
     if not bool((c_err > ATOL + RTOL * bad.float().abs()).any()):
-        fail("K5: the control (the neighbouring head's K rows) is within "
-             "tolerance of the kernel")
-    log(f"K5 control (the neighbouring kv head's K rows) missed: max err "
-        f"{c_err.max().item():.4f} against {err.max().item():.4f} for the "
-        f"plain version ({n_split} split(s))")
+        fail(f"{name}{act_label()}: the control (the neighbouring head's K "
+             "rows) is within tolerance of the kernel")
+    log(f"{name}{act_label()} control (the neighbouring kv head's K rows) "
+        f"missed: max err {c_err.max().item():.4f} against "
+        f"{err.max().item():.4f} for the plain version ({n_split} "
+        "split(s))")
 
 
 def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
@@ -747,7 +813,7 @@ def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
     K5 at one decode shape, chunked as the engine chunks it."""
     import torch.nn.functional as F
     from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
-    page_dtype = page_dtype or torch.bfloat16
+    page_dtype = page_dtype or act_dtype(torch)
     q, kp, vp, tb, ctx, sl, kn, vn = decode_problem(
         torch, ctxs, page_size, pps, seed=99, fused=fused,
         page_dtype=page_dtype)
@@ -780,14 +846,14 @@ def time_decode_attention(torch, pa, timer, ctxs, page_size, pps, fused,
         q, kp, vp, tb, ctx, sl, kn, vn,
         num_splits=1 if ragged else n_split, **kw))
     # Library yardstick: SDPA over each sequence's KV gathered to the
-    # batch-max context and dequantized to bf16 (gather, dequant and
-    # head expansion outside the timing).
+    # batch-max context and dequantized to the activation dtype (gather,
+    # dequant and head expansion outside the timing).
     lmax = max(ctxs)
     idx = tb.long()
     deq = kw["kv_scale"]
-    kg = (kp[idx].to(torch.bfloat16) * deq).view(
+    kg = (kp[idx].to(q.dtype) * deq).view(
         batch, pps * page_size, HKV, HEAD_DIM)[:, :lmax]
-    vg = (vp[idx].to(torch.bfloat16) * deq).view(
+    vg = (vp[idx].to(q.dtype) * deq).view(
         batch, pps * page_size, HKV, HEAD_DIM)[:, :lmax]
     group = HQ // HKV
     kx = kg.permute(0, 2, 1, 3).repeat_interleave(group, 1).contiguous()
@@ -863,10 +929,13 @@ def k2_bound_bytes(c) -> int:
 
 
 def check_and_time_writers(torch, kw, timer, profiled: bool = True,
-                           timed: bool = True):
+                           timed: bool = True, fp16: bool = False):
     """K2 exact against its plain version (with a control), then K3 / K4
     (`check_and_time_slot_writers`); with `timed` False nothing is timed
-    (K3 / K4 only `check_slot_writers`) and None is returned for each."""
+    (K3 / K4 only `check_slot_writers`) and None is returned for each.
+    With `fp16` K2 is also held on fp16 pages, with its control, and the
+    slot writer's arms of fp16 rows are checked and timed too. Returns
+    K2's times and the slot writer's by arm."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     hd = HKV * HEAD_DIM
     page_size = 32
@@ -897,16 +966,36 @@ def check_and_time_writers(torch, kw, timer, profiled: bool = True,
     if torch.equal(a[0], bad[0]) or torch.equal(a[1], bad[1]):
         fail("K2: the control (row valid written) equals the kernel's "
              "pages")
+    if fp16:
+        # fp16 pages: bf16's path byte for byte (16-byte vectors).
+        f16 = [t.to(torch.float16) for t in (knew, vnew, kp, vp)]
+        a = kw.write_kv_pages_prefill(f16[0], f16[1], f16[2].clone(),
+                                      f16[3].clone(), pid_t, sblk, vld_t)
+        b = kw.write_kv_pages_prefill_plain(f16[0], f16[1], f16[2].clone(),
+                                            f16[3].clone(), pid_t, vld_t)
+        bad = kw.write_kv_pages_prefill_plain(
+            f16[0], f16[1], f16[2].clone(), f16[3].clone(), pid_t,
+            vld_t + 1)
+        torch.cuda.synchronize()
+        if not (_pages_equal(torch, a[0], b[0]) and
+                _pages_equal(torch, a[1], b[1])):
+            fail("K2 write_kv_pages_prefill on fp16 pages differs from its "
+                 "plain version")
+        if _pages_equal(torch, a[0], bad[0]):
+            fail("K2 on fp16 pages: the control (row valid written) equals "
+                 "the kernel's pages")
+        del f16, a, b, bad
     cells, rows = c["cells"], c["rows"]
     block_rows, threads = kw.prefill_write_plan(page_size, hd * 2)
     log(f"K2 write_kv_pages_prefill vs plain (row width {hd}): exact "
         f"({cells} cells, {rows} rows, tail pages and skipped cells; blocks "
-        f"of {block_rows} rows, {threads} threads); the control (row valid "
+        f"of {block_rows} rows, {threads} threads) on bf16"
+        + (" and fp16" if fp16 else "") + " pages; the control (row valid "
         "written) differs")
     if not timed:
         check_slot_writers(torch, kw, slot_arms(torch, gen),
                            slot_pages(torch, gen), 4096 * 32)
-        return None, None, None
+        return None, None
     # Library yardstick: index_copy_ of the valid rows into their slots.
     slots = c["slots"]
     src_k, src_v = knew[c["live"]], vnew[c["live"]]
@@ -920,11 +1009,12 @@ def check_and_time_writers(torch, kw, timer, profiled: bool = True,
                                   v_flat.index_copy_(0, slots, src_v))))
     k2["bound_ms"], k2["bound_by"] = bound(k2_bound_bytes(c), 0)
 
-    k3, k4 = check_and_time_slot_writers(torch, kw, timer, gen, profiled)
-    return k2, k3, k4
+    return k2, check_and_time_slot_writers(torch, kw, timer, gen, profiled,
+                                           fp16)
 
 
-def slot_arms(torch, gen, num_pages: int = 4096, page_size: int = 32):
+def slot_arms(torch, gen, num_pages: int = 4096, page_size: int = 32,
+              fp16: bool = False):
     """K3 / K4's timed arms at the main path's shapes, 8 kv heads of 128,
     32-token pages in a pool of `num_pages`: (name, distinct_pages, knew,
     vnew, page dtype, slots int32 on the card; padding slots num_slots):
@@ -933,7 +1023,9 @@ def slot_arms(torch, gen, num_pages: int = 4096, page_size: int = 32):
     (two 12-token prompts padded to 16 rows: 24 live slots of 32), at
     `k2_problem`'s round with its 2728 live rows as slots, and at the
     same round's 8192 padded rows (the route of an 8-bit prompt round)
-    on bf16, int8 and fp8 e5m2 pages. The rows are bf16 (the model's)."""
+    on bf16, int8 and fp8 e5m2 pages. The rows are bf16 (the model's);
+    with `fp16` the arms of fp16 rows follow: K3's two, and the 8-bit
+    prompt round into fp16, int8 and fp8 pages."""
     hd = HKV * HEAD_DIM
     num_slots = num_pages * page_size
 
@@ -967,18 +1059,33 @@ def slot_arms(torch, gen, num_pages: int = 4096, page_size: int = 32):
                              ("fp8", torch.float8_e5m2)):
         arms.append((f"K4 {kind}, 8192 rows, 2728 live", False, c["knew"],
                      c["vnew"], page_dtype, padded))
+    if fp16:
+        # The same shapes from fp16 rows (the float16 model's): K3's two,
+        # K4's 8-bit prompt round into fp16, int8 and fp8 pages.
+        f16 = torch.float16
+        arms += [
+            ("K3 fp16, 2 rows", True, arms[0][2].to(f16),
+             arms[0][3].to(f16), f16, arms[0][5]),
+            ("K3 fp16, B 64", True, arms[1][2].to(f16), arms[1][3].to(f16),
+             f16, arms[1][5])]
+        for kind, page_dtype in (("fp16", f16), ("int8", torch.int8),
+                                 ("fp8", torch.float8_e5m2)):
+            arms.append((f"K4 fp16 rows, {kind} pages, 8192 rows, 2728 "
+                         "live", False, c["knew"].to(f16),
+                         c["vnew"].to(f16), page_dtype, padded))
     return arms
 
 
 def slot_pages(torch, gen, num_pages: int = 4096, page_size: int = 32):
-    """K and V pages of `slot_arms`' pool by page dtype: bf16 N(0, 1) and
-    its int8 (scale KV_SCALE) and fp8 e5m2 codes."""
+    """K and V pages of `slot_arms`' pool by page dtype: bf16 N(0, 1),
+    its fp16 values and its int8 (scale KV_SCALE) and fp8 e5m2 codes."""
     from aphrodite_tpu_torch.ops.kv_quant import quantize_kv
     shape = (num_pages, page_size, HKV * HEAD_DIM)
     bf = [torch.randn(*shape, generator=gen, device="cuda").to(
         torch.bfloat16) for _ in range(2)]
     return {dt: [quantize_kv(p, dt, KV_SCALE) for p in bf]
-            for dt in (torch.bfloat16, torch.int8, torch.float8_e5m2)}
+            for dt in (torch.bfloat16, torch.float16, torch.int8,
+                       torch.float8_e5m2)}
 
 
 def device_launches(torch, fn) -> int:
@@ -1082,15 +1189,20 @@ def edge_rows(torch, src_dtype, hd: int, n: int = 48):
     that clamp at +-127; every midpoint of two neighbouring finite fp8
     e5m2 values and of the largest and +inf (61440), values past it,
     +-inf and NaN; all of them negated too, repeated to fill a row and
-    shifted one place a row."""
+    shifted one place a row. fp16 rows (the twin): the same list but
+    the values past fp16's range, plus fp16's own edges around e5m2's
+    overflow (57376, 60000, 61408, 61472, 65504), each exact in fp16."""
     e5m2 = torch.arange(0, 0x7C, dtype=torch.uint8).view(
         torch.float8_e5m2).float()
+    if src_dtype == torch.float16:
+        clamp, past = [], [57376.0, 60000.0, 61408.0, 61472.0, 65504.0]
+    else:
+        clamp, past = [2.0 ** 30], [65536.0, 2.0 ** 20]
     vals = torch.cat([
         torch.arange(-128, 128).float() * 0.25 + 0.125,
-        torch.tensor([31.875, 32.0, 40.0, 2.0 ** 30]), e5m2,
+        torch.tensor([31.875, 32.0, 40.0] + clamp), e5m2,
         (e5m2[:-1] + e5m2[1:]) / 2,
-        torch.tensor([61440.0, 65536.0, 2.0 ** 20, float("inf"),
-                      float("nan")])])
+        torch.tensor([61440.0] + past + [float("inf"), float("nan")])])
     vals = torch.cat([vals, -vals]).repeat(-(-hd // (2 * len(vals))) + 1)
     rows = torch.stack([vals[r:r + hd] for r in range(n)])
     return rows.to("cuda", src_dtype).contiguous()
@@ -1148,9 +1260,10 @@ def check_slot_writers(torch, kw, arms, pages, num_slots: int):
                   edges, edges.flip(0).contiguous(), kp, kp.clone(),
                   slots[:48], scale=0.25, orders=(False, True))
     log("K3/K4 write_kv_pages vs plain: exact (every timed arm in both "
-        "slot-read orders; bf16 and f32 rows into bf16/f32, int8 and fp8 "
-        "pages, shared pages, padding slots; int8 ties and clamps at S "
-        "0.25, fp8 midpoints, overflow and NaN)")
+        "slot-read orders; bf16, fp16 and f32 rows into pages of their "
+        "dtype, int8 and fp8 pages, shared pages, padding slots; int8 ties "
+        "and clamps at S 0.25, fp8 midpoints, overflow and NaN, fp16's "
+        "edges around e5m2's overflow)")
     kn = torch.randn(96, hd, generator=gen, device="cuda").to(torch.bfloat16)
     kp = quantize_kv(base, torch.int8, KV_SCALE)
     got = kw.write_kv_pages(kn, kn, kp.clone(), kp.clone(), slots,
@@ -1172,17 +1285,19 @@ def check_slot_writers(torch, kw, arms, pages, num_slots: int):
 
 def check_fused_write_edges(torch, pa, kw):
     """K1's (work list) and K5's fused write at the 8-bit rules' edges
-    (`edge_rows` as the new K and V, S = 0.25 on int8 pages): the pages
-    equal the slot writer's plain version writing the same rows at each
+    (`edge_rows` of the activation dtype as the new K and V, S = 0.25 on
+    int8 pages; under fp16 activations fp16 pages too): the pages equal
+    the slot writer's plain version writing the same rows at each
     sequence's position ctx - 1 (a sequence at ctx 0 writes nothing)."""
     from aphrodite_tpu_torch.ops.kv_quant import dequant_scale
     ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512]
     page_size, pps, batch = 32, 64, len(ctxs)
     ppc = pa.choose_pages_per_chunk(pps, page_size, batch)
     work = pa.build_decode_work_list([-(-c // page_size) for c in ctxs], ppc)
-    rows = edge_rows(torch, torch.bfloat16, HKV * HEAD_DIM, batch)
+    rows = edge_rows(torch, act_dtype(torch), HKV * HEAD_DIM, batch)
     vrows = rows.flip(0).contiguous()
-    for page_dtype in (torch.int8, torch.float8_e5m2):
+    for page_dtype in (torch.int8, torch.float8_e5m2) + (
+            (torch.float16,) if ACT == "float16" else ()):
         scale = dequant_scale(page_dtype, 0.25)
         for name, items in (("K1", work), ("K5", None)):
             q, kp, vp, tb, ctx, _, _, _ = decode_problem(
@@ -1201,22 +1316,24 @@ def check_fused_write_edges(torch, pa, kw):
             torch.cuda.synchronize()
             if not (_pages_equal(torch, kp, want[0]) and
                     _pages_equal(torch, vp, want[1])):
-                fail(f"{name} fused write on {page_dtype} pages differs from "
-                     "the slot writer's plain version at the edge values")
-    log("K1/K5 fused write at the 8-bit edges (int8 ties and clamps at S "
-        "0.25, fp8 midpoints, overflow and NaN) equals the slot writer's "
-        "plain version on int8 and fp8 pages")
+                fail(f"{name} fused write on {page_dtype} pages"
+                     f"{act_label()} differs from the slot writer's plain "
+                     "version at the edge values")
+    log(f"K1/K5 fused write{act_label()} at the 8-bit edges (int8 ties and "
+        "clamps at S 0.25, fp8 midpoints, overflow and NaN) equals the "
+        "slot writer's plain version on int8 and fp8 pages"
+        + (" and, bit for bit, on fp16 pages" if ACT == "float16" else ""))
 
 
 def check_and_time_slot_writers(torch, kw, timer, gen,
-                                profiled: bool = True):
-    """K3 / K4: `check_slot_writers` on `slot_arms`, then each arm timed
-    with `time_slot_arm` and held to one launch a call: device launches
-    in a torch.profiler trace, or with `profiled` False the wrapper's
-    launch counter. Returns K3's arm at the window run's decode step and
-    K4's at the 8-bit prompt round on int8 pages, for the kernel line."""
+                                profiled: bool = True, fp16: bool = False):
+    """K3 / K4: `check_slot_writers` on `slot_arms` (with `fp16`, its
+    arms of fp16 rows too), then each arm timed with `time_slot_arm` and
+    held to one launch a call: device launches in a torch.profiler
+    trace, or with `profiled` False the wrapper's launch counter.
+    Returns each arm's times by name."""
     pages = slot_pages(torch, gen)
-    arms = slot_arms(torch, gen)
+    arms = slot_arms(torch, gen, fp16=fp16)
     num_slots = 4096 * 32
     check_slot_writers(torch, kw, arms, pages, num_slots)
     sms = kw.build.sm_count("cuda")
@@ -1239,24 +1356,24 @@ def check_and_time_slot_writers(torch, kw, timer, gen,
         if t["launches_per_call"] != 1:
             fail(f"{name}: write_kv_pages ran {t['launches_per_call']} "
                  f"{'device' if profiled else 'wrapper'} launches, not 1")
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    return ({k: timed["K3 bf16, 2 rows"][k] for k in keys},
-            {k: timed["K4 int8, 8192 rows, 2728 live"][k] for k in keys})
+    return timed
 
 
 # ------------------------------------------ full-width model check --
 
-def check_model_against_plain(torch):
-    """A 2-layer Llama at Mistral-7B width, weights U(-0.05, 0.05) so
-    attention shapes the output: prompt (page-aligned -> K2) and 3
-    decode steps (K1 fused) through the kernels vs through the plain
-    versions; logits within 2e-2 of max |logit|."""
+def check_model_against_plain(torch, dtype=None):
+    """A 2-layer Llama at Mistral-7B width in `dtype` (bf16 by default;
+    fp16 on fp16 pages), weights U(-0.05, 0.05) so attention shapes the
+    output: prompt (page-aligned -> K2) and 3 decode steps (K1 fused)
+    through the kernels vs through the plain versions; logits within
+    2e-2 of max |logit|."""
     from aphrodite_tpu_torch.modeling.models.llama import LlamaForCausalLM
     from aphrodite_tpu_torch.transformers_utils.config import (
         config_from_dict)
 
     cfg = config_from_dict(dict(MISTRAL_7B, num_hidden_layers=2))
-    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    model = LlamaForCausalLM(cfg, dtype=dtype)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     params = model.init_params(dev)
@@ -1266,7 +1383,10 @@ def check_model_against_plain(torch):
     for key, bucket in params.items():
         if key.endswith("layernorm") or key == "model.norm":
             bucket["weight"].fill_(1.0)
-    compare_with_plain(torch, model, params, "full-width 2-layer model")
+    compare_with_plain(torch, model, params,
+                       "full-width 2-layer model" + (
+                           " in fp16" if dtype == torch.float16 else ""),
+                       page_dtype=dtype)
 
 
 def kv_row_widths(model):
@@ -1285,7 +1405,8 @@ def compare_with_plain(torch, model, params, label: str,
                        rel_tol: float = 2e-2, w8a8_rows: bool = False,
                        controls=None, moe_margin=None,
                        param_controls=None, model_controls=None,
-                       prompt_len: int = 64, gptq_control=None) -> float:
+                       prompt_len: int = 64, gptq_control=None,
+                       page_dtype=None) -> float:
     """`model` over `params` (its few layers, each with pages of its own
     row width), a prompt (page-aligned -> K2)
     and 3 decode steps (K1 fused) through the kernels vs through their
@@ -1317,8 +1438,9 @@ def compare_with_plain(torch, model, params, label: str,
     too. `prompt_len` (a multiple of 32, at most 125) sets the prompt's
     rows. `gptq_control` ((what, wrong plain fn)): in the kernel run every
     GPTQ matmul's output must also miss phase 8's tolerance against that
-    wrong plain version on the same activations. Returns the largest
-    held relative error."""
+    wrong plain version on the same activations. `page_dtype` (default
+    bf16) is the KV pages' (fp16 for a float16 model). Returns the
+    largest held relative error."""
     from aphrodite_tpu_torch.common.sampling_params import SamplingParams
     from aphrodite_tpu_torch.common.sequence import (SequenceData,
                                                      SequenceGroupMetadata)
@@ -1456,9 +1578,9 @@ def compare_with_plain(torch, model, params, label: str,
         runner = ModelRunner(model, params, _Cfg(), None, page_size,
                              num_pages * page_size, dev)
         kv = [(torch.zeros(num_pages, page_size, width,
-                           dtype=torch.bfloat16, device=dev),
+                           dtype=page_dtype or torch.bfloat16, device=dev),
                torch.zeros(num_pages, page_size, width,
-                           dtype=torch.bfloat16, device=dev))
+                           dtype=page_dtype or torch.bfloat16, device=dev))
               for width in kv_row_widths(model)]
         saved = {}
         for (mod, name), fn in versions.items():
@@ -4354,7 +4476,7 @@ def check_moe_kernels(torch, pa, kw, timer):
         # same wrapper's device launches by torch.profiler, whose one-call
         # traces of these arms came back empty in all eight tries at
         # Hkv 16 in three full runs (never when this phase ran alone).
-        k2, _, _ = check_and_time_writers(torch, kw, timer, profiled=False)
+        k2, _ = check_and_time_writers(torch, kw, timer, profiled=False)
         log(f"K2 at Hkv 16 (256 cells, 2728 rows): kernel {k2['ms']:.4f} "
             f"ms, plain {k2['plain_ms']:.4f} ms, index_copy_ "
             f"{k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.6f} ms "
@@ -4717,6 +4839,9 @@ ARCH_GEOMETRIES = (("Qwen2-7B", 28, 4, 128), ("Phi-2", 32, 32, 80),
                    ("DeciLM group 8", 32, 4, 128),
                    ("DeciLM group 16", 32, 2, 128),
                    ("DeciLM group 32", 32, 1, 128))
+# The geometries at which phase 3d also holds K1's fp16 instances: group 1
+# at head_dim 80, 96 and 256, and group 32 (two 16-row blocks).
+FP16_GEOMETRIES = ("Phi-2", "GPT-NeoX-20B", "GPT-J-6B", "DeciLM group 32")
 ATTENTION_COUNTERS = ("paged_decode_attention", "write_kv_pages_prefill",
                       "write_kv_pages", "write_kv_pages_decode")
 
@@ -4787,12 +4912,16 @@ def check_arch_kernels(torch, pa, kw, timer):
     (`check_k1_row_control`); K1's fused write at the 8-bit edges; K2
     and K3 / K4 exact with their controls (untimed); K1 timed at B 64 x
     2047 on each page type, and at B 8 (phase 4's decode batch) on bf16
-    pages, beside its plain version, SDPA and the bound. Returns K1's
-    largest error and its times by (geometry, page type, shape)."""
+    pages, beside its plain version, SDPA and the bound. At group 1 with
+    head_dim 80, 96 and 256 and at group 32 (`FP16_GEOMETRIES`), K1's
+    fp16 instances too: the same checks on fp16, int8 and fp8 pages
+    under fp16 activations, the control, and K1 timed at B 64 x 2047 on
+    fp16 pages. Returns K1's largest error (bf16 activations, fp16
+    ones) and its times by (geometry, activations, page type, shape)."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "n_split", "merges", "host_us")
     e2e_ctx = [1016, 316, 80, 1016, 316, 80, 28, 28]
-    worst, times = 0.0, {}
+    worst, worst16, times = 0.0, 0.0, {}
     for name, hq, hkv, d in ARCH_GEOMETRIES:
         t0 = time.perf_counter()
         with heads(hq, hkv, d):
@@ -4804,29 +4933,43 @@ def check_arch_kernels(torch, pa, kw, timer):
             check_k1_row_control(torch, pa, name)
             check_fused_write_edges(torch, pa, kw)
             check_and_time_writers(torch, kw, None, timed=False)
-            for page_dtype in (torch.bfloat16, torch.int8,
-                               torch.float8_e5m2):
+            arms = [("bfloat16", page_dtype) for page_dtype in (
+                torch.bfloat16, torch.int8, torch.float8_e5m2)]
+            if name in FP16_GEOMETRIES:
+                with activations("float16"):
+                    for page_dtype in (torch.float16, torch.int8,
+                                       torch.float8_e5m2):
+                        worst16 = max(worst16, check_decode_attention(
+                            torch, pa, True, page_dtype, amlas=(True,),
+                            alibis=(False,), page_sizes=(32,),
+                            batches=(1, 64)))
+                    check_k1_row_control(torch, pa, f"{name}{act_label()}")
+                arms.append(("float16", torch.float16))
+            for act, page_dtype in arms:
                 kind = str(page_dtype).replace("torch.", "")
                 shapes = (("B 64 x 2047", [2047] * 64, 64),) + (
                     (("B 8", e2e_ctx, 36),)
                     if page_dtype == torch.bfloat16 else ())
                 for shape, ctxs, pps in shapes:
-                    t = dict(zip(keys, time_decode_attention(
-                        torch, pa, timer, ctxs, 32, pps, fused=True,
-                        page_dtype=page_dtype)))
-                    times[(name, kind, shape)] = t
+                    with activations(act):
+                        t = dict(zip(keys, time_decode_attention(
+                            torch, pa, timer, ctxs, 32, pps, fused=True,
+                            page_dtype=page_dtype)))
+                    times[(name, act, kind, shape)] = t
                     fastest = min(("K1", t["ms"]), ("plain", t["plain_ms"]),
                                   ("SDPA", t["library_ms"]),
                                   key=lambda kv: kv[1])[0]
+                    under = "" if act == "bfloat16" else \
+                        " under fp16 activations"
                     log(f"K1 at {name} (Hq {hq} / Hkv {hkv}, d {d}), {kind}"
-                        f" pages at {shape} (page 32, fused): kernel "
+                        f" pages{under} at {shape} (page 32, fused): kernel "
                         f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                         f"sdpa {t['library_ms']:.4f} ms, bound "
                         f"{t['bound_ms']:.6f} ms ({t['bound_by']}); fastest "
                         f"{fastest}; {t['n_split']} split(s), "
                         f"{t['merges']} merge launch(es) a call")
         log(f"phase 3d {name}: {time.perf_counter() - t0:.1f} s")
-    return worst, times
+    return worst, worst16, times
 
 
 def arch_params(torch, model, seed: int, bias_width: float = 0.05):
@@ -5751,6 +5894,171 @@ def run_fallback_phase(torch, counters, card: str, only: str = "abcde",
 
 
 
+# ------------------------------------------------ float16 end to end --
+
+def fp16_engine(torch, name: str, cfg: dict, **kw):
+    """An engine at `dtype="float16"` over `cfg` (its checkpoint's
+    torch_dtype float16), dummy weights from seed 0, 32-token pages;
+    fails unless the model and its pages (or the 8-bit ones asked for)
+    are fp16."""
+    from aphrodite_tpu_torch.engine.aphrodite_engine import AphroditeEngine
+    from aphrodite_tpu_torch.engine.args_tools import EngineArgs
+    path = os.path.join(HERE, "build", f"chip_smoke_fp16_{name}")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(cfg, torch_dtype="float16"), f)
+    t0 = time.perf_counter()
+    engine = AphroditeEngine.from_engine_args(EngineArgs(
+        model=path, load_format="dummy", dtype="float16", seed=0,
+        block_size=32, max_model_len=2048, skip_tokenizer_init=True,
+        disable_log_stats=True, **kw))
+    pages = engine.executor.cache_engine.dtype
+    want = {"int8": torch.int8, "fp8": torch.float8_e5m2}.get(
+        kw.get("kv_cache_dtype"), torch.float16)
+    embed = engine.executor.params["model.embed_tokens"]["weight"]
+    if engine.model_config.dtype != "float16" or \
+            embed.dtype != torch.float16 or pages != want:
+        fail(f"fp16 {name}: model {engine.model_config.dtype} / "
+             f"{embed.dtype}, pages {pages}")
+    log(f"fp16 {name} engine up in {time.perf_counter() - t0:.1f} s: "
+        f"{engine.cache_config.num_gpu_blocks} KV pages of 32 tokens "
+        f"({pages}), {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated")
+    return engine
+
+
+def run_fp16_phase(torch, counters, card: str, bf16_profile):
+    """Phase 22: float16 end to end at full width (`dtype="float16"`,
+    dummy weights from seed 0). (a) MISTRAL_7B whole (32 layers, 14.5
+    GB of fp16 weights): phase 4's mix at multi_step 1 with speculative
+    decoding on, as by default (the verify dispatches counted), then
+    with APHRODITE_ATTN_RAGGED=0 (K5's fp16 instance); the n-gram mix
+    classic and with oracle drafts (verify rows: K4 then read-only K1 at
+    fp16), tokens equal; a batch-8 decode step profiled beside phase
+    4's bf16 one. (b) `check_model_against_plain` in fp16. (c) int8 KV
+    pages at 2 layers: the mix (fp16 rows quantized by K1's fused write
+    and the slot writer). (d) Mistral-7B-v0.1's sliding window at 2
+    layers on fp16 pages: the mix (K3 on fp16 rows, read-only K1). (e)
+    GPTQ 4-bit, group 128, at 2 layers: every layer on the fallback
+    route (the kernels take bf16 activations only), the mix, a decode
+    step profiled and its device ms projected to 32 layers. Returns
+    (launches by path, seconds by part)."""
+    from aphrodite_tpu_torch.modeling.layers.quantization import (
+        get_quantization_config)
+    by_path, seconds = {}, {}
+    t0 = time.perf_counter()
+    engine = fp16_engine(torch, "mistral", MISTRAL_7B)
+    ex = engine.executor
+    real = ex.execute_spec_verify
+    dispatches = []
+
+    def verify(*a, **kw):
+        dispatches.append(1)
+        return real(*a, **kw)
+    ex.execute_spec_verify = verify
+    os.environ["APHRODITE_SPEC"] = "1"
+    try:
+        by_path["float16"] = run_engine(torch, engine, 1, counters, card,
+                                        tag="fp16 ")
+    finally:
+        os.environ["APHRODITE_SPEC"] = "0"
+        del ex.execute_spec_verify
+    log(f"fp16 mix with APHRODITE_SPEC=1 (the default): {len(dispatches)} "
+        "verify dispatch(es) from the n-gram drafter")
+    os.environ["APHRODITE_ATTN_RAGGED"] = "0"
+    try:
+        by_path["float16 padded grid"] = run_engine(
+            torch, engine, 1, counters, card, tag="fp16 padded ",
+            required=("paged_decode_attention_tm", "paged_decode_merge",
+                      "write_kv_pages_prefill", "write_kv_pages"),
+            absent=("paged_decode_attention",))
+    finally:
+        os.environ.pop("APHRODITE_ATTN_RAGGED")
+    classic, _, stats = run_spec_mix(torch, engine, counters, card,
+                                     spec=False, tag="fp16 classic")
+    tokens, launches, oracle = run_spec_mix(
+        torch, engine, counters, card, spec=True,
+        propose=oracle_drafter(stats["full"]), tag="fp16 oracle")
+    by_path["float16 spec"] = launches
+    if tokens != classic or oracle["dispatches"] < 1 or \
+            oracle["k4"] != 32 * oracle["dispatches"]:
+        fail(f"fp16 oracle verify rounds: {oracle['dispatches']} "
+             f"dispatches, {oracle['k4']} K4 launches, tokens equal "
+             f"{tokens == classic}")
+    wall, dev = profile_decode(torch, engine, "fp16 ")
+    log(f"fp16 vs bf16 batch-8 decode step (64-token prompts) on {card}: "
+        f"wall {wall:.2f} / {bf16_profile[0]:.2f} ms, device "
+        f"{dev:.2f} / {bf16_profile[1]:.2f} ms, idle share "
+        f"{1 - dev / wall:.3f} / {1 - bf16_profile[1] / bf16_profile[0]:.3f}")
+    del engine, ex, real
+    free_engine(torch, "fp16 Mistral-7B")
+    seconds["a"] = round(time.perf_counter() - t0, 1)
+
+    t0 = time.perf_counter()
+    check_model_against_plain(torch, torch.float16)
+    seconds["b"] = round(time.perf_counter() - t0, 1)
+
+    t0 = time.perf_counter()
+    engine = fp16_engine(torch, "int8kv", cut_layers(MISTRAL_7B, 2),
+                         kv_cache_dtype="int8")
+    by_path["float16 int8 KV"] = run_engine(
+        torch, engine, 1, counters, card, tag="fp16 int8 KV ",
+        required=("paged_decode_attention", "write_kv_pages"),
+        absent=("write_kv_pages_prefill",))
+    del engine
+    free_engine(torch, "fp16 int8 KV")
+    seconds["c"] = round(time.perf_counter() - t0, 1)
+
+    t0 = time.perf_counter()
+    engine = fp16_engine(torch, "window", cut_layers(MISTRAL_7B_V01, 2))
+    if engine.model_config.get_sliding_window() != 4096:
+        fail("fp16 Mistral-7B-v0.1 served without its window")
+    by_path["float16 sliding window"] = run_engine(
+        torch, engine, 1, counters, card, tag="fp16 window ",
+        required=("paged_decode_attention", "write_kv_pages_decode",
+                  "write_kv_pages_prefill"))
+    del engine
+    free_engine(torch, "fp16 sliding window")
+    seconds["d"] = round(time.perf_counter() - t0, 1)
+
+    t0 = time.perf_counter()
+    layers = 2
+    engine = fp16_engine(torch, "gptq", dict(
+        cut_layers(MISTRAL_7B, layers), quantization_config={
+            "quant_method": "gptq", "bits": 4, "group_size": GPTQ_GS,
+            "desc_act": False, "sym": False}))
+    method = get_quantization_config(engine.model_config).get_linear_method()
+    x = torch.zeros(1, 1, dtype=torch.float16, device="cuda")
+    routes = {key.rsplit(".", 1)[-1]: "kernels" if method.uses_kernels(
+        bucket, x) else "fallback"
+        for key, bucket in engine.executor.params.items()
+        if key.startswith("model.layers.") and "qweight" in bucket}
+    log(f"fp16 GPTQ (4 bits, group 128, {layers} layers): routes {routes}")
+    if set(routes.values()) != {"fallback"}:
+        fail(f"fp16 GPTQ: routes {routes}, every layer must take the "
+             "fallback")
+    os.environ["APHRODITE_W4A8"] = "0"
+    try:
+        by_path["float16 GPTQ fallback"] = run_engine(
+            torch, engine, 1, counters, card, tag="fp16 GPTQ ",
+            required=("paged_decode_attention", "write_kv_pages_prefill",
+                      "write_kv_pages"), absent=QUANT_COUNTERS)
+        profile = profile_fallback_engine(
+            torch, engine, "fp16 GPTQ ", card,
+            f"Mistral-7B width, {layers} layers", prompt=False)
+    finally:
+        os.environ.pop("APHRODITE_W4A8")
+    full = MISTRAL_7B["num_hidden_layers"]
+    log(f"fp16 GPTQ decode step projected to {full} layers (device ms x "
+        f"{full} / {layers}, the head counted {full // layers} times: an "
+        f"upper bound): {profile['decode_device_ms'] * full / layers:.2f} "
+        f"ms of device time on {card}")
+    del engine
+    free_engine(torch, "fp16 GPTQ")
+    seconds["e"] = round(time.perf_counter() - t0, 1)
+    return by_path, seconds
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "aphrodite_tpu_torch")):
         print("chip_smoke: aphrodite_tpu_torch/ not found beside this "
@@ -5800,8 +6108,8 @@ def main() -> int:
             f"{str(dt).replace('torch.', '')} {kind} " + " / ".join(
                 str(pa.k1_smem_bytes(dt, wide, HQ // HKV, HEAD_DIM, 32, ppc,
                                      64, 1)) for ppc in (4, 8, 16)) + " B"
-            for dt in (torch.bfloat16, torch.int8, torch.float8_e5m2,
-                       torch.float32)
+            for dt in (torch.bfloat16, torch.float16, torch.int8,
+                       torch.float8_e5m2, torch.float32)
             for kind, wide in (("narrow", False), ("wide", True))
             if not (wide and dt == torch.float32)) +
         "; group 16, d 256, page 256, 8-page chunks: " + " / ".join(
@@ -5844,27 +6152,58 @@ def main() -> int:
                 k5_err = max(k5_err, err)
     check_k5_control(torch, pa)
     check_fused_write_edges(torch, pa, kw)
-    k2, k3, k4 = check_and_time_writers(torch, kw, timer)
+    # fp16 activations (K1's and K5's fp16 instances) over fp16, int8 and
+    # fp8 pages, every case of the bf16 checks (8-bit pages at 32-token
+    # pages only); a control for each of K1 and K5; the fused write at
+    # the edges.
+    t0 = time.perf_counter()
+    with activations("float16"):
+        k1_err16 = check_decode_attention(torch, pa, True, torch.float16)
+        k5_err16 = check_decode_attention(torch, pa, False, torch.float16)
+        for ragged in (True, False):
+            for page_dtype in (i8, f8):
+                err = check_decode_attention(torch, pa, ragged, page_dtype,
+                                             page_sizes=(32,))
+                if ragged:
+                    k1_err16 = max(k1_err16, err)
+                else:
+                    k5_err16 = max(k5_err16, err)
+        check_k5_control(torch, pa, ragged=True)
+        check_k5_control(torch, pa)
+        check_fused_write_edges(torch, pa, kw)
+    log(f"phase 3 fp16 kernel checks: {time.perf_counter() - t0:.1f} s")
+    k2, slot_times = check_and_time_writers(torch, kw, timer, fp16=True)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    k3, k4, k3_16, k4_16 = ({k: slot_times[arm][k] for k in keys} for arm in (
+        "K3 bf16, 2 rows", "K4 int8, 8192 rows, 2728 live",
+        "K3 fp16, 2 rows", "K4 fp16 rows, int8 pages, 8192 rows, 2728 live"))
     # K1 and K5 timed at phase 4's decode batch: 8 sequences about 16
     # tokens into their 32 new tokens, 32-token pages, fused write; and
-    # at batch 64 x 2047; K1 also at batch 8 x 1016.
+    # at batch 64 x 2047; K1 also at batch 8 x 1016. Then their fp16
+    # instances: on fp16 pages at those shapes, on 8-bit pages at B 8.
     e2e_ctx = [1016, 316, 80, 1016, 316, 80, 28, 28]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "n_split", "merges", "host_us")
     attn = {}
-    for name, ragged in (("K1", True), ("K5", False)):
-        for page_dtype in (torch.bfloat16, i8, f8):
-            page_kind = str(page_dtype).replace("torch.", "")
-            # K1 also at the long-context profile's decode shape: 8
-            # rows of 1016 tokens, 32-page tables, 512-token chunks.
-            for shape, ctxs, pps in (("B 8", e2e_ctx, 36),
-                                     ("B 64 x 2047", [2047] * 64, 64)) + (
-                    (("B 8 x 1016", [1016] * 8, 32),) if ragged else ()):
+    for act, name, ragged, page_dtype in (
+            (a, n, r, p) for a in ("bfloat16", "float16")
+            for n, r in (("K1", True), ("K5", False))
+            for p in (getattr(torch, a), i8, f8)):
+        page_kind = str(page_dtype).replace("torch.", "")
+        # K1 also at the long-context profile's decode shape: 8 rows of
+        # 1016 tokens, 32-page tables, 512-token chunks.
+        shapes = (("B 8", e2e_ctx, 36), ("B 64 x 2047", [2047] * 64, 64)) + (
+            (("B 8 x 1016", [1016] * 8, 32),) if ragged else ())
+        if act == "float16" and page_dtype != torch.float16:
+            shapes = shapes[:1]
+        with activations(act):
+            for shape, ctxs, pps in shapes:
                 t = dict(zip(keys, time_decode_attention(
                     torch, pa, timer, ctxs, 32, pps, fused=True,
                     ragged=ragged, page_dtype=page_dtype)))
-                attn[(name, page_kind, shape)] = t
-                log(f"{name} {page_kind} pages at {shape} (page 32, fused): "
+                attn[(name, act, page_kind, shape)] = t
+                log(f"{name} {page_kind} pages{act_label()} at {shape} "
+                    f"(page 32, fused): "
                     f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
                     f"ms, sdpa over the dequantized KV "
                     f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} "
@@ -5872,10 +6211,11 @@ def main() -> int:
                     f"{t['merges']} merge launch(es) per call; wrapper "
                     f"{t['host_us']:.1f} us of host time per call")
                 if name == "K1" and t["ms"] >= t["library_ms"]:
-                    log(f"K1 {page_kind} pages at {shape}: slower than "
-                        "the SDPA yardstick")
-    k1, k5 = ({k: attn[(name, "bfloat16", "B 8")][k] for k in keys[:5]}
-              for name in ("K1", "K5"))
+                    log(f"K1 {page_kind} pages{act_label()} at {shape}: "
+                        "slower than the SDPA yardstick")
+    k1, k5, k1_16, k5_16 = (
+        {k: attn[(name, act, act, "B 8")][k] for k in keys[:5]}
+        for act in ("bfloat16", "float16") for name in ("K1", "K5"))
     check_model_against_plain(torch)
     # 3b. K4 then read-only K1 at the speculative verify shape.
     check_verify_shape(torch, pa, kw, timer)
@@ -5883,8 +6223,9 @@ def main() -> int:
     check_moe_kernels(torch, pa, kw, timer)
     # 3d. K1-K4 at the other architectures' geometries (phase 20).
     t0 = time.perf_counter()
-    arch_err, _ = check_arch_kernels(torch, pa, kw, timer)
+    arch_err, arch_err16, _ = check_arch_kernels(torch, pa, kw, timer)
     k1_err = max(k1_err, arch_err)
+    k1_err16 = max(k1_err16, arch_err16)
     log(f"phase 3d: {time.perf_counter() - t0:.1f} s")
 
     # 4. End to end at Mistral-7B width and depth.
@@ -6283,26 +6624,57 @@ def main() -> int:
     by_path.update(fallback_paths)
     log(f"fallback phase (21) seconds {json.dumps(fallback_seconds)}; the "
         f"run so far {time.perf_counter() - t_start:.1f} s")
-    launches = {}
-    for path in by_path.values():
+
+    # 22. float16 end to end: Mistral-7B whole at dtype="float16", the
+    # padded grid, verify rows, int8 KV, the window and GPTQ's fallback.
+    log_clocks("before the float16 phase (22)")
+    fp16_paths, fp16_seconds = run_fp16_phase(torch, counters, smi,
+                                              lora_off_profile)
+    by_path.update(fp16_paths)
+    log(f"float16 phase (22) seconds {json.dumps(fp16_seconds)}; the run "
+        f"so far {time.perf_counter() - t_start:.1f} s")
+    # The fp16 instances' launches are the float16 paths'; every other
+    # path runs bf16 or f32 activations.
+    launches, launches16 = {}, {}
+    for label, path in by_path.items():
+        into = launches16 if label.startswith("float16") else launches
         for name, n in path.items():
-            launches[name] = launches.get(name, 0) + n
+            into[name] = into.get(name, 0) + n
     log("launches by path (counters reset before each run, summed over a "
         "path's runs): " + json.dumps(by_path))
 
     quant_src = "aphrodite_tpu_torch/csrc/quant_matmul.cu"
     pallas_qmm = "aphrodite_tpu/ops/pallas/quant_matmul.py"
+    attn_src = "aphrodite_tpu_torch/csrc/paged_attention.cuh"
+    pallas_pa = "aphrodite_tpu/ops/pallas/paged_attention.py"
+    pallas_kvw = "aphrodite_tpu/ops/pallas/kv_write.py"
     entries = [
-        dict(name="paged_decode_attention", route="cuda",
-             source="aphrodite_tpu_torch/csrc/paged_attention.cu",
-             replaces="aphrodite_tpu/ops/pallas/paged_attention.py:565",
+        dict(name="paged_decode_attention", route="cuda", source=attn_src,
+             replaces=f"{pallas_pa}:565",
              launches=launches["paged_decode_attention"],
              max_abs_err=k1_err, **k1),
         dict(name="paged_decode_attention_tm", route="cuda",
-             source="aphrodite_tpu_torch/csrc/paged_attention.cu",
-             replaces="aphrodite_tpu/ops/pallas/paged_attention.py:252",
+             source=attn_src, replaces=f"{pallas_pa}:252",
              launches=launches["paged_decode_attention_tm"],
              max_abs_err=k5_err, **k5),
+        dict(name="paged_decode_attention@fp16", route="cuda",
+             source=attn_src, replaces=f"{pallas_pa}:565",
+             launches=launches16["paged_decode_attention"],
+             max_abs_err=k1_err16, **k1_16),
+        dict(name="paged_decode_attention_tm@fp16", route="cuda",
+             source=attn_src, replaces=f"{pallas_pa}:252",
+             launches=launches16["paged_decode_attention_tm"],
+             max_abs_err=k5_err16, **k5_16),
+        dict(name="write_kv_pages@fp16", route="cuda",
+             source="aphrodite_tpu_torch/csrc/kv_write.cu",
+             replaces=f"{pallas_kvw}:38",
+             launches=launches16["write_kv_pages"], max_abs_err=0.0,
+             **k4_16),
+        dict(name="write_kv_pages_decode@fp16", route="cuda",
+             source="aphrodite_tpu_torch/csrc/kv_write.cu",
+             replaces=f"{pallas_kvw}:90",
+             launches=launches16["write_kv_pages_decode"], max_abs_err=0.0,
+             **k3_16),
         dict(name="write_kv_pages_prefill", route="cuda",
              source="aphrodite_tpu_torch/csrc/kv_write.cu",
              replaces="aphrodite_tpu/ops/pallas/kv_write.py:179",

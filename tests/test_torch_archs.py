@@ -29,9 +29,9 @@ each block), at tiny widths: 2 layers (DeciLM 3, its KV heads [4, 2,
   port's top-2 logprob gap exceeds 1e-4); GPTQ W4A16 over a tiny Qwen2
   (a local AutoGPTQ checkpoint, biases after the kernel) too.
 - Refusals: each family's `LLM` without `device="cpu"` raises where no
-  card is; explicit float16 names ROADMAP Queue 1 item 5; an OPT whose
-  word_embed_proj_dim differs from hidden_size is refused, as the JAX
-  OPT cannot run it.
+  card is; an OPT whose word_embed_proj_dim differs from hidden_size is
+  refused, as the JAX OPT cannot run it. Explicit float16 builds on
+  every device (ROADMAP Queue 1 item 5).
 """
 import json
 import os
@@ -45,6 +45,7 @@ import torch
 from aphrodite_tpu.common.sampling_params import (
     SamplingParams as JaxSamplingParams)
 from aphrodite_tpu.endpoints.llm import LLM as JaxLLM
+from aphrodite_tpu.engine.args_tools import EngineArgs as JaxEngineArgs
 from aphrodite_tpu.modeling.input_metadata import (
     InputMetadata as JaxInputMetadata)
 from aphrodite_tpu_torch.common.sampling_params import SamplingParams
@@ -654,18 +655,22 @@ def test_llm_refuses_the_cpu_unless_asked(name, tmp_path):
 
 
 def test_explicit_float16_names_item_2(tmp_path):
-    """Explicit float16 stays refused; its message names its own later
-    slice, ROADMAP.md Queue 1 item 5 (the test keeps the id it had when
-    that was item 2)."""
+    """Explicit float16 (ROADMAP.md Queue 1 item 5, item 2 when this test
+    was named, and refused until it landed) builds engine configs on
+    every device, as "float16" and as "half"; `auto` still maps a
+    float16 checkpoint to bfloat16, in both packages."""
     path = _write_config(tmp_path, CONFIGS["phi"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        EngineArgs(model=path, load_format="dummy", device="cpu",
-                   dtype="float16").create_engine_configs()
-    # auto maps a float16 checkpoint to bfloat16.
+    for device in ("cpu", "cuda", "auto"):
+        for dtype in ("float16", "half"):
+            cfg = EngineArgs(model=path, load_format="dummy", device=device,
+                             dtype=dtype).create_engine_configs()[0]
+            assert cfg.dtype == "float16"
     path = _write_config(tmp_path / "f16",
                          dict(CONFIGS["phi"], torch_dtype="float16"))
     assert EngineArgs(model=path, load_format="dummy", device="cpu"
                       ).create_engine_configs()[0].dtype == "bfloat16"
+    assert JaxEngineArgs(model=path, load_format="dummy"
+                         ).create_engine_configs()[0].dtype == "bfloat16"
 
 
 def test_opt_with_a_projection_is_refused_as_jax_cannot_run_it(tmp_path):

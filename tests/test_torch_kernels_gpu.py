@@ -68,11 +68,16 @@ SLOTS_BESIDE = 1 << 62
 
 
 def _decode_problem(dev, ctxs, page_size=32, pps=64, seed=0,
-                    page_dtype=torch.bfloat16, d=128, hq=32, hkv=8):
+                    page_dtype=torch.bfloat16, d=128, hq=32, hkv=8,
+                    act=None):
+    """q, pages, tables, contexts and the fused rows of a decode call;
+    activations `act` (default: f32 on f32 pages, else bf16)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     b = len(ctxs)
     pages = b * pps + 1
-    act = torch.float32 if page_dtype == torch.float32 else torch.bfloat16
+    if act is None:
+        act = torch.float32 if page_dtype == torch.float32 else \
+            torch.bfloat16
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(act)
@@ -350,7 +355,11 @@ def _edge_rows(dev, src_dtype, hd=1024):
     4e9); every midpoint of two neighbouring finite fp8 e5m2 values and
     of the largest and +inf (61440), values past it, +-inf and NaN of
     both signs; all of them negated too, the rows filled out by
-    repeating the list, then shifted one place a row."""
+    repeating the list, then shifted one place a row. fp16 rows (the
+    twin): the same list without the values past fp16's range (2^30,
+    2^16, 2^20), plus fp16's own edges around e5m2's overflow (57376,
+    60000, 61408, 61472, 65504: e5m2 57344 below 61440, inf from
+    there), each exact in fp16."""
     e5m2 = torch.arange(0, 0x7C, dtype=torch.uint8).view(
         torch.float8_e5m2).float()
     mids = (e5m2[:-1] + e5m2[1:]) / 2
@@ -359,22 +368,30 @@ def _edge_rows(dev, src_dtype, hd=1024):
         torch.tensor([31.875, 32.0, 40.0, 2.0 ** 30]), e5m2, mids,
         torch.tensor([61440.0, 65536.0, 2.0 ** 20, float("inf"),
                       float("nan")])])
+    if src_dtype == torch.float16:
+        vals = torch.cat([vals[vals.abs() < 65536.0],
+                          torch.tensor([57376.0, 60000.0, 61408.0, 61472.0,
+                                        65504.0, float("inf"),
+                                        float("nan")])])
     vals = torch.cat([vals, -vals])
-    assert bool((vals.to(torch.bfloat16).float().nan_to_num(7) ==
+    exact = torch.float16 if src_dtype == torch.float16 else torch.bfloat16
+    assert bool((vals.to(exact).float().nan_to_num(7) ==
                  vals.nan_to_num(7)).all())
     rows = vals.repeat(-(-hd // len(vals)) + 1)
     rows = torch.stack([rows[r:r + hd] for r in range(48)])
     return rows.to(dev, src_dtype).contiguous()
 
 
-@pytest.mark.parametrize("src_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("src_dtype", [torch.bfloat16, torch.float32,
+                                       torch.float16])
 @pytest.mark.parametrize("page_dtype", [torch.int8, torch.float8_e5m2])
 def test_slot_writer_rounds_as_the_plain_cast(dev, page_dtype, src_dtype):
     """The kernel's 8-bit codes at their edges, bit-equal to the plain
     version (`quantize_kv`, torch's division, rounding and cast): int8
     round-half-even ties and clamps at S = 0.25, fp8 e5m2 rounding
     midpoints (subnormal ones too), overflow to +-inf and NaN (torch's
-    NaN byte, 0x7F with the sign), from bf16 and f32 rows."""
+    NaN byte, 0x7F with the sign), from bf16, f32 and fp16 rows (fp16's
+    own edges around e5m2's overflow included)."""
     g = torch.Generator(device=dev).manual_seed(4)
     knew = _edge_rows(dev, src_dtype)
     vnew = knew.flip(0).contiguous()
@@ -603,11 +620,12 @@ def test_verify_rows_k4_then_read_only_k1(dev, page_dtype, seqs, padded):
 
 # K2's geometries: (page size, kv heads of 128, page dtype); rows of 256
 # bytes to 4 KB, and 768 (3 heads: 21-row blocks, which do not divide a
-# 32-row page).
+# 32-row page); fp16 pages are bf16's path byte for byte.
 _K2_PAGES = [(16, 8, torch.bfloat16), (32, 8, torch.bfloat16),
              (16, 1, torch.bfloat16), (32, 1, torch.bfloat16),
              (32, 8, torch.float32), (16, 1, torch.float32),
-             (32, 3, torch.bfloat16)]
+             (32, 3, torch.bfloat16), (32, 8, torch.float16),
+             (16, 1, torch.float16)]
 
 
 @pytest.mark.parametrize("page_size,hkv,page_dtype", _K2_PAGES)
@@ -2178,16 +2196,18 @@ ARCH_GEOMETRIES = [(28, 4, 128), (32, 2, 128), (32, 1, 128), (32, 32, 80),
                    (64, 64, 96), (16, 16, 256)]
 
 
-def _attention_f64(q, kp, vp, tables, ctx, scale, kv_scale):
+def _attention_f64(q, kp, vp, tables, ctx, scale, kv_scale, alibi=None):
     """Decode attention in f64: q x scale x kv_scale x log2(e) rounded to
-    bf16 (the kernels' dot operand, the Pallas bodies' rounding), each
+    the kernels' dot operand (bf16, the Pallas bodies' rounding; fp16
+    under fp16 activations: `tpa.dot_operand_dtype`), ALiBi's slope x
+    position where given, each
     sequence's first ctx tokens of K and V as stored, the base-2 softmax
     and the sums in f64, times kv_scale."""
     b, hq, d = q.shape
     _, ps, hd = kp.shape
     hkv = hd // d
     qs = (q.float() * (scale * kv_scale * 1.4426950408889634)).to(
-        torch.bfloat16).double()
+        tpa.dot_operand_dtype(q.dtype, kp.dtype)).double()
     out = torch.zeros(b, hq, d, dtype=torch.float64, device=q.device)
     for i in range(b):
         n = int(ctx[i])
@@ -2199,6 +2219,9 @@ def _attention_f64(q, kp, vp, tables, ctx, scale, kv_scale):
         k = k.repeat_interleave(hq // hkv, 1)      # [n, hq, d]
         v = v.repeat_interleave(hq // hkv, 1)
         s2 = torch.einsum("hd,nhd->hn", qs[i], k)
+        if alibi is not None:
+            s2 = s2 + alibi.double()[:, None] * 1.4426950408889634 * \
+                torch.arange(n, device=q.device, dtype=torch.float64)
         p = torch.softmax(s2 * 0.6931471805599453, dim=-1)
         out[i] = torch.einsum("hn,nhd->hd", p, v) * kv_scale
     return out
@@ -2433,3 +2456,194 @@ def test_act_order_gptq_engine_generates_on_the_card(dev, tmp_path,
     for name in ("gptq_matmul", "gptq_matmul_stream", "gptq_matmul_a8",
                  "gptq_matmul_stream_a8", "quantize_activations_int8"):
         assert counts.get(name, 0) == 0, (name, counts)
+
+
+# ---- float16: K1 / K5's fp16 instances and the writers on fp16 rows ----
+
+def _fp16_call(dev, ctxs, page_dtype, *, ragged=True, splits=None,
+               fused=True, alibi=False, amla=True, seed=3, hq=32, hkv=8,
+               d=128):
+    """K1 (with a work list) or K5 on fp16 activations over `page_dtype`
+    pages at the given geometry (page size 32), and the plain version at
+    the kernel's split count on copies of the same pages. Returns (got,
+    want, pages after the kernel, pages after the plain version, the
+    problem, slopes, kv_scale)."""
+    q, kp, vp, tb, ctx, kn, vn = _decode_problem(
+        dev, ctxs, page_dtype=page_dtype, seed=seed, d=d, hq=hq, hkv=hkv,
+        act=torch.float16)
+    slopes = torch.tensor([2.0 ** -(i / 4 + 1) for i in range(hq)],
+                          device=dev) if alibi else None
+    kn, vn = (kn, vn) if fused else (None, None)
+    b = len(ctxs)
+    ppc = tpa.choose_pages_per_chunk(tb.shape[1], 32, b)
+    work = tpa.build_decode_work_list(
+        [-(-c // 32) for c in ctxs], ppc) if ragged else None
+    if splits == "chunks":
+        splits = tb.shape[1] // ppc
+    n_split = tpa.choose_decode_splits(
+        b, hkv * tpa.row_blocks(hq // hkv), tb.shape[1], ppc,
+        tpa.sm_count(dev)) if splits is None else splits
+    kv_scale = tkq.dequant_scale(page_dtype, KV_SCALE)
+    kw = dict(scale=d ** -0.5, kv_scale=kv_scale, pages_per_chunk=ppc,
+              amla=amla)
+    counter = tpa.PAGED_DECODE_ATTENTION_LAUNCHES if ragged else \
+        tpa.PAGED_DECODE_ATTENTION_TM_LAUNCHES
+    before = counter.count
+    kp2, vp2 = kp.clone(), vp.clone()
+    got = tpa.paged_decode_attention(q, kp, vp, tb, ctx, slopes, kn, vn,
+                                     work_items=work, num_splits=splits,
+                                     **kw)
+    want = tpa.paged_decode_attention_plain(q, kp2, vp2, tb, ctx, slopes,
+                                            kn, vn, num_splits=n_split,
+                                            **kw)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    if fused:
+        got, want = got[0], want[0]
+    assert got.dtype == torch.float16
+    return got, want, (kp, vp), (kp2, vp2), (q, tb, ctx), slopes, kv_scale
+
+
+def _close_f64(got, pages, problem, slopes, kv_scale):
+    """`_close` against `_attention_f64` on the pages as the kernel left
+    them (its fused rows included)."""
+    q, tb, ctx = problem
+    ref = _attention_f64(q, pages[0], pages[1], tb, ctx,
+                         q.shape[2] ** -0.5, kv_scale, slopes)
+    _close(got, ref)
+    return ref
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+@pytest.mark.parametrize("page_dtype", [torch.float16, torch.int8,
+                                        torch.float8_e5m2])
+@pytest.mark.parametrize("ragged,splits", [
+    (False, None), (True, None), (True, 1), (True, 2), (True, "chunks")],
+    ids=["K5", "K1", "K1-1split", "K1-2splits", "K1-split-per-chunk"])
+@pytest.mark.parametrize("fused,alibi,amla", [
+    (False, False, True), (True, True, False), (True, False, True)])
+def test_fp16_decode_attention_matches_f64(dev, batch, page_dtype, ragged,
+                                           splits, fused, alibi, amla):
+    """K1 and K5's fp16 instances at the main geometry (Hq 32, Hkv 8, d
+    128) over fp16, int8 and fp8 pages, batch 1, 8 and 64, with and
+    without the fused write and ALiBi, AMLA on and off, at split counts
+    1, 2, one per chunk and the policy's: within 2e-2 + 2e-2 |ref| of
+    an f64 evaluation (q rounded to fp16, the kernel's operand) and of
+    the plain version; the fused write's pages bit-equal the plain
+    version's."""
+    ctxs = ([1, 0, 17, 100, 1000, 2047, 33, 512] * 8)[:batch] \
+        if batch > 1 else [1000]
+    got, want, pages, pages2, problem, slopes, kv_scale = _fp16_call(
+        dev, ctxs, page_dtype, ragged=ragged, splits=splits, fused=fused,
+        alibi=alibi, amla=amla)
+    if fused:
+        assert torch.equal(_bytes(pages[0]), _bytes(pages2[0]))
+        assert torch.equal(_bytes(pages[1]), _bytes(pages2[1]))
+    if batch > 1:
+        assert (got[1] == 0).all()                 # ctx 0 row
+    _close(got, want)
+    _close_f64(got, pages, problem, slopes, kv_scale)
+
+
+@pytest.mark.parametrize("page_dtype", [torch.float16, torch.int8,
+                                        torch.float8_e5m2])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 16, 80), (16, 16, 96),
+                                      (16, 16, 256), (32, 1, 128)],
+                         ids=["group1-d80", "group1-d96", "group1-d256",
+                              "group32"])
+def test_fp16_k1_at_the_other_geometries_matches_f64(dev, hq, hkv, d,
+                                                     page_dtype):
+    """K1's fp16 instances at group 1 with head_dim 80, 96 and 256 and at
+    group 32 (two 16-row blocks), fused write and ALiBi, the policy's
+    split count: within 2e-2 + 2e-2 |ref| of f64 and of the plain
+    version; fused codes exact."""
+    got, want, pages, pages2, problem, slopes, kv_scale = _fp16_call(
+        dev, [1, 0, 17, 100, 1000, 2047, 33, 512], page_dtype, alibi=True,
+        seed=7, hq=hq, hkv=hkv, d=d)
+    assert torch.equal(_bytes(pages[0]), _bytes(pages2[0]))
+    assert torch.equal(_bytes(pages[1]), _bytes(pages2[1]))
+    _close(got, want)
+    _close_f64(got, pages, problem, slopes, kv_scale)
+
+
+@pytest.mark.parametrize("page_dtype", [torch.float16, torch.int8,
+                                        torch.float8_e5m2])
+def test_fp16_k1_control_misses(dev, page_dtype):
+    """The f64 evaluation over the neighbouring head's K rows (pages
+    rolled by d along the lanes) misses the tolerance K1's fp16 instance
+    meets."""
+    got, _, pages, _, problem, _, kv_scale = _fp16_call(
+        dev, [2047] * 62 + [1000, 17], page_dtype, fused=False, seed=9)
+    _close_f64(got, pages, problem, None, kv_scale)
+    q, tb, ctx = problem
+    # Rolled as bytes: torch has no roll for float8_e5m2 on the card.
+    rolled = pages[0].view(torch.uint8).roll(
+        128 * pages[0].element_size(), 2).view(pages[0].dtype)
+    bad = _attention_f64(q, rolled, pages[1], tb, ctx, 128 ** -0.5,
+                         kv_scale)
+    assert _misses(got, bad)
+
+
+@pytest.mark.parametrize("ragged", [True, False], ids=["K1", "K5"])
+@pytest.mark.parametrize("page_dtype", [torch.float16, torch.int8,
+                                        torch.float8_e5m2])
+def test_fp16_fused_write_rounds_as_the_slot_writer(dev, page_dtype,
+                                                    ragged):
+    """K1's and K5's fused write of fp16 rows at the write rules' edges
+    (`_edge_rows` of fp16, S = 0.25 on int8 pages): page bytes equal to
+    the slot writer's plain version writing the same rows at each
+    sequence's position ctx - 1."""
+    ctxs = [1, 0, 17, 100, 1000, 2047, 33, 512]
+    b = len(ctxs)
+    q, kp, vp, tb, ctx, _, _ = _decode_problem(dev, ctxs, seed=5,
+                                               page_dtype=page_dtype,
+                                               act=torch.float16)
+    knew = _edge_rows(dev, torch.float16)[:b].contiguous()
+    vnew = knew.flip(0).contiguous()
+    kv_scale = tkq.dequant_scale(page_dtype, 0.25)
+    ppc = tpa.choose_pages_per_chunk(tb.shape[1], 32, b)
+    work = tpa.build_decode_work_list(
+        [-(-c // 32) for c in ctxs], ppc) if ragged else None
+    pos = (ctx.long() - 1).clamp(min=0)
+    slots = tb.long().gather(1, (pos // 32)[:, None])[:, 0] * 32 + pos % 32
+    slots = torch.where(ctx > 0, slots, kp.shape[0] * 32).to(torch.int32)
+    want = tkw.write_kv_pages_plain(knew, vnew, kp.clone(), vp.clone(),
+                                    slots, kv_scale)
+    tpa.paged_decode_attention(q, kp, vp, tb, ctx, None,
+                               knew.view(b, 8, 128), vnew.view(b, 8, 128),
+                               work_items=work, scale=128 ** -0.5,
+                               kv_scale=kv_scale, pages_per_chunk=ppc)
+    torch.cuda.synchronize()
+    # Bytes, on fp16 pages too: the rows hold NaN, which no value
+    # comparison equals.
+    assert torch.equal(kp.view(torch.uint8), want[0].view(torch.uint8))
+    assert torch.equal(vp.view(torch.uint8), want[1].view(torch.uint8))
+
+
+def test_fp16_slot_writer_controls_miss(dev):
+    """fp16 rows: the plain version at kv_scale x 1.01 on int8 pages, and
+    with every live slot moved one row on fp16 pages, miss the kernel's
+    pages; K2 on fp16 pages against the plain version writing one row
+    past each tail (`valids + 1`) differs."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    slots, num_pages = _slot_round(dev, g, 64)
+    knew = torch.randn(64, 1024, generator=g, device=dev).to(torch.float16)
+    for page_dtype in (torch.int8, torch.float16):
+        kp = tkq.quantize_kv(torch.randn(num_pages, 32, 1024, generator=g,
+                                         device=dev), page_dtype, KV_SCALE)
+        a = tkw.write_kv_pages(knew, knew, kp.clone(), kp.clone(), slots,
+                               kv_scale=KV_SCALE)
+        good = tkw.write_kv_pages_plain(knew, knew, kp.clone(), kp.clone(),
+                                        slots, KV_SCALE)
+        if page_dtype == torch.int8:
+            bad = tkw.write_kv_pages_plain(knew, knew, kp.clone(),
+                                           kp.clone(), slots,
+                                           KV_SCALE * 1.01)
+        else:
+            moved = torch.where(slots < num_pages * 32,
+                                (slots + 1) % (num_pages * 32), slots)
+            bad = tkw.write_kv_pages_plain(knew, knew, kp.clone(),
+                                           kp.clone(), moved, KV_SCALE)
+        torch.cuda.synchronize()
+        assert torch.equal(_bytes(a[0]), _bytes(good[0]))
+        assert not torch.equal(_bytes(a[0]), _bytes(bad[0]))

@@ -432,25 +432,27 @@ def test_slot_write_plan_table(num_tokens, row_bytes, want):
 
 
 def test_slot_writer_takes_its_dtype_pairs_only():
-    """The slot writer's checks take bf16 and f32 rows into pages of
-    their own dtype or into int8 / fp8 e5m2 pages, and refuse every
-    other pair (K2 takes only rows of the page dtype)."""
+    """The slot writer's checks take bf16, fp16 and f32 rows into pages
+    of their own dtype or into int8 / fp8 e5m2 pages, and refuse every
+    other pair, the mixed float pairs among them (K2 takes only rows of
+    the page dtype, fp16 pages too)."""
     def check(src, page, pairs=tkw.SLOT_KINDS):
         kp = torch.zeros(2, 4, 64, dtype=page)
         knew = torch.zeros(3, 64, dtype=src)
         return tkw._check_rows(knew, knew, kp, kp.clone(),
                                torch.zeros(3, dtype=torch.int32), "t",
                                pairs)
-    for src in (torch.bfloat16, torch.float32):
+    for src in (torch.bfloat16, torch.float16, torch.float32):
         assert check(src, src) == 64 * torch.tensor([], dtype=src
                                                     ).element_size()
         for page in (torch.int8, torch.float8_e5m2):
             assert check(src, page) == 64
-    for src, page in ((torch.bfloat16, torch.float32),
-                      (torch.float32, torch.bfloat16),
-                      (torch.int8, torch.int8),
-                      (torch.float16, torch.int8),
-                      (torch.uint8, torch.uint8)):
+    assert check(torch.float16, torch.float16,
+                 {(d, d) for d in tkw._DTYPES}) == 128
+    floats = (torch.bfloat16, torch.float16, torch.float32)
+    mixed = [(a, b) for a in floats for b in floats if a != b]
+    for src, page in mixed + [(torch.int8, torch.int8),
+                              (torch.uint8, torch.uint8)]:
         with pytest.raises(TypeError):
             check(src, page)
     with pytest.raises(TypeError):
